@@ -1,0 +1,99 @@
+"""GPT-2 parameters for the port: from a flax tree, or made from a seed.
+
+The port's parameter dict (``GPT2.state_dict()`` names) mirrors the flax
+tree of ``apex_tpu.models.gpt2.GPT2.init``:
+
+- ``wte (vocab, e)``, ``wpe (n_positions, e)``, ``ln_f.{weight,bias}``;
+- per layer ``h.{i}.``: ``ln_1`` / ``ln_2`` ``{weight,bias}``,
+  ``attn_qkv`` / ``attn_out`` ``{weight,bias}`` and
+  ``mlp_fc_w (4e, e)``, ``mlp_fc_b``, ``mlp_proj_w (e, 4e)``,
+  ``mlp_proj_b``.
+
+Layouts: a flax ``nn.Dense`` kernel is ``(in, out)``; the port stores
+dense weights PyTorch's way, ``(out, in)``, so :func:`params_from_jax`
+transposes them. The ``mlp_*_w`` parameters are ``(out, in)`` in both.
+Everything is float32, as in the flax tree.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+# flax's lecun_normal: variance_scaling(1.0, "fan_in", "truncated_normal")
+# draws from a normal truncated at +-2 sigma, rescaled by this constant so
+# the truncated distribution keeps variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def _t(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _n_layer(p: Dict[str, Any]) -> int:
+    return sum(1 for k in p if re.fullmatch(r"h_\d+", k))
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax GPT-2 tree (``{"params": {...}}`` or its inner dict), with
+    numpy leaves, as the port's CPU float32 parameter dict."""
+    p = tree["params"] if "params" in tree else tree
+    out = {"wte": _t(p["wte"]), "wpe": _t(p["wpe"]),
+           "ln_f.weight": _t(p["ln_f"]["weight"]),
+           "ln_f.bias": _t(p["ln_f"]["bias"])}
+    for i in range(_n_layer(p)):
+        blk, pre = p[f"h_{i}"], f"h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            out[pre + ln + ".weight"] = _t(blk[ln]["weight"])
+            out[pre + ln + ".bias"] = _t(blk[ln]["bias"])
+        for dense in ("attn_qkv", "attn_out"):
+            out[pre + dense + ".weight"] = _t(blk[dense]["kernel"]).t() \
+                .contiguous()
+            out[pre + dense + ".bias"] = _t(blk[dense]["bias"])
+        for name in ("mlp_fc_w", "mlp_fc_b", "mlp_proj_w", "mlp_proj_b"):
+            out[pre + name] = _t(blk[name])
+    return out
+
+
+def init_gpt2_params(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random GPT-2 parameters with flax's distributions, from a CPU
+    ``torch.Generator`` seeded with ``seed``: ``wte`` normal(0.02),
+    ``wpe`` normal(0.01), dense kernels lecun-normal (truncated at two
+    sigma, variance 1 / fan_in), ``mlp_*_w`` normal(0.02), LayerNorm
+    weights one, every bias zero. The numbers differ from a flax init
+    with the same seed (another generator); the distributions do not."""
+    g = torch.Generator().manual_seed(int(seed))
+    e = cfg.n_embd
+
+    def normal(shape, std):
+        return torch.empty(shape).normal_(0.0, std, generator=g)
+
+    def lecun(out_f, in_f):
+        std = math.sqrt(1.0 / in_f) / _TRUNC_STD
+        w = torch.empty(out_f, in_f)
+        torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                    generator=g)
+        return w
+
+    out = {"wte": normal((cfg.vocab_size, e), 0.02),
+           "wpe": normal((cfg.n_positions, e), 0.01),
+           "ln_f.weight": torch.ones(e), "ln_f.bias": torch.zeros(e)}
+    for i in range(cfg.n_layer):
+        pre = f"h.{i}."
+        out[pre + "ln_1.weight"] = torch.ones(e)
+        out[pre + "ln_1.bias"] = torch.zeros(e)
+        out[pre + "attn_qkv.weight"] = lecun(3 * e, e)
+        out[pre + "attn_qkv.bias"] = torch.zeros(3 * e)
+        out[pre + "attn_out.weight"] = lecun(e, e)
+        out[pre + "attn_out.bias"] = torch.zeros(e)
+        out[pre + "ln_2.weight"] = torch.ones(e)
+        out[pre + "ln_2.bias"] = torch.zeros(e)
+        out[pre + "mlp_fc_w"] = normal((4 * e, e), 0.02)
+        out[pre + "mlp_fc_b"] = torch.zeros(4 * e)
+        out[pre + "mlp_proj_w"] = normal((e, 4 * e), 0.02)
+        out[pre + "mlp_proj_b"] = torch.zeros(e)
+    return out

@@ -1,0 +1,147 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``apex_tpu_torch/csrc/*.cu`` is compiled with ``nvcc`` for
+``sm_90a`` at first use, one ``nvcc`` process per source started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with :mod:`ctypes`. Pointers and the stream go over as
+``c_void_p``; each C entry returns ``cudaGetLastError()`` after its launch
+and :func:`check` raises when that is not 0.
+
+The library lands in ``apex_tpu_torch/_build/`` under a name that carries
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one is loaded as it is. Without ``nvcc`` the build raises: there
+is no prebuilt library and no CPU stand-in for a CUDA tensor.
+
+``launches`` counts kernel launches by name. Each wrapper adds one where it
+launches its kernel and nowhere else, so a caller can zero the counts,
+drive a path and read which kernels that path went through.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+# C signatures of the entries the wrappers call (all return cudaError_t)
+SIGNATURES = {
+    # x, gamma, beta, y, mean, invvar, rows, hidden, eps, dtype, stream
+    "apex_ln_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _i, _vp],
+    # q, k, v, o, lse, bh, sq, sk, d, scale, causal, dtype, stream
+    "apex_fa_fwd": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _i,
+                    _vp],
+}
+
+launches: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        path = str(cand / "nvcc") if (cand / "nvcc").exists() else None
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the apex_tpu_torch "
+            "CUDA kernels are built from csrc/*.cu at first use and there "
+            "is no prebuilt library")
+    return path
+
+
+def _run_all(cmds) -> None:
+    """Run the commands together and raise with the compiler's output if
+    any of them fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"$ {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+
+
+def build() -> Path:
+    """Compile (if needed) and return the path of the shared library."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    tag = _digest()
+    so = BUILD_DIR / f"libapex_tpu_torch_{tag}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cc = nvcc()
+    # every file this process writes carries its pid, so processes that
+    # build in one checkout at once never read each other's half-written
+    # objects; the finished library lands under its final name atomically
+    pid = os.getpid()
+    objs = [BUILD_DIR / f"{s.stem}_{tag}.{pid}.o" for s in srcs]
+    tmp = so.with_name(f"{so.name}.{pid}.tmp")
+    try:
+        _run_all([[cc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                  for s, o in zip(srcs, objs)])
+        _run_all([[cc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
+                   str(tmp)]])
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError "
+                           f"{err}")

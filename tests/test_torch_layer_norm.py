@@ -1,0 +1,131 @@
+"""Port parity: LayerNorm forward (apex_tpu_torch vs apex_tpu).
+
+The same numpy inputs, made from a seed, go through the JAX Pallas kernel
+``ln_fwd_pallas`` (interpret mode on the CPU, as the JAX package's own
+tests run it) or the JAX ``fused_layer_norm_affine``, and through the
+port's ``ln_fwd`` on CPU tensors, which runs the CUDA kernel's plain
+version. Tolerances: fp32 1e-5 absolute; bf16 outputs compared in fp32 to
+one bf16 ulp of the JAX value (the two frameworks may round the last bit
+differently); fp32 statistics 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.normalization.fused_layer_norm import (
+    FusedLayerNorm as JaxFusedLayerNorm, fused_layer_norm_affine as
+    jax_fused_layer_norm_affine)
+from apex_tpu.ops.pallas.layer_norm_kernel import ln_fwd_pallas
+from apex_tpu_torch.normalization.fused_layer_norm import (
+    FusedLayerNorm, fused_layer_norm_affine, manual_layer_norm)
+from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops.layer_norm_kernel import ln_fwd, ln_fwd_plain
+
+EPS = 1e-5
+DTYPES = {"fp32": (np.float32, jnp.float32, torch.float32),
+          "bf16": (None, jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(rows, hidden, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, hidden)) * 2.0 + 0.5).astype(np.float32)
+    g = rng.standard_normal(hidden).astype(np.float32)
+    b = rng.standard_normal(hidden).astype(np.float32)
+    return x, g, b
+
+
+def _bf16_ulp(ref: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each reference value (8 significant bits)."""
+    _, e = np.frexp(np.abs(ref).astype(np.float64))
+    return np.ldexp(1.0, e - 8)
+
+
+def _assert_y(port, ref, dtype):
+    port = np.asarray(port, np.float32)
+    ref = np.asarray(ref, np.float32)
+    if dtype == "fp32":
+        np.testing.assert_allclose(port, ref, atol=1e-5, rtol=0)
+    else:
+        assert np.all(np.abs(port - ref) <= _bf16_ulp(ref)), \
+            np.max(np.abs(port - ref))
+
+
+def _to_jax(a, dtype):
+    return jnp.asarray(a).astype(DTYPES[dtype][1])
+
+
+def _to_torch(a, dtype):
+    return torch.from_numpy(a).to(DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [16, 13, 1])
+def test_ln_fwd_matches_pallas_kernel(rows, dtype):
+    """y, mean and invvar of the port's kernel path against the Pallas
+    kernel, ragged row counts included (the TPU kernel pads to 8, the
+    port's kernel does not need to)."""
+    x, g, b = _inputs(rows, 256, seed=rows)
+    yj, mj, ivj = ln_fwd_pallas(_to_jax(x, dtype), jnp.asarray(g),
+                                jnp.asarray(b), eps=EPS, rms=False)
+    yt, mt, ivt = ln_fwd(_to_torch(x, dtype), torch.from_numpy(g),
+                         torch.from_numpy(b), eps=EPS)
+    assert yt.dtype == DTYPES[dtype][2] and yt.shape == (rows, 256)
+    assert mt.shape == ivt.shape == (rows, 1)
+    _assert_y(yt.float().numpy(), np.asarray(yj.astype(jnp.float32)),
+              dtype)
+    np.testing.assert_allclose(mt.numpy(), np.asarray(mj), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(ivt.numpy(), np.asarray(ivj), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("hidden", [256, 96])
+def test_fused_layer_norm_affine_matches_jax(hidden, dtype):
+    """The functional form over a 3-D input. At hidden 96 the JAX package
+    takes its jnp fallback (not a multiple of 128); the port's kernel
+    takes any hidden size up to its stated limit."""
+    x, g, b = _inputs(2 * 5, hidden, seed=hidden)
+    x3 = x.reshape(2, 5, hidden)
+    yj = jax_fused_layer_norm_affine(_to_jax(x3, dtype), jnp.asarray(g),
+                                     jnp.asarray(b), hidden, EPS)
+    yt = fused_layer_norm_affine(_to_torch(x3, dtype), torch.from_numpy(g),
+                                 torch.from_numpy(b), hidden, EPS)
+    assert yt.shape == (2, 5, hidden)
+    _assert_y(yt.float().numpy(), np.asarray(yj.astype(jnp.float32)),
+              dtype)
+
+
+def test_fused_layer_norm_module_matches_flax():
+    x, _, _ = _inputs(6, 256, seed=7)
+    x3 = x.reshape(2, 3, 256)
+    mod = JaxFusedLayerNorm(256)
+    variables = mod.init(__import__("jax").random.PRNGKey(0),
+                         jnp.asarray(x3))
+    yj = mod.apply(variables, jnp.asarray(x3))
+    port = FusedLayerNorm(256, device="cpu")
+    assert port.weight.dtype == torch.float32
+    np.testing.assert_array_equal(
+        port.weight.detach().numpy(),
+        np.asarray(variables["params"]["weight"]))
+    with torch.no_grad():
+        yt = port(torch.from_numpy(x3))
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-5,
+                               rtol=0)
+
+
+def test_kernel_path_agrees_with_manual_reference_and_counts_nothing():
+    """On CPU tensors the wrapper runs the plain version — the same
+    numbers as the plain reference — and launches no kernel."""
+    x, g, b = _inputs(9, 96, seed=11)
+    _build.reset_launches()
+    xt, gt, bt = map(torch.from_numpy, (x, g, b))
+    y = fused_layer_norm_affine(xt, gt, bt, 96, EPS)
+    torch.testing.assert_close(y, manual_layer_norm(xt, gt, bt, 96, EPS),
+                               atol=1e-6, rtol=0)
+    torch.testing.assert_close(ln_fwd(xt, gt, bt, eps=EPS)[0],
+                               ln_fwd_plain(xt, gt, bt, eps=EPS)[0],
+                               atol=0, rtol=0)
+    assert sum(_build.launches.values()) == 0

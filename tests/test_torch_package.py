@@ -1,0 +1,163 @@
+"""The PyTorch port as a package: what it imports, where it runs, what it
+refuses.
+
+- ``apex_tpu_torch`` and ``chip_smoke.py`` import no ``jax``, ``flax`` or
+  ``apex_tpu`` (an AST scan, so a lazy import inside a function counts);
+- entry points run on ``cuda`` unless given ``device="cpu"``, and raise
+  without CUDA instead of moving to the host;
+- options that belong to later slices, and inputs the kernels do not
+  take, raise; nothing falls back.
+"""
+
+import ast
+import json
+import pathlib
+
+import pytest
+import torch
+
+from apex_tpu_torch.models.convert import init_gpt2_params
+from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops.flash_attention import flash_attention_fwd
+from apex_tpu_torch.ops.layer_norm_kernel import ln_fwd
+from apex_tpu_torch.serve import cli
+from apex_tpu_torch.serve.engine import Engine, EngineConfig
+from apex_tpu_torch.serve.kv_cache import init_cache
+from apex_tpu_torch.utils.device import resolve_device
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "apex_tpu")
+TINY = GPT2Config(vocab_size=64, n_positions=32, n_embd=64, n_layer=1,
+                  n_head=1, compute_dtype=torch.float32)
+
+
+def _port_files():
+    files = sorted((ROOT / "apex_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_flax_or_apex_tpu():
+    files = _port_files()
+    assert len(files) > 15 and all(f.exists() for f in files)
+    bad = [(f.relative_to(ROOT).as_posix(), mod) for f in files
+           for mod in _imports(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def _require_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+
+
+def test_device_defaults_to_cuda_and_raises_without_it():
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+@pytest.mark.parametrize("build", [
+    lambda: GPT2(TINY),
+    lambda: Engine(TINY, init_gpt2_params(TINY)),
+    lambda: init_cache(1, 2, 8, 1, 64),
+])
+def test_entry_points_raise_without_cuda(build):
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build()
+
+
+def test_entry_points_run_on_cpu_when_asked():
+    model = GPT2.from_params(TINY, init_gpt2_params(TINY), device="cpu")
+    assert model.device.type == "cpu"
+    eng = Engine(TINY, model, EngineConfig(num_slots=2, max_len=16,
+                                           temperature=0.0), device="cpu")
+    first, _, _ = eng.prefill({0: [1, 2, 3]})
+    assert 0 <= int(first[0]) < TINY.vocab_size
+    with pytest.raises(ValueError, match="device"):
+        Engine(TINY, model, EngineConfig(), device="meta")
+
+
+def test_cli_raises_without_cuda_and_runs_on_cpu(capsys):
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--requests", "1"])
+    assert cli.main(["--device", "cpu", "--requests", "3", "--num-slots",
+                     "2", "--max-new-tokens", "4", "--max-len", "32"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"] == "cpu"
+    assert out["summary"]["completed"] == 3
+    assert out["kernel_launches"] == {}
+
+
+@pytest.mark.parametrize("field,value", [
+    ("page_size", 8), ("num_pages", 9), ("prefix_cache", True), ("tp", 2),
+    ("spec_draft_len", 2), ("decode_policy", "greedy"),
+    ("kv_quant", "int8")])
+def test_later_slice_options_raise(field, value):
+    cfg = EngineConfig(**{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        Engine(TINY, init_gpt2_params(TINY), cfg, device="cpu")
+
+
+def test_kernels_refuse_gradients():
+    x = torch.randn(4, 64, requires_grad=True)
+    g, b = torch.ones(64), torch.zeros(64)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ln_fwd(x, g, b, eps=1e-5)
+    q = torch.randn(1, 1, 8, 64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_attention_fwd(q, q, q, scale=0.125, causal=True)
+    with torch.no_grad():
+        ln_fwd(x, g, b, eps=1e-5)
+
+
+def test_model_forward_needs_no_grad_context():
+    """Parameters are frozen at build, so a plain forward runs."""
+    model = GPT2.from_params(TINY, init_gpt2_params(TINY), device="cpu")
+    assert not any(p.requires_grad for p in model.parameters())
+    logits = model(torch.tensor([[1, 2, 3]]))
+    assert logits.shape == (1, 3, TINY.vocab_size)
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on CUDA is refused, not
+    moved."""
+    x, g = torch.empty(4, 64, device="meta"), torch.empty(64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ln_fwd(x, g, g, eps=1e-5)
+    q = torch.empty(1, 1, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        flash_attention_fwd(q, q, q, scale=0.125, causal=True)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc()
+
+
+def test_build_sources_and_digest():
+    names = [p.name for p in _build.sources()]
+    assert names == ["flash_attention.cu", "layer_norm.cu"]
+    assert _build._digest() == _build._digest()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    with pytest.raises(RuntimeError, match="cudaError 7"):
+        _build.check(7, "x")
+    _build.check(0, "x")
