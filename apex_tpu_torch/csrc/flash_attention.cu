@@ -31,10 +31,11 @@
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace apex_port;
 
 constexpr int kD = 64;        // head dim this kernel is written for
 constexpr int kBQ = 64;       // query rows per block
@@ -47,36 +48,6 @@ constexpr float kMaskEdge = 0.5f * kNegInf;
 
 constexpr size_t kSmemFloats =
     kBQ * kD + kBK * kKStride + kBK * kD + kWarps * kRW * kBK;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// p rounded through v's dtype (the TPU kernel's p.astype(v.dtype))
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)

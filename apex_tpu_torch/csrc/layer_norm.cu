@@ -1,53 +1,51 @@
-// Row LayerNorm forward for Hopper (sm_90a).
+// Row LayerNorm forward and backward for Hopper (sm_90a).
 //
-// Replaces: apex_tpu/ops/pallas/layer_norm_kernel.py `ln_fwd_pallas`
-// (the Pallas kernel `_ln_fwd_kernel`, its LayerNorm form with gamma and
-// beta): y = (x - mean) * rsqrt(var + eps) * gamma + beta per row, with the statistics kept in fp32 whatever the IO
-// dtype, and mean / invvar returned as fp32 (rows, 1) columns.
+// Replaces: apex_tpu/ops/pallas/layer_norm_kernel.py `ln_fwd_pallas` (the
+// Pallas kernel `_ln_fwd_kernel`) and `ln_bwd_pallas` (`_ln_bwd_kernel`),
+// their LayerNorm form with gamma and an optional beta:
+//   forward  y = (x - mean) * rsqrt(var + eps) * gamma (+ beta), statistics
+//            in fp32 whatever the IO dtype, mean / invvar returned as fp32
+//            (rows, 1) columns;
+//   backward xhat = (x - mean) * rstd, wdy = dy * gamma,
+//            dx = (wdy - xhat * mean(xhat * wdy) - mean(wdy)) * rstd,
+//            dgamma = sum over rows of dy * xhat, dbeta = sum of dy.
+// A null beta means zero (the forward adds nothing, the backward writes no
+// dbeta).
 //
-// What bounds it on this card: memory bytes. Each element is read once and
-// written once and costs about ten flops, far below the ~295 flops per byte
-// at which an H100 stops being limited by its 3.35 TB/s of device memory.
+// What bounds both on this card: memory bytes. Each element is read once
+// (twice, x and dy, in the backward) and written once and costs about ten
+// flops, far below the ~295 flops per byte at which an H100 stops being
+// limited by its 3.35 TB/s of device memory.
 //
-// What the design does about that: one warp per row, four rows per block.
-// The warp reads its row from device memory exactly once, keeps it in
-// shared memory as fp32, and takes the mean, the centred variance
-// (the same two-pass mean((x - mu)^2) the TPU kernel computes) and the
-// output from there, so device memory sees one read of x, one write of y
-// and 8 bytes of statistics per row. Loads and stores are coalesced: lane
-// i touches elements i, i + 32, ... of the row. No padding of the row
-// count is needed (the TPU kernel padded rows to a multiple of 8); a
-// ragged last block simply has idle warps.
+// What the design does about that:
+// - forward: one warp per row, four rows per block. The warp reads its row
+//   from device memory exactly once, keeps it in shared memory as fp32, and
+//   takes the mean, the centred variance (the same two-pass mean((x - mu)^2)
+//   the TPU kernel computes) and the output from there. Loads and stores are
+//   coalesced: lane i touches elements i, i + 32, ... of the row.
+// - backward: one warp per row as well; the warp stages xhat and dy of its
+//   row in shared memory, so x and dy are read from device memory once and
+//   dx written once. dgamma / dbeta are the TPU grid's sequential
+//   accumulator; blocks on Hopper run in parallel, so each warp keeps
+//   running fp32 sums for its columns in shared memory, the block adds its
+//   warps' sums in warp order into one row of a (blocks, hidden) partial
+//   buffer, and a second small launch adds the partial rows in a fixed
+//   order. No float atomics: the result has the same bits on every run.
+// No padding of the row count is needed (the TPU kernel padded rows to a
+// multiple of 8); a ragged last block simply has idle warps.
 //
 // C interface (bound with ctypes): every pointer and the stream are
-// `void*`; the function returns cudaGetLastError() after the launch.
+// `void*`; each function returns cudaGetLastError() after its launches.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+using namespace apex_port;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+constexpr int kFwdWarps = 4;
+constexpr int kReduceCols = 32;  // columns per block of the partial sum
+constexpr int kReduceRows = 8;   // partial rows summed side by side
 
 template <typename T>
 __global__ void ln_fwd_kernel(const T* __restrict__ x,
@@ -59,7 +57,7 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
   extern __shared__ float row_buf[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  const long long row = (long long)blockIdx.x * kFwdWarps + warp;
   if (row >= rows) return;  // no block-wide barrier below
   float* xs = row_buf + (size_t)warp * hidden;
   const T* xr = x + row * hidden;
@@ -80,7 +78,8 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
   }
   const float rstd = rsqrtf(warp_sum(ss) * inv_h + eps);
   for (int i = lane; i < hidden; i += 32) {
-    yr[i] = from_f32<T>((xs[i] - mu) * rstd * gamma[i] + beta[i]);
+    const float b = beta != nullptr ? beta[i] : 0.f;
+    yr[i] = from_f32<T>((xs[i] - mu) * rstd * gamma[i] + b);
   }
   if (lane == 0) {
     mean[row] = mu;
@@ -88,18 +87,117 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
   }
 }
 
+// Shared memory per warp: xhat, dy, and the running dgamma / dbeta sums of
+// the rows the warp has done, each `hidden` floats.
 template <typename T>
-int launch(const void* x, const void* gamma, const void* beta, void* y,
-           void* mean, void* invvar, int rows, int hidden, float eps,
-           cudaStream_t stream) {
-  const size_t smem = (size_t)kWarpsPerBlock * hidden * sizeof(float);
+__global__ void ln_bwd_kernel(const T* __restrict__ dy,
+                              const T* __restrict__ x,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ mean,
+                              const float* __restrict__ invvar,
+                              T* __restrict__ dx, float* __restrict__ part_g,
+                              float* __restrict__ part_b, int rows,
+                              int hidden) {
+  extern __shared__ float smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* xh = smem + (size_t)warp * 4 * hidden;
+  float* dys = xh + hidden;
+  float* acc_g = dys + hidden;
+  float* acc_b = acc_g + hidden;
+  for (int i = lane; i < hidden; i += 32) {
+    acc_g[i] = 0.f;
+    acc_b[i] = 0.f;
+  }
+  const float fh = (float)hidden;
+  const long long stride = (long long)gridDim.x * warps;
+  for (long long row = (long long)blockIdx.x * warps + warp; row < rows;
+       row += stride) {
+    const T* dyr = dy + row * hidden;
+    const T* xr = x + row * hidden;
+    const float mu = mean[row];
+    const float rstd = invvar[row];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+    for (int i = lane; i < hidden; i += 32) {
+      const float d = to_f32(dyr[i]);
+      const float xhat = (to_f32(xr[i]) - mu) * rstd;
+      const float wdy = d * gamma[i];
+      xh[i] = xhat;  // each lane reads back only what it wrote
+      dys[i] = d;
+      s1 += xhat * wdy;
+      s2 += wdy;
+      acc_g[i] += d * xhat;
+      acc_b[i] += d;
+    }
+    const float c1 = warp_sum(s1) / fh;
+    const float c2 = warp_sum(s2) / fh;
+    T* dxr = dx + row * hidden;
+#pragma unroll 4
+    for (int i = lane; i < hidden; i += 32) {
+      const float wdy = dys[i] * gamma[i];
+      dxr[i] = from_f32<T>((wdy - xh[i] * c1 - c2) * rstd);
+    }
+  }
+  __syncthreads();
+  // this block's partial row: its warps' sums added in warp order
+  for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
+    float g = 0.f, b = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      const float* base = smem + (size_t)w * 4 * hidden;
+      g += base[2 * hidden + i];
+      b += base[3 * hidden + i];
+    }
+    part_g[(size_t)blockIdx.x * hidden + i] = g;
+    if (part_b != nullptr) part_b[(size_t)blockIdx.x * hidden + i] = b;
+  }
+}
+
+// dgamma[c] = sum over partial rows k of part_g[k][c]: thread (c, y) adds
+// rows y, y + 8, ... in order, then the 8 sums are added in y order.
+__global__ void ln_bwd_reduce_kernel(const float* __restrict__ part_g,
+                                     const float* __restrict__ part_b,
+                                     float* __restrict__ dgamma,
+                                     float* __restrict__ dbeta, int nblk,
+                                     int hidden) {
+  __shared__ float sg[kReduceRows][kReduceCols + 1];
+  __shared__ float sb[kReduceRows][kReduceCols + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int col = blockIdx.x * kReduceCols + tx;
+  float g = 0.f, b = 0.f;
+  if (col < hidden) {
+    for (int k = ty; k < nblk; k += kReduceRows) {
+      g += part_g[(size_t)k * hidden + col];
+      if (part_b != nullptr) b += part_b[(size_t)k * hidden + col];
+    }
+  }
+  sg[ty][tx] = g;
+  sb[ty][tx] = b;
+  __syncthreads();
+  if (ty == 0 && col < hidden) {
+    float tg = 0.f, tb = 0.f;
+    for (int k = 0; k < kReduceRows; ++k) {
+      tg += sg[k][tx];
+      tb += sb[k][tx];
+    }
+    dgamma[col] = tg;
+    if (dbeta != nullptr) dbeta[col] = tb;
+  }
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* gamma, const void* beta, void* y,
+               void* mean, void* invvar, int rows, int hidden, float eps,
+               cudaStream_t stream) {
+  const size_t smem = (size_t)kFwdWarps * hidden * sizeof(float);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(ln_fwd_kernel<T>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   }
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  ln_fwd_kernel<T><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
+  const int blocks = (rows + kFwdWarps - 1) / kFwdWarps;
+  ln_fwd_kernel<T><<<blocks, kFwdWarps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<T*>(y),
       static_cast<float*>(mean), static_cast<float*>(invvar), rows, hidden,
@@ -107,10 +205,36 @@ int launch(const void* x, const void* gamma, const void* beta, void* y,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_bwd(const void* dy, const void* x, const void* gamma,
+               const void* mean, const void* invvar, void* dx, void* part_g,
+               void* part_b, void* dgamma, void* dbeta, int rows, int hidden,
+               int warps, int nblk, cudaStream_t stream) {
+  const size_t smem = (size_t)warps * 4 * hidden * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(ln_bwd_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  ln_bwd_kernel<T><<<nblk, warps * 32, smem, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(x),
+      static_cast<const float*>(gamma), static_cast<const float*>(mean),
+      static_cast<const float*>(invvar), static_cast<T*>(dx),
+      static_cast<float*>(part_g), static_cast<float*>(part_b), rows,
+      hidden);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const dim3 grid((hidden + kReduceCols - 1) / kReduceCols);
+  ln_bwd_reduce_kernel<<<grid, dim3(kReduceCols, kReduceRows), 0, stream>>>(
+      static_cast<const float*>(part_g), static_cast<const float*>(part_b),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), nblk, hidden);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y); gamma / beta are float32
-// [hidden]. mean / invvar are float32 [rows].
+// [hidden], beta may be null. mean / invvar are float32 [rows].
 extern "C" int apex_ln_fwd(const void* x, const void* gamma, const void* beta,
                            void* y, void* mean, void* invvar, int rows,
                            int hidden, float eps, int dtype,
@@ -118,10 +242,31 @@ extern "C" int apex_ln_fwd(const void* x, const void* gamma, const void* beta,
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, gamma, beta, y, mean, invvar, rows, hidden, eps,
-                         s);
+    return launch_fwd<float>(x, gamma, beta, y, mean, invvar, rows, hidden,
+                             eps, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, gamma, beta, y, mean, invvar, rows,
-                                 hidden, eps, s);
+    return launch_fwd<__nv_bfloat16>(x, gamma, beta, y, mean, invvar, rows,
+                                     hidden, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype as above for dy, x and dx. part_g / part_b: float32 scratch of
+// [nblk, hidden]; dgamma / dbeta: float32 [hidden]. part_b and dbeta are
+// null together when the forward had no beta. `warps` warps per block,
+// `nblk` blocks (rows are dealt out warp by warp over the whole grid).
+extern "C" int apex_ln_bwd(const void* dy, const void* x, const void* gamma,
+                           const void* mean, const void* invvar, void* dx,
+                           void* part_g, void* part_b, void* dgamma,
+                           void* dbeta, int rows, int hidden, int warps,
+                           int nblk, int dtype, void* stream) {
+  if (warps < 1 || warps > 32 || nblk < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(dy, x, gamma, mean, invvar, dx, part_g, part_b,
+                             dgamma, dbeta, rows, hidden, warps, nblk, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(dy, x, gamma, mean, invvar, dx, part_g,
+                                     part_b, dgamma, dbeta, rows, hidden,
+                                     warps, nblk, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-"""GPT-2 parameters for the port: from a flax tree, or made from a seed.
+"""GPT-2 parameters for the port: from a flax tree and back, or made from
+a seed.
 
 The port's parameter dict (``GPT2.state_dict()`` names) mirrors the flax
 tree of ``apex_tpu.models.gpt2.GPT2.init``:
@@ -11,8 +12,9 @@ tree of ``apex_tpu.models.gpt2.GPT2.init``:
 
 Layouts: a flax ``nn.Dense`` kernel is ``(in, out)``; the port stores
 dense weights PyTorch's way, ``(out, in)``, so :func:`params_from_jax`
-transposes them. The ``mlp_*_w`` parameters are ``(out, in)`` in both.
-Everything is float32, as in the flax tree.
+transposes them and :func:`params_to_jax` transposes them back. The
+``mlp_*_w`` parameters are ``(out, in)`` in both. Everything is float32,
+as in the flax tree.
 """
 
 from __future__ import annotations
@@ -57,6 +59,34 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for name in ("mlp_fc_w", "mlp_fc_b", "mlp_proj_w", "mlp_proj_b"):
             out[pre + name] = _t(blk[name])
     return out
+
+
+def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: a dict in the port's names
+    (parameters, or gradients / optimizer moments keyed like them) as the
+    flax tree ``{"params": {...}}`` with float32 numpy leaves."""
+    def a(name):
+        return params[name].detach().float().cpu().numpy()
+
+    n_layer = sum(1 for k in params if re.fullmatch(r"h\.\d+\.ln_1\.weight",
+                                                    k))
+    p: Dict[str, Any] = {
+        "wte": a("wte"), "wpe": a("wpe"),
+        "ln_f": {"weight": a("ln_f.weight"), "bias": a("ln_f.bias")}}
+    for i in range(n_layer):
+        pre = f"h.{i}."
+        blk: Dict[str, Any] = {}
+        for ln in ("ln_1", "ln_2"):
+            blk[ln] = {"weight": a(pre + ln + ".weight"),
+                       "bias": a(pre + ln + ".bias")}
+        for dense in ("attn_qkv", "attn_out"):
+            blk[dense] = {"kernel": np.ascontiguousarray(
+                a(pre + dense + ".weight").T),
+                "bias": a(pre + dense + ".bias")}
+        for name in ("mlp_fc_w", "mlp_fc_b", "mlp_proj_w", "mlp_proj_b"):
+            blk[name] = a(pre + name)
+        p[f"h_{i}"] = blk
+    return {"params": p}
 
 
 def init_gpt2_params(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:

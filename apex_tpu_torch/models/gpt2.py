@@ -1,21 +1,24 @@
-"""GPT-2 — counterpart of ``apex_tpu/models/gpt2.py`` for inference.
+"""GPT-2 — counterpart of ``apex_tpu/models/gpt2.py``.
 
 :class:`GPT2` is the full-sequence forward (``GPT2.__call__`` in the JAX
 package): every ``FusedLayerNorm`` runs the LayerNorm kernel and the causal
 attention runs the flash-attention kernel, 2 * n_layer + 1 and n_layer
-launches per forward. :func:`gpt2_token_forward` is the serving engine's
-one-token-per-slot forward over the slot KV cache; it reads the same
-parameters, runs the LayerNorm kernel too (2 * n_layer + 1 launches per
-step) and leaves decode attention to the chunked softmax of
+launches per forward, and as many of their backward kernels per backward
+(:func:`lm_loss` is the training loss). :func:`gpt2_token_forward` is the
+serving engine's one-token-per-slot forward over the slot KV cache; it
+reads the same parameters, runs the LayerNorm kernel too (2 * n_layer + 1
+launches per step) and leaves decode attention to the chunked softmax of
 :mod:`apex_tpu_torch.serve.attention`, as the JAX package leaves it to XLA.
 
 Parameters are float32 and the matrix products use them in
 ``compute_dtype``, as the JAX model does; the LayerNorm parameters stay
-float32. The cast copies are made once, on first use, and kept until the
-parameter is written again (:func:`in_dtype`), so a decode step does not
-cast the 50257 x 768 embedding anew.
-Forward only: call under ``torch.no_grad()`` or ``torch.inference_mode()``
-(the kernels refuse inputs that need a gradient).
+float32. Without autograd (``torch.no_grad()`` /
+``torch.inference_mode()``, as serving runs) the cast copies are made
+once, on first use, and kept until the parameter is written again
+(:func:`in_dtype`), so a decode step does not cast the 50257 x 768
+embedding anew. While autograd records, each forward casts each weight
+once as an ordinary graph op, as the JAX model does, so the gradient
+reaches the fp32 parameter.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.normalization.fused_layer_norm import (
     FusedLayerNorm, fused_layer_norm_affine)
 from apex_tpu_torch.ops.flash_attention import flash_attention
@@ -58,12 +62,16 @@ class GPT2Config:
 
 
 def in_dtype(mod: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
-    """Parameter ``name`` of ``mod`` in ``dtype``. The copy is kept on
-    ``mod`` and made again only when the parameter's storage or version
-    changes (``load_state_dict`` and ``.to()`` change one of them)."""
+    """Parameter ``name`` of ``mod`` in ``dtype``. While autograd records
+    the parameter, a cast in the graph. Otherwise a copy kept on ``mod``
+    and made again only when the parameter's storage or version changes
+    (``load_state_dict``, ``.to()`` and the trainer's update change one of
+    them)."""
     p = getattr(mod, name)
     if p.dtype == dtype:
         return p
+    if torch.is_grad_enabled() and p.requires_grad:
+        return p.to(dtype)
     casts = mod.__dict__.setdefault("_casts", {})
     stamp = (p.data_ptr(), p._version)
     hit = casts.get((name, dtype))
@@ -137,7 +145,6 @@ class GPT2(nn.Module):
         self.h = nn.ModuleList(Block(cfg, device=dev)
                                for _ in range(cfg.n_layer))
         self.ln_f = FusedLayerNorm(e, device=dev)
-        self.requires_grad_(False)  # forward only until the training slice
 
     @classmethod
     def from_params(cls, cfg: GPT2Config, params: Dict[str, torch.Tensor],
@@ -167,13 +174,27 @@ class GPT2(nn.Module):
             raise ValueError(f"positions {off}..{off + s - 1} outside the "
                              f"table of n_positions={c.n_positions}")
         wte = in_dtype(self, "wte", dt)
-        x = wte[tokens] + in_dtype(self, "wpe", dt)[off:off + s][None]
+        if torch.is_grad_enabled() and self.wte.requires_grad:
+            # gather the fp32 rows, then cast (the JAX order): the
+            # embedding gradient is summed into the fp32 table
+            x = self.wte[tokens].to(dt) + self.wpe[off:off + s].to(dt)[None]
+        else:
+            x = wte[tokens] + in_dtype(self, "wpe", dt)[off:off + s][None]
         for blk in self.h:
             x = blk(x)
         x = self.ln_f(x)
         if return_hidden:
             return x
         return matmul_f32(x, wte)
+
+
+def lm_loss(model: GPT2, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``tokens (b, s)`` under ``model``
+    (``lm_loss`` of the JAX package): fp32 logits through
+    :func:`~apex_tpu_torch.contrib.xentropy.softmax_cross_entropy_loss`."""
+    logits = model(tokens)
+    return softmax_cross_entropy_loss(logits[:, :-1],
+                                      tokens[:, 1:]).mean()
 
 
 def gpt2_token_forward(cfg: GPT2Config, model: GPT2, cache, tokens,

@@ -1,8 +1,13 @@
 """FusedLayerNorm — counterpart of
-``apex_tpu/normalization/fused_layer_norm.py``, forward only.
+``apex_tpu/normalization/fused_layer_norm.py``.
 
-The functional forms run :func:`~apex_tpu_torch.ops.layer_norm_kernel.ln_fwd`
-(the CUDA kernel for CUDA tensors, its plain version for CPU tensors).
+The functional forms run an ``autograd.Function`` (the JAX ``custom_vjp``
+``_fused_norm``) whose forward is
+:func:`~apex_tpu_torch.ops.layer_norm_kernel.ln_fwd` and whose backward is
+:func:`~apex_tpu_torch.ops.layer_norm_kernel.ln_bwd` (the CUDA kernels for
+CUDA tensors, their plain versions for CPU tensors). Like the JAX
+default (``memory_efficient=False``) it saves x, mean and invvar;
+``memory_efficient=True`` belongs to a later slice and raises.
 The JAX package sends hidden sizes that are not a multiple of 128 to its
 jnp reference because of the TPU's 128-lane tiles; the Hopper kernel has
 no such rule and takes any hidden size up to
@@ -19,7 +24,7 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
-from apex_tpu_torch.ops.layer_norm_kernel import ln_fwd
+from apex_tpu_torch.ops.layer_norm_kernel import ln_bwd, ln_fwd
 from apex_tpu_torch.ops.tiling import LN_MAX_HIDDEN
 from apex_tpu_torch.utils.device import DeviceLike
 
@@ -55,15 +60,40 @@ def manual_layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
     return y.reshape(x.shape).to(x.dtype)
 
 
+class _FusedLayerNormAffine(torch.autograd.Function):
+    """``_fused_norm`` with its ``custom_vjp`` (LayerNorm, affine, x
+    saved): dx, dgamma and dbeta (None without a bias) from the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, hidden, eps):
+        x2 = x.reshape(-1, hidden).contiguous()
+        y, mean, invvar = ln_fwd(x2, weight, bias, eps=eps)
+        ctx.save_for_backward(x2, weight, bias, mean, invvar)
+        ctx.xshape = x.shape
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, weight, bias, mean, invvar = ctx.saved_tensors
+        dx, dgamma, dbeta = ln_bwd(dy.reshape(x2.shape).contiguous(), x2,
+                                   weight, bias, mean, invvar)
+        return dx.reshape(ctx.xshape), dgamma, dbeta, None, None
+
+
 def fused_layer_norm_affine(x: torch.Tensor, weight: torch.Tensor,
                             bias: Optional[torch.Tensor],
-                            normalized_shape: Shape,
-                            eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with fp32 ``weight`` / ``bias`` through the kernel."""
+                            normalized_shape: Shape, eps: float = 1e-5,
+                            memory_efficient: bool = False) -> torch.Tensor:
+    """LayerNorm with fp32 ``weight`` and ``bias`` (or None) through the
+    kernels, differentiable in x, weight and bias."""
+    if memory_efficient:
+        raise NotImplementedError(
+            "fused_layer_norm_affine: memory_efficient=True is not ported "
+            "yet (ROADMAP.md, port queue)")
     h = _norm_size(normalized_shape)
-    y, _, _ = ln_fwd(x.reshape(-1, h).contiguous(), weight.reshape(h),
-                     None if bias is None else bias.reshape(h), eps=eps)
-    return y.reshape(x.shape)
+    return _FusedLayerNormAffine.apply(
+        x, weight.reshape(h), None if bias is None else bias.reshape(h), h,
+        float(eps))
 
 
 class FusedLayerNorm(nn.Module):

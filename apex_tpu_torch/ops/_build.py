@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``apex_tpu_torch/csrc/*.cu`` is compiled with ``nvcc`` for
+Every ``apex_tpu_torch/csrc/*.cu`` (with the shared ``*.cuh`` headers
+beside them) is compiled with ``nvcc`` for
 ``sm_90a`` at first use, one ``nvcc`` process per source started
 together, and the objects are linked into one shared library with a plain
 C interface, loaded with :mod:`ctypes`. Pointers and the stream go over as
@@ -37,14 +38,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
+_ll = ctypes.c_longlong
 _f = ctypes.c_float
 # C signatures of the entries the wrappers call (all return cudaError_t)
 SIGNATURES = {
-    # x, gamma, beta, y, mean, invvar, rows, hidden, eps, dtype, stream
+    # x, gamma, beta (may be null), y, mean, invvar, rows, hidden, eps,
+    # dtype, stream
     "apex_ln_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _i, _vp],
+    # dy, x, gamma, mean, invvar, dx, part_g, part_b, dgamma, dbeta, rows,
+    # hidden, warps, blocks, dtype, stream
+    "apex_ln_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
+                    _i, _i, _i, _i, _vp],
     # q, k, v, o, lse, bh, sq, sk, d, scale, causal, dtype, stream
     "apex_fa_fwd": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _i,
                     _vp],
+    # q, k, v, do, lse, dvec, dq, bh, sq, sk, d, scale, causal, dtype,
+    # stream
+    "apex_fa_bwd_dq": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                       _f, _i, _i, _vp],
+    # q, k, v, do, lse, dvec, dk, dv, bh, sq, sk, d, scale, causal, dtype,
+    # stream
+    "apex_fa_bwd_dkv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+                        _i, _f, _i, _i, _vp],
+    # p, g, m, v, scalars, n, mode, stream
+    "apex_fused_adam": [_vp, _vp, _vp, _vp, _vp, _ll, _i, _vp],
 }
 
 launches: collections.Counter = collections.Counter()
@@ -58,12 +75,13 @@ def reset_launches() -> None:
 
 
 def sources() -> list:
+    """The translation units, one ``nvcc`` each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and shared headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,81 +1,108 @@
-"""Row LayerNorm forward: the CUDA kernel and its plain version.
+"""Row LayerNorm forward and backward: the CUDA kernels and their plain
+versions.
 
 Counterpart of ``apex_tpu/ops/pallas/layer_norm_kernel.py``
-``ln_fwd_pallas``. :func:`ln_fwd` launches ``csrc/layer_norm.cu`` for a
-CUDA tensor and runs :func:`ln_fwd_plain` for a CPU tensor; there is no
-other route. The backward kernel (``ln_bwd_pallas``) belongs to the
-training slice, so the wrapper refuses inputs that need a gradient.
+``ln_fwd_pallas`` and ``ln_bwd_pallas`` (their LayerNorm form, gamma
+always, beta optional). :func:`ln_fwd` / :func:`ln_bwd` launch
+``csrc/layer_norm.cu`` for CUDA tensors and run :func:`ln_fwd_plain` /
+:func:`ln_bwd_plain` for CPU tensors; there is no other route.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.tiling import LN_MAX_HIDDEN
+from apex_tpu_torch.ops.tiling import LN_MAX_HIDDEN, ln_bwd_geometry
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def refuse_grad(name: str, *tensors) -> None:
-    """The port's kernels have no backward yet: a forward that autograd
-    would record raises instead of returning a tensor without a
-    gradient path."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the backward kernel is not ported yet; call under "
-            f"torch.no_grad() / torch.inference_mode()")
-
-
-def ln_fwd_plain(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                 *, eps: float
+def ln_fwd_plain(x2: torch.Tensor, gamma: torch.Tensor,
+                 beta: Optional[torch.Tensor], *, eps: float
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x2 ``(rows, hidden)``. Returns ``(y, mean, invvar)``: y in x2's
     dtype, mean and invvar ``(rows, 1)`` fp32 — the arithmetic of
-    ``_ln_fwd_kernel``, stats in fp32."""
+    ``_ln_fwd_kernel``, stats in fp32. ``beta=None`` adds nothing."""
     x = x2.float()
     mu = x.mean(dim=1, keepdim=True)
     xc = x - mu
     rstd = torch.rsqrt((xc * xc).mean(dim=1, keepdim=True) + eps)
-    y = xc * rstd * gamma.float() + beta.float()
+    y = xc * rstd * gamma.float()
+    if beta is not None:
+        y = y + beta.float()
     return y.to(x2.dtype), mu, rstd
 
 
-def _check_param(t: torch.Tensor, x2: torch.Tensor, what: str) -> None:
-    if t.device != x2.device or t.dtype != torch.float32 \
-            or t.shape != (x2.shape[1],) or not t.is_contiguous():
+def ln_bwd_plain(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
+                 beta: Optional[torch.Tensor], mean: torch.Tensor,
+                 invvar: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                            Optional[torch.Tensor]]:
+    """The arithmetic of ``_ln_bwd_kernel`` (LayerNorm, x saved): returns
+    ``(dx in dy2's dtype, dgamma fp32, dbeta fp32 or None)``; ``beta``
+    only says whether there is a dbeta."""
+    dy = dy2.float()
+    xhat = (x2.float() - mean) * invvar
+    wdy = dy * gamma.float()
+    c1 = (xhat * wdy).mean(dim=1, keepdim=True)
+    c2 = wdy.mean(dim=1, keepdim=True)
+    dx = (wdy - xhat * c1 - c2) * invvar
+    dbeta = dy.sum(dim=0) if beta is not None else None
+    return dx.to(dy2.dtype), (dy * xhat).sum(dim=0), dbeta
+
+
+def _check_device(name: str, t: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
+
+
+def _check_rows(name: str, x2: torch.Tensor, what: str = "x2") -> None:
+    if x2.dim() != 2 or x2.dtype not in _DTYPES or not x2.is_contiguous():
         raise ValueError(
-            f"ln_fwd: {what} must be a contiguous float32 ({x2.shape[1]},) "
+            f"{name}: {what} must be a contiguous 2-D float32/bfloat16 "
+            f"tensor, got {tuple(x2.shape)} {x2.dtype} "
+            f"contiguous={x2.is_contiguous()}")
+    if not 0 < x2.shape[1] <= LN_MAX_HIDDEN:
+        raise ValueError(f"{name}: hidden={x2.shape[1]} outside the "
+                         f"kernel's 1..{LN_MAX_HIDDEN}")
+
+
+def _check_f32(name: str, t: torch.Tensor, shape, x2: torch.Tensor,
+               what: str) -> None:
+    if t.device != x2.device or t.dtype != torch.float32 \
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: {what} must be a contiguous float32 {tuple(shape)} "
             f"tensor on {x2.device}, got {tuple(t.shape)} {t.dtype} on "
             f"{t.device}")
 
 
-def ln_fwd(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
-           eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x2 ``(rows, hidden)`` float32 or bfloat16, gamma / beta float32
-    ``(hidden,)``. Returns ``(y, mean,
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def ln_fwd(x2: torch.Tensor, gamma: torch.Tensor,
+           beta: Optional[torch.Tensor], *, eps: float
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x2 ``(rows, hidden)`` float32 or bfloat16, gamma float32
+    ``(hidden,)``, beta float32 ``(hidden,)`` or None. Returns ``(y, mean,
     invvar)`` as :func:`ln_fwd_plain` does. CUDA tensors launch the kernel
     (any row count, hidden up to ``LN_MAX_HIDDEN``); CPU tensors take the
     plain version."""
-    refuse_grad("ln_fwd", x2, gamma, beta)
-    if x2.device.type == "cpu":
+    if _check_device("ln_fwd", x2):
         return ln_fwd_plain(x2, gamma, beta, eps=eps)
-    if x2.device.type != "cuda":
-        raise ValueError(f"ln_fwd: unsupported device {x2.device}")
-    if x2.dim() != 2 or x2.dtype not in _DTYPES or not x2.is_contiguous():
-        raise ValueError(
-            f"ln_fwd: x2 must be a contiguous 2-D float32/bfloat16 tensor, "
-            f"got {tuple(x2.shape)} {x2.dtype} "
-            f"contiguous={x2.is_contiguous()}")
+    _check_rows("ln_fwd", x2)
     rows, hidden = x2.shape
-    if not 0 < hidden <= LN_MAX_HIDDEN:
-        raise ValueError(f"ln_fwd: hidden={hidden} outside the kernel's "
-                         f"1..{LN_MAX_HIDDEN}")
-    _check_param(gamma, x2, "gamma")
-    _check_param(beta, x2, "beta")
+    _check_f32("ln_fwd", gamma, (hidden,), x2, "gamma")
+    if beta is not None:
+        _check_f32("ln_fwd", beta, (hidden,), x2, "beta")
     y = torch.empty_like(x2)
     mean = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
     invvar = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
@@ -83,9 +110,55 @@ def ln_fwd(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_ln_fwd(
-            x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+            x2.data_ptr(), gamma.data_ptr(), _ptr(beta), y.data_ptr(),
             mean.data_ptr(), invvar.data_ptr(), rows, hidden, float(eps),
             _DTYPES[x2.dtype], stream)
     _build.launches["ln_fwd"] += 1
     _build.check(err, "ln_fwd")
     return y, mean, invvar
+
+
+def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
+           beta: Optional[torch.Tensor], mean: torch.Tensor,
+           invvar: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The LayerNorm backward from the forward's saved x2, mean and invvar
+    (``(rows, 1)`` fp32). Returns ``(dx, dgamma, dbeta)`` as
+    :func:`ln_bwd_plain` does; dbeta is None when ``beta`` is. CUDA
+    tensors launch the kernel: dgamma / dbeta are summed over rows without
+    atomics, so two runs give the same bits. CPU tensors take the plain
+    version."""
+    if _check_device("ln_bwd", dy2):
+        return ln_bwd_plain(dy2, x2, gamma, beta, mean, invvar)
+    _check_rows("ln_bwd", dy2, "dy2")
+    rows, hidden = dy2.shape
+    if x2.shape != dy2.shape or x2.dtype != dy2.dtype \
+            or x2.device != dy2.device or not x2.is_contiguous():
+        raise ValueError(
+            f"ln_bwd: x2 must be a contiguous {tuple(dy2.shape)} "
+            f"{dy2.dtype} tensor like dy2, got {tuple(x2.shape)} "
+            f"{x2.dtype} on {x2.device}")
+    _check_f32("ln_bwd", gamma, (hidden,), dy2, "gamma")
+    _check_f32("ln_bwd", mean, (rows, 1), dy2, "mean")
+    _check_f32("ln_bwd", invvar, (rows, 1), dy2, "invvar")
+    warps, blocks = ln_bwd_geometry(rows, hidden)
+    f32 = dict(dtype=torch.float32, device=dy2.device)
+    dx = torch.empty_like(dy2)
+    part_g = torch.empty((blocks, hidden), **f32)
+    dgamma = torch.empty((hidden,), **f32)
+    part_b = dbeta = None
+    if beta is not None:
+        part_b = torch.empty((blocks, hidden), **f32)
+        dbeta = torch.empty((hidden,), **f32)
+    lib = _build.lib()
+    with torch.cuda.device(dy2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.apex_ln_bwd(
+            dy2.data_ptr(), x2.data_ptr(), gamma.data_ptr(),
+            mean.data_ptr(), invvar.data_ptr(), dx.data_ptr(),
+            part_g.data_ptr(), _ptr(part_b), dgamma.data_ptr(),
+            _ptr(dbeta), rows, hidden, warps, blocks, _DTYPES[dy2.dtype],
+            stream)
+    _build.launches["ln_bwd"] += 1
+    _build.check(err, "ln_bwd")
+    return dx, dgamma, dbeta

@@ -18,8 +18,28 @@ LN_WARPS_PER_BLOCK = 4
 # shared memory per block, inside the 227 KB a Hopper block may use
 LN_MAX_HIDDEN = 8192
 
-# flash attention (csrc/flash_attention.cu): 64 query rows per block
-# (16 per warp), 64-row K/V tiles, compiled for head_dim 64 only.
+# LayerNorm backward (csrc/layer_norm.cu): one warp per row; each warp
+# stages xhat and dy of its row and keeps running dgamma / dbeta sums, four
+# fp32 rows of `hidden` in shared memory. Warps per block fill up to
+# LN_BWD_SMEM_BYTES (8 warps at hidden 768, 1 at 8192); at most
+# LN_BWD_MAX_BLOCKS blocks (2 per SM of an H100), each writing one row of
+# dgamma / dbeta partial sums that a second launch adds up.
+LN_BWD_SMEM_BYTES = 128 * 1024
+LN_BWD_MAX_WARPS = 8
+LN_BWD_MAX_BLOCKS = 264
+
+
+def ln_bwd_geometry(rows: int, hidden: int):
+    """``(warps per block, blocks)`` of the LayerNorm backward launch."""
+    warps = max(1, min(LN_BWD_MAX_WARPS, LN_BWD_SMEM_BYTES // (16 * hidden)))
+    blocks = max(1, min(LN_BWD_MAX_BLOCKS, -(-rows // warps)))
+    return warps, blocks
+
+
+# flash attention (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu):
+# 64 query rows per block (16 per warp), 64-row K/V tiles, compiled for
+# head_dim 64 only; the backward's dk / dv kernel takes 64-row K/V tiles
+# per block and streams 64-row Q / dO tiles.
 FA_BLOCK_Q = 64
 FA_BLOCK_K = 64
 FA_HEAD_DIM = 64

@@ -1,0 +1,80 @@
+"""Functional optimizer updates over pytrees — counterpart of
+``apex_tpu/optimizers/functional.py`` ``adam_update``.
+
+The tree path of :class:`~apex_tpu_torch.optimizers.FusedAdam` and the
+reference the flat kernel is held to: all math in fp32 whatever the
+storage dtype, a ``found_inf`` flag that makes the whole update a no-op,
+gradients that may carry a loss scale removed through ``inv_scale``, and
+with a fp32 ``master`` tree the master is updated and the params are its
+cast. Returns new tensors; nothing is updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from apex_tpu_torch.utils.tree import tree_flatten, tree_unflatten, tree_map
+
+_f32 = torch.float32
+
+
+def _keep(noop: torch.Tensor, old, new):
+    """``where(noop, old, new)`` in old's dtype."""
+    return tree_map(lambda o, n: torch.where(noop, o.float(), n).to(o.dtype),
+                    old, new)
+
+
+def _as_tensor(x, device, dtype=_f32) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def adam_update(params: Any, grads: Any, exp_avg: Any, exp_avg_sq: Any, *,
+                step, lr, beta1: float = 0.9, beta2: float = 0.999,
+                eps: float = 1e-8, weight_decay: float = 0.0,
+                adam_w_mode: bool = True, bias_correction: bool = True,
+                inv_scale=1.0, found_inf=False,
+                master: Optional[Any] = None):
+    """Adam / AdamW over trees. Returns ``(params, m, v[, master])``."""
+    src = master if master is not None else params
+    dev = tree_flatten(src)[0][0].device
+    noop = _as_tensor(found_inf, dev, torch.bool)
+    stepf = _as_tensor(step, dev)
+    lr = _as_tensor(lr, dev)
+    inv_scale = _as_tensor(inv_scale, dev)
+    if bias_correction:
+        bc1 = 1.0 - torch.pow(_as_tensor(beta1, dev), stepf)
+        bc2 = 1.0 - torch.pow(_as_tensor(beta2, dev), stepf)
+    else:
+        bc1 = bc2 = _as_tensor(1.0, dev)
+
+    def leaf(p, g, m, v):
+        p32 = p.float()
+        g32 = g.float() * inv_scale
+        if not adam_w_mode:
+            g32 = g32 + weight_decay * p32
+        m_new = beta1 * m.float() + (1.0 - beta1) * g32
+        v_new = beta2 * v.float() + (1.0 - beta2) * g32 * g32
+        upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        if adam_w_mode:
+            upd = upd + weight_decay * p32
+        return p32 - lr * upd, m_new, v_new
+
+    leaves, treedef = tree_flatten(src)
+    new = [leaf(*xs) for xs in zip(leaves, tree_flatten(grads)[0],
+                                   tree_flatten(exp_avg)[0],
+                                   tree_flatten(exp_avg_sq)[0])]
+    p_new, m_new, v_new = (tree_unflatten(treedef, [t[i] for t in new])
+                           for i in range(3))
+    m_out = _keep(noop, exp_avg, m_new)
+    v_out = _keep(noop, exp_avg_sq, v_new)
+    if master is not None:
+        master_out = _keep(noop, master, p_new)
+        p_out = tree_map(
+            lambda p, pm: torch.where(noop, p.float(), pm.float())
+            .to(p.dtype), params, master_out)
+        return p_out, m_out, v_out, master_out
+    return _keep(noop, params, p_new), m_out, v_out

@@ -1,5 +1,5 @@
 """Fused dense layers — counterpart of
-``apex_tpu/transformer/fused_dense.py``, forward only.
+``apex_tpu/transformer/fused_dense.py``.
 
 In the JAX package these are plain matrix products that XLA fuses with
 their bias and GELU epilogues; here they are PyTorch matrix products (no
@@ -8,14 +8,50 @@ The dtype steps are the JAX ones exactly: products accumulate in fp32
 and come out in fp32 (``preferred_element_type=float32``), biases are
 added in fp32, GELU is the exact erf form in fp32, and only then is the
 result cast to the IO dtype.
+
+Gradients: :func:`dense_gelu_dense` is an ``autograd.Function`` mirroring
+the JAX ``custom_vjp`` (``_dgd_fwd`` / ``_dgd_bwd``): it saves x, the
+weights and the fp32 pre-GELU h, and its backward products are fp32 as
+the JAX ones are. :func:`matmul_f32` on bfloat16 is an
+``autograd.Function`` too (cuBLAS's fp32-output product has no
+derivative of its own): its backward products take bf16 operands and
+accumulate in fp32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+
+def _mm_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The forward product of :func:`matmul_f32` for a non-fp32 x."""
+    if x.device.type == "cuda":
+        out = torch.mm(x.reshape(-1, x.shape[-1]), weight.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], weight.shape[0])
+    return torch.matmul(x.float(), weight.float().t())
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``x @ weight.T`` with an fp32 result from low-precision operands;
+    the backward casts the fp32 cotangent to the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return _mm_f32(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.matmul(g, weight)
+        dw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        return dx, dw
 
 
 def matmul_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -26,11 +62,7 @@ def matmul_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     computes the same products."""
     if x.dtype == torch.float32:
         return torch.matmul(x, weight.t())
-    if x.device.type == "cuda":
-        out = torch.mm(x.reshape(-1, x.shape[-1]), weight.t(),
-                       out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], weight.shape[0])
-    return torch.matmul(x.float(), weight.float().t())
+    return _MatmulF32.apply(x, weight)
 
 
 def linear_bias(x: torch.Tensor, weight: torch.Tensor,
@@ -43,12 +75,47 @@ def linear_bias(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    """Exact gelu'(h) for fp32 h (``_gelu_grad`` of the JAX module)."""
+    phi = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+    pdf = torch.exp(-0.5 * h * h) / math.sqrt(2.0 * math.pi)
+    return phi + h * pdf
+
+
+class _DenseGeluDense(torch.autograd.Function):
+    """``dense_gelu_dense`` with the JAX ``custom_vjp``: residuals x, w1,
+    w2 and the fp32 pre-GELU h; GELU recomputed in the backward; every
+    backward product in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        h = matmul_f32(x, w1) + b1.float()
+        a = F.gelu(h)
+        y = matmul_f32(a.to(x.dtype), w2) + b2.float()
+        ctx.save_for_backward(x, w1, w2, h)
+        ctx.dtypes = (b1.dtype, b2.dtype)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w2, h = ctx.saved_tensors
+        n = h.shape[-1]
+        dy32 = dy.float().reshape(-1, dy.shape[-1])
+        h2 = h.reshape(-1, n)
+        a = F.gelu(h2)
+        dw2 = dy32.t() @ a
+        db2 = dy32.sum(dim=0)
+        dh = (dy32 @ w2.float()) * _gelu_grad(h2)
+        dw1 = dh.t() @ x.reshape(-1, x.shape[-1]).float()
+        db1 = dh.sum(dim=0)
+        dx = (dh @ w1.float()).reshape(x.shape)
+        return (dx.to(x.dtype), dw1.to(w1.dtype), db1.to(ctx.dtypes[0]),
+                dw2.to(w2.dtype), db2.to(ctx.dtypes[1]))
+
+
 def dense_gelu_dense(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                      w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """GEMM -> bias -> GELU -> GEMM -> bias, with weights ``(out, in)``:
     fp32 accumulate, ``+ b1`` in fp32, exact erf GELU, cast to x's dtype,
     the second GEMM, ``+ b2`` in fp32, cast."""
-    h = matmul_f32(x, w1) + b1.float()
-    a = F.gelu(h)
-    y = matmul_f32(a.to(x.dtype), w2) + b2.float()
-    return y.to(x.dtype)
+    return _DenseGeluDense.apply(x, w1, b1, w2, b2)

@@ -17,7 +17,11 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    (``call_ms``: CUDA events around a loop, host dispatch included),
    with inputs rotated through more than the 50 MB L2; and the least
    time the card could take (bytes at 3.35 TB/s, operations at
-   989 TFLOP/s bf16 or 67 TFLOP/s fp32).
+   989 TFLOP/s bf16 or 67 TFLOP/s fp32). Kernels: LayerNorm forward and
+   backward, flash-attention forward, its backward's dq and dk / dv
+   kernels (one wrapper call launches both; each gets its own device
+   time and bound, and the plain and library times are the whole
+   backward's), and fused Adam over the GPT-2 small flat buffer.
 3. ``forward``: GPT-2 small in bf16, batch 4 x 1024 tokens, through
    ``GPT2``: exactly 25 LayerNorm and 12 flash-attention launches, logits
    held against the same weights in fp32 on the CPU (plain versions) and
@@ -30,10 +34,24 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    are held against the full forward's at the same positions.
 5. ``cli``: ``apex-tpu-torch-serve --config small --dtype bf16
    --requests 8`` in process.
+6. ``train``: GPT-2 small (fp32 parameters, bf16 compute) trained by
+   ``apex_tpu_torch.train.Trainer`` (``amp="dynamic"``) for 5 steps on
+   one fixed 4 x 1024 batch: every loss finite and the last below the
+   first; per step exactly 25 ``ln_fwd``, 25 ``ln_bwd``, 12 ``fa_fwd``,
+   12 ``fa_bwd_dq``, 12 ``fa_bwd_dkv`` and 1 ``fused_adam`` launches;
+   step ms, training tokens/s (batch x (seq - 1) per step), the device
+   time of one more step by kind of kernel, its idle share, the peak
+   device memory, and the time of the step's gradient packing into the
+   flat buffer. An fp32 cross-check: one step's gradients of an fp32
+   model at 2 x 256 tokens on the card against the same on the CPU
+   (plain versions), per parameter. Then the trained model serves
+   through ``Engine``: its prefill logits follow the trained weights,
+   not the initial ones.
 
 Then a ``{"kernels": [...]}`` line (launches counted over the main path:
-the forward of phase 3 plus the serve run of phase 4, each with the
-counts zeroed just before it), the ``nvidia-smi`` line, and last
+the forward of phase 3, the serve run of phase 4 and the 5 train steps
+of phase 6, each with the counts zeroed just before it), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that last line; without CUDA, or away from the
 checkout, it exits 2 at once.
@@ -63,6 +81,13 @@ LSE_TOL = 2e-5
 FWD_BF16_REL_L2 = 5e-2   # bf16 card logits vs fp32 CPU, relative L2
 FWD_FP32_ATOL = 1e-3     # fp32 card logits vs fp32 CPU
 SERVE_FP32_ATOL = 1e-3   # fp32 engine prefill logits vs full forward
+LN_BWD_TOL = {"fp32": (1e-5, 1e-5), "bf16": (1e-5, 2 ** -7)}  # dx
+LN_PARAM_GRAD_TOL = (1e-3, 1e-4)   # dgamma / dbeta: fp32 sums over rows
+FA_BWD_TOL = {"fp32": (1e-4, 0.0), "bf16": (1e-2, 2 ** -6)}
+ADAM_RTOL = 1e-7         # the kernel runs the plain version's operations
+TRAIN_GRAD_REL_L2 = 1e-3  # fp32 card vs CPU gradients, per parameter
+TRAIN_STEPS = 5
+TRAIN_LR = 3e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -96,14 +121,21 @@ def main() -> int:
     import torch.nn.functional as F
 
     from apex_tpu_torch.models.convert import init_gpt2_params
-    from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_attention_fwd_plain)
-    from apex_tpu_torch.ops.layer_norm_kernel import ln_fwd, ln_fwd_plain
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    from apex_tpu_torch.ops.fused_adam_kernel import (fused_adam_flat,
+                                                      fused_adam_flat_plain)
+    from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
+                                                      ln_fwd, ln_fwd_plain)
+    from apex_tpu_torch.optimizers.fused_adam import FLAT_PAD
     from apex_tpu_torch.serve import cli
     from apex_tpu_torch.serve.engine import Engine, EngineConfig
     from apex_tpu_torch.serve.scheduler import Request, ServeScheduler
+    from apex_tpu_torch.train import TrainConfig, Trainer
+    from apex_tpu_torch.utils.flatten import flat_spec, flatten
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -155,9 +187,9 @@ def main() -> int:
                                 + ev.time_range.elapsed_us())
         return out
 
-    def device_ms(fn, sets, reps):
-        """Mean device ms per call of ``fn``: the summed durations of the
-        kernels it launched (torch.profiler), over ``reps`` calls."""
+    def device_kernels(fn, sets, reps):
+        """``{kernel name: mean device ms per call}`` of ``fn`` over
+        ``reps`` calls (torch.profiler), after a warm-up."""
         for a in sets[:2]:
             fn(*a)
 
@@ -167,16 +199,24 @@ def main() -> int:
 
         kern = device_profile(loop)
         require(bool(kern), "torch.profiler recorded no device kernel")
-        return sum(kern.values()) / 1e3 / reps
+        return {k: us / 1e3 / reps for k, us in kern.items()}
+
+    def device_ms(fn, sets, reps):
+        """Mean device ms per call of ``fn``: the summed durations of the
+        kernels it launched (torch.profiler), over ``reps`` calls."""
+        return sum(device_kernels(fn, sets, reps).values())
 
     def by_kind(kern):
         """Device ms of a profile, summed by kind of kernel."""
-        out = {"flash": 0.0, "layer_norm": 0.0, "matmul": 0.0,
-               "other": 0.0}
+        out = {"flash": 0.0, "flash_bwd": 0.0, "layer_norm": 0.0,
+               "adam": 0.0, "matmul": 0.0, "other": 0.0}
         for name, us in kern.items():
             low = name.lower()
             cat = ("flash" if "fa_fwd_kernel" in name else
-                   "layer_norm" if "ln_fwd_kernel" in name else
+                   "flash_bwd" if "fa_bwd_" in name else
+                   "layer_norm" if ("ln_fwd_kernel" in name
+                                    or "ln_bwd_" in name) else
+                   "adam" if "fused_adam_kernel" in name else
                    "matmul" if any(s in low for s in (
                        "gemm", "cutlass", "xmma", "nvjet", "cublas"))
                    else "other")
@@ -187,6 +227,12 @@ def main() -> int:
     def timed(fn, sets, reps):
         return {"ms": device_ms(fn, sets, reps),
                 "call_ms": bench_ms(fn, sets, reps)}
+
+    def close(got, want, atol, rtol):
+        """``(ok, max |got - want|)`` under ``atol + rtol * |want|``."""
+        d = (got.float() - want.float()).abs()
+        return (bool((d <= atol + rtol * want.float().abs()).all()),
+                d.max().item() if d.numel() else 0.0)
 
     def n_sets(bytes_per_set):
         """Input copies to cycle so each call finds its data out of L2."""
@@ -300,12 +346,214 @@ def main() -> int:
             fa_case(4, 12, 1000, 1000, True, dt)
             fa_case(2, 3, 200, 333, False, dt)
 
-    # ------------------------------------------------------ 3. forward
+    def ln_bwd_case(rows, hidden, dt, main=False):
+        es = torch.tensor([], dtype=tdt[dt]).element_size()
+        # dy and x read, dx written, mean / invvar / gamma read,
+        # dgamma / dbeta written
+        nbytes = 3 * rows * hidden * es + rows * 8 + 3 * hidden * 4
+        sets = []
+        for _ in range(n_sets(nbytes)):
+            x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
+                 + 0.5).to(tdt[dt])
+            dy = torch.randn(rows, hidden, device=dev, generator=gen) \
+                .to(tdt[dt])
+            g = torch.randn(hidden, device=dev, generator=gen)
+            b = torch.randn(hidden, device=dev, generator=gen)
+            _, mu, iv = ln_fwd_plain(x, g, b, eps=1e-5)
+            sets.append((dy, x, g, b, mu, iv))
+        got = ln_bwd(*sets[0])
+        want = ln_bwd_plain(*sets[0])
+        torch.cuda.synchronize()
+        atol, rtol = LN_BWD_TOL[dt]
+        ok_dx, err = close(got[0], want[0], atol, rtol)
+        ok_g, err_g = close(got[1], want[1], *LN_PARAM_GRAD_TOL)
+        ok_b, err_b = close(got[2], want[2], *LN_PARAM_GRAD_TOL)
+        again = ln_bwd(*sets[0])
+        deterministic = all(torch.equal(a, c) for a, c in zip(got, again))
+        require(ok_dx and ok_g and ok_b and deterministic,
+                f"ln_bwd {rows}x{hidden} {dt}: dx err {err} (atol {atol} "
+                f"rtol {rtol}), dgamma err {err_g}, dbeta err {err_b}, "
+                f"deterministic {deterministic}")
+        reps = 50
+        kt = timed(lambda *a: ln_bwd(*a), sets, reps)
+        pt = timed(lambda *a: ln_bwd_plain(*a), sets, reps // 5)
+        # the library call takes gamma / beta in x's dtype and its own
+        # (rows, 1) fp32 statistics
+        lsets = []
+        for dy, x, g, b, _, _ in sets:
+            gl, bl = g.to(x.dtype), b.to(x.dtype)
+            _, mu, rs = torch.ops.aten.native_layer_norm(x, [hidden], gl,
+                                                         bl, 1e-5)
+            lsets.append((dy, x, mu, rs, gl, bl))
+        lt = timed(lambda dy, x, mu, rs, gl, bl:
+                   torch.ops.aten.native_layer_norm_backward(
+                       dy, x, [hidden], mu, rs, gl, bl, [True, True, True]),
+                   lsets, reps)
+        bms, by = bound(nbytes, 12 * rows * hidden, "fp32")
+        rec = dict(kernel="ln_bwd", rows=rows, hidden=hidden, dtype=dt,
+                   max_abs_err=err, dgamma_err=err_g, dbeta_err=err_b,
+                   deterministic=deterministic,
+                   tol={"atol": atol, "rtol": rtol,
+                        "param_grad": LN_PARAM_GRAD_TOL},
+                   ms=kt["ms"], plain_ms=pt["ms"], library_ms=lt["ms"],
+                   bound_ms=bms, bound_by=by, call_ms=kt["call_ms"],
+                   plain_call_ms=pt["call_ms"],
+                   library_call_ms=lt["call_ms"], bytes=nbytes)
+        emit("kernel", **rec)
+        if main:
+            summary["ln_bwd"] = rec
+
+    def fa_bwd_case(b, h, sq, sk, causal, dt, main=False):
+        d = 64
+        scale = 1.0 / math.sqrt(d)
+        es = torch.tensor([], dtype=tdt[dt]).element_size()
+        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+                 else sq * sk)
+        io = b * h * d * es
+        stats = b * h * sq * 8          # lse and D, fp32
+        # dq: reads q, k, v, do, lse, D, writes dq; dk / dv: reads the
+        # same, writes dk and dv
+        bytes_dq = io * (3 * sq + 2 * sk) + stats
+        bytes_dkv = io * (2 * sq + 4 * sk) + stats
+        ops_dq = 3 * 2 * b * h * d * pairs    # S, dP, dq
+        ops_dkv = 4 * 2 * b * h * d * pairs   # S, dP, dv, dk
+        sets = []
+        for _ in range(n_sets(bytes_dkv)):
+            q, k, v = (torch.randn(b, h, s, d, device=dev, generator=gen)
+                       .to(tdt[dt]) for s in (sq, sk, sk))
+            do = torch.randn(b, h, sq, d, device=dev, generator=gen) \
+                .to(tdt[dt])
+            o, lse = flash_attention_fwd(q, k, v, scale=scale,
+                                         causal=causal)
+            sets.append((q, k, v, o, lse, do))
+        kw = dict(scale=scale, causal=causal)
+        got = flash_attention_bwd(*sets[0], **kw)
+        want = flash_attention_bwd_plain(*sets[0], **kw)
+        torch.cuda.synchronize()
+        atol, rtol = FA_BWD_TOL[dt]
+        errs = {}
+        for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            ok, errs[name] = close(g_, w_, atol, rtol)
+            require(ok, f"fa_bwd {b}x{h}x{sq}x{sk} causal={causal} {dt}: "
+                        f"{name} err {errs[name]} (atol {atol} rtol {rtol})")
+        again = flash_attention_bwd(*sets[0], **kw)
+        deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
+        require(deterministic, "fa_bwd: two runs gave different bits")
+        reps = 20
+        split = device_kernels(lambda *a: flash_attention_bwd(*a, **kw),
+                               sets, reps)
+        ms_dq = sum(v for k, v in split.items() if "fa_bwd_dq_kernel" in k)
+        ms_dkv = sum(v for k, v in split.items()
+                     if "fa_bwd_dkv_kernel" in k)
+        call = bench_ms(lambda *a: flash_attention_bwd(*a, **kw), sets,
+                        reps)
+        pt = timed(lambda *a: flash_attention_bwd_plain(*a, **kw), sets, 3)
+        library = None
+        if dt == "bf16":
+            # SDPA's backward under the flash backend, timed alone: the
+            # forward graph is built once and only autograd.grad is timed
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            lsets = []
+            for q, k, v, _, _, do in sets:
+                qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                    oo = F.scaled_dot_product_attention(
+                        qq, kk, vv, is_causal=causal, scale=scale)
+                lsets.append((oo, qq, kk, vv, do))
+            library = timed(lambda oo, qq, kk, vv, do: torch.autograd.grad(
+                oo, (qq, kk, vv), do, retain_graph=True), lsets, reps)
+        common = dict(b=b, h=h, sq=sq, sk=sk, causal=causal, dtype=dt,
+                      tol={"atol": atol, "rtol": rtol},
+                      deterministic=deterministic, call_ms=call,
+                      plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
+                      library_ms=library and library["ms"],
+                      library_call_ms=library and library["call_ms"],
+                      dvec_ms=sum(split.values()) - ms_dq - ms_dkv)
+        bq, byq = bound(bytes_dq, ops_dq, dt)
+        bk, byk = bound(bytes_dkv, ops_dkv, dt)
+        rq = dict(kernel="fa_bwd_dq", max_abs_err=errs["dq"], ms=ms_dq,
+                  bound_ms=bq, bound_by=byq, bytes=bytes_dq, flops=ops_dq,
+                  **common)
+        rk = dict(kernel="fa_bwd_dkv", max_abs_err=max(errs["dk"],
+                                                      errs["dv"]),
+                  dk_err=errs["dk"], dv_err=errs["dv"], ms=ms_dkv,
+                  bound_ms=bk, bound_by=byk, bytes=bytes_dkv, flops=ops_dkv,
+                  **common)
+        emit("kernel", **rq)
+        emit("kernel", **rk)
+        if main:
+            summary["fa_bwd_dq"] = rq
+            summary["fa_bwd_dkv"] = rk
+
+    def adam_case(n, main=False):
+        nbytes = 28 * n + 36   # p, g, m, v read; p, m, v written
+        sets = []
+        for _ in range(2):
+            p, g, m = (torch.randn(n, device=dev, generator=gen)
+                       for _ in range(3))
+            v = torch.rand(n, device=dev, generator=gen)
+            sets.append((p, g, m, v))
+        kw = dict(lr=1e-3, weight_decay=0.01, step=3)
+        ref = [t.clone() for t in sets[0]]
+        fused_adam_flat(*sets[0], **kw)
+        fused_adam_flat_plain(*ref, **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for got, want in zip((sets[0][0], sets[0][2], sets[0][3]),
+                             (ref[0], ref[2], ref[3])):
+            ok, e = close(got, want, 0.0, ADAM_RTOL)
+            err = max(err, e)
+            require(ok, f"fused_adam n={n}: err {e} (rtol {ADAM_RTOL})")
+        # an overflow step leaves every buffer bit-identical
+        before = [t.clone() for t in sets[0]]
+        fused_adam_flat(*sets[0], found_inf=torch.ones((), device=dev,
+                                                       dtype=torch.bool),
+                        **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip(sets[0], before)),
+                "fused_adam: the overflow step changed a buffer")
+        del ref, before
+        reps = 20
+        kt = timed(lambda *a: fused_adam_flat(*a, **kw), sets, reps)
+        pt = timed(lambda *a: fused_adam_flat_plain(*a, **kw), sets, 3)
+        lsets = [(p, g, m, v, torch.full((), 3.0, device=dev))
+                 for p, g, m, v in sets]
+        lt = timed(lambda p, g, m, v, st: torch._fused_adamw_(
+            [p], [g], [m], [v], [], [st], lr=1e-3, beta1=0.9, beta2=0.999,
+            weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+            lsets, reps)
+        bms, by = bound(nbytes, 15 * n, "fp32")
+        rec = dict(kernel="fused_adam", n=n, dtype="fp32",
+                   max_abs_err=err, tol={"rtol": ADAM_RTOL}, ms=kt["ms"],
+                   plain_ms=pt["ms"], library_ms=lt["ms"], bound_ms=bms,
+                   bound_by=by, call_ms=kt["call_ms"],
+                   plain_call_ms=pt["call_ms"],
+                   library_call_ms=lt["call_ms"], bytes=nbytes)
+        emit("kernel", **rec)
+        if main:
+            summary["fused_adam"] = rec
+
     cfg = GPT2Config.small()
+    params = init_gpt2_params(cfg, seed=0)
+    # the trainer's flat buffer for GPT-2 small: 128-aligned leaves,
+    # padded to a multiple of FLAT_PAD
+    flat_n = -(-flat_spec(params).total_size // FLAT_PAD) * FLAT_PAD
+    for dt in ("bf16", "fp32"):
+        ln_bwd_case(4 * 1024, 768, dt, main=dt == "bf16")
+        ln_bwd_case(1000, 768, dt)
+        ln_bwd_case(37, 1600, dt)
+        fa_bwd_case(4, 12, 1024, 1024, True, dt,
+                    main=dt == "bf16")
+        fa_bwd_case(4, 12, 1000, 1000, True, dt)
+        fa_bwd_case(2, 3, 200, 333, False, dt)
+    adam_case(flat_n, main=True)
+    adam_case(1001)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ 3. forward
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     n_layer = cfg.n_layer
     ln_per_fwd = 2 * n_layer + 1
-    params = init_gpt2_params(cfg, seed=0)
     model = GPT2.from_params(cfg, params, device=dev)
     model32 = GPT2.from_params(cfg32, params, device=dev)
     cpu_gen = torch.Generator().manual_seed(1)
@@ -434,11 +682,132 @@ def main() -> int:
     require(rc == 0, f"apex-tpu-torch-serve exited {rc}")
     emit("cli", argv="--config small --dtype bf16 --requests 8", rc=rc)
 
+    # -------------------------------------------------------- 6. train
+    tmodel = GPT2.from_params(cfg, params, device=dev)
+    trainer = Trainer(
+        TrainConfig(steps=TRAIN_STEPS, batch=4, seq=1024, lr=TRAIN_LR,
+                    amp="dynamic"),
+        loss_fn=lm_loss, init_params=tmodel, batch_fn=lambda t: tok_d)
+    losses, step_s = [], []
+    clock = [time.perf_counter()]
+
+    def on_step(t, loss):
+        now = time.perf_counter()
+        step_s.append(now - clock[0])
+        clock[0] = now
+        losses.append(loss)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    clock[0] = time.perf_counter()
+    report = trainer.run(on_step=on_step)
+    torch.cuda.synchronize()
+    train_launches = dict(_build.launches)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    per_step = {"ln_fwd": ln_per_fwd, "ln_bwd": ln_per_fwd,
+                "fa_fwd": n_layer, "fa_bwd_dq": n_layer,
+                "fa_bwd_dkv": n_layer, "fused_adam": 1}
+    expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    require(train_launches == expect,
+            f"train launches {train_launches}, expected {expect}")
+    require(all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0] and report["skipped_steps"] == 0,
+            f"train losses {losses}, report {report}")
+    for name, n in train_launches.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    # steady step: the steps after the first (which pays first touches)
+    steady_ms = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
+    tokens_per_step = 4 * (1024 - 1)
+    # one more step under the profiler: device time by kind of kernel,
+    # set against the unprofiled steady step's wall time
+    trainer.config.steps = TRAIN_STEPS + 1
+    train_busy = by_kind(device_profile(lambda: trainer.run()))
+    # the step's gradient packing on its own: one zero fill and one copy
+    # per parameter into the flat fp32 buffer (tensors of the gradients'
+    # shapes stand in for them)
+    named = dict(tmodel.named_parameters())
+    pack = timed(lambda: flatten(named, trainer._spec, dtype=torch.float32,
+                                 pad_to=trainer.flat_p.numel()), [()], 10)
+
+    # fp32 cross-check: one step's gradients at 2 x 256 on the card and
+    # on the CPU (plain versions), parameter by parameter
+    small = tokens[:2, :256]
+    grads = {}
+    for where in ("cpu", dev):
+        m32 = GPT2.from_params(cfg32, params, device=where)
+        lm_loss(m32, small.to(where)).backward()
+        grads[str(where)] = {n: p.grad.detach().cpu()
+                             for n, p in m32.named_parameters()}
+        del m32
+    worst, worst_name = 0.0, None
+    for name, ref_g in grads["cpu"].items():
+        card_g = grads[str(dev)][name]
+        rel = ((card_g - ref_g).norm() / ref_g.norm().clamp_min(1e-30)) \
+            .item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    require(worst <= TRAIN_GRAD_REL_L2,
+            f"fp32 card vs CPU gradients: {worst_name} relative L2 "
+            f"{worst}")
+    del grads
+
+    # the trained model serves: its engine's prefill logits follow the
+    # trained weights (full forward of the trained model), not the
+    # initial ones (the forward phase's model)
+    prompt = tokens[0, :32].tolist()
+    eng_t = Engine(cfg, tmodel, EngineConfig(
+        num_slots=1, max_len=64, temperature=0.0,
+        keep_prefill_logits=True), device=dev)
+    first, _, kept_t = eng_t.prefill({0: prompt})
+    nxt, _ = eng_t.decode_step(eng_t.last_tokens, np.ones(1, bool))
+    with torch.inference_mode():
+        trained = tmodel(tok_d[:1, :32])[0]
+        initial = model(tok_d[:1, :32])[0]
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    served = kept_t[:, 0]
+    serve_vs_trained = rel_l2(served, trained)
+    serve_vs_initial = rel_l2(served, initial)
+    require(serve_vs_trained <= FWD_BF16_REL_L2
+            and serve_vs_initial > 2 * serve_vs_trained
+            and 0 <= int(nxt[0]) < cfg.vocab_size,
+            f"serving the trained model: relative L2 {serve_vs_trained} "
+            f"to the trained forward, {serve_vs_initial} to the initial")
+    del eng_t, kept_t, trained, initial
+    emit("train", config="GPT2Config.small", params="fp32",
+         compute="bf16", batch=4, seq=1024, steps=TRAIN_STEPS,
+         lr=TRAIN_LR, amp="dynamic", losses=losses,
+         launches=train_launches, launches_per_step=per_step,
+         step_ms=[x * 1e3 for x in step_s], steady_step_ms=steady_ms,
+         tokens_per_step=tokens_per_step,
+         tokens_per_s=tokens_per_step / steady_ms * 1e3,
+         step_device_busy_ms=train_busy,
+         idle_share=1 - train_busy["total"] / steady_ms,
+         grad_flatten_ms=pack["ms"], grad_flatten_call_ms=pack["call_ms"],
+         max_memory_allocated=peak_bytes,
+         loss_scale=trainer.sstate.scale.item(),
+         fp32_grad_worst_rel_l2=worst, fp32_grad_worst_param=worst_name,
+         fp32_grad_rel_l2_tol=TRAIN_GRAD_REL_L2,
+         serve_vs_trained_rel_l2=serve_vs_trained,
+         serve_vs_initial_rel_l2=serve_vs_initial,
+         served_tokens=[int(first[0]), int(nxt[0])], card=card)
+
     replaces = {
         "ln_fwd": ("apex_tpu_torch/csrc/layer_norm.cu",
                    "apex_tpu/ops/pallas/layer_norm_kernel.py:102"),
+        "ln_bwd": ("apex_tpu_torch/csrc/layer_norm.cu",
+                   "apex_tpu/ops/pallas/layer_norm_kernel.py:211"),
         "fa_fwd": ("apex_tpu_torch/csrc/flash_attention.cu",
                    "apex_tpu/ops/pallas/flash_attention.py:430"),
+        "fa_bwd_dq": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+                      "apex_tpu/ops/pallas/flash_attention.py:505"),
+        "fa_bwd_dkv": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+                       "apex_tpu/ops/pallas/flash_attention.py:559"),
+        "fused_adam": ("apex_tpu_torch/csrc/fused_adam.cu",
+                       "apex_tpu/ops/pallas/fused_adam_kernel.py:178"),
     }
     kernels = []
     for name, (src, tpu) in replaces.items():
@@ -450,12 +819,13 @@ def main() -> int:
             "launches": main_launches[name],
             "launches_forward": fwd_launches.get(name, 0),
             "launches_serve": serve_launches.get(name, 0),
+            "launches_train": train_launches.get(name, 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"],
             "shape": {k: rec[k] for k in ("rows", "hidden", "b", "h", "sq",
-                                          "sk", "causal", "dtype")
+                                          "sk", "causal", "n", "dtype")
                       if k in rec}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

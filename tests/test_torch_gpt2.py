@@ -66,9 +66,11 @@ def test_full_forward_matches_jax(jax_params, port_model, offset):
 
 
 @pytest.mark.parametrize("write", ["load_state_dict", "copy_"])
+@torch.no_grad()
 def test_compute_dtype_copies_are_kept_until_written(write):
-    """The bf16 copies the matrix products read are made once, reused on
-    the next forward, and made again after the fp32 parameter changes."""
+    """Without autograd (as serving runs) the bf16 copies the matrix
+    products read are made once, reused on the next forward, and made
+    again after the fp32 parameter changes."""
     cfg = dataclasses.replace(TCFG, n_layer=1)
     old, new = init_gpt2_params(cfg, seed=1), init_gpt2_params(cfg, seed=2)
     cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
@@ -87,6 +89,23 @@ def test_compute_dtype_copies_are_kept_until_written(write):
     assert in_dtype(model, "wte", torch.bfloat16) is not wte
     fresh = GPT2.from_params(cfg, new, device="cpu")
     torch.testing.assert_close(model(tokens), fresh(tokens), atol=0, rtol=0)
+
+
+def test_compute_dtype_casts_are_graph_ops_under_autograd():
+    """While autograd records, each cast is a fresh graph op (so the
+    gradient reaches the fp32 parameter) and nothing is cached; the
+    gradients of a bf16-compute model are fp32 and finite."""
+    cfg = dataclasses.replace(GPT2Config.tiny(), n_layer=1)
+    model = GPT2.from_params(cfg, init_gpt2_params(cfg, seed=1),
+                             device="cpu")
+    a = in_dtype(model, "wte", torch.bfloat16)
+    assert a.requires_grad and a.grad_fn is not None
+    assert in_dtype(model, "wte", torch.bfloat16) is not a
+    assert "_casts" not in model.__dict__
+    model(torch.arange(8).reshape(1, 8)).float().mean().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        assert torch.isfinite(p.grad).all(), name
 
 
 def test_hidden_states_match_jax(jax_params, port_model):

@@ -1,14 +1,18 @@
-"""Port parity: LayerNorm forward (apex_tpu_torch vs apex_tpu).
+"""Port parity: LayerNorm forward and backward (apex_tpu_torch vs
+apex_tpu).
 
-The same numpy inputs, made from a seed, go through the JAX Pallas kernel
-``ln_fwd_pallas`` (interpret mode on the CPU, as the JAX package's own
-tests run it) or the JAX ``fused_layer_norm_affine``, and through the
-port's ``ln_fwd`` on CPU tensors, which runs the CUDA kernel's plain
-version. Tolerances: fp32 1e-5 absolute; bf16 outputs compared in fp32 to
+The same numpy inputs, made from a seed, go through the JAX Pallas kernels
+``ln_fwd_pallas`` / ``ln_bwd_pallas`` (interpret mode on the CPU, as the
+JAX package's own tests run them) or the JAX ``fused_layer_norm_affine``
+(and its ``jax.grad``), and through the port's ``ln_fwd`` / ``ln_bwd`` on
+CPU tensors, which run the CUDA kernels' plain versions, and the port's
+autograd. Tolerances: fp32 1e-5 absolute; bf16 outputs compared in fp32 to
 one bf16 ulp of the JAX value (the two frameworks may round the last bit
-differently); fp32 statistics 1e-5.
+differently); fp32 statistics 1e-5; dgamma / dbeta (fp32 sums over rows,
+in another order) 1e-4 absolute; bf16 dx two bf16 ulps.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,11 +21,13 @@ import torch
 from apex_tpu.normalization.fused_layer_norm import (
     FusedLayerNorm as JaxFusedLayerNorm, fused_layer_norm_affine as
     jax_fused_layer_norm_affine)
-from apex_tpu.ops.pallas.layer_norm_kernel import ln_fwd_pallas
+from apex_tpu.ops.pallas.layer_norm_kernel import (ln_bwd_pallas,
+                                                   ln_fwd_pallas)
 from apex_tpu_torch.normalization.fused_layer_norm import (
     FusedLayerNorm, fused_layer_norm_affine, manual_layer_norm)
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.layer_norm_kernel import ln_fwd, ln_fwd_plain
+from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
+                                                  ln_fwd, ln_fwd_plain)
 
 EPS = 1e-5
 DTYPES = {"fp32": (np.float32, jnp.float32, torch.float32),
@@ -42,13 +48,13 @@ def _bf16_ulp(ref: np.ndarray) -> np.ndarray:
     return np.ldexp(1.0, e - 8)
 
 
-def _assert_y(port, ref, dtype):
+def _assert_y(port, ref, dtype, ulps=1):
     port = np.asarray(port, np.float32)
     ref = np.asarray(ref, np.float32)
     if dtype == "fp32":
         np.testing.assert_allclose(port, ref, atol=1e-5, rtol=0)
     else:
-        assert np.all(np.abs(port - ref) <= _bf16_ulp(ref)), \
+        assert np.all(np.abs(port - ref) <= ulps * _bf16_ulp(ref)), \
             np.max(np.abs(port - ref))
 
 
@@ -129,3 +135,95 @@ def test_kernel_path_agrees_with_manual_reference_and_counts_nothing():
                                ln_fwd_plain(xt, gt, bt, eps=EPS)[0],
                                atol=0, rtol=0)
     assert sum(_build.launches.values()) == 0
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("rows", [16, 13])
+def test_ln_bwd_matches_pallas_kernel(rows, dtype, with_bias):
+    """dx, dgamma and dbeta (None without a bias) of the port's kernel path
+    against ``ln_bwd_pallas`` on the same saved statistics."""
+    x, g, b = _inputs(rows, 256, seed=rows + 1)
+    dy = np.random.default_rng(rows).standard_normal((rows, 256)) \
+        .astype(np.float32)
+    jb = jnp.asarray(b) if with_bias else None
+    _, mj, ivj = ln_fwd_pallas(_to_jax(x, dtype), jnp.asarray(g), jb,
+                               eps=EPS, rms=False)
+    dxj, dgj, dbj = ln_bwd_pallas(_to_jax(dy, dtype), _to_jax(x, dtype),
+                                  jnp.asarray(g), jb, mj, ivj, rms=False,
+                                  memory_efficient=False)
+    dxt, dgt, dbt = ln_bwd(
+        _to_torch(dy, dtype), _to_torch(x, dtype), torch.from_numpy(g),
+        torch.from_numpy(b) if with_bias else None,
+        torch.from_numpy(np.array(mj)), torch.from_numpy(np.array(ivj)))
+    assert dxt.dtype == DTYPES[dtype][2] and dgt.dtype == torch.float32
+    _assert_y(dxt.float().numpy(), np.asarray(dxj.astype(jnp.float32)),
+              dtype, ulps=2)
+    np.testing.assert_allclose(dgt.numpy(), np.asarray(dgj), atol=1e-4,
+                               rtol=1e-5)
+    if with_bias:
+        np.testing.assert_allclose(dbt.numpy(), np.asarray(dbj), atol=1e-4,
+                                   rtol=1e-5)
+    else:
+        assert dbt is None and dbj is None
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("hidden", [256, 96])
+def test_autograd_matches_jax_grad(hidden, with_bias):
+    """Gradients of a weighted sum of ``fused_layer_norm_affine`` with
+    respect to x, weight and bias: the port's autograd (through ln_bwd)
+    against ``jax.grad`` (through ln_bwd_pallas; the jnp path at hidden
+    96)."""
+    x, g, b = _inputs(2 * 6, hidden, seed=hidden + with_bias)
+    x3 = x.reshape(2, 6, hidden)
+    w = np.random.default_rng(1).standard_normal(x3.shape).astype(np.float32)
+
+    def jloss(x_, g_, b_):
+        y = jax_fused_layer_norm_affine(x_, g_, b_, hidden, EPS)
+        return jnp.sum(y * w)
+
+    argn = (0, 1, 2) if with_bias else (0, 1)
+    jgrads = jax.grad(jloss, argnums=argn)(
+        jnp.asarray(x3), jnp.asarray(g), jnp.asarray(b) if with_bias
+        else None)
+    xt, gt = (torch.from_numpy(a).requires_grad_() for a in (x3, g))
+    bt = torch.from_numpy(b).requires_grad_() if with_bias else None
+    y = fused_layer_norm_affine(xt, gt, bt, hidden, EPS)
+    (y * torch.from_numpy(w)).sum().backward()
+    tgrads = (xt.grad, gt.grad) + ((bt.grad,) if with_bias else ())
+    for tg, jg in zip(tgrads, jgrads):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-4,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_bias_none_matches_upstream(dtype):
+    """``fused_layer_norm_affine(x, w, None, h)`` as upstream takes it: no
+    bias is added (this raised AttributeError in the first slice)."""
+    x, g, _ = _inputs(8, 256, seed=21)
+    yj = jax_fused_layer_norm_affine(_to_jax(x, dtype), jnp.asarray(g), None,
+                                     256, EPS)
+    yt = fused_layer_norm_affine(_to_torch(x, dtype), torch.from_numpy(g),
+                                 None, 256, EPS)
+    _assert_y(yt.float().numpy(), np.asarray(yj.astype(jnp.float32)), dtype)
+    with pytest.raises(NotImplementedError, match="memory_efficient"):
+        fused_layer_norm_affine(_to_torch(x, dtype), torch.from_numpy(g),
+                                None, 256, EPS, memory_efficient=True)
+
+
+def test_ln_bwd_plain_is_the_autograd_of_the_plain_forward():
+    """The plain backward is the exact derivative of the plain forward:
+    held against torch autograd of ``ln_fwd_plain`` (fp32, 1e-5)."""
+    x, g, b = _inputs(7, 96, seed=5)
+    xt, gt, bt = (torch.from_numpy(a).double().requires_grad_()
+                  for a in (x, g, b))
+    y, mean, invvar = ln_fwd_plain(xt.float(), gt.float(), bt.float(),
+                                   eps=EPS)
+    dy = torch.randn(7, 96, generator=torch.Generator().manual_seed(0))
+    y.backward(dy)
+    dx, dg, db = ln_bwd_plain(dy, xt.detach().float(), gt.detach().float(),
+                              bt.detach().float(), mean.detach(),
+                              invvar.detach())
+    for mine, ref in ((dx, xt.grad), (dg, gt.grad), (db, bt.grad)):
+        torch.testing.assert_close(mine, ref.float(), atol=1e-5, rtol=1e-5)

@@ -6,7 +6,8 @@ refuses.
 - entry points run on ``cuda`` unless given ``device="cpu"``, and raise
   without CUDA instead of moving to the host;
 - options that belong to later slices, and inputs the kernels do not
-  take, raise; nothing falls back.
+  take, raise; nothing falls back;
+- gradients flow through the kernels' wrappers and the model.
 """
 
 import ast
@@ -19,7 +20,10 @@ import torch
 from apex_tpu_torch.models.convert import init_gpt2_params
 from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.flash_attention import flash_attention_fwd
+from apex_tpu_torch.normalization.fused_layer_norm import (
+    fused_layer_norm_affine)
+from apex_tpu_torch.ops.flash_attention import (flash_attention,
+                                                flash_attention_fwd)
 from apex_tpu_torch.ops.layer_norm_kernel import ln_fwd
 from apex_tpu_torch.serve import cli
 from apex_tpu_torch.serve.engine import Engine, EngineConfig
@@ -115,24 +119,36 @@ def test_later_slice_options_raise(field, value):
         Engine(TINY, init_gpt2_params(TINY), cfg, device="cpu")
 
 
-def test_kernels_refuse_gradients():
+def test_kernels_pass_gradients():
+    """Inputs that need a gradient go through the differentiable entry
+    points (LayerNorm, flash attention) and get one; the raw forward
+    wrappers run under autograd too."""
     x = torch.randn(4, 64, requires_grad=True)
-    g, b = torch.ones(64), torch.zeros(64)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ln_fwd(x, g, b, eps=1e-5)
+    g = torch.ones(64, requires_grad=True)
+    b = torch.zeros(64, requires_grad=True)
+    fused_layer_norm_affine(x, g, b, 64).square().sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (x, g, b))
     q = torch.randn(1, 1, 8, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention_fwd(q, q, q, scale=0.125, causal=True)
-    with torch.no_grad():
-        ln_fwd(x, g, b, eps=1e-5)
+    flash_attention(q, q, q, True).sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    y, _, _ = ln_fwd(x, g, b, eps=1e-5)
+    o, _ = flash_attention_fwd(q, q, q, scale=0.125, causal=True)
+    assert y.shape == x.shape and o.shape == q.shape
 
 
-def test_model_forward_needs_no_grad_context():
-    """Parameters are frozen at build, so a plain forward runs."""
+def test_model_forward_builds_a_graph_to_every_parameter():
+    """Parameters are trainable: a plain forward records the graph and
+    the loss's gradient reaches every parameter; under no_grad nothing
+    is recorded."""
     model = GPT2.from_params(TINY, init_gpt2_params(TINY), device="cpu")
-    assert not any(p.requires_grad for p in model.parameters())
+    assert all(p.requires_grad for p in model.parameters())
     logits = model(torch.tensor([[1, 2, 3]]))
-    assert logits.shape == (1, 3, TINY.vocab_size)
+    assert logits.shape == (1, 3, TINY.vocab_size) and logits.requires_grad
+    logits.square().mean().backward()
+    assert all(p.grad is not None for p in model.parameters())
+    with torch.no_grad():
+        assert not model(torch.tensor([[1, 2, 3]])).requires_grad
 
 
 def test_wrappers_refuse_other_devices():
@@ -155,7 +171,11 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_sources_and_digest():
     names = [p.name for p in _build.sources()]
-    assert names == ["flash_attention.cu", "layer_norm.cu"]
+    assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
+                     "fused_adam.cu", "layer_norm.cu"]
+    assert set(_build.SIGNATURES) == {
+        "apex_ln_fwd", "apex_ln_bwd", "apex_fa_fwd", "apex_fa_bwd_dq",
+        "apex_fa_bwd_dkv", "apex_fused_adam"}
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="cudaError 7"):
