@@ -39,4 +39,22 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// An additive fp32 score bias broadcastable to (batch, head, q, k), read
+// through one stride per dimension (0 on a broadcast dimension), so a
+// (b, 1, 1, sk) padding mask is never expanded. `p` is null without one.
+struct ScoreBias {
+  const float* p;
+  int heads;                 // h: the flat batch * head index is b * h + h'
+  long long sb, sh, sq, sk;  // strides in elements
+  // the (batch, head) slice of flat index bh, or null without a bias
+  __device__ __forceinline__ const float* slice(long long bh) const {
+    return p == nullptr ? nullptr : p + (bh / heads) * sb + (bh % heads) * sh;
+  }
+  // entry (row, key) of a slice; the caller keeps row < sq, key < sk
+  __device__ __forceinline__ float at(const float* s, int row,
+                                      int key) const {
+    return s[(long long)row * sq + (long long)key * sk];
+  }
+};
+
 }  // namespace apex_port

@@ -2,12 +2,19 @@
 // with an online softmax, plus the fp32 row log-sum-exp.
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `flash_attention_fwd`
-// (the Pallas kernel `_fa_fwd_kernel`) for the no-bias, no-dropout case,
-// causal or not, with the JAX layout q (b, h, sq, d), k / v (b, h, sk, d).
+// (the Pallas kernel `_fa_fwd_kernel`) without dropout, causal or not, with
+// or without an additive fp32 score bias, with the JAX layout q
+// (b, h, sq, d), k / v (b, h, sk, d). The bias (a boolean mask arrives as
+// -1e30 where masked, `flash_attention`'s rule) is broadcastable to
+// (b, h, sq, sk) and read through per-dimension strides, 0 on a broadcast
+// dimension, so a (b, 1, 1, sk) padding mask is never expanded (the TPU's
+// `_BiasPlan` rule): s = (q . k) * scale + bias.
 // Conventions kept from the TPU kernel: scores in fp32, masked scores set to
-// -1e30, the rescale of a row whose running max is still "masked" shifted by
-// 0 so exp() underflows to 0, p cast to v's dtype before the p.v product,
-// fully masked rows give o = 0 and lse = -1e30, lse = m + log(l) in fp32.
+// -1e30 (a score <= -0.5e30, from the bias too, is out of the softmax
+// support), the rescale of a row whose running max is still "masked"
+// shifted by 0 so exp() underflows to 0, p cast to v's dtype before the p.v
+// product, fully masked rows give o = 0 and lse = -1e30, lse = m + log(l)
+// in fp32.
 //
 // What bounds it on this card: operations. At the main path's shapes
 // (b = 4, h = 12, s = 1024, d = 64) the kernel does ~2 * 2 * s^2 * d flops
@@ -26,7 +33,9 @@
 // 65-float row stride to keep the lanes on distinct banks. The products run
 // on the fp32 FMA pipes, not the tensor cores; moving them to wgmma with
 // TMA-fed tiles is the next step and is what the bound above asks for.
-// Ragged sq / sk are masked inside the kernel (no padding copies).
+// Ragged sq / sk are masked inside the kernel (no padding copies). The bias
+// is a compile-time variant: the kernel without one keeps no bias registers
+// or branches.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -49,12 +58,12 @@ constexpr float kMaskEdge = 0.5f * kNegInf;
 constexpr size_t kSmemFloats =
     kBQ * kD + kBK * kKStride + kBK * kD + kWarps * kRW * kBK;
 
-template <typename T>
+template <typename T, bool kBias>
 __global__ void __launch_bounds__(kWarps * 32)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
               float* __restrict__ lse, int sq, int sk, float scale,
-              int causal) {
+              int causal, ScoreBias bias) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [kBQ][kD]
   float* ks = qs + kBQ * kD;         // [kBK][kKStride]
@@ -70,6 +79,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + bh * sq * kD;
   const T* kb = k + bh * sk * kD;
   const T* vb = v + bh * sk * kD;
+  const float* bs = kBias ? bias.slice(bh) : nullptr;
 
   for (int i = tid; i < kBQ * kD; i += kWarps * 32) {
     const int row = q0 + i / kD;
@@ -125,7 +135,13 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRW; ++r) {
       const int row = row0 + r;
-      float a = s0[r] * scale, b = s1[r] * scale;
+      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+      // plain version's round(round(q.k * scale) + bias)
+      float a = __fmul_rn(s0[r], scale), b = __fmul_rn(s1[r], scale);
+      if (kBias && row < sq) {
+        if (key0 < sk) a = __fadd_rn(a, bias.at(bs, row, key0));
+        if (key1 < sk) b = __fadd_rn(b, bias.at(bs, row, key1));
+      }
       if (key0 >= sk || (causal && key0 > row)) a = kNegInf;
       if (key1 >= sk || (causal && key1 > row)) b = kNegInf;
       const float m_prev = m[r];
@@ -172,32 +188,43 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int sq, int sk, float scale, int causal,
-           cudaStream_t stream) {
+           const ScoreBias& bias, cudaStream_t stream) {
   const int smem = (int)(kSmemFloats * sizeof(float));
-  cudaFuncSetAttribute(fa_fwd_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // a separate instantiation with the bias, so the unbiased kernel keeps
+  // no bias registers or branches
+  const auto kernel = bias.p != nullptr ? fa_fwd_kernel<T, true>
+                                        : fa_fwd_kernel<T, false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  fa_fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
+  kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, scale, causal);
+      sq, sk, scale, causal, bias);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o); lse is float32
-// [bh, sq]. Only head_dim 64 is compiled.
+// [bh, sq]. Only head_dim 64 is compiled. bias: float32 or null; heads =
+// h of bh = b * h; bsb, bsh, bsq, bsk its strides in elements (0 on a
+// broadcast dimension).
 extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
-                           void* o, void* lse, int bh, int sq, int sk, int d,
-                           float scale, int causal, int dtype, void* stream) {
-  if (d != kD || bh > 65535) return (int)cudaErrorInvalidValue;
+                           const void* bias, void* o, void* lse, int bh,
+                           int heads, int sq, int sk, int d, float scale,
+                           int causal, long long bsb, long long bsh,
+                           long long bsq, long long bsk, int dtype,
+                           void* stream) {
+  if (d != kD || bh > 65535 || heads < 1) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
+                                bsb, bsh, bsq, bsk};
   if (dtype == 0)
-    return launch<float>(q, k, v, o, lse, bh, sq, sk, scale, causal, s);
+    return launch<float>(q, k, v, o, lse, bh, sq, sk, scale, causal, sb, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, scale, causal,
-                                 s);
+                                 sb, s);
   return (int)cudaErrorInvalidValue;
 }

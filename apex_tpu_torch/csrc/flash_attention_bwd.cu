@@ -2,12 +2,15 @@
 // forward's fp32 row log-sum-exp, without the (sq, sk) probability matrix.
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `flash_attention_bwd`,
-// its two Pallas kernels `_fa_dq_kernel` and `_fa_dkv_kernel`, for the
-// no-bias, no-dropout case, causal or not, JAX layout q / do (b, h, sq, d),
-// k / v (b, h, sk, d), lse and D = rowsum(do * o) as fp32 (b, h, sq)
-// (D is computed outside the kernels, as the JAX wrapper computes it).
-// Per (query i, key j):
-//   s  = (q_i . k_j) * scale in fp32, masked where j >= sk or (causal) j > i
+// its two Pallas kernels `_fa_dq_kernel` and `_fa_dkv_kernel`, without
+// dropout and without dbias, causal or not, with or without an additive
+// fp32 score bias (read through per-dimension strides, 0 on a broadcast
+// dimension, never expanded: see flash_attention.cu), JAX layout q / do
+// (b, h, sq, d), k / v (b, h, sk, d), lse and D = rowsum(do * o) as fp32
+// (b, h, sq) (D is computed outside the kernels, as the JAX wrapper
+// computes it). Per (query i, key j):
+//   s  = (q_i . k_j) * scale + bias_ij in fp32, masked where j >= sk or
+//        (causal) j > i
 //   p  = exp(s - lse_i), exactly 0 where s is masked or lse_i <= -0.5e30
 //        (fully masked rows give zero gradients: `_bwd_p`)
 //   dp = do_i . v_j,  ds = p * (dp - D_i)
@@ -42,7 +45,8 @@
 // lanes hit 32 distinct banks. The products run on the fp32 FMA pipes, not
 // the tensor cores; moving them to wgmma is later work. Ragged sq / sk are
 // masked inside the kernels (no padding copies): padded query rows read
-// lse = -1e30 and so contribute nothing.
+// lse = -1e30 and so contribute nothing. The bias is a compile-time
+// variant, as in the forward.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; each function returns cudaGetLastError() after its launch.
@@ -88,13 +92,13 @@ __device__ __forceinline__ void load_tile(float* dst, int stride,
   }
 }
 
-template <typename T>
+template <typename T, bool kBias>
 __global__ void __launch_bounds__(kWarps * 32)
 fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ dvec, T* __restrict__ dq, int sq,
-                 int sk, float scale, int causal) {
+                 int sk, float scale, int causal, ScoreBias bias) {
   extern __shared__ float smem[];
   float* qs = smem;                   // [kBQ][kD]
   float* dos = qs + kBQ * kD;         // [kBQ][kD]
@@ -112,6 +116,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kBQ;
   const T* kb = k + bh * sk * kD;
   const T* vb = v + bh * sk * kD;
+  const float* bs = kBias ? bias.slice(bh) : nullptr;
 
   load_tile(qs, kD, q + bh * sq * kD, q0, sq);
   load_tile(dos, kD, dout + bh * sq * kD, q0, sq);
@@ -176,8 +181,15 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float dsum = dd[warp * kRW + r];
       const bool m0 = key0 >= sk || (causal && key0 > row);
       const bool m1 = key1 >= sk || (causal && key1 > row);
-      const float p0 = m0 ? 0.f : bwd_p(s0[r] * scale, l);
-      const float p1 = m1 ? 0.f : bwd_p(s1[r] * scale, l);
+      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+      // plain version's round(round(q.k * scale) + bias)
+      float a = __fmul_rn(s0[r], scale), b = __fmul_rn(s1[r], scale);
+      if (kBias && row < sq) {
+        if (!m0) a = __fadd_rn(a, bias.at(bs, row, key0));
+        if (!m1) b = __fadd_rn(b, bias.at(bs, row, key1));
+      }
+      const float p0 = m0 ? 0.f : bwd_p(a, l);
+      const float p1 = m1 ? 0.f : bwd_p(b, l);
       // dl = p (dp - D); the dq product takes dl * scale in k's dtype
       sw[r * kBK + lane] = round_to<T>(p0 * (t0[r] - dsum) * scale);
       sw[r * kBK + lane + 32] = round_to<T>(p1 * (t1[r] - dsum) * scale);
@@ -207,14 +219,14 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool kBias>
 __global__ void __launch_bounds__(kWarps * 32)
 fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ dvec, T* __restrict__ dk,
                   T* __restrict__ dv, int sq, int sk, float scale,
-                  int causal) {
+                  int causal, ScoreBias bias) {
   extern __shared__ float smem[];
   float* ks = smem;                   // [kBK][kD]
   float* vs = ks + kBK * kD;          // [kBK][kD]
@@ -232,6 +244,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = kt * kBK;
   const T* qb = q + bh * sq * kD;
   const T* dob = dout + bh * sq * kD;
+  const float* bs = kBias ? bias.slice(bh) : nullptr;
 
   load_tile(ks, kD, k + bh * sk * kD, k0, sk);
   load_tile(vs, kD, v + bh * sk * kD, k0, sk);
@@ -290,8 +303,15 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int key = key_row0 + r;
       const bool m0 = key >= sk || (causal && key > qry0);
       const bool m1 = key >= sk || (causal && key > qry1);
-      s0[r] = m0 ? 0.f : bwd_p(s0[r] * scale, l0);
-      s1[r] = m1 ? 0.f : bwd_p(s1[r] * scale, l1);
+      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+      // plain version's round(round(q.k * scale) + bias)
+      float a = __fmul_rn(s0[r], scale), b = __fmul_rn(s1[r], scale);
+      if (kBias) {
+        if (!m0 && qry0 < sq) a = __fadd_rn(a, bias.at(bs, qry0, key));
+        if (!m1 && qry1 < sq) b = __fadd_rn(b, bias.at(bs, qry1, key));
+      }
+      s0[r] = m0 ? 0.f : bwd_p(a, l0);
+      s1[r] = m1 ? 0.f : bwd_p(b, l1);
       // the dv product takes p in do's dtype
       sw[r * kBQ + lane] = round_to<T>(s0[r]);
       sw[r * kBQ + lane + 32] = round_to<T>(s1[r]);
@@ -366,69 +386,89 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* dvec, void* dq, int bh, int sq,
-              int sk, float scale, int causal, cudaStream_t stream) {
+              int sk, float scale, int causal, const ScoreBias& bias,
+              cudaStream_t stream) {
   const int smem = (int)(kSmemFloats * sizeof(float));
-  cudaFuncSetAttribute(fa_bwd_dq_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // a separate instantiation with the bias, so the unbiased kernel keeps
+  // no bias registers or branches
+  const auto kernel = bias.p != nullptr ? fa_bwd_dq_kernel<T, true>
+                                        : fa_bwd_dq_kernel<T, false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
   const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  fa_bwd_dq_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
+  kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dq), sq, sk, scale, causal);
+      static_cast<T*>(dq), sq, sk, scale, causal, bias);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* dvec, void* dk, void* dv, int bh,
-               int sq, int sk, float scale, int causal, cudaStream_t stream) {
+               int sq, int sk, float scale, int causal,
+               const ScoreBias& bias, cudaStream_t stream) {
   const int smem = (int)(kSmemFloats * sizeof(float));
-  cudaFuncSetAttribute(fa_bwd_dkv_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // a separate instantiation with the bias, so the unbiased kernel keeps
+  // no bias registers or branches
+  const auto kernel = bias.p != nullptr ? fa_bwd_dkv_kernel<T, true>
+                                        : fa_bwd_dkv_kernel<T, false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
   const dim3 grid((sk + kBK - 1) / kBK, bh);
-  fa_bwd_dkv_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
+  kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, scale, causal);
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, scale, causal,
+      bias);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients); lse and
-// dvec are float32 [bh, sq]. Only head_dim 64 is compiled.
+// dvec are float32 [bh, sq]. Only head_dim 64 is compiled. bias, heads and
+// the bias strides as for apex_fa_fwd.
 extern "C" int apex_fa_bwd_dq(const void* q, const void* k, const void* v,
-                              const void* dout, const void* lse,
-                              const void* dvec, void* dq, int bh, int sq,
-                              int sk, int d, float scale, int causal,
+                              const void* bias, const void* dout,
+                              const void* lse, const void* dvec, void* dq,
+                              int bh, int heads, int sq, int sk, int d,
+                              float scale, int causal, long long bsb,
+                              long long bsh, long long bsq, long long bsk,
                               int dtype, void* stream) {
-  if (d != kD || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (d != kD || bh > 65535 || heads < 1) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
+                                bsb, bsh, bsq, bsk};
   if (dtype == 0)
     return launch_dq<float>(q, k, v, dout, lse, dvec, dq, bh, sq, sk, scale,
-                            causal, s);
+                            causal, sb, s);
   if (dtype == 1)
     return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, dvec, dq, bh, sq, sk,
-                                    scale, causal, s);
+                                    scale, causal, sb, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* dvec, void* dk, void* dv, int bh,
-                               int sq, int sk, int d, float scale, int causal,
+                               const void* bias, const void* dout,
+                               const void* lse, const void* dvec, void* dk,
+                               void* dv, int bh, int heads, int sq, int sk,
+                               int d, float scale, int causal, long long bsb,
+                               long long bsh, long long bsq, long long bsk,
                                int dtype, void* stream) {
-  if (d != kD || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (d != kD || bh > 65535 || heads < 1) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sk <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
+                                bsb, bsh, bsq, bsk};
   if (dtype == 0)
     return launch_dkv<float>(q, k, v, dout, lse, dvec, dk, dv, bh, sq, sk,
-                             scale, causal, s);
+                             scale, causal, sb, s);
   if (dtype == 1)
     return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, dvec, dk, dv, bh, sq,
-                                     sk, scale, causal, s);
+                                     sk, scale, causal, sb, s);
   return (int)cudaErrorInvalidValue;
 }

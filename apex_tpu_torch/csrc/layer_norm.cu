@@ -1,16 +1,19 @@
-// Row LayerNorm forward and backward for Hopper (sm_90a).
+// Row LayerNorm / RMSNorm forward and backward for Hopper (sm_90a).
 //
 // Replaces: apex_tpu/ops/pallas/layer_norm_kernel.py `ln_fwd_pallas` (the
 // Pallas kernel `_ln_fwd_kernel`) and `ln_bwd_pallas` (`_ln_bwd_kernel`),
-// their LayerNorm form with gamma and an optional beta:
-//   forward  y = (x - mean) * rsqrt(var + eps) * gamma (+ beta), statistics
-//            in fp32 whatever the IO dtype, mean / invvar returned as fp32
-//            (rows, 1) columns;
-//   backward xhat = (x - mean) * rstd, wdy = dy * gamma,
-//            dx = (wdy - xhat * mean(xhat * wdy) - mean(wdy)) * rstd,
-//            dgamma = sum over rows of dy * xhat, dbeta = sum of dy.
+// their LayerNorm and RMSNorm forms (x saved), with or without gamma:
+//   forward  LayerNorm: y = (x - mean) * rsqrt(var + eps) * gamma (+ beta),
+//            RMSNorm: y = x * rsqrt(mean(x^2) + eps) * gamma, mean written
+//            as 0; statistics in fp32 whatever the IO dtype, mean / invvar
+//            returned as fp32 (rows, 1) columns;
+//   backward xhat = (x - mean) * rstd (RMSNorm: x * rstd), wdy = dy * gamma,
+//            dx = (wdy - xhat * mean(xhat * wdy) - mean(wdy)) * rstd, the
+//            mean(wdy) term only for LayerNorm, dgamma = sum over rows of
+//            dy * xhat, dbeta = sum of dy.
 // A null beta means zero (the forward adds nothing, the backward writes no
-// dbeta).
+// dbeta). A null gamma means no affine step: y = xhat, wdy = dy, and the
+// backward writes neither dgamma nor dbeta and skips its reduce launch.
 //
 // What bounds both on this card: memory bytes. Each element is read once
 // (twice, x and dy, in the backward) and written once and costs about ten
@@ -47,7 +50,10 @@ constexpr int kFwdWarps = 4;
 constexpr int kReduceCols = 32;  // columns per block of the partial sum
 constexpr int kReduceRows = 8;   // partial rows summed side by side
 
-template <typename T>
+// kRms: RMSNorm (no centring); kAffine: gamma (and an optional beta). Each
+// form is its own instantiation, so the LayerNorm form carries no branch
+// of the others.
+template <typename T, bool kRms, bool kAffine>
 __global__ void ln_fwd_kernel(const T* __restrict__ x,
                               const float* __restrict__ gamma,
                               const float* __restrict__ beta,
@@ -70,7 +76,8 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
     s += v;
   }
   const float inv_h = 1.f / (float)hidden;
-  const float mu = warp_sum(s) * inv_h;
+  // RMSNorm centres on 0: the second pass then sums x^2
+  const float mu = kRms ? 0.f : warp_sum(s) * inv_h;
   float ss = 0.f;
   for (int i = lane; i < hidden; i += 32) {
     const float c = xs[i] - mu;
@@ -78,8 +85,13 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
   }
   const float rstd = rsqrtf(warp_sum(ss) * inv_h + eps);
   for (int i = lane; i < hidden; i += 32) {
-    const float b = beta != nullptr ? beta[i] : 0.f;
-    yr[i] = from_f32<T>((xs[i] - mu) * rstd * gamma[i] + b);
+    const float xhat = (xs[i] - mu) * rstd;
+    if (!kAffine) {
+      yr[i] = from_f32<T>(xhat);
+    } else {
+      const float b = beta != nullptr ? beta[i] : 0.f;
+      yr[i] = from_f32<T>(xhat * gamma[i] + b);
+    }
   }
   if (lane == 0) {
     mean[row] = mu;
@@ -88,8 +100,10 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
 }
 
 // Shared memory per warp: xhat, dy, and the running dgamma / dbeta sums of
-// the rows the warp has done, each `hidden` floats.
-template <typename T>
+// the rows the warp has done, each `hidden` floats. kRms drops the mean
+// (read as 0) and the mean(wdy) term; without kAffine (no gamma, null
+// part_g) wdy = dy and no sums are kept.
+template <typename T, bool kRms, bool kAffine>
 __global__ void ln_bwd_kernel(const T* __restrict__ dy,
                               const T* __restrict__ x,
                               const float* __restrict__ gamma,
@@ -116,30 +130,33 @@ __global__ void ln_bwd_kernel(const T* __restrict__ dy,
        row += stride) {
     const T* dyr = dy + row * hidden;
     const T* xr = x + row * hidden;
-    const float mu = mean[row];
+    const float mu = kRms ? 0.f : mean[row];
     const float rstd = invvar[row];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll 4
     for (int i = lane; i < hidden; i += 32) {
       const float d = to_f32(dyr[i]);
       const float xhat = (to_f32(xr[i]) - mu) * rstd;
-      const float wdy = d * gamma[i];
+      const float wdy = kAffine ? d * gamma[i] : d;
       xh[i] = xhat;  // each lane reads back only what it wrote
       dys[i] = d;
       s1 += xhat * wdy;
       s2 += wdy;
-      acc_g[i] += d * xhat;
-      acc_b[i] += d;
+      if (kAffine) {
+        acc_g[i] += d * xhat;
+        acc_b[i] += d;
+      }
     }
     const float c1 = warp_sum(s1) / fh;
-    const float c2 = warp_sum(s2) / fh;
+    const float c2 = kRms ? 0.f : warp_sum(s2) / fh;
     T* dxr = dx + row * hidden;
 #pragma unroll 4
     for (int i = lane; i < hidden; i += 32) {
-      const float wdy = dys[i] * gamma[i];
+      const float wdy = kAffine ? dys[i] * gamma[i] : dys[i];
       dxr[i] = from_f32<T>((wdy - xh[i] * c1 - c2) * rstd);
     }
   }
+  if (!kAffine) return;  // no affine step: no dgamma / dbeta
   __syncthreads();
   // this block's partial row: its warps' sums added in warp order
   for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
@@ -189,15 +206,21 @@ __global__ void ln_bwd_reduce_kernel(const float* __restrict__ part_g,
 template <typename T>
 int launch_fwd(const void* x, const void* gamma, const void* beta, void* y,
                void* mean, void* invvar, int rows, int hidden, float eps,
-               cudaStream_t stream) {
+               int rms, cudaStream_t stream) {
   const size_t smem = (size_t)kFwdWarps * hidden * sizeof(float);
+  const bool affine = gamma != nullptr;
+  const auto kernel =
+      rms ? (affine ? ln_fwd_kernel<T, true, true>
+                    : ln_fwd_kernel<T, true, false>)
+          : (affine ? ln_fwd_kernel<T, false, true>
+                    : ln_fwd_kernel<T, false, false>);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(ln_fwd_kernel<T>,
+    cudaFuncSetAttribute(kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   }
   const int blocks = (rows + kFwdWarps - 1) / kFwdWarps;
-  ln_fwd_kernel<T><<<blocks, kFwdWarps * 32, smem, stream>>>(
+  kernel<<<blocks, kFwdWarps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<T*>(y),
       static_cast<float*>(mean), static_cast<float*>(invvar), rows, hidden,
@@ -209,21 +232,27 @@ template <typename T>
 int launch_bwd(const void* dy, const void* x, const void* gamma,
                const void* mean, const void* invvar, void* dx, void* part_g,
                void* part_b, void* dgamma, void* dbeta, int rows, int hidden,
-               int warps, int nblk, cudaStream_t stream) {
+               int warps, int nblk, int rms, cudaStream_t stream) {
   const size_t smem = (size_t)warps * 4 * hidden * sizeof(float);
+  const bool affine = gamma != nullptr;
+  const auto kernel =
+      rms ? (affine ? ln_bwd_kernel<T, true, true>
+                    : ln_bwd_kernel<T, true, false>)
+          : (affine ? ln_bwd_kernel<T, false, true>
+                    : ln_bwd_kernel<T, false, false>);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(ln_bwd_kernel<T>,
+    cudaFuncSetAttribute(kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   }
-  ln_bwd_kernel<T><<<nblk, warps * 32, smem, stream>>>(
+  kernel<<<nblk, warps * 32, smem, stream>>>(
       static_cast<const T*>(dy), static_cast<const T*>(x),
       static_cast<const float*>(gamma), static_cast<const float*>(mean),
       static_cast<const float*>(invvar), static_cast<T*>(dx),
       static_cast<float*>(part_g), static_cast<float*>(part_b), rows,
       hidden);
   int err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  if (err != 0 || part_g == nullptr) return err;
   const dim3 grid((hidden + kReduceCols - 1) / kReduceCols);
   ln_bwd_reduce_kernel<<<grid, dim3(kReduceCols, kReduceRows), 0, stream>>>(
       static_cast<const float*>(part_g), static_cast<const float*>(part_b),
@@ -234,39 +263,46 @@ int launch_bwd(const void* dy, const void* x, const void* gamma,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y); gamma / beta are float32
-// [hidden], beta may be null. mean / invvar are float32 [rows].
+// [hidden], both may be null (beta is only read with gamma). mean / invvar
+// are float32 [rows]. rms: 1 = RMSNorm (mean written as 0), 0 = LayerNorm.
 extern "C" int apex_ln_fwd(const void* x, const void* gamma, const void* beta,
                            void* y, void* mean, void* invvar, int rows,
-                           int hidden, float eps, int dtype,
+                           int hidden, float eps, int rms, int dtype,
                            void* stream) {
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_fwd<float>(x, gamma, beta, y, mean, invvar, rows, hidden,
-                             eps, s);
+                             eps, rms, s);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(x, gamma, beta, y, mean, invvar, rows,
-                                     hidden, eps, s);
+                                     hidden, eps, rms, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype as above for dy, x and dx. part_g / part_b: float32 scratch of
 // [nblk, hidden]; dgamma / dbeta: float32 [hidden]. part_b and dbeta are
-// null together when the forward had no beta. `warps` warps per block,
+// null together when the forward had no beta; gamma, part_g and dgamma are
+// null together (and then part_b and dbeta too) when it had no gamma. mean
+// is not read (and may be null) when rms = 1. `warps` warps per block,
 // `nblk` blocks (rows are dealt out warp by warp over the whole grid).
 extern "C" int apex_ln_bwd(const void* dy, const void* x, const void* gamma,
                            const void* mean, const void* invvar, void* dx,
                            void* part_g, void* part_b, void* dgamma,
                            void* dbeta, int rows, int hidden, int warps,
-                           int nblk, int dtype, void* stream) {
+                           int nblk, int rms, int dtype, void* stream) {
   if (warps < 1 || warps > 32 || nblk < 1) return (int)cudaErrorInvalidValue;
+  if ((gamma == nullptr) != (part_g == nullptr) ||
+      (part_g == nullptr && part_b != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_bwd<float>(dy, x, gamma, mean, invvar, dx, part_g, part_b,
-                             dgamma, dbeta, rows, hidden, warps, nblk, s);
+                             dgamma, dbeta, rows, hidden, warps, nblk, rms,
+                             s);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(dy, x, gamma, mean, invvar, dx, part_g,
                                      part_b, dgamma, dbeta, rows, hidden,
-                                     warps, nblk, s);
+                                     warps, nblk, rms, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-"""GPT-2 parameters for the port: from a flax tree and back, or made from
-a seed.
+"""GPT-2 and BERT parameters for the port: from a flax tree and back, or
+made from a seed.
 
 The port's parameter dict (``GPT2.state_dict()`` names) mirrors the flax
 tree of ``apex_tpu.models.gpt2.GPT2.init``:
@@ -15,6 +15,14 @@ dense weights PyTorch's way, ``(out, in)``, so :func:`params_from_jax`
 transposes them and :func:`params_to_jax` transposes them back. The
 ``mlp_*_w`` parameters are ``(out, in)`` in both. Everything is float32,
 as in the flax tree.
+
+BERT (``apex_tpu.models.bert.Bert``): ``word_embeddings``,
+``position_embeddings``, ``token_type_embeddings``, ``emb_norm.weight``
+(flax ``emb_norm/weight``) and per layer ``layer.{i}.`` (flax
+``layer_{i}/``): ``qkv`` / ``attn_out`` ``{weight,bias}`` (kernels
+transposed to ``(out, in)`` as for GPT-2), ``attn_norm.weight``,
+``mlp_fc_w (I, e)``, ``mlp_fc_b``, ``mlp_proj_w (e, I)``, ``mlp_proj_b``
+and ``mlp_norm.weight``.
 """
 
 from __future__ import annotations
@@ -89,15 +97,10 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return {"params": p}
 
 
-def init_gpt2_params(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Random GPT-2 parameters with flax's distributions, from a CPU
-    ``torch.Generator`` seeded with ``seed``: ``wte`` normal(0.02),
-    ``wpe`` normal(0.01), dense kernels lecun-normal (truncated at two
-    sigma, variance 1 / fan_in), ``mlp_*_w`` normal(0.02), LayerNorm
-    weights one, every bias zero. The numbers differ from a flax init
-    with the same seed (another generator); the distributions do not."""
+def _draws(seed: int):
+    """``(normal(shape, std), lecun(out_f, in_f))`` drawing from one CPU
+    generator seeded with ``seed``, with flax's distributions."""
     g = torch.Generator().manual_seed(int(seed))
-    e = cfg.n_embd
 
     def normal(shape, std):
         return torch.empty(shape).normal_(0.0, std, generator=g)
@@ -109,6 +112,18 @@ def init_gpt2_params(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
                                     generator=g)
         return w
 
+    return normal, lecun
+
+
+def init_gpt2_params(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random GPT-2 parameters with flax's distributions, from a CPU
+    ``torch.Generator`` seeded with ``seed``: ``wte`` normal(0.02),
+    ``wpe`` normal(0.01), dense kernels lecun-normal (truncated at two
+    sigma, variance 1 / fan_in), ``mlp_*_w`` normal(0.02), LayerNorm
+    weights one, every bias zero. The numbers differ from a flax init
+    with the same seed (another generator); the distributions do not."""
+    normal, lecun = _draws(seed)
+    e = cfg.n_embd
     out = {"wte": normal((cfg.vocab_size, e), 0.02),
            "wpe": normal((cfg.n_positions, e), 0.01),
            "ln_f.weight": torch.ones(e), "ln_f.bias": torch.zeros(e)}
@@ -126,4 +141,85 @@ def init_gpt2_params(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
         out[pre + "mlp_fc_b"] = torch.zeros(4 * e)
         out[pre + "mlp_proj_w"] = normal((e, 4 * e), 0.02)
         out[pre + "mlp_proj_b"] = torch.zeros(e)
+    return out
+
+
+_BERT_DENSE = ("qkv", "attn_out")
+_BERT_MLP = ("mlp_fc_w", "mlp_fc_b", "mlp_proj_w", "mlp_proj_b")
+_BERT_NORMS = ("attn_norm", "mlp_norm")
+_BERT_EMB = ("word_embeddings", "position_embeddings",
+             "token_type_embeddings")
+
+
+def bert_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax BERT tree (``{"params": {...}}`` or its inner dict), with
+    numpy leaves, as the port's CPU float32 parameter dict."""
+    p = tree["params"] if "params" in tree else tree
+    out = {name: _t(p[name]) for name in _BERT_EMB}
+    out["emb_norm.weight"] = _t(p["emb_norm"]["weight"])
+    n_layer = sum(1 for k in p if re.fullmatch(r"layer_\d+", k))
+    for i in range(n_layer):
+        blk, pre = p[f"layer_{i}"], f"layer.{i}."
+        for dense in _BERT_DENSE:
+            out[pre + dense + ".weight"] = _t(blk[dense]["kernel"]).t() \
+                .contiguous()
+            out[pre + dense + ".bias"] = _t(blk[dense]["bias"])
+        for norm in _BERT_NORMS:
+            out[pre + norm + ".weight"] = _t(blk[norm]["weight"])
+        for name in _BERT_MLP:
+            out[pre + name] = _t(blk[name])
+    return out
+
+
+def bert_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`bert_params_from_jax`: a dict in the port's
+    names (parameters, or gradients keyed like them) as the flax tree
+    ``{"params": {...}}`` with float32 numpy leaves."""
+    def a(name):
+        return params[name].detach().float().cpu().numpy()
+
+    n_layer = sum(1 for k in params
+                  if re.fullmatch(r"layer\.\d+\.qkv\.weight", k))
+    p: Dict[str, Any] = {name: a(name) for name in _BERT_EMB}
+    p["emb_norm"] = {"weight": a("emb_norm.weight")}
+    for i in range(n_layer):
+        pre = f"layer.{i}."
+        blk: Dict[str, Any] = {}
+        for dense in _BERT_DENSE:
+            blk[dense] = {"kernel": np.ascontiguousarray(
+                a(pre + dense + ".weight").T),
+                "bias": a(pre + dense + ".bias")}
+        for norm in _BERT_NORMS:
+            blk[norm] = {"weight": a(pre + norm + ".weight")}
+        for name in _BERT_MLP:
+            blk[name] = a(pre + name)
+        p[f"layer_{i}"] = blk
+    return {"params": p}
+
+
+def init_bert_params(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random BERT parameters with the flax model's distributions, from a
+    CPU ``torch.Generator`` seeded with ``seed``: the three embedding
+    tables and ``mlp_*_w`` normal(0.02), dense kernels lecun-normal, norm
+    weights one, every bias zero. The numbers differ from a flax init with
+    the same seed; the distributions do not."""
+    normal, lecun = _draws(seed)
+    e, inter = cfg.hidden_size, cfg.intermediate_size
+    out = {"word_embeddings": normal((cfg.vocab_size, e), 0.02),
+           "position_embeddings": normal((cfg.max_position_embeddings, e),
+                                         0.02),
+           "token_type_embeddings": normal((cfg.type_vocab_size, e), 0.02),
+           "emb_norm.weight": torch.ones(e)}
+    for i in range(cfg.num_hidden_layers):
+        pre = f"layer.{i}."
+        out[pre + "qkv.weight"] = lecun(3 * e, e)
+        out[pre + "qkv.bias"] = torch.zeros(3 * e)
+        out[pre + "attn_out.weight"] = lecun(e, e)
+        out[pre + "attn_out.bias"] = torch.zeros(e)
+        out[pre + "attn_norm.weight"] = torch.ones(e)
+        out[pre + "mlp_fc_w"] = normal((inter, e), 0.02)
+        out[pre + "mlp_fc_b"] = torch.zeros(inter)
+        out[pre + "mlp_proj_w"] = normal((e, inter), 0.02)
+        out[pre + "mlp_proj_b"] = torch.zeros(e)
+        out[pre + "mlp_norm.weight"] = torch.ones(e)
     return out

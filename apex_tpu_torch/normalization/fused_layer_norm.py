@@ -1,19 +1,20 @@
-"""FusedLayerNorm — counterpart of
+"""FusedLayerNorm / FusedRMSNorm — counterpart of
 ``apex_tpu/normalization/fused_layer_norm.py``.
 
-The functional forms run an ``autograd.Function`` (the JAX ``custom_vjp``
-``_fused_norm``) whose forward is
-:func:`~apex_tpu_torch.ops.layer_norm_kernel.ln_fwd` and whose backward is
-:func:`~apex_tpu_torch.ops.layer_norm_kernel.ln_bwd` (the CUDA kernels for
-CUDA tensors, their plain versions for CPU tensors). Like the JAX
-default (``memory_efficient=False``) it saves x, mean and invvar;
+The functional forms run one ``autograd.Function`` (the JAX
+``custom_vjp`` ``_fused_norm``, with its ``rms`` and ``affine`` flags)
+whose forward is :func:`~apex_tpu_torch.ops.layer_norm_kernel.ln_fwd` and
+whose backward is :func:`~apex_tpu_torch.ops.layer_norm_kernel.ln_bwd`
+(the CUDA kernels for CUDA tensors, their plain versions for CPU tensors).
+Like the JAX default (``memory_efficient=False``) it saves x, mean and
+invvar (RMSNorm saves no mean: the backward does not read it);
 ``memory_efficient=True`` belongs to a later slice and raises.
 The JAX package sends hidden sizes that are not a multiple of 128 to its
 jnp reference because of the TPU's 128-lane tiles; the Hopper kernel has
 no such rule and takes any hidden size up to
 :data:`~apex_tpu_torch.ops.tiling.LN_MAX_HIDDEN` (8192), raising above it
-for CUDA tensors. ``manual_layer_norm`` is the plain reference the tests
-hold the kernel path against.
+for CUDA tensors. ``manual_layer_norm`` / ``manual_rms_norm`` are the plain
+references the tests hold the kernel path against.
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ from apex_tpu_torch.utils.device import DeviceLike
 
 Shape = Union[int, Sequence[int]]
 
-__all__ = ["LN_MAX_HIDDEN", "FusedLayerNorm", "fused_layer_norm_affine",
-           "manual_layer_norm"]
+__all__ = ["LN_MAX_HIDDEN", "FusedLayerNorm", "FusedRMSNorm",
+           "fused_layer_norm", "fused_layer_norm_affine", "fused_rms_norm",
+           "fused_rms_norm_affine", "manual_layer_norm", "manual_rms_norm"]
 
 
 def _norm_size(normalized_shape: Shape) -> int:
@@ -60,24 +62,50 @@ def manual_layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
     return y.reshape(x.shape).to(x.dtype)
 
 
-class _FusedLayerNormAffine(torch.autograd.Function):
-    """``_fused_norm`` with its ``custom_vjp`` (LayerNorm, affine, x
-    saved): dx, dgamma and dbeta (None without a bias) from the kernels."""
+def manual_rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
+                    normalized_shape: Shape, eps: float) -> torch.Tensor:
+    """Plain RMSNorm over the trailing ``normalized_shape`` (fp32 math,
+    output in x's dtype)."""
+    h = _norm_size(normalized_shape)
+    x2 = x.reshape(-1, h).float()
+    y = x2 * torch.rsqrt((x2 * x2).mean(dim=1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.reshape(1, h).float()
+    return y.reshape(x.shape).to(x.dtype)
+
+
+class _FusedNorm(torch.autograd.Function):
+    """``_fused_norm`` with its ``custom_vjp`` (x saved): LayerNorm or
+    RMSNorm, with a weight (and a bias, LayerNorm only) or without; dx,
+    dweight and dbias (None where there is none) from the kernels."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, hidden, eps):
+    def forward(ctx, x, weight, bias, hidden, eps, rms):
         x2 = x.reshape(-1, hidden).contiguous()
-        y, mean, invvar = ln_fwd(x2, weight, bias, eps=eps)
-        ctx.save_for_backward(x2, weight, bias, mean, invvar)
-        ctx.xshape = x.shape
+        y, mean, invvar = ln_fwd(x2, weight, bias, eps=eps, rms=rms)
+        ctx.save_for_backward(x2, weight, bias, None if rms else mean,
+                              invvar)
+        ctx.xshape, ctx.rms = x.shape, rms
         return y.reshape(x.shape)
 
     @staticmethod
     def backward(ctx, dy):
         x2, weight, bias, mean, invvar = ctx.saved_tensors
-        dx, dgamma, dbeta = ln_bwd(dy.reshape(x2.shape).contiguous(), x2,
-                                   weight, bias, mean, invvar)
-        return dx.reshape(ctx.xshape), dgamma, dbeta, None, None
+        dx, dweight, dbias = ln_bwd(dy.reshape(x2.shape).contiguous(), x2,
+                                    weight, bias, mean, invvar, rms=ctx.rms)
+        return dx.reshape(ctx.xshape), dweight, dbias, None, None, None
+
+
+def _fused_norm(x, weight, bias, normalized_shape, eps, rms,
+                memory_efficient, name):
+    if memory_efficient:
+        raise NotImplementedError(
+            f"{name}: memory_efficient=True is not ported yet (ROADMAP.md, "
+            f"port queue)")
+    h = _norm_size(normalized_shape)
+    return _FusedNorm.apply(
+        x, None if weight is None else weight.reshape(h),
+        None if bias is None else bias.reshape(h), h, float(eps), rms)
 
 
 def fused_layer_norm_affine(x: torch.Tensor, weight: torch.Tensor,
@@ -86,31 +114,79 @@ def fused_layer_norm_affine(x: torch.Tensor, weight: torch.Tensor,
                             memory_efficient: bool = False) -> torch.Tensor:
     """LayerNorm with fp32 ``weight`` and ``bias`` (or None) through the
     kernels, differentiable in x, weight and bias."""
-    if memory_efficient:
-        raise NotImplementedError(
-            "fused_layer_norm_affine: memory_efficient=True is not ported "
-            "yet (ROADMAP.md, port queue)")
-    h = _norm_size(normalized_shape)
-    return _FusedLayerNormAffine.apply(
-        x, weight.reshape(h), None if bias is None else bias.reshape(h), h,
-        float(eps))
+    return _fused_norm(x, weight, bias, normalized_shape, eps, False,
+                       memory_efficient, "fused_layer_norm_affine")
+
+
+def fused_layer_norm(x: torch.Tensor, normalized_shape: Shape,
+                     eps: float = 1e-5,
+                     memory_efficient: bool = False) -> torch.Tensor:
+    """LayerNorm without an affine step, differentiable in x."""
+    return _fused_norm(x, None, None, normalized_shape, eps, False,
+                       memory_efficient, "fused_layer_norm")
+
+
+def fused_rms_norm_affine(x: torch.Tensor, weight: torch.Tensor,
+                          normalized_shape: Shape, eps: float = 1e-5,
+                          memory_efficient: bool = False) -> torch.Tensor:
+    """RMSNorm with an fp32 ``weight`` through the kernels, differentiable
+    in x and weight."""
+    return _fused_norm(x, weight, None, normalized_shape, eps, True,
+                       memory_efficient, "fused_rms_norm_affine")
+
+
+def fused_rms_norm(x: torch.Tensor, normalized_shape: Shape,
+                   eps: float = 1e-5,
+                   memory_efficient: bool = False) -> torch.Tensor:
+    """RMSNorm without an affine step, differentiable in x."""
+    return _fused_norm(x, None, None, normalized_shape, eps, True,
+                       memory_efficient, "fused_rms_norm")
 
 
 class FusedLayerNorm(nn.Module):
-    """LayerNorm module with fp32 ``weight`` (ones) and ``bias`` (zeros),
-    the parameter names and dtype of the flax module."""
+    """LayerNorm module; with ``elementwise_affine`` (the default) fp32
+    ``weight`` (ones) and ``bias`` (zeros), the parameter names and dtype
+    of the flax module."""
 
-    def __init__(self, normalized_shape: Shape, eps: float = 1e-5, *,
+    def __init__(self, normalized_shape: Shape, eps: float = 1e-5,
+                 elementwise_affine: bool = True, *,
                  device: DeviceLike = None):
         super().__init__()
         self.normalized_shape = normalized_shape
         self.eps = eps
-        h = _norm_size(normalized_shape)
-        self.weight = nn.Parameter(
-            torch.ones(h, dtype=torch.float32, device=device))
-        self.bias = nn.Parameter(
-            torch.zeros(h, dtype=torch.float32, device=device))
+        self.elementwise_affine = elementwise_affine
+        if elementwise_affine:
+            h = _norm_size(normalized_shape)
+            self.weight = nn.Parameter(
+                torch.ones(h, dtype=torch.float32, device=device))
+            self.bias = nn.Parameter(
+                torch.zeros(h, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return fused_layer_norm_affine(x, self.weight, self.bias,
-                                       self.normalized_shape, self.eps)
+        if self.elementwise_affine:
+            return fused_layer_norm_affine(x, self.weight, self.bias,
+                                           self.normalized_shape, self.eps)
+        return fused_layer_norm(x, self.normalized_shape, self.eps)
+
+
+class FusedRMSNorm(nn.Module):
+    """RMSNorm module; with ``elementwise_affine`` (the default) an fp32
+    ``weight`` (ones), the parameter name and dtype of the flax module."""
+
+    def __init__(self, normalized_shape: Shape, eps: float = 1e-5,
+                 elementwise_affine: bool = True, *,
+                 device: DeviceLike = None):
+        super().__init__()
+        self.normalized_shape = normalized_shape
+        self.eps = eps
+        self.elementwise_affine = elementwise_affine
+        if elementwise_affine:
+            self.weight = nn.Parameter(torch.ones(
+                _norm_size(normalized_shape), dtype=torch.float32,
+                device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.elementwise_affine:
+            return fused_rms_norm_affine(x, self.weight,
+                                         self.normalized_shape, self.eps)
+        return fused_rms_norm(x, self.normalized_shape, self.eps)

@@ -42,26 +42,34 @@ _ll = ctypes.c_longlong
 _f = ctypes.c_float
 # C signatures of the entries the wrappers call (all return cudaError_t)
 SIGNATURES = {
-    # x, gamma, beta (may be null), y, mean, invvar, rows, hidden, eps,
+    # x, gamma, beta (both may be null), y, mean, invvar, rows, hidden,
+    # eps, rms, dtype, stream
+    "apex_ln_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _i, _i, _vp],
+    # dy, x, gamma, mean, invvar, dx, part_g, part_b, dgamma, dbeta (gamma
+    # and the four last may be null), rows, hidden, warps, blocks, rms,
     # dtype, stream
-    "apex_ln_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _i, _vp],
-    # dy, x, gamma, mean, invvar, dx, part_g, part_b, dgamma, dbeta, rows,
-    # hidden, warps, blocks, dtype, stream
     "apex_ln_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
-                    _i, _i, _i, _i, _vp],
-    # q, k, v, o, lse, bh, sq, sk, d, scale, causal, dtype, stream
-    "apex_fa_fwd": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _i,
-                    _vp],
-    # q, k, v, do, lse, dvec, dq, bh, sq, sk, d, scale, causal, dtype,
-    # stream
-    "apex_fa_bwd_dq": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-                       _f, _i, _i, _vp],
-    # q, k, v, do, lse, dvec, dk, dv, bh, sq, sk, d, scale, causal, dtype,
-    # stream
-    "apex_fa_bwd_dkv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
-                        _i, _f, _i, _i, _vp],
+                    _i, _i, _i, _i, _i, _vp],
+    # q, k, v, bias (may be null), o, lse, bh, heads, sq, sk, d, scale,
+    # causal, the bias's four strides, dtype, stream
+    "apex_fa_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f,
+                    _i, _ll, _ll, _ll, _ll, _i, _vp],
+    # q, k, v, bias, do, lse, dvec, dq, bh, heads, sq, sk, d, scale,
+    # causal, the bias's four strides, dtype, stream
+    "apex_fa_bwd_dq": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+                       _i, _i, _f, _i, _ll, _ll, _ll, _ll, _i, _vp],
+    # q, k, v, bias, do, lse, dvec, dk, dv, bh, heads, sq, sk, d, scale,
+    # causal, the bias's four strides, dtype, stream
+    "apex_fa_bwd_dkv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
+                        _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll, _i,
+                        _vp],
     # p, g, m, v, scalars, n, mode, stream
     "apex_fused_adam": [_vp, _vp, _vp, _vp, _vp, _ll, _i, _vp],
+    # p, g, m, v, u, row_p, row_u, scalars, rows, adam_w, stream
+    "apex_lamb_stage1": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i,
+                         _vp],
+    # p, u, ratios, row_ids, scalars, rows, stream
+    "apex_lamb_stage2": [_vp, _vp, _vp, _vp, _vp, _ll, _vp],
 }
 
 launches: collections.Counter = collections.Counter()

@@ -6,16 +6,24 @@ Counterpart of ``apex_tpu/ops/pallas/flash_attention.py``
 ``_fa_dq_kernel`` and ``_fa_dkv_kernel``) and the public
 ``flash_attention`` with its ``custom_vjp``. Layout as in the JAX package:
 q ``(b, h, sq, d)``, k / v ``(b, h, sk, d)``; the causal mask is top-left
-aligned (key ``j`` is visible to query ``i`` when ``j <= i``).
+aligned (key ``j`` is visible to query ``i`` when ``j <= i``). An optional
+additive fp32 score bias, broadcastable to ``(b, h, sq, sk)`` with each
+dimension 1 or full, is added to the scaled scores; the kernels read it
+through per-dimension strides (0 on a broadcast dimension) and it is
+never expanded (the JAX ``_BiasPlan`` rule), so BERT's ``(b, 1, 1, sk)``
+padding mask stays ``b * sk`` floats. A score at or below -0.5e30 is out
+of the softmax support.
 
 :func:`flash_attention_fwd` launches ``csrc/flash_attention.cu`` and
 :func:`flash_attention_bwd` the two kernels of
 ``csrc/flash_attention_bwd.cu`` for CUDA tensors; CPU tensors run
 :func:`flash_attention_fwd_plain` / :func:`flash_attention_bwd_plain`.
 :func:`flash_attention` is differentiable: its ``autograd.Function`` saves
-q, k, v, o and the fp32 lse, and its backward is
-:func:`flash_attention_bwd`. The additive bias, the boolean mask and
-dropout are operands the kernels do not take yet; they raise.
+q, k, v, the bias, o and the fp32 lse, and its backward is
+:func:`flash_attention_bwd`. A boolean ``mask`` (True = masked) becomes
+the bias -1e30 where it is True, as in the JAX ``flash_attention``; a
+``bias`` passed with ``bias_requires_grad=False`` is the same operand.
+Its gradient (``dbias``) and dropout are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -34,20 +42,30 @@ _MASK_EDGE = 0.5 * NEG_INF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, *, scale: float,
-                              causal: bool
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The whole-row softmax the online kernel computes: fp32 scores,
-    masked scores at -1e30, p cast to v's dtype before the p.v product,
-    fully masked rows give o = 0 and lse = -1e30. Returns ``(o in q's
-    dtype, lse (b, h, sq) fp32)``."""
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
+            bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """fp32 ``(q . k) * scale + bias``, causal positions at -1e30."""
     sq, sk = q.shape[2], k.shape[2]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias
     if causal:
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
         s = s.masked_fill(cols > rows, NEG_INF)
+    return s
+
+
+def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, scale: float,
+                              causal: bool,
+                              bias: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole-row softmax the online kernel computes: fp32 scores plus
+    the bias, masked scores at -1e30, p cast to v's dtype before the p.v
+    product, fully masked rows give o = 0 and lse = -1e30. Returns ``(o in
+    q's dtype, lse (b, h, sq) fp32)``."""
+    s = _scores(q, k, scale, causal, bias)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - torch.where(m <= _MASK_EDGE, 0.0, m))
     denom = p.sum(dim=-1, keepdim=True)
@@ -76,20 +94,17 @@ def attention_dvec(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor, *,
-                              scale: float, causal: bool
+                              scale: float, causal: bool,
+                              bias: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """The arithmetic of ``_fa_dq_kernel`` / ``_fa_dkv_kernel`` over whole
-    rows: fp32 scores, P from the saved lse, ``ds = P (dP - D)``, and the
-    casts to the IO dtype before each product (``ds * scale`` for dq and
-    dk, P for dv). Returns ``(dq, dk, dv)`` in q's / k's / v's dtype."""
-    sq, sk = q.shape[2], k.shape[2]
+    rows: fp32 scores plus the bias, P from the saved lse,
+    ``ds = P (dP - D)``, and the casts to the IO dtype before each product
+    (``ds * scale`` for dq and dk, P for dv). Returns ``(dq, dk, dv)`` in
+    q's / k's / v's dtype."""
     dvec = attention_dvec(o, do)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        rows = torch.arange(sq, device=q.device)[:, None]
-        cols = torch.arange(sk, device=q.device)[None, :]
-        s = s.masked_fill(cols > rows, NEG_INF)
+    s = _scores(q, k, scale, causal, bias)
     p = _bwd_p(s, lse)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     ds_scaled = p * (dp - dvec[..., None]) * scale
@@ -134,14 +149,40 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
     return False
 
 
+def _bias_args(name: str, bias: Optional[torch.Tensor],
+               q: torch.Tensor, k: torch.Tensor):
+    """``(pointer, (stride_b, stride_h, stride_q, stride_k))`` of the bias
+    for the kernels: strides in elements, 0 on a broadcast dimension.
+    Raises, on either route, on a bias the kernels do not take."""
+    if bias is None:
+        return None, (0, 0, 0, 0)
+    b, h, sq, _ = q.shape
+    full = (b, h, sq, k.shape[2])
+    if bias.dim() != 4 or bias.dtype != torch.float32 \
+            or bias.device != q.device \
+            or any(n not in (1, f) for n, f in zip(bias.shape, full)):
+        raise ValueError(
+            f"{name}: bias must be a rank-4 float32 tensor on {q.device} "
+            f"whose every dimension is 1 or that of {full}, got "
+            f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    strides = tuple(0 if n == 1 else st
+                    for n, st in zip(bias.shape, bias.stride()))
+    return bias.data_ptr(), strides
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, scale: float, causal: bool
+                        *, scale: float, causal: bool,
+                        bias: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(o, lse)``. CUDA tensors launch the kernel: contiguous
     float32 or bfloat16, one dtype for q, k and v, head_dim 64, any
-    sq / sk. CPU tensors take the plain version."""
-    if _check_qkv("flash_attention_fwd", q, k, v):
-        return flash_attention_fwd_plain(q, k, v, scale=scale, causal=causal)
+    sq / sk, an optional fp32 bias broadcastable to ``(b, h, sq, sk)``
+    (any strides). CPU tensors take the plain version."""
+    cpu = _check_qkv("flash_attention_fwd", q, k, v)
+    bptr, bstrides = _bias_args("flash_attention_fwd", bias, q, k)
+    if cpu:
+        return flash_attention_fwd_plain(q, k, v, scale=scale, causal=causal,
+                                         bias=bias)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     o = torch.empty_like(q)
@@ -150,9 +191,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_fa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              o.data_ptr(), lse.data_ptr(), b * h, sq, sk,
-                              d, float(scale), int(causal),
-                              _DTYPES[q.dtype], stream)
+                              bptr, o.data_ptr(), lse.data_ptr(), b * h, h,
+                              sq, sk, d, float(scale), int(causal),
+                              *bstrides, _DTYPES[q.dtype], stream)
     _build.launches["fa_fwd"] += 1
     _build.check(err, "flash_attention_fwd")
     return o, lse
@@ -160,17 +201,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor, *, scale: float, causal: bool
+                        do: torch.Tensor, *, scale: float, causal: bool,
+                        bias: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` from the forward's o and fp32 lse ``(b, h, sq)``.
-    CUDA tensors launch the dq kernel and the dk / dv kernel (inputs as
-    for :func:`flash_attention_fwd`; o and do like q); no output is summed
-    across blocks, so two runs give the same bits. CPU tensors take the
-    plain version."""
+    """``(dq, dk, dv)`` from the forward's o and fp32 lse ``(b, h, sq)``
+    and the forward's bias (no dbias). CUDA tensors launch the dq kernel
+    and the dk / dv kernel (inputs as for :func:`flash_attention_fwd`; o
+    and do like q); no output is summed across blocks, so two runs give
+    the same bits. CPU tensors take the plain version."""
     name = "flash_attention_bwd"
-    if _check_qkv(name, q, k, v):
+    cpu = _check_qkv(name, q, k, v)
+    bptr, bstrides = _bias_args(name, bias, q, k)
+    if cpu:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale=scale,
-                                         causal=causal)
+                                         causal=causal, bias=bias)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     for what, t in (("o", o), ("do", do)):
@@ -189,9 +233,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.lib()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr, do.data_ptr(),
             lse.data_ptr(), dvec.data_ptr())
-    geo = (b * h, sq, sk, d, float(scale), int(causal), _DTYPES[q.dtype])
+    geo = (b * h, h, sq, sk, d, float(scale), int(causal), *bstrides,
+           _DTYPES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_fa_bwd_dq(*args, dq.data_ptr(), *geo, stream)
@@ -205,38 +250,60 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The ``custom_vjp`` of the JAX ``_flash_attention``: saves q, k, v,
-    o and lse; the backward runs :func:`flash_attention_bwd`."""
+    """The ``custom_vjp`` of the JAX ``_flash_attention`` without dbias:
+    saves q, k, v, the bias, o and lse; the backward runs
+    :func:`flash_attention_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, bias, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                     bias=bias)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, bias, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         scale=ctx.scale, causal=ctx.causal)
-        return dq, dk, dv, None, None
+                                         scale=ctx.scale, causal=ctx.causal,
+                                         bias=bias)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None, *,
                     bias: Optional[torch.Tensor] = None,
                     mask: Optional[torch.Tensor] = None,
-                    dropout_p: float = 0.0, dropout_seed=None
-                    ) -> torch.Tensor:
+                    dropout_p: float = 0.0, dropout_seed=None,
+                    bias_requires_grad: bool = True) -> torch.Tensor:
     """Scaled dot-product attention, differentiable in q, k and v;
-    ``scale`` defaults to ``1/sqrt(d)``. ``bias``, ``mask`` and
-    ``dropout_p > 0`` are operands of the JAX kernel that this port's
-    kernels do not take yet: they raise ``NotImplementedError``."""
-    if bias is not None or mask is not None or dropout_p > 0.0 \
-            or dropout_seed is not None:
+    ``scale`` defaults to ``1/sqrt(d)``. ``mask`` is a rank-4 boolean
+    tensor broadcastable to ``(b, h, sq, sk)``, True = masked; a fully
+    masked row gives zero output and zero gradients. ``bias`` is an
+    additive logits bias of the same broadcastability, taken as a constant
+    (``bias_requires_grad=False``). A differentiated bias (the default
+    ``bias_requires_grad=True``, whose ``dbias`` the JAX kernel emits) and
+    ``dropout_p > 0`` are not ported yet and raise
+    ``NotImplementedError``."""
+    if dropout_p > 0.0 or dropout_seed is not None:
         raise NotImplementedError(
-            "flash_attention: bias, mask and dropout are not ported to the "
-            "CUDA kernel yet (ROADMAP.md, port queue)")
+            "flash_attention: dropout is not ported to the CUDA kernels yet "
+            "(ROADMAP.md, port queue)")
+    if bias is not None and bias_requires_grad:
+        raise NotImplementedError(
+            "flash_attention: a differentiated bias (dbias) is not ported "
+            "to the CUDA kernels yet (ROADMAP.md, port queue); pass "
+            "bias_requires_grad=False for a constant bias")
+    if bias is not None:
+        bias = bias.detach().float()
+    if mask is not None:
+        if mask.dim() != 4:
+            raise ValueError("mask must be rank-4 broadcastable to "
+                             "(b, h, sq, sk)")
+        mbias = torch.zeros(mask.shape, dtype=torch.float32,
+                            device=mask.device).masked_fill_(mask.bool(),
+                                                            NEG_INF)
+        bias = mbias if bias is None else bias + mbias
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, bool(causal), float(s))
+    return _FlashAttention.apply(q, k, v, bias, bool(causal), float(s))

@@ -1,9 +1,12 @@
-"""Row LayerNorm forward and backward: the CUDA kernels and their plain
-versions.
+"""Row LayerNorm / RMSNorm forward and backward: the CUDA kernels and their
+plain versions.
 
 Counterpart of ``apex_tpu/ops/pallas/layer_norm_kernel.py``
-``ln_fwd_pallas`` and ``ln_bwd_pallas`` (their LayerNorm form, gamma
-always, beta optional). :func:`ln_fwd` / :func:`ln_bwd` launch
+``ln_fwd_pallas`` and ``ln_bwd_pallas`` with x saved: the LayerNorm form
+(``rms=False``) and the RMSNorm form (``rms=True``: no centring, the mean
+written as 0, no ``mean(wdy)`` term in the backward), each with gamma and
+an optional beta or with neither (``gamma=None``: no affine step, no
+dgamma / dbeta). :func:`ln_fwd` / :func:`ln_bwd` launch
 ``csrc/layer_norm.cu`` for CUDA tensors and run :func:`ln_fwd_plain` /
 :func:`ln_bwd_plain` for CPU tensors; there is no other route.
 """
@@ -20,36 +23,52 @@ from apex_tpu_torch.ops.tiling import LN_MAX_HIDDEN, ln_bwd_geometry
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def ln_fwd_plain(x2: torch.Tensor, gamma: torch.Tensor,
-                 beta: Optional[torch.Tensor], *, eps: float
+def ln_fwd_plain(x2: torch.Tensor, gamma: Optional[torch.Tensor],
+                 beta: Optional[torch.Tensor], *, eps: float,
+                 rms: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x2 ``(rows, hidden)``. Returns ``(y, mean, invvar)``: y in x2's
     dtype, mean and invvar ``(rows, 1)`` fp32 — the arithmetic of
-    ``_ln_fwd_kernel``, stats in fp32. ``beta=None`` adds nothing."""
+    ``_ln_fwd_kernel``, stats in fp32. ``rms`` centres on 0 and returns a
+    zero mean; ``beta=None`` adds nothing; ``gamma=None`` returns xhat."""
     x = x2.float()
-    mu = x.mean(dim=1, keepdim=True)
-    xc = x - mu
+    if rms:
+        mu = torch.zeros((x.shape[0], 1), dtype=torch.float32,
+                         device=x.device)
+        xc = x
+    else:
+        mu = x.mean(dim=1, keepdim=True)
+        xc = x - mu
     rstd = torch.rsqrt((xc * xc).mean(dim=1, keepdim=True) + eps)
-    y = xc * rstd * gamma.float()
-    if beta is not None:
-        y = y + beta.float()
+    y = xc * rstd
+    if gamma is not None:
+        y = y * gamma.float()
+        if beta is not None:
+            y = y + beta.float()
     return y.to(x2.dtype), mu, rstd
 
 
-def ln_bwd_plain(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
-                 beta: Optional[torch.Tensor], mean: torch.Tensor,
-                 invvar: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor,
+def ln_bwd_plain(dy2: torch.Tensor, x2: torch.Tensor,
+                 gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
+                 mean: Optional[torch.Tensor], invvar: torch.Tensor, *,
+                 rms: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                             Optional[torch.Tensor]]:
-    """The arithmetic of ``_ln_bwd_kernel`` (LayerNorm, x saved): returns
-    ``(dx in dy2's dtype, dgamma fp32, dbeta fp32 or None)``; ``beta``
-    only says whether there is a dbeta."""
+    """The arithmetic of ``_ln_bwd_kernel`` (x saved): returns ``(dx in
+    dy2's dtype, dgamma fp32 or None, dbeta fp32 or None)``. ``beta`` only
+    says whether there is a dbeta; ``gamma=None`` gives neither; ``mean``
+    is not read when ``rms``."""
     dy = dy2.float()
-    xhat = (x2.float() - mean) * invvar
-    wdy = dy * gamma.float()
+    xhat = (x2.float() if rms else x2.float() - mean) * invvar
+    wdy = dy if gamma is None else dy * gamma.float()
     c1 = (xhat * wdy).mean(dim=1, keepdim=True)
-    c2 = wdy.mean(dim=1, keepdim=True)
-    dx = (wdy - xhat * c1 - c2) * invvar
+    if rms:
+        dx = (wdy - xhat * c1) * invvar
+    else:
+        c2 = wdy.mean(dim=1, keepdim=True)
+        dx = (wdy - xhat * c1 - c2) * invvar
+    if gamma is None:
+        return dx.to(dy2.dtype), None, None
     dbeta = dy.sum(dim=0) if beta is not None else None
     return dx.to(dy2.dtype), (dy * xhat).sum(dim=0), dbeta
 
@@ -84,25 +103,34 @@ def _check_f32(name: str, t: torch.Tensor, shape, x2: torch.Tensor,
             f"{t.device}")
 
 
+def _check_affine(name: str, gamma, beta, x2: torch.Tensor) -> None:
+    hidden = x2.shape[1]
+    if gamma is None:
+        if beta is not None:
+            raise ValueError(f"{name}: beta without gamma")
+        return
+    _check_f32(name, gamma, (hidden,), x2, "gamma")
+    if beta is not None:
+        _check_f32(name, beta, (hidden,), x2, "beta")
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def ln_fwd(x2: torch.Tensor, gamma: torch.Tensor,
-           beta: Optional[torch.Tensor], *, eps: float
+def ln_fwd(x2: torch.Tensor, gamma: Optional[torch.Tensor],
+           beta: Optional[torch.Tensor], *, eps: float, rms: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x2 ``(rows, hidden)`` float32 or bfloat16, gamma float32
-    ``(hidden,)``, beta float32 ``(hidden,)`` or None. Returns ``(y, mean,
-    invvar)`` as :func:`ln_fwd_plain` does. CUDA tensors launch the kernel
-    (any row count, hidden up to ``LN_MAX_HIDDEN``); CPU tensors take the
-    plain version."""
+    ``(hidden,)`` or None, beta float32 ``(hidden,)`` or None (only with
+    gamma). Returns ``(y, mean, invvar)`` as :func:`ln_fwd_plain` does.
+    CUDA tensors launch the kernel (any row count, hidden up to
+    ``LN_MAX_HIDDEN``); CPU tensors take the plain version."""
     if _check_device("ln_fwd", x2):
-        return ln_fwd_plain(x2, gamma, beta, eps=eps)
+        return ln_fwd_plain(x2, gamma, beta, eps=eps, rms=rms)
     _check_rows("ln_fwd", x2)
+    _check_affine("ln_fwd", gamma, beta, x2)
     rows, hidden = x2.shape
-    _check_f32("ln_fwd", gamma, (hidden,), x2, "gamma")
-    if beta is not None:
-        _check_f32("ln_fwd", beta, (hidden,), x2, "beta")
     y = torch.empty_like(x2)
     mean = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
     invvar = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
@@ -110,26 +138,29 @@ def ln_fwd(x2: torch.Tensor, gamma: torch.Tensor,
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_ln_fwd(
-            x2.data_ptr(), gamma.data_ptr(), _ptr(beta), y.data_ptr(),
+            x2.data_ptr(), _ptr(gamma), _ptr(beta), y.data_ptr(),
             mean.data_ptr(), invvar.data_ptr(), rows, hidden, float(eps),
-            _DTYPES[x2.dtype], stream)
+            int(rms), _DTYPES[x2.dtype], stream)
     _build.launches["ln_fwd"] += 1
     _build.check(err, "ln_fwd")
     return y, mean, invvar
 
 
-def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
-           beta: Optional[torch.Tensor], mean: torch.Tensor,
-           invvar: torch.Tensor
-           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """The LayerNorm backward from the forward's saved x2, mean and invvar
-    (``(rows, 1)`` fp32). Returns ``(dx, dgamma, dbeta)`` as
-    :func:`ln_bwd_plain` does; dbeta is None when ``beta`` is. CUDA
-    tensors launch the kernel: dgamma / dbeta are summed over rows without
-    atomics, so two runs give the same bits. CPU tensors take the plain
-    version."""
+def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor,
+           gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
+           mean: Optional[torch.Tensor], invvar: torch.Tensor, *,
+           rms: bool = False
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                      Optional[torch.Tensor]]:
+    """The backward from the forward's saved x2, mean and invvar
+    (``(rows, 1)`` fp32; mean is not read, and may be None, when
+    ``rms``). Returns ``(dx, dgamma, dbeta)`` as :func:`ln_bwd_plain`
+    does: dbeta is None when ``beta`` is, both are None when ``gamma`` is.
+    CUDA tensors launch the kernel: dgamma / dbeta are summed over rows
+    without atomics, so two runs give the same bits. CPU tensors take the
+    plain version."""
     if _check_device("ln_bwd", dy2):
-        return ln_bwd_plain(dy2, x2, gamma, beta, mean, invvar)
+        return ln_bwd_plain(dy2, x2, gamma, beta, mean, invvar, rms=rms)
     _check_rows("ln_bwd", dy2, "dy2")
     rows, hidden = dy2.shape
     if x2.shape != dy2.shape or x2.dtype != dy2.dtype \
@@ -138,27 +169,29 @@ def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
             f"ln_bwd: x2 must be a contiguous {tuple(dy2.shape)} "
             f"{dy2.dtype} tensor like dy2, got {tuple(x2.shape)} "
             f"{x2.dtype} on {x2.device}")
-    _check_f32("ln_bwd", gamma, (hidden,), dy2, "gamma")
-    _check_f32("ln_bwd", mean, (rows, 1), dy2, "mean")
+    _check_affine("ln_bwd", gamma, beta, dy2)
+    if not rms:
+        _check_f32("ln_bwd", mean, (rows, 1), dy2, "mean")
     _check_f32("ln_bwd", invvar, (rows, 1), dy2, "invvar")
     warps, blocks = ln_bwd_geometry(rows, hidden)
     f32 = dict(dtype=torch.float32, device=dy2.device)
     dx = torch.empty_like(dy2)
-    part_g = torch.empty((blocks, hidden), **f32)
-    dgamma = torch.empty((hidden,), **f32)
-    part_b = dbeta = None
-    if beta is not None:
-        part_b = torch.empty((blocks, hidden), **f32)
-        dbeta = torch.empty((hidden,), **f32)
+    part_g = dgamma = part_b = dbeta = None
+    if gamma is not None:
+        part_g = torch.empty((blocks, hidden), **f32)
+        dgamma = torch.empty((hidden,), **f32)
+        if beta is not None:
+            part_b = torch.empty((blocks, hidden), **f32)
+            dbeta = torch.empty((hidden,), **f32)
     lib = _build.lib()
     with torch.cuda.device(dy2.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_ln_bwd(
-            dy2.data_ptr(), x2.data_ptr(), gamma.data_ptr(),
-            mean.data_ptr(), invvar.data_ptr(), dx.data_ptr(),
-            part_g.data_ptr(), _ptr(part_b), dgamma.data_ptr(),
-            _ptr(dbeta), rows, hidden, warps, blocks, _DTYPES[dy2.dtype],
-            stream)
+            dy2.data_ptr(), x2.data_ptr(), _ptr(gamma),
+            None if rms else mean.data_ptr(), invvar.data_ptr(),
+            dx.data_ptr(), _ptr(part_g), _ptr(part_b), _ptr(dgamma),
+            _ptr(dbeta), rows, hidden, warps, blocks, int(rms),
+            _DTYPES[dy2.dtype], stream)
     _build.launches["ln_bwd"] += 1
     _build.check(err, "ln_bwd")
     return dx, dgamma, dbeta

@@ -1,8 +1,9 @@
 """Functional optimizer updates over pytrees — counterpart of
-``apex_tpu/optimizers/functional.py`` ``adam_update``.
+``apex_tpu/optimizers/functional.py`` ``adam_update`` and
+``lamb_update``.
 
-The tree path of :class:`~apex_tpu_torch.optimizers.FusedAdam` and the
-reference the flat kernel is held to: all math in fp32 whatever the
+The tree paths of :class:`~apex_tpu_torch.optimizers.FusedAdam` and
+:class:`~apex_tpu_torch.optimizers.FusedLAMB`: all math in fp32 whatever the
 storage dtype, a ``found_inf`` flag that makes the whole update a no-op,
 gradients that may carry a loss scale removed through ``inv_scale``, and
 with a fp32 ``master`` tree the master is updated and the params are its
@@ -15,6 +16,7 @@ from typing import Any, Optional
 
 import torch
 
+from apex_tpu_torch.multi_tensor.functional import multi_tensor_l2norm
 from apex_tpu_torch.utils.tree import tree_flatten, tree_unflatten, tree_map
 
 _f32 = torch.float32
@@ -78,3 +80,62 @@ def adam_update(params: Any, grads: Any, exp_avg: Any, exp_avg_sq: Any, *,
             .to(p.dtype), params, master_out)
         return p_out, m_out, v_out, master_out
     return _keep(noop, params, p_new), m_out, v_out
+
+
+def lamb_update(params: Any, grads: Any, exp_avg: Any, exp_avg_sq: Any, *,
+                step, lr, beta1: float = 0.9, beta2: float = 0.999,
+                eps: float = 1e-6, weight_decay: float = 0.01,
+                bias_correction: bool = True, grad_averaging: bool = True,
+                max_grad_norm: float = 1.0, use_nvlamb: bool = False,
+                adam_w_mode: bool = True, inv_scale=1.0, found_inf=False):
+    """LAMB over trees, two-phase as the JAX ``lamb_update``: the global
+    gradient norm (:func:`~apex_tpu_torch.multi_tensor.functional.
+    multi_tensor_l2norm`) sets the clip divisor, then each leaf takes the
+    Adam-style update term scaled by its trust ratio ``||p|| / ||u||``
+    (1 where a norm is 0, or only where ``||u||`` is 0 with
+    ``use_nvlamb``). Returns ``(params, m, v, global_grad_norm)``."""
+    dev = tree_flatten(params)[0][0].device
+    noop = _as_tensor(found_inf, dev, torch.bool)
+    stepf = _as_tensor(step, dev)
+    lr = _as_tensor(lr, dev)
+    inv_scale = _as_tensor(inv_scale, dev)
+    grads32 = tree_map(lambda g: g.float() * inv_scale, grads)
+    gnorm, _ = multi_tensor_l2norm(grads32)
+    if max_grad_norm is not None and max_grad_norm > 0:
+        clip = torch.clamp_min(gnorm / max_grad_norm, 1.0)
+    else:
+        clip = _as_tensor(1.0, dev)
+    beta3 = 1.0 - beta1 if grad_averaging else 1.0
+    if bias_correction:
+        bc1 = 1.0 - torch.pow(_as_tensor(beta1, dev), stepf)
+        bc2 = 1.0 - torch.pow(_as_tensor(beta2, dev), stepf)
+    else:
+        bc1 = bc2 = _as_tensor(1.0, dev)
+
+    def leaf(p, g, m, v):
+        p32 = p.float()
+        g32 = g / clip
+        if not adam_w_mode:
+            g32 = g32 + weight_decay * p32
+        m_new = beta1 * m.float() + beta3 * g32
+        v_new = beta2 * v.float() + (1.0 - beta2) * g32 * g32
+        upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        if adam_w_mode and weight_decay != 0.0:
+            upd = upd + weight_decay * p32
+        w_norm = torch.sqrt((p32 * p32).sum())
+        u_norm = torch.sqrt((upd * upd).sum())
+        if use_nvlamb:
+            ratio = torch.where(u_norm > 0, w_norm / u_norm, 1.0)
+        else:
+            ratio = torch.where((w_norm > 0) & (u_norm > 0),
+                                w_norm / u_norm, 1.0)
+        return p32 - lr * ratio * upd, m_new, v_new
+
+    leaves, treedef = tree_flatten(params)
+    new = [leaf(*xs) for xs in zip(leaves, tree_flatten(grads32)[0],
+                                   tree_flatten(exp_avg)[0],
+                                   tree_flatten(exp_avg_sq)[0])]
+    p_new, m_new, v_new = (tree_unflatten(treedef, [t[i] for t in new])
+                           for i in range(3))
+    return (_keep(noop, params, p_new), _keep(noop, exp_avg, m_new),
+            _keep(noop, exp_avg_sq, v_new), gnorm)

@@ -18,10 +18,17 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    with inputs rotated through more than the 50 MB L2; and the least
    time the card could take (bytes at 3.35 TB/s, operations at
    989 TFLOP/s bf16 or 67 TFLOP/s fp32). Kernels: LayerNorm forward and
-   backward, flash-attention forward, its backward's dq and dk / dv
-   kernels (one wrapper call launches both; each gets its own device
-   time and bound, and the plain and library times are the whole
-   backward's), and fused Adam over the GPT-2 small flat buffer.
+   backward (LayerNorm at GPT-2's shapes; RMSNorm with and without gamma
+   and LayerNorm without gamma at BERT-large's 4096 x 1024),
+   flash-attention forward, its backward's dq and dk / dv kernels (one
+   wrapper call launches both; each gets its own device time and bound,
+   and the plain and library times are the whole backward's) at GPT-2's
+   shapes and at BERT-large's 32 x 16 x 128 x 64, plain, with a
+   (b, 1, 1, sk) key-padding mask and with a full mask that masks whole
+   rows; fused Adam over the GPT-2 small flat buffer; the two LAMB
+   stages over the BERT-large flat buffer (334M fp32) and a ragged one,
+   with two runs bit-identical and an overflow step that changes no
+   bit.
 3. ``forward``: GPT-2 small in bf16, batch 4 x 1024 tokens, through
    ``GPT2``: exactly 25 LayerNorm and 12 flash-attention launches, logits
    held against the same weights in fp32 on the CPU (plain versions) and
@@ -47,10 +54,25 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    (plain versions), per parameter. Then the trained model serves
    through ``Engine``: its prefill logits follow the trained weights,
    not the initial ones.
+7. ``bert``: BERT-large (``BertConfig.large()``, fp32 parameters, bf16
+   compute) pretrains with flat ``FusedLAMB`` (lr 1e-3, weight decay
+   0.01) for 5 MLM steps on one fixed 32 x 128 batch (15 % of positions
+   read id 103 and carry their token as label, the rest -1): every loss
+   finite and the last below the first; per step exactly 49 ``ln_fwd``,
+   49 ``ln_bwd``, 24 ``fa_fwd``, 24 ``fa_bwd_dq``, 24 ``fa_bwd_dkv`` and
+   one launch of each LAMB stage; step ms, sequences/s and tokens/s, one
+   more step's device time by kind and idle share, peak memory, gradient
+   packing time, each LAMB stage's device ms against its bound. An fp32
+   cross-check of one step's gradients (4 layers at full width, 2 x 128
+   tokens, card vs CPU), and a padded batch: an fp32 BERT-large forward
+   of 4 sequences of lengths 128 / 100 / 64 / 17 padded to 128 with
+   ``attn_mask`` gives each sequence's own logits at its valid positions,
+   and a backward through the mask gives finite gradients.
 
 Then a ``{"kernels": [...]}`` line (launches counted over the main path:
-the forward of phase 3, the serve run of phase 4 and the 5 train steps
-of phase 6, each with the counts zeroed just before it), the
+the forward of phase 3, the serve run of phase 4, the 5 train steps of
+phase 6 and the 5 BERT steps of phase 7, each with the counts zeroed
+just before it), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that last line; without CUDA, or away from the
@@ -85,9 +107,16 @@ LN_BWD_TOL = {"fp32": (1e-5, 1e-5), "bf16": (1e-5, 2 ** -7)}  # dx
 LN_PARAM_GRAD_TOL = (1e-3, 1e-4)   # dgamma / dbeta: fp32 sums over rows
 FA_BWD_TOL = {"fp32": (1e-4, 0.0), "bf16": (1e-2, 2 ** -6)}
 ADAM_RTOL = 1e-7         # the kernel runs the plain version's operations
+LAMB_RTOL = 1e-7         # the same for both LAMB stages, row sums included
 TRAIN_GRAD_REL_L2 = 1e-3  # fp32 card vs CPU gradients, per parameter
 TRAIN_STEPS = 5
 TRAIN_LR = 3e-4
+BERT_STEPS = 5           # BERT-large MLM (bench.py's bench_bert_lamb shape)
+BERT_BATCH, BERT_SEQ = 32, 128
+BERT_LR, BERT_WD = 1e-3, 0.01
+BERT_GRAD_REL_L2 = 1e-3  # fp32 card vs CPU gradients, per parameter
+BERT_PAD_ATOL = 1e-3     # padded-batch logits vs each sequence alone
+PAD_LENS = [128, 100, 64, 17]
 
 
 def emit(phase: str, **fields) -> None:
@@ -120,16 +149,22 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from apex_tpu_torch.models.convert import init_gpt2_params
+    from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
+    from apex_tpu_torch.models.bert import Bert, BertConfig, mlm_loss
+    from apex_tpu_torch.models.convert import (init_bert_params,
+                                               init_gpt2_params)
     from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-        flash_attention_fwd_plain)
+        NEG_INF, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd, flash_attention_fwd_plain)
     from apex_tpu_torch.ops.fused_adam_kernel import (fused_adam_flat,
                                                       fused_adam_flat_plain)
+    from apex_tpu_torch.ops.fused_opt_kernels import (
+        fused_lamb_flat, fused_lamb_flat_plain, row_segment_ids, row_segments)
     from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                       ln_fwd, ln_fwd_plain)
+    from apex_tpu_torch.optimizers import FusedLAMB
     from apex_tpu_torch.optimizers.fused_adam import FLAT_PAD
     from apex_tpu_torch.serve import cli
     from apex_tpu_torch.serve.engine import Engine, EngineConfig
@@ -172,19 +207,24 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    def device_profile(fn):
+    def device_profile(fn, tries=3):
         """Run ``fn()`` under torch.profiler; returns ``{kernel name: us}``,
-        the summed durations of the device kernels it ran."""
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        out = {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                out[ev.name] = (out.get(ev.name, 0.0)
-                                + ev.time_range.elapsed_us())
+        the summed durations of the device kernels it ran. A pass in which
+        the profiler recorded no device kernel at all (seen once in five
+        runs on that machine) is run again, up to ``tries`` passes."""
+        for _ in range(tries):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            out = {}
+            for ev in prof.events():
+                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                    out[ev.name] = (out.get(ev.name, 0.0)
+                                    + ev.time_range.elapsed_us())
+            if out:
+                break
         return out
 
     def device_kernels(fn, sets, reps):
@@ -206,21 +246,24 @@ def main() -> int:
         kernels it launched (torch.profiler), over ``reps`` calls."""
         return sum(device_kernels(fn, sets, reps).values())
 
+    def kind_of(name):
+        low = name.lower()
+        return ("flash" if "fa_fwd_kernel" in name else
+                "flash_bwd" if "fa_bwd_" in name else
+                "layer_norm" if ("ln_fwd_kernel" in name
+                                 or "ln_bwd_" in name) else
+                "adam" if "fused_adam_kernel" in name else
+                "lamb" if "lamb_stage" in name else
+                "matmul" if any(s in low for s in (
+                    "gemm", "cutlass", "xmma", "nvjet", "cublas"))
+                else "other")
+
     def by_kind(kern):
         """Device ms of a profile, summed by kind of kernel."""
         out = {"flash": 0.0, "flash_bwd": 0.0, "layer_norm": 0.0,
-               "adam": 0.0, "matmul": 0.0, "other": 0.0}
+               "adam": 0.0, "lamb": 0.0, "matmul": 0.0, "other": 0.0}
         for name, us in kern.items():
-            low = name.lower()
-            cat = ("flash" if "fa_fwd_kernel" in name else
-                   "flash_bwd" if "fa_bwd_" in name else
-                   "layer_norm" if ("ln_fwd_kernel" in name
-                                    or "ln_bwd_" in name) else
-                   "adam" if "fused_adam_kernel" in name else
-                   "matmul" if any(s in low for s in (
-                       "gemm", "cutlass", "xmma", "nvjet", "cublas"))
-                   else "other")
-            out[cat] += us / 1e3
+            out[kind_of(name)] += us / 1e3
         out["total"] = sum(out.values())
         return out
 
@@ -248,38 +291,55 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {}
 
-    def ln_case(rows, hidden, dt, main=False):
+    def ln_form(rms, affine):
+        return ("rms" if rms else "ln") + ("" if affine else "_nogamma")
+
+    def ln_case(rows, hidden, dt, main=None, rms=False, affine=True):
+        """LayerNorm forward (gamma and beta), or RMSNorm (gamma, no beta)
+        with ``rms``, or either without gamma; ``main`` names the summary
+        record of a main-path shape."""
         es = torch.tensor([], dtype=tdt[dt]).element_size()
-        nbytes = rows * hidden * 2 * es + 2 * hidden * 4 + rows * 8
+        nparam = (0 if not affine else 1 if rms else 2) * hidden * 4
+        nbytes = rows * hidden * 2 * es + nparam + rows * 8
         sets = []
         for _ in range(n_sets(nbytes)):
             x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
                  + 0.5).to(tdt[dt])
             g = torch.randn(hidden, device=dev, generator=gen)
             b = torch.randn(hidden, device=dev, generator=gen)
-            sets.append((x, g, b))
+            sets.append((x, g if affine else None,
+                         b if affine and not rms else None))
         x, g, b = sets[0]
-        y, mu, iv = ln_fwd(x, g, b, eps=1e-5)
-        yp, mup, ivp = ln_fwd_plain(x, g, b, eps=1e-5)
+        kw = dict(eps=1e-5, rms=rms)
+        y, mu, iv = ln_fwd(x, g, b, **kw)
+        yp, mup, ivp = ln_fwd_plain(x, g, b, **kw)
         torch.cuda.synchronize()
         atol, rtol = LN_TOL[dt]
         dy = (y.float() - yp.float()).abs()
         ok_y = bool((dy <= atol + rtol * yp.float().abs()).all())
         err_stats = max((mu - mup).abs().max().item(),
                         ((iv - ivp).abs() / ivp.abs()).max().item())
-        require(ok_y and err_stats <= 1e-5,
-                f"ln_fwd {rows}x{hidden} {dt}: y err {dy.max().item()} "
-                f"(atol {atol} rtol {rtol}), stats err {err_stats}")
+        require(ok_y and err_stats <= 1e-5
+                and (not rms or not bool(mu.any())),
+                f"ln_fwd {ln_form(rms, affine)} {rows}x{hidden} {dt}: y err "
+                f"{dy.max().item()} (atol {atol} rtol {rtol}), stats err "
+                f"{err_stats}")
         reps = 50
-        kt = timed(lambda x, g, b: ln_fwd(x, g, b, eps=1e-5), sets, reps)
-        pt = timed(lambda x, g, b: ln_fwd_plain(x, g, b, eps=1e-5), sets,
+        kt = timed(lambda x, g, b: ln_fwd(x, g, b, **kw), sets, reps)
+        pt = timed(lambda x, g, b: ln_fwd_plain(x, g, b, **kw), sets,
                    reps // 5)
         # the library call takes gamma / beta in x's dtype: cast once here
-        lsets = [(x, g.to(x.dtype), b.to(x.dtype)) for x, g, b in sets]
-        lt = timed(lambda x, g, b: F.layer_norm(x, (hidden,), g, b, 1e-5),
-                   lsets, reps)
+        lsets = [(x, None if g is None else g.to(x.dtype),
+                  None if b is None else b.to(x.dtype)) for x, g, b in sets]
+        if rms:
+            lt = timed(lambda x, g, b: F.rms_norm(x, (hidden,), g, 1e-5),
+                       lsets, reps)
+        else:
+            lt = timed(lambda x, g, b: F.layer_norm(x, (hidden,), g, b,
+                                                    1e-5), lsets, reps)
         bms, by = bound(nbytes, 8 * rows * hidden, "fp32")
-        rec = dict(kernel="ln_fwd", rows=rows, hidden=hidden, dtype=dt,
+        rec = dict(kernel="ln_fwd", form=ln_form(rms, affine), rows=rows,
+                   hidden=hidden, dtype=dt,
                    max_abs_err=dy.max().item(), stats_err=err_stats,
                    tol={"atol": atol, "rtol": rtol}, ms=kt["ms"],
                    plain_ms=pt["ms"], library_ms=lt["ms"], bound_ms=bms,
@@ -288,43 +348,77 @@ def main() -> int:
                    library_call_ms=lt["call_ms"], bytes=nbytes)
         emit("kernel", **rec)
         if main:
-            summary["ln_fwd"] = rec
+            summary[main] = rec
 
-    def fa_case(b, h, sq, sk, causal, dt, main=False):
+    def make_mask(b, h, sq, sk, kind):
+        """``(bias, boolean mask)`` of a mask kind, True = masked, from the
+        seeded generator: ``"pad"`` is a (b, 1, 1, sk) key-padding mask of
+        random lengths (the first batch entry keeps all keys); ``"full"``
+        a (b, h, sq, sk) mask of random entries with whole rows masked."""
+        if kind == "pad":
+            lens = torch.randint(1, sk + 1, (b,), device=dev, generator=gen)
+            lens[0] = sk
+            mask = (torch.arange(sk, device=dev)[None, :] >= lens[:, None]
+                    )[:, None, None, :]
+        else:
+            mask = torch.rand(b, h, sq, sk, device=dev, generator=gen) < 0.3
+            mask[0, 0, :4] = True
+            mask[-1, -1, sq // 2] = True
+        return (torch.zeros(mask.shape, device=dev)
+                .masked_fill_(mask, -1e30), mask)
+
+    def fa_case(b, h, sq, sk, causal, dt, main=None, mask_kind=None):
         d = 64
         es = torch.tensor([], dtype=tdt[dt]).element_size()
-        nbytes = b * h * (2 * sq + 2 * sk) * d * es + b * h * sq * 4
-        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
-                 else sq * sk)
+        bias, mask = (make_mask(b, h, sq, sk, mask_kind) if mask_kind
+                      else (None, None))
+        nbytes = b * h * (2 * sq + 2 * sk) * d * es + b * h * sq * 4 \
+            + (0 if bias is None else bias.numel() * 4)
+        if mask is not None:
+            # count what this run's data needs: the unmasked pairs
+            pairs = int((~mask).expand(b, h, sq, sk).sum().item()) // (b * h)
+        else:
+            pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+                     else sq * sk)
         ops = 4 * b * h * d * pairs
         sets = [tuple(torch.randn(b, h, s, d, device=dev, generator=gen)
                       .to(tdt[dt]) for s in (sq, sk, sk))
                 for _ in range(n_sets(nbytes))]
         q, k, v = sets[0]
         scale = 1.0 / math.sqrt(d)
-        o, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal)
-        op, lsep = flash_attention_fwd_plain(q, k, v, scale=scale,
-                                             causal=causal)
+        kw = dict(scale=scale, causal=causal, bias=bias)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         atol, rtol = FA_TOL[dt]
         do = (o.float() - op.float()).abs()
         ok_o = bool((do <= atol + rtol * op.float().abs()).all())
         dl = (lse - lsep).abs().max().item()
-        require(ok_o and dl <= LSE_TOL,
-                f"fa_fwd {b}x{h}x{sq}x{sk} causal={causal} {dt}: o err "
-                f"{do.max().item()} (atol {atol} rtol {rtol}), lse err {dl}")
+        dead_ok = True
+        if mask is not None:
+            dead = mask.expand(b, h, sq, sk).all(dim=-1)
+            dead_ok = bool((o[dead] == 0).all()) \
+                and bool((lse[dead] == NEG_INF).all())
+        require(ok_o and dl <= LSE_TOL and dead_ok,
+                f"fa_fwd {b}x{h}x{sq}x{sk} causal={causal} mask={mask_kind} "
+                f"{dt}: o err {do.max().item()} (atol {atol} rtol {rtol}), "
+                f"lse err {dl}, fully masked rows zero {dead_ok}")
         reps = 30
-        kt = timed(lambda q, k, v: flash_attention_fwd(
-            q, k, v, scale=scale, causal=causal), sets, reps)
-        pt = timed(lambda q, k, v: flash_attention_fwd_plain(
-            q, k, v, scale=scale, causal=causal), sets, 5)
+        kt = timed(lambda q, k, v: flash_attention_fwd(q, k, v, **kw), sets,
+                   reps)
+        pt = timed(lambda q, k, v: flash_attention_fwd_plain(q, k, v, **kw),
+                   sets, 5)
         # SDPA's causal mask is top-left aligned like the kernel's, and
-        # it returns o only (no lse): the same o for this yardstick
+        # it returns o only (no lse): the same o for this yardstick. Its
+        # boolean mask means True = attend, the kernel's True = masked
+        keep = None if mask is None else ~mask
         lt = timed(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, scale=scale), sets, reps)
+            q, k, v, attn_mask=keep, is_causal=causal, scale=scale), sets,
+            reps)
         bms, by = bound(nbytes, ops, dt)
         rec = dict(kernel="fa_fwd", b=b, h=h, sq=sq, sk=sk, causal=causal,
-                   dtype=dt, max_abs_err=do.max().item(), lse_err=dl,
+                   mask=mask_kind, dtype=dt, max_abs_err=do.max().item(),
+                   lse_err=dl,
                    tol={"atol": atol, "rtol": rtol, "lse_atol": LSE_TOL},
                    ms=kt["ms"], plain_ms=pt["ms"], library_ms=lt["ms"],
                    bound_ms=bms, bound_by=by, call_ms=kt["call_ms"],
@@ -332,25 +426,39 @@ def main() -> int:
                    library_call_ms=lt["call_ms"], bytes=nbytes, flops=ops)
         emit("kernel", **rec)
         if main:
-            summary["fa_fwd"] = rec
+            summary[main] = rec
 
     with torch.inference_mode():
         for dt in ("bf16", "fp32"):
-            ln_case(4 * 1024, 768, dt, main=dt == "bf16")
+            ln_case(4 * 1024, 768, dt, main="ln_fwd" if dt == "bf16"
+                    else None)
             ln_case(4, 768, dt)
             ln_case(1000, 768, dt)
             ln_case(37, 1600, dt)
+            # BERT-large's norms: 32 x 128 rows of 1024
+            ln_case(4096, 1024, dt, rms=True,
+                    main="ln_fwd_rms" if dt == "bf16" else None)
+            ln_case(4096, 1024, dt, rms=True, affine=False)
+            ln_case(4096, 1024, dt, affine=False)
             for causal in (True, False):
                 fa_case(4, 12, 1024, 1024, causal, dt,
-                        main=dt == "bf16" and causal)
+                        main="fa_fwd" if dt == "bf16" and causal else None)
             fa_case(4, 12, 1000, 1000, True, dt)
             fa_case(2, 3, 200, 333, False, dt)
+            # BERT-large's attention: 32 x 16 heads x 128 x 64, full,
+            # plain and with a key-padding mask; a full mask with whole
+            # rows masked
+            fa_case(32, 16, 128, 128, False, dt,
+                    main="fa_fwd_bert" if dt == "bf16" else None)
+            fa_case(32, 16, 128, 128, False, dt, mask_kind="pad")
+            fa_case(4, 16, 128, 128, False, dt, mask_kind="full")
 
-    def ln_bwd_case(rows, hidden, dt, main=False):
+    def ln_bwd_case(rows, hidden, dt, main=None, rms=False, affine=True):
         es = torch.tensor([], dtype=tdt[dt]).element_size()
         # dy and x read, dx written, mean / invvar / gamma read,
         # dgamma / dbeta written
-        nbytes = 3 * rows * hidden * es + rows * 8 + 3 * hidden * 4
+        nparam = (0 if not affine else 2 if rms else 3) * hidden * 4
+        nbytes = 3 * rows * hidden * es + rows * (4 if rms else 8) + nparam
         sets = []
         for _ in range(n_sets(nbytes)):
             x = (torch.randn(rows, hidden, device=dev, generator=gen) * 2
@@ -359,38 +467,64 @@ def main() -> int:
                 .to(tdt[dt])
             g = torch.randn(hidden, device=dev, generator=gen)
             b = torch.randn(hidden, device=dev, generator=gen)
-            _, mu, iv = ln_fwd_plain(x, g, b, eps=1e-5)
-            sets.append((dy, x, g, b, mu, iv))
-        got = ln_bwd(*sets[0])
-        want = ln_bwd_plain(*sets[0])
+            g = g if affine else None
+            b = b if affine and not rms else None
+            _, mu, iv = ln_fwd_plain(x, g, b, eps=1e-5, rms=rms)
+            sets.append((dy, x, g, b, None if rms else mu, iv))
+        got = ln_bwd(*sets[0], rms=rms)
+        want = ln_bwd_plain(*sets[0], rms=rms)
         torch.cuda.synchronize()
         atol, rtol = LN_BWD_TOL[dt]
         ok_dx, err = close(got[0], want[0], atol, rtol)
-        ok_g, err_g = close(got[1], want[1], *LN_PARAM_GRAD_TOL)
-        ok_b, err_b = close(got[2], want[2], *LN_PARAM_GRAD_TOL)
-        again = ln_bwd(*sets[0])
-        deterministic = all(torch.equal(a, c) for a, c in zip(got, again))
-        require(ok_dx and ok_g and ok_b and deterministic,
-                f"ln_bwd {rows}x{hidden} {dt}: dx err {err} (atol {atol} "
-                f"rtol {rtol}), dgamma err {err_g}, dbeta err {err_b}, "
-                f"deterministic {deterministic}")
+        ok_g, err_g, ok_b, err_b = True, None, True, None
+        if got[1] is not None:
+            ok_g, err_g = close(got[1], want[1], *LN_PARAM_GRAD_TOL)
+        if got[2] is not None:
+            ok_b, err_b = close(got[2], want[2], *LN_PARAM_GRAD_TOL)
+        shapes_ok = all((a is None) == (c is None)
+                        for a, c in zip(got, want))
+        again = ln_bwd(*sets[0], rms=rms)
+        deterministic = all(a is None or torch.equal(a, c)
+                            for a, c in zip(got, again))
+        require(ok_dx and ok_g and ok_b and deterministic and shapes_ok,
+                f"ln_bwd {ln_form(rms, affine)} {rows}x{hidden} {dt}: dx "
+                f"err {err} (atol {atol} rtol {rtol}), dgamma err {err_g}, "
+                f"dbeta err {err_b}, deterministic {deterministic}")
         reps = 50
-        kt = timed(lambda *a: ln_bwd(*a), sets, reps)
-        pt = timed(lambda *a: ln_bwd_plain(*a), sets, reps // 5)
+        kt = timed(lambda *a: ln_bwd(*a, rms=rms), sets, reps)
+        pt = timed(lambda *a: ln_bwd_plain(*a, rms=rms), sets, reps // 5)
         # the library call takes gamma / beta in x's dtype and its own
-        # (rows, 1) fp32 statistics
+        # (rows, 1) fp32 statistics; RMSNorm has no backward op of its
+        # own: autograd of F.rms_norm, the graph built once, the backward
+        # timed alone
         lsets = []
         for dy, x, g, b, _, _ in sets:
-            gl, bl = g.to(x.dtype), b.to(x.dtype)
-            _, mu, rs = torch.ops.aten.native_layer_norm(x, [hidden], gl,
-                                                         bl, 1e-5)
-            lsets.append((dy, x, mu, rs, gl, bl))
-        lt = timed(lambda dy, x, mu, rs, gl, bl:
-                   torch.ops.aten.native_layer_norm_backward(
-                       dy, x, [hidden], mu, rs, gl, bl, [True, True, True]),
-                   lsets, reps)
+            gl = None if g is None else g.to(x.dtype)
+            bl = None if b is None else b.to(x.dtype)
+            if rms:
+                with torch.enable_grad():
+                    xx = x.detach().requires_grad_()
+                    gg = (None if gl is None
+                          else gl.detach().clone().requires_grad_())
+                    yy = F.rms_norm(xx, (hidden,), gg, 1e-5)
+                lsets.append((yy, tuple(t for t in (xx, gg)
+                                        if t is not None), dy))
+            else:
+                _, mu, rs = torch.ops.aten.native_layer_norm(
+                    x, [hidden], gl, bl, 1e-5)
+                lsets.append((dy, x, mu, rs, gl, bl))
+        if rms:
+            lt = timed(lambda yy, ins, dy: torch.autograd.grad(
+                yy, ins, dy, retain_graph=True), lsets, reps)
+        else:
+            lt = timed(lambda dy, x, mu, rs, gl, bl:
+                       torch.ops.aten.native_layer_norm_backward(
+                           dy, x, [hidden], mu, rs, gl, bl,
+                           [True, gl is not None, bl is not None]),
+                       lsets, reps)
         bms, by = bound(nbytes, 12 * rows * hidden, "fp32")
-        rec = dict(kernel="ln_bwd", rows=rows, hidden=hidden, dtype=dt,
+        rec = dict(kernel="ln_bwd", form=ln_form(rms, affine), rows=rows,
+                   hidden=hidden, dtype=dt,
                    max_abs_err=err, dgamma_err=err_g, dbeta_err=err_b,
                    deterministic=deterministic,
                    tol={"atol": atol, "rtol": rtol,
@@ -401,20 +535,26 @@ def main() -> int:
                    library_call_ms=lt["call_ms"], bytes=nbytes)
         emit("kernel", **rec)
         if main:
-            summary["ln_bwd"] = rec
+            summary[main] = rec
 
-    def fa_bwd_case(b, h, sq, sk, causal, dt, main=False):
+    def fa_bwd_case(b, h, sq, sk, causal, dt, main=None, mask_kind=None):
         d = 64
         scale = 1.0 / math.sqrt(d)
         es = torch.tensor([], dtype=tdt[dt]).element_size()
-        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
-                 else sq * sk)
+        bias, mask = (make_mask(b, h, sq, sk, mask_kind) if mask_kind
+                      else (None, None))
+        if mask is not None:
+            pairs = int((~mask).expand(b, h, sq, sk).sum().item()) // (b * h)
+        else:
+            pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+                     else sq * sk)
         io = b * h * d * es
         stats = b * h * sq * 8          # lse and D, fp32
-        # dq: reads q, k, v, do, lse, D, writes dq; dk / dv: reads the
-        # same, writes dk and dv
-        bytes_dq = io * (3 * sq + 2 * sk) + stats
-        bytes_dkv = io * (2 * sq + 4 * sk) + stats
+        extra = 0 if bias is None else bias.numel() * 4
+        # dq: reads q, k, v, do, lse, D (and the bias), writes dq; dk / dv:
+        # reads the same, writes dk and dv
+        bytes_dq = io * (3 * sq + 2 * sk) + stats + extra
+        bytes_dkv = io * (2 * sq + 4 * sk) + stats + extra
         ops_dq = 3 * 2 * b * h * d * pairs    # S, dP, dq
         ops_dkv = 4 * 2 * b * h * d * pairs   # S, dP, dv, dk
         sets = []
@@ -424,9 +564,9 @@ def main() -> int:
             do = torch.randn(b, h, sq, d, device=dev, generator=gen) \
                 .to(tdt[dt])
             o, lse = flash_attention_fwd(q, k, v, scale=scale,
-                                         causal=causal)
+                                         causal=causal, bias=bias)
             sets.append((q, k, v, o, lse, do))
-        kw = dict(scale=scale, causal=causal)
+        kw = dict(scale=scale, causal=causal, bias=bias)
         got = flash_attention_bwd(*sets[0], **kw)
         want = flash_attention_bwd_plain(*sets[0], **kw)
         torch.cuda.synchronize()
@@ -434,8 +574,13 @@ def main() -> int:
         errs = {}
         for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
             ok, errs[name] = close(g_, w_, atol, rtol)
-            require(ok, f"fa_bwd {b}x{h}x{sq}x{sk} causal={causal} {dt}: "
-                        f"{name} err {errs[name]} (atol {atol} rtol {rtol})")
+            require(ok, f"fa_bwd {b}x{h}x{sq}x{sk} causal={causal} "
+                        f"mask={mask_kind} {dt}: {name} err {errs[name]} "
+                        f"(atol {atol} rtol {rtol})")
+        if mask is not None:
+            dead = mask.expand(b, h, sq, sk).all(dim=-1)
+            require(bool((got[0][dead] == 0).all()),
+                    "fa_bwd: a fully masked row has a nonzero dq")
         again = flash_attention_bwd(*sets[0], **kw)
         deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
         require(deterministic, "fa_bwd: two runs gave different bits")
@@ -449,21 +594,27 @@ def main() -> int:
                         reps)
         pt = timed(lambda *a: flash_attention_bwd_plain(*a, **kw), sets, 3)
         library = None
-        if dt == "bf16":
-            # SDPA's backward under the flash backend, timed alone: the
-            # forward graph is built once and only autograd.grad is timed
+        if dt == "bf16" and mask_kind != "full":
+            # SDPA's backward, timed alone: the forward graph is built
+            # once and only autograd.grad is timed; the flash backend
+            # without a mask, PyTorch's own choice with one (its flash
+            # backend takes no mask)
             from torch.nn.attention import SDPBackend, sdpa_kernel
+            backends = ([SDPBackend.FLASH_ATTENTION] if mask is None else
+                        [SDPBackend.EFFICIENT_ATTENTION,
+                         SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH])
             lsets = []
             for q, k, v, _, _, do in sets:
                 qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-                with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                with sdpa_kernel(backends), torch.enable_grad():
                     oo = F.scaled_dot_product_attention(
-                        qq, kk, vv, is_causal=causal, scale=scale)
+                        qq, kk, vv, attn_mask=None if mask is None
+                        else ~mask, is_causal=causal, scale=scale)
                 lsets.append((oo, qq, kk, vv, do))
             library = timed(lambda oo, qq, kk, vv, do: torch.autograd.grad(
                 oo, (qq, kk, vv), do, retain_graph=True), lsets, reps)
-        common = dict(b=b, h=h, sq=sq, sk=sk, causal=causal, dtype=dt,
-                      tol={"atol": atol, "rtol": rtol},
+        common = dict(b=b, h=h, sq=sq, sk=sk, causal=causal, mask=mask_kind,
+                      dtype=dt, tol={"atol": atol, "rtol": rtol},
                       deterministic=deterministic, call_ms=call,
                       plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
                       library_ms=library and library["ms"],
@@ -481,9 +632,9 @@ def main() -> int:
                   **common)
         emit("kernel", **rq)
         emit("kernel", **rk)
-        if main:
-            summary["fa_bwd_dq"] = rq
-            summary["fa_bwd_dkv"] = rk
+        if main is not None:
+            summary["fa_bwd_dq" + main] = rq
+            summary["fa_bwd_dkv" + main] = rk
 
     def adam_case(n, main=False):
         nbytes = 28 * n + 36   # p, g, m, v read; p, m, v written
@@ -533,21 +684,117 @@ def main() -> int:
         if main:
             summary["fused_adam"] = rec
 
+    def lamb_bytes(n):
+        """Bytes each LAMB stage must move over ``n`` elements: stage 1
+        reads p, g, m, v and writes u, m, v and two row sums; stage 2 reads
+        p, u and the row ids and writes p."""
+        rows = n // 128
+        return 28 * n + 8 * rows, 12 * n + 4 * rows
+
+    def lamb_case(tree, main=False):
+        """Both LAMB stages over the flat layout of ``tree`` (parameter
+        shapes): the kernels against the plain stages on the same buffers
+        (the same operations in the same order, so held to 1e-7 relative
+        and expected to agree bit for bit), two runs bit-identical, an
+        overflow step that changes no bit; then each stage's device time
+        and the plain version's."""
+        spec = flat_spec(tree)
+        n = -(-spec.total_size // FLAT_PAD) * FLAT_PAD
+        ids = row_segment_ids(spec, n, device=dev)
+        seg = row_segments(ids, spec.num_leaves)
+        p = torch.randn(n, device=dev, generator=gen) * 0.05
+        g = torch.randn(n, device=dev, generator=gen) * 1e-3
+        m = torch.randn(n, device=dev, generator=gen) * 1e-4
+        v = torch.rand(n, device=dev, generator=gen) * 1e-6
+        kw = dict(num_tensors=spec.num_leaves, lr=1e-3, weight_decay=0.01,
+                  step=torch.tensor(3, dtype=torch.int32, device=dev),
+                  inv_scale=0.5, segments=seg)
+        ref = [t.clone() for t in (p, m, v)]
+        start = [t.clone() for t in (p, m, v)]
+        gn = fused_lamb_flat(p, g, m, v, ids, **kw)
+        gp = fused_lamb_flat_plain(ref[0], g, ref[1], ref[2], ids, **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for got, want in zip((p, m, v, gn), ref + [gp]):
+            ok, e = close(got, want, 0.0, LAMB_RTOL)
+            err = max(err, e)
+            require(ok, f"fused_lamb n={n}: err {e} (rtol {LAMB_RTOL})")
+        del ref
+        again = [t.clone() for t in start]
+        fused_lamb_flat(again[0], g, again[1], again[2], ids, **kw)
+        torch.cuda.synchronize()
+        deterministic = all(torch.equal(a, c)
+                            for a, c in zip(again, (p, m, v)))
+        require(deterministic, "fused_lamb: two runs gave different bits")
+        del again, start
+        before = [t.clone() for t in (p, m, v)]
+        bad = g.clone()
+        bad[n // 3] = float("inf")
+        fused_lamb_flat(p, bad, m, v, ids, found_inf=torch.ones(
+            (), dtype=torch.bool, device=dev), **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip((p, m, v), before)),
+                "fused_lamb: the overflow step changed a buffer")
+        del before, bad
+        reps = 10
+        args = [(p, g, m, v)]
+        split = device_kernels(lambda *a: fused_lamb_flat(*a, ids, **kw),
+                               args, reps)
+        ms1 = sum(x for k, x in split.items() if "lamb_stage1_kernel" in k)
+        ms2 = sum(x for k, x in split.items() if "lamb_stage2_kernel" in k)
+        call = bench_ms(lambda *a: fused_lamb_flat(*a, ids, **kw), args,
+                        reps)
+        pt = timed(lambda *a: fused_lamb_flat_plain(*a, ids, **kw), args, 3)
+        b1, b2 = lamb_bytes(n)
+        bm1, by1 = bound(b1, 20 * n, "fp32")
+        bm2, by2 = bound(b2, 2 * n, "fp32")
+        common = dict(n=n, tensors=spec.num_leaves, dtype="fp32",
+                      max_abs_err=err, tol={"rtol": LAMB_RTOL},
+                      deterministic=deterministic, call_ms=call,
+                      plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
+                      library_ms=None, library_call_ms=None,
+                      other_ms=sum(split.values()) - ms1 - ms2)
+        r1 = dict(kernel="lamb_stage1", ms=ms1, bound_ms=bm1, bound_by=by1,
+                  bytes=b1, **common)
+        r2 = dict(kernel="lamb_stage2", ms=ms2, bound_ms=bm2, bound_by=by2,
+                  bytes=b2, **common)
+        emit("kernel", **r1)
+        emit("kernel", **r2)
+        if main:
+            summary["lamb_stage1"], summary["lamb_stage2"] = r1, r2
+
     cfg = GPT2Config.small()
     params = init_gpt2_params(cfg, seed=0)
     # the trainer's flat buffer for GPT-2 small: 128-aligned leaves,
     # padded to a multiple of FLAT_PAD
     flat_n = -(-flat_spec(params).total_size // FLAT_PAD) * FLAT_PAD
     for dt in ("bf16", "fp32"):
-        ln_bwd_case(4 * 1024, 768, dt, main=dt == "bf16")
+        bf = dt == "bf16"
+        ln_bwd_case(4 * 1024, 768, dt, main="ln_bwd" if bf else None)
         ln_bwd_case(1000, 768, dt)
         ln_bwd_case(37, 1600, dt)
-        fa_bwd_case(4, 12, 1024, 1024, True, dt,
-                    main=dt == "bf16")
+        ln_bwd_case(4096, 1024, dt, rms=True,
+                    main="ln_bwd_rms" if bf else None)
+        ln_bwd_case(4096, 1024, dt, rms=True, affine=False)
+        ln_bwd_case(4096, 1024, dt, affine=False)
+        fa_bwd_case(4, 12, 1024, 1024, True, dt, main="" if bf else None)
         fa_bwd_case(4, 12, 1000, 1000, True, dt)
         fa_bwd_case(2, 3, 200, 333, False, dt)
+        fa_bwd_case(32, 16, 128, 128, False, dt,
+                    main="_bert" if bf else None)
+        fa_bwd_case(32, 16, 128, 128, False, dt, mask_kind="pad")
+        fa_bwd_case(4, 16, 128, 128, False, dt, mask_kind="full")
     adam_case(flat_n, main=True)
     adam_case(1001)
+    torch.cuda.empty_cache()
+    # BERT-large's parameters (made once, on the CPU, from seed 0): their
+    # flat layout is the LAMB kernels' main-path shape
+    bcfg = BertConfig.large()
+    bert_params = init_bert_params(bcfg, seed=0)
+    lamb_case(bert_params, main=True)
+    lamb_case({"w": torch.empty(3, 50), "b": torch.empty(7),
+               "e": torch.empty(300), "s": torch.empty(()),
+               "z": torch.empty(9), "m": torch.empty(77, 7)})
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------ 3. forward
@@ -795,6 +1042,161 @@ def main() -> int:
          serve_vs_initial_rel_l2=serve_vs_initial,
          served_tokens=[int(first[0]), int(nxt[0])], card=card)
 
+    # --------------------------------------------------------- 7. bert
+    del tmodel, trainer, model, model32
+    torch.cuda.empty_cache()
+    bmodel = Bert.from_params(bcfg, bert_params, device=dev)
+    named = dict(bmodel.named_parameters())
+    opt = FusedLAMB(named, lr=BERT_LR, weight_decay=BERT_WD)
+    with torch.no_grad():
+        for name, view in opt.parameters.items():
+            named[name].data = view       # the model trains in place
+    bgen = torch.Generator().manual_seed(3)
+    bids = torch.randint(999, bcfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                         generator=bgen)
+    picked = torch.rand(BERT_BATCH, BERT_SEQ, generator=bgen) < 0.15
+    blabels = torch.where(picked, bids, -1).to(dev)
+    binputs = torch.where(picked, 103, bids).to(dev)
+    kept = {}
+
+    def bert_step():
+        for t in named.values():
+            t.grad = None
+        loss = mlm_loss(bmodel, binputs, blabels)
+        loss.backward()
+        grads = {n: t.grad if t.grad is not None else torch.zeros_like(t)
+                 for n, t in named.items()}
+        opt.step(grads)
+        for t in named.values():      # written through raw pointers
+            torch.autograd.graph.increment_version(t)
+        kept["grads"] = grads
+        return loss.detach()
+
+    blosses, bstep_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        blosses.append(float(bert_step()))   # the step's host sync
+        torch.cuda.synchronize()
+        bstep_s.append(time.perf_counter() - t0)
+    bert_launches = dict(_build.launches)
+    bpeak = torch.cuda.max_memory_allocated()
+    n_norm = 2 * bcfg.num_hidden_layers + 1
+    bper_step = {"ln_fwd": n_norm, "ln_bwd": n_norm,
+                 "fa_fwd": bcfg.num_hidden_layers,
+                 "fa_bwd_dq": bcfg.num_hidden_layers,
+                 "fa_bwd_dkv": bcfg.num_hidden_layers,
+                 "lamb_stage1": 1, "lamb_stage2": 1}
+    bexpect = {k: x * BERT_STEPS for k, x in bper_step.items()}
+    require(bert_launches == bexpect,
+            f"bert launches {bert_launches}, expected {bexpect}")
+    require(all(math.isfinite(x) for x in blosses)
+            and blosses[-1] < blosses[0], f"bert losses {blosses}")
+    for name, n in bert_launches.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    bsteady = sorted(bstep_s[1:])[len(bstep_s[1:]) // 2] * 1e3
+    bkern = device_profile(bert_step)
+    bbusy = by_kind(bkern)
+    # the largest kernels of "other", to see where that time goes
+    top_other = dict(sorted(((k[:90], x / 1e3) for k, x in bkern.items()
+                            if kind_of(k) == "other"),
+                           key=lambda kv: -kv[1])[:12])
+    lamb_dev = {k: sum(x / 1e3 for n, x in bkern.items()
+                       if k + "_kernel" in n)
+                for k in ("lamb_stage1", "lamb_stage2")}
+    bpack = timed(lambda: flatten(kept["grads"], opt._spec,
+                                  dtype=torch.float32,
+                                  pad_to=opt._flat_p.numel()), [()], 10)
+    lb1, lb2 = lamb_bytes(opt._flat_p.numel())
+    lamb_bound = {"lamb_stage1": bound(lb1, 20 * opt._flat_p.numel(),
+                                       "fp32")[0],
+                  "lamb_stage2": bound(lb2, 2 * opt._flat_p.numel(),
+                                       "fp32")[0]}
+    nparams = sum(t.numel() for t in named.values())
+    del opt, bmodel, named, kept
+    torch.cuda.empty_cache()
+
+    # fp32 cross-check: one MLM step's gradients of a 4-layer fp32 BERT at
+    # full width, 2 x 128 tokens, on the card and on the CPU (plain
+    # versions), parameter by parameter
+    cfg4 = dataclasses.replace(bcfg, num_hidden_layers=4,
+                               compute_dtype=torch.float32)
+    p4 = {k: t for k, t in bert_params.items()
+          if not k.startswith("layer.") or int(k.split(".")[1]) < 4}
+    bgrads = {}
+    for where in ("cpu", dev):
+        m4 = Bert.from_params(cfg4, p4, device=where)
+        mlm_loss(m4, binputs[:2].to(where), blabels[:2].to(where)).backward()
+        bgrads[str(where)] = {n: t.grad.detach().cpu()
+                              for n, t in m4.named_parameters()
+                              if t.grad is not None}
+        del m4
+    bworst, bworst_name = 0.0, None
+    for name, ref_g in bgrads["cpu"].items():
+        rel = ((bgrads[str(dev)][name] - ref_g).norm()
+               / ref_g.norm().clamp_min(1e-30)).item()
+        if rel > bworst:
+            bworst, bworst_name = rel, name
+    require(bworst <= BERT_GRAD_REL_L2 and len(bgrads["cpu"]) > 0,
+            f"fp32 BERT card vs CPU gradients: {bworst_name} relative L2 "
+            f"{bworst}")
+    del bgrads
+
+    # padded batch: fp32 BERT-large, 4 sequences of different lengths
+    # padded to 128 with attn_mask; the logits at the valid positions
+    # equal each sequence's own forward at its own length, and a backward
+    # through the mask gives finite gradients
+    cfg32b = dataclasses.replace(bcfg, compute_dtype=torch.float32)
+    mpad = Bert.from_params(cfg32b, bert_params, device=dev)
+    pad_ids = bids[:4].to(dev)
+    pad_mask = (torch.arange(BERT_SEQ)[None, :]
+                < torch.tensor(PAD_LENS)[:, None]).to(torch.int32).to(dev)
+    pad_err = 0.0
+    with torch.no_grad():
+        padded = mpad(pad_ids, attn_mask=pad_mask)
+        for i, n in enumerate(PAD_LENS):
+            alone = mpad(pad_ids[i:i + 1, :n])[0]
+            pad_err = max(pad_err,
+                          (padded[i, :n] - alone).abs().max().item())
+    require(pad_err <= BERT_PAD_ATOL,
+            f"padded batch vs each sequence alone: max abs {pad_err}")
+    _build.reset_launches()
+    out = mpad(pad_ids, attn_mask=pad_mask)
+    plabels = torch.where(pad_mask.bool() & blabels[:4].ge(0), blabels[:4],
+                          -1)
+    softmax_cross_entropy_loss(out, plabels, padding_idx=-1).sum().backward()
+    torch.cuda.synchronize()
+    pad_launches = dict(_build.launches)
+    pad_finite = all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+                     for n, t in mpad.named_parameters()
+                     if n != "token_type_embeddings")
+    require(pad_finite and pad_launches.get("fa_bwd_dq", 0)
+            == bcfg.num_hidden_layers,
+            f"backward through the mask: finite {pad_finite}, launches "
+            f"{pad_launches}")
+    del mpad, padded, out
+    torch.cuda.empty_cache()
+    emit("bert", config="BertConfig.large", params="fp32", compute="bf16",
+         parameters=nparams, batch=BERT_BATCH, seq=BERT_SEQ,
+         steps=BERT_STEPS, optimizer="FusedLAMB(flat)", lr=BERT_LR,
+         weight_decay=BERT_WD, losses=blosses, launches=bert_launches,
+         launches_per_step=bper_step, step_ms=[x * 1e3 for x in bstep_s],
+         steady_step_ms=bsteady,
+         seqs_per_s=BERT_BATCH / bsteady * 1e3,
+         tokens_per_s=BERT_BATCH * BERT_SEQ / bsteady * 1e3,
+         step_device_busy_ms=bbusy, top_other_ms=top_other,
+         idle_share=1 - bbusy["total"] / bsteady,
+         max_memory_allocated=bpeak, grad_flatten_ms=bpack["ms"],
+         grad_flatten_call_ms=bpack["call_ms"],
+         lamb_device_ms=lamb_dev, lamb_bound_ms=lamb_bound,
+         fp32_grad_worst_rel_l2=bworst, fp32_grad_worst_param=bworst_name,
+         fp32_grad_rel_l2_tol=BERT_GRAD_REL_L2, fp32_check_layers=4,
+         padded_lens=PAD_LENS, padded_max_abs=pad_err,
+         padded_atol=BERT_PAD_ATOL, padded_backward_finite=pad_finite,
+         padded_launches=pad_launches, card=card)
+
     replaces = {
         "ln_fwd": ("apex_tpu_torch/csrc/layer_norm.cu",
                    "apex_tpu/ops/pallas/layer_norm_kernel.py:102"),
@@ -808,6 +1210,10 @@ def main() -> int:
                        "apex_tpu/ops/pallas/flash_attention.py:559"),
         "fused_adam": ("apex_tpu_torch/csrc/fused_adam.cu",
                        "apex_tpu/ops/pallas/fused_adam_kernel.py:178"),
+        "lamb_stage1": ("apex_tpu_torch/csrc/fused_lamb.cu",
+                        "apex_tpu/ops/pallas/fused_opt_kernels.py:82"),
+        "lamb_stage2": ("apex_tpu_torch/csrc/fused_lamb.cu",
+                        "apex_tpu/ops/pallas/fused_opt_kernels.py:114"),
     }
     kernels = []
     for name, (src, tpu) in replaces.items():
@@ -820,13 +1226,14 @@ def main() -> int:
             "launches_forward": fwd_launches.get(name, 0),
             "launches_serve": serve_launches.get(name, 0),
             "launches_train": train_launches.get(name, 0),
+            "launches_bert": bert_launches.get(name, 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"],
-            "shape": {k: rec[k] for k in ("rows", "hidden", "b", "h", "sq",
-                                          "sk", "causal", "n", "dtype")
-                      if k in rec}})
+            "shape": {k: rec[k] for k in ("form", "rows", "hidden", "b", "h",
+                                          "sq", "sk", "causal", "mask", "n",
+                                          "dtype") if k in rec}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

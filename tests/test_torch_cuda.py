@@ -12,8 +12,11 @@ products in another order); bf16 gradients 1e-2 absolute plus 2^-6
 relative (the kernel rounds p and ds to bf16 from its own fp32 scores, the
 plain version from whole-row ones, so a value can land one bf16 ulp
 apart before a 64-term product). Fused Adam: the kernel performs the plain
-version's operations in its order, held to 1e-7 relative. The
-determinism tests ask for identical bits from two runs.
+version's operations in its order, held to 1e-7 relative; so do the two
+LAMB stages (row sums included), held to the same. RMSNorm and the
+no-gamma forms take the LayerNorm tolerances; the masked flash kernels
+the flash ones, and exact zeros on fully masked rows. The determinism
+tests ask for identical bits from two runs.
 """
 
 import pytest
@@ -21,14 +24,19 @@ import torch
 
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.flash_attention import (
-    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-    flash_attention_fwd_plain)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_fwd_plain)
 from apex_tpu_torch.ops.fused_adam_kernel import (ADAM_MODE_ADAMW,
                                                   ADAM_MODE_L2,
                                                   fused_adam_flat,
                                                   fused_adam_flat_plain)
+from apex_tpu_torch.ops.fused_opt_kernels import (fused_lamb_flat,
+                                                  fused_lamb_flat_plain,
+                                                  row_segment_ids,
+                                                  row_segments)
 from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                   ln_fwd, ln_fwd_plain)
+from apex_tpu_torch.utils.flatten import flat_spec, flatten
 
 pytestmark = pytest.mark.cuda
 
@@ -233,3 +241,198 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         p = torch.zeros(8, device=dev, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="float32"):
             fused_adam_flat(p, p, p, p, lr=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rms,affine", [(True, True), (True, False),
+                                        (False, False)])
+@pytest.mark.parametrize("rows,hidden", [(64, 1024), (37, 96)])
+def test_rms_and_no_gamma_kernels_match_plain(dev, rows, hidden, rms,
+                                              affine, dtype):
+    g = torch.Generator(device=dev).manual_seed(rows + hidden + rms)
+    x = (torch.randn(rows, hidden, device=dev, generator=g) * 2 + 0.5) \
+        .to(dtype)
+    dy = torch.randn(rows, hidden, device=dev, generator=g).to(dtype)
+    gamma = torch.randn(hidden, device=dev, generator=g) if affine else None
+    y, m, iv = ln_fwd(x, gamma, None, eps=1e-5, rms=rms)
+    yp, mp, ivp = ln_fwd_plain(x, gamma, None, eps=1e-5, rms=rms)
+    mean = None if rms else m
+    dx, dg, db = ln_bwd(dy, x, gamma, None, mean, iv, rms=rms)
+    dxp, dgp, _ = ln_bwd_plain(dy, x, gamma, None, mean, iv, rms=rms)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), yp.float(), atol=1e-5, rtol=tol)
+    torch.testing.assert_close(m, mp, atol=1e-5, rtol=0)
+    torch.testing.assert_close(iv, ivp, atol=1e-5, rtol=1e-5)
+    if rms:
+        assert torch.equal(m, torch.zeros_like(m))
+    torch.testing.assert_close(dx.float(), dxp.float(), atol=1e-5, rtol=tol)
+    assert db is None and (dg is None) == (not affine)
+    if affine:
+        torch.testing.assert_close(dg, dgp, atol=1e-3, rtol=1e-4)
+
+
+def _masked_inputs(dev, b, h, sq, sk, mshape, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, 64, device=dev, generator=g).to(dtype)
+               for s in (sq, sk, sk))
+    do = torch.randn(b, h, sq, 64, device=dev, generator=g).to(dtype)
+    mask = torch.rand(mshape, device=dev, generator=g) < 0.3
+    if mshape[2] != 1:
+        mask[0, 0, 3] = True           # whole rows masked
+        mask[-1, -1, sq - 1] = True
+    bias = torch.zeros(mshape, device=dev).masked_fill_(mask, -1e30)
+    return q, k, v, do, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mshape", [(2, 1, 1, 130), (2, 3, 70, 130),
+                                    (1, 3, 70, 1)])
+def test_masked_flash_kernels_match_plain(dev, mshape, dtype):
+    q, k, v, do, bias = _masked_inputs(dev, 2, 3, 70, 130, mshape, dtype,
+                                       sum(mshape))
+    o, lse = flash_attention_fwd(q, k, v, scale=0.125, causal=False,
+                                 bias=bias)
+    op, lsep = flash_attention_fwd_plain(q, k, v, scale=0.125, causal=False,
+                                         bias=bias)
+    got = flash_attention_bwd(q, k, v, op, lsep, do, scale=0.125,
+                              causal=False, bias=bias)
+    want = flash_attention_bwd_plain(q, k, v, op, lsep, do, scale=0.125,
+                                     causal=False, bias=bias)
+    again = flash_attention_bwd(q, k, v, op, lsep, do, scale=0.125,
+                                causal=False, bias=bias)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
+    else:
+        torch.testing.assert_close(o.float(), op.float(), atol=2e-3,
+                                   rtol=2 ** -7)
+    torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
+    dead = (bias <= -0.5e30).expand(2, 3, 70, 130).all(dim=-1)
+    assert torch.equal(o[dead], torch.zeros_like(o[dead]))
+    assert bool((lse[dead] == -1e30).all())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=0, msg=name)
+        else:
+            torch.testing.assert_close(a.float(), w.float(), atol=1e-2,
+                                       rtol=2 ** -6, msg=name)
+    assert torch.equal(got[0][dead], torch.zeros_like(got[0][dead]))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_public_flash_mask_matches_plain_bias(dev):
+    """The public op's boolean mask equals the plain version's -1e30 bias,
+    forward and backward, and launches the three kernels once each."""
+    q, k, v, do, bias = _masked_inputs(dev, 2, 2, 64, 64, (2, 1, 1, 64),
+                                       torch.float32, 9)
+    mask = bias <= -0.5e30
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    before = dict(_build.launches)
+    o = flash_attention(qq, kk, vv, mask=mask)
+    o.backward(do)
+    torch.cuda.synchronize()
+    for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
+        assert _build.launches[name] == before.get(name, 0) + 1
+    op, lsep = flash_attention_fwd_plain(q, k, v, scale=0.125, causal=False,
+                                         bias=bias)
+    want = flash_attention_bwd_plain(q, k, v, op, lsep, do, scale=0.125,
+                                     causal=False, bias=bias)
+    torch.testing.assert_close(o.detach(), op, atol=2e-5, rtol=0)
+    for a, w in zip((qq.grad, kk.grad, vv.grad), want):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=0)
+
+
+def _lamb_buffers(dev, seed):
+    shapes = [(3, 50), (7,), (300,), (), (9,), (40, 70), (1024, 129)]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tree = {f"t{i}": torch.randn(s, device=dev, generator=g)
+            for i, s in enumerate(shapes)}
+    tree["t4"].zero_()                 # a zero leaf: ||p|| = 0
+    spec = flat_spec(tree)
+    p = flatten(tree, spec, dtype=torch.float32, pad_to=1024)
+    grads = flatten({k: torch.randn(t.shape, device=dev, generator=g)
+                     for k, t in tree.items()}, spec, dtype=torch.float32,
+                    pad_to=1024)
+    m = torch.randn(p.numel(), device=dev, generator=g) * 0.1
+    v = torch.rand(p.numel(), device=dev, generator=g) * 0.1
+    ids = row_segment_ids(spec, p.numel(), device=dev)
+    return p, grads, m, v, ids, row_segments(ids, spec.num_leaves), spec
+
+
+@pytest.mark.parametrize("adam_w_mode,use_nvlamb", [(True, False),
+                                                    (False, True)])
+def test_lamb_kernels_match_plain(dev, adam_w_mode, use_nvlamb):
+    p, grads, m, v, ids, seg, spec = _lamb_buffers(dev, 3 + adam_w_mode)
+    ref = [t.clone() for t in (p, m, v)]
+    kw = dict(num_tensors=spec.num_leaves, lr=1e-2, weight_decay=0.01,
+              step=torch.tensor(3, dtype=torch.int32, device=dev),
+              adam_w_mode=adam_w_mode, use_nvlamb=use_nvlamb,
+              inv_scale=0.5, found_inf=torch.tensor(False, device=dev),
+              segments=seg)
+    before = (_build.launches["lamb_stage1"], _build.launches["lamb_stage2"])
+    gn = fused_lamb_flat(p, grads, m, v, ids, **kw)
+    gp = fused_lamb_flat_plain(*ref[:1], grads, *ref[1:], ids, **kw)
+    torch.cuda.synchronize()
+    assert (_build.launches["lamb_stage1"], _build.launches["lamb_stage2"]) \
+        == (before[0] + 1, before[1] + 1)
+    for got, want in zip((p, m, v, gn), ref + [gp]):
+        torch.testing.assert_close(got, want, atol=0, rtol=1e-7)
+
+
+def test_lamb_is_deterministic_and_overflow_is_a_bitwise_noop(dev):
+    runs = []
+    for _ in range(2):
+        p, grads, m, v, ids, seg, spec = _lamb_buffers(dev, 7)
+        fused_lamb_flat(p, grads, m, v, ids, num_tensors=spec.num_leaves,
+                        lr=1e-3, step=1, segments=seg)
+        runs.append((p, m, v))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    p, m, v = runs[0]
+    before = [t.clone() for t in (p, m, v)]
+    grads[5] = float("inf")
+    fused_lamb_flat(p, grads, m, v, ids, num_tensors=spec.num_leaves,
+                    lr=1e-3, step=2, found_inf=torch.tensor(True, device=dev),
+                    segments=seg)
+    torch.cuda.synchronize()
+    for t, b in zip((p, m, v), before):
+        assert torch.equal(t, b)
+
+
+def test_bert_step_on_the_card(dev):
+    """A 2-layer bf16 BERT (head_dim 64) takes one MLM step with flat
+    FusedLAMB: a finite loss, finite parameters that moved, and one launch
+    of each kernel per norm / layer / stage."""
+    from apex_tpu_torch.models.bert import Bert, BertConfig, mlm_loss
+    from apex_tpu_torch.models.convert import init_bert_params
+    from apex_tpu_torch.optimizers import FusedLAMB
+    cfg = BertConfig(vocab_size=512, max_position_embeddings=64,
+                     hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, intermediate_size=256)
+    model = Bert.from_params(cfg, init_bert_params(cfg, 0), device=dev)
+    named = dict(model.named_parameters())
+    opt = FusedLAMB(named, lr=1e-3, weight_decay=0.01)
+    with torch.no_grad():
+        for name, view in opt.parameters.items():
+            named[name].data = view
+    g = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(5, 512, (4, 64), device=dev, generator=g)
+    labels = torch.where(torch.rand(4, 64, device=dev, generator=g) < 0.15,
+                         ids, -1)
+    start = {n: t.detach().clone() for n, t in named.items()}
+    _build.reset_launches()
+    loss = mlm_loss(model, torch.where(labels >= 0, 103 % 512, ids), labels)
+    loss.backward()
+    opt.step({n: t.grad if t.grad is not None else torch.zeros_like(t)
+              for n, t in named.items()})
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {
+        "ln_fwd": 5, "ln_bwd": 5, "fa_fwd": 2, "fa_bwd_dq": 2,
+        "fa_bwd_dkv": 2, "lamb_stage1": 1, "lamb_stage2": 1}
+    assert torch.isfinite(loss) and torch.isfinite(opt.last_grad_norm)
+    assert all(torch.isfinite(t).all() for t in named.values())
+    assert not torch.equal(named["layer.0.qkv.weight"],
+                           start["layer.0.qkv.weight"])

@@ -9,7 +9,8 @@ CPU tensors, which run the CUDA kernels' plain versions, and the port's
 autograd. Tolerances: fp32 1e-5 absolute; bf16 outputs compared in fp32 to
 one bf16 ulp of the JAX value (the two frameworks may round the last bit
 differently); fp32 statistics 1e-5; dgamma / dbeta (fp32 sums over rows,
-in another order) 1e-4 absolute; bf16 dx two bf16 ulps.
+in another order) 1e-4 absolute; bf16 dx two bf16 ulps. The RMSNorm and
+no-gamma forms are held to the same tolerances as the LayerNorm form.
 """
 
 import jax
@@ -19,12 +20,16 @@ import pytest
 import torch
 
 from apex_tpu.normalization.fused_layer_norm import (
-    FusedLayerNorm as JaxFusedLayerNorm, fused_layer_norm_affine as
-    jax_fused_layer_norm_affine)
+    FusedLayerNorm as JaxFusedLayerNorm, FusedRMSNorm as JaxFusedRMSNorm,
+    fused_layer_norm as jax_fused_layer_norm, fused_layer_norm_affine as
+    jax_fused_layer_norm_affine, fused_rms_norm as jax_fused_rms_norm,
+    fused_rms_norm_affine as jax_fused_rms_norm_affine)
 from apex_tpu.ops.pallas.layer_norm_kernel import (ln_bwd_pallas,
                                                    ln_fwd_pallas)
 from apex_tpu_torch.normalization.fused_layer_norm import (
-    FusedLayerNorm, fused_layer_norm_affine, manual_layer_norm)
+    FusedLayerNorm, FusedRMSNorm, fused_layer_norm, fused_layer_norm_affine,
+    fused_rms_norm, fused_rms_norm_affine, manual_layer_norm,
+    manual_rms_norm)
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                   ln_fwd, ln_fwd_plain)
@@ -227,3 +232,131 @@ def test_ln_bwd_plain_is_the_autograd_of_the_plain_forward():
                               invvar.detach())
     for mine, ref in ((dx, xt.grad), (dg, gt.grad), (db, bt.grad)):
         torch.testing.assert_close(mine, ref.float(), atol=1e-5, rtol=1e-5)
+
+
+# (rms, affine): RMSNorm with and without gamma, LayerNorm without gamma
+FORMS = [(True, True), (True, False), (False, False)]
+
+
+@pytest.mark.parametrize("rms,affine", FORMS)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("hidden", [128, 256])
+def test_rms_and_no_gamma_fwd_bwd_match_pallas_kernels(hidden, dtype, rms,
+                                                       affine):
+    """y, the statistics (a zero mean for RMSNorm), dx and dgamma (None
+    without gamma) of the port's kernel path against ``ln_fwd_pallas`` /
+    ``ln_bwd_pallas`` in interpret mode, ragged rows (13)."""
+    rows = 13
+    x, g, _ = _inputs(rows, hidden, seed=hidden + 2 * rms + affine)
+    dy = np.random.default_rng(hidden + 100).standard_normal(
+        (rows, hidden)).astype(np.float32)
+    jg = jnp.asarray(g) if affine else None
+    tg = torch.from_numpy(g) if affine else None
+    yj, mj, ivj = ln_fwd_pallas(_to_jax(x, dtype), jg, None, eps=EPS,
+                                rms=rms)
+    yt, mt, ivt = ln_fwd(_to_torch(x, dtype), tg, None, eps=EPS, rms=rms)
+    _assert_y(yt.float().numpy(), np.asarray(yj.astype(jnp.float32)), dtype)
+    np.testing.assert_allclose(mt.numpy(), np.asarray(mj), atol=1e-5,
+                               rtol=0)
+    if rms:
+        assert torch.equal(mt, torch.zeros(rows, 1))
+    np.testing.assert_allclose(ivt.numpy(), np.asarray(ivj), atol=1e-5,
+                               rtol=1e-5)
+    dxj, dgj, _ = ln_bwd_pallas(_to_jax(dy, dtype), _to_jax(x, dtype), jg,
+                                None, mj, ivj, rms=rms,
+                                memory_efficient=False)
+    dxt, dgt, dbt = ln_bwd(_to_torch(dy, dtype), _to_torch(x, dtype), tg,
+                           None, None if rms else mt, ivt, rms=rms)
+    assert dbt is None
+    _assert_y(dxt.float().numpy(), np.asarray(dxj.astype(jnp.float32)),
+              dtype, ulps=2)
+    if affine:
+        np.testing.assert_allclose(dgt.numpy(), np.asarray(dgj), atol=1e-4,
+                                   rtol=1e-5)
+    else:
+        assert dgt is None and dgj is None
+
+
+@pytest.mark.parametrize("rms,affine", FORMS)
+@pytest.mark.parametrize("hidden", [128, 96])
+def test_rms_and_no_gamma_functions_match_jax(hidden, rms, affine):
+    """The functional forms and their gradients against the JAX functions
+    and ``jax.grad`` (Pallas at 128, the jnp path at 96); fp32, 1e-5 on y
+    and 1e-4 on the gradients."""
+    x, g, _ = _inputs(2 * 6, hidden, seed=3 * hidden + rms)
+    x3 = x.reshape(2, 6, hidden)
+    w = np.random.default_rng(4).standard_normal(x3.shape).astype(np.float32)
+    jfn = {(True, True): lambda x_, g_: jax_fused_rms_norm_affine(
+               x_, g_, hidden, EPS),
+           (True, False): lambda x_, g_: jax_fused_rms_norm(x_, hidden, EPS),
+           (False, False): lambda x_, g_: jax_fused_layer_norm(
+               x_, hidden, EPS)}[(rms, affine)]
+    tfn = {(True, True): lambda x_, g_: fused_rms_norm_affine(
+               x_, g_, hidden, EPS),
+           (True, False): lambda x_, g_: fused_rms_norm(x_, hidden, EPS),
+           (False, False): lambda x_, g_: fused_layer_norm(
+               x_, hidden, EPS)}[(rms, affine)]
+    yj = jfn(jnp.asarray(x3), jnp.asarray(g))
+    jgrads = jax.grad(lambda x_, g_: jnp.sum(jfn(x_, g_) * w),
+                      argnums=(0, 1))(jnp.asarray(x3), jnp.asarray(g))
+    xt, gt = (torch.from_numpy(a).requires_grad_() for a in (x3, g))
+    yt = tfn(xt, gt)
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj),
+                               atol=1e-5, rtol=0)
+    (yt * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgrads[0]),
+                               atol=1e-4, rtol=1e-5)
+    if affine:
+        np.testing.assert_allclose(gt.grad.numpy(), np.asarray(jgrads[1]),
+                                   atol=1e-4, rtol=1e-5)
+    else:
+        assert gt.grad is None
+    manual = (manual_rms_norm(xt, gt if affine else None, hidden, EPS)
+              if rms else manual_layer_norm(xt, None, None, hidden, EPS))
+    torch.testing.assert_close(yt, manual, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("rms", [True, False])
+def test_norm_modules_match_flax(rms, affine):
+    """``FusedRMSNorm`` / ``FusedLayerNorm(elementwise_affine=...)``
+    against the flax modules: parameter names, values and dtype, and the
+    output (fp32, 1e-5)."""
+    x, _, _ = _inputs(6, 128, seed=9)
+    x3 = x.reshape(2, 3, 128)
+    jcls, tcls = ((JaxFusedRMSNorm, FusedRMSNorm) if rms
+                  else (JaxFusedLayerNorm, FusedLayerNorm))
+    mod = jcls(128, elementwise_affine=affine)
+    variables = mod.init(jax.random.PRNGKey(0), jnp.asarray(x3))
+    port = tcls(128, elementwise_affine=affine, device="cpu")
+    jnames = set(variables.get("params", {}))
+    assert {n for n, _ in port.named_parameters()} == jnames
+    for name, p in port.named_parameters():
+        assert p.dtype == torch.float32
+        np.testing.assert_array_equal(p.detach().numpy(),
+                                      np.asarray(variables["params"][name]))
+    with torch.no_grad():
+        yt = port(torch.from_numpy(x3))
+    np.testing.assert_allclose(yt.numpy(),
+                               np.asarray(mod.apply(variables,
+                                                    jnp.asarray(x3))),
+                               atol=1e-5, rtol=0)
+
+
+def test_rms_bwd_plain_is_the_autograd_of_the_plain_forward():
+    """The RMSNorm plain backward is the exact derivative of the plain
+    forward, with and without gamma (fp32, 1e-5)."""
+    x, g, _ = _inputs(7, 96, seed=6)
+    dy = torch.randn(7, 96, generator=torch.Generator().manual_seed(1))
+    for affine in (True, False):
+        xt, gt = (torch.from_numpy(a).requires_grad_() for a in (x, g))
+        y, mean, invvar = ln_fwd_plain(xt, gt if affine else None, None,
+                                       eps=EPS, rms=True)
+        y.backward(dy)
+        dx, dg, db = ln_bwd_plain(dy, xt.detach(), gt.detach() if affine
+                                  else None, None, None, invvar.detach(),
+                                  rms=True)
+        assert db is None and (dg is None) == (not affine)
+        torch.testing.assert_close(dx, xt.grad, atol=1e-5, rtol=1e-5)
+        if affine:
+            torch.testing.assert_close(dg, gt.grad, atol=1e-5, rtol=1e-5)

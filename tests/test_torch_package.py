@@ -172,10 +172,11 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_sources_and_digest():
     names = [p.name for p in _build.sources()]
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
-                     "fused_adam.cu", "layer_norm.cu"]
+                     "fused_adam.cu", "fused_lamb.cu", "layer_norm.cu"]
     assert set(_build.SIGNATURES) == {
         "apex_ln_fwd", "apex_ln_bwd", "apex_fa_fwd", "apex_fa_bwd_dq",
-        "apex_fa_bwd_dkv", "apex_fused_adam"}
+        "apex_fa_bwd_dkv", "apex_fused_adam", "apex_lamb_stage1",
+        "apex_lamb_stage2"}
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="cudaError 7"):

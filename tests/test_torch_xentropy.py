@@ -6,7 +6,8 @@ The same numpy logits and labels, made from a seed, go through the JAX
 per-row loss and ``jax.grad`` of a weighted sum against the port's
 autograd. Tolerances: fp32 1e-5 absolute on the loss and 1e-6 on the
 gradient; bf16 logits give an fp32 loss held to 1e-5 and a bf16 gradient
-held to one bf16 ulp of 1 (2^-8) absolute.
+held to one bf16 ulp of 1 (2^-8) absolute. Padding rows are held to exact
+zeros.
 """
 
 import jax
@@ -62,3 +63,30 @@ def test_loss_and_grad_match_jax(smoothing, padding_idx, dtype):
         dropped = torch.from_numpy(labels == padding_idx)
         assert torch.all(lt.detach()[dropped] == 0)
         assert torch.all(tx.grad[dropped] == 0)
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_padding_label_outside_the_vocabulary(smoothing):
+    """``padding_idx=-1`` with labels of -1, as the MLM loss passes them:
+    the JAX function's loss and gradient, exact zeros on the padding rows,
+    and no gather or scatter at index -1 (which raised before)."""
+    logits, labels, w = _inputs(31)
+    labels[0, 1] = labels[1, 4] = labels[2, 2] = -1
+
+    def jloss(x):
+        return jax_softmax_cross_entropy_loss(x, jnp.asarray(labels),
+                                              smoothing, -1)
+
+    lj = jloss(jnp.asarray(logits))
+    gj = jax.grad(lambda x: jnp.sum(jloss(x) * w))(jnp.asarray(logits))
+    tx = torch.from_numpy(logits).requires_grad_()
+    lt = softmax_cross_entropy_loss(tx, torch.from_numpy(labels).long(),
+                                    smoothing, -1)
+    (lt * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(lt.detach().numpy(), np.asarray(lj),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gj), atol=1e-6,
+                               rtol=0)
+    dropped = torch.from_numpy(labels == -1)
+    assert torch.equal(lt.detach()[dropped], torch.zeros(3))
+    assert torch.equal(tx.grad[dropped], torch.zeros(3, K))
