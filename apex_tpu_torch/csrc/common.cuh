@@ -26,6 +26,40 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// Four consecutive elements j*4 .. j*4+3 as fp32: one 16-byte access for
+// float, two 4-byte bf16 pairs for bfloat16 (the pointer aligned to the
+// access, which the flat optimizer buffers are).
+__device__ __forceinline__ float4 load4(const float* p, long long j) {
+  return reinterpret_cast<const float4*>(p)[j];
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p,
+                                        long long j) {
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(p2[2 * j]);
+  const float2 b = __bfloat1622float2(p2[2 * j + 1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, long long j, float4 v) {
+  reinterpret_cast<float4*>(p)[j] = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, long long j,
+                                       float4 v) {
+  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
+  p2[2 * j] = __floats2bfloat162_rn(v.x, v.y);
+  p2[2 * j + 1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// The flat optimizer kernels' launch: 256 threads a block, a grid-stride
+// loop over `work` items, at most 8 blocks on each of the 132 SMs.
+constexpr int kFlatThreads = 256;
+inline int flat_blocks(long long work) {
+  const long long b = (work + kFlatThreads - 1) / kFlatThreads;
+  return (int)(b < 1 ? 1 : (b > 132 * 8 ? 132 * 8 : b));
+}
+inline bool is_aligned(const void* p, unsigned bytes) {
+  return reinterpret_cast<unsigned long long>(p) % bytes == 0;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

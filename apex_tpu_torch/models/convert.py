@@ -1,5 +1,5 @@
-"""GPT-2 and BERT parameters for the port: from a flax tree and back, or
-made from a seed.
+"""GPT-2, BERT and ResNet parameters for the port: from a flax tree and
+back, or made from a seed.
 
 The port's parameter dict (``GPT2.state_dict()`` names) mirrors the flax
 tree of ``apex_tpu.models.gpt2.GPT2.init``:
@@ -23,6 +23,14 @@ BERT (``apex_tpu.models.bert.Bert``): ``word_embeddings``,
 transposed to ``(out, in)`` as for GPT-2), ``attn_norm.weight``,
 ``mlp_fc_w (I, e)``, ``mlp_fc_b``, ``mlp_proj_w (e, I)``, ``mlp_proj_b``
 and ``mlp_norm.weight``.
+
+ResNet (``apex_tpu.models.resnet.ResNet``): the flax ``params`` and
+``batch_stats`` trees become one dict in the port's module names, the flax
+path with ``.`` for ``/``: convolution kernels ``(kh, kw, in, out)``
+become ``weight (out, in, kh, kw)``, the dense ``fc/kernel (in, out)``
+becomes ``fc.weight (out, in)``, BatchNorm ``weight`` / ``bias`` stay, and
+the ``batch_stats`` ``mean`` / ``var`` become the BatchNorm modules'
+buffers of those names.
 """
 
 from __future__ import annotations
@@ -222,4 +230,80 @@ def init_bert_params(cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
         out[pre + "mlp_proj_w"] = normal((e, inter), 0.02)
         out[pre + "mlp_proj_b"] = torch.zeros(e)
         out[pre + "mlp_norm.weight"] = torch.ones(e)
+    return out
+
+
+def _walk(tree: Dict[str, Any], prefix: str = ""):
+    """``(dotted path, leaf)`` of a nested dict, keys in sorted order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _walk(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def resnet_params_from_jax(variables: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """The flax ResNet variables (``{"params": ..., "batch_stats": ...}``,
+    numpy leaves) as the port's CPU float32 state dict (parameters and
+    running statistics). Without ``batch_stats`` (a gradient tree) only the
+    parameters come back."""
+    out = {}
+    for group in ("params", "batch_stats"):
+        for path, leaf in _walk(variables.get(group, {})):
+            a = _t(leaf)
+            if path.endswith(".kernel"):
+                path = path[:-len("kernel")] + "weight"
+                a = a.permute(3, 2, 0, 1) if a.dim() == 4 else a.t()
+            out[path] = a.contiguous()
+    return out
+
+
+def resnet_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`resnet_params_from_jax`: a dict in the port's
+    names (a state dict, or gradients keyed like the parameters) as the
+    flax variables ``{"params": ..., "batch_stats": ...}`` (the second only
+    where running statistics are given) with float32 numpy leaves."""
+    out: Dict[str, Any] = {}
+    for name, t in params.items():
+        a = t.detach().float().cpu()
+        *path, leaf = name.split(".")
+        group = "batch_stats" if leaf in ("mean", "var") else "params"
+        if leaf == "weight" and a.dim() in (2, 4):
+            leaf = "kernel"
+            a = a.permute(2, 3, 1, 0) if a.dim() == 4 else a.t()
+        node = out.setdefault(group, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a.numpy())
+    return out
+
+
+def init_resnet_params(seed: int = 0, stage_sizes=(3, 4, 6, 3),
+                       num_classes: int = 1000) -> Dict[str, torch.Tensor]:
+    """A random ResNet state dict (``stage_sizes`` (3, 4, 6, 3) is
+    ResNet-50) with the flax model's distributions, from a CPU
+    ``torch.Generator`` seeded with ``seed``: convolution and dense kernels
+    lecun-normal (truncated at two sigma, variance 1 / fan_in, fan_in =
+    kh * kw * in for a convolution), the dense bias zero, BatchNorm weights
+    one and biases zero, running means zero and variances one. The numbers
+    differ from a flax init with the same seed; the distributions do
+    not."""
+    from apex_tpu_torch.models.resnet import ResNet
+    _, lecun = _draws(seed)
+    shapes = {n: tuple(t.shape) for n, t in ResNet(
+        stage_sizes, num_classes, device="cpu").state_dict().items()}
+    out = {}
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)[1]
+        if leaf == "weight" and len(shape) == 4:
+            o, i, kh, kw = shape
+            out[name] = lecun(o, i * kh * kw).reshape(shape)
+        elif leaf == "weight" and len(shape) == 2:
+            out[name] = lecun(*shape)
+        elif leaf in ("weight", "var"):
+            out[name] = torch.ones(shape)
+        else:                          # biases, running means
+            out[name] = torch.zeros(shape)
     return out

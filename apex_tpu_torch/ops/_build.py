@@ -63,8 +63,17 @@ SIGNATURES = {
     "apex_fa_bwd_dkv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                         _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll, _i,
                         _vp],
-    # p, g, m, v, scalars, n, mode, stream
-    "apex_fused_adam": [_vp, _vp, _vp, _vp, _vp, _ll, _i, _vp],
+    # p, g, m, v, scalars, n, mode, dtype (of p and g), stream
+    "apex_fused_adam": [_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
+    # p_master, g, m, v, p_lp (bf16, written), scalars, n, mode, stream
+    "apex_fused_adam_master": [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _vp],
+    # p, g, momentum buffer, scalars, n, nesterov, wd_after_momentum,
+    # dtype (of p and g), stream
+    "apex_fused_sgd": [_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _vp],
+    # p, g, m, denominators, row_ids, scalars, rows, stream
+    "apex_fused_novograd": [_vp, _vp, _vp, _vp, _vp, _vp, _ll, _vp],
+    # p, g, h, scalars, n, w_mode, stream
+    "apex_fused_adagrad": [_vp, _vp, _vp, _vp, _ll, _i, _vp],
     # p, g, m, v, u, row_p, row_u, scalars, rows, adam_w, stream
     "apex_lamb_stage1": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i,
                          _vp],

@@ -1,10 +1,12 @@
-"""Flat-buffer LAMB: the two CUDA kernels and their plain versions.
+"""Flat-buffer LAMB, NovoGrad and Adagrad: the CUDA kernels and their plain
+versions.
 
-Counterpart of the LAMB part of ``apex_tpu/ops/pallas/fused_opt_kernels.py``
-(``row_segment_ids``, ``_per_tensor_sumsq``, ``fused_lamb_flat``). The
-flat fp32 buffers are viewed as ``(rows, 128)``; every tensor of the flat
-layout starts on a 128-element boundary, so each row belongs to one tensor
-and ``row_ids`` names it (the tail padding rows name ``num_tensors``).
+Counterpart of ``apex_tpu/ops/pallas/fused_opt_kernels.py``
+(``row_segment_ids``, ``_per_tensor_sumsq``, ``fused_lamb_flat``,
+``fused_novograd_flat``, ``fused_adagrad_flat``). The flat fp32 buffers
+are viewed as ``(rows, 128)``; every tensor of the flat layout starts on a
+128-element boundary, so each row belongs to one tensor and ``row_ids``
+names it (the tail padding rows name ``num_tensors``).
 
 :func:`fused_lamb_flat` runs, as the JAX function does:
 
@@ -25,6 +27,15 @@ and ``row_ids`` names it (the tail padding rows name ``num_tensors``).
 :func:`fused_lamb_flat_plain` is the same with both plain stages on any
 device; the plain stages repeat the kernels' operations in their order,
 row sums included, so the two agree bit for bit on the card.
+
+:func:`fused_novograd_flat` computes the per-tensor second moments of the
+scaled gradients and their denominators in plain PyTorch (row sums of
+squares in the LAMB kernel's order, :func:`segment_sums`), as plain XLA
+does in the JAX package, then launches one elementwise kernel
+(:func:`novograd_update_rows`, ``csrc/fused_novograd.cu``) that reads each
+row's denominator through ``row_ids``. :func:`fused_adagrad_flat` is one
+elementwise kernel (``csrc/fused_adagrad.cu``). Each has a ``*_plain``
+version that repeats the kernel's operations in order.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops.fused_adam_kernel import _check_flat as _check_same
 from apex_tpu_torch.ops.fused_adam_kernel import _dev_scalar
 from apex_tpu_torch.utils.flatten import LANE, FlatSpec
 
@@ -322,3 +334,211 @@ def fused_lamb_flat_plain(p: torch.Tensor, g: torch.Tensor,
                  weight_decay, step, bias_correction, grad_averaging,
                  max_grad_norm, use_nvlamb, adam_w_mode, inv_scale,
                  found_inf, segments, lamb_stage1_plain, lamb_stage2_plain)
+
+
+# ---------------------------------------------------------------- NovoGrad
+
+NOVOGRAD_SCALARS = 7  # [lr, beta1, beta3, wd, bc1, inv_scale, noop]
+
+
+def novograd_update_rows_plain(p, g, m, denom: torch.Tensor,
+                               row_ids: torch.Tensor,
+                               scal: torch.Tensor) -> None:
+    """``_novograd_kernel`` in plain PyTorch: each row's gradient divided
+    by its tensor's denominator (``denom[row_ids]``), then the momentum and
+    parameter update, in place; nothing when noop."""
+    lr, beta1, beta3, wd, bc1, inv_scale, noop = scal.unbind(0)
+    p2, m2 = p.view(-1, LANE), m.view(-1, LANE)
+    gg = g.view(-1, LANE) * inv_scale
+    gg = gg / denom[row_ids.long()][:, None]
+    gg = gg + wd * p2
+    m_new = beta1 * m2 + beta3 * gg
+    p_new = p2 - lr * (m_new / bc1)
+    keep = noop != 0.0
+    p2.copy_(torch.where(keep, p2, p_new))
+    m2.copy_(torch.where(keep, m2, m_new))
+
+
+def novograd_update_rows(p, g, m, denom: torch.Tensor,
+                         row_ids: torch.Tensor, scal: torch.Tensor) -> None:
+    """The NovoGrad elementwise update over flat fp32 buffers of ``rows *
+    128`` elements: the kernel for CUDA tensors,
+    :func:`novograd_update_rows_plain` for CPU tensors."""
+    if p.device.type == "cpu":
+        return novograd_update_rows_plain(p, g, m, denom, row_ids, scal)
+    if p.device.type != "cuda":
+        raise ValueError(f"fused_novograd: unsupported device {p.device}")
+    _check_flat("fused_novograd", p, (("g", g), ("m", m)))
+    rows = p.numel() // LANE
+    if row_ids.dtype != torch.int32 or row_ids.numel() != rows \
+            or row_ids.device != p.device or not row_ids.is_contiguous():
+        raise ValueError(f"fused_novograd: row_ids must be a contiguous "
+                         f"int32 tensor of {rows} rows on {p.device}")
+    for what, t, n in (("denom", denom, None),
+                       ("scal", scal, NOVOGRAD_SCALARS)):
+        if t.dtype != torch.float32 or t.device != p.device \
+                or not t.is_contiguous() or (n is not None
+                                             and t.numel() != n):
+            raise ValueError(f"fused_novograd: {what} must be a contiguous "
+                             f"float32 tensor on {p.device}")
+    lib = _build.lib()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.apex_fused_novograd(p.data_ptr(), g.data_ptr(),
+                                      m.data_ptr(), denom.data_ptr(),
+                                      row_ids.data_ptr(), scal.data_ptr(),
+                                      rows, stream)
+    _build.launches["fused_novograd"] += 1
+    _build.check(err, "fused_novograd")
+    # written through raw pointers: tell autograd's version counters
+    for t in (p, m):
+        torch.autograd.graph.increment_version(t)
+
+
+def _novograd(p, g, m, v, row_ids, num_tensors, lr, beta1, beta2, eps,
+              weight_decay, step, grad_averaging, bias_correction,
+              norm_type, init_zero, inv_scale, found_inf, segments,
+              update_rows):
+    if norm_type != 2:
+        raise NotImplementedError(
+            "fused_novograd_flat: norm_type=0 (inf-norm) rides the tree "
+            "path (optimizers/functional.py novograd_update)")
+    dev = p.device
+    if segments is None:
+        segments = row_segments(row_ids, num_tensors)
+    if segments.num_tensors != num_tensors \
+            or segments.rows * LANE != p.numel() or v.numel() != num_tensors:
+        raise ValueError("fused_novograd_flat: segments or v were built for "
+                         "another layout")
+    stepf = _dev_scalar(step, dev)
+    one = _dev_scalar(1.0, dev)
+    if bias_correction:
+        bc1 = one - torch.pow(_dev_scalar(beta1, dev), stepf)
+        bc2 = one - torch.pow(_dev_scalar(beta2, dev), stepf)
+    else:
+        bc1 = bc2 = one
+    noop = _dev_scalar(found_inf, dev)
+    inv = _dev_scalar(inv_scale, dev)
+    # the per-tensor second moments of the scaled gradients
+    g32 = g if not torch.is_tensor(inv_scale) and inv_scale == 1.0 \
+        else g * inv
+    gn_sq = segment_sums(_row_sumsq(g32), segments)
+    del g32
+    v_upd = beta2 * v + (1.0 - beta2) * gn_sq
+    first = stepf <= 1.0
+    v_new = torch.where(first, (1.0 - beta2) * gn_sq if init_zero else gn_sq,
+                        v_upd)
+    denom = torch.cat([torch.sqrt(v_new / bc2) + eps, one])  # padding rows
+    v.copy_(torch.where(noop != 0.0, v, v_new))
+    scal = torch.cat([_dev_scalar(lr, dev), _dev_scalar(beta1, dev),
+                      _dev_scalar(1.0 - beta1 if grad_averaging else 1.0,
+                                  dev),
+                      _dev_scalar(weight_decay, dev), bc1, inv, noop])
+    update_rows(p, g, m, denom, row_ids, scal)
+    return p, m, v
+
+
+def fused_novograd_flat(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                        v_per_tensor: torch.Tensor, row_ids: torch.Tensor,
+                        *, num_tensors: int, lr, beta1: float = 0.95,
+                        beta2: float = 0.98, eps: float = 1e-8,
+                        weight_decay: float = 0.0, step=1,
+                        grad_averaging: bool = False,
+                        bias_correction: bool = False, norm_type: int = 2,
+                        init_zero: bool = False, inv_scale=1.0,
+                        found_inf=False,
+                        segments: Optional[RowSegments] = None):
+    """One NovoGrad step over flat 1-D fp32 buffers of a multiple of 128
+    elements with per-tensor second moments ``v_per_tensor (num_tensors,)``;
+    p, m and v are updated in place and returned as ``(p, m, v)``. ``lr``,
+    ``step``, ``inv_scale`` and ``found_inf`` may be device tensors. CUDA
+    tensors launch the kernel; CPU tensors take the plain update."""
+    return _novograd(p, g, m, v_per_tensor, row_ids, num_tensors, lr, beta1,
+                     beta2, eps, weight_decay, step, grad_averaging,
+                     bias_correction, norm_type, init_zero, inv_scale,
+                     found_inf, segments, novograd_update_rows)
+
+
+def fused_novograd_flat_plain(p: torch.Tensor, g: torch.Tensor,
+                              m: torch.Tensor, v_per_tensor: torch.Tensor,
+                              row_ids: torch.Tensor, *, num_tensors: int,
+                              lr, beta1: float = 0.95, beta2: float = 0.98,
+                              eps: float = 1e-8, weight_decay: float = 0.0,
+                              step=1, grad_averaging: bool = False,
+                              bias_correction: bool = False,
+                              norm_type: int = 2, init_zero: bool = False,
+                              inv_scale=1.0, found_inf=False,
+                              segments: Optional[RowSegments] = None):
+    """:func:`fused_novograd_flat` with the plain update, on any device."""
+    return _novograd(p, g, m, v_per_tensor, row_ids, num_tensors, lr, beta1,
+                     beta2, eps, weight_decay, step, grad_averaging,
+                     bias_correction, norm_type, init_zero, inv_scale,
+                     found_inf, segments, novograd_update_rows_plain)
+
+
+# ----------------------------------------------------------------- Adagrad
+
+
+def pack_adagrad_scalars(lr, eps, weight_decay, inv_scale, found_inf, *,
+                         device: torch.device) -> torch.Tensor:
+    """``[lr, eps, wd, inv_scale, noop]`` as float32 on ``device``."""
+    return torch.cat([_dev_scalar(x, device) for x in (
+        lr, eps, weight_decay, inv_scale, found_inf)])
+
+
+def fused_adagrad_flat_plain(p: torch.Tensor, g: torch.Tensor,
+                             h: torch.Tensor, *, lr, eps: float = 1e-10,
+                             weight_decay: float = 0.0,
+                             adagrad_w_mode: bool = False, inv_scale=1.0,
+                             found_inf=False):
+    """:func:`fused_adagrad_flat` in plain PyTorch, on any device: the
+    arithmetic of ``_adagrad_kernel`` in the kernel's order, in place; a
+    set ``found_inf`` keeps p and h bit for bit."""
+    lr, eps, wd, inv_scale, noop = pack_adagrad_scalars(
+        lr, eps, weight_decay, inv_scale, found_inf,
+        device=p.device).unbind(0)
+    g = g * inv_scale
+    if not adagrad_w_mode:
+        g = g + wd * p
+    h_new = h + g * g
+    upd = g / (torch.sqrt(h_new) + eps)
+    if adagrad_w_mode:
+        upd = upd + wd * p
+    p_new = p - lr * upd
+    keep = noop != 0.0
+    p.copy_(torch.where(keep, p, p_new))
+    h.copy_(torch.where(keep, h, h_new))
+    return p, h
+
+
+def fused_adagrad_flat(p: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                       *, lr, eps: float = 1e-10, weight_decay: float = 0.0,
+                       adagrad_w_mode: bool = False, inv_scale=1.0,
+                       found_inf=False):
+    """One Adagrad (``adagrad_w_mode``: decoupled weight decay) step over
+    flat 1-D fp32 buffers, in place; returns ``(p, h)``. CUDA tensors
+    launch the kernel (contiguous, one length, one card); CPU tensors take
+    the plain version."""
+    kw = dict(lr=lr, eps=eps, weight_decay=weight_decay,
+              adagrad_w_mode=adagrad_w_mode, inv_scale=inv_scale,
+              found_inf=found_inf)
+    if p.device.type == "cpu":
+        return fused_adagrad_flat_plain(p, g, h, **kw)
+    if p.device.type != "cuda":
+        raise ValueError(f"fused_adagrad_flat: unsupported device {p.device}")
+    _check_same("fused_adagrad_flat", p, (("p", p, torch.float32),
+                                          ("g", g, torch.float32),
+                                          ("h", h, torch.float32)))
+    scal = pack_adagrad_scalars(lr, eps, weight_decay, inv_scale, found_inf,
+                                device=p.device)
+    lib = _build.lib()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.apex_fused_adagrad(p.data_ptr(), g.data_ptr(),
+                                     h.data_ptr(), scal.data_ptr(),
+                                     p.numel(), int(adagrad_w_mode), stream)
+    _build.launches["fused_adagrad"] += 1
+    _build.check(err, "fused_adagrad_flat")
+    for t in (p, h):
+        torch.autograd.graph.increment_version(t)
+    return p, h

@@ -62,5 +62,11 @@ def zeros_like_f32(tree: Any) -> Any:
                                           device=p.device), tree)
 
 
+def scalar_zeros(tree: Any) -> Any:
+    """One fp32 zero scalar per leaf (NovoGrad's per-tensor moments)."""
+    return tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+                                          device=p.device), tree)
+
+
 def master_copy(tree: Any) -> Any:
     return tree_map(lambda p: p.detach().float().clone(), tree)

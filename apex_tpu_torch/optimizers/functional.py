@@ -1,9 +1,8 @@
 """Functional optimizer updates over pytrees — counterpart of
-``apex_tpu/optimizers/functional.py`` ``adam_update`` and
-``lamb_update``.
+``apex_tpu/optimizers/functional.py`` (``adam_update``, ``sgd_update``,
+``lamb_update``, ``novograd_update``, ``adagrad_update``).
 
-The tree paths of :class:`~apex_tpu_torch.optimizers.FusedAdam` and
-:class:`~apex_tpu_torch.optimizers.FusedLAMB`: all math in fp32 whatever the
+The tree paths of the port's fused optimizers: all math in fp32 whatever the
 storage dtype, a ``found_inf`` flag that makes the whole update a no-op,
 gradients that may carry a loss scale removed through ``inv_scale``, and
 with a fp32 ``master`` tree the master is updated and the params are its
@@ -82,6 +81,60 @@ def adam_update(params: Any, grads: Any, exp_avg: Any, exp_avg_sq: Any, *,
     return _keep(noop, params, p_new), m_out, v_out
 
 
+def _split(new, treedef, k):
+    """k trees from the per-leaf tuples of ``new``."""
+    return tuple(tree_unflatten(treedef, [t[i] for t in new])
+                 for i in range(k))
+
+
+def sgd_update(params: Any, grads: Any, momentum_buf: Any, *, lr,
+               momentum: float = 0.0, dampening: float = 0.0,
+               weight_decay: float = 0.0, nesterov: bool = False,
+               wd_after_momentum: bool = False, first_step=False,
+               inv_scale=1.0, found_inf=False,
+               master: Optional[Any] = None):
+    """SGD over trees (momentum, dampening, Nesterov, weight decay before
+    or after the momentum). ``first_step`` (a bool or a device tensor)
+    makes the buffer the (weight-decayed) gradient. Returns ``(params,
+    momentum_buf[, master])``."""
+    src = master if master is not None else params
+    dev = tree_flatten(src)[0][0].device
+    noop = _as_tensor(found_inf, dev, torch.bool)
+    lr = _as_tensor(lr, dev)
+    inv_scale = _as_tensor(inv_scale, dev)
+    first = _as_tensor(first_step, dev, torch.bool)
+
+    def leaf(p, g, b):
+        p32 = p.float()
+        g32 = g.float() * inv_scale
+        b32 = b.float()
+        if weight_decay != 0.0 and not wd_after_momentum:
+            g32 = g32 + weight_decay * p32
+        if momentum != 0.0:
+            b_new = torch.where(first, g32,
+                                momentum * b32 + (1.0 - dampening) * g32)
+            d = g32 + momentum * b_new if nesterov else b_new
+        else:
+            b_new = b32
+            d = g32
+        if weight_decay != 0.0 and wd_after_momentum:
+            d = d + weight_decay * p32
+        return p32 - lr * d, b_new
+
+    leaves, treedef = tree_flatten(src)
+    p_new, b_new = _split([leaf(*xs) for xs in zip(
+        leaves, tree_flatten(grads)[0], tree_flatten(momentum_buf)[0])],
+        treedef, 2)
+    b_out = _keep(noop, momentum_buf, b_new)
+    if master is not None:
+        master_out = _keep(noop, master, p_new)
+        p_out = tree_map(
+            lambda p, pm: torch.where(noop, p.float(), pm.float())
+            .to(p.dtype), params, master_out)
+        return p_out, b_out, master_out
+    return _keep(noop, params, p_new), b_out
+
+
 def lamb_update(params: Any, grads: Any, exp_avg: Any, exp_avg_sq: Any, *,
                 step, lr, beta1: float = 0.9, beta2: float = 0.999,
                 eps: float = 1e-6, weight_decay: float = 0.01,
@@ -139,3 +192,87 @@ def lamb_update(params: Any, grads: Any, exp_avg: Any, exp_avg_sq: Any, *,
                            for i in range(3))
     return (_keep(noop, params, p_new), _keep(noop, exp_avg, m_new),
             _keep(noop, exp_avg_sq, v_new), gnorm)
+
+
+def novograd_update(params: Any, grads: Any, exp_avg: Any, exp_avg_sq: Any,
+                    *, step, lr, beta1: float = 0.95, beta2: float = 0.98,
+                    eps: float = 1e-8, weight_decay: float = 0.0,
+                    grad_averaging: bool = False,
+                    bias_correction: bool = False, norm_type: int = 2,
+                    init_zero: bool = False, inv_scale=1.0,
+                    found_inf=False):
+    """NovoGrad over trees: ``exp_avg_sq`` holds one fp32 scalar per
+    tensor (its second moment: of the gradient's L2 norm squared with
+    ``norm_type`` 2, of its max-norm with 0); the first step (``step <=
+    1``) sets it, or scales it by ``1 - beta2`` with ``init_zero``.
+    Returns ``(params, m, v)``."""
+    dev = tree_flatten(params)[0][0].device
+    noop = _as_tensor(found_inf, dev, torch.bool)
+    stepf = _as_tensor(step, dev)
+    lr = _as_tensor(lr, dev)
+    inv_scale = _as_tensor(inv_scale, dev)
+    first = stepf <= 1.0
+    beta3 = 1.0 - beta1 if grad_averaging else 1.0
+    if bias_correction:
+        bc1 = 1.0 - torch.pow(_as_tensor(beta1, dev), stepf)
+        bc2 = 1.0 - torch.pow(_as_tensor(beta2, dev), stepf)
+    else:
+        bc1 = bc2 = _as_tensor(1.0, dev)
+
+    def leaf(p, g, m, v):
+        p32 = p.float()
+        g32 = g.float() * inv_scale
+        v32 = v.float()
+        if norm_type == 0:
+            gn = g32.abs().max()
+            v_upd = torch.maximum(beta2 * v32, gn)
+            v_new = v_upd if init_zero else torch.where(first, gn, v_upd)
+            denom = v_new / bc2 + eps
+        else:
+            gn = torch.sqrt((g32 * g32).sum())
+            v_upd = beta2 * v32 + (1.0 - beta2) * gn * gn
+            v_new = torch.where(
+                first, (1.0 - beta2) * gn * gn if init_zero else gn * gn,
+                v_upd)
+            denom = torch.sqrt(v_new / bc2) + eps
+        gg = g32 / denom
+        if weight_decay != 0.0:
+            gg = gg + weight_decay * p32
+        m_new = beta1 * m.float() + beta3 * gg
+        return p32 - lr * (m_new / bc1), m_new, v_new
+
+    leaves, treedef = tree_flatten(params)
+    p_new, m_new, v_new = _split([leaf(*xs) for xs in zip(
+        leaves, tree_flatten(grads)[0], tree_flatten(exp_avg)[0],
+        tree_flatten(exp_avg_sq)[0])], treedef, 3)
+    return (_keep(noop, params, p_new), _keep(noop, exp_avg, m_new),
+            _keep(noop, exp_avg_sq, v_new))
+
+
+def adagrad_update(params: Any, grads: Any, state_sum: Any, *, lr,
+                   eps: float = 1e-10, weight_decay: float = 0.0,
+                   adagrad_w_mode: bool = False, inv_scale=1.0,
+                   found_inf=False):
+    """Adagrad over trees (``adagrad_w_mode``: decoupled weight decay).
+    Returns ``(params, state_sum)``."""
+    dev = tree_flatten(params)[0][0].device
+    noop = _as_tensor(found_inf, dev, torch.bool)
+    lr = _as_tensor(lr, dev)
+    inv_scale = _as_tensor(inv_scale, dev)
+
+    def leaf(p, g, h):
+        p32 = p.float()
+        g32 = g.float() * inv_scale
+        if not adagrad_w_mode and weight_decay != 0.0:
+            g32 = g32 + weight_decay * p32
+        h_new = h.float() + g32 * g32
+        upd = g32 / (torch.sqrt(h_new) + eps)
+        if adagrad_w_mode and weight_decay != 0.0:
+            upd = upd + weight_decay * p32
+        return p32 - lr * upd, h_new
+
+    leaves, treedef = tree_flatten(params)
+    p_new, h_new = _split([leaf(*xs) for xs in zip(
+        leaves, tree_flatten(grads)[0], tree_flatten(state_sum)[0])],
+        treedef, 2)
+    return _keep(noop, params, p_new), _keep(noop, state_sum, h_new)

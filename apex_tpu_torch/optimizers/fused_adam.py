@@ -5,18 +5,19 @@ Adam / AdamW with ``adam_w_mode``, ``bias_correction``, optional fp32
 loss scaler. Two paths, as in the JAX package:
 
 - flat (default, ``use_flat=True``): the parameters, moments and each
-  step's gradients are packed into one contiguous 128-aligned fp32 buffer
-  each (:mod:`apex_tpu_torch.utils.flatten`) and updated in place by one
-  launch of the fused Adam kernel
-  (:func:`~apex_tpu_torch.ops.fused_adam_kernel.fused_adam_flat`); the
-  parameters handed back are views of (or, for low-precision parameters
-  with ``master_weights``, casts from) the flat buffer;
+  step's gradients are packed into one contiguous 128-aligned buffer each
+  (:mod:`apex_tpu_torch.utils.flatten`) and updated in place by one
+  kernel launch. As in the JAX class, the parameter buffer takes the
+  first parameter's dtype (fp32 or bf16, the gradients flattened to it;
+  m and v fp32) and :func:`~apex_tpu_torch.ops.fused_adam_kernel.
+  fused_adam_flat` updates it. With ``master_weights`` the buffer is the
+  fp32 master; over bf16 parameters :func:`~apex_tpu_torch.ops.
+  fused_adam_kernel.fused_adam_flat_master` also writes a persistent bf16
+  flat buffer in the same pass, so no cast runs per step. The parameters
+  handed back are views of the flat buffer they live in (casts from it
+  for a mixed-dtype tree);
 - tree: :func:`~apex_tpu_torch.optimizers.functional.adam_update` over
   the parameter tree.
-
-The flat path keeps fp32 buffers: low-precision parameters need
-``master_weights=True`` there (the JAX package would keep a
-low-precision flat buffer, which the kernel does not take).
 """
 
 from __future__ import annotations
@@ -27,12 +28,12 @@ import torch
 
 from apex_tpu_torch.ops.fused_adam_kernel import (ADAM_MODE_ADAMW,
                                                   ADAM_MODE_L2,
-                                                  fused_adam_flat)
+                                                  fused_adam_flat,
+                                                  fused_adam_flat_master)
 from apex_tpu_torch.optimizers._base import (FusedOptimizerBase,
                                              master_copy, zeros_like_f32)
 from apex_tpu_torch.optimizers.functional import adam_update
 from apex_tpu_torch.utils.flatten import flat_spec, flatten, unflatten
-from apex_tpu_torch.utils.tree import tree_leaves
 
 FLAT_PAD = 1024  # the flat buffers' length is a multiple of this
 
@@ -57,21 +58,25 @@ class FusedAdam(FusedOptimizerBase):
         self.master_weights = master_weights
         self.use_flat = use_flat
         if use_flat:
-            if not master_weights and any(
-                    p.dtype != torch.float32
-                    for p in tree_leaves(self._params)):
-                raise NotImplementedError(
-                    "FusedAdam(use_flat=True): the flat kernel updates "
-                    "fp32 buffers; low-precision parameters need "
-                    "master_weights=True")
             self._spec = flat_spec(self._params)
-            self._flat_p = flatten(self._params, self._spec,
-                                   dtype=torch.float32, pad_to=FLAT_PAD)
-            self.state = {"m": torch.zeros_like(self._flat_p),
-                          "v": torch.zeros_like(self._flat_p)}
+            # the bf16 copy the master kernel writes, over bf16 parameters
+            self._flat_lp = None
+            if master_weights:
+                self._flat_p = flatten(self._params, self._spec,
+                                       dtype=torch.float32, pad_to=FLAT_PAD)
+                if set(self._spec.dtypes) == {torch.bfloat16}:
+                    self._flat_lp = flatten(self._params, self._spec,
+                                            pad_to=FLAT_PAD)
+            else:
+                self._flat_p = flatten(self._params, self._spec,
+                                       pad_to=FLAT_PAD)
+            self.state = {"m": torch.zeros_like(self._flat_p,
+                                                dtype=torch.float32),
+                          "v": torch.zeros_like(self._flat_p,
+                                                dtype=torch.float32)}
             if master_weights:
                 self.state["master"] = self._flat_p
-            self._params = unflatten(self._flat_p, self._spec)
+            self._params = self._unflat()
         else:
             self.state = {"m": zeros_like_f32(self._params),
                           "v": zeros_like_f32(self._params)}
@@ -97,18 +102,27 @@ class FusedAdam(FusedOptimizerBase):
             return super().step(grads, lr=lr, inv_scale=inv_scale,
                                 found_inf=found_inf)
         found = self._advance(found_inf)
-        flat_g = flatten(grads, self._spec, dtype=torch.float32,
+        flat_g = flatten(grads, self._spec, dtype=self._flat_p.dtype,
                          pad_to=self._flat_p.numel())
-        fused_adam_flat(
-            self._flat_p, flat_g, self.state["m"], self.state["v"],
-            lr=self._lr if lr is None else lr, beta1=self.betas[0],
-            beta2=self.betas[1], eps=self.eps,
-            weight_decay=self.weight_decay, step=self._step,
-            mode=ADAM_MODE_ADAMW if self.adam_w_mode else ADAM_MODE_L2,
-            bias_correction=self.bias_correction, inv_scale=inv_scale,
-            found_inf=found)
-        self._params = unflatten(self._flat_p, self._spec)
+        kw = dict(lr=self._lr if lr is None else lr, beta1=self.betas[0],
+                  beta2=self.betas[1], eps=self.eps,
+                  weight_decay=self.weight_decay, step=self._step,
+                  mode=ADAM_MODE_ADAMW if self.adam_w_mode else ADAM_MODE_L2,
+                  bias_correction=self.bias_correction, inv_scale=inv_scale,
+                  found_inf=found)
+        if self._flat_lp is not None:
+            fused_adam_flat_master(self._flat_p, flat_g, self.state["m"],
+                                   self.state["v"], p_lp=self._flat_lp, **kw)
+        else:
+            fused_adam_flat(self._flat_p, flat_g, self.state["m"],
+                            self.state["v"], **kw)
+        self._params = self._unflat()
         return self._params
+
+    def _unflat(self):
+        """The parameters: views of the bf16 copy or of the flat buffer."""
+        return unflatten(self._flat_p if self._flat_lp is None
+                         else self._flat_lp, self._spec)
 
     @property
     def master_parameters(self):

@@ -28,7 +28,14 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    rows; fused Adam over the GPT-2 small flat buffer; the two LAMB
    stages over the BERT-large flat buffer (334M fp32) and a ragged one,
    with two runs bit-identical and an overflow step that changes no
-   bit.
+   bit; and the flat optimizer kernels of the ResNet path at ResNet-50's
+   flat layout (25.6M fp32) and at a ragged one: fused SGD over every
+   flag combination with fp32 and bf16 p, the master-weight Adam, the
+   bf16 form of fused Adam, NovoGrad, Adagrad (both weight-decay modes),
+   each held to the plain version's bits, two runs identical, an overflow
+   step that changes no bit, with the library call beside it where one
+   computes the same function (``torch._fused_sgd_``,
+   ``torch._fused_adamw_`` plus a bf16 cast, ``torch._fused_adagrad_``).
 3. ``forward``: GPT-2 small in bf16, batch 4 x 1024 tokens, through
    ``GPT2``: exactly 25 LayerNorm and 12 flash-attention launches, logits
    held against the same weights in fp32 on the CPU (plain versions) and
@@ -68,11 +75,30 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    of 4 sequences of lengths 128 / 100 / 64 / 17 padded to 128 with
    ``attn_mask`` gives each sequence's own logits at its valid positions,
    and a backward through the mask gives finite gradients.
+8. ``resnet``: ResNet-50 (fp32 parameters, bf16 compute, NHWC /
+   channels-last) on one fixed batch of 128 random 224 x 224 x 3 images
+   with labels in 0..999 from seed 0, the loss of
+   ``examples/imagenet/main_amp.py`` through the port's
+   ``DynamicGradScaler``: 5 flat ``FusedSGD`` steps of the imagenet
+   recipe (lr 0.1 x 128 / 256, momentum 0.9, weight decay 1e-4), every
+   loss finite and the fifth below the first, exactly one ``fused_sgd``
+   launch a step; step ms, images/s, one more step's device time by kind
+   and idle share, peak memory, ``fused_sgd``'s device ms against its
+   bound, the gradient packing time. Then 3 steps each of master-weight
+   ``FusedAdam`` over bf16 parameters (the parameters views of the bf16
+   copy its kernel writes), ``FusedNovoGrad`` and ``FusedAdagrad``, one
+   launch of their kernel a step; a forced overflow step through each of
+   the four optimizers changes no bit of the flat buffers, the state or
+   the step counter. Last, one step's gradients and new running
+   statistics of a ResNet-50 at 2 x 64 x 64, card vs CPU, per tensor,
+   beside two CPU runs that differ only in their thread count: held in
+   float64, and reported in fp32 (where this network at initialisation
+   amplifies summation order beyond any fp32 gate).
 
 Then a ``{"kernels": [...]}`` line (launches counted over the main path:
 the forward of phase 3, the serve run of phase 4, the 5 train steps of
-phase 6 and the 5 BERT steps of phase 7, each with the counts zeroed
-just before it), the
+phase 6, the 5 BERT steps of phase 7 and the optimizer steps of phase 8,
+each with the counts zeroed just before it), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that last line; without CUDA, or away from the
@@ -117,6 +143,15 @@ BERT_LR, BERT_WD = 1e-3, 0.01
 BERT_GRAD_REL_L2 = 1e-3  # fp32 card vs CPU gradients, per parameter
 BERT_PAD_ATOL = 1e-3     # padded-batch logits vs each sequence alone
 PAD_LENS = [128, 100, 64, 17]
+# the flat optimizer kernels of the ResNet path run the plain versions'
+# operations in the same order, so they are held to the same bits
+OPT_TOL = 0.0
+RESNET_BATCH = 128       # examples/imagenet/main_amp.py's recipe, 224 x 224
+RESNET_LR = 0.1 * RESNET_BATCH / 256
+RESNET_MOMENTUM, RESNET_WD = 0.9, 1e-4
+RESNET_SGD_STEPS = 5
+RESNET_OTHER_STEPS = 3   # master-weight FusedAdam, FusedNovoGrad, Adagrad
+RESNET_GRAD_REL_L2 = 1e-3  # float64 card vs CPU gradients, per tensor
 
 
 def emit(phase: str, **fields) -> None:
@@ -134,6 +169,84 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def image_loss(logits, labels):
+    """``-mean(sum(log_softmax(logits) * onehot))``: the loss of
+    ``examples/imagenet/main_amp.py``, written out as the example does."""
+    import torch.nn.functional as F
+    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
+    return -(F.log_softmax(logits, dim=-1) * onehot).sum(dim=-1).mean()
+
+
+def resnet_trainer(model, make_opt, device):
+    """A ResNet training loop over a flat fused optimizer: ``(opt, named,
+    step)``. The model's parameters are rebound to their views of the
+    optimizer's flat buffer, so the model trains in place. ``step(images,
+    labels, poison=False)`` runs the forward and the loss through the
+    port's ``DynamicGradScaler``, the backward of the scaled loss, the
+    overflow check of the gradients and one optimizer step with
+    ``inv_scale`` and ``found_inf`` as device tensors; ``poison`` writes an
+    inf into one gradient first, a forced overflow. Returns the loss as a
+    device tensor."""
+    import torch
+    from apex_tpu_torch.amp.grad_scaler import DynamicGradScaler
+    from apex_tpu_torch.multi_tensor.functional import tree_check_finite
+    named = dict(model.named_parameters())
+    opt = make_opt(named)
+    with torch.no_grad():
+        for name, view in opt.parameters.items():
+            named[name].data = view
+    scaler = DynamicGradScaler()
+    state = {"scaler": scaler.init(device)}
+
+    def step(images, labels, poison=False):
+        for t in named.values():
+            t.grad = None
+        loss = image_loss(model(images), labels)
+        scaler.scale(loss, state["scaler"]).backward()
+        grads = {n: t.grad for n, t in named.items()}
+        if poison:
+            g = next(iter(grads.values()))
+            g[(0,) * g.dim()] = float("inf")
+        found = tree_check_finite(grads)
+        opt.step(grads, inv_scale=1.0 / state["scaler"].scale,
+                 found_inf=found)
+        for t in named.values():      # written through raw pointers
+            torch.autograd.graph.increment_version(t)
+        state["scaler"] = scaler.update(state["scaler"], found)
+        state["grads"] = grads
+        return loss.detach()
+
+    step.state = state
+    return opt, named, step
+
+
+def optimizer_snapshot(opt):
+    """Copies of everything a flat optimizer step may write: the flat
+    buffer(s), the state tensors and the step counter."""
+    from apex_tpu_torch.utils.tree import tree_leaves
+    bufs = [opt._flat_p, getattr(opt, "_flat_lp", None), opt._step,
+            *tree_leaves(opt.state)]
+    return [t.clone() for t in bufs if t is not None]
+
+
+def resnet_grads(params, images, labels, device, dtype):
+    """One training-mode step of a ResNet-50 holding ``params`` on
+    ``device``, parameters, statistics and compute in ``dtype`` (float32 or
+    float64): every parameter's loss gradient and the new running
+    statistics, on the CPU."""
+    import torch
+    from apex_tpu_torch.models.resnet import ResNet50
+    model = ResNet50(compute_dtype=dtype, device=device)
+    model.load_state_dict(params)
+    model.to(dtype)
+    image_loss(model(images.to(device, dtype)),
+               labels.to(device)).backward()
+    stats = {n: b.detach().cpu() for n, b in model.state_dict().items()
+             if n.endswith((".mean", ".var"))}
+    return {n: p.grad.detach().cpu()
+            for n, p in model.named_parameters()}, stats
 
 
 def main() -> int:
@@ -158,13 +271,22 @@ def main() -> int:
     from apex_tpu_torch.ops.flash_attention import (
         NEG_INF, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_fwd, flash_attention_fwd_plain)
-    from apex_tpu_torch.ops.fused_adam_kernel import (fused_adam_flat,
-                                                      fused_adam_flat_plain)
+    from apex_tpu_torch.models.convert import init_resnet_params
+    from apex_tpu_torch.models.resnet import ResNet50
+    from apex_tpu_torch.ops.fused_adam_kernel import (
+        fused_adam_flat, fused_adam_flat_master, fused_adam_flat_master_plain,
+        fused_adam_flat_plain)
     from apex_tpu_torch.ops.fused_opt_kernels import (
-        fused_lamb_flat, fused_lamb_flat_plain, row_segment_ids, row_segments)
+        fused_adagrad_flat, fused_adagrad_flat_plain, fused_lamb_flat,
+        fused_lamb_flat_plain, fused_novograd_flat, fused_novograd_flat_plain,
+        row_segment_ids, row_segments)
+    from apex_tpu_torch.ops.fused_sgd_kernel import (fused_sgd_flat,
+                                                     fused_sgd_flat_plain)
     from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                       ln_fwd, ln_fwd_plain)
-    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.optimizers import (FusedAdagrad, FusedAdam,
+                                           FusedLAMB, FusedNovoGrad,
+                                           FusedSGD)
     from apex_tpu_torch.optimizers.fused_adam import FLAT_PAD
     from apex_tpu_torch.serve import cli
     from apex_tpu_torch.serve.engine import Engine, EngineConfig
@@ -253,7 +375,14 @@ def main() -> int:
                 "layer_norm" if ("ln_fwd_kernel" in name
                                  or "ln_bwd_" in name) else
                 "adam" if "fused_adam_kernel" in name else
+                "adam_master" if "fused_adam_master_kernel" in name else
                 "lamb" if "lamb_stage" in name else
+                "sgd" if "fused_sgd_kernel" in name else
+                "novograd" if "fused_novograd_kernel" in name else
+                "adagrad" if "fused_adagrad_kernel" in name else
+                "conv" if any(s in low for s in (
+                    "fprop", "dgrad", "wgrad", "conv", "implicit_gemm",
+                    "cudnn")) else
                 "matmul" if any(s in low for s in (
                     "gemm", "cutlass", "xmma", "nvjet", "cublas"))
                 else "other")
@@ -261,11 +390,23 @@ def main() -> int:
     def by_kind(kern):
         """Device ms of a profile, summed by kind of kernel."""
         out = {"flash": 0.0, "flash_bwd": 0.0, "layer_norm": 0.0,
-               "adam": 0.0, "lamb": 0.0, "matmul": 0.0, "other": 0.0}
+               "adam": 0.0, "adam_master": 0.0, "lamb": 0.0, "sgd": 0.0,
+               "novograd": 0.0, "adagrad": 0.0, "conv": 0.0, "matmul": 0.0,
+               "other": 0.0}
         for name, us in kern.items():
             out[kind_of(name)] += us / 1e3
         out["total"] = sum(out.values())
         return out
+
+    def top_kernels(kern, keep, n=12):
+        """The ``n`` largest device ms of a profile among the kernels
+        ``keep`` selects, by name cut to 90 characters (kernels whose cut
+        names agree are added together)."""
+        out = {}
+        for name, us in kern.items():
+            if keep(name):
+                out[name[:90]] = out.get(name[:90], 0.0) + us / 1e3
+        return dict(sorted(out.items(), key=lambda kv: -kv[1])[:n])
 
     def timed(fn, sets, reps):
         return {"ms": device_ms(fn, sets, reps),
@@ -797,6 +938,215 @@ def main() -> int:
                "z": torch.empty(9), "m": torch.empty(77, 7)})
     torch.cuda.empty_cache()
 
+    # the flat optimizer kernels of the ResNet path, at ResNet-50's flat
+    # layout (its parameters, made once on the CPU from seed 0; 25.6M
+    # fp32, above the 50 MB L2) and at a ragged one of a few tensors
+    rparams = init_resnet_params(0)
+    rtree = {k: t for k, t in rparams.items()
+             if not k.endswith((".mean", ".var"))}
+    ragged = {"w": torch.empty(3, 50), "b": torch.empty(7),
+              "e": torch.empty(300), "s": torch.empty(()),
+              "m": torch.empty(77, 7)}
+
+    def flat_n(tree):
+        return -(-flat_spec(tree).total_size // FLAT_PAD) * FLAT_PAD
+
+    def opt_case(name, make, kernel, plain, nbytes, ops, library=None,
+                 main=False, **shape):
+        """One flat optimizer kernel: ``make()`` draws one input set (a
+        list of tensors the step updates in place), ``kernel(*set,
+        found_inf=...)`` and ``plain(*set)`` run one step. The kernel
+        against the plain version on copies of one set (the same
+        operations in the same order: held to OPT_TOL), a second run from
+        the same start bit-identical, an overflow step that changes no
+        bit; then the kernel's own device time (``ms``; ``other_ms`` is
+        the rest of the call's device time: scalar packing and, for
+        NovoGrad, the per-tensor moments), the call, the plain version and
+        the library call."""
+        start = make()
+        runs = [[t.clone() for t in start] for _ in range(3)]
+        kernel(*runs[0])
+        plain(*runs[1])
+        kernel(*runs[2])
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(runs[0], runs[1]))
+        require(err <= OPT_TOL, f"{name} {shape}: kernel vs plain err {err}")
+        deterministic = all(torch.equal(a, c)
+                            for a, c in zip(runs[0], runs[2]))
+        require(deterministic, f"{name} {shape}: two runs gave other bits")
+        before = [t.clone() for t in runs[0]]
+        kernel(*runs[0], found_inf=torch.ones((), dtype=torch.bool,
+                                              device=dev))
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(runs[0], before)),
+                f"{name} {shape}: the overflow step changed a buffer")
+        del runs, before
+        sets = [start] + [make() for _ in range(n_sets(nbytes) - 1)]
+        reps = 20
+        split = device_kernels(kernel, sets, reps)
+        ms = sum(x for k, x in split.items() if name + "_kernel" in k)
+        call = bench_ms(kernel, sets, reps)
+        pt = timed(plain, sets, 3)
+        lt = timed(library, sets, reps) if library else None
+        bms, by = bound(nbytes, ops, "fp32")
+        rec = dict(kernel=name, max_abs_err=err, tol=OPT_TOL,
+                   deterministic=deterministic, ms=ms,
+                   other_ms=sum(split.values()) - ms, call_ms=call,
+                   plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
+                   library_ms=lt and lt["ms"],
+                   library_call_ms=lt and lt["call_ms"], bound_ms=bms,
+                   bound_by=by, bytes=nbytes, **shape)
+        emit("kernel", **rec)
+        if main:
+            summary[name] = rec
+        del sets, start
+        torch.cuda.empty_cache()
+
+    def randn(n, scale=1.0, dtype=torch.float32):
+        return (torch.randn(n, device=dev, generator=gen) * scale).to(dtype)
+
+    def sgd_cases(n, dt, main=False, flags=((0.9, False, False),)):
+        es = 2 if dt == "bf16" else 4
+
+        def make():
+            return [randn(n, 0.05, tdt[dt]), randn(n, 1e-3 * 1024, tdt[dt]),
+                    randn(n, 1e-3)]
+
+        for momentum, nesterov, wd_after in flags:
+            kw = dict(lr=RESNET_LR, momentum=momentum, weight_decay=RESNET_WD,
+                      nesterov=nesterov, wd_after_momentum=wd_after,
+                      inv_scale=1.0 / 1024)
+            # p and g read, p written; the buffer read and written only
+            # with a momentum
+            nbytes = 3 * es * n + (8 * n if momentum else 0)
+            library = None
+            if dt == "fp32" and momentum:
+                def library(p, g, b, kw=kw):
+                    torch._fused_sgd_(
+                        [p], [g], [b], weight_decay=kw["weight_decay"],
+                        momentum=kw["momentum"], lr=kw["lr"], dampening=0.0,
+                        nesterov=kw["nesterov"], maximize=False,
+                        is_first_step=False, grad_scale=None,
+                        found_inf=None)
+            opt_case("fused_sgd",
+                     make, lambda p, g, b, found_inf=False, kw=kw:
+                     fused_sgd_flat(p, g, b, found_inf=found_inf, **kw),
+                     lambda p, g, b, kw=kw: fused_sgd_flat_plain(p, g, b,
+                                                                 **kw),
+                     nbytes, 8 * n, library,
+                     main=main and (momentum, nesterov, wd_after)
+                     == flags[0], n=n, dtype=dt, momentum=momentum,
+                     nesterov=nesterov, wd_after_momentum=wd_after)
+
+    def adam_master_case(n, main=False):
+        kw = dict(lr=1e-3, weight_decay=1e-4, step=3, inv_scale=1.0 / 1024)
+
+        def make():
+            return [randn(n, 0.05), randn(n, 1e-3 * 1024), randn(n, 1e-4),
+                    torch.rand(n, device=dev, generator=gen) * 1e-6,
+                    torch.empty(n, dtype=torch.bfloat16, device=dev)]
+
+        st = torch.full((), 3.0, device=dev)
+
+        def library(pm, g, m, v, lp):
+            torch._fused_adamw_([pm], [g], [m], [v], [], [st], lr=1e-3,
+                                beta1=0.9, beta2=0.999, weight_decay=1e-4,
+                                eps=1e-8, amsgrad=False, maximize=False)
+            lp.copy_(pm)
+
+        opt_case("fused_adam_master", make,
+                 lambda pm, g, m, v, lp, found_inf=False:
+                 fused_adam_flat_master(pm, g, m, v, p_lp=lp,
+                                        found_inf=found_inf, **kw),
+                 lambda pm, g, m, v, lp: fused_adam_flat_master_plain(
+                     pm, g, m, v, p_lp=lp, **kw),
+                 30 * n, 15 * n, library, main=main, n=n, dtype="fp32",
+                 lp_dtype="bf16")
+
+    def adam_bf16_case(n):
+        """The bf16 form of fused Adam (a bf16 flat buffer without master
+        weights): p and g bf16, m and v fp32."""
+        kw = dict(lr=1e-3, weight_decay=1e-4, step=3)
+
+        def make():
+            return [randn(n, 1.0, torch.bfloat16),
+                    randn(n, 1e-3, torch.bfloat16), randn(n, 1e-4),
+                    torch.rand(n, device=dev, generator=gen) * 1e-6]
+
+        opt_case("fused_adam", make,
+                 lambda p, g, m, v, found_inf=False: fused_adam_flat(
+                     p, g, m, v, found_inf=found_inf, **kw),
+                 lambda p, g, m, v: fused_adam_flat_plain(p, g, m, v, **kw),
+                 22 * n, 15 * n, n=n, dtype="bf16")
+
+    def novograd_case(tree, main=False):
+        spec = flat_spec(tree)
+        n = flat_n(tree)
+        ids = row_segment_ids(spec, n, device=dev)
+        seg = row_segments(ids, spec.num_leaves)
+        kw = dict(num_tensors=spec.num_leaves, lr=1e-3, weight_decay=1e-3,
+                  step=torch.tensor(3, dtype=torch.int32, device=dev),
+                  grad_averaging=True, bias_correction=True,
+                  inv_scale=1.0 / 1024, segments=seg)
+
+        def make():
+            return [randn(n, 0.05), randn(n, 1e-3 * 1024), randn(n, 1e-4),
+                    torch.rand(spec.num_leaves, device=dev,
+                               generator=gen) * 1e-3]
+
+        # the kernel reads p, g, m and each row's id, writes p and m
+        opt_case("fused_novograd", make,
+                 lambda p, g, m, v, found_inf=False: fused_novograd_flat(
+                     p, g, m, v, ids, found_inf=found_inf, **kw),
+                 lambda p, g, m, v: fused_novograd_flat_plain(p, g, m, v,
+                                                              ids, **kw),
+                 20 * n + 4 * (n // 128) + 4 * (spec.num_leaves + 1),
+                 10 * n, main=main, n=n, tensors=spec.num_leaves,
+                 dtype="fp32")
+
+    def adagrad_case(n, w_mode=False, main=False):
+        kw = dict(lr=1e-2, weight_decay=1e-4, adagrad_w_mode=w_mode,
+                  inv_scale=1.0 / 1024)
+
+        def make():
+            return [randn(n, 0.05), randn(n, 1e-3 * 1024),
+                    torch.rand(n, device=dev, generator=gen) * 1e-4]
+
+        library = None
+        if not w_mode:
+            st = torch.full((), 3.0, device=dev)
+
+            def library(p, g, h):
+                torch._fused_adagrad_([p], [g], [h], [st], lr=1e-2,
+                                      lr_decay=0.0, weight_decay=1e-4,
+                                      eps=1e-10, maximize=False)
+
+        opt_case("fused_adagrad", make,
+                 lambda p, g, h, found_inf=False: fused_adagrad_flat(
+                     p, g, h, found_inf=found_inf, **kw),
+                 lambda p, g, h: fused_adagrad_flat_plain(p, g, h, **kw),
+                 20 * n, 9 * n, library, main=main, n=n, dtype="fp32",
+                 adagrad_w_mode=w_mode)
+
+    rn = flat_n(rtree)
+    sgd_cases(rn, "fp32", main=True, flags=(
+        (0.9, False, False), (0.9, True, False), (0.9, False, True),
+        (0.9, True, True), (0.0, False, False)))
+    sgd_cases(rn, "bf16", flags=((0.9, False, False), (0.9, True, False),
+                                 (0.9, False, True), (0.9, True, True)))
+    sgd_cases(1001, "fp32")
+    adam_master_case(rn, main=True)
+    adam_master_case(1001)
+    adam_bf16_case(rn)
+    adam_bf16_case(1001)
+    novograd_case(rtree, main=True)
+    novograd_case(ragged)
+    adagrad_case(rn, main=True)
+    adagrad_case(rn, w_mode=True)
+    adagrad_case(1001)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------ 3. forward
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     n_layer = cfg.n_layer
@@ -1100,9 +1450,7 @@ def main() -> int:
     bkern = device_profile(bert_step)
     bbusy = by_kind(bkern)
     # the largest kernels of "other", to see where that time goes
-    top_other = dict(sorted(((k[:90], x / 1e3) for k, x in bkern.items()
-                            if kind_of(k) == "other"),
-                           key=lambda kv: -kv[1])[:12])
+    top_other = top_kernels(bkern, lambda k: kind_of(k) == "other")
     lamb_dev = {k: sum(x / 1e3 for n, x in bkern.items()
                        if k + "_kernel" in n)
                 for k in ("lamb_stage1", "lamb_stage2")}
@@ -1197,6 +1545,155 @@ def main() -> int:
          padded_atol=BERT_PAD_ATOL, padded_backward_finite=pad_finite,
          padded_launches=pad_launches, card=card)
 
+    # ------------------------------------------------------- 8. resnet
+    rgen = torch.Generator().manual_seed(0)
+    rimages = torch.randn(RESNET_BATCH, 224, 224, 3, generator=rgen).to(dev)
+    rlabels = torch.randint(0, 1000, (RESNET_BATCH,), generator=rgen).to(dev)
+    resnet_launches = {}
+
+    def resnet_run(kernel, make_opt, steps, bf16_params=False):
+        """A fresh ResNet-50 (seed-0 parameters, bf16 compute; bf16
+        parameters for the O2 recipe) trained ``steps`` steps by the
+        optimizer ``make_opt`` builds: exactly one ``kernel`` launch per
+        step, every loss finite; then a forced overflow step changes no
+        bit of the flat buffers, the state or the step counter."""
+        model = ResNet50(device=dev)
+        model.load_state_dict(rparams)
+        if bf16_params:
+            for p in model.parameters():
+                p.data = p.data.bfloat16()
+        opt, named, step = resnet_trainer(model, make_opt, dev)
+        losses, step_s = [], []
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(rimages, rlabels)))  # the host sync
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = dict(_build.launches)
+        require(launches == {kernel: steps},
+                f"resnet {kernel}: launches {launches}, expected {steps}")
+        require(all(math.isfinite(x) for x in losses),
+                f"resnet {kernel}: losses {losses}")
+        for name, n in launches.items():
+            resnet_launches[name] = resnet_launches.get(name, 0) + n
+        return model, opt, named, step, losses, step_s
+
+    def overflow_noop(opt, step):
+        before = optimizer_snapshot(opt)
+        step(rimages, rlabels, poison=True)
+        torch.cuda.synchronize()
+        return all(torch.equal(a, b)
+                   for a, b in zip(before, optimizer_snapshot(opt)))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, named, step, rlosses, rstep_s = resnet_run(
+        "fused_sgd", lambda named: FusedSGD(
+            named, lr=RESNET_LR, momentum=RESNET_MOMENTUM,
+            weight_decay=RESNET_WD, use_flat=True), RESNET_SGD_STEPS)
+    rpeak = torch.cuda.max_memory_allocated()
+    require(rlosses[-1] < rlosses[0], f"resnet SGD losses {rlosses}")
+    rsteady = sorted(rstep_s[1:])[len(rstep_s[1:]) // 2] * 1e3
+    rkern = device_profile(lambda: step(rimages, rlabels))
+    rbusy = by_kind(rkern)
+    rtop = top_kernels(rkern, lambda k: True)
+    sgd_n = opt._flat_p.numel()
+    sgd_dev_ms = sum(x / 1e3 for k, x in rkern.items()
+                     if "fused_sgd_kernel" in k)
+    sgd_bound = bound(20 * sgd_n, 8 * sgd_n, "fp32")[0]
+    rpack = timed(lambda: flatten(step.state["grads"], opt._spec,
+                                  dtype=torch.float32, pad_to=sgd_n),
+                  [()], 10)
+    rparams_n = sum(t.numel() for t in named.values())
+    sgd_noop = overflow_noop(opt, step)
+    require(sgd_noop, "resnet SGD: the overflow step changed a bit")
+    del model, opt, named, step
+    torch.cuda.empty_cache()
+
+    others = {}
+    for kernel, make_opt, bf16_params in (
+            ("fused_adam_master", lambda named: FusedAdam(
+                named, lr=1e-3, weight_decay=RESNET_WD, master_weights=True,
+                use_flat=True), True),
+            ("fused_novograd", lambda named: FusedNovoGrad(named), False),
+            ("fused_adagrad", lambda named: FusedAdagrad(named, lr=1e-2),
+             False)):
+        model, opt, named, step, losses, step_s = resnet_run(
+            kernel, make_opt, RESNET_OTHER_STEPS, bf16_params)
+        views = None
+        if bf16_params:
+            # the O2 recipe: the bf16 parameters are views of the bf16
+            # copy the kernel writes
+            views = all(t.dtype == torch.bfloat16
+                        and t.untyped_storage().data_ptr()
+                        == opt._flat_lp.untyped_storage().data_ptr()
+                        for t in named.values())
+            require(views, "resnet Adam: the bf16 parameters are not views "
+                           "of the kernel's bf16 output")
+        noop = overflow_noop(opt, step)
+        require(noop, f"resnet {kernel}: the overflow step changed a bit")
+        others[kernel] = dict(losses=losses,
+                              step_ms=[x * 1e3 for x in step_s],
+                              overflow_noop=noop, bf16_param_views=views)
+        del model, opt, named, step
+        torch.cuda.empty_cache()
+
+    # card vs CPU: one step's gradients and new running statistics of a
+    # ResNet-50 at 2 x 64 x 64, per tensor, beside the spread of two CPU
+    # runs that differ only in their thread count. Gated in float64: in
+    # fp32 this network at initialisation amplifies summation order so
+    # far that the two CPU runs alone disagree by more than 1e-3, so an
+    # fp32 gate could not tell a fault from rounding; fp32 is reported.
+    cgen = torch.Generator().manual_seed(1)
+    cimages = torch.randn(2, 64, 64, 3, generator=cgen)
+    clabels = torch.randint(0, 1000, (2,), generator=cgen)
+
+    def worst_rel(got, want):
+        """(largest relative L2 over the tensors, its name)"""
+        return max((((got[n] - ref).norm() / ref.norm().clamp_min(1e-30))
+                    .item(), n) for n, ref in want.items())
+
+    def card_vs_cpu(dtype):
+        cpu = resnet_grads(rparams, cimages, clabels, "cpu", dtype)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            cpu1 = resnet_grads(rparams, cimages, clabels, "cpu", dtype)
+        finally:
+            torch.set_num_threads(threads)
+        card = resnet_grads(rparams, cimages, clabels, dev, dtype)
+        both = [{**g, **st} for g, st in (cpu, cpu1, card)]
+        return worst_rel(both[2], both[0]), worst_rel(both[1], both[0])
+
+    (rworst, rworst_name), rspread = card_vs_cpu(torch.float64)
+    require(rworst <= RESNET_GRAD_REL_L2,
+            f"float64 ResNet-50 card vs CPU: {rworst_name} relative L2 "
+            f"{rworst}")
+    (rworst32, rworst32_name), rspread32 = card_vs_cpu(torch.float32)
+    for name, n in resnet_launches.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    emit("resnet", config="ResNet50", params="fp32", compute="bf16",
+         layout="NHWC (channels_last)", parameters=rparams_n,
+         batch=RESNET_BATCH, image=[224, 224, 3],
+         optimizer="FusedSGD(flat)", lr=RESNET_LR, momentum=RESNET_MOMENTUM,
+         weight_decay=RESNET_WD, steps=RESNET_SGD_STEPS, losses=rlosses,
+         launches=resnet_launches, step_ms=[x * 1e3 for x in rstep_s],
+         steady_step_ms=rsteady, images_per_s=RESNET_BATCH / rsteady * 1e3,
+         step_device_busy_ms=rbusy, top_kernels_ms=rtop,
+         idle_share=1 - rbusy["total"] / rsteady,
+         max_memory_allocated=rpeak, flat_n=sgd_n,
+         fused_sgd_device_ms=sgd_dev_ms, fused_sgd_bound_ms=sgd_bound,
+         grad_flatten_ms=rpack["ms"], grad_flatten_call_ms=rpack["call_ms"],
+         sgd_overflow_noop=sgd_noop, others=others,
+         fp64_grad_worst_rel_l2=rworst, fp64_grad_worst_param=rworst_name,
+         fp64_grad_rel_l2_tol=RESNET_GRAD_REL_L2,
+         fp64_cpu_thread_spread=rspread, fp32_grad_worst_rel_l2=rworst32,
+         fp32_grad_worst_param=rworst32_name,
+         fp32_cpu_thread_spread=rspread32, grad_check_batch=2,
+         grad_check_image=[64, 64, 3], card=card)
+
     replaces = {
         "ln_fwd": ("apex_tpu_torch/csrc/layer_norm.cu",
                    "apex_tpu/ops/pallas/layer_norm_kernel.py:102"),
@@ -1214,6 +1711,14 @@ def main() -> int:
                         "apex_tpu/ops/pallas/fused_opt_kernels.py:82"),
         "lamb_stage2": ("apex_tpu_torch/csrc/fused_lamb.cu",
                         "apex_tpu/ops/pallas/fused_opt_kernels.py:114"),
+        "fused_sgd": ("apex_tpu_torch/csrc/fused_sgd.cu",
+                      "apex_tpu/ops/pallas/fused_sgd_kernel.py:65"),
+        "fused_adam_master": ("apex_tpu_torch/csrc/fused_adam.cu",
+                              "apex_tpu/ops/pallas/fused_adam_kernel.py:227"),
+        "fused_novograd": ("apex_tpu_torch/csrc/fused_novograd.cu",
+                           "apex_tpu/ops/pallas/fused_opt_kernels.py:240"),
+        "fused_adagrad": ("apex_tpu_torch/csrc/fused_adagrad.cu",
+                          "apex_tpu/ops/pallas/fused_opt_kernels.py:338"),
     }
     kernels = []
     for name, (src, tpu) in replaces.items():
@@ -1227,13 +1732,14 @@ def main() -> int:
             "launches_serve": serve_launches.get(name, 0),
             "launches_train": train_launches.get(name, 0),
             "launches_bert": bert_launches.get(name, 0),
+            "launches_resnet": resnet_launches.get(name, 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"],
             "shape": {k: rec[k] for k in ("form", "rows", "hidden", "b", "h",
                                           "sq", "sk", "causal", "mask", "n",
-                                          "dtype") if k in rec}})
+                                          "tensors", "dtype") if k in rec}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,10 @@ version's operations in its order, held to 1e-7 relative; so do the two
 LAMB stages (row sums included), held to the same. RMSNorm and the
 no-gamma forms take the LayerNorm tolerances; the masked flash kernels
 the flash ones, and exact zeros on fully masked rows. The determinism
-tests ask for identical bits from two runs.
+tests ask for identical bits from two runs. The flat SGD, NovoGrad and
+Adagrad kernels, the bf16 form of fused Adam and its master-weight form
+repeat their plain versions' operations in order and are held to
+identical bits (bf16 stores round to nearest even on both sides).
 """
 
 import pytest
@@ -26,14 +29,15 @@ from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
-from apex_tpu_torch.ops.fused_adam_kernel import (ADAM_MODE_ADAMW,
-                                                  ADAM_MODE_L2,
-                                                  fused_adam_flat,
-                                                  fused_adam_flat_plain)
-from apex_tpu_torch.ops.fused_opt_kernels import (fused_lamb_flat,
-                                                  fused_lamb_flat_plain,
-                                                  row_segment_ids,
-                                                  row_segments)
+from apex_tpu_torch.ops.fused_adam_kernel import (
+    ADAM_MODE_ADAMW, ADAM_MODE_L2, fused_adam_flat, fused_adam_flat_master,
+    fused_adam_flat_master_plain, fused_adam_flat_plain)
+from apex_tpu_torch.ops.fused_opt_kernels import (
+    fused_adagrad_flat, fused_adagrad_flat_plain, fused_lamb_flat,
+    fused_lamb_flat_plain, fused_novograd_flat, fused_novograd_flat_plain,
+    row_segment_ids, row_segments)
+from apex_tpu_torch.ops.fused_sgd_kernel import (fused_sgd_flat,
+                                                 fused_sgd_flat_plain)
 from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                   ln_fwd, ln_fwd_plain)
 from apex_tpu_torch.utils.flatten import flat_spec, flatten
@@ -436,3 +440,202 @@ def test_bert_step_on_the_card(dev):
     assert all(torch.isfinite(t).all() for t in named.values())
     assert not torch.equal(named["layer.0.qkv.weight"],
                            start["layer.0.qkv.weight"])
+
+
+def _same(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _run_both(kernel, plain, bufs, name, **kw):
+    """The kernel on ``bufs`` and the plain version on copies; one launch
+    of ``name``; returns both buffer lists."""
+    ref = [t.clone() for t in bufs]
+    before = _build.launches[name]
+    kernel(*bufs, **kw)
+    plain(*ref, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    return bufs, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("momentum,nesterov,wd_after",
+                         [(0.9, False, False), (0.9, True, False),
+                          (0.9, False, True), (0.9, True, True),
+                          (0.0, False, False)])
+@pytest.mark.parametrize("n", [4096, 1001])
+def test_fused_sgd_kernel_matches_plain(dev, n, momentum, nesterov,
+                                        wd_after, dtype):
+    g = torch.Generator(device=dev).manual_seed(n)
+    bufs = [torch.randn(n, device=dev, generator=g).to(dtype),
+            torch.randn(n, device=dev, generator=g).to(dtype),
+            torch.randn(n, device=dev, generator=g)]
+    for first in (True, False):
+        got, want = _run_both(
+            fused_sgd_flat, fused_sgd_flat_plain, bufs, "fused_sgd",
+            lr=0.05, momentum=momentum, dampening=0.0 if nesterov else 0.1,
+            weight_decay=1e-4, nesterov=nesterov,
+            wd_after_momentum=wd_after, inv_scale=0.5,
+            found_inf=torch.tensor(False, device=dev),
+            first_step=torch.tensor(first, device=dev))
+        _same(got, want)
+
+
+@pytest.mark.parametrize("mode", [ADAM_MODE_L2, ADAM_MODE_ADAMW])
+@pytest.mark.parametrize("n", [4096, 1001])
+def test_fused_adam_bf16_kernel_matches_plain(dev, mode, n):
+    g = torch.Generator(device=dev).manual_seed(n + mode)
+    bufs = [torch.randn(n, device=dev, generator=g).bfloat16(),
+            torch.randn(n, device=dev, generator=g).bfloat16(),
+            torch.randn(n, device=dev, generator=g),
+            torch.rand(n, device=dev, generator=g)]
+    got, want = _run_both(fused_adam_flat, fused_adam_flat_plain, bufs,
+                          "fused_adam", lr=1e-2, weight_decay=0.01,
+                          step=torch.tensor(3, device=dev), mode=mode,
+                          inv_scale=0.5)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("mode", [ADAM_MODE_L2, ADAM_MODE_ADAMW])
+@pytest.mark.parametrize("n", [4096, 1001])
+def test_fused_adam_master_kernel_matches_plain(dev, mode, n):
+    g = torch.Generator(device=dev).manual_seed(n + mode)
+    bufs = [torch.randn(n, device=dev, generator=g),
+            torch.randn(n, device=dev, generator=g),
+            torch.randn(n, device=dev, generator=g),
+            torch.rand(n, device=dev, generator=g)]
+    lp, lp_ref = (torch.empty(n, device=dev, dtype=torch.bfloat16)
+                  for _ in range(2))
+    ref = [t.clone() for t in bufs]
+    kw = dict(lr=1e-2, weight_decay=0.01, step=torch.tensor(3, device=dev),
+              mode=mode, inv_scale=0.5)
+    before = _build.launches["fused_adam_master"]
+    fused_adam_flat_master(*bufs, p_lp=lp, **kw)
+    fused_adam_flat_master_plain(*ref, p_lp=lp_ref, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["fused_adam_master"] == before + 1
+    _same(bufs + [lp], ref + [lp_ref])
+    assert torch.equal(lp, bufs[0].bfloat16())
+    keep = [t.clone() for t in bufs + [lp]]
+    bad = torch.full((n,), float("inf"), device=dev)
+    fused_adam_flat_master(bufs[0], bad, bufs[2], bufs[3], p_lp=lp,
+                           found_inf=torch.tensor(True, device=dev), **kw)
+    torch.cuda.synchronize()
+    _same(bufs[:1] + bufs[2:] + [lp], keep[:1] + keep[2:])
+
+
+@pytest.mark.parametrize("grad_averaging,init_zero", [(True, False),
+                                                      (False, True)])
+def test_fused_novograd_kernel_matches_plain(dev, grad_averaging,
+                                             init_zero):
+    shapes = [(3, 50), (7,), (300,), (), (9,), (40, 70), (1024, 129)]
+    g = torch.Generator(device=dev).manual_seed(5)
+    tree = {f"t{i}": torch.randn(s, device=dev, generator=g)
+            for i, s in enumerate(shapes)}
+    spec = flat_spec(tree)
+    p = flatten(tree, spec, dtype=torch.float32, pad_to=1024)
+    grads = flatten({k: torch.randn(t.shape, device=dev, generator=g)
+                     for k, t in tree.items()}, spec, dtype=torch.float32,
+                    pad_to=1024)
+    m = torch.randn(p.numel(), device=dev, generator=g)
+    v = torch.rand(spec.num_leaves, device=dev, generator=g)
+    ids = row_segment_ids(spec, p.numel(), device=dev)
+    kw = dict(num_tensors=spec.num_leaves, lr=1e-2, weight_decay=0.01,
+              step=torch.tensor(2, dtype=torch.int32, device=dev),
+              grad_averaging=grad_averaging, init_zero=init_zero,
+              bias_correction=True, inv_scale=0.5,
+              segments=row_segments(ids, spec.num_leaves))
+    ref = [t.clone() for t in (p, m, v)]
+    runs = [[t.clone() for t in (p, m, v)] for _ in range(2)]
+    before = _build.launches["fused_novograd"]
+    for a in runs:
+        fused_novograd_flat(a[0], grads, a[1], a[2], ids, **kw)
+    fused_novograd_flat_plain(ref[0], grads, ref[1], ref[2], ids, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["fused_novograd"] == before + 2
+    _same(runs[0], ref)
+    _same(runs[1], runs[0])          # two runs, the same bits
+    keep = [t.clone() for t in runs[0]]
+    grads[7] = float("nan")
+    fused_novograd_flat(*runs[0][:1], grads, *runs[0][1:], ids,
+                        found_inf=torch.tensor(True, device=dev), **kw)
+    torch.cuda.synchronize()
+    _same(runs[0], keep)
+
+
+@pytest.mark.parametrize("w_mode", [False, True])
+@pytest.mark.parametrize("n", [4096, 1001])
+def test_fused_adagrad_kernel_matches_plain(dev, w_mode, n):
+    g = torch.Generator(device=dev).manual_seed(n + w_mode)
+    bufs = [torch.randn(n, device=dev, generator=g),
+            torch.randn(n, device=dev, generator=g),
+            torch.rand(n, device=dev, generator=g)]
+    kw = dict(lr=1e-2, weight_decay=0.01, adagrad_w_mode=w_mode,
+              inv_scale=0.5)
+    got, want = _run_both(fused_adagrad_flat, fused_adagrad_flat_plain,
+                          bufs, "fused_adagrad", **kw)
+    _same(got, want)
+    keep = [t.clone() for t in bufs]
+    fused_adagrad_flat(bufs[0], torch.full((n,), float("nan"), device=dev),
+                       bufs[2], found_inf=torch.tensor(True, device=dev),
+                       **kw)
+    torch.cuda.synchronize()
+    _same([bufs[0], bufs[2]], [keep[0], keep[2]])
+
+
+def test_flat_sgd_and_adam_overflow_steps_are_bitwise_noops(dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    p, grad, b = (torch.randn(2048, device=dev, generator=g)
+                  for _ in range(3))
+    keep = [p.clone(), b.clone()]
+    grad[3] = float("inf")
+    fused_sgd_flat(p, grad, b, lr=0.1, momentum=0.9,
+                   found_inf=torch.tensor(True, device=dev))
+    pb = p.bfloat16()
+    m, v = torch.zeros(2048, device=dev), torch.zeros(2048, device=dev)
+    keep_b = [pb.clone(), m.clone(), v.clone()]
+    fused_adam_flat(pb, grad.bfloat16(), m, v, lr=0.1, step=1,
+                    found_inf=torch.tensor(True, device=dev))
+    torch.cuda.synchronize()
+    _same([p, b, pb, m, v], keep + keep_b)
+
+
+def test_resnet_step_on_the_card(dev):
+    """A bf16-compute ResNet18ish takes one flat FusedSGD step and one
+    master-weight FusedAdam step over bf16 parameters: finite losses,
+    parameters that moved, one launch of each optimizer kernel."""
+    import torch.nn.functional as F
+    from apex_tpu_torch.models.convert import init_resnet_params
+    from apex_tpu_torch.models.resnet import ResNet18ish
+    from apex_tpu_torch.optimizers import FusedAdam, FusedSGD
+    params = init_resnet_params(0, stage_sizes=(1, 1, 1, 1), num_classes=10)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(8, 64, 64, 3, device=dev, generator=g)
+    y = torch.randint(0, 10, (8,), device=dev, generator=g)
+    for kernel, bf16, make in (
+            ("fused_sgd", False, lambda n: FusedSGD(
+                n, lr=0.1, momentum=0.9, weight_decay=1e-4, use_flat=True)),
+            ("fused_adam_master", True, lambda n: FusedAdam(
+                n, lr=1e-3, master_weights=True, use_flat=True))):
+        model = ResNet18ish(device=dev)
+        model.load_state_dict(params)
+        if bf16:
+            for t in model.parameters():
+                t.data = t.data.bfloat16()
+        named = dict(model.named_parameters())
+        opt = make(named)
+        with torch.no_grad():
+            for name, view in opt.parameters.items():
+                named[name].data = view
+        start = {n: t.detach().clone() for n, t in named.items()}
+        _build.reset_launches()
+        logits = model(x)
+        loss = -(F.log_softmax(logits, -1) * F.one_hot(y, 10)).sum(-1).mean()
+        loss.backward()
+        opt.step({n: t.grad for n, t in named.items()})
+        torch.cuda.synchronize()
+        assert dict(_build.launches) == {kernel: 1}
+        assert torch.isfinite(loss)
+        assert all(torch.isfinite(t).all() for t in named.values())
+        assert not torch.equal(named["fc.weight"], start["fc.weight"])

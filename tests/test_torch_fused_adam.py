@@ -9,7 +9,11 @@ the JAX ``FusedAdam``, and through the port's counterparts on CPU tensors
 Tolerances: 1e-6 absolute plus 1e-5 relative on parameters and moments
 (both sides compute in fp32 with the same operations; the bias
 corrections come from two ``pow`` implementations, which may differ in
-the last bit). An overflow step is held to identical bits.
+the last bit). bf16 parameters (the flat buffer of a bf16 tree, and the
+bf16 copy the master form writes) are held to one bf16 ulp (2^-7
+relative): an fp32 result one bit apart can round to the neighbouring
+bf16 value; the count of such elements is asserted small. An overflow
+step is held to identical bits.
 """
 
 import jax
@@ -19,14 +23,14 @@ import pytest
 import torch
 
 from apex_tpu.ops.pallas.fused_adam_kernel import (
-    fused_adam_flat as jax_fused_adam_flat)
+    fused_adam_flat as jax_fused_adam_flat,
+    fused_adam_flat_master as jax_fused_adam_flat_master)
 from apex_tpu.optimizers.functional import adam_update as jax_adam_update
 from apex_tpu.optimizers.fused_adam import FusedAdam as JaxFusedAdam
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.fused_adam_kernel import (ADAM_MODE_ADAMW,
-                                                  ADAM_MODE_L2,
-                                                  fused_adam_flat,
-                                                  fused_adam_flat_plain)
+from apex_tpu_torch.ops.fused_adam_kernel import (
+    ADAM_MODE_ADAMW, ADAM_MODE_L2, fused_adam_flat, fused_adam_flat_master,
+    fused_adam_flat_master_plain, fused_adam_flat_plain)
 from apex_tpu_torch.optimizers import FusedAdam, FusedAdamW, adam_update
 
 TOL = dict(atol=1e-6, rtol=1e-5)
@@ -172,7 +176,128 @@ def test_master_weights_match_jax(use_flat):
 
 
 def test_flat_path_refuses_low_precision_without_master():
-    with pytest.raises(NotImplementedError, match="master_weights"):
-        FusedAdam({"w": torch.zeros(4, dtype=torch.bfloat16)})
+    """The flat path used to refuse low-precision parameters without
+    ``master_weights``; it now keeps them in a flat buffer of their dtype,
+    as the JAX class does (the parameters are views of it). AMSGrad is
+    still refused."""
+    opt = FusedAdam({"w": torch.zeros(4, dtype=torch.bfloat16)})
+    assert opt._flat_p.dtype == torch.bfloat16
+    assert opt.state["m"].dtype == opt.state["v"].dtype == torch.float32
+    w = opt.parameters["w"]
+    assert w.dtype == torch.bfloat16 \
+        and w.untyped_storage().data_ptr() \
+        == opt._flat_p.untyped_storage().data_ptr()
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam({"w": torch.zeros(4)}, amsgrad=True)
+
+
+def _bf16_close(port, ref, max_off=0.01):
+    """bf16 values within one bf16 ulp, and at most ``max_off`` of them
+    not equal."""
+    port = np.asarray(port, np.float32)
+    ref = np.asarray(ref, np.float32)
+    np.testing.assert_allclose(port, ref, atol=0, rtol=2 ** -7)
+    assert np.mean(port != ref) <= max_off
+
+
+@pytest.mark.parametrize("mode", [ADAM_MODE_L2, ADAM_MODE_ADAMW])
+def test_bf16_flat_kernel_matches_pallas_over_3_steps(mode):
+    """bf16 p and g, fp32 m and v (the buffers of the JAX class over a
+    bf16 tree): the plain version and the wrapper's CPU route against the
+    Pallas kernel, then an overflow step that changes no bit."""
+    n = 2048
+    rng = np.random.default_rng(10 + mode)
+    p0 = rng.standard_normal(n).astype(np.float32)
+    jp = jnp.asarray(p0, jnp.bfloat16)
+    jm, jv = jnp.zeros(n, jnp.float32), jnp.zeros(n, jnp.float32)
+    tp = torch.from_numpy(p0).bfloat16()
+    tm, tv = torch.zeros(n), torch.zeros(n)
+    wp, wm, wv = tp.clone(), tm.clone(), tv.clone()
+    for step in (1, 2, 3):
+        g = rng.standard_normal(n).astype(np.float32)
+        kw = dict(lr=1e-2, weight_decay=0.1, step=step, mode=mode,
+                  inv_scale=0.5)
+        jp, jm, jv = jax_fused_adam_flat(jp, jnp.asarray(g, jnp.bfloat16),
+                                         jm, jv, **kw)
+        tg = torch.from_numpy(g).bfloat16()
+        fused_adam_flat_plain(tp, tg, tm, tv, **kw)
+        fused_adam_flat(wp, tg, wm, wv, **kw)
+        assert tp.dtype == torch.bfloat16
+        _bf16_close(tp.float().numpy(), np.asarray(jp, np.float32))
+        _close(tm.numpy(), jm, atol=1e-5, rtol=1e-2)
+        _close(tv.numpy(), jv, atol=1e-5, rtol=1e-2)
+        assert all(torch.equal(a, b) for a, b in
+                   ((wp, tp), (wm, tm), (wv, tv)))
+    before = [t.clone() for t in (tp, tm, tv)]
+    fused_adam_flat(tp, torch.full((n,), float("nan"), dtype=torch.bfloat16),
+                    tm, tv, lr=1e-2, step=4, found_inf=torch.tensor(True))
+    assert all(torch.equal(a, b) for a, b in zip((tp, tm, tv), before))
+
+
+@pytest.mark.parametrize("mode", [ADAM_MODE_L2, ADAM_MODE_ADAMW])
+def test_master_kernel_matches_pallas_over_3_steps(mode):
+    """``fused_adam_flat_master``: the fp32 master, m and v against the
+    Pallas kernel's, the bf16 copy the exact cast of the master (and
+    within one ulp of the Pallas copy); an overflow step keeps the master,
+    m and v and rewrites the same copy bits."""
+    n = 2048
+    rng = np.random.default_rng(20 + mode)
+    p0 = rng.standard_normal(n).astype(np.float32)
+    jp = jnp.asarray(p0)
+    jm, jv = jnp.zeros(n, jnp.float32), jnp.zeros(n, jnp.float32)
+    tp, tm, tv = torch.from_numpy(p0.copy()), torch.zeros(n), torch.zeros(n)
+    lp = torch.empty(n, dtype=torch.bfloat16)
+    wp, wm, wv = tp.clone(), tm.clone(), tv.clone()
+    for step in (1, 2, 3):
+        g = rng.standard_normal(n).astype(np.float32)
+        kw = dict(lr=1e-2, weight_decay=0.1, step=step, mode=mode,
+                  inv_scale=0.5)
+        jp, jlp, jm, jv = jax_fused_adam_flat_master(jp, jnp.asarray(g), jm,
+                                                     jv, **kw)
+        out = fused_adam_flat_master_plain(tp, torch.from_numpy(g), tm, tv,
+                                           p_lp=lp, **kw)
+        assert out[0] is tp and out[1] is lp and out[2] is tm
+        wout = fused_adam_flat_master(wp, torch.from_numpy(g), wm, wv, **kw)
+        for port, ref in ((tp, jp), (tm, jm), (tv, jv)):
+            _close(port.numpy(), ref)
+        assert torch.equal(lp, tp.bfloat16())
+        _bf16_close(lp.float().numpy(), np.asarray(jlp, np.float32))
+        assert all(torch.equal(a, b) for a, b in
+                   ((wout[0], tp), (wout[1], lp), (wout[2], tm),
+                    (wout[3], tv)))
+    before = [t.clone() for t in (tp, lp, tm, tv)]
+    fused_adam_flat_master(tp, torch.full((n,), float("inf")), tm, tv,
+                           p_lp=lp, lr=1e-2, step=4,
+                           found_inf=torch.tensor(True))
+    assert all(torch.equal(a, b) for a, b in zip((tp, lp, tm, tv), before))
+
+
+def test_bf16_fused_adam_matches_jax_with_an_overflow_step():
+    """``FusedAdam(use_flat=True)`` over a bf16 tree without
+    ``master_weights`` (which raised before): 3 steps, the second a forced
+    overflow, against the JAX class on the same tree. The bf16 parameters
+    are equal to the JAX ones, bit for bit, after every step (no fp32
+    result lands on the other side of a bf16 rounding boundary here); the
+    overflow step changes no bit and does not advance the step count."""
+    params = _tree(30)
+    jopt = JaxFusedAdam(jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                                     params), lr=1e-2, weight_decay=0.01)
+    topt = FusedAdam({k: t.bfloat16() for k, t in _t(params).items()},
+                     lr=1e-2, weight_decay=0.01)
+    for step in range(3):
+        grads = _tree(31 + step)
+        overflow = step == 1
+        if overflow:
+            grads["w"][0, 0] = np.inf
+            before = {k: t.clone() for k, t in topt.parameters.items()}
+        jp = jopt.step(jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                                    grads), found_inf=overflow)
+        tp = topt.step({k: t.bfloat16() for k, t in _t(grads).items()},
+                       found_inf=torch.tensor(overflow))
+        if overflow:
+            assert all(torch.equal(tp[k], before[k]) for k in SHAPES)
+        for k in SHAPES:
+            assert tp[k].dtype == torch.bfloat16
+            np.testing.assert_array_equal(tp[k].float().numpy(),
+                                          np.asarray(jp[k], np.float32))
+    assert int(topt._step) == int(jopt._step) == 2

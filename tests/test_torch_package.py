@@ -19,6 +19,7 @@ import torch
 
 from apex_tpu_torch.models.convert import init_gpt2_params
 from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from apex_tpu_torch.models.resnet import ResNet18ish
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.normalization.fused_layer_norm import (
     fused_layer_norm_affine)
@@ -79,6 +80,7 @@ def test_device_defaults_to_cuda_and_raises_without_it():
     lambda: GPT2(TINY),
     lambda: Engine(TINY, init_gpt2_params(TINY)),
     lambda: init_cache(1, 2, 8, 1, 64),
+    lambda: ResNet18ish(),
 ])
 def test_entry_points_raise_without_cuda(build):
     _require_no_cuda()
@@ -162,6 +164,22 @@ def test_wrappers_refuse_other_devices():
         flash_attention_fwd(q, q, q, scale=0.125, causal=True)
 
 
+def test_optimizer_wrappers_refuse_other_devices():
+    """The flat optimizer kernels' wrappers refuse a tensor that is
+    neither on the CPU nor on CUDA."""
+    from apex_tpu_torch.ops.fused_adam_kernel import (fused_adam_flat,
+                                                      fused_adam_flat_master)
+    from apex_tpu_torch.ops.fused_opt_kernels import fused_adagrad_flat
+    from apex_tpu_torch.ops.fused_sgd_kernel import fused_sgd_flat
+    p = torch.empty(1024, device="meta")
+    for call in (lambda: fused_sgd_flat(p, p, p, lr=0.1),
+                 lambda: fused_adam_flat(p, p, p, p, lr=0.1),
+                 lambda: fused_adam_flat_master(p, p, p, p, lr=0.1),
+                 lambda: fused_adagrad_flat(p, p, p, lr=0.1)):
+        with pytest.raises(ValueError, match="device"):
+            call()
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -172,11 +190,13 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_sources_and_digest():
     names = [p.name for p in _build.sources()]
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
-                     "fused_adam.cu", "fused_lamb.cu", "layer_norm.cu"]
+                     "fused_adagrad.cu", "fused_adam.cu", "fused_lamb.cu",
+                     "fused_novograd.cu", "fused_sgd.cu", "layer_norm.cu"]
     assert set(_build.SIGNATURES) == {
         "apex_ln_fwd", "apex_ln_bwd", "apex_fa_fwd", "apex_fa_bwd_dq",
-        "apex_fa_bwd_dkv", "apex_fused_adam", "apex_lamb_stage1",
-        "apex_lamb_stage2"}
+        "apex_fa_bwd_dkv", "apex_fused_adam", "apex_fused_adam_master",
+        "apex_lamb_stage1", "apex_lamb_stage2", "apex_fused_sgd",
+        "apex_fused_novograd", "apex_fused_adagrad"}
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="cudaError 7"):
