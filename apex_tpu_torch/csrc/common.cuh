@@ -66,11 +66,39 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+// The sum of v over the block (blockDim.x a multiple of 32, at most 1024
+// threads), the warps' sums added in warp order, so every run gives the
+// same bits; every thread gets the total. `red` is 32 floats of shared
+// memory, free for the next call on return.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // the previous call's readers are done with red
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w];
+  return t;
+}
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
+}
+
+// The flash kernels' flat batch * head index: grid.y and grid.z together
+// carry it, since one grid dimension above x holds at most 65535 blocks.
+__device__ __forceinline__ long long batch_head() {
+  return (long long)blockIdx.z * gridDim.y + blockIdx.y;
+}
+// grid_y x grid_z covers bh with no z-slice left empty, each dimension
+// within the hardware's 65535 (fa_batch_heads_grid in ops/tiling.py)
+inline bool bh_grid_ok(int bh, int grid_y, int grid_z) {
+  return bh <= 0 ||
+         (grid_y >= 1 && grid_y <= 65535 && grid_z >= 1 && grid_z <= 65535 &&
+          (long long)grid_y * grid_z >= bh &&
+          (long long)grid_y * (grid_z - 1) < bh);
 }
 
 // An additive fp32 score bias broadcastable to (batch, head, q, k), read

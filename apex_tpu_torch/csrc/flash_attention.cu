@@ -62,8 +62,8 @@ template <typename T, bool kBias>
 __global__ void __launch_bounds__(kWarps * 32)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ lse, int sq, int sk, float scale,
-              int causal, ScoreBias bias) {
+              float* __restrict__ lse, int nbh, int sq, int sk,
+              float scale, int causal, ScoreBias bias) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [kBQ][kD]
   float* ks = qs + kBQ * kD;         // [kBK][kKStride]
@@ -74,7 +74,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const long long bh = blockIdx.y;
+  const long long bh = batch_head();
+  if (bh >= nbh) return;  // the last z-slice's spare blocks
   const int q0 = qt * kBQ;
   const T* qb = q + bh * sq * kD;
   const T* kb = k + bh * sk * kD;
@@ -187,8 +188,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int bh, int sq, int sk, float scale, int causal,
-           const ScoreBias& bias, cudaStream_t stream) {
+           int bh, int grid_y, int grid_z, int sq, int sk, float scale,
+           int causal, const ScoreBias& bias, cudaStream_t stream) {
   const int smem = (int)(kSmemFloats * sizeof(float));
   // a separate instantiation with the bias, so the unbiased kernel keeps
   // no bias registers or branches
@@ -196,35 +197,38 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
                                         : fa_fwd_kernel<T, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, scale, causal, bias);
+      bh, sq, sk, scale, causal, bias);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o); lse is float32
-// [bh, sq]. Only head_dim 64 is compiled. bias: float32 or null; heads =
-// h of bh = b * h; bsb, bsh, bsq, bsk its strides in elements (0 on a
-// broadcast dimension).
+// [bh, sq]. Only head_dim 64 is compiled. grid_y x grid_z blocks carry the
+// bh = b * h slices (fa_batch_heads_grid in ops/tiling.py). bias: float32
+// or null; heads = h of bh = b * h; bsb, bsh, bsq, bsk its strides in
+// elements (0 on a broadcast dimension).
 extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* o, void* lse, int bh,
-                           int heads, int sq, int sk, int d, float scale,
-                           int causal, long long bsb, long long bsh,
-                           long long bsq, long long bsk, int dtype,
-                           void* stream) {
-  if (d != kD || bh > 65535 || heads < 1) return (int)cudaErrorInvalidValue;
+                           int grid_y, int grid_z, int heads, int sq, int sk,
+                           int d, float scale, int causal, long long bsb,
+                           long long bsh, long long bsq, long long bsk,
+                           int dtype, void* stream) {
+  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+    return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
   if (dtype == 0)
-    return launch<float>(q, k, v, o, lse, bh, sq, sk, scale, causal, sb, s);
+    return launch<float>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale,
+                         causal, sb, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, scale, causal,
-                                 sb, s);
+    return launch<__nv_bfloat16>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk,
+                                 scale, causal, sb, s);
   return (int)cudaErrorInvalidValue;
 }

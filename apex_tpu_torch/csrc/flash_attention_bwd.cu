@@ -97,8 +97,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ dvec, T* __restrict__ dq, int sq,
-                 int sk, float scale, int causal, ScoreBias bias) {
+                 const float* __restrict__ dvec, T* __restrict__ dq, int nbh,
+                 int sq, int sk, float scale, int causal, ScoreBias bias) {
   extern __shared__ float smem[];
   float* qs = smem;                   // [kBQ][kD]
   float* dos = qs + kBQ * kD;         // [kBQ][kD]
@@ -112,7 +112,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const long long bh = blockIdx.y;
+  const long long bh = batch_head();
+  if (bh >= nbh) return;  // the last z-slice's spare blocks
   const int q0 = qt * kBQ;
   const T* kb = k + bh * sk * kD;
   const T* vb = v + bh * sk * kD;
@@ -225,7 +226,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ dvec, T* __restrict__ dk,
-                  T* __restrict__ dv, int sq, int sk, float scale,
+                  T* __restrict__ dv, int nbh, int sq, int sk, float scale,
                   int causal, ScoreBias bias) {
   extern __shared__ float smem[];
   float* ks = smem;                   // [kBK][kD]
@@ -240,7 +241,8 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int kt = blockIdx.x;  // the first k tiles see the most q tiles
-  const long long bh = blockIdx.y;
+  const long long bh = batch_head();
+  if (bh >= nbh) return;  // the last z-slice's spare blocks
   const int k0 = kt * kBK;
   const T* qb = q + bh * sq * kD;
   const T* dob = dout + bh * sq * kD;
@@ -385,9 +387,9 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* dvec, void* dq, int bh, int sq,
-              int sk, float scale, int causal, const ScoreBias& bias,
-              cudaStream_t stream) {
+              const void* lse, const void* dvec, void* dq, int bh,
+              int grid_y, int grid_z, int sq, int sk, float scale,
+              int causal, const ScoreBias& bias, cudaStream_t stream) {
   const int smem = (int)(kSmemFloats * sizeof(float));
   // a separate instantiation with the bias, so the unbiased kernel keeps
   // no bias registers or branches
@@ -395,20 +397,20 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                                         : fa_bwd_dq_kernel<T, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dq), sq, sk, scale, causal, bias);
+      static_cast<T*>(dq), bh, sq, sk, scale, causal, bias);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* dvec, void* dk, void* dv, int bh,
-               int sq, int sk, float scale, int causal,
-               const ScoreBias& bias, cudaStream_t stream) {
+               int grid_y, int grid_z, int sq, int sk, float scale,
+               int causal, const ScoreBias& bias, cudaStream_t stream) {
   const int smem = (int)(kSmemFloats * sizeof(float));
   // a separate instantiation with the bias, so the unbiased kernel keeps
   // no bias registers or branches
@@ -416,12 +418,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                                         : fa_bwd_dkv_kernel<T, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  const dim3 grid((sk + kBK - 1) / kBK, bh);
+  const dim3 grid((sk + kBK - 1) / kBK, grid_y, grid_z);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, scale, causal,
+      static_cast<T*>(dk), static_cast<T*>(dv), bh, sq, sk, scale, causal,
       bias);
   return (int)cudaGetLastError();
 }
@@ -429,46 +431,50 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients); lse and
-// dvec are float32 [bh, sq]. Only head_dim 64 is compiled. bias, heads and
-// the bias strides as for apex_fa_fwd.
+// dvec are float32 [bh, sq]. Only head_dim 64 is compiled. grid_y, grid_z,
+// bias, heads and the bias strides as for apex_fa_fwd.
 extern "C" int apex_fa_bwd_dq(const void* q, const void* k, const void* v,
                               const void* bias, const void* dout,
                               const void* lse, const void* dvec, void* dq,
-                              int bh, int heads, int sq, int sk, int d,
-                              float scale, int causal, long long bsb,
-                              long long bsh, long long bsq, long long bsk,
-                              int dtype, void* stream) {
-  if (d != kD || bh > 65535 || heads < 1) return (int)cudaErrorInvalidValue;
+                              int bh, int grid_y, int grid_z, int heads,
+                              int sq, int sk, int d, float scale, int causal,
+                              long long bsb, long long bsh, long long bsq,
+                              long long bsk, int dtype, void* stream) {
+  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+    return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
   if (dtype == 0)
-    return launch_dq<float>(q, k, v, dout, lse, dvec, dq, bh, sq, sk, scale,
-                            causal, sb, s);
+    return launch_dq<float>(q, k, v, dout, lse, dvec, dq, bh, grid_y, grid_z,
+                            sq, sk, scale, causal, sb, s);
   if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, dvec, dq, bh, sq, sk,
-                                    scale, causal, sb, s);
+    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, dvec, dq, bh, grid_y,
+                                    grid_z, sq, sk, scale, causal, sb, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
                                const void* bias, const void* dout,
                                const void* lse, const void* dvec, void* dk,
-                               void* dv, int bh, int heads, int sq, int sk,
-                               int d, float scale, int causal, long long bsb,
-                               long long bsh, long long bsq, long long bsk,
-                               int dtype, void* stream) {
-  if (d != kD || bh > 65535 || heads < 1) return (int)cudaErrorInvalidValue;
+                               void* dv, int bh, int grid_y, int grid_z,
+                               int heads, int sq, int sk, int d, float scale,
+                               int causal, long long bsb, long long bsh,
+                               long long bsq, long long bsk, int dtype,
+                               void* stream) {
+  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+    return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sk <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
   if (dtype == 0)
-    return launch_dkv<float>(q, k, v, dout, lse, dvec, dk, dv, bh, sq, sk,
-                             scale, causal, sb, s);
+    return launch_dkv<float>(q, k, v, dout, lse, dvec, dk, dv, bh, grid_y,
+                             grid_z, sq, sk, scale, causal, sb, s);
   if (dtype == 1)
-    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, dvec, dk, dv, bh, sq,
-                                     sk, scale, causal, sb, s);
+    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, dvec, dk, dv, bh,
+                                     grid_y, grid_z, sq, sk, scale, causal,
+                                     sb, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -34,6 +34,16 @@
 //   warps' sums in warp order into one row of a (blocks, hidden) partial
 //   buffer, and a second small launch adds the partial rows in a fixed
 //   order. No float atomics: the result has the same bits on every run.
+// - rows wider than kSmemMaxHidden (8192) do not fit four to a block in
+//   shared memory. Their forms stage nothing and take any width up to
+//   kMaxHidden (the int column index): one block of kWideWarps warps per
+//   row (forward) or per strided set of rows (backward). The forward reads
+//   the row three times, for the mean, the centred variance and the
+//   output, the backward x and dy twice; every read after the first is
+//   served by L2 while the rows in flight fit there. The backward keeps its
+//   running dgamma / dbeta sums in its own row of the partial buffer in
+//   device memory, each column owned by one thread, so the reduce launch
+//   and the bits stay as in the shared-memory form.
 // No padding of the row count is needed (the TPU kernel padded rows to a
 // multiple of 8); a ragged last block simply has idle warps.
 //
@@ -47,6 +57,9 @@ namespace {
 using namespace apex_port;
 
 constexpr int kFwdWarps = 4;
+constexpr int kSmemMaxHidden = 8192;  // LN_SMEM_MAX_HIDDEN in ops/tiling.py
+constexpr int kMaxHidden = 1 << 30;   // LN_MAX_HIDDEN
+constexpr int kWideWarps = 16;        // LN_WIDE_WARPS
 constexpr int kReduceCols = 32;  // columns per block of the partial sum
 constexpr int kReduceRows = 8;   // partial rows summed side by side
 
@@ -94,6 +107,47 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
     }
   }
   if (lane == 0) {
+    mean[row] = mu;
+    invvar[row] = rstd;
+  }
+}
+
+// The forward for a row wider than kSmemMaxHidden: one block per row, the
+// same mean, centred variance and output as ln_fwd_kernel, each a pass over
+// the row in device memory (the later passes mostly from L2).
+template <typename T, bool kRms, bool kAffine>
+__global__ void __launch_bounds__(kWideWarps * 32)
+ln_fwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, T* __restrict__ y,
+                   float* __restrict__ mean, float* __restrict__ invvar,
+                   int hidden, float eps) {
+  __shared__ float red[32];
+  const long long row = blockIdx.x;
+  const T* xr = x + row * hidden;
+  T* yr = y + row * hidden;
+  const float inv_h = 1.f / (float)hidden;
+  float mu = 0.f;
+  if (!kRms) {
+    float s = 0.f;
+    for (int i = threadIdx.x; i < hidden; i += blockDim.x) s += to_f32(xr[i]);
+    mu = block_sum(s, red) * inv_h;
+  }
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
+    const float c = to_f32(xr[i]) - mu;
+    ss += c * c;
+  }
+  const float rstd = rsqrtf(block_sum(ss, red) * inv_h + eps);
+  for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
+    const float xhat = (to_f32(xr[i]) - mu) * rstd;
+    if (!kAffine) {
+      yr[i] = from_f32<T>(xhat);
+    } else {
+      const float b = beta != nullptr ? beta[i] : 0.f;
+      yr[i] = from_f32<T>(xhat * gamma[i] + b);
+    }
+  }
+  if (threadIdx.x == 0) {
     mean[row] = mu;
     invvar[row] = rstd;
   }
@@ -171,6 +225,59 @@ __global__ void ln_bwd_kernel(const T* __restrict__ dy,
   }
 }
 
+// The backward for a row wider than kSmemMaxHidden: block b takes rows b,
+// b + gridDim.x, ...; per row one pass for the two row sums and the dgamma
+// / dbeta terms, one for dx. Column i is always thread i % blockDim.x's, so
+// the block's running sums live in its partial row (part_g[b], part_b[b])
+// without a race.
+template <typename T, bool kRms, bool kAffine>
+__global__ void __launch_bounds__(kWideWarps * 32)
+ln_bwd_wide_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ mean,
+                   const float* __restrict__ invvar, T* __restrict__ dx,
+                   float* __restrict__ part_g, float* __restrict__ part_b,
+                   int rows, int hidden) {
+  __shared__ float red[32];
+  float* pg = kAffine ? part_g + (size_t)blockIdx.x * hidden : nullptr;
+  float* pb = (kAffine && part_b != nullptr)
+                  ? part_b + (size_t)blockIdx.x * hidden : nullptr;
+  if (kAffine) {
+    for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
+      pg[i] = 0.f;
+      if (pb != nullptr) pb[i] = 0.f;
+    }
+  }
+  const float fh = (float)hidden;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* dyr = dy + row * hidden;
+    const T* xr = x + row * hidden;
+    const float mu = kRms ? 0.f : mean[row];
+    const float rstd = invvar[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
+      const float d = to_f32(dyr[i]);
+      const float xhat = (to_f32(xr[i]) - mu) * rstd;
+      const float wdy = kAffine ? d * gamma[i] : d;
+      s1 += xhat * wdy;
+      s2 += wdy;
+      if (kAffine) {
+        pg[i] += d * xhat;
+        if (pb != nullptr) pb[i] += d;
+      }
+    }
+    const float c1 = block_sum(s1, red) / fh;
+    const float c2 = kRms ? 0.f : block_sum(s2, red) / fh;
+    T* dxr = dx + row * hidden;
+    for (int i = threadIdx.x; i < hidden; i += blockDim.x) {
+      const float d = to_f32(dyr[i]);
+      const float xhat = (to_f32(xr[i]) - mu) * rstd;
+      const float wdy = kAffine ? d * gamma[i] : d;
+      dxr[i] = from_f32<T>((wdy - xhat * c1 - c2) * rstd);
+    }
+  }
+}
+
 // dgamma[c] = sum over partial rows k of part_g[k][c]: thread (c, y) adds
 // rows y, y + 8, ... in order, then the 8 sums are added in y order.
 __global__ void ln_bwd_reduce_kernel(const float* __restrict__ part_g,
@@ -207,8 +314,20 @@ template <typename T>
 int launch_fwd(const void* x, const void* gamma, const void* beta, void* y,
                void* mean, void* invvar, int rows, int hidden, float eps,
                int rms, cudaStream_t stream) {
-  const size_t smem = (size_t)kFwdWarps * hidden * sizeof(float);
   const bool affine = gamma != nullptr;
+  if (hidden > kSmemMaxHidden) {
+    const auto wide =
+        rms ? (affine ? ln_fwd_wide_kernel<T, true, true>
+                      : ln_fwd_wide_kernel<T, true, false>)
+            : (affine ? ln_fwd_wide_kernel<T, false, true>
+                      : ln_fwd_wide_kernel<T, false, false>);
+    wide<<<rows, kWideWarps * 32, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), static_cast<T*>(y),
+        static_cast<float*>(mean), static_cast<float*>(invvar), hidden, eps);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)kFwdWarps * hidden * sizeof(float);
   const auto kernel =
       rms ? (affine ? ln_fwd_kernel<T, true, true>
                     : ln_fwd_kernel<T, true, false>)
@@ -233,13 +352,18 @@ int launch_bwd(const void* dy, const void* x, const void* gamma,
                const void* mean, const void* invvar, void* dx, void* part_g,
                void* part_b, void* dgamma, void* dbeta, int rows, int hidden,
                int warps, int nblk, int rms, cudaStream_t stream) {
-  const size_t smem = (size_t)warps * 4 * hidden * sizeof(float);
   const bool affine = gamma != nullptr;
+  const bool wide = hidden > kSmemMaxHidden;
+  const size_t smem = wide ? 0 : (size_t)warps * 4 * hidden * sizeof(float);
   const auto kernel =
-      rms ? (affine ? ln_bwd_kernel<T, true, true>
-                    : ln_bwd_kernel<T, true, false>)
-          : (affine ? ln_bwd_kernel<T, false, true>
-                    : ln_bwd_kernel<T, false, false>);
+      wide ? (rms ? (affine ? ln_bwd_wide_kernel<T, true, true>
+                            : ln_bwd_wide_kernel<T, true, false>)
+                  : (affine ? ln_bwd_wide_kernel<T, false, true>
+                            : ln_bwd_wide_kernel<T, false, false>))
+           : (rms ? (affine ? ln_bwd_kernel<T, true, true>
+                            : ln_bwd_kernel<T, true, false>)
+                  : (affine ? ln_bwd_kernel<T, false, true>
+                            : ln_bwd_kernel<T, false, false>));
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -265,10 +389,12 @@ int launch_bwd(const void* dy, const void* x, const void* gamma,
 // dtype: 0 = float32, 1 = bfloat16 (x and y); gamma / beta are float32
 // [hidden], both may be null (beta is only read with gamma). mean / invvar
 // are float32 [rows]. rms: 1 = RMSNorm (mean written as 0), 0 = LayerNorm.
+// hidden: 1 .. kMaxHidden.
 extern "C" int apex_ln_fwd(const void* x, const void* gamma, const void* beta,
                            void* y, void* mean, void* invvar, int rows,
                            int hidden, float eps, int rms, int dtype,
                            void* stream) {
+  if (hidden < 1 || hidden > kMaxHidden) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -285,13 +411,17 @@ extern "C" int apex_ln_fwd(const void* x, const void* gamma, const void* beta,
 // null together when the forward had no beta; gamma, part_g and dgamma are
 // null together (and then part_b and dbeta too) when it had no gamma. mean
 // is not read (and may be null) when rms = 1. `warps` warps per block,
-// `nblk` blocks (rows are dealt out warp by warp over the whole grid).
+// `nblk` blocks (rows are dealt out warp by warp over the whole grid; above
+// kSmemMaxHidden block by block, with kWideWarps warps, ln_bwd_geometry in
+// ops/tiling.py).
 extern "C" int apex_ln_bwd(const void* dy, const void* x, const void* gamma,
                            const void* mean, const void* invvar, void* dx,
                            void* part_g, void* part_b, void* dgamma,
                            void* dbeta, int rows, int hidden, int warps,
                            int nblk, int rms, int dtype, void* stream) {
-  if (warps < 1 || warps > 32 || nblk < 1) return (int)cudaErrorInvalidValue;
+  if (warps < 1 || warps > 32 || nblk < 1 || hidden < 1 ||
+      hidden > kMaxHidden || (hidden > kSmemMaxHidden && warps != kWideWarps))
+    return (int)cudaErrorInvalidValue;
   if ((gamma == nullptr) != (part_g == nullptr) ||
       (part_g == nullptr && part_b != nullptr))
     return (int)cudaErrorInvalidValue;

@@ -1,5 +1,5 @@
-"""GPT-2, BERT and ResNet parameters for the port: from a flax tree and
-back, or made from a seed.
+"""GPT-2, BERT, ResNet and GroupNorm-model parameters for the port: from a
+flax tree and back, or made from a seed.
 
 The port's parameter dict (``GPT2.state_dict()`` names) mirrors the flax
 tree of ``apex_tpu.models.gpt2.GPT2.init``:
@@ -31,6 +31,11 @@ become ``weight (out, in, kh, kw)``, the dense ``fc/kernel (in, out)``
 becomes ``fc.weight (out, in)``, BatchNorm ``weight`` / ``bias`` stay, and
 the ``batch_stats`` ``mean`` / ``var`` become the BatchNorm modules'
 buffers of those names.
+
+A model of ``apex_tpu.contrib.group_norm.GroupNorm`` and bias-free flax
+convolutions (a UNet ResNet block) maps by the same rule: GroupNorm
+``weight`` / ``bias`` stay, convolution kernels become OIHW
+``weight`` tensors.
 """
 
 from __future__ import annotations
@@ -248,7 +253,13 @@ def resnet_params_from_jax(variables: Dict[str, Any]
     """The flax ResNet variables (``{"params": ..., "batch_stats": ...}``,
     numpy leaves) as the port's CPU float32 state dict (parameters and
     running statistics). Without ``batch_stats`` (a gradient tree) only the
-    parameters come back."""
+    parameters come back. The same rule carries any model of bias-free
+    ``flax.linen.Conv`` layers and norms, such as one of
+    ``apex_tpu.contrib.group_norm.GroupNorm`` and convolutions, to the
+    port's :class:`~apex_tpu_torch.contrib.group_norm.GroupNorm` and
+    :class:`~apex_tpu_torch.models.resnet.Conv` modules of the same names:
+    ``weight`` / ``bias`` as they are, each conv ``kernel`` (HWIO) as a
+    ``weight`` (OIHW)."""
     out = {}
     for group in ("params", "batch_stats"):
         for path, leaf in _walk(variables.get(group, {})):

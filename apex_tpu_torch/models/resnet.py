@@ -46,14 +46,14 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 class Conv(nn.Module):
     """A bias-free convolution with a float32 ``weight (out, in, kh, kw)``
     (flax's ``kernel (kh, kw, in, out)``), run in the input's dtype on
-    NHWC activations."""
+    NHWC activations; built empty on ``device`` (default ``cuda``)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding: int = 0, *, device=None):
+                 padding: int = 0, *, device: DeviceLike = None):
         super().__init__()
         self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k,
-                                               device=device))
+        self.weight = nn.Parameter(torch.empty(
+            cout, cin, k, k, device=resolve_device(device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(dtype=x.dtype, memory_format=torch.channels_last)
@@ -67,8 +67,9 @@ class Bottleneck(nn.Module):
     the third, ReLU after the sum."""
 
     def __init__(self, in_features: int, features: int, strides: int = 1,
-                 *, device=None):
+                 *, device: DeviceLike = None):
         super().__init__()
+        device = resolve_device(device)
         bn = dict(channel_axis=-1, device=device)
         self.conv1 = Conv(in_features, features, 1, device=device)
         self.bn1 = SyncBatchNorm(features, fuse_relu=True, **bn)

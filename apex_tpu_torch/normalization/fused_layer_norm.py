@@ -9,11 +9,12 @@ whose backward is :func:`~apex_tpu_torch.ops.layer_norm_kernel.ln_bwd`
 Like the JAX default (``memory_efficient=False``) it saves x, mean and
 invvar (RMSNorm saves no mean: the backward does not read it);
 ``memory_efficient=True`` belongs to a later slice and raises.
-The JAX package sends hidden sizes that are not a multiple of 128 to its
-jnp reference because of the TPU's 128-lane tiles; the Hopper kernel has
-no such rule and takes any hidden size up to
-:data:`~apex_tpu_torch.ops.tiling.LN_MAX_HIDDEN` (8192), raising above it
-for CUDA tensors. ``manual_layer_norm`` / ``manual_rms_norm`` are the plain
+Every width runs the kernels: the JAX package's ``_pallas_ok`` sends
+hidden sizes above 65536, or not a multiple of 128, to its plain
+reference because of the TPU's VMEM and 128-lane tiles, rules the Hopper
+kernels do not need. The weight and bias may be float32 or bfloat16;
+their gradients come back in their own dtype, as in the JAX
+``custom_vjp``. ``manual_layer_norm`` / ``manual_rms_norm`` are the plain
 references the tests hold the kernel path against.
 """
 
@@ -27,7 +28,7 @@ from torch import nn
 
 from apex_tpu_torch.ops.layer_norm_kernel import ln_bwd, ln_fwd
 from apex_tpu_torch.ops.tiling import LN_MAX_HIDDEN
-from apex_tpu_torch.utils.device import DeviceLike
+from apex_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Shape = Union[int, Sequence[int]]
 
@@ -77,7 +78,8 @@ def manual_rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
 class _FusedNorm(torch.autograd.Function):
     """``_fused_norm`` with its ``custom_vjp`` (x saved): LayerNorm or
     RMSNorm, with a weight (and a bias, LayerNorm only) or without; dx,
-    dweight and dbias (None where there is none) from the kernels."""
+    dweight and dbias (None where there is none) from the kernels, the
+    last two in the weight's and the bias's dtype."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, hidden, eps, rms):
@@ -93,6 +95,10 @@ class _FusedNorm(torch.autograd.Function):
         x2, weight, bias, mean, invvar = ctx.saved_tensors
         dx, dweight, dbias = ln_bwd(dy.reshape(x2.shape).contiguous(), x2,
                                     weight, bias, mean, invvar, rms=ctx.rms)
+        if dweight is not None:
+            dweight = dweight.to(weight.dtype)
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
         return dx.reshape(ctx.xshape), dweight, dbias, None, None, None
 
 
@@ -112,8 +118,8 @@ def fused_layer_norm_affine(x: torch.Tensor, weight: torch.Tensor,
                             bias: Optional[torch.Tensor],
                             normalized_shape: Shape, eps: float = 1e-5,
                             memory_efficient: bool = False) -> torch.Tensor:
-    """LayerNorm with fp32 ``weight`` and ``bias`` (or None) through the
-    kernels, differentiable in x, weight and bias."""
+    """LayerNorm with a float32 or bfloat16 ``weight`` and ``bias`` (or
+    None) through the kernels, differentiable in x, weight and bias."""
     return _fused_norm(x, weight, bias, normalized_shape, eps, False,
                        memory_efficient, "fused_layer_norm_affine")
 
@@ -129,8 +135,8 @@ def fused_layer_norm(x: torch.Tensor, normalized_shape: Shape,
 def fused_rms_norm_affine(x: torch.Tensor, weight: torch.Tensor,
                           normalized_shape: Shape, eps: float = 1e-5,
                           memory_efficient: bool = False) -> torch.Tensor:
-    """RMSNorm with an fp32 ``weight`` through the kernels, differentiable
-    in x and weight."""
+    """RMSNorm with a float32 or bfloat16 ``weight`` through the kernels,
+    differentiable in x and weight."""
     return _fused_norm(x, weight, None, normalized_shape, eps, True,
                        memory_efficient, "fused_rms_norm_affine")
 
@@ -146,7 +152,7 @@ def fused_rms_norm(x: torch.Tensor, normalized_shape: Shape,
 class FusedLayerNorm(nn.Module):
     """LayerNorm module; with ``elementwise_affine`` (the default) fp32
     ``weight`` (ones) and ``bias`` (zeros), the parameter names and dtype
-    of the flax module."""
+    of the flax module, on ``device`` (default ``cuda``)."""
 
     def __init__(self, normalized_shape: Shape, eps: float = 1e-5,
                  elementwise_affine: bool = True, *,
@@ -155,12 +161,13 @@ class FusedLayerNorm(nn.Module):
         self.normalized_shape = normalized_shape
         self.eps = eps
         self.elementwise_affine = elementwise_affine
+        dev = resolve_device(device)
         if elementwise_affine:
             h = _norm_size(normalized_shape)
             self.weight = nn.Parameter(
-                torch.ones(h, dtype=torch.float32, device=device))
+                torch.ones(h, dtype=torch.float32, device=dev))
             self.bias = nn.Parameter(
-                torch.zeros(h, dtype=torch.float32, device=device))
+                torch.zeros(h, dtype=torch.float32, device=dev))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.elementwise_affine:
@@ -171,7 +178,8 @@ class FusedLayerNorm(nn.Module):
 
 class FusedRMSNorm(nn.Module):
     """RMSNorm module; with ``elementwise_affine`` (the default) an fp32
-    ``weight`` (ones), the parameter name and dtype of the flax module."""
+    ``weight`` (ones), the parameter name and dtype of the flax module, on
+    ``device`` (default ``cuda``)."""
 
     def __init__(self, normalized_shape: Shape, eps: float = 1e-5,
                  elementwise_affine: bool = True, *,
@@ -180,10 +188,11 @@ class FusedRMSNorm(nn.Module):
         self.normalized_shape = normalized_shape
         self.eps = eps
         self.elementwise_affine = elementwise_affine
+        dev = resolve_device(device)
         if elementwise_affine:
             self.weight = nn.Parameter(torch.ones(
                 _norm_size(normalized_shape), dtype=torch.float32,
-                device=device))
+                device=dev))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.elementwise_affine:

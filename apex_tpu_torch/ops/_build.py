@@ -50,19 +50,19 @@ SIGNATURES = {
     # dtype, stream
     "apex_ln_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                     _i, _i, _i, _i, _i, _vp],
-    # q, k, v, bias (may be null), o, lse, bh, heads, sq, sk, d, scale,
-    # causal, the bias's four strides, dtype, stream
-    "apex_fa_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f,
-                    _i, _ll, _ll, _ll, _ll, _i, _vp],
-    # q, k, v, bias, do, lse, dvec, dq, bh, heads, sq, sk, d, scale,
-    # causal, the bias's four strides, dtype, stream
+    # q, k, v, bias (may be null), o, lse, bh, grid_y, grid_z, heads, sq,
+    # sk, d, scale, causal, the bias's four strides, dtype, stream
+    "apex_fa_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
+                    _i, _f, _i, _ll, _ll, _ll, _ll, _i, _vp],
+    # q, k, v, bias, do, lse, dvec, dq, bh, grid_y, grid_z, heads, sq, sk,
+    # d, scale, causal, the bias's four strides, dtype, stream
     "apex_fa_bwd_dq": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
-                       _i, _i, _f, _i, _ll, _ll, _ll, _ll, _i, _vp],
-    # q, k, v, bias, do, lse, dvec, dk, dv, bh, heads, sq, sk, d, scale,
-    # causal, the bias's four strides, dtype, stream
+                       _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll, _i, _vp],
+    # q, k, v, bias, do, lse, dvec, dk, dv, bh, grid_y, grid_z, heads, sq,
+    # sk, d, scale, causal, the bias's four strides, dtype, stream
     "apex_fa_bwd_dkv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
-                        _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll, _i,
-                        _vp],
+                        _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll,
+                        _i, _vp],
     # p, g, m, v, scalars, n, mode, dtype (of p and g), stream
     "apex_fused_adam": [_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     # p_master, g, m, v, p_lp (bf16, written), scalars, n, mode, stream
@@ -79,6 +79,16 @@ SIGNATURES = {
                          _vp],
     # p, u, ratios, row_ids, scalars, rows, stream
     "apex_lamb_stage2": [_vp, _vp, _vp, _vp, _vp, _ll, _vp],
+    # x, w, b (both may be null), y, dmean, rstd, n, hw, c, groups, eps,
+    # silu, staged, dtype, stream
+    "apex_gn_one_pass": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f,
+                         _i, _i, _i, _vp],
+    # x, shift, psum, psq, n, hw, c, groups, hw_block, dtype, stream
+    "apex_gn_stats": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
+    # x, shift, dmean, rstd, w, b (both may be null), y, n, hw, c, groups,
+    # hw_block, silu, dtype, stream
+    "apex_gn_apply": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                      _i, _i, _vp],
 }
 
 launches: collections.Counter = collections.Counter()

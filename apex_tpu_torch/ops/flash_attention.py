@@ -23,7 +23,10 @@ q, k, v, the bias, o and the fp32 lse, and its backward is
 :func:`flash_attention_bwd`. A boolean ``mask`` (True = masked) becomes
 the bias -1e30 where it is True, as in the JAX ``flash_attention``; a
 ``bias`` passed with ``bias_requires_grad=False`` is the same operand.
-Its gradient (``dbias``) and dropout are not ported yet and raise.
+Its gradient (``dbias``) and dropout at a rate above 0 are not ported yet
+and raise. The kernels spread ``batch * heads`` over grid.y and grid.z
+(:func:`~apex_tpu_torch.ops.tiling.fa_batch_heads_grid`), so any count
+runs.
 """
 
 from __future__ import annotations
@@ -34,12 +37,15 @@ from typing import Optional, Tuple
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.tiling import FA_HEAD_DIM, FA_MAX_BATCH_HEADS
+from apex_tpu_torch.ops.tiling import FA_HEAD_DIM, fa_batch_heads_grid
 
 NEG_INF = -1e30
 # scores at or below this are "hard masked" (as in the JAX kernel)
 _MASK_EDGE = 0.5 * NEG_INF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the JAX package's default TPU tiles, which fill in the side an explicit
+# block leaves out before the pair is validated
+_JAX_BLOCK_Q, _JAX_BLOCK_K = 512, 1024
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
@@ -143,9 +149,6 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
         raise NotImplementedError(
             f"{name}: the kernel is compiled for head_dim {FA_HEAD_DIM}, "
             f"got {d}")
-    if b * h > FA_MAX_BATCH_HEADS:
-        raise ValueError(f"{name}: batch*heads={b * h} > "
-                         f"{FA_MAX_BATCH_HEADS}")
     return False
 
 
@@ -176,7 +179,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(o, lse)``. CUDA tensors launch the kernel: contiguous
     float32 or bfloat16, one dtype for q, k and v, head_dim 64, any
-    sq / sk, an optional fp32 bias broadcastable to ``(b, h, sq, sk)``
+    batch * heads and sq / sk, an optional fp32 bias broadcastable to ``(b, h, sq, sk)``
     (any strides). CPU tensors take the plain version."""
     cpu = _check_qkv("flash_attention_fwd", q, k, v)
     bptr, bstrides = _bias_args("flash_attention_fwd", bias, q, k)
@@ -191,9 +194,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_fa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              bptr, o.data_ptr(), lse.data_ptr(), b * h, h,
-                              sq, sk, d, float(scale), int(causal),
-                              *bstrides, _DTYPES[q.dtype], stream)
+                              bptr, o.data_ptr(), lse.data_ptr(), b * h,
+                              *fa_batch_heads_grid(b * h), h, sq, sk, d,
+                              float(scale), int(causal), *bstrides,
+                              _DTYPES[q.dtype], stream)
     _build.launches["fa_fwd"] += 1
     _build.check(err, "flash_attention_fwd")
     return o, lse
@@ -235,8 +239,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr, do.data_ptr(),
             lse.data_ptr(), dvec.data_ptr())
-    geo = (b * h, h, sq, sk, d, float(scale), int(causal), *bstrides,
-           _DTYPES[q.dtype])
+    geo = (b * h, *fa_batch_heads_grid(b * h), h, sq, sk, d, float(scale),
+           int(causal), *bstrides, _DTYPES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_fa_bwd_dq(*args, dq.data_ptr(), *geo, stream)
@@ -271,22 +275,46 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def validate_blocks(block_q: int, block_k: int) -> None:
+    """The JAX package's rule for explicit flash blocks (its
+    ``validate_blocks``): ``block_q`` a positive multiple of 8 and
+    ``block_k`` a positive multiple of 128, else ``ValueError``."""
+    ok = (isinstance(block_q, int) and isinstance(block_k, int)
+          and block_q > 0 and block_q % 8 == 0
+          and block_k > 0 and block_k % 128 == 0)
+    if not ok:
+        raise ValueError(
+            f"flash_attention block_q={block_q!r}/block_k={block_k!r} "
+            f"invalid: block_q must be a positive multiple of 8 and "
+            f"block_k a positive multiple of 128")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False, scale: Optional[float] = None, *,
+                    causal: bool = False, scale: Optional[float] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None, *,
                     bias: Optional[torch.Tensor] = None,
                     mask: Optional[torch.Tensor] = None,
                     dropout_p: float = 0.0, dropout_seed=None,
                     bias_requires_grad: bool = True) -> torch.Tensor:
     """Scaled dot-product attention, differentiable in q, k and v;
-    ``scale`` defaults to ``1/sqrt(d)``. ``mask`` is a rank-4 boolean
-    tensor broadcastable to ``(b, h, sq, sk)``, True = masked; a fully
-    masked row gives zero output and zero gradients. ``bias`` is an
+    ``scale`` defaults to ``1/sqrt(d)``. ``block_q`` / ``block_k`` are the
+    JAX signature's TPU tiles: explicit values are validated by its rule
+    (:func:`validate_blocks`; one given alone is checked beside the JAX
+    default of the other, 512 or 1024) and change nothing else, since the
+    CUDA kernels keep their own 64 x 64 tiling. ``mask`` is a rank-4
+    boolean tensor broadcastable to ``(b, h, sq, sk)``, True = masked; a
+    fully masked row gives zero output and zero gradients. ``bias`` is an
     additive logits bias of the same broadcastability, taken as a constant
-    (``bias_requires_grad=False``). A differentiated bias (the default
-    ``bias_requires_grad=True``, whose ``dbias`` the JAX kernel emits) and
-    ``dropout_p > 0`` are not ported yet and raise
+    (``bias_requires_grad=False``). At ``dropout_p == 0`` a
+    ``dropout_seed`` is accepted and ignored, as in JAX. A differentiated
+    bias (the default ``bias_requires_grad=True``, whose ``dbias`` the JAX
+    kernel emits) and ``dropout_p > 0`` are not ported yet and raise
     ``NotImplementedError``."""
-    if dropout_p > 0.0 or dropout_seed is not None:
+    if block_q is not None or block_k is not None:
+        validate_blocks(_JAX_BLOCK_Q if block_q is None else block_q,
+                        _JAX_BLOCK_K if block_k is None else block_k)
+    if dropout_p > 0.0:
         raise NotImplementedError(
             "flash_attention: dropout is not ported to the CUDA kernels yet "
             "(ROADMAP.md, port queue)")

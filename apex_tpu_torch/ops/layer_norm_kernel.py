@@ -8,7 +8,11 @@ written as 0, no ``mean(wdy)`` term in the backward), each with gamma and
 an optional beta or with neither (``gamma=None``: no affine step, no
 dgamma / dbeta). :func:`ln_fwd` / :func:`ln_bwd` launch
 ``csrc/layer_norm.cu`` for CUDA tensors and run :func:`ln_fwd_plain` /
-:func:`ln_bwd_plain` for CPU tensors; there is no other route.
+:func:`ln_bwd_plain` for CPU tensors; there is no other route. gamma and
+beta may be float32 or bfloat16 (the JAX package takes any parameter
+dtype); the kernels read them as float32, cast here (they are ``hidden``
+long), and dgamma / dbeta come back in float32, as from the Pallas
+kernel, for the caller to cast to the parameter's dtype.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.tiling import LN_MAX_HIDDEN, ln_bwd_geometry
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PARAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def ln_fwd_plain(x2: torch.Tensor, gamma: Optional[torch.Tensor],
@@ -103,15 +108,27 @@ def _check_f32(name: str, t: torch.Tensor, shape, x2: torch.Tensor,
             f"{t.device}")
 
 
-def _check_affine(name: str, gamma, beta, x2: torch.Tensor) -> None:
-    hidden = x2.shape[1]
-    if gamma is None:
-        if beta is not None:
-            raise ValueError(f"{name}: beta without gamma")
-        return
-    _check_f32(name, gamma, (hidden,), x2, "gamma")
-    if beta is not None:
-        _check_f32(name, beta, (hidden,), x2, "beta")
+def _param_f32(name: str, t: Optional[torch.Tensor], x: torch.Tensor,
+               what: str) -> Optional[torch.Tensor]:
+    """A float32 or bfloat16 affine parameter as long as x's last dimension
+    (LayerNorm's hidden, GroupNorm's channels) as the contiguous float32
+    vector a kernel reads (the tensor itself when it is one)."""
+    if t is None:
+        return None
+    if t.device != x.device or t.dtype not in _PARAM_DTYPES \
+            or tuple(t.shape) != (x.shape[-1],):
+        raise ValueError(
+            f"{name}: {what} must be a float32 or bfloat16 "
+            f"({x.shape[-1]},) tensor on {x.device}, got "
+            f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    return t.float().contiguous()
+
+
+def _affine_f32(name: str, gamma, beta, x2: torch.Tensor):
+    if gamma is None and beta is not None:
+        raise ValueError(f"{name}: beta without gamma")
+    return (_param_f32(name, gamma, x2, "gamma"),
+            _param_f32(name, beta, x2, "beta"))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -121,15 +138,17 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def ln_fwd(x2: torch.Tensor, gamma: Optional[torch.Tensor],
            beta: Optional[torch.Tensor], *, eps: float, rms: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x2 ``(rows, hidden)`` float32 or bfloat16, gamma float32
-    ``(hidden,)`` or None, beta float32 ``(hidden,)`` or None (only with
+    """x2 ``(rows, hidden)`` float32 or bfloat16, gamma float32 or
+    bfloat16 ``(hidden,)`` or None, beta the same or None (only with
     gamma). Returns ``(y, mean, invvar)`` as :func:`ln_fwd_plain` does.
-    CUDA tensors launch the kernel (any row count, hidden up to
-    ``LN_MAX_HIDDEN``); CPU tensors take the plain version."""
+    CUDA tensors launch the kernel (any row count, any hidden up to
+    ``LN_MAX_HIDDEN``, 2^30: rows wider than ``LN_SMEM_MAX_HIDDEN`` take
+    the kernel's form that stages nothing); CPU tensors take the plain
+    version."""
     if _check_device("ln_fwd", x2):
         return ln_fwd_plain(x2, gamma, beta, eps=eps, rms=rms)
     _check_rows("ln_fwd", x2)
-    _check_affine("ln_fwd", gamma, beta, x2)
+    gamma, beta = _affine_f32("ln_fwd", gamma, beta, x2)
     rows, hidden = x2.shape
     y = torch.empty_like(x2)
     mean = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
@@ -155,10 +174,10 @@ def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor,
     """The backward from the forward's saved x2, mean and invvar
     (``(rows, 1)`` fp32; mean is not read, and may be None, when
     ``rms``). Returns ``(dx, dgamma, dbeta)`` as :func:`ln_bwd_plain`
-    does: dbeta is None when ``beta`` is, both are None when ``gamma`` is.
-    CUDA tensors launch the kernel: dgamma / dbeta are summed over rows
-    without atomics, so two runs give the same bits. CPU tensors take the
-    plain version."""
+    does (float32): dbeta is None when ``beta`` is, both are None when
+    ``gamma`` is. CUDA tensors launch the kernel: dgamma / dbeta are
+    summed over rows without atomics, so two runs give the same bits. CPU
+    tensors take the plain version."""
     if _check_device("ln_bwd", dy2):
         return ln_bwd_plain(dy2, x2, gamma, beta, mean, invvar, rms=rms)
     _check_rows("ln_bwd", dy2, "dy2")
@@ -169,7 +188,7 @@ def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor,
             f"ln_bwd: x2 must be a contiguous {tuple(dy2.shape)} "
             f"{dy2.dtype} tensor like dy2, got {tuple(x2.shape)} "
             f"{x2.dtype} on {x2.device}")
-    _check_affine("ln_bwd", gamma, beta, dy2)
+    gamma, beta = _affine_f32("ln_bwd", gamma, beta, dy2)
     if not rms:
         _check_f32("ln_bwd", mean, (rows, 1), dy2, "mean")
     _check_f32("ln_bwd", invvar, (rows, 1), dy2, "invvar")

@@ -11,12 +11,20 @@ of shared memory, and registers, not a scratchpad, hold the working set.
 
 from __future__ import annotations
 
-# LayerNorm (csrc/layer_norm.cu): one warp per row, LN_WARPS_PER_BLOCK rows
-# per block, each row staged as fp32 in dynamic shared memory.
+# LayerNorm (csrc/layer_norm.cu), two compile-time forms chosen by width:
+# - up to LN_SMEM_MAX_HIDDEN: one warp per row, LN_WARPS_PER_BLOCK rows per
+#   block, each row staged as fp32 in dynamic shared memory (4 warps x 8192
+#   x 4 bytes = 128 KB, inside the 227 KB a Hopper block may use);
+# - above it: one block of LN_WIDE_WARPS warps per row, nothing staged: the
+#   forward reads the row three times, the backward x and dy twice, each
+#   read after the first from L2 while a row fits there. Any width up to
+#   LN_MAX_HIDDEN, the bound of the kernels' int32 column index (the JAX
+#   package sends rows above 65536 to its plain reference; the port's
+#   kernels need no such cut).
 LN_WARPS_PER_BLOCK = 4
-# the widest row the kernel takes: 4 warps x 8192 x 4 bytes = 128 KB of
-# shared memory per block, inside the 227 KB a Hopper block may use
-LN_MAX_HIDDEN = 8192
+LN_SMEM_MAX_HIDDEN = 8192
+LN_MAX_HIDDEN = 2 ** 30
+LN_WIDE_WARPS = 16
 
 # LayerNorm backward (csrc/layer_norm.cu): one warp per row; each warp
 # stages xhat and dy of its row and keeps running dgamma / dbeta sums, four
@@ -30,7 +38,12 @@ LN_BWD_MAX_BLOCKS = 264
 
 
 def ln_bwd_geometry(rows: int, hidden: int):
-    """``(warps per block, blocks)`` of the LayerNorm backward launch."""
+    """``(warps per block, blocks)`` of the LayerNorm backward launch. A
+    row wider than ``LN_SMEM_MAX_HIDDEN`` takes a whole block of
+    ``LN_WIDE_WARPS`` warps, whose running dgamma / dbeta sums live in its
+    row of the partial buffer instead of shared memory."""
+    if hidden > LN_SMEM_MAX_HIDDEN:
+        return LN_WIDE_WARPS, max(1, min(LN_BWD_MAX_BLOCKS, rows))
     warps = max(1, min(LN_BWD_MAX_WARPS, LN_BWD_SMEM_BYTES // (16 * hidden)))
     blocks = max(1, min(LN_BWD_MAX_BLOCKS, -(-rows // warps)))
     return warps, blocks
@@ -43,8 +56,59 @@ def ln_bwd_geometry(rows: int, hidden: int):
 FA_BLOCK_Q = 64
 FA_BLOCK_K = 64
 FA_HEAD_DIM = 64
-# grid.y carries batch * heads
-FA_MAX_BATCH_HEADS = 65535
+# grid.y and grid.z together carry batch * heads: a grid dimension above x
+# holds at most FA_GRID_DIM_MAX blocks
+FA_GRID_DIM_MAX = 65535
+
+
+def fa_batch_heads_grid(bh: int):
+    """``(grid.y, grid.z)`` over which the flash kernels spread ``bh =
+    batch * heads`` (bh >= 1): flat index ``z * grid.y + y``; blocks at or
+    past ``bh`` in the last z-slice return at once."""
+    gy = min(bh, FA_GRID_DIM_MAX)
+    gz = -(-bh // gy)
+    if gz > FA_GRID_DIM_MAX:
+        raise ValueError(f"batch*heads={bh} exceeds the kernels' grid "
+                         f"({FA_GRID_DIM_MAX} x {FA_GRID_DIM_MAX})")
+    return gy, gz
+
+
+# GroupNorm (csrc/group_norm.cu); the kernels take any hw. One-pass: one
+# block per (group, sample) stages the group's hw x (c / groups) values as
+# fp32 in dynamic shared memory when they fit in GN_ONE_PASS_SMEM_BYTES: the
+# 227 KB a Hopper block may use, less 1 KB for the block's static reduction
+# scratch. Two-pass: one block per (hw tile, sample), a tile of at most
+# GN_TILE_ELEMS pixels x channels unless the caller names its hw_block.
+GN_ONE_PASS_SMEM_BYTES = 227 * 1024 - 1024
+GN_TILE_ELEMS = 32768
+
+
+def gn_one_pass_ok(hw: int, c: int, g: int) -> bool:
+    """One (sample, group) slab, ``hw * (c / g)`` fp32 values, fits the
+    one-pass block's shared memory. ``algo="auto"`` then takes the one-pass
+    kernel, which stages the slab there: GN(32, 320) at 64 x 64 (160 KB)
+    does, GN(32, 960) at 64 x 64 (480 KB) goes to the two-pass pair. An
+    explicit one-pass over the gate reads x from device memory in each of
+    its passes."""
+    return hw * (c // g) * 4 <= GN_ONE_PASS_SMEM_BYTES
+
+
+def gn_hw_block(hw: int, c: int, hw_block=None) -> int:
+    """The two-pass HW tile. An explicit ``hw_block`` is validated as the
+    JAX package validates it (a positive multiple of 8 that divides hw,
+    else ``ValueError``) and honoured; otherwise the largest divisor of hw
+    with ``tile * c <= GN_TILE_ELEMS`` (at least 1)."""
+    if hw_block is not None:
+        if not (isinstance(hw_block, int) and hw_block >= 8
+                and hw_block % 8 == 0 and hw % hw_block == 0):
+            raise ValueError(
+                f"group_norm hw_block={hw_block!r} invalid for hw={hw}: "
+                f"must be a positive multiple of 8 that divides hw")
+        return hw_block
+    blk = max(1, min(hw, GN_TILE_ELEMS // c))
+    while hw % blk:  # ends at 1 at the latest
+        blk -= 1
+    return blk
 
 
 def pow2_ceil(n: int) -> int:

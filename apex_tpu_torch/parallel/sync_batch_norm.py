@@ -29,7 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from apex_tpu_torch.utils.device import DeviceLike
+from apex_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _f32 = torch.float32
 
@@ -94,7 +94,8 @@ class SyncBatchNorm(nn.Module):
     ones / zeros) and the running statistics as buffers ``mean`` / ``var``
     (the flax ``batch_stats``). ``forward(x, use_running_average)``
     normalises with the running statistics when asked, else with the
-    batch's and moves the running ones (``track_running_stats``)."""
+    batch's and moves the running ones (``track_running_stats``). Built on
+    ``device`` (default ``cuda``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
@@ -110,7 +111,7 @@ class SyncBatchNorm(nn.Module):
         self.track_running_stats = track_running_stats
         self.channel_axis = channel_axis
         self.fuse_relu = fuse_relu
-        kw = dict(dtype=_f32, device=device)
+        kw = dict(dtype=_f32, device=resolve_device(device))
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features, **kw))
             self.bias = nn.Parameter(torch.zeros(num_features, **kw))

@@ -19,7 +19,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    time the card could take (bytes at 3.35 TB/s, operations at
    989 TFLOP/s bf16 or 67 TFLOP/s fp32). Kernels: LayerNorm forward and
    backward (LayerNorm at GPT-2's shapes; RMSNorm with and without gamma
-   and LayerNorm without gamma at BERT-large's 4096 x 1024),
+   and LayerNorm without gamma at BERT-large's 4096 x 1024; LayerNorm and
+   RMSNorm at 64 x 12288, the form for rows wider than 8192),
    flash-attention forward, its backward's dq and dk / dv kernels (one
    wrapper call launches both; each gets its own device time and bound,
    and the plain and library times are the whole backward's) at GPT-2's
@@ -35,7 +36,17 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    each held to the plain version's bits, two runs identical, an overflow
    step that changes no bit, with the library call beside it where one
    computes the same function (``torch._fused_sgd_``,
-   ``torch._fused_adamw_`` plus a bf16 cast, ``torch._fused_adagrad_``).
+   ``torch._fused_adamw_`` plus a bf16 cast, ``torch._fused_adagrad_``);
+   and the NHWC GroupNorm kernels (32 groups): one-pass at Stable
+   Diffusion's 8 x 64 x 64 x 320 (bf16, SiLU), stats + apply at 8 x 64 x
+   64 x 960 and the VAE decoder's 1 x 512 x 512 x 128, both algorithms at
+   the JAX package's AOT shape 8 x 32 x 32 x 256 in fp32 and bf16, the
+   one-pass form for a slab over its gate, ragged forms (no affine, gamma
+   only, no SiLU, a given tile), 75 x 75 latents (hw not a multiple of
+   8) on both routes and a group of mean 1000 and std 0.01
+   (finite, within 1e-4 of float64), each against its plain version, two
+   runs bit-identical, with ``F.group_norm`` (+ ``F.silu``) on the NCHW
+   view as the library yardstick.
 3. ``forward``: GPT-2 small in bf16, batch 4 x 1024 tokens, through
    ``GPT2``: exactly 25 LayerNorm and 12 flash-attention launches, logits
    held against the same weights in fp32 on the CPU (plain versions) and
@@ -94,13 +105,28 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    beside two CPU runs that differ only in their thread count: held in
    float64, and reported in fp32 (where this network at initialisation
    amplifies summation order beyond any fp32 gate).
+9. ``unet``: a stack of Stable Diffusion v1.5 UNet ResNet blocks
+   (:func:`build_unet`: 320, 640, 1280, 1280 channels, 32 groups, and
+   ``up_blocks.3.resnets.0``'s 960 -> 320) on one fixed batch of 8 random
+   64 x 64 x 320 latents (bf16 NHWC, fp32 parameters), the MSE of two
+   outputs against fixed targets through ``DynamicGradScaler`` and flat
+   ``FusedAdam`` (lr 1e-4): 5 steps, every loss finite and the fifth below
+   the first; per step exactly 9 ``gn_one_pass``, 1 ``gn_stats``, 1
+   ``gn_apply`` and 1 ``fused_adam`` launches (the GroupNorm backward is
+   tensor ops); step ms, images/s, one more step's device time by kind,
+   its count of device kernels and idle share, each GroupNorm kernel's
+   device ms, peak memory. Then 20 more steps for the spread of step
+   times, each with the host's time to issue it (no sync inside a step:
+   the count of synchronising calls is reported) and its thread's CPU
+   time, to set the host beside the device's busy time. Then one
+   step's fp32 gradients at batch 1, card vs CPU per tensor (relative L2
+   1e-3), beside two CPU runs that differ only in their thread count.
 
 Then a ``{"kernels": [...]}`` line (launches counted over the main path:
 the forward of phase 3, the serve run of phase 4, the 5 train steps of
-phase 6, the 5 BERT steps of phase 7 and the optimizer steps of phase 8,
-each with the counts zeroed just before it), the
-``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``. Any failed check raises and the script
+phase 6, the 5 BERT steps of phase 7, the optimizer steps of phase 8 and
+the 5 UNet steps of phase 9, each with the counts zeroed just before it),
+the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without that last line; without CUDA, or away from the
 checkout, it exits 2 at once.
 """
@@ -114,6 +140,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -152,6 +179,17 @@ RESNET_MOMENTUM, RESNET_WD = 0.9, 1e-4
 RESNET_SGD_STEPS = 5
 RESNET_OTHER_STEPS = 3   # master-weight FusedAdam, FusedNovoGrad, Adagrad
 RESNET_GRAD_REL_L2 = 1e-3  # float64 card vs CPU gradients, per tensor
+# GroupNorm kernels vs their plain versions: y (atol, rtol) — fp32 allows
+# summation order, bf16 one ulp; mean absolute, rstd relative
+GN_TOL = {"fp32": (1e-5, 1e-5), "bf16": (1e-5, 2 ** -7)}
+GN_MEAN_ATOL, GN_RSTD_RTOL = 1e-5, 1e-4
+GN_ILL_ATOL = 1e-4       # mean 1000 / std 0.01 group vs float64
+GN_GROUPS = 32           # Stable Diffusion v1.5 UNet's norm_num_groups
+UNET_BATCH = 8           # the JAX package's AOT GroupNorm batch
+UNET_STEPS = 5
+UNET_TIMED_STEPS = 20    # more steps: the spread, the host's issue time
+UNET_LR = 1e-4
+UNET_GRAD_REL_L2 = 1e-3  # fp32 card vs CPU gradients, per tensor
 
 
 def emit(phase: str, **fields) -> None:
@@ -179,11 +217,12 @@ def image_loss(logits, labels):
     return -(F.log_softmax(logits, dim=-1) * onehot).sum(dim=-1).mean()
 
 
-def resnet_trainer(model, make_opt, device):
-    """A ResNet training loop over a flat fused optimizer: ``(opt, named,
+def scaled_trainer(model, make_opt, device, loss_fn=None):
+    """A training loop over a flat fused optimizer: ``(opt, named,
     step)``. The model's parameters are rebound to their views of the
-    optimizer's flat buffer, so the model trains in place. ``step(images,
-    labels, poison=False)`` runs the forward and the loss through the
+    optimizer's flat buffer, so the model trains in place. ``step(*batch,
+    poison=False)`` runs ``loss_fn(model, *batch)`` (by default the
+    imagenet loss of ``model(images)`` against ``labels``) through the
     port's ``DynamicGradScaler``, the backward of the scaled loss, the
     overflow check of the gradients and one optimizer step with
     ``inv_scale`` and ``found_inf`` as device tensors; ``poison`` writes an
@@ -200,10 +239,14 @@ def resnet_trainer(model, make_opt, device):
     scaler = DynamicGradScaler()
     state = {"scaler": scaler.init(device)}
 
-    def step(images, labels, poison=False):
+    if loss_fn is None:
+        def loss_fn(model, images, labels):
+            return image_loss(model(images), labels)
+
+    def step(*batch, poison=False):
         for t in named.values():
             t.grad = None
-        loss = image_loss(model(images), labels)
+        loss = loss_fn(model, *batch)
         scaler.scale(loss, state["scaler"]).backward()
         grads = {n: t.grad for n, t in named.items()}
         if poison:
@@ -249,6 +292,77 @@ def resnet_grads(params, images, labels, device, dtype):
             for n, p in model.named_parameters()}, stats
 
 
+def build_unet(device, seed=0):
+    """The ``unet`` phase's stack of Stable Diffusion v1.5 UNet ResNet
+    blocks (without the time embedding) at its GroupNorm shapes, on
+    ``device``, from ``seed``: block A (320 -> 320) at the input's size, a
+    stride-2 conv3x3, B (320 -> 640), down, C (640 -> 1280), down, D (1280
+    -> 1280); E (960 -> 320, ``up_blocks.3.resnets.0``) takes A's output
+    beside a nearest x2 upsample of B's. A block is ``GroupNorm(32, cin,
+    act="silu")`` -> conv3x3 -> ``GroupNorm(32, cout, act="silu")`` ->
+    conv3x3, plus the input (through a 1x1 conv where the width changes).
+    ``forward(x)`` returns E's and D's outputs. Conv weights are drawn
+    normal with variance 1 / fan_in from a CPU generator (the same numbers
+    on every device), GroupNorm's ones and zeros."""
+    import torch
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    from apex_tpu_torch.models.resnet import Conv
+
+    class Block(torch.nn.Module):
+        def __init__(self, cin, cout):
+            super().__init__()
+            self.norm1 = GroupNorm(GN_GROUPS, cin, act="silu", device=device)
+            self.conv1 = Conv(cin, cout, 3, padding=1, device=device)
+            self.norm2 = GroupNorm(GN_GROUPS, cout, act="silu",
+                                   device=device)
+            self.conv2 = Conv(cout, cout, 3, padding=1, device=device)
+            self.skip = (Conv(cin, cout, 1, device=device) if cin != cout
+                         else None)
+
+        def forward(self, x):
+            h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+            return h + (x if self.skip is None else self.skip(x))
+
+    class Stack(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.A, self.down_a = Block(320, 320), Conv(320, 320, 3, 2, 1,
+                                                        device=device)
+            self.B, self.down_b = Block(320, 640), Conv(640, 640, 3, 2, 1,
+                                                        device=device)
+            self.C, self.down_c = Block(640, 1280), Conv(1280, 1280, 3, 2,
+                                                         1, device=device)
+            self.D = Block(1280, 1280)
+            self.E = Block(960, 320)
+
+        def forward(self, x):
+            a = self.A(x)
+            b = self.B(self.down_a(a))
+            d = self.D(self.down_c(self.C(self.down_b(b))))
+            up = b.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+            return self.E(torch.cat([a, up], dim=-1)), d
+
+    model = Stack()
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, t in model.state_dict().items():
+        if t.dim() == 4:
+            state[name] = torch.randn(t.shape, generator=gen) \
+                / math.sqrt(t[0].numel())
+        else:
+            state[name] = (torch.ones if name.endswith("weight")
+                           else torch.zeros)(t.shape)
+    model.load_state_dict(state)
+    return model
+
+
+def unet_loss(model, x, target_e, target_d):
+    """MSE of E's output against its target plus MSE of D's, in fp32."""
+    e, d = model(x)
+    return ((e.float() - target_e) ** 2).mean() \
+        + ((d.float() - target_d) ** 2).mean()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -262,6 +376,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from apex_tpu_torch.contrib.group_norm import _gn_plain
     from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy_loss
     from apex_tpu_torch.models.bert import Bert, BertConfig, mlm_loss
     from apex_tpu_torch.models.convert import (init_bert_params,
@@ -282,11 +397,15 @@ def main() -> int:
         row_segment_ids, row_segments)
     from apex_tpu_torch.ops.fused_sgd_kernel import (fused_sgd_flat,
                                                      fused_sgd_flat_plain)
+    from apex_tpu_torch.ops.group_norm_kernel import (
+        gn_apply, gn_apply_plain, gn_moments, gn_one_pass, gn_one_pass_plain,
+        gn_shift, gn_stats, gn_stats_plain)
     from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                       ln_fwd, ln_fwd_plain)
     from apex_tpu_torch.optimizers import (FusedAdagrad, FusedAdam,
                                            FusedLAMB, FusedNovoGrad,
                                            FusedSGD)
+    from apex_tpu_torch.ops.tiling import gn_hw_block, gn_one_pass_ok
     from apex_tpu_torch.optimizers.fused_adam import FLAT_PAD
     from apex_tpu_torch.serve import cli
     from apex_tpu_torch.serve.engine import Engine, EngineConfig
@@ -329,24 +448,28 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    def device_profile(fn, tries=3):
+    def device_profile(fn, tries=3, counts=None):
         """Run ``fn()`` under torch.profiler; returns ``{kernel name: us}``,
-        the summed durations of the device kernels it ran. A pass in which
-        the profiler recorded no device kernel at all (seen once in five
-        runs on that machine) is run again, up to ``tries`` passes."""
+        the summed durations of the device kernels it ran (and fills
+        ``counts``, if given, with ``{kernel name: runs}``). A pass in
+        which the profiler recorded no device kernel at all (seen once in
+        five runs on that machine) is run again, up to ``tries`` passes."""
         for _ in range(tries):
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            out = {}
+            out, runs = {}, {}
             for ev in prof.events():
                 if ev.device_type == torch.autograd.DeviceType.CUDA:
                     out[ev.name] = (out.get(ev.name, 0.0)
                                     + ev.time_range.elapsed_us())
+                    runs[ev.name] = runs.get(ev.name, 0) + 1
             if out:
                 break
+        if counts is not None:
+            counts.update(runs)
         return out
 
     def device_kernels(fn, sets, reps):
@@ -380,6 +503,9 @@ def main() -> int:
                 "sgd" if "fused_sgd_kernel" in name else
                 "novograd" if "fused_novograd_kernel" in name else
                 "adagrad" if "fused_adagrad_kernel" in name else
+                "group_norm" if any(k in name for k in (
+                    "gn_one_pass_kernel", "gn_stats_kernel",
+                    "gn_apply_kernel")) else
                 "conv" if any(s in low for s in (
                     "fprop", "dgrad", "wgrad", "conv", "implicit_gemm",
                     "cudnn")) else
@@ -391,8 +517,8 @@ def main() -> int:
         """Device ms of a profile, summed by kind of kernel."""
         out = {"flash": 0.0, "flash_bwd": 0.0, "layer_norm": 0.0,
                "adam": 0.0, "adam_master": 0.0, "lamb": 0.0, "sgd": 0.0,
-               "novograd": 0.0, "adagrad": 0.0, "conv": 0.0, "matmul": 0.0,
-               "other": 0.0}
+               "novograd": 0.0, "adagrad": 0.0, "group_norm": 0.0,
+               "conv": 0.0, "matmul": 0.0, "other": 0.0}
         for name, us in kern.items():
             out[kind_of(name)] += us / 1e3
         out["total"] = sum(out.values())
@@ -581,6 +707,9 @@ def main() -> int:
                     main="ln_fwd_rms" if dt == "bf16" else None)
             ln_case(4096, 1024, dt, rms=True, affine=False)
             ln_case(4096, 1024, dt, affine=False)
+            # rows wider than the shared-memory form: GPT-3's 12288
+            ln_case(64, 12288, dt)
+            ln_case(64, 12288, dt, rms=True)
             for causal in (True, False):
                 fa_case(4, 12, 1024, 1024, causal, dt,
                         main="fa_fwd" if dt == "bf16" and causal else None)
@@ -918,6 +1047,8 @@ def main() -> int:
                     main="ln_bwd_rms" if bf else None)
         ln_bwd_case(4096, 1024, dt, rms=True, affine=False)
         ln_bwd_case(4096, 1024, dt, affine=False)
+        ln_bwd_case(64, 12288, dt)
+        ln_bwd_case(64, 12288, dt, rms=True)
         fa_bwd_case(4, 12, 1024, 1024, True, dt, main="" if bf else None)
         fa_bwd_case(4, 12, 1000, 1000, True, dt)
         fa_bwd_case(2, 3, 200, 333, False, dt)
@@ -1146,6 +1277,204 @@ def main() -> int:
     adagrad_case(rn, w_mode=True)
     adagrad_case(1001)
     torch.cuda.empty_cache()
+
+    # the GroupNorm kernels (NHWC, 32 groups), each against its plain
+    # version on the same card inputs, two runs bit-identical; the library
+    # yardstick is F.group_norm on the NCHW view of the same memory (plus
+    # F.silu), whose memory format is reported
+    def gn_inputs(n, h, w, c, dt, affine, ill=False):
+        x = (torch.randn(n, h, w, c, device=dev, generator=gen) * 2
+             + 0.5)
+        if ill:   # one group: mean 1000, std 0.01
+            cpg = c // GN_GROUPS
+            x[0, :, :, :cpg] = 1000 + 0.01 * torch.randn(
+                h, w, cpg, device=dev, generator=gen)
+        wt = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+        bt = 0.1 * torch.randn(c, device=dev, generator=gen)
+        return (x.to(tdt[dt]), wt if affine and "w" in affine else None,
+                bt if affine and "b" in affine else None)
+
+    def gn_y_err(name, got, want, dt):
+        """max |y - y_plain|, required within GN_TOL."""
+        atol, rtol = GN_TOL[dt]
+        ok, err = close(got, want, atol, rtol)
+        require(ok, f"{name}: y err {err} (atol {atol} rtol {rtol})")
+        return err
+
+    def gn_stats_err(name, mean, rstd, mean_p, rstd_p):
+        """max of |mean_d - mean_d_plain| (the mean less the group's
+        first element, as the kernels return it) and rstd's relative
+        error, each required within its tolerance (the mean's plus one
+        fp32 ulp of its value)."""
+        dm = (mean - mean_p).abs()
+        em = dm.max().item()
+        er = ((rstd - rstd_p).abs() / rstd_p.abs()).max().item()
+        ok_m = bool((dm <= GN_MEAN_ATOL + 2 ** -23 * mean_p.abs()).all())
+        require(ok_m and er <= GN_RSTD_RTOL,
+                f"{name}: mean err {em} (atol {GN_MEAN_ATOL}), rstd rel "
+                f"err {er} (rtol {GN_RSTD_RTOL})")
+        return max(em, er)
+
+    def gn_library(sets, act):
+        """F.group_norm (+ F.silu) on the NCHW views of each set, timed;
+        and the memory format of its output."""
+        def call(x, wt, bt):
+            y = F.group_norm(
+                x.permute(0, 3, 1, 2), GN_GROUPS,
+                None if wt is None else wt.to(x.dtype),
+                None if bt is None else bt.to(x.dtype), 1e-5)
+            return F.silu(y) if act == "silu" else y
+
+        out = call(*sets[0])
+        fmt = ("channels_last" if out.is_contiguous(
+            memory_format=torch.channels_last) else "contiguous")
+        return timed(call, sets, 20), fmt
+
+    def gn_case(n, h, w, c, dt, act="silu", affine="wb", algo="auto",
+                hw_block=None, main=False, ill=False):
+        """One GroupNorm shape through the route ``algo`` picks: the
+        one-pass kernel, or the stats and apply kernels, each on the same
+        inputs as its plain version (the stats kernel's partial sums give
+        the mean / rstd compared; the apply kernel runs on the plain
+        statistics). With ``ill`` one group has mean 1000 and std 0.01 and
+        the kernels' y is also held against float64."""
+        hw, es = h * w, torch.tensor([], dtype=tdt[dt]).element_size()
+        one = algo == "one_pass" or (
+            algo == "auto" and gn_one_pass_ok(hw, c, GN_GROUPS))
+        elems = n * hw * c
+        params = 4 * c * len(affine or "")
+        stats = n * GN_GROUPS * 4
+        sets = [gn_inputs(n, h, w, c, dt, affine, ill)
+                for _ in range(n_sets(2 * elems * es))]
+        x, wt, bt = sets[0]
+        x3 = x.reshape(n, hw, c)
+        shape = dict(n=n, h=h, w=w, c=c, groups=GN_GROUPS, dtype=dt,
+                     act=act, affine=affine, algo=algo, hw_block=hw_block,
+                     ill_conditioned=ill)
+        lib_t, lib_fmt = gn_library(sets, act)
+        tag = f"{shape}"
+        # per kernel: (max error, deterministic, bytes, ops, kernel call,
+        # plain call)
+        done = {}
+        if one:
+            kw = dict(eps=1e-5, act=act)
+            got = gn_one_pass(x3, GN_GROUPS, wt, bt, **kw)
+            want = gn_one_pass_plain(x3, GN_GROUPS, wt, bt, **kw)
+            again = gn_one_pass(x3, GN_GROUPS, wt, bt, **kw)
+            torch.cuda.synchronize()
+            err = max(gn_y_err("gn_one_pass " + tag, got[0], want[0], dt),
+                      gn_stats_err("gn_one_pass " + tag, *got[1:],
+                                   *want[1:]))
+            y_ill = got[0]
+            done["gn_one_pass"] = (
+                err, all(torch.equal(a, b) for a, b in zip(got, again)),
+                2 * elems * es + params + 2 * stats, 10 * elems,
+                lambda x, wt, bt: gn_one_pass(x.reshape(n, hw, c),
+                                              GN_GROUPS, wt, bt, **kw),
+                lambda x, wt, bt: gn_one_pass_plain(x.reshape(n, hw, c),
+                                                    GN_GROUPS, wt, bt, **kw))
+        else:
+            blk = gn_hw_block(hw, c, hw_block)
+            shape["tile"] = blk
+            shift = gn_shift(x3, GN_GROUPS)
+            cnt = hw * (c // GN_GROUPS)
+            ps, pq = gn_stats(x3, shift, blk)
+            again_s = gn_stats(x3, shift, blk)
+            ps_p, pq_p = gn_stats_plain(x3, shift, blk)
+            md, rstd = gn_moments(ps, pq, cnt, 1e-5)
+            md_p, rstd_p = gn_moments(ps_p, pq_p, cnt, 1e-5)
+            y = gn_apply(x3, shift, md_p, rstd_p, wt, bt, act=act,
+                         hw_block=blk)
+            again_a = gn_apply(x3, shift, md_p, rstd_p, wt, bt, act=act,
+                               hw_block=blk)
+            y_p = gn_apply_plain(x3, shift, md_p, rstd_p, wt, bt, act=act)
+            y_ill = gn_apply(x3, shift, md, rstd, wt, bt, act=act,
+                             hw_block=blk) if ill else None
+            torch.cuda.synchronize()
+            done["gn_stats"] = (
+                gn_stats_err("gn_stats " + tag, md, rstd, md_p, rstd_p),
+                torch.equal(ps, again_s[0]) and torch.equal(pq, again_s[1]),
+                elems * es + stats + 2 * n * (hw // blk) * GN_GROUPS * 4,
+                4 * elems,
+                lambda x, wt, bt: gn_stats(x.reshape(n, hw, c), shift, blk),
+                lambda x, wt, bt: gn_stats_plain(x.reshape(n, hw, c), shift,
+                                                 blk))
+            done["gn_apply"] = (
+                gn_y_err("gn_apply " + tag, y, y_p, dt),
+                torch.equal(y, again_a), 2 * elems * es + params + 3 * stats,
+                8 * elems,
+                lambda x, wt, bt: gn_apply(
+                    x.reshape(n, hw, c), shift, md_p, rstd_p, wt, bt,
+                    act=act, hw_block=blk),
+                lambda x, wt, bt: gn_apply_plain(
+                    x.reshape(n, hw, c), shift, md_p, rstd_p, wt, bt,
+                    act=act))
+        ill_err = None
+        if ill:
+            # held against float64; the centred plain reference (the mean,
+            # then the variance, as _gn_plain) has its own error here
+            x64 = x.double().reshape(n, hw, GN_GROUPS, c // GN_GROUPS)
+            m64 = x64.mean(dim=(1, 3), keepdim=True)
+            v64 = ((x64 - m64) ** 2).mean(dim=(1, 3), keepdim=True)
+            y64 = ((x64 - m64) / torch.sqrt(v64 + 1e-5)).reshape(x.shape)
+            ill_err = (y_ill.reshape(x.shape).double() - y64).abs().max() \
+                .item()
+            shape["plain_reference_err_vs_float64"] = (
+                _gn_plain(x, GN_GROUPS, None, None, 1e-5, "").double()
+                - y64).abs().max().item()
+            require(bool(torch.isfinite(y_ill).all())
+                    and ill_err <= GN_ILL_ATOL,
+                    f"GroupNorm ill-conditioned {tag}: err vs float64 "
+                    f"{ill_err}")
+        for name, (err, det, nbytes, ops, run, plain) in done.items():
+            require(det, f"{name} {tag}: two runs gave other bits")
+            kt = timed(run, sets, 20)
+            pt = timed(plain, sets, 5)
+            bms, by = bound(nbytes, ops, "fp32")
+            rec = dict(kernel=name, max_abs_err=err, ill_err=ill_err,
+                       tol={"y": GN_TOL[dt], "mean_atol": GN_MEAN_ATOL,
+                            "rstd_rtol": GN_RSTD_RTOL},
+                       deterministic=det, ms=kt["ms"], call_ms=kt["call_ms"],
+                       plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
+                       library_ms=lib_t["ms"],
+                       library_call_ms=lib_t["call_ms"],
+                       library="F.group_norm" + (" + F.silu" if act else "")
+                       + ", the whole GroupNorm",
+                       library_memory_format=lib_fmt, bound_ms=bms,
+                       bound_by=by, bytes=nbytes, **shape)
+            emit("kernel", **rec)
+            if main:
+                summary[name] = rec
+        del sets, done
+        torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        # Stable Diffusion v1.5's UNet: 320 @ 64 x 64 (one-pass) and
+        # up_blocks.3.resnets.0's 960 @ 64 x 64 (two-pass), batch 8
+        gn_case(8, 64, 64, 320, "bf16", main=True)
+        gn_case(8, 64, 64, 960, "bf16", main=True)
+        # the JAX package's AOT shape, both algorithms explicitly
+        for dt in ("fp32", "bf16"):
+            for algo in ("one_pass", "two_pass"):
+                gn_case(8, 32, 32, 256, dt, algo=algo)
+        # the SD VAE decoder's last GroupNorm (two-pass)
+        gn_case(1, 512, 512, 128, "bf16")
+        # a slab over the gate, forced one-pass: the form that reads x
+        # from device memory in each pass
+        gn_case(8, 64, 64, 960, "bf16", algo="one_pass")
+        # ragged forms: no affine, gamma only, no SiLU, a given tile
+        gn_case(2, 16, 16, 64, "fp32", affine=None)
+        gn_case(2, 16, 16, 64, "bf16", affine="w", act="")
+        gn_case(2, 16, 16, 64, "fp32", act="", algo="two_pass",
+                hw_block=32)
+        # 600 x 600 images' 75 x 75 latents: hw = 5625, not a multiple of
+        # 8 (the TPU kernels' tiling); 320 channels one-pass (225 KB
+        # slab), 960 two-pass (a tile of 25 pixels)
+        gn_case(2, 75, 75, 320, "bf16")
+        gn_case(2, 75, 75, 960, "bf16")
+        for algo in ("one_pass", "two_pass"):
+            gn_case(2, 32, 32, 256, "fp32", affine=None, act="", algo=algo,
+                    ill=True)
 
     # ------------------------------------------------------ 3. forward
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
@@ -1562,7 +1891,7 @@ def main() -> int:
         if bf16_params:
             for p in model.parameters():
                 p.data = p.data.bfloat16()
-        opt, named, step = resnet_trainer(model, make_opt, dev)
+        opt, named, step = scaled_trainer(model, make_opt, dev)
         losses, step_s = [], []
         torch.cuda.synchronize()
         _build.reset_launches()
@@ -1694,6 +2023,138 @@ def main() -> int:
          fp32_cpu_thread_spread=rspread32, grad_check_batch=2,
          grad_check_image=[64, 64, 3], card=card)
 
+    # --------------------------------------------------------- 9. unet
+    # SD v1.5 UNet ResNet blocks at batch 8 on 64 x 64 latents: bf16 NHWC
+    # activations, fp32 parameters, the loss through DynamicGradScaler and
+    # flat FusedAdam; per step 9 one-pass GroupNorms and one two-pass (E's
+    # 960 channels), all with SiLU
+    ugen = torch.Generator().manual_seed(0)
+    ux = torch.randn(UNET_BATCH, 64, 64, 320, generator=ugen) \
+        .to(dev, torch.bfloat16)
+    ute = torch.randn(UNET_BATCH, 64, 64, 320, generator=ugen).to(dev)
+    utd = torch.randn(UNET_BATCH, 8, 8, 1280, generator=ugen).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    umodel = build_unet(dev)
+    uopt, unamed, ustep = scaled_trainer(
+        umodel, lambda named: FusedAdam(named, lr=UNET_LR, use_flat=True),
+        dev, unet_loss)
+    uparams_n = sum(t.numel() for t in unamed.values())
+    ulosses, ustep_s = [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for _ in range(UNET_STEPS):
+        t0 = time.perf_counter()
+        ulosses.append(float(ustep(ux, ute, utd)))   # the host sync
+        torch.cuda.synchronize()
+        ustep_s.append(time.perf_counter() - t0)
+    unet_launches = dict(_build.launches)
+    upeak = torch.cuda.max_memory_allocated()
+    uper_step = {"gn_one_pass": 9, "gn_stats": 1, "gn_apply": 1,
+                 "fused_adam": 1}
+    uexpect = {k: v * UNET_STEPS for k, v in uper_step.items()}
+    require(unet_launches == uexpect,
+            f"unet launches {unet_launches}, expected {uexpect}")
+    require(all(math.isfinite(x) for x in ulosses)
+            and ulosses[-1] < ulosses[0], f"unet losses {ulosses}")
+    for name, n in unet_launches.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    usteady = sorted(ustep_s[1:])[len(ustep_s[1:]) // 2] * 1e3
+    uruns = {}
+    ukern = device_profile(lambda: ustep(ux, ute, utd), counts=uruns)
+    ubusy = by_kind(ukern)
+    utop = top_kernels(ukern, lambda k: True)
+    gn_dev = {k: sum(x / 1e3 for n, x in ukern.items()
+                     if k + "_kernel" in n)
+              for k in ("gn_one_pass", "gn_stats", "gn_apply")}
+    # the spread of step times, and the host beside the device: each
+    # step's wall ms to its loss on the host, the ms the host took to
+    # issue it (the step holds no sync: the synchronising calls in it are
+    # counted) and the host thread's CPU ms over that issue
+    uwall, uissue, uhost_cpu, usyncs = [], [], [], 0
+    for _ in range(UNET_TIMED_STEPS):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0, c0 = time.perf_counter(), time.thread_time()
+                loss = ustep(ux, ute, utd)
+                t1, c1 = time.perf_counter(), time.thread_time()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        usyncs += sum("synchroniz" in str(w.message) for w in caught)
+        float(loss)
+        t2 = time.perf_counter()
+        uwall.append((t2 - t0) * 1e3)
+        uissue.append((t1 - t0) * 1e3)
+        uhost_cpu.append((c1 - c0) * 1e3)
+
+    def spread(ms):
+        o = sorted(ms)
+        return {"min": o[0], "median": o[len(o) // 2],
+                "p90": o[(9 * len(o)) // 10], "max": o[-1]}
+
+    uscale = ustep.state["scaler"].scale.item()
+    del umodel, uopt, unamed, ustep, ux, ute, utd
+    torch.cuda.empty_cache()
+
+    # fp32 cross-check: one step's gradients of the same stack at batch 1
+    # (E still two-pass), card vs CPU per tensor, beside two CPU runs that
+    # differ only in their thread count
+    cgen = torch.Generator().manual_seed(1)
+    cbatch = (torch.randn(1, 64, 64, 320, generator=cgen),
+              torch.randn(1, 64, 64, 320, generator=cgen),
+              torch.randn(1, 8, 8, 1280, generator=cgen))
+
+    def unet_grads(where):
+        m = build_unet(where)
+        unet_loss(m, *(t.to(where) for t in cbatch)).backward()
+        return {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+
+    ucpu = unet_grads("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ucpu1 = unet_grads("cpu")
+    finally:
+        torch.set_num_threads(threads)
+    _build.reset_launches()
+    ucard = unet_grads(dev)
+    ucheck_launches = dict(_build.launches)
+    uworst, uworst_name = worst_rel(ucard, ucpu)
+    uspread, uspread_name = worst_rel(ucpu1, ucpu)
+    require(uworst <= UNET_GRAD_REL_L2
+            and ucheck_launches.get("gn_stats", 0) == 1,
+            f"fp32 UNet card vs CPU gradients: {uworst_name} relative L2 "
+            f"{uworst} (CPU thread spread {uspread}), launches "
+            f"{ucheck_launches}")
+    del ucpu, ucpu1, ucard
+    emit("unet", config="SD v1.5 UNet ResNet blocks (320/640/1280/1280, "
+         "32 groups, 64x64 latents)", params="fp32", compute="bf16",
+         layout="NHWC", parameters=uparams_n, batch=UNET_BATCH,
+         optimizer="FusedAdam(flat)", lr=UNET_LR, steps=UNET_STEPS,
+         losses=ulosses, launches=unet_launches,
+         launches_per_step=uper_step, step_ms=[x * 1e3 for x in ustep_s],
+         steady_step_ms=usteady,
+         images_per_s=UNET_BATCH / usteady * 1e3,
+         step_device_busy_ms=ubusy, top_kernels_ms=utop,
+         idle_share=1 - ubusy["total"] / usteady,
+         device_kernels_per_step=sum(uruns.values()),
+         timed_steps=UNET_TIMED_STEPS, timed_step_ms=uwall,
+         timed_step_ms_spread=spread(uwall),
+         host_issue_ms_spread=spread(uissue),
+         host_cpu_ms_spread=spread(uhost_cpu), host_syncs_in_steps=usyncs,
+         timed_idle_share_median=1 - ubusy["total"] / spread(uwall)["median"],
+         group_norm_device_ms=gn_dev, max_memory_allocated=upeak,
+         loss_scale=uscale, fp32_grad_worst_rel_l2=uworst,
+         fp32_grad_worst_param=uworst_name,
+         fp32_grad_rel_l2_tol=UNET_GRAD_REL_L2,
+         fp32_cpu_thread_spread=uspread,
+         fp32_cpu_thread_spread_param=uspread_name,
+         fp32_check_launches=ucheck_launches, grad_check_batch=1,
+         card=card)
+
     replaces = {
         "ln_fwd": ("apex_tpu_torch/csrc/layer_norm.cu",
                    "apex_tpu/ops/pallas/layer_norm_kernel.py:102"),
@@ -1719,6 +2180,12 @@ def main() -> int:
                            "apex_tpu/ops/pallas/fused_opt_kernels.py:240"),
         "fused_adagrad": ("apex_tpu_torch/csrc/fused_adagrad.cu",
                           "apex_tpu/ops/pallas/fused_opt_kernels.py:338"),
+        "gn_one_pass": ("apex_tpu_torch/csrc/group_norm.cu",
+                        "apex_tpu/ops/pallas/group_norm_kernel.py:202"),
+        "gn_stats": ("apex_tpu_torch/csrc/group_norm.cu",
+                     "apex_tpu/ops/pallas/group_norm_kernel.py:128"),
+        "gn_apply": ("apex_tpu_torch/csrc/group_norm.cu",
+                     "apex_tpu/ops/pallas/group_norm_kernel.py:151"),
     }
     kernels = []
     for name, (src, tpu) in replaces.items():
@@ -1733,13 +2200,15 @@ def main() -> int:
             "launches_train": train_launches.get(name, 0),
             "launches_bert": bert_launches.get(name, 0),
             "launches_resnet": resnet_launches.get(name, 0),
+            "launches_unet": unet_launches.get(name, 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"],
-            "shape": {k: rec[k] for k in ("form", "rows", "hidden", "b", "h",
-                                          "sq", "sk", "causal", "mask", "n",
-                                          "tensors", "dtype") if k in rec}})
+            "shape": {k: rec[k] for k in (
+                "form", "rows", "hidden", "b", "h", "sq", "sk", "causal",
+                "mask", "n", "tensors", "w", "c", "groups", "act", "algo",
+                "tile", "dtype") if k in rec}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,11 @@ the flash ones, and exact zeros on fully masked rows. The determinism
 tests ask for identical bits from two runs. The flat SGD, NovoGrad and
 Adagrad kernels, the bf16 form of fused Adam and its master-weight form
 repeat their plain versions' operations in order and are held to
-identical bits (bf16 stores round to nearest even on both sides).
+identical bits (bf16 stores round to nearest even on both sides). The
+GroupNorm kernels: y fp32 (1e-5, 1e-5), bf16 (1e-5 absolute, 2^-7
+relative: one bf16 ulp), mean 1e-5, rstd 1e-4 relative, two runs
+identical. The wide LayerNorm forms take the LayerNorm tolerances; the
+flash kernels over a batch * heads above 65535 the flash ones.
 """
 
 import pytest
@@ -38,8 +42,12 @@ from apex_tpu_torch.ops.fused_opt_kernels import (
     row_segment_ids, row_segments)
 from apex_tpu_torch.ops.fused_sgd_kernel import (fused_sgd_flat,
                                                  fused_sgd_flat_plain)
+from apex_tpu_torch.ops.group_norm_kernel import (
+    gn_apply, gn_apply_plain, gn_moments, gn_one_pass_plain, gn_shift,
+    gn_stats, gn_stats_plain, group_norm_nhwc_fwd)
 from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                   ln_fwd, ln_fwd_plain)
+from apex_tpu_torch.ops.tiling import gn_hw_block, gn_one_pass_ok
 from apex_tpu_torch.utils.flatten import flat_spec, flatten
 
 pytestmark = pytest.mark.cuda
@@ -233,7 +241,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         q = torch.randn(1, 1, 8, 64, device=dev, dtype=torch.float16)
         with pytest.raises(ValueError, match="dtype"):
             flash_attention_fwd(q, q, q, scale=1.0, causal=False)
-        x, g = torch.randn(2, 9000, device=dev), torch.ones(9000, device=dev)
+        x = torch.randn(2, 0, device=dev)   # rows of any width but none
+        g = torch.ones(0, device=dev)
         with pytest.raises(ValueError, match="hidden"):
             ln_fwd(x, g, g, eps=1e-5)
         x, g = torch.randn(8, 4, device=dev).t(), torch.ones(8, device=dev)
@@ -639,3 +648,298 @@ def test_resnet_step_on_the_card(dev):
         assert torch.isfinite(loss)
         assert all(torch.isfinite(t).all() for t in named.values())
         assert not torch.equal(named["fc.weight"], start["fc.weight"])
+
+
+# (n, h, w, c, dtype, act, affine, algo, hw_block): the kernel phase's
+# shapes at a small batch, and the ragged forms
+GN_CASES = [
+    (2, 64, 64, 320, torch.bfloat16, "silu", "wb", "auto", None),
+    (1, 64, 64, 960, torch.bfloat16, "silu", "wb", "auto", None),
+    (2, 32, 32, 256, torch.float32, "silu", "wb", "one_pass", None),
+    (2, 32, 32, 256, torch.float32, "silu", "wb", "two_pass", None),
+    (2, 32, 32, 256, torch.bfloat16, "", "wb", "one_pass", None),
+    (2, 32, 32, 256, torch.bfloat16, "", "wb", "two_pass", None),
+    (1, 64, 64, 960, torch.float32, "silu", "wb", "one_pass", None),
+    (2, 16, 16, 64, torch.float32, "silu", None, "auto", None),
+    (2, 16, 16, 64, torch.float32, "", "w", "two_pass", 32),
+    (2, 16, 16, 64, torch.bfloat16, "silu", "b", "one_pass", None),
+    # hw % 8 != 0, which the TPU kernels do not take
+    (2, 7, 7, 320, torch.bfloat16, "silu", "wb", "auto", None),
+    (1, 63, 63, 960, torch.bfloat16, "silu", "wb", "auto", None),
+    (2, 7, 7, 64, torch.float32, "", "wb", "two_pass", None),
+]
+
+
+def _gn_inputs(dev, n, h, w, c, dtype, affine, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(n, h, w, c, device=dev, generator=g) * 2 + 0.5) \
+        .to(dtype)
+    wt = 1 + 0.1 * torch.randn(c, device=dev, generator=g)
+    bt = 0.1 * torch.randn(c, device=dev, generator=g)
+    return (x, wt if affine and "w" in affine else None,
+            bt if affine and "b" in affine else None)
+
+
+def _gn_close(got, want, dtype):
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("case", GN_CASES)
+def test_group_norm_kernels_match_plain(dev, case):
+    """Each GroupNorm kernel the case's route launches against its plain
+    twin on the same card inputs, each kernel on its own inputs;
+    ``group_norm_nhwc_fwd`` launches exactly the kernels its route
+    names."""
+    n, h, w, c, dtype, act, affine, algo, hwb = case
+    x, wt, bt = _gn_inputs(dev, n, h, w, c, dtype, affine, sum(case[:4]))
+    groups = 32
+    x3 = x.reshape(n, h * w, c)
+    _build.reset_launches()
+    y, mean, rstd = group_norm_nhwc_fwd(x, groups, wt, bt, 1e-5, act, algo,
+                                        hwb)
+    torch.cuda.synchronize()
+    one = algo == "one_pass" or (algo == "auto"
+                                 and gn_one_pass_ok(h * w, c, groups))
+    want_launches = ({"gn_one_pass": 1} if one
+                     else {"gn_stats": 1, "gn_apply": 1})
+    assert dict(_build.launches) == want_launches
+    shift = gn_shift(x3, groups)
+    if one:
+        yp, dp, rp = gn_one_pass_plain(x3, groups, wt, bt, eps=1e-5, act=act)
+    else:
+        blk = gn_hw_block(h * w, c, hwb)
+        ps, pq = gn_stats(x3, shift, blk)
+        ps_p, pq_p = gn_stats_plain(x3, shift, blk)
+        torch.testing.assert_close(ps, ps_p, atol=1e-3, rtol=1e-5)
+        torch.testing.assert_close(pq, pq_p, atol=1e-3, rtol=1e-5)
+        dp, rp = gn_moments(ps_p, pq_p, h * w * c // groups, 1e-5)
+        yk = gn_apply(x3, shift, dp, rp, wt, bt, act=act, hw_block=blk)
+        yp = gn_apply_plain(x3, shift, dp, rp, wt, bt, act=act)
+        _gn_close(yk, yp, dtype)
+    _gn_close(y.reshape(yp.shape), yp, dtype)
+    torch.testing.assert_close(mean, shift + dp, atol=1e-5, rtol=0)
+    torch.testing.assert_close(rstd, rp, atol=0, rtol=1e-4)
+    again = group_norm_nhwc_fwd(x, groups, wt, bt, 1e-5, act, algo, hwb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((y, mean, rstd), again))
+
+
+@pytest.mark.parametrize("algo", ["one_pass", "two_pass"])
+def test_group_norm_ill_conditioned_group_is_finite(dev, algo):
+    """A group with mean 1000 and std 0.01 (fp32): the shifted statistics
+    stay finite and within 1e-4 of a float64 reference."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(2, 16, 16, 64, device=dev, generator=g)
+    x[0, :, :, :2] = 1000 + 0.01 * torch.randn(16, 16, 2, device=dev,
+                                               generator=g)
+    y, _, rstd = group_norm_nhwc_fwd(x, 32, algo=algo)
+    x64 = x.double().reshape(2, 256, 32, 2)
+    m = x64.mean(dim=(1, 3), keepdim=True)
+    v = ((x64 - m) ** 2).mean(dim=(1, 3), keepdim=True)
+    y64 = ((x64 - m) / torch.sqrt(v + 1e-5)).reshape(x.shape)
+    assert torch.isfinite(y).all() and torch.isfinite(rstd).all()
+    assert (y.double() - y64).abs().max().item() <= 1e-4
+
+
+def test_group_norm_module_on_the_card_matches_cpu(dev):
+    """``GroupNorm`` forward and backward (the torch-op backward from the
+    kernels' saved statistics) on the card against the same module on the
+    CPU, both algorithms, fp32, no TF32 in play (1e-4)."""
+    from apex_tpu_torch.contrib.group_norm import GroupNorm
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 16, 16, 64, generator=g)
+    r = torch.randn(2, 16, 16, 64, generator=g)
+    grads = {}
+    for where in ("cpu", dev):
+        m = GroupNorm(8, 64, act="silu", device=where)
+        with torch.no_grad():
+            m.weight.copy_(1 + 0.1 * torch.arange(64.0) / 64)
+            m.bias.copy_(0.01 * torch.arange(64.0))
+        xx = x.to(where).detach().requires_grad_()
+        (m(xx) * r.to(where)).sum().backward()
+        grads[str(where)] = [t.detach().cpu() for t in
+                             (xx.grad, m.weight.grad, m.bias.grad)]
+    for a, b in zip(grads["cpu"], grads[str(dev)]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("algo", ["auto", "one_pass", "two_pass"])
+def test_group_norm_odd_hw_runs_the_kernels(dev, algo):
+    """hw = 49 (not a multiple of 8) on the card: ``group_norm_nhwc``
+    launches the kernels of its route, an explicit ``algo`` included (the
+    CPU route, as JAX's, takes the plain reference there), and y and every
+    gradient equal the CPU's (fp32, 1e-4)."""
+    from apex_tpu_torch.contrib.group_norm import group_norm_nhwc
+    g = torch.Generator().manual_seed(29)
+    x = torch.randn(2, 7, 7, 64, generator=g) * 2 + 0.5
+    wt = 1 + 0.1 * torch.randn(64, generator=g)
+    bt = 0.1 * torch.randn(64, generator=g)
+    r = torch.randn(2, 7, 7, 64, generator=g)
+    out = {}
+    for where in ("cpu", dev):
+        xx, ww, bb = (t.to(where).detach().requires_grad_()
+                      for t in (x, wt, bt))
+        _build.reset_launches()
+        y = group_norm_nhwc(xx, 8, ww, bb, 1e-5, "silu",
+                            "auto" if where == "cpu" else algo)
+        (y * r.to(where)).sum().backward()
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        out[str(where)] = [t.detach().cpu() for t in
+                           (y, xx.grad, ww.grad, bb.grad)]
+    assert launches == ({"gn_stats": 1, "gn_apply": 1} if algo == "two_pass"
+                        else {"gn_one_pass": 1})
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("algo", ["one_pass", "two_pass"])
+def test_group_norm_ill_conditioned_gradients_on_the_card(dev, algo):
+    """The mean-1000 / std-0.01 group through the kernels and the
+    backward from their shift and mean_d: dx, dweight and dbias within
+    1e-4 (relative to each tensor's largest value) of float64 autograd."""
+    g = torch.Generator().manual_seed(31)
+    x = torch.randn(2, 16, 16, 64, generator=g)
+    x[0, :, :, :2] = 1000 + 0.01 * torch.randn(16, 16, 2, generator=g)
+    wt = 1 + 0.1 * torch.randn(64, generator=g)
+    bt = 0.1 * torch.randn(64, generator=g)
+    r = torch.randn(2, 16, 16, 64, generator=g)
+    from apex_tpu_torch.contrib.group_norm import group_norm_nhwc
+    xx, ww, bb = (t.to(dev).requires_grad_() for t in (x, wt, bt))
+    (group_norm_nhwc(xx, 32, ww, bb, 1e-5, "silu", algo) * r.to(dev)) \
+        .sum().backward()
+    xd, wd, bd = (t.double().requires_grad_() for t in (x, wt, bt))
+    y64 = torch.nn.functional.group_norm(xd.permute(0, 3, 1, 2), 32, wd, bd,
+                                         1e-5).permute(0, 2, 3, 1)
+    (torch.nn.functional.silu(y64) * r.double()).sum().backward()
+    for got, want in ((xx.grad, xd.grad), (ww.grad, wd.grad),
+                      (bb.grad, bd.grad)):
+        got = got.double().cpu()
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+def test_ln_bf16_parameters_on_the_card(dev, pdtype):
+    """bf16 (or fp32) weight and bias through ``fused_layer_norm_affine`` on
+    the card: no refusal, and y, dx, dweight and dbias (in the parameters'
+    dtype) equal the CPU route's within the LayerNorm tolerances."""
+    from apex_tpu_torch.normalization.fused_layer_norm import (
+        fused_layer_norm_affine)
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn(64, 768, generator=g) * 2 + 0.5
+    w = (torch.randn(768, generator=g)).to(pdtype)
+    b = (torch.randn(768, generator=g)).to(pdtype)
+    r = torch.randn(64, 768, generator=g)
+    out = {}
+    for where in ("cpu", dev):
+        xx, ww, bb = (t.to(where).detach().requires_grad_()
+                      for t in (x, w, b))
+        y = fused_layer_norm_affine(xx, ww, bb, 768, 1e-5)
+        (y * r.to(where)).sum().backward()
+        out[str(where)] = [t.detach().cpu() for t in
+                           (y, xx.grad, ww.grad, bb.grad)]
+    cpu, card = out["cpu"], out[str(dev)]
+    assert card[2].dtype == card[3].dtype == pdtype
+    torch.testing.assert_close(card[0], cpu[0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(card[1], cpu[1], atol=1e-4, rtol=1e-5)
+    for a, c in zip(card[2:], cpu[2:]):
+        torch.testing.assert_close(a.float(), c.float(), atol=1e-3,
+                                   rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rms,affine", [(False, True), (True, True),
+                                        (False, False)])
+@pytest.mark.parametrize("rows,hidden", [(16, 12288), (5, 16384),
+                                         (3, 65536), (300, 8200),
+                                         (2, 200003)])
+def test_wide_ln_kernels_match_plain(dev, rows, hidden, rms, affine, dtype):
+    """Rows wider than the shared-memory form (8192), past the JAX
+    package's 65536: the forward and backward forms that stage nothing,
+    against the plain versions with the LayerNorm tolerances; the backward
+    twice gives the same bits."""
+    g = torch.Generator(device=dev).manual_seed(rows + hidden)
+    x = (torch.randn(rows, hidden, device=dev, generator=g) * 2 + 0.5) \
+        .to(dtype)
+    dy = torch.randn(rows, hidden, device=dev, generator=g).to(dtype)
+    gamma = torch.randn(hidden, device=dev, generator=g) if affine else None
+    beta = (torch.randn(hidden, device=dev, generator=g)
+            if affine and not rms else None)
+    y, mean, invvar = ln_fwd(x, gamma, beta, eps=1e-5, rms=rms)
+    yp, mp, ivp = ln_fwd_plain(x, gamma, beta, eps=1e-5, rms=rms)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), yp.float(), atol=1e-5, rtol=rtol)
+    torch.testing.assert_close(mean, mp, atol=1e-5, rtol=0)
+    torch.testing.assert_close(invvar, ivp, atol=0, rtol=1e-5)
+    args = (dy, x, gamma, beta, None if rms else mp, ivp)
+    got = ln_bwd(*args, rms=rms)
+    want = ln_bwd_plain(*args, rms=rms)
+    again = ln_bwd(*args, rms=rms)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=1e-5,
+                               rtol=rtol)
+    for a, b in zip(got[1:], want[1:]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_over_65535_batch_heads(dev, dtype):
+    """batch * heads = 65600 (1025 x 64) runs through grid.y x grid.z:
+    forward, dq and dk / dv against the plain versions."""
+    b, h, s = 1025, 64, 64
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, k, v, do = (torch.randn(b, h, s, 64, device=dev, generator=g)
+                   .to(dtype) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, scale=0.125, causal=True)
+    op, lsep = flash_attention_fwd_plain(q, k, v, scale=0.125, causal=True)
+    torch.cuda.synchronize()
+    atol, rtol = (2e-5, 0.0) if dtype == torch.float32 else (2e-3, 2 ** -7)
+    torch.testing.assert_close(o.float(), op.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
+    got = flash_attention_bwd(q, k, v, o, lse, do, scale=0.125, causal=True)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, scale=0.125,
+                                     causal=True)
+    torch.cuda.synchronize()
+    atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (1e-2, 2 ** -6)
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a.float(), c.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("rms", [False, True])
+def test_public_norm_over_65536_launches_the_kernels(dev, rms):
+    """``fused_layer_norm_affine`` / ``fused_rms_norm_affine`` at hidden
+    70000 on the card launch ``ln_fwd`` and ``ln_bwd`` (no plain route),
+    and y and the gradients equal the CPU's within the LayerNorm
+    tolerances."""
+    from apex_tpu_torch.normalization.fused_layer_norm import (
+        fused_layer_norm_affine, fused_rms_norm_affine)
+    hidden = 70000
+    g = torch.Generator().manual_seed(37)
+    x = torch.randn(3, hidden, generator=g) * 2 + 0.5
+    w = torch.randn(hidden, generator=g)
+    b = torch.randn(hidden, generator=g)
+    r = torch.randn(3, hidden, generator=g)
+    out = {}
+    for where in ("cpu", dev):
+        xx, ww, bb = (t.to(where).detach().requires_grad_()
+                      for t in (x, w, b))
+        _build.reset_launches()
+        y = (fused_rms_norm_affine(xx, ww, hidden, 1e-5) if rms else
+             fused_layer_norm_affine(xx, ww, bb, hidden, 1e-5))
+        (y * r.to(where)).sum().backward()
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        out[str(where)] = [t.detach().cpu() for t in (y, xx.grad, ww.grad)]
+    assert launches == {"ln_fwd": 1, "ln_bwd": 1}
+    cpu, card = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(card[0], cpu[0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(card[1], cpu[1], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(card[2], cpu[2], atol=1e-3, rtol=1e-4)

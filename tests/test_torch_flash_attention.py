@@ -11,7 +11,9 @@ fp32 log-sum-exp are compared, causal and not, with ragged sq / sk.
 Tolerances for fp32: 2e-5 absolute on o and lse, 1e-4 on dq / dk / dv
 (the JAX kernels sum block by block, the plain versions over whole rows).
 bf16 as stated at each test. The mask / bias cases hold the same fp32
-tolerances; a fully masked row is held to exact zeros and lse -1e30.
+tolerances; a fully masked row is held to exact zeros and lse -1e30. The
+JAX signature's ``block_q`` / ``block_k`` and a ``dropout_seed`` at rate 0
+behave as in JAX; the kernels' batch * heads grid covers any count.
 """
 
 import math
@@ -28,6 +30,7 @@ from apex_tpu.ops.pallas.flash_attention import (
 from apex_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_bwd,
                                                 flash_attention_fwd)
+from apex_tpu_torch.ops.tiling import FA_GRID_DIM_MAX, fa_batch_heads_grid
 
 D = 64
 SCALE = 1.0 / math.sqrt(D)
@@ -310,3 +313,56 @@ def test_bias_shapes_the_kernels_do_not_take_raise():
         flash_attention_fwd(q, q, q, scale=0.125, causal=False,
                             bias=torch.zeros(1, 2, 8, 8,
                                              dtype=torch.float64))
+
+
+def test_dropout_rate_zero_with_a_seed_runs_plain_attention():
+    """At ``dropout_p == 0`` a ``dropout_seed`` is accepted and ignored, as
+    in JAX (``tests/test_flash_attention.py``'s zero-rate test): the same
+    output as without it, and as JAX's (2e-5)."""
+    q, k, v = _qkv(1, 2, 96, 96, seed=31)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    o = flash_attention(qt, kt, vt, True, dropout_p=0.0, dropout_seed=3)
+    torch.testing.assert_close(o, flash_attention(qt, kt, vt, True),
+                               atol=0, rtol=0)
+    oj = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             True, None, 64, 128, dropout_p=0.0,
+                             dropout_seed=3)
+    np.testing.assert_allclose(o.numpy(), np.asarray(oj), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("blocks,ok", [
+    ((128, 128), True), ((64, None), True), ((None, 256), True),
+    ((12, 128), False), ((128, 100), False), ((0, 128), False),
+    ((None, 64), False)])
+def test_explicit_blocks_are_validated_as_in_jax(blocks, ok):
+    """JAX's positional ``block_q`` / ``block_k``: valid ones change
+    nothing (the CUDA kernels keep their own tiling), invalid ones raise
+    ``ValueError`` on both sides (block_q a positive multiple of 8,
+    block_k of 128; one given alone is checked beside the other's JAX
+    default)."""
+    q, k, v = _qkv(1, 1, 64, 64, seed=33)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    if ok:
+        torch.testing.assert_close(
+            flash_attention(qt, kt, vt, True, None, *blocks),
+            flash_attention(qt, kt, vt, True), atol=0, rtol=0)
+        return
+    with pytest.raises(ValueError, match="block_q"):
+        flash_attention(qt, kt, vt, True, None, *blocks)
+    with pytest.raises(ValueError, match="block_q"):
+        jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            True, None, *blocks)
+
+
+@pytest.mark.parametrize("bh", [1, 65535, 65536, 200000, 65535 * 65535])
+def test_batch_heads_grid_covers_any_count(bh):
+    """grid.y x grid.z carry batch * heads: each dimension within 65535,
+    every index covered, and no z-slice left empty."""
+    gy, gz = fa_batch_heads_grid(bh)
+    assert 1 <= gy <= FA_GRID_DIM_MAX and 1 <= gz <= FA_GRID_DIM_MAX
+    assert gy * (gz - 1) < bh <= gy * gz
+
+
+def test_batch_heads_grid_refuses_what_no_grid_holds():
+    with pytest.raises(ValueError, match="batch\\*heads"):
+        fa_batch_heads_grid(65535 * 65535 + 1)

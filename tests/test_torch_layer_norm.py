@@ -11,7 +11,12 @@ one bf16 ulp of the JAX value (the two frameworks may round the last bit
 differently); fp32 statistics 1e-5; dgamma / dbeta (fp32 sums over rows,
 in another order) 1e-4 absolute; bf16 dx two bf16 ulps. The RMSNorm and
 no-gamma forms are held to the same tolerances as the LayerNorm form.
+bfloat16 weights and biases, and rows wider than the kernels take (the
+JAX ``_pallas_ok`` route to the plain reference), are held against JAX as
+stated at their tests.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -360,3 +365,83 @@ def test_rms_bwd_plain_is_the_autograd_of_the_plain_forward():
         torch.testing.assert_close(dx, xt.grad, atol=1e-5, rtol=1e-5)
         if affine:
             torch.testing.assert_close(dg, gt.grad, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_bf16_parameters_match_jax_module(dtype):
+    """bfloat16 weight and bias, as the JAX ``FusedLayerNorm(param_dtype=
+    bfloat16)`` holds them: y and dx against ``jax.grad`` of the flax
+    module, and dweight / dbias come back in bfloat16 with JAX's values
+    (one bf16 ulp of the JAX value, plus 1e-3 for fp32 sums over rows in
+    another order)."""
+    x, g, b = _inputs(2 * 5, 256, seed=41)
+    x3 = x.reshape(2, 5, 256)
+    r = np.random.default_rng(42).standard_normal(x3.shape).astype(
+        np.float32)
+    wj = jnp.asarray(g).astype(jnp.bfloat16)
+    bj = jnp.asarray(b).astype(jnp.bfloat16)
+    mod = JaxFusedLayerNorm(256, param_dtype=jnp.bfloat16)
+
+    def jloss(x_, w_, b_):
+        y = mod.apply({"params": {"weight": w_, "bias": b_}}, x_)
+        return jnp.sum(y.astype(jnp.float32) * r), y
+
+    (_, yj), (dxj, dwj, dbj) = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(_to_jax(x3, dtype), wj, bj)
+    xt = _to_torch(x3, dtype).requires_grad_()
+    wt = torch.from_numpy(g).bfloat16().requires_grad_()
+    bt = torch.from_numpy(b).bfloat16().requires_grad_()
+    y = fused_layer_norm_affine(xt, wt, bt, 256, EPS)
+    (y.float() * torch.from_numpy(r)).sum().backward()
+    _assert_y(y.detach().float().numpy(), np.asarray(yj.astype(jnp.float32)),
+              dtype)
+    _assert_y(xt.grad.float().numpy(), np.asarray(dxj.astype(jnp.float32)),
+              dtype, ulps=2)
+    assert wt.grad.dtype == bt.grad.dtype == torch.bfloat16
+    for got, want in ((wt.grad, dwj), (bt.grad, dbj)):
+        want = np.asarray(want.astype(jnp.float32))
+        assert np.all(np.abs(got.float().numpy() - want)
+                      <= _bf16_ulp(want) + 1e-3)
+
+
+@pytest.mark.parametrize("rms", [False, True])
+def test_rows_wider_than_65536_take_the_kernel_route(rms, monkeypatch):
+    """Above 65536, where the JAX package's ``_pallas_ok`` sends rows to
+    its plain reference, the port keeps the kernels' autograd function
+    (on CPU tensors their plain twins; on CUDA the wide forms,
+    ``tests/test_torch_cuda.py``): y equals ``manual_layer_norm`` /
+    ``manual_rms_norm``, and y and the gradients equal JAX's (1e-5; 1e-4
+    for dweight)."""
+    fln = importlib.import_module(
+        "apex_tpu_torch.normalization.fused_layer_norm")
+    calls = []
+    apply = fln._FusedNorm.apply
+    monkeypatch.setattr(fln._FusedNorm, "apply",
+                        lambda *a: calls.append(a[3]) or apply(*a))
+    hidden = 65536 + 64
+    x, g, b = _inputs(2, hidden, seed=43)
+    _build.reset_launches()
+    xt, gt = (torch.from_numpy(a).requires_grad_() for a in (x, g))
+    bt = torch.from_numpy(b).requires_grad_()
+    if rms:
+        y = fused_rms_norm_affine(xt, gt, hidden, EPS)
+        jf = lambda x_, g_: jax_fused_rms_norm_affine(x_, g_, hidden, EPS)
+        torch.testing.assert_close(y, manual_rms_norm(xt, gt, hidden, EPS))
+    else:
+        y = fused_layer_norm_affine(xt, gt, bt, hidden, EPS)
+        jf = lambda x_, g_: jax_fused_layer_norm_affine(
+            x_, g_, jnp.asarray(b), hidden, EPS)
+        torch.testing.assert_close(y, manual_layer_norm(xt, gt, bt, hidden,
+                                                        EPS))
+    y.square().sum().backward()
+    assert calls == [hidden]
+    assert sum(_build.launches.values()) == 0   # CPU: no kernel
+    yj = jf(jnp.asarray(x), jnp.asarray(g))
+    gxj, ggj = jax.grad(lambda x_, g_: jnp.sum(jf(x_, g_) ** 2),
+                        (0, 1))(jnp.asarray(x), jnp.asarray(g))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(yj),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gxj), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(gt.grad.numpy(), np.asarray(ggj), atol=1e-4,
+                               rtol=1e-5)

@@ -3,10 +3,10 @@ refuses.
 
 - ``apex_tpu_torch`` and ``chip_smoke.py`` import no ``jax``, ``flax`` or
   ``apex_tpu`` (an AST scan, so a lazy import inside a function counts);
-- entry points run on ``cuda`` unless given ``device="cpu"``, and raise
-  without CUDA instead of moving to the host;
+- entry points and modules run on ``cuda`` unless given
+  ``device="cpu"``, and raise without CUDA instead of moving to the host;
 - options that belong to later slices, and inputs the kernels do not
-  take, raise; nothing falls back;
+  take, raise; a CUDA tensor never takes a plain version;
 - gradients flow through the kernels' wrappers and the model.
 """
 
@@ -17,9 +17,12 @@ import pathlib
 import pytest
 import torch
 
+from apex_tpu_torch.contrib.group_norm import GroupNorm
 from apex_tpu_torch.models.convert import init_gpt2_params
 from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config
-from apex_tpu_torch.models.resnet import ResNet18ish
+from apex_tpu_torch.models.resnet import Bottleneck, Conv, ResNet18ish
+from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
+from apex_tpu_torch.parallel import SyncBatchNorm
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.normalization.fused_layer_norm import (
     fused_layer_norm_affine)
@@ -86,6 +89,33 @@ def test_entry_points_raise_without_cuda(build):
     _require_no_cuda()
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
+
+
+MODULES = {
+    "FusedLayerNorm": lambda **kw: FusedLayerNorm(8, **kw),
+    "FusedRMSNorm": lambda **kw: FusedRMSNorm(8, **kw),
+    "SyncBatchNorm": lambda **kw: SyncBatchNorm(8, **kw),
+    "Conv": lambda **kw: Conv(4, 4, 3, **kw),
+    "Bottleneck": lambda **kw: Bottleneck(8, 2, **kw),
+    "GroupNorm": lambda **kw: GroupNorm(2, 8, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODULES))
+def test_modules_default_to_cuda_and_raise_without_it(name):
+    """A module built with no device resolves it as every entry point
+    does: ``None`` means ``cuda``, which raises without CUDA instead of
+    putting the parameters on the host."""
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MODULES[name]()
+
+
+@pytest.mark.parametrize("name", sorted(MODULES))
+def test_modules_build_on_cpu_when_asked(name):
+    module = MODULES[name](device="cpu")
+    tensors = list(module.parameters()) + list(module.buffers())
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
 def test_entry_points_run_on_cpu_when_asked():
@@ -164,6 +194,20 @@ def test_wrappers_refuse_other_devices():
         flash_attention_fwd(q, q, q, scale=0.125, causal=True)
 
 
+def test_group_norm_wrappers_refuse_other_devices():
+    """The GroupNorm kernels' wrappers refuse a tensor that is neither on
+    the CPU nor on CUDA."""
+    from apex_tpu_torch.ops.group_norm_kernel import (gn_apply, gn_one_pass,
+                                                      gn_stats)
+    x = torch.empty(2, 64, 16, device="meta")
+    s = torch.empty(2, 4, device="meta")
+    for call in (lambda: gn_one_pass(x, 4, None, None, eps=1e-5),
+                 lambda: gn_stats(x, s, 8),
+                 lambda: gn_apply(x, s, s, s, None, None, 8)):
+        with pytest.raises(ValueError, match="device"):
+            call()
+
+
 def test_optimizer_wrappers_refuse_other_devices():
     """The flat optimizer kernels' wrappers refuse a tensor that is
     neither on the CPU nor on CUDA."""
@@ -191,12 +235,14 @@ def test_build_sources_and_digest():
     names = [p.name for p in _build.sources()]
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
                      "fused_adagrad.cu", "fused_adam.cu", "fused_lamb.cu",
-                     "fused_novograd.cu", "fused_sgd.cu", "layer_norm.cu"]
+                     "fused_novograd.cu", "fused_sgd.cu", "group_norm.cu",
+                     "layer_norm.cu"]
     assert set(_build.SIGNATURES) == {
         "apex_ln_fwd", "apex_ln_bwd", "apex_fa_fwd", "apex_fa_bwd_dq",
         "apex_fa_bwd_dkv", "apex_fused_adam", "apex_fused_adam_master",
         "apex_lamb_stage1", "apex_lamb_stage2", "apex_fused_sgd",
-        "apex_fused_novograd", "apex_fused_adagrad"}
+        "apex_fused_novograd", "apex_fused_adagrad", "apex_gn_one_pass",
+        "apex_gn_stats", "apex_gn_apply"}
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="cudaError 7"):
