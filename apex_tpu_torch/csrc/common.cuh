@@ -1,11 +1,13 @@
 // Helpers shared by the port's kernels: fp32 <-> IO-dtype conversion and
 // warp reductions. Every kernel computes in fp32 and reads / writes its IO
-// dtype (float32 or bfloat16) through these.
+// dtype (float32, bfloat16, or float16 for the softmax kernels) through
+// these.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace apex_port {
 
@@ -13,6 +15,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
@@ -20,6 +23,9 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
 }
 // v rounded through T (the TPU kernels' `x.astype(T)` before a product)
 template <typename T> __device__ __forceinline__ float round_to(float v) {

@@ -36,6 +36,12 @@ A model of ``apex_tpu.contrib.group_norm.GroupNorm`` and bias-free flax
 convolutions (a UNet ResNet block) maps by the same rule: GroupNorm
 ``weight`` / ``bias`` stay, convolution kernels become OIHW
 ``weight`` tensors.
+
+The attention modules (``apex_tpu.transformer.mha``): each ``nn.Dense``
+kernel ``(in, out)`` becomes ``<name>.weight (out, in)``
+(:func:`mha_params_from_jax`). ``FusedDense``, ``FusedDenseGeluDense``
+and ``MLP`` store ``(out, in)`` weights in both packages under the same
+names (:func:`dense_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -289,6 +295,52 @@ def resnet_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(a.numpy())
     return out
+
+
+def mha_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax ``SelfMultiheadAttn`` / ``EncdecMultiheadAttn`` parameters
+    (``{"params": {...}}`` or its inner dict, numpy leaves) as the port
+    module's CPU float32 state dict: each ``nn.Dense`` (``qkv``, ``out``;
+    ``q``, ``kv``, ``out``) ``kernel (in, out)`` becomes ``<name>.weight
+    (out, in)``, its ``bias`` ``<name>.bias``."""
+    p = tree["params"] if "params" in tree else tree
+    out = {}
+    for path, leaf in _walk(p):
+        a = _t(leaf)
+        if path.endswith(".kernel"):
+            path, a = path[:-len("kernel")] + "weight", a.t()
+        out[path] = a.contiguous()
+    return out
+
+
+def mha_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`mha_params_from_jax`: a dict in the port's
+    names (parameters, or gradients keyed like them) as ``{"params":
+    {...}}`` with float32 numpy leaves."""
+    p: Dict[str, Any] = {}
+    for name, t in params.items():
+        dense, leaf = name.rsplit(".", 1)
+        a = t.detach().float().cpu()
+        if leaf == "weight":
+            leaf, a = "kernel", a.t()
+        p.setdefault(dense, {})[leaf] = np.ascontiguousarray(a.numpy())
+    return {"params": p}
+
+
+def dense_params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax ``FusedDense`` / ``FusedDenseGeluDense`` / ``MLP``
+    parameters (``{"params": {...}}`` or its inner dict) as the port
+    module's CPU float32 state dict. Their weights are ``(out, in)`` in
+    both packages and keep their names (``weight``, ``bias``;
+    ``weight1`` ... ``bias2``; ``weight_{i}``, ``bias_{i}``)."""
+    p = tree["params"] if "params" in tree else tree
+    return {name: _t(leaf) for name, leaf in p.items()}
+
+
+def dense_params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`dense_params_from_jax`."""
+    return {"params": {name: t.detach().float().cpu().numpy()
+                       for name, t in params.items()}}
 
 
 def init_resnet_params(seed: int = 0, stage_sizes=(3, 4, 6, 3),

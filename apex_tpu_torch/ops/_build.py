@@ -89,6 +89,11 @@ SIGNATURES = {
     # hw_block, silu, dtype, stream
     "apex_gn_apply": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                       _i, _i, _vp],
+    # x, mask (may be null), mask plan (20 long longs, null without a
+    # mask), y, rows, sq, sk, scale, causal, dtype, stream
+    "apex_softmax_fwd": [_vp, _vp, _vp, _vp, _ll, _i, _i, _f, _i, _i, _vp],
+    # y, dy, dx, rows, sk, scale, dtype, stream
+    "apex_softmax_bwd": [_vp, _vp, _vp, _ll, _i, _f, _i, _vp],
 }
 
 launches: collections.Counter = collections.Counter()

@@ -111,6 +111,42 @@ def gn_hw_block(hw: int, c: int, hw_block=None) -> int:
     return blk
 
 
+# megatron softmax (csrc/softmax.cu): the forms of each launch, chosen by
+# the row length sk. Every element is fp32 in registers; a thread holds at
+# most SM_PER_THREAD of a row (a multiple of the 16-byte load's 4 fp32 or
+# 8 16-bit values).
+# - "warp": one warp per row, SM_WARP_ROWS rows a block, rows up to
+#   SM_WARP_COLS (32 lanes x SM_PER_THREAD) held in registers;
+# - "block": one block of SM_BLOCK_THREADS threads per row, rows up to
+#   SM_RESIDENT_MAX_COLS held in registers (the megatron warp kernels' 16384);
+# - "stream": one block of SM_BLOCK_THREADS per row at any sk: the forward
+#   reads the row once for an online max and sum and once to write, the
+#   backward once for sum(dy * y) and once to write.
+# Rows (batch * sq) run over grid.x, which holds 2^31 - 1 blocks.
+SM_PER_THREAD = 32
+SM_WARP_ROWS = 4
+SM_WARP_COLS = 32 * SM_PER_THREAD
+SM_BLOCK_THREADS = 512
+SM_RESIDENT_MAX_COLS = SM_BLOCK_THREADS * SM_PER_THREAD
+SM_GRID_X_MAX = 2 ** 31 - 1
+
+
+def softmax_form(sk: int) -> str:
+    """The form the softmax kernels take for rows of ``sk`` (>= 1)."""
+    if sk <= SM_WARP_COLS:
+        return "warp"
+    if sk <= SM_RESIDENT_MAX_COLS:
+        return "block"
+    return "stream"
+
+
+def softmax_blocks(rows: int, sk: int) -> int:
+    """grid.x of a softmax launch over ``rows`` rows of ``sk``."""
+    if softmax_form(sk) == "warp":
+        return -(-rows // SM_WARP_ROWS)
+    return rows
+
+
 def pow2_ceil(n: int) -> int:
     """Smallest power of two >= n (n >= 1) — the prompt-length bucket."""
     n = max(int(n), 1)

@@ -1,5 +1,8 @@
 """Fused dense layers — counterpart of
-``apex_tpu/transformer/fused_dense.py``.
+``apex_tpu/transformer/fused_dense.py``: the functions and the
+:class:`FusedDense` / :class:`FusedDenseGeluDense` modules, whose
+parameters carry the flax modules' names and layouts (``weight (out,
+in)``, ``bias``; ``weight1`` ... ``bias2``).
 
 In the JAX package these are plain matrix products that XLA fuses with
 their bias and GELU epilogues; here they are PyTorch matrix products (no
@@ -25,6 +28,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from apex_tpu_torch.utils.device import DeviceLike, resolve_device
+
+# flax's lecun_normal draws from a normal truncated at +-2 sigma, rescaled by
+# this constant so that the truncated distribution keeps variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
 
 
 def _mm_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -119,3 +129,65 @@ def dense_gelu_dense(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     fp32 accumulate, ``+ b1`` in fp32, exact erf GELU, cast to x's dtype,
     the second GEMM, ``+ b2`` in fp32, cast."""
     return _DenseGeluDense.apply(x, w1, b1, w2, b2)
+
+
+def lecun_normal_(w: torch.Tensor) -> torch.Tensor:
+    """Fill a ``(out, in)`` weight in place with flax's ``lecun_normal``
+    distribution (truncated normal, variance ``1 / in``)."""
+    std = math.sqrt(1.0 / w.shape[-1]) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def dense_param(out_f: int, in_f: int, device: torch.device,
+                dtype: torch.dtype) -> nn.Parameter:
+    """A lecun-normal ``(out_f, in_f)`` weight parameter."""
+    w = torch.empty(out_f, in_f, device=device, dtype=torch.float32)
+    return nn.Parameter(lecun_normal_(w).to(dtype))
+
+
+def zeros_param(n: int, device: torch.device,
+                dtype: torch.dtype) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(n, device=device, dtype=dtype))
+
+
+class FusedDense(nn.Module):
+    """``apex.fused_dense.FusedDense``: :func:`linear_bias` over ``weight
+    (out, in)`` (lecun normal) and ``bias`` (zeros), built on ``device``
+    (default ``cuda``) in ``param_dtype``; the weight is cast to x's dtype
+    for the product (a differentiable cast)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, param_dtype=torch.float32, *,
+                 device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = dense_param(out_features, in_features, device,
+                                  param_dtype)
+        self.bias = (zeros_param(out_features, device, param_dtype)
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_bias(x, self.weight.to(x.dtype), self.bias)
+
+
+class FusedDenseGeluDense(nn.Module):
+    """``apex.fused_dense.FusedDenseGeluDense``: :func:`dense_gelu_dense`
+    over ``weight1 (I, in)``, ``bias1``, ``weight2 (out, I)``, ``bias2``;
+    the weights are cast to x's dtype for the products."""
+
+    def __init__(self, in_features: int, intermediate_features: int,
+                 out_features: int, param_dtype=torch.float32, *,
+                 device: DeviceLike = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.weight1 = dense_param(intermediate_features, in_features, device,
+                                   param_dtype)
+        self.bias1 = zeros_param(intermediate_features, device, param_dtype)
+        self.weight2 = dense_param(out_features, intermediate_features,
+                                   device, param_dtype)
+        self.bias2 = zeros_param(out_features, device, param_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_gelu_dense(x, self.weight1.to(x.dtype), self.bias1,
+                                self.weight2.to(x.dtype), self.bias2)

@@ -46,7 +46,18 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    8) on both routes and a group of mean 1000 and std 0.01
    (finite, within 1e-4 of float64), each against its plain version, two
    runs bit-identical, with ``F.group_norm`` (+ ``F.silu``) on the NCHW
-   view as the library yardstick.
+   view as the library yardstick; and the megatron softmax kernels
+   (``softmax_fwd``, ``softmax_fwd_causal``, ``softmax_bwd``): GPT-2 XL's
+   causal scores 4 x 25 x 1024 x 1024 in fp32 (as ``mha_reference`` feeds
+   them), bf16 and fp16 with their backward, the megatron phase's
+   cross-attention scores with its key-padding mask, the JAX package's
+   AOT shape 128 x 1024 x 1024 fp32 (causal, a full bool mask, backward),
+   a (b, 1, sq, sk) uint8 mask, a (1, h, sq, sk) mask, a padding mask
+   that masks whole rows, rows of 16,385, 32,768 and 100,003 (the
+   streaming form) and 4 x 25 x 1024 x 32768 bf16 (past 2^31 elements),
+   each within SM_TOL of its plain version, two runs bit-identical, with
+   ``torch.softmax`` / ``torch._softmax_backward_data`` as the library
+   yardstick.
 3. ``forward``: GPT-2 small in bf16, batch 4 x 1024 tokens, through
    ``GPT2``: exactly 25 LayerNorm and 12 flash-attention launches, logits
    held against the same weights in fp32 on the CPU (plain versions) and
@@ -121,14 +132,35 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    time, to set the host beside the device's busy time. Then one
    step's fp32 gradients at batch 1, card vs CPU per tensor (relative L2
    1e-3), beside two CPU runs that differ only in their thread count.
+10. ``megatron``: attention at GPT-2 XL's widths (1600 wide, 25 heads x
+   64, 4 x 1024 tokens; BASELINE.md config 5). (a) the unfused causal
+   layer, :func:`unfused_self_attention` on ``SelfMultiheadAttn``'s
+   parameters (bf16 compute, fp32 parameters), 5 flat ``FusedAdam``
+   steps (lr 1e-4) on an MSE through ``DynamicGradScaler``: every loss
+   finite, the fifth below the first, exactly 1 ``softmax_fwd_causal``,
+   1 ``softmax_bwd`` and 1 ``fused_adam`` launch a step and no flash
+   launch; step ms, tokens/s, one more step's device time by kind, idle
+   share, peak memory. (b) fp32 at batch 1: ``SelfMultiheadAttn`` (flash)
+   against (a)'s unfused layer with the same weights (output and every
+   parameter's gradient, relative L2 1e-4), and ``mha_reference`` against
+   ``flash_attention`` on the same q, k, v (FA_TOL / FA_BWD_TOL fp32).
+   (c) ``EncdecMultiheadAttn`` at sq 1024 / sk 512 with a (4, 1, 1, 512)
+   key-padding mask against :func:`unfused_encdec` (one ``softmax_fwd``
+   and one ``softmax_bwd``; the module one launch of each flash kernel).
+   (d) ``FusedDenseGeluDense(1600, 6400, 1600)`` and ``MLP([1600, 6400,
+   1600])`` card vs CPU, and ``linear_cross_entropy`` over the XL head
+   (4096 x 1600 against 1600 x 50257 fp32) against the dense head on the
+   card and against itself on the CPU, with the peak memory of each head.
 
 Then a ``{"kernels": [...]}`` line (launches counted over the main path:
 the forward of phase 3, the serve run of phase 4, the 5 train steps of
-phase 6, the 5 BERT steps of phase 7, the optimizer steps of phase 8 and
-the 5 UNet steps of phase 9, each with the counts zeroed just before it),
-the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``. Any failed check raises and the script
-exits non-zero without that last line; without CUDA, or away from the
-checkout, it exits 2 at once.
+phase 6, the 5 BERT steps of phase 7, the optimizer steps of phase 8,
+the 5 UNet steps of phase 9 and phase 10's loop and cross-attention, each
+with the counts zeroed just before it; every kernel of ``KERNELS`` with
+the ``pl.pallas_call`` lines it replaces), the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``. Any failed check raises and the
+script exits non-zero without that last line; without CUDA, or away from
+the checkout, it exits 2 at once.
 """
 
 from __future__ import annotations
@@ -190,6 +222,69 @@ UNET_STEPS = 5
 UNET_TIMED_STEPS = 20    # more steps: the spread, the host's issue time
 UNET_LR = 1e-4
 UNET_GRAD_REL_L2 = 1e-3  # fp32 card vs CPU gradients, per tensor
+# megatron softmax kernels vs their plain versions: (atol, rtol). fp32
+# summation order; bf16 / fp16 one ulp (the smallest normal of bf16, one
+# subnormal step of fp16, absolute); the backward also 1e-6 absolute (the
+# row sum's order, times y * scale, where dy - sum(dy * y) cancels)
+SM_TOL = {"fp32": (1e-6, 0.0), "bf16": (2.0 ** -126, 2 ** -7),
+          "fp16": (2.0 ** -24, 2 ** -10)}
+SM_BWD_ATOL = 1e-6
+XL_EMBED, XL_HEADS, XL_SEQ = 1600, 25, 1024   # GPT2Config.xl() widths
+XL_VOCAB = 50257
+MEGATRON_BATCH = 4
+MEGATRON_STEPS = 5
+MEGATRON_LR = 1e-4
+MEGATRON_REL_L2 = 1e-4   # module vs unfused twin, card vs CPU (fp32)
+LCE_REL_L2 = 1e-5        # chunked head vs the dense head on the card (fp32)
+LCE_CHECK_ROWS = 512     # rows of the card-vs-CPU checks of (d)
+
+# Every kernel of the port: its source, the function of the JAX package it
+# replaces (file:line of the ``def``: the kernel's entry or, for the flash
+# backward and LAMB, the kernel body) and the lines of the ``pl.pallas_call``
+# sites that run it. ``softmax_fwd_causal`` also takes the causal form of
+# ``softmax_fwd_pallas``'s own call. ``TO_PORT`` holds the calls no kernel
+# of the port replaces yet; together the two are every ``pl.pallas_call``
+# in ``apex_tpu/ops/pallas/`` (tests/test_torch_package.py checks it).
+_P = "apex_tpu/ops/pallas/"
+KERNELS = {
+    "ln_fwd": ("apex_tpu_torch/csrc/layer_norm.cu",
+               _P + "layer_norm_kernel.py:102", (139,)),
+    "ln_bwd": ("apex_tpu_torch/csrc/layer_norm.cu",
+               _P + "layer_norm_kernel.py:211", (279,)),
+    "fa_fwd": ("apex_tpu_torch/csrc/flash_attention.cu",
+               _P + "flash_attention.py:430", (466,)),
+    "fa_bwd_dq": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+                  _P + "flash_attention.py:505", (687,)),
+    "fa_bwd_dkv": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+                   _P + "flash_attention.py:559", (729,)),
+    "fused_adam": ("apex_tpu_torch/csrc/fused_adam.cu",
+                   _P + "fused_adam_kernel.py:178", (206,)),
+    "lamb_stage1": ("apex_tpu_torch/csrc/fused_lamb.cu",
+                    _P + "fused_opt_kernels.py:82", (169,)),
+    "lamb_stage2": ("apex_tpu_torch/csrc/fused_lamb.cu",
+                    _P + "fused_opt_kernels.py:114", (196,)),
+    "fused_sgd": ("apex_tpu_torch/csrc/fused_sgd.cu",
+                  _P + "fused_sgd_kernel.py:65", (91,)),
+    "fused_adam_master": ("apex_tpu_torch/csrc/fused_adam.cu",
+                          _P + "fused_adam_kernel.py:227", (260,)),
+    "fused_novograd": ("apex_tpu_torch/csrc/fused_novograd.cu",
+                       _P + "fused_opt_kernels.py:240", (292,)),
+    "fused_adagrad": ("apex_tpu_torch/csrc/fused_adagrad.cu",
+                      _P + "fused_opt_kernels.py:338", (357,)),
+    "gn_one_pass": ("apex_tpu_torch/csrc/group_norm.cu",
+                    _P + "group_norm_kernel.py:202", (227,)),
+    "gn_stats": ("apex_tpu_torch/csrc/group_norm.cu",
+                 _P + "group_norm_kernel.py:242", (283,)),
+    "gn_apply": ("apex_tpu_torch/csrc/group_norm.cu",
+                 _P + "group_norm_kernel.py:242", (313,)),
+    "softmax_fwd": ("apex_tpu_torch/csrc/softmax.cu",
+                    _P + "softmax_kernel.py:200", (250,)),
+    "softmax_fwd_causal": ("apex_tpu_torch/csrc/softmax.cu",
+                           _P + "softmax_kernel.py:140", (181,)),
+    "softmax_bwd": ("apex_tpu_torch/csrc/softmax.cu",
+                    _P + "softmax_kernel.py:265", (280,)),
+}
+TO_PORT = {_P + "remote_copy.py": (54, 177, 187)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -363,6 +458,50 @@ def unet_loss(model, x, target_e, target_d):
         + ((d.float() - target_d) ** 2).mean()
 
 
+def unfused_self_attention(mod, x):
+    """``SelfMultiheadAttn``'s function without flash, built from the port's
+    public functions on the module's parameters: ``linear_bias`` (qkv) ->
+    ``fused_rope_cached`` on q and k -> ``mha_reference`` (the causal
+    softmax kernels) -> ``linear_bias`` (out); the weights cast to x's
+    dtype."""
+    from apex_tpu_torch.transformer import linear_bias, mha_reference
+    from apex_tpu_torch.transformer.mha import apply_rope_bhsd, rope_tables
+    b, s, e = x.shape
+    h, d = mod.num_heads, mod.head_dim
+    qkv = linear_bias(x, mod.qkv.weight.to(x.dtype), mod.qkv.bias)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in qkv.split(e, dim=-1))
+    if mod.use_rope:
+        cos, sin = rope_tables(s, d, mod.rope_theta, x.device)
+        q, k = apply_rope_bhsd(q, cos, sin), apply_rope_bhsd(k, cos, sin)
+    o = mha_reference(q, k, v, causal=mod.causal)
+    return linear_bias(o.transpose(1, 2).reshape(b, s, e),
+                       mod.out.weight.to(x.dtype), mod.out.bias)
+
+
+def unfused_encdec(mod, query, key_value, mask):
+    """``EncdecMultiheadAttn``'s function without flash: its projections by
+    ``linear_bias`` around ``mha_reference(mask=...)`` (the masked softmax
+    kernels)."""
+    from apex_tpu_torch.transformer import linear_bias, mha_reference
+    b, sq, e = query.shape
+    sk = key_value.shape[1]
+    h, d = mod.num_heads, mod.head_dim
+    q = linear_bias(query, mod.q.weight, mod.q.bias)
+    k, v = linear_bias(key_value, mod.kv.weight, mod.kv.bias).split(e, -1)
+    q = q.reshape(b, sq, h, d).transpose(1, 2)
+    k = k.reshape(b, sk, h, d).transpose(1, 2)
+    v = v.reshape(b, sk, h, d).transpose(1, 2)
+    o = mha_reference(q, k, v, mask=mask)
+    return linear_bias(o.transpose(1, 2).reshape(b, sq, e), mod.out.weight,
+                       mod.out.bias)
+
+
+def megatron_loss(model, x, target):
+    """MSE of the unfused layer's output against a fixed target, fp32."""
+    return ((unfused_self_attention(model, x).float() - target) ** 2).mean()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -402,6 +541,14 @@ def main() -> int:
         gn_shift, gn_stats, gn_stats_plain)
     from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                       ln_fwd, ln_fwd_plain)
+    from apex_tpu_torch.ops.softmax_kernel import (
+        MASK_FILL, softmax_bwd, softmax_bwd_plain, softmax_fwd,
+        softmax_fwd_plain)
+    from apex_tpu_torch.ops.tiling import softmax_form
+    from apex_tpu_torch.ops.flash_attention import flash_attention
+    from apex_tpu_torch.transformer import (
+        MLP, EncdecMultiheadAttn, FusedDenseGeluDense, SelfMultiheadAttn,
+        linear_cross_entropy, mha_reference)
     from apex_tpu_torch.optimizers import (FusedAdagrad, FusedAdam,
                                            FusedLAMB, FusedNovoGrad,
                                            FusedSGD)
@@ -506,6 +653,9 @@ def main() -> int:
                 "group_norm" if any(k in name for k in (
                     "gn_one_pass_kernel", "gn_stats_kernel",
                     "gn_apply_kernel")) else
+                "softmax" if any(k in name for k in (
+                    "sm_fwd_resident", "sm_fwd_stream", "sm_bwd_resident",
+                    "sm_bwd_stream")) else
                 "conv" if any(s in low for s in (
                     "fprop", "dgrad", "wgrad", "conv", "implicit_gemm",
                     "cudnn")) else
@@ -518,7 +668,7 @@ def main() -> int:
         out = {"flash": 0.0, "flash_bwd": 0.0, "layer_norm": 0.0,
                "adam": 0.0, "adam_master": 0.0, "lamb": 0.0, "sgd": 0.0,
                "novograd": 0.0, "adagrad": 0.0, "group_norm": 0.0,
-               "conv": 0.0, "matmul": 0.0, "other": 0.0}
+               "softmax": 0.0, "conv": 0.0, "matmul": 0.0, "other": 0.0}
         for name, us in kern.items():
             out[kind_of(name)] += us / 1e3
         out["total"] = sum(out.values())
@@ -554,7 +704,8 @@ def main() -> int:
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
 
-    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16,
+           "fp16": torch.float16}
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {}
 
@@ -1476,6 +1627,185 @@ def main() -> int:
             gn_case(2, 32, 32, 256, "fp32", affine=None, act="", algo=algo,
                     ill=True)
 
+    def key_padding(lens, sk):
+        """(b, 1, 1, sk) bool key-padding mask, True past each length."""
+        lens = torch.tensor(lens, device=dev)
+        return (torch.arange(sk, device=dev)[None, :] >= lens[:, None]
+                )[:, None, None, :]
+
+    def sm_case(shape, dt, op, mask=None, causal=False, main=None,
+                rows_per_check=None):
+        """One megatron softmax kernel (``op`` "fwd" or "bwd") against its
+        plain version at ``shape``: max error against SM_TOL, two runs
+        bit-identical, fully masked rows exactly 0, device ms beside the
+        bound (bytes: x read once, the lower triangle only for causal, the
+        mask once, y written once; the backward y and dy read, dx
+        written), the plain version's ms and the library's
+        (``torch.softmax`` on the pre-scaled, pre-masked input; for the
+        backward ``torch._softmax_backward_data``, the scale pass
+        excluded). With ``rows_per_check`` (inputs past 2^31 elements) one
+        input set, the plain version run on slices of that many rows, and
+        neither it nor the library timed."""
+        scale = 1.0 / math.sqrt(64)
+        es = torch.tensor([], dtype=tdt[dt]).element_size()
+        sq, sk = shape[-2], shape[-1]
+        n = math.prod(shape)
+        rows = n // sk
+        if op == "fwd":
+            read = (rows // sq) * sum(min(q + 1, sk) for q in range(sq)) \
+                if causal else n
+            nbytes = read * es + n * es + (
+                0 if mask is None else mask.numel() * mask.element_size())
+            ops = 8 * n
+        else:
+            nbytes, ops = 3 * n * es, 5 * n
+        big = rows_per_check is not None
+        sets = []
+        for _ in range(1 if big else n_sets(nbytes)):
+            x = torch.randn(shape, device=dev, generator=gen,
+                            dtype=tdt[dt]) * 3
+            if op == "fwd":
+                sets.append((x,))
+            else:
+                y = softmax_fwd(x, mask, scale=scale, causal=causal)
+                del x
+                sets.append((y, torch.randn(shape, device=dev, generator=gen,
+                                            dtype=tdt[dt])))
+        if op == "fwd":
+            def run(x):
+                return softmax_fwd(x, mask, scale=scale, causal=causal)
+
+            def plain(x):
+                return softmax_fwd_plain(x, mask, scale=scale, causal=causal)
+
+            def premasked(x):
+                x32 = x.float() * scale
+                if mask is not None:
+                    x32 = x32.masked_fill(mask != 0, MASK_FILL)
+                if causal:
+                    x32 = x32.masked_fill(torch.ones(
+                        sq, sk, dtype=torch.bool, device=dev).triu(1),
+                        MASK_FILL)
+                return (x32.to(x.dtype),)
+
+            def library(x):
+                return torch.softmax(x, dim=-1)
+
+            lib_name = "torch.softmax (pre-scaled, pre-masked input)"
+        else:
+            def run(y, dy):
+                return softmax_bwd(y, dy, scale=scale)
+
+            def plain(y, dy):
+                return softmax_bwd_plain(y, dy, scale=scale)
+
+            def premasked(y, dy):
+                return (y, dy)
+
+            def library(y, dy):
+                return torch._softmax_backward_data(dy, y, -1, y.dtype)
+
+            lib_name = "torch._softmax_backward_data (no scale pass)"
+        got = run(*sets[0])
+        again = run(*sets[0])
+        torch.cuda.synchronize()
+        det = torch.equal(got, again)
+        del again
+        atol, rtol = SM_TOL[dt]
+        if op == "bwd":
+            atol = max(atol, SM_BWD_ATOL)
+        if big:   # row slices: every row of the plain version, in pieces
+            ok, err = True, 0.0
+            flat = [t.reshape(-1, sk) for t in sets[0]]
+            g2 = got.reshape(-1, sk)
+            for r0 in range(0, rows, rows_per_check):
+                want = plain(*(t[r0:r0 + rows_per_check] for t in flat))
+                o, e = close(g2[r0:r0 + rows_per_check], want, atol, rtol)
+                ok, err = ok and o, max(err, e)
+                del want
+        else:
+            ok, err = close(got, plain(*sets[0]), atol, rtol)
+        dead_ok = True
+        if mask is not None and op == "fwd":
+            dead = (mask != 0).expand(shape).all(dim=-1)
+            dead_ok = not bool(got[dead].any())
+        tag = (f"softmax {op} {tuple(shape)} {dt} causal={causal} mask="
+               f"{None if mask is None else tuple(mask.shape)}")
+        require(ok and det and dead_ok,
+                f"{tag}: max err {err} (atol {atol} rtol {rtol}), "
+                f"deterministic {det}, fully masked rows zero {dead_ok}")
+        del got
+        name = ("softmax_bwd" if op == "bwd" else
+                "softmax_fwd_causal" if causal else "softmax_fwd")
+        kt = timed(run, sets, 3 if big else 20)
+        pt = lt = {"ms": None, "call_ms": None}
+        if not big:
+            pt = timed(plain, sets, 3)
+            lsets = [premasked(*a) for a in sets]
+            lt = timed(library, lsets, 20)
+            del lsets
+        bms, by = bound(nbytes, ops, "fp32")
+        rec = dict(kernel=name, form=softmax_form(sk), scores=list(shape),
+                   dtype=dt, causal=causal,
+                   mask_shape=None if mask is None else list(mask.shape),
+                   mask_dtype=None if mask is None else str(mask.dtype),
+                   max_abs_err=err, tol={"atol": atol, "rtol": rtol},
+                   deterministic=det, ms=kt["ms"], call_ms=kt["call_ms"],
+                   plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
+                   library_ms=lt["ms"], library_call_ms=lt["call_ms"],
+                   library=lib_name, bound_ms=bms, bound_by=by,
+                   bytes=nbytes, elements=n)
+        emit("kernel", **rec)
+        if main:
+            summary[name] = rec
+        del sets
+        torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        xl = (MEGATRON_BATCH, XL_HEADS, XL_SEQ, XL_SEQ)
+        # GPT-2 XL's causal scores as mha_reference feeds them (fp32), and
+        # in bf16 and fp16; their backward
+        for dt in ("fp32", "bf16", "fp16"):
+            sm_case(xl, dt, "fwd", causal=True,
+                    main="softmax_fwd_causal" if dt == "fp32" else None)
+            sm_case(xl, dt, "bwd", causal=True,
+                    main="softmax_bwd" if dt == "fp32" else None)
+        # the megatron phase's cross-attention scores with its key-padding
+        # mask (lengths 512 / 400 / 256 / 17)
+        sm_case((MEGATRON_BATCH, XL_HEADS, XL_SEQ, 512), "fp32", "fwd",
+                mask=key_padding([512, 400, 256, 17], 512),
+                main="softmax_fwd")
+        # the JAX package's AOT shape (128, 1024, 1024) fp32: causal, a full
+        # bool mask, the backward
+        aot = (128, 1024, 1024)
+        sm_case(aot, "fp32", "fwd", causal=True)
+        sm_case(aot, "fp32", "fwd", mask=torch.rand(
+            aot, device=dev, generator=gen) < 0.3)
+        sm_case(aot, "fp32", "bwd")
+        # a (b, 1, sq, sk) uint8 mask against (b, h, sq, sk) scores, a
+        # (1, h, sq, sk) mask (JAX's route refuses it), a padding mask
+        # that masks whole rows (a batch entry of length 0)
+        sm_case(xl, "fp32", "fwd", mask=(torch.rand(
+            MEGATRON_BATCH, 1, XL_SEQ, XL_SEQ, device=dev, generator=gen)
+            < 0.3).to(torch.uint8))
+        sm_case(xl, "bf16", "fwd", mask=torch.rand(
+            1, XL_HEADS, XL_SEQ, XL_SEQ, device=dev, generator=gen) < 0.3)
+        sm_case((MEGATRON_BATCH, XL_HEADS, XL_SEQ, 512), "fp32", "fwd",
+                mask=key_padding([512, 400, 0, 17], 512))
+        # rows past the register-resident forms: the streaming form
+        sm_case((1, 1, 1024, 16385), "fp32", "fwd")
+        sm_case((1, 1, 1024, 16385), "fp32", "bwd")
+        sm_case((1, 1, 1024, 32768), "bf16", "fwd", causal=True)
+        sm_case((1, 1, 1024, 32768), "bf16", "bwd")
+        sm_case((1, 1, 256, 100003), "fp32", "fwd",
+                mask=torch.rand(1, 1, 1, 100003, device=dev,
+                                generator=gen) < 0.3)
+        sm_case((1, 1, 256, 100003), "fp32", "bwd")
+        # past 2^31 elements (64-bit offsets): 4 x 25 x 1024 x 32768 bf16
+        big = (MEGATRON_BATCH, XL_HEADS, XL_SEQ, 32768)
+        sm_case(big, "bf16", "fwd", rows_per_check=4096)
+        sm_case(big, "bf16", "bwd", rows_per_check=4096)
+
     # ------------------------------------------------------ 3. forward
     cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
     n_layer = cfg.n_layer
@@ -2155,45 +2485,267 @@ def main() -> int:
          fp32_check_launches=ucheck_launches, grad_check_batch=1,
          card=card)
 
-    replaces = {
-        "ln_fwd": ("apex_tpu_torch/csrc/layer_norm.cu",
-                   "apex_tpu/ops/pallas/layer_norm_kernel.py:102"),
-        "ln_bwd": ("apex_tpu_torch/csrc/layer_norm.cu",
-                   "apex_tpu/ops/pallas/layer_norm_kernel.py:211"),
-        "fa_fwd": ("apex_tpu_torch/csrc/flash_attention.cu",
-                   "apex_tpu/ops/pallas/flash_attention.py:430"),
-        "fa_bwd_dq": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
-                      "apex_tpu/ops/pallas/flash_attention.py:505"),
-        "fa_bwd_dkv": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
-                       "apex_tpu/ops/pallas/flash_attention.py:559"),
-        "fused_adam": ("apex_tpu_torch/csrc/fused_adam.cu",
-                       "apex_tpu/ops/pallas/fused_adam_kernel.py:178"),
-        "lamb_stage1": ("apex_tpu_torch/csrc/fused_lamb.cu",
-                        "apex_tpu/ops/pallas/fused_opt_kernels.py:82"),
-        "lamb_stage2": ("apex_tpu_torch/csrc/fused_lamb.cu",
-                        "apex_tpu/ops/pallas/fused_opt_kernels.py:114"),
-        "fused_sgd": ("apex_tpu_torch/csrc/fused_sgd.cu",
-                      "apex_tpu/ops/pallas/fused_sgd_kernel.py:65"),
-        "fused_adam_master": ("apex_tpu_torch/csrc/fused_adam.cu",
-                              "apex_tpu/ops/pallas/fused_adam_kernel.py:227"),
-        "fused_novograd": ("apex_tpu_torch/csrc/fused_novograd.cu",
-                           "apex_tpu/ops/pallas/fused_opt_kernels.py:240"),
-        "fused_adagrad": ("apex_tpu_torch/csrc/fused_adagrad.cu",
-                          "apex_tpu/ops/pallas/fused_opt_kernels.py:338"),
-        "gn_one_pass": ("apex_tpu_torch/csrc/group_norm.cu",
-                        "apex_tpu/ops/pallas/group_norm_kernel.py:202"),
-        "gn_stats": ("apex_tpu_torch/csrc/group_norm.cu",
-                     "apex_tpu/ops/pallas/group_norm_kernel.py:128"),
-        "gn_apply": ("apex_tpu_torch/csrc/group_norm.cu",
-                     "apex_tpu/ops/pallas/group_norm_kernel.py:151"),
-    }
+    # ----------------------------------------------------- 10. megatron
+    # BASELINE.md config 5 at GPT-2 XL's widths (1600 wide, 25 heads x 64,
+    # seq 1024), batch 4, bf16 compute, fp32 parameters. (a) the unfused
+    # causal layer as a user loop (linear_bias -> fused_rope_cached ->
+    # mha_reference -> linear_bias) on SelfMultiheadAttn's parameters, 5
+    # flat FusedAdam steps on an MSE through DynamicGradScaler
+    torch.cuda.empty_cache()
+    mgen = torch.Generator().manual_seed(0)
+    mx = torch.randn(MEGATRON_BATCH, XL_SEQ, XL_EMBED, generator=mgen) \
+        .to(dev, torch.bfloat16)
+    mtarget = torch.randn(MEGATRON_BATCH, XL_SEQ, XL_EMBED,
+                          generator=mgen).to(dev)
+    torch.manual_seed(0)
+    amod = SelfMultiheadAttn(XL_EMBED, XL_HEADS, causal=True, use_rope=True,
+                             device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, mstep = scaled_trainer(
+        amod, lambda named: FusedAdam(named, lr=MEGATRON_LR, use_flat=True),
+        dev, megatron_loss)
+    mlosses, mstep_s = [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for _ in range(MEGATRON_STEPS):
+        t0 = time.perf_counter()
+        mlosses.append(float(mstep(mx, mtarget)))
+        torch.cuda.synchronize()
+        mstep_s.append(time.perf_counter() - t0)
+    loop_launches = dict(_build.launches)
+    mpeak = torch.cuda.max_memory_allocated()
+    mper_step = {"softmax_fwd_causal": 1, "softmax_bwd": 1, "fused_adam": 1}
+    mexpect = {k: v * MEGATRON_STEPS for k, v in mper_step.items()}
+    require(loop_launches == mexpect,
+            f"megatron launches {loop_launches}, expected {mexpect} (no "
+            f"fa_*)")
+    require(all(math.isfinite(x) for x in mlosses)
+            and mlosses[-1] < mlosses[0], f"megatron losses {mlosses}")
+    msteady = sorted(mstep_s[1:])[len(mstep_s[1:]) // 2] * 1e3
+    mkern = device_profile(lambda: mstep(mx, mtarget))
+    mbusy = by_kind(mkern)
+    msoftmax = {k: sum(x / 1e3 for n, x in mkern.items() if k in n)
+                for k in ("sm_fwd_resident", "sm_bwd_resident")}
+    mscale = mstep.state["scaler"].scale.item()
+    del mstep, mx, mtarget
+    torch.cuda.empty_cache()
+
+    # (b) fp32, batch 1: SelfMultiheadAttn (flash) against (a)'s unfused
+    # layer with the same weights, output and every parameter's gradient;
+    # then mha_reference against flash_attention on the same q, k, v
+    torch.manual_seed(1)
+    m32 = SelfMultiheadAttn(XL_EMBED, XL_HEADS, causal=True, use_rope=True,
+                            device=dev)
+    x1 = torch.randn(1, XL_SEQ, XL_EMBED, generator=mgen).to(dev)
+    r1 = torch.randn(1, XL_SEQ, XL_EMBED, generator=mgen).to(dev)
+
+    def out_and_grads(fn, module, r, *args):
+        """``fn(*args)`` and every parameter's gradient of ``sum(out *
+        r)``."""
+        module.zero_grad()
+        y = fn(*args)
+        (y * r).sum().backward()
+        return y.detach(), {n: p.grad.detach().clone()
+                            for n, p in module.named_parameters()}
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    y_fa, g_fa = out_and_grads(m32, m32, r1, x1)
+    y_un, g_un = out_and_grads(lambda x: unfused_self_attention(m32, x), m32,
+                               r1, x1)
+    self_out = rel(y_fa, y_un)
+    self_grad, self_grad_name = worst_rel(g_fa, g_un)
+    require(self_out <= MEGATRON_REL_L2 and self_grad <= MEGATRON_REL_L2,
+            f"SelfMultiheadAttn vs its unfused twin (fp32): output rel L2 "
+            f"{self_out}, {self_grad_name} gradient {self_grad}")
+    del m32, g_fa, g_un
+    qkv = [torch.randn(MEGATRON_BATCH, XL_HEADS, XL_SEQ, 64, device=dev,
+                       generator=gen) for _ in range(4)]
+    ref_in = [t.clone().requires_grad_(True) for t in qkv[:3]]
+    fa_in = [t.clone().requires_grad_(True) for t in qkv[:3]]
+    o_ref = mha_reference(*ref_in, causal=True)
+    o_ref.backward(qkv[3])
+    o_fa = flash_attention(*fa_in, True)
+    o_fa.backward(qkv[3])
+    torch.cuda.synchronize()
+    ok_o, err_o = close(o_fa.detach(), o_ref.detach(), *FA_TOL["fp32"])
+    grad_errs = [close(a.grad, b.grad, *FA_BWD_TOL["fp32"])
+                 for a, b in zip(fa_in, ref_in)]
+    require(ok_o and all(ok for ok, _ in grad_errs),
+            f"flash vs mha_reference at GPT-2 XL width (fp32): o err "
+            f"{err_o}, dq / dk / dv errs {[e for _, e in grad_errs]}")
+    del qkv, ref_in, fa_in, o_ref, o_fa
+
+    # (c) cross-attention, sq 1024 / sk 512, a (4, 1, 1, 512) key-padding
+    # mask: EncdecMultiheadAttn (flash) against its unfused twin through
+    # mha_reference(mask=...), fp32 forward and backward
+    torch.manual_seed(2)
+    emod = EncdecMultiheadAttn(XL_EMBED, XL_HEADS, device=dev)
+    eq = torch.randn(MEGATRON_BATCH, XL_SEQ, XL_EMBED, generator=mgen).to(dev)
+    ekv = torch.randn(MEGATRON_BATCH, 512, XL_EMBED, generator=mgen).to(dev)
+    er = torch.randn(MEGATRON_BATCH, XL_SEQ, XL_EMBED, generator=mgen) \
+        .to(dev)
+    elens = [512, 400, 256, 17]
+    emask = key_padding(elens, 512)
+    _build.reset_launches()
+    ye_mod, ge_mod = out_and_grads(emod, emod, er, eq, ekv, emask)
+    torch.cuda.synchronize()
+    enc_mod_launches = dict(_build.launches)
+    _build.reset_launches()
+    ye_un, ge_un = out_and_grads(lambda *a: unfused_encdec(emod, *a), emod,
+                                 er, eq, ekv, emask)
+    torch.cuda.synchronize()
+    enc_twin_launches = dict(_build.launches)
+    enc_out = rel(ye_mod, ye_un)
+    enc_grad, enc_grad_name = worst_rel(ge_mod, ge_un)
+    require(enc_mod_launches == {"fa_fwd": 1, "fa_bwd_dq": 1,
+                                 "fa_bwd_dkv": 1}
+            and enc_twin_launches == {"softmax_fwd": 1, "softmax_bwd": 1},
+            f"cross-attention launches: module {enc_mod_launches}, twin "
+            f"{enc_twin_launches}")
+    require(enc_out <= MEGATRON_REL_L2 and enc_grad <= MEGATRON_REL_L2,
+            f"EncdecMultiheadAttn vs its unfused twin (fp32): output rel L2 "
+            f"{enc_out}, {enc_grad_name} gradient {enc_grad}")
+    megatron_launches = dict(loop_launches)
+    for part in (enc_mod_launches, enc_twin_launches):
+        for name, n in part.items():
+            megatron_launches[name] = megatron_launches.get(name, 0) + n
+    for name, n in megatron_launches.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    del emod, eq, ekv, er, ye_mod, ge_mod, ye_un, ge_un
+    torch.cuda.empty_cache()
+
+    # (d) the rest of transformer/ at GPT-2 XL's widths, fp32: the dense
+    # modules and the MLP on 4096 tokens, held on their first rows against
+    # the same function on the CPU; linear_cross_entropy over the XL head
+    # against the dense head (logits + xentropy) on the card and against
+    # itself on the CPU
+    def module_vs_cpu(make, x):
+        torch.manual_seed(3)
+        card_mod = make(dev)
+        cpu_mod = make("cpu")
+        cpu_mod.load_state_dict({k: v.cpu() for k, v in
+                                 card_mod.state_dict().items()})
+        r = torch.randn(x.shape[0], XL_EMBED, generator=mgen)
+        out = {}
+        for where, m in (("card", card_mod), ("cpu", cpu_mod)):
+            xi = x.to(dev if where == "card" else "cpu").clone() \
+                .requires_grad_(True)
+            y = m(xi)
+            (y * r.to(xi.device)).sum().backward()
+            out[where] = (y.detach().cpu(), xi.grad.cpu(),
+                          {n: p.grad.cpu() for n, p in m.named_parameters()})
+        worst = max(rel(out["card"][0], out["cpu"][0]),
+                    rel(out["card"][1], out["cpu"][1]),
+                    worst_rel(out["card"][2], out["cpu"][2])[0])
+        return worst, card_mod
+
+    xrows = torch.randn(LCE_CHECK_ROWS, XL_EMBED, generator=mgen)
+    dgd_err, dgd = module_vs_cpu(
+        lambda d: FusedDenseGeluDense(XL_EMBED, 4 * XL_EMBED, XL_EMBED,
+                                      device=d), xrows)
+    mlp_err, mlpm = module_vs_cpu(
+        lambda d: MLP([XL_EMBED, 4 * XL_EMBED, XL_EMBED], device=d), xrows)
+    require(dgd_err <= MEGATRON_REL_L2 and mlp_err <= MEGATRON_REL_L2,
+            f"card vs CPU (fp32): FusedDenseGeluDense rel L2 {dgd_err}, MLP "
+            f"{mlp_err}")
+    xfull = torch.randn(MEGATRON_BATCH * XL_SEQ, XL_EMBED, generator=mgen) \
+        .to(dev)
+    dense_ms = {
+        "FusedDenseGeluDense": timed(lambda x: dgd(x).sum().backward(),
+                                     [(xfull,)], 5)["call_ms"],
+        "MLP": timed(lambda x: mlpm(x).sum().backward(), [(xfull,)],
+                     5)["call_ms"]}
+    del dgd, mlpm
+    head_w = (torch.randn(XL_EMBED, XL_VOCAB, generator=mgen) * 0.02).to(dev)
+    head_h = torch.randn(MEGATRON_BATCH * XL_SEQ, XL_EMBED,
+                         generator=mgen).to(dev)
+    head_lab = torch.randint(0, XL_VOCAB, (MEGATRON_BATCH * XL_SEQ,),
+                             generator=mgen).to(dev)
+    head_r = torch.rand(MEGATRON_BATCH * XL_SEQ, generator=mgen).to(dev)
+
+    def head(fn, h, w, lab, r):
+        """Loss and the gradients of hidden and weight, with the peak
+        device memory over the call beyond what was allocated before."""
+        h = h.clone().requires_grad_(True)
+        w = w.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = fn(h, w, lab)
+        (loss * r).sum().backward()
+        torch.cuda.synchronize()
+        return (loss.detach(), h.grad, w.grad,
+                torch.cuda.max_memory_allocated() - base,
+                (time.perf_counter() - t0) * 1e3)
+
+    lce = head(lambda h, w, lab: linear_cross_entropy(h, w, lab), head_h,
+               head_w, head_lab, head_r)
+    dense = head(lambda h, w, lab: softmax_cross_entropy_loss(h @ w, lab),
+                 head_h, head_w, head_lab, head_r)
+    lce_vs_dense = [rel(a, b) for a, b in zip(lce[:3], dense[:3])]
+    n = LCE_CHECK_ROWS
+    lce_card = head(lambda h, w, lab: linear_cross_entropy(h, w, lab),
+                    head_h[:n], head_w, head_lab[:n], head_r[:n])
+    hc = head_h[:n].cpu().requires_grad_(True)
+    wc = head_w.cpu().requires_grad_(True)
+    lc = linear_cross_entropy(hc, wc, head_lab[:n].cpu())
+    (lc * head_r[:n].cpu()).sum().backward()
+    lce_vs_cpu = [rel(a.cpu(), b) for a, b in zip(
+        lce_card[:3], (lc.detach(), hc.grad, wc.grad))]
+    require(max(lce_vs_dense) <= LCE_REL_L2
+            and max(lce_vs_cpu) <= MEGATRON_REL_L2,
+            f"linear_cross_entropy vs the dense head (loss, dh, dw rel L2) "
+            f"{lce_vs_dense}, vs the CPU {lce_vs_cpu}")
+    lce_peak, lce_ms, dense_peak, dense_head_ms = lce[3], lce[4], dense[3], \
+        dense[4]
+    del head_w, head_h, lce, dense, lce_card, hc, wc, lc
+    torch.cuda.empty_cache()
+    emit("megatron", config="GPT-2 XL attention (1600 wide, 25 heads x 64, "
+         "seq 1024; BASELINE.md config 5)", params="fp32", compute="bf16",
+         batch=MEGATRON_BATCH, seq=XL_SEQ, optimizer="FusedAdam(flat)",
+         lr=MEGATRON_LR, steps=MEGATRON_STEPS, losses=mlosses,
+         launches=loop_launches, launches_per_step=mper_step,
+         step_ms=[x * 1e3 for x in mstep_s], steady_step_ms=msteady,
+         tokens_per_s=MEGATRON_BATCH * XL_SEQ / msteady * 1e3,
+         step_device_busy_ms=mbusy, idle_share=1 - mbusy["total"] / msteady,
+         softmax_device_ms=msoftmax, top_kernels_ms=top_kernels(
+             mkern, lambda k: True), max_memory_allocated=mpeak,
+         loss_scale=mscale, self_attn_vs_unfused_rel_l2=self_out,
+         self_attn_grad_worst_rel_l2=self_grad,
+         self_attn_grad_worst_param=self_grad_name,
+         flash_vs_mha_reference={"o": err_o, "dq_dk_dv": [
+             e for _, e in grad_errs], "tol": {"o": FA_TOL["fp32"],
+                                              "grads": FA_BWD_TOL["fp32"]}},
+         encdec_lengths=elens, encdec_vs_unfused_rel_l2=enc_out,
+         encdec_grad_worst_rel_l2=enc_grad,
+         encdec_grad_worst_param=enc_grad_name,
+         encdec_launches={"module": enc_mod_launches,
+                          "twin": enc_twin_launches},
+         rel_l2_tol=MEGATRON_REL_L2,
+         dense_card_vs_cpu_rel_l2={"FusedDenseGeluDense": dgd_err,
+                                   "MLP": mlp_err},
+         dense_fwd_bwd_call_ms_4096_tokens=dense_ms,
+         lce_vs_dense_rel_l2={"loss": lce_vs_dense[0],
+                              "d_hidden": lce_vs_dense[1],
+                              "d_weight": lce_vs_dense[2]},
+         lce_vs_cpu_rel_l2=lce_vs_cpu, lce_rel_l2_tol=LCE_REL_L2,
+         lce_peak_bytes_over_inputs=lce_peak,
+         dense_head_peak_bytes_over_inputs=dense_peak,
+         dense_head_logits_bytes=MEGATRON_BATCH * XL_SEQ * XL_VOCAB * 4,
+         lce_fwd_bwd_wall_ms=lce_ms, dense_head_fwd_bwd_wall_ms=dense_head_ms,
+         card=card)
+
     kernels = []
-    for name, (src, tpu) in replaces.items():
+    for name, (src, tpu, calls) in KERNELS.items():
         rec = summary[name]
         require(main_launches.get(name, 0) > 0,
                 f"{name} was not launched on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "pallas_call": [f"{tpu.split(':')[0]}:{c}" for c in calls],
             "launches": main_launches[name],
             "launches_forward": fwd_launches.get(name, 0),
             "launches_serve": serve_launches.get(name, 0),
@@ -2201,6 +2753,7 @@ def main() -> int:
             "launches_bert": bert_launches.get(name, 0),
             "launches_resnet": resnet_launches.get(name, 0),
             "launches_unet": unet_launches.get(name, 0),
+            "launches_megatron": megatron_launches.get(name, 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -2208,7 +2761,7 @@ def main() -> int:
             "shape": {k: rec[k] for k in (
                 "form", "rows", "hidden", "b", "h", "sq", "sk", "causal",
                 "mask", "n", "tensors", "w", "c", "groups", "act", "algo",
-                "tile", "dtype") if k in rec}})
+                "tile", "scores", "mask_shape", "dtype") if k in rec}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,10 @@ identical bits (bf16 stores round to nearest even on both sides). The
 GroupNorm kernels: y fp32 (1e-5, 1e-5), bf16 (1e-5 absolute, 2^-7
 relative: one bf16 ulp), mean 1e-5, rstd 1e-4 relative, two runs
 identical. The wide LayerNorm forms take the LayerNorm tolerances; the
-flash kernels over a batch * heads above 65535 the flash ones.
+flash kernels over a batch * heads above 65535 the flash ones. The
+megatron softmax kernels: fp32 1e-6 absolute (summation order), bf16 and
+fp16 one ulp (2^-7 / 2^-10 relative, plus one subnormal step), the
+backward also 1e-6 absolute (the row sum's order); two runs identical.
 """
 
 import pytest
@@ -943,3 +946,84 @@ def test_public_norm_over_65536_launches_the_kernels(dev, rms):
     torch.testing.assert_close(card[0], cpu[0], atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(card[1], cpu[1], atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(card[2], cpu[2], atol=1e-3, rtol=1e-4)
+
+
+SM_TOL = {torch.float32: (1e-6, 0.0), torch.bfloat16: (2.0 ** -126, 2 ** -7),
+          torch.float16: (2.0 ** -24, 2 ** -10)}
+
+
+def _sm_inputs(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, device=dev, generator=g) * 3).to(dtype)
+    dy = torch.randn(shape, device=dev, generator=g).to(dtype)
+    m = torch.rand(shape[0], 1, *shape[2:], device=dev, generator=g) < 0.3
+    return x, dy, m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sk", [1, 31, 1024, 16385, 100003])
+@pytest.mark.parametrize("form", ["plain", "mask", "causal"])
+def test_softmax_kernels_match_plain(dev, form, sk, dtype):
+    """Each form of the forward and the backward against the plain
+    versions at rows of 1 .. 100,003 (the warp, block and streaming
+    forms), two runs bit-identical."""
+    from apex_tpu_torch.ops.softmax_kernel import (
+        softmax_bwd, softmax_bwd_plain, softmax_fwd, softmax_fwd_plain)
+    shape = (2, 3, 5, sk) if sk < 16385 else (1, 2, 3, sk)
+    x, dy, m = _sm_inputs(dev, shape, dtype, sk)
+    kw = dict(scale=0.37, causal=form == "causal",
+              mask=m if form == "mask" else None)
+    before = dict(_build.launches)
+    y = softmax_fwd(x, kw["mask"], scale=kw["scale"], causal=kw["causal"])
+    y2 = softmax_fwd(x, kw["mask"], scale=kw["scale"], causal=kw["causal"])
+    yp = softmax_fwd_plain(x, kw["mask"], scale=kw["scale"],
+                           causal=kw["causal"])
+    dx = softmax_bwd(y, dy, scale=0.37)
+    dx2 = softmax_bwd(y, dy, scale=0.37)
+    dxp = softmax_bwd_plain(y, dy, scale=0.37)
+    torch.cuda.synchronize()
+    name = "softmax_fwd_causal" if form == "causal" else "softmax_fwd"
+    assert _build.launches[name] == before.get(name, 0) + 2
+    atol, rtol = SM_TOL[dtype]
+    torch.testing.assert_close(y.float(), yp.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(dx.float(), dxp.float(),
+                               atol=max(atol, 1e-6), rtol=rtol)
+    assert torch.equal(y, y2) and torch.equal(dx, dx2)
+    assert y.dtype == dtype and dx.dtype == dtype
+
+
+def test_softmax_on_cuda_takes_the_kernels_at_every_shape(dev, monkeypatch):
+    """A (1, h, sq, sk) mask (JAX's route refuses it), a rank-3 one, rows
+    of 32,768 (past JAX's 16,384 columns) and a non-contiguous x run the
+    kernels through the public functions: the launches are counted and no
+    plain version is called."""
+    from apex_tpu_torch.ops import softmax_kernel as sk_mod
+    from apex_tpu_torch.transformer import softmax as tsm
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    ref = {}
+    cases = []
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(2, 4, 64, 96, device=dev, generator=g)
+    m1 = torch.rand(1, 4, 64, 96, device=dev, generator=g) < 0.3
+    m3 = (torch.rand(4, 64, 96, device=dev, generator=g) < 0.3).to(torch.int64)
+    xl = torch.randn(1, 2, 4, 32768, device=dev, generator=g)
+    xt = torch.randn(2, 4, 96, 64, device=dev, generator=g).transpose(-1, -2)
+    cases = [(x, m1), (x, m3), (xl, None), (xt, None)]
+    for xi, mi in cases:
+        ref[id(xi), id(mi)] = sk_mod.softmax_fwd_plain(xi, mi, scale=0.5)
+    monkeypatch.setattr(sk_mod, "softmax_fwd_plain", refuse)
+    monkeypatch.setattr(sk_mod, "softmax_bwd_plain", refuse)
+    _build.reset_launches()
+    for xi, mi in cases:
+        xg = xi.clone().requires_grad_(True)
+        y = tsm.generic_scaled_masked_softmax(xg, mi, 0.5)
+        y.sum().backward()
+        torch.testing.assert_close(y.detach(), ref[id(xi), id(mi)],
+                                   atol=1e-6, rtol=0)
+        assert xg.grad is not None
+    torch.cuda.synchronize()
+    assert _build.launches == {"softmax_fwd": 4, "softmax_bwd": 4}

@@ -32,6 +32,9 @@ from apex_tpu_torch.ops.layer_norm_kernel import ln_fwd
 from apex_tpu_torch.serve import cli
 from apex_tpu_torch.serve.engine import Engine, EngineConfig
 from apex_tpu_torch.serve.kv_cache import init_cache
+from apex_tpu_torch.transformer import (MLP, EncdecMultiheadAttn, FusedDense,
+                                        FusedDenseGeluDense,
+                                        SelfMultiheadAttn)
 from apex_tpu_torch.utils.device import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -98,6 +101,11 @@ MODULES = {
     "Conv": lambda **kw: Conv(4, 4, 3, **kw),
     "Bottleneck": lambda **kw: Bottleneck(8, 2, **kw),
     "GroupNorm": lambda **kw: GroupNorm(2, 8, **kw),
+    "SelfMultiheadAttn": lambda **kw: SelfMultiheadAttn(128, 2, **kw),
+    "EncdecMultiheadAttn": lambda **kw: EncdecMultiheadAttn(128, 2, **kw),
+    "FusedDense": lambda **kw: FusedDense(8, 4, **kw),
+    "FusedDenseGeluDense": lambda **kw: FusedDenseGeluDense(8, 16, 4, **kw),
+    "MLP": lambda **kw: MLP([8, 16, 4], **kw),
 }
 
 
@@ -236,15 +244,81 @@ def test_build_sources_and_digest():
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
                      "fused_adagrad.cu", "fused_adam.cu", "fused_lamb.cu",
                      "fused_novograd.cu", "fused_sgd.cu", "group_norm.cu",
-                     "layer_norm.cu"]
+                     "layer_norm.cu", "softmax.cu"]
     assert set(_build.SIGNATURES) == {
         "apex_ln_fwd", "apex_ln_bwd", "apex_fa_fwd", "apex_fa_bwd_dq",
         "apex_fa_bwd_dkv", "apex_fused_adam", "apex_fused_adam_master",
         "apex_lamb_stage1", "apex_lamb_stage2", "apex_fused_sgd",
         "apex_fused_novograd", "apex_fused_adagrad", "apex_gn_one_pass",
-        "apex_gn_stats", "apex_gn_apply"}
+        "apex_gn_stats", "apex_gn_apply", "apex_softmax_fwd",
+        "apex_softmax_bwd"}
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="cudaError 7"):
         _build.check(7, "x")
     _build.check(0, "x")
+
+
+def test_softmax_wrappers_refuse_other_devices():
+    """The softmax kernels' wrappers refuse a tensor that is neither on
+    the CPU nor on CUDA."""
+    from apex_tpu_torch.ops.softmax_kernel import softmax_bwd, softmax_fwd
+    x = torch.empty(2, 4, 8, device="meta")
+    for call in (lambda: softmax_fwd(x, scale=1.0),
+                 lambda: softmax_fwd(x, scale=1.0, causal=True),
+                 lambda: softmax_bwd(x, x, scale=1.0)):
+        with pytest.raises(ValueError, match="device"):
+            call()
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` imported as a module, without running ``main()``
+    (its top level imports only the standard library)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pallas_call_lines():
+    """``{file: {line, ...}}`` of every ``pl.pallas_call`` in the JAX
+    package's kernels."""
+    out = {}
+    for f in sorted((ROOT / "apex_tpu" / "ops" / "pallas").glob("*.py")):
+        rel = f.relative_to(ROOT).as_posix()
+        for i, line in enumerate(f.read_text().splitlines(), 1):
+            if "pl.pallas_call" in line:
+                out.setdefault(rel, set()).add(i)
+    return out
+
+
+def test_chip_smoke_kernel_table_names_every_pallas_call():
+    """The ``kernels`` line's references: each entry's ``replaces`` is a
+    ``def`` line of the JAX package, each of its call lines holds
+    ``pl.pallas_call``, its source exists, and the listed calls together
+    with the ones still to port are exactly the ``pl.pallas_call`` lines
+    of ``apex_tpu/ops/pallas/*.py``: a kernel no row accounts for, or a
+    stale line number, fails here."""
+    cs = _chip_smoke()
+    listed = {}
+    for name, (src, tpu, calls) in cs.KERNELS.items():
+        assert (ROOT / src).is_file(), (name, src)
+        path, line = tpu.rsplit(":", 1)
+        lines = (ROOT / path).read_text().splitlines()
+        assert lines[int(line) - 1].lstrip().startswith("def "), (name, tpu)
+        assert calls, name
+        for c in calls:
+            assert "pl.pallas_call" in lines[c - 1], (name, path, c)
+            listed.setdefault(path, set()).add(c)
+    for path, calls in cs.TO_PORT.items():
+        assert not listed.get(path, set()) & set(calls), path
+        listed.setdefault(path, set()).update(calls)
+    assert listed == _pallas_call_lines()
+    assert set(cs.KERNELS) == {
+        "ln_fwd", "ln_bwd", "fa_fwd", "fa_bwd_dq", "fa_bwd_dkv",
+        "fused_adam", "fused_adam_master", "lamb_stage1", "lamb_stage2",
+        "fused_sgd", "fused_novograd", "fused_adagrad", "gn_one_pass",
+        "gn_stats", "gn_apply", "softmax_fwd", "softmax_fwd_causal",
+        "softmax_bwd"}
