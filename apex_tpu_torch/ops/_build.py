@@ -40,6 +40,7 @@ _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
+_u64 = ctypes.c_ulonglong
 # C signatures of the entries the wrappers call (all return cudaError_t)
 SIGNATURES = {
     # x, gamma, beta (both may be null), y, mean, invvar, rows, hidden,
@@ -94,6 +95,24 @@ SIGNATURES = {
     "apex_softmax_fwd": [_vp, _vp, _vp, _vp, _ll, _i, _i, _f, _i, _i, _vp],
     # y, dy, dx, rows, sk, scale, dtype, stream
     "apex_softmax_bwd": [_vp, _vp, _vp, _ll, _i, _f, _i, _vp],
+    # the IPC arenas: nbytes, device, out pointer / pointer, out handle /
+    # handle, device, out pointer / pointer / pointer
+    "apex_ipc_alloc": [_ll, _i, _vp],
+    "apex_ipc_handle": [_vp, _vp],
+    "apex_ipc_open": [_vp, _i, _vp],
+    "apex_ipc_close": [_vp],
+    "apex_ipc_free": [_vp],
+    # src, dst (peer), nbytes, ack, ack_need, ready (peer), epoch,
+    # counter, timeout_ns, stream
+    "apex_peer_put": [_vp, _vp, _ll, _vp, _u64, _vp, _u64, _vp, _u64, _vp],
+    # src_lo, dst_lo (left's hi), src_hi, dst_hi (right's lo), nbytes,
+    # ack_out_left, ack_out_right, ack_in_left, ack_in_right, prev,
+    # ready_left, ready_right, epoch, counter, timeout_ns, stream
+    "apex_halo_put": [_vp, _vp, _vp, _vp, _ll, _vp, _vp, _vp, _vp, _u64,
+                      _vp, _vp, _u64, _vp, _u64, _vp],
+    # ready, epoch, landing, out (both may be null), nbytes, ack (peer, may
+    # be null), counter, timeout_ns, stream
+    "apex_peer_wait": [_vp, _u64, _vp, _vp, _ll, _vp, _vp, _u64, _vp],
 }
 
 launches: collections.Counter = collections.Counter()

@@ -152,13 +152,54 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    (4096 x 1600 against 1600 x 50257 fp32) against the dense head on the
    card and against itself on the CPU, with the peak memory of each head.
 
+11. ``kernel`` rows of the remote-copy kernels (``peer_put``,
+   ``peer_wait``, ``halo_put``), in rank processes that share this card
+   through CUDA IPC (``spawn_ranks``; the library is built first, in this
+   process), at worlds 4 and 2: ``peer_shift`` (shift 1, -1, 2) over
+   bf16, fp32 and uint8 at 1 element, sizes that are no multiple of 16
+   bytes and the ring's K shards at both worlds (1 x 12 x 4096 x 64 and 1
+   x 12 x 8192 x 64: 6.29 and 12.6 MB bf16, 12.6 and 25.2 MB fp32), and
+   ``halo_exchange_rdma`` (halo 1 and 3, periodic or not,
+   fresh and ``PeerMemoryPool`` landing buffers threaded twice) on the
+   halo phase's strips, a sliced plan and an odd shard: every result bit
+   for bit equal to the neighbour's input made again from its seed, to a
+   second run and to the plain version (gloo, CPU tensors), with exact
+   launch counts. Each kernel's ``ms`` is its device time alone as a
+   self-put, in a group of this one process (the put lands in its own
+   arena), and ``library_ms`` a ``dst.copy_(src)`` into an arena in the
+   same set-up; beside them rank 0's device time inside the 4- and 2-rank
+   rings (which includes the other processes' time slices), the plain
+   version's host time, and the ``copy_`` into a peer-mapped view at
+   world 2.
+12. ``ring``: ring attention at GPT-2 small's attention widths (12 heads x
+   64, batch 1) over a 16,384-token bf16 context at worlds 4 and 2
+   (``transport="rdma"``): causal contiguous, causal zigzag and
+   non-causal, forward and backward through autograd; the gathered o and
+   gradients against the full-sequence flash on this card (rel L2 1e-2 /
+   2e-2; an fp32 run at 1,024 tokens a rank 1e-5 / 1e-4); exactly n
+   ``fa_fwd``, n ``fa_bwd_dq``, n ``fa_bwd_dkv`` and 2(n-1) + 2(n-1) + 2n
+   ``peer_put`` / ``peer_wait`` a rank a step; step ms per rank,
+   tokens/s, and the same attention as one full-sequence flash forward +
+   backward in this process as the yardstick.
+13. ``halo``: ResNet-50 stage 1's 3x3 conv input (32 x 56 x 56 x 64 bf16
+   NHWC) split 4 ways in H; each rank pads its tile through
+   ``PeerHaloExchanger1d(transport="rdma", peer_pool=pool)`` (halo rows
+   bit for bit its neighbours' edge rows) and runs the conv VALID in H;
+   the tiles' outputs against the image's SAME conv (rel L2 1e-2); one
+   ``halo_put`` and two ``peer_wait`` an exchange;
+   ``memory_allocated`` flat over 10 iterations, and the landing buffers
+   (IPC arenas, which ``memory_allocated`` does not see) the pool's two,
+   with no arena made or grown after the first exchange.
+
 Then a ``{"kernels": [...]}`` line (launches counted over the main path:
 the forward of phase 3, the serve run of phase 4, the 5 train steps of
 phase 6, the 5 BERT steps of phase 7, the optimizer steps of phase 8,
-the 5 UNet steps of phase 9 and phase 10's loop and cross-attention, each
-with the counts zeroed just before it; every kernel of ``KERNELS`` with
-the ``pl.pallas_call`` lines it replaces), the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``. Any failed check raises and the
+the 5 UNet steps of phase 9, phase 10's loop and cross-attention, one
+counted step of each bf16 ring run of phase 12 (all ranks) and one
+exchange of phase 13 (all ranks), each with the counts zeroed just
+before it; every kernel of ``KERNELS`` with the ``pl.pallas_call`` lines
+it replaces), the ``nvidia-smi`` line, and last ``{"ok": true,
+"device": {...}}``. Any failed check raises and the
 script exits non-zero without that last line; without CUDA, or away from
 the checkout, it exits 2 at once.
 """
@@ -243,8 +284,9 @@ LCE_CHECK_ROWS = 512     # rows of the card-vs-CPU checks of (d)
 # backward and LAMB, the kernel body) and the lines of the ``pl.pallas_call``
 # sites that run it. ``softmax_fwd_causal`` also takes the causal form of
 # ``softmax_fwd_pallas``'s own call. ``TO_PORT`` holds the calls no kernel
-# of the port replaces yet; together the two are every ``pl.pallas_call``
-# in ``apex_tpu/ops/pallas/`` (tests/test_torch_package.py checks it).
+# of the port replaces yet (none is left); together the two are every
+# ``pl.pallas_call`` in ``apex_tpu/ops/pallas/`` (tests/test_torch_package.py
+# checks it).
 _P = "apex_tpu/ops/pallas/"
 KERNELS = {
     "ln_fwd": ("apex_tpu_torch/csrc/layer_norm.cu",
@@ -283,8 +325,16 @@ KERNELS = {
                            _P + "softmax_kernel.py:140", (181,)),
     "softmax_bwd": ("apex_tpu_torch/csrc/softmax.cu",
                     _P + "softmax_kernel.py:265", (280,)),
+    "peer_put": ("apex_tpu_torch/csrc/remote_copy.cu",
+                 _P + "remote_copy.py:45", (54,)),
+    "halo_put": ("apex_tpu_torch/csrc/remote_copy.cu",
+                 _P + "remote_copy.py:127", (177, 187)),
+    # the receiving half of both Pallas kernels (their DMA semaphore
+    # waits): the landing flag, the copy-out, the acknowledgement
+    "peer_wait": ("apex_tpu_torch/csrc/remote_copy.cu",
+                  _P + "remote_copy.py:34", (54, 177, 187)),
 }
-TO_PORT = {_P + "remote_copy.py": (54, 177, 187)}
+TO_PORT: dict = {}
 
 
 def emit(phase: str, **fields) -> None:
@@ -500,6 +550,427 @@ def unfused_encdec(mod, query, key_value, mask):
 def megatron_loss(model, x, target):
     """MSE of the unfused layer's output against a fixed target, fp32."""
     return ((unfused_self_attention(model, x).float() - target) ** 2).mean()
+
+
+# ------------------------------------------- phases 11-13: rank processes
+# The remote-copy kernels, ring attention and the halo exchange run in rank
+# processes spawned on the one card (``spawn_ranks``); each maps its peers'
+# arenas through CUDA IPC. These workers run in those processes.
+
+RING_HEADS, RING_HEAD_DIM = 12, 64     # GPT2Config.small: 12 heads x 64
+RING_TOKENS = 16384                    # the ring's global context, bf16
+RING_FP32_PER_RANK = 1024              # the fp32 cross-check's tokens a rank
+RING_LAYOUTS = [("contig", True), ("zigzag", True), ("contig", False)]
+RING_TOL = {"bf16": (1e-2, 2e-2), "fp32": (1e-5, 1e-4)}  # rel L2 (o, grads)
+RING_TIMED_STEPS = 3
+HALO_IMAGE = (32, 56, 56, 64)   # ResNet-50 stage 1's 3x3 conv input, NHWC
+HALO_WORLD = 4                  # H split 4 ways: 14 rows a rank
+HALO_ITERS = 10                 # iterations after the first: memory flat
+HALO_CONV_TOL = 1e-2            # rel L2, bf16 conv of tiles vs the image
+# what the remote-copy rows' ms and library_ms time; the cross-process
+# readings are their ms_in_ring and library_ms_world2
+SELF_PUT = ("self-put: a one-process group, the put lands in its own arena;"
+            " library_ms is a copy_ into that arena")
+PEER_SPEC = {
+    # peer_shift sizes (elements): one element, sizes that are no multiple
+    # of 16 bytes, the ring's K shards at world 4 (1 x 12 x 4096 x 64:
+    # 6.29 MB bf16, 12.6 MB fp32 as its dK) and at world 2 (1 x 12 x 8192
+    # x 64: 12.6 MB bf16, 25.2 MB fp32), each checked at both worlds
+    "shift_sizes": {"bf16": [1, 3, 1_000_003, 3_145_728, 6_291_456],
+                    "fp32": [1, 3, 1_000_003, 3_145_728, 6_291_456],
+                    "u8": [1, 4097, 3_145_728]},
+    # halo_exchange_rdma shards: the halo phase's strips (the whole-shard
+    # plan), a sliced plan (fp32 / bf16), an odd small one
+    "halo_shapes": [(2, 32, 56, 64), (48, 2048), (5, 7)],
+    "timed_shift": 3_145_728,
+    "timed_strips": (2, 32, 56, 64),
+}
+_PEER_DTYPES = ("bf16", "fp32", "u8")
+
+
+def _tdtype(name):
+    import torch
+    return {"bf16": torch.bfloat16, "fp32": torch.float32,
+            "u8": torch.uint8}[name]
+
+
+def _seeded(rank, salt, numel, dtype, device):
+    """The input rank ``rank`` makes for case ``salt``: any rank can make
+    it again from the rank's number."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(1000 * rank + salt)
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, (numel,), generator=g, device=device,
+                             dtype=torch.uint8)
+    return torch.randn(numel, generator=g, device=device).to(dtype)
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    return (tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype
+            and a.device == b.device
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def _rank_profile(fn, reps, passes=3):
+    """``{kernel: mean device ms per call}`` of ``fn`` over ``reps`` calls
+    under torch.profiler. Every rank runs the same ``passes`` (the calls
+    exchange data, so the ranks' loops must match); the first pass that
+    recorded device kernels counts."""
+    import torch
+    found = {}
+    for _ in range(passes):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                out[ev.name] = out.get(ev.name, 0.0) + \
+                    ev.time_range.elapsed_us()
+        if out and not found:
+            found = {k: us / 1e3 / reps for k, us in out.items()}
+    return found
+
+
+def _event_ms(fn, reps):
+    """Mean ms per call of ``fn`` between two CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _l2_sets(rank, salt, numel, dtype, device):
+    """Copies of a seeded input, as bytes, enough that cycling through them
+    finds each out of the 50 MB L2."""
+    import torch
+    one = _seeded(rank, salt, numel, dtype, device).view(torch.uint8)
+    count = int(min(16, max(2, math.ceil(2 * L2_BYTES / one.numel()))))
+    return [one.clone() for _ in range(count)]
+
+
+def _cycle(items):
+    while True:
+        yield from items
+
+
+def _pick(prof, key):
+    return sum(ms for name, ms in prof.items() if key in name)
+
+
+def _rank_checks(group, spec):
+    """The remote-copy kernels between distinct rank processes:
+    ``peer_shift`` (shift 1, -1, 2) and ``halo_exchange_rdma`` (halo 1 and
+    3, periodic or not, fresh and pool landing buffers threaded twice) in
+    bf16, fp32 and uint8, each result bit for bit equal to the neighbour's
+    input made again from its seed, to a second run, and to the plain
+    version (gloo) on the same inputs. Then the kernels timed in the ring
+    (rank 0) and the library copy into a peer-mapped view."""
+    import torch
+    from apex_tpu_torch.contrib.peer_memory import PeerMemoryPool
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.ops import remote_copy as rc
+    n, me, dev = group.axis_size(), group.axis_index(), group.device
+    shift_checks = halo_checks = 0
+    for d, name in enumerate(_PEER_DTYPES):
+        dtype = _tdtype(name)
+        for i, numel in enumerate(spec["shift_sizes"][name]):
+            salt = 100 * d + i
+            x = _seeded(me, salt, numel, dtype, dev)
+            for shift in (1, -1, 2):
+                got = rc.peer_shift(x, group, shift)
+                again = rc.peer_shift(x, group, shift)
+                plain = rc.peer_shift_plain(x.cpu(), group, shift)
+                want = _seeded((me - shift) % n, salt, numel, dtype, dev)
+                require(_same_bits(got, want) and _same_bits(again, got)
+                        and _same_bits(got.cpu(), plain),
+                        f"rank {me}/{n}: peer_shift {name} x {numel} shift "
+                        f"{shift} differs from the neighbour's input, the "
+                        f"second run or the plain version")
+                shift_checks += 1
+        # a source that starts 1 element into its storage: the kernel's
+        # 8-, 4-, 2- and 1-byte word paths (the landing slot is aligned)
+        salt = 100 * d + 99
+        x = _seeded(me, salt, 4097, dtype, dev)[1:]
+        got = rc.peer_shift(x, group, 1)
+        want = _seeded((me - 1) % n, salt, 4097, dtype, dev)[1:]
+        require(_same_bits(got, want.contiguous()),
+                f"rank {me}/{n}: peer_shift {name} of an offset view")
+        shift_checks += 1
+    pool = PeerMemoryPool(static_size=16 << 20, group=group)
+    for d, name in enumerate(_PEER_DTYPES):
+        dtype = _tdtype(name)
+        for i, shape in enumerate(spec["halo_shapes"]):
+            rows, numel = shape[0], math.prod(shape)
+            salt = 500 + 10 * d + i
+            x = _seeded(me, salt, numel, dtype, dev).view(shape)
+            left = _seeded((me - 1) % n, salt, numel, dtype, dev).view(shape)
+            right = _seeded((me + 1) % n, salt, numel, dtype,
+                            dev).view(shape)
+            for halo in (1, 3):
+                if halo > rows:
+                    continue
+                pool_bufs = pool.allocate_halo_buffers(shape, halo,
+                                                       dtype)[:2]
+                for periodic in (False, True):
+                    want_lo = left[rows - halo:]
+                    want_hi = right[:halo]
+                    if not periodic and me == 0:
+                        want_lo = torch.zeros_like(want_lo)
+                    if not periodic and me == n - 1:
+                        want_hi = torch.zeros_like(want_hi)
+                    plo, phi = rc.halo_exchange_rdma(x.cpu(), group, halo,
+                                                     periodic=periodic)
+                    for bufs in (None, pool_bufs):
+                        for _ in range(2):
+                            lo, hi, bufs = rc.halo_exchange_rdma(
+                                x, group, halo, periodic=periodic,
+                                bufs=bufs, return_bufs=True)
+                            require(_same_bits(lo, want_lo)
+                                    and _same_bits(hi, want_hi)
+                                    and _same_bits(lo.cpu(), plo)
+                                    and _same_bits(hi.cpu(), phi),
+                                    f"rank {me}/{n}: halo {name} {shape} "
+                                    f"halo {halo} periodic {periodic} "
+                                    f"pool {bufs is not None}")
+                            halo_checks += 1
+    torch.cuda.synchronize()
+    check_launches = dict(_build.launches)
+    # the kernels in the ring: every rank runs the same loops; rank 0's
+    # device times include its waits on the peers' time slices
+    timed = {}
+    for name in ("bf16", "fp32"):
+        x = _seeded(me, 900, spec["timed_shift"], _tdtype(name), dev)
+        timed[f"shift_{name}"] = _rank_profile(
+            lambda: rc.peer_shift(x, group, 1), 20)
+        timed[f"shift_{name}_call_ms"] = _event_ms(
+            lambda: rc.peer_shift(x, group, 1), 20)
+        xc = x.cpu()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rc.peer_shift_plain(xc, group, 1)
+        timed[f"shift_{name}_plain_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    strips = _seeded(me, 901, math.prod(spec["timed_strips"]),
+                     _tdtype("bf16"), dev).view(spec["timed_strips"])
+    timed["halo"] = _rank_profile(
+        lambda: rc.halo_exchange_rdma(strips, group, 1), 20)
+    timed["halo_call_ms"] = _event_ms(
+        lambda: rc.halo_exchange_rdma(strips, group, 1), 20)
+    sc = strips.cpu()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        rc.halo_exchange_rdma(sc, group, 1)
+    timed["halo_plain_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    # the library call: dst.copy_(src) into the next rank's mapped memory,
+    # the sources rotated through more than the 50 MB L2 as the kernels'
+    for name in ("bf16", "fp32"):
+        srcs = _l2_sets(me, 902, spec["timed_shift"], _tdtype(name), dev)
+        nbytes = srcs[0].numel()
+        scratch = rc.IpcArena(group, nbytes)
+        if me == 0:
+            view = rc.device_bytes(scratch.peer_ptr((me + 1) % n), nbytes,
+                                   dev)
+            it = _cycle(srcs)
+            prof = _rank_profile(lambda: view.copy_(next(it)), 20, passes=2)
+            timed[f"library_{name}"] = sum(prof.values())
+            timed[f"library_{name}_call_ms"] = _event_ms(
+                lambda: view.copy_(next(it)), 20)
+        del srcs
+        torch.cuda.synchronize()
+        group.barrier()
+    # one halo_put of the strips (the whole-shard plan) moves the shard to
+    # each neighbour: two copies of its bytes
+    strip_bytes = math.prod(spec["timed_strips"]) * 2
+    srcs = _l2_sets(me, 903, strip_bytes // 2, _tdtype("bf16"), dev)
+    scratch = rc.IpcArena(group, strip_bytes)
+    if me == 0:
+        view = rc.device_bytes(scratch.peer_ptr((me + 1) % n), strip_bytes,
+                               dev)
+        it = _cycle(srcs)
+        prof = _rank_profile(lambda: (view.copy_(next(it)),
+                                      view.copy_(next(it))), 20, passes=2)
+        timed["library_halo"] = sum(prof.values())
+    torch.cuda.synchronize()
+    group.barrier()
+    return {"shift_checks": shift_checks, "halo_checks": halo_checks,
+            "launches": check_launches, "timed": timed if me == 0 else None}
+
+
+def _rank_ring(group, spec):
+    """Ring attention at GPT-2 small's attention widths over the group,
+    ``transport="rdma"``: causal contiguous, causal zigzag and non-causal,
+    forward and backward through autograd; bf16 at a global 16,384 tokens
+    and fp32 at 1,024 a rank. Returns each run's local o / dq / dk / dv
+    (bf16 as int16 bits), its launches in one step, the step times (bf16)
+    and rank 0's device time of one step by kernel."""
+    import torch
+    from apex_tpu_torch.ops import _build
+    from apex_tpu_torch.parallel import (ring_self_attention,
+                                         zigzag_ring_self_attention,
+                                         zigzag_shard)
+    n, me, dev = group.axis_size(), group.axis_index(), group.device
+    out = {}
+    for dt, tokens in (("bf16", RING_TOKENS), ("fp32",
+                                                RING_FP32_PER_RANK * n)):
+        dtype = _tdtype(dt)
+        full = _ring_inputs(tokens, dtype, dev)
+        for layout, causal in RING_LAYOUTS:
+            arrs = [zigzag_shard(t, n) if layout == "zigzag" else t
+                    for t in full]
+            q, k, v, do = (t.chunk(n, dim=2)[me].contiguous() for t in arrs)
+
+            def step():
+                qs, ks, vs = (t.detach().requires_grad_(True)
+                              for t in (q, k, v))
+                if layout == "zigzag":
+                    o = zigzag_ring_self_attention(qs, ks, vs, group,
+                                                   transport="rdma")
+                else:
+                    o = ring_self_attention(qs, ks, vs, group, causal=causal,
+                                            transport="rdma")
+                o.backward(do)
+                return o.detach(), qs.grad, ks.grad, vs.grad
+
+            step()
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            res = step()
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+            rec = {"launches": launches}
+            if dt == "bf16":
+                times = []
+                for _ in range(RING_TIMED_STEPS):
+                    group.barrier()
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                rec["step_ms"] = times
+                prof = _rank_profile(step, 1)
+                rec["profile"] = {
+                    "flash_fwd": _pick(prof, "fa_fwd_kernel"),
+                    "flash_bwd": _pick(prof, "fa_bwd_"),
+                    "peer_put": _pick(prof, "peer_put_kernel"),
+                    "peer_wait": _pick(prof, "peer_wait_kernel"),
+                    "total": sum(prof.values())} if me == 0 else None
+            rec["tensors"] = [
+                (t.view(torch.int16) if dt == "bf16" else t).cpu().numpy()
+                for t in res]
+            out[(dt, layout, causal)] = rec
+    return out
+
+
+def _ring_inputs(tokens, dtype, device):
+    """Global q, k, v and the output gradient (1, 12, tokens, 64), made
+    on the card from one seed: every rank and the parent make the same."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(tokens)
+    shape = (1, RING_HEADS, tokens, RING_HEAD_DIM)
+    return [torch.randn(shape, generator=g, device=device).to(dtype)
+            for _ in range(4)]
+
+
+def _halo_inputs(device):
+    """The image (NHWC, bf16) and the 3x3 conv weight (OIHW, bf16)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(56)
+    x = torch.randn(HALO_IMAGE, generator=g, device=device).to(
+        torch.bfloat16)
+    c = HALO_IMAGE[-1]
+    w = (torch.randn(c, c, 3, 3, generator=g, device=device) / 24).to(
+        torch.bfloat16)
+    return x, w
+
+
+def _rank_halo(group, spec):
+    """H of ResNet-50 stage 1's conv input split over the ranks: each
+    pads its tile with the neighbours' edge rows through
+    ``PeerHaloExchanger1d(transport="rdma", peer_pool=pool)`` and runs the
+    3x3 conv VALID in H. Checks the halo rows bit for bit, counts one
+    exchange's launches, times the exchange, and reads the device memory
+    after each of ``HALO_ITERS`` more iterations."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.contrib.peer_memory import (PeerHaloExchanger1d,
+                                                    PeerMemoryPool)
+    from apex_tpu_torch.ops import _build
+    n, me, dev = group.axis_size(), group.axis_index(), group.device
+    x, w = _halo_inputs(dev)
+    rows = HALO_IMAGE[1] // n
+    tile = x[:, me * rows:(me + 1) * rows].contiguous()
+    pool = PeerMemoryPool(static_size=4 << 20, group=group)
+    ex = PeerHaloExchanger1d(half_halo=1, group=group, transport="rdma",
+                             peer_pool=pool)
+
+    def step():
+        padded = ex(tile, spatial_axis=1)
+        y = F.conv2d(padded.permute(0, 3, 1, 2), w, padding=(0, 1))
+        return padded, y.permute(0, 2, 3, 1)
+
+    step()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    padded, y = step()
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+
+    def arena_state():
+        # the landing buffers live in IPC arenas (cudaMalloc), which
+        # memory_allocated does not see
+        return (len(group.arenas), sum(a.nbytes for a in group.arenas))
+
+    arenas = [arena_state()]
+    top = x[:, me * rows - 1] if me > 0 else torch.zeros_like(x[:, 0])
+    bottom = x[:, (me + 1) * rows] if me < n - 1 \
+        else torch.zeros_like(x[:, 0])
+    require(_same_bits(padded[:, 0].contiguous(), top.contiguous())
+            and _same_bits(padded[:, -1].contiguous(), bottom.contiguous())
+            and _same_bits(padded[:, 1:-1].contiguous(), tile),
+            f"rank {me}: the padded tile's halo rows are not the "
+            f"neighbours' edge rows")
+    y_out = y.contiguous().view(torch.int16).cpu().numpy()
+    del padded, y
+    mem = []
+    for _ in range(HALO_ITERS):
+        padded, y = step()
+        del padded, y
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated(dev))
+        arenas.append(arena_state())
+    group.barrier()
+    exch_ms = _event_ms(lambda: ex(tile, spatial_axis=1), 20)
+    step_ms = _event_ms(step, 20)
+    prof = _rank_profile(lambda: ex(tile, spatial_axis=1), 20)
+    return {"y": y_out, "launches": launches, "memory_allocated": mem,
+            "arenas": arenas,
+            "exchange_call_ms": exch_ms, "step_call_ms": step_ms,
+            "exchange_profile": {
+                "halo_put": _pick(prof, "halo_put_kernel"),
+                "peer_wait": _pick(prof, "peer_wait_kernel"),
+                "total": sum(prof.values())} if me == 0 else None,
+            "pool_allocations": len(pool.allocations)}
+
+
+def _rank_path(group, spec):
+    """Everything a rank process runs: the kernel checks, the ring, and at
+    ``HALO_WORLD`` ranks the halo exchange."""
+    res = {"checks": _rank_checks(group, spec),
+           "ring": _rank_ring(group, spec)}
+    if group.axis_size() == HALO_WORLD:
+        res["halo"] = _rank_halo(group, spec)
+    return res
 
 
 def main() -> int:
@@ -2738,6 +3209,260 @@ def main() -> int:
          lce_fwd_bwd_wall_ms=lce_ms, dense_head_fwd_bwd_wall_ms=dense_head_ms,
          card=card)
 
+    # -------------- 11. the remote-copy kernels (rows 19-21), 12. ring,
+    # 13. halo: rank processes on this card
+    from apex_tpu_torch.ops import remote_copy as rc
+    from apex_tpu_torch.parallel import RankGroup, spawn_ranks, zigzag_shard
+    torch.cuda.empty_cache()
+
+    def f32(t):
+        return t.float() if t.is_floating_point() else t.to(torch.int32)
+
+    def max_err(got, want):
+        return (f32(got) - f32(want)).abs().max().item() if got.numel() \
+            else 0.0
+
+    # (a) each kernel alone: a group of this one process, whose puts land
+    # in its own arena (self-puts), so no other process's time slice is in
+    # the times; the library call is timed in the same set-up, a copy_
+    # into a view of an arena of this process
+    g1 = RankGroup(device=dev)
+
+    def arena_view(nbytes):
+        return rc.device_bytes(rc.IpcArena(g1, nbytes).local_ptr(), nbytes,
+                               dev)
+
+    solo = {}
+    for dt in ("bf16", "fp32"):
+        numel = PEER_SPEC["timed_shift"]
+        nbytes = numel * tdt[dt].itemsize
+        sets = [(_seeded(0, 950 + i, numel, tdt[dt], dev),)
+                for i in range(n_sets(2 * nbytes))]
+        err = max(max_err(rc.peer_shift(x, g1, 1), x) for (x,) in sets)
+        kern = device_kernels(lambda x: rc.peer_shift(x, g1, 1), sets, 20)
+        outs = [(torch.empty_like(x), x) for (x,) in sets]
+        view = arena_view(nbytes)
+        raw = [(x.view(torch.uint8),) for (x,) in sets]
+        solo[dt] = {"err": err, "put": _pick(kern, "peer_put_kernel"),
+                    "wait": _pick(kern, "peer_wait_kernel"),
+                    "call_ms": bench_ms(lambda x: rc.peer_shift(x, g1, 1),
+                                        sets, 20),
+                    # peer_wait's copy-out as one library call
+                    "copy_ms": device_ms(lambda o, x: o.copy_(x), outs, 20),
+                    # peer_put's: one copy_ into the arena
+                    "library_ms": device_ms(lambda x: view.copy_(x), raw,
+                                            20),
+                    "library_call_ms": bench_ms(lambda x: view.copy_(x),
+                                                raw, 20),
+                    "bytes": nbytes}
+    strip_shape = PEER_SPEC["timed_strips"]
+    strip_bytes = math.prod(strip_shape) * 2
+    ssets = [(_seeded(0, 960 + i, math.prod(strip_shape), torch.bfloat16,
+                      dev).view(strip_shape),) for i in range(4)]
+    herr = 0.0
+    for (s,) in ssets:
+        lo, hi = rc.halo_exchange_rdma(s, g1, 1, periodic=True)
+        herr = max(herr, max_err(lo, s[1:]), max_err(hi, s[:1]))
+    hkern = device_kernels(lambda s: rc.halo_exchange_rdma(s, g1, 1), ssets,
+                           20)
+    hview = arena_view(strip_bytes)
+    # halo_put's: one copy_ of the strips into the arena for each
+    # neighbour
+    hlib = device_ms(lambda s: (hview.copy_(s.reshape(-1).view(torch.uint8)),
+                                hview.copy_(s.reshape(-1).view(torch.uint8))),
+                     ssets, 20)
+    solo["halo"] = {"err": herr, "put": _pick(hkern, "halo_put_kernel"),
+                    "library_ms": hlib,
+                    "wait": _pick(hkern, "peer_wait_kernel"),
+                    "call_ms": bench_ms(
+                        lambda s: rc.halo_exchange_rdma(s, g1, 1), ssets, 20)}
+    g1.close()
+    del sets, outs, raw, ssets, view, hview
+    torch.cuda.empty_cache()
+
+    # (b) worlds 4 and 2: the checks, the ring and (at 4) the halo phase
+    path, spawn_s = {}, {}
+    for world in (HALO_WORLD, 2):
+        t0 = time.perf_counter()
+        path[world] = spawn_ranks(_rank_path, world, (PEER_SPEC,),
+                                  device=dev, timeout_s=600)
+        spawn_s[world] = time.perf_counter() - t0
+    n_shift = 3 * sum(len(v) for v in PEER_SPEC["shift_sizes"].values()) \
+        + len(_PEER_DTYPES)
+    n_halo = 2 * 2 * 2 * sum(
+        sum(1 for h in (1, 3) if h <= shape[0])
+        for shape in PEER_SPEC["halo_shapes"]) * len(_PEER_DTYPES)
+    # two runs of each checked shift, one of each offset view
+    n_puts = 2 * n_shift - len(_PEER_DTYPES)
+    check_launches = {"peer_put": n_puts, "halo_put": n_halo,
+                      "peer_wait": n_puts + 2 * n_halo}
+    for world, ranks in path.items():
+        for r, res in enumerate(ranks):
+            c = res["checks"]
+            require(c["shift_checks"] == n_shift
+                    and c["halo_checks"] == n_halo
+                    and c["launches"] == check_launches,
+                    f"world {world} rank {r}: {c['shift_checks']} shift / "
+                    f"{c['halo_checks']} halo checks, launches "
+                    f"{c['launches']}; expected {n_shift} / {n_halo}, "
+                    f"{check_launches}")
+    tw = {world: ranks[0]["checks"]["timed"] for world, ranks in path.items()}
+    for dt in ("bf16", "fp32"):
+        nb = solo[dt]["bytes"]
+        bms, by = bound(2 * nb, 0, "fp32")
+        common = dict(setup=SELF_PUT, n=PEER_SPEC["timed_shift"], dtype=dt,
+                      bytes=nb,
+                      max_abs_err=solo[dt]["err"], bound_ms=bms, bound_by=by,
+                      call_ms=solo[dt]["call_ms"],
+                      plain_ms=tw[2][f"shift_{dt}_plain_ms"],
+                      checks_per_rank=n_shift,
+                      shift_call_ms_world={w: tw[w][f"shift_{dt}_call_ms"]
+                                           for w in tw}, card=card)
+        rput = dict(kernel="peer_put", ms=solo[dt]["put"],
+                    ms_in_ring={w: _pick(tw[w][f"shift_{dt}"],
+                                         "peer_put_kernel") for w in tw},
+                    library_ms=solo[dt]["library_ms"],
+                    library_call_ms=solo[dt]["library_call_ms"],
+                    library_ms_world2=tw[2][f"library_{dt}"],
+                    library_call_ms_world2=tw[2][f"library_{dt}_call_ms"],
+                    **common)
+        rwait = dict(kernel="peer_wait", ms=solo[dt]["wait"],
+                     ms_in_ring={w: _pick(tw[w][f"shift_{dt}"],
+                                          "peer_wait_kernel") for w in tw},
+                     library_ms=solo[dt]["copy_ms"], **common)
+        emit("kernel", **rput)
+        emit("kernel", **rwait)
+        if dt == "bf16":
+            summary["peer_put"], summary["peer_wait"] = rput, rwait
+    hb, hby = bound(4 * strip_bytes, 0, "fp32")
+    rhalo = dict(kernel="halo_put", setup=SELF_PUT, rows=strip_shape[0],
+                 shape=list(strip_shape), dtype="bf16", bytes=2 * strip_bytes,
+                 max_abs_err=solo["halo"]["err"], ms=solo["halo"]["put"],
+                 wait_ms=solo["halo"]["wait"],
+                 ms_in_ring={w: _pick(tw[w]["halo"], "halo_put_kernel")
+                             for w in tw},
+                 call_ms=solo["halo"]["call_ms"],
+                 halo_call_ms_world={w: tw[w]["halo_call_ms"] for w in tw},
+                 plain_ms=tw[2]["halo_plain_ms"],
+                 library_ms=solo["halo"]["library_ms"],
+                 library_ms_world2=tw[2]["library_halo"], bound_ms=hb,
+                 bound_by=hby, checks_per_rank=n_halo, card=card)
+    emit("kernel", **rhalo)
+    summary["halo_put"] = rhalo
+
+    # (c) the ring, held against the full-sequence flash on this card
+    ring_launches, ring_out, single_ms = {}, {}, {}
+    for world, ranks in path.items():
+        for dt, tokens in (("bf16", RING_TOKENS),
+                           ("fp32", RING_FP32_PER_RANK * world)):
+            full = _ring_inputs(tokens, tdt[dt], dev)
+            o_tol, g_tol = RING_TOL[dt]
+            for layout, causal in RING_LAYOUTS:
+                q, k, v = (t.detach().requires_grad_(True)
+                           for t in full[:3])
+                o = flash_attention(q, k, v, causal)
+                o.backward(full[3])
+                want = [o.detach(), q.grad, k.grad, v.grad]
+                if dt == "bf16" and world == HALO_WORLD:
+                    # the yardstick: the same attention in this one
+                    # process, one full-sequence flash forward + backward
+                    def one():
+                        qq, kk, vv = (t.detach().requires_grad_(True)
+                                      for t in full[:3])
+                        flash_attention(qq, kk, vv, causal).backward(full[3])
+                    one()
+                    single_ms[causal] = bench_ms(one, [()], 3)
+                if layout == "zigzag":
+                    want = [zigzag_shard(t, world) for t in want]
+                recs = [res["ring"][(dt, layout, causal)] for res in ranks]
+                got = []
+                for i in range(4):
+                    parts = [torch.from_numpy(rec["tensors"][i])
+                             for rec in recs]
+                    t = torch.cat(parts, dim=2).to(dev)
+                    got.append(t.view(torch.bfloat16) if dt == "bf16" else t)
+                errs = [rel_l2(g.float(), w_.float())
+                        for g, w_ in zip(got, want)]
+                name = f"{layout}_{'causal' if causal else 'full'}"
+                require(errs[0] <= o_tol and max(errs[1:]) <= g_tol,
+                        f"ring {name} world {world} {dt}: rel L2 o "
+                        f"{errs[0]}, dq / dk / dv {errs[1:]} (tol {o_tol} /"
+                        f" {g_tol})")
+                expect = {"fa_fwd": world, "fa_bwd_dq": world,
+                          "fa_bwd_dkv": world,
+                          "peer_put": 2 * (world - 1) + 2 * (world - 1)
+                          + 2 * world}
+                expect["peer_wait"] = expect["peer_put"]
+                require(all(rec["launches"] == expect for rec in recs),
+                        f"ring {name} world {world} {dt}: launches "
+                        f"{[rec['launches'] for rec in recs]}, expected "
+                        f"{expect} a rank")
+                row = {"rel_l2": {"o": errs[0], "dq": errs[1], "dk": errs[2],
+                                  "dv": errs[3]}, "launches_per_rank": expect}
+                if dt == "bf16":
+                    for rec in recs:
+                        for kname, cnt in rec["launches"].items():
+                            ring_launches[kname] = \
+                                ring_launches.get(kname, 0) + cnt
+                    step_ms = [rec["step_ms"] for rec in recs]
+                    slowest = max(sorted(s)[len(s) // 2] for s in step_ms)
+                    # rank 0's kernel spans include the other ranks'
+                    # time slices: the card runs one context at a time
+                    row.update(step_ms_per_rank=step_ms,
+                               tokens_per_s=RING_TOKENS / (slowest / 1e3),
+                               rank0_kernel_span_ms=recs[0]["profile"],
+                               single_process_flash_ms=single_ms[causal])
+                ring_out[f"world{world}_{dt}_{name}"] = row
+            del full, q, k, v, o, want, got
+    emit("ring", config="GPT2Config.small attention (12 heads x 64), batch 1",
+         tokens=RING_TOKENS, fp32_tokens_per_rank=RING_FP32_PER_RANK,
+         worlds=sorted(path), transport="rdma", tol=RING_TOL,
+         runs=ring_out, spawn_s=spawn_s, card=card)
+    for name, n in ring_launches.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+
+    # (d) the halo: the tiles' VALID-in-H convs against the image's conv
+    hres = [res["halo"] for res in path[HALO_WORLD]]
+    hx, hw = _halo_inputs(dev)
+    y_full = F.conv2d(hx.permute(0, 3, 1, 2), hw, padding=1).permute(
+        0, 2, 3, 1)
+    y_got = torch.cat([torch.from_numpy(h["y"]) for h in hres],
+                      dim=1).to(dev).view(torch.bfloat16)
+    conv_err = rel_l2(y_got.float(), y_full.float())
+    require(conv_err <= HALO_CONV_TOL,
+            f"halo conv: tiles vs the image's conv rel L2 {conv_err} (tol "
+            f"{HALO_CONV_TOL})")
+    halo_launches = {}
+    for r, h in enumerate(hres):
+        require(h["launches"] == {"halo_put": 1, "peer_wait": 2},
+                f"halo rank {r}: one exchange launched {h['launches']}")
+        require(len(set(h["memory_allocated"])) == 1,
+                f"halo rank {r}: memory_allocated over {HALO_ITERS} "
+                f"iterations {h['memory_allocated']}")
+        # the landing buffers: the pool's lo / hi, allocated at the first
+        # exchange, and no arena made or grown after it
+        require(h["pool_allocations"] == 2
+                and len(set(h["arenas"])) == 1,
+                f"halo rank {r}: {h['pool_allocations']} pool allocations, "
+                f"IPC arenas (count, bytes) after the first exchange and "
+                f"each later one {h['arenas']}")
+        for kname, cnt in h["launches"].items():
+            halo_launches[kname] = halo_launches.get(kname, 0) + cnt
+    emit("halo", image=list(HALO_IMAGE), layout="NHWC", dtype="bf16",
+         world=HALO_WORLD, rows_per_rank=HALO_IMAGE[1] // HALO_WORLD,
+         conv_rel_l2=conv_err, tol=HALO_CONV_TOL,
+         conv_max_abs=(y_got.float() - y_full.float()).abs().max().item(),
+         launches_per_rank=hres[0]["launches"],
+         memory_allocated_per_rank=[h["memory_allocated"] for h in hres],
+         ipc_arenas_per_rank=[h["arenas"][-1] for h in hres],
+         exchange_call_ms=[h["exchange_call_ms"] for h in hres],
+         step_call_ms=[h["step_call_ms"] for h in hres],
+         rank0_exchange_device_ms=hres[0]["exchange_profile"],
+         pool_allocations=hres[0]["pool_allocations"], card=card)
+    for name, n in halo_launches.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    del hx, hw, y_full, y_got
+
     kernels = []
     for name, (src, tpu, calls) in KERNELS.items():
         rec = summary[name]
@@ -2754,14 +3479,18 @@ def main() -> int:
             "launches_resnet": resnet_launches.get(name, 0),
             "launches_unet": unet_launches.get(name, 0),
             "launches_megatron": megatron_launches.get(name, 0),
+            "launches_ring": ring_launches.get(name, 0),
+            "launches_halo": halo_launches.get(name, 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"],
+            **({"setup": rec["setup"]} if "setup" in rec else {}),
             "shape": {k: rec[k] for k in (
                 "form", "rows", "hidden", "b", "h", "sq", "sk", "causal",
                 "mask", "n", "tensors", "w", "c", "groups", "act", "algo",
-                "tile", "scores", "mask_shape", "dtype") if k in rec}})
+                "tile", "scores", "mask_shape", "dtype", "bytes",
+                "shape") if k in rec}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

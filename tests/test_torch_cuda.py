@@ -27,6 +27,10 @@ flash kernels over a batch * heads above 65535 the flash ones. The
 megatron softmax kernels: fp32 1e-6 absolute (summation order), bf16 and
 fp16 one ulp (2^-7 / 2^-10 relative, plus one subnormal step), the
 backward also 1e-6 absolute (the row sum's order); two runs identical.
+The peer-put kernels run between rank processes that share the card
+(``spawn_ranks``) and are held to identical bits; ring attention over
+them (fp32) to the full-sequence flash at 1e-5 (o) and 1e-4 (gradients)
+relative L2.
 """
 
 import pytest
@@ -1027,3 +1031,100 @@ def test_softmax_on_cuda_takes_the_kernels_at_every_shape(dev, monkeypatch):
         assert xg.grad is not None
     torch.cuda.synchronize()
     assert _build.launches == {"softmax_fwd": 4, "softmax_bwd": 4}
+
+
+# ------------------------------------------------ peer puts between ranks
+# Rank processes share the one card through CUDA IPC (spawn_ranks): the
+# peer-put kernels store into another process's arena. Exact: a copy.
+
+PEER_SIZES = [1, 3, 1000, 4097, 65536 + 5]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_peer_kernels_between_rank_processes(dev, world):
+    """``peer_shift`` (shift 1, -1, 2, and of a source that is an offset
+    view) and ``halo_exchange_rdma`` (halo 1 and 3, periodic or not, fresh
+    and pool landing buffers threaded twice) in fp32, bf16 and uint8,
+    every result bit-equal to the neighbour's
+    input made again from its seed; one ``peer_put`` per shift, one
+    ``halo_put`` per exchange and a ``peer_wait`` for each landing."""
+    import torch_rank_helpers as rh
+    from apex_tpu_torch.parallel import spawn_ranks
+    _build.build()
+    dtypes = ["fp32", "bf16", "u8"]
+    res = spawn_ranks(rh.card_peer_bits, world, (PEER_SIZES, dtypes),
+                      device="cuda", timeout_s=240)
+    # shifts 1, -1, 2 at each size, and one of an offset (unaligned) view
+    shifts = (3 * len(PEER_SIZES) + 1) * len(dtypes)
+    halos = 2 * 2 * 2 * 2 * len(dtypes)
+    for checks, launches in res:
+        assert checks == shifts + 2 * halos
+        assert launches == {"peer_put": shifts, "halo_put": halos,
+                            "peer_wait": shifts + 2 * halos}
+
+
+def test_cuda_tensors_never_take_plain_versions(dev):
+    """With the plain versions (and gloo's point to point) patched to
+    raise in every rank, the CUDA exchanges still pass: no fallback."""
+    import torch_rank_helpers as rh
+    from apex_tpu_torch.parallel import spawn_ranks
+    _build.build()
+    res = spawn_ranks(rh.card_no_plain_route, 2, ([7, 4097],),
+                      device="cuda", timeout_s=240)
+    assert all(checks > 0 for checks, _ in res)
+
+
+def test_peer_wait_without_signal_traps_within_its_bound(dev):
+    """A rank whose neighbour never puts: its bounded wait traps on the
+    device and the next synchronise raises, within the bound plus the
+    launch's slack, instead of hanging."""
+    import torch_rank_helpers as rh
+    from apex_tpu_torch.parallel import spawn_ranks
+    _build.build()
+    res = spawn_ranks(rh.card_missing_signal, 2, (1.0,), device="cuda",
+                      timeout_s=120)
+    raised, seconds, msg = res[0]
+    assert raised, msg
+    assert 1.0 <= seconds < 20.0, seconds
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_attention_rdma_on_the_card(dev, world):
+    """Ring attention (contiguous causal and not, zigzag) over rank
+    processes on the card, fp32, against the full-sequence flash forward
+    and backward on the same card: o 1e-5, gradients 1e-4 relative L2."""
+    import numpy as np
+    import torch_rank_helpers as rh
+    from apex_tpu_torch.parallel import spawn_ranks, zigzag_shard
+    from apex_tpu_torch.ops.flash_attention import flash_attention
+    _build.build()
+    rng = np.random.default_rng(world)
+    shape = (1, 2, 128 * world, 64)
+    arrays = {n: rng.standard_normal(shape).astype(np.float32)
+              for n in ("q", "k", "v", "do")}
+    cases = [("c", "contig", True, "rdma"), ("n", "contig", False, "rdma"),
+             ("z", "zigzag", True, "rdma")]
+    res = spawn_ranks(rh.ring_cases, world, (arrays, cases), device="cuda",
+                      timeout_s=240)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    for key, causal in (("c", True), ("n", False), ("z", True)):
+        # concatenated shards; the zigzag ones stay in zigzag order
+        got = [np.concatenate([r[key][i] for r in res], axis=2)
+               for i in range(4)]
+        assert all(r[key][4] == (2 * (world - 1), 4 * world - 2)
+                   for r in res), key
+        q, k, v = (torch.from_numpy(arrays[n]).to(dev).requires_grad_(True)
+                   for n in ("q", "k", "v"))
+        o = flash_attention(q, k, v, causal)
+        o.backward(torch.from_numpy(arrays["do"]).to(dev))
+        want = [t.detach().cpu().numpy() for t in (o, q.grad, k.grad,
+                                                   v.grad)]
+        if key == "z":
+            want = [zigzag_shard(torch.from_numpy(w), world).numpy()
+                    for w in want]
+        assert rel(got[0], want[0]) <= 1e-5, key
+        for g, w in zip(got[1:], want[1:]):
+            assert rel(g, w) <= 1e-4, key

@@ -22,7 +22,8 @@ from apex_tpu_torch.models.convert import init_gpt2_params
 from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config
 from apex_tpu_torch.models.resnet import Bottleneck, Conv, ResNet18ish
 from apex_tpu_torch.normalization import FusedLayerNorm, FusedRMSNorm
-from apex_tpu_torch.parallel import SyncBatchNorm
+from apex_tpu_torch.contrib.peer_memory import PeerMemoryPool
+from apex_tpu_torch.parallel import RankGroup, SyncBatchNorm, spawn_ranks
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.normalization.fused_layer_norm import (
     fused_layer_norm_affine)
@@ -87,6 +88,9 @@ def test_device_defaults_to_cuda_and_raises_without_it():
     lambda: Engine(TINY, init_gpt2_params(TINY)),
     lambda: init_cache(1, 2, 8, 1, 64),
     lambda: ResNet18ish(),
+    lambda: RankGroup(),
+    lambda: spawn_ranks(print, 2),
+    lambda: PeerMemoryPool(static_size=1024),
 ])
 def test_entry_points_raise_without_cuda(build):
     _require_no_cuda()
@@ -244,14 +248,16 @@ def test_build_sources_and_digest():
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
                      "fused_adagrad.cu", "fused_adam.cu", "fused_lamb.cu",
                      "fused_novograd.cu", "fused_sgd.cu", "group_norm.cu",
-                     "layer_norm.cu", "softmax.cu"]
+                     "layer_norm.cu", "remote_copy.cu", "softmax.cu"]
     assert set(_build.SIGNATURES) == {
         "apex_ln_fwd", "apex_ln_bwd", "apex_fa_fwd", "apex_fa_bwd_dq",
         "apex_fa_bwd_dkv", "apex_fused_adam", "apex_fused_adam_master",
         "apex_lamb_stage1", "apex_lamb_stage2", "apex_fused_sgd",
         "apex_fused_novograd", "apex_fused_adagrad", "apex_gn_one_pass",
         "apex_gn_stats", "apex_gn_apply", "apex_softmax_fwd",
-        "apex_softmax_bwd"}
+        "apex_softmax_bwd", "apex_ipc_alloc", "apex_ipc_handle",
+        "apex_ipc_open", "apex_ipc_close", "apex_ipc_free", "apex_peer_put",
+        "apex_halo_put", "apex_peer_wait"}
     assert _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(RuntimeError, match="cudaError 7"):
@@ -321,4 +327,18 @@ def test_chip_smoke_kernel_table_names_every_pallas_call():
         "fused_adam", "fused_adam_master", "lamb_stage1", "lamb_stage2",
         "fused_sgd", "fused_novograd", "fused_adagrad", "gn_one_pass",
         "gn_stats", "gn_apply", "softmax_fwd", "softmax_fwd_causal",
-        "softmax_bwd"}
+        "softmax_bwd", "peer_put", "halo_put", "peer_wait"}
+    # every TPU kernel has its counterpart: nothing is left to port
+    assert cs.TO_PORT == {}
+
+
+def test_remote_copy_wrappers_refuse_other_devices():
+    """The peer-put kernels' wrappers refuse a tensor that is neither on
+    the CPU nor on CUDA."""
+    from apex_tpu_torch.ops.remote_copy import halo_exchange_rdma, peer_shift
+    group = RankGroup(device="cpu")
+    x = torch.empty(16, 4, device="meta")
+    for call in (lambda: peer_shift(x, group, 1),
+                 lambda: halo_exchange_rdma(x, group, 1)):
+        with pytest.raises(ValueError, match="device"):
+            call()
