@@ -1,5 +1,8 @@
-// Flash-attention forward for Hopper (sm_90a): o = softmax(q k^T * scale) v
-// with an online softmax, plus the fp32 row log-sum-exp.
+// Flash-attention forward for Hopper (sm_90a), fp32: o = softmax(q k^T *
+// scale) v with an online softmax, plus the fp32 row log-sum-exp. bf16
+// runs on the tensor cores instead (flash_fwd_wgmma.cu); fp32 stays here on
+// the FMA pipes, whose full fp32 products the fp32 tolerances hold (a TF32
+// tensor-core product would change the numbers users get).
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `flash_attention_fwd`
 // (the Pallas kernel `_fa_fwd_kernel`) without dropout, causal or not, with
@@ -31,8 +34,8 @@
 // lane + 32 for those rows in registers, so the two products read one
 // broadcast shared-memory value per two FMAs and the K tile is padded to a
 // 65-float row stride to keep the lanes on distinct banks. The products run
-// on the fp32 FMA pipes, not the tensor cores; moving them to wgmma with
-// TMA-fed tiles is the next step and is what the bound above asks for.
+// on the fp32 FMA pipes, not the tensor cores, so fp32 keeps full fp32
+// products.
 // Ragged sq / sk are masked inside the kernel (no padding copies). The bias
 // is a compile-time variant: the kernel without one keeps no bias registers
 // or branches.
@@ -207,11 +210,11 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o); lse is float32
-// [bh, sq]. Only head_dim 64 is compiled. grid_y x grid_z blocks carry the
-// bh = b * h slices (fa_batch_heads_grid in ops/tiling.py). bias: float32
-// or null; heads = h of bh = b * h; bsb, bsh, bsq, bsk its strides in
-// elements (0 on a broadcast dimension).
+// dtype: 0 = float32 (q, k, v and o; bfloat16 is apex_fa_fwd_wgmma's);
+// lse is float32 [bh, sq]. Only head_dim 64 is compiled. grid_y x grid_z
+// blocks carry the bh = b * h slices (fa_batch_heads_grid in
+// ops/tiling.py). bias: float32 or null; heads = h of bh = b * h; bsb, bsh,
+// bsq, bsk its strides in elements (0 on a broadcast dimension).
 extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* o, void* lse, int bh,
                            int grid_y, int grid_z, int heads, int sq, int sk,
@@ -227,8 +230,5 @@ extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch<float>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale,
                          causal, sb, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk,
-                                 scale, causal, sb, s);
   return (int)cudaErrorInvalidValue;
 }

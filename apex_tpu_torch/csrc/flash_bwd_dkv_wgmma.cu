@@ -1,0 +1,307 @@
+// Flash-attention backward, the dk / dv half, for Hopper's tensor cores
+// (sm_90a), bf16. dq stays on the FMA kernel of flash_attention_bwd.cu,
+// and so does the whole fp32 route (full fp32 products).
+//
+// Replaces: apex_tpu/ops/pallas/flash_attention.py `_fa_dkv_kernel`
+// without dropout and dbias, causal or not, with or without the additive
+// fp32 score bias (ScoreBias in common.cuh), JAX layout q / do
+// (b, h, sq, 64), k / v (b, h, sk, 64), lse and D = rowsum(do * o) fp32
+// (b, h, sq) (D computed outside, `attention_dvec`). Per (key j, query i):
+//   s  = round(round(q_i . k_j * scale) + bias_ij), masked where j >= sk
+//        or (causal) j > i
+//   p  = exp(s - lse_i), exactly 0 where masked, s <= -0.5e30 or
+//        lse_i <= -0.5e30 (`_bwd_p`; padded and fully masked rows)
+//   dv_j += bf16(p) . do_i;  dp = do_i . v_j
+//   ds = bf16(p * (dp - D_i) * scale);  dk_j += ds . q_i
+// as in flash_attention_bwd.cu (the scale before the cast gives the TPU's
+// folded-scale bits).
+//
+// What bounds it on this card: operations. Four s x s x d products a head
+// (S, dP, dV, dK; half when causal) over ~12 bytes per (row, d) element of
+// traffic: hundreds of flops a byte.
+//
+// What the design does about that: the four products run on the tensor
+// cores (wgmma m64n64k16) from tiles that TMA brings into shared memory. A
+// block owns 128 keys of one (b * h) slice: two consumer warpgroups of 64
+// keys (wgmma's M) whose K and V rows stay resident in shared memory, and
+// a producer warp that streams 64-row Q and dO tiles, with that tile's 64
+// lse and D values beside them, through a ring of kStages stages ("full":
+// the TMA's bytes and the producer lanes' arrivals after their lse / D
+// stores; "empty": every consumer thread after its products). From the
+// diagonal on when causal. Per tile and warpgroup: S^T = K Q^T and
+// dP^T = V dO^T with both operands from shared memory, K-major; p and ds
+// per accumulator element, lse and D indexed by the fragment's column (a
+// query); then dV += P^T dO and dK += dS^T Q with A from registers (the
+// accumulators packed to bf16) and B the same dO / Q tile read MN-major
+// through a second descriptor. Each block owns its dK and dV rows: no
+// atomics, and two runs give the same bits. Only a tile across a
+// warpgroup's diagonal or the ragged sk edge runs the masked arithmetic
+// (`_mask_split`); rows past sq load as zeros with lse = -1e30 and so add
+// nothing. In this first version the products of a tile and its
+// elementwise work do not overlap (later work).
+//
+// C interface (bound with ctypes): every pointer and the stream are
+// `void*`; the function returns cudaGetLastError() after the launch.
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+using namespace apex_port;
+using namespace apex_port::hopper;
+
+constexpr int kD = 64;          // head dim
+constexpr int kKeysWG = 64;     // keys per consumer warpgroup
+constexpr int kBK = 128;        // keys per block
+constexpr int kBQ = 64;         // query rows per streamed tile
+constexpr int kStages = 4;
+constexpr int kThreads = 384;   // two consumer warpgroups + the producer
+constexpr float kNegInf = -1e30f;
+constexpr float kMaskEdge = 0.5f * kNegInf;
+
+constexpr int kTileBytes = kBQ * kD * 2;          // one 64-row bf16 tile
+constexpr int kKVBytes = kBK * kD * 2;            // the resident K (or V)
+constexpr int kOffStages = 2 * kKVBytes;          // Q, dO of each stage
+constexpr int kOffStats = kOffStages + kStages * 2 * kTileBytes;
+constexpr int kOffBars = kOffStats + kStages * 2 * kBQ * 4;
+constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
+
+// `_bwd_p`: P = exp(s - lse), 0 where s or the row's lse is masked
+__device__ __forceinline__ float bwd_p(float s, float lse) {
+  return (s <= kMaskEdge || lse <= kMaskEdge) ? 0.f : expf(s - lse);
+}
+
+// p (into s) and ds * scale (into t) of one tile for the thread's two
+// keys and 16 queries. kMasked: the tile crosses the diagonal or the sk
+// edge.
+template <bool kBias, bool kMasked>
+__device__ __forceinline__ void dkv_tile(float (&s)[32], float (&t)[32],
+                                         const float* ls, const float* dd,
+                                         int key0, int q0, int cq, int sq,
+                                         int sk, float scale, int causal,
+                                         const ScoreBias& bias,
+                                         const float* bs) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + cq);
+    const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * j + cq);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + (e >> 1) * 8;
+      const int qry = q0 + 8 * j + cq + (e & 1);
+      const float l = (e & 1) ? l2.y : l2.x;
+      const float dsum = (e & 1) ? d2.y : d2.x;
+      const bool dead =
+          kMasked && (key >= sk || (causal && key > qry));
+      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+      // plain version's round(round(q.k * scale) + bias)
+      float x = __fmul_rn(s[4 * j + e], scale);
+      if (kBias && !dead && qry < sq) x = __fadd_rn(x, bias.at(bs, qry, key));
+      const float p = dead ? 0.f : bwd_p(x, l);
+      s[4 * j + e] = p;
+      // the dk product takes ds * scale in q's dtype
+      t[4 * j + e] = p * (t[4 * j + e] - dsum) * scale;
+    }
+  }
+}
+
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dvec,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int nbh, int sq,
+                        int sk, float scale, int causal, ScoreBias bias) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = smem;
+  uint8_t* vs = smem + kKVBytes;
+  float* stats = reinterpret_cast<float*>(smem + kOffStats);  // lse, D
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOffBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  const long long bh = batch_head();
+  if (bh >= nbh) return;  // the last z-slice's spare blocks
+  const int k0 = blockIdx.x * kBK;  // the first key blocks see the most q
+  const int nq = (sq + kBQ - 1) / kBQ;
+  // causal: query tiles wholly above the block's first key see none of it
+  const int qt0 = causal ? min(k0 / kBQ, nq) : 0;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 32);  // the producer warp's lanes
+      mbar_init(&empty[st], 2 * 128);
+    }
+    mbar_init(kvbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------------------------ producer
+    regs_dec<40>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x / 32 == 8) {
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * kKVBytes);
+        tma_load_3d(ks, &map_k, kvbar, 0, k0, (int)bh);
+        tma_load_3d(vs, &map_v, kvbar, 0, k0, (int)bh);
+      }
+      const float* lb = lse + bh * sq;
+      const float* db = dvec + bh * sq;
+      for (int qt = qt0; qt < nq; ++qt) {
+        const int i = qt - qt0, st = i % kStages;
+        mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        float* ls = stats + st * 2 * kBQ;
+        for (int r = lane; r < kBQ; r += 32) {
+          const int row = qt * kBQ + r;
+          ls[r] = row < sq ? lb[row] : kNegInf;
+          ls[kBQ + r] = row < sq ? db[row] : 0.f;
+        }
+        if (lane == 0) {
+          uint8_t* qs = smem + kOffStages + st * 2 * kTileBytes;
+          mbar_expect_tx(&full[st], 2 * kTileBytes);
+          tma_load_3d(qs, &map_q, &full[st], 0, qt * kBQ, (int)bh);
+          tma_load_3d(qs + kTileBytes, &map_do, &full[st], 0, qt * kBQ,
+                      (int)bh);
+        } else {
+          mbar_arrive(&full[st]);  // after this lane's lse / D stores
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------- consumers
+    regs_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int kw0 = k0 + wg * kKeysWG;          // the warpgroup's keys
+    const int key0 = kw0 + 16 * warp + lane / 4;  // and key0 + 8
+    const int cq = (lane % 4) * 2;
+    const bool active = kw0 < sk;
+    const float* bs = kBias ? bias.slice(bh) : nullptr;
+    const uint32_t k_addr = smem_addr(ks) + wg * kKeysWG * kD * 2;
+    const uint32_t v_addr = smem_addr(vs) + wg * kKeysWG * kD * 2;
+
+    float adk[32], adv[32], s[32], tp[32];
+    uint32_t ap[4][4], ads[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      adk[i] = 0.f;
+      adv[i] = 0.f;
+      s[i] = 0.f;
+      tp[i] = 0.f;
+    }
+
+    mbar_wait(kvbar, 0);
+    for (int qt = qt0; qt < nq; ++qt) {
+      const int i = qt - qt0, st = i % kStages;
+      const int q0 = qt * kBQ;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      // `_causal_run`: a tile wholly above the warpgroup's first key is
+      // skipped (only the second warpgroup's first tile can be)
+      if (active && (!causal || kw0 <= q0 + kBQ - 1)) {
+        const uint32_t q_addr =
+            smem_addr(smem + kOffStages + st * 2 * kTileBytes);
+        const uint32_t do_addr = q_addr + kTileBytes;
+        wgmma_fence();
+        product_ss(s, k_addr, q_addr);     // S^T = K Q^T
+        product_ss(tp, v_addr, do_addr);   // dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(tp);
+        const float* ls = stats + st * 2 * kBQ;
+        // `_mask_split`: only a tile across the diagonal or the sk edge
+        const bool masked =
+            (causal && kw0 + kKeysWG - 1 > q0) || kw0 + kKeysWG > sk;
+        if (masked)
+          dkv_tile<kBias, true>(s, tp, ls, ls + kBQ, key0, q0, cq, sq, sk,
+                                scale, causal, bias, bs);
+        else
+          dkv_tile<kBias, false>(s, tp, ls, ls + kBQ, key0, q0, cq, sq, sk,
+                                 scale, causal, bias, bs);
+        to_a_operand(s, ap);    // p in do's dtype for the dv product
+        to_a_operand(tp, ads);  // ds * scale in q's dtype for dk
+        wgmma_fence();
+        fence_regs(adv);
+        fence_regs(adk);
+        product_rs(adv, ap, do_addr);  // dV += P^T dO (dO MN-major)
+        product_rs(adk, ads, q_addr);  // dK += dS^T Q (Q MN-major)
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(adv);
+        fence_regs(adk);
+        fence_regs(ap);
+        fence_regs(ads);
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+    if (active) {
+      __nv_bfloat16* dkb = dk + bh * sk * kD;
+      __nv_bfloat16* dvb = dv + bh * sk * kD;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = key0 + 8 * h;
+        if (key >= sk) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const long long at = (long long)key * kD + 8 * j + cq;
+          *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
+              __floats2bfloat162_rn(adk[4 * j + 2 * h],
+                                    adk[4 * j + 2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
+              __floats2bfloat162_rn(adv[4 * j + 2 * h],
+                                    adv[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// bf16 q, k, v, do, dk and dv, contiguous and 16-byte aligned; lse and dvec
+// float32 [bh, sq]. head_dim 64. grid_y, grid_z, bias, heads and the bias
+// strides as for apex_fa_fwd_wgmma.
+extern "C" int apex_fa_bwd_dkv_wgmma(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* dout, const void* lse, const void* dvec, void* dk, void* dv,
+    int bh, int grid_y, int grid_z, int heads, int sq, int sk, int d,
+    float scale, int causal, long long bsb, long long bsh, long long bsq,
+    long long bsk, void* stream) {
+  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+    return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || sk <= 0) return 0;
+  if (!is_aligned(q, 16) || !is_aligned(k, 16) || !is_aligned(v, 16) ||
+      !is_aligned(dout, 16))
+    return (int)cudaErrorMisalignedAddress;
+  // with no queries the Q / dO maps are never read: build them over k
+  const bool noq = sq <= 0;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map_bf16(&mq, noq ? k : q, noq ? sk : sq, bh, kBQ) ||
+      !make_map_bf16(&mk, k, sk, bh, kBK) ||
+      !make_map_bf16(&mv, v, sk, bh, kBK) ||
+      !make_map_bf16(&mdo, noq ? k : dout, noq ? sk : sq, bh, kBQ))
+    return (int)cudaErrorInvalidValue;
+  const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
+                     bsk};
+  const auto kernel = bias != nullptr ? fa_bwd_dkv_kernel_wgmma<true>
+                                      : fa_bwd_dkv_kernel_wgmma<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);
+  const dim3 grid((sk + kBK - 1) / kBK, grid_y, grid_z);
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), bh, noq ? 0 : sq, sk, scale, causal,
+      sb);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,497 @@
+// Flash-attention forward for Hopper's tensor cores (sm_90a), bf16:
+// o = softmax(q k^T * scale + bias) v with an online softmax, plus the fp32
+// row log-sum-exp. The fp32 route keeps the FMA kernel of
+// flash_attention.cu (full fp32 products; a TF32 product would change the
+// numbers users get).
+//
+// Replaces: apex_tpu/ops/pallas/flash_attention.py `flash_attention_fwd`
+// (the Pallas kernel `_fa_fwd_kernel`) without dropout, causal or not,
+// with or without the additive fp32 score bias read through per-dimension
+// strides (ScoreBias in common.cuh, never expanded), JAX layout q
+// (b, h, sq, 64), k / v (b, h, sk, 64). The arithmetic is the TPU
+// kernel's: s = round(round(q.k * scale) + bias) in fp32; masked scores
+// (key > row when causal, key >= sk) are -1e30 and a score <= -0.5e30 is
+// out of the softmax support; the running max is shifted by 0 while it is
+// still "masked"; p is cast to bf16 before the p.v product; o = acc / l, a
+// fully masked row giving o = 0 and lse = -1e30; lse = m + log(l) in fp32.
+//
+// What bounds it on this card: operations. At GPT-2's shapes (4 x 12 x
+// 1024 x 64, causal) the products are ~2 x 2 x s^2 / 2 x d flops a head
+// over 4 x s x d x 2 bytes of q, k, v and o: ~500 flops a byte, above the
+// H100's ridge (~295 for bf16).
+//
+// What the design does about that: the products run on the tensor cores
+// (wgmma m64n64k16, bf16 in, fp32 sums) from tiles that TMA brings into
+// shared memory. A block owns 128 query rows of one (b * h) slice: two
+// consumer warpgroups of 64 rows each (wgmma's M) and a producer
+// warpgroup whose one thread issues the loads. Q arrives once; 64-key K / V
+// tiles stream through a ring of kStages stages, each with a "full"
+// barrier (the TMA's bytes) and an "empty" barrier (every consumer thread
+// arrives when its products have read the stage). Per tile and warpgroup:
+// S = Q K^T from shared memory (K stored [key][d] is K-major for B), the
+// scale, bias and masks applied per accumulator element from its (row,
+// key), row max and sum over the 4 threads of a quad, p packed to bf16 in
+// registers as the A operand of O += P V (V, [key][d], is the MN-major B
+// operand). Causal blocks stop at the diagonal; only a tile that crosses
+// a warpgroup's diagonal or the ragged sk edge runs the masked arithmetic
+// (`_mask_split`), the heaviest query blocks are launched first, and rows
+// past sq load as zeros (the 3-D tensor map) and are never written. The
+// bias is a compile-time variant. In this first version each warpgroup
+// waits for one product before the softmax of the next: overlapping the
+// two (and deeper key tiles) is later work.
+//
+// The tensor cores sum a score's 64 terms in another order than the plain
+// version's sequential fp32 product, and bf16(p) can then land on the
+// neighbouring bf16 value: in rows of a few keys that moved o past FA_TOL
+// (13 of 268,697,600 elements at b * h = 65,600, s = 64). So each tile
+// bounds every score's order error from |q| and the tile's largest |k|
+// (the producer's idle warps take the key norms), and sums again, in the
+// sequential order, the scores whose bf16(p) the bound leaves open and
+// those that can be the row's maximum: the warp shares them out one a
+// lane. p is then the plain version's bit for bit, at about 2.7 times the
+// time of the tile without it (PERF.md).
+//
+// C interface (bound with ctypes): every pointer and the stream are
+// `void*`; the function returns cudaGetLastError() after the launch.
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+using namespace apex_port;
+using namespace apex_port::hopper;
+
+constexpr int kD = 64;          // head dim
+constexpr int kRowsWG = 64;     // query rows per consumer warpgroup
+constexpr int kBQ = 128;        // query rows per block
+constexpr int kBK = 64;         // keys per streamed tile
+constexpr int kStages = 4;
+constexpr int kThreads = 384;   // two consumer warpgroups + the producer
+constexpr float kNegInf = -1e30f;
+constexpr float kMaskEdge = 0.5f * kNegInf;
+
+constexpr int kTileBytes = kBK * kD * 2;         // one 64-row bf16 tile
+constexpr int kQBytes = kBQ * kD * 2;
+constexpr int kOffStages = kQBytes;              // K, V of each stage
+// A consumer warp's scratch for the scores summed again (softmax_tile): a
+// value slot per (accumulator element, lane), and the list of the slots
+// to fill
+constexpr int kFixSlots = 32 * 32;
+constexpr int kFixBytes = kFixSlots * 4 + kFixSlots * 2;
+// max |k| of each stage's K tile, one value from each of two warps
+constexpr int kOffNorms = kOffStages + kStages * 2 * kTileBytes;
+constexpr int kOffFix = kOffNorms + kStages * 2 * 4;  // 8 warps' scratch
+constexpr int kOffBars = kOffFix + 8 * kFixBytes;
+constexpr int kSmemBytes = kOffBars + (3 * kStages + 1) * 8 + 1024;
+constexpr int kNormThread0 = 288;  // the producer's warps 9 and 10: |k|
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The 16-byte chunk c (8 bf16) of row r of a 128-byte-swizzled tile
+__device__ __forceinline__ uint4 tile_chunk(const uint8_t* tile, int r,
+                                            int c) {
+  return *reinterpret_cast<const uint4*>(tile + r * 128 +
+                                         ((c ^ (r & 7)) << 4));
+}
+// a pair of bf16 (the lower one first in memory) as fp32
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+// |row r|^2 of a 128-byte-swizzled tile, chunks c0 .. c0 + nc - 1 (a
+// bound: the order does not matter)
+__device__ __forceinline__ float tile_row_sq(const uint8_t* tile, int r,
+                                             int c0, int nc) {
+  float acc = 0.f;
+  for (int c = c0; c < c0 + nc; ++c) {
+    const uint4 v = tile_chunk(tile, r, c);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      acc = fmaf(bf_lo(w[i]), bf_lo(w[i]),
+                 fmaf(bf_hi(w[i]), bf_hi(w[i]), acc));
+  }
+  return acc;
+}
+// q . k in the plain version's order: one fp32 FMA a term, d = 0 .. 63,
+// from 0 (the sequential sum of cuBLAS's fp32 product, which the FMA
+// kernel repeats). Rows of 128-byte-swizzled tiles.
+__device__ __forceinline__ float seq_dot(const uint8_t* q, int rq,
+                                         const uint8_t* k, int rk) {
+  float a = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const uint4 qv = tile_chunk(q, rq, c), kv = tile_chunk(k, rk, c);
+    const uint32_t qw[4] = {qv.x, qv.y, qv.z, qv.w};
+    const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a = fmaf(bf_lo(qw[i]), bf_lo(kw[i]), a);
+      a = fmaf(bf_hi(qw[i]), bf_hi(kw[i]), a);
+    }
+  }
+  return a;
+}
+
+// Where the tensor cores' summation order can change bf16(p). A score's
+// fp32 sum differs between two orders of its 64 terms by a few units of
+// 2^-24 |q| |k| (the terms' roundings, Cauchy-Schwarz); the tensor cores'
+// order against the plain version's measured at most 2.22 units on the
+// card test's data (chip_smoke.py's "bf16 summation order" line, which
+// requires at most half of kOrderUnits), and kOrderUnits bounds it with
+// room. Scaling and the bias add round once more each (2^-23 of
+// |q.k * scale| <= scale |q| |k| and of |x|).
+constexpr float kOrderUnits = 16.f;
+constexpr float kErrPerNorm = (kOrderUnits + 4.f) * 0x1p-24f;
+
+// One key tile of the online softmax for the thread's two rows: scores in
+// s become p (fp32), o and l are rescaled. kMasked: the tile crosses the
+// diagonal or the sk edge.
+//
+// p is rounded to bf16 before the p.v product, so a score's last bits can
+// move p to the neighbouring bf16 value. Where they can (p within the
+// score's error bound of a bf16 rounding midpoint), and for the scores
+// that can be the row's maximum while the bound moves it, the score is
+// summed again in the plain version's order: the row max is the plain
+// version's and so is every bf16(p). The warp shares those sums out, one a
+// lane (a few a tile), through its scratch: fv the values, fl the list.
+template <bool kBias, bool kMasked>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], float (&o)[32], float (&m)[2], float (&l)[2],
+    const float (&qn)[2], float kmax, const uint8_t* qt, const uint8_t* kt,
+    float* fv, uint16_t* fl, int row0, int rw, int lane, int k0, int sq,
+    int sk, float scale, int causal, const ScoreBias& bias,
+    const float* bs) {
+  const int r0 = row0 + rw + lane / 4;  // the thread's rows: r0, r0 + 8
+  const int cq = (lane % 4) * 2;
+  float mx[2] = {kNegInf, kNegInf}, ax[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + (e >> 1) * 8;
+      const int key = k0 + 8 * j + cq + (e & 1);
+      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+      // plain version's round(round(q.k * scale) + bias)
+      float x = __fmul_rn(s[4 * j + e], scale);
+      if (kBias && row < sq && (!kMasked || key < sk))
+        x = __fadd_rn(x, bias.at(bs, row, key));
+      if (kMasked && (key >= sk || (causal && key > row))) x = kNegInf;
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      if (kBias && x > kMaskEdge) ax[e >> 1] = fmaxf(ax[e >> 1], fabsf(x));
+    }
+  // per row: the scores' error bound, the estimated max and the bound of
+  // the exact one, and p's distance to a bf16 rounding midpoint that the
+  // bounds allow, in p's ulps (which are at least 2^-24 p)
+  float m_est[2], m_safe[2], floor_[2];
+  uint32_t width[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = quad_max(mx[h]);
+    const float qk = scale * qn[h] * kmax;  // >= |q.k * scale|
+    ax[h] = kBias ? quad_max(ax[h]) : qk;
+    const float err = fmaf(qk, kErrPerNorm, 0x1p-22f * ax[h]);
+    m_est[h] = fmaxf(m[h], mx[h]);
+    m_safe[h] = m_est[h] <= kMaskEdge ? 0.f : m_est[h];
+    // the exact max lies in [max(mx - err, m), max(mx + err, m)]
+    const float lo = fmaxf(mx[h] - err, m[h]);
+    const float em = mx[h] > kMaskEdge && mx[h] + err > m[h]
+                         ? mx[h] + err - lo : 0.f;
+    floor_[h] = em > 0.f ? lo - err : 3e38f;  // the max's candidates
+    const float w = fmaf(err + em + 0x1p-23f * (ax[h] + fabsf(m_safe[h])),
+                         0x1.1p24f, 16.f);
+    width[h] = w < 32768.f ? (uint32_t)w : 32768u;  // 32768: every p
+  }
+  float pp[32];
+  uint32_t fix = 0;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int h = (e >> 1) & 1;
+    const float x = s[e];
+    pp[e] = expf(x - m_safe[h]);
+    const uint32_t bits = __float_as_uint(pp[e]);
+    if (x > kMaskEdge &&
+        (((bits - 0x8000u + width[h]) & 0xFFFFu) <= 2 * width[h] ||
+         x >= floor_[h]))
+      fix |= 1u << e;
+  }
+  // the warp's list of slots to sum again (an exclusive prefix of counts)
+  const int mine = __popc(fix);
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  if (total > 0) {
+    int at = incl - mine;
+    for (uint32_t f = fix; f; f &= f - 1)
+      fl[at++] = (uint16_t)((__ffs(f) - 1) * 32 + lane);
+    __syncwarp();
+    for (int base = 0; base < total; base += 32) {
+      if (base + lane < total) {
+        const int slot = fl[base + lane];
+        const int e = slot >> 5, owner = slot & 31;
+        const int rr = rw + owner / 4 + ((e >> 1) & 1) * 8;  // row in qt
+        const int kk = 8 * (e >> 2) + (owner % 4) * 2 + (e & 1);
+        float x = __fmul_rn(seq_dot(qt, rr, kt, kk), scale);
+        if (kBias && row0 + rr < sq)
+          x = __fadd_rn(x, bias.at(bs, row0 + rr, k0 + kk));
+        fv[slot] = x;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      if ((fix >> e) & 1u) s[e] = fv[e * 32 + lane];
+    // the row max from the summed-again candidates, then p again in a row
+    // where a score or the max moved
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v = fmaxf(v, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      const float m_new = fmaxf(m[h], quad_max(v));
+      const uint32_t in_row = h ? 0xCCCCCCCCu : 0x33333333u;
+      const bool again = m_new != m_est[h] || (fix & in_row) != 0;
+      m_est[h] = m_new;
+      m_safe[h] = m_new <= kMaskEdge ? 0.f : m_new;
+      if (again) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            pp[4 * j + 2 * h + c] = expf(s[4 * j + 2 * h + c] - m_safe[h]);
+      }
+    }
+    __syncwarp();  // the scratch is free for the next tile
+  }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    alpha[h] = expf((m[h] <= kMaskEdge ? kNegInf : m[h]) - m_safe[h]);
+    m[h] = m_est[h];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = pp[4 * j + e];
+      sum[e >> 1] += pp[4 * j + e];
+      o[4 * j + e] *= alpha[e >> 1];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
+}
+
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int nbh, int sq, int sk, float scale, int causal,
+                    ScoreBias bias) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;
+  float* kmaxs = reinterpret_cast<float*>(smem + kOffNorms);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOffBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* normed = empty + kStages;
+  uint64_t* qbar = normed + kStages;
+
+  const long long bh = batch_head();
+  if (bh >= nbh) return;  // the last z-slice's spare blocks
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int nk_all = (sk + kBK - 1) / kBK;
+  // the block's key tiles: up to its last real row's diagonal when causal
+  const int nk =
+      causal ? min(nk_all, (min(q0 + kBQ, sq) - 1) / kBK + 1) : nk_all;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2 * 128);
+      mbar_init(&normed[st], kBK);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------------------------ producer
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, kQBytes);
+      tma_load_3d(qs, &map_q, qbar, 0, q0, (int)bh);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % kStages;
+        mbar_wait(&empty[st], ((kt / kStages) & 1) ^ 1);
+        uint8_t* ks = smem + kOffStages + st * 2 * kTileBytes;
+        mbar_expect_tx(&full[st], 2 * kTileBytes);
+        tma_load_3d(ks, &map_k, &full[st], 0, kt * kBK, (int)bh);
+        tma_load_3d(ks + kTileBytes, &map_v, &full[st], 0, kt * kBK,
+                    (int)bh);
+      }
+    } else if (threadIdx.x >= kNormThread0 &&
+               threadIdx.x < kNormThread0 + kBK) {
+      // max |k| of each K tile, for the consumers' error bounds: a key a
+      // thread, a max a warp
+      const int key = threadIdx.x - kNormThread0;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % kStages;
+        mbar_wait(&full[st], (kt / kStages) & 1);
+        float n = sqrtf(
+            tile_row_sq(smem + kOffStages + st * 2 * kTileBytes, key, 0, 8));
+#pragma unroll
+        for (int d = 16; d; d >>= 1)
+          n = fmaxf(n, __shfl_xor_sync(0xffffffffu, n, d));
+        if (key % 32 == 0) kmaxs[st * 2 + key / 32] = n;
+        mbar_arrive(&normed[st]);
+      }
+    }
+  } else {
+    // ----------------------------------------------- consumers
+    regs_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int row0 = q0 + wg * kRowsWG;       // the warpgroup's first row
+    const int r0 = row0 + 16 * warp + lane / 4;  // and r0 + 8
+    const int cq = (lane % 4) * 2;
+    const bool active = row0 < sq;
+    const int nk_me =
+        causal ? min(nk_all, (row0 + kRowsWG - 1) / kBK + 1) : nk_all;
+    const float* bs = kBias ? bias.slice(bh) : nullptr;
+    const uint8_t* qw = qs + wg * kRowsWG * kD * 2;  // the warpgroup's Q
+    const uint32_t q_addr = smem_addr(qw);
+    const int rq = 16 * warp + lane / 4;  // r0's row in qw
+    uint8_t* scratch = smem + kOffFix + (wg * 4 + warp) * kFixBytes;
+    float* fv = reinterpret_cast<float*>(scratch);
+    uint16_t* fl = reinterpret_cast<uint16_t*>(scratch + kFixSlots * 4);
+
+    float acc[32], s[32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    uint32_t p[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      acc[i] = 0.f;
+      s[i] = 0.f;
+    }
+
+    mbar_wait(qbar, 0);
+    float qn[2];  // |q| of the thread's rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      qn[h] = sqrtf(quad_sum(tile_row_sq(qw, rq + 8 * h, 2 * (lane % 4),
+                                         2)));
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % kStages;
+      mbar_wait(&full[st], (kt / kStages) & 1);
+      if (active && kt < nk_me) {
+        const uint8_t* kt_s = smem + kOffStages + st * 2 * kTileBytes;
+        const uint32_t k_addr = smem_addr(kt_s);
+        const int k0 = kt * kBK;
+        wgmma_fence();
+        product_ss(s, q_addr, k_addr);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        // `_mask_split`: only a tile across the diagonal or the sk edge
+        const bool masked =
+            (causal && k0 + kBK - 1 > row0) || k0 + kBK > sk;
+        mbar_wait(&normed[st], (kt / kStages) & 1);
+        const float kmax = fmaxf(kmaxs[2 * st], kmaxs[2 * st + 1]);
+        if (masked)
+          softmax_tile<kBias, true>(s, acc, m, l, qn, kmax, qw, kt_s, fv, fl,
+                                    row0, 16 * warp, lane, k0, sq, sk, scale,
+                                    causal, bias, bs);
+        else
+          softmax_tile<kBias, false>(s, acc, m, l, qn, kmax, qw, kt_s, fv,
+                                     fl, row0, 16 * warp, lane, k0, sq, sk,
+                                     scale, causal, bias, bs);
+        to_a_operand(s, p);  // p in bf16: v's dtype before the p.v product
+        wgmma_fence();
+        fence_regs(acc);
+        product_rs(acc, p, k_addr + kTileBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(p);
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+    if (active) {
+      __nv_bfloat16* ob = o + bh * sq * kD;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row >= sq) continue;
+        const float safe_l = l[h] > 0.f ? l[h] : 1.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + (long long)row * kD + 8 * j + cq) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h] / safe_l,
+                                    acc[4 * j + 2 * h + 1] / safe_l);
+        if (cq == 0)
+          lse[bh * sq + row] =
+              m[h] <= kMaskEdge ? kNegInf : m[h] + logf(safe_l);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// bf16 q, k, v and o, contiguous and 16-byte aligned; lse float32 [bh,
+// sq]. head_dim 64. grid_y x grid_z blocks carry the bh = b * h slices
+// (fa_batch_heads_grid in ops/tiling.py). bias: float32 or null; heads = h
+// of bh = b * h; bsb, bsh, bsq, bsk its strides in elements (0 on a
+// broadcast dimension).
+extern "C" int apex_fa_fwd_wgmma(const void* q, const void* k, const void* v,
+                                 const void* bias, void* o, void* lse,
+                                 int bh, int grid_y, int grid_z, int heads,
+                                 int sq, int sk, int d, float scale,
+                                 int causal, long long bsb, long long bsh,
+                                 long long bsq, long long bsk,
+                                 void* stream) {
+  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+    return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || sq <= 0) return 0;
+  if (!is_aligned(q, 16) || !is_aligned(k, 16) || !is_aligned(v, 16))
+    return (int)cudaErrorMisalignedAddress;
+  // with no keys the K / V maps are never read: build them over q
+  const bool nokeys = sk <= 0;
+  CUtensorMap mq, mk, mv;
+  if (!make_map_bf16(&mq, q, sq, bh, kBQ) ||
+      !make_map_bf16(&mk, nokeys ? q : k, nokeys ? sq : sk, bh, kBK) ||
+      !make_map_bf16(&mv, nokeys ? q : v, nokeys ? sq : sk, bh, kBK))
+    return (int)cudaErrorInvalidValue;
+  const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
+                     bsk};
+  const auto kernel = bias != nullptr ? fa_fwd_kernel_wgmma<true>
+                                      : fa_fwd_kernel_wgmma<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);
+  const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      bh, sq, sk < 0 ? 0 : sk, scale, causal, sb);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,269 @@
+// Hopper (sm_90a) building blocks of the tensor-core kernels, as inline
+// PTX: TMA tensor maps and loads, mbarriers, the wgmma shared-memory
+// descriptor and the m64n64k16 bf16 products with fp32 sums.
+//
+// Tiles are rows of 64 bf16 (128 bytes) brought into shared memory by TMA
+// with the 128-byte swizzle; every tile starts on a 1024-byte boundary, so
+// one descriptor form serves all of them:
+// - K-major operand (the product's depth, d, runs along the row): 8-row
+//   groups 1024 bytes apart (SBO), the next 16 columns of depth 32 bytes
+//   further in the start address;
+// - MN-major operand (rows are the depth, the 64 columns the product's N):
+//   one 128-byte swizzle atom across N, 8-row depth groups 1024 bytes
+//   apart (SBO), the next 16 rows of depth 2048 bytes further.
+// The accumulator of a warpgroup's m64nN product: warp w holds rows
+// 16w + lane/4 and 16w + lane/4 + 8; element 4j + {0, 1} is the first row
+// at columns 8j + (lane % 4) * 2 + {0, 1}, 4j + {2, 3} the second row at
+// the same columns. Packed to bf16 pairs, the fragment of columns
+// 16kk..16kk+15 is the A operand of a register-sourced product of depth
+// 16 as it stands (elements 8kk .. 8kk + 7).
+
+#pragma once
+
+#include <cstdint>
+
+#include <cuda.h>  // CUtensorMap and its enums (no libcuda link)
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace apex_port {
+namespace hopper {
+
+// ------------------------------------------------------------ host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query, so the
+// library needs no -lcuda; null where the entry point is missing
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                         12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+#endif
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over a contiguous bf16 (bh, s, 64) tensor, dimensions (64, s,
+// bh) innermost first, box (64, rows, 1), 128-byte swizzle. Rows past s of
+// one (b * h) slice arrive as zeros, never as the next slice's rows. The
+// base must be 16-byte aligned (the wrapper checks). False on failure.
+inline bool make_map_bf16(CUtensorMap* map, const void* base, int s,
+                          int bh, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || s < 1 || bh < 1) return false;
+  const cuuint64_t dims[3] = {64, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)s * 64 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------- device side
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// the inits visible to the other threads and to the TMA unit
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// arrive and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar,
+                                              uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// Wait for the completion of the phase of parity `parity`. Bounded: past
+// kWaitLimitNs (far beyond any tile's load, time slices of other
+// processes included) the block traps, so a pipeline fault is a CUDA error
+// on the stream, never a hung card.
+constexpr uint64_t kWaitLimitNs = 20ull * 1000 * 1000 * 1000;
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try_wait(a, parity))
+    if (globaltimer() - t0 > kWaitLimitNs) __trap();
+}
+
+// TMA: box at coordinates (c0, c1, c2) of `map` into shared memory at
+// `dst`; completion counts on `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// warpgroup register budgets: the producer gives registers back, the
+// consumers take them (a block of three warpgroups launched at 168)
+template <int kRegs> __device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kRegs));
+}
+template <int kRegs> __device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kRegs));
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`
+// (see the header), layout SWIZZLE_128B. SBO, the stride of 8-row groups,
+// is 1024 bytes. LBO is the stride between 64-column atoms of an MN-major
+// operand, which never occurs at N = 64, and is not read for a K-major one:
+// it is set to the same 1024 bytes, so either reading of the two fields
+// meets the tile as it lies.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int kN> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kN) : "memory");
+}
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define APEX_WGMMA_D32                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}"
+#define APEX_WGMMA_OUT32(d)                                               \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+      "+f"(d[31])
+
+// d (+)= A B, m64n64k16, bf16 in, fp32 sums; A and B from shared memory,
+// both K-major. accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " APEX_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}"
+      : APEX_WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d += A B, m64n64k16; A from registers (four bf16 pairs a thread, the
+// accumulator layout packed), B from shared memory MN-major
+__device__ __forceinline__ void wgmma_rs_bt(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " APEX_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : APEX_WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef APEX_WGMMA_D32
+#undef APEX_WGMMA_OUT32
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The 64 x 64 S = A Bᵀ of one warpgroup over depth 64: four K-major steps
+// of 16, A and B tiles at shared addresses a and b.
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a,
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(d, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32), kk > 0);
+}
+// d += P B over depth 64: P from registers (p[kk] the columns 16kk..+15),
+// B an MN-major tile at shared address b (16 rows of depth a step)
+__device__ __forceinline__ void product_rs(float (&d)[32],
+                                           const uint32_t (&p)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_bt(d, p[kk], desc_sw128(b + kk * 2048));
+}
+// an accumulator packed to the A operand of a product of depth 64
+__device__ __forceinline__ void to_a_operand(const float (&d)[32],
+                                             uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+}  // namespace hopper
+}  // namespace apex_port

@@ -55,6 +55,9 @@ SIGNATURES = {
     # sk, d, scale, causal, the bias's four strides, dtype, stream
     "apex_fa_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                     _i, _f, _i, _ll, _ll, _ll, _ll, _i, _vp],
+    # the same without dtype: the bf16 tensor-core forward
+    "apex_fa_fwd_wgmma": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                          _i, _i, _f, _i, _ll, _ll, _ll, _ll, _vp],
     # q, k, v, bias, do, lse, dvec, dq, bh, grid_y, grid_z, heads, sq, sk,
     # d, scale, causal, the bias's four strides, dtype, stream
     "apex_fa_bwd_dq": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
@@ -64,6 +67,10 @@ SIGNATURES = {
     "apex_fa_bwd_dkv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                         _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll,
                         _i, _vp],
+    # the same without dtype: the bf16 tensor-core dk / dv kernel
+    "apex_fa_bwd_dkv_wgmma": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                              _i, _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll,
+                              _ll, _ll, _vp],
     # p, g, m, v, scalars, n, mode, dtype (of p and g), stream
     "apex_fused_adam": [_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     # p_master, g, m, v, p_lp (bf16, written), scalars, n, mode, stream

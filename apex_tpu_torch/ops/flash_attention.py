@@ -14,9 +14,17 @@ never expanded (the JAX ``_BiasPlan`` rule), so BERT's ``(b, 1, 1, sk)``
 padding mask stays ``b * sk`` floats. A score at or below -0.5e30 is out
 of the softmax support.
 
-:func:`flash_attention_fwd` launches ``csrc/flash_attention.cu`` and
-:func:`flash_attention_bwd` the two kernels of
-``csrc/flash_attention_bwd.cu`` for CUDA tensors; CPU tensors run
+For CUDA tensors the route follows the dtype, in the open
+(:func:`~apex_tpu_torch.ops.tiling.fa_route`): bf16 runs the tensor-core
+kernels (``wgmma`` products on tiles that TMA brings into shared memory):
+the forward ``csrc/flash_fwd_wgmma.cu`` and the dk / dv kernel
+``csrc/flash_bwd_dkv_wgmma.cu``, with dq on the FMA kernel of
+``csrc/flash_attention_bwd.cu``; fp32 runs the FMA-pipe kernels of
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``, whose
+full fp32 products the fp32 results keep (a TF32 product would not). The
+tensor-core kernels read q, k, v and do through TMA tensor maps, which
+need 16-byte aligned base addresses: a misaligned view raises
+``ValueError`` (no other route takes it). CPU tensors run
 :func:`flash_attention_fwd_plain` / :func:`flash_attention_bwd_plain`.
 :func:`flash_attention` is differentiable: its ``autograd.Function`` saves
 q, k, v, the bias, o and the fp32 lse, and its backward is
@@ -37,7 +45,9 @@ from typing import Optional, Tuple
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.tiling import FA_HEAD_DIM, fa_batch_heads_grid
+from apex_tpu_torch.ops.tiling import (FA_HEAD_DIM, FA_TC_ALIGN,
+                                       fa_batch_heads_grid, fa_route,
+                                       fa_tc_misaligned)
 
 NEG_INF = -1e30
 # scores at or below this are "hard masked" (as in the JAX kernel)
@@ -173,33 +183,56 @@ def _bias_args(name: str, bias: Optional[torch.Tensor],
     return bias.data_ptr(), strides
 
 
+def _tensor_core(name: str, q: torch.Tensor,
+                 **others: torch.Tensor) -> bool:
+    """True when the call takes the tensor-core kernels (q in bf16);
+    those read q and ``others`` through TMA, so each must be 16-byte
+    aligned, else ``ValueError``."""
+    if fa_route(str(q.dtype).removeprefix("torch.")) != "wgmma":
+        return False
+    bad = fa_tc_misaligned({"q": q.data_ptr(), **{
+        n: t.data_ptr() for n, t in others.items()}})
+    if bad:
+        raise ValueError(
+            f"{name}: the bf16 kernels read {', '.join(bad)} through TMA, "
+            f"which needs a {FA_TC_ALIGN}-byte aligned base address; pass "
+            f"a copy (.clone())")
+    return True
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool,
                         bias: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(o, lse)``. CUDA tensors launch the kernel: contiguous
+    """Returns ``(o, lse)``. CUDA tensors launch a kernel: contiguous
     float32 or bfloat16, one dtype for q, k and v, head_dim 64, any
-    batch * heads and sq / sk, an optional fp32 bias broadcastable to ``(b, h, sq, sk)``
-    (any strides). CPU tensors take the plain version."""
-    cpu = _check_qkv("flash_attention_fwd", q, k, v)
-    bptr, bstrides = _bias_args("flash_attention_fwd", bias, q, k)
+    batch * heads and sq / sk, an optional fp32 bias broadcastable to
+    ``(b, h, sq, sk)`` (any strides). bf16 launches the tensor-core
+    kernel (q, k and v 16-byte aligned, else ``ValueError``), fp32 the
+    FMA-pipe kernel. CPU tensors take the plain version."""
+    name = "flash_attention_fwd"
+    cpu = _check_qkv(name, q, k, v)
+    bptr, bstrides = _bias_args(name, bias, q, k)
     if cpu:
         return flash_attention_fwd_plain(q, k, v, scale=scale, causal=causal,
                                          bias=bias)
+    tc = _tensor_core(name, q, k=k, v=v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.lib()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr, o.data_ptr(),
+            lse.data_ptr(), b * h, *fa_batch_heads_grid(b * h), h, sq, sk, d,
+            float(scale), int(causal), *bstrides)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.apex_fa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              bptr, o.data_ptr(), lse.data_ptr(), b * h,
-                              *fa_batch_heads_grid(b * h), h, sq, sk, d,
-                              float(scale), int(causal), *bstrides,
-                              _DTYPES[q.dtype], stream)
+        if tc:
+            err = lib.apex_fa_fwd_wgmma(*args, stream)
+        else:
+            err = lib.apex_fa_fwd(*args, _DTYPES[q.dtype], stream)
     _build.launches["fa_fwd"] += 1
-    _build.check(err, "flash_attention_fwd")
+    _build.check(err, name)
     return o, lse
 
 
@@ -211,8 +244,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` from the forward's o and fp32 lse ``(b, h, sq)``
     and the forward's bias (no dbias). CUDA tensors launch the dq kernel
     and the dk / dv kernel (inputs as for :func:`flash_attention_fwd`; o
-    and do like q); no output is summed across blocks, so two runs give
-    the same bits. CPU tensors take the plain version."""
+    and do like q): for bf16 the FMA dq kernel and the tensor-core dk / dv
+    kernel (do 16-byte aligned too), for fp32 the two FMA-pipe kernels;
+    no output is summed across blocks, so two runs give the same bits.
+    CPU tensors take the plain version."""
     name = "flash_attention_bwd"
     cpu = _check_qkv(name, q, k, v)
     bptr, bstrides = _bias_args(name, bias, q, k)
@@ -232,6 +267,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: lse must be a contiguous float32 "
                          f"{(b, h, sq)} tensor, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
+    tc = _tensor_core(name, q, k=k, v=v, do=do)
     dvec = attention_dvec(o, do)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -246,8 +282,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.apex_fa_bwd_dq(*args, dq.data_ptr(), *geo, stream)
         _build.launches["fa_bwd_dq"] += 1
         _build.check(err, "flash_attention_bwd (dq)")
-        err = lib.apex_fa_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(), *geo,
-                                  stream)
+        if tc:
+            err = lib.apex_fa_bwd_dkv_wgmma(*args, dk.data_ptr(),
+                                            dv.data_ptr(), *geo[:-1], stream)
+        else:
+            err = lib.apex_fa_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(),
+                                      *geo, stream)
         _build.launches["fa_bwd_dkv"] += 1
         _build.check(err, "flash_attention_bwd (dk, dv)")
     return dq, dk, dv
@@ -301,10 +341,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``scale`` defaults to ``1/sqrt(d)``. ``block_q`` / ``block_k`` are the
     JAX signature's TPU tiles: explicit values are validated by its rule
     (:func:`validate_blocks`; one given alone is checked beside the JAX
-    default of the other, 512 or 1024) and change nothing else, since the
-    CUDA kernels keep their own 64 x 64 tiling. ``mask`` is a rank-4
-    boolean tensor broadcastable to ``(b, h, sq, sk)``, True = masked; a
-    fully masked row gives zero output and zero gradients. ``bias`` is an
+    default of the other, 512 or 1024) and change nothing else: the CUDA
+    kernels keep their own tiles (the FMA kernels 64 x 64; the bf16
+    tensor-core kernels blocks of 128 rows in two 64-row warpgroups over
+    64-row tiles).
+    ``mask`` is a rank-4 boolean tensor broadcastable to ``(b, h, sq,
+    sk)``, True = masked; a fully masked row gives zero output and zero
+    gradients. ``bias`` is an
     additive logits bias of the same broadcastability, taken as a constant
     (``bias_requires_grad=False``). At ``dropout_p == 0`` a
     ``dropout_seed`` is accepted and ignored, as in JAX. A differentiated

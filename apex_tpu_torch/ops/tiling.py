@@ -49,13 +49,40 @@ def ln_bwd_geometry(rows: int, hidden: int):
     return warps, blocks
 
 
-# flash attention (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu):
-# 64 query rows per block (16 per warp), 64-row K/V tiles, compiled for
-# head_dim 64 only; the backward's dk / dv kernel takes 64-row K/V tiles
-# per block and streams 64-row Q / dO tiles.
+# flash attention, compiled for head_dim 64 only. The FMA kernels
+# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu: fp32, and bf16
+# dq): 64 query rows per block (16 per warp), 64-row K/V tiles; the dk / dv
+# kernel takes 64-row K/V tiles per block and streams 64-row Q / dO tiles.
 FA_BLOCK_Q = 64
 FA_BLOCK_K = 64
 FA_HEAD_DIM = 64
+# The tensor-core kernels (bf16; csrc/flash_fwd_wgmma.cu,
+# csrc/flash_bwd_dkv_wgmma.cu) work out their tiles for themselves: blocks
+# of 128 rows (forward: queries; dk / dv: keys) in two 64-row warpgroups,
+# streaming 64-row tiles. TMA reads each tensor from a base address
+# aligned to FA_TC_ALIGN bytes.
+FA_TC_ALIGN = 16
+
+
+def fa_route(dtype_name: str) -> str:
+    """Which kernels a CUDA flash call runs, by the dtype of q, k and v:
+    ``"wgmma"`` (the tensor-core forward and dk / dv, bf16) or ``"fma"``
+    (the FMA-pipe kernels, fp32: full fp32 products, which a TF32
+    tensor-core product would not give). The bf16 dq runs on the FMA
+    kernel on either route."""
+    routes = {"bfloat16": "wgmma", "float32": "fma"}
+    if dtype_name not in routes:
+        raise ValueError(f"flash attention takes float32 or bfloat16, got "
+                         f"{dtype_name}")
+    return routes[dtype_name]
+
+
+def fa_tc_misaligned(ptrs: dict) -> list:
+    """The names among ``{name: data pointer}`` whose address is not
+    ``FA_TC_ALIGN``-byte aligned, which the tensor maps refuse."""
+    return [n for n, p in ptrs.items() if p % FA_TC_ALIGN]
+
+
 # grid.y and grid.z together carry batch * heads: a grid dimension above x
 # holds at most FA_GRID_DIM_MAX blocks
 FA_GRID_DIM_MAX = 65535

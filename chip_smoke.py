@@ -8,7 +8,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch / CUDA
    versions, and the build of every ``apex_tpu_torch/csrc/*.cu`` for
-   ``sm_90a`` from the checkout, with its seconds.
+   ``sm_90a`` from the checkout, with its seconds; ptxas's registers,
+   spills and stack of the tensor-core flash kernels (``-Xptxas -v``).
 2. ``kernel``: each CUDA kernel against its plain PyTorch version on the
    same card inputs, at the main path's shapes and a few ragged ones, in
    bf16 and fp32: max error and tolerance; kernel / plain / library times
@@ -23,14 +24,21 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    RMSNorm at 64 x 12288, the form for rows wider than 8192),
    flash-attention forward, its backward's dq and dk / dv kernels (one
    wrapper call launches both; each gets its own device time and bound,
-   and the plain and library times are the whole backward's) at GPT-2's
-   shapes and at BERT-large's 32 x 16 x 128 x 64, plain, with a
-   (b, 1, 1, sk) key-padding mask and with a full mask that masks whole
-   rows; fused Adam over the GPT-2 small flat buffer; the two LAMB
-   stages over the BERT-large flat buffer (334M fp32) and a ragged one,
-   with two runs bit-identical and an overflow step that changes no
-   bit; and the flat optimizer kernels of the ResNet path at ResNet-50's
-   flat layout (25.6M fp32) and at a ragged one: fused SGD over every
+   and the plain and library times are the whole backward's; bf16 runs
+   the tensor-core forward and dk / dv kernels, fp32 the FMA-pipe ones,
+   each read from the profiler's kernel names; achieved TFLOP/s and the
+   share of the bound beside each) at GPT-2's shapes, at BERT-large's
+   32 x 16 x 128 x 64, plain, with a (b, 1, 1, sk) key-padding mask and
+   with a full mask that masks whole rows, and at b * h = 65,600 (1025 x
+   64 x 64 x 64 causal: the grid's y x z slices), with a census of that
+   shape's bf16 o past FA_TOL (kernel and plain version each against
+   float64) and of the score's summation-order error on the tensor cores
+   against the bound the bf16 forward assumes; fused Adam over the GPT-2
+   small flat buffer; the two LAMB stages over the BERT-large flat
+   buffer (334M fp32) and a ragged one, with two runs bit-identical and
+   an overflow step that changes no bit; and the flat optimizer kernels
+   of the ResNet path at ResNet-50's flat layout (25.6M fp32) and at a
+   ragged one: fused SGD over every
    flag combination with fp32 and bf16 p, the master-weight Adam, the
    bf16 form of fused Adam, NovoGrad, Adagrad (both weight-decay modes),
    each held to the plain version's bits, two runs identical, an overflow
@@ -59,7 +67,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    ``torch.softmax`` / ``torch._softmax_backward_data`` as the library
    yardstick.
 3. ``forward``: GPT-2 small in bf16, batch 4 x 1024 tokens, through
-   ``GPT2``: exactly 25 LayerNorm and 12 flash-attention launches, logits
+   ``GPT2``: exactly 25 LayerNorm and 12 flash-attention launches (the
+   tensor-core forward, by the profiler's names), logits
    held against the same weights in fp32 on the CPU (plain versions) and
    in fp32 on the card, tokens/s, and the device time by kind of kernel.
 4. ``serve``: ``ServeScheduler(Engine(GPT-2 small bf16, 4 slots, max_len
@@ -74,7 +83,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    ``apex_tpu_torch.train.Trainer`` (``amp="dynamic"``) for 5 steps on
    one fixed 4 x 1024 batch: every loss finite and the last below the
    first; per step exactly 25 ``ln_fwd``, 25 ``ln_bwd``, 12 ``fa_fwd``,
-   12 ``fa_bwd_dq``, 12 ``fa_bwd_dkv`` and 1 ``fused_adam`` launches;
+   12 ``fa_bwd_dq``, 12 ``fa_bwd_dkv`` and 1 ``fused_adam`` launches,
+   the flash forward and dk / dv the tensor-core kernels;
    step ms, training tokens/s (batch x (seq - 1) per step), the device
    time of one more step by kind of kernel, its idle share, the peak
    device memory, and the time of the step's gradient packing into the
@@ -89,7 +99,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    read id 103 and carry their token as label, the rest -1): every loss
    finite and the last below the first; per step exactly 49 ``ln_fwd``,
    49 ``ln_bwd``, 24 ``fa_fwd``, 24 ``fa_bwd_dq``, 24 ``fa_bwd_dkv`` and
-   one launch of each LAMB stage; step ms, sequences/s and tokens/s, one
+   one launch of each LAMB stage (flash forward and dk / dv on the
+   tensor cores); step ms, sequences/s and tokens/s, one
    more step's device time by kind and idle share, peak memory, gradient
    packing time, each LAMB stage's device ms against its bound. An fp32
    cross-check of one step's gradients (4 layers at full width, 2 x 128
@@ -142,7 +153,10 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    launch; step ms, tokens/s, one more step's device time by kind, idle
    share, peak memory. (b) fp32 at batch 1: ``SelfMultiheadAttn`` (flash)
    against (a)'s unfused layer with the same weights (output and every
-   parameter's gradient, relative L2 1e-4), and ``mha_reference`` against
+   parameter's gradient, relative L2 1e-4; the FMA-pipe flash kernels),
+   the same module on a bf16 input (the tensor-core kernels; output
+   within 5e-2 relative L2 of fp32, gradients finite), and
+   ``mha_reference`` against
    ``flash_attention`` on the same q, k, v (FA_TOL / FA_BWD_TOL fp32).
    (c) ``EncdecMultiheadAttn`` at sq 1024 / sk 512 with a (4, 1, 1, 512)
    key-padding mask against :func:`unfused_encdec` (one ``softmax_fwd``
@@ -178,7 +192,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    gradients against the full-sequence flash on this card (rel L2 1e-2 /
    2e-2; an fp32 run at 1,024 tokens a rank 1e-5 / 1e-4); exactly n
    ``fa_fwd``, n ``fa_bwd_dq``, n ``fa_bwd_dkv`` and 2(n-1) + 2(n-1) + 2n
-   ``peer_put`` / ``peer_wait`` a rank a step; step ms per rank,
+   ``peer_put`` / ``peer_wait`` a rank a step, rank 0's flash forward and
+   dk / dv the tensor-core kernels (bf16); step ms per rank,
    tokens/s, and the same attention as one full-sequence flash forward +
    backward in this process as the yardstick.
 13. ``halo``: ResNet-50 stage 1's 3x3 conv input (32 x 56 x 56 x 64 bf16
@@ -276,6 +291,7 @@ MEGATRON_BATCH = 4
 MEGATRON_STEPS = 5
 MEGATRON_LR = 1e-4
 MEGATRON_REL_L2 = 1e-4   # module vs unfused twin, card vs CPU (fp32)
+MHA_BF16_REL_L2 = 5e-2   # the module on a bf16 input vs fp32: output, grads
 LCE_REL_L2 = 1e-5        # chunked head vs the dense head on the card (fp32)
 LCE_CHECK_ROWS = 512     # rows of the card-vs-CPU checks of (d)
 
@@ -293,11 +309,13 @@ KERNELS = {
                _P + "layer_norm_kernel.py:102", (139,)),
     "ln_bwd": ("apex_tpu_torch/csrc/layer_norm.cu",
                _P + "layer_norm_kernel.py:211", (279,)),
-    "fa_fwd": ("apex_tpu_torch/csrc/flash_attention.cu",
+    # flash: the bf16 main path's tensor-core kernels (fp32 keeps the
+    # FMA-pipe kernels of flash_attention.cu / flash_attention_bwd.cu)
+    "fa_fwd": ("apex_tpu_torch/csrc/flash_fwd_wgmma.cu",
                _P + "flash_attention.py:430", (466,)),
     "fa_bwd_dq": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
                   _P + "flash_attention.py:505", (687,)),
-    "fa_bwd_dkv": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+    "fa_bwd_dkv": ("apex_tpu_torch/csrc/flash_bwd_dkv_wgmma.cu",
                    _P + "flash_attention.py:559", (729,)),
     "fused_adam": ("apex_tpu_torch/csrc/fused_adam.cu",
                    _P + "fused_adam_kernel.py:178", (206,)),
@@ -613,27 +631,67 @@ def _same_bits(a, b) -> bool:
                             b.reshape(-1).view(torch.uint8)))
 
 
-def _rank_profile(fn, reps, passes=3):
-    """``{kernel: mean device ms per call}`` of ``fn`` over ``reps`` calls
-    under torch.profiler. Every rank runs the same ``passes`` (the calls
-    exchange data, so the ranks' loops must match); the first pass that
-    recorded device kernels counts."""
+# passes of torch.profiler before a profile that lost records fails: on an
+# H100 host a pass now and then recorded no device kernel, or only some
+# (1 of 30 flash launches once, 15 of 20 memcpys once)
+PROFILE_TRIES = 5
+
+
+def _profile(fn):
+    """``({kernel: us}, {kernel: runs})``: the summed durations and the
+    count of the device kernels (and copies) ``fn()`` ran, from
+    torch.profiler. Short spin kernels open and close the window and are
+    left out: on an H100 host a window's first two device records were
+    lost (every window of one run, whatever they were: a fill and a copy,
+    or a spin kernel and a fill)."""
     import torch
-    found = {}
-    for _ in range(passes):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                out[ev.name] = out.get(ev.name, 0.0) + \
-                    ev.time_range.elapsed_us()
-        if out and not found:
-            found = {k: us / 1e3 / reps for k, us in out.items()}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(20000)
+        fn()
+        torch.cuda._sleep(20000)
+        torch.cuda.synchronize()
+    us, runs = {}, {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in ev.name):
+            us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            runs[ev.name] = runs.get(ev.name, 0) + 1
+    return us, runs
+
+
+def _per_call_ms(fn, reps):
+    """``({kernel: mean device ms per call}, the runs of one call)`` of
+    ``fn`` over ``reps`` calls, or ``({}, runs)`` where the profile of the
+    calls did not record ``reps`` times each kernel that a profile of one
+    call recorded (a record lost in either)."""
+    _, one = _profile(fn)
+
+    def loop():
+        for _ in range(reps):
+            fn()
+
+    us, runs = _profile(loop)
+    if not one or runs != {k: n * reps for k, n in one.items()}:
+        return {}, {"one call": one, f"{reps} calls": runs}
+    return {k: t / 1e3 / reps for k, t in us.items()}, one
+
+
+def _rank_profile(fn, reps):
+    """``{kernel: mean device ms per call}`` of ``fn`` over ``reps`` calls
+    under torch.profiler: the first of PROFILE_TRIES passes that recorded
+    every call's kernels. Every rank runs all the passes (the calls
+    exchange data, so the ranks' loops must match)."""
+    found, seen = {}, None
+    for _ in range(PROFILE_TRIES):
+        got, seen_now = _per_call_ms(fn, reps)
+        if not found:
+            found, seen = got, seen_now
+    if not found:
+        raise RuntimeError(f"torch.profiler lost device kernels in "
+                           f"{PROFILE_TRIES} passes: {seen}")
     return found
 
 
@@ -782,7 +840,7 @@ def _rank_checks(group, spec):
             view = rc.device_bytes(scratch.peer_ptr((me + 1) % n), nbytes,
                                    dev)
             it = _cycle(srcs)
-            prof = _rank_profile(lambda: view.copy_(next(it)), 20, passes=2)
+            prof = _rank_profile(lambda: view.copy_(next(it)), 20)
             timed[f"library_{name}"] = sum(prof.values())
             timed[f"library_{name}_call_ms"] = _event_ms(
                 lambda: view.copy_(next(it)), 20)
@@ -799,7 +857,7 @@ def _rank_checks(group, spec):
                                dev)
         it = _cycle(srcs)
         prof = _rank_profile(lambda: (view.copy_(next(it)),
-                                      view.copy_(next(it))), 20, passes=2)
+                                      view.copy_(next(it))), 20)
         timed["library_halo"] = sum(prof.values())
     torch.cuda.synchronize()
     group.barrier()
@@ -862,6 +920,11 @@ def _rank_ring(group, spec):
                 rec["profile"] = {
                     "flash_fwd": _pick(prof, "fa_fwd_kernel"),
                     "flash_bwd": _pick(prof, "fa_bwd_"),
+                    "flash_fwd_wgmma": _pick(prof, "fa_fwd_kernel_wgmma"),
+                    "flash_bwd_dkv_wgmma": _pick(prof,
+                                                 "fa_bwd_dkv_kernel_wgmma"),
+                    "flash_fma_fwd_dkv": _pick(prof, "fa_fwd_kernel<")
+                    + _pick(prof, "fa_bwd_dkv_kernel<"),
                     "peer_put": _pick(prof, "peer_put_kernel"),
                     "peer_wait": _pick(prof, "peer_wait_kernel"),
                     "total": sum(prof.values())} if me == 0 else None
@@ -973,6 +1036,45 @@ def _rank_path(group, spec):
     return res
 
 
+# the tensor-core kernels' sources, whose ptxas report the env line carries
+TC_SOURCES = ("flash_fwd_wgmma.cu", "flash_bwd_dkv_wgmma.cu")
+
+
+def ptxas_report(build, names):
+    """``{kernel: {registers, spill_stores, spill_loads, stack}}`` from
+    ``nvcc -Xptxas -v`` on ``names`` (one compile each, together, after
+    the library's build), the kernel named by its function and template
+    form."""
+    import re
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        procs = [subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             str(build.CSRC / n), "-o", str(Path(tmp) / f"{n}.o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in names]
+        outs = [p.communicate()[0] for p in procs]
+    out, kernel = {}, None
+    for line in "\n".join(outs).splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?(fa_[a-z_]+)I(Lb\d)E",
+                      line)
+        if m:
+            bias = "true" if m.group(2) == "Lb1" else "false"
+            kernel = f"{m.group(1)}<{bias}>"
+            out[kernel] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and kernel:
+            out[kernel].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out[kernel]["registers"] = int(m.group(1))
+    require(len(out) == 2 * len(names), f"ptxas report: {out}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1047,7 +1149,8 @@ def main() -> int:
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          sources=[p.relative_to(ROOT).as_posix() for p in _build.sources()],
-         nvcc_flags=_build.NVCC_FLAGS, build_s=build_s)
+         nvcc_flags=_build.NVCC_FLAGS, build_s=build_s,
+         ptxas=ptxas_report(_build, TC_SOURCES))
 
     # ------------------------------------------------ 2. kernel vs plain
     def bench_ms(fn, sets, reps):
@@ -1066,24 +1169,15 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
 
-    def device_profile(fn, tries=3, counts=None):
-        """Run ``fn()`` under torch.profiler; returns ``{kernel name: us}``,
-        the summed durations of the device kernels it ran (and fills
-        ``counts``, if given, with ``{kernel name: runs}``). A pass in
-        which the profiler recorded no device kernel at all (seen once in
-        five runs on that machine) is run again, up to ``tries`` passes."""
-        for _ in range(tries):
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            out, runs = {}, {}
-            for ev in prof.events():
-                if ev.device_type == torch.autograd.DeviceType.CUDA:
-                    out[ev.name] = (out.get(ev.name, 0.0)
-                                    + ev.time_range.elapsed_us())
-                    runs[ev.name] = runs.get(ev.name, 0) + 1
+    def device_profile(fn, counts=None):
+        """Run ``fn()`` under torch.profiler (``_profile``); returns
+        ``{kernel name: us}``, the summed durations of the device kernels
+        it ran (and fills ``counts``, if given, with ``{kernel name:
+        runs}``). A pass in which the profiler recorded no device kernel
+        at all (seen once in five runs on an H100 host) is run again, up to
+        PROFILE_TRIES passes."""
+        for _ in range(PROFILE_TRIES):
+            out, runs = _profile(fn)
             if out:
                 break
         if counts is not None:
@@ -1092,17 +1186,19 @@ def main() -> int:
 
     def device_kernels(fn, sets, reps):
         """``{kernel name: mean device ms per call}`` of ``fn`` over
-        ``reps`` calls (torch.profiler), after a warm-up."""
+        ``reps`` calls cycling through ``sets`` (torch.profiler), after a
+        warm-up; a pass counts only if it recorded ``reps`` times every
+        kernel of one call (``_per_call_ms``), up to PROFILE_TRIES
+        passes."""
         for a in sets[:2]:
             fn(*a)
-
-        def loop():
-            for i in range(reps):
-                fn(*sets[i % len(sets)])
-
-        kern = device_profile(loop)
-        require(bool(kern), "torch.profiler recorded no device kernel")
-        return {k: us / 1e3 / reps for k, us in kern.items()}
+        it = _cycle(sets)
+        for _ in range(PROFILE_TRIES):
+            got, seen = _per_call_ms(lambda: fn(*next(it)), reps)
+            if got:
+                return got
+        require(False, f"torch.profiler lost device kernels in "
+                       f"{PROFILE_TRIES} passes: {seen}")
 
     def device_ms(fn, sets, reps):
         """Mean device ms per call of ``fn``: the summed durations of the
@@ -1133,6 +1229,18 @@ def main() -> int:
                 "matmul" if any(s in low for s in (
                     "gemm", "cutlass", "xmma", "nvjet", "cublas"))
                 else "other")
+
+    def require_flash_route(kern, dt, what,
+                            kernels=("fa_fwd_kernel", "fa_bwd_dkv_kernel")):
+        """From a profile's kernel names: bf16 flash ran the tensor-core
+        kernels (``<kernel>_wgmma``), fp32 the FMA-pipe ones (the
+        templates ``<kernel><``), and not the other."""
+        for kern_name in kernels:
+            tc = any(kern_name + "_wgmma" in n for n in kern)
+            fma = any(kern_name + "<" in n for n in kern)
+            require((tc, fma) == (dt == "bf16", dt != "bf16"),
+                    f"{what} ({dt}): {kern_name} tensor-core {tc}, FMA "
+                    f"{fma}")
 
     def by_kind(kern):
         """Device ms of a profile, summed by kind of kernel."""
@@ -1293,8 +1401,14 @@ def main() -> int:
                 f"{dt}: o err {do.max().item()} (atol {atol} rtol {rtol}), "
                 f"lse err {dl}, fully masked rows zero {dead_ok}")
         reps = 30
-        kt = timed(lambda q, k, v: flash_attention_fwd(q, k, v, **kw), sets,
-                   reps)
+
+        def fwd(q, k, v):
+            return flash_attention_fwd(q, k, v, **kw)
+
+        kern = device_kernels(fwd, sets, reps)
+        require_flash_route(kern, dt, f"fa_fwd {b}x{h}x{sq}x{sk}",
+                            ("fa_fwd_kernel",))
+        kt = {"ms": sum(kern.values()), "call_ms": bench_ms(fwd, sets, reps)}
         pt = timed(lambda q, k, v: flash_attention_fwd_plain(q, k, v, **kw),
                    sets, 5)
         # SDPA's causal mask is top-left aligned like the kernel's, and
@@ -1312,10 +1426,73 @@ def main() -> int:
                    ms=kt["ms"], plain_ms=pt["ms"], library_ms=lt["ms"],
                    bound_ms=bms, bound_by=by, call_ms=kt["call_ms"],
                    plain_call_ms=pt["call_ms"],
-                   library_call_ms=lt["call_ms"], bytes=nbytes, flops=ops)
+                   library_call_ms=lt["call_ms"], bytes=nbytes, flops=ops,
+                   tflops=ops / kt["ms"] / 1e9, bound_share=bms / kt["ms"])
         emit("kernel", **rec)
         if main:
             summary[main] = rec
+
+    def fa_order_census():
+        """The bf16 forward's summation order at the card tests' b * h =
+        65,600 causal s = 64 case (the same seed): o past FA_TOL against
+        the plain version (required: none) and, for the record, each
+        against a float64 evaluation of the same function (p rounded to
+        bf16 from float64 scores); and the score's order error, in units
+        of 2^-24 |q| |k|, of a tensor-core product (cuBLAS, bf16 in, fp32
+        out) and of the plain version's fp32 product, on the first 64
+        heads. The kernel sums again, in the plain version's order, the
+        scores whose bf16 p the tensor cores' order could move, on a bound
+        of kOrderUnits = 16 such units (csrc/flash_fwd_wgmma.cu): required
+        here, at most half of it."""
+        b, h, s = 1025, 64, 64
+        g = torch.Generator(device=dev).manual_seed(17)
+        q, k, v = (torch.randn(b, h, s, 64, device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(3))
+        o, _ = flash_attention_fwd(q, k, v, scale=0.125, causal=True)
+        op, _ = flash_attention_fwd_plain(q, k, v, scale=0.125,
+                                          causal=True)
+        s64 = torch.matmul(q.double(), k.double().transpose(-1, -2)) \
+            * 0.125
+        s64.masked_fill_(torch.ones(s, s, dtype=torch.bool,
+                                    device=dev).triu(1), NEG_INF)
+        p64 = torch.exp(s64 - s64.amax(-1, keepdim=True))
+        del s64
+        o64 = torch.matmul(p64.to(torch.bfloat16).double(), v.double()) \
+            / p64.sum(-1, keepdim=True)
+        del p64
+        atol, rtol = FA_TOL["bf16"]
+
+        def past(got, want):
+            d = (got.double() - want).abs()
+            return int((d > atol + rtol * want.abs()).sum())
+
+        qs, ks = q[:1].reshape(-1, s, 64), k[:1].reshape(-1, s, 64)
+        exact = torch.matmul(qs.double(), ks.double().transpose(-1, -2))
+        unit = 2.0 ** -24 * (qs.double().norm(dim=-1)[..., :, None]
+                             * ks.double().norm(dim=-1)[..., None, :])
+        fp32 = torch.matmul(qs.float(), ks.float().transpose(-1, -2))
+        tc = torch.stack([torch.mm(qs[i], ks[i].t(), out_dtype=torch.float32)
+                          for i in range(qs.shape[0])])
+        rec = dict(kernel="fa_fwd", check="bf16 summation order", b=b, h=h,
+                   sq=s, sk=s, causal=True, elements=o.numel(),
+                   tol={"atol": atol, "rtol": rtol},
+                   past_tol_kernel_vs_plain=past(o, op.double()),
+                   past_tol_kernel_vs_float64=past(o, o64),
+                   past_tol_plain_vs_float64=past(op, o64),
+                   score_units_tc_vs_fp32=((tc - fp32).abs() / unit)
+                   .max().item(),
+                   score_units_fp32_vs_float64=((fp32 - exact).abs() / unit)
+                   .max().item(),
+                   score_units_tc_vs_float64=((tc - exact).abs() / unit)
+                   .max().item())
+        emit("kernel", **rec)
+        require(rec["past_tol_kernel_vs_plain"] == 0,
+                f"bf16 fa_fwd past FA_TOL at b*h = 65,600: {rec}")
+        require(rec["score_units_tc_vs_fp32"] <= 8.0,
+                f"the tensor cores' score order error is past half the "
+                f"kernel's bound: {rec}")
+        del q, k, v, o, op, o64, exact, unit, fp32, tc
+        torch.cuda.empty_cache()
 
     with torch.inference_mode():
         for dt in ("bf16", "fp32"):
@@ -1344,6 +1521,9 @@ def main() -> int:
                     main="fa_fwd_bert" if dt == "bf16" else None)
             fa_case(32, 16, 128, 128, False, dt, mask_kind="pad")
             fa_case(4, 16, 128, 128, False, dt, mask_kind="full")
+            # b * h = 65,600: the grid's y x z slices
+            fa_case(1025, 64, 64, 64, True, dt)
+        fa_order_census()
 
     def ln_bwd_case(rows, hidden, dt, main=None, rms=False, affine=True):
         es = torch.tensor([], dtype=tdt[dt]).element_size()
@@ -1479,6 +1659,8 @@ def main() -> int:
         reps = 20
         split = device_kernels(lambda *a: flash_attention_bwd(*a, **kw),
                                sets, reps)
+        require_flash_route(split, dt, f"fa_bwd {b}x{h}x{sq}x{sk}",
+                            ("fa_bwd_dkv_kernel",))
         ms_dq = sum(v for k, v in split.items() if "fa_bwd_dq_kernel" in k)
         ms_dkv = sum(v for k, v in split.items()
                      if "fa_bwd_dkv_kernel" in k)
@@ -1516,11 +1698,13 @@ def main() -> int:
         bk, byk = bound(bytes_dkv, ops_dkv, dt)
         rq = dict(kernel="fa_bwd_dq", max_abs_err=errs["dq"], ms=ms_dq,
                   bound_ms=bq, bound_by=byq, bytes=bytes_dq, flops=ops_dq,
+                  tflops=ops_dq / ms_dq / 1e9, bound_share=bq / ms_dq,
                   **common)
         rk = dict(kernel="fa_bwd_dkv", max_abs_err=max(errs["dk"],
                                                       errs["dv"]),
                   dk_err=errs["dk"], dv_err=errs["dv"], ms=ms_dkv,
                   bound_ms=bk, bound_by=byk, bytes=bytes_dkv, flops=ops_dkv,
+                  tflops=ops_dkv / ms_dkv / 1e9, bound_share=bk / ms_dkv,
                   **common)
         emit("kernel", **rq)
         emit("kernel", **rk)
@@ -1678,6 +1862,7 @@ def main() -> int:
                     main="_bert" if bf else None)
         fa_bwd_case(32, 16, 128, 128, False, dt, mask_kind="pad")
         fa_bwd_case(4, 16, 128, 128, False, dt, mask_kind="full")
+        fa_bwd_case(1025, 64, 64, 64, True, dt)
     adam_case(flat_n, main=True)
     adam_case(1001)
     torch.cuda.empty_cache()
@@ -2304,7 +2489,10 @@ def main() -> int:
         for name, n in fwd_launches.items():
             main_launches[name] = main_launches.get(name, 0) + n
         fwd_ms = bench_ms(lambda t: model(t), [(tok_d,)], 5)
-        fwd_busy = by_kind(device_profile(lambda: model(tok_d)))
+        fkern = device_profile(lambda: model(tok_d))
+        require_flash_route(fkern, "bf16", "GPT-2 forward",
+                            ("fa_fwd_kernel",))
+        fwd_busy = by_kind(fkern)
         ref = GPT2.from_params(cfg32, params, device="cpu")(tokens[:1])
         card32 = model32(tok_d[:1]).cpu()
         lb = logits[:1].cpu()
@@ -2449,7 +2637,9 @@ def main() -> int:
     # one more step under the profiler: device time by kind of kernel,
     # set against the unprofiled steady step's wall time
     trainer.config.steps = TRAIN_STEPS + 1
-    train_busy = by_kind(device_profile(lambda: trainer.run()))
+    tkern = device_profile(lambda: trainer.run())
+    require_flash_route(tkern, "bf16", "train step")
+    train_busy = by_kind(tkern)
     # the step's gradient packing on its own: one zero fill and one copy
     # per parameter into the flat fp32 buffer (tensors of the gradients'
     # shapes stand in for them)
@@ -2578,6 +2768,7 @@ def main() -> int:
         main_launches[name] = main_launches.get(name, 0) + n
     bsteady = sorted(bstep_s[1:])[len(bstep_s[1:]) // 2] * 1e3
     bkern = device_profile(bert_step)
+    require_flash_route(bkern, "bf16", "bert step")
     bbusy = by_kind(bkern)
     # the largest kernels of "other", to see where that time goes
     top_other = top_kernels(bkern, lambda k: kind_of(k) == "other")
@@ -3022,7 +3213,25 @@ def main() -> int:
     def rel(a, b):
         return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
-    y_fa, g_fa = out_and_grads(m32, m32, r1, x1)
+    runs = {}
+    fkern = device_profile(lambda: runs.update(
+        fa=out_and_grads(m32, m32, r1, x1)))
+    require_flash_route(fkern, "fp32", "SelfMultiheadAttn (flash)")
+    y_fa, g_fa = runs["fa"]
+    # the same module on a bf16 input: the tensor-core kernels, the output
+    # and every parameter's gradient near the fp32 ones
+    hkern = device_profile(lambda: runs.update(
+        bf=out_and_grads(m32, m32, r1, x1.to(torch.bfloat16))))
+    require_flash_route(hkern, "bf16", "SelfMultiheadAttn (flash)")
+    self_bf16_out = rel(runs["bf"][0].float(), y_fa)
+    self_bf16_grad, self_bf16_grad_name = worst_rel(
+        {n: g.float() for n, g in runs["bf"][1].items()}, g_fa)
+    require(self_bf16_out <= MHA_BF16_REL_L2
+            and self_bf16_grad <= MHA_BF16_REL_L2,
+            f"SelfMultiheadAttn bf16 vs fp32: output rel L2 "
+            f"{self_bf16_out}, {self_bf16_grad_name} gradient "
+            f"{self_bf16_grad}")
+    del runs
     y_un, g_un = out_and_grads(lambda x: unfused_self_attention(m32, x), m32,
                                r1, x1)
     self_out = rel(y_fa, y_un)
@@ -3185,6 +3394,8 @@ def main() -> int:
          softmax_device_ms=msoftmax, top_kernels_ms=top_kernels(
              mkern, lambda k: True), max_memory_allocated=mpeak,
          loss_scale=mscale, self_attn_vs_unfused_rel_l2=self_out,
+         self_attn_bf16_vs_fp32_rel_l2=self_bf16_out,
+         self_attn_bf16_vs_fp32_grad_worst_rel_l2=self_bf16_grad,
          self_attn_grad_worst_rel_l2=self_grad,
          self_attn_grad_worst_param=self_grad_name,
          flash_vs_mha_reference={"o": err_o, "dq_dk_dv": [
@@ -3404,6 +3615,12 @@ def main() -> int:
                         for kname, cnt in rec["launches"].items():
                             ring_launches[kname] = \
                                 ring_launches.get(kname, 0) + cnt
+                    span = recs[0]["profile"]
+                    require(span["flash_fwd_wgmma"] > 0
+                            and span["flash_bwd_dkv_wgmma"] > 0
+                            and span["flash_fma_fwd_dkv"] == 0,
+                            f"ring {name} world {world}: rank 0's flash "
+                            f"kernels not the tensor-core ones: {span}")
                     step_ms = [rec["step_ms"] for rec in recs]
                     slowest = max(sorted(s)[len(s) // 2] for s in step_ms)
                     # rank 0's kernel spans include the other ranks'
@@ -3486,6 +3703,7 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"],
             **({"setup": rec["setup"]} if "setup" in rec else {}),
+            **{k: rec[k] for k in ("tflops", "bound_share") if k in rec},
             "shape": {k: rec[k] for k in (
                 "form", "rows", "hidden", "b", "h", "sq", "sk", "causal",
                 "mask", "n", "tensors", "w", "c", "groups", "act", "algo",

@@ -30,7 +30,11 @@ backward also 1e-6 absolute (the row sum's order); two runs identical.
 The peer-put kernels run between rank processes that share the card
 (``spawn_ranks``) and are held to identical bits; ring attention over
 them (fp32) to the full-sequence flash at 1e-5 (o) and 1e-4 (gradients)
-relative L2.
+relative L2. The flash tests also read from torch.profiler which kernels
+ran: bf16 the tensor-core forward and dk / dv kernels
+(``fa_fwd_kernel_wgmma``, ``fa_bwd_dkv_kernel_wgmma``), fp32 the FMA-pipe
+ones; run them with ``python -m pytest tests/test_torch_cuda.py -q -k
+flash``.
 """
 
 import pytest
@@ -65,6 +69,44 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+# windows of torch.profiler tried before a test fails for want of records
+PROFILE_TRIES = 5
+
+
+def _kernel_names(fn):
+    """The names of the device kernels a call of ``fn`` ran, from
+    torch.profiler (the tests call it beside the call they check, on the
+    same inputs). A PyTorch kernel opens the window: under pytest on the
+    card, a window that held only the wrappers' kernels (launched through
+    ctypes) was mostly recorded empty, where a script alone recorded them
+    every time; a window with no flash kernel still came back now and
+    then, and is tried again, up to PROFILE_TRIES windows."""
+    act = torch.profiler.ProfilerActivity
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if any("fa_" in n for n in names):
+            return names
+    raise AssertionError(f"torch.profiler recorded no flash kernel in "
+                         f"{PROFILE_TRIES} windows: {names}")
+
+
+def _assert_flash_route(names, dtype, fwd=False, dkv=False):
+    """bf16 ran the tensor-core kernels, fp32 the FMA-pipe ones (the
+    template names ``fa_fwd_kernel<`` / ``fa_bwd_dkv_kernel<``)."""
+    tc = dtype == torch.bfloat16
+    for want, kernel in ((fwd, "fa_fwd_kernel"), (dkv, "fa_bwd_dkv_kernel")):
+        if not want:
+            continue
+        ran_tc = any(kernel + "_wgmma" in n for n in names)
+        ran_fma = any(kernel + "<" in n for n in names)
+        assert (ran_tc, ran_fma) == (tc, not tc), (kernel, dtype, names)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -143,12 +185,20 @@ def test_ln_bwd_is_deterministic(dev):
         assert torch.equal(ta, tb)
 
 
+# GPT-2's 4 x 12 heads at 1024 (and a ragged 1000); 2 x 3 heads otherwise
+def _flash_heads(sq):
+    return (4, 12) if sq >= 1000 else (2, 3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("sq,sk", [(128, 128), (200, 200), (70, 130)])
+@pytest.mark.parametrize("sq,sk", [(128, 128), (200, 200), (70, 130),
+                                   (1024, 1024), (1000, 1000), (200, 333),
+                                   (130, 70), (1, 300), (65, 1)])
 def test_flash_kernel_matches_plain(dev, sq, sk, causal, dtype):
     g = torch.Generator(device=dev).manual_seed(sq + sk)
-    q, k, v = (torch.randn(2, 3, s, 64, device=dev, generator=g).to(dtype)
+    b, h = _flash_heads(sq)
+    q, k, v = (torch.randn(b, h, s, 64, device=dev, generator=g).to(dtype)
                for s in (sq, sk, sk))
     before = _build.launches["fa_fwd"]
     with torch.no_grad():
@@ -157,6 +207,8 @@ def test_flash_kernel_matches_plain(dev, sq, sk, causal, dtype):
                                              causal=causal)
     torch.cuda.synchronize()
     assert _build.launches["fa_fwd"] == before + 1
+    _assert_flash_route(_kernel_names(lambda: flash_attention_fwd(
+        q, k, v, scale=0.125, causal=causal)), dtype, fwd=True)
     if dtype == torch.float32:
         torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
     else:
@@ -177,10 +229,11 @@ def _flash_bwd_inputs(dev, b, h, sq, sk, causal, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", [(128, 128), (200, 200), (70, 130),
-                                   (130, 70)])
+                                   (130, 70), (1024, 1024), (1000, 1000),
+                                   (200, 333), (1, 300), (65, 1)])
 def test_flash_bwd_kernels_match_plain(dev, sq, sk, causal, dtype):
-    q, k, v, o, lse, do = _flash_bwd_inputs(dev, 2, 3, sq, sk, causal,
-                                            dtype, sq * sk)
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, *_flash_heads(sq), sq, sk,
+                                            causal, dtype, sq * sk)
     before = (_build.launches["fa_bwd_dq"], _build.launches["fa_bwd_dkv"])
     got = flash_attention_bwd(q, k, v, o, lse, do, scale=0.125,
                               causal=causal)
@@ -189,6 +242,8 @@ def test_flash_bwd_kernels_match_plain(dev, sq, sk, causal, dtype):
     torch.cuda.synchronize()
     assert (_build.launches["fa_bwd_dq"], _build.launches["fa_bwd_dkv"]) \
         == (before[0] + 1, before[1] + 1)
+    _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, scale=0.125, causal=causal)), dtype, dkv=True)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == w.shape, name
         if dtype == torch.float32:
@@ -198,13 +253,42 @@ def test_flash_bwd_kernels_match_plain(dev, sq, sk, causal, dtype):
                                        rtol=2 ** -6, msg=name)
 
 
-def test_flash_bwd_is_deterministic(dev):
-    args = _flash_bwd_inputs(dev, 2, 4, 256, 256, True, torch.bfloat16, 5)
+@pytest.mark.parametrize("b,h,s", [(2, 4, 256), (4, 12, 1024)])
+def test_flash_bwd_is_deterministic(dev, b, h, s):
+    """Two runs give the same bits (no atomics: each block owns its
+    rows), the bf16 dk / dv from the tensor-core kernel among them."""
+    args = _flash_bwd_inputs(dev, b, h, s, s, True, torch.bfloat16, 5)
     a = flash_attention_bwd(*args, scale=0.125, causal=True)
     b = flash_attention_bwd(*args, scale=0.125, causal=True)
     torch.cuda.synchronize()
+    _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
+        *args, scale=0.125, causal=True)), torch.bfloat16, dkv=True)
     for ta, tb in zip(a, b):
         assert torch.equal(ta, tb)
+
+
+def test_tc_flash_refuses_misaligned_views(dev):
+    """The bf16 kernels read q, k, v and do through TMA tensor maps, which
+    need 16-byte aligned bases: a contiguous view 2 bytes into its storage
+    raises, with no other route; an fp32 view of the same offset runs on
+    the FMA kernel."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    store = torch.randn(2 * 64 * 64 + 8, device=dev, generator=g)
+    bad = store.bfloat16()[1:1 + 64 * 64].view(1, 1, 64, 64)
+    ok = bad.clone()
+    assert bad.data_ptr() % 16 and ok.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_fwd(ok, bad, ok, scale=0.125, causal=True)
+    o, lse = flash_attention_fwd(ok, ok, ok, scale=0.125, causal=True)
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_bwd(ok, ok, ok, o, lse, bad, scale=0.125,
+                            causal=True)
+    f32 = store[1:1 + 64 * 64].view(1, 1, 64, 64)
+    o, lse = flash_attention_fwd(f32, f32, f32, scale=0.125, causal=True)
+    op, lsep = flash_attention_fwd_plain(f32, f32, f32, scale=0.125,
+                                         causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
 
 
 @pytest.mark.parametrize("mode", [ADAM_MODE_L2, ADAM_MODE_ADAMW])
@@ -292,31 +376,60 @@ def test_rms_and_no_gamma_kernels_match_plain(dev, rows, hidden, rms,
         torch.testing.assert_close(dg, dgp, atol=1e-3, rtol=1e-4)
 
 
-def _masked_inputs(dev, b, h, sq, sk, mshape, dtype, seed):
+def _masked_inputs(dev, b, h, sq, sk, mshape, dtype, seed, kind="mask"):
+    """q, k, v, do and a bias of shape ``mshape`` (None: no bias): a mask
+    (-1e30 where masked; a full-row mask masks whole rows, and with full
+    columns a key no query sees) or, for ``kind="bias"``, random values."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(b, h, s, 64, device=dev, generator=g).to(dtype)
                for s in (sq, sk, sk))
     do = torch.randn(b, h, sq, 64, device=dev, generator=g).to(dtype)
+    if mshape is None:
+        return q, k, v, do, None
+    if kind == "bias":
+        return q, k, v, do, torch.randn(mshape, device=dev, generator=g)
     mask = torch.rand(mshape, device=dev, generator=g) < 0.3
     if mshape[2] != 1:
         mask[0, 0, 3] = True           # whole rows masked
         mask[-1, -1, sq - 1] = True
+        if mshape[3] != 1:
+            mask[0, 0, :, 5] = True    # a key no query sees
     bias = torch.zeros(mshape, device=dev).masked_fill_(mask, -1e30)
     return q, k, v, do, bias
 
 
+# (b, h, sq, sk), the bias's shape (None: none) and its kind: key-padding,
+# full and per-head masks at 2 x 3 x 70 x 130; BERT-large's 32 x 16 x 128
+# x 128 plain, with its (b, 1, 1, sk) padding mask and with a full mask;
+# an additive bias broadcast over the batch
+MASK_CASES = [((2, 3, 70, 130), (2, 1, 1, 130), "mask"),
+              ((2, 3, 70, 130), (2, 3, 70, 130), "mask"),
+              ((2, 3, 70, 130), (1, 3, 70, 1), "mask"),
+              ((32, 16, 128, 128), None, "mask"),
+              ((32, 16, 128, 128), (32, 1, 1, 128), "mask"),
+              ((32, 16, 128, 128), (32, 16, 128, 128), "mask"),
+              ((2, 3, 70, 130), (1, 3, 70, 130), "bias")]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mshape", [(2, 1, 1, 130), (2, 3, 70, 130),
-                                    (1, 3, 70, 1)])
-def test_masked_flash_kernels_match_plain(dev, mshape, dtype):
-    q, k, v, do, bias = _masked_inputs(dev, 2, 3, 70, 130, mshape, dtype,
-                                       sum(mshape))
+@pytest.mark.parametrize("dims,mshape,kind", MASK_CASES)
+def test_masked_flash_kernels_match_plain(dev, dims, mshape, kind, dtype):
+    b, h, sq, sk = dims
+    # the seed: the bias's shape summed (the first three cases' seeds
+    # before the table grew), else the dimensions'
+    q, k, v, do, bias = _masked_inputs(dev, b, h, sq, sk, mshape, dtype,
+                                       sum(mshape or dims), kind)
     o, lse = flash_attention_fwd(q, k, v, scale=0.125, causal=False,
                                  bias=bias)
+    _assert_flash_route(_kernel_names(lambda: flash_attention_fwd(
+        q, k, v, scale=0.125, causal=False, bias=bias)), dtype, fwd=True)
     op, lsep = flash_attention_fwd_plain(q, k, v, scale=0.125, causal=False,
                                          bias=bias)
     got = flash_attention_bwd(q, k, v, op, lsep, do, scale=0.125,
                               causal=False, bias=bias)
+    _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
+        q, k, v, op, lsep, do, scale=0.125, causal=False, bias=bias)), dtype,
+        dkv=True)
     want = flash_attention_bwd_plain(q, k, v, op, lsep, do, scale=0.125,
                                      causal=False, bias=bias)
     again = flash_attention_bwd(q, k, v, op, lsep, do, scale=0.125,
@@ -328,7 +441,10 @@ def test_masked_flash_kernels_match_plain(dev, mshape, dtype):
         torch.testing.assert_close(o.float(), op.float(), atol=2e-3,
                                    rtol=2 ** -7)
     torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
-    dead = (bias <= -0.5e30).expand(2, 3, 70, 130).all(dim=-1)
+    masked = (torch.zeros(dims, dtype=torch.bool, device=dev)
+              if bias is None else (bias <= -0.5e30).expand(dims))
+    dead = masked.all(dim=-1)        # rows that see no key
+    unseen = masked.all(dim=-2)      # keys no row sees
     assert torch.equal(o[dead], torch.zeros_like(o[dead]))
     assert bool((lse[dead] == -1e30).all())
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -338,6 +454,10 @@ def test_masked_flash_kernels_match_plain(dev, mshape, dtype):
             torch.testing.assert_close(a.float(), w.float(), atol=1e-2,
                                        rtol=2 ** -6, msg=name)
     assert torch.equal(got[0][dead], torch.zeros_like(got[0][dead]))
+    for grad in got[1:]:
+        assert torch.equal(grad[unseen], torch.zeros_like(grad[unseen]))
+    assert mshape is None or kind == "bias" or mshape[2] == 1 \
+        or mshape[3] == 1 or bool(unseen.any())
     for a, b in zip(got, again):
         assert torch.equal(a, b)
 
@@ -899,25 +1019,37 @@ def test_wide_ln_kernels_match_plain(dev, rows, hidden, rms, affine, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_over_65535_batch_heads(dev, dtype):
     """batch * heads = 65600 (1025 x 64) runs through grid.y x grid.z:
-    forward, dq and dk / dv against the plain versions."""
+    o, lse, dq, dk and dv against the plain versions, each checked
+    whatever the others give (the failures are collected), and bf16 on
+    the tensor-core forward and dk / dv kernels."""
     b, h, s = 1025, 64, 64
     g = torch.Generator(device=dev).manual_seed(17)
     q, k, v, do = (torch.randn(b, h, s, 64, device=dev, generator=g)
                    .to(dtype) for _ in range(4))
     o, lse = flash_attention_fwd(q, k, v, scale=0.125, causal=True)
+    _assert_flash_route(_kernel_names(lambda: flash_attention_fwd(
+        q, k, v, scale=0.125, causal=True)), dtype, fwd=True)
     op, lsep = flash_attention_fwd_plain(q, k, v, scale=0.125, causal=True)
-    torch.cuda.synchronize()
-    atol, rtol = (2e-5, 0.0) if dtype == torch.float32 else (2e-3, 2 ** -7)
-    torch.testing.assert_close(o.float(), op.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
     got = flash_attention_bwd(q, k, v, o, lse, do, scale=0.125, causal=True)
+    _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, scale=0.125, causal=True)), dtype, dkv=True)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, scale=0.125,
                                      causal=True)
     torch.cuda.synchronize()
-    atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (1e-2, 2 ** -6)
-    for a, c in zip(got, want):
-        torch.testing.assert_close(a.float(), c.float(), atol=atol,
-                                   rtol=rtol)
+    fp32 = dtype == torch.float32
+    fwd_tol = (2e-5, 0.0) if fp32 else (2e-3, 2 ** -7)
+    bwd_tol = (1e-4, 0.0) if fp32 else (1e-2, 2 ** -6)
+    checks = [("o", o, op, fwd_tol), ("lse", lse, lsep, (2e-5, 0.0))]
+    checks += [(name, a, c, bwd_tol)
+               for name, a, c in zip(("dq", "dk", "dv"), got, want)]
+    failures = []
+    for name, a, c, (atol, rtol) in checks:
+        try:
+            torch.testing.assert_close(a.float(), c.float(), atol=atol,
+                                       rtol=rtol)
+        except AssertionError as err:
+            failures.append(f"{name}: {err}")
+    assert not failures, "\n".join(failures)
 
 
 @pytest.mark.parametrize("rms", [False, True])

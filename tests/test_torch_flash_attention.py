@@ -13,7 +13,11 @@ Tolerances for fp32: 2e-5 absolute on o and lse, 1e-4 on dq / dk / dv
 bf16 as stated at each test. The mask / bias cases hold the same fp32
 tolerances; a fully masked row is held to exact zeros and lse -1e30. The
 JAX signature's ``block_q`` / ``block_k`` and a ``dropout_seed`` at rate 0
-behave as in JAX; the kernels' batch * heads grid covers any count.
+behave as in JAX; the kernels' batch * heads grid covers any count. A
+Python copy of the bf16 tensor-core kernels' tile rule is held to the JAX
+kernels' ``_causal_run`` and ``_mask_split`` at the same 64 x 64 tiles
+(the kernels themselves are covered by the card tests); the dtype route
+and the TMA alignment check are tested without a card.
 """
 
 import math
@@ -25,12 +29,15 @@ import pytest
 import torch
 
 from apex_tpu.ops.pallas.flash_attention import (
+    _causal_run as _jax_causal_run, _mask_split as _jax_mask_split,
     flash_attention as jax_flash_attention, flash_attention_bwd as
     jax_flash_attention_bwd, flash_attention_fwd as jax_flash_attention_fwd)
-from apex_tpu_torch.ops.flash_attention import (flash_attention,
+from apex_tpu_torch.ops.flash_attention import (_tensor_core,
+                                                flash_attention,
                                                 flash_attention_bwd,
                                                 flash_attention_fwd)
-from apex_tpu_torch.ops.tiling import FA_GRID_DIM_MAX, fa_batch_heads_grid
+from apex_tpu_torch.ops.tiling import (FA_GRID_DIM_MAX, fa_batch_heads_grid,
+                                       fa_route, fa_tc_misaligned)
 
 D = 64
 SCALE = 1.0 / math.sqrt(D)
@@ -366,3 +373,180 @@ def test_batch_heads_grid_covers_any_count(bh):
 def test_batch_heads_grid_refuses_what_no_grid_holds():
     with pytest.raises(ValueError, match="batch\\*heads"):
         fa_batch_heads_grid(65535 * 65535 + 1)
+
+
+# The bf16 tensor-core kernels' tile rule against the JAX kernels' own
+# rules at the same 64 x 64 tiles: `_causal_run` says which (q tile, k
+# tile) pairs run, `_mask_split` which of them take the masked arithmetic.
+# The kernels compute their rule in C++ from (sq, sk, causal);
+# `_tc_fwd_plan` / `_tc_dkv_plan` copy it line for line, so a change to one
+# side must be made on the other: csrc/flash_fwd_wgmma.cu `nk`, `nk_me` and
+# `masked`, csrc/flash_bwd_dkv_wgmma.cu `qt0`, the `_causal_run` skip and
+# `masked`. The kernels' own use of the rule is held to the plain versions
+# by the card tests (tests/test_torch_cuda.py).
+WG_ROWS, TC_TILE = 64, 64            # a warpgroup's rows, a streamed tile
+TC_BLOCK = 2 * WG_ROWS               # a block's query rows / keys
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _tc_fwd_plan(sq, sk, causal):
+    """The forward's work: ``(blocks, loads, steps)``. ``loads[b]`` the K /
+    V tiles block ``b`` streams (tiles 0 .. loads[b] - 1; `nk`); ``steps``
+    the ``(q tile, k tile, masked)`` each warpgroup computes (its 64-row q
+    tile ``q`` in block ``q // 2``; `nk_me`), ``masked`` when the tile
+    crosses that q tile's diagonal or the ragged sk edge. A q tile past sq
+    computes nothing."""
+    nk = _cdiv(sk, TC_TILE)
+    blocks = _cdiv(sq, TC_BLOCK)
+    loads, steps = [], []
+    for b in range(blocks):
+        q0 = b * TC_BLOCK
+        last = min(q0 + TC_BLOCK, sq) - 1
+        loads.append(min(nk, last // TC_TILE + 1) if causal else nk)
+        for w in range(TC_BLOCK // WG_ROWS):
+            row0 = q0 + w * WG_ROWS
+            if row0 >= sq:
+                continue
+            mine = (min(nk, (row0 + WG_ROWS - 1) // TC_TILE + 1) if causal
+                    else nk)
+            for kt in range(mine):
+                k0 = kt * TC_TILE
+                masked = ((causal and k0 + TC_TILE - 1 > row0)
+                          or k0 + TC_TILE > sk)
+                steps.append((row0 // WG_ROWS, kt, masked))
+    return blocks, loads, steps
+
+
+def _tc_dkv_plan(sq, sk, causal):
+    """The dk / dv kernel's work: ``(blocks, loads, steps)``. ``loads[b]``
+    the Q / dO tiles block ``b`` streams, ``(first, end)`` (from the
+    diagonal when causal: `qt0`); ``steps`` the ``(k tile, q tile,
+    masked)`` each warpgroup computes (its 64-key k tile ``k`` in block
+    ``k // 2``), ``masked`` when the q tile crosses that k tile's diagonal
+    or the k tile holds keys past sk. A k tile past sk computes nothing."""
+    nq = _cdiv(sq, TC_TILE)
+    blocks = _cdiv(sk, TC_BLOCK)
+    loads, steps = [], []
+    for b in range(blocks):
+        k0 = b * TC_BLOCK
+        first = min(k0 // TC_TILE, nq) if causal else 0
+        loads.append((first, nq))
+        for w in range(TC_BLOCK // WG_ROWS):
+            kw0 = k0 + w * WG_ROWS
+            if kw0 >= sk:
+                continue
+            for qt in range(first, nq):
+                q0 = qt * TC_TILE
+                if causal and kw0 > q0 + TC_TILE - 1:
+                    continue
+                masked = ((causal and kw0 + WG_ROWS - 1 > q0)
+                          or kw0 + WG_ROWS > sk)
+                steps.append((kw0 // WG_ROWS, qt, masked))
+    return blocks, loads, steps
+
+PLAN_SHAPES = [(1, 1), (64, 64), (65, 64), (64, 65), (128, 128),
+               (200, 200), (200, 333), (333, 200), (70, 130), (130, 70),
+               (1000, 1000), (1024, 1024), (128, 1), (1, 300)]
+
+
+def _jax_pairs(sq, sk, causal):
+    """{(q tile, k tile): needs_mask} of every pair the JAX kernels run
+    at 64 x 64 tiles."""
+    nq, nk = -(-sq // 64), -(-sk // 64)
+    out = {}
+    for qi in range(nq):
+        for kj in range(nk):
+            run, needs = _jax_mask_split(causal, qi, kj, 64, 64, sk, nk)
+            if bool(run):
+                out[(qi, kj)] = bool(needs)
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
+def test_tc_fwd_plan_matches_jax_rules(sq, sk, causal):
+    blocks, loads, steps = _tc_fwd_plan(sq, sk, causal)
+    assert blocks == -(-sq // 128) == len(loads)
+    got = {(qt, kt): masked for qt, kt, masked in steps}
+    assert len(got) == len(steps)  # no pair twice
+    assert got == _jax_pairs(sq, sk, causal)
+    if causal:
+        assert all(_jax_causal_run(qt, kt, 64, 64) for qt, kt in got)
+    # a block streams exactly the key tiles its warpgroups use
+    for b in range(blocks):
+        used = [kt for qt, kt, _ in steps if qt // 2 == b]
+        assert loads[b] == (max(used) + 1 if used else 0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
+def test_tc_dkv_plan_matches_jax_rules(sq, sk, causal):
+    blocks, loads, steps = _tc_dkv_plan(sq, sk, causal)
+    assert blocks == -(-sk // 128) == len(loads)
+    got = {(qt, kt): masked for kt, qt, masked in steps}
+    assert len(got) == len(steps)
+    assert got == _jax_pairs(sq, sk, causal)
+    # a block streams its q tiles from the first any of its keys sees
+    # (`_q_index_map_dkv`'s first block) to the end, each used
+    for b, (first, end) in enumerate(loads):
+        assert end == -(-sq // 64)
+        assert first == (min(b * 128 // 64, end) if causal else 0)
+        used = {qt for kt, qt, _ in steps if kt // 2 == b}
+        assert used == set(range(first, end)) or not used
+
+
+def test_tc_plan_causal_work_is_the_lower_triangle():
+    """GPT-2's causal 1024 x 1024: 136 of the 256 tile pairs run and the
+    16 on the diagonal take the masked arithmetic, in both kernels."""
+    for plan, pair in ((_tc_fwd_plan, lambda s: (s[0], s[1])),
+                       (_tc_dkv_plan, lambda s: (s[1], s[0]))):
+        _, _, steps = plan(1024, 1024, True)
+        assert len(steps) == 16 * 17 // 2
+        assert sorted(pair(s) for s in steps if s[2]) == \
+            [(i, i) for i in range(16)]
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "fma")])
+def test_cuda_route_follows_the_dtype(dtype, route):
+    """bf16 takes the tensor-core kernels, fp32 the FMA-pipe ones (full
+    fp32 products); any other dtype is refused."""
+    assert fa_route(str(dtype).removeprefix("torch.")) == route
+    q = torch.zeros(1, 1, 64, 64, dtype=dtype)
+    assert _tensor_core("f", q, k=q, v=q) is (route == "wgmma")
+
+
+def test_cuda_route_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_route("float16")
+
+
+def test_tc_alignment_check_names_misaligned_pointers():
+    """TMA needs 16-byte aligned bases: the check names each pointer that
+    is not, from fake addresses."""
+    base = 0x7F00_0000_0000
+    assert fa_tc_misaligned({"q": base, "k": base + 16, "v": base + 4096}) \
+        == []
+    assert fa_tc_misaligned({"q": base + 2, "k": base + 16,
+                             "do": base + 8}) == ["q", "do"]
+
+
+def test_tc_route_raises_on_a_misaligned_bf16_view():
+    """A contiguous bf16 view one element into its storage is 2 bytes off
+    the alignment TMA needs: the tensor-core route raises (it does not
+    fall back); an fp32 view takes the FMA route, which reads any
+    address."""
+    store = torch.zeros(2 * 64 * 64 + 8, dtype=torch.bfloat16)
+    ok = store[:64 * 64].view(1, 1, 64, 64)
+    bad = store[1:1 + 64 * 64].view(1, 1, 64, 64)
+    assert ok.data_ptr() % 16 == 0 and bad.data_ptr() % 16 == 2
+    assert _tensor_core("flash_attention_fwd", ok, k=ok, v=ok)
+    with pytest.raises(ValueError, match="k through TMA"):
+        _tensor_core("flash_attention_fwd", ok, k=bad, v=ok)
+    with pytest.raises(ValueError, match="do through TMA"):
+        _tensor_core("flash_attention_bwd", ok, k=ok, v=ok, do=bad)
+    f32 = torch.zeros(64 * 64 + 1)[1:].view(1, 1, 64, 64)
+    assert not _tensor_core("flash_attention_fwd", f32, k=f32, v=f32)
