@@ -138,7 +138,13 @@ def _rank_main(rank, world, tmp, device, timeout_s):
         pickle.dump(result, f)
     os.replace(tmp_out, out)
     if result["ok"] and dist.is_initialized():
-        dist.destroy_process_group()
+        # the value is delivered: a teardown that raises (a peer still
+        # running, a loaded host) must not turn this rank into a failed
+        # one, whose peers the parent would then stop early
+        try:
+            dist.destroy_process_group()
+        except Exception:  # noqa: BLE001 - the process exits next
+            pass
     # a failed rank's peers may wait in a collective: leave at once and
     # let the parent stop them
     os._exit(0 if result["ok"] else 1)
@@ -174,16 +180,20 @@ def spawn_ranks(fn: Callable, world: int, args: Sequence[Any] = (), *,
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout_s
-        failed_at = None
+        failed_at, timed_out = None, False
         while any(p.is_alive() for p in procs):
             now = time.monotonic()
+            # the deadline first: a rank still running past it is hung,
+            # whatever its peers did meanwhile
+            if now > deadline:
+                timed_out = True
+                break
             if failed_at is None and any(
                     p.exitcode not in (None, 0) for p in procs):
                 failed_at = now
             # a failed rank leaves its peers waiting: give them a moment
             # to fail on their own, then stop them
-            if now > deadline or (failed_at is not None
-                                  and now > failed_at + 2.0):
+            if failed_at is not None and now > failed_at + 2.0:
                 break
             time.sleep(0.05)
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -202,7 +212,7 @@ def spawn_ranks(fn: Callable, world: int, args: Sequence[Any] = (), *,
                 results.append(res["value"])
             elif res is not None and not res["ok"]:
                 errors.append(f"rank {r} raised:\n{res['error']}")
-            elif r in hung and failed_at is not None:
+            elif r in hung and not timed_out:
                 errors.append(f"rank {r} was stopped after another rank "
                               f"failed")
             elif r in hung:

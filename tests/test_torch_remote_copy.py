@@ -224,3 +224,14 @@ def test_spawn_ranks_returns_in_rank_order_and_raises_for_a_failed_rank():
 def test_spawn_ranks_kills_a_hung_rank():
     with pytest.raises(RuntimeError, match="did not finish within"):
         spawn_ranks(rh.hang_on_rank, 2, (0,), device="cpu", timeout_s=5)
+
+
+def test_spawn_ranks_reports_a_hung_rank_whose_peer_teardown_raised():
+    """Rank 1 returns its value and then its process group's teardown
+    raises while rank 0 still runs: rank 1 did not fail (its value was
+    delivered), so rank 0 is not stopped early as a failed rank's peer,
+    and is reported hung at the deadline."""
+    with pytest.raises(RuntimeError, match="did not finish within") as err:
+        spawn_ranks(rh.hang_while_a_peer_teardown_raises, 2, (0,),
+                    device="cpu", timeout_s=10)
+    assert "rank 1" not in str(err.value)

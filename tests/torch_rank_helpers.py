@@ -14,6 +14,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops import remote_copy as rc
@@ -270,4 +271,18 @@ def hang_on_rank(group, bad_rank):
     """Rank ``bad_rank`` never returns."""
     if group.axis_index() == bad_rank:
         time.sleep(3600)
+    return group.axis_index()
+
+
+def hang_while_a_peer_teardown_raises(group, bad_rank):
+    """Rank ``bad_rank`` never returns; the others return, and then the
+    teardown of their process group raises (as ``destroy_process_group``
+    may on a loaded host while a peer still runs)."""
+    if group.axis_index() == bad_rank:
+        time.sleep(3600)
+
+    def teardown_fails(*args, **kwargs):
+        raise RuntimeError("teardown fails on purpose")
+
+    dist.destroy_process_group = teardown_fails
     return group.axis_index()
