@@ -23,8 +23,12 @@ the forward ``csrc/flash_fwd_wgmma.cu`` and the dk / dv kernel
 ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``, whose
 full fp32 products the fp32 results keep (a TF32 product would not). The
 tensor-core kernels read q, k, v and do through TMA tensor maps, which
-need 16-byte aligned base addresses: a misaligned view raises
-``ValueError`` (no other route takes it). CPU tensors run
+need 16-byte aligned base addresses: the raw :func:`flash_attention_fwd`
+/ :func:`flash_attention_bwd` raise ``ValueError`` on a misaligned view
+(no other route takes it), and both take contiguous tensors only. The
+public :func:`flash_attention` takes any layout: it hands the kernels a
+contiguous, aligned copy of an operand that is neither, and the operand
+itself otherwise (no copy on the main path). CPU tensors run
 :func:`flash_attention_fwd_plain` / :func:`flash_attention_bwd_plain`.
 :func:`flash_attention` is differentiable: its ``autograd.Function`` saves
 q, k, v, the bias, o and the fp32 lse, and its backward is
@@ -293,13 +297,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is contiguous and ``FA_TC_ALIGN``-byte
+    aligned, as the kernels take it; else a contiguous copy (a fresh
+    allocation, so aligned)."""
+    if t.is_contiguous() and t.data_ptr() % FA_TC_ALIGN == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The ``custom_vjp`` of the JAX ``_flash_attention`` without dbias:
     saves q, k, v, the bias, o and lse; the backward runs
-    :func:`flash_attention_bwd`."""
+    :func:`flash_attention_bwd`. q, k, v and the incoming gradient reach
+    the kernels contiguous and aligned (:func:`_kernel_operand`), so any
+    layout the JAX function takes runs here too."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale):
+        q, k, v = (_kernel_operand(t) for t in (q, k, v))
         o, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
                                      bias=bias)
         ctx.save_for_backward(q, k, v, bias, o, lse)
@@ -309,7 +325,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
+                                         _kernel_operand(do),
                                          scale=ctx.scale, causal=ctx.causal,
                                          bias=bias)
         return dq, dk, dv, None, None, None

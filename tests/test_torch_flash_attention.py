@@ -17,7 +17,9 @@ behave as in JAX; the kernels' batch * heads grid covers any count. A
 Python copy of the bf16 tensor-core kernels' tile rule is held to the JAX
 kernels' ``_causal_run`` and ``_mask_split`` at the same 64 x 64 tiles
 (the kernels themselves are covered by the card tests); the dtype route
-and the TMA alignment check are tested without a card.
+and the TMA alignment check are tested without a card. The public op
+takes any layout (a transposed view, a view 2 bytes off its storage's
+alignment) and hands the raw kernels contiguous, aligned operands.
 """
 
 import math
@@ -36,8 +38,10 @@ from apex_tpu_torch.ops.flash_attention import (_tensor_core,
                                                 flash_attention,
                                                 flash_attention_bwd,
                                                 flash_attention_fwd)
-from apex_tpu_torch.ops.tiling import (FA_GRID_DIM_MAX, fa_batch_heads_grid,
-                                       fa_route, fa_tc_misaligned)
+from apex_tpu_torch.ops import flash_attention as fa_mod
+from apex_tpu_torch.ops.tiling import (FA_GRID_DIM_MAX, FA_TC_ALIGN,
+                                       fa_batch_heads_grid, fa_route,
+                                       fa_tc_misaligned)
 
 D = 64
 SCALE = 1.0 / math.sqrt(D)
@@ -206,6 +210,118 @@ def test_keys_no_query_sees_get_zero_gradients():
     assert torch.isfinite(tq.grad).all()
     assert torch.equal(tk.grad[0, 0, 8:], torch.zeros(16, D))
     assert torch.equal(tv.grad[0, 0, 8:], torch.zeros(16, D))
+
+
+def _spy_kernel_operands(monkeypatch):
+    """Wraps the module's raw ``flash_attention_fwd`` / ``_bwd`` (which the
+    public op's ``autograd.Function`` calls) with a check that each of q,
+    k, v, o and do is contiguous and ``FA_TC_ALIGN``-byte aligned, as the
+    CUDA kernels need; returns the list of calls seen."""
+    seen = []
+    real_fwd, real_bwd = fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd
+
+    def check(name, **ts):
+        for what, t in ts.items():
+            assert t.is_contiguous(), (name, what)
+            assert t.data_ptr() % FA_TC_ALIGN == 0, (name, what)
+        seen.append(name)
+
+    def fwd(q, k, v, **kw):
+        check("fwd", q=q, k=k, v=v)
+        return real_fwd(q, k, v, **kw)
+
+    def bwd(q, k, v, o, lse, do, **kw):
+        check("bwd", q=q, k=k, v=v, o=o, do=do)
+        return real_bwd(q, k, v, o, lse, do, **kw)
+
+    monkeypatch.setattr(fa_mod, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(fa_mod, "flash_attention_bwd", bwd)
+    return seen
+
+
+def test_public_op_takes_transposed_views(monkeypatch):
+    """q, k, v and the incoming gradient as ``transpose(1, 2)`` views of
+    (b, s, h, d) storage, as a user's projection gives them: the kernels
+    get contiguous operands, and o and the gradients match JAX's on the
+    same arrays (fp32: 2e-5 on o, 1e-4 on the gradients)."""
+    seen = _spy_kernel_operands(monkeypatch)
+    rng = np.random.default_rng(41)
+    q, k, v, w = (rng.standard_normal((2, 72, 2, D)).astype(np.float32)
+                  for _ in range(4))
+    jq, jk, jv, jw = (np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                      for a in (q, k, v, w))
+
+    def jloss(q_, k_, v_):
+        o = jax_flash_attention(q_, k_, v_, True)
+        return jnp.sum(o * jw), o
+
+    (_, oj), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                         has_aux=True)(
+        jnp.asarray(jq), jnp.asarray(jk), jnp.asarray(jv))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    tq, tk, tv = (t.transpose(1, 2) for t in leaves)
+    assert not tq.is_contiguous()
+    ot = flash_attention(tq, tk, tv, True)
+    np.testing.assert_allclose(ot.detach().numpy(), np.asarray(oj),
+                               atol=2e-5, rtol=0)
+    tw = torch.from_numpy(w).transpose(1, 2)
+    (ot * tw).sum().backward()
+    assert seen == ["fwd", "bwd"]
+    for t, jg in zip(leaves, jgrads):
+        np.testing.assert_allclose(t.grad.transpose(1, 2).numpy(),
+                                   np.asarray(jg), atol=1e-4, rtol=0)
+
+
+def test_public_op_takes_misaligned_bf16_views(monkeypatch):
+    """bf16 q, k, v and do as contiguous views 2 bytes into their storage
+    (off the TMA's 16-byte alignment): the kernels get aligned copies, o
+    and the gradients have the bits of the same call on aligned copies,
+    and match JAX's bf16 op within the bf16 tolerances (o 2e-2; gradients
+    2e-2 plus 2^-6 relative: p and ds round to bf16 from block-wise or
+    whole-row scores)."""
+    shape = (1, 2, 80, D)
+    n = math.prod(shape)
+    rng = np.random.default_rng(43)
+    q, k, v, w = (rng.standard_normal(shape).astype(np.float32)
+                  for _ in range(4))
+
+    def misaligned(a):
+        store = torch.zeros(n + 8, dtype=torch.bfloat16)
+        t = store[1:1 + n].view(shape)
+        t.copy_(torch.from_numpy(a))
+        assert t.data_ptr() % FA_TC_ALIGN == 2
+        return t
+
+    def run(make):
+        leaves = [make(a).requires_grad_() for a in (q, k, v)]
+        o = flash_attention(*leaves, True)
+        o.backward(make(w))
+        return o.detach(), [t.grad for t in leaves]
+
+    want_o, want_g = run(lambda a: torch.from_numpy(a).to(torch.bfloat16))
+    seen = _spy_kernel_operands(monkeypatch)
+    got_o, got_g = run(misaligned)
+    assert seen == ["fwd", "bwd"]
+    assert torch.equal(got_o, want_o)
+    for a, b in zip(got_g, want_g):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    bf = jnp.bfloat16
+    jw = jnp.asarray(w).astype(bf).astype(jnp.float32)
+
+    def jloss(q_, k_, v_):
+        o = jax_flash_attention(q_, k_, v_, True)
+        return jnp.sum(o.astype(jnp.float32) * jw), o
+
+    (_, oj), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                         has_aux=True)(
+        *(jnp.asarray(a).astype(bf) for a in (q, k, v)))
+    np.testing.assert_allclose(got_o.float().numpy(),
+                               np.asarray(oj.astype(jnp.float32)),
+                               atol=2e-2, rtol=0)
+    for name, tg, jg in zip(("dq", "dk", "dv"), got_g, jgrads):
+        np.testing.assert_allclose(tg.float().numpy(),
+                                   np.asarray(jg.astype(jnp.float32)),
+                                   atol=2e-2, rtol=2 ** -6, err_msg=name)
 
 
 def _mask(shape, seed, p=0.3):
