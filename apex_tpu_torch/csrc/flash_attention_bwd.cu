@@ -1,8 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk and dv from the
 // forward's fp32 row log-sum-exp, without the (sq, sk) probability matrix.
-// Here: dq in fp32 and bf16, dk / dv in fp32. bf16 dk / dv run on the
-// tensor cores (flash_bwd_dkv_wgmma.cu); fp32 stays on the FMA pipes, whose
-// full fp32 products the fp32 tolerances hold.
+// Here: the fp32 route, dq and dk / dv. bf16 runs on the tensor cores
+// (flash_bwd_dq_wgmma.cu, flash_bwd_dkv_wgmma.cu); fp32 stays on the FMA
+// pipes, whose full fp32 products the fp32 tolerances hold.
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `flash_attention_bwd`,
 // its two Pallas kernels `_fa_dq_kernel` and `_fa_dkv_kernel`, without
@@ -46,9 +46,8 @@
 // output columns (lane, lane + 32) of its 16 rows. Streamed tiles that
 // lanes read down a column are padded to a 65-float row stride so the 32
 // lanes hit 32 distinct banks. The products run on the fp32 FMA pipes, not
-// the tensor cores; moving bf16 dq to wgmma, on the pipeline of
-// flash_bwd_dkv_wgmma.cu, is the next step. Ragged sq / sk are
-// masked inside the kernels (no padding copies): padded query rows read
+// the tensor cores (a TF32 product would change fp32 results). Ragged sq /
+// sk are masked inside the kernels (no padding copies): padded query rows read
 // lse = -1e30 and so contribute nothing. The bias is a compile-time
 // variant, as in the forward.
 //
@@ -434,8 +433,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients; dk / dv
-// float32 only, bfloat16 is apex_fa_bwd_dkv_wgmma's); lse and dvec are
+// dtype: 0 = float32 (q, k, v, do and the gradients; bfloat16 is
+// apex_fa_bwd_dq_wgmma's and apex_fa_bwd_dkv_wgmma's); lse and dvec are
 // float32 [bh, sq]. Only head_dim 64 is compiled. grid_y, grid_z,
 // bias, heads and the bias strides as for apex_fa_fwd.
 extern "C" int apex_fa_bwd_dq(const void* q, const void* k, const void* v,
@@ -454,9 +453,6 @@ extern "C" int apex_fa_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch_dq<float>(q, k, v, dout, lse, dvec, dq, bh, grid_y, grid_z,
                             sq, sk, scale, causal, sb, s);
-  if (dtype == 1)
-    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, dvec, dq, bh, grid_y,
-                                    grid_z, sq, sk, scale, causal, sb, s);
   return (int)cudaErrorInvalidValue;
 }
 

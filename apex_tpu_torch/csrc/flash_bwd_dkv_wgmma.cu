@@ -1,6 +1,6 @@
 // Flash-attention backward, the dk / dv half, for Hopper's tensor cores
-// (sm_90a), bf16. dq stays on the FMA kernel of flash_attention_bwd.cu,
-// and so does the whole fp32 route (full fp32 products).
+// (sm_90a), bf16. dq is flash_bwd_dq_wgmma.cu's; the fp32 route keeps the
+// FMA kernels of flash_attention_bwd.cu (full fp32 products).
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `_fa_dkv_kernel`
 // without dropout and dbias, causal or not, with or without the additive

@@ -1,0 +1,293 @@
+// Flash-attention backward, the dq half, for Hopper's tensor cores
+// (sm_90a), bf16. The fp32 route keeps the FMA kernel of
+// flash_attention_bwd.cu (full fp32 products).
+//
+// Replaces: apex_tpu/ops/pallas/flash_attention.py `_fa_dq_kernel` without
+// dropout and dbias, causal or not, with or without the additive fp32
+// score bias (ScoreBias in common.cuh), JAX layout q / do (b, h, sq, 64),
+// k / v (b, h, sk, 64), lse and D = rowsum(do * o) fp32 (b, h, sq) (D
+// computed outside, `attention_dvec`). Per (query i, key j):
+//   s  = round(round(q_i . k_j * scale) + bias_ij), masked where j >= sk
+//        or (causal) j > i
+//   p  = exp(s - lse_i), exactly 0 where masked, s <= -0.5e30 or
+//        lse_i <= -0.5e30 (`_bwd_p`; padded and fully masked rows)
+//   dp = do_i . v_j,  ds = bf16(p * (dp - D_i) * scale)
+//   dq_i += ds . k_j   (fp32 sums, dq stored in bf16)
+// as in flash_attention_bwd.cu (the scale before the cast gives the TPU's
+// folded-scale bits).
+//
+// What bounds it on this card: operations. Three s x s x d products a head
+// (S, dP, dQ; half when causal) over ~10 bytes per (row, d) element of
+// traffic: hundreds of flops a byte.
+//
+// What the design does about that: the three products run on the tensor
+// cores (wgmma m64n64k16) from tiles that TMA brings into shared memory.
+// A block owns 128 query rows of one (b * h) slice: two consumer
+// warpgroups of 64 rows (wgmma's M) whose Q and dO rows stay resident in
+// shared memory, each thread holding the lse and D of its two rows in
+// registers, and a producer warp that streams 64-key K and V tiles through
+// a ring of kStages stages ("full": the TMA's bytes; "empty": every
+// consumer thread after its products), up to the block's diagonal when
+// causal, the heaviest query blocks first. Per tile and warpgroup: S = Q
+// K^T and dP = dO V^T with both operands from shared memory, K-major (K
+// and V are stored [key][d]); p and ds per accumulator element; then dQ +=
+// dS K with A from registers (the ds accumulator packed to bf16) and B the
+// same K tile read MN-major through a second descriptor. The dQ product of
+// one tile runs on the tensor cores while the warpgroup waits for the next
+// tile and issues its S and dP products (wgmma groups complete in order).
+// Each block owns its dQ rows: no atomics, and two runs give the same
+// bits. Only a tile across a warpgroup's diagonal or the ragged sk edge
+// runs the masked arithmetic (`_mask_split`); rows past sq load as zeros
+// with lse = -1e30 and are never written.
+//
+// C interface (bound with ctypes): every pointer and the stream are
+// `void*`; the function returns cudaGetLastError() after the launch.
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+using namespace apex_port;
+using namespace apex_port::hopper;
+
+constexpr int kD = 64;          // head dim
+constexpr int kRowsWG = 64;     // query rows per consumer warpgroup
+constexpr int kBQ = 128;        // query rows per block
+constexpr int kBK = 64;         // keys per streamed tile
+constexpr int kStages = 4;
+constexpr int kThreads = 384;   // two consumer warpgroups + the producer
+constexpr float kNegInf = -1e30f;
+constexpr float kMaskEdge = 0.5f * kNegInf;
+
+constexpr int kTileBytes = kBK * kD * 2;          // one 64-row bf16 tile
+constexpr int kQBytes = kBQ * kD * 2;             // the resident Q (or dO)
+constexpr int kOffStages = 2 * kQBytes;           // K, V of each stage
+constexpr int kOffBars = kOffStages + kStages * 2 * kTileBytes;
+constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
+
+// `_bwd_p`: P = exp(s - lse), 0 where s or the row's lse is masked
+__device__ __forceinline__ float bwd_p(float s, float lse) {
+  return (s <= kMaskEdge || lse <= kMaskEdge) ? 0.f : expf(s - lse);
+}
+
+// ds * scale (into s) of one tile for the thread's two rows and 16 keys,
+// from the scores in s and dp in t. kMasked: the tile crosses the diagonal
+// or the sk edge.
+template <bool kBias, bool kMasked>
+__device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
+                                        const float (&l)[2],
+                                        const float (&dsum)[2], int r0,
+                                        int k0, int cq, int sq, int sk,
+                                        float scale, int causal,
+                                        const ScoreBias& bias,
+                                        const float* bs) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const int row = r0 + 8 * h;
+      const int key = k0 + 8 * j + cq + (e & 1);
+      const bool dead = kMasked && (key >= sk || (causal && key > row));
+      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+      // plain version's round(round(q.k * scale) + bias)
+      float x = __fmul_rn(s[4 * j + e], scale);
+      if (kBias && !dead && row < sq) x = __fadd_rn(x, bias.at(bs, row, key));
+      const float p = dead ? 0.f : bwd_p(x, l[h]);
+      // the dq product takes ds * scale in k's dtype
+      s[4 * j + e] = p * (t[4 * j + e] - dsum[h]) * scale;
+    }
+}
+
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dvec,
+                       __nv_bfloat16* __restrict__ dq, int nbh, int sq,
+                       int sk, float scale, int causal, ScoreBias bias) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;
+  uint8_t* dos = smem + kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOffBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const long long bh = batch_head();
+  if (bh >= nbh) return;  // the last z-slice's spare blocks
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int nk_all = (sk + kBK - 1) / kBK;
+  // the block's key tiles: up to its last real row's diagonal when causal
+  const int nk =
+      causal ? min(nk_all, (min(q0 + kBQ, sq) - 1) / kBK + 1) : nk_all;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2 * 128);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ------------------------------------------------ producer
+    regs_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, 2 * kQBytes);
+      tma_load_3d(qs, &map_q, qbar, 0, q0, (int)bh);
+      tma_load_3d(dos, &map_do, qbar, 0, q0, (int)bh);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % kStages;
+        mbar_wait(&empty[st], ((kt / kStages) & 1) ^ 1);
+        uint8_t* ks = smem + kOffStages + st * 2 * kTileBytes;
+        mbar_expect_tx(&full[st], 2 * kTileBytes);
+        tma_load_3d(ks, &map_k, &full[st], 0, kt * kBK, (int)bh);
+        tma_load_3d(ks + kTileBytes, &map_v, &full[st], 0, kt * kBK,
+                    (int)bh);
+      }
+    }
+  } else {
+    // ----------------------------------------------- consumers
+    regs_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int row0 = q0 + wg * kRowsWG;          // the warpgroup's first row
+    const int r0 = row0 + 16 * warp + lane / 4;  // and r0 + 8
+    const int cq = (lane % 4) * 2;
+    const bool active = row0 < sq;
+    const int nk_me =
+        active ? (causal ? min(nk_all, (row0 + kRowsWG - 1) / kBK + 1)
+                         : nk_all)
+               : 0;
+    const float* bs = kBias ? bias.slice(bh) : nullptr;
+    const uint32_t q_addr = smem_addr(qs) + wg * kRowsWG * kD * 2;
+    const uint32_t do_addr = smem_addr(dos) + wg * kRowsWG * kD * 2;
+
+    // the lse and D of the thread's rows; rows past sq add nothing
+    float l[2], dsum[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      l[h] = row < sq ? lse[bh * sq + row] : kNegInf;
+      dsum[h] = row < sq ? dvec[bh * sq + row] : 0.f;
+    }
+
+    float adq[32], s[32], tp[32];
+    uint32_t ads[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      adq[i] = 0.f;
+      s[i] = 0.f;
+      tp[i] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ads[kk][i] = 0u;
+
+    mbar_wait(qbar, 0);
+    for (int kt = 0; kt < nk_me; ++kt) {
+      const int st = kt % kStages;
+      const int k0 = kt * kBK;
+      mbar_wait(&full[st], (kt / kStages) & 1);
+      const uint32_t k_addr =
+          smem_addr(smem + kOffStages + st * 2 * kTileBytes);
+      wgmma_fence();
+      product_ss(s, q_addr, k_addr);                 // S = Q K^T
+      product_ss(tp, do_addr, k_addr + kTileBytes);  // dP = dO V^T
+      wgmma_commit();
+      // the previous tile's dQ product was committed first: both done
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(tp);
+      fence_regs(adq);
+      fence_regs(ads);
+      if (kt > 0) mbar_arrive(&empty[(kt - 1) % kStages]);
+      // `_mask_split`: only a tile across the diagonal or the sk edge
+      const bool masked =
+          (causal && k0 + kBK - 1 > row0) || k0 + kBK > sk;
+      if (masked)
+        dq_tile<kBias, true>(s, tp, l, dsum, r0, k0, cq, sq, sk, scale,
+                             causal, bias, bs);
+      else
+        dq_tile<kBias, false>(s, tp, l, dsum, r0, k0, cq, sq, sk, scale,
+                              causal, bias, bs);
+      to_a_operand(s, ads);  // ds * scale in k's dtype
+      wgmma_fence();
+      product_rs(adq, ads, k_addr);  // dQ += dS K (K MN-major)
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(adq);
+    fence_regs(ads);
+    if (nk_me > 0) mbar_arrive(&empty[(nk_me - 1) % kStages]);
+    // the block's tiles past this warpgroup's diagonal: released unread
+    for (int kt = nk_me; kt < nk; ++kt) {
+      const int st = kt % kStages;
+      mbar_wait(&full[st], (kt / kStages) & 1);
+      mbar_arrive(&empty[st]);
+    }
+
+    if (active) {
+      __nv_bfloat16* dqb = dq + bh * sq * kD;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        if (row >= sq) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(
+              dqb + (long long)row * kD + 8 * j + cq) =
+              __floats2bfloat162_rn(adq[4 * j + 2 * h],
+                                    adq[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// bf16 q, k, v, do and dq, contiguous and 16-byte aligned; lse and dvec
+// float32 [bh, sq]. head_dim 64. grid_y, grid_z, bias, heads and the bias
+// strides as for apex_fa_fwd_wgmma.
+extern "C" int apex_fa_bwd_dq_wgmma(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* dout, const void* lse, const void* dvec, void* dq, int bh,
+    int grid_y, int grid_z, int heads, int sq, int sk, int d, float scale,
+    int causal, long long bsb, long long bsh, long long bsq, long long bsk,
+    void* stream) {
+  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+    return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || sq <= 0) return 0;
+  if (!is_aligned(q, 16) || !is_aligned(k, 16) || !is_aligned(v, 16) ||
+      !is_aligned(dout, 16))
+    return (int)cudaErrorMisalignedAddress;
+  // with no keys the K / V maps are never read: build them over q
+  const bool nokeys = sk <= 0;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map_bf16(&mq, q, sq, bh, kBQ) ||
+      !make_map_bf16(&mk, nokeys ? q : k, nokeys ? sq : sk, bh, kBK) ||
+      !make_map_bf16(&mv, nokeys ? q : v, nokeys ? sq : sk, bh, kBK) ||
+      !make_map_bf16(&mdo, dout, sq, bh, kBQ))
+    return (int)cudaErrorInvalidValue;
+  const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
+                     bsk};
+  const auto kernel = bias != nullptr ? fa_bwd_dq_kernel_wgmma<true>
+                                      : fa_bwd_dq_kernel_wgmma<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmemBytes);
+  const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dq), bh,
+      sq, sk < 0 ? 0 : sk, scale, causal, sb);
+  return (int)cudaGetLastError();
+}

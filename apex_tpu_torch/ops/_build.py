@@ -67,6 +67,10 @@ SIGNATURES = {
     "apex_fa_bwd_dkv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                         _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll,
                         _i, _vp],
+    # the same without dtype: the bf16 tensor-core dq kernel
+    "apex_fa_bwd_dq_wgmma": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
+                             _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll, _ll,
+                             _ll, _vp],
     # the same without dtype: the bf16 tensor-core dk / dv kernel
     "apex_fa_bwd_dkv_wgmma": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                               _i, _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll,

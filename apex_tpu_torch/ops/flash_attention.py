@@ -17,9 +17,9 @@ of the softmax support.
 For CUDA tensors the route follows the dtype, in the open
 (:func:`~apex_tpu_torch.ops.tiling.fa_route`): bf16 runs the tensor-core
 kernels (``wgmma`` products on tiles that TMA brings into shared memory):
-the forward ``csrc/flash_fwd_wgmma.cu`` and the dk / dv kernel
-``csrc/flash_bwd_dkv_wgmma.cu``, with dq on the FMA kernel of
-``csrc/flash_attention_bwd.cu``; fp32 runs the FMA-pipe kernels of
+the forward ``csrc/flash_fwd_wgmma.cu``, the dq kernel
+``csrc/flash_bwd_dq_wgmma.cu`` and the dk / dv kernel
+``csrc/flash_bwd_dkv_wgmma.cu``; fp32 runs the FMA-pipe kernels of
 ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``, whose
 full fp32 products the fp32 results keep (a TF32 product would not). The
 tensor-core kernels read q, k, v and do through TMA tensor maps, which
@@ -248,8 +248,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` from the forward's o and fp32 lse ``(b, h, sq)``
     and the forward's bias (no dbias). CUDA tensors launch the dq kernel
     and the dk / dv kernel (inputs as for :func:`flash_attention_fwd`; o
-    and do like q): for bf16 the FMA dq kernel and the tensor-core dk / dv
-    kernel (do 16-byte aligned too), for fp32 the two FMA-pipe kernels;
+    and do like q): for bf16 the two tensor-core kernels (do 16-byte
+    aligned too), for fp32 the two FMA-pipe kernels;
     no output is summed across blocks, so two runs give the same bits.
     CPU tensors take the plain version."""
     name = "flash_attention_bwd"
@@ -280,18 +280,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr, do.data_ptr(),
             lse.data_ptr(), dvec.data_ptr())
     geo = (b * h, *fa_batch_heads_grid(b * h), h, sq, sk, d, float(scale),
-           int(causal), *bstrides, _DTYPES[q.dtype])
+           int(causal), *bstrides)
+    # the tensor-core entries take no dtype: they are bf16 only
+    dq_fn, dkv_fn, dtype = (
+        (lib.apex_fa_bwd_dq_wgmma, lib.apex_fa_bwd_dkv_wgmma, ()) if tc
+        else (lib.apex_fa_bwd_dq, lib.apex_fa_bwd_dkv, (_DTYPES[q.dtype],)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.apex_fa_bwd_dq(*args, dq.data_ptr(), *geo, stream)
+        err = dq_fn(*args, dq.data_ptr(), *geo, *dtype, stream)
         _build.launches["fa_bwd_dq"] += 1
         _build.check(err, "flash_attention_bwd (dq)")
-        if tc:
-            err = lib.apex_fa_bwd_dkv_wgmma(*args, dk.data_ptr(),
-                                            dv.data_ptr(), *geo[:-1], stream)
-        else:
-            err = lib.apex_fa_bwd_dkv(*args, dk.data_ptr(), dv.data_ptr(),
-                                      *geo, stream)
+        err = dkv_fn(*args, dk.data_ptr(), dv.data_ptr(), *geo, *dtype,
+                     stream)
         _build.launches["fa_bwd_dkv"] += 1
         _build.check(err, "flash_attention_bwd (dk, dv)")
     return dq, dk, dv

@@ -50,26 +50,25 @@ def ln_bwd_geometry(rows: int, hidden: int):
 
 
 # flash attention, compiled for head_dim 64 only. The FMA kernels
-# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu: fp32, and bf16
-# dq): 64 query rows per block (16 per warp), 64-row K/V tiles; the dk / dv
-# kernel takes 64-row K/V tiles per block and streams 64-row Q / dO tiles.
+# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu: fp32): 64 query
+# rows per block (16 per warp), 64-row K/V tiles; the dk / dv kernel takes
+# 64-row K/V tiles per block and streams 64-row Q / dO tiles.
 FA_BLOCK_Q = 64
 FA_BLOCK_K = 64
 FA_HEAD_DIM = 64
 # The tensor-core kernels (bf16; csrc/flash_fwd_wgmma.cu,
-# csrc/flash_bwd_dkv_wgmma.cu) work out their tiles for themselves: blocks
-# of 128 rows (forward: queries; dk / dv: keys) in two 64-row warpgroups,
-# streaming 64-row tiles. TMA reads each tensor from a base address
-# aligned to FA_TC_ALIGN bytes.
+# csrc/flash_bwd_dq_wgmma.cu, csrc/flash_bwd_dkv_wgmma.cu) work out their
+# tiles for themselves: blocks of 128 rows (forward and dq: queries; dk /
+# dv: keys) in two 64-row warpgroups, streaming 64-row tiles. TMA reads
+# each tensor from a base address aligned to FA_TC_ALIGN bytes.
 FA_TC_ALIGN = 16
 
 
 def fa_route(dtype_name: str) -> str:
     """Which kernels a CUDA flash call runs, by the dtype of q, k and v:
-    ``"wgmma"`` (the tensor-core forward and dk / dv, bf16) or ``"fma"``
-    (the FMA-pipe kernels, fp32: full fp32 products, which a TF32
-    tensor-core product would not give). The bf16 dq runs on the FMA
-    kernel on either route."""
+    ``"wgmma"`` (the tensor-core forward, dq and dk / dv, bf16) or
+    ``"fma"`` (the FMA-pipe kernels, fp32: full fp32 products, which a
+    TF32 tensor-core product would not give)."""
     routes = {"bfloat16": "wgmma", "float32": "fma"}
     if dtype_name not in routes:
         raise ValueError(f"flash attention takes float32 or bfloat16, got "

@@ -25,7 +25,7 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    flash-attention forward, its backward's dq and dk / dv kernels (one
    wrapper call launches both; each gets its own device time and bound,
    and the plain and library times are the whole backward's; bf16 runs
-   the tensor-core forward and dk / dv kernels, fp32 the FMA-pipe ones,
+   the tensor-core forward, dq and dk / dv kernels, fp32 the FMA-pipe ones,
    each read from the profiler's kernel names; achieved TFLOP/s and the
    share of the bound beside each) at GPT-2's shapes, at BERT-large's
    32 x 16 x 128 x 64, plain, with a (b, 1, 1, sk) key-padding mask and
@@ -84,7 +84,7 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    one fixed 4 x 1024 batch: every loss finite and the last below the
    first; per step exactly 25 ``ln_fwd``, 25 ``ln_bwd``, 12 ``fa_fwd``,
    12 ``fa_bwd_dq``, 12 ``fa_bwd_dkv`` and 1 ``fused_adam`` launches,
-   the flash forward and dk / dv the tensor-core kernels;
+   the flash forward, dq and dk / dv the tensor-core kernels;
    step ms, training tokens/s (batch x (seq - 1) per step), the device
    time of one more step by kind of kernel, its idle share, the peak
    device memory, and the time of the step's gradient packing into the
@@ -192,8 +192,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    gradients against the full-sequence flash on this card (rel L2 1e-2 /
    2e-2; an fp32 run at 1,024 tokens a rank 1e-5 / 1e-4); exactly n
    ``fa_fwd``, n ``fa_bwd_dq``, n ``fa_bwd_dkv`` and 2(n-1) + 2(n-1) + 2n
-   ``peer_put`` / ``peer_wait`` a rank a step, rank 0's flash forward and
-   dk / dv the tensor-core kernels (bf16); step ms per rank,
+   ``peer_put`` / ``peer_wait`` a rank a step, rank 0's flash forward,
+   dq and dk / dv the tensor-core kernels (bf16); step ms per rank,
    tokens/s, and the same attention as one full-sequence flash forward +
    backward in this process as the yardstick.
 13. ``halo``: ResNet-50 stage 1's 3x3 conv input (32 x 56 x 56 x 64 bf16
@@ -313,7 +313,7 @@ KERNELS = {
     # FMA-pipe kernels of flash_attention.cu / flash_attention_bwd.cu)
     "fa_fwd": ("apex_tpu_torch/csrc/flash_fwd_wgmma.cu",
                _P + "flash_attention.py:430", (466,)),
-    "fa_bwd_dq": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+    "fa_bwd_dq": ("apex_tpu_torch/csrc/flash_bwd_dq_wgmma.cu",
                   _P + "flash_attention.py:505", (687,)),
     "fa_bwd_dkv": ("apex_tpu_torch/csrc/flash_bwd_dkv_wgmma.cu",
                    _P + "flash_attention.py:559", (729,)),
@@ -921,9 +921,12 @@ def _rank_ring(group, spec):
                     "flash_fwd": _pick(prof, "fa_fwd_kernel"),
                     "flash_bwd": _pick(prof, "fa_bwd_"),
                     "flash_fwd_wgmma": _pick(prof, "fa_fwd_kernel_wgmma"),
+                    "flash_bwd_dq_wgmma": _pick(prof,
+                                                "fa_bwd_dq_kernel_wgmma"),
                     "flash_bwd_dkv_wgmma": _pick(prof,
                                                  "fa_bwd_dkv_kernel_wgmma"),
-                    "flash_fma_fwd_dkv": _pick(prof, "fa_fwd_kernel<")
+                    "flash_fma": _pick(prof, "fa_fwd_kernel<")
+                    + _pick(prof, "fa_bwd_dq_kernel<")
                     + _pick(prof, "fa_bwd_dkv_kernel<"),
                     "peer_put": _pick(prof, "peer_put_kernel"),
                     "peer_wait": _pick(prof, "peer_wait_kernel"),
@@ -1037,7 +1040,8 @@ def _rank_path(group, spec):
 
 
 # the tensor-core kernels' sources, whose ptxas report the env line carries
-TC_SOURCES = ("flash_fwd_wgmma.cu", "flash_bwd_dkv_wgmma.cu")
+TC_SOURCES = ("flash_fwd_wgmma.cu", "flash_bwd_dq_wgmma.cu",
+              "flash_bwd_dkv_wgmma.cu")
 
 
 def ptxas_report(build, names):
@@ -1071,6 +1075,14 @@ def ptxas_report(build, names):
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
             out[kernel]["registers"] = int(m.group(1))
+        # ptxas serialises a kernel's wgmma pipeline (no overlap of the
+        # products with other work) where it cannot prove the accumulator
+        # registers untouched while a product is in flight
+        m = re.search(r"_Z\w*?(fa_[a-z_]+)I(Lb\d)E", line)
+        if m and "serialized" in line:
+            bias = "true" if m.group(2) == "Lb1" else "false"
+            out.setdefault(f"{m.group(1)}<{bias}>", {})[
+                "wgmma_serialized"] = line.split(":", 2)[-1].strip()
     require(len(out) == 2 * len(names), f"ptxas report: {out}")
     return out
 
@@ -1231,7 +1243,8 @@ def main() -> int:
                 else "other")
 
     def require_flash_route(kern, dt, what,
-                            kernels=("fa_fwd_kernel", "fa_bwd_dkv_kernel")):
+                            kernels=("fa_fwd_kernel", "fa_bwd_dq_kernel",
+                                     "fa_bwd_dkv_kernel")):
         """From a profile's kernel names: bf16 flash ran the tensor-core
         kernels (``<kernel>_wgmma``), fp32 the FMA-pipe ones (the
         templates ``<kernel><``), and not the other."""
@@ -1660,7 +1673,7 @@ def main() -> int:
         split = device_kernels(lambda *a: flash_attention_bwd(*a, **kw),
                                sets, reps)
         require_flash_route(split, dt, f"fa_bwd {b}x{h}x{sq}x{sk}",
-                            ("fa_bwd_dkv_kernel",))
+                            ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"))
         ms_dq = sum(v for k, v in split.items() if "fa_bwd_dq_kernel" in k)
         ms_dkv = sum(v for k, v in split.items()
                      if "fa_bwd_dkv_kernel" in k)
@@ -1668,13 +1681,14 @@ def main() -> int:
                         reps)
         pt = timed(lambda *a: flash_attention_bwd_plain(*a, **kw), sets, 3)
         library = None
-        if dt == "bf16" and mask_kind != "full":
+        if mask_kind != "full":
             # SDPA's backward, timed alone: the forward graph is built
-            # once and only autograd.grad is timed; the flash backend
-            # without a mask, PyTorch's own choice with one (its flash
-            # backend takes no mask)
+            # once and only autograd.grad is timed; the flash backend for
+            # bf16 without a mask, PyTorch's own choice with one or in
+            # fp32 (its flash backend takes neither; TF32 is off, above)
             from torch.nn.attention import SDPBackend, sdpa_kernel
-            backends = ([SDPBackend.FLASH_ATTENTION] if mask is None else
+            backends = ([SDPBackend.FLASH_ATTENTION]
+                        if mask is None and dt == "bf16" else
                         [SDPBackend.EFFICIENT_ATTENTION,
                          SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH])
             lsets = []
@@ -3617,8 +3631,9 @@ def main() -> int:
                                 ring_launches.get(kname, 0) + cnt
                     span = recs[0]["profile"]
                     require(span["flash_fwd_wgmma"] > 0
+                            and span["flash_bwd_dq_wgmma"] > 0
                             and span["flash_bwd_dkv_wgmma"] > 0
-                            and span["flash_fma_fwd_dkv"] == 0,
+                            and span["flash_fma"] == 0,
                             f"ring {name} world {world}: rank 0's flash "
                             f"kernels not the tensor-core ones: {span}")
                     step_ms = [rec["step_ms"] for rec in recs]

@@ -31,10 +31,12 @@ The peer-put kernels run between rank processes that share the card
 (``spawn_ranks``) and are held to identical bits; ring attention over
 them (fp32) to the full-sequence flash at 1e-5 (o) and 1e-4 (gradients)
 relative L2. The flash tests also read from torch.profiler which kernels
-ran: bf16 the tensor-core forward and dk / dv kernels
-(``fa_fwd_kernel_wgmma``, ``fa_bwd_dkv_kernel_wgmma``), fp32 the FMA-pipe
-ones; run them with ``python -m pytest tests/test_torch_cuda.py -q -k
-flash``.
+ran: bf16 the tensor-core forward, dq and dk / dv kernels
+(``fa_fwd_kernel_wgmma``, ``fa_bwd_dq_kernel_wgmma``,
+``fa_bwd_dkv_kernel_wgmma``), fp32 the FMA-pipe ones. The public
+``flash_attention`` takes transposed and misaligned views, and gives the
+bits of the same call on contiguous copies. Run the flash tests with
+``python -m pytest tests/test_torch_cuda.py -q -k flash``.
 """
 
 import pytest
@@ -97,11 +99,13 @@ def _kernel_names(fn):
                          f"{PROFILE_TRIES} windows: {names}")
 
 
-def _assert_flash_route(names, dtype, fwd=False, dkv=False):
+def _assert_flash_route(names, dtype, fwd=False, bwd=False):
     """bf16 ran the tensor-core kernels, fp32 the FMA-pipe ones (the
-    template names ``fa_fwd_kernel<`` / ``fa_bwd_dkv_kernel<``)."""
+    template names ``fa_fwd_kernel<``, ``fa_bwd_dq_kernel<`` and
+    ``fa_bwd_dkv_kernel<``); ``bwd``: both backward kernels."""
     tc = dtype == torch.bfloat16
-    for want, kernel in ((fwd, "fa_fwd_kernel"), (dkv, "fa_bwd_dkv_kernel")):
+    for want, kernel in ((fwd, "fa_fwd_kernel"), (bwd, "fa_bwd_dq_kernel"),
+                         (bwd, "fa_bwd_dkv_kernel")):
         if not want:
             continue
         ran_tc = any(kernel + "_wgmma" in n for n in names)
@@ -243,7 +247,7 @@ def test_flash_bwd_kernels_match_plain(dev, sq, sk, causal, dtype):
     assert (_build.launches["fa_bwd_dq"], _build.launches["fa_bwd_dkv"]) \
         == (before[0] + 1, before[1] + 1)
     _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
-        q, k, v, o, lse, do, scale=0.125, causal=causal)), dtype, dkv=True)
+        q, k, v, o, lse, do, scale=0.125, causal=causal)), dtype, bwd=True)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == w.shape, name
         if dtype == torch.float32:
@@ -256,13 +260,13 @@ def test_flash_bwd_kernels_match_plain(dev, sq, sk, causal, dtype):
 @pytest.mark.parametrize("b,h,s", [(2, 4, 256), (4, 12, 1024)])
 def test_flash_bwd_is_deterministic(dev, b, h, s):
     """Two runs give the same bits (no atomics: each block owns its
-    rows), the bf16 dk / dv from the tensor-core kernel among them."""
+    rows), the bf16 dq and dk / dv from the tensor-core kernels."""
     args = _flash_bwd_inputs(dev, b, h, s, s, True, torch.bfloat16, 5)
     a = flash_attention_bwd(*args, scale=0.125, causal=True)
     b = flash_attention_bwd(*args, scale=0.125, causal=True)
     torch.cuda.synchronize()
     _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
-        *args, scale=0.125, causal=True)), torch.bfloat16, dkv=True)
+        *args, scale=0.125, causal=True)), torch.bfloat16, bwd=True)
     for ta, tb in zip(a, b):
         assert torch.equal(ta, tb)
 
@@ -289,6 +293,43 @@ def test_tc_flash_refuses_misaligned_views(dev):
                                          causal=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_public_flash_takes_any_layout_on_the_card(dev, dtype):
+    """The public op on ``transpose(1, 2)`` views and on contiguous views 2
+    bytes into their storage (off the TMA's 16-byte alignment): o and the
+    gradients are the bits of the same call on contiguous copies, forward
+    and backward, the incoming gradient a view of the same kind."""
+    shape = (2, 3, 200, 64)
+    n = 2 * 3 * 200 * 64
+    g = torch.Generator(device=dev).manual_seed(29)
+    base = [torch.randn(shape, device=dev, generator=g).to(dtype)
+            for _ in range(4)]
+
+    def transposed(t):
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+    def misaligned(t):
+        store = torch.zeros(n + 8, device=dev, dtype=dtype)
+        view = store[1:1 + n].view(shape)
+        view.copy_(t)
+        return view
+
+    def run(make):
+        leaves = [make(t).requires_grad_() for t in base[:3]]
+        o = flash_attention(*leaves, True)
+        o.backward(make(base[3]))
+        return [o.detach()] + [t.grad for t in leaves]
+
+    want = run(lambda t: t.clone())
+    for make in (transposed, misaligned):
+        assert not make(base[0]).is_contiguous() or \
+            make(base[0]).data_ptr() % 16
+        got = run(make)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("o", "dq", "dk", "dv"), got, want):
+            assert torch.equal(a, w), (make.__name__, name)
 
 
 @pytest.mark.parametrize("mode", [ADAM_MODE_L2, ADAM_MODE_ADAMW])
@@ -429,7 +470,7 @@ def test_masked_flash_kernels_match_plain(dev, dims, mshape, kind, dtype):
                               causal=False, bias=bias)
     _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
         q, k, v, op, lsep, do, scale=0.125, causal=False, bias=bias)), dtype,
-        dkv=True)
+        bwd=True)
     want = flash_attention_bwd_plain(q, k, v, op, lsep, do, scale=0.125,
                                      causal=False, bias=bias)
     again = flash_attention_bwd(q, k, v, op, lsep, do, scale=0.125,
@@ -1021,7 +1062,7 @@ def test_flash_kernels_over_65535_batch_heads(dev, dtype):
     """batch * heads = 65600 (1025 x 64) runs through grid.y x grid.z:
     o, lse, dq, dk and dv against the plain versions, each checked
     whatever the others give (the failures are collected), and bf16 on
-    the tensor-core forward and dk / dv kernels."""
+    the tensor-core forward, dq and dk / dv kernels."""
     b, h, s = 1025, 64, 64
     g = torch.Generator(device=dev).manual_seed(17)
     q, k, v, do = (torch.randn(b, h, s, 64, device=dev, generator=g)
@@ -1032,7 +1073,7 @@ def test_flash_kernels_over_65535_batch_heads(dev, dtype):
     op, lsep = flash_attention_fwd_plain(q, k, v, scale=0.125, causal=True)
     got = flash_attention_bwd(q, k, v, o, lse, do, scale=0.125, causal=True)
     _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
-        q, k, v, o, lse, do, scale=0.125, causal=True)), dtype, dkv=True)
+        q, k, v, o, lse, do, scale=0.125, causal=True)), dtype, bwd=True)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, scale=0.125,
                                      causal=True)
     torch.cuda.synchronize()

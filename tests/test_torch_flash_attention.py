@@ -495,11 +495,13 @@ def test_batch_heads_grid_refuses_what_no_grid_holds():
 # rules at the same 64 x 64 tiles: `_causal_run` says which (q tile, k
 # tile) pairs run, `_mask_split` which of them take the masked arithmetic.
 # The kernels compute their rule in C++ from (sq, sk, causal);
-# `_tc_fwd_plan` / `_tc_dkv_plan` copy it line for line, so a change to one
-# side must be made on the other: csrc/flash_fwd_wgmma.cu `nk`, `nk_me` and
-# `masked`, csrc/flash_bwd_dkv_wgmma.cu `qt0`, the `_causal_run` skip and
-# `masked`. The kernels' own use of the rule is held to the plain versions
-# by the card tests (tests/test_torch_cuda.py).
+# `_tc_fwd_plan` / `_tc_dq_plan` / `_tc_dkv_plan` copy it line for line,
+# so a change to one side must be made on the other:
+# csrc/flash_fwd_wgmma.cu `nk`, `nk_me` and `masked`,
+# csrc/flash_bwd_dq_wgmma.cu `nk`, `nk_me` and `masked`,
+# csrc/flash_bwd_dkv_wgmma.cu `qt0`, the `_causal_run` skip and `masked`.
+# The kernels' own use of the rule is held to the plain versions by the
+# card tests (tests/test_torch_cuda.py).
 WG_ROWS, TC_TILE = 64, 64            # a warpgroup's rows, a streamed tile
 TC_BLOCK = 2 * WG_ROWS               # a block's query rows / keys
 
@@ -529,6 +531,33 @@ def _tc_fwd_plan(sq, sk, causal):
             mine = (min(nk, (row0 + WG_ROWS - 1) // TC_TILE + 1) if causal
                     else nk)
             for kt in range(mine):
+                k0 = kt * TC_TILE
+                masked = ((causal and k0 + TC_TILE - 1 > row0)
+                          or k0 + TC_TILE > sk)
+                steps.append((row0 // WG_ROWS, kt, masked))
+    return blocks, loads, steps
+
+
+def _tc_dq_plan(sq, sk, causal):
+    """The dq kernel's work: ``(blocks, loads, steps)``. ``loads[b]`` the
+    K / V tiles block ``b`` streams (tiles 0 .. loads[b] - 1; `nk`), every
+    one released by both warpgroups; ``steps`` the ``(q tile, k tile,
+    masked)`` each warpgroup computes (its 64-row q tile ``q`` in block ``q
+    // 2``; `nk_me`, 0 for a warpgroup past sq), ``masked`` when the tile
+    crosses that q tile's diagonal or the ragged sk edge."""
+    nk_all = _cdiv(sk, TC_TILE)
+    blocks = _cdiv(sq, TC_BLOCK)
+    loads, steps = [], []
+    for b in range(blocks):
+        q0 = b * TC_BLOCK
+        loads.append(min(nk_all, (min(q0 + TC_BLOCK, sq) - 1) // TC_TILE + 1)
+                     if causal else nk_all)
+        for w in range(TC_BLOCK // WG_ROWS):
+            row0 = q0 + w * WG_ROWS
+            active = row0 < sq
+            nk_me = ((min(nk_all, (row0 + WG_ROWS - 1) // TC_TILE + 1)
+                      if causal else nk_all) if active else 0)
+            for kt in range(nk_me):
                 k0 = kt * TC_TILE
                 masked = ((causal and k0 + TC_TILE - 1 > row0)
                           or k0 + TC_TILE > sk)
@@ -599,6 +628,24 @@ def test_tc_fwd_plan_matches_jax_rules(sq, sk, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
+def test_tc_dq_plan_matches_jax_rules(sq, sk, causal):
+    """The dq kernel runs the JAX dq kernel's (q tile, k tile) pairs, each
+    once, the masked arithmetic where `_mask_split` asks for it, and a
+    block streams exactly the key tiles its warpgroups use."""
+    blocks, loads, steps = _tc_dq_plan(sq, sk, causal)
+    assert blocks == -(-sq // 128) == len(loads)
+    got = {(qt, kt): masked for qt, kt, masked in steps}
+    assert len(got) == len(steps)
+    assert got == _jax_pairs(sq, sk, causal)
+    if causal:
+        assert all(_jax_causal_run(qt, kt, 64, 64) for qt, kt in got)
+    for b in range(blocks):
+        used = [kt for qt, kt, _ in steps if qt // 2 == b]
+        assert loads[b] == (max(used) + 1 if used else 0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
 def test_tc_dkv_plan_matches_jax_rules(sq, sk, causal):
     blocks, loads, steps = _tc_dkv_plan(sq, sk, causal)
     assert blocks == -(-sk // 128) == len(loads)
@@ -616,8 +663,9 @@ def test_tc_dkv_plan_matches_jax_rules(sq, sk, causal):
 
 def test_tc_plan_causal_work_is_the_lower_triangle():
     """GPT-2's causal 1024 x 1024: 136 of the 256 tile pairs run and the
-    16 on the diagonal take the masked arithmetic, in both kernels."""
+    16 on the diagonal take the masked arithmetic, in all three kernels."""
     for plan, pair in ((_tc_fwd_plan, lambda s: (s[0], s[1])),
+                       (_tc_dq_plan, lambda s: (s[0], s[1])),
                        (_tc_dkv_plan, lambda s: (s[1], s[0]))):
         _, _, steps = plan(1024, 1024, True)
         assert len(steps) == 16 * 17 // 2
