@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the tensor-core kernels, as inline
-// PTX: TMA tensor maps and loads, mbarriers, the wgmma shared-memory
+// Hopper (sm_90a) building blocks of the tensor-core kernels and the
+// peer puts, as inline PTX: TMA tensor maps and loads, bulk copies of
+// contiguous bytes, mbarriers, proxy fences, the wgmma shared-memory
 // descriptor and the m64n64k16 bf16 products with fp32 sums.
 //
 // Tiles are rows of 64 bf16 (128 bytes) brought into shared memory by TMA
@@ -126,16 +127,17 @@ __device__ __forceinline__ uint64_t globaltimer() {
   return t;
 }
 // Wait for the completion of the phase of parity `parity`. Bounded: past
-// kWaitLimitNs (far beyond any tile's load, time slices of other
-// processes included) the block traps, so a pipeline fault is a CUDA error
-// on the stream, never a hung card.
+// limit_ns (by default kWaitLimitNs, far beyond any tile's load, time
+// slices of other processes included) the block traps, so a pipeline
+// fault is a CUDA error on the stream, never a hung card.
 constexpr uint64_t kWaitLimitNs = 20ull * 1000 * 1000 * 1000;
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity,
+                                          uint64_t limit_ns = kWaitLimitNs) {
   const uint32_t a = smem_addr(bar);
   if (mbar_try_wait(a, parity)) return;
   const uint64_t t0 = globaltimer();
   while (!mbar_try_wait(a, parity))
-    if (globaltimer() - t0 > kWaitLimitNs) __trap();
+    if (globaltimer() - t0 > limit_ns) __trap();
 }
 
 // TMA: box at coordinates (c0, c1, c2) of `map` into shared memory at
@@ -149,6 +151,46 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Bulk copies of contiguous bytes (the TMA's untiled form): both
+// addresses and the size multiples of 16. A load into shared memory
+// counts on `bar`'s transaction bytes; a store to global memory joins the
+// issuing thread's open bulk group.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Until at most kN of this thread's bulk groups are pending: with `.read`
+// until the others' shared-memory sources are read (the stage may be
+// refilled), without it until their writes are complete.
+template <int kN> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kN) : "memory");
+}
+template <int kN> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(kN) : "memory");
+}
+// Order this thread's generic-proxy accesses (plain loads and stores,
+// flags) against its async-proxy ones (bulk copies), in global or in
+// shared memory.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // warpgroup register budgets: the producer gives registers back, the

@@ -113,17 +113,19 @@ SIGNATURES = {
     "apex_ipc_open": [_vp, _i, _vp],
     "apex_ipc_close": [_vp],
     "apex_ipc_free": [_vp],
-    # src, dst (peer), nbytes, ack, ack_need, ready (peer), epoch,
-    # counter, timeout_ns, stream
-    "apex_peer_put": [_vp, _vp, _ll, _vp, _u64, _vp, _u64, _vp, _u64, _vp],
-    # src_lo, dst_lo (left's hi), src_hi, dst_hi (right's lo), nbytes,
-    # ack_out_left, ack_out_right, ack_in_left, ack_in_right, prev,
-    # ready_left, ready_right, epoch, counter, timeout_ns, stream
-    "apex_halo_put": [_vp, _vp, _vp, _vp, _ll, _vp, _vp, _vp, _vp, _u64,
-                      _vp, _vp, _u64, _vp, _u64, _vp],
-    # ready, epoch, landing, out (both may be null), nbytes, ack (peer, may
-    # be null), counter, timeout_ns, stream
-    "apex_peer_wait": [_vp, _u64, _vp, _vp, _ll, _vp, _vp, _u64, _vp],
+    # src, dst (peer), copy plan (nine long longs, remote_copy.CopyPlan),
+    # ack, ack_need, timeout_ns, stream
+    "apex_peer_put": [_vp, _vp, _vp, _vp, _u64, _u64, _vp],
+    # src_lo, dst_lo (left's hi), plan_lo, src_hi, dst_hi (right's lo),
+    # plan_hi, ack_out_left, ack_out_right, ack_in_left, ack_in_right,
+    # prev, timeout_ns, stream
+    "apex_halo_put": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                      _u64, _u64, _vp],
+    # flags to release first and their values (f0, v0, f1, v1; a flag may
+    # be null), ready, epoch, landing, out, copy plan (the three may be
+    # null), timeout_ns, stream
+    "apex_peer_wait": [_vp, _u64, _vp, _u64, _vp, _u64, _vp, _vp, _vp, _u64,
+                       _vp],
 }
 
 launches: collections.Counter = collections.Counter()

@@ -15,13 +15,20 @@ straight into a peer's landing buffer, whether the peer's process runs on
 the same card or on another. The arena is not the caching allocator's,
 so ``expandable_segments`` does not touch it. A put waits for the
 receiver's acknowledgement of the slot's previous message, copies, and
-releases an epoch flag in the receiver's arena; the receiver's
-``peer_wait`` spins (bounded, then a device trap) until the flag arrives.
+has an epoch flag released in the receiver's arena by the ``peer_wait``
+launched right after it (its bytes are complete when that kernel
+starts); the receiver's ``peer_wait`` spins (bounded, then a device trap)
+until the flag arrives.
+Both copy by a :func:`copy_plan` this module passes to the kernel: bulk
+copies through a ring of shared-memory stages where both pointers are
+16-byte aligned (after a head of bytes) and the body fills a stage,
+register words otherwise.
 
 - :func:`peer_shift` launches ``peer_put`` and ``peer_wait``: the shard
   lands in one of two slots the receiver keeps for that sender, and
-  ``peer_wait`` copies it out into a fresh tensor and acknowledges at
-  once, so what autograd or the caller holds is never a landing buffer.
+  ``peer_wait`` copies it out into a fresh tensor (acknowledged when the
+  receiver's next ``peer_wait`` starts), so what autograd or the caller
+  holds is never a landing buffer.
 - :func:`halo_exchange_rdma` launches one ``halo_put`` (both edges) and a
   ``peer_wait`` for each landing buffer. The landing buffers are the
   caller's ``bufs`` (views of a
@@ -46,7 +53,9 @@ earlier call returned stay valid.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -56,6 +65,96 @@ from apex_tpu_torch.ops import _build
 # landing slots a receiver keeps for each sender of peer_shift
 SHIFT_SLOTS = 2
 _ALIGN = 256
+# the kernels' copy (csrc/remote_copy.cu): bulk stages of at most
+# STAGE_BYTES in a ring of STAGES (192 KB of shared memory a block); on
+# the register route a block of 256 threads moves PASS_BYTES a pass, 64
+# bytes a thread; runs of at least MIN_RUN bytes spread a message over
+# the SMs
+STAGE_BYTES = 32 << 10
+STAGES = 6
+PASS_BYTES = 256 * 64
+MIN_RUN = 4 << 10
+
+
+# ------------------------------------------------------------ copy plan
+
+
+@dataclasses.dataclass(frozen=True)
+class CopyPlan:
+    """How the kernels move ``head + body + tail`` bytes: ``head`` bytes
+    until both pointers are aligned to ``word``, a ``body`` of whole
+    words, a ``tail`` of fewer than ``word`` bytes (both by the threads of
+    the first block). The body is cut into runs of ``chunk`` bytes (at
+    most ``stage``) dealt to the ``blocks`` in turn: run ``k`` of block
+    ``b`` starts at ``(b + k * blocks) * chunk``. A run is one bulk copy
+    through a ring of ``stages`` shared-memory stages of ``stage`` bytes
+    where ``bulk`` (``word`` is then 16), else one pass of register
+    words."""
+
+    head: int
+    body: int
+    tail: int
+    chunk: int
+    stage: int
+    stages: int
+    blocks: int
+    word: int
+    bulk: bool
+
+    def as_c(self):
+        """The plan as the kernels' C entries read it (nine long longs)."""
+        return (ctypes.c_longlong * 9)(
+            self.head, self.body, self.tail, self.chunk, self.stage,
+            self.stages, self.blocks, self.word, int(self.bulk))
+
+
+def copy_plan(nbytes: int, src: int, dst: int, sms: int) -> CopyPlan:
+    """The plan of a copy of ``nbytes`` from address ``src`` to ``dst``
+    over at most ``sms`` blocks (one an SM).
+
+    The word is the widest of 16, 8, 4, 2 and 1 bytes that one head can
+    align both pointers to: the lowest set bit of ``(src - dst) mod 16``,
+    or 16 where they agree. The bulk route needs 16 and a body of at
+    least one stage (32 KB); a smaller body takes a pass or two of
+    registers, which end sooner than a bulk launch's set-up (the
+    barriers, a ring of shared memory) pays off. The blocks: one for each
+    MIN_RUN bytes of the body, at most ``sms``; every block gets the same
+    number of runs, each of at most a stage, so no block carries a
+    ragged extra run."""
+    mis = (src - dst) % 16
+    word = 16 if mis == 0 else mis & -mis
+    head = min(-src % word, nbytes)
+    body = (nbytes - head) // word * word
+    tail = nbytes - head - body
+    bulk = word == 16 and body >= STAGE_BYTES
+    stage = STAGE_BYTES if bulk else PASS_BYTES
+    blocks = max(1, min(sms, -(-body // MIN_RUN)))
+    per_block = max(1, -(-body // (blocks * stage)))
+    chunk = -(-body // (blocks * per_block * word)) * word or word
+    blocks = max(1, min(blocks, -(-body // chunk)))
+    return CopyPlan(head, body, tail, chunk, stage, STAGES if bulk else 1,
+                    blocks, word, bulk)
+
+
+def copy_pieces(plan: CopyPlan) -> List[Tuple[int, int]]:
+    """``(offset, bytes)`` of every piece the kernel moves, in the order
+    of its loops (the cursor ``Runs`` in the kernel): the head, each
+    block's runs, the tail."""
+    pieces = [(0, plan.head)] if plan.head else []
+    for b in range(plan.blocks):
+        for off in range(b * plan.chunk, plan.body,
+                         plan.blocks * plan.chunk):
+            pieces.append((plan.head + off, min(plan.chunk,
+                                                plan.body - off)))
+    if plan.tail:
+        pieces.append((plan.head + plan.body, plan.tail))
+    return pieces
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
 
 
 # ------------------------------------------------------ landing contract
@@ -247,8 +346,8 @@ def _find_arena(group, t: torch.Tensor):
 
 
 class _Remote:
-    """Per-group state of the exchanges: the flag arena (epochs and the
-    kernels' done counters), the landing slots and the epoch counts."""
+    """Per-group state of the exchanges: the flag arena (epochs), the
+    landing slots and the epoch counts."""
 
     def __init__(self, group):
         n = group.axis_size()
@@ -256,17 +355,16 @@ class _Remote:
         self.n = n
         # uint64 epochs: shift ready [sender][slot] (a message landed),
         # shift ack [receiver][slot] (a receiver consumed the slot), halo
-        # ready [lo, hi], halo ack [left, right]; then the done counters
-        # of peer_put, peer_wait and halo_put (uint32 each)
+        # ready [lo, hi], halo ack [left, right]
         self.off_ack_shift = 8 * n * SHIFT_SLOTS
         self.off_halo_ready = 2 * self.off_ack_shift
         self.off_halo_ack = self.off_halo_ready + 16
-        self.off_counters = self.off_halo_ack + 16
-        self.flags = IpcArena(group, -(-(self.off_counters + 16) // _ALIGN)
+        self.flags = IpcArena(group, -(-(self.off_halo_ack + 16) // _ALIGN)
                               * _ALIGN)
         self.sent = [0] * n
         self.received = [0] * n
         self.halo_epoch = 0
+        self.last_stream = None
         # landing slots: kind -> (arena, slot bytes); "shift" holds
         # SHIFT_SLOTS a sender, "halo" a lo and a hi slot
         self.data = {}
@@ -277,8 +375,16 @@ class _Remote:
     def ack_shift(self, receiver: int, slot: int) -> int:
         return self.off_ack_shift + 8 * (receiver * SHIFT_SLOTS + slot)
 
-    def counter(self, i: int) -> int:
-        return self.flags.local_ptr(self.off_counters + 4 * i)
+    def stream(self) -> int:
+        """The current stream (as a ``cudaStream_t``), made to wait for the
+        one the group's previous exchange ran on: a flag a kernel releases
+        announces the accesses of the exchanges before it (see
+        ``csrc/remote_copy.cu``), whichever stream those ran on."""
+        cur = torch.cuda.current_stream()
+        if self.last_stream is not None and self.last_stream != cur:
+            cur.wait_stream(self.last_stream)
+        self.last_stream = cur
+        return cur.cuda_stream
 
     def slots(self, kind: str, nbytes: int):
         """The ``(arena, slot bytes)`` of the landing slots of ``kind``,
@@ -336,29 +442,36 @@ def peer_shift(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
     data, slot_bytes = st.slots("shift", nbytes)
     lib = _build.lib()
     tmo = _timeout_ns(group)
+    sms = _sm_count(x.device.index)
     st.sent[dst] += 1
     e = st.sent[dst]
     s = e % SHIFT_SLOTS
     st.received[src] += 1
     er = st.received[src]
     rs = er % SHIFT_SLOTS
+    landing = data.peer_ptr(dst, (me * SHIFT_SLOTS + s) * slot_bytes)
+    put = copy_plan(nbytes, x.data_ptr(), landing, sms).as_c()
+    landed = data.local_ptr((src * SHIFT_SLOTS + rs) * slot_bytes)
+    wait = copy_plan(nbytes, landed, out.data_ptr(), sms).as_c()
+    f = st.flags
+    # the wait, launched right after the put, releases the put's ready
+    # flag and the ack of the previous message from src (its copy-out
+    # ran in the wait before): see csrc/remote_copy.cu
+    prev = er - 1
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = st.stream()
         err = lib.apex_peer_put(
-            x.data_ptr(),
-            data.peer_ptr(dst, (me * SHIFT_SLOTS + s) * slot_bytes), nbytes,
-            st.flags.local_ptr(st.ack_shift(dst, s)),
-            max(e - SHIFT_SLOTS, 0),
-            st.flags.peer_ptr(dst, st.ready_shift(me, s)), e,
-            st.counter(0), tmo, stream)
+            x.data_ptr(), landing, ctypes.addressof(put),
+            f.local_ptr(st.ack_shift(dst, s)), max(e - SHIFT_SLOTS, 0), tmo,
+            stream)
         _build.launches["peer_put"] += 1
         _build.check(err, "peer_shift (peer_put)")
         err = lib.apex_peer_wait(
-            st.flags.local_ptr(st.ready_shift(src, rs)), er,
-            data.local_ptr((src * SHIFT_SLOTS + rs) * slot_bytes),
-            out.data_ptr(), nbytes,
-            st.flags.peer_ptr(src, st.ack_shift(me, rs)), st.counter(1),
-            tmo, stream)
+            f.peer_ptr(dst, st.ready_shift(me, s)), e,
+            f.peer_ptr(src, st.ack_shift(me, prev % SHIFT_SLOTS))
+            if prev > 0 else None, prev,
+            f.local_ptr(st.ready_shift(src, rs)), er, landed,
+            out.data_ptr(), ctypes.addressof(wait), tmo, stream)
         _build.launches["peer_wait"] += 1
         _build.check(err, "peer_shift (peer_wait)")
     return out
@@ -458,22 +571,32 @@ def _halo_put(x, group, send_rows, full, buf_rows, bufs):
     ack_left, ack_right = st.off_halo_ack, st.off_halo_ack + 8
     lib = _build.lib()
     tmo = _timeout_ns(group)
+    # each edge's copy takes half the SMs: the two run side by side
+    sms = max(1, _sm_count(x.device.index) // 2)
+    dst_lo = hi_arena.peer_ptr(left, hi_off)
+    dst_hi = lo_arena.peer_ptr(right, lo_off)
+    plan_lo = copy_plan(nbytes, src_lo, dst_lo, sms).as_c()
+    plan_hi = copy_plan(nbytes, src_hi, dst_hi, sms).as_c()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = st.stream()
         err = lib.apex_halo_put(
-            src_lo, hi_arena.peer_ptr(left, hi_off),
-            src_hi, lo_arena.peer_ptr(right, lo_off), nbytes,
+            src_lo, dst_lo, ctypes.addressof(plan_lo), src_hi, dst_hi,
+            ctypes.addressof(plan_hi),
             # my lo landing came from the left rank (it sent right), my
             # hi landing from the right rank (it sent left)
             f.peer_ptr(left, ack_right), f.peer_ptr(right, ack_left),
-            f.local_ptr(ack_left), f.local_ptr(ack_right), e - 1,
-            f.peer_ptr(left, ready_hi), f.peer_ptr(right, ready_lo), e,
-            st.counter(2), tmo, stream)
+            f.local_ptr(ack_left), f.local_ptr(ack_right), e - 1, tmo,
+            stream)
         _build.launches["halo_put"] += 1
         _build.check(err, "halo_exchange_rdma (halo_put)")
-        for flag in (ready_lo, ready_hi):
-            err = lib.apex_peer_wait(f.local_ptr(flag), e, None, None, 0,
-                                     None, None, tmo, stream)
+        # the first wait releases the put's ready flags in the neighbours'
+        # arenas (the put before it on the stream is done)
+        released = [(f.peer_ptr(left, ready_hi), e, f.peer_ptr(right,
+                                                               ready_lo), e),
+                    (None, 0, None, 0)]
+        for flag, rel in zip((ready_lo, ready_hi), released):
+            err = lib.apex_peer_wait(*rel, f.local_ptr(flag), e, None, None,
+                                     None, tmo, stream)
             _build.launches["peer_wait"] += 1
             _build.check(err, "halo_exchange_rdma (peer_wait)")
     return lo_buf, hi_buf

@@ -181,10 +181,18 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    launch counts. Each kernel's ``ms`` is its device time alone as a
    self-put, in a group of this one process (the put lands in its own
    arena), and ``library_ms`` a ``dst.copy_(src)`` into an arena in the
-   same set-up; beside them rank 0's device time inside the 4- and 2-rank
-   rings (which includes the other processes' time slices), the plain
-   version's host time, and the ``copy_`` into a peer-mapped view at
-   world 2.
+   same set-up, both at the ring's K shard (6.29 MB bf16, 12.6 MB fp32:
+   the writes fit in the 50 MB L2, ``writes_fit_l2``) and at 512 MiB and
+   1 GiB (``sizes``), where no kernel and no ``copy_`` may read under its
+   bytes bound, with lines through each pair (``fit``: a fixed ms and a
+   streaming TB/s); the halo strips and strips of 512 MiB an edge for
+   ``halo_put``. Beside them rank 0's device time inside the 4- and
+   2-rank rings (which includes the other processes' time slices), the
+   plain version's host time, and the ``copy_`` into a peer-mapped view
+   at world 2. ``python3 chip_smoke.py remote-copy [ROOT]`` runs these
+   self-put timings alone, and ``python3 chip_smoke.py ring [ROOT]`` the
+   4-rank ring's and halo's timings (phases 12 and 13), for the checkout
+   at ROOT.
 12. ``ring``: ring attention at GPT-2 small's attention widths (12 heads x
    64, batch 1) over a 16,384-token bf16 context at worlds 4 and 2
    (``transport="rdma"``): causal contiguous, causal zigzag and
@@ -1039,6 +1047,202 @@ def _rank_path(group, spec):
     return res
 
 
+# Phase 11 (a)'s sizes. The ring's K shard in bf16 and in fp32 (6.29 and
+# 12.6 MB: the self-put's two landing slots, the copy-out and the copy_'s
+# destination fit in the 50 MB L2, so a reading there can beat the bytes
+# bound) and two messages of about 10 and 20 times the L2, whose slots,
+# copy-outs and copy_ destinations do not: a kernel or a copy_ that read
+# under its bytes bound there would have moved bytes faster than the HBM
+# can. A line through each pair gives a fixed cost and a streaming rate.
+SOLO_SHIFTS = [("bf16", PEER_SPEC["timed_shift"]),
+               ("fp32", PEER_SPEC["timed_shift"]),
+               ("bf16", 256 << 20), ("bf16", 512 << 20)]
+# the halo rows': the halo phase's strips, and strips whose edges are 512
+# MiB each (both the whole-shard plan: each edge is the whole shard)
+SOLO_STRIPS = [PEER_SPEC["timed_strips"], (2, 16384, 8192)]
+
+
+def _abs_err(got, want):
+    """0.0 where ``got`` has ``want``'s bits, else their largest absolute
+    difference."""
+    if _same_bits(got, want):
+        return 0.0
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _halo_bytes(shape, dtype):
+    """``(edge bytes, bytes a halo_put of halo 1 must move)``: each input
+    read once (the shard once under the whole-shard plan, else the two
+    edges) and both landing buffers written once."""
+    import torch
+    from apex_tpu_torch.ops import remote_copy as rc
+    rows = shape[0]
+    _, full, buf_rows = rc._halo_plan(rows, 1, dtype)
+    edge = buf_rows * math.prod(shape[1:]) * torch.empty(
+        (), dtype=dtype).element_size()
+    return edge, (1 if full else 2) * edge + 2 * edge
+
+
+def _remote_copy_solo(dev):
+    """Phase 11 (a): each remote-copy kernel alone, in a group of this one
+    process whose puts land in its own arena (self-puts), so no other
+    process's time slice is in the times: ``peer_shift`` at SOLO_SHIFTS
+    and ``halo_exchange_rdma`` (halo 1) at SOLO_STRIPS, each result held
+    bit for bit. Beside each, the library call in the same set-up: a
+    ``copy_`` into an arena view for ``peer_put``, into a fresh tensor for
+    ``peer_wait``'s copy-out, two of the strips into an arena view for
+    ``halo_put``. Inputs are rotated past the L2 (``n_sets``)."""
+    import torch
+    from apex_tpu_torch.ops import remote_copy as rc
+    from apex_tpu_torch.parallel import RankGroup
+    g1 = RankGroup(device=dev)
+
+    def arena_view(nbytes):
+        return rc.device_bytes(rc.IpcArena(g1, nbytes).local_ptr(), nbytes,
+                               dev)
+
+    def shift(x):
+        return rc.peer_shift(x, g1, 1)
+
+    def halo(x):
+        return rc.halo_exchange_rdma(x, g1, 1, periodic=True)
+
+    shifts, strips = [], []
+    for i, (dt, numel) in enumerate(SOLO_SHIFTS):
+        dtype = _tdtype(dt)
+        nbytes = numel * dtype.itemsize
+        sets = [(_seeded(0, 950 + 20 * i + j, numel, dtype, dev),)
+                for j in range(n_sets(2 * nbytes))]
+        err = max(_abs_err(shift(x), x) for (x,) in sets)
+        kern = device_kernels(shift, sets, 20)
+        outs = [(torch.empty_like(x), x) for (x,) in sets]
+        view = arena_view(nbytes)
+        raw = [(x.view(torch.uint8),) for (x,) in sets]
+        shifts.append({
+            "dtype": dt, "n": numel, "bytes": nbytes, "err": err,
+            "put": _pick(kern, "peer_put_kernel"),
+            "wait": _pick(kern, "peer_wait_kernel"),
+            "call_ms": bench_ms(shift, sets, 20),
+            # peer_wait's copy-out as one library call
+            "copy_ms": device_ms(lambda o, x: o.copy_(x), outs, 20),
+            # peer_put's: one copy_ into the arena
+            "library_ms": device_ms(lambda x: view.copy_(x), raw, 20),
+            "library_call_ms": bench_ms(lambda x: view.copy_(x), raw, 20)})
+        del sets, outs, raw, view, kern
+        torch.cuda.empty_cache()
+    for i, shape in enumerate(SOLO_STRIPS):
+        edge, moved = _halo_bytes(shape, torch.bfloat16)
+        sets = [(_seeded(0, 960 + 20 * i + j, math.prod(shape),
+                         torch.bfloat16, dev).view(shape),)
+                for j in range(n_sets(2 * edge))]
+        err = 0.0
+        for (x,) in sets:
+            lo, hi = halo(x)
+            err = max(err, _abs_err(lo, x[-1:]), _abs_err(hi, x[:1]))
+            del lo, hi
+        kern = device_kernels(halo, sets, 20)
+        view = arena_view(edge)
+        raw = [(x.reshape(-1).view(torch.uint8),) for (x,) in sets]
+        # halo_put's: one copy_ of the strips into the arena for each
+        # neighbour
+        strips.append({
+            "shape": list(shape), "edge_bytes": edge, "moved_bytes": moved,
+            "err": err, "put": _pick(kern, "halo_put_kernel"),
+            "wait": _pick(kern, "peer_wait_kernel"),
+            "call_ms": bench_ms(halo, sets, 20),
+            "library_ms": device_ms(lambda x: (view.copy_(x), view.copy_(x)),
+                                    raw, 20)})
+        del sets, raw, view, kern
+        torch.cuda.empty_cache()
+    g1.close()
+    torch.cuda.empty_cache()
+    return {"shift": shifts, "strips": strips}
+
+
+def _fit(b1, t1, b2, t2, moved):
+    """The line through two ``(message bytes, ms)`` readings: its
+    intercept (a fixed cost, ms) and the rate ``moved`` bytes a message
+    byte stream at along its slope (TB/s)."""
+    slope = (t2 - t1) / (b2 - b1)
+    return {"fixed_ms": t1 - slope * b1,
+            "streaming_tb_s": moved / slope / 1e9 if slope > 0 else None}
+
+
+def _solo_fits(solo):
+    """Lines through phase 11 (a)'s readings (``_fit``): for each kernel
+    and library call of the shift rows through the ring's two sizes
+    (``in_l2``) and through the two beyond the L2 (``beyond_l2``); for
+    ``halo_put`` and its two ``copy_`` through the two strips."""
+    shifts, (strip, big) = solo["shift"], solo["strips"]
+    pairs = {"in_l2": [r for r in shifts
+                       if r["n"] == PEER_SPEC["timed_shift"]],
+             "beyond_l2": [r for r in shifts if r["bytes"] >= 2 * L2_BYTES]}
+    out = {key: {name: _fit(a["bytes"], a[key], b["bytes"], b[key], 2)
+                 for name, (a, b) in pairs.items()}
+           for key in ("put", "wait", "copy_ms", "library_ms")}
+    out["halo_put"] = _fit(strip["edge_bytes"], strip["put"],
+                           big["edge_bytes"], big["put"], 3)
+    out["halo_library"] = _fit(strip["edge_bytes"], strip["library_ms"],
+                               big["edge_bytes"], big["library_ms"], 4)
+    return out
+
+
+def _rank_steps(group, spec):
+    """The ring (``_rank_ring``) and the halo exchange (``_rank_halo``) of
+    one rank, without their output tensors: step ms per layout and the
+    halo's exchange ms."""
+    ring = _rank_ring(group, spec)
+    return {"ring": {f"{dt}_{layout}_{'causal' if causal else 'full'}":
+                     rec["step_ms"] for (dt, layout, causal), rec
+                     in ring.items() if "step_ms" in rec},
+            "halo_exchange_call_ms":
+                _rank_halo(group, spec)["exchange_call_ms"]}
+
+
+def mode_main(mode, root) -> int:
+    """``python3 chip_smoke.py remote-copy|ring [ROOT]``: one part of the
+    run alone, for the ``apex_tpu_torch`` of the checkout at ROOT (by
+    default this one), so that two checkouts can be timed in turns on one
+    card in one run. ``remote-copy``: phase 11 (a), one
+    ``remote_copy_solo`` line. ``ring``: phases 12 and 13 at world 4 (the
+    bf16 ring's step ms by layout and the halo's exchange ms on every
+    rank), one ``ring_steps`` line. Then the ``nvidia-smi`` line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    root = Path(root).resolve()
+    if not (root / "apex_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no apex_tpu_torch/csrc under {root}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    from apex_tpu_torch.ops import _build
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = smi_line()
+    t0 = time.perf_counter()
+    _build.lib()
+    common = dict(root=str(root), build_s=time.perf_counter() - t0,
+                  card=f"{torch.cuda.get_device_name(0)}, "
+                       f"{smi.split(',')[-1].strip()} limit")
+    if mode == "remote-copy":
+        solo = _remote_copy_solo(dev)
+        emit("remote_copy_solo", fits=_solo_fits(solo), **common, **solo)
+    else:
+        from apex_tpu_torch.parallel import spawn_ranks
+        ranks = spawn_ranks(_rank_steps, HALO_WORLD, (PEER_SPEC,),
+                            device=dev, timeout_s=600)
+        emit("ring_steps", world=HALO_WORLD, tokens=RING_TOKENS,
+             step_ms={k: [r["ring"][k] for r in ranks]
+                      for k in ranks[0]["ring"]},
+             halo_exchange_call_ms=[r["halo_exchange_call_ms"]
+                                    for r in ranks], **common)
+    print(smi, flush=True)
+    return 0
+
+
 # the tensor-core kernels' sources, whose ptxas report the env line carries
 TC_SOURCES = ("flash_fwd_wgmma.cu", "flash_bwd_dq_wgmma.cu",
               "flash_bwd_dkv_wgmma.cu")
@@ -1085,6 +1289,59 @@ def ptxas_report(build, names):
                 "wgmma_serialized"] = line.split(":", 2)[-1].strip()
     require(len(out) == 2 * len(names), f"ptxas report: {out}")
     return out
+
+
+def bench_ms(fn, sets, reps):
+    """Mean ms of ``fn(*sets[i % len(sets)])`` over ``reps`` calls
+    between two CUDA events, after a warm-up: the time per call as a
+    caller sees it, host dispatch included."""
+    import torch
+    for a in sets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(reps):
+        fn(*sets[i % len(sets)])
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def device_kernels(fn, sets, reps):
+    """``{kernel name: mean device ms per call}`` of ``fn`` over
+    ``reps`` calls cycling through ``sets`` (torch.profiler), after a
+    warm-up; a pass counts only if it recorded ``reps`` times every
+    kernel of one call (``_per_call_ms``), up to PROFILE_TRIES
+    passes."""
+    for a in sets[:2]:
+        fn(*a)
+    it = _cycle(sets)
+    for _ in range(PROFILE_TRIES):
+        got, seen = _per_call_ms(lambda: fn(*next(it)), reps)
+        if got:
+            return got
+    require(False, f"torch.profiler lost device kernels in "
+                   f"{PROFILE_TRIES} passes: {seen}")
+
+
+def device_ms(fn, sets, reps):
+    """Mean device ms per call of ``fn``: the summed durations of the
+    kernels it launched (torch.profiler), over ``reps`` calls."""
+    return sum(device_kernels(fn, sets, reps).values())
+
+
+def n_sets(bytes_per_set):
+    """Input copies to cycle so each call finds its data out of L2."""
+    return int(min(16, max(2, math.ceil(2 * L2_BYTES / bytes_per_set))))
+
+
+def bound(nbytes, ops, dt):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dt]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def main() -> int:
@@ -1165,22 +1422,6 @@ def main() -> int:
          ptxas=ptxas_report(_build, TC_SOURCES))
 
     # ------------------------------------------------ 2. kernel vs plain
-    def bench_ms(fn, sets, reps):
-        """Mean ms of ``fn(*sets[i % len(sets)])`` over ``reps`` calls
-        between two CUDA events, after a warm-up: the time per call as a
-        caller sees it, host dispatch included."""
-        for a in sets[:2]:
-            fn(*a)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for i in range(reps):
-            fn(*sets[i % len(sets)])
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     def device_profile(fn, counts=None):
         """Run ``fn()`` under torch.profiler (``_profile``); returns
         ``{kernel name: us}``, the summed durations of the device kernels
@@ -1195,27 +1436,6 @@ def main() -> int:
         if counts is not None:
             counts.update(runs)
         return out
-
-    def device_kernels(fn, sets, reps):
-        """``{kernel name: mean device ms per call}`` of ``fn`` over
-        ``reps`` calls cycling through ``sets`` (torch.profiler), after a
-        warm-up; a pass counts only if it recorded ``reps`` times every
-        kernel of one call (``_per_call_ms``), up to PROFILE_TRIES
-        passes."""
-        for a in sets[:2]:
-            fn(*a)
-        it = _cycle(sets)
-        for _ in range(PROFILE_TRIES):
-            got, seen = _per_call_ms(lambda: fn(*next(it)), reps)
-            if got:
-                return got
-        require(False, f"torch.profiler lost device kernels in "
-                       f"{PROFILE_TRIES} passes: {seen}")
-
-    def device_ms(fn, sets, reps):
-        """Mean device ms per call of ``fn``: the summed durations of the
-        kernels it launched (torch.profiler), over ``reps`` calls."""
-        return sum(device_kernels(fn, sets, reps).values())
 
     def kind_of(name):
         low = name.lower()
@@ -1285,16 +1505,6 @@ def main() -> int:
         d = (got.float() - want.float()).abs()
         return (bool((d <= atol + rtol * want.float().abs()).all()),
                 d.max().item() if d.numel() else 0.0)
-
-    def n_sets(bytes_per_set):
-        """Input copies to cycle so each call finds its data out of L2."""
-        return int(min(16, max(2, math.ceil(2 * L2_BYTES / bytes_per_set))))
-
-    def bound(nbytes, ops, dt):
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = ops / PEAK_OPS[dt]
-        return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
 
     tdt = {"fp32": torch.float32, "bf16": torch.bfloat16,
            "fp16": torch.float16}
@@ -3437,73 +3647,11 @@ def main() -> int:
     # -------------- 11. the remote-copy kernels (rows 19-21), 12. ring,
     # 13. halo: rank processes on this card
     from apex_tpu_torch.ops import remote_copy as rc
-    from apex_tpu_torch.parallel import RankGroup, spawn_ranks, zigzag_shard
+    from apex_tpu_torch.parallel import spawn_ranks, zigzag_shard
     torch.cuda.empty_cache()
 
-    def f32(t):
-        return t.float() if t.is_floating_point() else t.to(torch.int32)
-
-    def max_err(got, want):
-        return (f32(got) - f32(want)).abs().max().item() if got.numel() \
-            else 0.0
-
-    # (a) each kernel alone: a group of this one process, whose puts land
-    # in its own arena (self-puts), so no other process's time slice is in
-    # the times; the library call is timed in the same set-up, a copy_
-    # into a view of an arena of this process
-    g1 = RankGroup(device=dev)
-
-    def arena_view(nbytes):
-        return rc.device_bytes(rc.IpcArena(g1, nbytes).local_ptr(), nbytes,
-                               dev)
-
-    solo = {}
-    for dt in ("bf16", "fp32"):
-        numel = PEER_SPEC["timed_shift"]
-        nbytes = numel * tdt[dt].itemsize
-        sets = [(_seeded(0, 950 + i, numel, tdt[dt], dev),)
-                for i in range(n_sets(2 * nbytes))]
-        err = max(max_err(rc.peer_shift(x, g1, 1), x) for (x,) in sets)
-        kern = device_kernels(lambda x: rc.peer_shift(x, g1, 1), sets, 20)
-        outs = [(torch.empty_like(x), x) for (x,) in sets]
-        view = arena_view(nbytes)
-        raw = [(x.view(torch.uint8),) for (x,) in sets]
-        solo[dt] = {"err": err, "put": _pick(kern, "peer_put_kernel"),
-                    "wait": _pick(kern, "peer_wait_kernel"),
-                    "call_ms": bench_ms(lambda x: rc.peer_shift(x, g1, 1),
-                                        sets, 20),
-                    # peer_wait's copy-out as one library call
-                    "copy_ms": device_ms(lambda o, x: o.copy_(x), outs, 20),
-                    # peer_put's: one copy_ into the arena
-                    "library_ms": device_ms(lambda x: view.copy_(x), raw,
-                                            20),
-                    "library_call_ms": bench_ms(lambda x: view.copy_(x),
-                                                raw, 20),
-                    "bytes": nbytes}
-    strip_shape = PEER_SPEC["timed_strips"]
-    strip_bytes = math.prod(strip_shape) * 2
-    ssets = [(_seeded(0, 960 + i, math.prod(strip_shape), torch.bfloat16,
-                      dev).view(strip_shape),) for i in range(4)]
-    herr = 0.0
-    for (s,) in ssets:
-        lo, hi = rc.halo_exchange_rdma(s, g1, 1, periodic=True)
-        herr = max(herr, max_err(lo, s[1:]), max_err(hi, s[:1]))
-    hkern = device_kernels(lambda s: rc.halo_exchange_rdma(s, g1, 1), ssets,
-                           20)
-    hview = arena_view(strip_bytes)
-    # halo_put's: one copy_ of the strips into the arena for each
-    # neighbour
-    hlib = device_ms(lambda s: (hview.copy_(s.reshape(-1).view(torch.uint8)),
-                                hview.copy_(s.reshape(-1).view(torch.uint8))),
-                     ssets, 20)
-    solo["halo"] = {"err": herr, "put": _pick(hkern, "halo_put_kernel"),
-                    "library_ms": hlib,
-                    "wait": _pick(hkern, "peer_wait_kernel"),
-                    "call_ms": bench_ms(
-                        lambda s: rc.halo_exchange_rdma(s, g1, 1), ssets, 20)}
-    g1.close()
-    del sets, outs, raw, ssets, view, hview
-    torch.cuda.empty_cache()
+    # (a) each kernel alone, at the ring's sizes and beyond the L2
+    solo = _remote_copy_solo(dev)
 
     # (b) worlds 4 and 2: the checks, the ring and (at 4) the halo phase
     path, spawn_s = {}, {}
@@ -3532,46 +3680,91 @@ def main() -> int:
                     f"{c['launches']}; expected {n_shift} / {n_halo}, "
                     f"{check_launches}")
     tw = {world: ranks[0]["checks"]["timed"] for world, ranks in path.items()}
-    for dt in ("bf16", "fp32"):
-        nb = solo[dt]["bytes"]
+    # every size's reading beside its bound; lines through the ring's two
+    # sizes (in the L2) and through the two beyond it
+    shifts, strips = solo["shift"], solo["strips"]
+    for rec in shifts + strips:
+        require(rec["err"] == 0.0,
+                f"self-put of {rec.get('bytes', rec.get('shape'))}: max "
+                f"abs err {rec['err']} (a copy: exact)")
+    l2_pair = [r for r in shifts if r["n"] == PEER_SPEC["timed_shift"]]
+    big_pair = [r for r in shifts if r["bytes"] >= 2 * L2_BYTES]
+    for rec in big_pair:
+        b = bound(2 * rec["bytes"], 0, "fp32")[0]
+        for key in ("put", "wait", "copy_ms", "library_ms"):
+            require(rec[key] >= b,
+                    f"{key} of {rec['bytes']} bytes read {rec[key]} ms, "
+                    f"under its bytes bound {b} ms: faster than the HBM")
+    for rec in strips:
+        if rec["edge_bytes"] >= L2_BYTES:
+            b = bound(rec["moved_bytes"], 0, "fp32")[0]
+            for key in ("put", "library_ms"):
+                require(rec[key] >= b,
+                        f"halo {key} of {rec['shape']} read {rec[key]} ms, "
+                        f"under its bytes bound {b} ms")
+
+    def sizes(key, lib_key):
+        return [{"bytes": r["bytes"], "dtype": r["dtype"], "ms": r[key],
+                 "library_ms": r[lib_key],
+                 "bound_ms": bound(2 * r["bytes"], 0, "fp32")[0],
+                 # both landing slots (or the copy_'s destination)
+                 "writes_fit_l2": rc.SHIFT_SLOTS * r["bytes"] <= L2_BYTES}
+                for r in shifts]
+
+    fit = _solo_fits(solo)
+    for ring in l2_pair:
+        dt, nb = ring["dtype"], ring["bytes"]
         bms, by = bound(2 * nb, 0, "fp32")
-        common = dict(setup=SELF_PUT, n=PEER_SPEC["timed_shift"], dtype=dt,
-                      bytes=nb,
-                      max_abs_err=solo[dt]["err"], bound_ms=bms, bound_by=by,
-                      call_ms=solo[dt]["call_ms"],
+        common = dict(setup=SELF_PUT, n=ring["n"], dtype=dt, bytes=nb,
+                      max_abs_err=ring["err"], bound_ms=bms, bound_by=by,
+                      writes_fit_l2=rc.SHIFT_SLOTS * nb <= L2_BYTES,
+                      call_ms=ring["call_ms"],
                       plain_ms=tw[2][f"shift_{dt}_plain_ms"],
                       checks_per_rank=n_shift,
                       shift_call_ms_world={w: tw[w][f"shift_{dt}_call_ms"]
                                            for w in tw}, card=card)
-        rput = dict(kernel="peer_put", ms=solo[dt]["put"],
+        rput = dict(kernel="peer_put", ms=ring["put"],
                     ms_in_ring={w: _pick(tw[w][f"shift_{dt}"],
                                          "peer_put_kernel") for w in tw},
-                    library_ms=solo[dt]["library_ms"],
-                    library_call_ms=solo[dt]["library_call_ms"],
+                    library_ms=ring["library_ms"],
+                    library_call_ms=ring["library_call_ms"],
                     library_ms_world2=tw[2][f"library_{dt}"],
                     library_call_ms_world2=tw[2][f"library_{dt}_call_ms"],
-                    **common)
-        rwait = dict(kernel="peer_wait", ms=solo[dt]["wait"],
+                    sizes=sizes("put", "library_ms"), fit=fit["put"],
+                    library_fit=fit["library_ms"], **common)
+        rwait = dict(kernel="peer_wait", ms=ring["wait"],
                      ms_in_ring={w: _pick(tw[w][f"shift_{dt}"],
                                           "peer_wait_kernel") for w in tw},
-                     library_ms=solo[dt]["copy_ms"], **common)
+                     library_ms=ring["copy_ms"],
+                     sizes=sizes("wait", "copy_ms"), fit=fit["wait"],
+                     library_fit=fit["copy_ms"], **common)
         emit("kernel", **rput)
         emit("kernel", **rwait)
         if dt == "bf16":
             summary["peer_put"], summary["peer_wait"] = rput, rwait
-    hb, hby = bound(4 * strip_bytes, 0, "fp32")
-    rhalo = dict(kernel="halo_put", setup=SELF_PUT, rows=strip_shape[0],
-                 shape=list(strip_shape), dtype="bf16", bytes=2 * strip_bytes,
-                 max_abs_err=solo["halo"]["err"], ms=solo["halo"]["put"],
-                 wait_ms=solo["halo"]["wait"],
+    strip = strips[0]
+    hb, hby = bound(strip["moved_bytes"], 0, "fp32")
+    rhalo = dict(kernel="halo_put", setup=SELF_PUT, rows=strip["shape"][0],
+                 shape=strip["shape"], dtype="bf16",
+                 bytes=strip["moved_bytes"], max_abs_err=strip["err"],
+                 ms=strip["put"], wait_ms=strip["wait"],
                  ms_in_ring={w: _pick(tw[w]["halo"], "halo_put_kernel")
                              for w in tw},
-                 call_ms=solo["halo"]["call_ms"],
+                 call_ms=strip["call_ms"],
                  halo_call_ms_world={w: tw[w]["halo_call_ms"] for w in tw},
                  plain_ms=tw[2]["halo_plain_ms"],
-                 library_ms=solo["halo"]["library_ms"],
+                 library_ms=strip["library_ms"],
                  library_ms_world2=tw[2]["library_halo"], bound_ms=hb,
-                 bound_by=hby, checks_per_rank=n_halo, card=card)
+                 bound_by=hby, writes_fit_l2=2 * strip["edge_bytes"]
+                 <= L2_BYTES, checks_per_rank=n_halo,
+                 sizes=[{"shape": r["shape"], "edge_bytes": r["edge_bytes"],
+                         "ms": r["put"], "wait_ms": r["wait"],
+                         "library_ms": r["library_ms"],
+                         "bound_ms": bound(r["moved_bytes"], 0, "fp32")[0],
+                         "writes_fit_l2": 2 * r["edge_bytes"] <= L2_BYTES}
+                        for r in strips],
+                 fit=fit["halo_put"], library_fit=fit["halo_library"],
+                 card=card)
     emit("kernel", **rhalo)
     summary["halo_put"] = rhalo
 
@@ -3733,4 +3926,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] in ("remote-copy", "ring"):
+        sys.exit(mode_main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2
+                           else ROOT))
     sys.exit(main())

@@ -39,6 +39,8 @@ bits of the same call on contiguous copies. Run the flash tests with
 ``python -m pytest tests/test_torch_cuda.py -q -k flash``.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -60,6 +62,7 @@ from apex_tpu_torch.ops.group_norm_kernel import (
     gn_stats, gn_stats_plain, group_norm_nhwc_fwd)
 from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                   ln_fwd, ln_fwd_plain)
+from apex_tpu_torch.ops.remote_copy import STAGE_BYTES
 from apex_tpu_torch.ops.tiling import gn_hw_block, gn_one_pass_ok
 from apex_tpu_torch.utils.flatten import flat_spec, flatten
 
@@ -1210,7 +1213,19 @@ def test_softmax_on_cuda_takes_the_kernels_at_every_shape(dev, monkeypatch):
 # Rank processes share the one card through CUDA IPC (spawn_ranks): the
 # peer-put kernels store into another process's arena. Exact: a copy.
 
-PEER_SIZES = [1, 3, 1000, 4097, 65536 + 5]
+# Elements, in fp32, bf16 and uint8: small and odd sizes, then one byte
+# (one element) under, at and over a bulk stage (the register route below
+# it; in fp32 one element under and over), under and over a grid of 132
+# one-stage runs, and a few MB (many runs a block, a ragged tail).
+_STAGE = STAGE_BYTES
+PEER_SIZES = [1, 3, 1000, 4097, 65536 + 5,
+              _STAGE - 1, _STAGE, _STAGE + 1, _STAGE // 4 - 1,
+              _STAGE // 4 + 1, 132 * _STAGE - 1, 132 * _STAGE + 1,
+              3_000_001]
+# uint8 sources this many bytes into their storage (the landing slot is
+# aligned: words of 1, 2, 4, 8 and 1 bytes), below and above a stage
+PEER_OFFSETS = [1, 2, 4, 8, 15]
+PEER_OFFSET_SIZES = [1000, 3 * _STAGE + 7, 132 * _STAGE + 1]
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -1218,22 +1233,93 @@ def test_peer_kernels_between_rank_processes(dev, world):
     """``peer_shift`` (shift 1, -1, 2, and of a source that is an offset
     view) and ``halo_exchange_rdma`` (halo 1 and 3, periodic or not, fresh
     and pool landing buffers threaded twice) in fp32, bf16 and uint8,
-    every result bit-equal to the neighbour's
+    and ``peer_shift`` of uint8 sources 1, 2, 4, 8 and 15 bytes into
+    their storage, every result bit-equal to the neighbour's
     input made again from its seed; one ``peer_put`` per shift, one
     ``halo_put`` per exchange and a ``peer_wait`` for each landing."""
     import torch_rank_helpers as rh
     from apex_tpu_torch.parallel import spawn_ranks
     _build.build()
     dtypes = ["fp32", "bf16", "u8"]
-    res = spawn_ranks(rh.card_peer_bits, world, (PEER_SIZES, dtypes),
+    res = spawn_ranks(rh.card_peer_bits, world,
+                      (PEER_SIZES, dtypes, PEER_OFFSETS, PEER_OFFSET_SIZES),
                       device="cuda", timeout_s=240)
     # shifts 1, -1, 2 at each size, and one of an offset (unaligned) view
-    shifts = (3 * len(PEER_SIZES) + 1) * len(dtypes)
+    shifts = (3 * len(PEER_SIZES) + 1) * len(dtypes) \
+        + len(PEER_OFFSETS) * len(PEER_OFFSET_SIZES)
     halos = 2 * 2 * 2 * 2 * len(dtypes)
     for checks, launches in res:
         assert checks == shifts + 2 * halos
         assert launches == {"peer_put": shifts, "halo_put": halos,
                             "peer_wait": shifts + 2 * halos}
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_peer_shift_stress_back_to_back(dev, world):
+    """64 ``peer_shift``s issued back to back without a synchronise, fresh
+    seeded data each, through both landing slots in turn, on the bulk
+    route (262,147 fp32: a ragged tail) and the register route (1,000),
+    on one stream and alternating between two: every result bit-equal. A
+    flag released before all the bulk stores it announces were done, or
+    an ack released before the copy-out had read the slot (as on a stream
+    the previous copy-out did not run on), shows here as stale bytes."""
+    import torch_rank_helpers as rh
+    from apex_tpu_torch.parallel import spawn_ranks
+    _build.build()
+    sizes = [262_147, 1000]
+    res = spawn_ranks(rh.card_shift_stress, world, (sizes, 64),
+                      device="cuda", timeout_s=240)
+    assert res == [2 * 64 * len(sizes)] * world
+
+
+# (source, destination) misalignments in bytes: both alike (the bulk
+# route after a head), one side only, and pairs no head aligns to 16
+COPY_MISALIGNMENTS = [(0, 0), (1, 1), (8, 8), (15, 15), (1, 0), (0, 1),
+                      (2, 0), (4, 12), (8, 0), (15, 3)]
+
+
+@pytest.mark.parametrize("src_mis,dst_mis", COPY_MISALIGNMENTS)
+@pytest.mark.parametrize("nbytes", [1, 17, _STAGE - 1, _STAGE + 15,
+                                    132 * _STAGE + 1, 3_000_017])
+def test_copy_routes_at_any_alignment(dev, nbytes, src_mis, dst_mis):
+    """The C entries themselves, in this process: ``apex_peer_put`` by
+    ``copy_plan`` from ``src + src_mis`` to ``dst + dst_mis``, then
+    ``apex_peer_wait`` (which first releases the flag it waits for, as a
+    self-put's does) copying that on to ``out + src_mis``. Every byte
+    arrives, and no byte beside the message changes: every route (bulk
+    with a head and a tail, register words of 16 down to 1 byte) at its
+    edges."""
+    from apex_tpu_torch.ops import remote_copy as rc
+    lib = _build.lib()
+    g = torch.Generator(device=dev).manual_seed(nbytes + 16 * src_mis
+                                                + dst_mis)
+    pad = 64
+    src = torch.randint(0, 256, (nbytes + pad,), generator=g, device=dev,
+                        dtype=torch.uint8)
+    dst = torch.full((nbytes + pad,), 0xA5, device=dev, dtype=torch.uint8)
+    out = torch.full((nbytes + pad,), 0x5A, device=dev, dtype=torch.uint8)
+    flags = torch.zeros(4, device=dev, dtype=torch.int64)
+    fp = flags.data_ptr()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s, d, o = (src.data_ptr() + src_mis, dst.data_ptr() + dst_mis,
+               out.data_ptr() + src_mis)
+    put = rc.copy_plan(nbytes, s, d, sms).as_c()
+    wait = rc.copy_plan(nbytes, d, o, sms).as_c()
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check(lib.apex_peer_put(s, d, ctypes.addressof(put), fp, 0,
+                                   int(5e9), stream), "apex_peer_put")
+    _build.check(lib.apex_peer_wait(fp + 8, 1, fp + 16, 2, fp + 8, 1, d, o,
+                                    ctypes.addressof(wait), int(5e9),
+                                    stream), "apex_peer_wait")
+    torch.cuda.synchronize()
+    msg = src[src_mis:src_mis + nbytes]
+    assert torch.equal(dst[dst_mis:dst_mis + nbytes], msg)
+    assert torch.equal(out[src_mis:src_mis + nbytes], msg)
+    assert bool((dst[:dst_mis] == 0xA5).all()
+                and (dst[dst_mis + nbytes:] == 0xA5).all())
+    assert bool((out[:src_mis] == 0x5A).all()
+                and (out[src_mis + nbytes:] == 0x5A).all())
+    assert flags.tolist() == [0, 1, 2, 0]
 
 
 def test_cuda_tensors_never_take_plain_versions(dev):

@@ -235,3 +235,77 @@ def test_spawn_ranks_reports_a_hung_rank_whose_peer_teardown_raised():
         spawn_ranks(rh.hang_while_a_peer_teardown_raises, 2, (0,),
                     device="cpu", timeout_s=10)
     assert "rank 1" not in str(err.value)
+
+
+# --------------------------------------------------------- the copy plan
+# ``copy_plan`` is what the wrapper hands the kernels; ``copy_pieces``
+# repeats the kernels' loops over it. Sizes around a stage (the bulk
+# route's least body), a grid of 132 one-stage chunks and four times
+# either, plus 17 bytes; misalignments of the source alone, of the
+# destination alone and of both alike (the bulk route with a head).
+
+_S = rc.STAGE_BYTES
+_GRID = 132 * _S
+PLAN_SIZES = [0, 1, 17, _S - 1, _S, _S + 1, 4 * _S + 17, _GRID - 1,
+              _GRID + 1, 4 * _GRID + 17]
+PLAN_MISALIGNMENTS = ([(m, 0) for m in range(16)]
+                      + [(0, m) for m in range(1, 16)]
+                      + [(m, m) for m in range(1, 16)])
+
+
+@pytest.mark.parametrize("src_mis,dst_mis", PLAN_MISALIGNMENTS)
+@pytest.mark.parametrize("nbytes", PLAN_SIZES)
+def test_copy_plan_moves_every_byte_once(nbytes, src_mis, dst_mis):
+    """Every byte lies in exactly one piece, no piece is longer than a
+    stage, every body piece starts where both pointers are aligned to the
+    route's word and is whole words, every block has a piece, and the
+    ring fits in a block's shared memory."""
+    src, dst = (1 << 20) + src_mis, (3 << 20) + dst_mis
+    plan = rc.copy_plan(nbytes, src, dst, 132)
+    pieces = rc.copy_pieces(plan)
+    assert plan.head + plan.body + plan.tail == nbytes
+    off = 0
+    for start, n in sorted(pieces):
+        assert start == off and 0 < n <= plan.stage and n <= max(
+            plan.chunk, 15)
+        off += n
+    assert off == nbytes
+    word = 16 if plan.bulk else plan.word
+    assert plan.head < word and plan.tail < word
+    for start, n in pieces:
+        if plan.head <= start < plan.head + plan.body:
+            assert (src + start) % word == 0 and (dst + start) % word == 0
+            assert n % word == 0
+    owners = {(start - plan.head) // plan.chunk % plan.blocks
+              for start, _ in pieces
+              if plan.head <= start < plan.head + plan.body}
+    assert plan.blocks <= 132
+    assert owners == (set(range(plan.blocks)) if plan.body else set())
+    if plan.bulk:
+        assert plan.stages * plan.stage <= 224 * 1024
+    else:
+        assert plan.stage <= rc.PASS_BYTES
+    # every block has the same number of runs, give or take the last one
+    runs = [len(range(b * plan.chunk, plan.body, plan.blocks * plan.chunk))
+            for b in range(plan.blocks)]
+    assert max(runs) - min(runs) <= 1
+
+
+@pytest.mark.parametrize(
+    "nbytes,src_mis,dst_mis,bulk,word,blocks,chunk", [
+        # the ring's bf16 K shard: two runs a block
+        (6_291_456, 0, 0, True, 16, 132, 23_840),
+        (536_870_912, 0, 0, True, 16, 132, 32_544),
+        (_S, 0, 0, True, 16, 8, 4096),
+        (_S - 1, 0, 0, False, 16, 8, 4096),   # under a stage: registers
+        (_S + 15, 3, 3, True, 16, 8, 4096),   # a 13-byte head, then bulk
+        (_GRID, 2, 0, False, 2, 132, 16_384),  # no head aligns both to 16
+        (_GRID, 4, 12, False, 8, 132, 16_384),
+        (_GRID, 15, 0, False, 1, 132, 16_384),
+        (0, 5, 0, False, 1, 1, 1),
+    ])
+def test_copy_plan_routes(nbytes, src_mis, dst_mis, bulk, word, blocks,
+                          chunk):
+    plan = rc.copy_plan(nbytes, 4096 + src_mis, 8192 + dst_mis, 132)
+    assert (plan.bulk, plan.word, plan.blocks, plan.chunk) == (
+        bulk, word, blocks, chunk)

@@ -160,12 +160,14 @@ def _seeded(rank, salt, numel, dtype):
     return t
 
 
-def card_peer_bits(group, sizes, dtypes):
+def card_peer_bits(group, sizes, dtypes, offsets=(), offset_sizes=()):
     """On the card: ``peer_shift`` (shift 1, -1, 2) and
     ``halo_exchange_rdma`` (halo 1 and 3, periodic or not, fresh and pool
-    landing buffers threaded twice) over ``sizes`` x ``dtypes``; every
-    result held bit for bit against the neighbour's input made again here
-    from its seed. Returns the count of checks and the launch counts."""
+    landing buffers threaded twice) over ``sizes`` x ``dtypes``, and
+    ``peer_shift`` of uint8 sources that start ``offsets`` bytes into
+    their storage, of ``offset_sizes`` bytes; every result held bit for
+    bit against the neighbour's input made again here from its seed.
+    Returns the count of checks and the launch counts."""
     from apex_tpu_torch.contrib.peer_memory import PeerMemoryPool
     n, me = group.axis_size(), group.axis_index()
     dev = group.device
@@ -220,9 +222,49 @@ def card_peer_bits(group, sizes, dtypes):
                         assert torch.equal(hi.cpu().view(torch.uint8),
                                            want_hi.view(torch.uint8))
                         checks += 2
+    for off in offsets:
+        for salt, nbytes in enumerate(offset_sizes):
+            salt += 700 + 10 * off
+            x = _seeded(me, salt, off + nbytes, torch.uint8).to(dev)[off:]
+            want = _seeded((me - 1) % n, salt, off + nbytes,
+                           torch.uint8)[off:]
+            got = rc.peer_shift(x, group, 1).cpu()
+            assert torch.equal(got, want), (off, nbytes)
+            checks += 1
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return checks, dict(_build.launches)
+
+
+def card_shift_stress(group, sizes, count):
+    """On the card: ``count`` back-to-back ``peer_shift``s of each size
+    (fp32 elements), fresh seeded data each, both landing slots in turn,
+    nothing synchronised until all are issued, once on the current stream
+    and once alternating between two side streams; then every result held
+    bit for bit against the neighbour's input made again here from its
+    seed. Returns the count of checks."""
+    n, me = group.axis_size(), group.axis_index()
+    dev = group.device
+    side = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    checks = 0
+    for numel, streams in ((m, s) for m in sizes for s in (None, side)):
+        xs = [_seeded(me, 2000 + i, numel, torch.float32).to(dev)
+              for i in range(count)]
+        torch.cuda.synchronize()
+        outs = []
+        for i, x in enumerate(xs):
+            if streams is None:
+                outs.append(rc.peer_shift(x, group, 1))
+                continue
+            with torch.cuda.stream(streams[i % 2]):
+                outs.append(rc.peer_shift(x, group, 1))
+        torch.cuda.synchronize()
+        for i, got in enumerate(outs):
+            want = _seeded((me - 1) % n, 2000 + i, numel, torch.float32)
+            assert torch.equal(got.cpu().view(torch.uint8),
+                               want.view(torch.uint8)), (numel, i)
+            checks += 1
+    return checks
 
 
 def card_no_plain_route(group, sizes):
