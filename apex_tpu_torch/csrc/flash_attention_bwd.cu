@@ -17,39 +17,68 @@
 //   p  = exp(s - lse_i), exactly 0 where s is masked or lse_i <= -0.5e30
 //        (fully masked rows give zero gradients: `_bwd_p`)
 //   dp = do_i . v_j,  ds = p * (dp - D_i)
-//   dq_i += (ds * scale in k's dtype) . k_j
-//   dv_j += (p in do's dtype) . do_i
-//   dk_j += (ds * scale in q's dtype) . q_i
-// The casts to the IO dtype before each product are the TPU kernels'. The
-// TPU wrapper folds a power-of-two scale into q (`_fold_scale`); scaling
-// by a power of two commutes with rounding, so multiplying ds by the scale
-// before its cast, as here, gives the same dk bits, and the scores the
-// same values.
+//   dq_i += (ds * scale) . k_j
+//   dv_j += p . do_i
+//   dk_j += (ds * scale) . q_i
+// The TPU wrapper folds a power-of-two scale into q (`_fold_scale`);
+// scaling by a power of two commutes with rounding, so multiplying ds by
+// the scale, as here, gives the same dk bits, and the scores the same
+// values. Every sum runs in the plain version's sequential order (each
+// score over d = 0..63, each gradient over keys or queries in order).
 //
-// What bounds it on this card: operations. At the main path's shapes
-// (b = 4, h = 12, s = 1024, d = 64, causal) the two kernels do five
-// s x s x d products per head (three in dq, four in dk / dv, S and dP
-// computed in both), ~2.5x the forward's work, over 20 bytes per (row, d)
-// element of traffic: hundreds of flops per byte.
+// What bounds it on this card: operations, on the FMA pipes. At GPT-2's
+// shapes (b = 4, h = 12, s = 1024, d = 64, causal) the two kernels do
+// seven s x s x d products per head (S, dP, dQ in dq; S, dP, dV, dK in
+// dK·dV; S and dP computed in both so that no output is summed across
+// blocks) over 20 bytes per (row, d) element of traffic: hundreds of
+// flops a byte. A sub-partition issues one warp instruction a clock and
+// retires one warp FFMA a clock, so every other instruction in a product
+// loop takes an FFMA's slot; a 16-byte shared-memory load costs the SM's
+// shared memory more clocks when a quarter-warp reads eight addresses than
+// when it reads one; and with one block an SM, the order in which blocks
+// are dispatched decides how evenly the causal work spreads over the SMs.
 //
-// What the design does about that, in this first version: two kernels, as
-// the TPU has, so that no output is summed across blocks and no atomics are
-// needed (the results have the same bits on every run). The TPU grid's
-// sequential third axis becomes a loop inside one block:
-// - dq: one block per (batch * head, 64-row q tile) streams 64-row K / V
-//   tiles up to the diagonal, the heaviest tiles launched first;
-// - dk / dv: one block per (batch * head, 64-row k tile) keeps its K / V
-//   tile in shared memory and streams the Q / dO tiles from the diagonal on.
-// Each of the 4 warps owns 16 rows of the block's tile; a lane holds the
-// 16 x 2 scores of columns lane and lane + 32 in registers, writes its
-// share of p or ds to a per-warp shared-memory strip, and accumulates two
-// output columns (lane, lane + 32) of its 16 rows. Streamed tiles that
-// lanes read down a column are padded to a 65-float row stride so the 32
-// lanes hit 32 distinct banks. The products run on the fp32 FMA pipes, not
-// the tensor cores (a TF32 product would change fp32 results). Ragged sq /
-// sk are masked inside the kernels (no padding copies): padded query rows read
-// lse = -1e30 and so contribute nothing. The bias is a compile-time
-// variant, as in the forward.
+// What the design does about that:
+// - Register-blocked products. A block of kThreads = 256 threads (8 warps,
+//   one block an SM) owns kBM = 128 rows (queries in dq, keys in dK·dV)
+//   and streams kBN = 64-row tiles (keys in dq, queries in dK·dV). Warp w
+//   takes rows 32 (w / 2) .. + 31 and half (w % 2) of the tile; lane (ly,
+//   lx) = (lane / 8, lane % 8) holds an 8 x 4 micro-tile of S or dP (rows
+//   ly + 4i, streamed rows lx + 8j) and an 8 x 4 block of each output (the
+//   same rows, d columns 4 lx .. + 3 of its half). Every operand is a
+//   16-byte float4 from a row-major tile whose row stride is padded to
+//   kStride = 68 floats, so the 8 rows a quarter-warp reads fall in 32
+//   distinct banks: 12 shared-memory loads feed 128 FFMAs (8 of them one
+//   address per quarter), and each product loop is ~90 % FFMA. A lane
+//   writes its p and ds * scale to a strip of the block's rows, where it
+//   reads them back for the next step and the warp pair reads whole rows
+//   as the left operand of the gradient products (after a named barrier
+//   of the pair); S is not kept in registers beside dP, which leaves ptxas
+//   room to interleave each loop's loads with its FFMAs, and dK·dV runs
+//   its two gradient products in one loop.
+// - Asynchronous copies. The streamed tiles (K / V in dq; Q / dO and the
+//   lse / D slices in dK·dV) go through kStages = 2 shared-memory stages
+//   by 16-byte `cp.async` copies into the padded rows (4-byte copies when
+//   an operand's base is not 16-byte aligned), rows past sq / sk zero
+//   filled. One block barrier a tile: after it, tile t has landed and
+//   every warp is done with tile t - 1, so the copies of tile t + 1 start
+//   into the freed stage and run under tile t's products. The block's own
+//   rows (Q, dO in dq; K, V in dK·dV) are copied the same way once, with
+//   the first tile in two commit groups: the S product waits only for Q
+//   and K (K and Q in dK·dV), dP for the rest.
+// - Causal work. dq visits key tiles up to its last row's diagonal,
+//   dK·dV query tiles from its first key's diagonal. The grid's x runs
+//   over batch * heads and y over the row blocks, so the hardware
+//   dispatches every head's heaviest row block before any lighter one:
+//   dispatched head by head, the light blocks of the first heads took SMs
+//   that the heavy blocks of the last heads then waited for. Inside a
+//   visited tile a warp pair whose 32 rows see none of its keys (or lie
+//   past sq / sk) skips the products.
+// - Exactness. The score is __fmul_rn / __fadd_rn (no FMA contraction),
+//   p exp(s - lse) with exact zeros where masked; each block owns its
+//   output rows, with no atomics: two runs give the same bits, and each
+//   sum runs in the plain version's order.
+// The geometry is mirrored by fa_fma_bwd_geometry() in ops/tiling.py.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; each function returns cudaGetLastError() after its launch.
@@ -60,373 +89,544 @@ namespace {
 
 using namespace apex_port;
 
-constexpr int kD = 64;        // head dim these kernels are written for
-constexpr int kBQ = 64;       // query rows per tile
-constexpr int kBK = 64;       // key rows per tile
-constexpr int kWarps = 4;
-constexpr int kRW = 16;       // tile rows per warp (kBQ / kWarps)
-constexpr int kPad = kD + 1;  // padded row stride of column-read tiles
+constexpr int kD = 64;          // head dim these kernels are written for
+constexpr int kBM = 128;        // rows a block owns
+constexpr int kBN = 64;         // rows of a streamed tile
+constexpr int kMI = 8;          // rows of a lane's micro-tiles
+constexpr int kPairRows = 4 * kMI;  // rows of a warp pair
+constexpr int kThreads = 64 * kBM / kPairRows;  // 8 warps: 4 pairs x 2
+constexpr int kStages = 2;      // shared-memory stages of streamed tiles
+static_assert(kStages == 2, "the pipeline below prefetches one tile");
+constexpr int kUnroll = 4;      // float4 steps of a product loop unrolled
+constexpr int kStride = kD + 4; // padded row stride of every tile (floats)
+constexpr int kRowStep = 4;     // a lane's rows: ly + kRowStep * i
+constexpr int kColStep = 8;     // a lane's streamed rows: lx + kColStep * j
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-static_assert(kBQ == kBK && kBQ == kWarps * kRW, "square 64-row tiles");
+constexpr int kBlockTile = kBM * kStride;  // floats of the block's rows
+constexpr int kTile = kBN * kStride;       // floats of a streamed tile
+// dq: Q, dO, the ds strip, then K / V per stage
+constexpr int kDqSmemFloats = 3 * kBlockTile + kStages * 2 * kTile;
+// dK·dV: K, V, the p and ds strips, Q / dO per stage, lse / D per stage
+constexpr int kDkvSmemFloats =
+    4 * kBlockTile + kStages * 2 * kTile + kStages * 2 * kBN;
 
-// both kernels: two plain tiles, two padded tiles, the per-warp p / ds
-// strips and two per-row vectors
-constexpr size_t kSmemFloats =
-    2 * kBQ * kD + 2 * kBK * kPad + kWarps * kRW * kBK + 2 * kBQ;
+static_assert(kBN == 2 * kColStep * 4 && kD == 2 * 8 * 4,
+              "a warp half covers 32 streamed rows and 32 d columns");
+static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1,
+              "16-byte rows whose chunks fall in distinct banks");
+static_assert(kDkvSmemFloats * 4 <= 232448 && kDqSmemFloats * 4 <= 232448,
+              "a block's shared memory");
 
 // `_bwd_p`: P = exp(s - lse), 0 where s or the row's lse is masked
 __device__ __forceinline__ float bwd_p(float s, float lse) {
   return (s <= kMaskEdge || lse <= kMaskEdge) ? 0.f : expf(s - lse);
 }
 
-// rows [row0, row0 + kBQ) of a (s, kD) matrix into a kBQ x stride fp32
-// tile, zero past `s`
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const T* __restrict__ src,
-                                          int row0, int s) {
-  for (int i = threadIdx.x; i < kBQ * kD; i += kWarps * 32) {
-    const int r = i / kD, c = i % kD;
-    const int row = row0 + r;
-    dst[r * stride + c] =
-        row < s ? to_f32(src[(long long)row * kD + c]) : 0.f;
+__device__ __forceinline__ float part(const float4& v, int t) {
+  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int kN> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kN) : "memory");
+}
+// the two warps (64 threads) of row pair `pair` meet
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;" ::"r"(1 + pair) : "memory");
+}
+
+// rows [row0, row0 + kRows) of a (s, kD) fp32 matrix into a kRows x
+// kStride tile by asynchronous copies, zeros past s; `vec`: the matrix's
+// base is 16-byte aligned
+template <int kRows>
+__device__ __forceinline__ void copy_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int s, bool vec) {
+  static_assert(kRows * kD % (4 * kThreads) == 0, "whole rounds of copies");
+  if (vec) {
+#pragma unroll
+    for (int n = 0; n < kRows * kD / 4 / kThreads; ++n) {
+      const int i = threadIdx.x + n * kThreads;
+      const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
+      const bool ok = row0 + r < s;
+      cp_async16(dst + r * kStride + c,
+                 ok ? src + (long long)(row0 + r) * kD + c : src, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int n = 0; n < kRows * kD / kThreads; ++n) {
+      const int i = threadIdx.x + n * kThreads;
+      const int r = i / kD, c = i % kD;
+      const bool ok = row0 + r < s;
+      cp_async4(dst + r * kStride + c,
+                ok ? src + (long long)(row0 + r) * kD + c : src, ok);
+    }
   }
 }
 
-template <typename T, bool kBias>
-__global__ void __launch_bounds__(kWarps * 32)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ dvec, T* __restrict__ dq, int nbh,
-                 int sq, int sk, float scale, int causal, ScoreBias bias) {
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [kBQ][kD]
-  float* dos = qs + kBQ * kD;         // [kBQ][kD]
-  float* ks = dos + kBQ * kD;         // [kBK][kPad]
-  float* vs = ks + kBK * kPad;        // [kBK][kPad]
-  float* strip = vs + kBK * kPad;     // [kWarps][kRW][kBK]
-  float* ls = strip + kWarps * kRW * kBK;  // [kBQ]
-  float* dd = ls + kBQ;                    // [kBQ]
+// acc[i][j] += a_i . b_j over the kD columns in column order; a_i is row
+// kRowStep * i of `a`, b_j row kColStep * j of `b` (both kStride-strided)
+__device__ __forceinline__ void score_product(float (&acc)[kMI][4],
+                                              const float* a,
+                                              const float* b) {
+#pragma unroll (kUnroll)
+  for (int c = 0; c < kD; c += 4) {
+    float4 av[kMI], bv[4];
+#pragma unroll
+    for (int i = 0; i < kMI; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + kRowStep * i * kStride + c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(b + kColStep * j * kStride + c);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int i = 0; i < kMI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(part(av[i], t), part(bv[j], t), acc[i][j]);
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const long long bh = batch_head();
+// acc[i][u] += sum over the kBN tile rows n, in order, of e_i[n] * f[n][u]:
+// e_i is row kRowStep * i of the strip `e`, f the streamed tile at the
+// thread's 4 columns
+__device__ __forceinline__ void out_product(float (&acc)[kMI][4],
+                                            const float* e, const float* f) {
+#pragma unroll (kUnroll)
+  for (int n = 0; n < kBN; n += 4) {
+    float4 ev[kMI], fv[4];
+#pragma unroll
+    for (int i = 0; i < kMI; ++i)
+      ev[i] = *reinterpret_cast<const float4*>(e + kRowStep * i * kStride + n);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      fv[t] = *reinterpret_cast<const float4*>(f + (n + t) * kStride);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int i = 0; i < kMI; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          acc[i][u] = fmaf(part(ev[i], t), part(fv[t], u), acc[i][u]);
+  }
+}
+
+// out_product for two products at once (acc += e . f, acc2 += e2 . f2):
+// one loop, twice the independent FFMAs between a load and its use
+__device__ __forceinline__ void out_product2(float (&acc)[kMI][4],
+                                             const float* e, const float* f,
+                                             float (&acc2)[kMI][4],
+                                             const float* e2,
+                                             const float* f2) {
+#pragma unroll (kUnroll)
+  for (int n = 0; n < kBN; n += 4) {
+    float4 ev[kMI], fv[4], ev2[kMI], fv2[4];
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+      ev[i] = *reinterpret_cast<const float4*>(e + kRowStep * i * kStride + n);
+      ev2[i] =
+          *reinterpret_cast<const float4*>(e2 + kRowStep * i * kStride + n);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      fv[t] = *reinterpret_cast<const float4*>(f + (n + t) * kStride);
+      fv2[t] = *reinterpret_cast<const float4*>(f2 + (n + t) * kStride);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int i = 0; i < kMI; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[i][u] = fmaf(part(ev[i], t), part(fv[t], u), acc[i][u]);
+          acc2[i][u] = fmaf(part(ev2[i], t), part(fv2[t], u), acc2[i][u]);
+        }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&a)[kMI][4]) {
+#pragma unroll
+  for (int i = 0; i < kMI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+}
+
+// rows r0 + kRowStep * i (< s) of a (s, kD) matrix at the thread's 4
+// columns c0 .. c0 + 3
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float (&acc)[kMI][4], int r0,
+                                           int c0, int s, bool vec) {
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+    const int row = r0 + kRowStep * i;
+    if (row >= s) continue;
+    float* p = dst + (long long)row * kD + c0;
+    if (vec) {
+      *reinterpret_cast<float4*>(p) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) p[u] = acc[i][u];
+    }
+  }
+}
+
+// p of a lane's micro-tile (scores s, rows row0 + kRowStep i, keys key0 +
+// kColStep j, the rows' lse in l) into its strip entries `e` (row stride
+// kStride)
+template <bool kBias>
+__device__ __forceinline__ void dq_p(float* e, const float (&s)[kMI][4],
+                                     const float (&l)[kMI], int row0,
+                                     int key0, int sq, int sk, int causal,
+                                     float scale, const ScoreBias& bias,
+                                     const float* bs) {
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+    const int row = row0 + kRowStep * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = key0 + kColStep * j;
+      const bool m = key >= sk || (causal && key > row);
+      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+      // plain version's round(round(q.k * scale) + bias)
+      float a = __fmul_rn(s[i][j], scale);
+      if (kBias && !m && row < sq) a = __fadd_rn(a, bias.at(bs, row, key));
+      e[kRowStep * i * kStride + kColStep * j] = m ? 0.f : bwd_p(a, l[i]);
+    }
+  }
+}
+
+// The same for dK·dV's micro-tile: rows are keys key0 + kRowStep i,
+// streamed rows the queries q0 + c0 + kColStep j, whose lse is ls[c0 +
+// kColStep j].
+template <bool kBias>
+__device__ __forceinline__ void dkv_p(float* e, const float (&s)[kMI][4],
+                                      const float* ls, int key0, int q0,
+                                      int c0, int sq, int sk, int causal,
+                                      float scale, const ScoreBias& bias,
+                                      const float* bs) {
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+    const int key = key0 + kRowStep * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = c0 + kColStep * j;
+      const int qry = q0 + col;
+      const bool m = key >= sk || qry >= sq || (causal && key > qry);
+      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+      // plain version's round(round(q.k * scale) + bias)
+      float a = __fmul_rn(s[i][j], scale);
+      if (kBias && !m) a = __fadd_rn(a, bias.at(bs, qry, key));
+      e[kRowStep * i * kStride + kColStep * j] = m ? 0.f : bwd_p(a, ls[col]);
+    }
+  }
+}
+
+// The flat batch * head index of a block. The grid is (grid_y, blocks of
+// rows, grid_z) of fa_batch_heads_grid's split: x, which the hardware
+// dispatches first, runs over batch * heads, so that each row block is
+// launched for every head before the next, lighter one (heaviest first
+// over the whole grid, not within one head).
+__device__ __forceinline__ long long block_head() {
+  return (long long)blockIdx.z * gridDim.x + blockIdx.x;
+}
+
+// the key tiles a dq block of rows [q0, q0 + kBM) visits: all of sk, or
+// (causal) up to the diagonal of its last row below sq
+__device__ __forceinline__ int dq_key_tiles(int q0, int sq, int sk,
+                                            int causal) {
+  const int n = (sk + kBN - 1) / kBN;
+  return causal ? min(n, (min(q0 + kBM, sq) - 1) / kBN + 1) : n;
+}
+
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dvec, float* __restrict__ dq,
+                     int nbh, int sq, int sk, float scale, int causal,
+                     int vec, ScoreBias bias) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // [kBM][kStride]
+  float* dos = qs + kBlockTile;       // [kBM][kStride]
+  float* strip = dos + kBlockTile;    // [kBM][kStride]: ds * scale
+  float* stage = strip + kBlockTile;  // [kStages][K, V][kBN][kStride]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pair = warp >> 1, half = warp & 1;
+  const int ly = lane >> 3, lx = lane & 7;
+  const long long bh = block_head();
   if (bh >= nbh) return;  // the last z-slice's spare blocks
-  const int q0 = qt * kBQ;
-  const T* kb = k + bh * sk * kD;
-  const T* vb = v + bh * sk * kD;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // heaviest first
+  const float* kb = k + bh * sk * kD;
+  const float* vb = v + bh * sk * kD;
   const float* bs = kBias ? bias.slice(bh) : nullptr;
+  const int nk = dq_key_tiles(q0, sq, sk, causal);
 
-  load_tile(qs, kD, q + bh * sq * kD, q0, sq);
-  load_tile(dos, kD, dout + bh * sq * kD, q0, sq);
-  for (int i = tid; i < kBQ; i += kWarps * 32) {
-    const int row = q0 + i;
-    ls[i] = row < sq ? lse[bh * sq + row] : kNegInf;
+  // K (part 0) and V (part 1) of tile kt into its stage
+  auto load = [&](int kt, int part) {
+    float* st = stage + (kt % kStages) * 2 * kTile + part * kTile;
+    copy_tile<kBN>(st, part == 0 ? kb : vb, kt * kBN, sk, vec);
+  };
+  // two commit groups: Q with tile 0's K (the S product), then dO with
+  // its V (the dP product), so that S starts on half the bytes
+  copy_tile<kBM>(qs, q + bh * sq * kD, q0, sq, vec);
+  if (nk > 0) load(0, 0);
+  cp_async_commit();
+  copy_tile<kBM>(dos, dout + bh * sq * kD, q0, sq, vec);
+  if (nk > 0) load(0, 1);
+  cp_async_commit();
+
+  const int r0 = pair * kPairRows + ly;       // the lane's first row in the block
+  const int c0 = half * 32 + lx;       // its first key in a tile
+  float l[kMI], dd[kMI];
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+    const int row = q0 + r0 + kRowStep * i;
+    l[i] = row < sq ? lse[bh * sq + row] : kNegInf;
     dd[i] = row < sq ? dvec[bh * sq + row] : 0.f;
   }
-
-  float acc0[kRW], acc1[kRW];
-#pragma unroll
-  for (int r = 0; r < kRW; ++r) {
-    acc0[r] = 0.f;
-    acc1[r] = 0.f;
-  }
-
-  int nk = (sk + kBK - 1) / kBK;
-  if (causal) nk = min(nk, (q0 + kBQ - 1) / kBK + 1);
-  const float* qw = qs + warp * kRW * kD;
-  const float* dow = dos + warp * kRW * kD;
-  float* sw = strip + warp * kRW * kBK;
-  const int row0 = q0 + warp * kRW;
+  float acc[kMI][4];
+  zero(acc);
+  const int pair_row0 = q0 + pair * kPairRows;
 
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile(ks, kPad, kb, k0, sk);
-    load_tile(vs, kPad, vb, k0, sk);
+    // tile kt has landed (of tile 0 the first group) for every thread,
+    // and every warp is done with tile kt - 1: its stage and the strip
+    // are free for tile kt + 1
+    if (kt == 0)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
     __syncthreads();
-
-    // s = q . k and dp = do . v for keys lane and lane + 32
-    float s0[kRW], s1[kRW], t0[kRW], t1[kRW];
-#pragma unroll
-    for (int r = 0; r < kRW; ++r) {
-      s0[r] = 0.f;
-      s1[r] = 0.f;
-      t0[r] = 0.f;
-      t1[r] = 0.f;
+    if (kt + 1 < nk) {
+      load(kt + 1, 0);
+      load(kt + 1, 1);
     }
-#pragma unroll 2
-    for (int c = 0; c < kD; ++c) {
-      const float ka = ks[lane * kPad + c];
-      const float kc = ks[(lane + 32) * kPad + c];
-      const float va = vs[lane * kPad + c];
-      const float vc = vs[(lane + 32) * kPad + c];
-#pragma unroll
-      for (int r = 0; r < kRW; ++r) {
-        const float qv = qw[r * kD + c];
-        const float dv = dow[r * kD + c];
-        s0[r] = fmaf(qv, ka, s0[r]);
-        s1[r] = fmaf(qv, kc, s1[r]);
-        t0[r] = fmaf(dv, va, t0[r]);
-        t1[r] = fmaf(dv, vc, t1[r]);
-      }
+    cp_async_commit();
+    const float* ks = stage + (kt % kStages) * 2 * kTile;
+    const float* vs = ks + kTile;
+    const int k0 = kt * kBN;
+    // the pair's 32 rows lie past sq or (causal) see none of these keys
+    const bool idle =
+        pair_row0 >= sq || (causal && k0 > pair_row0 + kPairRows - 1);
+    float* srow = strip + r0 * kStride + c0;  // the lane's strip entries
+    if (!idle) {
+      float s[kMI][4];
+      zero(s);
+      score_product(s, qs + r0 * kStride, ks + c0 * kStride);
+      // p into the strip (the thread's own entries)
+      dq_p<kBias>(srow, s, l, q0 + r0, k0 + c0, sq, sk, causal, scale, bias,
+                  bs);
     }
-
-    const int key0 = k0 + lane, key1 = k0 + lane + 32;
-#pragma unroll
-    for (int r = 0; r < kRW; ++r) {
-      const int row = row0 + r;
-      const float l = ls[warp * kRW + r];
-      const float dsum = dd[warp * kRW + r];
-      const bool m0 = key0 >= sk || (causal && key0 > row);
-      const bool m1 = key1 >= sk || (causal && key1 > row);
-      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
-      // plain version's round(round(q.k * scale) + bias)
-      float a = __fmul_rn(s0[r], scale), b = __fmul_rn(s1[r], scale);
-      if (kBias && row < sq) {
-        if (!m0) a = __fadd_rn(a, bias.at(bs, row, key0));
-        if (!m1) b = __fadd_rn(b, bias.at(bs, row, key1));
-      }
-      const float p0 = m0 ? 0.f : bwd_p(a, l);
-      const float p1 = m1 ? 0.f : bwd_p(b, l);
-      // dl = p (dp - D); the dq product takes dl * scale in k's dtype
-      sw[r * kBK + lane] = round_to<T>(p0 * (t0[r] - dsum) * scale);
-      sw[r * kBK + lane + 32] = round_to<T>(p1 * (t1[r] - dsum) * scale);
+    if (kt == 0) {  // dO and the first V
+      cp_async_wait<1>();
+      __syncthreads();
     }
-    __syncwarp();
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float ka = ks[kk * kPad + lane];
-      const float kc = ks[kk * kPad + lane + 32];
+    if (!idle) {
+      float s[kMI][4];
+      zero(s);
+      score_product(s, dos + r0 * kStride, vs + c0 * kStride);
+      // ds * scale = p (dp - D) * scale in place
 #pragma unroll
-      for (int r = 0; r < kRW; ++r) {
-        const float d = sw[r * kBK + kk];
-        acc0[r] = fmaf(d, ka, acc0[r]);
-        acc1[r] = fmaf(d, kc, acc1[r]);
-      }
+      for (int i = 0; i < kMI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float* e = srow + kRowStep * i * kStride + kColStep * j;
+          *e = *e * (s[i][j] - dd[i]) * scale;
+        }
+      pair_sync(pair);  // the pair's strip rows are whole
+      out_product(acc, strip + r0 * kStride, ks + half * 32 + lx * 4);
     }
-    __syncwarp();  // the strip is consumed before the next overwrite
   }
-
-  T* dqb = dq + bh * sq * kD;
-#pragma unroll
-  for (int r = 0; r < kRW; ++r) {
-    const int row = row0 + r;
-    if (row >= sq) continue;
-    dqb[(long long)row * kD + lane] = from_f32<T>(acc0[r]);
-    dqb[(long long)row * kD + lane + 32] = from_f32<T>(acc1[r]);
-  }
+  cp_async_wait<0>();
+  store_rows(dq + bh * sq * kD, acc, q0 + r0, half * 32 + lx * 4, sq, vec);
 }
 
-template <typename T, bool kBias>
-__global__ void __launch_bounds__(kWarps * 32)
-fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ dvec, T* __restrict__ dk,
-                  T* __restrict__ dv, int nbh, int sq, int sk, float scale,
-                  int causal, ScoreBias bias) {
-  extern __shared__ float smem[];
-  float* ks = smem;                   // [kBK][kD]
-  float* vs = ks + kBK * kD;          // [kBK][kD]
-  float* qs = vs + kBK * kD;          // [kBQ][kPad]
-  float* dos = qs + kBQ * kPad;       // [kBQ][kPad]
-  float* strip = dos + kBQ * kPad;    // [kWarps][kRW][kBQ]
-  float* ls = strip + kWarps * kRW * kBQ;  // [kBQ]
-  float* dd = ls + kBQ;                    // [kBQ]
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dvec, float* __restrict__ dk,
+                      float* __restrict__ dv, int nbh, int sq, int sk,
+                      float scale, int causal, int vec, ScoreBias bias) {
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                  // [kBM][kStride]
+  float* vs = ks + kBlockTile;       // [kBM][kStride]
+  float* pst = vs + kBlockTile;      // [kBM][kStride]: p (keys x queries)
+  float* dst = pst + kBlockTile;     // [kBM][kStride]: ds * scale
+  float* stage = dst + kBlockTile;   // [kStages][Q, dO][kBN][kStride]
+  float* vecs = stage + kStages * 2 * kTile;  // [kStages][lse, D][kBN]
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int kt = blockIdx.x;  // the first k tiles see the most q tiles
-  const long long bh = batch_head();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pair = warp >> 1, half = warp & 1;
+  const int ly = lane >> 3, lx = lane & 7;
+  const long long bh = block_head();
   if (bh >= nbh) return;  // the last z-slice's spare blocks
-  const int k0 = kt * kBK;
-  const T* qb = q + bh * sq * kD;
-  const T* dob = dout + bh * sq * kD;
+  const int k0 = blockIdx.y * kBM;  // the first key blocks see the most
+  const float* qb = q + bh * sq * kD;
+  const float* dob = dout + bh * sq * kD;
+  const float* lb = lse + bh * sq;
+  const float* db = dvec + bh * sq;
   const float* bs = kBias ? bias.slice(bh) : nullptr;
+  // causal: query tiles below k0 see none of this block's keys
+  const int qt0 = causal ? k0 / kBN : 0;
+  const int nq = max(0, (sq + kBN - 1) / kBN - qt0);
 
-  load_tile(ks, kD, k + bh * sk * kD, k0, sk);
-  load_tile(vs, kD, v + bh * sk * kD, k0, sk);
-
-  float ak0[kRW], ak1[kRW], av0[kRW], av1[kRW];
-#pragma unroll
-  for (int r = 0; r < kRW; ++r) {
-    ak0[r] = 0.f;
-    ak1[r] = 0.f;
-    av0[r] = 0.f;
-    av1[r] = 0.f;
-  }
-
-  const int nq = (sq + kBQ - 1) / kBQ;
-  // causal: query rows below k0 see none of this tile's keys
-  const int qt_begin = causal ? k0 / kBQ : 0;
-  const float* kw = ks + warp * kRW * kD;
-  const float* vw = vs + warp * kRW * kD;
-  float* sw = strip + warp * kRW * kBQ;
-  const int key_row0 = k0 + warp * kRW;
-
-  for (int qt = qt_begin; qt < nq; ++qt) {
-    const int q0 = qt * kBQ;
-    __syncthreads();  // every warp is done with the previous q tile
-    load_tile(qs, kPad, qb, q0, sq);
-    load_tile(dos, kPad, dob, q0, sq);
-    for (int i = tid; i < kBQ; i += kWarps * 32) {
-      const int row = q0 + i;
-      ls[i] = row < sq ? lse[bh * sq + row] : kNegInf;
-      dd[i] = row < sq ? dvec[bh * sq + row] : 0.f;
+  // Q and the lse slice (part 0), dO and the D slice (part 1) of query
+  // tile it into its stage
+  auto load = [&](int it, int part) {
+    float* st = stage + (it % kStages) * 2 * kTile + part * kTile;
+    float* sv = vecs + (it % kStages) * 2 * kBN + part * kBN;
+    const int row0 = (qt0 + it) * kBN;
+    copy_tile<kBN>(st, part == 0 ? qb : dob, row0, sq, vec);
+    const int r = threadIdx.x;
+    if (r < kBN) {
+      const bool ok = row0 + r < sq;
+      const float* src = part == 0 ? lb : db;
+      cp_async4(sv + r, ok ? src + row0 + r : src, ok);
     }
+  };
+  // two commit groups: K with tile 0's Q and lse (the S product and p),
+  // then V with its dO and D (the dP product and ds)
+  copy_tile<kBM>(ks, k + bh * sk * kD, k0, sk, vec);
+  if (nq > 0) load(0, 0);
+  cp_async_commit();
+  copy_tile<kBM>(vs, v + bh * sk * kD, k0, sk, vec);
+  if (nq > 0) load(0, 1);
+  cp_async_commit();
+
+  const int r0 = pair * kPairRows + ly;   // the lane's first key in the block
+  const int c0 = half * 32 + lx;   // its first query in a tile
+  float ak[kMI][4], av[kMI][4];
+  zero(ak);
+  zero(av);
+  const int pair_key0 = k0 + pair * kPairRows;
+
+  for (int it = 0; it < nq; ++it) {
+    // tile it has landed (of tile 0 the first group) for every thread,
+    // and every warp is done with tile it - 1: its stage and the strips
+    // are free for tile it + 1
+    if (it == 0)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
     __syncthreads();
-
-    // s = k . q for queries lane and lane + 32, then p in place
-    float s0[kRW], s1[kRW];
-#pragma unroll
-    for (int r = 0; r < kRW; ++r) {
-      s0[r] = 0.f;
-      s1[r] = 0.f;
+    if (it + 1 < nq) {
+      load(it + 1, 0);
+      load(it + 1, 1);
     }
-#pragma unroll 4
-    for (int c = 0; c < kD; ++c) {
-      const float qa = qs[lane * kPad + c];
-      const float qc = qs[(lane + 32) * kPad + c];
-#pragma unroll
-      for (int r = 0; r < kRW; ++r) {
-        const float kv = kw[r * kD + c];
-        s0[r] = fmaf(kv, qa, s0[r]);
-        s1[r] = fmaf(kv, qc, s1[r]);
-      }
+    cp_async_commit();
+    const float* qs = stage + (it % kStages) * 2 * kTile;
+    const float* dos = qs + kTile;
+    const float* ls = vecs + (it % kStages) * 2 * kBN;
+    const float* ds = ls + kBN;
+    const int q0 = (qt0 + it) * kBN;
+    // the pair's 32 keys lie past sk or (causal) above every query here
+    const bool idle =
+        pair_key0 >= sk || (causal && pair_key0 > q0 + kBN - 1);
+    float* prow = pst + r0 * kStride + c0;  // the lane's strip entries
+    float* drow = dst + r0 * kStride + c0;
+    if (!idle) {
+      float s[kMI][4];
+      zero(s);
+      score_product(s, ks + r0 * kStride, qs + c0 * kStride);
+      // p into its strip (the thread's own entries)
+      dkv_p<kBias>(prow, s, ls, k0 + r0, q0, c0, sq, sk, causal, scale, bias,
+                   bs);
     }
-    const int qry0 = q0 + lane, qry1 = q0 + lane + 32;
-    const float l0 = ls[lane], l1 = ls[lane + 32];
-#pragma unroll
-    for (int r = 0; r < kRW; ++r) {
-      const int key = key_row0 + r;
-      const bool m0 = key >= sk || (causal && key > qry0);
-      const bool m1 = key >= sk || (causal && key > qry1);
-      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
-      // plain version's round(round(q.k * scale) + bias)
-      float a = __fmul_rn(s0[r], scale), b = __fmul_rn(s1[r], scale);
-      if (kBias) {
-        if (!m0 && qry0 < sq) a = __fadd_rn(a, bias.at(bs, qry0, key));
-        if (!m1 && qry1 < sq) b = __fadd_rn(b, bias.at(bs, qry1, key));
-      }
-      s0[r] = m0 ? 0.f : bwd_p(a, l0);
-      s1[r] = m1 ? 0.f : bwd_p(b, l1);
-      // the dv product takes p in do's dtype
-      sw[r * kBQ + lane] = round_to<T>(s0[r]);
-      sw[r * kBQ + lane + 32] = round_to<T>(s1[r]);
+    if (it == 0) {  // V, the first dO and D
+      cp_async_wait<1>();
+      __syncthreads();
     }
-    __syncwarp();
-#pragma unroll 4
-    for (int i = 0; i < kBQ; ++i) {
-      const float da = dos[i * kPad + lane];
-      const float dc = dos[i * kPad + lane + 32];
+    if (!idle) {
+      float s[kMI][4];
+      zero(s);
+      score_product(s, vs + r0 * kStride, dos + c0 * kStride);
+      // ds * scale = p (dp - D) * scale into the other strip
 #pragma unroll
-      for (int r = 0; r < kRW; ++r) {
-        const float pv = sw[r * kBQ + i];
-        av0[r] = fmaf(pv, da, av0[r]);
-        av1[r] = fmaf(pv, dc, av1[r]);
-      }
-    }
-    __syncwarp();
-
-    // dp = v . do for the same (key, query) pairs, then ds
-    float t0[kRW], t1[kRW];
+      for (int i = 0; i < kMI; ++i)
 #pragma unroll
-    for (int r = 0; r < kRW; ++r) {
-      t0[r] = 0.f;
-      t1[r] = 0.f;
+        for (int j = 0; j < 4; ++j) {
+          const int e = kRowStep * i * kStride + kColStep * j;
+          drow[e] = prow[e] * (s[i][j] - ds[c0 + kColStep * j]) * scale;
+        }
+      pair_sync(pair);  // the pair's strip rows are whole
+      out_product2(av, pst + r0 * kStride, dos + half * 32 + lx * 4, ak,
+                   dst + r0 * kStride, qs + half * 32 + lx * 4);
     }
-#pragma unroll 4
-    for (int c = 0; c < kD; ++c) {
-      const float da = dos[lane * kPad + c];
-      const float dc = dos[(lane + 32) * kPad + c];
-#pragma unroll
-      for (int r = 0; r < kRW; ++r) {
-        const float vv = vw[r * kD + c];
-        t0[r] = fmaf(vv, da, t0[r]);
-        t1[r] = fmaf(vv, dc, t1[r]);
-      }
-    }
-    const float d0 = dd[lane], d1 = dd[lane + 32];
-#pragma unroll
-    for (int r = 0; r < kRW; ++r) {
-      // the dk product takes ds * scale in q's dtype
-      sw[r * kBQ + lane] = round_to<T>(s0[r] * (t0[r] - d0) * scale);
-      sw[r * kBQ + lane + 32] = round_to<T>(s1[r] * (t1[r] - d1) * scale);
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int i = 0; i < kBQ; ++i) {
-      const float qa = qs[i * kPad + lane];
-      const float qc = qs[i * kPad + lane + 32];
-#pragma unroll
-      for (int r = 0; r < kRW; ++r) {
-        const float d = sw[r * kBQ + i];
-        ak0[r] = fmaf(d, qa, ak0[r]);
-        ak1[r] = fmaf(d, qc, ak1[r]);
-      }
-    }
-    __syncwarp();  // the strip is consumed before the next overwrite
   }
-
-  T* dkb = dk + bh * sk * kD;
-  T* dvb = dv + bh * sk * kD;
-#pragma unroll
-  for (int r = 0; r < kRW; ++r) {
-    const int key = key_row0 + r;
-    if (key >= sk) continue;
-    dkb[(long long)key * kD + lane] = from_f32<T>(ak0[r]);
-    dkb[(long long)key * kD + lane + 32] = from_f32<T>(ak1[r]);
-    dvb[(long long)key * kD + lane] = from_f32<T>(av0[r]);
-    dvb[(long long)key * kD + lane + 32] = from_f32<T>(av1[r]);
-  }
+  cp_async_wait<0>();
+  store_rows(dk + bh * sk * kD, ak, k0 + r0, half * 32 + lx * 4, sk, vec);
+  store_rows(dv + bh * sk * kD, av, k0 + r0, half * 32 + lx * 4, sk, vec);
 }
 
-template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* dvec, void* dq, int bh,
               int grid_y, int grid_z, int sq, int sk, float scale,
               int causal, const ScoreBias& bias, cudaStream_t stream) {
-  const int smem = (int)(kSmemFloats * sizeof(float));
+  const int smem = (int)(kDqSmemFloats * sizeof(float));
   // a separate instantiation with the bias, so the unbiased kernel keeps
   // no bias registers or branches
-  const auto kernel = bias.p != nullptr ? fa_bwd_dq_kernel<T, true>
-                                        : fa_bwd_dq_kernel<T, false>;
+  const auto kernel = bias.p != nullptr ? fa_bwd_dq_kernel_fma<true>
+                                        : fa_bwd_dq_kernel_fma<false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  const dim3 grid(grid_y, (sq + kBM - 1) / kBM, grid_z);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dq), bh, sq, sk, scale, causal, bias);
+      static_cast<float*>(dq), bh, sq, sk, scale, causal,
+      (int)(is_aligned(q, 16) && is_aligned(k, 16) && is_aligned(v, 16) &&
+            is_aligned(dout, 16) && is_aligned(dq, 16)),
+      bias);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* dvec, void* dk, void* dv, int bh,
                int grid_y, int grid_z, int sq, int sk, float scale,
                int causal, const ScoreBias& bias, cudaStream_t stream) {
-  const int smem = (int)(kSmemFloats * sizeof(float));
-  // a separate instantiation with the bias, so the unbiased kernel keeps
-  // no bias registers or branches
-  const auto kernel = bias.p != nullptr ? fa_bwd_dkv_kernel<T, true>
-                                        : fa_bwd_dkv_kernel<T, false>;
+  const int smem = (int)(kDkvSmemFloats * sizeof(float));
+  const auto kernel = bias.p != nullptr ? fa_bwd_dkv_kernel_fma<true>
+                                        : fa_bwd_dkv_kernel_fma<false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  const dim3 grid((sk + kBK - 1) / kBK, grid_y, grid_z);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  const dim3 grid(grid_y, (sk + kBM - 1) / kBM, grid_z);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
-      static_cast<T*>(dk), static_cast<T*>(dv), bh, sq, sk, scale, causal,
+      static_cast<float*>(dk), static_cast<float*>(dv), bh, sq, sk, scale,
+      causal,
+      (int)(is_aligned(q, 16) && is_aligned(k, 16) && is_aligned(v, 16) &&
+            is_aligned(dout, 16) && is_aligned(dk, 16) &&
+            is_aligned(dv, 16)),
       bias);
   return (int)cudaGetLastError();
 }
@@ -447,12 +647,13 @@ extern "C" int apex_fa_bwd_dq(const void* q, const void* k, const void* v,
   if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
+  if ((sq + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
   if (dtype == 0)
-    return launch_dq<float>(q, k, v, dout, lse, dvec, dq, bh, grid_y, grid_z,
-                            sq, sk, scale, causal, sb, s);
+    return launch_dq(q, k, v, dout, lse, dvec, dq, bh, grid_y, grid_z, sq,
+                     sk, scale, causal, sb, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -467,11 +668,12 @@ extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
   if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sk <= 0) return 0;
+  if ((sk + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
   if (dtype == 0)
-    return launch_dkv<float>(q, k, v, dout, lse, dvec, dk, dv, bh, grid_y,
-                             grid_z, sq, sk, scale, causal, sb, s);
+    return launch_dkv(q, k, v, dout, lse, dvec, dk, dv, bh, grid_y, grid_z,
+                      sq, sk, scale, causal, sb, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,7 +15,9 @@ is no prebuilt library and no CPU stand-in for a CUDA tensor.
 
 ``launches`` counts kernel launches by name. Each wrapper adds one where it
 launches its kernel and nowhere else, so a caller can zero the counts,
-drive a path and read which kernels that path went through.
+drive a path and read which kernels that path went through;
+``route_launches`` splits the flash wrappers' counts by route (the
+tensor-core or the FMA-pipe kernels).
 """
 
 from __future__ import annotations
@@ -129,6 +131,10 @@ SIGNATURES = {
 }
 
 launches: collections.Counter = collections.Counter()
+# the same launches by route, for the wrappers whose call runs one of two
+# kernels: ``"<name>:<route>"`` (the flash wrappers: ``fa_fwd:wgmma``,
+# ``fa_bwd_dq:fma``, ...; see tiling.fa_route)
+route_launches: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -136,6 +142,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 def reset_launches() -> None:
     launches.clear()
+    route_launches.clear()
 
 
 def sources() -> list:

@@ -236,6 +236,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             err = lib.apex_fa_fwd(*args, _DTYPES[q.dtype], stream)
     _build.launches["fa_fwd"] += 1
+    _build.route_launches["fa_fwd:" + ("wgmma" if tc else "fma")] += 1
     _build.check(err, name)
     return o, lse
 
@@ -287,12 +288,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else (lib.apex_fa_bwd_dq, lib.apex_fa_bwd_dkv, (_DTYPES[q.dtype],)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        route = "wgmma" if tc else "fma"
         err = dq_fn(*args, dq.data_ptr(), *geo, *dtype, stream)
         _build.launches["fa_bwd_dq"] += 1
+        _build.route_launches["fa_bwd_dq:" + route] += 1
         _build.check(err, "flash_attention_bwd (dq)")
         err = dkv_fn(*args, dk.data_ptr(), dv.data_ptr(), *geo, *dtype,
                      stream)
         _build.launches["fa_bwd_dkv"] += 1
+        _build.route_launches["fa_bwd_dkv:" + route] += 1
         _build.check(err, "flash_attention_bwd (dk, dv)")
     return dq, dk, dv
 
@@ -359,7 +363,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     JAX signature's TPU tiles: explicit values are validated by its rule
     (:func:`validate_blocks`; one given alone is checked beside the JAX
     default of the other, 512 or 1024) and change nothing else: the CUDA
-    kernels keep their own tiles (the FMA kernels 64 x 64; the bf16
+    kernels keep their own tiles (the fp32 forward 64 x 64, the fp32
+    backward blocks of 128 rows over 64-row tiles,
+    :func:`~apex_tpu_torch.ops.tiling.fa_fma_bwd_geometry`; the bf16
     tensor-core kernels blocks of 128 rows in two 64-row warpgroups over
     64-row tiles).
     ``mask`` is a rank-4 boolean tensor broadcastable to ``(b, h, sq,

@@ -11,6 +11,8 @@ of shared memory, and registers, not a scratchpad, hold the working set.
 
 from __future__ import annotations
 
+import dataclasses
+
 # LayerNorm (csrc/layer_norm.cu), two compile-time forms chosen by width:
 # - up to LN_SMEM_MAX_HIDDEN: one warp per row, LN_WARPS_PER_BLOCK rows per
 #   block, each row staged as fp32 in dynamic shared memory (4 warps x 8192
@@ -49,13 +51,84 @@ def ln_bwd_geometry(rows: int, hidden: int):
     return warps, blocks
 
 
-# flash attention, compiled for head_dim 64 only. The FMA kernels
-# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu: fp32): 64 query
-# rows per block (16 per warp), 64-row K/V tiles; the dk / dv kernel takes
-# 64-row K/V tiles per block and streams 64-row Q / dO tiles.
+# flash attention, compiled for head_dim 64 only. The fp32 forward's FMA
+# kernel (csrc/flash_attention.cu): 64 query rows per block (16 per warp),
+# 64-row K/V tiles. The fp32 backward's FMA kernels
+# (csrc/flash_attention_bwd.cu) take the geometry of fa_fma_bwd_geometry().
 FA_BLOCK_Q = 64
 FA_BLOCK_K = 64
 FA_HEAD_DIM = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FmaBwdGeometry:
+    """The fp32 flash backward's two FMA-pipe kernels (dq and dk / dv),
+    mirrored by the ``constexpr`` values of ``csrc/flash_attention_bwd.cu``.
+    A block of ``threads`` owns ``block_rows`` rows (queries in dq, keys in
+    dk / dv) and streams ``tile_rows``-row tiles (keys in dq, queries in
+    dk / dv) through ``stages`` shared-memory stages; every tile row is
+    ``row_stride`` floats (the head dim padded to spread a quarter-warp's
+    16-byte loads over distinct banks); a lane holds ``micro`` = (rows,
+    streamed rows) of S or dP. The grid is ``(grid.y of
+    fa_batch_heads_grid, row blocks, grid.z)``: x, dispatched first, runs
+    over batch * heads, y over the row blocks in the order
+    :meth:`dq_order` / :meth:`dkv_order` (heaviest first)."""
+    block_rows: int = 128
+    tile_rows: int = 64
+    head_dim: int = FA_HEAD_DIM
+    threads: int = 256
+    stages: int = 2
+    row_stride: int = FA_HEAD_DIM + 4
+    micro: tuple = (8, 4)
+
+    @property
+    def dq_smem_bytes(self) -> int:
+        """Q, dO and the ds strip (block rows), K / V of each stage."""
+        return 4 * self.row_stride * (3 * self.block_rows
+                                      + 2 * self.stages * self.tile_rows)
+
+    @property
+    def dkv_smem_bytes(self) -> int:
+        """K, V and the p and ds strips (block rows), Q / dO and the lse /
+        D slices of each stage."""
+        return 4 * (self.row_stride * (4 * self.block_rows
+                                       + 2 * self.stages * self.tile_rows)
+                    + 2 * self.stages * self.tile_rows)
+
+    def blocks(self, s: int) -> int:
+        """Row blocks (grid.y) over ``s`` rows."""
+        return -(-s // self.block_rows)
+
+    def dq_order(self, sq: int) -> list:
+        """The query block each grid.y index of the dq kernel takes: the
+        last (heaviest when causal) first."""
+        n = self.blocks(sq)
+        return [n - 1 - y for y in range(n)]
+
+    def dkv_order(self, sk: int) -> list:
+        """The key block each grid.y index of the dk / dv kernel takes:
+        the first (heaviest when causal) first."""
+        return list(range(self.blocks(sk)))
+
+    def dq_key_tiles(self, qb: int, sq: int, sk: int, causal: bool):
+        """The key tiles query block ``qb`` visits: all of sk, or (causal)
+        up to the diagonal of its last row below sq."""
+        n = -(-sk // self.tile_rows)
+        if causal:
+            last = min((qb + 1) * self.block_rows, sq) - 1
+            n = min(n, last // self.tile_rows + 1)
+        return range(n)
+
+    def dkv_query_tiles(self, kb: int, sq: int, causal: bool):
+        """The query tiles key block ``kb`` visits: all of sq, or (causal)
+        from the tile of its first key on."""
+        first = kb * self.block_rows // self.tile_rows if causal else 0
+        return range(first, max(first, -(-sq // self.tile_rows)))
+
+
+def fa_fma_bwd_geometry() -> FmaBwdGeometry:
+    """The geometry of the fp32 flash backward's FMA kernels."""
+    return FmaBwdGeometry()
 # The tensor-core kernels (bf16; csrc/flash_fwd_wgmma.cu,
 # csrc/flash_bwd_dq_wgmma.cu, csrc/flash_bwd_dkv_wgmma.cu) work out their
 # tiles for themselves: blocks of 128 rows (forward and dq: queries; dk /

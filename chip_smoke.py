@@ -9,7 +9,9 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch / CUDA
    versions, and the build of every ``apex_tpu_torch/csrc/*.cu`` for
    ``sm_90a`` from the checkout, with its seconds; ptxas's registers,
-   spills and stack of the tensor-core flash kernels (``-Xptxas -v``).
+   spills and stack of the tensor-core flash kernels and of the fp32
+   backward's FMA-pipe pair (``-Xptxas -v``; the pair's unbiased forms
+   must spill nothing).
 2. ``kernel``: each CUDA kernel against its plain PyTorch version on the
    same card inputs, at the main path's shapes and a few ragged ones, in
    bf16 and fp32: max error and tolerance; kernel / plain / library times
@@ -192,7 +194,10 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    at world 2. ``python3 chip_smoke.py remote-copy [ROOT]`` runs these
    self-put timings alone, and ``python3 chip_smoke.py ring [ROOT]`` the
    4-rank ring's and halo's timings (phases 12 and 13), for the checkout
-   at ROOT.
+   at ROOT; ``python3 chip_smoke.py flash-bwd [ROOT]`` times the fp32
+   flash backward's dq and dk / dv kernels and fp32 SDPA's backward at
+   GPT-2's causal and BERT's shapes, 200 x 333 and b * h = 65,600 the
+   same way (parent and change in turns in one call).
 12. ``ring``: ring attention at GPT-2 small's attention widths (12 heads x
    64, batch 1) over a 16,384-token bf16 context at worlds 4 and 2
    (``transport="rdma"``): causal contiguous, causal zigzag and
@@ -221,7 +226,12 @@ the 5 UNet steps of phase 9, phase 10's loop and cross-attention, one
 counted step of each bf16 ring run of phase 12 (all ranks) and one
 exchange of phase 13 (all ranks), each with the counts zeroed just
 before it; every kernel of ``KERNELS`` with the ``pl.pallas_call`` lines
-it replaces), the ``nvidia-smi`` line, and last ``{"ok": true,
+it replaces, the flash ones with their launches split by route; then the
+fp32 backward pair, ``fa_bwd_dq_fp32`` and ``fa_bwd_dkv_fp32`` (the
+FMA-pipe kernels of ``csrc/flash_attention_bwd.cu``, at GPT-2's causal
+shape with the BERT row beside), launched by the fp32 runs of those
+paths: the fp32 ring runs of phase 12 and phase 10's cross-attention),
+the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``. Any failed check raises and the
 script exits non-zero without that last line; without CUDA, or away from
 the checkout, it exits 2 at once.
@@ -229,6 +239,7 @@ the checkout, it exits 2 at once.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -361,6 +372,20 @@ KERNELS = {
                   _P + "remote_copy.py:34", (54, 177, 187)),
 }
 TO_PORT: dict = {}
+# the fp32 route's flash kernels (FMA pipes) as the profiler names them:
+# the forward's template and the backward's `_fma` templates
+FMA_FLASH_NAMES = {"fa_fwd_kernel": "fa_fwd_kernel<",
+                   "fa_bwd_dq_kernel": "fa_bwd_dq_kernel_fma<",
+                   "fa_bwd_dkv_kernel": "fa_bwd_dkv_kernel_fma<"}
+# the fp32 backward's kernels, reported beside KERNELS under their own
+# names: (source, the launch count's name, the KERNELS entry whose TPU
+# kernel they replace too)
+FMA_BWD_KERNELS = {
+    "fa_bwd_dq_fp32": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+                       "fa_bwd_dq", "fa_bwd_dq"),
+    "fa_bwd_dkv_fp32": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+                        "fa_bwd_dkv", "fa_bwd_dkv"),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -914,7 +939,8 @@ def _rank_ring(group, spec):
             res = step()
             torch.cuda.synchronize()
             launches = dict(_build.launches)
-            rec = {"launches": launches}
+            rec = {"launches": launches,
+                   "routes": dict(_build.route_launches)}
             if dt == "bf16":
                 times = []
                 for _ in range(RING_TIMED_STEPS):
@@ -933,9 +959,8 @@ def _rank_ring(group, spec):
                                                 "fa_bwd_dq_kernel_wgmma"),
                     "flash_bwd_dkv_wgmma": _pick(prof,
                                                  "fa_bwd_dkv_kernel_wgmma"),
-                    "flash_fma": _pick(prof, "fa_fwd_kernel<")
-                    + _pick(prof, "fa_bwd_dq_kernel<")
-                    + _pick(prof, "fa_bwd_dkv_kernel<"),
+                    "flash_fma": sum(_pick(prof, n)
+                                     for n in FMA_FLASH_NAMES.values()),
                     "peer_put": _pick(prof, "peer_put_kernel"),
                     "peer_wait": _pick(prof, "peer_wait_kernel"),
                     "total": sum(prof.values())} if me == 0 else None
@@ -1199,14 +1224,80 @@ def _rank_steps(group, spec):
                 _rank_halo(group, spec)["exchange_call_ms"]}
 
 
+# The fp32 flash backward's shapes in ``flash-bwd`` mode, (b, h, sq, sk,
+# causal) at head_dim 64, as in the kernel phase: GPT-2 small's causal
+# attention, BERT-large's, the ragged 200 x 333 and b * h = 65,600
+FLASH_BWD_SHAPES = [(4, 12, 1024, 1024, True), (32, 16, 128, 128, False),
+                    (2, 3, 200, 333, False), (1025, 64, 64, 64, True)]
+
+
+def _flash_bwd_solo(dev):
+    """The fp32 flash backward at FLASH_BWD_SHAPES: the dq and dk / dv
+    kernels' device ms (torch.profiler, inputs rotated beyond the L2), the
+    least time the card could take for each (operations at the fp32
+    peak), and fp32 SDPA's backward timed the same way (TF32 off; the
+    forward graph built once, ``autograd.grad`` timed alone)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from apex_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                    flash_attention_fwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for b, h, sq, sk, causal in FLASH_BWD_SHAPES:
+        d, scale = 64, 0.125
+        sets = []
+        for _ in range(n_sets(3 * b * h * (sq + sk) * d * 4)):
+            q, k, v, do = (torch.randn(b, h, n, d, device=dev,
+                                       generator=gen)
+                           for n in (sq, sk, sk, sq))
+            o, lse = flash_attention_fwd(q, k, v, scale=scale,
+                                         causal=causal)
+            sets.append((q, k, v, o, lse, do))
+        kw = dict(scale=scale, causal=causal)
+        split = device_kernels(lambda *a: flash_attention_bwd(*a, **kw),
+                               sets, 20)
+        dq = sum(t for n, t in split.items() if "fa_bwd_dq_kernel" in n)
+        dkv = sum(t for n, t in split.items() if "fa_bwd_dkv_kernel" in n)
+        lsets = []
+        for q, k, v, _, _, do in sets:
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]), \
+                    torch.enable_grad():
+                oo = F.scaled_dot_product_attention(qq, kk, vv,
+                                                    is_causal=causal,
+                                                    scale=scale)
+            lsets.append((oo, qq, kk, vv, do))
+        library = device_ms(lambda oo, qq, kk, vv, do: torch.autograd.grad(
+            oo, (qq, kk, vv), do, retain_graph=True), lsets, 20)
+        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+                 else sq * sk)
+        ops = 2 * b * h * d * pairs
+        out[f"{b}x{h}x{sq}x{sk}{'_causal' if causal else ''}"] = dict(
+            dq_ms=dq, dkv_ms=dkv, pair_ms=dq + dkv, library_ms=library,
+            bound_dq_ms=3 * ops / PEAK_OPS["fp32"] * 1e3,
+            bound_dkv_ms=4 * ops / PEAK_OPS["fp32"] * 1e3,
+            kernels=sorted(n.split("(")[0] for n in split
+                           if "fa_bwd_" in n))
+        del sets, lsets
+    return out
+
+
 def mode_main(mode, root) -> int:
-    """``python3 chip_smoke.py remote-copy|ring [ROOT]``: one part of the
-    run alone, for the ``apex_tpu_torch`` of the checkout at ROOT (by
-    default this one), so that two checkouts can be timed in turns on one
-    card in one run. ``remote-copy``: phase 11 (a), one
+    """``python3 chip_smoke.py remote-copy|ring|flash-bwd [ROOT]``: one
+    part of the run alone, for the ``apex_tpu_torch`` of the checkout at
+    ROOT (by default this one), so that two checkouts can be timed in
+    turns on one card in one run. ``remote-copy``: phase 11 (a), one
     ``remote_copy_solo`` line. ``ring``: phases 12 and 13 at world 4 (the
     bf16 ring's step ms by layout and the halo's exchange ms on every
-    rank), one ``ring_steps`` line. Then the ``nvidia-smi`` line."""
+    rank), one ``ring_steps`` line. ``flash-bwd``: the fp32 flash
+    backward's dq and dk / dv kernels and fp32 SDPA's backward at
+    FLASH_BWD_SHAPES, one ``flash_bwd_solo`` line. Then the
+    ``nvidia-smi`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1230,6 +1321,8 @@ def mode_main(mode, root) -> int:
     if mode == "remote-copy":
         solo = _remote_copy_solo(dev)
         emit("remote_copy_solo", fits=_solo_fits(solo), **common, **solo)
+    elif mode == "flash-bwd":
+        emit("flash_bwd_solo", **common, shapes=_flash_bwd_solo(dev))
     else:
         from apex_tpu_torch.parallel import spawn_ranks
         ranks = spawn_ranks(_rank_steps, HALO_WORLD, (PEER_SPEC,),
@@ -1243,18 +1336,25 @@ def mode_main(mode, root) -> int:
     return 0
 
 
-# the tensor-core kernels' sources, whose ptxas report the env line carries
-TC_SOURCES = ("flash_fwd_wgmma.cu", "flash_bwd_dq_wgmma.cu",
-              "flash_bwd_dkv_wgmma.cu")
+# the flash kernels whose ptxas report the env line carries, by source:
+# the tensor-core kernels and the fp32 backward's FMA-pipe pair, each in
+# its unbiased and biased form
+PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
+                 "flash_bwd_dq_wgmma.cu": ("fa_bwd_dq_kernel_wgmma",),
+                 "flash_bwd_dkv_wgmma.cu": ("fa_bwd_dkv_kernel_wgmma",),
+                 "flash_attention_bwd.cu": ("fa_bwd_dq_kernel_fma",
+                                            "fa_bwd_dkv_kernel_fma")}
 
 
-def ptxas_report(build, names):
+def ptxas_report(build, sources):
     """``{kernel: {registers, spill_stores, spill_loads, stack}}`` from
-    ``nvcc -Xptxas -v`` on ``names`` (one compile each, together, after
-    the library's build), the kernel named by its function and template
-    form."""
+    ``nvcc -Xptxas -v`` on ``sources`` (``{source: kernel names}``, one
+    compile each, together, after the library's build), the kernel named
+    by its function and bias form (its mangled ``I(Lb0|Lb1)E``); every
+    named kernel must appear in both forms."""
     import re
     import tempfile
+    names = list(sources)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         procs = [subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
@@ -1262,10 +1362,10 @@ def ptxas_report(build, names):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for n in names]
         outs = [p.communicate()[0] for p in procs]
+    mangled = r"_Z\w*?(fa_[a-z_]+)I(Lb\d)E"
     out, kernel = {}, None
     for line in "\n".join(outs).splitlines():
-        m = re.search(r"Compiling entry function '_Z\w*?(fa_[a-z_]+)I(Lb\d)E",
-                      line)
+        m = re.search(r"Compiling entry function '" + mangled, line)
         if m:
             bias = "true" if m.group(2) == "Lb1" else "false"
             kernel = f"{m.group(1)}<{bias}>"
@@ -1282,12 +1382,14 @@ def ptxas_report(build, names):
         # ptxas serialises a kernel's wgmma pipeline (no overlap of the
         # products with other work) where it cannot prove the accumulator
         # registers untouched while a product is in flight
-        m = re.search(r"_Z\w*?(fa_[a-z_]+)I(Lb\d)E", line)
+        m = re.search(mangled, line)
         if m and "serialized" in line:
             bias = "true" if m.group(2) == "Lb1" else "false"
             out.setdefault(f"{m.group(1)}<{bias}>", {})[
                 "wgmma_serialized"] = line.split(":", 2)[-1].strip()
-    require(len(out) == 2 * len(names), f"ptxas report: {out}")
+    want = {f"{k}<{b}>" for ks in sources.values() for k in ks
+            for b in ("false", "true")}
+    require(set(out) == want, f"ptxas report: {out}, expected {want}")
     return out
 
 
@@ -1415,11 +1517,16 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     build_s = time.perf_counter() - t0
+    ptxas = ptxas_report(_build, PTXAS_SOURCES)
+    # the fp32 backward's unbiased forms keep every value in registers
+    for name in PTXAS_SOURCES["flash_attention_bwd.cu"]:
+        rep = ptxas[f"{name}<false>"]
+        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+                f"{name}<false> spills: {rep}")
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          sources=[p.relative_to(ROOT).as_posix() for p in _build.sources()],
-         nvcc_flags=_build.NVCC_FLAGS, build_s=build_s,
-         ptxas=ptxas_report(_build, TC_SOURCES))
+         nvcc_flags=_build.NVCC_FLAGS, build_s=build_s, ptxas=ptxas)
 
     # ------------------------------------------------ 2. kernel vs plain
     def device_profile(fn, counts=None):
@@ -1467,10 +1574,10 @@ def main() -> int:
                                      "fa_bwd_dkv_kernel")):
         """From a profile's kernel names: bf16 flash ran the tensor-core
         kernels (``<kernel>_wgmma``), fp32 the FMA-pipe ones (the
-        templates ``<kernel><``), and not the other."""
+        templates named in FMA_FLASH_NAMES), and not the other."""
         for kern_name in kernels:
             tc = any(kern_name + "_wgmma" in n for n in kern)
-            fma = any(kern_name + "<" in n for n in kern)
+            fma = any(FMA_FLASH_NAMES[kern_name] in n for n in kern)
             require((tc, fma) == (dt == "bf16", dt != "bf16"),
                     f"{what} ({dt}): {kern_name} tensor-core {tc}, FMA "
                     f"{fma}")
@@ -2079,11 +2186,14 @@ def main() -> int:
         ln_bwd_case(4096, 1024, dt, affine=False)
         ln_bwd_case(64, 12288, dt)
         ln_bwd_case(64, 12288, dt, rms=True)
-        fa_bwd_case(4, 12, 1024, 1024, True, dt, main="" if bf else None)
+        # the summary's keys: fa_bwd_dq / fa_bwd_dkv (+ "_bert") for the
+        # bf16 tensor-core kernels, fa_bwd_dq_fp32 / fa_bwd_dkv_fp32 (+
+        # "_bert") for the fp32 FMA-pipe pair
+        fa_bwd_case(4, 12, 1024, 1024, True, dt, main="" if bf else "_fp32")
         fa_bwd_case(4, 12, 1000, 1000, True, dt)
         fa_bwd_case(2, 3, 200, 333, False, dt)
         fa_bwd_case(32, 16, 128, 128, False, dt,
-                    main="_bert" if bf else None)
+                    main="_bert" if bf else "_fp32_bert")
         fa_bwd_case(32, 16, 128, 128, False, dt, mask_kind="pad")
         fa_bwd_case(4, 16, 128, 128, False, dt, mask_kind="full")
         fa_bwd_case(1025, 64, 64, 64, True, dt)
@@ -2696,6 +2806,8 @@ def main() -> int:
     tokens = torch.randint(0, cfg.vocab_size, (4, 1024), generator=cpu_gen)
     tok_d = tokens.to(dev)
     main_launches = {}
+    # the flash wrappers' launches by route on each path of the main run
+    path_routes = {}
     with torch.inference_mode():
         model(tok_d[:, :16])       # first touch of cuBLAS etc.
         torch.cuda.synchronize()
@@ -2703,6 +2815,7 @@ def main() -> int:
         logits = model(tok_d)
         torch.cuda.synchronize()
         fwd_launches = dict(_build.launches)
+        path_routes["forward"] = dict(_build.route_launches)
         require(fwd_launches == {"ln_fwd": ln_per_fwd, "fa_fwd": n_layer},
                 f"forward launches {fwd_launches}, expected "
                 f"{ln_per_fwd} ln_fwd and {n_layer} fa_fwd")
@@ -2753,6 +2866,7 @@ def main() -> int:
     stats = sched.run()
     torch.cuda.synchronize()
     serve_launches = dict(_build.launches)
+    path_routes["serve"] = dict(_build.route_launches)
     decode_steps = eng.decode_calls
     prefill_steps = eng.prefill_scanned_tokens
     steps = decode_steps + prefill_steps
@@ -2843,6 +2957,7 @@ def main() -> int:
     report = trainer.run(on_step=on_step)
     torch.cuda.synchronize()
     train_launches = dict(_build.launches)
+    path_routes["train"] = dict(_build.route_launches)
     peak_bytes = torch.cuda.max_memory_allocated()
     per_step = {"ln_fwd": ln_per_fwd, "ln_bwd": ln_per_fwd,
                 "fa_fwd": n_layer, "fa_bwd_dq": n_layer,
@@ -2976,6 +3091,7 @@ def main() -> int:
         torch.cuda.synchronize()
         bstep_s.append(time.perf_counter() - t0)
     bert_launches = dict(_build.launches)
+    path_routes["bert"] = dict(_build.route_launches)
     bpeak = torch.cuda.max_memory_allocated()
     n_norm = 2 * bcfg.num_hidden_layers + 1
     bper_step = {"ln_fwd": n_norm, "ln_bwd": n_norm,
@@ -3399,6 +3515,7 @@ def main() -> int:
         torch.cuda.synchronize()
         mstep_s.append(time.perf_counter() - t0)
     loop_launches = dict(_build.launches)
+    megatron_routes = collections.Counter(_build.route_launches)
     mpeak = torch.cuda.max_memory_allocated()
     mper_step = {"softmax_fwd_causal": 1, "softmax_bwd": 1, "fused_adam": 1}
     mexpect = {k: v * MEGATRON_STEPS for k, v in mper_step.items()}
@@ -3496,6 +3613,8 @@ def main() -> int:
     ye_mod, ge_mod = out_and_grads(emod, emod, er, eq, ekv, emask)
     torch.cuda.synchronize()
     enc_mod_launches = dict(_build.launches)
+    megatron_routes.update(_build.route_launches)
+    path_routes["megatron"] = dict(megatron_routes)
     _build.reset_launches()
     ye_un, ge_un = out_and_grads(lambda *a: unfused_encdec(emod, *a), emod,
                                  er, eq, ekv, emask)
@@ -3770,6 +3889,7 @@ def main() -> int:
 
     # (c) the ring, held against the full-sequence flash on this card
     ring_launches, ring_out, single_ms = {}, {}, {}
+    ring_routes = collections.Counter()
     for world, ranks in path.items():
         for dt, tokens in (("bf16", RING_TOKENS),
                            ("fp32", RING_FP32_PER_RANK * world)):
@@ -3817,6 +3937,8 @@ def main() -> int:
                         f"{expect} a rank")
                 row = {"rel_l2": {"o": errs[0], "dq": errs[1], "dk": errs[2],
                                   "dv": errs[3]}, "launches_per_rank": expect}
+                for rec in recs:
+                    ring_routes.update(rec["routes"])
                 if dt == "bf16":
                     for rec in recs:
                         for kname, cnt in rec["launches"].items():
@@ -3845,6 +3967,7 @@ def main() -> int:
          runs=ring_out, spawn_s=spawn_s, card=card)
     for name, n in ring_launches.items():
         main_launches[name] = main_launches.get(name, 0) + n
+    path_routes["ring"] = dict(ring_routes)
 
     # (d) the halo: the tiles' VALID-in-H convs against the image's conv
     hres = [res["halo"] for res in path[HALO_WORLD]]
@@ -3888,6 +4011,18 @@ def main() -> int:
         main_launches[name] = main_launches.get(name, 0) + n
     del hx, hw, y_full, y_got
 
+    def by_route(name):
+        """``{route: {path: launches}}`` of a flash wrapper on the main
+        paths (the bf16 runs take the tensor-core kernels, the fp32 runs
+        the FMA-pipe ones)."""
+        out = {}
+        for path, routes in path_routes.items():
+            for key, n in routes.items():
+                wrapper, route = key.split(":")
+                if wrapper == name:
+                    out.setdefault(route, {})[path] = n
+        return out
+
     kernels = []
     for name, (src, tpu, calls) in KERNELS.items():
         rec = summary[name]
@@ -3911,12 +4046,38 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"],
             **({"setup": rec["setup"]} if "setup" in rec else {}),
+            **({"launches_by_route": by_route(name)}
+               if name.startswith("fa_") else {}),
             **{k: rec[k] for k in ("tflops", "bound_share") if k in rec},
             "shape": {k: rec[k] for k in (
                 "form", "rows", "hidden", "b", "h", "sq", "sk", "causal",
                 "mask", "n", "tensors", "w", "c", "groups", "act", "algo",
                 "tile", "scores", "mask_shape", "dtype", "bytes",
                 "shape") if k in rec}})
+    # the fp32 backward pair (FMA pipes), at GPT-2's causal shape (its
+    # BERT row beside), launched by the fp32 runs of the main paths
+    for name, (src, wrapper, twin) in FMA_BWD_KERNELS.items():
+        rec, bert = summary[name], summary[name.replace("_fp32",
+                                                        "_fp32_bert")]
+        paths = by_route(wrapper).get("fma", {})
+        launches = sum(paths.values())
+        require(launches > 0, f"{name} was not launched on the main path")
+        tpu, calls = KERNELS[twin][1:]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "pallas_call": [f"{tpu.split(':')[0]}:{c}" for c in calls],
+            "launches": launches,
+            **{f"launches_{p}": n for p, n in paths.items()},
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "call_ms": rec["call_ms"], "tflops": rec["tflops"],
+            "bound_share": rec["bound_share"],
+            "bert": {k: bert[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "library_ms",
+                                          "bound_share")},
+            "shape": {k: rec[k] for k in ("b", "h", "sq", "sk", "causal",
+                                          "dtype", "bytes")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3926,7 +4087,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1 and sys.argv[1] in ("remote-copy", "ring"):
+    if len(sys.argv) > 1 and sys.argv[1] in ("remote-copy", "ring",
+                                              "flash-bwd"):
         sys.exit(mode_main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2
                            else ROOT))
     sys.exit(main())

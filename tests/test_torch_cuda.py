@@ -33,7 +33,10 @@ them (fp32) to the full-sequence flash at 1e-5 (o) and 1e-4 (gradients)
 relative L2. The flash tests also read from torch.profiler which kernels
 ran: bf16 the tensor-core forward, dq and dk / dv kernels
 (``fa_fwd_kernel_wgmma``, ``fa_bwd_dq_kernel_wgmma``,
-``fa_bwd_dkv_kernel_wgmma``), fp32 the FMA-pipe ones. The public
+``fa_bwd_dkv_kernel_wgmma``), fp32 the FMA-pipe ones (the backward
+pair ``fa_bwd_dq_kernel_fma`` / ``fa_bwd_dkv_kernel_fma``, also held at
+sq / sk one below, at and one above its 64- and 128-row tiles and over
+the 16 broadcast forms of the bias, two runs identical). The public
 ``flash_attention`` takes transposed and misaligned views, and gives the
 bits of the same call on contiguous copies. Run the flash tests with
 ``python -m pytest tests/test_torch_cuda.py -q -k flash``.
@@ -102,17 +105,24 @@ def _kernel_names(fn):
                          f"{PROFILE_TRIES} windows: {names}")
 
 
+# the FMA-pipe kernels' names as the profiler shows them: the fp32
+# forward's template and the fp32 backward's `_fma` templates
+_FMA_NAMES = {"fa_fwd_kernel": "fa_fwd_kernel<",
+              "fa_bwd_dq_kernel": "fa_bwd_dq_kernel_fma<",
+              "fa_bwd_dkv_kernel": "fa_bwd_dkv_kernel_fma<"}
+
+
 def _assert_flash_route(names, dtype, fwd=False, bwd=False):
     """bf16 ran the tensor-core kernels, fp32 the FMA-pipe ones (the
-    template names ``fa_fwd_kernel<``, ``fa_bwd_dq_kernel<`` and
-    ``fa_bwd_dkv_kernel<``); ``bwd``: both backward kernels."""
+    template names ``fa_fwd_kernel<``, ``fa_bwd_dq_kernel_fma<`` and
+    ``fa_bwd_dkv_kernel_fma<``); ``bwd``: both backward kernels."""
     tc = dtype == torch.bfloat16
     for want, kernel in ((fwd, "fa_fwd_kernel"), (bwd, "fa_bwd_dq_kernel"),
                          (bwd, "fa_bwd_dkv_kernel")):
         if not want:
             continue
         ran_tc = any(kernel + "_wgmma" in n for n in names)
-        ran_fma = any(kernel + "<" in n for n in names)
+        ran_fma = any(_FMA_NAMES[kernel] in n for n in names)
         assert (ran_tc, ran_fma) == (tc, not tc), (kernel, dtype, names)
 
 
@@ -260,25 +270,92 @@ def test_flash_bwd_kernels_match_plain(dev, sq, sk, causal, dtype):
                                        rtol=2 ** -6, msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,s", [(2, 4, 256), (4, 12, 1024)])
-def test_flash_bwd_is_deterministic(dev, b, h, s):
+def test_flash_bwd_is_deterministic(dev, b, h, s, dtype):
     """Two runs give the same bits (no atomics: each block owns its
-    rows), the bf16 dq and dk / dv from the tensor-core kernels."""
-    args = _flash_bwd_inputs(dev, b, h, s, s, True, torch.bfloat16, 5)
+    rows), the bf16 dq and dk / dv from the tensor-core kernels, the fp32
+    ones from the FMA-pipe pair."""
+    args = _flash_bwd_inputs(dev, b, h, s, s, True, dtype, 5)
     a = flash_attention_bwd(*args, scale=0.125, causal=True)
     b = flash_attention_bwd(*args, scale=0.125, causal=True)
     torch.cuda.synchronize()
     _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
-        *args, scale=0.125, causal=True)), torch.bfloat16, bwd=True)
+        *args, scale=0.125, causal=True)), dtype, bwd=True)
     for ta, tb in zip(a, b):
         assert torch.equal(ta, tb)
+
+
+# the fp32 backward's tile heights (fa_fma_bwd_geometry: blocks of 128
+# rows, tiles of 64) and the sizes one below and one above each
+_FMA_EDGES = [63, 64, 65, 127, 128, 129]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sk", _FMA_EDGES)
+@pytest.mark.parametrize("sq", _FMA_EDGES)
+def test_fp32_flash_bwd_at_tile_edges(dev, sq, sk, causal):
+    """The fp32 dq and dk / dv kernels where sq and sk cross their block
+    and tile heights: within 1e-4 of the plain version, two runs the same
+    bits."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(dev, 1, 2, sq, sk, causal,
+                                            torch.float32, 1000 * sq + sk)
+    got = flash_attention_bwd(q, k, v, o, lse, do, scale=0.125,
+                              causal=causal)
+    again = flash_attention_bwd(q, k, v, o, lse, do, scale=0.125,
+                                causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, scale=0.125,
+                                     causal=causal)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=0, msg=name)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", range(16))
+def test_fp32_flash_bwd_bias_broadcast_forms(dev, form):
+    """Every broadcast form of the fp32 score bias (each of b, h, sq, sk
+    full or 1, bit 3 - i of ``form`` for dimension i) at ragged 129 x 65:
+    dq, dk and dv within 1e-4 of the plain version; a row masked whole
+    (where the bias has rows) gives exact zeros in dq, a key masked whole
+    (where it has keys but no rows) exact zeros in dk and dv."""
+    dims = (2, 3, 129, 65)
+    shape = tuple(n if form >> (3 - i) & 1 else 1
+                  for i, n in enumerate(dims))
+    g = torch.Generator(device=dev).manual_seed(300 + form)
+    q, k, v, do = (torch.randn(2, 3, s, 64, device=dev, generator=g)
+                   for s in (129, 65, 65, 129))
+    bias = torch.randn(shape, device=dev, generator=g)
+    if shape[2] != 1:
+        bias[..., 5, :] = -1e30
+    elif shape[3] != 1:
+        bias[..., 7] = -1e30
+    o, lse = flash_attention_fwd_plain(q, k, v, scale=0.125, causal=False,
+                                       bias=bias)
+    got = flash_attention_bwd(q, k, v, o, lse, do, scale=0.125,
+                              causal=False, bias=bias)
+    _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, scale=0.125, causal=False, bias=bias)),
+        torch.float32, bwd=True)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, scale=0.125,
+                                     causal=False, bias=bias)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=0, msg=name)
+    masked = (bias <= -0.5e30).expand(dims)
+    dead, unseen = masked.all(dim=-1), masked.all(dim=-2)
+    assert shape[2] == 1 or bool(dead.any())
+    assert torch.equal(got[0][dead], torch.zeros_like(got[0][dead]))
+    for grad in got[1:]:
+        assert torch.equal(grad[unseen], torch.zeros_like(grad[unseen]))
 
 
 def test_tc_flash_refuses_misaligned_views(dev):
     """The bf16 kernels read q, k, v and do through TMA tensor maps, which
     need 16-byte aligned bases: a contiguous view 2 bytes into its storage
-    raises, with no other route; an fp32 view of the same offset runs on
-    the FMA kernel."""
+    raises, with no other route; an fp32 view 4 bytes into its storage
+    runs on the FMA kernels, the backward's by 4-byte copies."""
     g = torch.Generator(device=dev).manual_seed(9)
     store = torch.randn(2 * 64 * 64 + 8, device=dev, generator=g)
     bad = store.bfloat16()[1:1 + 64 * 64].view(1, 1, 64, 64)
@@ -294,8 +371,14 @@ def test_tc_flash_refuses_misaligned_views(dev):
     o, lse = flash_attention_fwd(f32, f32, f32, scale=0.125, causal=True)
     op, lsep = flash_attention_fwd_plain(f32, f32, f32, scale=0.125,
                                          causal=True)
+    got = flash_attention_bwd(f32, f32, f32, op, lsep, f32, scale=0.125,
+                              causal=True)
+    want = flash_attention_bwd_plain(f32, f32, f32, op, lsep, f32,
+                                     scale=0.125, causal=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=0, msg=name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
