@@ -15,196 +15,283 @@
 // Conventions kept from the TPU kernel: scores in fp32, masked scores set to
 // -1e30 (a score <= -0.5e30, from the bias too, is out of the softmax
 // support), the rescale of a row whose running max is still "masked"
-// shifted by 0 so exp() underflows to 0, p cast to v's dtype before the p.v
-// product, fully masked rows give o = 0 and lse = -1e30, lse = m + log(l)
-// in fp32.
+// shifted by 0 so exp() underflows to 0, p cast to v's dtype (fp32 here:
+// no rounding) before the p.v product, fully masked rows give o = 0 and
+// lse = -1e30, lse = m + log(l) in fp32, the accurate expf and logf.
 //
-// What bounds it on this card: operations. At the main path's shapes
-// (b = 4, h = 12, s = 1024, d = 64) the kernel does ~2 * 2 * s^2 * d flops
-// per head (half of that when causal) over 12 * s * d * 2 bytes of q, k, v
-// and o: hundreds of flops per byte, at or above the H100's ridge point.
+// What bounds it on this card: operations, on the FMA pipes. At GPT-2's
+// shapes (b = 4, h = 12, s = 1024, d = 64, causal) it does two s x s x d
+// products per head (S = q k^T and o = p v, half of each when causal) over
+// 16 bytes per (row, d) element of traffic: hundreds of flops a byte. A
+// sub-partition issues one warp instruction a clock and retires one warp
+// FFMA a clock, so every other instruction in a product loop takes an
+// FFMA's slot; the online softmax (a row max, 40 expf a lane a tile) sits
+// between the two products of every tile.
 //
-// What the design does about that, in this first version: the TPU grid's
-// sequential k axis becomes a loop inside one block; one block owns 64 query
-// rows of one (batch, head) and streams 64-row K / V tiles through shared
-// memory, so q is read once and each K / V tile once per query tile. Causal
-// blocks stop at the diagonal tile, and the heaviest (last) query tiles are
-// scheduled first. Each of the 4 warps owns 16 query rows; a lane holds the
-// scores of keys lane and lane + 32 and the output columns lane and
-// lane + 32 for those rows in registers, so the two products read one
-// broadcast shared-memory value per two FMAs and the K tile is padded to a
-// 65-float row stride to keep the lanes on distinct banks. The products run
-// on the fp32 FMA pipes, not the tensor cores, so fp32 keeps full fp32
-// products.
-// Ragged sq / sk are masked inside the kernel (no padding copies). The bias
-// is a compile-time variant: the kernel without one keeps no bias registers
-// or branches.
+// What the design does about that (the backward's design,
+// flash_attention_bwd.cu, with the softmax between the products):
+// - Register-blocked products. A block of kThreads = 128 threads (4 warps,
+//   two blocks an SM) owns kBM = 64 query rows and streams kBN = 64-row
+//   K / V tiles. (Against 8-warp blocks of 128 rows, one an SM, the
+//   backward's height: two blocks overlap one's copies and barrier with
+//   the other's products, and short sequences leave fewer warps idle;
+//   PERF.md has the times of both on an H100.)
+//   Warp w owns rows 16 w .. + 15 and ALL 64 keys of a tile:
+//   lane (ly, lx) = (lane / 16, lane % 16) holds an 8 x 4 micro-tile of S
+//   (rows ly + 2i, keys lx + 16j) and an 8 x 4 block of o (the same rows, d
+//   columns 4 lx .. + 3). Every operand is a 16-byte float4 from a
+//   row-major tile whose row stride is padded to kStride = 68 floats, so
+//   the 8 keys or V chunks a quarter-warp reads fall in 32 distinct banks
+//   and its Q or p rows are one address: 12 shared-memory loads feed 128
+//   FFMAs in both product loops (fma_tiles.cuh). A lane writes p to its
+//   warp's strip of 16 padded rows, and reads the strip's rows back as the
+//   left operand of p v after a __syncwarp.
+// - The online softmax stays inside the warp. The layout that splits a
+//   tile's keys over a warp pair (the backward's) would need a pair
+//   exchange of every row's max through shared memory and a named barrier
+//   each tile; with a warp's 16 rows over all 64 keys the max is 4
+//   shuffles within the 16 lanes of a row, and p v needs no pair barrier
+//   either. The row sum l stays a per-lane partial (the lane's 4 keys of
+//   each tile, rescaled with o) and is summed over the 16 lanes once, at
+//   the end (a butterfly: every lane gets the same bits). So l is summed
+//   in another order than the plain version's whole-row sum (and than the
+//   first version's per-tile warp sum): o and lse move by an ulp or so,
+//   inside FA_TOL / LSE_TOL. Each score is summed over d = 0..63 in order
+//   and each o element over keys in order, as before.
+// - Asynchronous copies. K and V go through kStages = 2 shared-memory
+//   stages by 16-byte `cp.async` copies into the padded rows (4-byte
+//   copies when an operand's base is not 16-byte aligned), rows past sk
+//   zero filled. One block barrier a tile: after it, tile t has landed and
+//   every warp is done with tile t - 1, so the copies of tile t + 1 start
+//   into the freed stage and run under tile t's products. Q is copied
+//   once, in the first commit group with the first K; the first V comes in
+//   a second group, so S waits only for Q and K.
+// - Causal work. A block visits key tiles up to its last row's diagonal.
+//   The grid's x runs over batch * heads and y over the query blocks,
+//   heaviest first, so the hardware dispatches every head's heaviest block
+//   before any lighter one. Inside a visited tile a warp whose 16 rows see
+//   none of its keys (or lie past sq) skips the products (its rows' m, l
+//   and o would not change).
+// - Exactness. The score is __fmul_rn / __fadd_rn (no FMA contraction);
+//   each block owns its output rows, with no atomics: two runs give the
+//   same bits.
+// The geometry is mirrored by fa_fma_fwd_geometry() in ops/tiling.py.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
 
-#include "common.cuh"
+#include "fma_tiles.cuh"
 
 namespace {
 
 using namespace apex_port;
 
-constexpr int kD = 64;        // head dim this kernel is written for
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 64;       // key rows per streamed tile
-constexpr int kWarps = 4;
-constexpr int kRW = kBQ / kWarps;  // query rows per warp
-constexpr int kKStride = kD + 1;   // padded K row: conflict-free lanes
+constexpr int kD = 64;          // head dim this kernel is written for
+constexpr int kBM = 64;         // query rows a block owns
+constexpr int kBN = 64;         // key rows of a streamed tile
+constexpr int kMI = 8;          // rows of a lane's micro-tiles
+constexpr int kWarpRows = 16;   // rows of a warp: all of a tile's keys
+constexpr int kThreads = 32 * kBM / kWarpRows;  // 4 warps
+constexpr int kBlocksPerSM = 2;
+constexpr int kStages = 2;      // shared-memory stages of K / V tiles
+static_assert(kStages == 2, "the pipeline below prefetches one tile");
+constexpr int kUnroll = 4;      // float4 steps of a product loop unrolled
+constexpr int kStride = kD + 4; // padded row stride of every tile (floats)
+constexpr int kRowStep = kWarpRows / kMI;  // a lane's rows: ly + 2 i
+constexpr int kColStep = 16;    // a lane's keys: lx + 16 j
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-constexpr size_t kSmemFloats =
-    kBQ * kD + kBK * kKStride + kBK * kD + kWarps * kRW * kBK;
+constexpr int kBlockTile = kBM * kStride;  // floats of the block's rows
+constexpr int kTile = kBN * kStride;       // floats of a streamed tile
+// Q, the p strip (block rows), then K / V per stage
+constexpr int kSmemFloats = 2 * kBlockTile + kStages * 2 * kTile;
 
-template <typename T, bool kBias>
-__global__ void __launch_bounds__(kWarps * 32)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ lse, int nbh, int sq, int sk,
-              float scale, int causal, ScoreBias bias) {
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [kBQ][kD]
-  float* ks = qs + kBQ * kD;         // [kBK][kKStride]
-  float* vs = ks + kBK * kKStride;   // [kBK][kD]
-  float* ps = vs + kBK * kD;         // [kWarps][kRW][kBK]
+static_assert(kRowStep == 32 / kColStep && kBN == 4 * kColStep &&
+                  kD == 4 * kColStep,
+              "16 lanes cover a row's 64 keys and its 64 d columns");
+static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1,
+              "16-byte rows whose chunks fall in distinct banks");
+// kBlocksPerSM blocks, each with the 1 KB the hardware reserves, in the
+// SM's 228 KB of shared memory
+static_assert(kBlocksPerSM * (kSmemFloats * 4 + 1024) <= 233472,
+              "two blocks an SM");
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const long long bh = batch_head();
-  if (bh >= nbh) return;  // the last z-slice's spare blocks
-  const int q0 = qt * kBQ;
-  const T* qb = q + bh * sq * kD;
-  const T* kb = k + bh * sk * kD;
-  const T* vb = v + bh * sk * kD;
-  const float* bs = kBias ? bias.slice(bh) : nullptr;
-
-  for (int i = tid; i < kBQ * kD; i += kWarps * 32) {
-    const int row = q0 + i / kD;
-    qs[i] = row < sq ? to_f32(qb[(long long)row * kD + i % kD]) : 0.f;
-  }
-
-  float m[kRW], l[kRW], acc0[kRW], acc1[kRW];
+// max over the 16 lanes of a row (lanes lx = 0..15 of one ly)
+__device__ __forceinline__ float row_max16(float v) {
 #pragma unroll
-  for (int r = 0; r < kRW; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-    acc0[r] = 0.f;
-    acc1[r] = 0.f;
-  }
-
-  int nk = (sk + kBK - 1) / kBK;
-  if (causal) nk = min(nk, (q0 + kBQ - 1) / kBK + 1);
-  const float* qw = qs + warp * kRW * kD;
-  float* pw = ps + warp * kRW * kBK;
-  const int row0 = q0 + warp * kRW;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBK * kD; i += kWarps * 32) {
-      const int r = i / kD, c = i % kD;
-      const int key = k0 + r;
-      const bool ok = key < sk;
-      ks[r * kKStride + c] = ok ? to_f32(kb[(long long)key * kD + c]) : 0.f;
-      vs[i] = ok ? to_f32(vb[(long long)key * kD + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s0[kRW], s1[kRW];
+  for (int off = 8; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float row_sum16(float v) {
 #pragma unroll
-    for (int r = 0; r < kRW; ++r) {
-      s0[r] = 0.f;
-      s1[r] = 0.f;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kD; ++c) {
-      const float ka = ks[lane * kKStride + c];
-      const float kc = ks[(lane + 32) * kKStride + c];
-#pragma unroll
-      for (int r = 0; r < kRW; ++r) {
-        const float qv = qw[r * kD + c];
-        s0[r] = fmaf(qv, ka, s0[r]);
-        s1[r] = fmaf(qv, kc, s1[r]);
-      }
-    }
-
-    const int key0 = k0 + lane, key1 = k0 + lane + 32;
-#pragma unroll
-    for (int r = 0; r < kRW; ++r) {
-      const int row = row0 + r;
-      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
-      // plain version's round(round(q.k * scale) + bias)
-      float a = __fmul_rn(s0[r], scale), b = __fmul_rn(s1[r], scale);
-      if (kBias && row < sq) {
-        if (key0 < sk) a = __fadd_rn(a, bias.at(bs, row, key0));
-        if (key1 < sk) b = __fadd_rn(b, bias.at(bs, row, key1));
-      }
-      if (key0 >= sk || (causal && key0 > row)) a = kNegInf;
-      if (key1 >= sk || (causal && key1 > row)) b = kNegInf;
-      const float m_prev = m[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(a, b)));
-      const float m_safe = m_new <= kMaskEdge ? 0.f : m_new;
-      const float pa = expf(a - m_safe), pb = expf(b - m_safe);
-      const float alpha =
-          expf((m_prev <= kMaskEdge ? kNegInf : m_prev) - m_safe);
-      l[r] = l[r] * alpha + warp_sum(pa + pb);
-      acc0[r] *= alpha;
-      acc1[r] *= alpha;
-      m[r] = m_new;
-      pw[r * kBK + lane] = round_to<T>(pa);
-      pw[r * kBK + lane + 32] = round_to<T>(pb);
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float va = vs[kk * kD + lane], vc = vs[kk * kD + lane + 32];
-#pragma unroll
-      for (int r = 0; r < kRW; ++r) {
-        const float p = pw[r * kBK + kk];
-        acc0[r] = fmaf(p, va, acc0[r]);
-        acc1[r] = fmaf(p, vc, acc1[r]);
-      }
-    }
-    __syncwarp();  // p of this tile is consumed before the next overwrite
-  }
-
-  T* ob = o + bh * sq * kD;
-#pragma unroll
-  for (int r = 0; r < kRW; ++r) {
-    const int row = row0 + r;
-    if (row >= sq) continue;
-    const float safe_l = l[r] > 0.f ? l[r] : 1.f;
-    ob[(long long)row * kD + lane] = from_f32<T>(acc0[r] / safe_l);
-    ob[(long long)row * kD + lane + 32] = from_f32<T>(acc1[r] / safe_l);
-    if (lane == 0)
-      lse[bh * sq + row] =
-          m[r] <= kMaskEdge ? kNegInf : m[r] + logf(safe_l);
-  }
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
-template <typename T>
+// The flat batch * head index of a block. The grid is (grid_y, query
+// blocks, grid_z) of fa_batch_heads_grid's split: x, which the hardware
+// dispatches first, runs over batch * heads, so that each query block is
+// launched for every head before the next, lighter one.
+__device__ __forceinline__ long long block_head() {
+  return (long long)blockIdx.z * gridDim.x + blockIdx.x;
+}
+
+template <bool kBias>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int nbh, int sq, int sk, float scale,
+              int causal, int vec, ScoreBias bias) {
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // [kBM][kStride]
+  float* strip = qs + kBlockTile;     // [kBM][kStride]: p
+  float* stage = strip + kBlockTile;  // [kStages][K, V][kBN][kStride]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ly = lane >> 4, lx = lane & 15;
+  const long long bh = block_head();
+  if (bh >= nbh) return;  // the last z-slice's spare blocks
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // heaviest first
+  const float* kb = k + bh * sk * kD;
+  const float* vb = v + bh * sk * kD;
+  const float* bs = kBias ? bias.slice(bh) : nullptr;
+  int nk = (sk + kBN - 1) / kBN;
+  if (causal) nk = min(nk, (min(q0 + kBM, sq) - 1) / kBN + 1);
+
+  // K (part 0) or V (part 1) of tile kt into its stage
+  auto load = [&](int kt, int part) {
+    float* st = stage + (kt % kStages) * 2 * kTile + part * kTile;
+    copy_tile<kBN, kThreads, kD, kStride>(st, part == 0 ? kb : vb, kt * kBN,
+                                          sk, vec);
+  };
+  // two commit groups: Q with tile 0's K (the S product), then its V
+  copy_tile<kBM, kThreads, kD, kStride>(qs, q + bh * sq * kD, q0, sq, vec);
+  if (nk > 0) load(0, 0);
+  cp_async_commit();
+  if (nk > 0) load(0, 1);
+  cp_async_commit();
+
+  const int r0 = warp * kWarpRows + ly;  // the lane's first row in the block
+  const int warp_row0 = q0 + warp * kWarpRows;
+  float m[kMI], l[kMI], acc[kMI][4];
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  zero(acc);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    // tile kt has landed (of tile 0 the first group) for every thread,
+    // and every warp is done with tile kt - 1: its stage is free for
+    // tile kt + 1
+    if (kt == 0)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    if (kt + 1 < nk) {
+      load(kt + 1, 0);
+      load(kt + 1, 1);
+    }
+    cp_async_commit();
+    const float* ks = stage + (kt % kStages) * 2 * kTile;
+    const float* vs = ks + kTile;
+    const int k0 = kt * kBN;
+    // the warp's 16 rows lie past sq or (causal) see none of these keys
+    const bool idle =
+        warp_row0 >= sq || (causal && k0 > warp_row0 + kWarpRows - 1);
+    if (!idle) {
+      float s[kMI][4];
+      zero(s);
+      score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
+          s, qs + r0 * kStride, ks + lx * kStride);
+      float* prow = strip + r0 * kStride + lx;  // the lane's strip entries
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+        const int row = q0 + r0 + kRowStep * i;
+        float mt = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + lx + kColStep * j;
+          // __fmul_rn / __fadd_rn: no FMA contraction, so the score is
+          // the plain version's round(round(q.k * scale) + bias)
+          float a = __fmul_rn(s[i][j], scale);
+          if (kBias && row < sq && key < sk)
+            a = __fadd_rn(a, bias.at(bs, row, key));
+          if (key >= sk || (causal && key > row)) a = kNegInf;
+          s[i][j] = a;
+          mt = fmaxf(mt, a);
+        }
+        const float m_prev = m[i];
+        const float m_new = fmaxf(m_prev, row_max16(mt));
+        const float m_safe = m_new <= kMaskEdge ? 0.f : m_new;
+        const float alpha =
+            expf((m_prev <= kMaskEdge ? kNegInf : m_prev) - m_safe);
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = expf(s[i][j] - m_safe);
+          ps += p;
+          prow[kRowStep * i * kStride + kColStep * j] = p;
+        }
+        l[i] = l[i] * alpha + ps;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[i][u] *= alpha;
+        m[i] = m_new;
+      }
+    }
+    if (kt == 0) {  // the first V
+      cp_async_wait<1>();
+      __syncthreads();
+    }
+    if (!idle) {
+      __syncwarp();  // the warp's strip rows are whole
+      out_product<kMI, kRowStep, kBN, kStride, kUnroll>(
+          acc, strip + r0 * kStride, vs + lx * 4);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+    const float sum = row_sum16(l[i]);
+    const float safe_l = sum > 0.f ? sum : 1.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = acc[i][u] / safe_l;
+    const int row = q0 + r0 + kRowStep * i;
+    if (lx == 0 && row < sq)
+      lse[bh * sq + row] = m[i] <= kMaskEdge ? kNegInf : m[i] + logf(safe_l);
+  }
+  store_rows<kMI, kRowStep, kD>(o + bh * sq * kD, acc, q0 + r0, lx * 4, sq,
+                                vec);
+}
+
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int grid_y, int grid_z, int sq, int sk, float scale,
            int causal, const ScoreBias& bias, cudaStream_t stream) {
   const int smem = (int)(kSmemFloats * sizeof(float));
   // a separate instantiation with the bias, so the unbiased kernel keeps
   // no bias registers or branches
-  const auto kernel = bias.p != nullptr ? fa_fwd_kernel<T, true>
-                                        : fa_fwd_kernel<T, false>;
+  const auto kernel = bias.p != nullptr ? fa_fwd_kernel<true>
+                                        : fa_fwd_kernel<false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      bh, sq, sk, scale, causal, bias);
+  // all of the SM's unified memory as shared memory: two blocks fit
+  cudaFuncSetAttribute(kernel,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  const dim3 grid(grid_y, (sq + kBM - 1) / kBM, grid_z);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), bh, sq, sk, scale, causal,
+      (int)(is_aligned(q, 16) && is_aligned(k, 16) && is_aligned(v, 16) &&
+            is_aligned(o, 16)),
+      bias);
   return (int)cudaGetLastError();
 }
 
@@ -212,9 +299,10 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 
 // dtype: 0 = float32 (q, k, v and o; bfloat16 is apex_fa_fwd_wgmma's);
 // lse is float32 [bh, sq]. Only head_dim 64 is compiled. grid_y x grid_z
-// blocks carry the bh = b * h slices (fa_batch_heads_grid in
-// ops/tiling.py). bias: float32 or null; heads = h of bh = b * h; bsb, bsh,
-// bsq, bsk its strides in elements (0 on a broadcast dimension).
+// carry the bh = b * h slices (fa_batch_heads_grid in ops/tiling.py) on
+// grid.x and grid.z; grid.y runs over the query blocks. bias: float32 or
+// null; heads = h of bh = b * h; bsb, bsh, bsq, bsk its strides in
+// elements (0 on a broadcast dimension).
 extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* o, void* lse, int bh,
                            int grid_y, int grid_z, int heads, int sq, int sk,
@@ -224,11 +312,12 @@ extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
   if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
+  if ((sq + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
   if (dtype == 0)
-    return launch<float>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale,
-                         causal, sb, s);
+    return launch(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale, causal,
+                  sb, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -83,7 +83,7 @@
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; each function returns cudaGetLastError() after its launch.
 
-#include "common.cuh"
+#include "fma_tiles.cuh"
 
 namespace {
 
@@ -124,110 +124,9 @@ __device__ __forceinline__ float bwd_p(float s, float lse) {
   return (s <= kMaskEdge || lse <= kMaskEdge) ? 0.f : expf(s - lse);
 }
 
-__device__ __forceinline__ float part(const float4& v, int t) {
-  return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int kN> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kN) : "memory");
-}
 // the two warps (64 threads) of row pair `pair` meet
 __device__ __forceinline__ void pair_sync(int pair) {
   asm volatile("bar.sync %0, 64;" ::"r"(1 + pair) : "memory");
-}
-
-// rows [row0, row0 + kRows) of a (s, kD) fp32 matrix into a kRows x
-// kStride tile by asynchronous copies, zeros past s; `vec`: the matrix's
-// base is 16-byte aligned
-template <int kRows>
-__device__ __forceinline__ void copy_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int s, bool vec) {
-  static_assert(kRows * kD % (4 * kThreads) == 0, "whole rounds of copies");
-  if (vec) {
-#pragma unroll
-    for (int n = 0; n < kRows * kD / 4 / kThreads; ++n) {
-      const int i = threadIdx.x + n * kThreads;
-      const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
-      const bool ok = row0 + r < s;
-      cp_async16(dst + r * kStride + c,
-                 ok ? src + (long long)(row0 + r) * kD + c : src, ok);
-    }
-  } else {
-#pragma unroll 4
-    for (int n = 0; n < kRows * kD / kThreads; ++n) {
-      const int i = threadIdx.x + n * kThreads;
-      const int r = i / kD, c = i % kD;
-      const bool ok = row0 + r < s;
-      cp_async4(dst + r * kStride + c,
-                ok ? src + (long long)(row0 + r) * kD + c : src, ok);
-    }
-  }
-}
-
-// acc[i][j] += a_i . b_j over the kD columns in column order; a_i is row
-// kRowStep * i of `a`, b_j row kColStep * j of `b` (both kStride-strided)
-__device__ __forceinline__ void score_product(float (&acc)[kMI][4],
-                                              const float* a,
-                                              const float* b) {
-#pragma unroll (kUnroll)
-  for (int c = 0; c < kD; c += 4) {
-    float4 av[kMI], bv[4];
-#pragma unroll
-    for (int i = 0; i < kMI; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + kRowStep * i * kStride + c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + kColStep * j * kStride + c);
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(part(av[i], t), part(bv[j], t), acc[i][j]);
-  }
-}
-
-// acc[i][u] += sum over the kBN tile rows n, in order, of e_i[n] * f[n][u]:
-// e_i is row kRowStep * i of the strip `e`, f the streamed tile at the
-// thread's 4 columns
-__device__ __forceinline__ void out_product(float (&acc)[kMI][4],
-                                            const float* e, const float* f) {
-#pragma unroll (kUnroll)
-  for (int n = 0; n < kBN; n += 4) {
-    float4 ev[kMI], fv[4];
-#pragma unroll
-    for (int i = 0; i < kMI; ++i)
-      ev[i] = *reinterpret_cast<const float4*>(e + kRowStep * i * kStride + n);
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      fv[t] = *reinterpret_cast<const float4*>(f + (n + t) * kStride);
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          acc[i][u] = fmaf(part(ev[i], t), part(fv[t], u), acc[i][u]);
-  }
 }
 
 // out_product for two products at once (acc += e . f, acc2 += e2 . f2):
@@ -260,33 +159,6 @@ __device__ __forceinline__ void out_product2(float (&acc)[kMI][4],
           acc[i][u] = fmaf(part(ev[i], t), part(fv[t], u), acc[i][u]);
           acc2[i][u] = fmaf(part(ev2[i], t), part(fv2[t], u), acc2[i][u]);
         }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&a)[kMI][4]) {
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
-}
-
-// rows r0 + kRowStep * i (< s) of a (s, kD) matrix at the thread's 4
-// columns c0 .. c0 + 3
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
-                                           const float (&acc)[kMI][4], int r0,
-                                           int c0, int s, bool vec) {
-#pragma unroll
-  for (int i = 0; i < kMI; ++i) {
-    const int row = r0 + kRowStep * i;
-    if (row >= s) continue;
-    float* p = dst + (long long)row * kD + c0;
-    if (vec) {
-      *reinterpret_cast<float4*>(p) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) p[u] = acc[i][u];
-    }
   }
 }
 
@@ -387,14 +259,15 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
   // K (part 0) and V (part 1) of tile kt into its stage
   auto load = [&](int kt, int part) {
     float* st = stage + (kt % kStages) * 2 * kTile + part * kTile;
-    copy_tile<kBN>(st, part == 0 ? kb : vb, kt * kBN, sk, vec);
+    copy_tile<kBN, kThreads, kD, kStride>(st, part == 0 ? kb : vb, kt * kBN,
+                                          sk, vec);
   };
   // two commit groups: Q with tile 0's K (the S product), then dO with
   // its V (the dP product), so that S starts on half the bytes
-  copy_tile<kBM>(qs, q + bh * sq * kD, q0, sq, vec);
+  copy_tile<kBM, kThreads, kD, kStride>(qs, q + bh * sq * kD, q0, sq, vec);
   if (nk > 0) load(0, 0);
   cp_async_commit();
-  copy_tile<kBM>(dos, dout + bh * sq * kD, q0, sq, vec);
+  copy_tile<kBM, kThreads, kD, kStride>(dos, dout + bh * sq * kD, q0, sq, vec);
   if (nk > 0) load(0, 1);
   cp_async_commit();
 
@@ -435,7 +308,8 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
     if (!idle) {
       float s[kMI][4];
       zero(s);
-      score_product(s, qs + r0 * kStride, ks + c0 * kStride);
+      score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
+          s, qs + r0 * kStride, ks + c0 * kStride);
       // p into the strip (the thread's own entries)
       dq_p<kBias>(srow, s, l, q0 + r0, k0 + c0, sq, sk, causal, scale, bias,
                   bs);
@@ -447,7 +321,8 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
     if (!idle) {
       float s[kMI][4];
       zero(s);
-      score_product(s, dos + r0 * kStride, vs + c0 * kStride);
+      score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
+          s, dos + r0 * kStride, vs + c0 * kStride);
       // ds * scale = p (dp - D) * scale in place
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
@@ -457,11 +332,13 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
           *e = *e * (s[i][j] - dd[i]) * scale;
         }
       pair_sync(pair);  // the pair's strip rows are whole
-      out_product(acc, strip + r0 * kStride, ks + half * 32 + lx * 4);
+      out_product<kMI, kRowStep, kBN, kStride, kUnroll>(
+          acc, strip + r0 * kStride, ks + half * 32 + lx * 4);
     }
   }
   cp_async_wait<0>();
-  store_rows(dq + bh * sq * kD, acc, q0 + r0, half * 32 + lx * 4, sq, vec);
+  store_rows<kMI, kRowStep, kD>(dq + bh * sq * kD, acc, q0 + r0,
+                                half * 32 + lx * 4, sq, vec);
 }
 
 template <bool kBias>
@@ -503,7 +380,8 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
     float* st = stage + (it % kStages) * 2 * kTile + part * kTile;
     float* sv = vecs + (it % kStages) * 2 * kBN + part * kBN;
     const int row0 = (qt0 + it) * kBN;
-    copy_tile<kBN>(st, part == 0 ? qb : dob, row0, sq, vec);
+    copy_tile<kBN, kThreads, kD, kStride>(st, part == 0 ? qb : dob, row0,
+                                          sq, vec);
     const int r = threadIdx.x;
     if (r < kBN) {
       const bool ok = row0 + r < sq;
@@ -513,10 +391,10 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
   };
   // two commit groups: K with tile 0's Q and lse (the S product and p),
   // then V with its dO and D (the dP product and ds)
-  copy_tile<kBM>(ks, k + bh * sk * kD, k0, sk, vec);
+  copy_tile<kBM, kThreads, kD, kStride>(ks, k + bh * sk * kD, k0, sk, vec);
   if (nq > 0) load(0, 0);
   cp_async_commit();
-  copy_tile<kBM>(vs, v + bh * sk * kD, k0, sk, vec);
+  copy_tile<kBM, kThreads, kD, kStride>(vs, v + bh * sk * kD, k0, sk, vec);
   if (nq > 0) load(0, 1);
   cp_async_commit();
 
@@ -554,7 +432,8 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
     if (!idle) {
       float s[kMI][4];
       zero(s);
-      score_product(s, ks + r0 * kStride, qs + c0 * kStride);
+      score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
+          s, ks + r0 * kStride, qs + c0 * kStride);
       // p into its strip (the thread's own entries)
       dkv_p<kBias>(prow, s, ls, k0 + r0, q0, c0, sq, sk, causal, scale, bias,
                    bs);
@@ -566,7 +445,8 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
     if (!idle) {
       float s[kMI][4];
       zero(s);
-      score_product(s, vs + r0 * kStride, dos + c0 * kStride);
+      score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
+          s, vs + r0 * kStride, dos + c0 * kStride);
       // ds * scale = p (dp - D) * scale into the other strip
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
@@ -581,8 +461,10 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
     }
   }
   cp_async_wait<0>();
-  store_rows(dk + bh * sk * kD, ak, k0 + r0, half * 32 + lx * 4, sk, vec);
-  store_rows(dv + bh * sk * kD, av, k0 + r0, half * 32 + lx * 4, sk, vec);
+  store_rows<kMI, kRowStep, kD>(dk + bh * sk * kD, ak, k0 + r0,
+                                half * 32 + lx * 4, sk, vec);
+  store_rows<kMI, kRowStep, kD>(dv + bh * sk * kD, av, k0 + r0,
+                                half * 32 + lx * 4, sk, vec);
 }
 
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -17,12 +17,16 @@
 // What bounds them on this card: memory bytes (a dozen flops an element).
 // The forward reads x (and the mask) once and writes y once; the backward
 // reads y and dy once and writes dx once. What the design does about it:
-// - row-resident forms hold a whole row in registers (32 fp32 values a
-//   thread): "warp", one warp per row and 4 rows a block, for rows up to
-//   1024; "block", one 512-thread block per row, up to 16384 (the megatron
-//   warp kernels' limit). Rows whose length is a multiple of the 16-byte
-//   access (4 fp32, 8 bf16 / fp16) are read and written 16 bytes a thread,
-//   others one element at a time.
+// - row-resident forms hold a whole row in registers: "warp", one warp
+//   per row and 4 rows a block, for rows up to 1024 (the forward's lanes
+//   hold 16 values up to 512 columns, 32 above, so the registers of a
+//   short row hold no padding and an SM keeps more rows in flight; the
+//   backward's 32); "block", one 512-thread block per row, 32 values a
+//   thread, up to 16384 (the megatron warp kernels' limit). Rows whose
+//   length is a multiple of the 16-byte access (4 fp32, 8 bf16 / fp16)
+//   are read and written 16 bytes a thread, others one element at a time.
+//   Chunk c of lane t covers the same columns whatever the lane holds, so
+//   the short form gives the long form's bits.
 // - "stream", one 512-thread block per row at any length: the forward
 //   reads the row once for an online max and sum, and once more to write;
 //   the backward once for sum(dy * y) and once to write. This is what
@@ -35,8 +39,17 @@
 //   row's scores are themselves near -10000).
 // - the mask is read through one stride per dimension of x (0 where the
 //   mask broadcasts), for any leading rank, as a 1, 2, 4 or 8-byte integer
-//   or bool: a (b, 1, sq, sk) or (b, 1, 1, sk) mask against (b, h, sq, sk)
-//   scores is never expanded or copied.
+//   or bool (the width a template parameter): a (b, 1, sq, sk) or
+//   (b, 1, 1, sk) mask against (b, h, sq, sk) scores is never expanded or
+//   copied. Its vector route: where the mask's sk stride is 1, its base
+//   and every row's start are aligned to the access, and x takes 16-byte
+//   accesses (mask_vector_ok, mirrored by ops/softmax_kernel.py's
+//   mask_route), a row's mask pointer is computed once and each chunk of
+//   V values of x takes one access of its V mask entries (4 bytes for a
+//   float4 of x and a bool mask); every other mask (strided, misaligned,
+//   a ragged sk) reads one entry at a time. A thread issues every load of
+//   its row (x and mask) before it uses any, and a row's indices are
+//   split with 32-bit divisions where they fit.
 // - rows run over grid.x (B * sq is 131072 at the JAX AOT shape, past
 //   grid.y's 65535) and element offsets are 64-bit (4 x 25 x 1024 x 32768
 //   elements is past 2^31).
@@ -48,6 +61,7 @@
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; each function returns cudaGetLastError() after its launch.
 
+#include <algorithm>
 #include <climits>
 
 #include "common.cuh"
@@ -58,11 +72,28 @@ using namespace apex_port;
 
 constexpr float kMaskFill = -10000.0f;
 constexpr int kPer = 32;            // values of a row a thread holds
+constexpr int kPerShort = 16;       // the forward's "warp" form, short rows
 constexpr int kWarpRows = 4;        // rows (warps) a block, "warp" form
 constexpr int kBlockThreads = 512;  // threads a row, "block" / "stream"
 constexpr int kWarpCols = 32 * kPer;
+constexpr int kWarpShortCols = 32 * kPerShort;
 constexpr int kResidentMax = kBlockThreads * kPer;
 constexpr int kMaxLead = 8;         // leading dimensions of the mask plan
+
+// a / b and a % b of non-negative a, b: 32-bit where both fit (the
+// hardware has no 64-bit divide; its routine costs several times more)
+__device__ __forceinline__ long long div_ll(long long a, long long b) {
+  return (a <= 0x7fffffffLL && b <= 0x7fffffffLL)
+             ? (long long)((unsigned)a / (unsigned)b)
+             : a / b;
+}
+
+// the unsigned integer of kB bytes
+template <int kB> struct MaskWord;
+template <> struct MaskWord<1> { using T = unsigned char; };
+template <> struct MaskWord<2> { using T = unsigned short; };
+template <> struct MaskWord<4> { using T = unsigned int; };
+template <> struct MaskWord<8> { using T = unsigned long long; };
 
 // The mask broadcast to x's (lead..., sq, sk): element (b, q, j) sits at
 // p + bytes * (sum_d i_d * stride[d] + q * sq + j * sk), b split into the
@@ -78,21 +109,58 @@ struct MaskView {
   __device__ __forceinline__ long long row_offset(long long b, int q) const {
     long long off = (long long)q * sq;
     for (int d = (int)nlead - 1; d >= 0; --d) {
-      off += (b % size[d]) * stride[d];
-      b /= size[d];
+      const long long n = div_ll(b, size[d]);
+      off += (b - n * size[d]) * stride[d];
+      b = n;
     }
     return off;
   }
-  __device__ __forceinline__ bool at(long long off, int col) const {
-    const unsigned char* e = p + (off + (long long)col * sk) * bytes;
-    switch (bytes) {
-      case 1: return *e != 0;
-      case 2: return *reinterpret_cast<const unsigned short*>(e) != 0;
-      case 4: return *reinterpret_cast<const unsigned int*>(e) != 0;
-      default: return *reinterpret_cast<const unsigned long long*>(e) != 0;
-    }
+  // entry `col` of the row at `off`, a kB-byte integer (kB == bytes)
+  template <int kB>
+  __device__ __forceinline__ typename MaskWord<kB>::T at(long long off,
+                                                         int col) const {
+    return *reinterpret_cast<const typename MaskWord<kB>::T*>(
+        p + (off + (long long)col * sk) * kB);
   }
 };
+
+// The vector route's access: kV consecutive kB-byte entries from `e`,
+// aligned to the access (at most 16 bytes: wider ones are several 16-byte
+// loads), as kB * kV / 4 32-bit words; word_masked reads entry i of them.
+template <int kB, int kV>
+__device__ __forceinline__ void mask_words(const unsigned char* e,
+                                           unsigned* w) {
+  constexpr int kBytes = kB * kV;
+  static_assert(kBytes % 4 == 0, "whole 32-bit words");
+  if constexpr (kBytes >= 16) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i) {
+      const uint4 a = reinterpret_cast<const uint4*>(e)[i];
+      w[4 * i] = a.x;
+      w[4 * i + 1] = a.y;
+      w[4 * i + 2] = a.z;
+      w[4 * i + 3] = a.w;
+    }
+  } else if constexpr (kBytes == 8) {
+    const uint2 a = *reinterpret_cast<const uint2*>(e);
+    w[0] = a.x;
+    w[1] = a.y;
+  } else {
+    w[0] = *reinterpret_cast<const unsigned*>(e);
+  }
+}
+template <int kB>
+__device__ __forceinline__ bool word_masked(const unsigned* w, int i) {
+  if constexpr (kB >= 4) {
+    unsigned any = 0;
+#pragma unroll
+    for (int t = 0; t < kB / 4; ++t) any |= w[i * kB / 4 + t];
+    return any != 0;
+  } else {
+    return (w[i * kB / 4] >> (8 * (i * kB % 4)) & ((1u << (8 * kB)) - 1)) !=
+           0;
+  }
+}
 
 // 16-bit values from and to their bits
 template <typename T> __device__ __forceinline__ float bits_f32(unsigned b);
@@ -173,40 +241,95 @@ __device__ __forceinline__ void merge(float& m, float& s, float mo,
   m = mn;
 }
 
-// V values of x from column col0, scaled and masked; columns past lim
-// (above the diagonal, or past the row) -inf and never read.
-template <typename T, bool kMask>
-__device__ __forceinline__ void load_chunk(const T* xr, const MaskView& mv,
-                                           long long moff, int col0, int lim,
-                                           float scale, int vec, float* v) {
+// A row's place in the mask: its element offset and, on the vector
+// route, its first entry's address.
+struct MaskRow {
+  long long off;
+  const unsigned char* p;
+};
+template <int kMB>
+__device__ __forceinline__ MaskRow mask_row(const MaskView& mv,
+                                            long long row, int sq, int q) {
+  if (kMB == 0) return {0, nullptr};
+  const long long off = mv.row_offset(div_ll(row, sq), q);
+  return {off, mv.p + off * kMB};
+}
+
+// kN chunks of V values of x, chunk c from column col0 + c * step, scaled
+// and masked (kMB: the mask's bytes an entry, 0 without one; kMV: its
+// vector route); columns past lim (above the diagonal, or past the row)
+// -inf and never read. Every load of x and of the mask is issued before
+// any is used, so a thread's bytes of a row are in flight together. The
+// vector route reads a chunk's mask entries wherever they lie inside the
+// row (sk is a multiple of V there), the diagonal's chunk included.
+template <typename T, int kN, int kMB, bool kMV>
+__device__ __forceinline__ void load_chunks(const T* xr, const MaskView& mv,
+                                            const MaskRow& mr, int col0,
+                                            int step, int lim, int sk,
+                                            float scale, int vec, float* v) {
   constexpr int V = Vec<T>::n;
-  if (vec && col0 + V - 1 <= lim) {
-    load_vec(xr + col0, v);
-  } else {
 #pragma unroll
-    for (int e = 0; e < V; ++e)
-      v[e] = col0 + e <= lim ? to_f32(xr[col0 + e]) : 0.f;
+  for (int c = 0; c < kN; ++c) {
+    const int col = col0 + c * step;
+    if (vec && col + V - 1 <= lim) {
+      load_vec(xr + col, v + c * V);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        v[c * V + e] = col + e <= lim ? to_f32(xr[col + e]) : 0.f;
+    }
+  }
+  constexpr int kB = kMB > 0 ? kMB : 1;
+  constexpr int kWords = kMV ? kB * V / 4 : 1;
+  unsigned words[kN][kWords];
+  typename MaskWord<kB>::T raw[kN][kMV ? 1 : V];
+  if constexpr (kMB > 0) {
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      const int col = col0 + c * step;
+      if constexpr (kMV) {
+        if (col < sk) {
+          mask_words<kB, V>(mr.p + (long long)col * kB, words[c]);
+        } else {
+#pragma unroll
+          for (int w = 0; w < kWords; ++w) words[c][w] = 0;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          raw[c][e] = col + e <= lim ? mv.at<kB>(mr.off, col + e) : 0;
+      }
+    }
   }
 #pragma unroll
-  for (int e = 0; e < V; ++e) {
-    const int col = col0 + e;
-    float s = v[e] * scale;
-    if (kMask && col <= lim && mv.at(moff, col)) s = kMaskFill;
-    v[e] = col <= lim ? s : -INFINITY;
+  for (int c = 0; c < kN; ++c) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int col = col0 + c * step + e;
+      float s = v[c * V + e] * scale;
+      if constexpr (kMB > 0) {
+        const bool m =
+            kMV ? word_masked<kB>(words[c], e) : raw[c][kMV ? 0 : e] != 0;
+        if (m) s = kMaskFill;
+      }
+      v[c * V + e] = col <= lim ? s : -INFINITY;
+    }
   }
 }
 
-// A whole row into registers: chunk c of thread t covers the V columns
-// from (t + c * kThreads) * V.
-template <typename T, int kThreads, bool kMask>
+// load_chunks on the mask's route: mvec is the same for the whole launch
+template <typename T, int kN, int kMB>
 __device__ __forceinline__ void load_row(const T* xr, const MaskView& mv,
-                                         long long moff, int t, int lim,
-                                         float scale, int vec, float* v) {
-  constexpr int V = Vec<T>::n;
-#pragma unroll
-  for (int c = 0; c < kPer / V; ++c)
-    load_chunk<T, kMask>(xr, mv, moff, (t + c * kThreads) * V, lim, scale,
-                         vec, v + c * V);
+                                         const MaskRow& mr, int col0,
+                                         int step, int lim, int sk,
+                                         float scale, int vec, int mvec,
+                                         float* v) {
+  if (kMB > 0 && mvec)
+    load_chunks<T, kN, kMB, true>(xr, mv, mr, col0, step, lim, sk, scale,
+                                  vec, v);
+  else
+    load_chunks<T, kN, kMB, false>(xr, mv, mr, col0, step, lim, sk, scale,
+                                   vec, v);
 }
 
 // Store a chunk of results: columns <= lim take e * inv, the causal
@@ -238,31 +361,34 @@ __device__ __forceinline__ long long resident_row(int& t) {
   return blockIdx.x;
 }
 
-// Row-resident forward: kThreads = 32 ("warp") or kBlockThreads ("block").
-template <typename T, int kThreads, bool kCausal, bool kMask>
+// Row-resident forward: kThreads = 32 ("warp") or kBlockThreads ("block"),
+// kP values a thread; kMB the mask's bytes an entry (0: no mask).
+template <typename T, int kThreads, int kP, bool kCausal, int kMB>
 __global__ void __launch_bounds__(kThreads == 32 ? 32 * kWarpRows : kThreads)
     sm_fwd_resident(const T* __restrict__ x, MaskView mv, T* __restrict__ y,
-                    long long rows, int sq, int sk, float scale, int vec) {
+                    long long rows, int sq, int sk, float scale, int vec,
+                    int mvec) {
   constexpr int V = Vec<T>::n;
   __shared__ float red[32];
   int t;
   const long long row = resident_row<kThreads>(t);
   if (row >= rows) return;  // a whole warp ("warp" form only)
-  const int q = (int)(row % sq);
+  const int q = (int)(row - div_ll(row, sq) * sq);
   const int lim = kCausal ? min(q, sk - 1) : sk - 1;
   const long long base = row * (long long)sk;
-  const long long moff = kMask ? mv.row_offset(row / sq, q) : 0;
-  float v[kPer];
-  load_row<T, kThreads, kMask>(x + base, mv, moff, t, lim, scale, vec, v);
+  const MaskRow mr = mask_row<kMB>(mv, row, sq, q);
+  float v[kP];
+  load_row<T, kP / V, kMB>(x + base, mv, mr, t * V, kThreads * V, lim, sk,
+                           scale, vec, mvec, v);
   float m = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) m = fmaxf(m, v[i]);
+  for (int i = 0; i < kP; ++i) m = fmaxf(m, v[i]);
   m = row_max<kThreads>(m, red);
   const int above = sk - 1 - lim;  // replaced columns never read
   if (kCausal && above > 0) m = fmaxf(m, kMaskFill);
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
+  for (int i = 0; i < kP; ++i) {
     v[i] = expf(v[i] - m);
     s += v[i];
   }
@@ -271,30 +397,31 @@ __global__ void __launch_bounds__(kThreads == 32 ? 32 * kWarpRows : kThreads)
   s += (float)above * efill;
   const float inv = m <= kMaskFill ? 0.f : 1.f / s;
 #pragma unroll
-  for (int c = 0; c < kPer / V; ++c)
+  for (int c = 0; c < kP / V; ++c)
     store_chunk(y + base, (t + c * kThreads) * V, sk, lim, v + c * V, inv,
                 efill * inv, vec);
 }
 
 // Streaming forward, one block of kBlockThreads per row, any sk.
-template <typename T, bool kCausal, bool kMask>
+template <typename T, bool kCausal, int kMB>
 __global__ void __launch_bounds__(kBlockThreads)
     sm_fwd_stream(const T* __restrict__ x, MaskView mv, T* __restrict__ y,
-                  long long rows, int sq, int sk, float scale, int vec) {
+                  long long rows, int sq, int sk, float scale, int vec,
+                  int mvec) {
   constexpr int V = Vec<T>::n;
   constexpr int kStep = kBlockThreads * V;
   __shared__ float red_m[32], red_s[32];
   const long long row = blockIdx.x;
   const int t = threadIdx.x;
-  const int q = (int)(row % sq);
+  const int q = (int)(row - div_ll(row, sq) * sq);
   const int lim = kCausal ? min(q, sk - 1) : sk - 1;
   const long long base = row * (long long)sk;
-  const long long moff = kMask ? mv.row_offset(row / sq, q) : 0;
+  const MaskRow mr = mask_row<kMB>(mv, row, sq, q);
   const T* xr = x + base;
   float m = -INFINITY, s = 0.f;
   float v[V];
   for (int col0 = t * V; col0 <= lim; col0 += kStep) {
-    load_chunk<T, kMask>(xr, mv, moff, col0, lim, scale, vec, v);
+    load_row<T, 1, kMB>(xr, mv, mr, col0, 0, lim, sk, scale, vec, mvec, v);
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       if (v[e] > m) {
@@ -323,7 +450,8 @@ __global__ void __launch_bounds__(kBlockThreads)
   const float fill = kCausal && above > 0 ? expf(kMaskFill - m) * inv : 0.f;
   for (int col0 = t * V; col0 < sk; col0 += kStep) {
     if (col0 <= lim) {
-      load_chunk<T, kMask>(xr, mv, moff, col0, lim, scale, vec, v);
+      load_row<T, 1, kMB>(xr, mv, mr, col0, 0, lim, sk, scale, vec, mvec,
+                          v);
 #pragma unroll
       for (int e = 0; e < V; ++e) v[e] = expf(v[e] - m);
     }
@@ -413,25 +541,70 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-template <typename T, bool kCausal, bool kMask>
+template <typename T, bool kCausal, int kMB>
 int launch_fwd(const void* x, const MaskView& mv, void* y, long long rows,
-               int sq, int sk, float scale, int vec, cudaStream_t s) {
+               int sq, int sk, float scale, int vec, int mvec,
+               cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
-  if (sk <= kWarpCols) {
-    const long long blocks = (rows + kWarpRows - 1) / kWarpRows;
-    sm_fwd_resident<T, 32, kCausal, kMask>
-        <<<(unsigned)blocks, 32 * kWarpRows, 0, s>>>(xp, mv, yp, rows, sq, sk,
-                                                     scale, vec);
+  const long long warp_blocks = (rows + kWarpRows - 1) / kWarpRows;
+  if (sk <= kWarpShortCols) {
+    sm_fwd_resident<T, 32, kPerShort, kCausal, kMB>
+        <<<(unsigned)warp_blocks, 32 * kWarpRows, 0, s>>>(
+            xp, mv, yp, rows, sq, sk, scale, vec, mvec);
+  } else if (sk <= kWarpCols) {
+    sm_fwd_resident<T, 32, kPer, kCausal, kMB>
+        <<<(unsigned)warp_blocks, 32 * kWarpRows, 0, s>>>(
+            xp, mv, yp, rows, sq, sk, scale, vec, mvec);
   } else if (sk <= kResidentMax) {
-    sm_fwd_resident<T, kBlockThreads, kCausal, kMask>
+    sm_fwd_resident<T, kBlockThreads, kPer, kCausal, kMB>
         <<<(unsigned)rows, kBlockThreads, 0, s>>>(xp, mv, yp, rows, sq, sk,
-                                                  scale, vec);
+                                                  scale, vec, mvec);
   } else {
-    sm_fwd_stream<T, kCausal, kMask><<<(unsigned)rows, kBlockThreads, 0, s>>>(
-        xp, mv, yp, rows, sq, sk, scale, vec);
+    sm_fwd_stream<T, kCausal, kMB><<<(unsigned)rows, kBlockThreads, 0, s>>>(
+        xp, mv, yp, rows, sq, sk, scale, vec, mvec);
   }
   return (int)cudaGetLastError();
+}
+
+// The mask's vector route (mask_route in ops/softmax_kernel.py): x takes
+// 16-byte accesses (`vec`), the mask's sk stride is 1, and its base and
+// every row's start (each lead stride and the sq stride) are aligned to
+// the access of V entries, at most 16 bytes.
+template <typename T>
+bool mask_vector_ok(const MaskView& mv, int vec) {
+  const long long access = std::min(16LL, Vec<T>::n * mv.bytes);
+  const long long unit = access / mv.bytes;  // entries
+  if (!vec || mv.sk != 1 || !is_aligned(mv.p, (unsigned)access) ||
+      mv.sq % unit != 0)
+    return false;
+  for (int d = 0; d < mv.nlead; ++d)
+    if (mv.stride[d] % unit != 0) return false;
+  return true;
+}
+
+template <typename T, bool kCausal>
+int launch_fwd_mask(const void* x, const MaskView& mv, bool mask, void* y,
+                    long long rows, int sq, int sk, float scale, int vec,
+                    cudaStream_t s) {
+  const int mvec = mask && mask_vector_ok<T>(mv, vec);
+  switch (mask ? mv.bytes : 0) {
+    case 0:
+      return launch_fwd<T, kCausal, 0>(x, mv, y, rows, sq, sk, scale, vec,
+                                       mvec, s);
+    case 1:
+      return launch_fwd<T, kCausal, 1>(x, mv, y, rows, sq, sk, scale, vec,
+                                       mvec, s);
+    case 2:
+      return launch_fwd<T, kCausal, 2>(x, mv, y, rows, sq, sk, scale, vec,
+                                       mvec, s);
+    case 4:
+      return launch_fwd<T, kCausal, 4>(x, mv, y, rows, sq, sk, scale, vec,
+                                       mvec, s);
+    default:
+      return launch_fwd<T, kCausal, 8>(x, mv, y, rows, sq, sk, scale, vec,
+                                       mvec, s);
+  }
 }
 
 template <typename T>
@@ -440,13 +613,11 @@ int launch_fwd_forms(const void* x, const MaskView& mv, bool mask, int causal,
                      cudaStream_t s) {
   const int vec =
       sk % Vec<T>::n == 0 && is_aligned(x, 16) && is_aligned(y, 16);
-  if (causal && mask)
-    return launch_fwd<T, true, true>(x, mv, y, rows, sq, sk, scale, vec, s);
   if (causal)
-    return launch_fwd<T, true, false>(x, mv, y, rows, sq, sk, scale, vec, s);
-  if (mask)
-    return launch_fwd<T, false, true>(x, mv, y, rows, sq, sk, scale, vec, s);
-  return launch_fwd<T, false, false>(x, mv, y, rows, sq, sk, scale, vec, s);
+    return launch_fwd_mask<T, true>(x, mv, mask, y, rows, sq, sk, scale, vec,
+                                    s);
+  return launch_fwd_mask<T, false>(x, mv, mask, y, rows, sq, sk, scale, vec,
+                                   s);
 }
 
 template <typename T>

@@ -363,8 +363,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     JAX signature's TPU tiles: explicit values are validated by its rule
     (:func:`validate_blocks`; one given alone is checked beside the JAX
     default of the other, 512 or 1024) and change nothing else: the CUDA
-    kernels keep their own tiles (the fp32 forward 64 x 64, the fp32
-    backward blocks of 128 rows over 64-row tiles,
+    kernels keep their own tiles (the fp32 forward blocks of 64 rows, the
+    fp32 backward blocks of 128, over 64-row tiles,
+    :func:`~apex_tpu_torch.ops.tiling.fa_fma_fwd_geometry` and
     :func:`~apex_tpu_torch.ops.tiling.fa_fma_bwd_geometry`; the bf16
     tensor-core kernels blocks of 128 rows in two 64-row warpgroups over
     64-row tiles).

@@ -122,6 +122,27 @@ def mask_plan(mask: torch.Tensor, shape) -> List[int]:
             strides[-1]]
 
 
+def mask_route(plan: List[int], mask_ptr: int, itemsize: int, sk: int,
+               aligned: bool = True) -> str:
+    """How the forward kernel reads a mask of ``plan`` (:func:`mask_plan`)
+    at address ``mask_ptr``, against rows of ``sk`` values of
+    ``itemsize`` bytes (x and y 16-byte aligned when ``aligned``):
+    ``"vector"``, one access of a chunk's V mask entries for each 16-byte
+    chunk of x (V = 16 / itemsize), where x takes 16-byte accesses, the
+    mask's sk stride is 1, and its base and every row's start are aligned
+    to that access (at most 16 bytes); else ``"element"``, one entry at a
+    time. ``mask_vector_ok`` in ``csrc/softmax.cu``."""
+    nbytes, nlead = plan[0], plan[1]
+    per = 16 // itemsize
+    access = min(16, per * nbytes)
+    unit = access // nbytes
+    strides = plan[2 + _MAX_LEAD:2 + _MAX_LEAD + nlead] + [plan[-2]]
+    vector = (aligned and sk % per == 0 and plan[-1] == 1
+              and mask_ptr % access == 0
+              and all(st % unit == 0 for st in strides))
+    return "vector" if vector else "element"
+
+
 def _rows_ok(name: str, rows: int, sk: int) -> None:
     if softmax_blocks(rows, sk) > SM_GRID_X_MAX or sk >= 2 ** 31:
         raise ValueError(f"{name}: {rows} rows of {sk} exceed the kernels' "

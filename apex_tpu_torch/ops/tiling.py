@@ -52,12 +52,79 @@ def ln_bwd_geometry(rows: int, hidden: int):
 
 
 # flash attention, compiled for head_dim 64 only. The fp32 forward's FMA
-# kernel (csrc/flash_attention.cu): 64 query rows per block (16 per warp),
-# 64-row K/V tiles. The fp32 backward's FMA kernels
-# (csrc/flash_attention_bwd.cu) take the geometry of fa_fma_bwd_geometry().
-FA_BLOCK_Q = 64
-FA_BLOCK_K = 64
+# kernel (csrc/flash_attention.cu) takes the geometry of
+# fa_fma_fwd_geometry(), the fp32 backward's (csrc/flash_attention_bwd.cu)
+# that of fa_fma_bwd_geometry().
 FA_HEAD_DIM = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FmaFwdGeometry:
+    """The fp32 flash forward's FMA-pipe kernel, mirrored by the
+    ``constexpr`` values of ``csrc/flash_attention.cu``. A block of
+    ``threads`` owns ``block_rows`` query rows, ``warp_rows`` to a warp,
+    ``blocks_per_sm`` blocks an SM, and streams ``tile_rows``-row K / V
+    tiles through ``stages`` shared-memory stages; every tile row is
+    ``row_stride`` floats (the head dim padded to spread a quarter-warp's
+    16-byte loads over distinct banks); a lane holds ``micro`` = (rows,
+    keys) of S and (rows, d columns) of o, a warp all of a tile's keys for
+    its rows. The grid is ``(grid.y of fa_batch_heads_grid, query blocks,
+    grid.z)``: x, dispatched first, runs over batch * heads, y over the
+    query blocks in the order :meth:`order` (heaviest first)."""
+    block_rows: int = 64
+    tile_rows: int = 64
+    head_dim: int = FA_HEAD_DIM
+    threads: int = 128
+    warp_rows: int = 16
+    blocks_per_sm: int = 2
+    stages: int = 2
+    row_stride: int = FA_HEAD_DIM + 4
+    micro: tuple = (8, 4)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Q and the p strip (block rows), K / V of each stage."""
+        return 4 * self.row_stride * (2 * self.block_rows
+                                      + 2 * self.stages * self.tile_rows)
+
+    def blocks(self, sq: int) -> int:
+        """Query blocks (grid.y) over ``sq`` rows."""
+        return -(-sq // self.block_rows)
+
+    def grid(self, bh: int, sq: int) -> tuple:
+        """The launch's ``(grid.x, grid.y, grid.z)`` for ``bh = batch *
+        heads``."""
+        gy, gz = fa_batch_heads_grid(bh)
+        return gy, self.blocks(sq), gz
+
+    def order(self, sq: int) -> list:
+        """The query block each grid.y index takes: the last (heaviest
+        when causal) first."""
+        n = self.blocks(sq)
+        return [n - 1 - y for y in range(n)]
+
+    def key_tiles(self, qb: int, sq: int, sk: int, causal: bool):
+        """The key tiles query block ``qb`` visits: all of sk, or (causal)
+        up to the diagonal of its last row below sq."""
+        n = -(-sk // self.tile_rows)
+        if causal:
+            last = min((qb + 1) * self.block_rows, sq) - 1
+            n = min(n, last // self.tile_rows + 1)
+        return range(n)
+
+    def warp_busy(self, qb: int, warp: int, tile: int, sq: int,
+                  causal: bool) -> bool:
+        """Whether ``warp`` of query block ``qb`` runs the products of key
+        tile ``tile``: some of its rows lie below sq and (causal) see some
+        of the tile's keys."""
+        row0 = qb * self.block_rows + warp * self.warp_rows
+        return row0 < sq and not (
+            causal and tile * self.tile_rows > row0 + self.warp_rows - 1)
+
+
+def fa_fma_fwd_geometry() -> FmaFwdGeometry:
+    """The geometry of the fp32 flash forward's FMA kernel."""
+    return FmaFwdGeometry()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,7 +282,10 @@ def gn_hw_block(hw: int, c: int, hw_block=None) -> int:
 # most SM_PER_THREAD of a row (a multiple of the 16-byte load's 4 fp32 or
 # 8 16-bit values).
 # - "warp": one warp per row, SM_WARP_ROWS rows a block, rows up to
-#   SM_WARP_COLS (32 lanes x SM_PER_THREAD) held in registers;
+#   SM_WARP_COLS (32 lanes x SM_PER_THREAD) held in registers; the
+#   forward's lanes hold SM_PER_THREAD_SHORT values for rows up to
+#   SM_WARP_SHORT_COLS, so a short row's registers hold no padding
+#   (softmax_per_thread);
 # - "block": one block of SM_BLOCK_THREADS threads per row, rows up to
 #   SM_RESIDENT_MAX_COLS held in registers (the megatron warp kernels' 16384);
 # - "stream": one block of SM_BLOCK_THREADS per row at any sk: the forward
@@ -223,8 +293,10 @@ def gn_hw_block(hw: int, c: int, hw_block=None) -> int:
 #   backward once for sum(dy * y) and once to write.
 # Rows (batch * sq) run over grid.x, which holds 2^31 - 1 blocks.
 SM_PER_THREAD = 32
+SM_PER_THREAD_SHORT = 16
 SM_WARP_ROWS = 4
 SM_WARP_COLS = 32 * SM_PER_THREAD
+SM_WARP_SHORT_COLS = 32 * SM_PER_THREAD_SHORT
 SM_BLOCK_THREADS = 512
 SM_RESIDENT_MAX_COLS = SM_BLOCK_THREADS * SM_PER_THREAD
 SM_GRID_X_MAX = 2 ** 31 - 1
@@ -237,6 +309,16 @@ def softmax_form(sk: int) -> str:
     if sk <= SM_RESIDENT_MAX_COLS:
         return "block"
     return "stream"
+
+
+def softmax_per_thread(sk: int, backward: bool = False) -> int:
+    """The values of a row of ``sk`` (>= 1) each thread holds: 16 in the
+    forward's "warp" form up to SM_WARP_SHORT_COLS columns, else
+    SM_PER_THREAD (the streaming form holds one 16-byte access at a
+    time, but its grid and block are the "block" form's)."""
+    if not backward and sk <= SM_WARP_SHORT_COLS:
+        return SM_PER_THREAD_SHORT
+    return SM_PER_THREAD
 
 
 def softmax_blocks(rows: int, sk: int) -> int:

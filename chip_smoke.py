@@ -10,8 +10,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    versions, and the build of every ``apex_tpu_torch/csrc/*.cu`` for
    ``sm_90a`` from the checkout, with its seconds; ptxas's registers,
    spills and stack of the tensor-core flash kernels and of the fp32
-   backward's FMA-pipe pair (``-Xptxas -v``; the pair's unbiased forms
-   must spill nothing).
+   route's FMA-pipe forward and backward pair (``-Xptxas -v``; their
+   unbiased forms must spill nothing).
 2. ``kernel``: each CUDA kernel against its plain PyTorch version on the
    same card inputs, at the main path's shapes and a few ragged ones, in
    bf16 and fp32: max error and tolerance; kernel / plain / library times
@@ -194,9 +194,13 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    at world 2. ``python3 chip_smoke.py remote-copy [ROOT]`` runs these
    self-put timings alone, and ``python3 chip_smoke.py ring [ROOT]`` the
    4-rank ring's and halo's timings (phases 12 and 13), for the checkout
-   at ROOT; ``python3 chip_smoke.py flash-bwd [ROOT]`` times the fp32
-   flash backward's dq and dk / dv kernels and fp32 SDPA's backward at
-   GPT-2's causal and BERT's shapes, 200 x 333 and b * h = 65,600 the
+   at ROOT; ``python3 chip_smoke.py flash-fwd [ROOT]`` and
+   ``python3 chip_smoke.py flash-bwd [ROOT]`` time the fp32 flash
+   forward, and the backward's dq and dk / dv kernels, against fp32
+   SDPA's forward and backward at GPT-2's causal and BERT's shapes, 200 x
+   333 and b * h = 65,600, and ``python3 chip_smoke.py softmax [ROOT]``
+   the megatron softmax kernels at row 7's masked case, rows 6 and 8 and
+   the kernel phase's other masked cases against ``torch.softmax``, the
    same way (parent and change in turns in one call).
 12. ``ring``: ring attention at GPT-2 small's attention widths (12 heads x
    64, batch 1) over a 16,384-token bf16 context at worlds 4 and 2
@@ -229,10 +233,11 @@ counted step of each bf16 ring run of phase 12 (all ranks) and one
 exchange of phase 13 (all ranks), each with the counts zeroed just
 before it; every kernel of ``KERNELS`` with the ``pl.pallas_call`` lines
 it replaces, the flash ones with their launches split by route; then the
-fp32 backward pair, ``fa_bwd_dq_fp32`` and ``fa_bwd_dkv_fp32`` (the
-FMA-pipe kernels of ``csrc/flash_attention_bwd.cu``, at GPT-2's causal
-shape with the BERT row beside), launched by the fp32 runs of those
-paths: the fp32 ring runs of phase 12 and phase 10's cross-attention),
+fp32 route's flash kernels, ``fa_fwd_fp32``, ``fa_bwd_dq_fp32`` and
+``fa_bwd_dkv_fp32`` (the FMA-pipe kernels of ``csrc/flash_attention.cu``
+and ``csrc/flash_attention_bwd.cu``, at GPT-2's causal shape with the
+BERT row beside), launched by the fp32 runs of those paths: the fp32 ring
+runs of phase 12 and phase 10's cross-attention),
 the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``. Any failed check raises and the
 script exits non-zero without that last line; without CUDA, or away from
@@ -379,10 +384,12 @@ TO_PORT: dict = {}
 FMA_FLASH_NAMES = {"fa_fwd_kernel": "fa_fwd_kernel<",
                    "fa_bwd_dq_kernel": "fa_bwd_dq_kernel_fma<",
                    "fa_bwd_dkv_kernel": "fa_bwd_dkv_kernel_fma<"}
-# the fp32 backward's kernels, reported beside KERNELS under their own
+# the fp32 route's flash kernels, reported beside KERNELS under their own
 # names: (source, the launch count's name, the KERNELS entry whose TPU
 # kernel they replace too)
-FMA_BWD_KERNELS = {
+FMA_KERNELS = {
+    "fa_fwd_fp32": ("apex_tpu_torch/csrc/flash_attention.cu", "fa_fwd",
+                    "fa_fwd"),
     "fa_bwd_dq_fp32": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
                        "fa_bwd_dq", "fa_bwd_dq"),
     "fa_bwd_dkv_fp32": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1241,15 +1248,20 @@ def _rank_steps(group, spec):
                 _rank_halo(group, spec)["exchange_call_ms"]}
 
 
-# The fp32 flash backward's shapes in ``flash-bwd`` mode, (b, h, sq, sk,
-# causal) at head_dim 64, as in the kernel phase: GPT-2 small's causal
-# attention, BERT-large's, the ragged 200 x 333 and b * h = 65,600
-FLASH_BWD_SHAPES = [(4, 12, 1024, 1024, True), (32, 16, 128, 128, False),
-                    (2, 3, 200, 333, False), (1025, 64, 64, 64, True)]
+# The fp32 flash shapes of the ``flash-fwd`` and ``flash-bwd`` modes, (b,
+# h, sq, sk, causal) at head_dim 64, as in the kernel phase: GPT-2 small's
+# causal attention, BERT-large's, the ragged 200 x 333 and b * h = 65,600
+FLASH_FP32_SHAPES = [(4, 12, 1024, 1024, True), (32, 16, 128, 128, False),
+                     (2, 3, 200, 333, False), (1025, 64, 64, 64, True)]
+
+
+def _causal_pairs(sq, sk, causal):
+    """The (query, key) pairs a causal or full score matrix keeps."""
+    return sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
 
 
 def _flash_bwd_solo(dev):
-    """The fp32 flash backward at FLASH_BWD_SHAPES: the dq and dk / dv
+    """The fp32 flash backward at FLASH_FP32_SHAPES: the dq and dk / dv
     kernels' device ms (torch.profiler, inputs rotated beyond the L2), the
     least time the card could take for each (operations at the fp32
     peak), and fp32 SDPA's backward timed the same way (TF32 off; the
@@ -1264,7 +1276,7 @@ def _flash_bwd_solo(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for b, h, sq, sk, causal in FLASH_BWD_SHAPES:
+    for b, h, sq, sk, causal in FLASH_FP32_SHAPES:
         d, scale = 64, 0.125
         sets = []
         for _ in range(n_sets(3 * b * h * (sq + sk) * d * 4)):
@@ -1291,9 +1303,7 @@ def _flash_bwd_solo(dev):
             lsets.append((oo, qq, kk, vv, do))
         library = device_ms(lambda oo, qq, kk, vv, do: torch.autograd.grad(
             oo, (qq, kk, vv), do, retain_graph=True), lsets, 20)
-        pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
-                 else sq * sk)
-        ops = 2 * b * h * d * pairs
+        ops = 2 * b * h * d * _causal_pairs(sq, sk, causal)
         out[f"{b}x{h}x{sq}x{sk}{'_causal' if causal else ''}"] = dict(
             dq_ms=dq, dkv_ms=dkv, pair_ms=dq + dkv, library_ms=library,
             bound_dq_ms=3 * ops / PEAK_OPS["fp32"] * 1e3,
@@ -1304,16 +1314,150 @@ def _flash_bwd_solo(dev):
     return out
 
 
+def _flash_fwd_solo(dev):
+    """The fp32 flash forward at FLASH_FP32_SHAPES: the kernel's device ms
+    (torch.profiler, inputs rotated beyond the L2), the least time the
+    card could take (two products' operations at the fp32 peak), and fp32
+    SDPA's forward on the same inputs timed the same way (TF32 off), as
+    the kernel phase times it."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.flash_attention import flash_attention_fwd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for b, h, sq, sk, causal in FLASH_FP32_SHAPES:
+        d, scale = 64, 0.125
+        sets = [tuple(torch.randn(b, h, n, d, device=dev, generator=gen)
+                      for n in (sq, sk, sk))
+                for _ in range(n_sets(2 * b * h * (sq + sk) * d * 4))]
+        split = device_kernels(lambda q, k, v: flash_attention_fwd(
+            q, k, v, scale=scale, causal=causal), sets, 30)
+        library = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=scale), sets, 30)
+        ops = 4 * b * h * d * _causal_pairs(sq, sk, causal)
+        ms = sum(t for n, t in split.items() if "fa_fwd_kernel" in n)
+        out[f"{b}x{h}x{sq}x{sk}{'_causal' if causal else ''}"] = dict(
+            ms=ms, library_ms=library,
+            bound_ms=ops / PEAK_OPS["fp32"] * 1e3,
+            kernels=sorted(n.split("(")[0] for n in split))
+        del sets
+    return out
+
+
+# The softmax cases of ``softmax`` mode, as in the kernel phase: (name,
+# scores, dtype, op, mask, causal); the masks as the kernel phase makes
+# them ("pad": the megatron cross-attention's key padding of lengths 512 /
+# 400 / 256 / 17, "pad0" with a length 0; "full": a (scores) bool mask;
+# "b1qk" a (b, 1, sq, sk) uint8 one; "1hqk" a (1, h, sq, sk) bool one;
+# "row": a (1, 1, 1, sk) bool one)
+_XL = (4, 25, 1024, 1024)
+SOFTMAX_SOLO_CASES = [
+    ("row 7: masked, pad", (4, 25, 1024, 512), "fp32", "fwd", "pad", False),
+    ("row 6: causal", _XL, "fp32", "fwd", None, True),
+    ("row 8: backward", _XL, "fp32", "bwd", None, True),
+    ("full mask (AOT)", (128, 1024, 1024), "fp32", "fwd", "full", False),
+    ("(b, 1, sq, sk) uint8", _XL, "fp32", "fwd", "b1qk", False),
+    ("(1, h, sq, sk) bf16", _XL, "bf16", "fwd", "1hqk", False),
+    ("pad with a length 0", (4, 25, 1024, 512), "fp32", "fwd", "pad0",
+     False),
+    ("sk 100,003 masked", (1, 1, 256, 100003), "fp32", "fwd", "row", False),
+]
+
+
+def _softmax_solo(dev):
+    """The megatron softmax kernels at SOFTMAX_SOLO_CASES: device ms
+    (torch.profiler, inputs rotated beyond the L2) beside the bytes bound
+    (x read once, the lower triangle only for causal, the mask once, y
+    written once; the backward y and dy read, dx written) and, for the
+    forward, ``torch.softmax`` on the pre-scaled, pre-masked input (the
+    scale and mask passes excluded), as the kernel phase times them."""
+    import torch
+
+    from apex_tpu_torch.ops.softmax_kernel import (MASK_FILL, softmax_bwd,
+                                                   softmax_fwd)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    scale = 0.125
+    out = {}
+    for name, shape, dt, op, kind, causal in SOFTMAX_SOLO_CASES:
+        sq, sk = shape[-2], shape[-1]
+        if kind in ("pad", "pad0"):
+            lens = torch.tensor([512, 400, 0 if kind == "pad0" else 256, 17],
+                                device=dev)
+            mask = (torch.arange(sk, device=dev)[None, :] >= lens[:, None]
+                    )[:, None, None, :]
+        elif kind is not None:
+            mshape = {"full": shape, "b1qk": (shape[0], 1, sq, sk),
+                      "1hqk": (1, shape[1], sq, sk),
+                      "row": (1, 1, 1, sk)}[kind]
+            mask = torch.rand(mshape, device=dev, generator=gen) < 0.3
+            if kind == "b1qk":
+                mask = mask.to(torch.uint8)
+        else:
+            mask = None
+        n = math.prod(shape)
+        es = torch.tensor([], dtype=tdt[dt]).element_size()
+        read = (n // sk // sq) * _causal_pairs(sq, sk, True) if causal else n
+        nbytes = (read * es + n * es + (0 if mask is None else
+                                        mask.numel() * mask.element_size())
+                  if op == "fwd" else 3 * n * es)
+        sets = []
+        for _ in range(n_sets(nbytes)):
+            x = torch.randn(shape, device=dev, generator=gen,
+                            dtype=tdt[dt]) * 3
+            if op == "fwd":
+                sets.append((x,))
+            else:
+                sets.append((softmax_fwd(x, scale=scale, causal=causal),
+                             torch.randn(shape, device=dev, generator=gen,
+                                         dtype=tdt[dt])))
+                del x
+        if op == "fwd":
+            ms = device_ms(lambda x: softmax_fwd(x, mask, scale=scale,
+                                                 causal=causal), sets, 20)
+            lsets = []
+            for (x,) in sets:
+                x32 = x.float() * scale
+                if mask is not None:
+                    x32 = x32.masked_fill(mask != 0, MASK_FILL)
+                if causal:
+                    x32 = x32.masked_fill(torch.ones(
+                        sq, sk, dtype=torch.bool, device=dev).triu(1),
+                        MASK_FILL)
+                lsets.append((x32.to(x.dtype),))
+            library = device_ms(lambda x: torch.softmax(x, dim=-1), lsets,
+                                20)
+            del lsets
+        else:
+            ms = device_ms(lambda y, dy: softmax_bwd(y, dy, scale=scale),
+                           sets, 20)
+            library = device_ms(lambda y, dy: torch._softmax_backward_data(
+                dy, y, -1, y.dtype), sets, 20)
+        out[name] = dict(ms=ms, library_ms=library,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         scores=list(shape), dtype=dt,
+                         mask=None if mask is None else list(mask.shape))
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
 def mode_main(mode, root) -> int:
-    """``python3 chip_smoke.py remote-copy|ring|flash-bwd [ROOT]``: one
-    part of the run alone, for the ``apex_tpu_torch`` of the checkout at
-    ROOT (by default this one), so that two checkouts can be timed in
-    turns on one card in one run. ``remote-copy``: phase 11 (a), one
-    ``remote_copy_solo`` line. ``ring``: phases 12 and 13 at world 4 (the
-    bf16 ring's step ms by layout and the halo's exchange ms on every
-    rank), one ``ring_steps`` line. ``flash-bwd``: the fp32 flash
-    backward's dq and dk / dv kernels and fp32 SDPA's backward at
-    FLASH_BWD_SHAPES, one ``flash_bwd_solo`` line. Then the
+    """``python3 chip_smoke.py remote-copy|ring|flash-fwd|flash-bwd|softmax
+    [ROOT]``: one part of the run alone, for the ``apex_tpu_torch`` of the
+    checkout at ROOT (by default this one), so that two checkouts can be
+    timed in turns on one card in one run. ``remote-copy``: phase 11 (a),
+    one ``remote_copy_solo`` line. ``ring``: phases 12 and 13 at world 4
+    (the bf16 ring's step ms by layout and the halo's exchange ms on every
+    rank), one ``ring_steps`` line. ``flash-fwd``: the fp32 flash forward
+    and fp32 SDPA's forward at FLASH_FP32_SHAPES, one ``flash_fwd_solo``
+    line. ``flash-bwd``: the fp32 flash backward's dq and dk / dv kernels
+    and fp32 SDPA's backward at FLASH_FP32_SHAPES, one ``flash_bwd_solo``
+    line. ``softmax``: the megatron softmax kernels and ``torch.softmax``
+    at SOFTMAX_SOLO_CASES, one ``softmax_solo`` line. Then the
     ``nvidia-smi`` line."""
     import torch
     if not torch.cuda.is_available():
@@ -1338,8 +1482,12 @@ def mode_main(mode, root) -> int:
     if mode == "remote-copy":
         solo = _remote_copy_solo(dev)
         emit("remote_copy_solo", fits=_solo_fits(solo), **common, **solo)
+    elif mode == "flash-fwd":
+        emit("flash_fwd_solo", **common, shapes=_flash_fwd_solo(dev))
     elif mode == "flash-bwd":
         emit("flash_bwd_solo", **common, shapes=_flash_bwd_solo(dev))
+    elif mode == "softmax":
+        emit("softmax_solo", **common, cases=_softmax_solo(dev))
     else:
         from apex_tpu_torch.parallel import spawn_ranks
         ranks = spawn_ranks(_rank_steps, HALO_WORLD, (PEER_SPEC,),
@@ -1354,13 +1502,17 @@ def mode_main(mode, root) -> int:
 
 
 # the flash kernels whose ptxas report the env line carries, by source:
-# the tensor-core kernels and the fp32 backward's FMA-pipe pair, each in
-# its unbiased and biased form
+# the tensor-core kernels and the fp32 route's FMA-pipe forward and
+# backward pair, each in its unbiased and biased form
 PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
                  "flash_bwd_dq_wgmma.cu": ("fa_bwd_dq_kernel_wgmma",),
                  "flash_bwd_dkv_wgmma.cu": ("fa_bwd_dkv_kernel_wgmma",),
+                 "flash_attention.cu": ("fa_fwd_kernel",),
                  "flash_attention_bwd.cu": ("fa_bwd_dq_kernel_fma",
                                             "fa_bwd_dkv_kernel_fma")}
+# the sources whose kernels' unbiased forms must keep every value in
+# registers (no spill)
+NO_SPILL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
 
 
 def ptxas_report(build, sources):
@@ -1504,8 +1656,8 @@ def main() -> int:
     from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                       ln_fwd, ln_fwd_plain)
     from apex_tpu_torch.ops.softmax_kernel import (
-        MASK_FILL, softmax_bwd, softmax_bwd_plain, softmax_fwd,
-        softmax_fwd_plain)
+        MASK_FILL, mask_plan, mask_route, softmax_bwd, softmax_bwd_plain,
+        softmax_fwd, softmax_fwd_plain)
     from apex_tpu_torch.ops.tiling import softmax_form
     from apex_tpu_torch.ops.flash_attention import flash_attention
     from apex_tpu_torch.transformer import (
@@ -1536,8 +1688,9 @@ def main() -> int:
     _build.lib()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_report(_build, PTXAS_SOURCES)
-    # the fp32 backward's unbiased forms keep every value in registers
-    for name in PTXAS_SOURCES["flash_attention_bwd.cu"]:
+    # the fp32 forward's and backward's unbiased forms keep every value in
+    # registers
+    for name in (n for src in NO_SPILL_SOURCES for n in PTXAS_SOURCES[src]):
         rep = ptxas[f"{name}<false>"]
         require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
                 f"{name}<false> spills: {rep}")
@@ -1866,14 +2019,16 @@ def main() -> int:
             ln_case(64, 12288, dt, rms=True)
             for causal in (True, False):
                 fa_case(4, 12, 1024, 1024, causal, dt,
-                        main="fa_fwd" if dt == "bf16" and causal else None)
+                        main=(("fa_fwd" if dt == "bf16" else "fa_fwd_fp32")
+                              if causal else None))
             fa_case(4, 12, 1000, 1000, True, dt)
             fa_case(2, 3, 200, 333, False, dt)
             # BERT-large's attention: 32 x 16 heads x 128 x 64, full,
             # plain and with a key-padding mask; a full mask with whole
             # rows masked
             fa_case(32, 16, 128, 128, False, dt,
-                    main="fa_fwd_bert" if dt == "bf16" else None)
+                    main="fa_fwd_bert" if dt == "bf16"
+                    else "fa_fwd_fp32_bert")
             fa_case(32, 16, 128, 128, False, dt, mask_kind="pad")
             fa_case(4, 16, 128, 128, False, dt, mask_kind="full")
             # b * h = 65,600: the grid's y x z slices
@@ -2764,6 +2919,9 @@ def main() -> int:
                    dtype=dt, causal=causal,
                    mask_shape=None if mask is None else list(mask.shape),
                    mask_dtype=None if mask is None else str(mask.dtype),
+                   mask_route=None if mask is None or op == "bwd" else
+                   mask_route(mask_plan(mask, shape), mask.data_ptr(), es,
+                              sk),
                    max_abs_err=err, tol={"atol": atol, "rtol": rtol},
                    deterministic=det, ms=kt["ms"], call_ms=kt["call_ms"],
                    plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
@@ -4078,9 +4236,10 @@ def main() -> int:
                 "mask", "n", "tensors", "w", "c", "groups", "act", "algo",
                 "tile", "scores", "mask_shape", "dtype", "bytes",
                 "shape") if k in rec}})
-    # the fp32 backward pair (FMA pipes), at GPT-2's causal shape (its
-    # BERT row beside), launched by the fp32 runs of the main paths
-    for name, (src, wrapper, twin) in FMA_BWD_KERNELS.items():
+    # the fp32 forward and backward pair (FMA pipes), at GPT-2's causal
+    # shape (the BERT row beside), launched by the fp32 runs of the main
+    # paths
+    for name, (src, wrapper, twin) in FMA_KERNELS.items():
         rec, bert = summary[name], summary[name.replace("_fp32",
                                                         "_fp32_bert")]
         paths = by_route(wrapper).get("fma", {})
@@ -4113,7 +4272,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] in ("remote-copy", "ring",
-                                              "flash-bwd"):
+                                              "flash-fwd", "flash-bwd",
+                                              "softmax"):
         sys.exit(mode_main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2
                            else ROOT))
     sys.exit(main())

@@ -381,6 +381,105 @@ def test_tc_flash_refuses_misaligned_views(dev):
         torch.testing.assert_close(a, w, atol=1e-4, rtol=0, msg=name)
 
 
+# the fp32 forward's tile heights (fa_fma_fwd_geometry: blocks of 64
+# query rows, K / V tiles of 64), one below and above them and their
+# double, and 1
+_FWD_EDGES = [1, 63, 64, 65, 127, 128, 129]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(a, b) for a in _FWD_EDGES
+                                   for b in _FWD_EDGES] + [(200, 333),
+                                                           (333, 200)])
+def test_fp32_flash_fwd_at_tile_edges(dev, sq, sk, causal):
+    """The fp32 forward where sq and sk cross its block and tile heights
+    (causal with sq != sk too): o and lse within 2e-5 of the plain
+    version, the FMA-pipe kernel ran, two runs the same bits."""
+    g = torch.Generator(device=dev).manual_seed(1000 * sq + sk)
+    q, k, v = (torch.randn(1, 2, s, 64, device=dev, generator=g)
+               for s in (sq, sk, sk))
+    o, lse = flash_attention_fwd(q, k, v, scale=0.125, causal=causal)
+    o2, lse2 = flash_attention_fwd(q, k, v, scale=0.125, causal=causal)
+    op, lsep = flash_attention_fwd_plain(q, k, v, scale=0.125,
+                                         causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _assert_flash_route(_kernel_names(lambda: flash_attention_fwd(
+        q, k, v, scale=0.125, causal=causal)), torch.float32, fwd=True)
+
+
+@pytest.mark.parametrize("b,h,s", [(2, 4, 256), (4, 12, 1024)])
+def test_fp32_flash_fwd_is_deterministic(dev, b, h, s):
+    """Two runs of the fp32 forward give the same bits (each block owns
+    its query rows, no atomics), causal and not."""
+    g = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn(b, h, s, 64, device=dev, generator=g)
+               for _ in range(3))
+    for causal in (True, False):
+        a = flash_attention_fwd(q, k, v, scale=0.125, causal=causal)
+        c = flash_attention_fwd(q, k, v, scale=0.125, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+
+
+@pytest.mark.parametrize("form", range(16))
+def test_fp32_flash_fwd_bias_broadcast_forms(dev, form):
+    """Every broadcast form of the fp32 score bias (each of b, h, sq, sk
+    full or 1, bit 3 - i of ``form`` for dimension i) at ragged 129 x 65,
+    causal for the odd forms: o and lse within 2e-5 of the plain version;
+    a row masked whole (where the bias has rows) gives o = 0 and lse =
+    -1e30 exactly."""
+    dims = (2, 3, 129, 65)
+    shape = tuple(n if form >> (3 - i) & 1 else 1
+                  for i, n in enumerate(dims))
+    causal = bool(form & 1)
+    g = torch.Generator(device=dev).manual_seed(500 + form)
+    q, k, v = (torch.randn(2, 3, s, 64, device=dev, generator=g)
+               for s in (129, 65, 65))
+    bias = torch.randn(shape, device=dev, generator=g)
+    if shape[2] != 1:
+        bias[..., 5, :] = -1e30
+    elif shape[3] != 1:
+        bias[..., 7] = -1e30
+    kw = dict(scale=0.125, causal=causal, bias=bias)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    _assert_flash_route(_kernel_names(lambda: flash_attention_fwd(
+        q, k, v, **kw)), torch.float32, fwd=True)
+    op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
+    dead = (bias <= -0.5e30).expand(dims).all(dim=-1)
+    assert shape[2] == 1 or bool(dead.any())
+    assert torch.equal(o[dead], torch.zeros_like(o[dead]))
+    assert bool((lse[dead] == -1e30).all())
+
+
+def test_fp32_flash_fwd_misaligned_view_gives_the_aligned_bits(dev):
+    """An fp32 q, k, v and o 4 bytes off the 16-byte alignment take the
+    forward's 4-byte copies and stores: the bits of the same call on
+    aligned copies; the public op hands the kernel an aligned copy
+    (``_kernel_operand``) and gives the same bits again."""
+    from apex_tpu_torch.ops.flash_attention import _kernel_operand
+    n = 2 * 3 * 200 * 64
+    g = torch.Generator(device=dev).manual_seed(41)
+    store = torch.randn(3 * n + 8, device=dev, generator=g)
+    views = [store[1 + i * n:1 + (i + 1) * n].view(2, 3, 200, 64)
+             for i in range(3)]
+    assert all(t.data_ptr() % 16 for t in views)
+    copies = [t.clone() for t in views]
+    assert all(_kernel_operand(t).data_ptr() % 16 == 0 for t in views)
+    for causal in (True, False):
+        got = flash_attention_fwd(*views, scale=0.125, causal=causal)
+        want = flash_attention_fwd(*copies, scale=0.125, causal=causal)
+        public = flash_attention(*views, causal, 0.125)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(public, want[0])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_public_flash_takes_any_layout_on_the_card(dev, dtype):
     """The public op on ``transpose(1, 2)`` views and on contiguous views 2
@@ -1254,6 +1353,93 @@ def test_softmax_kernels_match_plain(dev, form, sk, dtype):
                                atol=max(atol, 1e-6), rtol=rtol)
     assert torch.equal(y, y2) and torch.equal(dx, dx2)
     assert y.dtype == dtype and dx.dtype == dtype
+
+
+_SM_MASK_DTYPES = [torch.bool, torch.uint8, torch.int16, torch.int32,
+                   torch.int64]
+
+
+@pytest.mark.parametrize("sk", [1, 511, 512, 513, 1024])
+@pytest.mark.parametrize("mshape", ["b11k", "b1qk", "1hqk"])
+@pytest.mark.parametrize("mdtype", _SM_MASK_DTYPES)
+def test_masked_softmax_over_widths_and_broadcasts(dev, mdtype, mshape, sk):
+    """The masked forward at every mask width and at (b, 1, 1, sk), (b, 1,
+    sq, sk) and (1, h, sq, sk) masks, rows of 1 .. 1024 (the short and
+    long warp forms, ragged and 16-byte rows; the vector route where
+    ``mask_route`` says so, the element route otherwise), in fp32 and
+    bf16: within SM_TOL of the plain version, fully masked rows exactly
+    0, two runs the same bits."""
+    from apex_tpu_torch.ops.softmax_kernel import (mask_plan, mask_route,
+                                                   softmax_fwd,
+                                                   softmax_fwd_plain)
+    b, h, sq = 3, 4, 6
+    g = torch.Generator(device=dev).manual_seed(sk + 7 * len(mshape))
+    dims = {"b11k": (b, 1, 1, sk), "b1qk": (b, 1, sq, sk),
+            "1hqk": (1, h, sq, sk)}[mshape]
+    m = (torch.rand(dims, device=dev, generator=g) < 0.3).to(mdtype)
+    if mdtype != torch.bool:
+        m = m * torch.randint(1, 100, dims, device=dev, generator=g).to(
+            mdtype)   # nonzero entries other than 1 mask too
+    m[-1, -1] = 1  # whole rows masked
+    dead = (m != 0).expand(b, h, sq, sk).all(dim=-1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(b, h, sq, sk, device=dev, generator=g) * 3).to(
+            dtype)
+        y = softmax_fwd(x, m, scale=0.37)
+        y2 = softmax_fwd(x, m, scale=0.37)
+        yp = softmax_fwd_plain(x, m, scale=0.37)
+        torch.cuda.synchronize()
+        atol, rtol = SM_TOL[dtype]
+        torch.testing.assert_close(y.float(), yp.float(), atol=atol,
+                                   rtol=rtol)
+        assert torch.equal(y, y2)
+        assert bool(dead.any()) and not y[dead].any()
+        route = mask_route(mask_plan(m, x.shape), m.data_ptr(),
+                           x.element_size(), sk)
+        assert route == ("vector" if sk % (16 // x.element_size()) == 0
+                         else "element")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_softmax_element_route_gives_the_vector_bits(dev, dtype):
+    """The same mask values through a non-contiguous mask (sk stride 2), a
+    misaligned base and rows that start off the access (element route)
+    give the bits of a contiguous aligned copy (vector route), causal and
+    not."""
+    from apex_tpu_torch.ops.softmax_kernel import (mask_plan, mask_route,
+                                                   softmax_fwd,
+                                                   softmax_fwd_plain)
+    b, h, sq, sk = 2, 3, 40, 512
+    g = torch.Generator(device=dev).manual_seed(77)
+    x = (torch.randn(b, h, sq, sk, device=dev, generator=g) * 3).to(dtype)
+    base = torch.rand(b, 1, sq, sk, device=dev, generator=g) < 0.3
+    wide = torch.zeros(b, 1, sq, 2 * sk, dtype=torch.bool, device=dev)
+    wide[..., ::2] = base
+    strided = wide[..., ::2]
+    store = torch.zeros(base.numel() + 1, dtype=torch.bool, device=dev)
+    shifted = store[1:].view(base.shape)
+    shifted.copy_(base)
+    rows = torch.zeros(b, 1, sq, sk + 2, dtype=torch.bool, device=dev)
+    rows[..., :sk] = base
+    offrows = rows[..., :sk]
+    plan = lambda t: mask_plan(t, x.shape)  # noqa: E731
+    assert mask_route(plan(base), base.data_ptr(), x.element_size(),
+                      sk) == "vector"
+    for t in (strided, shifted, offrows):
+        assert torch.equal(t, base)
+        assert mask_route(plan(t), t.data_ptr(), x.element_size(),
+                          sk) == "element"
+    for causal in (False, True):
+        want = softmax_fwd(x, base, scale=0.5, causal=causal)
+        for t in (strided, shifted, offrows):
+            got = softmax_fwd(x, t, scale=0.5, causal=causal)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        atol, rtol = SM_TOL[dtype]
+        torch.testing.assert_close(
+            want.float(), softmax_fwd_plain(x, base, scale=0.5,
+                                            causal=causal).float(),
+            atol=atol, rtol=rtol)
 
 
 def test_softmax_on_cuda_takes_the_kernels_at_every_shape(dev, monkeypatch):

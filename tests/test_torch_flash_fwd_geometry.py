@@ -1,0 +1,168 @@
+"""The fp32 flash forward's geometry (``fa_fma_fwd_geometry``) on the CPU.
+
+The kernel of ``apex_tpu_torch/csrc/flash_attention.cu`` runs only on the
+card; what decides which rows, keys and tiles it visits is held here
+against brute force: shared memory for two blocks an SM, the padded row
+stride, the lanes' micro-tiles covering a warp's rows, keys and d columns
+once each, the grid covering every query row, the key tiles a causal
+block visits against a count of the tiles holding any unmasked (query,
+key) pair, the warps that skip a visited tile against the rows that see
+none of its keys, the heaviest-first order, and the ``constexpr`` values
+of the source against the Python mirror. No JAX: nothing here has a
+counterpart there.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from apex_tpu_torch.ops.tiling import (FA_HEAD_DIM, fa_batch_heads_grid,
+                                       fa_fma_fwd_geometry)
+
+SRC = (Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
+       / "flash_attention.cu")
+SIZES = [1, 63, 64, 65, 127, 128, 129, 200, 333, 1000, 1024]
+SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
+SM_SMEM = 233472             # bytes of shared memory an SM holds for blocks
+G = fa_fma_fwd_geometry()
+
+
+def _constexprs():
+    """``{name: value}`` of the source's integer ``constexpr``s."""
+    text = SRC.read_text()
+    return {m.group(1): m.group(2) for m in re.finditer(
+        r"constexpr int (k\w+) = ([^;]+);", text)}
+
+
+def test_geometry_mirrors_the_source():
+    c = _constexprs()
+    assert int(c["kD"]) == G.head_dim == FA_HEAD_DIM
+    assert int(c["kBM"]) == G.block_rows
+    assert int(c["kBlocksPerSM"]) == G.blocks_per_sm
+    assert int(c["kBN"]) == G.tile_rows
+    assert int(c["kStages"]) == G.stages
+    assert int(c["kMI"]) == G.micro[0]
+    assert int(c["kWarpRows"]) == G.warp_rows
+    assert c["kStride"] == "kD + 4" and G.row_stride == G.head_dim + 4
+    assert c["kThreads"] == "32 * kBM / kWarpRows"
+    assert 32 * G.block_rows // G.warp_rows == G.threads
+    assert c["kRowStep"] == "kWarpRows / kMI"
+    # a lane's keys are lx + kColStep * j over the 16 lanes of a row
+    assert int(c["kColStep"]) * G.micro[1] == G.tile_rows
+
+
+def test_shared_memory_fits_two_blocks_an_sm():
+    assert G.smem_bytes <= SMEM_LIMIT
+    # each block with the 1 KB the hardware reserves
+    assert G.blocks_per_sm * (G.smem_bytes + 1024) <= SM_SMEM
+    c = _constexprs()
+    assert c["kSmemFloats"] == "2 * kBlockTile + kStages * 2 * kTile"
+    block, tile = G.block_rows * G.row_stride, G.tile_rows * G.row_stride
+    assert G.smem_bytes == 4 * (2 * block + G.stages * 2 * tile)
+
+
+def test_row_stride_is_whole_float4s_in_distinct_banks():
+    assert G.row_stride % 4 == 0
+    # 8 consecutive rows' 16-byte chunks fall in 8 distinct groups of 4
+    # banks: the stride in chunks is odd
+    chunks = G.row_stride // 4
+    assert chunks % 2 == 1
+    assert len({(r * chunks) % 8 for r in range(8)}) == 8
+
+
+def test_micro_tiles_cover_a_warp_once():
+    """Lane (ly, lx) = (lane // 16, lane % 16) holds rows ly + 2 i, keys
+    lx + 16 j of S and d columns 4 lx .. + 3 of o: every (row, key) of the
+    warp's rows over a tile and every (row, d column) exactly once, and a
+    quarter-warp's 8 keys in 8 distinct bank groups."""
+    mi, nj = G.micro
+    step = G.warp_rows // mi
+    col_step = G.tile_rows // nj
+    scores = np.zeros((G.warp_rows, G.tile_rows), dtype=int)
+    outs = np.zeros((G.warp_rows, G.head_dim), dtype=int)
+    for lane in range(32):
+        ly, lx = lane // 16, lane % 16
+        for i in range(mi):
+            for j in range(nj):
+                scores[ly + step * i, lx + col_step * j] += 1
+                outs[ly + step * i, 4 * lx + j] += 1
+    assert (scores == 1).all() and (outs == 1).all()
+    chunks = G.row_stride // 4
+    for quarter in range(4):
+        for j in range(nj):
+            keys = [lane % 16 + col_step * j
+                    for lane in range(8 * quarter, 8 * quarter + 8)]
+            assert len({(k * chunks) % 8 for k in keys}) == 8
+
+
+@pytest.mark.parametrize("s", SIZES)
+def test_grid_covers_every_row(s):
+    n = G.blocks(s)
+    assert n * G.block_rows >= s > (n - 1) * G.block_rows
+    rows = np.zeros(s, dtype=int)
+    for qb in G.order(s):
+        rows[qb * G.block_rows:(qb + 1) * G.block_rows] += 1
+    assert (rows == 1).all()
+
+
+@pytest.mark.parametrize("bh", [1, 48, 512, 65535, 65600])
+def test_grid_puts_batch_heads_on_x(bh):
+    gx, gy, gz = G.grid(bh, 1000)
+    assert (gx, gz) == fa_batch_heads_grid(bh) and gy == G.blocks(1000)
+    assert gx * gz >= bh > gx * (gz - 1)
+
+
+def _tiles_with_pairs(sq, sk, causal):
+    """Brute force: for each query block, the key tiles that hold any
+    unmasked (query, key) pair."""
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    live = (k <= q) if causal else np.ones((sq, sk), dtype=bool)
+    out = []
+    for b0 in range(0, sq, G.block_rows):
+        part = live[b0:b0 + G.block_rows]
+        out.append([t for t in range(-(-sk // G.tile_rows))
+                    if part[:, t * G.tile_rows:(t + 1) * G.tile_rows].any()])
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sk", SIZES)
+@pytest.mark.parametrize("sq", SIZES)
+def test_visited_tiles_match_brute_force(sq, sk, causal):
+    want = _tiles_with_pairs(sq, sk, causal)
+    got = [list(G.key_tiles(qb, sq, sk, causal))
+           for qb in range(G.blocks(sq))]
+    assert got == want
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [33, 64, 65, 129, 200, 1024])
+def test_busy_warps_match_brute_force(s, causal):
+    """A warp runs a visited tile's products exactly when one of its rows
+    below sq sees one of the tile's keys (a skipped warp's m, l and o
+    would not change)."""
+    warps = G.threads // 32
+    for qb in range(G.blocks(s)):
+        for t in G.key_tiles(qb, s, s, causal):
+            for w in range(warps):
+                r0 = qb * G.block_rows + w * G.warp_rows
+                rows = np.arange(r0, min(r0 + G.warp_rows, s))
+                keys = np.arange(t * G.tile_rows,
+                                 min((t + 1) * G.tile_rows, s))
+                sees = bool(rows.size) and (
+                    not causal or bool((keys[None, :] <= rows[:, None])
+                                       .any()))
+                assert G.warp_busy(qb, w, t, s, causal) == sees
+
+
+@pytest.mark.parametrize("s", SIZES)
+def test_dispatch_order_is_heaviest_first(s):
+    """grid.y's order is a permutation of the query blocks, each block's
+    causal work (tiles visited) never above the one dispatched before."""
+    order = G.order(s)
+    assert sorted(order) == list(range(G.blocks(s)))
+    loads = [len(G.key_tiles(b, s, s, True)) for b in order]
+    assert loads == sorted(loads, reverse=True)

@@ -38,10 +38,12 @@ from apex_tpu.ops.pallas.softmax_kernel import (_softmax_fwd_causal_chunked,
                                                 softmax_fwd_pallas)
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.softmax_kernel import (MASK_FILL, mask_plan,
-                                               softmax_bwd, softmax_bwd_plain,
-                                               softmax_fwd, softmax_fwd_plain)
+                                               mask_route, softmax_bwd,
+                                               softmax_bwd_plain, softmax_fwd,
+                                               softmax_fwd_plain)
 from apex_tpu_torch.ops.tiling import (SM_RESIDENT_MAX_COLS, SM_WARP_COLS,
-                                       softmax_blocks, softmax_form)
+                                       SM_WARP_SHORT_COLS, softmax_blocks,
+                                       softmax_form, softmax_per_thread)
 from apex_tpu_torch.transformer import softmax as tsm
 
 BF16_ULP = 2 ** -7
@@ -357,3 +359,90 @@ def test_forms_by_row_length():
     assert SM_WARP_COLS == 1024 and SM_RESIDENT_MAX_COLS == 16384
     assert softmax_blocks(131072, 1024) == 32768
     assert softmax_blocks(131072, 2048) == 131072
+
+
+def test_forward_lanes_hold_a_short_row_without_padding():
+    """The forward's "warp" form holds 16 values a lane up to 512 columns
+    (a short row's registers hold no padding), 32 above; the backward 32
+    at every length; the grid is unchanged (4 rows a block)."""
+    assert SM_WARP_SHORT_COLS == 512
+    assert [softmax_per_thread(n) for n in (1, 400, 512, 513, 1024, 1025,
+                                            16385)] == [16, 16, 16, 32,
+                                                        32, 32, 32]
+    assert [softmax_per_thread(n, backward=True)
+            for n in (1, 512, 1024)] == [32, 32, 32]
+    # chunk c of lane t starts at column (t + 32 c) * V in both forms: the
+    # short form's 16 // V chunks a lane are the long form's first ones
+    # and cover a row of 512, so such a row lands on the same lanes
+    for v in (4, 8):
+        starts = {(t + 32 * c) * v for t in range(32) for c in range(16 // v)}
+        assert starts == set(range(0, 32 * 16, v))
+    assert softmax_blocks(102400, 512) == 25600
+    assert softmax_form(512) == "warp"
+
+
+def _strided(shape, dtype, last):
+    """A mask whose rows start ``last`` entries apart (a view of a wider
+    one), so its sq stride is ``last``."""
+    wide = torch.zeros(*shape[:-1], last, dtype=dtype)
+    return wide[..., :shape[-1]]
+
+
+ROUTE_CASES = [
+    # (mask, x shape, x itemsize, mask address, x / y aligned, route)
+    ("(b,1,1,sk) bool, fp32", lambda: torch.ones(4, 1, 1, 512,
+                                                 dtype=torch.bool),
+     (4, 25, 1024, 512), 4, 0, True, "vector"),
+    ("misaligned base", lambda: torch.ones(4, 1, 1, 512, dtype=torch.bool),
+     (4, 25, 1024, 512), 4, 2, True, "element"),
+    ("bf16 x: 8-byte access", lambda: torch.ones(4, 1, 1, 512,
+                                                 dtype=torch.bool),
+     (4, 25, 1024, 512), 2, 8, True, "vector"),
+    ("bf16 x, base 4 bytes in", lambda: torch.ones(4, 1, 1, 512,
+                                                   dtype=torch.bool),
+     (4, 25, 1024, 512), 2, 4, True, "element"),
+    ("int16 mask, bf16 x", lambda: torch.ones(4, 1, 8, 512,
+                                              dtype=torch.int16),
+     (4, 25, 8, 512), 2, 16, True, "vector"),
+    ("int32 mask, fp32", lambda: torch.ones(4, 1, 8, 512,
+                                            dtype=torch.int32),
+     (4, 25, 8, 512), 4, 16, True, "vector"),
+    ("int64 mask: two 16-byte loads", lambda: torch.ones(
+        4, 1, 8, 512, dtype=torch.int64), (4, 25, 8, 512), 4, 16, True,
+     "vector"),
+    ("int64 mask, base 8 bytes in", lambda: torch.ones(
+        4, 1, 8, 512, dtype=torch.int64), (4, 25, 8, 512), 4, 8, True,
+     "element"),
+    ("(b,1,sq,sk) uint8", lambda: torch.ones(4, 1, 64, 512,
+                                             dtype=torch.uint8),
+     (4, 25, 64, 512), 4, 0, True, "vector"),
+    ("(1,h,sq,sk) bool", lambda: torch.ones(1, 25, 64, 512,
+                                            dtype=torch.bool),
+     (4, 25, 64, 512), 4, 0, True, "vector"),
+    ("rows 514 apart", lambda: _strided((4, 1, 8, 512), torch.bool, 514),
+     (4, 25, 8, 512), 4, 0, True, "element"),
+    ("sk stride 2", lambda: torch.ones(4, 1, 8, 1024,
+                                       dtype=torch.bool)[..., ::2],
+     (4, 25, 8, 512), 4, 0, True, "element"),
+    ("broadcast over sk", lambda: torch.ones(4, 1, 8, 1, dtype=torch.bool),
+     (4, 25, 8, 512), 4, 0, True, "element"),
+    ("ragged sk 511", lambda: torch.ones(4, 1, 1, 511, dtype=torch.bool),
+     (4, 25, 8, 511), 4, 0, True, "element"),
+    ("sk 1", lambda: torch.ones(4, 1, 1, 1, dtype=torch.bool),
+     (4, 25, 8, 1), 4, 0, True, "element"),
+    ("x misaligned", lambda: torch.ones(4, 1, 1, 512, dtype=torch.bool),
+     (4, 25, 1024, 512), 4, 0, False, "element"),
+]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=[c[0] for c in
+                                                   ROUTE_CASES])
+def test_mask_route_by_stride_alignment_width_and_sk(case):
+    """The forward's mask route (``mask_route``, the kernel's
+    ``mask_vector_ok``): one access of a chunk's mask entries where x
+    takes 16-byte accesses, the mask's sk stride is 1 and its base and row
+    starts are aligned to that access; one entry at a time otherwise."""
+    _, make, xshape, itemsize, ptr, aligned, want = case
+    m = make()
+    assert mask_route(mask_plan(m, xshape), ptr, itemsize, xshape[-1],
+                      aligned) == want
