@@ -16,25 +16,14 @@ __device__ __forceinline__ float part(const float4& v, int t) {
   return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
+// 4 bytes by cp.async (cached in L1 too; common.cuh has the 16-byte copy,
+// the commit and the wait), zeros where `valid` is false
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int kN> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(kN) : "memory");
 }
 
 // rows [row0, row0 + kRows) of a (s, kD) fp32 matrix into a kRows x

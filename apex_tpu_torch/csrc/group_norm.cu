@@ -31,12 +31,33 @@
 // What bounds them on this card: memory bytes (about ten flops an element).
 // One-pass reads x once and writes y once; the two-pass pair reads x twice.
 // What the design does about that:
-// - one-pass: one block per (g, n) stages the group's hw x cpg values as
-//   fp32 in dynamic shared memory (160 KB for 320 channels at 64 x 64 in 32
-//   groups), so its three passes (mean, centred variance, output) read
-//   device memory once. A group whose slab does not fit (gn_one_pass_ok in
-//   ops/tiling.py) runs the same arithmetic in a second compile-time form
-//   that reads x from device memory in each pass.
+// - one-pass ("cluster" route, gn_one_pass_geometry in ops/tiling.py): a
+//   thread block cluster takes a (sample, channel slice), the slice the
+//   fewest whole groups that are a whole number of 16-byte vectors (40
+//   channels of 320 in bf16: 4 groups, 80 bytes a pixel), so a sample's
+//   pixels split over the fewest blocks (the cluster barriers are the
+//   route's fixed cost). Each block copies its (pixels x slice) tile into
+//   shared memory in x's dtype with 16-byte cp.async, every copy issued
+//   before the first is waited on (about 160 KB in flight an SM at the
+//   UNet's 64 x 64 x 320), so x is read from device memory once, and the
+//   mean pass starts on a thread's first batch of copies while the rest
+//   land. Thread t keeps one vector column of the tile (its channels
+//   fixed) down every R-th pixel, so its per-channel sums, K, mean and
+//   rstd, gamma and beta sit in registers and the passes over the tile
+//   read 16 bytes at a time. The per-group sums of the mean pass, then of
+//   the centred squares, are added over the block's threads in a fixed
+//   order (each channel over parts of the rows, then a warp a group) and
+//   then over the cluster's blocks in rank order through distributed
+//   shared memory, so every block holds the same mean and rstd and two
+//   runs give the same bits. y is written as 16-byte vectors.
+// - one-pass, "staged" and "unstaged" routes (slices that cannot be
+//   16-byte aligned, misaligned x, slabs of at most 2048 values; a slab
+//   over the gate): one block per (g, n) stages the group's hw x cpg
+//   values as fp32 in dynamic shared memory, so its three passes (mean,
+//   centred variance, output) read device memory once; a group whose slab
+//   does not fit (gn_one_pass_ok in ops/tiling.py) runs the same
+//   arithmetic in a second compile-time form that reads x from device
+//   memory in each pass.
 // - stats / apply: one block per (n, hw tile) of all c channels, the tile
 //   any divisor of hw (gn_hw_block in ops/tiling.py); each thread walks its
 //   channels down the tile's pixels, so at every pixel a warp touches 32
@@ -44,23 +65,28 @@
 //   shared memory and adds each group's cpg of them in channel order into a
 //   fixed slot of the partial buffer: no atomics, the same bits on every
 //   run.
-// - a group's values are runs of cpg channels (20 - 80 bytes in bf16 at
-//   Stable Diffusion's widths), strided by c: the one-pass block's reads are
-//   poorly coalesced. Left for a later change.
 // Forms (SiLU or not, gamma, beta, the staged slab) are template parameters
 // chosen at launch, so no inner loop tests a form at run time.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; each function returns cudaGetLastError() after its launch.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
 using namespace apex_port;
+namespace cg = cooperative_groups;
 
-constexpr int kOnePassThreads = 512;
+constexpr int kOnePassThreads = 512;  // GN_STAGED_THREADS
 constexpr int kTileThreads = 256;
+constexpr int kClusterMax = 8;           // GN_CLUSTER_MAX
+constexpr int kClusterThreads = 512;     // GN_CLUSTER_THREADS
+constexpr int kVectorBytes = 16;         // GN_VECTOR_BYTES
+constexpr int kCopyBatches = 4;  // commit groups of a thread's copies
+constexpr int kSmemBytes = 227 * 1024 - 1024;  // GN_ONE_PASS_SMEM_BYTES
 
 template <bool kSilu, bool kW, bool kB>
 __device__ __forceinline__ float epilogue(float v, const float* w,
@@ -124,6 +150,240 @@ gn_one_pass_kernel(const T* __restrict__ x, const float* __restrict__ w,
     dmean[n * groups + g] = md;
     rstd[n * groups + g] = r;
   }
+}
+
+// wait for batch `bt` of kBatches commit groups of cp_async16 copies (bt a
+// compile-time value once the caller's loop is unrolled)
+template <int kBatches>
+__device__ __forceinline__ void cp_async_wait_batch(int bt) {
+  if (bt == 0) cp_async_wait<kBatches - 1>();
+  else if (bt == 1) cp_async_wait<(kBatches > 2 ? kBatches - 2 : 0)>();
+  else if (bt == 2) cp_async_wait<(kBatches > 3 ? kBatches - 3 : 0)>();
+  else cp_async_wait<0>();
+}
+// the cluster barrier in halves: arrive (releasing this block's shared
+// memory writes to the cluster), and wait (acquiring the others')
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// every block of the cluster has reached this point (one block: the block
+// barrier, which is all a cluster of one needs)
+__device__ __forceinline__ void cluster_sync(int ranks) {
+  if (ranks > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+}
+
+// The "cluster" route's block sums of a pass: thread (j, r0) holds kVec
+// per-channel sums for channels j * kVec .. of the slice. They go to
+// red[r0][slice_c]; then thread (ch, k) of `parts` = blockDim.x / slice_c
+// parts a channel adds rows k, k + parts, ... of its channel in order into
+// red[k][ch] (no other thread reads those rows); then warp w adds group
+// w's parts x cpg values (lane i its channels i, i + 32, ..., each over
+// the parts in order, then a shuffle tree) into out[w]. No value is
+// summed twice and no division runs an element. The caller's cluster
+// barrier follows.
+template <int kVec>
+__device__ __forceinline__ void group_block_sums(const float (&acc)[kVec],
+                                                 float* red, float* out,
+                                                 int j, int r0, int rsteps,
+                                                 int slice_c, int cpg) {
+#pragma unroll
+  for (int i = 0; i < kVec; i += 4)
+    *reinterpret_cast<float4*>(red + r0 * slice_c + j * kVec + i) =
+        make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+  __syncthreads();
+  const int parts = max(1, min(rsteps, (int)blockDim.x / slice_c));
+  for (int e = threadIdx.x; e < parts * slice_c; e += blockDim.x) {
+    const int k = e / slice_c;
+    const int ch = e - k * slice_c;
+    float v = 0.f;
+#pragma unroll 8
+    for (int r = k; r < rsteps; r += parts) v += red[r * slice_c + ch];
+    red[k * slice_c + ch] = v;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int gs = slice_c / cpg;
+  for (int g = threadIdx.x >> 5; g < gs; g += blockDim.x >> 5) {
+    float v = 0.f;
+    for (int i = lane; i < cpg; i += 32) {
+      const float* col = red + g * cpg + i;
+#pragma unroll 8
+      for (int k = 0; k < parts; ++k) v += col[k * slice_c];
+    }
+    v = warp_sum(v);
+    if (lane == 0) out[g] = v;
+  }
+}
+
+// The "cluster" route. Grid (cluster, c / slice_c, n), a cluster of
+// gridDim.x blocks; block `rank` stages pixels [rank * pixels, + pixels)
+// of sample blockIdx.z, channels [blockIdx.y * slice_c, + slice_c).
+// Thread t takes vector column j = t % J (J = slice_c / kVec) of pixels
+// r0 = t / J, r0 + R, ... (R = blockDim.x / J); it copies those vectors
+// into the tile itself and reads back only those, so no block barrier
+// stands between the copies and the first pass. Shared memory: the tile
+// (x's dtype), red (R x slice_c fp32), then per group of the slice the
+// block's sums of d and of (d - mean_d)^2, K, mean_d and rstd.
+template <typename T, bool kSilu, bool kW, bool kB>
+__global__ void __launch_bounds__(kClusterThreads)
+gn_one_pass_kernel_cluster(const T* __restrict__ x,
+                           const float* __restrict__ w,
+                           const float* __restrict__ b, T* __restrict__ y,
+                           float* __restrict__ dmean,
+                           float* __restrict__ rstd, int hw, int c,
+                           int groups, int slice_c, int pixels, float eps) {
+  constexpr int kVec = kVectorBytes / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int ranks = (int)cluster.num_blocks();
+  const int cpg = c / groups;
+  const int gs = slice_c / cpg;
+  const int nj = slice_c / kVec;
+  const int rsteps = blockDim.x / nj;
+  const int j = threadIdx.x % nj;
+  const int r0 = threadIdx.x / nj;
+  const int p0 = rank * pixels;
+  const int np = max(0, min(pixels, hw - p0));
+  T* tile = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(
+      smem + (size_t)pixels * slice_c * sizeof(T));
+  float* bsum = red + rsteps * slice_c;
+  float* bsq = bsum + gs;
+  float* kst = bsq + gs;
+  float* mst = kst + gs;
+  float* rst = mst + gs;
+  const long long n = blockIdx.z;
+  const int ch0 = blockIdx.y * slice_c;  // the slice's first channel
+  const T* xs = x + (n * hw + p0) * c + ch0 + j * kVec;
+  T* ys = y + (n * hw + p0) * c + ch0 + j * kVec;
+  uint4* tv = reinterpret_cast<uint4*>(tile) + j;  // + p * nj
+  // K, gamma and beta first (loads issued behind the tile's copies wait
+  // for them), used only after the copies are issued
+  const float kload = (int)threadIdx.x < gs
+                          ? to_f32(x[n * hw * c + ch0 + threadIdx.x * cpg])
+                          : 0.f;
+  float wv[kVec], bv[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    wv[i] = kW ? w[ch0 + j * kVec + i] : 1.f;
+    bv[i] = kB ? b[ch0 + j * kVec + i] : 0.f;
+  }
+  // this thread's vectors: pixels r0 + k * rsteps, k < m, copied in
+  // kCopyBatches commit groups so the mean pass starts on the first while
+  // the others are in flight
+  const int m = r0 < np ? (np - 1 - r0) / rsteps + 1 : 0;
+  {
+    int k = 0;
+#pragma unroll
+    for (int bt = 0; bt < kCopyBatches; ++bt) {
+      for (const int end = m * (bt + 1) / kCopyBatches; k < end; ++k) {
+        const int p = r0 + k * rsteps;
+        cp_async16(tv + p * nj, xs + (long long)p * c);
+      }
+      cp_async_commit();
+    }
+  }
+  if ((int)threadIdx.x < gs) kst[threadIdx.x] = kload;
+  __syncthreads();  // K of the slice's groups
+  float kk[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) kk[i] = kst[(j * kVec + i) / cpg];
+
+  // mean_d of each group: the sum of d = x - K over the cluster, each
+  // batch of this thread's vectors as it lands in the tile (it reads back
+  // only what it copied: no block barrier before)
+  float acc[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
+  {
+    int k = 0;
+#pragma unroll
+    for (int bt = 0; bt < kCopyBatches; ++bt) {
+      cp_async_wait_batch<kCopyBatches>(bt);
+#pragma unroll 4
+      for (const int end = m * (bt + 1) / kCopyBatches; k < end; ++k) {
+        float f[kVec];
+        unpack16(tv[(r0 + k * rsteps) * nj], f);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[i] += f[i] - kk[i];
+      }
+    }
+  }
+  group_block_sums(acc, red, bsum, j, r0, rsteps, slice_c, cpg);
+  const float fcnt = (float)((long long)hw * cpg);
+  cluster_sync(ranks);
+  for (int g = threadIdx.x; g < gs; g += blockDim.x) {
+    float t = 0.f;
+    for (int r = 0; r < ranks; ++r) t += cluster.map_shared_rank(bsum, r)[g];
+    mst[g] = t / fcnt;
+  }
+  __syncthreads();
+  float md[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) md[i] = mst[(j * kVec + i) / cpg];
+
+  // rstd: the centred sum of squares over the cluster
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
+#pragma unroll 4
+  for (int p = r0; p < np; p += rsteps) {
+    float f[kVec];
+    unpack16(tv[p * nj], f);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const float dc = (f[i] - kk[i]) - md[i];
+      acc[i] += dc * dc;
+    }
+  }
+  group_block_sums(acc, red, bsq, j, r0, rsteps, slice_c, cpg);
+  cluster_sync(ranks);
+  for (int g = threadIdx.x; g < gs; g += blockDim.x) {
+    float t = 0.f;
+    for (int r = 0; r < ranks; ++r) t += cluster.map_shared_rank(bsq, r)[g];
+    const float rv = rsqrtf(t / fcnt + eps);
+    rst[g] = rv;
+    if (rank == 0) {
+      const long long o = n * groups + (long long)blockIdx.y * gs + g;
+      dmean[o] = mst[g];
+      rstd[o] = rv;
+    }
+  }
+  // done with the other blocks' shared memory: arrive now, and wait for
+  // theirs only before leaving, so no block's shared memory goes while
+  // another reads it
+  if (ranks > 1) cluster_arrive();
+  __syncthreads();
+
+  // y = epilogue((d - mean_d) * rstd), 16 bytes a store; SiLU's
+  // reciprocal by __fdividef (2 ulp), without the IEEE division's
+  // slow-path branch in the loop that bounds the pass
+  float rs[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) rs[i] = rst[(j * kVec + i) / cpg];
+#pragma unroll 2
+  for (int p = r0; p < np; p += rsteps) {
+    float f[kVec];
+    unpack16(tv[p * nj], f);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      float v = ((f[i] - kk[i]) - md[i]) * rs[i];
+      if (kW) v = v * wv[i];
+      if (kB) v = v + bv[i];
+      if (kSilu) v = __fdividef(v, 1.f + expf(-v));
+      f[i] = v;
+    }
+    *reinterpret_cast<uint4*>(ys + (long long)p * c) = pack16(f);
+  }
+  if (ranks > 1) cluster_wait();
 }
 
 // One block per (hw tile, sample): grid (hw / hwb, n). Thread t sums
@@ -226,6 +486,65 @@ int launch_one_pass(const void* x, const void* w, const void* b, void* y,
   return (int)cudaGetLastError();
 }
 
+// The "cluster" route's shared memory: as _gn_cluster_smem in
+// ops/tiling.py
+inline size_t cluster_smem(int pixels, int slice_c, int cpg, int threads,
+                           size_t itemsize) {
+  const size_t vec = kVectorBytes / itemsize;
+  return (size_t)pixels * slice_c * itemsize +
+         4 * ((size_t)threads * vec + 5 * (size_t)(slice_c / cpg));
+}
+
+template <typename T>
+int launch_cluster(const void* x, const void* w, const void* b, void* y,
+                   void* dmean, void* rstd, int n, int hw, int c, int groups,
+                   float eps, int silu, int slice_c, int cluster, int pixels,
+                   int threads, cudaStream_t stream) {
+  constexpr int kVec = kVectorBytes / (int)sizeof(T);
+  const int cpg = c / groups;
+  const int nj = slice_c / kVec;
+  const size_t smem = cluster_smem(pixels, slice_c, cpg, threads, sizeof(T));
+  // the geometry of gn_one_pass_geometry: whole groups and vectors a slice,
+  // a vector column a thread, every pixel in one block, at least one each
+  if (slice_c < 1 || slice_c % cpg != 0 || slice_c % kVec != 0 ||
+      c % slice_c != 0 || cluster < 1 || cluster > kClusterMax ||
+      pixels < 1 || (long long)pixels * cluster < hw ||
+      (long long)pixels * (cluster - 1) >= hw || threads < 32 ||
+      threads > kClusterThreads || threads % 32 != 0 || threads % nj != 0 ||
+      slice_c / cpg > threads ||
+      smem > (size_t)kSmemBytes || n > 65535 || c / slice_c > 65535 ||
+      !is_aligned(x, kVectorBytes) || !is_aligned(y, kVectorBytes))
+    return (int)cudaErrorInvalidValue;
+  using Fn = void (*)(const T*, const float*, const float*, T*, float*,
+                      float*, int, int, int, int, int, float);
+  static const Fn forms[8] = GN_FORMS(gn_one_pass_kernel_cluster, T);
+  const Fn kernel = forms[form(silu, w, b)];
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, c / slice_c, n);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<T*>(y),
+      static_cast<float*>(dmean), static_cast<float*>(rstd), hw, c, groups,
+      slice_c, pixels, eps);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_stats(const void* x, const void* shift, void* psum, void* psq,
                  int n, int hw, int c, int groups, int hwb,
@@ -269,18 +588,35 @@ bool shape_ok(int n, int hw, int c, int groups) {
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y). w / b: float32 [c] or null.
 // dmean / rstd: float32 [n, groups], dmean the mean less the group's first
-// element x[n, 0, g * c / groups]. silu: 1 = SiLU epilogue. staged: 1 =
-// the group's slab in shared memory (hw * c / groups * 4 bytes; gate
-// gn_one_pass_ok in ops/tiling.py), 0 = read x from device memory in each
-// pass.
+// element x[n, 0, g * c / groups]. silu: 1 = SiLU epilogue. route
+// (gn_one_pass_geometry in ops/tiling.py): 0 = "cluster" (slice_c
+// channels a cluster of `cluster` blocks, `pixels` pixels and `threads`
+// threads a block; x and y 16-byte aligned), 1 = "staged" (the group's
+// slab in shared memory, hw * c / groups * 4 bytes; gate gn_one_pass_ok),
+// 2 = "unstaged" (x read from device memory in each pass); the last four
+// are not read for routes 1 and 2.
 extern "C" int apex_gn_one_pass(const void* x, const void* w, const void* b,
                                 void* y, void* dmean, void* rstd, int n,
                                 int hw, int c, int groups, float eps,
-                                int silu, int staged, int dtype,
-                                void* stream) {
-  if (!shape_ok(n, hw, c, groups)) return (int)cudaErrorInvalidValue;
+                                int silu, int route, int slice_c,
+                                int cluster, int pixels, int threads,
+                                int dtype, void* stream) {
+  if (!shape_ok(n, hw, c, groups) || route < 0 || route > 2)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 0) {
+    if (dtype == 0)
+      return launch_cluster<float>(x, w, b, y, dmean, rstd, n, hw, c, groups,
+                                   eps, silu, slice_c, cluster, pixels,
+                                   threads, s);
+    if (dtype == 1)
+      return launch_cluster<__nv_bfloat16>(x, w, b, y, dmean, rstd, n, hw, c,
+                                           groups, eps, silu, slice_c,
+                                           cluster, pixels, threads, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  const int staged = route == 1;
   if (dtype == 0)
     return launch_one_pass<float>(x, w, b, y, dmean, rstd, n, hw, c, groups,
                                   eps, silu, staged, s);

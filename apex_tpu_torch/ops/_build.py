@@ -49,10 +49,10 @@ SIGNATURES = {
     # eps, rms, dtype, stream
     "apex_ln_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _i, _i, _vp],
     # dy, x, gamma, mean, invvar, dx, part_g, part_b, dgamma, dbeta (gamma
-    # and the four last may be null), rows, hidden, warps, blocks, rms,
-    # dtype, stream
+    # and the four last may be null), rows, hidden, form, vectors, warps,
+    # blocks (tiling.ln_bwd_geometry), rms, dtype, stream
     "apex_ln_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
-                    _i, _i, _i, _i, _i, _vp],
+                    _i, _i, _i, _i, _i, _i, _i, _vp],
     # q, k, v, bias (may be null), o, lse, bh, grid_y, grid_z, heads, sq,
     # sk, d, scale, causal, the bias's four strides, dtype, stream
     "apex_fa_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
@@ -94,9 +94,10 @@ SIGNATURES = {
     # p, u, ratios, row_ids, scalars, rows, stream
     "apex_lamb_stage2": [_vp, _vp, _vp, _vp, _vp, _ll, _vp],
     # x, w, b (both may be null), y, dmean, rstd, n, hw, c, groups, eps,
-    # silu, staged, dtype, stream
+    # silu, route, slice_c, cluster, pixels, threads
+    # (tiling.gn_one_pass_geometry), dtype, stream
     "apex_gn_one_pass": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f,
-                         _i, _i, _i, _vp],
+                         _i, _i, _i, _i, _i, _i, _i, _vp],
     # x, shift, psum, psq, n, hw, c, groups, hw_block, dtype, stream
     "apex_gn_stats": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
     # x, shift, dmean, rstd, w, b (both may be null), y, n, hw, c, groups,

@@ -32,9 +32,11 @@ from typing import Optional, Tuple
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.layer_norm_kernel import (_DTYPES, _check_device,
-                                                  _param_f32, _ptr)
-from apex_tpu_torch.ops.tiling import gn_hw_block, gn_one_pass_ok
+from apex_tpu_torch.ops.layer_norm_kernel import (_DTYPE_NAMES, _DTYPES,
+                                                  _check_device, _param_f32,
+                                                  _ptr)
+from apex_tpu_torch.ops.tiling import (GN_VECTOR_BYTES, gn_hw_block,
+                                       gn_one_pass_geometry, gn_one_pass_ok)
 
 ACTS = ("", "silu")
 Stats = Tuple[torch.Tensor, torch.Tensor]
@@ -160,11 +162,14 @@ def gn_one_pass(x3: torch.Tensor, groups: int,
                 bias: Optional[torch.Tensor], *, eps: float, act: str = ""
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-pass GroupNorm of x3 ``(n, hw, c)``: ``(y, mean_d, rstd)`` as
-    :func:`gn_one_pass_plain` returns them. CUDA tensors launch the kernel,
-    one block per (group, sample); a slab that fits shared memory
-    (:func:`~apex_tpu_torch.ops.tiling.gn_one_pass_ok`) is staged there,
-    a larger one is read from device memory in each pass. CPU tensors take
-    the plain version."""
+    :func:`gn_one_pass_plain` returns them. CUDA tensors launch the kernel
+    on the route :func:`~apex_tpu_torch.ops.tiling.gn_one_pass_geometry`
+    picks: thread block clusters over (sample, channel slice) whose blocks
+    stage their pixels' tile in shared memory; one block per (group,
+    sample) staging its slab as fp32 where a slice cannot be 16-byte
+    aligned; or, over :func:`~apex_tpu_torch.ops.tiling.gn_one_pass_ok`,
+    reading x from device memory in each pass. CPU tensors take the plain
+    version."""
     _check_act("gn_one_pass", act)
     if _check_device("gn_one_pass", x3):
         return gn_one_pass_plain(x3, groups, weight, bias, eps=eps, act=act)
@@ -172,6 +177,9 @@ def gn_one_pass(x3: torch.Tensor, groups: int,
     w = _param_f32("gn_one_pass", weight, x3, "weight")
     b = _param_f32("gn_one_pass", bias, x3, "bias")
     n, hw, c = x3.shape
+    geo = gn_one_pass_geometry(
+        n, hw, c, groups, _DTYPE_NAMES[x3.dtype],
+        aligned=x3.data_ptr() % GN_VECTOR_BYTES == 0)
     y = torch.empty_like(x3)
     dmean = torch.empty((n, groups), dtype=torch.float32, device=x3.device)
     rstd = torch.empty_like(dmean)
@@ -181,7 +189,8 @@ def gn_one_pass(x3: torch.Tensor, groups: int,
         err = lib.apex_gn_one_pass(
             x3.data_ptr(), _ptr(w), _ptr(b), y.data_ptr(), dmean.data_ptr(),
             rstd.data_ptr(), n, hw, c, groups, float(eps),
-            int(act == "silu"), int(gn_one_pass_ok(hw, c, groups)),
+            int(act == "silu"), geo.route_id,
+            geo.slice_c, geo.cluster, geo.pixels, geo.threads,
             _DTYPES[x3.dtype], stream)
     _build.launches["gn_one_pass"] += 1
     _build.check(err, "gn_one_pass")

@@ -22,9 +22,11 @@ from typing import Optional, Tuple
 import torch
 
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.tiling import LN_MAX_HIDDEN, ln_bwd_geometry
+from apex_tpu_torch.ops.tiling import (LN_MAX_HIDDEN, LN_VECTOR_BYTES,
+                                       ln_bwd_geometry)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _PARAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -175,9 +177,12 @@ def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor,
     (``(rows, 1)`` fp32; mean is not read, and may be None, when
     ``rms``). Returns ``(dx, dgamma, dbeta)`` as :func:`ln_bwd_plain`
     does (float32): dbeta is None when ``beta`` is, both are None when
-    ``gamma`` is. CUDA tensors launch the kernel: dgamma / dbeta are
-    summed over rows without atomics, so two runs give the same bits. CPU
-    tensors take the plain version."""
+    ``gamma`` is. CUDA tensors launch the kernel in the form
+    :func:`~apex_tpu_torch.ops.tiling.ln_bwd_geometry` picks from the
+    width, the dtype and whether dy2, x2 and gamma start on a 16-byte
+    boundary (a view at an odd offset takes a form that reads scalars):
+    dgamma / dbeta are summed over rows without atomics, so two runs give
+    the same bits. CPU tensors take the plain version."""
     if _check_device("ln_bwd", dy2):
         return ln_bwd_plain(dy2, x2, gamma, beta, mean, invvar, rms=rms)
     _check_rows("ln_bwd", dy2, "dy2")
@@ -192,15 +197,18 @@ def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor,
     if not rms:
         _check_f32("ln_bwd", mean, (rows, 1), dy2, "mean")
     _check_f32("ln_bwd", invvar, (rows, 1), dy2, "invvar")
-    warps, blocks = ln_bwd_geometry(rows, hidden)
+    geo = ln_bwd_geometry(
+        rows, hidden, _DTYPE_NAMES[dy2.dtype],
+        aligned=all(t.data_ptr() % LN_VECTOR_BYTES == 0
+                    for t in (dy2, x2, gamma) if t is not None))
     f32 = dict(dtype=torch.float32, device=dy2.device)
     dx = torch.empty_like(dy2)
     part_g = dgamma = part_b = dbeta = None
     if gamma is not None:
-        part_g = torch.empty((blocks, hidden), **f32)
+        part_g = torch.empty((geo.blocks, hidden), **f32)
         dgamma = torch.empty((hidden,), **f32)
         if beta is not None:
-            part_b = torch.empty((blocks, hidden), **f32)
+            part_b = torch.empty((geo.blocks, hidden), **f32)
             dbeta = torch.empty((hidden,), **f32)
     lib = _build.lib()
     with torch.cuda.device(dy2.device):
@@ -209,8 +217,8 @@ def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor,
             dy2.data_ptr(), x2.data_ptr(), _ptr(gamma),
             None if rms else mean.data_ptr(), invvar.data_ptr(),
             dx.data_ptr(), _ptr(part_g), _ptr(part_b), _ptr(dgamma),
-            _ptr(dbeta), rows, hidden, warps, blocks, int(rms),
-            _DTYPES[dy2.dtype], stream)
+            _ptr(dbeta), rows, hidden, geo.form_id, geo.vectors, geo.warps,
+            geo.blocks, int(rms), _DTYPES[dy2.dtype], stream)
     _build.launches["ln_bwd"] += 1
     _build.check(err, "ln_bwd")
     return dx, dgamma, dbeta

@@ -12,6 +12,7 @@ of shared memory, and registers, not a scratchpad, hold the working set.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 # LayerNorm (csrc/layer_norm.cu), two compile-time forms chosen by width:
 # - up to LN_SMEM_MAX_HIDDEN: one warp per row, LN_WARPS_PER_BLOCK rows per
@@ -28,27 +29,93 @@ LN_SMEM_MAX_HIDDEN = 8192
 LN_MAX_HIDDEN = 2 ** 30
 LN_WIDE_WARPS = 16
 
-# LayerNorm backward (csrc/layer_norm.cu): one warp per row; each warp
-# stages xhat and dy of its row and keeps running dgamma / dbeta sums, four
-# fp32 rows of `hidden` in shared memory. Warps per block fill up to
-# LN_BWD_SMEM_BYTES (8 warps at hidden 768, 1 at 8192); at most
-# LN_BWD_MAX_BLOCKS blocks (2 per SM of an H100), each writing one row of
-# dgamma / dbeta partial sums that a second launch adds up.
+# LayerNorm backward (csrc/layer_norm.cu), three forms chosen by
+# ln_bwd_geometry, each writing one row of dgamma / dbeta partial sums a
+# block that a second launch adds up (blocks of LN_REDUCE_THREADS threads
+# over ln_reduce_cols columns each, the partial rows split over the rest
+# of the threads in a fixed order):
+# - "reg": one warp per row, each lane holding its `vectors` 16-byte
+#   vectors of x and dy in registers (at most LN_REG_LANE_VALUES values a
+#   lane: 4 bf16 or 8 fp32 vectors, rows up to 1024 columns) and its
+#   columns' running dgamma / dbeta sums across every row its warp takes.
+#   Blocks of LN_REG_WARPS warps, LN_REG_BLOCKS_PER_SM of them on each of
+#   LN_SMS SMs at most (the persistent grid). Only rows whose width is a
+#   whole number of vectors, from 16-byte aligned dy, x and gamma (read
+#   as vectors too), take it.
+# - "smem": one warp per row; each warp stages xhat and dy of its row and
+#   keeps running dgamma / dbeta sums, four fp32 rows of `hidden` in
+#   shared memory. Warps per block fill up to LN_BWD_SMEM_BYTES (8 warps
+#   at hidden 768, 1 at 8192); at most LN_BWD_MAX_BLOCKS blocks.
+# - "wide", rows above LN_SMEM_MAX_HIDDEN: a block of LN_WIDE_WARPS warps
+#   per strided set of rows, its running sums in its partial row.
+LN_BWD_FORMS = ("reg", "smem", "wide")
+LN_REG_WARPS = 8
+LN_REG_LANE_VALUES = 32
+LN_REG_BLOCKS_PER_SM = {"bfloat16": 2, "float32": 1}
+LN_SMS = 132
+LN_VECTOR_BYTES = 16
 LN_BWD_SMEM_BYTES = 128 * 1024
 LN_BWD_MAX_WARPS = 8
 LN_BWD_MAX_BLOCKS = 264
+LN_REDUCE_THREADS = 256
+LN_REDUCE_COLS = (8, 32)
+LN_REDUCE_WIDE_COLS = 4224
+LN_REDUCE_FEW_ROWS = 32
+_ITEMSIZE = {"bfloat16": 2, "float32": 4}
 
 
-def ln_bwd_geometry(rows: int, hidden: int):
-    """``(warps per block, blocks)`` of the LayerNorm backward launch. A
-    row wider than ``LN_SMEM_MAX_HIDDEN`` takes a whole block of
-    ``LN_WIDE_WARPS`` warps, whose running dgamma / dbeta sums live in its
-    row of the partial buffer instead of shared memory."""
+@dataclasses.dataclass(frozen=True)
+class LnBwdGeometry:
+    """The LayerNorm backward's launch, mirrored by the ``constexpr``
+    values of ``csrc/layer_norm.cu``: its ``form`` (one of
+    ``LN_BWD_FORMS``), the 16-byte ``vectors`` of a row each lane holds
+    (the "reg" form; 0 otherwise), ``warps`` a block and ``blocks``, each
+    block one row of the (blocks, hidden) partial sums."""
+    form: str
+    vectors: int
+    warps: int
+    blocks: int
+
+    @property
+    def form_id(self) -> int:
+        """The form as the C entry takes it."""
+        return LN_BWD_FORMS.index(self.form)
+
+
+def ln_reduce_cols(hidden: int, nblk: int) -> int:
+    """Columns a block of the dgamma / dbeta reduce launch takes over
+    ``nblk`` partial rows of ``hidden``: 8 (one 32-byte sector of each
+    partial row, so a short row's sum spreads over many blocks) where the
+    partial rows are more than LN_REDUCE_FEW_ROWS and the row is shorter
+    than LN_REDUCE_WIDE_COLS (32 SMs' worth of 32-column blocks), else 32
+    (fewer, larger blocks)."""
+    narrow, wide = LN_REDUCE_COLS
+    if nblk > LN_REDUCE_FEW_ROWS and hidden < LN_REDUCE_WIDE_COLS:
+        return narrow
+    return wide
+
+
+def ln_bwd_geometry(rows: int, hidden: int, dtype: str = "bfloat16",
+                    aligned: bool = True) -> LnBwdGeometry:
+    """The LayerNorm backward's geometry for ``rows`` x ``hidden`` of
+    ``dtype`` ("bfloat16" or "float32"); ``aligned``: dy, x and gamma
+    (where there is one) start on a 16-byte boundary. The "reg" form
+    takes every width up to ``32 * LN_REG_LANE_VALUES`` that is a whole
+    number of 16-byte vectors from aligned tensors; other rows up to
+    ``LN_SMEM_MAX_HIDDEN`` take the "smem" form, wider ones "wide"."""
+    vec = LN_VECTOR_BYTES // _ITEMSIZE[dtype]
+    if aligned and hidden % vec == 0 \
+            and hidden <= 32 * LN_REG_LANE_VALUES:
+        blocks = max(1, min(LN_SMS * LN_REG_BLOCKS_PER_SM[dtype],
+                            -(-rows // LN_REG_WARPS)))
+        return LnBwdGeometry("reg", -(-hidden // (32 * vec)), LN_REG_WARPS,
+                             blocks)
     if hidden > LN_SMEM_MAX_HIDDEN:
-        return LN_WIDE_WARPS, max(1, min(LN_BWD_MAX_BLOCKS, rows))
+        return LnBwdGeometry("wide", 0, LN_WIDE_WARPS,
+                             max(1, min(LN_BWD_MAX_BLOCKS, rows)))
     warps = max(1, min(LN_BWD_MAX_WARPS, LN_BWD_SMEM_BYTES // (16 * hidden)))
     blocks = max(1, min(LN_BWD_MAX_BLOCKS, -(-rows // warps)))
-    return warps, blocks
+    return LnBwdGeometry("smem", 0, warps, blocks)
 
 
 # flash attention, compiled for head_dim 64 only. The fp32 forward's FMA
@@ -239,14 +306,48 @@ def fa_batch_heads_grid(bh: int):
     return gy, gz
 
 
-# GroupNorm (csrc/group_norm.cu); the kernels take any hw. One-pass: one
-# block per (group, sample) stages the group's hw x (c / groups) values as
-# fp32 in dynamic shared memory when they fit in GN_ONE_PASS_SMEM_BYTES: the
-# 227 KB a Hopper block may use, less 1 KB for the block's static reduction
-# scratch. Two-pass: one block per (hw tile, sample), a tile of at most
-# GN_TILE_ELEMS pixels x channels unless the caller names its hw_block.
+# GroupNorm (csrc/group_norm.cu); the kernels take any hw. Two-pass: one
+# block per (hw tile, sample), a tile of at most GN_TILE_ELEMS pixels x
+# channels unless the caller names its hw_block. One-pass, when the (sample,
+# group) slab fits GN_ONE_PASS_SMEM_BYTES as fp32 (gn_one_pass_ok: the 227
+# KB a Hopper block may use, less 1 KB for a block's static scratch), in
+# one of three routes (gn_one_pass_geometry):
+# - "cluster": a thread block cluster of `cluster` blocks takes a (sample,
+#   channel slice) of `slice_c` channels, whole groups and a whole number
+#   of 16-byte vectors; its blocks split the sample's pixels, `pixels`
+#   each, and stage their (pixels x slice_c) tile in x's dtype in shared
+#   memory, copied 16 bytes at a time. The per-group sums (the mean, then
+#   the centred squares) are added across the cluster through distributed
+#   shared memory. Clusters of at most GN_CLUSTER_MAX blocks (the portable
+#   size), each block's shared memory within GN_ONE_PASS_SMEM_BYTES, the
+#   cluster doubled while the grid holds fewer than GN_MIN_BLOCKS blocks.
+#   `threads` is a multiple of the slice's vectors and of 32, so each
+#   thread keeps one vector column of the tile, at most GN_CLUSTER_THREADS
+#   and no more than give each thread GN_THREAD_VECTORS of the tile's
+#   vectors (small tiles: smaller blocks, more of them an SM).
+# - "staged": one block per (group, sample) stages the group's hw x cpg
+#   values as fp32 and reads them with scalar loads; slices that cannot be
+#   16-byte aligned, x not 16-byte aligned, and slabs of at most
+#   GN_STAGED_MAX_SLAB values take it (there a block's few loads a thread
+#   cost less than the cluster route's two block reductions and barriers).
+#   The threshold keeps only small ragged cases off the cluster route,
+#   such as chip_smoke.py's 2 x 16 x 16 x 64 (512 a slab), which its norm
+#   mode timed about twice as fast staged on an H100; no launch of the
+#   UNet stack falls under it (its smallest slab, 8 x 8 x 8 x 1280, is
+#   2560 values and timed 8 % faster on the cluster route), and the cut
+#   between 512 and 2560 was not timed finer.
+# - "unstaged": an explicit one-pass over the gate reads x from device
+#   memory in each of its passes.
+GN_ONE_PASS_ROUTES = ("cluster", "staged", "unstaged")
 GN_ONE_PASS_SMEM_BYTES = 227 * 1024 - 1024
 GN_TILE_ELEMS = 32768
+GN_CLUSTER_MAX = 8
+GN_CLUSTER_THREADS = 512
+GN_MIN_BLOCKS = 128
+GN_THREAD_VECTORS = 4
+GN_VECTOR_BYTES = 16
+GN_STAGED_THREADS = 512
+GN_STAGED_MAX_SLAB = 2048
 
 
 def gn_one_pass_ok(hw: int, c: int, g: int) -> bool:
@@ -257,6 +358,88 @@ def gn_one_pass_ok(hw: int, c: int, g: int) -> bool:
     explicit one-pass over the gate reads x from device memory in each of
     its passes."""
     return hw * (c // g) * 4 <= GN_ONE_PASS_SMEM_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class GnOnePassGeometry:
+    """The one-pass GroupNorm launch, mirrored by ``csrc/group_norm.cu``:
+    its ``route`` ("cluster", "staged" or "unstaged"), the channels a
+    block takes (``slice_c``: whole groups), the blocks of a cluster that
+    split a sample's pixels, ``pixels`` a block (the last may take fewer),
+    ``threads`` a block and its dynamic shared memory (``smem_bytes``).
+    The grid is (cluster, c / slice_c, n) on the "cluster" route, else
+    (groups, n)."""
+    route: str
+    slice_c: int
+    cluster: int
+    pixels: int
+    threads: int
+    smem_bytes: int
+
+    @property
+    def route_id(self) -> int:
+        """The route as the C entry takes it."""
+        return GN_ONE_PASS_ROUTES.index(self.route)
+
+
+def _gn_cluster_smem(pixels: int, slice_c: int, itemsize: int,
+                     threads: int, cpg: int) -> int:
+    """The "cluster" block's dynamic shared memory: the tile in x's dtype,
+    one fp32 sum a value each thread holds (threads x vector values), and
+    five fp32 words a group of the slice (its two block sums, K, the mean
+    and rstd)."""
+    vec = GN_VECTOR_BYTES // itemsize
+    return (pixels * slice_c * itemsize
+            + 4 * (threads * vec + 5 * (slice_c // cpg)))
+
+
+def gn_one_pass_geometry(n: int, hw: int, c: int, groups: int,
+                         dtype: str = "bfloat16",
+                         aligned: bool = True) -> GnOnePassGeometry:
+    """The one-pass GroupNorm's geometry for x ``(n, hw, c)`` of ``dtype``
+    ("bfloat16" or "float32") in ``groups`` groups; ``aligned``: x starts
+    on a 16-byte boundary. A shape over :func:`gn_one_pass_ok` takes
+    "unstaged"; a slab of more than GN_STAGED_MAX_SLAB values whose slice
+    of whole groups is a whole number of 16-byte vectors, from aligned x,
+    "cluster" (the smallest such slice; the
+    smallest cluster whose tile fits, doubled up to GN_CLUSTER_MAX while
+    the grid is under GN_MIN_BLOCKS blocks and every block keeps a pixel);
+    any other shape "staged", one block per (group, sample)."""
+    cpg = c // groups
+    if not gn_one_pass_ok(hw, c, groups):
+        return GnOnePassGeometry("unstaged", cpg, 1, hw, GN_STAGED_THREADS,
+                                 0)
+    staged = GnOnePassGeometry("staged", cpg, 1, hw, GN_STAGED_THREADS,
+                               hw * cpg * 4)
+    itemsize = _ITEMSIZE[dtype]
+    vec = GN_VECTOR_BYTES // itemsize
+    slice_c = math.lcm(cpg, vec)
+    step = math.lcm(slice_c // vec, 32)
+    if (not aligned or c % slice_c or step > GN_CLUSTER_THREADS
+            or hw * cpg <= GN_STAGED_MAX_SLAB):
+        return staged
+    nj = slice_c // vec
+
+    def threads_for(cl):   # GN_THREAD_VECTORS of the tile's vectors each
+        need = -(-(-(-hw // cl) * nj) // GN_THREAD_VECTORS)
+        return min(GN_CLUSTER_THREADS // step * step, -(-need // step) * step)
+
+    def smem(cl):
+        return _gn_cluster_smem(-(-hw // cl), slice_c, itemsize,
+                                threads_for(cl), cpg)
+
+    cluster = 1
+    while cluster < GN_CLUSTER_MAX and smem(cluster) > GN_ONE_PASS_SMEM_BYTES:
+        cluster *= 2
+    if smem(cluster) > GN_ONE_PASS_SMEM_BYTES:
+        return staged
+    slices = c // slice_c
+    while (cluster < GN_CLUSTER_MAX and n * slices * cluster < GN_MIN_BLOCKS
+           and (2 * cluster - 1) * -(-hw // (2 * cluster)) < hw):
+        cluster *= 2
+    pixels = -(-hw // cluster)
+    return GnOnePassGeometry("cluster", slice_c, cluster, pixels,
+                             threads_for(cluster), smem(cluster))
 
 
 def gn_hw_block(hw: int, c: int, hw_block=None) -> int:

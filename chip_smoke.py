@@ -9,9 +9,11 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch / CUDA
    versions, and the build of every ``apex_tpu_torch/csrc/*.cu`` for
    ``sm_90a`` from the checkout, with its seconds; ptxas's registers,
-   spills and stack of the tensor-core flash kernels and of the fp32
-   route's FMA-pipe forward and backward pair (``-Xptxas -v``; their
-   unbiased forms must spill nothing).
+   spills and stack of the tensor-core flash kernels, of the fp32
+   route's FMA-pipe forward and backward pair, of every instantiation of
+   the LayerNorm backward's register form and of the one-pass GroupNorm's
+   cluster route (``-Xptxas -v``; the flash pair's unbiased forms and
+   every register-form LayerNorm backward must spill nothing).
 2. ``kernel``: each CUDA kernel against its plain PyTorch version on the
    same card inputs, at the main path's shapes and a few ragged ones, in
    bf16 and fp32: max error and tolerance; kernel / plain / library times
@@ -21,7 +23,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    with inputs rotated through more than the 50 MB L2; and the least
    time the card could take (bytes at 3.35 TB/s, operations at
    989 TFLOP/s bf16 or 67 TFLOP/s fp32). Kernels: LayerNorm forward and
-   backward (LayerNorm at GPT-2's shapes; RMSNorm with and without gamma
+   backward (LayerNorm at GPT-2's shapes and BERT-large's 4096 x 1024
+   bf16; RMSNorm with and without gamma
    and LayerNorm without gamma at BERT-large's 4096 x 1024; LayerNorm and
    RMSNorm at 64 x 12288, the form for rows wider than 8192),
    flash-attention forward, its backward's dq and dk / dv kernels (one
@@ -48,12 +51,14 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    computes the same function (``torch._fused_sgd_``,
    ``torch._fused_adamw_`` plus a bf16 cast, ``torch._fused_adagrad_``);
    and the NHWC GroupNorm kernels (32 groups): one-pass at Stable
-   Diffusion's 8 x 64 x 64 x 320 (bf16, SiLU), stats + apply at 8 x 64 x
-   64 x 960 and the VAE decoder's 1 x 512 x 512 x 128, both algorithms at
-   the JAX package's AOT shape 8 x 32 x 32 x 256 in fp32 and bf16, the
-   one-pass form for a slab over its gate, ragged forms (no affine, gamma
-   only, no SiLU, a given tile), 75 x 75 latents (hw not a multiple of
-   8) on both routes and a group of mean 1000 and std 0.01
+   Diffusion's 8 x 64 x 64 x 320 (bf16, SiLU) and the UNet stack's 8 x
+   32 x 32 x 640, 8 x 16 x 16 x 1280 and 8 x 8 x 8 x 1280, stats + apply
+   at 8 x 64 x 64 x 960 and the VAE decoder's 1 x 512 x 512 x 128, both
+   algorithms at the JAX package's AOT shape 8 x 32 x 32 x 256 in fp32
+   and bf16, the one-pass form for a slab over its gate, ragged forms
+   (no affine, gamma only, no SiLU, a given tile), 75 x 75 latents (hw
+   not a multiple of 8) on both routes and a group of mean 1000 and std
+   0.01
    (finite, within 1e-4 of float64), each against its plain version, two
    runs bit-identical, with ``F.group_norm`` (+ ``F.silu``) on the NCHW
    view as the library yardstick; and the megatron softmax kernels
@@ -186,7 +191,9 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    same set-up, both at the ring's K shard (6.29 MB bf16, 12.6 MB fp32:
    the writes fit in the 50 MB L2, ``writes_fit_l2``) and at 512 MiB and
    1 GiB (``sizes``), where no kernel and no ``copy_`` may read under its
-   bytes bound, with lines through each pair (``fit``: a fixed ms and a
+   bytes bound (and where a profile counts only if its records cover 90 %
+   of the card's clock over the same calls, ``SOLO_MIN_COVER``), with
+   lines through each pair (``fit``: a fixed ms and a
    streaming TB/s); the halo strips and strips of 512 MiB an edge for
    ``halo_put``. Beside them rank 0's device time inside the 4- and
    2-rank rings (which includes the other processes' time slices), the
@@ -198,10 +205,15 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    ``python3 chip_smoke.py flash-bwd [ROOT]`` time the fp32 flash
    forward, and the backward's dq and dk / dv kernels, against fp32
    SDPA's forward and backward at GPT-2's causal and BERT's shapes, 200 x
-   333 and b * h = 65,600, and ``python3 chip_smoke.py softmax [ROOT]``
+   333 and b * h = 65,600, ``python3 chip_smoke.py softmax [ROOT]``
    the megatron softmax kernels at row 7's masked case, rows 6 and 8 and
-   the kernel phase's other masked cases against ``torch.softmax``, the
-   same way (parent and change in turns in one call).
+   the kernel phase's other masked cases against ``torch.softmax``, and
+   ``python3 chip_smoke.py norm [ROOT]`` the LayerNorm backward at 4096 x
+   768 and 4096 x 1024 against ``native_layer_norm_backward`` and the
+   one-pass GroupNorm at the UNet's six one-pass shapes against
+   ``F.group_norm`` + ``F.silu``, with the LayerNorm forward and the
+   two-pass GroupNorm pair as witnesses, the same way (parent and change
+   in turns in one call).
 12. ``ring``: ring attention at GPT-2 small's attention widths (12 heads x
    64, batch 1) over a 16,384-token bf16 context at worlds 4 and 2
    (``transport="rdma"``): causal contiguous, causal zigzag and
@@ -224,7 +236,9 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    with no arena made or grown after the first exchange.
 
 Then a ``profiler`` line (the passes of torch.profiler this process made
-to time kernels, and how many of them lost records and were made again),
+to time kernels, how many of them lost records and were made again, the
+cover of each that was held to the card's clock, and each that covered
+too little and was made again),
 a ``{"kernels": [...]}`` line (launches counted over the main path:
 the forward of phase 3, the serve run of phase 4, the 5 train steps of
 phase 6, the 5 BERT steps of phase 7, the optimizer steps of phase 8,
@@ -678,9 +692,12 @@ def _same_bits(a, b) -> bool:
 # (1 of 30 flash launches once, 15 of 20 memcpys once, 1 of 2 gemms of an
 # fp32 MLP's one-call profile in 1 pass of 20)
 PROFILE_TRIES = 8
-# passes of ``_per_call_ms`` in this process, and those whose profile lost
-# records (the ``profiler`` line reports them)
-PROFILE_PASSES = {"passes": 0, "lost": 0}
+# passes of ``_per_call_ms`` in this process, those whose profile lost
+# records, the cover of each pass held to the clock (``min_cover``: its
+# records' device ms over the clock's), and each such pass whose records
+# covered too little (``short``: device and clock ms a call); the
+# ``profiler`` line reports them
+PROFILE_PASSES = {"passes": 0, "lost": 0, "covers": [], "short": []}
 
 
 def _profile(fn):
@@ -708,7 +725,7 @@ def _profile(fn):
     return us, runs
 
 
-def _per_call_ms(fn, reps, one):
+def _per_call_ms(fn, reps, one, min_cover=None):
     """``({kernel: mean device ms per call}, the runs of one call)`` of
     ``fn`` over ``reps`` calls, or ``({}, what was seen)`` where the
     profile of the calls did not record ``reps`` times each kernel of one
@@ -718,12 +735,19 @@ def _per_call_ms(fn, reps, one):
     never adds one, so a pass counts only where the calls' profile holds
     ``reps`` times that count of every kernel: a record lost in the
     calls' profile fails the pass, one lost in the one-call profile
-    does not."""
+    does not. With ``min_cover``, for calls that keep the card busy back
+    to back, the pass also fails where the records' durations add up to
+    less than that share of the calls' time between two CUDA events (the
+    card's own clock): records whose time ranges were cut short."""
+    import torch
     _, now = _profile(fn)
+    clock = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
     def loop():
+        clock[0].record()
         for _ in range(reps):
             fn()
+        clock[1].record()
 
     us, runs = _profile(loop)
     for k, n in list(now.items()) + [(k, n // reps) for k, n in runs.items()]:
@@ -733,6 +757,14 @@ def _per_call_ms(fn, reps, one):
         PROFILE_PASSES["lost"] += 1
         return {}, {"one call": now, f"{reps} calls": runs,
                     "most seen in one call": dict(one)}
+    if min_cover is not None:
+        device, wall = sum(us.values()) / 1e3, clock[0].elapsed_time(clock[1])
+        PROFILE_PASSES["covers"].append(device / wall)
+        if device < min_cover * wall:
+            PROFILE_PASSES["short"].append(
+                {"device_ms": device / reps, "clock_ms": wall / reps,
+                 "kernels": {k: t / 1e3 / reps for k, t in us.items()}})
+            return {}, {"records' device ms": device, "clock ms": wall}
     return {k: t / 1e3 / reps for k, t in us.items()}, dict(one)
 
 
@@ -1109,6 +1141,12 @@ SOLO_SHIFTS = [("bf16", PEER_SPEC["timed_shift"]),
 # the halo rows': the halo phase's strips, and strips whose edges are 512
 # MiB each (both the whole-shard plan: each edge is the whole shard)
 SOLO_STRIPS = [PEER_SPEC["timed_strips"], (2, 16384, 8192)]
+# the least share of a profile's clock (CUDA events around its calls) that
+# the calls' device records must cover for a reading beyond the L2 to
+# count: those calls keep the card busy back to back (the host enqueues
+# far faster than a ~0.7 ms copy drains), so records that cover less lost
+# time, and the pass is made again like one that lost records
+SOLO_MIN_COVER = 0.9
 
 
 def _abs_err(got, want):
@@ -1163,7 +1201,10 @@ def _remote_copy_solo(dev):
         sets = [(_seeded(0, 950 + 20 * i + j, numel, dtype, dev),)
                 for j in range(n_sets(2 * nbytes))]
         err = max(_abs_err(shift(x), x) for (x,) in sets)
-        kern = device_kernels(shift, sets, 20)
+        # readings beyond the L2 are held to their bytes bound: their
+        # profiles are held to the clock too
+        cover = SOLO_MIN_COVER if 2 * nbytes >= 2 * L2_BYTES else None
+        kern = device_kernels(shift, sets, 20, cover)
         outs = [(torch.empty_like(x), x) for (x,) in sets]
         view = arena_view(nbytes)
         raw = [(x.view(torch.uint8),) for (x,) in sets]
@@ -1173,9 +1214,9 @@ def _remote_copy_solo(dev):
             "wait": _pick(kern, "peer_wait_kernel"),
             "call_ms": bench_ms(shift, sets, 20),
             # peer_wait's copy-out as one library call
-            "copy_ms": device_ms(lambda o, x: o.copy_(x), outs, 20),
+            "copy_ms": device_ms(lambda o, x: o.copy_(x), outs, 20, cover),
             # peer_put's: one copy_ into the arena
-            "library_ms": device_ms(lambda x: view.copy_(x), raw, 20),
+            "library_ms": device_ms(lambda x: view.copy_(x), raw, 20, cover),
             "library_call_ms": bench_ms(lambda x: view.copy_(x), raw, 20)})
         del sets, outs, raw, view, kern
         torch.cuda.empty_cache()
@@ -1189,7 +1230,8 @@ def _remote_copy_solo(dev):
             lo, hi = halo(x)
             err = max(err, _abs_err(lo, x[-1:]), _abs_err(hi, x[:1]))
             del lo, hi
-        kern = device_kernels(halo, sets, 20)
+        cover = SOLO_MIN_COVER if edge >= L2_BYTES else None
+        kern = device_kernels(halo, sets, 20, cover)
         view = arena_view(edge)
         raw = [(x.reshape(-1).view(torch.uint8),) for (x,) in sets]
         # halo_put's: one copy_ of the strips into the arena for each
@@ -1200,7 +1242,7 @@ def _remote_copy_solo(dev):
             "wait": _pick(kern, "peer_wait_kernel"),
             "call_ms": bench_ms(halo, sets, 20),
             "library_ms": device_ms(lambda x: (view.copy_(x), view.copy_(x)),
-                                    raw, 20)})
+                                    raw, 20, cover)})
         del sets, raw, view, kern
         torch.cuda.empty_cache()
     g1.close()
@@ -1445,11 +1487,169 @@ def _softmax_solo(dev):
     return out
 
 
+# the cases of ``norm`` mode: the LayerNorm backward at GPT-2's and
+# BERT-large's widths and the kernel phase's other backward cases (rows,
+# hidden, dtype, rms, gamma), the one-pass GroupNorm at the UNet's six
+# one-pass shapes (bf16, SiLU, weight and bias) and the kernel phase's
+# other one-pass cases (n, h, w, c, dtype, act, affine; 64 x 64 x 960 is
+# over the gate: the form that reads x in each pass), and as witnesses
+# the LayerNorm forward and the two-pass GroupNorm kernels at their main
+# shapes
+NORM_LN_BWD = [(4096, 768, "bf16", False, True),
+               (4096, 1024, "bf16", False, True)] + [
+    (rows, hidden, dt, rms, gamma) for dt in ("bf16", "fp32")
+    for rows, hidden, rms, gamma in (
+        (1000, 768, False, True), (37, 1600, False, True),
+        (4096, 1024, True, True), (4096, 1024, True, False),
+        (4096, 1024, False, False), (64, 12288, False, True),
+        (64, 12288, True, True))] + [(4096, 768, "fp32", False, True)]
+NORM_GN_ONE_PASS = [(8, 64, 64, 320, "bf16", "silu", "wb"),
+                    (8, 32, 32, 320, "bf16", "silu", "wb"),
+                    (8, 32, 32, 640, "bf16", "silu", "wb"),
+                    (8, 16, 16, 640, "bf16", "silu", "wb"),
+                    (8, 16, 16, 1280, "bf16", "silu", "wb"),
+                    (8, 8, 8, 1280, "bf16", "silu", "wb"),
+                    (8, 32, 32, 256, "fp32", "silu", "wb"),
+                    (8, 32, 32, 256, "bf16", "silu", "wb"),
+                    (8, 64, 64, 960, "bf16", "silu", "wb"),
+                    (2, 16, 16, 64, "fp32", "silu", None),
+                    (2, 16, 16, 64, "bf16", "", "w"),
+                    (2, 75, 75, 320, "bf16", "silu", "wb"),
+                    (2, 32, 32, 256, "fp32", "", None)]
+NORM_LN_FWD = (4096, 768)
+NORM_GN_TWO_PASS = (8, 64, 64, 960)
+
+
+def _norm_solo(dev):
+    """The norm kernels at the NORM_* cases: device ms (torch.profiler,
+    inputs rotated beyond the L2; ``kernels`` splits a call's ms by
+    kernel) beside the bytes bound (each input read once, each output
+    written once) and the library call: for ``ln_bwd``
+    ``native_layer_norm_backward`` (none for RMSNorm), for ``ln_fwd``
+    ``F.layer_norm``, for the GroupNorm kernels ``F.group_norm`` (+
+    ``F.silu``) on the NCHW view (the two-pass pair's: the whole
+    GroupNorm)."""
+    import torch
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.group_norm_kernel import (
+        gn_apply, gn_moments, gn_one_pass, gn_shift, gn_stats)
+    from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_fwd,
+                                                      ln_fwd_plain)
+    from apex_tpu_torch.ops.tiling import gn_hw_block
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tdt = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def record(kern, nbytes, library, **shape):
+        return dict(ms=sum(kern.values()), kernels=kern, library_ms=library,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+                    **shape)
+
+    out = {}
+    for rows, hidden, dt, rms, affine in NORM_LN_BWD:
+        t, es = tdt[dt], 2 if dt == "bf16" else 4
+        nparam = (0 if not affine else 2 if rms else 3) * hidden * 4
+        nbytes = 3 * rows * hidden * es + rows * (4 if rms else 8) + nparam
+        sets, lsets = [], []
+        for _ in range(n_sets(nbytes)):
+            x, dy = randn(rows, hidden, dtype=t), randn(rows, hidden,
+                                                        dtype=t)
+            g = randn(hidden) if affine else None
+            b = randn(hidden) if affine and not rms else None
+            _, mu, iv = ln_fwd_plain(x, g, b, eps=1e-5, rms=rms)
+            sets.append((dy, x, g, b, None if rms else mu, iv))
+            if not rms:
+                gl = None if g is None else g.to(t)
+                bl = None if b is None else b.to(t)
+                _, lmu, lrs = torch.ops.aten.native_layer_norm(
+                    x, [hidden], gl, bl, 1e-5)
+                lsets.append((dy, x, lmu, lrs, gl, bl))
+        kern = device_kernels(lambda *a: ln_bwd(*a, rms=rms), sets, 50)
+        library = None if rms else device_ms(
+            lambda dy, x, mu, rs, gl, bl:
+            torch.ops.aten.native_layer_norm_backward(
+                dy, x, [hidden], mu, rs, gl, bl,
+                [True, gl is not None, bl is not None]), lsets, 50)
+        form = ("rms" if rms else "ln") + ("" if affine else "_nogamma")
+        out[f"ln_bwd {form} {rows}x{hidden} {dt}"] = record(
+            kern, nbytes, library, rows=rows, hidden=hidden, dtype=dt,
+            form=form)
+        del sets, lsets
+    rows, hidden = NORM_LN_FWD
+    nbytes = 2 * rows * hidden * 2 + 2 * hidden * 4 + rows * 8
+    sets = [(randn(rows, hidden, dtype=bf), randn(hidden), randn(hidden))
+            for _ in range(n_sets(nbytes))]
+    kern = device_kernels(lambda x, g, b: ln_fwd(x, g, b, eps=1e-5), sets,
+                          50)
+    lsets = [(x, g.to(bf), b.to(bf)) for x, g, b in sets]
+    library = device_ms(lambda x, g, b: F.layer_norm(x, (hidden,), g, b,
+                                                     1e-5), lsets, 50)
+    out[f"ln_fwd {rows}x{hidden} bf16 (witness)"] = record(
+        kern, nbytes, library, rows=rows, hidden=hidden, dtype="bf16")
+    del sets, lsets
+
+    def gn_sets(n, h, w, c, t, affine, nbytes):
+        return [(randn(n, h * w, c, dtype=t),
+                 1 + 0.1 * randn(c) if affine and "w" in affine else None,
+                 0.1 * randn(c) if affine and "b" in affine else None)
+                for _ in range(n_sets(nbytes))]
+
+    def gn_library(sets, n, h, w, c, act):
+        def call(x, wt, bt):
+            y = F.group_norm(x.view(n, h, w, c).permute(0, 3, 1, 2),
+                             GN_GROUPS, None if wt is None else wt.to(x.dtype),
+                             None if bt is None else bt.to(x.dtype), 1e-5)
+            return F.silu(y) if act == "silu" else y
+        return device_ms(call, sets, 20)
+
+    for n, h, w, c, dt, act, affine in NORM_GN_ONE_PASS:
+        t, es = tdt[dt], 2 if dt == "bf16" else 4
+        elems = n * h * w * c
+        nbytes = (2 * elems * es + len(affine or "") * c * 4
+                  + 2 * n * GN_GROUPS * 4)
+        sets = gn_sets(n, h, w, c, t, affine, nbytes)
+        kern = device_kernels(lambda x, wt, bt: gn_one_pass(
+            x, GN_GROUPS, wt, bt, eps=1e-5, act=act), sets, 20)
+        out[f"gn_one_pass {n}x{h}x{w}x{c} {dt} {act or 'no act'} "
+            f"{affine or 'no affine'}"] = record(
+            kern, nbytes, gn_library(sets, n, h, w, c, act),
+            shape=[n, h, w, c], dtype=dt, act=act, affine=affine)
+        del sets
+    n, h, w, c = NORM_GN_TWO_PASS
+    hw, elems, stats = h * w, n * h * w * c, n * GN_GROUPS * 4
+    blk = gn_hw_block(hw, c)
+    sets = gn_sets(n, h, w, c, bf, "wb", 2 * elems * 2)
+    shifts = [gn_shift(x, GN_GROUPS) for x, _, _ in sets]
+    moments = [gn_moments(*gn_stats(x, k, blk), hw * (c // GN_GROUPS), 1e-5)
+               for (x, _, _), k in zip(sets, shifts)]
+    library = gn_library(sets, n, h, w, c, "silu")
+    ssets = [(x, k) for (x, _, _), k in zip(sets, shifts)]
+    kern = device_kernels(lambda x, k: gn_stats(x, k, blk), ssets, 20)
+    out[f"gn_stats {n}x{h}x{w}x{c} bf16 (witness)"] = record(
+        kern, elems * 2 + stats + 2 * n * (hw // blk) * GN_GROUPS * 4,
+        library, shape=[n, h, w, c], dtype="bf16")
+    asets = [(x, k, md, rs, wt, bt) for (x, wt, bt), k, (md, rs)
+             in zip(sets, shifts, moments)]
+    kern = device_kernels(lambda x, k, md, rs, wt, bt: gn_apply(
+        x, k, md, rs, wt, bt, blk, act="silu"), asets, 20)
+    out[f"gn_apply {n}x{h}x{w}x{c} bf16 (witness)"] = record(
+        kern, 2 * elems * 2 + 2 * c * 4 + 3 * stats, library,
+        shape=[n, h, w, c], dtype="bf16")
+    del sets, ssets, asets
+    torch.cuda.empty_cache()
+    return out
+
+
 def mode_main(mode, root) -> int:
-    """``python3 chip_smoke.py remote-copy|ring|flash-fwd|flash-bwd|softmax
-    [ROOT]``: one part of the run alone, for the ``apex_tpu_torch`` of the
-    checkout at ROOT (by default this one), so that two checkouts can be
-    timed in turns on one card in one run. ``remote-copy``: phase 11 (a),
+    """``python3 chip_smoke.py
+    remote-copy|ring|flash-fwd|flash-bwd|softmax|norm [ROOT]``: one part
+    of the run alone, for the ``apex_tpu_torch`` of the checkout at ROOT
+    (by default this one), so that two checkouts can be timed in turns on
+    one card in one run. ``remote-copy``: phase 11 (a),
     one ``remote_copy_solo`` line. ``ring``: phases 12 and 13 at world 4
     (the bf16 ring's step ms by layout and the halo's exchange ms on every
     rank), one ``ring_steps`` line. ``flash-fwd``: the fp32 flash forward
@@ -1457,8 +1657,12 @@ def mode_main(mode, root) -> int:
     line. ``flash-bwd``: the fp32 flash backward's dq and dk / dv kernels
     and fp32 SDPA's backward at FLASH_FP32_SHAPES, one ``flash_bwd_solo``
     line. ``softmax``: the megatron softmax kernels and ``torch.softmax``
-    at SOFTMAX_SOLO_CASES, one ``softmax_solo`` line. Then the
-    ``nvidia-smi`` line."""
+    at SOFTMAX_SOLO_CASES, one ``softmax_solo`` line. ``norm``: the
+    LayerNorm backward and the one-pass GroupNorm at the main shapes and
+    the kernel phase's other cases, with the LayerNorm forward and the
+    two-pass GroupNorm pair as witnesses, against their library calls at
+    the NORM_* cases, one ``norm_solo`` line. Then the ``profiler``
+    line and the ``nvidia-smi`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1488,6 +1692,8 @@ def mode_main(mode, root) -> int:
         emit("flash_bwd_solo", **common, shapes=_flash_bwd_solo(dev))
     elif mode == "softmax":
         emit("softmax_solo", **common, cases=_softmax_solo(dev))
+    elif mode == "norm":
+        emit("norm_solo", **common, cases=_norm_solo(dev))
     else:
         from apex_tpu_torch.parallel import spawn_ranks
         ranks = spawn_ranks(_rank_steps, HALO_WORLD, (PEER_SPEC,),
@@ -1497,30 +1703,60 @@ def mode_main(mode, root) -> int:
                       for k in ranks[0]["ring"]},
              halo_exchange_call_ms=[r["halo_exchange_call_ms"]
                                     for r in ranks], **common)
+    emit("profiler", **PROFILE_PASSES)
     print(smi, flush=True)
     return 0
 
 
-# the flash kernels whose ptxas report the env line carries, by source:
-# the tensor-core kernels and the fp32 route's FMA-pipe forward and
-# backward pair, each in its unbiased and biased form
+# the kernels whose ptxas report the env line carries, by source: the
+# flash tensor-core kernels and the fp32 route's FMA-pipe forward and
+# backward pair, each in its unbiased and biased form; the LayerNorm
+# backward's register form and the one-pass GroupNorm's cluster route,
+# every instantiation
 PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
                  "flash_bwd_dq_wgmma.cu": ("fa_bwd_dq_kernel_wgmma",),
                  "flash_bwd_dkv_wgmma.cu": ("fa_bwd_dkv_kernel_wgmma",),
                  "flash_attention.cu": ("fa_fwd_kernel",),
                  "flash_attention_bwd.cu": ("fa_bwd_dq_kernel_fma",
-                                            "fa_bwd_dkv_kernel_fma")}
-# the sources whose kernels' unbiased forms must keep every value in
-# registers (no spill)
-NO_SPILL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
+                                            "fa_bwd_dkv_kernel_fma"),
+                 "layer_norm.cu": ("ln_bwd_kernel_reg",),
+                 "group_norm.cu": ("gn_one_pass_kernel_cluster",)}
+# the report's kernels that must keep every value in registers (no
+# spill), by the start of their key: the fp32 flash forward's and
+# backward's unbiased forms, every form of the LayerNorm backward's
+# register form
+NO_SPILL_KERNELS = ("fa_fwd_kernel<false>", "fa_bwd_dq_kernel_fma<false>",
+                    "fa_bwd_dkv_kernel_fma<false>", "ln_bwd_kernel_reg<")
+# the flash kernels, each reported in both bias forms
+_BIAS_FORMS = ("fa_fwd_kernel_wgmma", "fa_bwd_dq_kernel_wgmma",
+               "fa_bwd_dkv_kernel_wgmma", "fa_fwd_kernel",
+               "fa_bwd_dq_kernel_fma", "fa_bwd_dkv_kernel_fma")
+# a mangled template argument as the report names it
+_TEMPLATE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
+def _template_args(mangled):
+    """The template arguments of a mangled instantiation (``I...E``): its
+    types, int literals and bools, as ``float,4,false,true``."""
+    import re
+    out = []
+    for tok in re.findall(r"13__nv_bfloat16|f|L[ib]\d+E", mangled):
+        if tok in _TEMPLATE_ARGS:
+            out.append(_TEMPLATE_ARGS[tok])
+        elif tok.startswith("Lb"):
+            out.append("true" if tok[2:-1] == "1" else "false")
+        else:
+            out.append(tok[2:-1])
+    return ",".join(out)
 
 
 def ptxas_report(build, sources):
     """``{kernel: {registers, spill_stores, spill_loads, stack}}`` from
     ``nvcc -Xptxas -v`` on ``sources`` (``{source: kernel names}``, one
-    compile each, together, after the library's build), the kernel named
-    by its function and bias form (its mangled ``I(Lb0|Lb1)E``); every
-    named kernel must appear in both forms."""
+    compile each, together, after the library's build), each kernel named
+    by its function and template arguments (``fa_fwd_kernel<false>``,
+    ``ln_bwd_kernel_reg<bf16,3,false,true>``); every named kernel must
+    appear, the flash kernels in both bias forms."""
     import re
     import tempfile
     names = list(sources)
@@ -1531,14 +1767,17 @@ def ptxas_report(build, sources):
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for n in names]
         outs = [p.communicate()[0] for p in procs]
-    mangled = r"_Z\w*?(fa_[a-z_]+)I(Lb\d)E"
+    wanted = "|".join(sorted({k for ks in sources.values() for k in ks},
+                             key=len, reverse=True))
+    mangled = r"_Z\w*?\d(" + wanted + r")I((?:13__nv_bfloat16|f|L[ib]\d+E)+)E"
     out, kernel = {}, None
     for line in "\n".join(outs).splitlines():
         m = re.search(r"Compiling entry function '" + mangled, line)
         if m:
-            bias = "true" if m.group(2) == "Lb1" else "false"
-            kernel = f"{m.group(1)}<{bias}>"
+            kernel = f"{m.group(1)}<{_template_args(m.group(2))}>"
             out[kernel] = {}
+        elif "Compiling entry function" in line:
+            kernel = None
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m and kernel:
@@ -1553,12 +1792,16 @@ def ptxas_report(build, sources):
         # registers untouched while a product is in flight
         m = re.search(mangled, line)
         if m and "serialized" in line:
-            bias = "true" if m.group(2) == "Lb1" else "false"
-            out.setdefault(f"{m.group(1)}<{bias}>", {})[
-                "wgmma_serialized"] = line.split(":", 2)[-1].strip()
-    want = {f"{k}<{b}>" for ks in sources.values() for k in ks
-            for b in ("false", "true")}
-    require(set(out) == want, f"ptxas report: {out}, expected {want}")
+            out.setdefault(f"{m.group(1)}<{_template_args(m.group(2))}>",
+                           {})["wgmma_serialized"] = \
+                line.split(":", 2)[-1].strip()
+    want = {f"{k}<{b}>" for k in _BIAS_FORMS for b in ("false", "true")
+            if any(k in ks for ks in sources.values())}
+    missing = [k for ks in sources.values() for k in ks
+               if not any(key.startswith(k + "<") for key in out)]
+    require(want <= set(out) and not missing,
+            f"ptxas report: {sorted(out)}, expected {sorted(want)} and "
+            f"every one of {sorted(sources.values())}")
     return out
 
 
@@ -1580,28 +1823,29 @@ def bench_ms(fn, sets, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def device_kernels(fn, sets, reps):
+def device_kernels(fn, sets, reps, min_cover=None):
     """``{kernel name: mean device ms per call}`` of ``fn`` over
     ``reps`` calls cycling through ``sets`` (torch.profiler), after a
     warm-up; a pass counts only if it recorded ``reps`` times every
-    kernel of one call (``_per_call_ms``), up to PROFILE_TRIES
-    passes."""
+    kernel of one call (and, with ``min_cover``, covered that share of
+    the card's clock: ``_per_call_ms``), up to PROFILE_TRIES passes."""
     for a in sets[:2]:
         fn(*a)
     it = _cycle(sets)
     one = {}
     for _ in range(PROFILE_TRIES):
-        got, seen = _per_call_ms(lambda: fn(*next(it)), reps, one)
+        got, seen = _per_call_ms(lambda: fn(*next(it)), reps, one,
+                                 min_cover)
         if got:
             return got
     require(False, f"torch.profiler lost device kernels in "
                    f"{PROFILE_TRIES} passes: {seen}")
 
 
-def device_ms(fn, sets, reps):
+def device_ms(fn, sets, reps, min_cover=None):
     """Mean device ms per call of ``fn``: the summed durations of the
     kernels it launched (torch.profiler), over ``reps`` calls."""
-    return sum(device_kernels(fn, sets, reps).values())
+    return sum(device_kernels(fn, sets, reps, min_cover).values())
 
 
 def n_sets(bytes_per_set):
@@ -1688,12 +1932,15 @@ def main() -> int:
     _build.lib()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_report(_build, PTXAS_SOURCES)
-    # the fp32 forward's and backward's unbiased forms keep every value in
-    # registers
-    for name in (n for src in NO_SPILL_SOURCES for n in PTXAS_SOURCES[src]):
-        rep = ptxas[f"{name}<false>"]
-        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
-                f"{name}<false> spills: {rep}")
+    # the fp32 flash forward's and backward's unbiased forms and the
+    # LayerNorm backward's register form keep every value in registers
+    for prefix in NO_SPILL_KERNELS:
+        reps = {k: r for k, r in ptxas.items() if k.startswith(prefix)}
+        require(bool(reps), f"ptxas report: no {prefix} kernel")
+        for name, rep in reps.items():
+            require(rep.get("spill_stores") == 0
+                    and rep.get("spill_loads") == 0,
+                    f"{name} spills: {rep}")
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          sources=[p.relative_to(ROOT).as_posix() for p in _build.sources()],
@@ -2358,6 +2605,8 @@ def main() -> int:
     for dt in ("bf16", "fp32"):
         bf = dt == "bf16"
         ln_bwd_case(4 * 1024, 768, dt, main="ln_bwd" if bf else None)
+        if bf:   # BERT-large's rows: 32 x 128 tokens of 1024
+            ln_bwd_case(4096, 1024, dt, main="ln_bwd_bert")
         ln_bwd_case(1000, 768, dt)
         ln_bwd_case(37, 1600, dt)
         ln_bwd_case(4096, 1024, dt, rms=True,
@@ -2774,6 +3023,10 @@ def main() -> int:
         # up_blocks.3.resnets.0's 960 @ 64 x 64 (two-pass), batch 8
         gn_case(8, 64, 64, 320, "bf16", main=True)
         gn_case(8, 64, 64, 960, "bf16", main=True)
+        # the UNet stack's smaller one-pass shapes (build_unet)
+        gn_case(8, 32, 32, 640, "bf16")
+        gn_case(8, 16, 16, 1280, "bf16")
+        gn_case(8, 8, 8, 1280, "bf16")
         # the JAX package's AOT shape, both algorithms explicitly
         for dt in ("fp32", "bf16"):
             for algo in ("one_pass", "two_pass"):
@@ -4273,7 +4526,7 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] in ("remote-copy", "ring",
                                               "flash-fwd", "flash-bwd",
-                                              "softmax"):
+                                              "softmax", "norm"):
         sys.exit(mode_main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2
                            else ROOT))
     sys.exit(main())

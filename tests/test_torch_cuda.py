@@ -1656,3 +1656,225 @@ def test_ring_attention_rdma_on_the_card(dev, world):
         assert rel(got[0], want[0]) <= 1e-5, key
         for g, w in zip(got[1:], want[1:]):
             assert rel(g, w) <= 1e-4, key
+
+
+# the LayerNorm backward's register form at every width step (a lane's
+# vectors, 1 .. 4 for bf16, 1 .. 8 for fp32), one vector past the step,
+# and its 1024-column limit one vector under, at and over it (over: the
+# shared-memory form)
+def _ln_reg_widths(vec):
+    steps = [32 * vec * v for v in range(1, 32 // vec + 1)]
+    return sorted({vec, steps[0] + vec, *steps, 1024 - vec, 1024 + vec})
+
+
+_LN_REG_CASES = [(dt, h) for dt, vec in ((torch.bfloat16, 8),
+                                         (torch.float32, 4))
+                 for h in _ln_reg_widths(vec)]
+
+
+def _ln_bwd_check(dev, rows, hidden, dtype, rms=False, affine=True,
+                  offset=0, seed=0, gamma_offset=0):
+    """ln_bwd against its plain version on the same card inputs (dy and x
+    ``offset`` elements into their storage, gamma ``gamma_offset``), with
+    the LayerNorm tolerances, and a second run with the same bits;
+    returns the form the geometry took."""
+    from apex_tpu_torch.ops.tiling import ln_bwd_geometry
+    g = torch.Generator(device=dev).manual_seed(seed + rows + hidden)
+    n = rows * hidden
+
+    def make(scale, shift):
+        t = (torch.randn(n + offset, device=dev, generator=g) * scale
+             + shift).to(dtype)
+        return t[offset:].view(rows, hidden)
+
+    x, dy = make(2, 0.5), make(1, 0)
+    gamma = (torch.randn(hidden + gamma_offset, device=dev,
+                         generator=g)[gamma_offset:] if affine else None)
+    beta = (torch.randn(hidden, device=dev, generator=g)
+            if affine and not rms else None)
+    _, mean, invvar = ln_fwd_plain(x, gamma, beta, eps=1e-5, rms=rms)
+    args = (dy, x, gamma, beta, None if rms else mean, invvar)
+    got = ln_bwd(*args, rms=rms)
+    want = ln_bwd_plain(*args, rms=rms)
+    again = ln_bwd(*args, rms=rms)
+    torch.cuda.synchronize()
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=1e-5,
+                               rtol=rtol)
+    for a, b in zip(got[1:], want[1:]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    return ln_bwd_geometry(rows, hidden, name,
+                           aligned=all(t.data_ptr() % 16 == 0
+                                       for t in (dy, x, gamma)
+                                       if t is not None)).form
+
+
+@pytest.mark.parametrize("dtype,hidden", _LN_REG_CASES)
+def test_ln_bwd_register_form_at_each_width_step(dev, dtype, hidden):
+    """The register form at each count of vectors a lane holds, a ragged
+    last vector, and its limit one vector under, at and over (the
+    shared-memory form): dx, dgamma and dbeta against the plain version,
+    two runs identical."""
+    form = _ln_bwd_check(dev, 300, hidden, dtype)
+    assert form == ("reg" if hidden <= 1024 else "smem")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 2, 4097])
+def test_ln_bwd_register_form_row_counts(dev, rows, dtype):
+    """1, 2 and 4097 rows at GPT-2's width: warps without rows, and a
+    grid that deals a row more to some warps."""
+    assert _ln_bwd_check(dev, rows, 768, dtype) == "reg"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rms,affine", [(True, True), (True, False),
+                                        (False, False)])
+@pytest.mark.parametrize("hidden", [768, 1024])
+def test_ln_bwd_register_form_rms_and_no_gamma(dev, hidden, rms, affine,
+                                               dtype):
+    assert _ln_bwd_check(dev, 1000, hidden, dtype, rms=rms,
+                         affine=affine) == "reg"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_bwd_odd_offset_view_takes_the_scalar_form(dev, dtype):
+    """Rows that start one element past a 16-byte boundary: the geometry
+    sends them to the shared-memory form, which gives the plain version's
+    results too."""
+    assert _ln_bwd_check(dev, 512, 768, dtype, offset=1) == "smem"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rms", [False, True])
+def test_ln_bwd_misaligned_gamma_takes_the_scalar_form(dev, rms, dtype):
+    """A gamma that is a view one float past a 16-byte boundary (a slice
+    of a flat parameter buffer) beside aligned dy and x: the register
+    form reads gamma as vectors, so the geometry sends the rows to the
+    shared-memory form, which gives the plain version's results."""
+    assert _ln_bwd_check(dev, 512, 768, dtype, rms=rms,
+                         gamma_offset=1) == "smem"
+
+
+def test_ln_bwd_register_form_refuses_a_misaligned_gamma(dev):
+    """The C entry refuses the register form for a gamma that is not
+    16-byte aligned (cudaErrorInvalidValue, nothing launched)."""
+    from apex_tpu_torch.ops.tiling import ln_bwd_geometry
+    rows, hidden = 64, 768
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.randn(rows, hidden, **f32).to(torch.bfloat16)
+    dy = torch.randn(rows, hidden, **f32).to(torch.bfloat16)
+    gamma = torch.randn(hidden + 1, **f32)[1:]
+    mean = torch.zeros(rows, 1, **f32)
+    invvar = torch.ones(rows, 1, **f32)
+    dx = torch.empty_like(dy)
+    dgamma = torch.empty(hidden, **f32)
+    # the geometry of these rows were gamma aligned
+    geo = ln_bwd_geometry(rows, hidden, "bfloat16")
+    assert geo.form == "reg"
+    part = torch.empty(geo.blocks, hidden, **f32)
+    lib = _build.lib()
+    err = lib.apex_ln_bwd(
+        dy.data_ptr(), x.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+        invvar.data_ptr(), dx.data_ptr(), part.data_ptr(), None,
+        dgamma.data_ptr(), None, rows, hidden, geo.form_id, geo.vectors,
+        geo.warps, geo.blocks, 0, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
+
+
+# one-pass GroupNorm shapes (n, h, w, c): the UNet's six distinct one-pass
+# shapes (its nine a step), hw = 1 and 16 x 16 x 64 (slabs the staged
+# route takes), hw = 5625 (75 x 75), cpg odd (c = 96 in 32 groups), an odd
+# batch
+_GN_ONE_PASS_SHAPES = [(8, 64, 64, 320), (8, 32, 32, 320), (8, 32, 32, 640),
+                       (8, 16, 16, 640), (8, 16, 16, 1280), (8, 8, 8, 1280),
+                       (4, 1, 1, 320), (2, 16, 16, 64), (2, 75, 75, 320),
+                       (2, 64, 64, 96), (3, 32, 32, 640)]
+
+
+def _gn_one_pass_check(dev, shape, dtype, act="silu", affine="wb",
+                       offset=0, ill=False):
+    """gn_one_pass on the card against its plain version on the same
+    inputs (x ``offset`` elements into its storage), the GroupNorm
+    tolerances, two runs identical; returns the route the geometry took
+    and y."""
+    from apex_tpu_torch.ops.group_norm_kernel import gn_one_pass
+    from apex_tpu_torch.ops.tiling import gn_one_pass_geometry
+    n, h, w, c = shape
+    x, wt, bt = _gn_inputs(dev, n, h, w, c, torch.float32, affine,
+                           sum(shape) + offset)
+    if ill:
+        x[0, :, :, :c // 32] = 1000 + 0.01 * torch.randn(
+            h, w, c // 32, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(3))
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+    x3 = buf[offset:].view(n, h * w, c)
+    x3.copy_(x.reshape(n, h * w, c))
+    got = gn_one_pass(x3, 32, wt, bt, eps=1e-5, act=act)
+    again = gn_one_pass(x3, 32, wt, bt, eps=1e-5, act=act)
+    want = gn_one_pass_plain(x3, 32, wt, bt, eps=1e-5, act=act)
+    torch.cuda.synchronize()
+    _gn_close(got[0], want[0], dtype)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=2 ** -23)
+    torch.testing.assert_close(got[2], want[2], atol=0, rtol=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    geo = gn_one_pass_geometry(n, h * w, c, 32, name,
+                               aligned=x3.data_ptr() % 16 == 0)
+    return geo.route, got[0], x3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _GN_ONE_PASS_SHAPES)
+def test_gn_one_pass_cluster_route_matches_plain(dev, shape, dtype):
+    """The one-pass kernel at the UNet's shapes, hw = 1, hw = 5625 and an
+    odd cpg against the plain version, two runs identical: the cluster
+    route, the staged one for slabs of at most GN_STAGED_MAX_SLAB."""
+    from apex_tpu_torch.ops.tiling import GN_STAGED_MAX_SLAB
+    n, h, w, c = shape
+    route, _, _ = _gn_one_pass_check(dev, shape, dtype)
+    assert route == ("staged" if h * w * c // 32 <= GN_STAGED_MAX_SLAB
+                     else "cluster")
+
+
+@pytest.mark.parametrize("act,affine", [("", None), ("", "w"),
+                                        ("silu", "b")])
+def test_gn_one_pass_cluster_route_forms(dev, act, affine):
+    """The cluster route without SiLU, without affine, with gamma or beta
+    alone."""
+    route, _, _ = _gn_one_pass_check(dev, (2, 32, 32, 320), torch.bfloat16,
+                                     act=act, affine=affine)
+    assert route == "cluster"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_one_pass_misaligned_view_takes_the_staged_route(dev, dtype):
+    """x one element past a 16-byte boundary: the staged route, the plain
+    version's results."""
+    route, _, _ = _gn_one_pass_check(dev, (2, 16, 16, 320), dtype, offset=1)
+    assert route == "staged"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_one_pass_cluster_ill_conditioned_group(dev, dtype):
+    """A group of mean 1000 and std 0.01 through the cluster route (no
+    affine, no SiLU): y finite and, in fp32, within 1e-4 of float64; the
+    bf16 input is held against float64 of its own (rounded) values, to
+    one bf16 ulp of the output."""
+    route, y, x3 = _gn_one_pass_check(dev, (2, 16, 16, 320), dtype, act="",
+                                      affine=None, ill=True)
+    assert route == "cluster"
+    x64 = x3.double().reshape(2, 256, 32, 10)
+    m = x64.mean(dim=(1, 3), keepdim=True)
+    v = ((x64 - m) ** 2).mean(dim=(1, 3), keepdim=True)
+    y64 = ((x64 - m) / torch.sqrt(v + 1e-5)).reshape(y.shape)
+    assert torch.isfinite(y).all()
+    err = (y.double() - y64).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4
+    else:
+        assert bool((err <= 1e-4 + 2 ** -7 * y64.abs()).all())
