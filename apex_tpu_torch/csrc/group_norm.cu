@@ -58,13 +58,39 @@
 //   does not fit (gn_one_pass_ok in ops/tiling.py) runs the same
 //   arithmetic in a second compile-time form that reads x from device
 //   memory in each pass.
-// - stats / apply: one block per (n, hw tile) of all c channels, the tile
-//   any divisor of hw (gn_hw_block in ops/tiling.py); each thread walks its
-//   channels down the tile's pixels, so at every pixel a warp touches 32
-//   neighbouring channels. The stats block keeps its per-channel sums in
-//   shared memory and adds each group's cpg of them in channel order into a
-//   fixed slot of the partial buffer: no atomics, the same bits on every
-//   run.
+// - stats / apply, "vector" route (gn_two_pass_geometry in ops/tiling.py;
+//   x and y 16-byte aligned, c a whole number of 16-byte vectors): the
+//   tile, hwb pixels of all c channels (any divisor of hw, gn_hw_block), is
+//   contiguous ("slot", (sample, tile) in psum's order), and so are the
+//   one or two consecutive slots a stats block takes (an apply block
+//   takes one). Thread t < rows * nj (nj = c / vec) keeps vector column
+//   j = t % nj, 8 bf16 or 4 fp32 channels, down pixels t / nj, + rows,
+//   ... of each tile, so its channels' K (and for apply
+//   mean_d, rstd, gamma and beta) sit in registers, every access is 16
+//   bytes and a warp's accesses are contiguous. Each thread issues its
+//   loads in batches, all of a batch before it uses the first: 16 in the
+//   stats kernel (a thread's whole column of a 32-pixel tile at the
+//   UNet's shape), 8 in apply, whose per-channel statistics and affine
+//   take 40 registers (batches of 16 spilled); a column's last vectors go
+//   in batches of 8, 4, 2, 1. The stats block writes its threads'
+//   per-channel sums of d and d^2 to shared memory; warp w then
+//   adds group g = w, w + warps, ...: lane l its channels l, l + 32, ...,
+//   each over the block's pixel rows in order, then a shuffle tree, into
+//   the tile's slot of psum / psq: each slot written once, no atomics, the
+//   same bits on every run; a stats block takes two slots where the grid
+//   stays a wave, which halves the block reductions' share. apply keeps
+//   ((x - K) - mean_d) * rstd, then gamma, then beta, in that order
+//   (folding them into x * a + b would lose an ill-conditioned group's
+//   spread); SiLU takes __expf and __fdividef, fewer instructions than
+//   the IEEE forms in the loop that bounds the pass, and y is stored 16
+//   bytes at a time.
+// - stats / apply, "scalar" route (misaligned x, widths that are not whole
+//   16-byte vectors or over 512 of them): one block per (n, hw tile) of all
+//   c channels; each thread walks its channels down the tile's pixels, so
+//   at every pixel a warp touches 32 neighbouring channels with 2- or
+//   4-byte loads. The stats block keeps its per-channel sums in shared
+//   memory and adds each group's cpg of them in channel order into a fixed
+//   slot of the partial buffer: no atomics, the same bits on every run.
 // Forms (SiLU or not, gamma, beta, the staged slab) are template parameters
 // chosen at launch, so no inner loop tests a form at run time.
 //
@@ -81,12 +107,15 @@ using namespace apex_port;
 namespace cg = cooperative_groups;
 
 constexpr int kOnePassThreads = 512;  // GN_STAGED_THREADS
-constexpr int kTileThreads = 256;
+constexpr int kTileThreads = 256;  // GN_SCALAR_THREADS
 constexpr int kClusterMax = 8;           // GN_CLUSTER_MAX
 constexpr int kClusterThreads = 512;     // GN_CLUSTER_THREADS
 constexpr int kVectorBytes = 16;         // GN_VECTOR_BYTES
 constexpr int kCopyBatches = 4;  // commit groups of a thread's copies
 constexpr int kSmemBytes = 227 * 1024 - 1024;  // GN_ONE_PASS_SMEM_BYTES
+constexpr int kTwoPassMaxThreads = 512;  // GN_TWO_PASS_MAX_THREADS
+constexpr int kStatsUnroll = 16;         // GN_STATS_UNROLL
+constexpr int kApplyUnroll = 8;          // GN_APPLY_UNROLL
 
 template <bool kSilu, bool kW, bool kB>
 __device__ __forceinline__ float epilogue(float v, const float* w,
@@ -451,6 +480,216 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ shift,
   }
 }
 
+// The "vector" route's part of a block a thread takes: vector column j of
+// pixel rows r0, r0 + rows, ... of each tile, m of them in a tile of hwb
+// pixels (rows <= hwb: every row has a pixel). The padding threads past
+// rows * nj (`on` false) load nothing and only join the group sums.
+struct VecLane {
+  bool on;
+  int j, r0, m;
+  __device__ __forceinline__ VecLane(int nj, int rows, int hwb) {
+    const int t = threadIdx.x;
+    on = t < rows * nj;
+    j = on ? t % nj : 0;
+    r0 = t / nj;
+    m = on ? (hwb - 1 - r0) / rows + 1 : 0;
+  }
+};
+
+// f(p, v) for kN vectors v of a thread's column of the tile at xt (its
+// column's first element), at pixels p0, p0 + rows, ...: all kN 16-byte
+// loads (evict-first: the pair reads x once a pass) issued before the
+// first is used
+template <int kN, typename T, typename F>
+__device__ __forceinline__ void column_batch(const T* xt, int p0, int rows,
+                                             int c, F& f) {
+  uint4 u[kN];
+#pragma unroll
+  for (int q = 0; q < kN; ++q)
+    u[q] = __ldcs(reinterpret_cast<const uint4*>(
+        xt + (long long)(p0 + q * rows) * c));
+#pragma unroll
+  for (int q = 0; q < kN; ++q) f(p0 + q * rows, u[q]);
+}
+
+// the last `left` (< 2 kN) vectors from pixel p on: a batch of kN if
+// that many are left, then of kN / 2, ..., 1
+template <int kN, typename T, typename F>
+__device__ __forceinline__ void column_rest(const T* xt, int p, int left,
+                                            int rows, int c, F& f) {
+  if constexpr (kN >= 1) {
+    if (left >= kN) {
+      column_batch<kN>(xt, p, rows, c, f);
+      p += kN * rows;
+      left -= kN;
+    }
+    column_rest<kN / 2>(xt, p, left, rows, c, f);
+  }
+}
+
+// f(p, v) for the thread's m vectors v of the tile at xt, pixels p = r0 +
+// k * rows in order: batches of kU loads, each batch all issued before
+// its first is used (up to kU * 16 bytes a thread in flight), then the
+// rest in batches of kU / 2, ..., 1
+template <int kU, typename T, typename F>
+__device__ __forceinline__ void walk_column(const T* xt, const VecLane& l,
+                                            int rows, int c, F&& f) {
+  int k = 0;
+  for (; k + kU <= l.m; k += kU)
+    column_batch<kU>(xt, l.r0 + k * rows, rows, c, f);
+  column_rest<kU / 2>(xt, l.r0 + k * rows, l.m - k, rows, c, f);
+}
+
+// The stats kernel's work on one vector of its column: d = x - K and d^2
+// added to the thread's per-channel sums (a functor with a forced-inline
+// call, so the sums stay in registers at every call site)
+template <typename T>
+struct ColumnSums {
+  static constexpr int kVec = kVectorBytes / (int)sizeof(T);
+  float kk[kVec], as[kVec], aq[kVec];
+  __device__ __forceinline__ void operator()(int, const uint4& u) {
+    float f[kVec];
+    unpack16(u, f);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const float d = f[i] - kk[i];
+      as[i] += d;
+      aq[i] += d * d;
+    }
+  }
+};
+
+// The apply kernel's work on one vector: y = epilogue(((x - K) - mean_d)
+// * rstd) of its kVec channels, stored 16 bytes at a time at pixel p of
+// the tile at yt. SiLU as __fdividef(v, 1 + __expf(-v)): __expf's error,
+// (2 + 1.16 |v|) ulp, is under GN_TOL's 1e-5 relative for |v| < 70, and
+// beyond that y is 0 or v in fp32 either way.
+template <typename T, bool kSilu, bool kW, bool kB>
+struct ColumnOut {
+  static constexpr int kVec = kVectorBytes / (int)sizeof(T);
+  float kk[kVec], md[kVec], rs[kVec], wv[kVec], bv[kVec];
+  T* yt;
+  int c;
+  __device__ __forceinline__ void operator()(int p, const uint4& u) {
+    float f[kVec];
+    unpack16(u, f);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      float v = ((f[i] - kk[i]) - md[i]) * rs[i];
+      if (kW) v = v * wv[i];
+      if (kB) v = v + bv[i];
+      if (kSilu) v = __fdividef(v, 1.f + __expf(-v));
+      f[i] = v;
+    }
+    *reinterpret_cast<uint4*>(yt + (long long)p * c) = pack16(f);
+  }
+};
+
+// The "vector" stats route. Grid: ceil(slots / tpb) blocks, block b takes
+// slots [b * tpb, + tpb) (slot s = sample s / tiles, tile s % tiles, at x
+// + s * hwb * c). Per slot, thread (j, r0) sums d = x - K and d^2 of its
+// kVec channels over its pixels in order; the sums go to red ([2][rows][c]
+// fp32, dynamic shared memory) and warp w adds groups w, w + warps, ...
+// into psum / psq[s][g].
+template <typename T>
+__global__ void __launch_bounds__(kTwoPassMaxThreads)
+gn_stats_kernel_vec(const T* __restrict__ x, const float* __restrict__ shift,
+                    float* __restrict__ psum, float* __restrict__ psq,
+                    int c, int groups, int hwb, int tiles, long long slots,
+                    int rows, int tpb) {
+  constexpr int kVec = kVectorBytes / (int)sizeof(T);
+  extern __shared__ __align__(16) float red[];
+  const int nj = c / kVec;
+  const int cpg = c / groups;
+  const VecLane l(nj, rows, hwb);
+  float* rs = red;
+  float* rq = red + rows * c;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const long long s0 = (long long)blockIdx.x * tpb;
+  const long long s1 = s0 + tpb < slots ? s0 + tpb : slots;
+  long long cur = -1;  // the sample whose K the thread holds
+  ColumnSums<T> acc;
+  for (long long s = s0; s < s1; ++s) {
+    const long long n = s / tiles;
+    if (n != cur) {
+      cur = n;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i)
+        acc.kk[i] = l.on ? shift[n * groups + (l.j * kVec + i) / cpg] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc.as[i] = acc.aq[i] = 0.f;
+    walk_column<kStatsUnroll>(x + s * hwb * c + (long long)l.j * kVec, l,
+                              rows, c, acc);
+    if (l.on) {
+      float* ps = rs + l.r0 * c + l.j * kVec;
+      float* pq = rq + l.r0 * c + l.j * kVec;
+#pragma unroll
+      for (int i = 0; i < kVec; i += 4) {
+        *reinterpret_cast<float4*>(ps + i) = make_float4(
+            acc.as[i], acc.as[i + 1], acc.as[i + 2], acc.as[i + 3]);
+        *reinterpret_cast<float4*>(pq + i) = make_float4(
+            acc.aq[i], acc.aq[i + 1], acc.aq[i + 2], acc.aq[i + 3]);
+      }
+    }
+    __syncthreads();
+    for (int g = threadIdx.x >> 5; g < groups; g += warps) {
+      float vs = 0.f, vq = 0.f;
+      for (int i = lane; i < cpg; i += 32) {
+        const int ch = g * cpg + i;
+        for (int r = 0; r < rows; ++r) {
+          vs += rs[r * c + ch];
+          vq += rq[r * c + ch];
+        }
+      }
+      vs = warp_sum(vs);
+      vq = warp_sum(vq);
+      if (lane == 0) {
+        psum[s * groups + g] = vs;
+        psq[s * groups + g] = vq;
+      }
+    }
+    if (s + 1 < s1) __syncthreads();  // red is read before it is rewritten
+  }
+}
+
+// The "vector" apply route. Grid: one block a slot (slot s = sample s /
+// tiles, tile s % tiles, at x + s * hwb * c). Thread (j, r0) holds its
+// kVec channels' K, mean_d, rstd, gamma and beta and writes its column
+// of y (ColumnOut).
+template <typename T, bool kSilu, bool kW, bool kB>
+__global__ void __launch_bounds__(kTwoPassMaxThreads)
+gn_apply_kernel_vec(const T* __restrict__ x, const float* __restrict__ shift,
+                    const float* __restrict__ dmean,
+                    const float* __restrict__ rstd,
+                    const float* __restrict__ w, const float* __restrict__ b,
+                    T* __restrict__ y, int c, int groups, int hwb, int tiles,
+                    int rows) {
+  constexpr int kVec = kVectorBytes / (int)sizeof(T);
+  const int nj = c / kVec;
+  const int cpg = c / groups;
+  const VecLane l(nj, rows, hwb);
+  if (!l.on) return;  // no block barrier below
+  const int ch0 = l.j * kVec;
+  const long long s = blockIdx.x;
+  const long long n = s / tiles;
+  ColumnOut<T, kSilu, kW, kB> out;
+  out.c = c;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const long long ng = n * groups + (ch0 + i) / cpg;
+    out.kk[i] = shift[ng];
+    out.md[i] = dmean[ng];
+    out.rs[i] = rstd[ng];
+    out.wv[i] = kW ? w[ch0 + i] : 1.f;
+    out.bv[i] = kB ? b[ch0 + i] : 0.f;
+  }
+  const long long base = s * hwb * c + ch0;
+  out.yt = y + base;
+  walk_column<kApplyUnroll>(x + base, l, rows, c, out);
+}
+
 // The forms of a kernel, indexed by silu * 4 + (gamma != null) * 2 +
 // (beta != null).
 #define GN_FORMS(K, ...)                                                    \
@@ -545,10 +784,58 @@ int launch_cluster(const void* x, const void* w, const void* b, void* y,
   return (int)cudaGetLastError();
 }
 
+// The two-pass pair's launch, as gn_two_pass_geometry (ops/tiling.py)
+// gives it: the route (kRouteVector, else the scalar kernels), and on the
+// vector route the pixel rows and threads of a block and the slots (tpb)
+// of a stats block (an apply block takes one).
+struct TwoPass {
+  int route, rows, threads, tpb;
+};
+constexpr int kRouteVector = 0;
+
+// The "vector" stats block's dynamic shared memory: red, two fp32 sums a
+// pixel row and channel
+inline size_t two_pass_smem(const TwoPass& g, int c) {
+  return 2 * (size_t)g.rows * c * sizeof(float);
+}
+
+// the "vector" route's geometry: rows pixel rows of nj = c / vec vector
+// columns (rows <= hwb), padded to whole warps (fewer than 32 idle
+// threads), at most kTwoPassMaxThreads, tpb >= 1 slots a block, the
+// stats block's shared memory within the 48 KB a launch takes unasked
+inline bool two_pass_vec_ok(const TwoPass& g, const void* x, const void* y,
+                            int c, int hwb, long long slots,
+                            size_t itemsize) {
+  const int vec = kVectorBytes / (int)itemsize;
+  if (c % vec != 0) return false;
+  const int nj = c / vec;
+  const long long active = (long long)g.rows * nj;
+  return g.rows >= 1 && g.rows <= hwb && g.threads % 32 == 0 &&
+         g.threads <= kTwoPassMaxThreads && active <= g.threads &&
+         g.threads - active < 32 && g.tpb >= 1 &&
+         (slots + g.tpb - 1) / g.tpb <= 2147483647LL &&
+         two_pass_smem(g, c) <= 48 * 1024 &&
+         is_aligned(x, kVectorBytes) &&
+         (y == nullptr || is_aligned(y, kVectorBytes));
+}
+
 template <typename T>
 int launch_stats(const void* x, const void* shift, void* psum, void* psq,
-                 int n, int hw, int c, int groups, int hwb,
+                 int n, int hw, int c, int groups, int hwb, TwoPass g,
                  cudaStream_t stream) {
+  if (g.route == kRouteVector) {
+    const int tiles = hw / hwb;
+    const long long slots = (long long)n * tiles;
+    if (!two_pass_vec_ok(g, x, nullptr, c, hwb, slots, sizeof(T)))
+      return (int)cudaErrorInvalidValue;
+    gn_stats_kernel_vec<T>
+        <<<(unsigned)((slots + g.tpb - 1) / g.tpb), g.threads,
+           two_pass_smem(g, c), stream>>>(static_cast<const T*>(x),
+                     static_cast<const float*>(shift),
+                     static_cast<float*>(psum), static_cast<float*>(psq), c,
+                     groups, hwb, tiles, slots, g.rows, g.tpb);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = 2 * (size_t)c * sizeof(float);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(gn_stats_kernel<T>,
@@ -565,8 +852,24 @@ int launch_stats(const void* x, const void* shift, void* psum, void* psq,
 template <typename T>
 int launch_apply(const void* x, const void* shift, const void* dmean,
                  const void* rstd, const void* w, const void* b, void* y,
-                 int n, int hw, int c, int groups, int hwb, int silu,
-                 cudaStream_t stream) {
+                 int n, int hw, int c, int groups, int hwb, TwoPass g,
+                 int silu, cudaStream_t stream) {
+  if (g.route == kRouteVector) {
+    const int tiles = hw / hwb;
+    const long long slots = (long long)n * tiles;
+    if (!two_pass_vec_ok(g, x, y, c, hwb, slots, sizeof(T)))
+      return (int)cudaErrorInvalidValue;
+    using Fn = void (*)(const T*, const float*, const float*, const float*,
+                        const float*, const float*, T*, int, int, int, int,
+                        int);
+    static const Fn forms[8] = GN_FORMS(gn_apply_kernel_vec, T);
+    forms[form(silu, w, b)]<<<(unsigned)slots, g.threads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(shift),
+        static_cast<const float*>(dmean), static_cast<const float*>(rstd),
+        static_cast<const float*>(w), static_cast<const float*>(b),
+        static_cast<T*>(y), c, groups, hwb, tiles, g.rows);
+    return (int)cudaGetLastError();
+  }
   using Fn = void (*)(const T*, const float*, const float*, const float*,
                       const float*, const float*, T*, int, int, int, int);
   static const Fn forms[8] = GN_FORMS(gn_apply_kernel, T);
@@ -626,39 +929,52 @@ extern "C" int apex_gn_one_pass(const void* x, const void* w, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
+// The two-pass pair's geometry (gn_two_pass_geometry in ops/tiling.py):
+// route 0 = "vector" (rows pixel rows of 16-byte vector columns, threads a
+// block, tpb slots a stats block; x and y 16-byte aligned, c whole
+// vectors), 1 = "scalar" (a block of kTileThreads per (tile, sample);
+// rows, threads and tpb not read).
 // shift: float32 [n, groups], the group's first element. psum / psq:
 // float32 [n, hw / hwb, groups], written whole. hwb divides hw.
 extern "C" int apex_gn_stats(const void* x, const void* shift, void* psum,
                              void* psq, int n, int hw, int c, int groups,
-                             int hwb, int dtype, void* stream) {
-  if (!shape_ok(n, hw, c, groups) || hwb < 1 || hw % hwb != 0)
+                             int hwb, int route, int rows, int threads,
+                             int tpb, int dtype, void* stream) {
+  if (!shape_ok(n, hw, c, groups) || hwb < 1 || hw % hwb != 0 ||
+      route < 0 || route > 1)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TwoPass g{route, rows, threads, tpb};
   if (dtype == 0)
-    return launch_stats<float>(x, shift, psum, psq, n, hw, c, groups, hwb, s);
+    return launch_stats<float>(x, shift, psum, psq, n, hw, c, groups, hwb, g,
+                               s);
   if (dtype == 1)
     return launch_stats<__nv_bfloat16>(x, shift, psum, psq, n, hw, c, groups,
-                                       hwb, s);
+                                       hwb, g, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // shift, dmean (mean - shift) and rstd: float32 [n, groups]; w / b as for
-// apex_gn_one_pass; hwb divides hw.
+// apex_gn_one_pass; hwb divides hw; route, rows, threads as for
+// apex_gn_stats (one slot a block).
 extern "C" int apex_gn_apply(const void* x, const void* shift,
                              const void* dmean, const void* rstd,
                              const void* w, const void* b, void* y, int n,
-                             int hw, int c, int groups, int hwb, int silu,
-                             int dtype, void* stream) {
-  if (!shape_ok(n, hw, c, groups) || hwb < 1 || hw % hwb != 0)
+                             int hw, int c, int groups, int hwb, int route,
+                             int rows, int threads, int silu, int dtype,
+                             void* stream) {
+  if (!shape_ok(n, hw, c, groups) || hwb < 1 || hw % hwb != 0 ||
+      route < 0 || route > 1)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const TwoPass g{route, rows, threads, 1};
   if (dtype == 0)
     return launch_apply<float>(x, shift, dmean, rstd, w, b, y, n, hw, c,
-                               groups, hwb, silu, s);
+                               groups, hwb, g, silu, s);
   if (dtype == 1)
     return launch_apply<__nv_bfloat16>(x, shift, dmean, rstd, w, b, y, n, hw,
-                                       c, groups, hwb, silu, s);
+                                       c, groups, hwb, g, silu, s);
   return (int)cudaErrorInvalidValue;
 }

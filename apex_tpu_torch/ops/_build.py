@@ -98,12 +98,15 @@ SIGNATURES = {
     # (tiling.gn_one_pass_geometry), dtype, stream
     "apex_gn_one_pass": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f,
                          _i, _i, _i, _i, _i, _i, _i, _vp],
-    # x, shift, psum, psq, n, hw, c, groups, hw_block, dtype, stream
-    "apex_gn_stats": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
-    # x, shift, dmean, rstd, w, b (both may be null), y, n, hw, c, groups,
-    # hw_block, silu, dtype, stream
-    "apex_gn_apply": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+    # x, shift, psum, psq, n, hw, c, groups, hw_block, route, rows,
+    # threads, slots a stats block (stats_tiles;
+    # tiling.gn_two_pass_geometry), dtype, stream
+    "apex_gn_stats": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,
                       _i, _i, _vp],
+    # x, shift, dmean, rstd, w, b (both may be null), y, n, hw, c, groups,
+    # hw_block, route, rows, threads, silu, dtype, stream
+    "apex_gn_apply": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                      _i, _i, _i, _i, _i, _vp],
     # x, mask (may be null), mask plan (20 long longs, null without a
     # mask), y, rows, sq, sk, scale, causal, dtype, stream
     "apex_softmax_fwd": [_vp, _vp, _vp, _vp, _ll, _i, _i, _f, _i, _i, _vp],

@@ -36,7 +36,8 @@ from apex_tpu_torch.ops.layer_norm_kernel import (_DTYPE_NAMES, _DTYPES,
                                                   _check_device, _param_f32,
                                                   _ptr)
 from apex_tpu_torch.ops.tiling import (GN_VECTOR_BYTES, gn_hw_block,
-                                       gn_one_pass_geometry, gn_one_pass_ok)
+                                       gn_one_pass_geometry, gn_one_pass_ok,
+                                       gn_two_pass_geometry)
 
 ACTS = ("", "silu")
 Stats = Tuple[torch.Tensor, torch.Tensor]
@@ -197,14 +198,26 @@ def gn_one_pass(x3: torch.Tensor, groups: int,
     return y, dmean, rstd
 
 
+def _two_pass_geometry(x3: torch.Tensor, groups: int, hw_block: int):
+    """The pair's launch for x3 in tiles of ``hw_block`` pixels
+    (:func:`~apex_tpu_torch.ops.tiling.gn_two_pass_geometry`); the vector
+    route only for 16-byte aligned x (y is a fresh, aligned tensor)."""
+    n, hw, c = x3.shape
+    return gn_two_pass_geometry(
+        n, hw, c, groups, _DTYPE_NAMES[x3.dtype],
+        aligned=x3.data_ptr() % GN_VECTOR_BYTES == 0, tile=hw_block)
+
+
 def gn_stats(x3: torch.Tensor, shift: torch.Tensor, hw_block: int
              ) -> Stats:
     """The two-pass statistics of x3 ``(n, hw, c)`` about ``shift`` (K,
     ``(n, groups)`` fp32, :func:`gn_shift`): ``(psum, psq)`` as
-    :func:`gn_stats_plain` returns them. CUDA tensors launch the kernel,
-    one block per (HW tile of ``hw_block`` pixels, sample), each writing
-    its own slots, so two runs give the same bits. CPU tensors take the
-    plain version."""
+    :func:`gn_stats_plain` returns them. CUDA tensors launch the kernel on
+    the route :func:`~apex_tpu_torch.ops.tiling.gn_two_pass_geometry`
+    picks: blocks of 16-byte vector columns over one or two consecutive
+    (sample, HW tile of ``hw_block`` pixels) slots, or one block per
+    (tile, sample) with scalar loads; each slot is written once, so two
+    runs give the same bits. CPU tensors take the plain version."""
     if _check_device("gn_stats", x3):
         return gn_stats_plain(x3, shift, hw_block)
     groups = shift.shape[1] if shift.dim() == 2 else 0
@@ -212,6 +225,7 @@ def gn_stats(x3: torch.Tensor, shift: torch.Tensor, hw_block: int
     _check_stats("gn_stats", x3, groups, shift=shift)
     n, hw, c = x3.shape
     _check_tile("gn_stats", hw, hw_block)
+    geo = _two_pass_geometry(x3, groups, hw_block)
     psum = torch.empty((n, hw // hw_block, groups), dtype=torch.float32,
                        device=x3.device)
     psq = torch.empty_like(psum)
@@ -220,7 +234,9 @@ def gn_stats(x3: torch.Tensor, shift: torch.Tensor, hw_block: int
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.apex_gn_stats(x3.data_ptr(), shift.data_ptr(),
                                 psum.data_ptr(), psq.data_ptr(), n, hw, c,
-                                groups, hw_block, _DTYPES[x3.dtype], stream)
+                                groups, hw_block, geo.route_id, geo.rows,
+                                geo.threads, geo.stats_tiles,
+                                _DTYPES[x3.dtype], stream)
     _build.launches["gn_stats"] += 1
     _build.check(err, "gn_stats")
     return psum, psq
@@ -233,8 +249,8 @@ def gn_apply(x3: torch.Tensor, shift: torch.Tensor, dmean: torch.Tensor,
     """``((x - K) - mean_d) * rstd``, the affine and SiLU over x3 ``(n, hw,
     c)`` with each group's K, mean_d and rstd (``(n, groups)`` fp32); y in
     x3's dtype, as :func:`gn_apply_plain` computes it. CUDA tensors launch
-    the kernel, one block per (HW tile of ``hw_block`` pixels, sample) as
-    for the stats kernel. CPU tensors take the plain version."""
+    the kernel on the stats kernel's route, one block per (HW tile of
+    ``hw_block`` pixels, sample). CPU tensors take the plain version."""
     _check_act("gn_apply", act)
     if _check_device("gn_apply", x3):
         return gn_apply_plain(x3, shift, dmean, rstd, weight, bias, act=act)
@@ -246,6 +262,7 @@ def gn_apply(x3: torch.Tensor, shift: torch.Tensor, dmean: torch.Tensor,
     b = _param_f32("gn_apply", bias, x3, "bias")
     n, hw, c = x3.shape
     _check_tile("gn_apply", hw, hw_block)
+    geo = _two_pass_geometry(x3, groups, hw_block)
     y = torch.empty_like(x3)
     lib = _build.lib()
     with torch.cuda.device(x3.device):
@@ -253,7 +270,8 @@ def gn_apply(x3: torch.Tensor, shift: torch.Tensor, dmean: torch.Tensor,
         err = lib.apex_gn_apply(
             x3.data_ptr(), shift.data_ptr(), dmean.data_ptr(),
             rstd.data_ptr(), _ptr(w), _ptr(b), y.data_ptr(), n, hw, c,
-            groups, hw_block, int(act == "silu"), _DTYPES[x3.dtype], stream)
+            groups, hw_block, geo.route_id, geo.rows, geo.threads,
+            int(act == "silu"), _DTYPES[x3.dtype], stream)
     _build.launches["gn_apply"] += 1
     _build.check(err, "gn_apply")
     return y

@@ -442,6 +442,73 @@ def gn_one_pass_geometry(n: int, hw: int, c: int, groups: int,
                              threads_for(cluster), smem(cluster))
 
 
+# The two-pass pair (stats, then apply) in one of two routes
+# (gn_two_pass_geometry), both over gn_hw_block's tiles:
+# - "vector": x 16-byte aligned and c a whole number nj of 16-byte vectors,
+#   at most GN_TWO_PASS_MAX_THREADS of them. A block has `rows` pixel rows
+#   of nj threads, one vector column each (rows * nj near
+#   GN_TWO_PASS_THREADS, no more rows than a tile has pixels), padded to
+#   whole warps; every thread issues its 16-byte loads in batches of
+#   GN_STATS_UNROLL (stats) or GN_APPLY_UNROLL (apply), a batch all before
+#   the first is used. An apply block takes one (sample, tile) slot; a
+#   stats block takes `stats_tiles` consecutive slots, two where its grid
+#   keeps GN_STATS_MIN_BLOCKS blocks (a wave of two blocks an SM), which
+#   halves its block reductions, else one. The stats block's shared
+#   memory holds its rows' per-channel sums of d and d^2.
+# - "scalar": any other shape, one block of GN_SCALAR_THREADS per (tile,
+#   sample) walking channels with 2- or 4-byte loads.
+GN_TWO_PASS_ROUTES = ("vector", "scalar")
+GN_TWO_PASS_THREADS = 256
+GN_TWO_PASS_MAX_THREADS = 512
+GN_STATS_UNROLL = 16
+GN_APPLY_UNROLL = 8
+GN_STATS_MIN_BLOCKS = 2 * LN_SMS
+GN_SCALAR_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class GnTwoPassGeometry:
+    """The two-pass GroupNorm launch, mirrored by ``csrc/group_norm.cu``:
+    its ``route`` ("vector" or "scalar"), the HW ``tile`` (pixels a
+    psum slot), and on the vector route the pixel ``rows`` of a block,
+    its ``threads`` and the slots a stats block takes (``stats_tiles``;
+    an apply block takes one). The scalar route's grid is (hw / tile, n)
+    of GN_SCALAR_THREADS threads, one slot a block."""
+    route: str
+    tile: int
+    rows: int
+    threads: int
+    stats_tiles: int
+
+    @property
+    def route_id(self) -> int:
+        """The route as the C entries take it."""
+        return GN_TWO_PASS_ROUTES.index(self.route)
+
+
+def gn_two_pass_geometry(n: int, hw: int, c: int, groups: int,
+                         dtype: str = "bfloat16", aligned: bool = True,
+                         tile=None) -> GnTwoPassGeometry:
+    """The two-pass GroupNorm's geometry for x ``(n, hw, c)`` of ``dtype``
+    ("bfloat16" or "float32") in ``groups`` groups; ``aligned``: x (and
+    y) start on a 16-byte boundary; ``tile``: the HW tile, any divisor of
+    hw (the kernels' wrappers take one; ``None``: :func:`gn_hw_block`'s
+    default), else ``ValueError``."""
+    if tile is None:
+        tile = gn_hw_block(hw, c)
+    if not (isinstance(tile, int) and tile >= 1 and hw % tile == 0):
+        raise ValueError(f"group_norm tile={tile!r} does not divide hw={hw}")
+    vec = GN_VECTOR_BYTES // _ITEMSIZE[dtype]
+    nj = c // vec
+    if not aligned or c % vec or nj > GN_TWO_PASS_MAX_THREADS:
+        return GnTwoPassGeometry("scalar", tile, 0, GN_SCALAR_THREADS, 1)
+    rows = max(1, min(GN_TWO_PASS_THREADS // nj, tile))
+    threads = -(-rows * nj // 32) * 32
+    slots = n * (hw // tile)
+    stats_tiles = 2 if -(-slots // 2) >= GN_STATS_MIN_BLOCKS else 1
+    return GnTwoPassGeometry("vector", tile, rows, threads, stats_tiles)
+
+
 def gn_hw_block(hw: int, c: int, hw_block=None) -> int:
     """The two-pass HW tile. An explicit ``hw_block`` is validated as the
     JAX package validates it (a positive multiple of 8 that divides hw,

@@ -11,9 +11,11 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    ``sm_90a`` from the checkout, with its seconds; ptxas's registers,
    spills and stack of the tensor-core flash kernels, of the fp32
    route's FMA-pipe forward and backward pair, of every instantiation of
-   the LayerNorm backward's register form and of the one-pass GroupNorm's
-   cluster route (``-Xptxas -v``; the flash pair's unbiased forms and
-   every register-form LayerNorm backward must spill nothing).
+   the LayerNorm backward's register form, of the one-pass GroupNorm's
+   cluster route and of the two-pass pair's vector route (``-Xptxas
+   -v``; the flash pair's unbiased forms, every register-form LayerNorm
+   backward, the bf16 vector-route stats kernel and every vector-route
+   apply kernel must spill nothing).
 2. ``kernel``: each CUDA kernel against its plain PyTorch version on the
    same card inputs, at the main path's shapes and a few ragged ones, in
    bf16 and fp32: max error and tolerance; kernel / plain / library times
@@ -57,7 +59,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    algorithms at the JAX package's AOT shape 8 x 32 x 32 x 256 in fp32
    and bf16, the one-pass form for a slab over its gate, ragged forms
    (no affine, gamma only, no SiLU, a given tile), 75 x 75 latents (hw
-   not a multiple of 8) on both routes and a group of mean 1000 and std
+   not a multiple of 8) on both routes, stats + apply in fp32 at 8 x 64 x
+   64 x 960 and 2 x 75 x 75 x 960, and a group of mean 1000 and std
    0.01
    (finite, within 1e-4 of float64), each against its plain version, two
    runs bit-identical, with ``F.group_norm`` (+ ``F.silu``) on the NCHW
@@ -208,12 +211,13 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    333 and b * h = 65,600, ``python3 chip_smoke.py softmax [ROOT]``
    the megatron softmax kernels at row 7's masked case, rows 6 and 8 and
    the kernel phase's other masked cases against ``torch.softmax``, and
-   ``python3 chip_smoke.py norm [ROOT]`` the LayerNorm backward at 4096 x
-   768 and 4096 x 1024 against ``native_layer_norm_backward`` and the
-   one-pass GroupNorm at the UNet's six one-pass shapes against
-   ``F.group_norm`` + ``F.silu``, with the LayerNorm forward and the
-   two-pass GroupNorm pair as witnesses, the same way (parent and change
-   in turns in one call).
+   ``python3 chip_smoke.py norm [ROOT]`` the two-pass GroupNorm's
+   ``gn_stats``, ``gn_apply`` and whole two-pass forward at 8 x 64 x 64 x
+   960, 1 x 512 x 512 x 128 and 2 x 75 x 75 x 960 (bf16, SiLU, gamma and
+   beta) against ``F.group_norm`` + ``F.silu``, with the LayerNorm
+   backward (4096 x 768) and forward and the one-pass GroupNorm (8 x 64
+   x 64 x 320) as witnesses, the same way (parent and change in turns in
+   one call).
 12. ``ring``: ring attention at GPT-2 small's attention widths (12 heads x
    64, batch 1) over a 16,384-token bf16 context at worlds 4 and 2
    (``transport="rdma"``): causal contiguous, causal zigzag and
@@ -1487,53 +1491,34 @@ def _softmax_solo(dev):
     return out
 
 
-# the cases of ``norm`` mode: the LayerNorm backward at GPT-2's and
-# BERT-large's widths and the kernel phase's other backward cases (rows,
-# hidden, dtype, rms, gamma), the one-pass GroupNorm at the UNet's six
-# one-pass shapes (bf16, SiLU, weight and bias) and the kernel phase's
-# other one-pass cases (n, h, w, c, dtype, act, affine; 64 x 64 x 960 is
-# over the gate: the form that reads x in each pass), and as witnesses
-# the LayerNorm forward and the two-pass GroupNorm kernels at their main
-# shapes
-NORM_LN_BWD = [(4096, 768, "bf16", False, True),
-               (4096, 1024, "bf16", False, True)] + [
-    (rows, hidden, dt, rms, gamma) for dt in ("bf16", "fp32")
-    for rows, hidden, rms, gamma in (
-        (1000, 768, False, True), (37, 1600, False, True),
-        (4096, 1024, True, True), (4096, 1024, True, False),
-        (4096, 1024, False, False), (64, 12288, False, True),
-        (64, 12288, True, True))] + [(4096, 768, "fp32", False, True)]
-NORM_GN_ONE_PASS = [(8, 64, 64, 320, "bf16", "silu", "wb"),
-                    (8, 32, 32, 320, "bf16", "silu", "wb"),
-                    (8, 32, 32, 640, "bf16", "silu", "wb"),
-                    (8, 16, 16, 640, "bf16", "silu", "wb"),
-                    (8, 16, 16, 1280, "bf16", "silu", "wb"),
-                    (8, 8, 8, 1280, "bf16", "silu", "wb"),
-                    (8, 32, 32, 256, "fp32", "silu", "wb"),
-                    (8, 32, 32, 256, "bf16", "silu", "wb"),
-                    (8, 64, 64, 960, "bf16", "silu", "wb"),
-                    (2, 16, 16, 64, "fp32", "silu", None),
-                    (2, 16, 16, 64, "bf16", "", "w"),
-                    (2, 75, 75, 320, "bf16", "silu", "wb"),
-                    (2, 32, 32, 256, "fp32", "", None)]
+# the cases of ``norm`` mode: the two-pass GroupNorm pair (``gn_stats``,
+# ``gn_apply`` and the whole two-pass forward) at the UNet's
+# up_blocks.3.resnets.0 960 channels, the SD VAE decoder's last GroupNorm
+# and 75 x 75 latents (n, h, w, c; bf16, SiLU, weight and bias), and as
+# witnesses the LayerNorm backward and forward and the one-pass GroupNorm
+# at their main shapes
+NORM_LN_BWD = [(4096, 768, "bf16", False, True)]
+NORM_GN_ONE_PASS = [(8, 64, 64, 320, "bf16", "silu", "wb")]
 NORM_LN_FWD = (4096, 768)
-NORM_GN_TWO_PASS = (8, 64, 64, 960)
+NORM_GN_TWO_PASS = [(8, 64, 64, 960), (1, 512, 512, 128), (2, 75, 75, 960)]
 
 
 def _norm_solo(dev):
     """The norm kernels at the NORM_* cases: device ms (torch.profiler,
     inputs rotated beyond the L2; ``kernels`` splits a call's ms by
     kernel) beside the bytes bound (each input read once, each output
-    written once) and the library call: for ``ln_bwd``
-    ``native_layer_norm_backward`` (none for RMSNorm), for ``ln_fwd``
-    ``F.layer_norm``, for the GroupNorm kernels ``F.group_norm`` (+
-    ``F.silu``) on the NCHW view (the two-pass pair's: the whole
-    GroupNorm)."""
+    written once; the two-pass kernels' partial sums by the tile count
+    gn_hw_block picks, which the pair's geometry keeps; the pair's that of
+    the GroupNorm it computes, x read once) and the library
+    call: for ``ln_bwd`` ``native_layer_norm_backward`` (none for
+    RMSNorm), for ``ln_fwd`` ``F.layer_norm``, for the GroupNorm kernels
+    ``F.group_norm`` (+ ``F.silu``) on the NCHW view (for each two-pass
+    kernel and the pair: the whole GroupNorm)."""
     import torch
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops.group_norm_kernel import (
-        gn_apply, gn_moments, gn_one_pass, gn_shift, gn_stats)
+        gn_apply, gn_forward, gn_moments, gn_one_pass, gn_shift, gn_stats)
     from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_fwd,
                                                       ln_fwd_plain)
     from apex_tpu_torch.ops.tiling import gn_hw_block
@@ -1575,7 +1560,7 @@ def _norm_solo(dev):
                 dy, x, [hidden], mu, rs, gl, bl,
                 [True, gl is not None, bl is not None]), lsets, 50)
         form = ("rms" if rms else "ln") + ("" if affine else "_nogamma")
-        out[f"ln_bwd {form} {rows}x{hidden} {dt}"] = record(
+        out[f"ln_bwd {form} {rows}x{hidden} {dt} (witness)"] = record(
             kern, nbytes, library, rows=rows, hidden=hidden, dtype=dt,
             form=form)
         del sets, lsets
@@ -1615,32 +1600,43 @@ def _norm_solo(dev):
         kern = device_kernels(lambda x, wt, bt: gn_one_pass(
             x, GN_GROUPS, wt, bt, eps=1e-5, act=act), sets, 20)
         out[f"gn_one_pass {n}x{h}x{w}x{c} {dt} {act or 'no act'} "
-            f"{affine or 'no affine'}"] = record(
+            f"{affine or 'no affine'} (witness)"] = record(
             kern, nbytes, gn_library(sets, n, h, w, c, act),
             shape=[n, h, w, c], dtype=dt, act=act, affine=affine)
         del sets
-    n, h, w, c = NORM_GN_TWO_PASS
-    hw, elems, stats = h * w, n * h * w * c, n * GN_GROUPS * 4
-    blk = gn_hw_block(hw, c)
-    sets = gn_sets(n, h, w, c, bf, "wb", 2 * elems * 2)
-    shifts = [gn_shift(x, GN_GROUPS) for x, _, _ in sets]
-    moments = [gn_moments(*gn_stats(x, k, blk), hw * (c // GN_GROUPS), 1e-5)
-               for (x, _, _), k in zip(sets, shifts)]
-    library = gn_library(sets, n, h, w, c, "silu")
-    ssets = [(x, k) for (x, _, _), k in zip(sets, shifts)]
-    kern = device_kernels(lambda x, k: gn_stats(x, k, blk), ssets, 20)
-    out[f"gn_stats {n}x{h}x{w}x{c} bf16 (witness)"] = record(
-        kern, elems * 2 + stats + 2 * n * (hw // blk) * GN_GROUPS * 4,
-        library, shape=[n, h, w, c], dtype="bf16")
-    asets = [(x, k, md, rs, wt, bt) for (x, wt, bt), k, (md, rs)
-             in zip(sets, shifts, moments)]
-    kern = device_kernels(lambda x, k, md, rs, wt, bt: gn_apply(
-        x, k, md, rs, wt, bt, blk, act="silu"), asets, 20)
-    out[f"gn_apply {n}x{h}x{w}x{c} bf16 (witness)"] = record(
-        kern, 2 * elems * 2 + 2 * c * 4 + 3 * stats, library,
-        shape=[n, h, w, c], dtype="bf16")
-    del sets, ssets, asets
-    torch.cuda.empty_cache()
+    for n, h, w, c in NORM_GN_TWO_PASS:
+        hw, elems, stats = h * w, n * h * w * c, n * GN_GROUPS * 4
+        blk = gn_hw_block(hw, c)
+        partials = 2 * n * (hw // blk) * GN_GROUPS * 4
+        stats_bytes = elems * 2 + stats + partials
+        apply_bytes = 2 * elems * 2 + 2 * c * 4 + 3 * stats
+        # the whole GroupNorm's: x read once, y, mean and rstd written
+        pair_bytes = 2 * elems * 2 + 2 * c * 4 + 2 * stats
+        sets = gn_sets(n, h, w, c, bf, "wb", 2 * elems * 2)
+        shifts = [gn_shift(x, GN_GROUPS) for x, _, _ in sets]
+        moments = [gn_moments(*gn_stats(x, k, blk), hw * (c // GN_GROUPS),
+                              1e-5)
+                   for (x, _, _), k in zip(sets, shifts)]
+        library = gn_library(sets, n, h, w, c, "silu")
+        shape = dict(shape=[n, h, w, c], dtype="bf16", tile=blk)
+        tag = f"{n}x{h}x{w}x{c} bf16"
+        ssets = [(x, k) for (x, _, _), k in zip(sets, shifts)]
+        kern = device_kernels(lambda x, k: gn_stats(x, k, blk), ssets, 20)
+        out[f"gn_stats {tag}"] = record(kern, stats_bytes, library,
+                                        **shape)
+        asets = [(x, k, md, rs, wt, bt) for (x, wt, bt), k, (md, rs)
+                 in zip(sets, shifts, moments)]
+        kern = device_kernels(lambda x, k, md, rs, wt, bt: gn_apply(
+            x, k, md, rs, wt, bt, blk, act="silu"), asets, 20)
+        out[f"gn_apply {tag}"] = record(kern, apply_bytes, library, **shape)
+        # the pair as the model calls it: K, the stats kernel, the
+        # moments' tensor ops, the apply kernel
+        kern = device_kernels(lambda x, wt, bt: gn_forward(
+            x, GN_GROUPS, wt, bt, 1e-5, "silu", "two_pass"), sets, 20)
+        out[f"gn two-pass pair {tag}"] = record(kern, pair_bytes, library,
+                                                **shape)
+        del sets, ssets, asets, shifts, moments
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1658,11 +1654,11 @@ def mode_main(mode, root) -> int:
     and fp32 SDPA's backward at FLASH_FP32_SHAPES, one ``flash_bwd_solo``
     line. ``softmax``: the megatron softmax kernels and ``torch.softmax``
     at SOFTMAX_SOLO_CASES, one ``softmax_solo`` line. ``norm``: the
-    LayerNorm backward and the one-pass GroupNorm at the main shapes and
-    the kernel phase's other cases, with the LayerNorm forward and the
-    two-pass GroupNorm pair as witnesses, against their library calls at
-    the NORM_* cases, one ``norm_solo`` line. Then the ``profiler``
-    line and the ``nvidia-smi`` line."""
+    two-pass GroupNorm pair (each kernel and the whole two-pass forward)
+    at the NORM_GN_TWO_PASS shapes, with the LayerNorm backward and
+    forward and the one-pass GroupNorm at their main shapes as witnesses,
+    against their library calls, one ``norm_solo`` line. Then the
+    ``profiler`` line and the ``nvidia-smi`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1711,8 +1707,8 @@ def mode_main(mode, root) -> int:
 # the kernels whose ptxas report the env line carries, by source: the
 # flash tensor-core kernels and the fp32 route's FMA-pipe forward and
 # backward pair, each in its unbiased and biased form; the LayerNorm
-# backward's register form and the one-pass GroupNorm's cluster route,
-# every instantiation
+# backward's register form, the one-pass GroupNorm's cluster route and
+# the two-pass pair's vector route, every instantiation
 PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
                  "flash_bwd_dq_wgmma.cu": ("fa_bwd_dq_kernel_wgmma",),
                  "flash_bwd_dkv_wgmma.cu": ("fa_bwd_dkv_kernel_wgmma",),
@@ -1720,13 +1716,18 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
                  "flash_attention_bwd.cu": ("fa_bwd_dq_kernel_fma",
                                             "fa_bwd_dkv_kernel_fma"),
                  "layer_norm.cu": ("ln_bwd_kernel_reg",),
-                 "group_norm.cu": ("gn_one_pass_kernel_cluster",)}
+                 "group_norm.cu": ("gn_one_pass_kernel_cluster",
+                                   "gn_stats_kernel_vec",
+                                   "gn_apply_kernel_vec")}
 # the report's kernels that must keep every value in registers (no
 # spill), by the start of their key: the fp32 flash forward's and
 # backward's unbiased forms, every form of the LayerNorm backward's
-# register form
+# register form, the two-pass GroupNorm's bf16 vector stats kernel and
+# every form of its vector apply kernel (the fp32 stats kernel spills 8
+# bytes at 40 registers, which PERF.md reports)
 NO_SPILL_KERNELS = ("fa_fwd_kernel<false>", "fa_bwd_dq_kernel_fma<false>",
-                    "fa_bwd_dkv_kernel_fma<false>", "ln_bwd_kernel_reg<")
+                    "fa_bwd_dkv_kernel_fma<false>", "ln_bwd_kernel_reg<",
+                    "gn_stats_kernel_vec<bf16>", "gn_apply_kernel_vec<")
 # the flash kernels, each reported in both bias forms
 _BIAS_FORMS = ("fa_fwd_kernel_wgmma", "fa_bwd_dq_kernel_wgmma",
                "fa_bwd_dkv_kernel_wgmma", "fa_fwd_kernel",
@@ -3046,6 +3047,10 @@ def main() -> int:
         # slab), 960 two-pass (a tile of 25 pixels)
         gn_case(2, 75, 75, 320, "bf16")
         gn_case(2, 75, 75, 960, "bf16")
+        # the two-pass pair in fp32: the UNet's 960 channels (one pixel row
+        # of 240 vector columns a block) and 75 x 75 latents
+        gn_case(8, 64, 64, 960, "fp32")
+        gn_case(2, 75, 75, 960, "fp32")
         for algo in ("one_pass", "two_pass"):
             gn_case(2, 32, 32, 256, "fp32", affine=None, act="", algo=algo,
                     ill=True)

@@ -1878,3 +1878,135 @@ def test_gn_one_pass_cluster_ill_conditioned_group(dev, dtype):
         assert err.max().item() <= 1e-4
     else:
         assert bool((err <= 1e-4 + 2 ** -7 * y64.abs()).all())
+
+
+def _gn_two_pass_check(dev, shape, dtype, act="silu", affine="wb",
+                       offset=0, hw_block=None, groups=32, ill=False):
+    """gn_stats and gn_apply on the card against their plain versions on
+    the same inputs (x ``offset`` elements into its storage, tiles of
+    ``hw_block`` pixels or gn_hw_block's default): psum / psq to the
+    partial sums' tolerance, the moments to the GroupNorm ones, y (apply
+    on the plain moments) to the GroupNorm tolerances; two runs of each
+    give the same bits, and the public forward launches the pair once
+    each. Returns the route the geometry took, y of the kernels' own
+    moments, x3 and the moments."""
+    from apex_tpu_torch.ops.tiling import gn_two_pass_geometry
+    n, h, w, c = shape
+    hw = h * w
+    x, wt, bt = _gn_inputs(dev, n, h, w, c, torch.float32, affine,
+                           sum(shape) + offset + groups)
+    if ill:   # one group: mean 1000, std 0.01
+        x[0, :, :, :c // groups] = 1000 + 0.01 * torch.randn(
+            h, w, c // groups, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(3))
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+    x3 = buf[offset:].view(n, hw, c)
+    x3.copy_(x.reshape(n, hw, c))
+    blk = gn_hw_block(hw, c, hw_block)
+    cnt = hw * (c // groups)
+    shift = gn_shift(x3, groups)
+    ps, pq = gn_stats(x3, shift, blk)
+    again_s = gn_stats(x3, shift, blk)
+    ps_p, pq_p = gn_stats_plain(x3, shift, blk)
+    md, rstd = gn_moments(ps, pq, cnt, 1e-5)
+    md_p, rstd_p = gn_moments(ps_p, pq_p, cnt, 1e-5)
+    y = gn_apply(x3, shift, md_p, rstd_p, wt, bt, blk, act=act)
+    again_a = gn_apply(x3, shift, md_p, rstd_p, wt, bt, blk, act=act)
+    y_p = gn_apply_plain(x3, shift, md_p, rstd_p, wt, bt, act=act)
+    y_own = gn_apply(x3, shift, md, rstd, wt, bt, blk, act=act)
+    torch.cuda.synchronize()
+    assert ps.shape == (n, hw // blk, groups)
+    torch.testing.assert_close(ps, ps_p, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(pq, pq_p, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(md, md_p, atol=1e-5, rtol=2 ** -23)
+    torch.testing.assert_close(rstd, rstd_p, atol=0, rtol=1e-4)
+    _gn_close(y, y_p, dtype)
+    assert torch.equal(ps, again_s[0]) and torch.equal(pq, again_s[1])
+    assert torch.equal(y, again_a)
+    _build.reset_launches()
+    x4 = x3.view(n, h, w, c)
+    group_norm_nhwc_fwd(x4, groups, wt, bt, 1e-5, act, "two_pass",
+                        hw_block)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"gn_stats": 1, "gn_apply": 1}
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    geo = gn_two_pass_geometry(n, hw, c, groups, name,
+                               aligned=x3.data_ptr() % 16 == 0, tile=blk)
+    return geo.route, y_own, x3, (md, rstd)
+
+
+# (n, h, w, c, hw_block): the vector route at 960 (the UNet's two-pass
+# width), 128 (the VAE's) and 64 channels, cpg = 3 (vectors spanning
+# groups), hw = 1, hw = 5625 (25-pixel tiles), explicit 8-pixel tiles (one
+# slot a stats block; two a stats block)
+_GN_TWO_PASS_SHAPES = [(2, 64, 64, 960, None), (1, 64, 64, 128, None),
+                       (2, 32, 32, 64, None), (2, 16, 16, 96, None),
+                       (4, 1, 1, 960, None), (2, 75, 75, 960, None),
+                       (2, 16, 16, 64, 8), (8, 64, 64, 64, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _GN_TWO_PASS_SHAPES)
+def test_gn_two_pass_vector_route_matches_plain(dev, shape, dtype):
+    """The two-pass pair on the vector route against the plain versions,
+    two runs identical."""
+    route, _, _, _ = _gn_two_pass_check(dev, shape[:4], dtype,
+                                        hw_block=shape[4])
+    assert route == "vector"
+
+
+@pytest.mark.parametrize("act,affine", [("", None), ("", "w"),
+                                        ("silu", "b"), ("silu", None)])
+def test_gn_two_pass_vector_route_forms(dev, act, affine):
+    """The vector route without SiLU, without affine, with gamma or beta
+    alone."""
+    route, _, _, _ = _gn_two_pass_check(dev, (2, 32, 32, 960),
+                                        torch.bfloat16, act=act,
+                                        affine=affine)
+    assert route == "vector"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_two_pass_scalar_routes(dev, dtype):
+    """x one element past a 16-byte boundary, and (bf16) 36 channels in 4
+    groups (72 bytes a pixel), take the scalar kernels, held to the plain
+    versions as the vector route is."""
+    route, _, _, _ = _gn_two_pass_check(dev, (2, 16, 16, 960), dtype,
+                                        offset=1)
+    assert route == "scalar"
+    route, _, _, _ = _gn_two_pass_check(dev, (2, 16, 16, 36), dtype,
+                                        groups=4)
+    assert route == ("scalar" if dtype == torch.bfloat16 else "vector")
+
+
+def test_gn_two_pass_vector_route_ill_conditioned_group(dev):
+    """A group of mean 1000 and std 0.01 (fp32, no affine, no SiLU) through
+    the vector route with the kernels' own moments: y finite and within
+    1e-4 of float64."""
+    route, y, x3, _ = _gn_two_pass_check(dev, (2, 32, 32, 960),
+                                         torch.float32, act="",
+                                         affine=None, ill=True)
+    assert route == "vector"
+    x64 = x3.double().reshape(2, 1024, 32, 30)
+    m = x64.mean(dim=(1, 3), keepdim=True)
+    v = ((x64 - m) ** 2).mean(dim=(1, 3), keepdim=True)
+    y64 = ((x64 - m) / torch.sqrt(v + 1e-5)).reshape(y.shape)
+    assert torch.isfinite(y).all()
+    assert (y.double() - y64).abs().max().item() <= 1e-4
+
+
+def test_gn_two_pass_refuses_a_bad_vector_geometry(dev):
+    """The C entries check the geometry they are given: a vector launch
+    for misaligned x returns cudaErrorInvalidValue, launching nothing."""
+    from apex_tpu_torch.ops.tiling import gn_two_pass_geometry
+    buf = torch.zeros(2 * 64 * 960 + 1, dtype=torch.bfloat16, device=dev)
+    x3 = buf[1:].view(2, 64, 960)
+    geo = gn_two_pass_geometry(2, 64, 960, 32, "bfloat16")
+    assert geo.route == "vector"
+    shift = torch.zeros(2, 32, device=dev)
+    psum = torch.empty(2, 64 // geo.tile, 32, device=dev)
+    err = _build.lib().apex_gn_stats(
+        x3.data_ptr(), shift.data_ptr(), psum.data_ptr(), psum.data_ptr(),
+        2, 64, 960, 32, geo.tile, geo.route_id, geo.rows, geo.threads,
+        geo.stats_tiles, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue

@@ -10,8 +10,15 @@ aligned rows within its limit; its blocks and shared memory fit an SM; a
 GroupNorm slice holds whole groups and whole vectors; the clusters'
 slices and pixel ranges tile (hw, c) once; every shape the one-pass gate
 admits gets a geometry within 227 KB a block and a portable cluster; and
-the sources' ``constexpr`` values match the Python mirror. No JAX:
-nothing here has a counterpart there.
+the sources' ``constexpr`` values match the Python mirror. The two-pass
+pair's ``gn_two_pass_geometry``: its slots tile hw and the samples once,
+each block's tiles whole and consecutive; on the vector route its threads'
+16-byte columns cover every (pixel, channel) of a tile once, a route taken
+only for aligned widths that are whole vectors; an explicit tile is
+honoured and an invalid ``hw_block`` raises; threads, grid and shared
+memory stay within the card's limits. No JAX: nothing here has a
+counterpart there (``tests/test_torch_group_norm.py`` holds the tile rule
+against the JAX package).
 """
 
 import math
@@ -22,13 +29,16 @@ import pytest
 
 from apex_tpu_torch.ops.tiling import (
     GN_CLUSTER_MAX, GN_CLUSTER_THREADS, GN_MIN_BLOCKS,
-    GN_ONE_PASS_SMEM_BYTES, GN_STAGED_MAX_SLAB, GN_STAGED_THREADS,
-    GN_VECTOR_BYTES,
+    GN_ONE_PASS_SMEM_BYTES, GN_SCALAR_THREADS, GN_STAGED_MAX_SLAB,
+    GN_STAGED_THREADS, GN_TWO_PASS_MAX_THREADS, GN_STATS_MIN_BLOCKS,
+    GN_APPLY_UNROLL, GN_STATS_UNROLL,
+    GN_TWO_PASS_ROUTES, GN_TWO_PASS_THREADS, GN_VECTOR_BYTES,
     LN_BWD_MAX_BLOCKS, LN_REDUCE_COLS, LN_REDUCE_FEW_ROWS,
     LN_REDUCE_THREADS, LN_REDUCE_WIDE_COLS,
     LN_REG_BLOCKS_PER_SM, LN_REG_LANE_VALUES, LN_REG_WARPS, LN_SMEM_MAX_HIDDEN,
-    LN_SMS, LN_VECTOR_BYTES, LN_WIDE_WARPS, gn_one_pass_geometry,
-    gn_one_pass_ok, ln_bwd_geometry, ln_reduce_cols)
+    LN_SMS, LN_VECTOR_BYTES, LN_WIDE_WARPS, gn_hw_block,
+    gn_one_pass_geometry, gn_one_pass_ok, gn_two_pass_geometry,
+    ln_bwd_geometry, ln_reduce_cols)
 
 CSRC = Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
@@ -340,3 +350,208 @@ def test_gn_misaligned_unsliceable_or_small_shapes_take_the_staged_route(
     assert gn_one_pass_geometry(2, 256, 64, 32, dtype).route == "staged"
     assert 256 * 2 <= GN_STAGED_MAX_SLAB < 64 * 40
     assert gn_one_pass_geometry(8, 64, 1280, 32, dtype).route == "cluster"
+
+
+# ------------------------------------------------ GroupNorm, two passes
+
+# (n, hw, c, hw_block) the pair runs: the UNet's 64 x 64 x 960, the SD VAE
+# decoder's last GroupNorm, 75 x 75 latents (25-pixel tiles), the JAX
+# package's AOT shape, a given tile, a ragged hw, hw = 1, and many 8-pixel
+# tiles (two a stats block)
+GN_TWO_PASS_SHAPES = [(8, 4096, 960, None), (1, 262144, 128, None),
+                      (2, 5625, 960, None), (8, 1024, 256, None),
+                      (2, 256, 64, 32), (2, 49, 64, None), (2, 1, 960, None),
+                      (3, 1, 64, None), (8, 4096, 64, 8), (2, 256, 96, None)]
+
+
+def _two_pass_cases():
+    for n, hw, c, hwb in GN_TWO_PASS_SHAPES:
+        for dtype in DTYPES:
+            yield (n, hw, c, hwb, dtype)
+
+
+def gn_two_pass_blocks(geo, n, hw, stats=False):
+    """The grid of a launch of ``geo`` over x ``(n, hw, c)``, as
+    ``csrc/group_norm.cu`` launches it: ceil(slots / slots a block), the
+    stats kernel's (``stats``) or apply's (one slot a block)."""
+    slots = n * (hw // geo.tile)
+    return -(-slots // (geo.stats_tiles if stats else 1))
+
+
+def _gn_stats_smem(geo, c):
+    """The vector stats block's dynamic shared memory, as
+    ``two_pass_smem`` in ``csrc/group_norm.cu`` sizes it: two fp32 sums a
+    pixel row and channel."""
+    return 2 * geo.rows * c * 4
+
+
+def _slots_of(per, blk, slots):
+    """The (sample, tile) slots block ``blk`` of the vector route takes,
+    ``per`` a block."""
+    return range(blk * per, min((blk + 1) * per, slots))
+
+
+def _thread_cells(geo, nj, t):
+    """(pixel of the tile, vector column) of every vector thread ``t``
+    walks in a tile, in its order (the kernels' VecLane and
+    walk_column)."""
+    if t >= geo.rows * nj:
+        return []
+    j, r0 = t % nj, t // nj
+    m = (geo.tile - 1 - r0) // geo.rows + 1
+    return [(r0 + k * geo.rows, j) for k in range(m)]
+
+
+def test_gn_two_pass_geometry_mirrors_the_source():
+    c = _constexprs("group_norm.cu")
+    assert int(c["kTwoPassMaxThreads"]) == GN_TWO_PASS_MAX_THREADS
+    assert int(c["kStatsUnroll"]) == GN_STATS_UNROLL
+    assert int(c["kApplyUnroll"]) == GN_APPLY_UNROLL
+    assert int(c["kTileThreads"]) == GN_SCALAR_THREADS
+    assert int(c["kRouteVector"]) == GN_TWO_PASS_ROUTES.index("vector")
+    assert GN_TWO_PASS_THREADS <= GN_TWO_PASS_MAX_THREADS
+
+
+@pytest.mark.parametrize("n,hw,c,hwb,dtype", list(_two_pass_cases()))
+def test_gn_two_pass_slots_tile_hw_once(n, hw, c, hwb, dtype):
+    """The tile divides hw and is the caller's when given (else
+    gn_hw_block's default); psum's (n, hw / tile) slots are covered once
+    by each kernel's blocks, each block taking whole, consecutive slots
+    (the vector route: one an apply block, ``stats_tiles`` a stats block)
+    or one (tile, sample) (the scalar route)."""
+    tile = gn_hw_block(hw, c, hwb)
+    geo = gn_two_pass_geometry(n, hw, c, 32, dtype, tile=tile)
+    assert geo.tile == tile and hw % tile == 0
+    assert tile == (hwb if hwb is not None else gn_hw_block(hw, c))
+    slots = n * (hw // tile)
+    if geo.route == "scalar":
+        assert geo.stats_tiles == 1
+        assert gn_two_pass_blocks(geo, n, hw) == slots
+        return
+    for stats, per in ((False, 1), (True, geo.stats_tiles)):
+        blocks = gn_two_pass_blocks(geo, n, hw, stats)
+        seen = [s for b in range(blocks) for s in _slots_of(per, b, slots)]
+        assert seen == list(range(slots))
+        assert all(len(_slots_of(per, b, slots)) >= 1
+                   for b in range(blocks))
+        assert blocks == -(-slots // per)
+
+
+@pytest.mark.parametrize("n,hw,c,hwb,dtype", list(_two_pass_cases()))
+def test_gn_two_pass_vector_columns_cover_each_tile_once(n, hw, c, hwb,
+                                                         dtype):
+    """On the vector route (taken exactly for aligned widths that are a
+    whole number of 16-byte vectors, at most GN_TWO_PASS_MAX_THREADS of
+    them), thread t < rows * nj keeps vector column t % nj down pixels t //
+    nj, + rows, ...: every (pixel, vector) of a tile once, every row of a
+    block with a pixel; the threads are whole warps with fewer than 32
+    idle."""
+    item = ITEMSIZE[dtype]
+    vec = GN_VECTOR_BYTES // item
+    geo = gn_two_pass_geometry(n, hw, c, 32, dtype,
+                               tile=gn_hw_block(hw, c, hwb))
+    vector = (c * item) % GN_VECTOR_BYTES == 0 \
+        and c // vec <= GN_TWO_PASS_MAX_THREADS
+    assert (geo.route == "vector") == vector
+    if not vector:
+        return
+    nj = c // vec
+    assert nj * vec == c
+    assert 1 <= geo.rows <= geo.tile
+    assert geo.threads % 32 == 0 and 0 <= geo.threads - geo.rows * nj < 32
+    cells = sorted(cell for t in range(geo.threads)
+                   for cell in _thread_cells(geo, nj, t))
+    assert cells == [(p, j) for p in range(geo.tile) for j in range(nj)]
+    # the channels of a thread: one whole vector, the same in every pixel
+    assert all(len({j for _, j in _thread_cells(geo, nj, t)}) <= 1
+               for t in range(geo.threads))
+
+
+@pytest.mark.parametrize("n,hw,c,hwb,dtype", list(_two_pass_cases()))
+def test_gn_two_pass_fits_the_card(n, hw, c, hwb, dtype):
+    """Threads within GN_TWO_PASS_MAX_THREADS (the kernels' launch bound),
+    the stats block's shared memory (two fp32 sums a row and channel)
+    within the 48 KB a launch takes unasked, the grids within grid.x; a
+    stats block two slots exactly where its grid keeps GN_STATS_MIN_BLOCKS
+    blocks, else one."""
+    geo = gn_two_pass_geometry(n, hw, c, 32, dtype,
+                               tile=gn_hw_block(hw, c, hwb))
+    if geo.route == "scalar":
+        assert geo.threads == GN_SCALAR_THREADS
+        return
+    assert 32 <= geo.threads <= GN_TWO_PASS_MAX_THREADS
+    assert _gn_stats_smem(geo, c) <= 48 * 1024
+    slots = n * (hw // geo.tile)
+    assert gn_two_pass_blocks(geo, n, hw) <= 2 ** 31 - 1
+    blocks = gn_two_pass_blocks(geo, n, hw, stats=True)
+    doubled = -(-slots // 2) >= GN_STATS_MIN_BLOCKS
+    assert geo.stats_tiles == (2 if doubled else 1)
+    assert geo.stats_tiles == 1 or blocks >= GN_STATS_MIN_BLOCKS
+    # rows fill GN_TWO_PASS_THREADS where the tile has the pixels
+    vec = GN_VECTOR_BYTES // ITEMSIZE[dtype]
+    assert geo.rows == max(1, min(GN_TWO_PASS_THREADS // (c // vec),
+                                  geo.tile))
+
+
+def test_gn_two_pass_main_shapes():
+    """The UNet's 8 x 64 x 64 x 960 bf16: 32-pixel tiles, 2 rows of 120
+    vector columns, 1024 apply blocks of one tile, 512 stats blocks of
+    two (a thread's 16 vectors a tile one batch); the VAE's 1 x 512 x 512
+    x 128: 256-pixel tiles, 16 rows of 16 columns, the same grids; 2 x 75
+    x 75 x 960: 450 blocks of a 25-pixel tile for both (225 stats blocks
+    of two would be under a wave); 8-pixel tiles of 64 channels: 8 rows
+    of 8 columns, 4096 apply blocks, 2048 stats blocks of two; 7.5 KB of
+    stats shared memory at 960 fp32 (1 row of 240 columns)."""
+    geo = gn_two_pass_geometry(8, 4096, 960, 32, "bfloat16")
+    assert (geo.route, geo.tile, geo.rows, geo.threads,
+            geo.stats_tiles) == ("vector", 32, 2, 256, 2)
+    assert (gn_two_pass_blocks(geo, 8, 4096),
+            gn_two_pass_blocks(geo, 8, 4096, True)) == (1024, 512)
+    geo = gn_two_pass_geometry(1, 262144, 128, 32, "bfloat16")
+    assert (geo.tile, geo.rows, geo.threads, geo.stats_tiles) \
+        == (256, 16, 256, 2)
+    assert (gn_two_pass_blocks(geo, 1, 262144),
+            gn_two_pass_blocks(geo, 1, 262144, True)) == (1024, 512)
+    geo = gn_two_pass_geometry(2, 5625, 960, 32, "bfloat16")
+    assert (geo.tile, geo.stats_tiles, gn_two_pass_blocks(geo, 2, 5625),
+            gn_two_pass_blocks(geo, 2, 5625, True)) == (25, 1, 450, 450)
+    geo = gn_two_pass_geometry(8, 4096, 64, 32, "bfloat16", tile=8)
+    assert (geo.rows, geo.threads, geo.stats_tiles,
+            gn_two_pass_blocks(geo, 8, 4096),
+            gn_two_pass_blocks(geo, 8, 4096, True)) == (8, 64, 2, 4096, 2048)
+    geo = gn_two_pass_geometry(8, 4096, 960, 32, "float32")
+    assert (geo.rows, geo.threads, _gn_stats_smem(geo, 960)) \
+        == (1, 256, 7680)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gn_two_pass_ragged_shapes_take_the_scalar_route(dtype):
+    """x off a 16-byte boundary, a pixel that is not whole 16-byte
+    vectors (36 bf16 channels: 72 bytes; 36 fp32 channels, 144 bytes, are
+    nine) or wider than GN_TWO_PASS_MAX_THREADS vectors takes the scalar
+    route."""
+    vec = GN_VECTOR_BYTES // ITEMSIZE[dtype]
+    assert gn_two_pass_geometry(2, 256, 960, 32, dtype,
+                                aligned=False).route == "scalar"
+    assert gn_two_pass_geometry(2, 256, 36, 4, dtype).route \
+        == ("scalar" if 36 % vec else "vector")
+    assert gn_two_pass_geometry(2, 256, 30, 3, dtype).route == "scalar"
+    wide = (GN_TWO_PASS_MAX_THREADS + 1) * vec
+    assert gn_two_pass_geometry(1, 16, wide, 32, dtype).route == "scalar"
+    assert gn_two_pass_geometry(
+        1, 16, GN_TWO_PASS_MAX_THREADS * vec, 32, dtype).route == "vector"
+
+
+@pytest.mark.parametrize("hw,c,hwb", [(4096, 960, 12), (4096, 960, 0),
+                                      (4096, 960, -8), (4096, 960, 48),
+                                      (49, 64, 7), (5625, 960, 25),
+                                      (4096, 960, 8.0), (4096, 960, "8")])
+def test_gn_two_pass_invalid_hw_block_raises(hw, c, hwb):
+    """An explicit hw_block that is not a positive multiple of 8 dividing
+    hw raises ValueError, as the JAX package's does; a tile that does not
+    divide hw is refused by the geometry."""
+    with pytest.raises(ValueError, match="hw_block"):
+        gn_hw_block(hw, c, hwb)
+    if isinstance(hwb, int) and (hwb < 1 or hw % hwb):
+        with pytest.raises(ValueError, match="tile"):
+            gn_two_pass_geometry(1, hw, c, 32, tile=hwb)
