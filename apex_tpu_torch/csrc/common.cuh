@@ -5,6 +5,7 @@
 
 #pragma once
 
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -169,6 +170,35 @@ struct ScoreBias {
   __device__ __forceinline__ float at(const float* s, int row,
                                       int key) const {
     return s[(long long)row * sq + (long long)key * sk];
+  }
+};
+
+// Attention dropout, the TPU kernels' `_dropout_keep`: a stateless hash of
+// (seed, flat batch * head, query row, key) in uint32 arithmetic, kept
+// where it reaches `threshold` (min(p * 2^32, 2^32 - 1)), a kept entry
+// scaled by `scale` (1 / (1 - p) in fp32). It reads global rows and keys
+// only, so every kernel, route and tile size draws one mask, JAX's bit for
+// bit, and the backward kernels regenerate the forward's. The int32 seed
+// lies in device memory (`seed` null: no dropout), so a per-step seed
+// tensor costs the host no sync.
+struct Dropout {
+  const int* seed;
+  unsigned threshold;
+  float scale;
+  // the hash's (batch * head, seed) term, once a block
+  __device__ __forceinline__ uint32_t head(long long bh) const {
+    return (uint32_t)bh * 0x85EBCA6Bu ^ (uint32_t)__ldg(seed) * 0x9E3779B9u;
+  }
+  // the keep factor of (row, key) of the slice whose term is `h`: scale
+  // or 0
+  __device__ __forceinline__ float keep(uint32_t h, int row, int key) const {
+    uint32_t x = (uint32_t)row * 0xD2511F53u ^ (uint32_t)key * 0xCD9E8D57u ^ h;
+    x ^= x >> 16;
+    x *= 0x7FEB352Du;
+    x ^= x >> 15;
+    x *= 0x846CA68Bu;
+    x ^= x >> 16;
+    return x >= threshold ? scale : 0.f;
   }
 };
 

@@ -5,8 +5,10 @@
 // tensor-core product would change the numbers users get).
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `flash_attention_fwd`
-// (the Pallas kernel `_fa_fwd_kernel`) without dropout, causal or not, with
-// or without an additive fp32 score bias, with the JAX layout q
+// (the Pallas kernel `_fa_fwd_kernel`), causal or not, with or without an
+// additive fp32 score bias, with or without attention dropout (the keep
+// factor of `Dropout`, common.cuh, times p before the p.v product; l and
+// lse from the undropped p, as `_fa_fwd_kernel` sums them), JAX layout q
 // (b, h, sq, d), k / v (b, h, sk, d). The bias (a boolean mask arrives as
 // -1e30 where masked, `flash_attention`'s rule) is broadcastable to
 // (b, h, sq, sk) and read through per-dimension strides, 0 on a broadcast
@@ -139,12 +141,12 @@ __device__ __forceinline__ long long block_head() {
   return (long long)blockIdx.z * gridDim.x + blockIdx.x;
 }
 
-template <bool kBias>
+template <bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int nbh, int sq, int sk, float scale,
-              int causal, int vec, ScoreBias bias) {
+              int causal, int vec, ScoreBias bias, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                   // [kBM][kStride]
   float* strip = qs + kBlockTile;     // [kBM][kStride]: p
@@ -158,6 +160,7 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + bh * sk * kD;
   const float* vb = v + bh * sk * kD;
   const float* bs = kBias ? bias.slice(bh) : nullptr;
+  const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
   int nk = (sk + kBN - 1) / kBN;
   if (causal) nk = min(nk, (min(q0 + kBM, sq) - 1) / kBN + 1);
 
@@ -236,7 +239,10 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < 4; ++j) {
           const float p = expf(s[i][j] - m_safe);
           ps += p;
-          prow[kRowStep * i * kStride + kColStep * j] = p;
+          // dropout: p times its keep factor into the p.v product only
+          prow[kRowStep * i * kStride + kColStep * j] =
+              kDropout ? p * drop.keep(dhead, row, k0 + lx + kColStep * j)
+                       : p;
         }
         l[i] = l[i] * alpha + ps;
 #pragma unroll
@@ -272,12 +278,16 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int grid_y, int grid_z, int sq, int sk, float scale,
-           int causal, const ScoreBias& bias, cudaStream_t stream) {
+           int causal, const ScoreBias& bias, const Dropout& drop,
+           cudaStream_t stream) {
   const int smem = (int)(kSmemFloats * sizeof(float));
-  // a separate instantiation with the bias, so the unbiased kernel keeps
-  // no bias registers or branches
-  const auto kernel = bias.p != nullptr ? fa_fwd_kernel<true>
-                                        : fa_fwd_kernel<false>;
+  // a separate instantiation for each form, so the kernel without a bias
+  // or dropout keeps no registers or branches of theirs
+  const bool b = bias.p != nullptr, d = drop.seed != nullptr;
+  const auto kernel = b ? (d ? fa_fwd_kernel<true, true>
+                             : fa_fwd_kernel<true, false>)
+                        : (d ? fa_fwd_kernel<false, true>
+                             : fa_fwd_kernel<false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   // all of the SM's unified memory as shared memory: two blocks fit
@@ -291,7 +301,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
       static_cast<float*>(lse), bh, sq, sk, scale, causal,
       (int)(is_aligned(q, 16) && is_aligned(k, 16) && is_aligned(v, 16) &&
             is_aligned(o, 16)),
-      bias);
+      bias, drop);
   return (int)cudaGetLastError();
 }
 
@@ -302,12 +312,15 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // carry the bh = b * h slices (fa_batch_heads_grid in ops/tiling.py) on
 // grid.x and grid.z; grid.y runs over the query blocks. bias: float32 or
 // null; heads = h of bh = b * h; bsb, bsh, bsq, bsk its strides in
-// elements (0 on a broadcast dimension).
+// elements (0 on a broadcast dimension). seed: the dropout seed, int32 on
+// the device, or null without dropout; threshold and keep as in Dropout
+// (common.cuh).
 extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* o, void* lse, int bh,
                            int grid_y, int grid_z, int heads, int sq, int sk,
                            int d, float scale, int causal, long long bsb,
                            long long bsh, long long bsq, long long bsk,
+                           const void* seed, unsigned threshold, float keep,
                            int dtype, void* stream) {
   if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
@@ -316,8 +329,10 @@ extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
+  const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
+                              keep};
   if (dtype == 0)
     return launch(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale, causal,
-                  sb, s);
+                  sb, dr, s);
   return (int)cudaErrorInvalidValue;
 }

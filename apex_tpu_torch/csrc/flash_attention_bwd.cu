@@ -5,10 +5,11 @@
 // pipes, whose full fp32 products the fp32 tolerances hold.
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `flash_attention_bwd`,
-// its two Pallas kernels `_fa_dq_kernel` and `_fa_dkv_kernel`, without
-// dropout and without dbias, causal or not, with or without an additive
-// fp32 score bias (read through per-dimension strides, 0 on a broadcast
-// dimension, never expanded: see flash_attention.cu), JAX layout q / do
+// its two Pallas kernels `_fa_dq_kernel` and `_fa_dkv_kernel`, causal or
+// not, with or without an additive fp32 score bias (read through
+// per-dimension strides, 0 on a broadcast dimension, never expanded: see
+// flash_attention.cu), with or without attention dropout and, in dq, the
+// dlogits of a differentiated bias (`want_dbias`), JAX layout q / do
 // (b, h, sq, d), k / v (b, h, sk, d), lse and D = rowsum(do * o) as fp32
 // (b, h, sq) (D is computed outside the kernels, as the JAX wrapper
 // computes it). Per (query i, key j):
@@ -16,10 +17,13 @@
 //        (causal) j > i
 //   p  = exp(s - lse_i), exactly 0 where s is masked or lse_i <= -0.5e30
 //        (fully masked rows give zero gradients: `_bwd_p`)
-//   dp = do_i . v_j,  ds = p * (dp - D_i)
+//   dp = (do_i . v_j) * keep_ij,  ds = p * (dp - D_i)
 //   dq_i += (ds * scale) . k_j
-//   dv_j += p . do_i
+//   dv_j += (p * keep_ij) . do_i
 //   dk_j += (ds * scale) . q_i
+// where keep_ij is dropout's keep factor (`Dropout`, common.cuh; 1 without
+// dropout), and with dlogits the dq kernel also writes ds (fp32) at (i, j)
+// for every i < sq, j < sk: 0 where masked or in a key tile it skips.
 // The TPU wrapper folds a power-of-two scale into q (`_fold_scale`);
 // scaling by a power of two commutes with rounding, so multiplying ds by
 // the scale, as here, gives the same dk bits, and the scores the same
@@ -230,7 +234,7 @@ __device__ __forceinline__ int dq_key_tiles(int q0, int sq, int sk,
   return causal ? min(n, (min(q0 + kBM, sq) - 1) / kBN + 1) : n;
 }
 
-template <bool kBias>
+template <bool kBias, bool kDropout, bool kDbias>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -238,7 +242,8 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ dvec, float* __restrict__ dq,
                      int nbh, int sq, int sk, float scale, int causal,
-                     int vec, ScoreBias bias) {
+                     int vec, ScoreBias bias, Dropout drop,
+                     float* __restrict__ dlogits) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                   // [kBM][kStride]
   float* dos = qs + kBlockTile;       // [kBM][kStride]
@@ -254,6 +259,8 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + bh * sk * kD;
   const float* vb = v + bh * sk * kD;
   const float* bs = kBias ? bias.slice(bh) : nullptr;
+  const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
+  float* dlb = kDbias ? dlogits + bh * sq * sk : nullptr;
   const int nk = dq_key_tiles(q0, sq, sk, causal);
 
   // K (part 0) and V (part 1) of tile kt into its stage
@@ -323,25 +330,45 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
       zero(s);
       score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
           s, dos + r0 * kStride, vs + c0 * kStride);
-      // ds * scale = p (dp - D) * scale in place
+      // ds * scale = p (dp * keep - D) * scale in place
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float* e = srow + kRowStep * i * kStride + kColStep * j;
-          *e = *e * (s[i][j] - dd[i]) * scale;
+          const int row = q0 + r0 + kRowStep * i, key = k0 + c0 + kColStep * j;
+          const float dp =
+              kDropout ? s[i][j] * drop.keep(dhead, row, key) : s[i][j];
+          const float dl = *e * (dp - dd[i]);
+          if (kDbias && row < sq && key < sk)
+            dlb[(long long)row * sk + key] = dl;
+          *e = dl * scale;
         }
       pair_sync(pair);  // the pair's strip rows are whole
       out_product<kMI, kRowStep, kBN, kStride, kUnroll>(
           acc, strip + r0 * kStride, ks + half * 32 + lx * 4);
+    } else if (kDbias) {  // rows past sq, or (causal) keys none of them sees
+#pragma unroll
+      for (int i = 0; i < kMI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = q0 + r0 + kRowStep * i, key = k0 + c0 + kColStep * j;
+          if (row < sq && key < sk) dlb[(long long)row * sk + key] = 0.f;
+        }
     }
   }
   cp_async_wait<0>();
+  if (kDbias) {  // the key tiles past the block's diagonal: zeros
+    const int kz = nk * kBN, w = sk - kz, rows = min(kBM, sq - q0);
+    for (long long t = threadIdx.x; w > 0 && t < (long long)rows * w;
+         t += kThreads)
+      dlb[(long long)(q0 + t / w) * sk + kz + t % w] = 0.f;
+  }
   store_rows<kMI, kRowStep, kD>(dq + bh * sq * kD, acc, q0 + r0,
                                 half * 32 + lx * 4, sq, vec);
 }
 
-template <bool kBias>
+template <bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -350,7 +377,8 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
                       const float* __restrict__ lse,
                       const float* __restrict__ dvec, float* __restrict__ dk,
                       float* __restrict__ dv, int nbh, int sq, int sk,
-                      float scale, int causal, int vec, ScoreBias bias) {
+                      float scale, int causal, int vec, ScoreBias bias,
+                      Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                  // [kBM][kStride]
   float* vs = ks + kBlockTile;       // [kBM][kStride]
@@ -370,6 +398,7 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
   const float* lb = lse + bh * sq;
   const float* db = dvec + bh * sq;
   const float* bs = kBias ? bias.slice(bh) : nullptr;
+  const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
   // causal: query tiles below k0 see none of this block's keys
   const int qt0 = causal ? k0 / kBN : 0;
   const int nq = max(0, (sq + kBN - 1) / kBN - qt0);
@@ -447,13 +476,22 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
       zero(s);
       score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
           s, vs + r0 * kStride, dos + c0 * kStride);
-      // ds * scale = p (dp - D) * scale into the other strip
+      // ds * scale = p (dp * keep - D) * scale into the other strip;
+      // with dropout p times its keep factor in place, for dv
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int e = kRowStep * i * kStride + kColStep * j;
-          drow[e] = prow[e] * (s[i][j] - ds[c0 + kColStep * j]) * scale;
+          if (kDropout) {
+            const float keep = drop.keep(dhead, q0 + c0 + kColStep * j,
+                                         k0 + r0 + kRowStep * i);
+            drow[e] = prow[e] * (s[i][j] * keep - ds[c0 + kColStep * j]) *
+                      scale;
+            prow[e] *= keep;
+          } else {
+            drow[e] = prow[e] * (s[i][j] - ds[c0 + kColStep * j]) * scale;
+          }
         }
       pair_sync(pair);  // the pair's strip rows are whole
       out_product2(av, pst + r0 * kStride, dos + half * 32 + lx * 4, ak,
@@ -470,12 +508,21 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* dvec, void* dq, int bh,
               int grid_y, int grid_z, int sq, int sk, float scale,
-              int causal, const ScoreBias& bias, cudaStream_t stream) {
+              int causal, const ScoreBias& bias, const Dropout& drop,
+              float* dlogits, cudaStream_t stream) {
   const int smem = (int)(kDqSmemFloats * sizeof(float));
-  // a separate instantiation with the bias, so the unbiased kernel keeps
-  // no bias registers or branches
-  const auto kernel = bias.p != nullptr ? fa_bwd_dq_kernel_fma<true>
-                                        : fa_bwd_dq_kernel_fma<false>;
+  // a separate instantiation for each form, so the kernel without a bias,
+  // dropout or dlogits keeps no registers or branches of theirs; dlogits
+  // come with a bias only
+  const bool d = drop.seed != nullptr;
+  const auto kernel =
+      dlogits != nullptr
+          ? (d ? fa_bwd_dq_kernel_fma<true, true, true>
+               : fa_bwd_dq_kernel_fma<true, false, true>)
+      : bias.p != nullptr ? (d ? fa_bwd_dq_kernel_fma<true, true, false>
+                               : fa_bwd_dq_kernel_fma<true, false, false>)
+                          : (d ? fa_bwd_dq_kernel_fma<false, true, false>
+                               : fa_bwd_dq_kernel_fma<false, false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   const dim3 grid(grid_y, (sq + kBM - 1) / kBM, grid_z);
@@ -486,17 +533,21 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<float*>(dq), bh, sq, sk, scale, causal,
       (int)(is_aligned(q, 16) && is_aligned(k, 16) && is_aligned(v, 16) &&
             is_aligned(dout, 16) && is_aligned(dq, 16)),
-      bias);
+      bias, drop, dlogits);
   return (int)cudaGetLastError();
 }
 
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* dvec, void* dk, void* dv, int bh,
                int grid_y, int grid_z, int sq, int sk, float scale,
-               int causal, const ScoreBias& bias, cudaStream_t stream) {
+               int causal, const ScoreBias& bias, const Dropout& drop,
+               cudaStream_t stream) {
   const int smem = (int)(kDkvSmemFloats * sizeof(float));
-  const auto kernel = bias.p != nullptr ? fa_bwd_dkv_kernel_fma<true>
-                                        : fa_bwd_dkv_kernel_fma<false>;
+  const bool b = bias.p != nullptr, d = drop.seed != nullptr;
+  const auto kernel = b ? (d ? fa_bwd_dkv_kernel_fma<true, true>
+                             : fa_bwd_dkv_kernel_fma<true, false>)
+                        : (d ? fa_bwd_dkv_kernel_fma<false, true>
+                             : fa_bwd_dkv_kernel_fma<false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   const dim3 grid(grid_y, (sk + kBM - 1) / kBM, grid_z);
@@ -509,7 +560,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       (int)(is_aligned(q, 16) && is_aligned(k, 16) && is_aligned(v, 16) &&
             is_aligned(dout, 16) && is_aligned(dk, 16) &&
             is_aligned(dv, 16)),
-      bias);
+      bias, drop);
   return (int)cudaGetLastError();
 }
 
@@ -518,24 +569,32 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // dtype: 0 = float32 (q, k, v, do and the gradients; bfloat16 is
 // apex_fa_bwd_dq_wgmma's and apex_fa_bwd_dkv_wgmma's); lse and dvec are
 // float32 [bh, sq]. Only head_dim 64 is compiled. grid_y, grid_z,
-// bias, heads and the bias strides as for apex_fa_fwd.
+// bias, heads, the bias strides and the dropout seed, threshold and keep
+// as for apex_fa_fwd. dlogits: float32 [bh, sq, sk], every entry written,
+// or null; only with a bias.
 extern "C" int apex_fa_bwd_dq(const void* q, const void* k, const void* v,
                               const void* bias, const void* dout,
                               const void* lse, const void* dvec, void* dq,
                               int bh, int grid_y, int grid_z, int heads,
                               int sq, int sk, int d, float scale, int causal,
                               long long bsb, long long bsh, long long bsq,
-                              long long bsk, int dtype, void* stream) {
-  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+                              long long bsk, const void* seed,
+                              unsigned threshold, float keep, void* dlogits,
+                              int dtype, void* stream) {
+  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z) ||
+      (dlogits != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   if ((sq + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
+  const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
+                              keep};
   if (dtype == 0)
     return launch_dq(q, k, v, dout, lse, dvec, dq, bh, grid_y, grid_z, sq,
-                     sk, scale, causal, sb, s);
+                     sk, scale, causal, sb, dr, static_cast<float*>(dlogits),
+                     s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -545,7 +604,8 @@ extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
                                void* dv, int bh, int grid_y, int grid_z,
                                int heads, int sq, int sk, int d, float scale,
                                int causal, long long bsb, long long bsh,
-                               long long bsq, long long bsk, int dtype,
+                               long long bsq, long long bsk, const void* seed,
+                               unsigned threshold, float keep, int dtype,
                                void* stream) {
   if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
@@ -554,8 +614,10 @@ extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
+  const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
+                              keep};
   if (dtype == 0)
     return launch_dkv(q, k, v, dout, lse, dvec, dk, dv, bh, grid_y, grid_z,
-                      sq, sk, scale, causal, sb, s);
+                      sq, sk, scale, causal, sb, dr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,17 +2,19 @@
 // (sm_90a), bf16. dq is flash_bwd_dq_wgmma.cu's; the fp32 route keeps the
 // FMA kernels of flash_attention_bwd.cu (full fp32 products).
 //
-// Replaces: apex_tpu/ops/pallas/flash_attention.py `_fa_dkv_kernel`
-// without dropout and dbias, causal or not, with or without the additive
-// fp32 score bias (ScoreBias in common.cuh), JAX layout q / do
+// Replaces: apex_tpu/ops/pallas/flash_attention.py `_fa_dkv_kernel`,
+// causal or not, with or without the additive fp32 score bias (ScoreBias
+// in common.cuh) and attention dropout (Dropout in common.cuh), JAX
+// layout q / do
 // (b, h, sq, 64), k / v (b, h, sk, 64), lse and D = rowsum(do * o) fp32
 // (b, h, sq) (D computed outside, `attention_dvec`). Per (key j, query i):
 //   s  = round(round(q_i . k_j * scale) + bias_ij), masked where j >= sk
 //        or (causal) j > i
 //   p  = exp(s - lse_i), exactly 0 where masked, s <= -0.5e30 or
 //        lse_i <= -0.5e30 (`_bwd_p`; padded and fully masked rows)
-//   dv_j += bf16(p) . do_i;  dp = do_i . v_j
+//   dv_j += bf16(p * keep_ij) . do_i;  dp = (do_i . v_j) * keep_ij
 //   ds = bf16(p * (dp - D_i) * scale);  dk_j += ds . q_i
+// keep_ij dropout's keep factor (1 without dropout)
 // as in flash_attention_bwd.cu (the scale before the cast gives the TPU's
 // folded-scale bits).
 //
@@ -75,13 +77,14 @@ __device__ __forceinline__ float bwd_p(float s, float lse) {
 // p (into s) and ds * scale (into t) of one tile for the thread's two
 // keys and 16 queries. kMasked: the tile crosses the diagonal or the sk
 // edge.
-template <bool kBias, bool kMasked>
+template <bool kBias, bool kMasked, bool kDropout>
 __device__ __forceinline__ void dkv_tile(float (&s)[32], float (&t)[32],
                                          const float* ls, const float* dd,
                                          int key0, int q0, int cq, int sq,
                                          int sk, float scale, int causal,
                                          const ScoreBias& bias,
-                                         const float* bs) {
+                                         const float* bs, const Dropout& drop,
+                                         uint32_t dhead) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + cq);
@@ -99,14 +102,21 @@ __device__ __forceinline__ void dkv_tile(float (&s)[32], float (&t)[32],
       float x = __fmul_rn(s[4 * j + e], scale);
       if (kBias && !dead && qry < sq) x = __fadd_rn(x, bias.at(bs, qry, key));
       const float p = dead ? 0.f : bwd_p(x, l);
-      s[4 * j + e] = p;
-      // the dk product takes ds * scale in q's dtype
-      t[4 * j + e] = p * (t[4 * j + e] - dsum) * scale;
+      // the dk product takes ds * scale in q's dtype, the dv product p
+      // (times its keep factor) in do's
+      if (kDropout) {
+        const float keep = drop.keep(dhead, qry, key);
+        s[4 * j + e] = p * keep;
+        t[4 * j + e] = p * (t[4 * j + e] * keep - dsum) * scale;
+      } else {
+        s[4 * j + e] = p;
+        t[4 * j + e] = p * (t[4 * j + e] - dsum) * scale;
+      }
     }
   }
 }
 
-template <bool kBias>
+template <bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -116,7 +126,8 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                         const float* __restrict__ dvec,
                         __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int nbh, int sq,
-                        int sk, float scale, int causal, ScoreBias bias) {
+                        int sk, float scale, int causal, ScoreBias bias,
+                        Dropout drop) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* ks = smem;
@@ -186,6 +197,7 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     const int cq = (lane % 4) * 2;
     const bool active = kw0 < sk;
     const float* bs = kBias ? bias.slice(bh) : nullptr;
+    const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
     const uint32_t k_addr = smem_addr(ks) + wg * kKeysWG * kD * 2;
     const uint32_t v_addr = smem_addr(vs) + wg * kKeysWG * kD * 2;
 
@@ -222,11 +234,13 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         const bool masked =
             (causal && kw0 + kKeysWG - 1 > q0) || kw0 + kKeysWG > sk;
         if (masked)
-          dkv_tile<kBias, true>(s, tp, ls, ls + kBQ, key0, q0, cq, sq, sk,
-                                scale, causal, bias, bs);
+          dkv_tile<kBias, true, kDropout>(s, tp, ls, ls + kBQ, key0, q0, cq,
+                                          sq, sk, scale, causal, bias, bs,
+                                          drop, dhead);
         else
-          dkv_tile<kBias, false>(s, tp, ls, ls + kBQ, key0, q0, cq, sq, sk,
-                                 scale, causal, bias, bs);
+          dkv_tile<kBias, false, kDropout>(s, tp, ls, ls + kBQ, key0, q0, cq,
+                                           sq, sk, scale, causal, bias, bs,
+                                           drop, dhead);
         to_a_operand(s, ap);    // p in do's dtype for the dv product
         to_a_operand(tp, ads);  // ds * scale in q's dtype for dk
         wgmma_fence();
@@ -269,14 +283,16 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 }  // namespace
 
 // bf16 q, k, v, do, dk and dv, contiguous and 16-byte aligned; lse and dvec
-// float32 [bh, sq]. head_dim 64. grid_y, grid_z, bias, heads and the bias
-// strides as for apex_fa_fwd_wgmma.
+// float32 [bh, sq]. head_dim 64. grid_y, grid_z, bias, heads, the bias
+// strides and the dropout seed, threshold and keep as for
+// apex_fa_fwd_wgmma.
 extern "C" int apex_fa_bwd_dkv_wgmma(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* lse, const void* dvec, void* dk, void* dv,
     int bh, int grid_y, int grid_z, int heads, int sq, int sk, int d,
     float scale, int causal, long long bsb, long long bsh, long long bsq,
-    long long bsk, void* stream) {
+    long long bsk, const void* seed, unsigned threshold, float keep,
+    void* stream) {
   if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sk <= 0) return 0;
@@ -293,8 +309,13 @@ extern "C" int apex_fa_bwd_dkv_wgmma(
     return (int)cudaErrorInvalidValue;
   const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
                      bsk};
-  const auto kernel = bias != nullptr ? fa_bwd_dkv_kernel_wgmma<true>
-                                      : fa_bwd_dkv_kernel_wgmma<false>;
+  const Dropout dr{static_cast<const int*>(seed), threshold, keep};
+  // a separate instantiation for each form
+  const bool b = bias != nullptr, dd = seed != nullptr;
+  const auto kernel = b ? (dd ? fa_bwd_dkv_kernel_wgmma<true, true>
+                              : fa_bwd_dkv_kernel_wgmma<true, false>)
+                        : (dd ? fa_bwd_dkv_kernel_wgmma<false, true>
+                              : fa_bwd_dkv_kernel_wgmma<false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kSmemBytes);
   const dim3 grid((sk + kBK - 1) / kBK, grid_y, grid_z);
@@ -302,6 +323,6 @@ extern "C" int apex_fa_bwd_dkv_wgmma(
       mq, mk, mv, mdo, static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), bh, noq ? 0 : sq, sk, scale, causal,
-      sb);
+      sb, dr);
   return (int)cudaGetLastError();
 }

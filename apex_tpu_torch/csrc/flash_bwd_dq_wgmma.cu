@@ -2,17 +2,23 @@
 // (sm_90a), bf16. The fp32 route keeps the FMA kernel of
 // flash_attention_bwd.cu (full fp32 products).
 //
-// Replaces: apex_tpu/ops/pallas/flash_attention.py `_fa_dq_kernel` without
-// dropout and dbias, causal or not, with or without the additive fp32
-// score bias (ScoreBias in common.cuh), JAX layout q / do (b, h, sq, 64),
+// Replaces: apex_tpu/ops/pallas/flash_attention.py `_fa_dq_kernel`, causal
+// or not, with or without the additive fp32 score bias (ScoreBias in
+// common.cuh), attention dropout (Dropout in common.cuh) and the dlogits
+// of a differentiated bias (`want_dbias`), JAX layout q / do (b, h, sq, 64),
 // k / v (b, h, sk, 64), lse and D = rowsum(do * o) fp32 (b, h, sq) (D
 // computed outside, `attention_dvec`). Per (query i, key j):
 //   s  = round(round(q_i . k_j * scale) + bias_ij), masked where j >= sk
 //        or (causal) j > i
 //   p  = exp(s - lse_i), exactly 0 where masked, s <= -0.5e30 or
 //        lse_i <= -0.5e30 (`_bwd_p`; padded and fully masked rows)
-//   dp = do_i . v_j,  ds = bf16(p * (dp - D_i) * scale)
-//   dq_i += ds . k_j   (fp32 sums, dq stored in bf16)
+//   dp = (do_i . v_j) * keep_ij,  dl = p * (dp - D_i)
+//   ds = bf16(dl * scale),  dq_i += ds . k_j   (fp32 sums, dq in bf16)
+// keep_ij dropout's keep factor (1 without dropout); with dlogits, dl in
+// fp32 at (i, j) for every i < sq, j < sk, taken from the accumulator
+// fragments before they are packed to bf16: 0 where masked or in a key
+// tile past the warpgroup's diagonal. That form writes b*h*sq*sk*4 bytes
+// and is bound by them.
 // as in flash_attention_bwd.cu (the scale before the cast gives the TPU's
 // folded-scale bits).
 //
@@ -74,14 +80,15 @@ __device__ __forceinline__ float bwd_p(float s, float lse) {
 // ds * scale (into s) of one tile for the thread's two rows and 16 keys,
 // from the scores in s and dp in t. kMasked: the tile crosses the diagonal
 // or the sk edge.
-template <bool kBias, bool kMasked>
+template <bool kBias, bool kMasked, bool kDropout, bool kDbias>
 __device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
                                         const float (&l)[2],
                                         const float (&dsum)[2], int r0,
                                         int k0, int cq, int sq, int sk,
                                         float scale, int causal,
                                         const ScoreBias& bias,
-                                        const float* bs) {
+                                        const float* bs, const Dropout& drop,
+                                        uint32_t dhead, float* dlb) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -95,12 +102,17 @@ __device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
       float x = __fmul_rn(s[4 * j + e], scale);
       if (kBias && !dead && row < sq) x = __fadd_rn(x, bias.at(bs, row, key));
       const float p = dead ? 0.f : bwd_p(x, l[h]);
+      const float dp =
+          kDropout ? t[4 * j + e] * drop.keep(dhead, row, key) : t[4 * j + e];
+      const float dl = p * (dp - dsum[h]);
+      if (kDbias && row < sq && (!kMasked || key < sk))
+        dlb[(long long)row * sk + key] = dl;
       // the dq product takes ds * scale in k's dtype
-      s[4 * j + e] = p * (t[4 * j + e] - dsum[h]) * scale;
+      s[4 * j + e] = dl * scale;
     }
 }
 
-template <bool kBias>
+template <bool kBias, bool kDropout, bool kDbias>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -109,7 +121,8 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                        const float* __restrict__ lse,
                        const float* __restrict__ dvec,
                        __nv_bfloat16* __restrict__ dq, int nbh, int sq,
-                       int sk, float scale, int causal, ScoreBias bias) {
+                       int sk, float scale, int causal, ScoreBias bias,
+                       Dropout drop, float* __restrict__ dlogits) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
@@ -168,6 +181,8 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                          : nk_all)
                : 0;
     const float* bs = kBias ? bias.slice(bh) : nullptr;
+    const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
+    float* dlb = kDbias ? dlogits + bh * sq * sk : nullptr;
     const uint32_t q_addr = smem_addr(qs) + wg * kRowsWG * kD * 2;
     const uint32_t do_addr = smem_addr(dos) + wg * kRowsWG * kD * 2;
 
@@ -215,11 +230,13 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       const bool masked =
           (causal && k0 + kBK - 1 > row0) || k0 + kBK > sk;
       if (masked)
-        dq_tile<kBias, true>(s, tp, l, dsum, r0, k0, cq, sq, sk, scale,
-                             causal, bias, bs);
+        dq_tile<kBias, true, kDropout, kDbias>(s, tp, l, dsum, r0, k0, cq, sq,
+                                               sk, scale, causal, bias, bs,
+                                               drop, dhead, dlb);
       else
-        dq_tile<kBias, false>(s, tp, l, dsum, r0, k0, cq, sq, sk, scale,
-                              causal, bias, bs);
+        dq_tile<kBias, false, kDropout, kDbias>(s, tp, l, dsum, r0, k0, cq,
+                                                sq, sk, scale, causal, bias,
+                                                bs, drop, dhead, dlb);
       to_a_operand(s, ads);  // ds * scale in k's dtype
       wgmma_fence();
       product_rs(adq, ads, k_addr);  // dQ += dS K (K MN-major)
@@ -234,6 +251,12 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       const int st = kt % kStages;
       mbar_wait(&full[st], (kt / kStages) & 1);
       mbar_arrive(&empty[st]);
+    }
+    if (kDbias && active) {  // the keys past the diagonal: zeros, a warp
+      const int kz = nk_me * kBK;  // its 16 rows, a lane a key
+      for (int r = 16 * warp; r < 16 * warp + 16 && row0 + r < sq; ++r)
+        for (int key = kz + lane; key < sk; key += 32)
+          dlb[(long long)(row0 + r) * sk + key] = 0.f;
     }
 
     if (active) {
@@ -256,15 +279,19 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 }  // namespace
 
 // bf16 q, k, v, do and dq, contiguous and 16-byte aligned; lse and dvec
-// float32 [bh, sq]. head_dim 64. grid_y, grid_z, bias, heads and the bias
-// strides as for apex_fa_fwd_wgmma.
+// float32 [bh, sq]. head_dim 64. grid_y, grid_z, bias, heads, the bias
+// strides and the dropout seed, threshold and keep as for
+// apex_fa_fwd_wgmma. dlogits: float32 [bh, sq, sk], every entry written,
+// or null; only with a bias.
 extern "C" int apex_fa_bwd_dq_wgmma(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* lse, const void* dvec, void* dq, int bh,
     int grid_y, int grid_z, int heads, int sq, int sk, int d, float scale,
     int causal, long long bsb, long long bsh, long long bsq, long long bsk,
+    const void* seed, unsigned threshold, float keep, void* dlogits,
     void* stream) {
-  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z) ||
+      (dlogits != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   if (!is_aligned(q, 16) || !is_aligned(k, 16) || !is_aligned(v, 16) ||
@@ -280,14 +307,24 @@ extern "C" int apex_fa_bwd_dq_wgmma(
     return (int)cudaErrorInvalidValue;
   const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
                      bsk};
-  const auto kernel = bias != nullptr ? fa_bwd_dq_kernel_wgmma<true>
-                                      : fa_bwd_dq_kernel_wgmma<false>;
+  const Dropout dr{static_cast<const int*>(seed), threshold, keep};
+  // a separate instantiation for each form; dlogits come with a bias only
+  const bool dd = seed != nullptr;
+  const auto kernel =
+      dlogits != nullptr
+          ? (dd ? fa_bwd_dq_kernel_wgmma<true, true, true>
+                : fa_bwd_dq_kernel_wgmma<true, false, true>)
+      : bias != nullptr ? (dd ? fa_bwd_dq_kernel_wgmma<true, true, false>
+                              : fa_bwd_dq_kernel_wgmma<true, false, false>)
+                        : (dd ? fa_bwd_dq_kernel_wgmma<false, true, false>
+                              : fa_bwd_dq_kernel_wgmma<false, false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kSmemBytes);
   const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
   kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse),
       static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dq), bh,
-      sq, sk < 0 ? 0 : sk, scale, causal, sb);
+      sq, sk < 0 ? 0 : sk, scale, causal, sb, dr,
+      static_cast<float*>(dlogits));
   return (int)cudaGetLastError();
 }

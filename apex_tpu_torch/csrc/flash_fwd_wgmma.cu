@@ -5,9 +5,12 @@
 // numbers users get).
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `flash_attention_fwd`
-// (the Pallas kernel `_fa_fwd_kernel`) without dropout, causal or not,
-// with or without the additive fp32 score bias read through per-dimension
-// strides (ScoreBias in common.cuh, never expanded), JAX layout q
+// (the Pallas kernel `_fa_fwd_kernel`), causal or not, with or without
+// the additive fp32 score bias read through per-dimension strides
+// (ScoreBias in common.cuh, never expanded), with or without attention
+// dropout (Dropout in common.cuh: p times its keep factor before the cast
+// to bf16 for the p.v product; l and lse from the undropped p), JAX layout
+// q
 // (b, h, sq, 64), k / v (b, h, sk, 64). The arithmetic is the TPU
 // kernel's: s = round(round(q.k * scale) + bias) in fp32; masked scores
 // (key > row when causal, key >= sk) are -1e30 and a score <= -0.5e30 is
@@ -49,7 +52,11 @@
 // sequential order, the scores whose bf16(p) the bound leaves open and
 // those that can be the row's maximum: the warp shares them out one a
 // lane. p is then the plain version's bit for bit, at about 2.7 times the
-// time of the tile without it (PERF.md).
+// time of the tile without it (PERF.md). Under dropout the value rounded
+// to bf16 is fp32(p * c), c = 1 / (1 - p_drop), for a kept entry (a
+// dropped one is 0 in both): the midpoint test is made on its bits, with
+// a band 4 ulps wider (the product's rounding in either order, and p's
+// relative error carried over unchanged).
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -165,13 +172,13 @@ constexpr float kErrPerNorm = (kOrderUnits + 4.f) * 0x1p-24f;
 // summed again in the plain version's order: the row max is the plain
 // version's and so is every bf16(p). The warp shares those sums out, one a
 // lane (a few a tile), through its scratch: fv the values, fl the list.
-template <bool kBias, bool kMasked>
+template <bool kBias, bool kMasked, bool kDropout>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[32], float (&o)[32], float (&m)[2], float (&l)[2],
     const float (&qn)[2], float kmax, const uint8_t* qt, const uint8_t* kt,
     float* fv, uint16_t* fl, int row0, int rw, int lane, int k0, int sq,
     int sk, float scale, int causal, const ScoreBias& bias,
-    const float* bs) {
+    const float* bs, const Dropout& drop, uint32_t dhead) {
   const int r0 = row0 + rw + lane / 4;  // the thread's rows: r0, r0 + 8
   const int cq = (lane % 4) * 2;
   float mx[2] = {kNegInf, kNegInf}, ax[2] = {0.f, 0.f};
@@ -213,6 +220,15 @@ __device__ __forceinline__ void softmax_tile(
                          0x1.1p24f, 16.f);
     width[h] = w < 32768.f ? (uint32_t)w : 32768u;  // 32768: every p
   }
+  // dropout: the kept entries (a bit each)
+  uint32_t kept = 0u;
+  if (kDropout) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e)
+      if (drop.keep(dhead, r0 + ((e >> 1) & 1) * 8,
+                    k0 + 8 * (e >> 2) + cq + (e & 1)) != 0.f)
+        kept |= 1u << e;
+  }
   float pp[32];
   uint32_t fix = 0;
 #pragma unroll
@@ -220,11 +236,16 @@ __device__ __forceinline__ void softmax_tile(
     const int h = (e >> 1) & 1;
     const float x = s[e];
     pp[e] = expf(x - m_safe[h]);
-    const uint32_t bits = __float_as_uint(pp[e]);
-    if (x > kMaskEdge &&
-        (((bits - 0x8000u + width[h]) & 0xFFFFu) <= 2 * width[h] ||
-         x >= floor_[h]))
-      fix |= 1u << e;
+    bool open;  // bf16 of the value the p.v product takes is in doubt
+    if (kDropout) {
+      const uint32_t bits = __float_as_uint(pp[e] * drop.scale);
+      const uint32_t wd = width[h] + 4u;
+      open = ((kept >> e) & 1u) && ((bits - 0x8000u + wd) & 0xFFFFu) <= 2 * wd;
+    } else {
+      const uint32_t bits = __float_as_uint(pp[e]);
+      open = ((bits - 0x8000u + width[h]) & 0xFFFFu) <= 2 * width[h];
+    }
+    if (x > kMaskEdge && (open || x >= floor_[h])) fix |= 1u << e;
   }
   // the warp's list of slots to sum again (an exclusive prefix of counts)
   const int mine = __popc(fix);
@@ -289,7 +310,11 @@ __device__ __forceinline__ void softmax_tile(
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      s[4 * j + e] = pp[4 * j + e];
+      // dropout: the p.v product takes p times its keep factor
+      const bool kept_e = (kept >> (4 * j + e)) & 1u;
+      s[4 * j + e] = !kDropout ? pp[4 * j + e]
+                     : kept_e  ? pp[4 * j + e] * drop.scale
+                               : 0.f;
       sum[e >> 1] += pp[4 * j + e];
       o[4 * j + e] *= alpha[e >> 1];
     }
@@ -297,14 +322,14 @@ __device__ __forceinline__ void softmax_tile(
   for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
 }
 
-template <bool kBias>
+template <bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     int nbh, int sq, int sk, float scale, int causal,
-                    ScoreBias bias) {
+                    ScoreBias bias, Dropout drop) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
@@ -378,6 +403,7 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     const int nk_me =
         causal ? min(nk_all, (row0 + kRowsWG - 1) / kBK + 1) : nk_all;
     const float* bs = kBias ? bias.slice(bh) : nullptr;
+    const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
     const uint8_t* qw = qs + wg * kRowsWG * kD * 2;  // the warpgroup's Q
     const uint32_t q_addr = smem_addr(qw);
     const int rq = 16 * warp + lane / 4;  // r0's row in qw
@@ -417,13 +443,13 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         mbar_wait(&normed[st], (kt / kStages) & 1);
         const float kmax = fmaxf(kmaxs[2 * st], kmaxs[2 * st + 1]);
         if (masked)
-          softmax_tile<kBias, true>(s, acc, m, l, qn, kmax, qw, kt_s, fv, fl,
-                                    row0, 16 * warp, lane, k0, sq, sk, scale,
-                                    causal, bias, bs);
+          softmax_tile<kBias, true, kDropout>(
+              s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
+              lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
         else
-          softmax_tile<kBias, false>(s, acc, m, l, qn, kmax, qw, kt_s, fv,
-                                     fl, row0, 16 * warp, lane, k0, sq, sk,
-                                     scale, causal, bias, bs);
+          softmax_tile<kBias, false, kDropout>(
+              s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
+              lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
         to_a_operand(s, p);  // p in bf16: v's dtype before the p.v product
         wgmma_fence();
         fence_regs(acc);
@@ -463,14 +489,16 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 // sq]. head_dim 64. grid_y x grid_z blocks carry the bh = b * h slices
 // (fa_batch_heads_grid in ops/tiling.py). bias: float32 or null; heads = h
 // of bh = b * h; bsb, bsh, bsq, bsk its strides in elements (0 on a
-// broadcast dimension).
+// broadcast dimension). seed: the dropout seed, int32 on the device, or
+// null without dropout; threshold and keep as in Dropout (common.cuh).
 extern "C" int apex_fa_fwd_wgmma(const void* q, const void* k, const void* v,
                                  const void* bias, void* o, void* lse,
                                  int bh, int grid_y, int grid_z, int heads,
                                  int sq, int sk, int d, float scale,
                                  int causal, long long bsb, long long bsh,
                                  long long bsq, long long bsk,
-                                 void* stream) {
+                                 const void* seed, unsigned threshold,
+                                 float keep, void* stream) {
   if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
@@ -485,13 +513,18 @@ extern "C" int apex_fa_fwd_wgmma(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
                      bsk};
-  const auto kernel = bias != nullptr ? fa_fwd_kernel_wgmma<true>
-                                      : fa_fwd_kernel_wgmma<false>;
+  const Dropout dr{static_cast<const int*>(seed), threshold, keep};
+  // a separate instantiation for each form
+  const bool b = bias != nullptr, dd = seed != nullptr;
+  const auto kernel = b ? (dd ? fa_fwd_kernel_wgmma<true, true>
+                              : fa_fwd_kernel_wgmma<true, false>)
+                        : (dd ? fa_fwd_kernel_wgmma<false, true>
+                              : fa_fwd_kernel_wgmma<false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        kSmemBytes);
   const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
   kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      bh, sq, sk < 0 ? 0 : sk, scale, causal, sb);
+      bh, sq, sk < 0 ? 0 : sk, scale, causal, sb, dr);
   return (int)cudaGetLastError();
 }

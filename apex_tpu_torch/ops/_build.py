@@ -17,7 +17,8 @@ is no prebuilt library and no CPU stand-in for a CUDA tensor.
 launches its kernel and nowhere else, so a caller can zero the counts,
 drive a path and read which kernels that path went through;
 ``route_launches`` splits the flash wrappers' counts by route (the
-tensor-core or the FMA-pipe kernels).
+tensor-core or the FMA-pipe kernels) and ``form_launches`` counts their
+dropout and dlogits forms.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ _i = ctypes.c_int
 _ll = ctypes.c_longlong
 _f = ctypes.c_float
 _u64 = ctypes.c_ulonglong
+_u = ctypes.c_uint
 # C signatures of the entries the wrappers call (all return cudaError_t)
 SIGNATURES = {
     # x, gamma, beta (both may be null), y, mean, invvar, rows, hidden,
@@ -54,29 +56,36 @@ SIGNATURES = {
     "apex_ln_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                     _i, _i, _i, _i, _i, _i, _i, _vp],
     # q, k, v, bias (may be null), o, lse, bh, grid_y, grid_z, heads, sq,
-    # sk, d, scale, causal, the bias's four strides, dtype, stream
+    # sk, d, scale, causal, the bias's four strides, the dropout seed
+    # (int32 on the device; null: no dropout), its uint32 threshold and
+    # keep factor, dtype, stream
     "apex_fa_fwd": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
-                    _i, _f, _i, _ll, _ll, _ll, _ll, _i, _vp],
+                    _i, _f, _i, _ll, _ll, _ll, _ll, _vp, _u, _f, _i, _vp],
     # the same without dtype: the bf16 tensor-core forward
     "apex_fa_fwd_wgmma": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                          _i, _i, _f, _i, _ll, _ll, _ll, _ll, _vp],
+                          _i, _i, _f, _i, _ll, _ll, _ll, _ll, _vp, _u, _f,
+                          _vp],
     # q, k, v, bias, do, lse, dvec, dq, bh, grid_y, grid_z, heads, sq, sk,
-    # d, scale, causal, the bias's four strides, dtype, stream
+    # d, scale, causal, the bias's four strides, the dropout seed,
+    # threshold and keep factor, dlogits (fp32 [bh, sq, sk]; null: none),
+    # dtype, stream
     "apex_fa_bwd_dq": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
-                       _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll, _i, _vp],
+                       _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll, _vp, _u,
+                       _f, _vp, _i, _vp],
     # q, k, v, bias, do, lse, dvec, dk, dv, bh, grid_y, grid_z, heads, sq,
-    # sk, d, scale, causal, the bias's four strides, dtype, stream
+    # sk, d, scale, causal, the bias's four strides, the dropout seed,
+    # threshold and keep factor, dtype, stream
     "apex_fa_bwd_dkv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                         _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll,
-                        _i, _vp],
+                        _vp, _u, _f, _i, _vp],
     # the same without dtype: the bf16 tensor-core dq kernel
     "apex_fa_bwd_dq_wgmma": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                              _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll, _ll,
-                             _ll, _vp],
+                             _ll, _vp, _u, _f, _vp, _vp],
     # the same without dtype: the bf16 tensor-core dk / dv kernel
     "apex_fa_bwd_dkv_wgmma": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                               _i, _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll,
-                              _ll, _ll, _vp],
+                              _ll, _ll, _vp, _u, _f, _vp],
     # p, g, m, v, scalars, n, mode, dtype (of p and g), stream
     "apex_fused_adam": [_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     # p_master, g, m, v, p_lp (bf16, written), scalars, n, mode, stream
@@ -139,6 +148,11 @@ launches: collections.Counter = collections.Counter()
 # kernels: ``"<name>:<route>"`` (the flash wrappers: ``fa_fwd:wgmma``,
 # ``fa_bwd_dq:fma``, ...; see tiling.fa_route)
 route_launches: collections.Counter = collections.Counter()
+# the flash wrappers' launches of a kernel's optional forms, as
+# ``"<name>:<route>:<form>"``: ``fa_fwd:wgmma:dropout``,
+# ``fa_bwd_dkv:fma:dropout``, the dq kernel's dlogits
+# ``fa_bwd_dq:wgmma:dbias``, ...
+form_launches: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -147,6 +161,7 @@ _lib: Optional[ctypes.CDLL] = None
 def reset_launches() -> None:
     launches.clear()
     route_launches.clear()
+    form_launches.clear()
 
 
 def sources() -> list:

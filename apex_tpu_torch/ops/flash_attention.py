@@ -35,8 +35,16 @@ q, k, v, the bias, o and the fp32 lse, and its backward is
 :func:`flash_attention_bwd`. A boolean ``mask`` (True = masked) becomes
 the bias -1e30 where it is True, as in the JAX ``flash_attention``; a
 ``bias`` passed with ``bias_requires_grad=False`` is the same operand.
-Its gradient (``dbias``) and dropout at a rate above 0 are not ported yet
-and raise. The kernels spread ``batch * heads`` over grid.y and grid.z
+A differentiated bias (the default ``bias_requires_grad=True``) gets its
+gradient from the dq kernels' dlogits form, which also writes ``dl = P
+(dP - D)`` in fp32 for every (query, key), reduced to the bias's
+broadcast shape (``_fa_dq_kernel``'s ``want_dbias``). Attention dropout
+(``dropout_p > 0``) runs in every kernel from the keep mask of
+:func:`dropout_keep`, the JAX kernels' ``_dropout_keep``: a stateless
+hash of (seed, flat batch * head, query row, key), so the backward
+regenerates the forward's mask and the mask is JAX's bit for bit
+whatever the tiles. The kernels read the int32 seed from device memory,
+so a per-step seed tensor costs no host sync. The kernels spread ``batch * heads`` over grid.y and grid.z
 (:func:`~apex_tpu_torch.ops.tiling.fa_batch_heads_grid`), so any count
 runs.
 """
@@ -61,6 +69,90 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # block leaves out before the pair is validated
 _JAX_BLOCK_Q, _JAX_BLOCK_K = 512, 1024
 
+# `_dropout_keep`'s hash: the multipliers of the query row, the key, the
+# flat batch * head index and the seed, then the two of its finalizer
+_HASH_ROW, _HASH_COL, _HASH_BH, _HASH_SEED = (0xD2511F53, 0xCD9E8D57,
+                                              0x85EBCA6B, 0x9E3779B9)
+_HASH_MIX = (0x7FEB352D, 0x846CA68B)
+_U32 = 0xFFFFFFFF
+
+
+def dropout_threshold(p: float) -> int:
+    """The uint32 a kept entry's hash reaches: ``min(int(p * 2**32),
+    2**32 - 1)``, as the JAX kernels compute it."""
+    return min(int(p * (2.0 ** 32)), 2 ** 32 - 1)
+
+
+def dropout_scale(p: float) -> float:
+    """The factor of a kept entry, ``1 / (1 - p)`` rounded to fp32 as the
+    JAX kernels' weakly typed constant is."""
+    return float(torch.tensor(1.0 / (1.0 - p), dtype=torch.float32))
+
+
+def dropout_seed_tensor(name: str, seed, device) -> torch.Tensor:
+    """The dropout seed as the kernels read it: a one-element int32 tensor
+    on ``device``. A Python int must fit int32 (None is 0, as in JAX); a
+    one-element integer tensor wraps to int32, as JAX's
+    ``jnp.asarray(seed, jnp.int32)`` does, on every device, and one that is
+    already an int32 tensor there is used as it is (no copy, no host
+    sync)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.is_floating_point() \
+                or seed.is_complex():
+            raise ValueError(f"{name}: dropout_seed must be one integer, "
+                             f"got {seed.dtype} {tuple(seed.shape)}")
+        return seed.detach().to(device=device, dtype=torch.int32).reshape(1)
+    return torch.tensor([0 if seed is None else int(seed)],
+                        dtype=torch.int32, device=device)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32): two 16-bit halves
+    of ``c``, so no product leaves int64 (CPU torch has no uint32
+    multiply)."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def dropout_keep(seed, bh, row0: int, col0: int, rows: int, cols: int,
+                 p: float, device=None) -> torch.Tensor:
+    """The attention-dropout keep factors of rows ``row0 ..`` (queries)
+    and columns ``col0 ..`` (keys) of the flat batch * head slice ``bh``
+    (an int, or an integer tensor of slices) under ``seed`` (as
+    :func:`dropout_seed_tensor` takes it): fp32 ``1 / (1 - p)`` where
+    kept, 0 where dropped, shaped ``bh``'s shape + ``(rows, cols)``.
+
+    The counterpart of the JAX kernels' ``_dropout_keep``: the same
+    stateless hash of (seed, bh, global row, global column) in uint32
+    arithmetic (here int64 masked to 32 bits), kept where the hash is at
+    least :func:`dropout_threshold`. It does not depend on any tiling, so
+    every kernel and this plain version give JAX's mask bit for bit."""
+    i64 = dict(dtype=torch.int64, device=device)
+    bh = torch.as_tensor(bh, **i64)
+    row = torch.arange(rows, **i64) + row0
+    col = torch.arange(cols, **i64) + col0
+    seed = dropout_seed_tensor("dropout_keep", seed, row.device) \
+        .to(torch.int64).reshape(()) & _U32
+    head = _mul32(bh, _HASH_BH) ^ _mul32(seed, _HASH_SEED)
+    x = (_mul32(row, _HASH_ROW)[:, None] ^ _mul32(col, _HASH_COL)[None, :]
+         ^ head[..., None, None])
+    x = x ^ (x >> 16)
+    x = _mul32(x, _HASH_MIX[0])
+    x = x ^ (x >> 15)
+    x = _mul32(x, _HASH_MIX[1])
+    x = x ^ (x >> 16)
+    return torch.where(x >= dropout_threshold(p), dropout_scale(p), 0.0)
+
+
+def _keep_all(seed, q: torch.Tensor, k: torch.Tensor, p: float):
+    """The keep factors of every (b, h, query, key), ``(b, h, sq, sk)``
+    fp32."""
+    b, h, sq, _ = q.shape
+    return dropout_keep(seed, torch.arange(b * h, device=q.device), 0, 0, sq,
+                        k.shape[2], p, device=q.device).view(
+                            b, h, sq, k.shape[2])
+
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
             bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -79,17 +171,22 @@ def _scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, scale: float,
                               causal: bool,
-                              bias: Optional[torch.Tensor] = None
+                              bias: Optional[torch.Tensor] = None,
+                              dropout_p: float = 0.0, dropout_seed=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole-row softmax the online kernel computes: fp32 scores plus
-    the bias, masked scores at -1e30, p cast to v's dtype before the p.v
-    product, fully masked rows give o = 0 and lse = -1e30. Returns ``(o in
-    q's dtype, lse (b, h, sq) fp32)``."""
+    the bias, masked scores at -1e30, p times its keep factor (dropout,
+    :func:`dropout_keep`; a seed of None is 0, as in JAX) cast to v's
+    dtype before the p.v product, the row sum and lse from the undropped
+    p, fully masked rows give o = 0 and lse = -1e30. Returns ``(o in q's
+    dtype, lse (b, h, sq) fp32)``."""
     s = _scores(q, k, scale, causal, bias)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - torch.where(m <= _MASK_EDGE, 0.0, m))
     denom = p.sum(dim=-1, keepdim=True)
     safe = torch.where(denom > 0, denom, 1.0)
+    if dropout_p > 0.0:
+        p = p * _keep_all(dropout_seed, q, k, dropout_p)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / safe
     lse = torch.where(m <= _MASK_EDGE, NEG_INF, m + torch.log(safe))
     return o.to(q.dtype), lse.squeeze(-1)
@@ -115,24 +212,36 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor, *,
                               scale: float, causal: bool,
-                              bias: Optional[torch.Tensor] = None
-                              ) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
+                              bias: Optional[torch.Tensor] = None,
+                              dropout_p: float = 0.0, dropout_seed=None,
+                              want_dbias: bool = False) -> tuple:
     """The arithmetic of ``_fa_dq_kernel`` / ``_fa_dkv_kernel`` over whole
-    rows: fp32 scores plus the bias, P from the saved lse,
-    ``ds = P (dP - D)``, and the casts to the IO dtype before each product
-    (``ds * scale`` for dq and dk, P for dv). Returns ``(dq, dk, dv)`` in
-    q's / k's / v's dtype."""
+    rows: fp32 scores plus the bias, P from the saved lse, dP times the
+    keep factor under dropout, ``dl = P (dP - D)``, and the casts to the IO
+    dtype before each product (``dl * scale`` for dq and dk, P times the
+    keep factor for dv). Returns ``(dq, dk, dv)`` in q's / k's / v's
+    dtype; with ``want_dbias`` also the fp32 dlogits ``dl`` ``(b, h, sq,
+    sk)`` (0 where masked; None without a bias, as in JAX)."""
     dvec = attention_dvec(o, do)
     s = _scores(q, k, scale, causal, bias)
     p = _bwd_p(s, lse)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    ds_scaled = p * (dp - dvec[..., None]) * scale
+    p_v = p
+    if dropout_p > 0.0:
+        keep = _keep_all(dropout_seed, q, k, dropout_p)
+        dp = dp * keep
+        p_v = p * keep
+    dl = p * (dp - dvec[..., None])
+    ds_scaled = dl * scale
     dq = torch.matmul(ds_scaled.to(k.dtype).float(), k.float())
     dk = torch.matmul(ds_scaled.to(q.dtype).float().transpose(-1, -2),
                       q.float())
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dv = torch.matmul(p_v.to(do.dtype).float().transpose(-1, -2),
+                      do.float())
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if want_dbias:
+        return grads + (dl if bias is not None else None,)
+    return grads
 
 
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -187,6 +296,19 @@ def _bias_args(name: str, bias: Optional[torch.Tensor],
     return bias.data_ptr(), strides
 
 
+def _dropout_args(name: str, p: float, seed, device):
+    """``((seed pointer, threshold, keep factor), seed tensor)`` of the
+    kernels' dropout operands: a null pointer at ``p == 0``, else the seed
+    as :func:`dropout_seed_tensor` gives it, which the caller keeps alive
+    over the launch."""
+    if not p > 0.0:
+        return (None, 0, 0.0), None
+    if not p < 1.0:
+        raise ValueError(f"{name}: dropout_p must be below 1, got {p}")
+    st = dropout_seed_tensor(name, seed, device)
+    return (st.data_ptr(), dropout_threshold(p), dropout_scale(p)), st
+
+
 def _tensor_core(name: str, q: torch.Tensor,
                  **others: torch.Tensor) -> bool:
     """True when the call takes the tensor-core kernels (q in bf16);
@@ -206,21 +328,26 @@ def _tensor_core(name: str, q: torch.Tensor,
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool,
-                        bias: Optional[torch.Tensor] = None
+                        bias: Optional[torch.Tensor] = None,
+                        dropout_p: float = 0.0, dropout_seed=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(o, lse)``. CUDA tensors launch a kernel: contiguous
     float32 or bfloat16, one dtype for q, k and v, head_dim 64, any
     batch * heads and sq / sk, an optional fp32 bias broadcastable to
-    ``(b, h, sq, sk)`` (any strides). bf16 launches the tensor-core
-    kernel (q, k and v 16-byte aligned, else ``ValueError``), fp32 the
-    FMA-pipe kernel. CPU tensors take the plain version."""
+    ``(b, h, sq, sk)`` (any strides), attention dropout at ``dropout_p``
+    from ``dropout_seed`` (an int or a one-element integer tensor; None
+    is 0, as in JAX). bf16 launches the tensor-core kernel (q, k and v
+    16-byte aligned, else ``ValueError``), fp32 the FMA-pipe kernel. CPU
+    tensors take the plain version."""
     name = "flash_attention_fwd"
     cpu = _check_qkv(name, q, k, v)
     bptr, bstrides = _bias_args(name, bias, q, k)
     if cpu:
         return flash_attention_fwd_plain(q, k, v, scale=scale, causal=causal,
-                                         bias=bias)
+                                         bias=bias, dropout_p=dropout_p,
+                                         dropout_seed=dropout_seed)
     tc = _tensor_core(name, q, k=k, v=v)
+    drop, _seed = _dropout_args(name, dropout_p, dropout_seed, q.device)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     o = torch.empty_like(q)
@@ -228,37 +355,53 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr, o.data_ptr(),
             lse.data_ptr(), b * h, *fa_batch_heads_grid(b * h), h, sq, sk, d,
-            float(scale), int(causal), *bstrides)
+            float(scale), int(causal), *bstrides, *drop)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if tc:
             err = lib.apex_fa_fwd_wgmma(*args, stream)
         else:
             err = lib.apex_fa_fwd(*args, _DTYPES[q.dtype], stream)
-    _build.launches["fa_fwd"] += 1
-    _build.route_launches["fa_fwd:" + ("wgmma" if tc else "fma")] += 1
+    _count("fa_fwd", tc, dropout=drop[0] is not None)
     _build.check(err, name)
     return o, lse
+
+
+def _count(name: str, tc: bool, **forms: bool) -> None:
+    """One launch of flash kernel ``name``: its count, its route's and
+    those of the forms it ran (``fa_fwd:wgmma:dropout``,
+    ``fa_bwd_dq:fma:dbias``)."""
+    route = f"{name}:{'wgmma' if tc else 'fma'}"
+    _build.launches[name] += 1
+    _build.route_launches[route] += 1
+    for form, on in forms.items():
+        if on:
+            _build.form_launches[f"{route}:{form}"] += 1
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, scale: float, causal: bool,
-                        bias: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` from the forward's o and fp32 lse ``(b, h, sq)``
-    and the forward's bias (no dbias). CUDA tensors launch the dq kernel
-    and the dk / dv kernel (inputs as for :func:`flash_attention_fwd`; o
-    and do like q): for bf16 the two tensor-core kernels (do 16-byte
-    aligned too), for fp32 the two FMA-pipe kernels;
-    no output is summed across blocks, so two runs give the same bits.
-    CPU tensors take the plain version."""
+                        bias: Optional[torch.Tensor] = None,
+                        dropout_p: float = 0.0, dropout_seed=None,
+                        want_dbias: bool = False) -> tuple:
+    """``(dq, dk, dv)`` from the forward's o and fp32 lse ``(b, h, sq)``,
+    the forward's bias and its dropout rate and seed; with ``want_dbias``
+    also the fp32 dlogits ``(b, h, sq, sk)`` that a differentiated bias
+    reduces (None without a bias). CUDA tensors launch the dq kernel
+    (in its dlogits form with ``want_dbias`` and a bias) and the dk / dv
+    kernel (inputs as for :func:`flash_attention_fwd`; o and do like q):
+    for bf16 the two tensor-core kernels (do 16-byte aligned too), for
+    fp32 the two FMA-pipe kernels; no output is summed across blocks, so
+    two runs give the same bits. CPU tensors take the plain version."""
     name = "flash_attention_bwd"
     cpu = _check_qkv(name, q, k, v)
     bptr, bstrides = _bias_args(name, bias, q, k)
     if cpu:
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale=scale,
-                                         causal=causal, bias=bias)
+        return flash_attention_bwd_plain(
+            q, k, v, o, lse, do, scale=scale, causal=causal, bias=bias,
+            dropout_p=dropout_p, dropout_seed=dropout_seed,
+            want_dbias=want_dbias)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     for what, t in (("o", o), ("do", do)):
@@ -273,31 +416,36 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{(b, h, sq)} tensor, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
     tc = _tensor_core(name, q, k=k, v=v, do=do)
+    drop, _seed = _dropout_args(name, dropout_p, dropout_seed, q.device)
     dvec = attention_dvec(o, do)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    # the dq kernel writes every (query, key) entry of the dlogits
+    dl = (torch.empty((b, h, sq, sk), dtype=torch.float32, device=q.device)
+          if want_dbias and bias is not None else None)
     lib = _build.lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr, do.data_ptr(),
             lse.data_ptr(), dvec.data_ptr())
     geo = (b * h, *fa_batch_heads_grid(b * h), h, sq, sk, d, float(scale),
-           int(causal), *bstrides)
+           int(causal), *bstrides, *drop)
     # the tensor-core entries take no dtype: they are bf16 only
     dq_fn, dkv_fn, dtype = (
         (lib.apex_fa_bwd_dq_wgmma, lib.apex_fa_bwd_dkv_wgmma, ()) if tc
         else (lib.apex_fa_bwd_dq, lib.apex_fa_bwd_dkv, (_DTYPES[q.dtype],)))
+    dropout = drop[0] is not None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        route = "wgmma" if tc else "fma"
-        err = dq_fn(*args, dq.data_ptr(), *geo, *dtype, stream)
-        _build.launches["fa_bwd_dq"] += 1
-        _build.route_launches["fa_bwd_dq:" + route] += 1
+        err = dq_fn(*args, dq.data_ptr(), *geo,
+                    None if dl is None else dl.data_ptr(), *dtype, stream)
+        _count("fa_bwd_dq", tc, dropout=dropout, dbias=dl is not None)
         _build.check(err, "flash_attention_bwd (dq)")
         err = dkv_fn(*args, dk.data_ptr(), dv.data_ptr(), *geo, *dtype,
                      stream)
-        _build.launches["fa_bwd_dkv"] += 1
-        _build.route_launches["fa_bwd_dkv:" + route] += 1
+        _count("fa_bwd_dkv", tc, dropout=dropout)
         _build.check(err, "flash_attention_bwd (dk, dv)")
+    if want_dbias:
+        return dq, dk, dv, dl
     return dq, dk, dv
 
 
@@ -310,30 +458,45 @@ def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _reduce_dlogits(dl: torch.Tensor, shape) -> torch.Tensor:
+    """The dlogits ``(b, h, sq, sk)`` summed over each dimension the bias
+    broadcasts (1 in ``shape``), kept as size 1: the bias's gradient, as
+    the JAX wrapper reduces it."""
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and dl.shape[i] != 1)
+    return dl.sum(dim=dims, keepdim=True) if dims else dl
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The ``custom_vjp`` of the JAX ``_flash_attention`` without dbias:
-    saves q, k, v, the bias, o and lse; the backward runs
-    :func:`flash_attention_bwd`. q, k, v and the incoming gradient reach
-    the kernels contiguous and aligned (:func:`_kernel_operand`), so any
-    layout the JAX function takes runs here too."""
+    """The ``custom_vjp`` of the JAX ``_flash_attention`` and
+    ``_flash_attention_dropout``: saves q, k, v, the bias, o, lse and the
+    dropout seed (rate and seed regenerate the forward's keep mask); the
+    backward runs :func:`flash_attention_bwd`, with the dlogits form when
+    the bias needs a gradient, reduced to the bias's shape. q, k, v and
+    the incoming gradient reach the kernels contiguous and aligned
+    (:func:`_kernel_operand`), so any layout the JAX function takes runs
+    here too."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, scale):
+    def forward(ctx, q, k, v, bias, seed, causal, scale, dropout_p):
         q, k, v = (_kernel_operand(t) for t in (q, k, v))
         o, lse = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
-                                     bias=bias)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+                                     bias=bias, dropout_p=dropout_p,
+                                     dropout_seed=seed)
+        ctx.save_for_backward(q, k, v, bias, o, lse, seed)
+        ctx.causal, ctx.scale, ctx.dropout_p = causal, scale, dropout_p
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
-                                         _kernel_operand(do),
-                                         scale=ctx.scale, causal=ctx.causal,
-                                         bias=bias)
-        return dq, dk, dv, None, None, None
+        q, k, v, bias, o, lse, seed = ctx.saved_tensors
+        want_dbias = bias is not None and ctx.needs_input_grad[3]
+        grads = flash_attention_bwd(q, k, v, o, lse, _kernel_operand(do),
+                                    scale=ctx.scale, causal=ctx.causal,
+                                    bias=bias, dropout_p=ctx.dropout_p,
+                                    dropout_seed=seed,
+                                    want_dbias=want_dbias)
+        dbias = _reduce_dlogits(grads[3], bias.shape) if want_dbias else None
+        return (*grads[:3], dbias, None, None, None, None)
 
 
 def validate_blocks(block_q: int, block_k: int) -> None:
@@ -371,27 +534,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     64-row tiles).
     ``mask`` is a rank-4 boolean tensor broadcastable to ``(b, h, sq,
     sk)``, True = masked; a fully masked row gives zero output and zero
-    gradients. ``bias`` is an
-    additive logits bias of the same broadcastability, taken as a constant
-    (``bias_requires_grad=False``). At ``dropout_p == 0`` a
-    ``dropout_seed`` is accepted and ignored, as in JAX. A differentiated
-    bias (the default ``bias_requires_grad=True``, whose ``dbias`` the JAX
-    kernel emits) and ``dropout_p > 0`` are not ported yet and raise
-    ``NotImplementedError``."""
+    gradients. ``bias`` is an additive logits bias of the same
+    broadcastability; with ``bias_requires_grad`` (the default) it is
+    differentiable, its gradient from the dq kernels' dlogits (which costs
+    a ``(b, h, sq, sk)`` fp32 write in the backward), else a constant. The
+    mask's -1e30 term is a constant added to it outside the autograd
+    function, so the gradient reaches only the user's bias.
+    ``dropout_p`` applies attention dropout with the in-kernel keep mask
+    (:func:`dropout_keep`) and needs ``dropout_seed`` (an int or a
+    one-element integer tensor, varied per step); at ``dropout_p == 0`` a
+    ``dropout_seed`` is accepted and ignored, as in JAX."""
     if block_q is not None or block_k is not None:
         validate_blocks(_JAX_BLOCK_Q if block_q is None else block_q,
                         _JAX_BLOCK_K if block_k is None else block_k)
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "flash_attention: dropout is not ported to the CUDA kernels yet "
-            "(ROADMAP.md, port queue)")
-    if bias is not None and bias_requires_grad:
-        raise NotImplementedError(
-            "flash_attention: a differentiated bias (dbias) is not ported "
-            "to the CUDA kernels yet (ROADMAP.md, port queue); pass "
-            "bias_requires_grad=False for a constant bias")
     if bias is not None:
-        bias = bias.detach().float()
+        bias = bias.float() if bias_requires_grad else bias.detach().float()
     if mask is not None:
         if mask.dim() != 4:
             raise ValueError("mask must be rank-4 broadcastable to "
@@ -400,5 +557,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             device=mask.device).masked_fill_(mask.bool(),
                                                             NEG_INF)
         bias = mbias if bias is None else bias + mbias
+    seed = None
+    if dropout_p > 0.0:
+        if dropout_seed is None:
+            raise ValueError(
+                "dropout_p > 0 requires dropout_seed (vary it per training "
+                "step — a fixed seed would drop the same attention entries "
+                "every step)")
+        seed = dropout_seed_tensor("flash_attention", dropout_seed,
+                                   q.device)
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, bias, bool(causal), float(s))
+    return _FlashAttention.apply(q, k, v, bias, seed, bool(causal),
+                                 float(s), float(dropout_p))

@@ -14,10 +14,12 @@ The submodules carry the flax modules' names; their ``weight`` is the
 flax ``kernel`` transposed (``models/convert.py`` ``mha_params_from_jax``).
 The projections compute in the input's dtype, the parameters cast to it,
 as flax's ``Dense(dtype=x.dtype)`` does. The modules run flash attention
-as in the JAX package, never :func:`mha_reference`: attention dropout at
-a rate above 0 and head_dim other than 64 are not ported to the flash
-kernels yet and raise ``NotImplementedError`` (a ``dropout_seed`` with
-``dropout_p > 0``; without a seed dropout is off, as in JAX).
+as in the JAX package, never :func:`mha_reference`. A ``dropout_seed``
+(an int or a one-element integer tensor, varied per step) switches on
+attention dropout at ``dropout_p`` inside the flash kernels, the JAX
+modules' training mode; without a seed dropout is off (eval), as in JAX.
+head_dim other than 64 is not ported to the flash kernels yet and raises
+``NotImplementedError`` at construction.
 """
 
 from __future__ import annotations
@@ -125,8 +127,7 @@ class SelfMultiheadAttn(nn.Module):
                 dropout_seed=None) -> torch.Tensor:
         b, s, e = x.shape
         h, d = self.num_heads, self.head_dim
-        # the rate flash runs at: 0 without a seed (eval), as in JAX; with
-        # a seed and a rate above 0 the flash wrapper raises
+        # the rate flash runs at: 0 without a seed (eval), as in JAX
         p = self.dropout_p if dropout_seed is not None else 0.0
         q, k, v = self.qkv(x).split(e, dim=-1)
         q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in (q, k, v))

@@ -40,8 +40,16 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    64 x 64 x 64 causal: the grid's y x z slices), with a census of that
    shape's bf16 o past FA_TOL (kernel and plain version each against
    float64) and of the score's summation-order error on the tensor cores
-   against the bound the bf16 forward assumes; fused Adam over the GPT-2
-   small flat buffer; the two LAMB stages over the BERT-large flat
+   against the bound the bf16 forward assumes; the flash kernels' dropout
+   form (forward, dq, dk / dv at FA_DROP_RATE from a device seed) and
+   the dq kernels' dlogits form (a learned bias's gradient) at GPT-2 XL's
+   causal 4 x 25 x 1024 x 64, at BERT's shape with its key-padding mask
+   and at 2 x 3 x 200 x 333 causal, in bf16 and fp32, each against its
+   plain version (the same keep mask; the dlogits to DLOGITS_TOL), two
+   runs identical, with SDPA (``dropout_p``; a float ``attn_mask`` that
+   requires grad) as the library yardstick, and a one-hot v whose o is 0 exactly where the
+   mask drops, the kept share within KEEP_SIGMAS binomial deviations;
+   fused Adam over the GPT-2 small flat buffer; the two LAMB stages over the BERT-large flat
    buffer (334M fp32) and a ragged one, with two runs bit-identical and
    an overflow step that changes no bit; and the flat optimizer kernels
    of the ResNet path at ResNet-50's flat layout (25.6M fp32) and at a
@@ -175,6 +183,17 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    1600])`` card vs CPU, and ``linear_cross_entropy`` over the XL head
    (4096 x 1600 against 1600 x 50257 fp32) against the dense head on the
    card and against itself on the CPU, with the peak memory of each head.
+   (e) ``SelfMultiheadAttn(1600, 25, causal, RoPE, dropout_p=0.1)``, bf16
+   compute, 5 flat ``FusedAdam`` steps through ``DynamicGradScaler`` with
+   a new device seed each step: exactly one launch of each flash
+   kernel's dropout form (tensor cores) and one ``fused_adam`` a step,
+   losses finite and falling. (f) a learned (1, 25, 1024, 1024) fp32
+   attention bias trained through ``flash_attention(bias=...)`` on bf16
+   q, k, v (5 flat ``FusedAdam`` steps, the dq kernel's dlogits form a
+   step, loss falling), then fp32 o and the gradients of q, k, v and the
+   bias against autograd of the unfused softmax. (g) fp32
+   ``EncdecMultiheadAttn(dropout_p=0.1)`` with (c)'s mask and a seed on
+   the FMA-pipe kernels' dropout forms against the same module on the CPU.
 
 11. ``kernel`` rows of the remote-copy kernels (``peer_put``,
    ``peer_wait``, ``halo_put``), in rank processes that share this card
@@ -255,7 +274,9 @@ fp32 route's flash kernels, ``fa_fwd_fp32``, ``fa_bwd_dq_fp32`` and
 ``fa_bwd_dkv_fp32`` (the FMA-pipe kernels of ``csrc/flash_attention.cu``
 and ``csrc/flash_attention_bwd.cu``, at GPT-2's causal shape with the
 BERT row beside), launched by the fp32 runs of those paths: the fp32 ring
-runs of phase 12 and phase 10's cross-attention),
+runs of phase 12 and phase 10's cross-attention; then the forms of
+``FORM_KERNELS`` at GPT-2 XL's causal shape, launched by phase 10's
+(e)-(g)),
 the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``. Any failed check raises and the
 script exits non-zero without that last line; without CUDA, or away from
@@ -291,6 +312,13 @@ SERVE_FP32_ATOL = 1e-3   # fp32 engine prefill logits vs full forward
 LN_BWD_TOL = {"fp32": (1e-5, 1e-5), "bf16": (1e-5, 2 ** -7)}  # dx
 LN_PARAM_GRAD_TOL = (1e-3, 1e-4)   # dgamma / dbeta: fp32 sums over rows
 FA_BWD_TOL = {"fp32": (1e-4, 0.0), "bf16": (1e-2, 2 ** -6)}
+# the dq kernels' fp32 dlogits: computed from the same operands as the
+# plain version's, they differ only in the order of the fp32 sums of the
+# score and of dP (tensor cores or FMA tiles against cuBLAS); 3.8e-6 to
+# 7.6e-6 at most on the kernel phase's bf16 cases, 0 in fp32 (H100)
+DLOGITS_TOL = (2e-5, 1e-4)
+FA_DROP_RATE = 0.1       # attention dropout of the flash forms' checks
+KEEP_SIGMAS = 6          # the keep share's band, in binomial std devs
 ADAM_RTOL = 1e-7         # the kernel runs the plain version's operations
 LAMB_RTOL = 1e-7         # the same for both LAMB stages, row sums included
 TRAIN_GRAD_REL_L2 = 1e-3  # fp32 card vs CPU gradients, per parameter
@@ -334,6 +362,7 @@ XL_VOCAB = 50257
 MEGATRON_BATCH = 4
 MEGATRON_STEPS = 5
 MEGATRON_LR = 1e-4
+BIAS_LR = 1e-2           # the learned attention bias of megatron (f)
 MEGATRON_REL_L2 = 1e-4   # module vs unfused twin, card vs CPU (fp32)
 MHA_BF16_REL_L2 = 5e-2   # the module on a bf16 input vs fp32: output, grads
 LCE_REL_L2 = 1e-5        # chunked head vs the dense head on the card (fp32)
@@ -413,6 +442,31 @@ FMA_KERNELS = {
     "fa_bwd_dkv_fp32": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
                         "fa_bwd_dkv", "fa_bwd_dkv"),
 }
+# the flash kernels' dropout and dlogits forms (template instantiations of
+# the kernels above), reported beside them under their own names: (source,
+# the KERNELS entry whose TPU kernel they replace with it, route, form)
+FORM_KERNELS = {
+    "fa_fwd_dropout": ("apex_tpu_torch/csrc/flash_fwd_wgmma.cu", "fa_fwd",
+                       "wgmma", "dropout"),
+    "fa_bwd_dq_dropout": ("apex_tpu_torch/csrc/flash_bwd_dq_wgmma.cu",
+                          "fa_bwd_dq", "wgmma", "dropout"),
+    "fa_bwd_dkv_dropout": ("apex_tpu_torch/csrc/flash_bwd_dkv_wgmma.cu",
+                           "fa_bwd_dkv", "wgmma", "dropout"),
+    "fa_bwd_dq_dbias": ("apex_tpu_torch/csrc/flash_bwd_dq_wgmma.cu",
+                        "fa_bwd_dq", "wgmma", "dbias"),
+    "fa_fwd_fp32_dropout": ("apex_tpu_torch/csrc/flash_attention.cu",
+                            "fa_fwd", "fma", "dropout"),
+    "fa_bwd_dq_fp32_dropout": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "fa_bwd_dq", "fma", "dropout"),
+    "fa_bwd_dkv_fp32_dropout": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "fa_bwd_dkv", "fma", "dropout"),
+    "fa_bwd_dq_fp32_dbias": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
+                             "fa_bwd_dq", "fma", "dbias"),
+}
+# the lines of the JAX package's flash kernels that each form replaces:
+# `_dropout_keep` and its uses; the dq kernel's dlogits output
+FORM_TPU = {"dropout": _P + "flash_attention.py:207,305,536,583",
+            "dbias": _P + "flash_attention.py:509,540,549"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1299,6 +1353,17 @@ def _rank_steps(group, spec):
 # causal attention, BERT-large's, the ragged 200 x 333 and b * h = 65,600
 FLASH_FP32_SHAPES = [(4, 12, 1024, 1024, True), (32, 16, 128, 128, False),
                      (2, 3, 200, 333, False), (1025, 64, 64, 64, True)]
+# the bf16 (tensor-core) cases of the solo modes: GPT-2's and GPT-2 XL's
+# causal attention and BERT's
+FLASH_BF16_SHAPES = [(4, 12, 1024, 1024, True), (4, 25, 1024, 1024, True),
+                     (32, 16, 128, 128, False)]
+_SOLO_CASES = ([(*c, "fp32") for c in FLASH_FP32_SHAPES]
+               + [(*c, "bf16") for c in FLASH_BF16_SHAPES])
+
+
+def _solo_key(b, h, sq, sk, causal, dt):
+    return (f"{'bf16_' if dt == 'bf16' else ''}{b}x{h}x{sq}x{sk}"
+            f"{'_causal' if causal else ''}")
 
 
 def _causal_pairs(sq, sk, causal):
@@ -1307,11 +1372,13 @@ def _causal_pairs(sq, sk, causal):
 
 
 def _flash_bwd_solo(dev):
-    """The fp32 flash backward at FLASH_FP32_SHAPES: the dq and dk / dv
-    kernels' device ms (torch.profiler, inputs rotated beyond the L2), the
-    least time the card could take for each (operations at the fp32
-    peak), and fp32 SDPA's backward timed the same way (TF32 off; the
-    forward graph built once, ``autograd.grad`` timed alone)."""
+    """The flash backward at FLASH_FP32_SHAPES in fp32 and
+    FLASH_BF16_SHAPES in bf16, without dropout or dlogits: the dq and
+    dk / dv kernels' device ms (torch.profiler, inputs rotated beyond the
+    L2), the least time the card could take for each (operations at the
+    dtype's peak), and SDPA's backward timed the same way (TF32 off; the
+    forward graph built once, ``autograd.grad`` timed alone; bf16 on its
+    flash backend)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1322,12 +1389,13 @@ def _flash_bwd_solo(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for b, h, sq, sk, causal in FLASH_FP32_SHAPES:
+    for b, h, sq, sk, causal, dt in _SOLO_CASES:
         d, scale = 64, 0.125
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         sets = []
         for _ in range(n_sets(3 * b * h * (sq + sk) * d * 4)):
             q, k, v, do = (torch.randn(b, h, n, d, device=dev,
-                                       generator=gen)
+                                       generator=gen).to(dtype)
                            for n in (sq, sk, sk, sq))
             o, lse = flash_attention_fwd(q, k, v, scale=scale,
                                          causal=causal)
@@ -1338,11 +1406,12 @@ def _flash_bwd_solo(dev):
         dq = sum(t for n, t in split.items() if "fa_bwd_dq_kernel" in n)
         dkv = sum(t for n, t in split.items() if "fa_bwd_dkv_kernel" in n)
         lsets = []
+        backends = ([SDPBackend.FLASH_ATTENTION] if dt == "bf16" else
+                    [SDPBackend.EFFICIENT_ATTENTION,
+                     SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH])
         for q, k, v, _, _, do in sets:
             qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
-                              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]), \
-                    torch.enable_grad():
+            with sdpa_kernel(backends), torch.enable_grad():
                 oo = F.scaled_dot_product_attention(qq, kk, vv,
                                                     is_causal=causal,
                                                     scale=scale)
@@ -1350,10 +1419,10 @@ def _flash_bwd_solo(dev):
         library = device_ms(lambda oo, qq, kk, vv, do: torch.autograd.grad(
             oo, (qq, kk, vv), do, retain_graph=True), lsets, 20)
         ops = 2 * b * h * d * _causal_pairs(sq, sk, causal)
-        out[f"{b}x{h}x{sq}x{sk}{'_causal' if causal else ''}"] = dict(
+        out[_solo_key(b, h, sq, sk, causal, dt)] = dict(
             dq_ms=dq, dkv_ms=dkv, pair_ms=dq + dkv, library_ms=library,
-            bound_dq_ms=3 * ops / PEAK_OPS["fp32"] * 1e3,
-            bound_dkv_ms=4 * ops / PEAK_OPS["fp32"] * 1e3,
+            bound_dq_ms=3 * ops / PEAK_OPS[dt] * 1e3,
+            bound_dkv_ms=4 * ops / PEAK_OPS[dt] * 1e3,
             kernels=sorted(n.split("(")[0] for n in split
                            if "fa_bwd_" in n))
         del sets, lsets
@@ -1361,9 +1430,10 @@ def _flash_bwd_solo(dev):
 
 
 def _flash_fwd_solo(dev):
-    """The fp32 flash forward at FLASH_FP32_SHAPES: the kernel's device ms
+    """The flash forward at FLASH_FP32_SHAPES in fp32 and
+    FLASH_BF16_SHAPES in bf16, without dropout: the kernel's device ms
     (torch.profiler, inputs rotated beyond the L2), the least time the
-    card could take (two products' operations at the fp32 peak), and fp32
+    card could take (two products' operations at the dtype's peak), and
     SDPA's forward on the same inputs timed the same way (TF32 off), as
     the kernel phase times it."""
     import torch
@@ -1374,10 +1444,11 @@ def _flash_fwd_solo(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for b, h, sq, sk, causal in FLASH_FP32_SHAPES:
+    for b, h, sq, sk, causal, dt in _SOLO_CASES:
         d, scale = 64, 0.125
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         sets = [tuple(torch.randn(b, h, n, d, device=dev, generator=gen)
-                      for n in (sq, sk, sk))
+                      .to(dtype) for n in (sq, sk, sk))
                 for _ in range(n_sets(2 * b * h * (sq + sk) * d * 4))]
         split = device_kernels(lambda q, k, v: flash_attention_fwd(
             q, k, v, scale=scale, causal=causal), sets, 30)
@@ -1385,9 +1456,9 @@ def _flash_fwd_solo(dev):
             q, k, v, is_causal=causal, scale=scale), sets, 30)
         ops = 4 * b * h * d * _causal_pairs(sq, sk, causal)
         ms = sum(t for n, t in split.items() if "fa_fwd_kernel" in n)
-        out[f"{b}x{h}x{sq}x{sk}{'_causal' if causal else ''}"] = dict(
+        out[_solo_key(b, h, sq, sk, causal, dt)] = dict(
             ms=ms, library_ms=library,
-            bound_ms=ops / PEAK_OPS["fp32"] * 1e3,
+            bound_ms=ops / PEAK_OPS[dt] * 1e3,
             kernels=sorted(n.split("(")[0] for n in split))
         del sets
     return out
@@ -1648,12 +1719,13 @@ def mode_main(mode, root) -> int:
     one card in one run. ``remote-copy``: phase 11 (a),
     one ``remote_copy_solo`` line. ``ring``: phases 12 and 13 at world 4
     (the bf16 ring's step ms by layout and the halo's exchange ms on every
-    rank), one ``ring_steps`` line. ``flash-fwd``: the fp32 flash forward
-    and fp32 SDPA's forward at FLASH_FP32_SHAPES, one ``flash_fwd_solo``
-    line. ``flash-bwd``: the fp32 flash backward's dq and dk / dv kernels
-    and fp32 SDPA's backward at FLASH_FP32_SHAPES, one ``flash_bwd_solo``
-    line. ``softmax``: the megatron softmax kernels and ``torch.softmax``
-    at SOFTMAX_SOLO_CASES, one ``softmax_solo`` line. ``norm``: the
+    rank), one ``ring_steps`` line. ``flash-fwd``: the flash forward and
+    SDPA's forward at FLASH_FP32_SHAPES (fp32) and FLASH_BF16_SHAPES
+    (bf16), one ``flash_fwd_solo`` line. ``flash-bwd``: the flash
+    backward's dq and dk / dv kernels and SDPA's backward at the same
+    shapes, one ``flash_bwd_solo`` line. ``softmax``: the megatron softmax
+    kernels and ``torch.softmax`` at SOFTMAX_SOLO_CASES, one
+    ``softmax_solo`` line. ``norm``: the
     two-pass GroupNorm pair (each kernel and the whole two-pass forward)
     at the NORM_GN_TWO_PASS shapes, with the LayerNorm backward and
     forward and the one-pass GroupNorm at their main shapes as witnesses,
@@ -1706,7 +1778,7 @@ def mode_main(mode, root) -> int:
 
 # the kernels whose ptxas report the env line carries, by source: the
 # flash tensor-core kernels and the fp32 route's FMA-pipe forward and
-# backward pair, each in its unbiased and biased form; the LayerNorm
+# backward pair, each in every form (_FLASH_FORMS); the LayerNorm
 # backward's register form, the one-pass GroupNorm's cluster route and
 # the two-pass pair's vector route, every instantiation
 PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
@@ -1725,13 +1797,21 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
 # register form, the two-pass GroupNorm's bf16 vector stats kernel and
 # every form of its vector apply kernel (the fp32 stats kernel spills 8
 # bytes at 40 registers, which PERF.md reports)
-NO_SPILL_KERNELS = ("fa_fwd_kernel<false>", "fa_bwd_dq_kernel_fma<false>",
-                    "fa_bwd_dkv_kernel_fma<false>", "ln_bwd_kernel_reg<",
+NO_SPILL_KERNELS = ("fa_fwd_kernel<false,false>",
+                    "fa_bwd_dq_kernel_fma<false,false,false>",
+                    "fa_bwd_dkv_kernel_fma<false,false>", "ln_bwd_kernel_reg<",
                     "gn_stats_kernel_vec<bf16>", "gn_apply_kernel_vec<")
-# the flash kernels, each reported in both bias forms
-_BIAS_FORMS = ("fa_fwd_kernel_wgmma", "fa_bwd_dq_kernel_wgmma",
-               "fa_bwd_dkv_kernel_wgmma", "fa_fwd_kernel",
-               "fa_bwd_dq_kernel_fma", "fa_bwd_dkv_kernel_fma")
+# the flash kernels' forms, each reported: (bias, dropout), and the dq
+# kernels' (bias, dropout, dlogits), dlogits only with a bias
+_FORMS2 = tuple(f"{b},{d}" for b in ("false", "true")
+                for d in ("false", "true"))
+_FORMS_DQ = tuple(f"{f},false" for f in _FORMS2) + ("true,false,true",
+                                                     "true,true,true")
+_FLASH_FORMS = {"fa_fwd_kernel_wgmma": _FORMS2,
+                "fa_bwd_dq_kernel_wgmma": _FORMS_DQ,
+                "fa_bwd_dkv_kernel_wgmma": _FORMS2, "fa_fwd_kernel": _FORMS2,
+                "fa_bwd_dq_kernel_fma": _FORMS_DQ,
+                "fa_bwd_dkv_kernel_fma": _FORMS2}
 # a mangled template argument as the report names it
 _TEMPLATE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
 
@@ -1755,9 +1835,9 @@ def ptxas_report(build, sources):
     """``{kernel: {registers, spill_stores, spill_loads, stack}}`` from
     ``nvcc -Xptxas -v`` on ``sources`` (``{source: kernel names}``, one
     compile each, together, after the library's build), each kernel named
-    by its function and template arguments (``fa_fwd_kernel<false>``,
+    by its function and template arguments (``fa_fwd_kernel<false,true>``,
     ``ln_bwd_kernel_reg<bf16,3,false,true>``); every named kernel must
-    appear, the flash kernels in both bias forms."""
+    appear, the flash kernels in every form of ``_FLASH_FORMS``."""
     import re
     import tempfile
     names = list(sources)
@@ -1796,7 +1876,7 @@ def ptxas_report(build, sources):
             out.setdefault(f"{m.group(1)}<{_template_args(m.group(2))}>",
                            {})["wgmma_serialized"] = \
                 line.split(":", 2)[-1].strip()
-    want = {f"{k}<{b}>" for k in _BIAS_FORMS for b in ("false", "true")
+    want = {f"{k}<{f}>" for k, forms in _FLASH_FORMS.items() for f in forms
             if any(k in ks for ks in sources.values())}
     missing = [k for ks in sources.values() for k in ks
                if not any(key.startswith(k + "<") for key in out)]
@@ -1882,7 +1962,7 @@ def main() -> int:
     from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config, lm_loss
     from apex_tpu_torch.ops import _build
     from apex_tpu_torch.ops.flash_attention import (
-        NEG_INF, flash_attention_bwd, flash_attention_bwd_plain,
+        NEG_INF, dropout_keep, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_fwd, flash_attention_fwd_plain)
     from apex_tpu_torch.models.convert import init_resnet_params
     from apex_tpu_torch.models.resnet import ResNet50
@@ -2120,7 +2200,21 @@ def main() -> int:
         return (torch.zeros(mask.shape, device=dev)
                 .masked_fill_(mask, -1e30), mask)
 
-    def fa_case(b, h, sq, sk, causal, dt, main=None, mask_kind=None):
+    def require_flash_form(kern, what, name, *form):
+        """From a profile's kernel names: kernel ``name`` ran in the
+        instantiation of the template arguments ``form`` (bools: bias,
+        dropout and, for the dq kernels, dlogits)."""
+        args = ",".join(str(bool(f)).lower() for f in form)
+        ok = any(f"{name}<{args}>" in n.replace(" ", "") for n in kern)
+        require(ok, f"{what}: no {name}<{args}> among {sorted(kern)}")
+
+    def fa_case(b, h, sq, sk, causal, dt, main=None, mask_kind=None,
+                dropout=False):
+        """The flash forward at one shape against its plain version on the
+        same card inputs (FA_TOL, LSE_TOL), two runs bit-identical; with
+        ``dropout`` at FA_DROP_RATE from a seed in device memory (the same
+        keep mask) and SDPA with ``dropout_p`` as the library yardstick
+        (its Philox mask is not ours; the work is the same)."""
         d = 64
         es = torch.tensor([], dtype=tdt[dt]).element_size()
         bias, mask = (make_mask(b, h, sq, sk, mask_kind) if mask_kind
@@ -2131,8 +2225,7 @@ def main() -> int:
             # count what this run's data needs: the unmasked pairs
             pairs = int((~mask).expand(b, h, sq, sk).sum().item()) // (b * h)
         else:
-            pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
-                     else sq * sk)
+            pairs = _causal_pairs(sq, sk, causal)
         ops = 4 * b * h * d * pairs
         sets = [tuple(torch.randn(b, h, s, d, device=dev, generator=gen)
                       .to(tdt[dt]) for s in (sq, sk, sk))
@@ -2140,30 +2233,40 @@ def main() -> int:
         q, k, v = sets[0]
         scale = 1.0 / math.sqrt(d)
         kw = dict(scale=scale, causal=causal, bias=bias)
+        if dropout:
+            kw.update(dropout_p=FA_DROP_RATE, dropout_seed=torch.tensor(
+                [1234], dtype=torch.int32, device=dev))
         o, lse = flash_attention_fwd(q, k, v, **kw)
+        again = flash_attention_fwd(q, k, v, **kw)
         op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         atol, rtol = FA_TOL[dt]
         do = (o.float() - op.float()).abs()
         ok_o = bool((do <= atol + rtol * op.float().abs()).all())
         dl = (lse - lsep).abs().max().item()
+        det = torch.equal(o, again[0]) and torch.equal(lse, again[1])
         dead_ok = True
         if mask is not None:
             dead = mask.expand(b, h, sq, sk).all(dim=-1)
             dead_ok = bool((o[dead] == 0).all()) \
                 and bool((lse[dead] == NEG_INF).all())
-        require(ok_o and dl <= LSE_TOL and dead_ok,
-                f"fa_fwd {b}x{h}x{sq}x{sk} causal={causal} mask={mask_kind} "
-                f"{dt}: o err {do.max().item()} (atol {atol} rtol {rtol}), "
-                f"lse err {dl}, fully masked rows zero {dead_ok}")
+        form = "dropout" if dropout else None
+        what = (f"fa_fwd {b}x{h}x{sq}x{sk} causal={causal} mask={mask_kind} "
+                f"form={form} {dt}")
+        require(ok_o and dl <= LSE_TOL and dead_ok and det,
+                f"{what}: o err {do.max().item()} (atol {atol} rtol {rtol}), "
+                f"lse err {dl}, fully masked rows zero {dead_ok}, "
+                f"deterministic {det}")
+        del again
         reps = 30
 
         def fwd(q, k, v):
             return flash_attention_fwd(q, k, v, **kw)
 
         kern = device_kernels(fwd, sets, reps)
-        require_flash_route(kern, dt, f"fa_fwd {b}x{h}x{sq}x{sk}",
-                            ("fa_fwd_kernel",))
+        require_flash_route(kern, dt, what, ("fa_fwd_kernel",))
+        require_flash_form(kern, what, "fa_fwd_kernel" + (
+            "_wgmma" if dt == "bf16" else ""), bias is not None, dropout)
         kt = {"ms": sum(kern.values()), "call_ms": bench_ms(fwd, sets, reps)}
         pt = timed(lambda q, k, v: flash_attention_fwd_plain(q, k, v, **kw),
                    sets, 5)
@@ -2172,13 +2275,14 @@ def main() -> int:
         # boolean mask means True = attend, the kernel's True = masked
         keep = None if mask is None else ~mask
         lt = timed(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=keep, is_causal=causal, scale=scale), sets,
-            reps)
+            q, k, v, attn_mask=keep, is_causal=causal, scale=scale,
+            dropout_p=FA_DROP_RATE if dropout else 0.0), sets, reps)
         bms, by = bound(nbytes, ops, dt)
         rec = dict(kernel="fa_fwd", b=b, h=h, sq=sq, sk=sk, causal=causal,
-                   mask=mask_kind, dtype=dt, max_abs_err=do.max().item(),
-                   lse_err=dl,
+                   mask=mask_kind, dtype=dt, form=form,
+                   max_abs_err=do.max().item(), lse_err=dl,
                    tol={"atol": atol, "rtol": rtol, "lse_atol": LSE_TOL},
+                   deterministic=det,
                    ms=kt["ms"], plain_ms=pt["ms"], library_ms=lt["ms"],
                    bound_ms=bms, bound_by=by, call_ms=kt["call_ms"],
                    plain_call_ms=pt["call_ms"],
@@ -2281,6 +2385,15 @@ def main() -> int:
             fa_case(4, 16, 128, 128, False, dt, mask_kind="full")
             # b * h = 65,600: the grid's y x z slices
             fa_case(1025, 64, 64, 64, True, dt)
+            # the dropout form: GPT-2 XL's causal attention (the summary's
+            # row), BERT's with its key-padding mask, and a ragged causal
+            # shape with keys past the last query
+            fa_case(4, XL_HEADS, XL_SEQ, XL_SEQ, True, dt, dropout=True,
+                    main="fa_fwd" + ("" if dt == "bf16" else "_fp32")
+                    + "_dropout")
+            fa_case(32, 16, 128, 128, False, dt, mask_kind="pad",
+                    dropout=True)
+            fa_case(2, 3, 200, 333, True, dt, dropout=True)
         fa_order_census()
 
     def ln_bwd_case(rows, hidden, dt, main=None, rms=False, affine=True):
@@ -2367,98 +2480,174 @@ def main() -> int:
         if main:
             summary[main] = rec
 
-    def fa_bwd_case(b, h, sq, sk, causal, dt, main=None, mask_kind=None):
+    def fa_bwd_case(b, h, sq, sk, causal, dt, main=None, mask_kind=None,
+                    dropout=False, dbias=False):
+        """The flash backward's dq and dk / dv kernels at one shape against
+        the plain version on the same card inputs (FA_BWD_TOL), two runs
+        bit-identical. ``dropout``: at FA_DROP_RATE from a seed in device
+        memory (the same keep mask), SDPA with ``dropout_p`` as the library
+        yardstick (backward alone, and forward + backward; its Philox mask
+        is not ours, the work is the same). ``dbias``: the dq kernel's
+        dlogits of a learned (1, h, sq, sk) bias (plus the mask's -1e30
+        with ``mask_kind``), held to DLOGITS_TOL; SDPA's backward with a
+        float ``attn_mask`` that requires grad as the yardstick. ``main``
+        keeps the records in the summary as ``fa_bwd_dq<main>`` and
+        ``fa_bwd_dkv<main>``."""
         d = 64
         scale = 1.0 / math.sqrt(d)
         es = torch.tensor([], dtype=tdt[dt]).element_size()
-        bias, mask = (make_mask(b, h, sq, sk, mask_kind) if mask_kind
-                      else (None, None))
+        mbias, mask = (make_mask(b, h, sq, sk, mask_kind) if mask_kind
+                       else (None, None))
         if mask is not None:
             pairs = int((~mask).expand(b, h, sq, sk).sum().item()) // (b * h)
         else:
-            pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
-                     else sq * sk)
+            pairs = _causal_pairs(sq, sk, causal)
+        bias = mbias
+        if dbias:
+            learned = torch.randn(1, h, sq, sk, device=dev, generator=gen)
+            bias = learned if mbias is None else learned + mbias
         io = b * h * d * es
         stats = b * h * sq * 8          # lse and D, fp32
         extra = 0 if bias is None else bias.numel() * 4
-        # dq: reads q, k, v, do, lse, D (and the bias), writes dq; dk / dv:
-        # reads the same, writes dk and dv
-        bytes_dq = io * (3 * sq + 2 * sk) + stats + extra
+        dl_bytes = b * h * sq * sk * 4 if dbias else 0
+        # dq: reads q, k, v, do, lse, D (and the bias), writes dq (and the
+        # dlogits); dk / dv: reads the same, writes dk and dv
+        bytes_dq = io * (3 * sq + 2 * sk) + stats + extra + dl_bytes
         bytes_dkv = io * (2 * sq + 4 * sk) + stats + extra
         ops_dq = 3 * 2 * b * h * d * pairs    # S, dP, dq
         ops_dkv = 4 * 2 * b * h * d * pairs   # S, dP, dv, dk
+        kw = dict(scale=scale, causal=causal, bias=bias)
+        if dropout:
+            kw.update(dropout_p=FA_DROP_RATE, dropout_seed=torch.tensor(
+                [1234], dtype=torch.int32, device=dev))
         sets = []
-        for _ in range(n_sets(bytes_dkv)):
+        for _ in range(n_sets(bytes_dkv + dl_bytes)):
             q, k, v = (torch.randn(b, h, s, d, device=dev, generator=gen)
                        .to(tdt[dt]) for s in (sq, sk, sk))
             do = torch.randn(b, h, sq, d, device=dev, generator=gen) \
                 .to(tdt[dt])
-            o, lse = flash_attention_fwd(q, k, v, scale=scale,
-                                         causal=causal, bias=bias)
+            o, lse = flash_attention_fwd(q, k, v, **kw)
             sets.append((q, k, v, o, lse, do))
-        kw = dict(scale=scale, causal=causal, bias=bias)
-        got = flash_attention_bwd(*sets[0], **kw)
-        want = flash_attention_bwd_plain(*sets[0], **kw)
+        bkw = dict(kw, want_dbias=dbias)
+        got = flash_attention_bwd(*sets[0], **bkw)
+        want = flash_attention_bwd_plain(*sets[0], **bkw)
+        again = flash_attention_bwd(*sets[0], **bkw)
         torch.cuda.synchronize()
+        form = "dropout" if dropout else "dbias" if dbias else None
+        what = (f"fa_bwd {b}x{h}x{sq}x{sk} causal={causal} mask={mask_kind} "
+                f"form={form} {dt}")
         atol, rtol = FA_BWD_TOL[dt]
-        errs = {}
-        for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
-            ok, errs[name] = close(g_, w_, atol, rtol)
-            require(ok, f"fa_bwd {b}x{h}x{sq}x{sk} causal={causal} "
-                        f"mask={mask_kind} {dt}: {name} err {errs[name]} "
-                        f"(atol {atol} rtol {rtol})")
+        errs, share = {}, {}
+        for name, g_, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
+            ta, tr = DLOGITS_TOL if name == "dbias" else (atol, rtol)
+            diff = (g_.float() - w_.float()).abs()
+            errs[name] = diff.max().item()
+            share[name] = (diff / (ta + tr * w_.float().abs())).max().item()
+            require(share[name] <= 1.0,
+                    f"{what}: {name} err {errs[name]} (atol {ta} rtol {tr})")
+            del diff
         if mask is not None:
             dead = mask.expand(b, h, sq, sk).all(dim=-1)
             require(bool((got[0][dead] == 0).all()),
-                    "fa_bwd: a fully masked row has a nonzero dq")
-        again = flash_attention_bwd(*sets[0], **kw)
+                    f"{what}: a fully masked row has a nonzero dq")
         deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
-        require(deterministic, "fa_bwd: two runs gave different bits")
+        require(deterministic, f"{what}: two runs gave different bits")
+        dl_stats = {}
+        if dbias:
+            # the dlogits' scale beside their error: the largest entry and
+            # the median of the entries the kernel computes (not 0)
+            mag = want[3].abs()
+            dl_stats = dict(dl_max=mag.max().item(),
+                            dl_typical=mag[mag > 0].median().item())
+            del mag
+        del got, want, again
         reps = 20
-        split = device_kernels(lambda *a: flash_attention_bwd(*a, **kw),
-                               sets, reps)
-        require_flash_route(split, dt, f"fa_bwd {b}x{h}x{sq}x{sk}",
+
+        def bwd(*a):
+            return flash_attention_bwd(*a, **bkw)
+
+        split = device_kernels(bwd, sets, reps)
+        require_flash_route(split, dt, what,
                             ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"))
+        tail = "_wgmma" if dt == "bf16" else "_fma"
+        require_flash_form(split, what, "fa_bwd_dq_kernel" + tail,
+                           bias is not None, dropout, dbias)
+        require_flash_form(split, what, "fa_bwd_dkv_kernel" + tail,
+                           bias is not None, dropout)
         ms_dq = sum(v for k, v in split.items() if "fa_bwd_dq_kernel" in k)
         ms_dkv = sum(v for k, v in split.items()
                      if "fa_bwd_dkv_kernel" in k)
-        call = bench_ms(lambda *a: flash_attention_bwd(*a, **kw), sets,
-                        reps)
-        pt = timed(lambda *a: flash_attention_bwd_plain(*a, **kw), sets, 3)
-        library = None
+        call = bench_ms(bwd, sets, reps)
+        pt = timed(lambda *a: flash_attention_bwd_plain(*a, **bkw), sets, 3)
+        library = lib_both = None
         if mask_kind != "full":
             # SDPA's backward, timed alone: the forward graph is built
             # once and only autograd.grad is timed; the flash backend for
-            # bf16 without a mask, PyTorch's own choice with one or in
-            # fp32 (its flash backend takes neither; TF32 is off, above)
+            # bf16 without a mask or a float bias, PyTorch's own choice
+            # otherwise, in fp32 (its flash backend takes neither; TF32 is
+            # off, above), with dropout, and where the flash backend
+            # refuses the shape (causal with sq != sk)
             from torch.nn.attention import SDPBackend, sdpa_kernel
-            backends = ([SDPBackend.FLASH_ATTENTION]
-                        if mask is None and dt == "bf16" else
-                        [SDPBackend.EFFICIENT_ATTENTION,
-                         SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH])
-            lsets = []
-            for q, k, v, _, _, do in sets:
+            others = [SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+            backends = others
+            if mask is None and dt == "bf16" and not dbias:
+                backends = [SDPBackend.FLASH_ATTENTION] + (
+                    others if dropout or (causal and sq != sk) else [])
+
+            def sdpa(q, k, v, do, timed_alone):
                 qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+                ins = [qq, kk, vv]
+                am = None if mask is None else ~mask
                 with sdpa_kernel(backends), torch.enable_grad():
+                    if dbias:
+                        bb = learned.detach().clone().requires_grad_()
+                        am = bb if mbias is None else bb + mbias
+                        if causal:
+                            am = am.masked_fill(torch.ones(
+                                sq, sk, dtype=torch.bool, device=dev)
+                                .triu(1), float("-inf"))
+                        am = am.to(tdt[dt])
+                        ins.append(bb)
                     oo = F.scaled_dot_product_attention(
-                        qq, kk, vv, attn_mask=None if mask is None
-                        else ~mask, is_causal=causal, scale=scale)
-                lsets.append((oo, qq, kk, vv, do))
-            library = timed(lambda oo, qq, kk, vv, do: torch.autograd.grad(
-                oo, (qq, kk, vv), do, retain_graph=True), lsets, reps)
+                        qq, kk, vv, attn_mask=am,
+                        is_causal=causal and am is None, scale=scale,
+                        dropout_p=FA_DROP_RATE if dropout else 0.0)
+                if timed_alone:
+                    return oo, tuple(ins), do
+                torch.autograd.grad(oo, ins, do)
+
+            lsets = [sdpa(q, k, v, do, True) for q, k, v, _, _, do in sets]
+            library = timed(lambda oo, ins, do: torch.autograd.grad(
+                oo, ins, do, retain_graph=True), lsets, reps)
+            del lsets
+            if dropout:
+                # SDPA's forward + backward with dropout beside ours
+                lib_both = device_ms(lambda q, k, v, o, lse, do: sdpa(
+                    q, k, v, do, False), sets, 10)
         common = dict(b=b, h=h, sq=sq, sk=sk, causal=causal, mask=mask_kind,
-                      dtype=dt, tol={"atol": atol, "rtol": rtol},
+                      dtype=dt, form=form, tol={"atol": atol, "rtol": rtol},
                       deterministic=deterministic, call_ms=call,
                       plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
                       library_ms=library and library["ms"],
                       library_call_ms=library and library["call_ms"],
                       dvec_ms=sum(split.values()) - ms_dq - ms_dkv)
+        if dropout:
+            common["library_fwd_bwd_ms"] = lib_both
+            if main is not None:
+                common["fwd_bwd_ms"] = sum(split.values()) \
+                    + summary["fa_fwd" + main]["ms"]
         bq, byq = bound(bytes_dq, ops_dq, dt)
         bk, byk = bound(bytes_dkv, ops_dkv, dt)
-        rq = dict(kernel="fa_bwd_dq", max_abs_err=errs["dq"], ms=ms_dq,
+        rq = dict(kernel="fa_bwd_dq",
+                  max_abs_err=max(errs["dq"], errs.get("dbias", 0.0)),
+                  dq_err=errs["dq"], ms=ms_dq,
                   bound_ms=bq, bound_by=byq, bytes=bytes_dq, flops=ops_dq,
                   tflops=ops_dq / ms_dq / 1e9, bound_share=bq / ms_dq,
                   **common)
+        if dbias:
+            rq.update(dbias_err=errs["dbias"], dbias_tol=DLOGITS_TOL,
+                      dbias_err_over_tol=share["dbias"], **dl_stats)
         rk = dict(kernel="fa_bwd_dkv", max_abs_err=max(errs["dk"],
                                                       errs["dv"]),
                   dk_err=errs["dk"], dv_err=errs["dv"], ms=ms_dkv,
@@ -2470,6 +2659,38 @@ def main() -> int:
         if main is not None:
             summary["fa_bwd_dq" + main] = rq
             summary["fa_bwd_dkv" + main] = rk
+        del sets
+        torch.cuda.empty_cache()
+
+    def fa_keep_probe(dt):
+        """The dropout mask on the card, exactly: a one-hot v (sk = 64
+        keys, v[j] = e_j) makes o[i, j] = p_ij keep_ij / l_i, so o is 0
+        exactly where ``dropout_keep`` drops (at these small scores no p
+        underflows); the share kept over b * h * sq * sk entries within
+        KEEP_SIGMAS binomial standard deviations of 1 - FA_DROP_RATE."""
+        b, h, sq, sk = 4, 25, 1024, 64
+        g = torch.Generator(device=dev).manual_seed(5)
+        q, k = ((torch.randn(b, h, n, 64, device=dev, generator=g) * 0.3)
+                .to(tdt[dt]) for n in (sq, sk))
+        v = torch.eye(sk, 64, device=dev).expand(b, h, sk, 64) \
+            .contiguous().to(tdt[dt])
+        seed = torch.tensor([-77], dtype=torch.int32, device=dev)
+        o, _ = flash_attention_fwd(q, k, v, scale=0.125, causal=False,
+                                   dropout_p=FA_DROP_RATE, dropout_seed=seed)
+        keep = dropout_keep(seed, torch.arange(b * h, device=dev), 0, 0, sq,
+                            sk, FA_DROP_RATE, device=dev).view(b, h, sq, sk)
+        same = torch.equal(o == 0, keep == 0)
+        n = keep.numel()
+        share = (keep > 0).sum().item() / n
+        p = 1.0 - FA_DROP_RATE
+        band = KEEP_SIGMAS * math.sqrt(p * (1 - p) / n)
+        rec = dict(kernel="fa_fwd", check="dropout keep pattern", dtype=dt,
+                   b=b, h=h, sq=sq, sk=sk, zeros_equal_mask=same,
+                   keep_share=share, expected=p, band=band,
+                   mismatched=int(((o == 0) != (keep == 0)).sum().item()))
+        emit("kernel", **rec)
+        require(same and abs(share - p) <= band,
+                f"dropout keep pattern ({dt}): {rec}")
 
     def adam_case(n, main=False):
         nbytes = 28 * n + 36   # p, g, m, v read; p, m, v written
@@ -2627,6 +2848,17 @@ def main() -> int:
         fa_bwd_case(32, 16, 128, 128, False, dt, mask_kind="pad")
         fa_bwd_case(4, 16, 128, 128, False, dt, mask_kind="full")
         fa_bwd_case(1025, 64, 64, 64, True, dt)
+        # the dropout and dlogits forms: GPT-2 XL's causal attention (the
+        # summary's rows), BERT's with its key-padding mask, and a ragged
+        # causal shape with keys past the last query
+        for form in ("dropout", "dbias"):
+            fa_bwd_case(4, XL_HEADS, XL_SEQ, XL_SEQ, True, dt,
+                        main=("" if bf else "_fp32") + "_" + form,
+                        **{form: True})
+            fa_bwd_case(32, 16, 128, 128, False, dt, mask_kind="pad",
+                        **{form: True})
+            fa_bwd_case(2, 3, 200, 333, True, dt, **{form: True})
+        fa_keep_probe(dt)
     adam_case(flat_n, main=True)
     adam_case(1001)
     torch.cuda.empty_cache()
@@ -3247,8 +3479,10 @@ def main() -> int:
     tokens = torch.randint(0, cfg.vocab_size, (4, 1024), generator=cpu_gen)
     tok_d = tokens.to(dev)
     main_launches = {}
-    # the flash wrappers' launches by route on each path of the main run
+    # the flash wrappers' launches by route on each path of the main run,
+    # and of their dropout and dlogits forms (``_build.form_launches``)
     path_routes = {}
+    main_forms = collections.Counter()
     with torch.inference_mode():
         model(tok_d[:, :16])       # first touch of cuBLAS etc.
         torch.cuda.synchronize()
@@ -4071,8 +4305,174 @@ def main() -> int:
     require(enc_out <= MEGATRON_REL_L2 and enc_grad <= MEGATRON_REL_L2,
             f"EncdecMultiheadAttn vs its unfused twin (fp32): output rel L2 "
             f"{enc_out}, {enc_grad_name} gradient {enc_grad}")
+    # (e) training with attention dropout: SelfMultiheadAttn(1600, 25,
+    # causal, RoPE, dropout_p=FA_DROP_RATE), bf16 compute, fp32
+    # parameters, 5 flat FusedAdam steps on an MSE through
+    # DynamicGradScaler, a new seed each step (a device tensor: no host
+    # sync); exactly one launch of each flash kernel, in its dropout form
+    # on the tensor-core route, and one fused_adam a step
+    torch.manual_seed(4)
+    dmod = SelfMultiheadAttn(XL_EMBED, XL_HEADS, causal=True, use_rope=True,
+                             dropout_p=FA_DROP_RATE, device=dev)
+    dx = torch.randn(MEGATRON_BATCH, XL_SEQ, XL_EMBED, generator=mgen) \
+        .to(dev, torch.bfloat16)
+    dtarget = torch.randn(MEGATRON_BATCH, XL_SEQ, XL_EMBED,
+                          generator=mgen).to(dev)
+    dseeds = torch.arange(MEGATRON_STEPS, dtype=torch.int32,
+                          device=dev) * 7919 + 11
+
+    def dropout_loss(model, x, target, seed):
+        return ((model(x, dropout_seed=seed).float() - target) ** 2).mean()
+
+    _, _, dstep = scaled_trainer(
+        dmod, lambda named: FusedAdam(named, lr=MEGATRON_LR, use_flat=True),
+        dev, dropout_loss)
+    dlosses, dstep_s = [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for i in range(MEGATRON_STEPS):
+        t0 = time.perf_counter()
+        dlosses.append(float(dstep(dx, dtarget, dseeds[i])))
+        torch.cuda.synchronize()
+        dstep_s.append(time.perf_counter() - t0)
+    drop_parts = (dict(_build.launches), dict(_build.route_launches),
+                  dict(_build.form_launches))
+    flash3 = ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv")
+    per5 = {k: MEGATRON_STEPS for k in (*flash3, "fused_adam")}
+    require(drop_parts == (
+        per5, {f"{k}:wgmma": MEGATRON_STEPS for k in flash3},
+        {f"{k}:wgmma:dropout": MEGATRON_STEPS for k in flash3}),
+        f"megatron (e) launches, routes, forms {drop_parts}, expected "
+        f"{per5} on the tensor-core route, all in the dropout form")
+    require(all(math.isfinite(x) for x in dlosses)
+            and dlosses[-1] < dlosses[0], f"megatron (e) losses {dlosses}")
+    dsteady = sorted(dstep_s[1:])[len(dstep_s[1:]) // 2] * 1e3
+    dkern = device_profile(lambda: dstep(dx, dtarget, dseeds[0]))
+    dbusy = by_kind(dkern)
+    del dstep, dmod, dx, dtarget
+    torch.cuda.empty_cache()
+
+    # (f) a learned (1, 25, 1024, 1024) fp32 attention bias (a
+    # relative-position table) trained through flash_attention(bias=...,
+    # bias_requires_grad=True) on fixed bf16 q, k, v: 5 flat FusedAdam
+    # steps (lr BIAS_LR) on an MSE through DynamicGradScaler, one launch of
+    # each flash kernel a step, the dq kernel in its dlogits form. Then
+    # fp32, one step on the trained table: o and the gradients of q, k, v
+    # and the bias against autograd through the unfused function (fp32
+    # scores plus the bias, causal mask, torch.softmax, p v)
+    class BiasTable(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.bias = torch.nn.Parameter(torch.zeros(
+                1, XL_HEADS, XL_SEQ, XL_SEQ, device=dev))
+
+    table = BiasTable()
+    bqkv = [torch.randn(MEGATRON_BATCH, XL_HEADS, XL_SEQ, 64, device=dev,
+                        generator=gen) for _ in range(4)]
+
+    def bias_loss(model, q, k, v, target):
+        o = flash_attention(q, k, v, True, bias=model.bias,
+                            bias_requires_grad=True)
+        return ((o.float() - target) ** 2).mean()
+
+    _, _, bstep = scaled_trainer(
+        table, lambda named: FusedAdam(named, lr=BIAS_LR, use_flat=True),
+        dev, bias_loss)
+    bf_qkv = [t.to(torch.bfloat16) for t in bqkv[:3]]
+    blosses = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for _ in range(MEGATRON_STEPS):
+        blosses.append(float(bstep(*bf_qkv, bqkv[3])))
+    torch.cuda.synchronize()
+    bias_parts = (dict(_build.launches), dict(_build.route_launches),
+                  dict(_build.form_launches))
+    require(bias_parts == (
+        per5, {f"{k}:wgmma": MEGATRON_STEPS for k in flash3},
+        {"fa_bwd_dq:wgmma:dbias": MEGATRON_STEPS}),
+        f"megatron (f) launches, routes, forms {bias_parts}, expected "
+        f"{per5} on the tensor-core route, the dq kernel's dlogits form")
+    require(all(math.isfinite(x) for x in blosses)
+            and blosses[-1] < blosses[0], f"megatron (f) losses {blosses}")
+    bias32 = table.bias.detach().clone().requires_grad_(True)
+    fa_in = [t.clone().requires_grad_(True) for t in bqkv[:3]]
+    ref_in = [t.clone().requires_grad_(True) for t in bqkv[:3]]
+    _build.reset_launches()
+    o_fa = flash_attention(*fa_in, True, bias=bias32)
+    o_fa.backward(bqkv[3])
+    torch.cuda.synchronize()
+    bias32_parts = (dict(_build.launches), dict(_build.route_launches),
+                    dict(_build.form_launches))
+    fa_dbias = bias32.grad.clone()
+    bias32.grad = None
+    scores = torch.matmul(ref_in[0], ref_in[1].transpose(-1, -2)) * 0.125 \
+        + bias32
+    scores = scores.masked_fill(torch.ones(XL_SEQ, XL_SEQ, dtype=torch.bool,
+                                           device=dev).triu(1), NEG_INF)
+    o_ref = torch.matmul(torch.softmax(scores, dim=-1), ref_in[2])
+    o_ref.backward(bqkv[3])
+    del scores
+    torch.cuda.synchronize()
+    ok_bo, err_bo = close(o_fa.detach(), o_ref.detach(), *FA_TOL["fp32"])
+    bias_errs = [close(a.grad, b.grad, *FA_BWD_TOL["fp32"])
+                 for a, b in zip(fa_in, ref_in)]
+    bias_errs.append(close(fa_dbias, bias32.grad, *FA_BWD_TOL["fp32"]))
+    require(ok_bo and all(ok for ok, _ in bias_errs)
+            and bias32_parts[2] == {"fa_bwd_dq:fma:dbias": 1},
+            f"learned bias (fp32) vs autograd: o err {err_bo}, dq / dk / "
+            f"dv / dbias errs {[e for _, e in bias_errs]}; forms "
+            f"{bias32_parts[2]}")
+    del bstep, table, bqkv, bf_qkv, bias32, fa_in, ref_in, o_fa, o_ref
+    del fa_dbias
+    torch.cuda.empty_cache()
+
+    # (g) fp32 EncdecMultiheadAttn(dropout_p=FA_DROP_RATE) with (c)'s
+    # key-padding mask and a seed: forward and backward on the FMA-pipe
+    # kernels' dropout forms against the same module on the CPU (the
+    # plain versions, the same keep mask), output and every parameter's
+    # gradient
+    torch.manual_seed(5)
+    gmod = EncdecMultiheadAttn(XL_EMBED, XL_HEADS, dropout_p=FA_DROP_RATE,
+                               device=dev)
+    gcpu = EncdecMultiheadAttn(XL_EMBED, XL_HEADS, dropout_p=FA_DROP_RATE,
+                               device="cpu")
+    gcpu.load_state_dict({k: v.cpu() for k, v in gmod.state_dict().items()})
+    gq = torch.randn(MEGATRON_BATCH, XL_SEQ, XL_EMBED, generator=mgen)
+    gkv = torch.randn(MEGATRON_BATCH, 512, XL_EMBED, generator=mgen)
+    gr = torch.randn(MEGATRON_BATCH, XL_SEQ, XL_EMBED, generator=mgen)
+    _build.reset_launches()
+    yg_card, gg_card = out_and_grads(
+        lambda *a: gmod(*a, dropout_seed=torch.tensor(
+            31, dtype=torch.int32, device=dev)), gmod, gr.to(dev),
+        gq.to(dev), gkv.to(dev), emask)
+    torch.cuda.synchronize()
+    encdrop_parts = (dict(_build.launches), dict(_build.route_launches),
+                     dict(_build.form_launches))
+    yg_cpu, gg_cpu = out_and_grads(
+        lambda *a: gcpu(*a, dropout_seed=31), gcpu, gr, gq, gkv,
+        emask.cpu())
+    encdrop_out = rel(yg_card.cpu(), yg_cpu)
+    encdrop_grad, encdrop_grad_name = worst_rel(
+        {n: g.cpu() for n, g in gg_card.items()}, gg_cpu)
+    require(encdrop_parts == (
+        {k: 1 for k in flash3}, {f"{k}:fma": 1 for k in flash3},
+        {f"{k}:fma:dropout": 1 for k in flash3}),
+        f"megatron (g) launches, routes, forms {encdrop_parts}")
+    require(encdrop_out <= MEGATRON_REL_L2
+            and encdrop_grad <= MEGATRON_REL_L2,
+            f"EncdecMultiheadAttn with dropout, card vs CPU (fp32): output "
+            f"rel L2 {encdrop_out}, {encdrop_grad_name} gradient "
+            f"{encdrop_grad}")
+    del gmod, gcpu, yg_card, gg_card, yg_cpu, gg_cpu
+    torch.cuda.empty_cache()
+    for part in (drop_parts, bias_parts, bias32_parts, encdrop_parts):
+        megatron_routes.update(part[1])
+        main_forms.update(part[2])
+    path_routes["megatron"] = dict(megatron_routes)
+
     megatron_launches = dict(loop_launches)
-    for part in (enc_mod_launches, enc_twin_launches):
+    for part in (enc_mod_launches, enc_twin_launches, drop_parts[0],
+                 bias_parts[0], bias32_parts[0], encdrop_parts[0]):
         for name, n in part.items():
             megatron_launches[name] = megatron_launches.get(name, 0) + n
     for name, n in megatron_launches.items():
@@ -4189,6 +4589,23 @@ def main() -> int:
          encdec_grad_worst_param=enc_grad_name,
          encdec_launches={"module": enc_mod_launches,
                           "twin": enc_twin_launches},
+         dropout_train={"dropout_p": FA_DROP_RATE, "losses": dlosses,
+                        "step_ms": [x * 1e3 for x in dstep_s],
+                        "steady_step_ms": dsteady,
+                        "tokens_per_s": MEGATRON_BATCH * XL_SEQ / dsteady
+                        * 1e3, "step_device_busy_ms": dbusy,
+                        "idle_share": 1 - dbusy["total"] / dsteady,
+                        "launches": drop_parts[0], "forms": drop_parts[2]},
+         learned_bias={"shape": [1, XL_HEADS, XL_SEQ, XL_SEQ],
+                       "lr": BIAS_LR, "losses": blosses,
+                       "launches": bias_parts[0], "forms": bias_parts[2],
+                       "fp32_vs_autograd": {
+                           "o": err_bo, "dq_dk_dv_dbias": [
+                               e for _, e in bias_errs]}},
+         encdec_dropout={"card_vs_cpu_rel_l2": encdrop_out,
+                         "grad_worst_rel_l2": encdrop_grad,
+                         "grad_worst_param": encdrop_grad_name,
+                         "forms": encdrop_parts[2]},
          rel_l2_tol=MEGATRON_REL_L2,
          dense_card_vs_cpu_rel_l2={"FusedDenseGeluDense": dgd_err,
                                    "MLP": mlp_err},
@@ -4517,6 +4934,30 @@ def main() -> int:
             "bert": {k: bert[k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "library_ms",
                                           "bound_share")},
+            "shape": {k: rec[k] for k in ("b", "h", "sq", "sk", "causal",
+                                          "dtype", "bytes")}})
+    # the flash kernels' dropout and dlogits forms at GPT-2 XL's causal
+    # shape, launched by megatron (e)-(g)
+    for name, (src, twin, route, form) in FORM_KERNELS.items():
+        rec = summary[name]
+        launches = main_forms.get(f"{twin}:{route}:{form}", 0)
+        require(launches > 0, f"{name} was not launched on the main path")
+        tpu, calls = KERNELS[twin][1:]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "pallas_call": [f"{tpu.split(':')[0]}:{c}" for c in calls],
+            "form": form, "form_lines": FORM_TPU[form],
+            "launches": launches, "launches_megatron": launches,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "call_ms": rec["call_ms"], "tflops": rec["tflops"],
+            "bound_share": rec["bound_share"],
+            **({"library_fwd_bwd_ms": rec["library_fwd_bwd_ms"],
+                "fwd_bwd_ms": rec["fwd_bwd_ms"]}
+               if "fwd_bwd_ms" in rec else {}),
+            **{k: rec[k] for k in ("dbias_err", "dbias_tol", "dl_typical",
+                                   "dl_max") if k in rec},
             "shape": {k: rec[k] for k in ("b", "h", "sq", "sk", "causal",
                                           "dtype", "bytes")}})
     emit("profiler", **PROFILE_PASSES)

@@ -36,7 +36,12 @@ ran: bf16 the tensor-core forward, dq and dk / dv kernels
 ``fa_bwd_dkv_kernel_wgmma``), fp32 the FMA-pipe ones (the backward
 pair ``fa_bwd_dq_kernel_fma`` / ``fa_bwd_dkv_kernel_fma``, also held at
 sq / sk one below, at and one above its 64- and 128-row tiles and over
-the 16 broadcast forms of the bias, two runs identical). The public
+the 16 broadcast forms of the bias, two runs identical). The dropout and
+dlogits forms take the flash tolerances (the same keep mask on both
+sides), the keep pattern exact, the dlogits the backward's tolerance;
+the public op's bias gradient through a mask and dropout against the
+same call on the CPU (its sum over the batch and queries 10 times the
+backward's absolute tolerance). The public
 ``flash_attention`` takes transposed and misaligned views, and gives the
 bits of the same call on contiguous copies. Run the flash tests with
 ``python -m pytest tests/test_torch_cuda.py -q -k flash``.
@@ -49,8 +54,9 @@ import torch
 
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_fwd, flash_attention_fwd_plain)
+    dropout_keep, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain)
 from apex_tpu_torch.ops.fused_adam_kernel import (
     ADAM_MODE_ADAMW, ADAM_MODE_L2, fused_adam_flat, fused_adam_flat_master,
     fused_adam_flat_master_plain, fused_adam_flat_plain)
@@ -478,6 +484,153 @@ def test_fp32_flash_fwd_misaligned_view_gives_the_aligned_bits(dev):
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert torch.equal(public, want[0])
+
+
+# the dropout and dlogits forms: the fp32 tile edges and the tensor-core
+# kernels' 64 / 128-row tiles, ragged, causal with keys past the last
+# query, GPT-2's shape
+_FORM_SHAPES = [(64, 64), (65, 129), (128, 128), (129, 63), (200, 333),
+                (1, 300), (1024, 1024)]
+
+
+def _form_tols(dtype):
+    return ((2e-5, 0, 1e-4, 0) if dtype == torch.float32
+            else (2e-3, 2 ** -7, 1e-2, 2 ** -6))
+
+
+# the dq kernels' fp32 dlogits against the plain version's on the same
+# inputs, in either dtype: they differ only in the order of the fp32 sums
+# of the score and of dP (chip_smoke.py's DLOGITS_TOL)
+_DLOGITS_TOL = (2e-5, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", _FORM_SHAPES)
+def test_flash_dropout_kernels_match_plain(dev, sq, sk, causal, dtype):
+    """The forward, dq and dk / dv kernels' dropout form (rate 0.1, the
+    seed a device tensor) against the plain versions on the same inputs
+    and the same keep mask (the flash tolerances), with a (b, 1, 1, sk)
+    padding mask on the non-causal cases; each launch counted in its
+    form; two runs the same bits."""
+    b, h = _flash_heads(sq)
+    q, k, v, _, _, do = _flash_bwd_inputs(dev, b, h, sq, sk, causal, dtype,
+                                          sq + 3 * sk)
+    bias = None
+    if not causal:
+        lens = torch.arange(b, device=dev) * 7 % sk + 1
+        bias = torch.zeros(b, 1, 1, sk, device=dev).masked_fill_(
+            torch.arange(sk, device=dev) >= lens[:, None, None, None],
+            -1e30)
+    seed = torch.tensor([sq - sk], dtype=torch.int32, device=dev)
+    kw = dict(scale=0.125, causal=causal, bias=bias, dropout_p=0.1,
+              dropout_seed=seed)
+    fa, fr, ba, br = _form_tols(dtype)
+    _build.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert dict(_build.form_launches) == {
+        f"fa_fwd:{route}:dropout": 1, f"fa_bwd_dq:{route}:dropout": 2,
+        f"fa_bwd_dkv:{route}:dropout": 2}
+    torch.testing.assert_close(o.float(), op.float(), atol=fa, rtol=fr)
+    torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
+    for name, a, w, a2 in zip(("dq", "dk", "dv"), got, want, again):
+        torch.testing.assert_close(a.float(), w.float(), atol=ba, rtol=br,
+                                   msg=name)
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dropout_keep_pattern_is_the_plain_mask(dev, dtype):
+    """A one-hot v (64 keys, v[j] = e_j): the forward kernel's o is 0
+    exactly where ``dropout_keep`` drops, for b * h past one grid slice
+    and a negative seed."""
+    b, h, sq, sk = 3, 7, 200, 64
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k = ((torch.randn(b, h, n, 64, device=dev, generator=g) * 0.3)
+            .to(dtype) for n in (sq, sk))
+    v = torch.eye(sk, 64, device=dev).expand(b, h, sk, 64).contiguous() \
+        .to(dtype)
+    o, _ = flash_attention_fwd(q, k, v, scale=0.125, causal=False,
+                               dropout_p=0.3, dropout_seed=-123456)
+    keep = dropout_keep(-123456, torch.arange(b * h, device=dev), 0, 0, sq,
+                        sk, 0.3, device=dev).view(b, h, sq, sk)
+    assert torch.equal(o == 0, keep == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", _FORM_SHAPES)
+def test_flash_dbias_kernels_match_plain(dev, sq, sk, causal, dtype):
+    """The dq kernels' dlogits form with a (1, h, sq, sk) bias (and
+    dropout on the causal cases): dq, dk, dv (the flash backward
+    tolerances) and the fp32 dlogits (``_DLOGITS_TOL``) against the plain
+    version, zero above the diagonal when causal, two runs the same
+    bits."""
+    b, h = _flash_heads(sq)
+    q, k, v, _, _, do = _flash_bwd_inputs(dev, b, h, sq, sk, causal, dtype,
+                                          7 * sq + sk)
+    g = torch.Generator(device=dev).manual_seed(sk)
+    bias = torch.randn(1, h, sq, sk, device=dev, generator=g)
+    kw = dict(scale=0.125, causal=causal, bias=bias, want_dbias=True)
+    if causal:
+        kw.update(dropout_p=0.2, dropout_seed=5)
+    o, lse = flash_attention_fwd_plain(q, k, v, scale=0.125, causal=causal,
+                                       bias=bias)
+    _build.reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert _build.form_launches[f"fa_bwd_dq:{route}:dbias"] == 2
+    _, _, ba, br = _form_tols(dtype)
+    assert got[3].shape == (b, h, sq, sk) and got[3].dtype == torch.float32
+    for name, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want,
+                              again):
+        at, rt = _DLOGITS_TOL if name == "dbias" else (ba, br)
+        torch.testing.assert_close(a.float(), w.float(), atol=at, rtol=rt,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+        assert torch.equal(a, a2), name
+    if causal:
+        above = torch.ones(sq, sk, dtype=torch.bool, device=dev).triu(1)
+        assert bool((got[3][..., above] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_public_flash_trains_a_bias_with_dropout(dev, dtype):
+    """The public op with a differentiated (1, h, 1, sk) bias, a (b, 1,
+    1, sk) mask and dropout: every gradient against the same call on the
+    CPU (the plain versions; fp32 1e-4, bf16 the flash backward's
+    tolerance, ten times its atol for the bias's), the bias's reduced over
+    the broadcast dimensions."""
+    b, h, sq, sk = 2, 3, 130, 70
+    g = torch.Generator().manual_seed(3)
+    q, k, v, w = (torch.randn(b, h, n, 64, generator=g)
+                  for n in (sq, sk, sk, sq))
+    bias = torch.randn(1, h, 1, sk, generator=g)
+    mask = torch.arange(sk) >= torch.tensor([sk, 41])[:, None, None, None]
+    out = {}
+    for where in ("cuda", "cpu"):
+        ts = [t.to(where, dtype).requires_grad_() for t in (q, k, v)]
+        tb = bias.to(where).requires_grad_()
+        o = flash_attention(*ts, bias=tb, mask=mask.to(where),
+                            dropout_p=0.1, dropout_seed=77)
+        (o.float() * w.to(where)).sum().backward()
+        out[where] = [t.grad.float().cpu() for t in (*ts, tb)]
+    _, _, ba, br = _form_tols(dtype)
+    for name, a, c in zip(("dq", "dk", "dv", "dbias"), out["cuda"],
+                          out["cpu"]):
+        # a bf16 bias gradient sums dlogits from o and lse that the card's
+        # forward and the CPU's round to bf16 apart
+        wide = name == "dbias" and dtype == torch.bfloat16
+        torch.testing.assert_close(a, c, atol=ba * (1 + 9 * wide), rtol=br,
+                                   msg=lambda m, name=name: f"{name}: {m}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

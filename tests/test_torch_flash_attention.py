@@ -108,20 +108,6 @@ def test_public_flash_attention_matches_jax(causal):
                                rtol=0)
 
 
-@pytest.mark.parametrize("kw", [
-    {"bias": torch.zeros(1, 1, 8, 8)},
-    {"mask": torch.zeros(1, 1, 8, 8, dtype=torch.bool), "dropout_p": 0.1,
-     "dropout_seed": 1},
-    {"dropout_p": 0.1, "dropout_seed": 1},
-])
-def test_operands_not_ported_raise(kw):
-    """A differentiated bias (dbias, the default bias_requires_grad=True)
-    and dropout, with or without a mask, are still to be ported."""
-    q = torch.zeros(1, 1, 8, D)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, True, **kw)
-
-
 def _bwd_inputs(b, h, sq, sk, causal, dtype, seed):
     """q, k, v, do in ``dtype`` and the JAX forward's o / lse from them."""
     q, k, v = _qkv(b, h, sq, sk, seed=seed)

@@ -8,7 +8,8 @@ apex_tpu.transformer.mha).
   ``EncdecMultiheadAttn`` against the flax modules with the flax
   parameters converted (``mha_params_from_jax``): the output and every
   parameter's gradient of ``sum(out * r)``, fp32, relative L2 <= 1e-5.
-- The converters' round trip; dropout and head_dim refusals.
+- The converters' round trip; training with dropout against eval and the
+  flax module; head_dim refusals.
 - The module against its unfused twin (``linear_bias`` -> RoPE ->
   ``mha_reference`` -> ``linear_bias`` with the module's parameters) on
   the CPU, relative L2 <= 1e-5: the identity ``chip_smoke.py`` holds at
@@ -165,21 +166,29 @@ def test_converters_round_trip():
 
 
 def test_dropout_and_head_dim_refusals():
-    """A seed with dropout_p > 0 raises through the flash wrapper; without
-    a seed dropout is off (eval), the same output as dropout_p 0; head_dim
-    48 raises; neither drops to rate 0 or to ``mha_reference``."""
-    torch.manual_seed(0)
+    """A seed with dropout_p > 0 trains with dropout: the output differs
+    from eval mode and matches the flax module's with the same seed
+    (relative L2 1e-5); without a seed dropout is off (eval), the same
+    output as dropout_p 0; head_dim 48 raises; neither drops to rate 0 or
+    to ``mha_reference``."""
+    x = _np((1, 8, E), 10)
+    model = jmha.SelfMultiheadAttn(E, H, causal=True, dropout_p=0.1)
+    params = jax.jit(model.init)(jax.random.PRNGKey(5), jnp.asarray(x))
     mod = SelfMultiheadAttn(E, H, causal=True, dropout_p=0.1, device="cpu")
-    x = torch.from_numpy(_np((1, 8, E), 10))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        mod(x, dropout_seed=3)
+    mod.load_state_dict(mha_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    xt = torch.from_numpy(x)
+    train = mod(xt, dropout_seed=3)
+    want = model.apply(params, jnp.asarray(x), None,
+                       jnp.asarray(3, jnp.int32))
+    assert _rel_l2(train.detach().numpy(), want) <= REL_L2
+    assert _rel_l2(train.detach().numpy(), mod(xt).detach().numpy()) > 1e-2
     ref = SelfMultiheadAttn(E, H, causal=True, device="cpu")
     ref.load_state_dict(mod.state_dict())
-    torch.testing.assert_close(mod(x), ref(x), atol=0, rtol=0)
-    ref(x, dropout_seed=3)   # rate 0 with a seed runs, as in JAX
+    torch.testing.assert_close(mod(xt), ref(xt), atol=0, rtol=0)
+    ref(xt, dropout_seed=3)   # rate 0 with a seed runs, as in JAX
     enc = EncdecMultiheadAttn(E, H, dropout_p=0.2, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        enc(x, x, dropout_seed=1)
+    assert not torch.equal(enc(xt, xt, dropout_seed=1), enc(xt, xt))
     for cls in (SelfMultiheadAttn, EncdecMultiheadAttn):
         with pytest.raises(NotImplementedError, match="head_dim 48"):
             cls(96, 2, device="cpu")
