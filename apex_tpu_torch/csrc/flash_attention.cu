@@ -9,7 +9,9 @@
 // additive fp32 score bias, with or without attention dropout (the keep
 // factor of `Dropout`, common.cuh, times p before the p.v product; l and
 // lse from the undropped p, as `_fa_fwd_kernel` sums them), JAX layout q
-// (b, h, sq, d), k / v (b, h, sk, d). The bias (a boolean mask arrives as
+// (b, h, sq, d), k / v (b, h, sk, d), d a compiled head width (64 or 128:
+// the template parameter kD; the wrapper pads any other d up to 128 with
+// zero columns). The bias (a boolean mask arrives as
 // -1e30 where masked, `flash_attention`'s rule) is broadcastable to
 // (b, h, sq, sk) and read through per-dimension strides, 0 on a broadcast
 // dimension, so a (b, 1, 1, sk) padding mask is never expanded (the TPU's
@@ -77,7 +79,12 @@
 // - Exactness. The score is __fmul_rn / __fadd_rn (no FMA contraction);
 //   each block owns its output rows, with no atomics: two runs give the
 //   same bits.
-// The geometry is mirrored by fa_fma_fwd_geometry() in ops/tiling.py.
+// - Head dim 128. The same block and lanes; a lane's o is two 8 x 4
+//   blocks, d columns 4 lx .. + 3 and 64 + 4 lx .. + 3 (two products of p
+//   v per tile, each over one 64-column half of V), and rows are 132
+//   floats. Q, the p strip (rows of the tile's 64 keys, 68 floats) and two
+//   stages of K / V take 186 KB: one block an SM.
+// The geometry is mirrored by fa_fma_fwd_geometry(d) in ops/tiling.py.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -88,36 +95,58 @@ namespace {
 
 using namespace apex_port;
 
-constexpr int kD = 64;          // head dim this kernel is written for
 constexpr int kBM = 64;         // query rows a block owns
 constexpr int kBN = 64;         // key rows of a streamed tile
 constexpr int kMI = 8;          // rows of a lane's micro-tiles
 constexpr int kWarpRows = 16;   // rows of a warp: all of a tile's keys
 constexpr int kThreads = 32 * kBM / kWarpRows;  // 4 warps
-constexpr int kBlocksPerSM = 2;
 constexpr int kStages = 2;      // shared-memory stages of K / V tiles
 static_assert(kStages == 2, "the pipeline below prefetches one tile");
 constexpr int kUnroll = 4;      // float4 steps of a product loop unrolled
-constexpr int kStride = kD + 4; // padded row stride of every tile (floats)
 constexpr int kRowStep = kWarpRows / kMI;  // a lane's rows: ly + 2 i
 constexpr int kColStep = 16;    // a lane's keys: lx + 16 j
+constexpr int kSStride = kBN + 4;  // padded row stride of the p strip
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-constexpr int kBlockTile = kBM * kStride;  // floats of the block's rows
-constexpr int kTile = kBN * kStride;       // floats of a streamed tile
-// Q, the p strip (block rows), then K / V per stage
-constexpr int kSmemFloats = 2 * kBlockTile + kStages * 2 * kTile;
+// What depends on the head dim kD (64 or 128): the padded row stride of Q,
+// K and V (floats) and the blocks an SM that their shared memory allows.
+template <int kD>
+struct FwdGeometry;
+template <>
+struct FwdGeometry<64> {
+  static constexpr int kStride = 68;
+  static constexpr int kBlocksPerSM = 2;
+};
+template <>
+struct FwdGeometry<128> {
+  static constexpr int kStride = 132;
+  static constexpr int kBlocksPerSM = 1;
+};
+
+template <int kD>
+struct Fwd : FwdGeometry<kD> {
+  using FwdGeometry<kD>::kStride;
+  using FwdGeometry<kD>::kBlocksPerSM;
+  static constexpr int kGroups = kD / 64;  // 64-column groups of o
+  static constexpr int kTile = kBN * kStride;  // floats of a streamed tile
+  // Q, the p strip (block rows), then K / V per stage
+  static constexpr int kSmemFloats =
+      kBM * kStride + kBM * kSStride + kStages * 2 * kTile;
+  static_assert(kStride == kD + 4, "the head dim padded by one chunk");
+  static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1,
+                "16-byte rows whose chunks fall in distinct banks");
+  // kBlocksPerSM blocks, each with the 1 KB the hardware reserves, in
+  // the SM's 228 KB of shared memory
+  static_assert(kBlocksPerSM * (kSmemFloats * 4 + 1024) <= 233472,
+                "kBlocksPerSM blocks an SM");
+};
 
 static_assert(kRowStep == 32 / kColStep && kBN == 4 * kColStep &&
-                  kD == 4 * kColStep,
-              "16 lanes cover a row's 64 keys and its 64 d columns");
-static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1,
-              "16-byte rows whose chunks fall in distinct banks");
-// kBlocksPerSM blocks, each with the 1 KB the hardware reserves, in the
-// SM's 228 KB of shared memory
-static_assert(kBlocksPerSM * (kSmemFloats * 4 + 1024) <= 233472,
-              "two blocks an SM");
+                  64 == 4 * kColStep,
+              "16 lanes cover a row's 64 keys and each 64 d columns");
+static_assert(kSStride % 4 == 0 && (kSStride / 4) % 2 == 1,
+              "16-byte strip rows whose chunks fall in distinct banks");
 
 // max over the 16 lanes of a row (lanes lx = 0..15 of one ly)
 __device__ __forceinline__ float row_max16(float v) {
@@ -141,16 +170,18 @@ __device__ __forceinline__ long long block_head() {
   return (long long)blockIdx.z * gridDim.x + blockIdx.x;
 }
 
-template <bool kBias, bool kDropout>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+template <int kD, bool kBias, bool kDropout>
+__global__ void __launch_bounds__(kThreads, Fwd<kD>::kBlocksPerSM)
 fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, int nbh, int sq, int sk, float scale,
               int causal, int vec, ScoreBias bias, Dropout drop) {
+  using G = Fwd<kD>;
+  constexpr int kStride = G::kStride, kTile = G::kTile;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                   // [kBM][kStride]
-  float* strip = qs + kBlockTile;     // [kBM][kStride]: p
-  float* stage = strip + kBlockTile;  // [kStages][K, V][kBN][kStride]
+  float* qs = smem;                     // [kBM][kStride]
+  float* strip = qs + kBM * kStride;    // [kBM][kSStride]: p
+  float* stage = strip + kBM * kSStride;  // [kStages][K, V][kBN][kStride]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ly = lane >> 4, lx = lane & 15;
@@ -179,13 +210,14 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int r0 = warp * kWarpRows + ly;  // the lane's first row in the block
   const int warp_row0 = q0 + warp * kWarpRows;
-  float m[kMI], l[kMI], acc[kMI][4];
+  float m[kMI], l[kMI], acc[G::kGroups][kMI][4];
 #pragma unroll
   for (int i = 0; i < kMI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
   }
-  zero(acc);
+#pragma unroll
+  for (int g = 0; g < G::kGroups; ++g) zero(acc[g]);
 
   for (int kt = 0; kt < nk; ++kt) {
     // tile kt has landed (of tile 0 the first group) for every thread,
@@ -212,7 +244,7 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       zero(s);
       score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
           s, qs + r0 * kStride, ks + lx * kStride);
-      float* prow = strip + r0 * kStride + lx;  // the lane's strip entries
+      float* prow = strip + r0 * kSStride + lx;  // the lane's strip entries
 #pragma unroll
       for (int i = 0; i < kMI; ++i) {
         const int row = q0 + r0 + kRowStep * i;
@@ -240,13 +272,15 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float p = expf(s[i][j] - m_safe);
           ps += p;
           // dropout: p times its keep factor into the p.v product only
-          prow[kRowStep * i * kStride + kColStep * j] =
+          prow[kRowStep * i * kSStride + kColStep * j] =
               kDropout ? p * drop.keep(dhead, row, k0 + lx + kColStep * j)
                        : p;
         }
         l[i] = l[i] * alpha + ps;
 #pragma unroll
-        for (int u = 0; u < 4; ++u) acc[i][u] *= alpha;
+        for (int g = 0; g < G::kGroups; ++g)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[g][i][u] *= alpha;
         m[i] = m_new;
       }
     }
@@ -256,8 +290,11 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     if (!idle) {
       __syncwarp();  // the warp's strip rows are whole
-      out_product<kMI, kRowStep, kBN, kStride, kUnroll>(
-          acc, strip + r0 * kStride, vs + lx * 4);
+      // o's 64-column groups, one product over V's columns each
+#pragma unroll
+      for (int g = 0; g < G::kGroups; ++g)
+        out_product<kMI, kRowStep, kBN, kStride, kUnroll, kSStride>(
+            acc[g], strip + r0 * kSStride, vs + 64 * g + lx * 4);
     }
   }
   cp_async_wait<0>();
@@ -267,30 +304,35 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float sum = row_sum16(l[i]);
     const float safe_l = sum > 0.f ? sum : 1.f;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) acc[i][u] = acc[i][u] / safe_l;
+    for (int g = 0; g < G::kGroups; ++g)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[g][i][u] = acc[g][i][u] / safe_l;
     const int row = q0 + r0 + kRowStep * i;
     if (lx == 0 && row < sq)
       lse[bh * sq + row] = m[i] <= kMaskEdge ? kNegInf : m[i] + logf(safe_l);
   }
-  store_rows<kMI, kRowStep, kD>(o + bh * sq * kD, acc, q0 + r0, lx * 4, sq,
-                                vec);
+#pragma unroll
+  for (int g = 0; g < G::kGroups; ++g)
+    store_rows<kMI, kRowStep, kD>(o + bh * sq * kD, acc[g], q0 + r0,
+                                  64 * g + lx * 4, sq, vec);
 }
 
+template <int kD>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int bh, int grid_y, int grid_z, int sq, int sk, float scale,
            int causal, const ScoreBias& bias, const Dropout& drop,
            cudaStream_t stream) {
-  const int smem = (int)(kSmemFloats * sizeof(float));
+  const int smem = (int)(Fwd<kD>::kSmemFloats * sizeof(float));
   // a separate instantiation for each form, so the kernel without a bias
   // or dropout keeps no registers or branches of theirs
   const bool b = bias.p != nullptr, d = drop.seed != nullptr;
-  const auto kernel = b ? (d ? fa_fwd_kernel<true, true>
-                             : fa_fwd_kernel<true, false>)
-                        : (d ? fa_fwd_kernel<false, true>
-                             : fa_fwd_kernel<false, false>);
+  const auto kernel = b ? (d ? fa_fwd_kernel<kD, true, true>
+                             : fa_fwd_kernel<kD, true, false>)
+                        : (d ? fa_fwd_kernel<kD, false, true>
+                             : fa_fwd_kernel<kD, false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  // all of the SM's unified memory as shared memory: two blocks fit
+  // all of the SM's unified memory as shared memory: kBlocksPerSM fit
   cudaFuncSetAttribute(kernel,
                        cudaFuncAttributePreferredSharedMemoryCarveout,
                        cudaSharedmemCarveoutMaxShared);
@@ -308,7 +350,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // dtype: 0 = float32 (q, k, v and o; bfloat16 is apex_fa_fwd_wgmma's);
-// lse is float32 [bh, sq]. Only head_dim 64 is compiled. grid_y x grid_z
+// lse is float32 [bh, sq]. d: 64 or 128 (the compiled widths; the wrapper
+// pads any other d). grid_y x grid_z
 // carry the bh = b * h slices (fa_batch_heads_grid in ops/tiling.py) on
 // grid.x and grid.z; grid.y runs over the query blocks. bias: float32 or
 // null; heads = h of bh = b * h; bsb, bsh, bsq, bsk its strides in
@@ -322,7 +365,7 @@ extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
                            long long bsh, long long bsq, long long bsk,
                            const void* seed, unsigned threshold, float keep,
                            int dtype, void* stream) {
-  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+  if ((d != 64 && d != 128) || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   if ((sq + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
@@ -332,7 +375,9 @@ extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
   const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
                               keep};
   if (dtype == 0)
-    return launch(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale, causal,
-                  sb, dr, s);
+    return d == 64 ? launch<64>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk,
+                                scale, causal, sb, dr, s)
+                   : launch<128>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk,
+                                 scale, causal, sb, dr, s);
   return (int)cudaErrorInvalidValue;
 }

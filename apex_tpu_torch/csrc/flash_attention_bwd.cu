@@ -82,7 +82,16 @@
 //   p exp(s - lse) with exact zeros where masked; each block owns its
 //   output rows, with no atomics: two runs give the same bits, and each
 //   sum runs in the plain version's order.
-// The geometry is mirrored by fa_fma_bwd_geometry() in ops/tiling.py.
+// - Head dim 128 (the template parameter kD; the wrapper pads any other d
+//   up to 128 with zero columns). 128-row blocks of 132-float rows would
+//   not fit a block's shared memory (dq 338 KB, dK·dV 407 KB), so a block
+//   owns kBM = 64 rows (two warp pairs, 128 threads) and streams kBN =
+//   32-row tiles: a lane's micro-tile is 8 x 2 of S or dP, and its share
+//   of each output two 8 x 4 blocks (d columns 4 lx .. + 3 of each 32-
+//   column group of its warp's 64), one gradient product per group. The
+//   p / ds strips hold the tile's 32 columns (36-float rows). dq takes 144
+//   KB, dK·dV 154 KB: one block an SM.
+// The geometry is mirrored by fa_fma_bwd_geometry(d) in ops/tiling.py.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; each function returns cudaGetLastError() after its launch.
@@ -93,35 +102,65 @@ namespace {
 
 using namespace apex_port;
 
-constexpr int kD = 64;          // head dim these kernels are written for
-constexpr int kBM = 128;        // rows a block owns
-constexpr int kBN = 64;         // rows of a streamed tile
 constexpr int kMI = 8;          // rows of a lane's micro-tiles
 constexpr int kPairRows = 4 * kMI;  // rows of a warp pair
-constexpr int kThreads = 64 * kBM / kPairRows;  // 8 warps: 4 pairs x 2
 constexpr int kStages = 2;      // shared-memory stages of streamed tiles
 static_assert(kStages == 2, "the pipeline below prefetches one tile");
 constexpr int kUnroll = 4;      // float4 steps of a product loop unrolled
-constexpr int kStride = kD + 4; // padded row stride of every tile (floats)
 constexpr int kRowStep = 4;     // a lane's rows: ly + kRowStep * i
 constexpr int kColStep = 8;     // a lane's streamed rows: lx + kColStep * j
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-constexpr int kBlockTile = kBM * kStride;  // floats of the block's rows
-constexpr int kTile = kBN * kStride;       // floats of a streamed tile
-// dq: Q, dO, the ds strip, then K / V per stage
-constexpr int kDqSmemFloats = 3 * kBlockTile + kStages * 2 * kTile;
-// dK·dV: K, V, the p and ds strips, Q / dO per stage, lse / D per stage
-constexpr int kDkvSmemFloats =
-    4 * kBlockTile + kStages * 2 * kTile + kStages * 2 * kBN;
+// What depends on the head dim kD (64 or 128): the rows a block owns
+// (kBM), the rows of a streamed tile (kBN) and the padded row stride of
+// Q, K, V and dO (floats), within a block's shared memory.
+template <int kD>
+struct BwdGeometry;
+template <>
+struct BwdGeometry<64> {
+  static constexpr int kBM = 128;
+  static constexpr int kBN = 64;
+  static constexpr int kStride = 68;
+};
+template <>
+struct BwdGeometry<128> {
+  static constexpr int kBM = 64;
+  static constexpr int kBN = 32;
+  static constexpr int kStride = 132;
+};
 
-static_assert(kBN == 2 * kColStep * 4 && kD == 2 * 8 * 4,
-              "a warp half covers 32 streamed rows and 32 d columns");
-static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1,
-              "16-byte rows whose chunks fall in distinct banks");
-static_assert(kDkvSmemFloats * 4 <= 232448 && kDqSmemFloats * 4 <= 232448,
-              "a block's shared memory");
+template <int kD>
+struct Bwd : BwdGeometry<kD> {
+  using BwdGeometry<kD>::kBM;
+  using BwdGeometry<kD>::kBN;
+  using BwdGeometry<kD>::kStride;
+  // warp pairs of kPairRows rows, two warps each
+  static constexpr int kThreads = 64 * kBM / kPairRows;
+  // a lane's streamed rows lx + kColStep * j, j < kNJ, in its warp's half
+  static constexpr int kNJ = kBN / (2 * kColStep);
+  // 32-column groups of d in a warp's half of an output
+  static constexpr int kGroups = kD / 64;
+  static constexpr int kSStride = kBN + 4;  // padded row stride of a strip
+  static constexpr int kBlockTile = kBM * kStride;  // the block's rows
+  static constexpr int kTile = kBN * kStride;       // a streamed tile
+  // dq: Q, dO, the ds strip, then K / V per stage
+  static constexpr int kDqSmemFloats =
+      2 * kBlockTile + kBM * kSStride + kStages * 2 * kTile;
+  // dK·dV: K, V, the p and ds strips, Q / dO per stage, lse / D per stage
+  static constexpr int kDkvSmemFloats = 2 * kBlockTile + 2 * kBM * kSStride
+                                        + kStages * 2 * kTile
+                                        + kStages * 2 * kBN;
+  static_assert(kStride == kD + 4, "the head dim padded by one chunk");
+  static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1 &&
+                    kSStride % 4 == 0 && (kSStride / 4) % 2 == 1,
+                "16-byte rows whose chunks fall in distinct banks");
+  static_assert(kNJ * 2 * kColStep == kBN && kGroups * 64 == kD,
+                "a warp half covers kBN / 2 streamed rows and kD / 2 d "
+                "columns");
+  static_assert(kDkvSmemFloats * 4 <= 232448 && kDqSmemFloats * 4 <= 232448,
+                "a block's shared memory");
+};
 
 // `_bwd_p`: P = exp(s - lse), 0 where s or the row's lse is masked
 __device__ __forceinline__ float bwd_p(float s, float lse) {
@@ -134,20 +173,25 @@ __device__ __forceinline__ void pair_sync(int pair) {
 }
 
 // out_product for two products at once (acc += e . f, acc2 += e2 . f2):
-// one loop, twice the independent FFMAs between a load and its use
+// one loop, twice the independent FFMAs between a load and its use; e, e2
+// strips (rows kSStride apart), f, f2 streamed tiles (rows kStride apart)
+template <int kD>
 __device__ __forceinline__ void out_product2(float (&acc)[kMI][4],
                                              const float* e, const float* f,
                                              float (&acc2)[kMI][4],
                                              const float* e2,
                                              const float* f2) {
+  constexpr int kBN = Bwd<kD>::kBN, kStride = Bwd<kD>::kStride,
+                kSStride = Bwd<kD>::kSStride;
 #pragma unroll (kUnroll)
   for (int n = 0; n < kBN; n += 4) {
     float4 ev[kMI], fv[4], ev2[kMI], fv2[4];
 #pragma unroll
     for (int i = 0; i < kMI; ++i) {
-      ev[i] = *reinterpret_cast<const float4*>(e + kRowStep * i * kStride + n);
+      ev[i] =
+          *reinterpret_cast<const float4*>(e + kRowStep * i * kSStride + n);
       ev2[i] =
-          *reinterpret_cast<const float4*>(e2 + kRowStep * i * kStride + n);
+          *reinterpret_cast<const float4*>(e2 + kRowStep * i * kSStride + n);
     }
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
@@ -168,9 +212,10 @@ __device__ __forceinline__ void out_product2(float (&acc)[kMI][4],
 
 // p of a lane's micro-tile (scores s, rows row0 + kRowStep i, keys key0 +
 // kColStep j, the rows' lse in l) into its strip entries `e` (row stride
-// kStride)
-template <bool kBias>
-__device__ __forceinline__ void dq_p(float* e, const float (&s)[kMI][4],
+// kSStride)
+template <int kD, bool kBias>
+__device__ __forceinline__ void dq_p(float* e,
+                                     const float (&s)[kMI][Bwd<kD>::kNJ],
                                      const float (&l)[kMI], int row0,
                                      int key0, int sq, int sk, int causal,
                                      float scale, const ScoreBias& bias,
@@ -179,14 +224,15 @@ __device__ __forceinline__ void dq_p(float* e, const float (&s)[kMI][4],
   for (int i = 0; i < kMI; ++i) {
     const int row = row0 + kRowStep * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < Bwd<kD>::kNJ; ++j) {
       const int key = key0 + kColStep * j;
       const bool m = key >= sk || (causal && key > row);
       // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
       // plain version's round(round(q.k * scale) + bias)
       float a = __fmul_rn(s[i][j], scale);
       if (kBias && !m && row < sq) a = __fadd_rn(a, bias.at(bs, row, key));
-      e[kRowStep * i * kStride + kColStep * j] = m ? 0.f : bwd_p(a, l[i]);
+      e[kRowStep * i * Bwd<kD>::kSStride + kColStep * j] =
+          m ? 0.f : bwd_p(a, l[i]);
     }
   }
 }
@@ -194,8 +240,9 @@ __device__ __forceinline__ void dq_p(float* e, const float (&s)[kMI][4],
 // The same for dK·dV's micro-tile: rows are keys key0 + kRowStep i,
 // streamed rows the queries q0 + c0 + kColStep j, whose lse is ls[c0 +
 // kColStep j].
-template <bool kBias>
-__device__ __forceinline__ void dkv_p(float* e, const float (&s)[kMI][4],
+template <int kD, bool kBias>
+__device__ __forceinline__ void dkv_p(float* e,
+                                      const float (&s)[kMI][Bwd<kD>::kNJ],
                                       const float* ls, int key0, int q0,
                                       int c0, int sq, int sk, int causal,
                                       float scale, const ScoreBias& bias,
@@ -204,7 +251,7 @@ __device__ __forceinline__ void dkv_p(float* e, const float (&s)[kMI][4],
   for (int i = 0; i < kMI; ++i) {
     const int key = key0 + kRowStep * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < Bwd<kD>::kNJ; ++j) {
       const int col = c0 + kColStep * j;
       const int qry = q0 + col;
       const bool m = key >= sk || qry >= sq || (causal && key > qry);
@@ -212,7 +259,8 @@ __device__ __forceinline__ void dkv_p(float* e, const float (&s)[kMI][4],
       // plain version's round(round(q.k * scale) + bias)
       float a = __fmul_rn(s[i][j], scale);
       if (kBias && !m) a = __fadd_rn(a, bias.at(bs, qry, key));
-      e[kRowStep * i * kStride + kColStep * j] = m ? 0.f : bwd_p(a, ls[col]);
+      e[kRowStep * i * Bwd<kD>::kSStride + kColStep * j] =
+          m ? 0.f : bwd_p(a, ls[col]);
     }
   }
 }
@@ -228,14 +276,16 @@ __device__ __forceinline__ long long block_head() {
 
 // the key tiles a dq block of rows [q0, q0 + kBM) visits: all of sk, or
 // (causal) up to the diagonal of its last row below sq
+template <int kD>
 __device__ __forceinline__ int dq_key_tiles(int q0, int sq, int sk,
                                             int causal) {
+  constexpr int kBM = Bwd<kD>::kBM, kBN = Bwd<kD>::kBN;
   const int n = (sk + kBN - 1) / kBN;
   return causal ? min(n, (min(q0 + kBM, sq) - 1) / kBN + 1) : n;
 }
 
-template <bool kBias, bool kDropout, bool kDbias>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kD, bool kBias, bool kDropout, bool kDbias>
+__global__ void __launch_bounds__(Bwd<kD>::kThreads, 1)
 fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
@@ -244,11 +294,15 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
                      int nbh, int sq, int sk, float scale, int causal,
                      int vec, ScoreBias bias, Dropout drop,
                      float* __restrict__ dlogits) {
+  using G = Bwd<kD>;
+  constexpr int kBM = G::kBM, kBN = G::kBN, kThreads = G::kThreads,
+                kStride = G::kStride, kSStride = G::kSStride,
+                kTile = G::kTile, kBlockTile = G::kBlockTile;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                   // [kBM][kStride]
   float* dos = qs + kBlockTile;       // [kBM][kStride]
-  float* strip = dos + kBlockTile;    // [kBM][kStride]: ds * scale
-  float* stage = strip + kBlockTile;  // [kStages][K, V][kBN][kStride]
+  float* strip = dos + kBlockTile;    // [kBM][kSStride]: ds * scale
+  float* stage = strip + kBM * kSStride;  // [kStages][K, V][kBN][kStride]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pair = warp >> 1, half = warp & 1;
@@ -261,7 +315,7 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
   const float* bs = kBias ? bias.slice(bh) : nullptr;
   const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
   float* dlb = kDbias ? dlogits + bh * sq * sk : nullptr;
-  const int nk = dq_key_tiles(q0, sq, sk, causal);
+  const int nk = dq_key_tiles<kD>(q0, sq, sk, causal);
 
   // K (part 0) and V (part 1) of tile kt into its stage
   auto load = [&](int kt, int part) {
@@ -278,8 +332,8 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
   if (nk > 0) load(0, 1);
   cp_async_commit();
 
-  const int r0 = pair * kPairRows + ly;       // the lane's first row in the block
-  const int c0 = half * 32 + lx;       // its first key in a tile
+  const int r0 = pair * kPairRows + ly;  // the lane's first row in the block
+  const int c0 = half * (kBN / 2) + lx;  // its first key in a tile
   float l[kMI], dd[kMI];
 #pragma unroll
   for (int i = 0; i < kMI; ++i) {
@@ -287,8 +341,9 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
     l[i] = row < sq ? lse[bh * sq + row] : kNegInf;
     dd[i] = row < sq ? dvec[bh * sq + row] : 0.f;
   }
-  float acc[kMI][4];
-  zero(acc);
+  float acc[G::kGroups][kMI][4];
+#pragma unroll
+  for (int g = 0; g < G::kGroups; ++g) zero(acc[g]);
   const int pair_row0 = q0 + pair * kPairRows;
 
   for (int kt = 0; kt < nk; ++kt) {
@@ -311,22 +366,22 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
     // the pair's 32 rows lie past sq or (causal) see none of these keys
     const bool idle =
         pair_row0 >= sq || (causal && k0 > pair_row0 + kPairRows - 1);
-    float* srow = strip + r0 * kStride + c0;  // the lane's strip entries
+    float* srow = strip + r0 * kSStride + c0;  // the lane's strip entries
     if (!idle) {
-      float s[kMI][4];
+      float s[kMI][G::kNJ];
       zero(s);
       score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
           s, qs + r0 * kStride, ks + c0 * kStride);
       // p into the strip (the thread's own entries)
-      dq_p<kBias>(srow, s, l, q0 + r0, k0 + c0, sq, sk, causal, scale, bias,
-                  bs);
+      dq_p<kD, kBias>(srow, s, l, q0 + r0, k0 + c0, sq, sk, causal, scale,
+                      bias, bs);
     }
     if (kt == 0) {  // dO and the first V
       cp_async_wait<1>();
       __syncthreads();
     }
     if (!idle) {
-      float s[kMI][4];
+      float s[kMI][G::kNJ];
       zero(s);
       score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
           s, dos + r0 * kStride, vs + c0 * kStride);
@@ -334,8 +389,8 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float* e = srow + kRowStep * i * kStride + kColStep * j;
+        for (int j = 0; j < G::kNJ; ++j) {
+          float* e = srow + kRowStep * i * kSStride + kColStep * j;
           const int row = q0 + r0 + kRowStep * i, key = k0 + c0 + kColStep * j;
           const float dp =
               kDropout ? s[i][j] * drop.keep(dhead, row, key) : s[i][j];
@@ -345,13 +400,17 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
           *e = dl * scale;
         }
       pair_sync(pair);  // the pair's strip rows are whole
-      out_product<kMI, kRowStep, kBN, kStride, kUnroll>(
-          acc, strip + r0 * kStride, ks + half * 32 + lx * 4);
+      // the 32-column groups of the warp's half of d, a product each
+#pragma unroll
+      for (int g = 0; g < G::kGroups; ++g)
+        out_product<kMI, kRowStep, kBN, kStride, kUnroll, kSStride>(
+            acc[g], strip + r0 * kSStride,
+            ks + half * (kD / 2) + 32 * g + lx * 4);
     } else if (kDbias) {  // rows past sq, or (causal) keys none of them sees
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < G::kNJ; ++j) {
           const int row = q0 + r0 + kRowStep * i, key = k0 + c0 + kColStep * j;
           if (row < sq && key < sk) dlb[(long long)row * sk + key] = 0.f;
         }
@@ -364,12 +423,15 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
          t += kThreads)
       dlb[(long long)(q0 + t / w) * sk + kz + t % w] = 0.f;
   }
-  store_rows<kMI, kRowStep, kD>(dq + bh * sq * kD, acc, q0 + r0,
-                                half * 32 + lx * 4, sq, vec);
+#pragma unroll
+  for (int g = 0; g < G::kGroups; ++g)
+    store_rows<kMI, kRowStep, kD>(dq + bh * sq * kD, acc[g], q0 + r0,
+                                  half * (kD / 2) + 32 * g + lx * 4, sq,
+                                  vec);
 }
 
-template <bool kBias, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kD, bool kBias, bool kDropout>
+__global__ void __launch_bounds__(Bwd<kD>::kThreads, 1)
 fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -379,12 +441,16 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
                       float* __restrict__ dv, int nbh, int sq, int sk,
                       float scale, int causal, int vec, ScoreBias bias,
                       Dropout drop) {
+  using G = Bwd<kD>;
+  constexpr int kBM = G::kBM, kBN = G::kBN, kThreads = G::kThreads,
+                kStride = G::kStride, kSStride = G::kSStride,
+                kTile = G::kTile, kBlockTile = G::kBlockTile;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                  // [kBM][kStride]
   float* vs = ks + kBlockTile;       // [kBM][kStride]
-  float* pst = vs + kBlockTile;      // [kBM][kStride]: p (keys x queries)
-  float* dst = pst + kBlockTile;     // [kBM][kStride]: ds * scale
-  float* stage = dst + kBlockTile;   // [kStages][Q, dO][kBN][kStride]
+  float* pst = vs + kBlockTile;      // [kBM][kSStride]: p (keys x queries)
+  float* dst = pst + kBM * kSStride;   // [kBM][kSStride]: ds * scale
+  float* stage = dst + kBM * kSStride;  // [kStages][Q, dO][kBN][kStride]
   float* vecs = stage + kStages * 2 * kTile;  // [kStages][lse, D][kBN]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -427,11 +493,14 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
   if (nq > 0) load(0, 1);
   cp_async_commit();
 
-  const int r0 = pair * kPairRows + ly;   // the lane's first key in the block
-  const int c0 = half * 32 + lx;   // its first query in a tile
-  float ak[kMI][4], av[kMI][4];
-  zero(ak);
-  zero(av);
+  const int r0 = pair * kPairRows + ly;  // the lane's first key in the block
+  const int c0 = half * (kBN / 2) + lx;  // its first query in a tile
+  float ak[G::kGroups][kMI][4], av[G::kGroups][kMI][4];
+#pragma unroll
+  for (int g = 0; g < G::kGroups; ++g) {
+    zero(ak[g]);
+    zero(av[g]);
+  }
   const int pair_key0 = k0 + pair * kPairRows;
 
   for (int it = 0; it < nq; ++it) {
@@ -456,23 +525,23 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
     // the pair's 32 keys lie past sk or (causal) above every query here
     const bool idle =
         pair_key0 >= sk || (causal && pair_key0 > q0 + kBN - 1);
-    float* prow = pst + r0 * kStride + c0;  // the lane's strip entries
-    float* drow = dst + r0 * kStride + c0;
+    float* prow = pst + r0 * kSStride + c0;  // the lane's strip entries
+    float* drow = dst + r0 * kSStride + c0;
     if (!idle) {
-      float s[kMI][4];
+      float s[kMI][G::kNJ];
       zero(s);
       score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
           s, ks + r0 * kStride, qs + c0 * kStride);
       // p into its strip (the thread's own entries)
-      dkv_p<kBias>(prow, s, ls, k0 + r0, q0, c0, sq, sk, causal, scale, bias,
-                   bs);
+      dkv_p<kD, kBias>(prow, s, ls, k0 + r0, q0, c0, sq, sk, causal, scale,
+                       bias, bs);
     }
     if (it == 0) {  // V, the first dO and D
       cp_async_wait<1>();
       __syncthreads();
     }
     if (!idle) {
-      float s[kMI][4];
+      float s[kMI][G::kNJ];
       zero(s);
       score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
           s, vs + r0 * kStride, dos + c0 * kStride);
@@ -481,8 +550,8 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int e = kRowStep * i * kStride + kColStep * j;
+        for (int j = 0; j < G::kNJ; ++j) {
+          const int e = kRowStep * i * kSStride + kColStep * j;
           if (kDropout) {
             const float keep = drop.keep(dhead, q0 + c0 + kColStep * j,
                                          k0 + r0 + kRowStep * i);
@@ -494,39 +563,52 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
           }
         }
       pair_sync(pair);  // the pair's strip rows are whole
-      out_product2(av, pst + r0 * kStride, dos + half * 32 + lx * 4, ak,
-                   dst + r0 * kStride, qs + half * 32 + lx * 4);
+      // the 32-column groups of the warp's half of d, a loop each
+#pragma unroll
+      for (int g = 0; g < G::kGroups; ++g) {
+        const int col = half * (kD / 2) + 32 * g + lx * 4;
+        out_product2<kD>(av[g], pst + r0 * kSStride, dos + col, ak[g],
+                         dst + r0 * kSStride, qs + col);
+      }
     }
   }
   cp_async_wait<0>();
-  store_rows<kMI, kRowStep, kD>(dk + bh * sk * kD, ak, k0 + r0,
-                                half * 32 + lx * 4, sk, vec);
-  store_rows<kMI, kRowStep, kD>(dv + bh * sk * kD, av, k0 + r0,
-                                half * 32 + lx * 4, sk, vec);
+#pragma unroll
+  for (int g = 0; g < G::kGroups; ++g) {
+    const int col = half * (kD / 2) + 32 * g + lx * 4;
+    store_rows<kMI, kRowStep, kD>(dk + bh * sk * kD, ak[g], k0 + r0, col,
+                                  sk, vec);
+    store_rows<kMI, kRowStep, kD>(dv + bh * sk * kD, av[g], k0 + r0, col,
+                                  sk, vec);
+  }
 }
 
+template <int kD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* dvec, void* dq, int bh,
               int grid_y, int grid_z, int sq, int sk, float scale,
               int causal, const ScoreBias& bias, const Dropout& drop,
               float* dlogits, cudaStream_t stream) {
-  const int smem = (int)(kDqSmemFloats * sizeof(float));
+  using G = Bwd<kD>;
+  if ((sq + G::kBM - 1) / G::kBM > 65535) return (int)cudaErrorInvalidValue;
+  const int smem = (int)(G::kDqSmemFloats * sizeof(float));
   // a separate instantiation for each form, so the kernel without a bias,
   // dropout or dlogits keeps no registers or branches of theirs; dlogits
   // come with a bias only
   const bool d = drop.seed != nullptr;
   const auto kernel =
       dlogits != nullptr
-          ? (d ? fa_bwd_dq_kernel_fma<true, true, true>
-               : fa_bwd_dq_kernel_fma<true, false, true>)
-      : bias.p != nullptr ? (d ? fa_bwd_dq_kernel_fma<true, true, false>
-                               : fa_bwd_dq_kernel_fma<true, false, false>)
-                          : (d ? fa_bwd_dq_kernel_fma<false, true, false>
-                               : fa_bwd_dq_kernel_fma<false, false, false>);
+          ? (d ? fa_bwd_dq_kernel_fma<kD, true, true, true>
+               : fa_bwd_dq_kernel_fma<kD, true, false, true>)
+      : bias.p != nullptr
+          ? (d ? fa_bwd_dq_kernel_fma<kD, true, true, false>
+               : fa_bwd_dq_kernel_fma<kD, true, false, false>)
+          : (d ? fa_bwd_dq_kernel_fma<kD, false, true, false>
+               : fa_bwd_dq_kernel_fma<kD, false, false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  const dim3 grid(grid_y, (sq + kBM - 1) / kBM, grid_z);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(grid_y, (sq + G::kBM - 1) / G::kBM, grid_z);
+  kernel<<<grid, G::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -537,21 +619,24 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int kD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* dvec, void* dk, void* dv, int bh,
                int grid_y, int grid_z, int sq, int sk, float scale,
                int causal, const ScoreBias& bias, const Dropout& drop,
                cudaStream_t stream) {
-  const int smem = (int)(kDkvSmemFloats * sizeof(float));
+  using G = Bwd<kD>;
+  if ((sk + G::kBM - 1) / G::kBM > 65535) return (int)cudaErrorInvalidValue;
+  const int smem = (int)(G::kDkvSmemFloats * sizeof(float));
   const bool b = bias.p != nullptr, d = drop.seed != nullptr;
-  const auto kernel = b ? (d ? fa_bwd_dkv_kernel_fma<true, true>
-                             : fa_bwd_dkv_kernel_fma<true, false>)
-                        : (d ? fa_bwd_dkv_kernel_fma<false, true>
-                             : fa_bwd_dkv_kernel_fma<false, false>);
+  const auto kernel = b ? (d ? fa_bwd_dkv_kernel_fma<kD, true, true>
+                             : fa_bwd_dkv_kernel_fma<kD, true, false>)
+                        : (d ? fa_bwd_dkv_kernel_fma<kD, false, true>
+                             : fa_bwd_dkv_kernel_fma<kD, false, false>);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  const dim3 grid(grid_y, (sk + kBM - 1) / kBM, grid_z);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(grid_y, (sk + G::kBM - 1) / G::kBM, grid_z);
+  kernel<<<grid, G::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dvec),
@@ -568,7 +653,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32 (q, k, v, do and the gradients; bfloat16 is
 // apex_fa_bwd_dq_wgmma's and apex_fa_bwd_dkv_wgmma's); lse and dvec are
-// float32 [bh, sq]. Only head_dim 64 is compiled. grid_y, grid_z,
+// float32 [bh, sq]. d: 64 or 128 (the compiled widths; the wrapper pads
+// any other d). grid_y, grid_z,
 // bias, heads, the bias strides and the dropout seed, threshold and keep
 // as for apex_fa_fwd. dlogits: float32 [bh, sq, sk], every entry written,
 // or null; only with a bias.
@@ -581,20 +667,24 @@ extern "C" int apex_fa_bwd_dq(const void* q, const void* k, const void* v,
                               long long bsk, const void* seed,
                               unsigned threshold, float keep, void* dlogits,
                               int dtype, void* stream) {
-  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z) ||
+  if ((d != 64 && d != 128) || heads < 1 ||
+      !bh_grid_ok(bh, grid_y, grid_z) ||
       (dlogits != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
-  if ((sq + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
   const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
                               keep};
+  float* dl = static_cast<float*>(dlogits);
   if (dtype == 0)
-    return launch_dq(q, k, v, dout, lse, dvec, dq, bh, grid_y, grid_z, sq,
-                     sk, scale, causal, sb, dr, static_cast<float*>(dlogits),
-                     s);
+    return d == 64 ? launch_dq<64>(q, k, v, dout, lse, dvec, dq, bh, grid_y,
+                                   grid_z, sq, sk, scale, causal, sb, dr, dl,
+                                   s)
+                   : launch_dq<128>(q, k, v, dout, lse, dvec, dq, bh, grid_y,
+                                    grid_z, sq, sk, scale, causal, sb, dr, dl,
+                                    s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -607,17 +697,20 @@ extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
                                long long bsq, long long bsk, const void* seed,
                                unsigned threshold, float keep, int dtype,
                                void* stream) {
-  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+  if ((d != 64 && d != 128) || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sk <= 0) return 0;
-  if ((sk + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const apex_port::ScoreBias sb{static_cast<const float*>(bias), heads,
                                 bsb, bsh, bsq, bsk};
   const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
                               keep};
   if (dtype == 0)
-    return launch_dkv(q, k, v, dout, lse, dvec, dk, dv, bh, grid_y, grid_z,
-                      sq, sk, scale, causal, sb, dr, s);
+    return d == 64 ? launch_dkv<64>(q, k, v, dout, lse, dvec, dk, dv, bh,
+                                    grid_y, grid_z, sq, sk, scale, causal, sb,
+                                    dr, s)
+                   : launch_dkv<128>(q, k, v, dout, lse, dvec, dk, dv, bh,
+                                     grid_y, grid_z, sq, sk, scale, causal,
+                                     sb, dr, s);
   return (int)cudaErrorInvalidValue;
 }

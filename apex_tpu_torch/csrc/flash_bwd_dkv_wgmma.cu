@@ -5,9 +5,10 @@
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `_fa_dkv_kernel`,
 // causal or not, with or without the additive fp32 score bias (ScoreBias
 // in common.cuh) and attention dropout (Dropout in common.cuh), JAX
-// layout q / do
-// (b, h, sq, 64), k / v (b, h, sk, 64), lse and D = rowsum(do * o) fp32
-// (b, h, sq) (D computed outside, `attention_dvec`). Per (key j, query i):
+// layout q / do (b, h, sq, d), k / v (b, h, sk, d), d a compiled head
+// width (64 or 128: the template parameter kD; the wrapper pads any other
+// d up to 128 with zero columns), lse and D = rowsum(do * o) fp32 (b, h,
+// sq) (D computed outside, `attention_dvec`). Per (key j, query i):
 //   s  = round(round(q_i . k_j * scale) + bias_ij), masked where j >= sk
 //        or (causal) j > i
 //   p  = exp(s - lse_i), exactly 0 where masked, s <= -0.5e30 or
@@ -42,6 +43,15 @@
 // nothing. In this first version the products of a tile and its
 // elementwise work do not overlap (later work).
 //
+// Head dim 128: each tile arrives as two 64-column boxes (hopper.cuh), S^T
+// and dP^T take eight steps of depth, and dV and dK are two products of N =
+// 64 each, one on each half of dO / Q, into two accumulators apiece: a
+// consumer thread holds 128 fp32 of dK and dV beside the 64 of S and dP
+// while they are live (192 of its 232 registers; p and ds are packed to
+// bf16 as S and dP die), so the register split stays the d = 64 one
+// (producer 40, consumers 232). Shared memory holds K and V (64 KB), four
+// stages of Q and dO (128 KB) and their lse / D slices.
+//
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
 
@@ -53,7 +63,6 @@ namespace {
 using namespace apex_port;
 using namespace apex_port::hopper;
 
-constexpr int kD = 64;          // head dim
 constexpr int kKeysWG = 64;     // keys per consumer warpgroup
 constexpr int kBK = 128;        // keys per block
 constexpr int kBQ = 64;         // query rows per streamed tile
@@ -62,12 +71,22 @@ constexpr int kThreads = 384;   // two consumer warpgroups + the producer
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-constexpr int kTileBytes = kBQ * kD * 2;          // one 64-row bf16 tile
-constexpr int kKVBytes = kBK * kD * 2;            // the resident K (or V)
-constexpr int kOffStages = 2 * kKVBytes;          // Q, dO of each stage
-constexpr int kOffStats = kOffStages + kStages * 2 * kTileBytes;
-constexpr int kOffBars = kOffStats + kStages * 2 * kBQ * 4;
-constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
+// Shared memory at head dim kD (64 or 128). A tile's rows are 64-column
+// halves of 128 bytes, the second half (d = 128) kHalf bytes after the
+// first: kBQ * 128 for a Q / dO tile, kBK * 128 for K and V.
+template <int kD>
+struct Layout {
+  static constexpr int kTileBytes = kBQ * kD * 2;  // one 64-row bf16 tile
+  static constexpr int kKVBytes = kBK * kD * 2;    // the resident K (or V)
+  static constexpr int kTileHalf = kBQ * 128;
+  static constexpr int kKVHalf = kBK * 128;
+  static constexpr int kOffStages = 2 * kKVBytes;  // Q, dO of each stage
+  static constexpr int kOffStats = kOffStages + kStages * 2 * kTileBytes;
+  static constexpr int kOffBars = kOffStats + kStages * 2 * kBQ * 4;
+  static constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kD == 64 || kD == 128, "compiled head widths");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
 
 // `_bwd_p`: P = exp(s - lse), 0 where s or the row's lse is masked
 __device__ __forceinline__ float bwd_p(float s, float lse) {
@@ -116,7 +135,7 @@ __device__ __forceinline__ void dkv_tile(float (&s)[32], float (&t)[32],
   }
 }
 
-template <bool kBias, bool kDropout>
+template <int kD, bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -128,12 +147,13 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                         __nv_bfloat16* __restrict__ dv, int nbh, int sq,
                         int sk, float scale, int causal, ScoreBias bias,
                         Dropout drop) {
+  using L = Layout<kD>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* ks = smem;
-  uint8_t* vs = smem + kKVBytes;
-  float* stats = reinterpret_cast<float*>(smem + kOffStats);  // lse, D
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOffBars);
+  uint8_t* vs = smem + L::kKVBytes;
+  float* stats = reinterpret_cast<float*>(smem + L::kOffStats);  // lse, D
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kOffBars);
   uint64_t* empty = full + kStages;
   uint64_t* kvbar = empty + kStages;
 
@@ -161,9 +181,9 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     const int lane = threadIdx.x % 32;
     if (threadIdx.x / 32 == 8) {
       if (lane == 0) {
-        mbar_expect_tx(kvbar, 2 * kKVBytes);
-        tma_load_3d(ks, &map_k, kvbar, 0, k0, (int)bh);
-        tma_load_3d(vs, &map_v, kvbar, 0, k0, (int)bh);
+        mbar_expect_tx(kvbar, 2 * L::kKVBytes);
+        tma_load_rows<kD>(ks, &map_k, kvbar, kBK, k0, (int)bh);
+        tma_load_rows<kD>(vs, &map_v, kvbar, kBK, k0, (int)bh);
       }
       const float* lb = lse + bh * sq;
       const float* db = dvec + bh * sq;
@@ -177,11 +197,11 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
           ls[kBQ + r] = row < sq ? db[row] : 0.f;
         }
         if (lane == 0) {
-          uint8_t* qs = smem + kOffStages + st * 2 * kTileBytes;
-          mbar_expect_tx(&full[st], 2 * kTileBytes);
-          tma_load_3d(qs, &map_q, &full[st], 0, qt * kBQ, (int)bh);
-          tma_load_3d(qs + kTileBytes, &map_do, &full[st], 0, qt * kBQ,
-                      (int)bh);
+          uint8_t* qs = smem + L::kOffStages + st * 2 * L::kTileBytes;
+          mbar_expect_tx(&full[st], 2 * L::kTileBytes);
+          tma_load_rows<kD>(qs, &map_q, &full[st], kBQ, qt * kBQ, (int)bh);
+          tma_load_rows<kD>(qs + L::kTileBytes, &map_do, &full[st], kBQ,
+                            qt * kBQ, (int)bh);
         } else {
           mbar_arrive(&full[st]);  // after this lane's lse / D stores
         }
@@ -198,15 +218,20 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     const bool active = kw0 < sk;
     const float* bs = kBias ? bias.slice(bh) : nullptr;
     const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
-    const uint32_t k_addr = smem_addr(ks) + wg * kKeysWG * kD * 2;
-    const uint32_t v_addr = smem_addr(vs) + wg * kKeysWG * kD * 2;
+    // the warpgroup's rows of each 64-column half of K and V
+    const uint32_t k_addr = smem_addr(ks) + wg * kKeysWG * 128;
+    const uint32_t v_addr = smem_addr(vs) + wg * kKeysWG * 128;
 
-    float adk[32], adv[32], s[32], tp[32];
+    // dk and dv in kD / 64 accumulators of 64 d columns each
+    float adk[kD / 64][32], adv[kD / 64][32], s[32], tp[32];
     uint32_t ap[4][4], ads[4][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      adk[i] = 0.f;
-      adv[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kD / 64; ++c) {
+        adk[c][i] = 0.f;
+        adv[c][i] = 0.f;
+      }
       s[i] = 0.f;
       tp[i] = 0.f;
     }
@@ -220,11 +245,12 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       // skipped (only the second warpgroup's first tile can be)
       if (active && (!causal || kw0 <= q0 + kBQ - 1)) {
         const uint32_t q_addr =
-            smem_addr(smem + kOffStages + st * 2 * kTileBytes);
-        const uint32_t do_addr = q_addr + kTileBytes;
+            smem_addr(smem + L::kOffStages + st * 2 * L::kTileBytes);
+        const uint32_t do_addr = q_addr + L::kTileBytes;
         wgmma_fence();
-        product_ss(s, k_addr, q_addr);     // S^T = K Q^T
-        product_ss(tp, v_addr, do_addr);   // dP^T = V dO^T
+        // S^T = K Q^T, dP^T = V dO^T
+        product_ss<kD>(s, k_addr, L::kKVHalf, q_addr, L::kTileHalf);
+        product_ss<kD>(tp, v_addr, L::kKVHalf, do_addr, L::kTileHalf);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
@@ -244,14 +270,25 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         to_a_operand(s, ap);    // p in do's dtype for the dv product
         to_a_operand(tp, ads);  // ds * scale in q's dtype for dk
         wgmma_fence();
-        fence_regs(adv);
-        fence_regs(adk);
-        product_rs(adv, ap, do_addr);  // dV += P^T dO (dO MN-major)
-        product_rs(adk, ads, q_addr);  // dK += dS^T Q (Q MN-major)
+#pragma unroll
+        for (int c = 0; c < kD / 64; ++c) {
+          fence_regs(adv[c]);
+          fence_regs(adk[c]);
+        }
+        // dV += P^T dO, dK += dS^T Q (dO, Q MN-major): a product on each
+        // 64-column half
+#pragma unroll
+        for (int c = 0; c < kD / 64; ++c) {
+          product_rs(adv[c], ap, do_addr + c * L::kTileHalf);
+          product_rs(adk[c], ads, q_addr + c * L::kTileHalf);
+        }
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs(adv);
-        fence_regs(adk);
+#pragma unroll
+        for (int c = 0; c < kD / 64; ++c) {
+          fence_regs(adv[c]);
+          fence_regs(adk[c]);
+        }
         fence_regs(ap);
         fence_regs(ads);
       }
@@ -266,26 +303,59 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         const int key = key0 + 8 * h;
         if (key >= sk) continue;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const long long at = (long long)key * kD + 8 * j + cq;
-          *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
-              __floats2bfloat162_rn(adk[4 * j + 2 * h],
-                                    adk[4 * j + 2 * h + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
-              __floats2bfloat162_rn(adv[4 * j + 2 * h],
-                                    adv[4 * j + 2 * h + 1]);
-        }
+        for (int c = 0; c < kD / 64; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const long long at = (long long)key * kD + 64 * c + 8 * j + cq;
+            *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
+                __floats2bfloat162_rn(adk[c][4 * j + 2 * h],
+                                      adk[c][4 * j + 2 * h + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
+                __floats2bfloat162_rn(adv[c][4 * j + 2 * h],
+                                      adv[c][4 * j + 2 * h + 1]);
+          }
       }
     }
   }
 }
 
+struct Args {
+  CUtensorMap mq, mk, mv, mdo;
+  const void *lse, *dvec;
+  void *dk, *dv;
+  int bh, sq, sk;
+  float scale;
+  int causal;
+  ScoreBias sb;
+  Dropout dr;
+  void* stream;
+};
+
+template <int kD>
+int launch(const dim3& grid, const Args& a) {
+  // a separate instantiation for each form
+  const bool b = a.sb.p != nullptr, dd = a.dr.seed != nullptr;
+  const auto kernel = b ? (dd ? fa_bwd_dkv_kernel_wgmma<kD, true, true>
+                              : fa_bwd_dkv_kernel_wgmma<kD, true, false>)
+                        : (dd ? fa_bwd_dkv_kernel_wgmma<kD, false, true>
+                              : fa_bwd_dkv_kernel_wgmma<kD, false, false>);
+  constexpr int smem = Layout<kD>::kSmemBytes;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(a.stream)>>>(
+      a.mq, a.mk, a.mv, a.mdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.dvec), static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.bh, a.sq, a.sk, a.scale,
+      a.causal, a.sb, a.dr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // bf16 q, k, v, do, dk and dv, contiguous and 16-byte aligned; lse and dvec
-// float32 [bh, sq]. head_dim 64. grid_y, grid_z, bias, heads, the bias
-// strides and the dropout seed, threshold and keep as for
-// apex_fa_fwd_wgmma.
+// float32 [bh, sq]. d: 64 or 128 (the compiled widths; the wrapper pads
+// any other d). grid_y, grid_z, bias, heads, the bias strides and the
+// dropout seed, threshold and keep as for apex_fa_fwd_wgmma.
 extern "C" int apex_fa_bwd_dkv_wgmma(
     const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* lse, const void* dvec, void* dk, void* dv,
@@ -293,7 +363,7 @@ extern "C" int apex_fa_bwd_dkv_wgmma(
     float scale, int causal, long long bsb, long long bsh, long long bsq,
     long long bsk, const void* seed, unsigned threshold, float keep,
     void* stream) {
-  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+  if ((d != 64 && d != 128) || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sk <= 0) return 0;
   if (!is_aligned(q, 16) || !is_aligned(k, 16) || !is_aligned(v, 16) ||
@@ -302,27 +372,16 @@ extern "C" int apex_fa_bwd_dkv_wgmma(
   // with no queries the Q / dO maps are never read: build them over k
   const bool noq = sq <= 0;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map_bf16(&mq, noq ? k : q, noq ? sk : sq, bh, kBQ) ||
-      !make_map_bf16(&mk, k, sk, bh, kBK) ||
-      !make_map_bf16(&mv, v, sk, bh, kBK) ||
-      !make_map_bf16(&mdo, noq ? k : dout, noq ? sk : sq, bh, kBQ))
+  if (!make_map_bf16(&mq, noq ? k : q, noq ? sk : sq, bh, kBQ, d) ||
+      !make_map_bf16(&mk, k, sk, bh, kBK, d) ||
+      !make_map_bf16(&mv, v, sk, bh, kBK, d) ||
+      !make_map_bf16(&mdo, noq ? k : dout, noq ? sk : sq, bh, kBQ, d))
     return (int)cudaErrorInvalidValue;
   const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
                      bsk};
   const Dropout dr{static_cast<const int*>(seed), threshold, keep};
-  // a separate instantiation for each form
-  const bool b = bias != nullptr, dd = seed != nullptr;
-  const auto kernel = b ? (dd ? fa_bwd_dkv_kernel_wgmma<true, true>
-                              : fa_bwd_dkv_kernel_wgmma<true, false>)
-                        : (dd ? fa_bwd_dkv_kernel_wgmma<false, true>
-                              : fa_bwd_dkv_kernel_wgmma<false, false>);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
   const dim3 grid((sk + kBK - 1) / kBK, grid_y, grid_z);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, mdo, static_cast<const float*>(lse),
-      static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), bh, noq ? 0 : sq, sk, scale, causal,
-      sb, dr);
-  return (int)cudaGetLastError();
+  const Args a{mq, mk, mv, mdo, lse, dvec, dk, dv, bh, noq ? 0 : sq, sk,
+               scale, causal, sb, dr, stream};
+  return d == 64 ? launch<64>(grid, a) : launch<128>(grid, a);
 }

@@ -5,9 +5,11 @@
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `_fa_dq_kernel`, causal
 // or not, with or without the additive fp32 score bias (ScoreBias in
 // common.cuh), attention dropout (Dropout in common.cuh) and the dlogits
-// of a differentiated bias (`want_dbias`), JAX layout q / do (b, h, sq, 64),
-// k / v (b, h, sk, 64), lse and D = rowsum(do * o) fp32 (b, h, sq) (D
-// computed outside, `attention_dvec`). Per (query i, key j):
+// of a differentiated bias (`want_dbias`), JAX layout q / do (b, h, sq, d),
+// k / v (b, h, sk, d), d a compiled head width (64 or 128: the template
+// parameter kD; the wrapper pads any other d up to 128 with zero columns),
+// lse and D = rowsum(do * o) fp32 (b, h, sq) (D computed outside,
+// `attention_dvec`). Per (query i, key j):
 //   s  = round(round(q_i . k_j * scale) + bias_ij), masked where j >= sk
 //        or (causal) j > i
 //   p  = exp(s - lse_i), exactly 0 where masked, s <= -0.5e30 or
@@ -44,7 +46,11 @@
 // Each block owns its dQ rows: no atomics, and two runs give the same
 // bits. Only a tile across a warpgroup's diagonal or the ragged sk edge
 // runs the masked arithmetic (`_mask_split`); rows past sq load as zeros
-// with lse = -1e30 and are never written.
+// with lse = -1e30 and are never written. Head dim 128: each tile arrives
+// as two 64-column boxes (hopper.cuh), S and dP take eight steps of depth
+// and dQ is two products of N = 64, one on each half of K, into two
+// accumulators (64 fp32 a thread instead of 32); shared memory holds Q
+// and dO (64 KB) and four stages of K and V (128 KB).
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -57,7 +63,6 @@ namespace {
 using namespace apex_port;
 using namespace apex_port::hopper;
 
-constexpr int kD = 64;          // head dim
 constexpr int kRowsWG = 64;     // query rows per consumer warpgroup
 constexpr int kBQ = 128;        // query rows per block
 constexpr int kBK = 64;         // keys per streamed tile
@@ -66,11 +71,21 @@ constexpr int kThreads = 384;   // two consumer warpgroups + the producer
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-constexpr int kTileBytes = kBK * kD * 2;          // one 64-row bf16 tile
-constexpr int kQBytes = kBQ * kD * 2;             // the resident Q (or dO)
-constexpr int kOffStages = 2 * kQBytes;           // K, V of each stage
-constexpr int kOffBars = kOffStages + kStages * 2 * kTileBytes;
-constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
+// Shared memory at head dim kD (64 or 128). A tile's rows are 64-column
+// halves of 128 bytes, the second half (d = 128) kHalf bytes after the
+// first: kBK * 128 for a K / V tile, kBQ * 128 for Q and dO.
+template <int kD>
+struct Layout {
+  static constexpr int kTileBytes = kBK * kD * 2;  // one 64-row bf16 tile
+  static constexpr int kQBytes = kBQ * kD * 2;     // the resident Q (or dO)
+  static constexpr int kTileHalf = kBK * 128;
+  static constexpr int kQHalf = kBQ * 128;
+  static constexpr int kOffStages = 2 * kQBytes;   // K, V of each stage
+  static constexpr int kOffBars = kOffStages + kStages * 2 * kTileBytes;
+  static constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kD == 64 || kD == 128, "compiled head widths");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
 
 // `_bwd_p`: P = exp(s - lse), 0 where s or the row's lse is masked
 __device__ __forceinline__ float bwd_p(float s, float lse) {
@@ -112,7 +127,7 @@ __device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
     }
 }
 
-template <bool kBias, bool kDropout, bool kDbias>
+template <int kD, bool kBias, bool kDropout, bool kDbias>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -123,11 +138,12 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                        __nv_bfloat16* __restrict__ dq, int nbh, int sq,
                        int sk, float scale, int causal, ScoreBias bias,
                        Dropout drop, float* __restrict__ dlogits) {
+  using L = Layout<kD>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
-  uint8_t* dos = smem + kQBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOffBars);
+  uint8_t* dos = smem + L::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kOffBars);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
 
@@ -154,17 +170,17 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     // ------------------------------------------------ producer
     regs_dec<40>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(qbar, 2 * kQBytes);
-      tma_load_3d(qs, &map_q, qbar, 0, q0, (int)bh);
-      tma_load_3d(dos, &map_do, qbar, 0, q0, (int)bh);
+      mbar_expect_tx(qbar, 2 * L::kQBytes);
+      tma_load_rows<kD>(qs, &map_q, qbar, kBQ, q0, (int)bh);
+      tma_load_rows<kD>(dos, &map_do, qbar, kBQ, q0, (int)bh);
       for (int kt = 0; kt < nk; ++kt) {
         const int st = kt % kStages;
         mbar_wait(&empty[st], ((kt / kStages) & 1) ^ 1);
-        uint8_t* ks = smem + kOffStages + st * 2 * kTileBytes;
-        mbar_expect_tx(&full[st], 2 * kTileBytes);
-        tma_load_3d(ks, &map_k, &full[st], 0, kt * kBK, (int)bh);
-        tma_load_3d(ks + kTileBytes, &map_v, &full[st], 0, kt * kBK,
-                    (int)bh);
+        uint8_t* ks = smem + L::kOffStages + st * 2 * L::kTileBytes;
+        mbar_expect_tx(&full[st], 2 * L::kTileBytes);
+        tma_load_rows<kD>(ks, &map_k, &full[st], kBK, kt * kBK, (int)bh);
+        tma_load_rows<kD>(ks + L::kTileBytes, &map_v, &full[st], kBK,
+                          kt * kBK, (int)bh);
       }
     }
   } else {
@@ -183,8 +199,9 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     const float* bs = kBias ? bias.slice(bh) : nullptr;
     const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
     float* dlb = kDbias ? dlogits + bh * sq * sk : nullptr;
-    const uint32_t q_addr = smem_addr(qs) + wg * kRowsWG * kD * 2;
-    const uint32_t do_addr = smem_addr(dos) + wg * kRowsWG * kD * 2;
+    // the warpgroup's rows of each 64-column half of Q and dO
+    const uint32_t q_addr = smem_addr(qs) + wg * kRowsWG * 128;
+    const uint32_t do_addr = smem_addr(dos) + wg * kRowsWG * 128;
 
     // the lse and D of the thread's rows; rows past sq add nothing
     float l[2], dsum[2];
@@ -195,11 +212,13 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       dsum[h] = row < sq ? dvec[bh * sq + row] : 0.f;
     }
 
-    float adq[32], s[32], tp[32];
+    // dq in kD / 64 accumulators of 64 d columns each
+    float adq[kD / 64][32], s[32], tp[32];
     uint32_t ads[4][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      adq[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kD / 64; ++c) adq[c][i] = 0.f;
       s[i] = 0.f;
       tp[i] = 0.f;
     }
@@ -214,16 +233,19 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       const int k0 = kt * kBK;
       mbar_wait(&full[st], (kt / kStages) & 1);
       const uint32_t k_addr =
-          smem_addr(smem + kOffStages + st * 2 * kTileBytes);
+          smem_addr(smem + L::kOffStages + st * 2 * L::kTileBytes);
       wgmma_fence();
-      product_ss(s, q_addr, k_addr);                 // S = Q K^T
-      product_ss(tp, do_addr, k_addr + kTileBytes);  // dP = dO V^T
+      // S = Q K^T, dP = dO V^T
+      product_ss<kD>(s, q_addr, L::kQHalf, k_addr, L::kTileHalf);
+      product_ss<kD>(tp, do_addr, L::kQHalf, k_addr + L::kTileBytes,
+                     L::kTileHalf);
       wgmma_commit();
       // the previous tile's dQ product was committed first: both done
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(tp);
-      fence_regs(adq);
+#pragma unroll
+      for (int c = 0; c < kD / 64; ++c) fence_regs(adq[c]);
       fence_regs(ads);
       if (kt > 0) mbar_arrive(&empty[(kt - 1) % kStages]);
       // `_mask_split`: only a tile across the diagonal or the sk edge
@@ -239,11 +261,15 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                                                 bs, drop, dhead, dlb);
       to_a_operand(s, ads);  // ds * scale in k's dtype
       wgmma_fence();
-      product_rs(adq, ads, k_addr);  // dQ += dS K (K MN-major)
+      // dQ += dS K (K MN-major), a product on each 64-column half of K
+#pragma unroll
+      for (int c = 0; c < kD / 64; ++c)
+        product_rs(adq[c], ads, k_addr + c * L::kTileHalf);
       wgmma_commit();
     }
     wgmma_wait<0>();
-    fence_regs(adq);
+#pragma unroll
+    for (int c = 0; c < kD / 64; ++c) fence_regs(adq[c]);
     fence_regs(ads);
     if (nk_me > 0) mbar_arrive(&empty[(nk_me - 1) % kStages]);
     // the block's tiles past this warpgroup's diagonal: released unread
@@ -266,20 +292,59 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         const int row = r0 + 8 * h;
         if (row >= sq) continue;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(
-              dqb + (long long)row * kD + 8 * j + cq) =
-              __floats2bfloat162_rn(adq[4 * j + 2 * h],
-                                    adq[4 * j + 2 * h + 1]);
+        for (int c = 0; c < kD / 64; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(
+                dqb + (long long)row * kD + 64 * c + 8 * j + cq) =
+                __floats2bfloat162_rn(adq[c][4 * j + 2 * h],
+                                      adq[c][4 * j + 2 * h + 1]);
       }
     }
   }
 }
 
+struct Args {
+  CUtensorMap mq, mk, mv, mdo;
+  const void *lse, *dvec;
+  void* dq;
+  int bh, sq, sk;
+  float scale;
+  int causal;
+  ScoreBias sb;
+  Dropout dr;
+  void *dlogits, *stream;
+};
+
+template <int kD>
+int launch(const dim3& grid, const Args& a) {
+  // a separate instantiation for each form; dlogits come with a bias only
+  const bool dd = a.dr.seed != nullptr;
+  const auto kernel =
+      a.dlogits != nullptr
+          ? (dd ? fa_bwd_dq_kernel_wgmma<kD, true, true, true>
+                : fa_bwd_dq_kernel_wgmma<kD, true, false, true>)
+      : a.sb.p != nullptr
+          ? (dd ? fa_bwd_dq_kernel_wgmma<kD, true, true, false>
+                : fa_bwd_dq_kernel_wgmma<kD, true, false, false>)
+          : (dd ? fa_bwd_dq_kernel_wgmma<kD, false, true, false>
+                : fa_bwd_dq_kernel_wgmma<kD, false, false, false>);
+  constexpr int smem = Layout<kD>::kSmemBytes;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(a.stream)>>>(
+      a.mq, a.mk, a.mv, a.mdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.dvec), static_cast<__nv_bfloat16*>(a.dq),
+      a.bh, a.sq, a.sk < 0 ? 0 : a.sk, a.scale, a.causal, a.sb, a.dr,
+      static_cast<float*>(a.dlogits));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // bf16 q, k, v, do and dq, contiguous and 16-byte aligned; lse and dvec
-// float32 [bh, sq]. head_dim 64. grid_y, grid_z, bias, heads, the bias
+// float32 [bh, sq]. d: 64 or 128 (the compiled widths; the wrapper pads
+// any other d). grid_y, grid_z, bias, heads, the bias
 // strides and the dropout seed, threshold and keep as for
 // apex_fa_fwd_wgmma. dlogits: float32 [bh, sq, sk], every entry written,
 // or null; only with a bias.
@@ -290,7 +355,8 @@ extern "C" int apex_fa_bwd_dq_wgmma(
     int causal, long long bsb, long long bsh, long long bsq, long long bsk,
     const void* seed, unsigned threshold, float keep, void* dlogits,
     void* stream) {
-  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z) ||
+  if ((d != 64 && d != 128) || heads < 1 ||
+      !bh_grid_ok(bh, grid_y, grid_z) ||
       (dlogits != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
@@ -300,31 +366,16 @@ extern "C" int apex_fa_bwd_dq_wgmma(
   // with no keys the K / V maps are never read: build them over q
   const bool nokeys = sk <= 0;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map_bf16(&mq, q, sq, bh, kBQ) ||
-      !make_map_bf16(&mk, nokeys ? q : k, nokeys ? sq : sk, bh, kBK) ||
-      !make_map_bf16(&mv, nokeys ? q : v, nokeys ? sq : sk, bh, kBK) ||
-      !make_map_bf16(&mdo, dout, sq, bh, kBQ))
+  if (!make_map_bf16(&mq, q, sq, bh, kBQ, d) ||
+      !make_map_bf16(&mk, nokeys ? q : k, nokeys ? sq : sk, bh, kBK, d) ||
+      !make_map_bf16(&mv, nokeys ? q : v, nokeys ? sq : sk, bh, kBK, d) ||
+      !make_map_bf16(&mdo, dout, sq, bh, kBQ, d))
     return (int)cudaErrorInvalidValue;
   const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
                      bsk};
   const Dropout dr{static_cast<const int*>(seed), threshold, keep};
-  // a separate instantiation for each form; dlogits come with a bias only
-  const bool dd = seed != nullptr;
-  const auto kernel =
-      dlogits != nullptr
-          ? (dd ? fa_bwd_dq_kernel_wgmma<true, true, true>
-                : fa_bwd_dq_kernel_wgmma<true, false, true>)
-      : bias != nullptr ? (dd ? fa_bwd_dq_kernel_wgmma<true, true, false>
-                              : fa_bwd_dq_kernel_wgmma<true, false, false>)
-                        : (dd ? fa_bwd_dq_kernel_wgmma<false, true, false>
-                              : fa_bwd_dq_kernel_wgmma<false, false, false>);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
   const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, mdo, static_cast<const float*>(lse),
-      static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dq), bh,
-      sq, sk < 0 ? 0 : sk, scale, causal, sb, dr,
-      static_cast<float*>(dlogits));
-  return (int)cudaGetLastError();
+  const Args a{mq, mk, mv, mdo, lse, dvec, dq, bh, sq, sk, scale, causal,
+               sb, dr, dlogits, stream};
+  return d == 64 ? launch<64>(grid, a) : launch<128>(grid, a);
 }

@@ -10,8 +10,9 @@
 // (ScoreBias in common.cuh, never expanded), with or without attention
 // dropout (Dropout in common.cuh: p times its keep factor before the cast
 // to bf16 for the p.v product; l and lse from the undropped p), JAX layout
-// q
-// (b, h, sq, 64), k / v (b, h, sk, 64). The arithmetic is the TPU
+// q (b, h, sq, d), k / v (b, h, sk, d), d a compiled head width (64 or
+// 128: the template parameter kD; the wrapper pads any other d up to 128
+// with zero columns). The arithmetic is the TPU
 // kernel's: s = round(round(q.k * scale) + bias) in fp32; masked scores
 // (key > row when causal, key >= sk) are -1e30 and a score <= -0.5e30 is
 // out of the softmax support; the running max is shifted by 0 while it is
@@ -21,7 +22,8 @@
 // What bounds it on this card: operations. At GPT-2's shapes (4 x 12 x
 // 1024 x 64, causal) the products are ~2 x 2 x s^2 / 2 x d flops a head
 // over 4 x s x d x 2 bytes of q, k, v and o: ~500 flops a byte, above the
-// H100's ridge (~295 for bf16).
+// H100's ridge (~295 for bf16); at d = 128 (Cerebras-GPT 1.3B's 2 x 16 x
+// 2048 x 128) twice the flops over twice the bytes.
 //
 // What the design does about that: the products run on the tensor cores
 // (wgmma m64n64k16, bf16 in, fp32 sums) from tiles that TMA brings into
@@ -35,7 +37,9 @@
 // scale, bias and masks applied per accumulator element from its (row,
 // key), row max and sum over the 4 threads of a quad, p packed to bf16 in
 // registers as the A operand of O += P V (V, [key][d], is the MN-major B
-// operand). Causal blocks stop at the diagonal; only a tile that crosses
+// operand; at d = 128 two products of N = 64, one on each 64-column half of
+// V, into two accumulators). Causal blocks stop at the diagonal; only a
+// tile that crosses
 // a warpgroup's diagonal or the ragged sk edge runs the masked arithmetic
 // (`_mask_split`), the heaviest query blocks are launched first, and rows
 // past sq load as zeros (the 3-D tensor map) and are never written. The
@@ -43,7 +47,13 @@
 // waits for one product before the softmax of the next: overlapping the
 // two (and deeper key tiles) is later work.
 //
-// The tensor cores sum a score's 64 terms in another order than the plain
+// Head dim 128: every tile arrives as two 64-column boxes (hopper.cuh), the
+// S product takes eight steps of depth, and a consumer holds 64 fp32 of O
+// instead of 32 (the consumers' setmaxnreg budget is the same 232; what
+// does not fit there spills, PERF.md). Shared memory at d = 128: Q 32 KB,
+// four stages of K and V 128 KB and the re-sum scratch 48 KB.
+//
+// The tensor cores sum a score's d terms in another order than the plain
 // version's sequential fp32 product, and bf16(p) can then land on the
 // neighbouring bf16 value: in rows of a few keys that moved o past FA_TOL
 // (13 of 268,697,600 elements at b * h = 65,600, s = 64). So each tile
@@ -69,7 +79,6 @@ namespace {
 using namespace apex_port;
 using namespace apex_port::hopper;
 
-constexpr int kD = 64;          // head dim
 constexpr int kRowsWG = 64;     // query rows per consumer warpgroup
 constexpr int kBQ = 128;        // query rows per block
 constexpr int kBK = 64;         // keys per streamed tile
@@ -78,20 +87,31 @@ constexpr int kThreads = 384;   // two consumer warpgroups + the producer
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-constexpr int kTileBytes = kBK * kD * 2;         // one 64-row bf16 tile
-constexpr int kQBytes = kBQ * kD * 2;
-constexpr int kOffStages = kQBytes;              // K, V of each stage
 // A consumer warp's scratch for the scores summed again (softmax_tile): a
 // value slot per (accumulator element, lane), and the list of the slots
 // to fill
 constexpr int kFixSlots = 32 * 32;
 constexpr int kFixBytes = kFixSlots * 4 + kFixSlots * 2;
-// max |k| of each stage's K tile, one value from each of two warps
-constexpr int kOffNorms = kOffStages + kStages * 2 * kTileBytes;
-constexpr int kOffFix = kOffNorms + kStages * 2 * 4;  // 8 warps' scratch
-constexpr int kOffBars = kOffFix + 8 * kFixBytes;
-constexpr int kSmemBytes = kOffBars + (3 * kStages + 1) * 8 + 1024;
 constexpr int kNormThread0 = 288;  // the producer's warps 9 and 10: |k|
+
+// Shared memory at head dim kD (64 or 128). A tile's rows are 64-column
+// halves of 128 bytes, the second half (d = 128) kHalf bytes after the
+// first: kBK * 128 for a K / V tile, kBQ * 128 for Q.
+template <int kD>
+struct Layout {
+  static constexpr int kTileBytes = kBK * kD * 2;  // one 64-row bf16 tile
+  static constexpr int kQBytes = kBQ * kD * 2;
+  static constexpr int kTileHalf = kBK * 128;
+  static constexpr int kQHalf = kBQ * 128;
+  static constexpr int kOffStages = kQBytes;       // K, V of each stage
+  // max |k| of each stage's K tile, one value from each of two warps
+  static constexpr int kOffNorms = kOffStages + kStages * 2 * kTileBytes;
+  static constexpr int kOffFix = kOffNorms + kStages * 2 * 4;  // 8 warps
+  static constexpr int kOffBars = kOffFix + 8 * kFixBytes;
+  static constexpr int kSmemBytes = kOffBars + (3 * kStages + 1) * 8 + 1024;
+  static_assert(kD == 64 || kD == 128, "compiled head widths");
+  static_assert(kSmemBytes <= 232448, "a block's shared memory");
+};
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -102,11 +122,18 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The 16-byte chunk c (8 bf16) of row r of a 128-byte-swizzled tile
+// The 16-byte chunk c (8 bf16) of row r of a 128-byte-swizzled tile whose
+// second 64-column half lies kHalf bytes after the first (0: one half, c
+// below 8)
+template <int kHalf>
 __device__ __forceinline__ uint4 tile_chunk(const uint8_t* tile, int r,
                                             int c) {
-  return *reinterpret_cast<const uint4*>(tile + r * 128 +
-                                         ((c ^ (r & 7)) << 4));
+  if constexpr (kHalf == 0)
+    return *reinterpret_cast<const uint4*>(tile + r * 128 +
+                                           ((c ^ (r & 7)) << 4));
+  else
+    return *reinterpret_cast<const uint4*>(
+        tile + (c >> 3) * kHalf + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }
 // a pair of bf16 (the lower one first in memory) as fp32
 __device__ __forceinline__ float bf_lo(uint32_t w) {
@@ -115,13 +142,14 @@ __device__ __forceinline__ float bf_lo(uint32_t w) {
 __device__ __forceinline__ float bf_hi(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
 }
-// |row r|^2 of a 128-byte-swizzled tile, chunks c0 .. c0 + nc - 1 (a
-// bound: the order does not matter)
+// |row r|^2 of a 128-byte-swizzled tile (halves kHalf bytes apart),
+// chunks c0 .. c0 + nc - 1 (a bound: the order does not matter)
+template <int kHalf>
 __device__ __forceinline__ float tile_row_sq(const uint8_t* tile, int r,
                                              int c0, int nc) {
   float acc = 0.f;
   for (int c = c0; c < c0 + nc; ++c) {
-    const uint4 v = tile_chunk(tile, r, c);
+    const uint4 v = tile_chunk<kHalf>(tile, r, c);
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -130,15 +158,18 @@ __device__ __forceinline__ float tile_row_sq(const uint8_t* tile, int r,
   }
   return acc;
 }
-// q . k in the plain version's order: one fp32 FMA a term, d = 0 .. 63,
-// from 0 (the sequential sum of cuBLAS's fp32 product, which the FMA
-// kernel repeats). Rows of 128-byte-swizzled tiles.
+// q . k in the plain version's order: one fp32 FMA a term, d = 0 .. kD -
+// 1, from 0 (the sequential sum of cuBLAS's fp32 product, which the FMA
+// kernel repeats). Rows of 128-byte-swizzled tiles whose halves lie kQHalf
+// and kKHalf bytes apart (0 at d = 64: one half).
+template <int kD, int kQHalf, int kKHalf>
 __device__ __forceinline__ float seq_dot(const uint8_t* q, int rq,
                                          const uint8_t* k, int rk) {
   float a = 0.f;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const uint4 qv = tile_chunk(q, rq, c), kv = tile_chunk(k, rk, c);
+  for (int c = 0; c < kD / 8; ++c) {
+    const uint4 qv = tile_chunk<kQHalf>(q, rq, c),
+                kv = tile_chunk<kKHalf>(k, rk, c);
     const uint32_t qw[4] = {qv.x, qv.y, qv.z, qv.w};
     const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
 #pragma unroll
@@ -151,15 +182,20 @@ __device__ __forceinline__ float seq_dot(const uint8_t* q, int rq,
 }
 
 // Where the tensor cores' summation order can change bf16(p). A score's
-// fp32 sum differs between two orders of its 64 terms by a few units of
+// fp32 sum differs between two orders of its d terms by a few units of
 // 2^-24 |q| |k| (the terms' roundings, Cauchy-Schwarz); the tensor cores'
-// order against the plain version's measured at most 2.22 units on the
-// card test's data (chip_smoke.py's "bf16 summation order" line, which
-// requires at most half of kOrderUnits), and kOrderUnits bounds it with
-// room. Scaling and the bias add round once more each (2^-23 of
-// |q.k * scale| <= scale |q| |k| and of |x|).
-constexpr float kOrderUnits = 16.f;
-constexpr float kErrPerNorm = (kOrderUnits + 4.f) * 0x1p-24f;
+// order against the plain version's measured at most 2.22 units at d = 64
+// on the card test's data (chip_smoke.py's "bf16 summation order" lines,
+// which require at most half of kOrderUnits at each width), and
+// kOrderUnits bounds it with room. The worst case of the order error
+// grows with the number of terms (each partial sum rounds once more), so
+// the bound grows with d: 16 units at d = 64, 32 at d = 128. Scaling and
+// the bias add round once more each (2^-23 of |q.k * scale| <= scale |q|
+// |k| and of |x|).
+template <int kD>
+constexpr float kOrderUnits = 16.f * (kD / 64);
+template <int kD>
+constexpr float kErrPerNorm = (kOrderUnits<kD> + 4.f) * 0x1p-24f;
 
 // One key tile of the online softmax for the thread's two rows: scores in
 // s become p (fp32), o and l are rescaled. kMasked: the tile crosses the
@@ -172,9 +208,9 @@ constexpr float kErrPerNorm = (kOrderUnits + 4.f) * 0x1p-24f;
 // summed again in the plain version's order: the row max is the plain
 // version's and so is every bf16(p). The warp shares those sums out, one a
 // lane (a few a tile), through its scratch: fv the values, fl the list.
-template <bool kBias, bool kMasked, bool kDropout>
+template <int kD, bool kBias, bool kMasked, bool kDropout>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[32], float (&o)[32], float (&m)[2], float (&l)[2],
+    float (&s)[32], float (&o)[kD / 64][32], float (&m)[2], float (&l)[2],
     const float (&qn)[2], float kmax, const uint8_t* qt, const uint8_t* kt,
     float* fv, uint16_t* fl, int row0, int rw, int lane, int k0, int sq,
     int sk, float scale, int causal, const ScoreBias& bias,
@@ -208,7 +244,7 @@ __device__ __forceinline__ void softmax_tile(
     mx[h] = quad_max(mx[h]);
     const float qk = scale * qn[h] * kmax;  // >= |q.k * scale|
     ax[h] = kBias ? quad_max(ax[h]) : qk;
-    const float err = fmaf(qk, kErrPerNorm, 0x1p-22f * ax[h]);
+    const float err = fmaf(qk, kErrPerNorm<kD>, 0x1p-22f * ax[h]);
     m_est[h] = fmaxf(m[h], mx[h]);
     m_safe[h] = m_est[h] <= kMaskEdge ? 0.f : m_est[h];
     // the exact max lies in [max(mx - err, m), max(mx + err, m)]
@@ -267,7 +303,10 @@ __device__ __forceinline__ void softmax_tile(
         const int e = slot >> 5, owner = slot & 31;
         const int rr = rw + owner / 4 + ((e >> 1) & 1) * 8;  // row in qt
         const int kk = 8 * (e >> 2) + (owner % 4) * 2 + (e & 1);
-        float x = __fmul_rn(seq_dot(qt, rr, kt, kk), scale);
+        float x = __fmul_rn(
+            seq_dot<kD, kD == 64 ? 0 : Layout<kD>::kQHalf,
+                    kD == 64 ? 0 : Layout<kD>::kTileHalf>(qt, rr, kt, kk),
+            scale);
         if (kBias && row0 + rr < sq)
           x = __fadd_rn(x, bias.at(bs, row0 + rr, k0 + kk));
         fv[slot] = x;
@@ -316,13 +355,14 @@ __device__ __forceinline__ void softmax_tile(
                      : kept_e  ? pp[4 * j + e] * drop.scale
                                : 0.f;
       sum[e >> 1] += pp[4 * j + e];
-      o[4 * j + e] *= alpha[e >> 1];
+#pragma unroll
+      for (int c = 0; c < kD / 64; ++c) o[c][4 * j + e] *= alpha[e >> 1];
     }
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
 }
 
-template <bool kBias, bool kDropout>
+template <int kD, bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -330,11 +370,12 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     int nbh, int sq, int sk, float scale, int causal,
                     ScoreBias bias, Dropout drop) {
+  using L = Layout<kD>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
-  float* kmaxs = reinterpret_cast<float*>(smem + kOffNorms);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOffBars);
+  float* kmaxs = reinterpret_cast<float*>(smem + L::kOffNorms);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kOffBars);
   uint64_t* empty = full + kStages;
   uint64_t* normed = empty + kStages;
   uint64_t* qbar = normed + kStages;
@@ -363,16 +404,16 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     // ------------------------------------------------ producer
     regs_dec<40>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(qbar, kQBytes);
-      tma_load_3d(qs, &map_q, qbar, 0, q0, (int)bh);
+      mbar_expect_tx(qbar, L::kQBytes);
+      tma_load_rows<kD>(qs, &map_q, qbar, kBQ, q0, (int)bh);
       for (int kt = 0; kt < nk; ++kt) {
         const int st = kt % kStages;
         mbar_wait(&empty[st], ((kt / kStages) & 1) ^ 1);
-        uint8_t* ks = smem + kOffStages + st * 2 * kTileBytes;
-        mbar_expect_tx(&full[st], 2 * kTileBytes);
-        tma_load_3d(ks, &map_k, &full[st], 0, kt * kBK, (int)bh);
-        tma_load_3d(ks + kTileBytes, &map_v, &full[st], 0, kt * kBK,
-                    (int)bh);
+        uint8_t* ks = smem + L::kOffStages + st * 2 * L::kTileBytes;
+        mbar_expect_tx(&full[st], 2 * L::kTileBytes);
+        tma_load_rows<kD>(ks, &map_k, &full[st], kBK, kt * kBK, (int)bh);
+        tma_load_rows<kD>(ks + L::kTileBytes, &map_v, &full[st], kBK,
+                          kt * kBK, (int)bh);
       }
     } else if (threadIdx.x >= kNormThread0 &&
                threadIdx.x < kNormThread0 + kBK) {
@@ -382,8 +423,8 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       for (int kt = 0; kt < nk; ++kt) {
         const int st = kt % kStages;
         mbar_wait(&full[st], (kt / kStages) & 1);
-        float n = sqrtf(
-            tile_row_sq(smem + kOffStages + st * 2 * kTileBytes, key, 0, 8));
+        float n = sqrtf(tile_row_sq<kD == 64 ? 0 : L::kTileHalf>(
+            smem + L::kOffStages + st * 2 * L::kTileBytes, key, 0, kD / 8));
 #pragma unroll
         for (int d = 16; d; d >>= 1)
           n = fmaxf(n, __shfl_xor_sync(0xffffffffu, n, d));
@@ -404,18 +445,22 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         causal ? min(nk_all, (row0 + kRowsWG - 1) / kBK + 1) : nk_all;
     const float* bs = kBias ? bias.slice(bh) : nullptr;
     const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
-    const uint8_t* qw = qs + wg * kRowsWG * kD * 2;  // the warpgroup's Q
+    // the warpgroup's Q (its rows of each 64-column half)
+    const uint8_t* qw = qs + wg * kRowsWG * 128;
     const uint32_t q_addr = smem_addr(qw);
     const int rq = 16 * warp + lane / 4;  // r0's row in qw
-    uint8_t* scratch = smem + kOffFix + (wg * 4 + warp) * kFixBytes;
+    uint8_t* scratch = smem + L::kOffFix + (wg * 4 + warp) * kFixBytes;
     float* fv = reinterpret_cast<float*>(scratch);
     uint16_t* fl = reinterpret_cast<uint16_t*>(scratch + kFixSlots * 4);
 
-    float acc[32], s[32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    // o in kD / 64 accumulators of 64 d columns each
+    float acc[kD / 64][32], s[32], m[2] = {kNegInf, kNegInf},
+                                    l[2] = {0.f, 0.f};
     uint32_t p[4][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      acc[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kD / 64; ++c) acc[c][i] = 0.f;
       s[i] = 0.f;
     }
 
@@ -423,17 +468,18 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     float qn[2];  // |q| of the thread's rows
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      qn[h] = sqrtf(quad_sum(tile_row_sq(qw, rq + 8 * h, 2 * (lane % 4),
-                                         2)));
+      qn[h] = sqrtf(quad_sum(tile_row_sq<kD == 64 ? 0 : L::kQHalf>(
+          qw, rq + 8 * h, (kD / 32) * (lane % 4), kD / 32)));
     for (int kt = 0; kt < nk; ++kt) {
       const int st = kt % kStages;
       mbar_wait(&full[st], (kt / kStages) & 1);
       if (active && kt < nk_me) {
-        const uint8_t* kt_s = smem + kOffStages + st * 2 * kTileBytes;
+        const uint8_t* kt_s =
+            smem + L::kOffStages + st * 2 * L::kTileBytes;
         const uint32_t k_addr = smem_addr(kt_s);
         const int k0 = kt * kBK;
         wgmma_fence();
-        product_ss(s, q_addr, k_addr);
+        product_ss<kD>(s, q_addr, L::kQHalf, k_addr, L::kTileHalf);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
@@ -443,20 +489,25 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         mbar_wait(&normed[st], (kt / kStages) & 1);
         const float kmax = fmaxf(kmaxs[2 * st], kmaxs[2 * st + 1]);
         if (masked)
-          softmax_tile<kBias, true, kDropout>(
+          softmax_tile<kD, kBias, true, kDropout>(
               s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
               lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
         else
-          softmax_tile<kBias, false, kDropout>(
+          softmax_tile<kD, kBias, false, kDropout>(
               s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
               lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
         to_a_operand(s, p);  // p in bf16: v's dtype before the p.v product
         wgmma_fence();
-        fence_regs(acc);
-        product_rs(acc, p, k_addr + kTileBytes);
+#pragma unroll
+        for (int c = 0; c < kD / 64; ++c) fence_regs(acc[c]);
+        // O += P V: a product of N = 64 on each 64-column half of V
+#pragma unroll
+        for (int c = 0; c < kD / 64; ++c)
+          product_rs(acc[c], p, k_addr + L::kTileBytes + c * L::kTileHalf);
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs(acc);
+#pragma unroll
+        for (int c = 0; c < kD / 64; ++c) fence_regs(acc[c]);
         fence_regs(p);
       }
       mbar_arrive(&empty[st]);
@@ -470,11 +521,13 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         if (row >= sq) continue;
         const float safe_l = l[h] > 0.f ? l[h] : 1.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(
-              ob + (long long)row * kD + 8 * j + cq) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * h] / safe_l,
-                                    acc[4 * j + 2 * h + 1] / safe_l);
+        for (int c = 0; c < kD / 64; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(
+                ob + (long long)row * kD + 64 * c + 8 * j + cq) =
+                __floats2bfloat162_rn(acc[c][4 * j + 2 * h] / safe_l,
+                                      acc[c][4 * j + 2 * h + 1] / safe_l);
         if (cq == 0)
           lse[bh * sq + row] =
               m[h] <= kMaskEdge ? kNegInf : m[h] + logf(safe_l);
@@ -483,10 +536,31 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+template <int kD>
+int launch(const dim3& grid, const CUtensorMap& mq, const CUtensorMap& mk,
+           const CUtensorMap& mv, void* o, void* lse, int bh, int sq, int sk,
+           float scale, int causal, const ScoreBias& sb, const Dropout& dr,
+           void* stream) {
+  // a separate instantiation for each form
+  const bool b = sb.p != nullptr, dd = dr.seed != nullptr;
+  const auto kernel = b ? (dd ? fa_fwd_kernel_wgmma<kD, true, true>
+                              : fa_fwd_kernel_wgmma<kD, true, false>)
+                        : (dd ? fa_fwd_kernel_wgmma<kD, false, true>
+                              : fa_fwd_kernel_wgmma<kD, false, false>);
+  constexpr int smem = Layout<kD>::kSmemBytes;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      bh, sq, sk < 0 ? 0 : sk, scale, causal, sb, dr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // bf16 q, k, v and o, contiguous and 16-byte aligned; lse float32 [bh,
-// sq]. head_dim 64. grid_y x grid_z blocks carry the bh = b * h slices
+// sq]. d: 64 or 128 (the compiled widths; the wrapper pads any other d).
+// grid_y x grid_z blocks carry the bh = b * h slices
 // (fa_batch_heads_grid in ops/tiling.py). bias: float32 or null; heads = h
 // of bh = b * h; bsb, bsh, bsq, bsk its strides in elements (0 on a
 // broadcast dimension). seed: the dropout seed, int32 on the device, or
@@ -499,7 +573,7 @@ extern "C" int apex_fa_fwd_wgmma(const void* q, const void* k, const void* v,
                                  long long bsq, long long bsk,
                                  const void* seed, unsigned threshold,
                                  float keep, void* stream) {
-  if (d != kD || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+  if ((d != 64 && d != 128) || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   if (!is_aligned(q, 16) || !is_aligned(k, 16) || !is_aligned(v, 16))
@@ -507,24 +581,16 @@ extern "C" int apex_fa_fwd_wgmma(const void* q, const void* k, const void* v,
   // with no keys the K / V maps are never read: build them over q
   const bool nokeys = sk <= 0;
   CUtensorMap mq, mk, mv;
-  if (!make_map_bf16(&mq, q, sq, bh, kBQ) ||
-      !make_map_bf16(&mk, nokeys ? q : k, nokeys ? sq : sk, bh, kBK) ||
-      !make_map_bf16(&mv, nokeys ? q : v, nokeys ? sq : sk, bh, kBK))
+  if (!make_map_bf16(&mq, q, sq, bh, kBQ, d) ||
+      !make_map_bf16(&mk, nokeys ? q : k, nokeys ? sq : sk, bh, kBK, d) ||
+      !make_map_bf16(&mv, nokeys ? q : v, nokeys ? sq : sk, bh, kBK, d))
     return (int)cudaErrorInvalidValue;
   const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
                      bsk};
   const Dropout dr{static_cast<const int*>(seed), threshold, keep};
-  // a separate instantiation for each form
-  const bool b = bias != nullptr, dd = seed != nullptr;
-  const auto kernel = b ? (dd ? fa_fwd_kernel_wgmma<true, true>
-                              : fa_fwd_kernel_wgmma<true, false>)
-                        : (dd ? fa_fwd_kernel_wgmma<false, true>
-                              : fa_fwd_kernel_wgmma<false, false>);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       kSmemBytes);
   const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      bh, sq, sk < 0 ? 0 : sk, scale, causal, sb, dr);
-  return (int)cudaGetLastError();
+  return d == 64 ? launch<64>(grid, mq, mk, mv, o, lse, bh, sq, sk, scale,
+                              causal, sb, dr, stream)
+                 : launch<128>(grid, mq, mk, mv, o, lse, bh, sq, sk, scale,
+                               causal, sb, dr, stream);
 }

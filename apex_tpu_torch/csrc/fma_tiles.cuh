@@ -1,10 +1,11 @@
 // Building blocks of the fp32 flash kernels on the FMA pipes
 // (flash_attention.cu, flash_attention_bwd.cu): asynchronous copies of
-// rows of a (s, 64) fp32 matrix into a shared-memory tile whose rows are
-// padded to kStride floats, and the register-blocked products over such
-// tiles. A lane's micro-tile holds kMI rows (kRowStep apart) by 4 columns
-// (kColStep apart); every operand is a 16-byte float4 load, and every sum
-// runs in order: a score over d = 0..63, an output over the tile's rows.
+// rows of a (s, d) fp32 matrix (d 64 or 128) into a shared-memory tile
+// whose rows are padded to kStride floats, and the register-blocked
+// products over such tiles. A lane's micro-tile holds kMI rows (kRowStep
+// apart) by kNJ columns (kColStep apart) of a score, or by 4 d columns of
+// an output; every operand is a 16-byte float4 load, and every sum runs in
+// order: a score over d = 0..d-1, an output over the tile's rows.
 
 #pragma once
 
@@ -58,33 +59,34 @@ __device__ __forceinline__ void copy_tile(float* dst,
 // acc[i][j] += a_i . b_j over the kD columns in column order; a_i is row
 // kRowStep * i of `a`, b_j row kColStep * j of `b` (both kStride-strided)
 template <int kMI, int kRowStep, int kColStep, int kD, int kStride,
-          int kUnroll>
-__device__ __forceinline__ void score_product(float (&acc)[kMI][4],
+          int kUnroll, int kNJ>
+__device__ __forceinline__ void score_product(float (&acc)[kMI][kNJ],
                                               const float* a,
                                               const float* b) {
 #pragma unroll (kUnroll)
   for (int c = 0; c < kD; c += 4) {
-    float4 av[kMI], bv[4];
+    float4 av[kMI], bv[kNJ];
 #pragma unroll
     for (int i = 0; i < kMI; ++i)
       av[i] = *reinterpret_cast<const float4*>(a + kRowStep * i * kStride + c);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kNJ; ++j)
       bv[j] = *reinterpret_cast<const float4*>(b + kColStep * j * kStride + c);
 #pragma unroll
     for (int t = 0; t < 4; ++t)
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kNJ; ++j)
           acc[i][j] = fmaf(part(av[i], t), part(bv[j], t), acc[i][j]);
   }
 }
 
 // acc[i][u] += sum over the kN tile rows n, in order, of e_i[n] * f[n][u]:
-// e_i is row kRowStep * i of the strip `e`, f the streamed tile at the
-// thread's 4 columns
-template <int kMI, int kRowStep, int kN, int kStride, int kUnroll>
+// e_i is row kRowStep * i of the strip `e` (rows kEStride floats apart),
+// f the streamed tile (rows kStride apart) at the thread's 4 columns
+template <int kMI, int kRowStep, int kN, int kStride, int kUnroll,
+          int kEStride = kStride>
 __device__ __forceinline__ void out_product(float (&acc)[kMI][4],
                                             const float* e, const float* f) {
 #pragma unroll (kUnroll)
@@ -92,7 +94,8 @@ __device__ __forceinline__ void out_product(float (&acc)[kMI][4],
     float4 ev[kMI], fv[4];
 #pragma unroll
     for (int i = 0; i < kMI; ++i)
-      ev[i] = *reinterpret_cast<const float4*>(e + kRowStep * i * kStride + n);
+      ev[i] =
+          *reinterpret_cast<const float4*>(e + kRowStep * i * kEStride + n);
 #pragma unroll
     for (int t = 0; t < 4; ++t)
       fv[t] = *reinterpret_cast<const float4*>(f + (n + t) * kStride);
@@ -106,12 +109,12 @@ __device__ __forceinline__ void out_product(float (&acc)[kMI][4],
   }
 }
 
-template <int kMI>
-__device__ __forceinline__ void zero(float (&a)[kMI][4]) {
+template <int kMI, int kNJ>
+__device__ __forceinline__ void zero(float (&a)[kMI][kNJ]) {
 #pragma unroll
   for (int i = 0; i < kMI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+    for (int j = 0; j < kNJ; ++j) a[i][j] = 0.f;
 }
 
 // rows r0 + kRowStep * i (< s) of a (s, kD) matrix at the thread's 4

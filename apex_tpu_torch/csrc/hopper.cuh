@@ -4,14 +4,20 @@
 // descriptor and the m64n64k16 bf16 products with fp32 sums.
 //
 // Tiles are rows of 64 bf16 (128 bytes) brought into shared memory by TMA
-// with the 128-byte swizzle; every tile starts on a 1024-byte boundary, so
-// one descriptor form serves all of them:
+// with the 128-byte swizzle, the widest row a swizzled box may have; a
+// row of head dim 128 arrives as two such boxes, columns 0..63 and 64..127,
+// each its own run of 128-byte rows (a "half" of the tile, the second
+// `rows` x 128 bytes after the first). Every half starts on a 1024-byte
+// boundary, so one descriptor form serves all of them:
 // - K-major operand (the product's depth, d, runs along the row): 8-row
 //   groups 1024 bytes apart (SBO), the next 16 columns of depth 32 bytes
 //   further in the start address;
+//   At depth 128 the last four steps of 16 read the second half;
 // - MN-major operand (rows are the depth, the 64 columns the product's N):
 //   one 128-byte swizzle atom across N, 8-row depth groups 1024 bytes
-//   apart (SBO), the next 16 rows of depth 2048 bytes further.
+//   apart (SBO), the next 16 rows of depth 2048 bytes further. An N of 128
+//   (a head dim of 128) is two products of N = 64, one on each half, into
+//   two accumulators.
 // The accumulator of a warpgroup's m64nN product: warp w holds rows
 // 16w + lane/4 and 16w + lane/4 + 8; element 4j + {0, 1} is the first row
 // at columns 8j + (lane % 4) * 2 + {0, 1}, 4j + {2, 3} the second row at
@@ -61,16 +67,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 (bh, s, 64) tensor, dimensions (64, s,
-// bh) innermost first, box (64, rows, 1), 128-byte swizzle. Rows past s of
-// one (b * h) slice arrive as zeros, never as the next slice's rows. The
-// base must be 16-byte aligned (the wrapper checks). False on failure.
+// A 3-D map over a contiguous bf16 (bh, s, d) tensor, d 64 or 128,
+// dimensions (d, s, bh) innermost first, box (64, rows, 1): a 64-column
+// half of `rows` rows (tma_load_rows loads every half), 128-byte swizzle.
+// Rows past s of one (b * h) slice arrive as zeros, never as the next
+// slice's rows. The base must be 16-byte aligned (the wrapper checks).
+// False on failure.
 inline bool make_map_bf16(CUtensorMap* map, const void* base, int s,
-                          int bh, int rows) {
+                          int bh, int rows, int d) {
   const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr || s < 1 || bh < 1) return false;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)s, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)s * 64 * 2};
+  if (enc == nullptr || s < 1 || bh < 1 || d % 64 != 0) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
@@ -151,6 +159,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// rows [row, row + rows) of (b * h) slice bh of a map of head dim kD into
+// shared memory at `dst`, a 64-column half after another (half h at dst +
+// h * rows * 128); completion on `bar`, kD * rows * 2 bytes in all
+template <int kD>
+__device__ __forceinline__ void tma_load_rows(void* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int rows,
+                                              int row, int bh) {
+#pragma unroll
+  for (int h = 0; h < kD / 64; ++h)
+    tma_load_3d(static_cast<uint8_t*>(dst) + h * rows * 128, map, bar,
+                64 * h, row, bh);
 }
 
 // Bulk copies of contiguous bytes (the TMA's untiled form): both
@@ -280,16 +302,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The 64 x 64 S = A Bᵀ of one warpgroup over depth 64: four K-major steps
-// of 16, A and B tiles at shared addresses a and b.
+// The 64 x 64 S = A Bᵀ of one warpgroup over depth kD (64 or 128):
+// K-major steps of 16, A and B tiles at shared addresses a and b, whose
+// second 64-column halves lie a_half and b_half bytes further.
+template <int kD>
 __device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a,
-                                           uint32_t b) {
+                                           uint32_t a_half, uint32_t b,
+                                           uint32_t b_half) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss(d, desc_sw128(a + kk * 32), desc_sw128(b + kk * 32), kk > 0);
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss(d, desc_sw128(a + (kk / 4) * a_half + (kk % 4) * 32),
+             desc_sw128(b + (kk / 4) * b_half + (kk % 4) * 32), kk > 0);
 }
 // d += P B over depth 64: P from registers (p[kk] the columns 16kk..+15),
-// B an MN-major tile at shared address b (16 rows of depth a step)
+// B an MN-major tile at shared address b (16 rows of depth a step), its 64
+// columns of N one half of the tile
 __device__ __forceinline__ void product_rs(float (&d)[32],
                                            const uint32_t (&p)[4][4],
                                            uint32_t b) {

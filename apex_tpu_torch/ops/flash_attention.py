@@ -47,6 +47,20 @@ whatever the tiles. The kernels read the int32 seed from device memory,
 so a per-step seed tensor costs no host sync. The kernels spread ``batch * heads`` over grid.y and grid.z
 (:func:`~apex_tpu_torch.ops.tiling.fa_batch_heads_grid`), so any count
 runs.
+
+Every kernel is compiled at the head widths
+:data:`~apex_tpu_torch.ops.tiling.FA_HEAD_DIMS` (64 and 128). On the card
+a call at a compiled d launches as it is; any other d up to 128 is
+zero-padded along d to the next compiled width
+(:func:`~apex_tpu_torch.ops.tiling.fa_kernel_head_dim`): q, k and v (and
+do in the backward) gain zero columns, the kernels run at that width and
+o, dq, dk and dv are sliced back; the wrappers that launch count the
+launch under its pad key. The padding is exact: zero
+columns add exact zeros to every score, to D = rowsum(dO * O) and to o,
+and the bias, the dropout mask, lse and the dlogits do not depend on d.
+The scale is the caller's (the default ``1/sqrt(d)`` from the caller's
+d). The kernel runs on every such call; a head dim above 128 raises
+``NotImplementedError`` on the card (ROADMAP.md). CPU tensors take any d.
 """
 
 from __future__ import annotations
@@ -56,9 +70,12 @@ from typing import Optional, Tuple
 
 import torch
 
+import torch.nn.functional as F
+
 from apex_tpu_torch.ops import _build
-from apex_tpu_torch.ops.tiling import (FA_HEAD_DIM, FA_TC_ALIGN,
-                                       fa_batch_heads_grid, fa_route,
+from apex_tpu_torch.ops.tiling import (FA_HEAD_DIMS, FA_TC_ALIGN,
+                                       fa_batch_heads_grid,
+                                       fa_kernel_head_dim, fa_route,
                                        fa_tc_misaligned)
 
 NEG_INF = -1e30
@@ -247,7 +264,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> bool:
     """True for CPU tensors (plain version); raises on what the CUDA
-    kernels do not take."""
+    kernels do not take (a head dim above the widest compiled one:
+    ``NotImplementedError``)."""
     if q.device.type == "cpu":
         return True
     if q.device.type != "cuda":
@@ -268,11 +286,20 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: q, k, v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q, k, v must be contiguous")
-    if d != FA_HEAD_DIM:
+    if fa_kernel_head_dim(d) is None:
         raise NotImplementedError(
-            f"{name}: the kernel is compiled for head_dim {FA_HEAD_DIM}, "
-            f"got {d}")
+            f"{name}: head_dim {d}; the kernels are compiled for head dims "
+            f"{FA_HEAD_DIMS} and take any d up to {FA_HEAD_DIMS[-1]} "
+            f"(zero-padded); wider heads are still to be ported "
+            f"(ROADMAP.md, port queue)")
     return False
+
+
+def _pad_d(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with zero columns appended along d up to ``width`` (a fresh
+    contiguous tensor, so aligned), or ``t`` itself at that width."""
+    d = t.shape[-1]
+    return t if d == width else F.pad(t, (0, width - d))
 
 
 def _bias_args(name: str, bias: Optional[torch.Tensor],
@@ -332,8 +359,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dropout_p: float = 0.0, dropout_seed=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(o, lse)``. CUDA tensors launch a kernel: contiguous
-    float32 or bfloat16, one dtype for q, k and v, head_dim 64, any
-    batch * heads and sq / sk, an optional fp32 bias broadcastable to
+    float32 or bfloat16, one dtype for q, k and v, any head dim up to 128
+    (64 and 128 as they are, others zero-padded to the next of them, o
+    sliced back), any batch * heads and sq / sk, an optional fp32 bias
+    broadcastable to
     ``(b, h, sq, sk)`` (any strides), attention dropout at ``dropout_p``
     from ``dropout_seed`` (an int or a one-element integer tensor; None
     is 0, as in JAX). bf16 launches the tensor-core kernel (q, k and v
@@ -346,37 +375,47 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd_plain(q, k, v, scale=scale, causal=causal,
                                          bias=bias, dropout_p=dropout_p,
                                          dropout_seed=dropout_seed)
+    d = q.shape[-1]
+    q, k, v = (_pad_d(t, fa_kernel_head_dim(d)) for t in (q, k, v))
     tc = _tensor_core(name, q, k=k, v=v)
     drop, _seed = _dropout_args(name, dropout_p, dropout_seed, q.device)
-    b, h, sq, d = q.shape
+    b, h, sq, kd = q.shape
     sk = k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr, o.data_ptr(),
-            lse.data_ptr(), b * h, *fa_batch_heads_grid(b * h), h, sq, sk, d,
-            float(scale), int(causal), *bstrides, *drop)
+            lse.data_ptr(), b * h, *fa_batch_heads_grid(b * h), h, sq, sk,
+            kd, float(scale), int(causal), *bstrides, *drop)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if tc:
             err = lib.apex_fa_fwd_wgmma(*args, stream)
         else:
             err = lib.apex_fa_fwd(*args, _DTYPES[q.dtype], stream)
-    _count("fa_fwd", tc, dropout=drop[0] is not None)
+    _count("fa_fwd", tc, d, kd, dropout=drop[0] is not None)
     _build.check(err, name)
-    return o, lse
+    return (o if kd == d else o[..., :d].contiguous()), lse
 
 
-def _count(name: str, tc: bool, **forms: bool) -> None:
-    """One launch of flash kernel ``name``: its count, its route's and
-    those of the forms it ran (``fa_fwd:wgmma:dropout``,
-    ``fa_bwd_dq:fma:dbias``)."""
+def _count(name: str, tc: bool, d: int, kd: int, **forms: bool) -> None:
+    """One launch of flash kernel ``name`` at compiled width ``kd`` for a
+    call at head dim ``d``: its count, its route's and those of the forms
+    it ran (``fa_fwd:wgmma:dropout``, ``fa_bwd_dq:fma:dbias``). A width
+    other than 64 has its own keys (``fa_fwd:wgmma:d128``, one a launch,
+    and ``fa_bwd_dq:fma:d128:dbias``), and a call that ran zero-padded one
+    more (``fa_fwd:wgmma:pad80``)."""
     route = f"{name}:{'wgmma' if tc else 'fma'}"
     _build.launches[name] += 1
     _build.route_launches[route] += 1
+    width = route if kd == 64 else f"{route}:d{kd}"
+    if kd != 64:
+        _build.form_launches[width] += 1
+    if d != kd:
+        _build.form_launches[f"{route}:pad{d}"] += 1
     for form, on in forms.items():
         if on:
-            _build.form_launches[f"{route}:{form}"] += 1
+            _build.form_launches[f"{width}:{form}"] += 1
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -390,7 +429,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     also the fp32 dlogits ``(b, h, sq, sk)`` that a differentiated bias
     reduces (None without a bias). CUDA tensors launch the dq kernel
     (in its dlogits form with ``want_dbias`` and a bias) and the dk / dv
-    kernel (inputs as for :func:`flash_attention_fwd`; o and do like q):
+    kernel (inputs as for :func:`flash_attention_fwd`, padded the same
+    way; o and do like q):
     for bf16 the two tensor-core kernels (do 16-byte aligned too), for
     fp32 the two FMA-pipe kernels; no output is summed across blocks, so
     two runs give the same bits. CPU tensors take the plain version."""
@@ -403,7 +443,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dropout_p=dropout_p, dropout_seed=dropout_seed,
             want_dbias=want_dbias)
     b, h, sq, d = q.shape
-    sk = k.shape[2]
     for what, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype \
                 or t.device != q.device or not t.is_contiguous():
@@ -415,9 +454,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: lse must be a contiguous float32 "
                          f"{(b, h, sq)} tensor, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
+    dvec = attention_dvec(o, do)
+    kd = fa_kernel_head_dim(d)
+    q, k, v, do = (_pad_d(t, kd) for t in (q, k, v, do))
+    sk = k.shape[2]
     tc = _tensor_core(name, q, k=k, v=v, do=do)
     drop, _seed = _dropout_args(name, dropout_p, dropout_seed, q.device)
-    dvec = attention_dvec(o, do)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -427,7 +469,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bptr, do.data_ptr(),
             lse.data_ptr(), dvec.data_ptr())
-    geo = (b * h, *fa_batch_heads_grid(b * h), h, sq, sk, d, float(scale),
+    geo = (b * h, *fa_batch_heads_grid(b * h), h, sq, sk, kd, float(scale),
            int(causal), *bstrides, *drop)
     # the tensor-core entries take no dtype: they are bf16 only
     dq_fn, dkv_fn, dtype = (
@@ -438,12 +480,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = dq_fn(*args, dq.data_ptr(), *geo,
                     None if dl is None else dl.data_ptr(), *dtype, stream)
-        _count("fa_bwd_dq", tc, dropout=dropout, dbias=dl is not None)
+        _count("fa_bwd_dq", tc, d, kd, dropout=dropout,
+               dbias=dl is not None)
         _build.check(err, "flash_attention_bwd (dq)")
         err = dkv_fn(*args, dk.data_ptr(), dv.data_ptr(), *geo, *dtype,
                      stream)
-        _count("fa_bwd_dkv", tc, dropout=dropout)
+        _count("fa_bwd_dkv", tc, d, kd, dropout=dropout)
         _build.check(err, "flash_attention_bwd (dk, dv)")
+    if kd != d:
+        dq, dk, dv = (g[..., :d].contiguous() for g in (dq, dk, dv))
     if want_dbias:
         return dq, dk, dv, dl
     return dq, dk, dv
@@ -474,7 +519,9 @@ class _FlashAttention(torch.autograd.Function):
     the bias needs a gradient, reduced to the bias's shape. q, k, v and
     the incoming gradient reach the kernels contiguous and aligned
     (:func:`_kernel_operand`), so any layout the JAX function takes runs
-    here too."""
+    here too. The saved tensors keep the caller's head dim: the wrappers
+    pad what a kernel reads, and neither o nor lse is read at the padded
+    width (D = rowsum(dO o) is taken at the caller's)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, causal, scale, dropout_p):

@@ -118,41 +118,71 @@ def ln_bwd_geometry(rows: int, hidden: int, dtype: str = "bfloat16",
     return LnBwdGeometry("smem", 0, warps, blocks)
 
 
-# flash attention, compiled for head_dim 64 only. The fp32 forward's FMA
-# kernel (csrc/flash_attention.cu) takes the geometry of
-# fa_fma_fwd_geometry(), the fp32 backward's (csrc/flash_attention_bwd.cu)
-# that of fa_fma_bwd_geometry().
-FA_HEAD_DIM = 64
+# flash attention, compiled for the head widths FA_HEAD_DIMS; a call at
+# any other d up to the widest is zero-padded along d to the next compiled
+# width (fa_kernel_head_dim), which changes no score, lse or output. The
+# fp32 forward's FMA kernel (csrc/flash_attention.cu) takes the geometry
+# of fa_fma_fwd_geometry(d), the fp32 backward's
+# (csrc/flash_attention_bwd.cu) that of fa_fma_bwd_geometry(d).
+FA_HEAD_DIMS = (64, 128)
+
+
+def fa_kernel_head_dim(d: int):
+    """The compiled head width a call at head dim ``d`` runs at: the
+    smallest of FA_HEAD_DIMS at or above ``d`` (``d`` itself where it is
+    compiled), or None above the widest (d > 128: no kernel)."""
+    if d < 1:
+        raise ValueError(f"flash attention head dim must be positive, got "
+                         f"{d}")
+    return next((w for w in FA_HEAD_DIMS if w >= d), None)
+
+
+def _fa_check_width(head_dim: int) -> int:
+    if head_dim not in FA_HEAD_DIMS:
+        raise ValueError(f"the flash kernels are compiled for head dims "
+                         f"{FA_HEAD_DIMS}, got {head_dim}")
+    return head_dim
 
 
 @dataclasses.dataclass(frozen=True)
 class FmaFwdGeometry:
-    """The fp32 flash forward's FMA-pipe kernel, mirrored by the
-    ``constexpr`` values of ``csrc/flash_attention.cu``. A block of
-    ``threads`` owns ``block_rows`` query rows, ``warp_rows`` to a warp,
-    ``blocks_per_sm`` blocks an SM, and streams ``tile_rows``-row K / V
-    tiles through ``stages`` shared-memory stages; every tile row is
+    """The fp32 flash forward's FMA-pipe kernel at one compiled head width,
+    mirrored by the ``constexpr`` values of ``FwdGeometry<head_dim>`` in
+    ``csrc/flash_attention.cu``. A block of ``threads`` owns
+    ``block_rows`` query rows, ``warp_rows`` to a warp, ``blocks_per_sm``
+    blocks an SM, and streams ``tile_rows``-row K / V tiles through
+    ``stages`` shared-memory stages; every Q, K and V row is
     ``row_stride`` floats (the head dim padded to spread a quarter-warp's
-    16-byte loads over distinct banks); a lane holds ``micro`` = (rows,
-    keys) of S and (rows, d columns) of o, a warp all of a tile's keys for
-    its rows. The grid is ``(grid.y of fa_batch_heads_grid, query blocks,
-    grid.z)``: x, dispatched first, runs over batch * heads, y over the
-    query blocks in the order :meth:`order` (heaviest first)."""
+    16-byte loads over distinct banks), every p strip row
+    ``strip_stride`` (the tile's keys, padded the same way); a lane holds
+    ``micro`` = (rows, keys) of S and, in each of ``head_dim / 64``
+    groups of 64 d columns, (rows, 4 columns) of o, a warp all of a
+    tile's keys for its rows. The grid is ``(grid.y of
+    fa_batch_heads_grid, query blocks, grid.z)``: x, dispatched first,
+    runs over batch * heads, y over the query blocks in the order
+    :meth:`order` (heaviest first)."""
     block_rows: int = 64
     tile_rows: int = 64
-    head_dim: int = FA_HEAD_DIM
+    head_dim: int = 64
     threads: int = 128
     warp_rows: int = 16
     blocks_per_sm: int = 2
     stages: int = 2
-    row_stride: int = FA_HEAD_DIM + 4
+    row_stride: int = 68
+    strip_stride: int = 68
     micro: tuple = (8, 4)
 
     @property
     def smem_bytes(self) -> int:
-        """Q and the p strip (block rows), K / V of each stage."""
-        return 4 * self.row_stride * (2 * self.block_rows
-                                      + 2 * self.stages * self.tile_rows)
+        """Q (block rows), the p strip, K / V of each stage."""
+        return 4 * (self.row_stride * (self.block_rows
+                                       + 2 * self.stages * self.tile_rows)
+                    + self.strip_stride * self.block_rows)
+
+    @property
+    def col_groups(self) -> int:
+        """Groups of 64 d columns in a lane's o (4 columns in each)."""
+        return self.head_dim // 64
 
     def blocks(self, sq: int) -> int:
         """Query blocks (grid.y) over ``sq`` rows."""
@@ -189,45 +219,66 @@ class FmaFwdGeometry:
             causal and tile * self.tile_rows > row0 + self.warp_rows - 1)
 
 
-def fa_fma_fwd_geometry() -> FmaFwdGeometry:
-    """The geometry of the fp32 flash forward's FMA kernel."""
-    return FmaFwdGeometry()
+# d = 128: 132-float rows take 186 KB a block, so one block an SM
+_FMA_FWD = {64: FmaFwdGeometry(),
+            128: FmaFwdGeometry(head_dim=128, blocks_per_sm=1,
+                                row_stride=132)}
+
+
+def fa_fma_fwd_geometry(head_dim: int = 64) -> FmaFwdGeometry:
+    """The geometry of the fp32 flash forward's FMA kernel at a compiled
+    head width."""
+    return _FMA_FWD[_fa_check_width(head_dim)]
 
 
 @dataclasses.dataclass(frozen=True)
 class FmaBwdGeometry:
-    """The fp32 flash backward's two FMA-pipe kernels (dq and dk / dv),
-    mirrored by the ``constexpr`` values of ``csrc/flash_attention_bwd.cu``.
-    A block of ``threads`` owns ``block_rows`` rows (queries in dq, keys in
-    dk / dv) and streams ``tile_rows``-row tiles (keys in dq, queries in
-    dk / dv) through ``stages`` shared-memory stages; every tile row is
-    ``row_stride`` floats (the head dim padded to spread a quarter-warp's
-    16-byte loads over distinct banks); a lane holds ``micro`` = (rows,
-    streamed rows) of S or dP. The grid is ``(grid.y of
-    fa_batch_heads_grid, row blocks, grid.z)``: x, dispatched first, runs
-    over batch * heads, y over the row blocks in the order
+    """The fp32 flash backward's two FMA-pipe kernels (dq and dk / dv) at
+    one compiled head width, mirrored by the ``constexpr`` values of
+    ``BwdGeometry<head_dim>`` in ``csrc/flash_attention_bwd.cu``. A block
+    of ``threads`` owns ``block_rows`` rows (queries in dq, keys in dk /
+    dv) and streams ``tile_rows``-row tiles (keys in dq, queries in dk /
+    dv) through ``stages`` shared-memory stages; every Q, K, V and dO row
+    is ``row_stride`` floats (the head dim padded to spread a
+    quarter-warp's 16-byte loads over distinct banks), every p / ds strip
+    row ``strip_stride`` (the tile's rows, padded the same way); warps go
+    in pairs of ``4 * micro[0]`` rows, each warp of a pair half of the
+    streamed rows; a lane holds ``micro`` = (rows, streamed rows) of S or
+    dP and, in each of ``head_dim / 64`` groups of 32 d columns of its
+    warp's half, (rows, 4 columns) of each output. The grid is ``(grid.y
+    of fa_batch_heads_grid, row blocks, grid.z)``: x, dispatched first,
+    runs over batch * heads, y over the row blocks in the order
     :meth:`dq_order` / :meth:`dkv_order` (heaviest first)."""
     block_rows: int = 128
     tile_rows: int = 64
-    head_dim: int = FA_HEAD_DIM
+    head_dim: int = 64
     threads: int = 256
     stages: int = 2
-    row_stride: int = FA_HEAD_DIM + 4
+    row_stride: int = 68
+    strip_stride: int = 68
     micro: tuple = (8, 4)
 
     @property
     def dq_smem_bytes(self) -> int:
-        """Q, dO and the ds strip (block rows), K / V of each stage."""
-        return 4 * self.row_stride * (3 * self.block_rows
-                                      + 2 * self.stages * self.tile_rows)
+        """Q and dO (block rows), the ds strip, K / V of each stage."""
+        return 4 * (self.row_stride * (2 * self.block_rows
+                                       + 2 * self.stages * self.tile_rows)
+                    + self.strip_stride * self.block_rows)
 
     @property
     def dkv_smem_bytes(self) -> int:
-        """K, V and the p and ds strips (block rows), Q / dO and the lse /
+        """K and V (block rows), the p and ds strips, Q / dO and the lse /
         D slices of each stage."""
-        return 4 * (self.row_stride * (4 * self.block_rows
+        return 4 * (self.row_stride * (2 * self.block_rows
                                        + 2 * self.stages * self.tile_rows)
+                    + 2 * self.strip_stride * self.block_rows
                     + 2 * self.stages * self.tile_rows)
+
+    @property
+    def col_groups(self) -> int:
+        """Groups of 32 d columns in a lane's share of an output (4
+        columns in each)."""
+        return self.head_dim // 64
 
     def blocks(self, s: int) -> int:
         """Row blocks (grid.y) over ``s`` rows."""
@@ -260,13 +311,26 @@ class FmaBwdGeometry:
         return range(first, max(first, -(-sq // self.tile_rows)))
 
 
-def fa_fma_bwd_geometry() -> FmaBwdGeometry:
-    """The geometry of the fp32 flash backward's FMA kernels."""
-    return FmaBwdGeometry()
+# d = 128: 128-row blocks of 132-float rows would not fit (the dq kernel
+# 338 KB, dk / dv 407 KB); blocks of 64 rows (two warp pairs) over 32-row
+# tiles take 144 KB and 154 KB
+_FMA_BWD = {64: FmaBwdGeometry(),
+            128: FmaBwdGeometry(block_rows=64, tile_rows=32, head_dim=128,
+                                threads=128, row_stride=132,
+                                strip_stride=36, micro=(8, 2))}
+
+
+def fa_fma_bwd_geometry(head_dim: int = 64) -> FmaBwdGeometry:
+    """The geometry of the fp32 flash backward's FMA kernels at a compiled
+    head width."""
+    return _FMA_BWD[_fa_check_width(head_dim)]
+
+
 # The tensor-core kernels (bf16; csrc/flash_fwd_wgmma.cu,
 # csrc/flash_bwd_dq_wgmma.cu, csrc/flash_bwd_dkv_wgmma.cu) work out their
-# tiles for themselves: blocks of 128 rows (forward and dq: queries; dk /
-# dv: keys) in two 64-row warpgroups, streaming 64-row tiles. TMA reads
+# tiles for themselves, at either width: blocks of 128 rows (forward and
+# dq: queries; dk / dv: keys) in two 64-row warpgroups, streaming 64-row
+# tiles, a row of 128 d columns arriving as two 64-column boxes. TMA reads
 # each tensor from a base address aligned to FA_TC_ALIGN bytes.
 FA_TC_ALIGN = 16
 

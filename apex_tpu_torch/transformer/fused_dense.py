@@ -46,9 +46,23 @@ def _mm_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), weight.float().t())
 
 
+def _mm_round_once(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two 2-D low-precision operands, summed in fp32 and
+    rounded once to their dtype, as the JAX dot is. On the card cuBLAS
+    is asked for the fp32 result and it is cast after: with a bf16
+    result cuBLAS may add split-K partial sums in bf16, several roundings
+    where the reference has one (the LM head's input gradient, a sum over
+    the vocabulary, showed it in ``chip_smoke.py``'s cerebras check). The
+    CPU's product already rounds once."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32).to(a.dtype)
+    return a @ b
+
+
 class _MatmulF32(torch.autograd.Function):
     """``x @ weight.T`` with an fp32 result from low-precision operands;
-    the backward casts the fp32 cotangent to the operands' dtype."""
+    the backward casts the fp32 cotangent to the operands' dtype and
+    rounds each product once (:func:`_mm_round_once`)."""
 
     @staticmethod
     def forward(ctx, x, weight):
@@ -58,9 +72,10 @@ class _MatmulF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        g = g.to(x.dtype)
-        dx = torch.matmul(g, weight)
-        dw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+        g2 = g.to(x.dtype).reshape(-1, g.shape[-1])
+        dx = _mm_round_once(g2, weight).reshape(*g.shape[:-1],
+                                                weight.shape[1])
+        dw = _mm_round_once(g2.t(), x.reshape(-1, x.shape[-1]))
         return dx, dw
 
 

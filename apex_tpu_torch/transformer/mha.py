@@ -18,8 +18,10 @@ as in the JAX package, never :func:`mha_reference`. A ``dropout_seed``
 (an int or a one-element integer tensor, varied per step) switches on
 attention dropout at ``dropout_p`` inside the flash kernels, the JAX
 modules' training mode; without a seed dropout is off (eval), as in JAX.
-head_dim other than 64 is not ported to the flash kernels yet and raises
-``NotImplementedError`` at construction.
+The modules build at any head dim on either device, as the JAX ones do;
+on the card flash runs every head dim up to 128 (64 and 128 as they are,
+others zero-padded) and a wider head raises ``NotImplementedError`` at
+the call.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch.ops.flash_attention import flash_attention
-from apex_tpu_torch.ops.tiling import FA_HEAD_DIM
 from apex_tpu_torch.transformer.fused_dense import dense_param, zeros_param
 from apex_tpu_torch.transformer.rope import fused_rope_cached
 from apex_tpu_torch.transformer.softmax import (
@@ -75,12 +76,7 @@ def _head_dim(name: str, embed_dim: int, num_heads: int) -> int:
     if embed_dim % num_heads:
         raise ValueError(f"{name}: embed_dim {embed_dim} is not a multiple "
                          f"of num_heads {num_heads}")
-    d = embed_dim // num_heads
-    if d != FA_HEAD_DIM:
-        raise NotImplementedError(
-            f"{name}: head_dim {d}; the flash kernels are compiled for "
-            f"{FA_HEAD_DIM} only (ROADMAP.md, port queue)")
-    return d
+    return embed_dim // num_heads
 
 
 def rope_tables(s: int, d: int, theta: float, device):

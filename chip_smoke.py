@@ -9,7 +9,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch / CUDA
    versions, and the build of every ``apex_tpu_torch/csrc/*.cu`` for
    ``sm_90a`` from the checkout, with its seconds; ptxas's registers,
-   spills and stack of the tensor-core flash kernels, of the fp32
+   spills and stack of the tensor-core flash kernels (every form at both
+   compiled head widths, 64 and 128), of the fp32
    route's FMA-pipe forward and backward pair, of every instantiation of
    the LayerNorm backward's register form, of the one-pass GroupNorm's
    cluster route and of the two-pass pair's vector route (``-Xptxas
@@ -49,6 +50,13 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    runs identical, with SDPA (``dropout_p``; a float ``attn_mask`` that
    requires grad) as the library yardstick, and a one-hot v whose o is 0 exactly where the
    mask drops, the kept share within KEEP_SIGMAS binomial deviations;
+   the six flash kernels at head dim 128 in every form at Cerebras-GPT
+   1.3B's causal 2 x 16 x 2048 x 128 (plain, dropout, dlogits; the
+   summary's d128 rows), at BERT's shape with its padding mask and 2 x 3
+   x 200 x 333 causal, and the padded route at Cerebras-GPT 2.7B's 2 x 32
+   x 2048 x 80 (``kernel_ms`` the kernel at 128, ``pad_ms`` / ``dvec_ms``
+   the pad and slice copies, SDPA at d = 80), with the summation-order
+   census again at d = 128 (half of its kOrderUnits = 32);
    fused Adam over the GPT-2 small flat buffer; the two LAMB stages over the BERT-large flat
    buffer (334M fp32) and a ragged one, with two runs bit-identical and
    an overflow step that changes no bit; and the flat optimizer kernels
@@ -258,6 +266,28 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    (IPC arenas, which ``memory_allocated`` does not see) the pool's two,
    with no arena made or grown after the first exchange.
 
+14. ``cerebras``: Cerebras-GPT 1.3B (the GPT-2 architecture: 2048 wide,
+   24 layers, 16 heads of 128, 2048 positions; random weights from a
+   seed) trained by ``Trainer`` (fp32 parameters, bf16 compute, flat
+   AdamW under the dynamic scaler) for 5 steps on one 2 x 2048 batch:
+   losses finite and falling, per step exactly 49 ``ln_fwd`` / ``ln_bwd``,
+   24 of each flash kernel, all in their d = 128 tensor-core forms (no
+   padded call), and one ``fused_adam``; step ms, tokens/s, peak memory
+   beside the 20 bytes a parameter reckoned before activations, one more
+   step's device time by kind and idle share. The trained weights serve 8
+   requests through ``Engine`` (4 slots), and the served prefill logits
+   are held against the trained forward (FWD_BF16_REL_L2). (b) 2 layers
+   at its widths in fp32, 1 x 256 tokens: loss and every gradient card vs
+   CPU (relative L2 1e-3; the FMA kernels at d = 128). (c) 2 layers at
+   Cerebras-GPT 2.7B's widths (2560, 32 heads of 80: the padded route) in
+   bf16 (2.5e-2) and fp32 (1e-3) against the fp32 CPU. (d) the d = 128
+   dropout and dlogits forms of all six kernels: ``SelfMultiheadAttn(2048,
+   16, dropout_p=0.1)`` bf16 5 flat FusedAdam steps, a learned (1, 16,
+   2048, 2048) bias trained through ``flash_attention(bias=...)`` on bf16
+   q, k, v, fp32 ``EncdecMultiheadAttn(dropout_p=0.1)`` with a padding
+   mask card vs CPU, an fp32 learned bias against autograd of the unfused
+   function.
+
 Then a ``profiler`` line (the passes of torch.profiler this process made
 to time kernels, how many of them lost records and were made again, the
 cover of each that was held to the card's clock, and each that covered
@@ -276,7 +306,9 @@ and ``csrc/flash_attention_bwd.cu``, at GPT-2's causal shape with the
 BERT row beside), launched by the fp32 runs of those paths: the fp32 ring
 runs of phase 12 and phase 10's cross-attention; then the forms of
 ``FORM_KERNELS`` at GPT-2 XL's causal shape, launched by phase 10's
-(e)-(g)),
+(e)-(g), and the six kernels' d = 128 forms at Cerebras-GPT 1.3B's
+attention, launched by phase 14, each base form with its padded d = 80
+call beside it),
 the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``. Any failed check raises and the
 script exits non-zero without that last line; without CUDA, or away from
@@ -367,6 +399,22 @@ MEGATRON_REL_L2 = 1e-4   # module vs unfused twin, card vs CPU (fp32)
 MHA_BF16_REL_L2 = 5e-2   # the module on a bf16 input vs fp32: output, grads
 LCE_REL_L2 = 1e-5        # chunked head vs the dense head on the card (fp32)
 LCE_CHECK_ROWS = 512     # rows of the card-vs-CPU checks of (d)
+# Cerebras-GPT, the GPT-2 architecture (huggingface.co/cerebras/
+# Cerebras-GPT-1.3B config.json; Dey et al. 2023, arXiv 2304.03208, Table
+# 1): 1.3B is 2048 wide, 24 layers, 16 heads of 128, 2048 positions;
+# 2.7B 2560 wide, 32 heads of 80
+CG_EMBD, CG_LAYERS, CG_HEADS, CG_CTX = 2048, 24, 16, 2048
+CG27_EMBD, CG27_HEADS = 2560, 32
+CG_BATCH = 2             # 2 x 2048 tokens a step
+CG_STEPS = 5
+CG_LR = 2e-4             # Cerebras-GPT 1.3B's published peak rate
+CG_CHECK_LAYERS = 2      # the card-vs-CPU checks: 2 layers at full width,
+CG_CHECK_SEQ = 256       # 1 x 256 tokens
+# card vs the fp32 CPU, per parameter. bf16: one rounding of each product
+# reads 0.013 at the 2.7B widths, bf16 sums of split-K partials in the LM
+# head's input gradient 0.048 (PERF.md)
+CG_GRAD_REL_L2 = {"fp32": 1e-3, "bf16": 2.5e-2}
+CG_FORM_SEQ = 512        # the fp32 forms' card-vs-CPU checks of (d)
 
 # Every kernel of the port: its source, the function of the JAX package it
 # replaces (file:line of the ``def``: the kernel's entry or, for the flash
@@ -463,10 +511,35 @@ FORM_KERNELS = {
     "fa_bwd_dq_fp32_dbias": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
                              "fa_bwd_dq", "fma", "dbias"),
 }
+# the six flash kernels compiled for head dim 128, each form (template
+# instantiations of the same kernels at kD = 128), launched by the
+# cerebras phase: form "d128" is the kernel's own, "d128:<form>" its
+# dropout or dlogits form (keys of ``_build.form_launches``)
+for _route, _tail in (("wgmma", ""), ("fma", "_fp32")):
+    _srcs = ({"fa_fwd": "flash_fwd_wgmma.cu", "fa_bwd_dq":
+              "flash_bwd_dq_wgmma.cu", "fa_bwd_dkv": "flash_bwd_dkv_wgmma.cu"}
+             if _route == "wgmma" else
+             {"fa_fwd": "flash_attention.cu", "fa_bwd_dq":
+              "flash_attention_bwd.cu", "fa_bwd_dkv": "flash_attention_bwd.cu"})
+    for _twin, _src in _srcs.items():
+        for _form in ("", "dropout") + (("dbias",) if _twin == "fa_bwd_dq"
+                                         else ()):
+            FORM_KERNELS[f"{_twin}{_tail}_d128" + (f"_{_form}" if _form
+                                                    else "")] = (
+                "apex_tpu_torch/csrc/" + _src, _twin, _route,
+                "d128" + (f":{_form}" if _form else ""))
+del _route, _tail, _srcs, _twin, _src, _form
 # the lines of the JAX package's flash kernels that each form replaces:
-# `_dropout_keep` and its uses; the dq kernel's dlogits output
+# `_dropout_keep` and its uses; the dq kernel's dlogits output; the
+# BlockSpecs and scratch that carry the whole head dim d (d128)
 FORM_TPU = {"dropout": _P + "flash_attention.py:207,305,536,583",
-            "dbias": _P + "flash_attention.py:509,540,549"}
+            "dbias": _P + "flash_attention.py:509,540,549",
+            "d128": _P + "flash_attention.py:436,450-453,473"}
+
+
+def form_lines(form):
+    """The JAX lines a form replaces (``d128:dropout``: both parts')."""
+    return ";".join(FORM_TPU[f] for f in form.split(":"))
 
 
 def emit(phase: str, **fields) -> None:
@@ -750,37 +823,73 @@ def _same_bits(a, b) -> bool:
 # (1 of 30 flash launches once, 15 of 20 memcpys once, 1 of 2 gemms of an
 # fp32 MLP's one-call profile in 1 pass of 20)
 PROFILE_TRIES = 8
+# spin kernels that open (``lead``) and close (``trail``) each profile
+# window, of SPIN_CYCLES clock cycles each (about 50 us at the H100's
+# 1.98 GHz): a side whose spins were all lost is doubled for later windows,
+# up to SPIN_MAX
+PROFILE_EDGES = {"lead": 16, "trail": 4}
+SPIN_CYCLES = 100_000
+SPIN_MAX = 256
 # passes of ``_per_call_ms`` in this process, those whose profile lost
 # records, the cover of each pass held to the clock (``min_cover``: its
 # records' device ms over the clock's), and each such pass whose records
-# covered too little (``short``: device and clock ms a call); the
-# ``profiler`` line reports them
-PROFILE_PASSES = {"passes": 0, "lost": 0, "covers": [], "short": []}
+# covered too little (``short``: device and clock ms a call); profile
+# windows, and of them, by count of spins lost, those that lost spins at
+# the lead and at the trail (``{spins lost: windows}``); the ``profiler``
+# line reports them with the spins the last window took
+PROFILE_PASSES = {"passes": 0, "lost": 0, "covers": [], "short": [],
+                  "windows": 0, "lead_lost": {}, "trail_lost": {},
+                  "edges": PROFILE_EDGES}
 
 
 def _profile(fn):
-    """``({kernel: us}, {kernel: runs})``: the summed durations and the
-    count of the device kernels (and copies) ``fn()`` ran, from
-    torch.profiler. Short spin kernels open and close the window and are
-    left out: on an H100 host a window's first two device records were
-    lost (every window of one run, whatever they were: a fill and a copy,
-    or a spin kernel and a fill)."""
+    """``({kernel: us}, {kernel: runs}, edges_kept)``: the summed durations
+    and the count of the device kernels (and copies) ``fn()`` ran, from
+    torch.profiler, and whether the window kept a spin at each end.
+
+    Spin kernels (PROFILE_EDGES) open and close the window and are left
+    out. On H100 hosts a window's first device records were lost, in every
+    window of a run and whatever they were: the first two on one host, on
+    another four 10 us spins and the first kernel of ``fn`` after them (a
+    fill, or a halo put). That fits kineto's dropping of records that
+    start before its window opens, on a host where the card's timestamps
+    run early against the host's clock. A lead spin starts before ``fn``'s
+    first record (``fn`` queues behind them, and NCCL's streams wait on
+    this one), a trail spin after it, so the records say how many of each
+    side the window kept. Where it kept none of one side, ``fn``'s records
+    at that end may be lost too: ``edges_kept`` is False and that side's
+    spins are doubled for later windows."""
     import torch
+    lead, trail = PROFILE_EDGES["lead"], PROFILE_EDGES["trail"]
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
-            torch.cuda._sleep(20000)
+        for _ in range(lead):
+            torch.cuda._sleep(SPIN_CYCLES)
         fn()
-        torch.cuda._sleep(20000)
+        for _ in range(trail):
+            torch.cuda._sleep(SPIN_CYCLES)
         torch.cuda.synchronize()
-    us, runs = {}, {}
+    us, runs, spins, first = {}, {}, [], math.inf
     for ev in prof.events():
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and "spin_kernel" not in ev.name):
-            us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-            runs[ev.name] = runs.get(ev.name, 0) + 1
-    return us, runs
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "spin_kernel" in ev.name:
+            spins.append(ev.time_range.start)
+            continue
+        us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+        runs[ev.name] = runs.get(ev.name, 0) + 1
+        first = min(first, ev.time_range.start)
+    kept_lead = sum(t < first for t in spins) if runs else 0
+    kept = {"lead": kept_lead, "trail": len(spins) - kept_lead}
+    PROFILE_PASSES["windows"] += 1
+    for side, n in (("lead", lead), ("trail", trail)):
+        if kept[side] < n:
+            hist = PROFILE_PASSES[f"{side}_lost"]
+            hist[n - kept[side]] = hist.get(n - kept[side], 0) + 1
+        if not kept[side]:
+            PROFILE_EDGES[side] = min(2 * n, SPIN_MAX)
+    return us, runs, bool(kept["lead"] and kept["trail"])
 
 
 def _per_call_ms(fn, reps, one, min_cover=None):
@@ -796,9 +905,10 @@ def _per_call_ms(fn, reps, one, min_cover=None):
     does not. With ``min_cover``, for calls that keep the card busy back
     to back, the pass also fails where the records' durations add up to
     less than that share of the calls' time between two CUDA events (the
-    card's own clock): records whose time ranges were cut short."""
+    card's own clock): records whose time ranges were cut short. A pass
+    whose windows lost every spin at one end (``_profile``) fails too."""
     import torch
-    _, now = _profile(fn)
+    _, now, now_kept = _profile(fn)
     clock = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
     def loop():
@@ -807,14 +917,16 @@ def _per_call_ms(fn, reps, one, min_cover=None):
             fn()
         clock[1].record()
 
-    us, runs = _profile(loop)
+    us, runs, kept = _profile(loop)
     for k, n in list(now.items()) + [(k, n // reps) for k, n in runs.items()]:
         one[k] = max(one.get(k, 0), n)
     PROFILE_PASSES["passes"] += 1
-    if not one or runs != {k: n * reps for k, n in one.items()}:
+    if (not (now_kept and kept) or not one
+            or runs != {k: n * reps for k, n in one.items()}):
         PROFILE_PASSES["lost"] += 1
         return {}, {"one call": now, f"{reps} calls": runs,
-                    "most seen in one call": dict(one)}
+                    "most seen in one call": dict(one),
+                    "spins kept at both ends": [now_kept, kept]}
     if min_cover is not None:
         device, wall = sum(us.values()) / 1e3, clock[0].elapsed_time(clock[1])
         PROFILE_PASSES["covers"].append(device / wall)
@@ -1713,8 +1825,8 @@ def _norm_solo(dev):
 
 def mode_main(mode, root) -> int:
     """``python3 chip_smoke.py
-    remote-copy|ring|flash-fwd|flash-bwd|softmax|norm [ROOT]``: one part
-    of the run alone, for the ``apex_tpu_torch`` of the checkout at ROOT
+    remote-copy|ring|flash-fwd|flash-bwd|softmax|norm|ptxas [ROOT]``: one
+    part of the run alone, for the ``apex_tpu_torch`` of the checkout at ROOT
     (by default this one), so that two checkouts can be timed in turns on
     one card in one run. ``remote-copy``: phase 11 (a),
     one ``remote_copy_solo`` line. ``ring``: phases 12 and 13 at world 4
@@ -1729,8 +1841,12 @@ def mode_main(mode, root) -> int:
     two-pass GroupNorm pair (each kernel and the whole two-pass forward)
     at the NORM_GN_TWO_PASS shapes, with the LayerNorm backward and
     forward and the one-pass GroupNorm at their main shapes as witnesses,
-    against their library calls, one ``norm_solo`` line. Then the
-    ``profiler`` line and the ``nvidia-smi`` line."""
+    against their library calls, one ``norm_solo`` line. ``ptxas``:
+    the ptxas report of PTXAS_SOURCES (registers, spills, stack of every
+    instantiation, as the env line has it, without requiring this
+    script's list of flash forms: an older checkout names its kernels
+    without a head width), one ``ptxas`` line. Then the ``profiler`` line
+    and the ``nvidia-smi`` line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1762,6 +1878,9 @@ def mode_main(mode, root) -> int:
         emit("softmax_solo", **common, cases=_softmax_solo(dev))
     elif mode == "norm":
         emit("norm_solo", **common, cases=_norm_solo(dev))
+    elif mode == "ptxas":
+        emit("ptxas", **common, ptxas=ptxas_report(_build, PTXAS_SOURCES,
+                                                   forms=False))
     else:
         from apex_tpu_torch.parallel import spawn_ranks
         ranks = spawn_ranks(_rank_steps, HALO_WORLD, (PEER_SPEC,),
@@ -1797,16 +1916,19 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
 # register form, the two-pass GroupNorm's bf16 vector stats kernel and
 # every form of its vector apply kernel (the fp32 stats kernel spills 8
 # bytes at 40 registers, which PERF.md reports)
-NO_SPILL_KERNELS = ("fa_fwd_kernel<false,false>",
-                    "fa_bwd_dq_kernel_fma<false,false,false>",
-                    "fa_bwd_dkv_kernel_fma<false,false>", "ln_bwd_kernel_reg<",
+NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>",
+                    "fa_bwd_dq_kernel_fma<64,false,false,false>",
+                    "fa_bwd_dkv_kernel_fma<64,false,false>",
+                    "ln_bwd_kernel_reg<",
                     "gn_stats_kernel_vec<bf16>", "gn_apply_kernel_vec<")
-# the flash kernels' forms, each reported: (bias, dropout), and the dq
-# kernels' (bias, dropout, dlogits), dlogits only with a bias
-_FORMS2 = tuple(f"{b},{d}" for b in ("false", "true")
+# the flash kernels' forms, each reported at both compiled head widths:
+# (width, bias, dropout), and the dq kernels' (width, bias, dropout,
+# dlogits), dlogits only with a bias
+_FORMS2 = tuple(f"{w},{b},{d}" for w in (64, 128) for b in ("false", "true")
                 for d in ("false", "true"))
-_FORMS_DQ = tuple(f"{f},false" for f in _FORMS2) + ("true,false,true",
-                                                     "true,true,true")
+_FORMS_DQ = tuple(f"{w},{f}" for w in (64, 128) for f in (
+    "false,false,false", "false,true,false", "true,false,false",
+    "true,true,false", "true,false,true", "true,true,true"))
 _FLASH_FORMS = {"fa_fwd_kernel_wgmma": _FORMS2,
                 "fa_bwd_dq_kernel_wgmma": _FORMS_DQ,
                 "fa_bwd_dkv_kernel_wgmma": _FORMS2, "fa_fwd_kernel": _FORMS2,
@@ -1831,13 +1953,14 @@ def _template_args(mangled):
     return ",".join(out)
 
 
-def ptxas_report(build, sources):
+def ptxas_report(build, sources, forms=True):
     """``{kernel: {registers, spill_stores, spill_loads, stack}}`` from
     ``nvcc -Xptxas -v`` on ``sources`` (``{source: kernel names}``, one
     compile each, together, after the library's build), each kernel named
-    by its function and template arguments (``fa_fwd_kernel<false,true>``,
+    by its function and template arguments (``fa_fwd_kernel<64,false,true>``,
     ``ln_bwd_kernel_reg<bf16,3,false,true>``); every named kernel must
-    appear, the flash kernels in every form of ``_FLASH_FORMS``."""
+    appear, the flash kernels in every form of ``_FLASH_FORMS`` (with
+    ``forms``)."""
     import re
     import tempfile
     names = list(sources)
@@ -1876,8 +1999,8 @@ def ptxas_report(build, sources):
             out.setdefault(f"{m.group(1)}<{_template_args(m.group(2))}>",
                            {})["wgmma_serialized"] = \
                 line.split(":", 2)[-1].strip()
-    want = {f"{k}<{f}>" for k, forms in _FLASH_FORMS.items() for f in forms
-            if any(k in ks for ks in sources.values())}
+    want = {f"{k}<{f}>" for k, fs in _FLASH_FORMS.items() for f in fs
+            if forms and any(k in ks for ks in sources.values())}
     missing = [k for ks in sources.values() for k in ks
                if not any(key.startswith(k + "<") for key in out)]
     require(want <= set(out) and not missing,
@@ -1983,7 +2106,7 @@ def main() -> int:
     from apex_tpu_torch.ops.softmax_kernel import (
         MASK_FILL, mask_plan, mask_route, softmax_bwd, softmax_bwd_plain,
         softmax_fwd, softmax_fwd_plain)
-    from apex_tpu_torch.ops.tiling import softmax_form
+    from apex_tpu_torch.ops.tiling import fa_kernel_head_dim, softmax_form
     from apex_tpu_torch.ops.flash_attention import flash_attention
     from apex_tpu_torch.transformer import (
         MLP, EncdecMultiheadAttn, FusedDenseGeluDense, SelfMultiheadAttn,
@@ -2033,16 +2156,17 @@ def main() -> int:
         ``{kernel name: us}``, the summed durations of the device kernels
         it ran (and fills ``counts``, if given, with ``{kernel name:
         runs}``). A pass in which the profiler recorded no device kernel
-        at all (seen once in five runs on an H100 host) is run again, up to
-        PROFILE_TRIES passes. With ``passes`` > 1, ``fn()`` runs under
+        at all (seen once in five runs on an H100 host), or lost every spin
+        at one end of its window, is run again, up to PROFILE_TRIES
+        passes. With ``passes`` > 1, ``fn()`` runs under
         that many profiles and the names are those any of them recorded
         (durations summed over them): a route check of a kernel launched
         once a call then fails only if every profile lost its record."""
         out = {}
         for _ in range(passes):
             for _ in range(PROFILE_TRIES):
-                got, runs = _profile(fn)
-                if got:
+                got, runs, kept = _profile(fn)
+                if got and kept:
                     break
             for name, us in got.items():
                 out[name] = out.get(name, 0.0) + us
@@ -2200,22 +2324,31 @@ def main() -> int:
         return (torch.zeros(mask.shape, device=dev)
                 .masked_fill_(mask, -1e30), mask)
 
-    def require_flash_form(kern, what, name, *form):
+    def require_flash_form(kern, what, name, width, *form):
         """From a profile's kernel names: kernel ``name`` ran in the
-        instantiation of the template arguments ``form`` (bools: bias,
-        dropout and, for the dq kernels, dlogits)."""
-        args = ",".join(str(bool(f)).lower() for f in form)
+        instantiation of the compiled head width ``width`` and the
+        template arguments ``form`` (bools: bias, dropout and, for the dq
+        kernels, dlogits)."""
+        args = ",".join([str(width)] + [str(bool(f)).lower() for f in form])
         ok = any(f"{name}<{args}>" in n.replace(" ", "") for n in kern)
         require(ok, f"{what}: no {name}<{args}> among {sorted(kern)}")
 
+    def split_pad(kern, names):
+        """``(ms of the kernels named, ms of the rest)`` of a profile: at
+        a padded head dim the rest is the pad and slice copies."""
+        ms = sum(v for k, v in kern.items() if any(n in k for n in names))
+        return ms, sum(kern.values()) - ms
+
     def fa_case(b, h, sq, sk, causal, dt, main=None, mask_kind=None,
-                dropout=False):
+                dropout=False, d=64):
         """The flash forward at one shape against its plain version on the
         same card inputs (FA_TOL, LSE_TOL), two runs bit-identical; with
         ``dropout`` at FA_DROP_RATE from a seed in device memory (the same
         keep mask) and SDPA with ``dropout_p`` as the library yardstick
-        (its Philox mask is not ours; the work is the same)."""
-        d = 64
+        (its Philox mask is not ours; the work is the same). ``d``: the
+        head dim (64 and 128 run as they are, any other zero-padded to the
+        next: ``pad_ms`` is then the pad and slice copies, ``kernel_ms``
+        the kernel's own time, ``ms`` both), at the scale 1 / sqrt(d)."""
         es = torch.tensor([], dtype=tdt[dt]).element_size()
         bias, mask = (make_mask(b, h, sq, sk, mask_kind) if mask_kind
                       else (None, None))
@@ -2251,8 +2384,8 @@ def main() -> int:
             dead_ok = bool((o[dead] == 0).all()) \
                 and bool((lse[dead] == NEG_INF).all())
         form = "dropout" if dropout else None
-        what = (f"fa_fwd {b}x{h}x{sq}x{sk} causal={causal} mask={mask_kind} "
-                f"form={form} {dt}")
+        what = (f"fa_fwd {b}x{h}x{sq}x{sk}x{d} causal={causal} "
+                f"mask={mask_kind} form={form} {dt}")
         require(ok_o and dl <= LSE_TOL and dead_ok and det,
                 f"{what}: o err {do.max().item()} (atol {atol} rtol {rtol}), "
                 f"lse err {dl}, fully masked rows zero {dead_ok}, "
@@ -2266,7 +2399,9 @@ def main() -> int:
         kern = device_kernels(fwd, sets, reps)
         require_flash_route(kern, dt, what, ("fa_fwd_kernel",))
         require_flash_form(kern, what, "fa_fwd_kernel" + (
-            "_wgmma" if dt == "bf16" else ""), bias is not None, dropout)
+            "_wgmma" if dt == "bf16" else ""), fa_kernel_head_dim(d),
+            bias is not None, dropout)
+        kernel_ms, pad_ms = split_pad(kern, ("fa_fwd_kernel",))
         kt = {"ms": sum(kern.values()), "call_ms": bench_ms(fwd, sets, reps)}
         pt = timed(lambda q, k, v: flash_attention_fwd_plain(q, k, v, **kw),
                    sets, 5)
@@ -2278,8 +2413,10 @@ def main() -> int:
             q, k, v, attn_mask=keep, is_causal=causal, scale=scale,
             dropout_p=FA_DROP_RATE if dropout else 0.0), sets, reps)
         bms, by = bound(nbytes, ops, dt)
-        rec = dict(kernel="fa_fwd", b=b, h=h, sq=sq, sk=sk, causal=causal,
+        rec = dict(kernel="fa_fwd", b=b, h=h, sq=sq, sk=sk, d=d,
+                   width=fa_kernel_head_dim(d), causal=causal,
                    mask=mask_kind, dtype=dt, form=form,
+                   kernel_ms=kernel_ms, pad_ms=pad_ms,
                    max_abs_err=do.max().item(), lse_err=dl,
                    tol={"atol": atol, "rtol": rtol, "lse_atol": LSE_TOL},
                    deterministic=det,
@@ -2292,9 +2429,10 @@ def main() -> int:
         if main:
             summary[main] = rec
 
-    def fa_order_census():
-        """The bf16 forward's summation order at the card tests' b * h =
-        65,600 causal s = 64 case (the same seed): o past FA_TOL against
+    def fa_order_census(d=64):
+        """The bf16 forward's summation order at head dim ``d`` (64 or
+        128): at d = 64 the card tests' b * h = 65,600 causal s = 64 case
+        (the same seed), at d = 128 b * h = 32,800: o past FA_TOL against
         the plain version (required: none) and, for the record, each
         against a float64 evaluation of the same function (p rounded to
         bf16 from float64 scores); and the score's order error, in units
@@ -2302,17 +2440,19 @@ def main() -> int:
         out) and of the plain version's fp32 product, on the first 64
         heads. The kernel sums again, in the plain version's order, the
         scores whose bf16 p the tensor cores' order could move, on a bound
-        of kOrderUnits = 16 such units (csrc/flash_fwd_wgmma.cu): required
-        here, at most half of it."""
-        b, h, s = 1025, 64, 64
+        of kOrderUnits = 16 d / 64 such units (csrc/flash_fwd_wgmma.cu):
+        required here, at most half of it."""
+        b, h, s = (1025, 64, 64) if d == 64 else (1025, 32, 64)
+        units = 16.0 * d / 64
+        scale = d ** -0.5
         g = torch.Generator(device=dev).manual_seed(17)
-        q, k, v = (torch.randn(b, h, s, 64, device=dev, generator=g)
+        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g)
                    .to(torch.bfloat16) for _ in range(3))
-        o, _ = flash_attention_fwd(q, k, v, scale=0.125, causal=True)
-        op, _ = flash_attention_fwd_plain(q, k, v, scale=0.125,
+        o, _ = flash_attention_fwd(q, k, v, scale=scale, causal=True)
+        op, _ = flash_attention_fwd_plain(q, k, v, scale=scale,
                                           causal=True)
         s64 = torch.matmul(q.double(), k.double().transpose(-1, -2)) \
-            * 0.125
+            * scale
         s64.masked_fill_(torch.ones(s, s, dtype=torch.bool,
                                     device=dev).triu(1), NEG_INF)
         p64 = torch.exp(s64 - s64.amax(-1, keepdim=True))
@@ -2326,7 +2466,7 @@ def main() -> int:
             d = (got.double() - want).abs()
             return int((d > atol + rtol * want.abs()).sum())
 
-        qs, ks = q[:1].reshape(-1, s, 64), k[:1].reshape(-1, s, 64)
+        qs, ks = q[:1].reshape(-1, s, d), k[:1].reshape(-1, s, d)
         exact = torch.matmul(qs.double(), ks.double().transpose(-1, -2))
         unit = 2.0 ** -24 * (qs.double().norm(dim=-1)[..., :, None]
                              * ks.double().norm(dim=-1)[..., None, :])
@@ -2334,7 +2474,8 @@ def main() -> int:
         tc = torch.stack([torch.mm(qs[i], ks[i].t(), out_dtype=torch.float32)
                           for i in range(qs.shape[0])])
         rec = dict(kernel="fa_fwd", check="bf16 summation order", b=b, h=h,
-                   sq=s, sk=s, causal=True, elements=o.numel(),
+                   sq=s, sk=s, d=d, causal=True, elements=o.numel(),
+                   order_units_bound=units,
                    tol={"atol": atol, "rtol": rtol},
                    past_tol_kernel_vs_plain=past(o, op.double()),
                    past_tol_kernel_vs_float64=past(o, o64),
@@ -2347,8 +2488,8 @@ def main() -> int:
                    .max().item())
         emit("kernel", **rec)
         require(rec["past_tol_kernel_vs_plain"] == 0,
-                f"bf16 fa_fwd past FA_TOL at b*h = 65,600: {rec}")
-        require(rec["score_units_tc_vs_fp32"] <= 8.0,
+                f"bf16 fa_fwd past FA_TOL at b*h = {b * h}: {rec}")
+        require(rec["score_units_tc_vs_fp32"] <= units / 2,
                 f"the tensor cores' score order error is past half the "
                 f"kernel's bound: {rec}")
         del q, k, v, o, op, o64, exact, unit, fp32, tc
@@ -2394,7 +2535,24 @@ def main() -> int:
             fa_case(32, 16, 128, 128, False, dt, mask_kind="pad",
                     dropout=True)
             fa_case(2, 3, 200, 333, True, dt, dropout=True)
+            # head dim 128: Cerebras-GPT 1.3B's causal attention (2 x 16 x
+            # 2048 x 128; the summary's rows) plain and with dropout,
+            # BERT's shape with its key-padding mask, a ragged causal
+            # shape; the padded route at Cerebras-GPT 2.7B's head dim 80
+            # (2 x 32 x 2048: the d = 80 summary rows)
+            t = "" if dt == "bf16" else "_fp32"
+            fa_case(CG_BATCH, CG_HEADS, CG_CTX, CG_CTX, True, dt, d=128,
+                    main="fa_fwd" + t + "_d128")
+            fa_case(CG_BATCH, CG_HEADS, CG_CTX, CG_CTX, True, dt, d=128,
+                    dropout=True, main="fa_fwd" + t + "_d128_dropout")
+            fa_case(32, 16, 128, 128, False, dt, mask_kind="pad", d=128)
+            fa_case(32, 16, 128, 128, False, dt, mask_kind="pad", d=128,
+                    dropout=True)
+            fa_case(2, 3, 200, 333, True, dt, d=128)
+            fa_case(CG_BATCH, CG27_HEADS, CG_CTX, CG_CTX, True, dt, d=80,
+                    main="fa_fwd" + t + "_d80")
         fa_order_census()
+        fa_order_census(128)
 
     def ln_bwd_case(rows, hidden, dt, main=None, rms=False, affine=True):
         es = torch.tensor([], dtype=tdt[dt]).element_size()
@@ -2481,7 +2639,7 @@ def main() -> int:
             summary[main] = rec
 
     def fa_bwd_case(b, h, sq, sk, causal, dt, main=None, mask_kind=None,
-                    dropout=False, dbias=False):
+                    dropout=False, dbias=False, d=64):
         """The flash backward's dq and dk / dv kernels at one shape against
         the plain version on the same card inputs (FA_BWD_TOL), two runs
         bit-identical. ``dropout``: at FA_DROP_RATE from a seed in device
@@ -2492,8 +2650,9 @@ def main() -> int:
         with ``mask_kind``), held to DLOGITS_TOL; SDPA's backward with a
         float ``attn_mask`` that requires grad as the yardstick. ``main``
         keeps the records in the summary as ``fa_bwd_dq<main>`` and
-        ``fa_bwd_dkv<main>``."""
-        d = 64
+        ``fa_bwd_dkv<main>``. ``d``: the head dim, as in ``fa_case``
+        (``dvec_ms`` is all outside the two kernels: D's sum and, at a
+        padded d, the pad and slice copies)."""
         scale = 1.0 / math.sqrt(d)
         es = torch.tensor([], dtype=tdt[dt]).element_size()
         mbias, mask = (make_mask(b, h, sq, sk, mask_kind) if mask_kind
@@ -2533,9 +2692,10 @@ def main() -> int:
         want = flash_attention_bwd_plain(*sets[0], **bkw)
         again = flash_attention_bwd(*sets[0], **bkw)
         torch.cuda.synchronize()
-        form = "dropout" if dropout else "dbias" if dbias else None
-        what = (f"fa_bwd {b}x{h}x{sq}x{sk} causal={causal} mask={mask_kind} "
-                f"form={form} {dt}")
+        form = "+".join(f for f, on in (("dropout", dropout),
+                                        ("dbias", dbias)) if on) or None
+        what = (f"fa_bwd {b}x{h}x{sq}x{sk}x{d} causal={causal} "
+                f"mask={mask_kind} form={form} {dt}")
         atol, rtol = FA_BWD_TOL[dt]
         errs, share = {}, {}
         for name, g_, w_ in zip(("dq", "dk", "dv", "dbias"), got, want):
@@ -2570,9 +2730,10 @@ def main() -> int:
         require_flash_route(split, dt, what,
                             ("fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"))
         tail = "_wgmma" if dt == "bf16" else "_fma"
-        require_flash_form(split, what, "fa_bwd_dq_kernel" + tail,
+        kd = fa_kernel_head_dim(d)
+        require_flash_form(split, what, "fa_bwd_dq_kernel" + tail, kd,
                            bias is not None, dropout, dbias)
-        require_flash_form(split, what, "fa_bwd_dkv_kernel" + tail,
+        require_flash_form(split, what, "fa_bwd_dkv_kernel" + tail, kd,
                            bias is not None, dropout)
         ms_dq = sum(v for k, v in split.items() if "fa_bwd_dq_kernel" in k)
         ms_dkv = sum(v for k, v in split.items()
@@ -2625,7 +2786,8 @@ def main() -> int:
                 # SDPA's forward + backward with dropout beside ours
                 lib_both = device_ms(lambda q, k, v, o, lse, do: sdpa(
                     q, k, v, do, False), sets, 10)
-        common = dict(b=b, h=h, sq=sq, sk=sk, causal=causal, mask=mask_kind,
+        common = dict(b=b, h=h, sq=sq, sk=sk, d=d, width=kd, causal=causal,
+                      mask=mask_kind,
                       dtype=dt, form=form, tol={"atol": atol, "rtol": rtol},
                       deterministic=deterministic, call_ms=call,
                       plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
@@ -2859,6 +3021,22 @@ def main() -> int:
                         **{form: True})
             fa_bwd_case(2, 3, 200, 333, True, dt, **{form: True})
         fa_keep_probe(dt)
+        # head dim 128 as in the forward's cases (the summary's keys
+        # fa_bwd_dq / fa_bwd_dkv + "_d128" (+ "_dropout" / "_dbias"), with
+        # "_fp32" before it for the FMA pair), and the padded d = 80
+        t = "" if bf else "_fp32"
+        fa_bwd_case(CG_BATCH, CG_HEADS, CG_CTX, CG_CTX, True, dt, d=128,
+                    main=t + "_d128")
+        for form in ("dropout", "dbias"):
+            fa_bwd_case(CG_BATCH, CG_HEADS, CG_CTX, CG_CTX, True, dt, d=128,
+                        main=t + "_d128_" + form, **{form: True})
+        fa_bwd_case(32, 16, 128, 128, False, dt, mask_kind="pad", d=128)
+        fa_bwd_case(32, 16, 128, 128, False, dt, mask_kind="pad", d=128,
+                    dropout=True)
+        fa_bwd_case(2, 3, 200, 333, True, dt, d=128, dbias=True,
+                    dropout=True)
+        fa_bwd_case(CG_BATCH, CG27_HEADS, CG_CTX, CG_CTX, True, dt, d=80,
+                    main=t + "_d80")
     adam_case(flat_n, main=True)
     adam_case(1001)
     torch.cuda.empty_cache()
@@ -3483,6 +3661,7 @@ def main() -> int:
     # and of their dropout and dlogits forms (``_build.form_launches``)
     path_routes = {}
     main_forms = collections.Counter()
+    form_phases = {}     # the same by phase (megatron, cerebras)
     with torch.inference_mode():
         model(tok_d[:, :16])       # first touch of cuBLAS etc.
         torch.cuda.synchronize()
@@ -4465,9 +4644,11 @@ def main() -> int:
             f"{encdrop_grad}")
     del gmod, gcpu, yg_card, gg_card, yg_cpu, gg_cpu
     torch.cuda.empty_cache()
+    form_phases["megatron"] = collections.Counter()
     for part in (drop_parts, bias_parts, bias32_parts, encdrop_parts):
         megatron_routes.update(part[1])
         main_forms.update(part[2])
+        form_phases["megatron"].update(part[2])
     path_routes["megatron"] = dict(megatron_routes)
 
     megatron_launches = dict(loop_launches)
@@ -4868,6 +5049,352 @@ def main() -> int:
         main_launches[name] = main_launches.get(name, 0) + n
     del hx, hw, y_full, y_got
 
+    # ---------------------------------------------------- 14. cerebras
+    # Cerebras-GPT 1.3B (the GPT-2 architecture, 16 heads of d = 128) at
+    # full width and depth from a seed: (a) trained 5 steps at 2 x 2048 and
+    # served; (b) 2 layers at its widths in fp32, card vs CPU (the FMA
+    # kernels at d = 128); (c) 2 layers at Cerebras-GPT 2.7B's widths (32
+    # heads of d = 80: the padded route) in bf16 and fp32, card vs CPU; (d)
+    # the d = 128 dropout and dlogits forms of all six kernels through the
+    # modules and the public op
+    torch.cuda.empty_cache()
+    flash3 = ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv")
+    cg_cfg = GPT2Config(vocab_size=XL_VOCAB, n_positions=CG_CTX,
+                        n_embd=CG_EMBD, n_layer=CG_LAYERS, n_head=CG_HEADS)
+    t0 = time.perf_counter()
+    cmodel = GPT2.from_params(cg_cfg, init_gpt2_params(cg_cfg, seed=3),
+                              device=dev)
+    cg_init_s = time.perf_counter() - t0
+    cg_n = sum(p.numel() for p in cmodel.parameters())
+    # fp32 parameters, the flat fp32 buffers of the parameters, their
+    # gradients and Adam's two moments, and the model's fp32 gradients
+    # before they are packed: 20 bytes a parameter before activations
+    cg_reckoned = 20 * cg_n
+    cgen = torch.Generator().manual_seed(4)
+    ctok = torch.randint(0, cg_cfg.vocab_size, (CG_BATCH, CG_CTX),
+                         generator=cgen)
+    ctok_d = ctok.to(dev)
+    ctrainer = Trainer(
+        TrainConfig(steps=CG_STEPS, batch=CG_BATCH, seq=CG_CTX, lr=CG_LR,
+                    amp="dynamic"),
+        loss_fn=lm_loss, init_params=cmodel, batch_fn=lambda t: ctok_d)
+    closses, cstep_s = [], []
+    cclock = [time.perf_counter()]
+
+    def cg_on_step(t, loss):
+        now = time.perf_counter()
+        cstep_s.append(now - cclock[0])
+        cclock[0] = now
+        closses.append(loss)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    cclock[0] = time.perf_counter()
+    creport = ctrainer.run(on_step=cg_on_step)
+    torch.cuda.synchronize()
+    cg_parts = (dict(_build.launches), dict(_build.route_launches),
+                dict(_build.form_launches))
+    cpeak = torch.cuda.max_memory_allocated()
+    cper = {"ln_fwd": 2 * CG_LAYERS + 1, "ln_bwd": 2 * CG_LAYERS + 1,
+            "fa_fwd": CG_LAYERS, "fa_bwd_dq": CG_LAYERS,
+            "fa_bwd_dkv": CG_LAYERS, "fused_adam": 1}
+    nfa = CG_LAYERS * CG_STEPS
+    require(cg_parts == ({k: v * CG_STEPS for k, v in cper.items()},
+                         {f"{k}:wgmma": nfa for k in flash3},
+                         {f"{k}:wgmma:d128": nfa for k in flash3}),
+            f"cerebras (a) launches, routes, forms {cg_parts}: expected "
+            f"{cper} a step, flash only in its d = 128 tensor-core forms "
+            f"and no padded call")
+    require(all(math.isfinite(x) for x in closses)
+            and closses[-1] < closses[0] and creport["skipped_steps"] == 0,
+            f"cerebras (a) losses {closses}, report {creport}")
+    csteady = sorted(cstep_s[1:])[len(cstep_s[1:]) // 2] * 1e3
+    ctokens = CG_BATCH * (CG_CTX - 1)
+    ctrainer.config.steps = CG_STEPS + 1
+    ckern = device_profile(lambda: ctrainer.run())
+    require_flash_route(ckern, "bf16", "cerebras train step")
+    for kname in ("fa_fwd_kernel_wgmma", "fa_bwd_dkv_kernel_wgmma"):
+        require_flash_form(ckern, "cerebras train step", kname, 128, False,
+                           False)
+    require_flash_form(ckern, "cerebras train step", "fa_bwd_dq_kernel_wgmma",
+                       128, False, False, False)
+    cbusy = by_kind(ckern)
+    cflash = {k: v / 1e3 for k, v in ckern.items() if "fa_" in k}
+
+    # serving the trained weights: 8 requests on 4 slots, then the served
+    # prefill logits against the trained model's forward
+    cprompts = [16, 256, 48, 128, 200, 32, 96, 64]
+    cnew = 16
+    ceng = Engine(cg_cfg, cmodel, EngineConfig(num_slots=4, max_len=512,
+                                               temperature=0.0), device=dev)
+    crng = np.random.default_rng(6)
+    csched = ServeScheduler(ceng)
+    for i, n in enumerate(cprompts):
+        csched.submit(Request(request_id=f"cg-{i}",
+                              tokens=crng.integers(0, cg_cfg.vocab_size, n)
+                              .tolist(), max_new_tokens=cnew))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    cstats = csched.run()
+    torch.cuda.synchronize()
+    cg_serve_launches = dict(_build.launches)
+    cdone = [r for r in cstats.requests if r["state"] == "completed"
+             and r["new_tokens"] == cnew]
+    require(len(cdone) == len(cprompts),
+            f"cerebras serve: {len(cdone)} of {len(cprompts)} requests "
+            f"completed: {cstats.requests}")
+    csumm = cstats.summary()
+    del ceng, csched
+    ceng = Engine(cg_cfg, cmodel, EngineConfig(
+        num_slots=1, max_len=64, temperature=0.0, keep_prefill_logits=True),
+        device=dev)
+    cfirst, _, ckept = ceng.prefill({0: ctok[0, :32].tolist()})
+    with torch.inference_mode():
+        ctrained = cmodel(ctok_d[:1, :32])[0]
+    cserve_rel = ((ckept[:, 0] - ctrained).norm() / ctrained.norm()).item()
+    require(cserve_rel <= FWD_BF16_REL_L2,
+            f"cerebras: served logits vs the trained forward, relative L2 "
+            f"{cserve_rel}")
+    cscale = ctrainer.sstate.scale.item()
+    del ceng, ckept, ctrained, ctrainer, cmodel
+    torch.cuda.empty_cache()
+
+    def cg_grads(cfgx, params, where, tokens):
+        """(loss, {name: fp32 gradient on the CPU}) of one lm_loss
+        backward of a GPT-2 holding ``params`` on ``where``."""
+        m = GPT2.from_params(cfgx, params, device=where)
+        loss = lm_loss(m, tokens.to(where))
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().float().cpu()
+                             for n, p in m.named_parameters()}
+
+    def cg_check(cfgx, params, dts, what, d):
+        """The card's loss and gradients in each of ``dts`` against the
+        CPU's in fp32 (the plain versions): the worst parameter's relative
+        L2, held to CG_GRAD_REL_L2 of the dtype; the flash forms each card
+        run launched (the compiled width's, padded where d is not
+        compiled)."""
+        tokens = ctok[:1, :CG_CHECK_SEQ]
+        cpu_loss, cpu_g = cg_grads(dataclasses.replace(
+            cfgx, compute_dtype=tdt["fp32"]), params, "cpu", tokens)
+        out = {}
+        for dt in dts:
+            cx = dataclasses.replace(cfgx, compute_dtype=tdt[dt])
+            _build.reset_launches()
+            loss, got = cg_grads(cx, params, dev, tokens)
+            torch.cuda.synchronize()
+            forms = dict(_build.form_launches)
+            route = "wgmma" if dt == "bf16" else "fma"
+            want = {f"{k}:{route}:d128": CG_CHECK_LAYERS for k in flash3}
+            if d != 128:
+                want.update({f"{k}:{route}:pad{d}": CG_CHECK_LAYERS
+                             for k in flash3})
+            require(forms == want, f"{what} {dt}: forms {forms}, expected "
+                                   f"{want}")
+            worst, wname = worst_rel(got, cpu_g)
+            tol = CG_GRAD_REL_L2[dt]
+            require(worst <= tol and abs(loss - cpu_loss) <= tol * abs(
+                cpu_loss), f"{what} {dt} card vs fp32 CPU: loss {loss} vs "
+                           f"{cpu_loss}, {wname} gradient relative L2 "
+                           f"{worst} (tolerance {tol})")
+            out[dt] = dict(loss=loss, cpu_loss=cpu_loss, worst_rel_l2=worst,
+                           worst_param=wname, tol=tol, forms=forms)
+            cg_form_parts.append(forms)
+            torch.cuda.empty_cache()
+        return out
+
+    cg_form_parts = [cg_parts[2]]
+    c2 = dataclasses.replace(cg_cfg, n_layer=CG_CHECK_LAYERS)
+    check_13 = cg_check(c2, init_gpt2_params(c2, seed=5), ("fp32",),
+                        "cerebras (b) 1.3B widths, 2 layers", 128)
+    c27 = dataclasses.replace(c2, n_embd=CG27_EMBD, n_head=CG27_HEADS)
+    check_27 = cg_check(c27, init_gpt2_params(c27, seed=6),
+                        ("bf16", "fp32"),
+                        "cerebras (c) 2.7B widths, 2 layers", 80)
+
+    # (d) the d = 128 forms on the main path. (d1) SelfMultiheadAttn at
+    # the model's widths with dropout_p = 0.1, bf16, 5 flat FusedAdam steps
+    # with a new device seed each: each flash kernel's d = 128 dropout form
+    # a step
+    torch.manual_seed(7)
+    fmod = SelfMultiheadAttn(CG_EMBD, CG_HEADS, causal=True,
+                             dropout_p=FA_DROP_RATE, device=dev)
+    fx = torch.randn(CG_BATCH, CG_CTX, CG_EMBD, generator=cgen) \
+        .to(dev, torch.bfloat16)
+    ftarget = torch.randn(CG_BATCH, CG_CTX, CG_EMBD, generator=cgen).to(dev)
+    fseeds = torch.arange(CG_STEPS, dtype=torch.int32, device=dev) * 31 + 7
+
+    def cg_dropout_loss(model, x, target, seed):
+        return ((model(x, dropout_seed=seed).float() - target) ** 2).mean()
+
+    _, _, fstep = scaled_trainer(
+        fmod, lambda named: FusedAdam(named, lr=MEGATRON_LR, use_flat=True),
+        dev, cg_dropout_loss)
+    flosses = []
+    _build.reset_launches()
+    for i in range(CG_STEPS):
+        flosses.append(float(fstep(fx, ftarget, fseeds[i])))
+    torch.cuda.synchronize()
+    fparts = dict(_build.form_launches)
+    require(fparts == {f"{k}:wgmma:d128{f}": CG_STEPS for k in flash3
+                       for f in ("", ":dropout")}
+            and all(math.isfinite(x) for x in flosses)
+            and flosses[-1] < flosses[0],
+            f"cerebras (d1) forms {fparts}, losses {flosses}")
+    cg_form_parts.append(fparts)
+    del fmod, fx, ftarget, fstep
+
+    # (d2) a learned (1, 16, 2048, 2048) fp32 attention bias trained
+    # through flash_attention(bias=...) on bf16 q, k, v of the model's
+    # attention shape: the dq kernel's d = 128 dlogits form a step
+    class CgBias(torch.nn.Module):
+        def __init__(self, sq):
+            super().__init__()
+            self.bias = torch.nn.Parameter(torch.zeros(1, CG_HEADS, sq, sq,
+                                                       device=dev))
+
+    def cg_bias_loss(model, q, k, v, target):
+        o = flash_attention(q, k, v, True, bias=model.bias)
+        return ((o.float() - target) ** 2).mean()
+
+    table = CgBias(CG_CTX)
+    bq = [torch.randn(CG_BATCH, CG_HEADS, CG_CTX, 128, device=dev,
+                      generator=gen) for _ in range(4)]
+    _, _, tstep = scaled_trainer(
+        table, lambda named: FusedAdam(named, lr=BIAS_LR, use_flat=True),
+        dev, cg_bias_loss)
+    bf_q = [t.to(torch.bfloat16) for t in bq[:3]]
+    tlosses = []
+    _build.reset_launches()
+    for _ in range(CG_STEPS):
+        tlosses.append(float(tstep(*bf_q, bq[3])))
+    torch.cuda.synchronize()
+    tparts = dict(_build.form_launches)
+    require(tparts == {**{f"{k}:wgmma:d128": CG_STEPS for k in flash3},
+                       "fa_bwd_dq:wgmma:d128:dbias": CG_STEPS}
+            and all(math.isfinite(x) for x in tlosses)
+            and tlosses[-1] < tlosses[0],
+            f"cerebras (d2) forms {tparts}, losses {tlosses}")
+    cg_form_parts.append(tparts)
+    del table, bq, bf_q, tstep
+    torch.cuda.empty_cache()
+
+    # (d3) fp32 EncdecMultiheadAttn at the model's widths with dropout_p =
+    # 0.1, a key-padding mask and a seed, card vs CPU: the FMA kernels'
+    # d = 128 dropout forms
+    torch.manual_seed(8)
+    gmod = EncdecMultiheadAttn(CG_EMBD, CG_HEADS, dropout_p=FA_DROP_RATE,
+                               device=dev)
+    gcpu = EncdecMultiheadAttn(CG_EMBD, CG_HEADS, dropout_p=FA_DROP_RATE,
+                               device="cpu")
+    gcpu.load_state_dict({k: v.cpu() for k, v in gmod.state_dict().items()})
+    gq = torch.randn(CG_BATCH, CG_FORM_SEQ, CG_EMBD, generator=cgen)
+    gkv = torch.randn(CG_BATCH, CG_FORM_SEQ // 2, CG_EMBD, generator=cgen)
+    gr = torch.randn(CG_BATCH, CG_FORM_SEQ, CG_EMBD, generator=cgen)
+    gmask = key_padding([CG_FORM_SEQ // 2, 77], CG_FORM_SEQ // 2)
+    _build.reset_launches()
+    yg_card, gg_card = out_and_grads(
+        lambda *a: gmod(*a, dropout_seed=torch.tensor(
+            13, dtype=torch.int32, device=dev)), gmod, gr.to(dev),
+        gq.to(dev), gkv.to(dev), gmask)
+    torch.cuda.synchronize()
+    gparts = dict(_build.form_launches)
+    yg_cpu, gg_cpu = out_and_grads(
+        lambda *a: gcpu(*a, dropout_seed=13), gcpu, gr, gq, gkv,
+        gmask.cpu())
+    genc_out = rel(yg_card.cpu(), yg_cpu)
+    genc_grad, genc_name = worst_rel(
+        {n: g.cpu() for n, g in gg_card.items()}, gg_cpu)
+    require(gparts == {f"{k}:fma:d128{f}": 1 for k in flash3
+                       for f in ("", ":dropout")}
+            and genc_out <= MEGATRON_REL_L2
+            and genc_grad <= MEGATRON_REL_L2,
+            f"cerebras (d3) forms {gparts}; EncdecMultiheadAttn with "
+            f"dropout card vs CPU (fp32): output {genc_out}, {genc_name} "
+            f"gradient {genc_grad}")
+    cg_form_parts.append(gparts)
+    del gmod, gcpu, yg_card, gg_card, yg_cpu, gg_cpu
+
+    # (d4) an fp32 learned bias through flash_attention against autograd of
+    # the unfused function (fp32 scores plus the bias, the causal mask,
+    # torch.softmax, p v): the FMA dq kernel's d = 128 dlogits form
+    bias32 = torch.randn(1, CG_HEADS, CG_FORM_SEQ, CG_FORM_SEQ, device=dev,
+                         generator=gen).requires_grad_(True)
+    cq = [torch.randn(CG_BATCH, CG_HEADS, CG_FORM_SEQ, 128, device=dev,
+                      generator=gen) for _ in range(4)]
+    fa_in = [t.clone().requires_grad_(True) for t in cq[:3]]
+    ref_in = [t.clone().requires_grad_(True) for t in cq[:3]]
+    _build.reset_launches()
+    o_fa = flash_attention(*fa_in, True, bias=bias32)
+    o_fa.backward(cq[3])
+    torch.cuda.synchronize()
+    bparts = dict(_build.form_launches)
+    fa_dbias = bias32.grad.clone()
+    bias32.grad = None
+    scores = torch.matmul(ref_in[0], ref_in[1].transpose(-1, -2)) \
+        * 128 ** -0.5 + bias32
+    scores = scores.masked_fill(torch.ones(
+        CG_FORM_SEQ, CG_FORM_SEQ, dtype=torch.bool, device=dev).triu(1),
+        NEG_INF)
+    o_ref = torch.matmul(torch.softmax(scores, dim=-1), ref_in[2])
+    o_ref.backward(cq[3])
+    torch.cuda.synchronize()
+    ok_o, err_o = close(o_fa.detach(), o_ref.detach(), *FA_TOL["fp32"])
+    berrs = [close(a.grad, b.grad, *FA_BWD_TOL["fp32"])
+             for a, b in zip(fa_in, ref_in)]
+    berrs.append(close(fa_dbias, bias32.grad, *FA_BWD_TOL["fp32"]))
+    require(ok_o and all(ok for ok, _ in berrs)
+            and bparts == {**{f"{k}:fma:d128": 1 for k in flash3},
+                           "fa_bwd_dq:fma:d128:dbias": 1},
+            f"cerebras (d4) learned bias (fp32) vs autograd: o err {err_o}, "
+            f"dq / dk / dv / dbias errs {[e for _, e in berrs]}; forms "
+            f"{bparts}")
+    cg_form_parts.append(bparts)
+    del bias32, cq, fa_in, ref_in, o_fa, o_ref, scores, fa_dbias
+    torch.cuda.empty_cache()
+
+    cg_forms = collections.Counter()
+    for part in cg_form_parts:
+        cg_forms.update(part)
+    main_forms.update(cg_forms)
+    form_phases["cerebras"] = cg_forms
+    # the d = 64 rows keep their meaning: the flash launches of this phase
+    # (all at d = 128) are the d128 rows'
+    cerebras_launches = {k: v for k, v in cg_parts[0].items()
+                         if not k.startswith("fa_")}
+    for name, n in cerebras_launches.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    emit("cerebras", config="Cerebras-GPT 1.3B (GPT2Config n_embd 2048, "
+         "n_layer 24, n_head 16, n_positions 2048; d = 128)",
+         source="huggingface.co/cerebras/Cerebras-GPT-1.3B config.json; "
+         "arXiv 2304.03208 Table 1", params=cg_n, init_s=cg_init_s,
+         compute="bf16", batch=CG_BATCH, seq=CG_CTX, steps=CG_STEPS,
+         lr=CG_LR, amp="dynamic", losses=closses,
+         launches=cg_parts[0], launches_per_step=cper, forms=cg_parts[2],
+         step_ms=[x * 1e3 for x in cstep_s], steady_step_ms=csteady,
+         tokens_per_step=ctokens, tokens_per_s=ctokens / csteady * 1e3,
+         step_device_busy_ms=cbusy,
+         idle_share=1 - cbusy["total"] / csteady,
+         step_flash_ms=cflash, max_memory_allocated=cpeak,
+         reckoned_bytes_before_activations=cg_reckoned,
+         loss_scale=cscale,
+         serve=dict(num_slots=4, max_len=512, requests=len(cprompts),
+                    prompt_lens=cprompts, new_tokens=cnew,
+                    launches=cg_serve_launches,
+                    decode_tokens_per_s=csumm["tokens_per_s"],
+                    p50_step_ms=csumm["p50_step_ms"],
+                    ttft_p50_ms=csumm["ttft_p50_ms"],
+                    wall_s=csumm["wall_s"],
+                    served_vs_trained_rel_l2=cserve_rel,
+                    tol=FWD_BF16_REL_L2, first_token=int(cfirst[0])),
+         check_13b_fp32=check_13, check_27b=check_27,
+         forms_d1_dropout=fparts, d1_losses=flosses,
+         forms_d2_dbias=tparts, d2_losses=tlosses,
+         forms_d3_fp32_dropout=gparts, d3_out_rel_l2=genc_out,
+         d3_grad_rel_l2=genc_grad, forms_d4_fp32_dbias=bparts,
+         d4_errs=[err_o] + [e for _, e in berrs], card=card)
+
     def by_route(name):
         """``{route: {path: launches}}`` of a flash wrapper on the main
         paths (the bf16 runs take the tensor-core kernels, the fp32 runs
@@ -4898,6 +5425,7 @@ def main() -> int:
             "launches_megatron": megatron_launches.get(name, 0),
             "launches_ring": ring_launches.get(name, 0),
             "launches_halo": halo_launches.get(name, 0),
+            "launches_cerebras": cerebras_launches.get(name, 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -4937,17 +5465,29 @@ def main() -> int:
             "shape": {k: rec[k] for k in ("b", "h", "sq", "sk", "causal",
                                           "dtype", "bytes")}})
     # the flash kernels' dropout and dlogits forms at GPT-2 XL's causal
-    # shape, launched by megatron (e)-(g)
+    # shape, launched by megatron (e)-(g); the six kernels at head dim 128
+    # in each form at Cerebras-GPT 1.3B's causal attention (2 x 16 x 2048
+    # x 128), launched by the cerebras phase, each base form with the
+    # padded d = 80 call (2 x 32 x 2048) beside it
     for name, (src, twin, route, form) in FORM_KERNELS.items():
         rec = summary[name]
-        launches = main_forms.get(f"{twin}:{route}:{form}", 0)
+        key = f"{twin}:{route}:{form}"
+        launches = main_forms.get(key, 0)
         require(launches > 0, f"{name} was not launched on the main path")
         tpu, calls = KERNELS[twin][1:]
+        padded = summary.get(name.replace("_d128", "_d80")) \
+            if form == "d128" else None
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "pallas_call": [f"{tpu.split(':')[0]}:{c}" for c in calls],
-            "form": form, "form_lines": FORM_TPU[form],
-            "launches": launches, "launches_megatron": launches,
+            "form": form, "form_lines": form_lines(form),
+            "launches": launches,
+            **{f"launches_{ph}": c[key] for ph, c in form_phases.items()
+               if c.get(key)},
+            **({"padded_d80": {k: padded.get(k) for k in (
+                "ms", "kernel_ms", "pad_ms", "dvec_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_share")
+                if k in padded}} if padded else {}),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -4958,8 +5498,8 @@ def main() -> int:
                if "fwd_bwd_ms" in rec else {}),
             **{k: rec[k] for k in ("dbias_err", "dbias_tol", "dl_typical",
                                    "dl_max") if k in rec},
-            "shape": {k: rec[k] for k in ("b", "h", "sq", "sk", "causal",
-                                          "dtype", "bytes")}})
+            "shape": {k: rec[k] for k in ("b", "h", "sq", "sk", "d",
+                                          "causal", "dtype", "bytes")}})
     emit("profiler", **PROFILE_PASSES)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -4972,7 +5512,7 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] in ("remote-copy", "ring",
                                               "flash-fwd", "flash-bwd",
-                                              "softmax", "norm"):
+                                              "softmax", "norm", "ptxas"):
         sys.exit(mode_main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2
                            else ROOT))
     sys.exit(main())

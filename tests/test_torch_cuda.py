@@ -43,8 +43,14 @@ the public op's bias gradient through a mask and dropout against the
 same call on the CPU (its sum over the batch and queries 10 times the
 backward's absolute tolerance). The public
 ``flash_attention`` takes transposed and misaligned views, and gives the
-bits of the same call on contiguous copies. Run the flash tests with
-``python -m pytest tests/test_torch_cuda.py -q -k flash``.
+bits of the same call on contiguous copies. The six flash kernels at head
+dims 16, 32, 48, 64, 80, 96 and 128 in every form (plain, a key-padding
+bias, dropout, dlogits), causal, BERT-style and ragged, take the same
+tolerances: 64 and 128 launch as they are, the others zero-padded to the
+next of them (each launch counted under its width and pad keys); the
+public op at 48, 80 and 128 against the same call on the CPU; 160 raises.
+Run the flash tests with ``python -m pytest tests/test_torch_cuda.py -q
+-k flash``.
 """
 
 import ctypes
@@ -72,7 +78,8 @@ from apex_tpu_torch.ops.group_norm_kernel import (
 from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                   ln_fwd, ln_fwd_plain)
 from apex_tpu_torch.ops.remote_copy import STAGE_BYTES
-from apex_tpu_torch.ops.tiling import gn_hw_block, gn_one_pass_ok
+from apex_tpu_torch.ops.tiling import (fa_kernel_head_dim, gn_hw_block,
+                                      gn_one_pass_ok)
 from apex_tpu_torch.utils.flatten import flat_spec, flatten
 
 pytestmark = pytest.mark.cuda
@@ -705,9 +712,19 @@ def test_fused_adam_overflow_step_is_a_bitwise_noop(dev):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with torch.no_grad():
+        # head dim 32 runs (padded to 64) and matches its plain version;
+        # 160, above the widest compiled width, raises
         q = torch.randn(1, 1, 8, 32, device=dev)
-        with pytest.raises(NotImplementedError, match="head_dim"):
+        o, lse = flash_attention_fwd(q, q, q, scale=1.0, causal=False)
+        op, lsep = flash_attention_fwd_plain(q, q, q, scale=1.0,
+                                             causal=False)
+        torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
+        torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
+        q = torch.randn(1, 1, 8, 160, device=dev)
+        with pytest.raises(NotImplementedError, match="head_dim 160"):
             flash_attention_fwd(q, q, q, scale=1.0, causal=False)
+        with pytest.raises(NotImplementedError, match="head_dim 160"):
+            flash_attention(q, q, q)
         q = torch.randn(1, 1, 8, 64, device=dev, dtype=torch.float16)
         with pytest.raises(ValueError, match="dtype"):
             flash_attention_fwd(q, q, q, scale=1.0, causal=False)
@@ -753,6 +770,114 @@ def test_rms_and_no_gamma_kernels_match_plain(dev, rows, hidden, rms,
     assert db is None and (dg is None) == (not affine)
     if affine:
         torch.testing.assert_close(dg, dgp, atol=1e-3, rtol=1e-4)
+
+
+# head dims on the card: the compiled 64 and 128 and padded ones below each
+_HEAD_DIMS = [16, 32, 48, 64, 80, 96, 128]
+# (b, h, sq, sk, causal, bias kind, form): causal, BERT-style key padding,
+# a ragged causal 200 x 333, dropout with key padding, dlogits of a learned
+# bias (with dropout)
+_HEAD_DIM_CASES = {"causal": (2, 3, 200, 200, True, None, None),
+                   "pad": (4, 16, 128, 128, False, "pad", None),
+                   "ragged": (2, 3, 200, 333, True, None, None),
+                   "dropout": (2, 3, 130, 129, False, "pad", "dropout"),
+                   "dbias": (2, 3, 129, 200, True, "bias", "dbias")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_HEAD_DIM_CASES))
+@pytest.mark.parametrize("d", _HEAD_DIMS)
+def test_flash_head_dims_match_plain(dev, d, case, dtype):
+    """The forward, dq and dk / dv kernels at head dim d in every form
+    (plain, a key-padding bias, dropout, the dlogits of a learned bias)
+    against the plain versions on the same inputs (the flash tolerances,
+    the dlogits ``_DLOGITS_TOL``), the default scale 1 / sqrt(d): d = 64
+    and 128 launch as they are, any other d zero-padded to the next
+    compiled width, each launch counted under its width and, padded, its
+    pad key; two runs the same bits."""
+    b, h, sq, sk, causal, kind, form = _HEAD_DIM_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(d * 7 + sq)
+    q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=g)
+                   .to(dtype) for s in (sq, sk, sk, sq))
+    bias = None
+    if kind == "pad":
+        lens = torch.arange(b, device=dev) * 37 % sk + 1
+        lens[0] = sk
+        bias = torch.zeros(b, 1, 1, sk, device=dev).masked_fill_(
+            torch.arange(sk, device=dev) >= lens[:, None, None, None],
+            -1e30)
+    elif kind == "bias":
+        bias = torch.randn(1, h, sq, sk, device=dev, generator=g)
+    kw = dict(scale=d ** -0.5, causal=causal, bias=bias)
+    if form:
+        kw.update(dropout_p=0.1, dropout_seed=torch.tensor(
+            [d - sq], dtype=torch.int32, device=dev))
+    bkw = dict(kw, want_dbias=form == "dbias")
+    fa, fr, ba, br = _form_tols(dtype)
+    _build.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **bkw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **bkw)
+    op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **bkw)
+    torch.cuda.synchronize()
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    kd = fa_kernel_head_dim(d)
+    width = "" if kd == 64 else f":d{kd}"
+    expect = {}
+    for name, n in (("fa_fwd", 1), ("fa_bwd_dq", 2), ("fa_bwd_dkv", 2)):
+        if kd != 64:
+            expect[f"{name}:{route}:d{kd}"] = n
+        if d != kd:
+            expect[f"{name}:{route}:pad{d}"] = n
+        if form:   # dropout, with the dlogits too
+            expect[f"{name}:{route}{width}:dropout"] = n
+    if form == "dbias":
+        expect[f"fa_bwd_dq:{route}{width}:dbias"] = 2
+    assert dict(_build.form_launches) == expect
+    assert o.shape == q.shape and all(
+        t.shape == w.shape for t, w in zip(got[:3], (q, k, v)))
+    torch.testing.assert_close(o.float(), op.float(), atol=fa, rtol=fr)
+    torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
+    for name, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want,
+                              again):
+        at, rt = _DLOGITS_TOL if name == "dbias" else (ba, br)
+        torch.testing.assert_close(a.float(), w.float(), atol=at, rtol=rt,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+        assert torch.equal(a, a2), name
+    _assert_flash_route(_kernel_names(lambda: flash_attention_bwd(
+        q, k, v, o, lse, do, **bkw)), dtype, bwd=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [48, 80, 128])
+def test_public_flash_at_head_dims_matches_the_cpu(dev, d, dtype):
+    """The public op (default scale from the caller's d, a differentiated
+    (1, h, 1, sk) bias, a key-padding mask) at a padded and the widest
+    compiled head dim: o and every gradient against the same call on the
+    CPU (fp32 1e-4, bf16 the flash backward's tolerance, ten times its
+    atol for the bias's)."""
+    b, h, sq, sk = 2, 3, 70, 90
+    g = torch.Generator().manual_seed(d)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g).to(dtype)
+                   for s in (sq, sk, sk, sq))
+    bias = torch.randn(1, h, 1, sk, generator=g)
+    mask = (torch.arange(sk) >= torch.tensor([sk, 40])[:, None])[
+        :, None, None, :]
+    outs = {}
+    for where in ("cpu", dev):
+        ins = [t.detach().to(where).requires_grad_(True)
+               for t in (q, k, v, bias)]
+        o = flash_attention(*ins[:3], True, bias=ins[3],
+                            mask=mask.to(where))
+        o.backward(do.to(where))
+        outs[str(where)] = [o.detach().cpu()] + [t.grad.cpu() for t in ins]
+    atol = 1e-4 if dtype == torch.float32 else 1e-2
+    rtol = 0 if dtype == torch.float32 else 2 ** -6
+    for i, (a, w) in enumerate(zip(outs[str(dev)], outs["cpu"])):
+        torch.testing.assert_close(a.float(), w.float(),
+                                   atol=atol * (10 if i == 4 else 1),
+                                   rtol=rtol, msg=f"output {i}")
 
 
 def _masked_inputs(dev, b, h, sq, sk, mshape, dtype, seed, kind="mask"):
@@ -2163,3 +2288,29 @@ def test_gn_two_pass_refuses_a_bad_vector_geometry(dev):
         2, 64, 960, 32, geo.tile, geo.route_id, geo.rows, geo.threads,
         geo.stats_tiles, 1, torch.cuda.current_stream().cuda_stream)
     assert err == 1  # cudaErrorInvalidValue
+
+
+@pytest.mark.parametrize("rows", [256, 4096])
+def test_matmul_f32_backward_rounds_each_product_once(dev, rows):
+    """``matmul_f32``'s bf16 backward at the LM head's shape (2560 wide,
+    vocabulary 50,257): dx sums 50,257 terms and dw ``rows``; each is the
+    float64 product within one bf16 step (2^-7 of the value), as one fp32
+    sum rounded once gives, and not several bf16 roundings of partial
+    sums (atol 1e-4 of the largest entry: the fp32 sum's own error where
+    terms cancel)."""
+    from apex_tpu_torch.transformer.fused_dense import matmul_f32
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn(rows, 2560, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(50257, 2560, device=dev, generator=g) * 0.02).to(
+        torch.bfloat16)
+    x.requires_grad_()
+    w.requires_grad_()
+    gy = torch.randn(rows, 50257, device=dev, generator=g) / rows
+    matmul_f32(x, w).backward(gy)
+    gb = gy.to(torch.bfloat16).double()
+    for name, got, want in (("dx", x.grad, gb @ w.detach().double()),
+                            ("dw", w.grad, gb.t() @ x.detach().double())):
+        torch.testing.assert_close(
+            got.double(), want, rtol=2 ** -7,
+            atol=1e-4 * want.abs().max().item(),
+            msg=lambda m, n=name: f"{n}: {m}")

@@ -2,11 +2,13 @@
 
 The dq and dk / dv kernels of ``apex_tpu_torch/csrc/flash_attention_bwd.cu``
 run only on the card; what decides which rows and tiles they visit is held
-here against brute force: shared memory within a Hopper block, the padded
-row stride, the grid covering every row, the tiles a causal block visits
-against a count of the tiles holding any unmasked (query, key) pair, dq's
-heaviest-first order, and the ``constexpr`` values of the source against
-the Python mirror. No JAX: nothing here has a counterpart there.
+here against brute force at each compiled head width (64 and 128): shared
+memory within a Hopper block, the padded row strides, the lanes covering
+a pair's rows, streamed rows and d columns once each, the grid covering
+every row, the tiles a causal block visits against a count of the tiles
+holding any unmasked (query, key) pair, dq's heaviest-first order, and
+the ``constexpr`` values of the source (``BwdGeometry<d>``) against the
+Python mirror. No JAX: nothing here has a counterpart there.
 """
 
 import re
@@ -15,68 +17,133 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from apex_tpu_torch.ops.tiling import FA_HEAD_DIM, fa_fma_bwd_geometry
+from apex_tpu_torch.ops.tiling import FA_HEAD_DIMS, fa_fma_bwd_geometry
 
 SRC = (Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
        / "flash_attention_bwd.cu")
 SIZES = [1, 63, 64, 65, 127, 129, 200, 333, 1000, 1024]
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
 G = fa_fma_bwd_geometry()
+WIDTHS = pytest.mark.parametrize("d", FA_HEAD_DIMS)
 
 
-def _constexprs():
-    """``{name: value}`` of the source's integer ``constexpr``s."""
+def _constexprs(d):
+    """``{name: value}`` of the source's integer ``constexpr``s: those of
+    the namespace, ``Bwd``'s derived ones, then those of
+    ``BwdGeometry<d>``."""
     text = SRC.read_text()
-    return {m.group(1): m.group(2) for m in re.finditer(
-        r"constexpr int (k\w+) = ([^;]+);", text)}
+    out = {m.group(1): m.group(2) for m in re.finditer(
+        r"^constexpr int (k\w+) = ([^;]+);", text, re.M)}
+    out.update((m.group(1), " ".join(m.group(2).split())) for m in
+               re.finditer(r"^  static constexpr int (k\w+) =\s*([^;]+);",
+                           text, re.M))
+    body = re.search(r"struct BwdGeometry<%d> \{(.*?)\};" % d, text,
+                     re.S).group(1)
+    out.update((m.group(1), m.group(2)) for m in re.finditer(
+        r"static constexpr int (k\w+) = ([^;]+);", body))
+    return out
 
 
-def test_geometry_mirrors_the_source():
-    c = _constexprs()
-    assert int(c["kD"]) == G.head_dim == FA_HEAD_DIM
-    assert int(c["kBM"]) == G.block_rows
-    assert int(c["kBN"]) == G.tile_rows
-    assert int(c["kStages"]) == G.stages
-    assert int(c["kMI"]) == G.micro[0]
-    assert c["kStride"] == "kD + 4" and G.row_stride == G.head_dim + 4
+def test_widths_and_their_geometries():
+    """The compiled widths, each with its own geometry; the default is
+    d = 64's; no other width has one."""
+    assert FA_HEAD_DIMS == (64, 128)
+    assert G == fa_fma_bwd_geometry(64)
+    for d in FA_HEAD_DIMS:
+        assert fa_fma_bwd_geometry(d).head_dim == d
+    with pytest.raises(ValueError, match="compiled"):
+        fa_fma_bwd_geometry(80)
+
+
+@WIDTHS
+def test_geometry_mirrors_the_source(d):
+    g = fa_fma_bwd_geometry(d)
+    c = _constexprs(d)
+    assert int(c["kBM"]) == g.block_rows
+    assert int(c["kBN"]) == g.tile_rows
+    assert int(c["kStages"]) == g.stages
+    assert int(c["kMI"]) == g.micro[0]
+    assert int(c["kStride"]) == g.row_stride == g.head_dim + 4
+    assert c["kSStride"] == "kBN + 4" and g.strip_stride == g.tile_rows + 4
     # kThreads = 64 * kBM / kPairRows, kPairRows = 4 * kMI
     assert c["kPairRows"] == "4 * kMI"
     assert c["kThreads"] == "64 * kBM / kPairRows"
-    assert 64 * G.block_rows // (4 * G.micro[0]) == G.threads
-    # each lane's streamed rows are lx + kColStep * j over 8 lanes
-    assert int(c["kColStep"]) * G.micro[1] * 2 == G.tile_rows
+    assert 64 * g.block_rows // (4 * g.micro[0]) == g.threads
+    # each lane's streamed rows are lx + kColStep * j, j < kNJ, over the 8
+    # lanes of its warp's half
+    assert c["kNJ"] == "kBN / (2 * kColStep)"
+    assert int(c["kColStep"]) * g.micro[1] * 2 == g.tile_rows
 
 
-def test_shared_memory_fits_a_block():
-    assert G.dq_smem_bytes <= SMEM_LIMIT
-    assert G.dkv_smem_bytes <= SMEM_LIMIT
+@WIDTHS
+def test_shared_memory_fits_a_block(d):
+    g = fa_fma_bwd_geometry(d)
+    assert g.dq_smem_bytes <= SMEM_LIMIT
+    assert g.dkv_smem_bytes <= SMEM_LIMIT
     # the source's sums of tiles, in floats, as the Python bytes count them
-    c = _constexprs()
-    assert c["kDqSmemFloats"] == "3 * kBlockTile + kStages * 2 * kTile"
-    block, tile = G.block_rows * G.row_stride, G.tile_rows * G.row_stride
-    assert G.dq_smem_bytes == 4 * (3 * block + G.stages * 2 * tile)
-    assert G.dkv_smem_bytes == 4 * (4 * block + G.stages * 2 * tile
-                                    + G.stages * 2 * G.tile_rows)
+    c = _constexprs(d)
+    assert c["kDqSmemFloats"] == \
+        "2 * kBlockTile + kBM * kSStride + kStages * 2 * kTile"
+    assert c["kDkvSmemFloats"] == ("2 * kBlockTile + 2 * kBM * kSStride + "
+                                   "kStages * 2 * kTile + kStages * 2 * kBN")
+    block, tile = g.block_rows * g.row_stride, g.tile_rows * g.row_stride
+    strip = g.block_rows * g.strip_stride
+    assert g.dq_smem_bytes == 4 * (2 * block + strip + g.stages * 2 * tile)
+    assert g.dkv_smem_bytes == 4 * (2 * block + 2 * strip
+                                    + g.stages * 2 * tile
+                                    + g.stages * 2 * g.tile_rows)
 
 
-def test_row_stride_is_whole_float4s_in_distinct_banks():
-    assert G.row_stride % 4 == 0
-    # 8 consecutive rows' 16-byte chunks fall in 8 distinct groups of 4
-    # banks: the stride in chunks is odd
-    chunks = G.row_stride // 4
-    assert chunks % 2 == 1
-    assert len({(r * chunks) % 8 for r in range(8)}) == 8
+@WIDTHS
+def test_row_stride_is_whole_float4s_in_distinct_banks(d):
+    g = fa_fma_bwd_geometry(d)
+    for stride in (g.row_stride, g.strip_stride):
+        assert stride % 4 == 0
+        # 8 consecutive rows' 16-byte chunks fall in 8 distinct groups of
+        # 4 banks: the stride in chunks is odd
+        chunks = stride // 4
+        assert chunks % 2 == 1
+        assert len({(r * chunks) % 8 for r in range(8)}) == 8
 
 
+@WIDTHS
+def test_lanes_cover_a_pair_once(d):
+    """Warp (pair, half), lane (ly, lx) = (lane // 8, lane % 8) holds rows
+    ly + 4 i of its pair's 32, streamed rows half * tile / 2 + lx + 8 j
+    and d columns half * d / 2 + 32 g + 4 lx .. + 3: every (row, streamed
+    row) of a pair's tile and every (row, d column) of its outputs exactly
+    once."""
+    g = fa_fma_bwd_geometry(d)
+    mi, nj = g.micro
+    rows = 4 * mi
+    scores = np.zeros((rows, g.tile_rows), dtype=int)
+    outs = np.zeros((rows, g.head_dim), dtype=int)
+    for half in range(2):
+        for lane in range(32):
+            ly, lx = lane // 8, lane % 8
+            for i in range(mi):
+                for j in range(nj):
+                    scores[ly + 4 * i, half * g.tile_rows // 2 + lx + 8 * j] \
+                        += 1
+                for grp in range(g.col_groups):
+                    for u in range(4):
+                        outs[ly + 4 * i, half * g.head_dim // 2 + 32 * grp
+                             + 4 * lx + u] += 1
+    assert (scores == 1).all() and (outs == 1).all()
+    assert g.threads == 64 * g.block_rows // rows
+
+
+@WIDTHS
 @pytest.mark.parametrize("s", SIZES)
-def test_grid_covers_every_row(s):
-    n = G.blocks(s)
-    assert n * G.block_rows >= s > (n - 1) * G.block_rows
+def test_grid_covers_every_row(s, d):
+    g = fa_fma_bwd_geometry(d)
+    n = g.blocks(s)
+    assert n * g.block_rows >= s > (n - 1) * g.block_rows
     rows = np.zeros(s, dtype=int)
-    for qb in G.dq_order(s):
-        rows[qb * G.block_rows:(qb + 1) * G.block_rows] += 1
+    for qb in g.dq_order(s):
+        rows[qb * g.block_rows:(qb + 1) * g.block_rows] += 1
     assert (rows == 1).all()
-    assert sorted(G.dkv_order(s)) == list(range(n))
+    assert sorted(g.dkv_order(s)) == list(range(n))
 
 
 def _tiles_with_pairs(sq, sk, causal, rows_of, cols_of, block, tile):
@@ -97,31 +164,35 @@ def _tiles_with_pairs(sq, sk, causal, rows_of, cols_of, block, tile):
     return out
 
 
+@WIDTHS
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sk", SIZES)
 @pytest.mark.parametrize("sq", SIZES)
-def test_visited_tiles_match_brute_force(sq, sk, causal):
-    want_dq = _tiles_with_pairs(sq, sk, causal, "q", "k", G.block_rows,
-                                G.tile_rows)
-    got_dq = [list(G.dq_key_tiles(qb, sq, sk, causal))
-              for qb in range(G.blocks(sq))]
+def test_visited_tiles_match_brute_force(sq, sk, causal, d):
+    g = fa_fma_bwd_geometry(d)
+    want_dq = _tiles_with_pairs(sq, sk, causal, "q", "k", g.block_rows,
+                                g.tile_rows)
+    got_dq = [list(g.dq_key_tiles(qb, sq, sk, causal))
+              for qb in range(g.blocks(sq))]
     assert got_dq == want_dq
-    want_dkv = _tiles_with_pairs(sq, sk, causal, "k", "q", G.block_rows,
-                                 G.tile_rows)
-    got_dkv = [list(G.dkv_query_tiles(kb, sq, causal))
-               for kb in range(G.blocks(sk))]
+    want_dkv = _tiles_with_pairs(sq, sk, causal, "k", "q", g.block_rows,
+                                 g.tile_rows)
+    got_dkv = [list(g.dkv_query_tiles(kb, sq, causal))
+               for kb in range(g.blocks(sk))]
     assert got_dkv == want_dkv
 
 
+@WIDTHS
 @pytest.mark.parametrize("s", SIZES)
-def test_dispatch_order_is_heaviest_first(s):
+def test_dispatch_order_is_heaviest_first(s, d):
     """grid.y's order is a permutation of the row blocks, each block's
     causal work (tiles visited) never above the one dispatched before."""
+    g = fa_fma_bwd_geometry(d)
     for order, work in (
-            (G.dq_order(s),
-             lambda b: len(G.dq_key_tiles(b, s, s, True))),
-            (G.dkv_order(s),
-             lambda b: len(G.dkv_query_tiles(b, s, True)))):
-        assert sorted(order) == list(range(G.blocks(s)))
+            (g.dq_order(s),
+             lambda b: len(g.dq_key_tiles(b, s, s, True))),
+            (g.dkv_order(s),
+             lambda b: len(g.dkv_query_tiles(b, s, True)))):
+        assert sorted(order) == list(range(g.blocks(s)))
         loads = [work(b) for b in order]
         assert loads == sorted(loads, reverse=True)

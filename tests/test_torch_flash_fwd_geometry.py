@@ -2,14 +2,15 @@
 
 The kernel of ``apex_tpu_torch/csrc/flash_attention.cu`` runs only on the
 card; what decides which rows, keys and tiles it visits is held here
-against brute force: shared memory for two blocks an SM, the padded row
-stride, the lanes' micro-tiles covering a warp's rows, keys and d columns
-once each, the grid covering every query row, the key tiles a causal
-block visits against a count of the tiles holding any unmasked (query,
-key) pair, the warps that skip a visited tile against the rows that see
-none of its keys, the heaviest-first order, and the ``constexpr`` values
-of the source against the Python mirror. No JAX: nothing here has a
-counterpart there.
+against brute force at each compiled head width (64 and 128): shared
+memory for the blocks an SM the source claims, the padded row strides,
+the lanes' micro-tiles covering a warp's rows, keys and d columns once
+each, the grid covering every query row, the key tiles a causal block
+visits against a count of the tiles holding any unmasked (query, key)
+pair, the warps that skip a visited tile against the rows that see none
+of its keys, the heaviest-first order, and the ``constexpr`` values of
+the source (``FwdGeometry<d>``) against the Python mirror. No JAX:
+nothing here has a counterpart there.
 """
 
 import re
@@ -18,7 +19,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from apex_tpu_torch.ops.tiling import (FA_HEAD_DIM, fa_batch_heads_grid,
+from apex_tpu_torch.ops.tiling import (FA_HEAD_DIMS, fa_batch_heads_grid,
                                        fa_fma_fwd_geometry)
 
 SRC = (Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
@@ -27,69 +28,107 @@ SIZES = [1, 63, 64, 65, 127, 128, 129, 200, 333, 1000, 1024]
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
 SM_SMEM = 233472             # bytes of shared memory an SM holds for blocks
 G = fa_fma_fwd_geometry()
+WIDTHS = pytest.mark.parametrize("d", FA_HEAD_DIMS)
 
 
-def _constexprs():
-    """``{name: value}`` of the source's integer ``constexpr``s."""
+def _constexprs(d):
+    """``{name: value}`` of the source's integer ``constexpr``s: those of
+    the namespace, then those of ``FwdGeometry<d>``."""
     text = SRC.read_text()
-    return {m.group(1): m.group(2) for m in re.finditer(
-        r"constexpr int (k\w+) = ([^;]+);", text)}
+    out = {m.group(1): m.group(2) for m in re.finditer(
+        r"^constexpr int (k\w+) = ([^;]+);", text, re.M)}
+    body = re.search(r"struct FwdGeometry<%d> \{(.*?)\};" % d, text,
+                     re.S).group(1)
+    out.update((m.group(1), m.group(2)) for m in re.finditer(
+        r"static constexpr int (k\w+) = ([^;]+);", body))
+    return out
 
 
-def test_geometry_mirrors_the_source():
-    c = _constexprs()
-    assert int(c["kD"]) == G.head_dim == FA_HEAD_DIM
-    assert int(c["kBM"]) == G.block_rows
-    assert int(c["kBlocksPerSM"]) == G.blocks_per_sm
-    assert int(c["kBN"]) == G.tile_rows
-    assert int(c["kStages"]) == G.stages
-    assert int(c["kMI"]) == G.micro[0]
-    assert int(c["kWarpRows"]) == G.warp_rows
-    assert c["kStride"] == "kD + 4" and G.row_stride == G.head_dim + 4
+def test_widths_and_their_geometries():
+    """The compiled widths, each with its own geometry; the default is
+    d = 64's; no other width has one."""
+    assert FA_HEAD_DIMS == (64, 128)
+    assert G == fa_fma_fwd_geometry(64)
+    for d in FA_HEAD_DIMS:
+        assert fa_fma_fwd_geometry(d).head_dim == d
+    with pytest.raises(ValueError, match="compiled"):
+        fa_fma_fwd_geometry(96)
+
+
+@WIDTHS
+def test_geometry_mirrors_the_source(d):
+    g = fa_fma_fwd_geometry(d)
+    c = _constexprs(d)
+    assert g.head_dim == d
+    assert int(c["kBM"]) == g.block_rows
+    assert int(c["kBlocksPerSM"]) == g.blocks_per_sm
+    assert int(c["kBN"]) == g.tile_rows
+    assert int(c["kStages"]) == g.stages
+    assert int(c["kMI"]) == g.micro[0]
+    assert int(c["kWarpRows"]) == g.warp_rows
+    assert int(c["kStride"]) == g.row_stride == g.head_dim + 4
+    assert c["kSStride"] == "kBN + 4" and g.strip_stride == g.tile_rows + 4
     assert c["kThreads"] == "32 * kBM / kWarpRows"
-    assert 32 * G.block_rows // G.warp_rows == G.threads
+    assert 32 * g.block_rows // g.warp_rows == g.threads
     assert c["kRowStep"] == "kWarpRows / kMI"
     # a lane's keys are lx + kColStep * j over the 16 lanes of a row
-    assert int(c["kColStep"]) * G.micro[1] == G.tile_rows
+    assert int(c["kColStep"]) * g.micro[1] == g.tile_rows
 
 
-def test_shared_memory_fits_two_blocks_an_sm():
-    assert G.smem_bytes <= SMEM_LIMIT
+@WIDTHS
+def test_shared_memory_fits_two_blocks_an_sm(d):
+    """Each block's shared memory within a Hopper block's; the blocks an
+    SM the geometry claims (two at d = 64, one at d = 128) within the
+    SM's."""
+    g = fa_fma_fwd_geometry(d)
+    assert g.smem_bytes <= SMEM_LIMIT
     # each block with the 1 KB the hardware reserves
-    assert G.blocks_per_sm * (G.smem_bytes + 1024) <= SM_SMEM
-    c = _constexprs()
-    assert c["kSmemFloats"] == "2 * kBlockTile + kStages * 2 * kTile"
-    block, tile = G.block_rows * G.row_stride, G.tile_rows * G.row_stride
-    assert G.smem_bytes == 4 * (2 * block + G.stages * 2 * tile)
+    assert g.blocks_per_sm * (g.smem_bytes + 1024) <= SM_SMEM
+    assert (g.blocks_per_sm + 1) * (g.smem_bytes + 1024) > SM_SMEM
+    assert g.blocks_per_sm == (2 if d == 64 else 1)
+    src = SRC.read_text()
+    assert ("kBM * kStride + kBM * kSStride + kStages * 2 * kTile"
+            in " ".join(src.split()))
+    block, tile = g.block_rows * g.row_stride, g.tile_rows * g.row_stride
+    assert g.smem_bytes == 4 * (block + g.block_rows * g.strip_stride
+                                + g.stages * 2 * tile)
 
 
-def test_row_stride_is_whole_float4s_in_distinct_banks():
-    assert G.row_stride % 4 == 0
-    # 8 consecutive rows' 16-byte chunks fall in 8 distinct groups of 4
-    # banks: the stride in chunks is odd
-    chunks = G.row_stride // 4
-    assert chunks % 2 == 1
-    assert len({(r * chunks) % 8 for r in range(8)}) == 8
+@WIDTHS
+def test_row_stride_is_whole_float4s_in_distinct_banks(d):
+    g = fa_fma_fwd_geometry(d)
+    for stride in (g.row_stride, g.strip_stride):
+        assert stride % 4 == 0
+        # 8 consecutive rows' 16-byte chunks fall in 8 distinct groups of
+        # 4 banks: the stride in chunks is odd
+        chunks = stride // 4
+        assert chunks % 2 == 1
+        assert len({(r * chunks) % 8 for r in range(8)}) == 8
 
 
-def test_micro_tiles_cover_a_warp_once():
+@WIDTHS
+def test_micro_tiles_cover_a_warp_once(d):
     """Lane (ly, lx) = (lane // 16, lane % 16) holds rows ly + 2 i, keys
-    lx + 16 j of S and d columns 4 lx .. + 3 of o: every (row, key) of the
-    warp's rows over a tile and every (row, d column) exactly once, and a
-    quarter-warp's 8 keys in 8 distinct bank groups."""
-    mi, nj = G.micro
-    step = G.warp_rows // mi
-    col_step = G.tile_rows // nj
-    scores = np.zeros((G.warp_rows, G.tile_rows), dtype=int)
-    outs = np.zeros((G.warp_rows, G.head_dim), dtype=int)
+    lx + 16 j of S and d columns 64 g + 4 lx .. + 3 of o (g over the
+    64-column groups): every (row, key) of the warp's rows over a tile and
+    every (row, d column) exactly once, and a quarter-warp's 8 keys in 8
+    distinct bank groups."""
+    g = fa_fma_fwd_geometry(d)
+    mi, nj = g.micro
+    step = g.warp_rows // mi
+    col_step = g.tile_rows // nj
+    scores = np.zeros((g.warp_rows, g.tile_rows), dtype=int)
+    outs = np.zeros((g.warp_rows, g.head_dim), dtype=int)
     for lane in range(32):
         ly, lx = lane // 16, lane % 16
         for i in range(mi):
             for j in range(nj):
                 scores[ly + step * i, lx + col_step * j] += 1
-                outs[ly + step * i, 4 * lx + j] += 1
+            for grp in range(g.col_groups):
+                for u in range(4):
+                    outs[ly + step * i, 64 * grp + 4 * lx + u] += 1
     assert (scores == 1).all() and (outs == 1).all()
-    chunks = G.row_stride // 4
+    chunks = g.row_stride // 4
     for quarter in range(4):
         for j in range(nj):
             keys = [lane % 16 + col_step * j

@@ -9,7 +9,8 @@ apex_tpu.transformer.mha).
   parameters converted (``mha_params_from_jax``): the output and every
   parameter's gradient of ``sum(out * r)``, fp32, relative L2 <= 1e-5.
 - The converters' round trip; training with dropout against eval and the
-  flax module; head_dim refusals.
+  flax module; both modules at head_dim 48 (embed 96, 2 heads) against
+  the flax modules, which build and run at any head dim.
 - The module against its unfused twin (``linear_bias`` -> RoPE ->
   ``mha_reference`` -> ``linear_bias`` with the module's parameters) on
   the CPU, relative L2 <= 1e-5: the identity ``chip_smoke.py`` holds at
@@ -169,8 +170,11 @@ def test_dropout_and_head_dim_refusals():
     """A seed with dropout_p > 0 trains with dropout: the output differs
     from eval mode and matches the flax module's with the same seed
     (relative L2 1e-5); without a seed dropout is off (eval), the same
-    output as dropout_p 0; head_dim 48 raises; neither drops to rate 0 or
-    to ``mha_reference``."""
+    output as dropout_p 0; neither drops to rate 0 or to
+    ``mha_reference``. Both modules at head_dim 48 (embed 96, 2 heads)
+    build and match the flax modules (output and every gradient, at
+    REL_L2), as the card's padded flash route must; a non-multiple embed
+    still raises."""
     x = _np((1, 8, E), 10)
     model = jmha.SelfMultiheadAttn(E, H, causal=True, dropout_p=0.1)
     params = jax.jit(model.init)(jax.random.PRNGKey(5), jnp.asarray(x))
@@ -189,9 +193,32 @@ def test_dropout_and_head_dim_refusals():
     ref(xt, dropout_seed=3)   # rate 0 with a seed runs, as in JAX
     enc = EncdecMultiheadAttn(E, H, dropout_p=0.2, device="cpu")
     assert not torch.equal(enc(xt, xt, dropout_seed=1), enc(xt, xt))
-    for cls in (SelfMultiheadAttn, EncdecMultiheadAttn):
-        with pytest.raises(NotImplementedError, match="head_dim 48"):
-            cls(96, 2, device="cpu")
+    e48, s = 96, 12
+    x, kv, r = _np((2, s, e48), 13), _np((2, 16, e48), 14), \
+        _np((2, s, e48), 15)
+    m = _pad_mask(2, 16, [16, 5])
+    for jcls, cls, args in (
+            (functools.partial(jmha.SelfMultiheadAttn, causal=True),
+             functools.partial(SelfMultiheadAttn, causal=True), (x,)),
+            (jmha.EncdecMultiheadAttn, EncdecMultiheadAttn, (x, kv, m))):
+        model = jcls(e48, H)
+        jargs = tuple(map(jnp.asarray, args))
+        params = jax.jit(model.init)(jax.random.PRNGKey(6), *jargs)
+
+        def loss(p, rr, *a, model=model):
+            return jnp.sum(model.apply(p, *a) * rr)
+
+        want = jax.jit(model.apply)(params, *jargs)
+        gj = jax.jit(jax.grad(loss))(params, jnp.asarray(r), *jargs)
+        mod = cls(e48, H, device="cpu")
+        assert mod.head_dim == 48
+        mod.load_state_dict(mha_params_from_jax(
+            jax.tree_util.tree_map(np.asarray, params)))
+        out = mod(*map(torch.from_numpy, args))
+        (out * torch.from_numpy(r)).sum().backward()
+        assert _rel_l2(out.detach().numpy(), want) <= REL_L2
+        got = {n: p.grad.numpy() for n, p in mod.named_parameters()}
+        assert _grads_vs(got, gj) <= REL_L2
     with pytest.raises(ValueError, match="multiple"):
         SelfMultiheadAttn(130, 3, device="cpu")
 
