@@ -9,9 +9,9 @@
 // additive fp32 score bias, with or without attention dropout (the keep
 // factor of `Dropout`, common.cuh, times p before the p.v product; l and
 // lse from the undropped p, as `_fa_fwd_kernel` sums them), JAX layout q
-// (b, h, sq, d), k / v (b, h, sk, d), d a compiled head width (64 or 128:
-// the template parameter kD; the wrapper pads any other d up to 128 with
-// zero columns). The bias (a boolean mask arrives as
+// (b, h, sq, d), k / v (b, h, sk, d), d a compiled head width (64, 128 or
+// 256: the template parameter kD; the wrapper pads any other d up to the
+// next of them with zero columns). The bias (a boolean mask arrives as
 // -1e30 where masked, `flash_attention`'s rule) is broadcastable to
 // (b, h, sq, sk) and read through per-dimension strides, 0 on a broadcast
 // dimension, so a (b, 1, 1, sk) padding mask is never expanded (the TPU's
@@ -84,6 +84,12 @@
 //   v per tile, each over one 64-column half of V), and rows are 132
 //   floats. Q, the p strip (rows of the tile's 64 keys, 68 floats) and two
 //   stages of K / V take 186 KB: one block an SM.
+// - Head dim 256. Rows of 260 floats: two stages of 64-key K / V tiles
+//   alone would take 260 KB, so the tiles are 32 keys (kBN = 32): a lane
+//   holds keys lx and lx + 16 of a tile (an 8 x 2 micro-tile of S) and
+//   four 8 x 4 blocks of o (d columns 64 g + 4 lx .. + 3), and the p strip
+//   rows are 36 floats. Q, the strip and two stages take 204 KB: one
+//   block an SM.
 // The geometry is mirrored by fa_fma_fwd_geometry(d) in ops/tiling.py.
 //
 // C interface (bound with ctypes): every pointer and the stream are
@@ -96,7 +102,6 @@ namespace {
 using namespace apex_port;
 
 constexpr int kBM = 64;         // query rows a block owns
-constexpr int kBN = 64;         // key rows of a streamed tile
 constexpr int kMI = 8;          // rows of a lane's micro-tiles
 constexpr int kWarpRows = 16;   // rows of a warp: all of a tile's keys
 constexpr int kThreads = 32 * kBM / kWarpRows;  // 4 warps
@@ -105,48 +110,58 @@ static_assert(kStages == 2, "the pipeline below prefetches one tile");
 constexpr int kUnroll = 4;      // float4 steps of a product loop unrolled
 constexpr int kRowStep = kWarpRows / kMI;  // a lane's rows: ly + 2 i
 constexpr int kColStep = 16;    // a lane's keys: lx + 16 j
-constexpr int kSStride = kBN + 4;  // padded row stride of the p strip
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-// What depends on the head dim kD (64 or 128): the padded row stride of Q,
-// K and V (floats) and the blocks an SM that their shared memory allows.
+// What depends on the head dim kD (64, 128 or 256): the padded row stride
+// of Q, K and V (floats), the key rows of a streamed tile and the blocks an
+// SM that their shared memory allows.
 template <int kD>
 struct FwdGeometry;
 template <>
 struct FwdGeometry<64> {
   static constexpr int kStride = 68;
+  static constexpr int kBN = 64;
   static constexpr int kBlocksPerSM = 2;
 };
 template <>
 struct FwdGeometry<128> {
   static constexpr int kStride = 132;
+  static constexpr int kBN = 64;
+  static constexpr int kBlocksPerSM = 1;
+};
+template <>
+struct FwdGeometry<256> {
+  static constexpr int kStride = 260;
+  static constexpr int kBN = 32;
   static constexpr int kBlocksPerSM = 1;
 };
 
 template <int kD>
 struct Fwd : FwdGeometry<kD> {
   using FwdGeometry<kD>::kStride;
+  using FwdGeometry<kD>::kBN;
   using FwdGeometry<kD>::kBlocksPerSM;
+  static constexpr int kNJ = kBN / kColStep;  // a lane's keys of a tile
+  static constexpr int kSStride = kBN + 4;    // padded row stride of p
   static constexpr int kGroups = kD / 64;  // 64-column groups of o
   static constexpr int kTile = kBN * kStride;  // floats of a streamed tile
   // Q, the p strip (block rows), then K / V per stage
   static constexpr int kSmemFloats =
       kBM * kStride + kBM * kSStride + kStages * 2 * kTile;
   static_assert(kStride == kD + 4, "the head dim padded by one chunk");
-  static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1,
+  static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1 &&
+                    kSStride % 4 == 0 && (kSStride / 4) % 2 == 1,
                 "16-byte rows whose chunks fall in distinct banks");
+  static_assert(kNJ * kColStep == kBN, "16 lanes cover a tile's keys");
   // kBlocksPerSM blocks, each with the 1 KB the hardware reserves, in
   // the SM's 228 KB of shared memory
   static_assert(kBlocksPerSM * (kSmemFloats * 4 + 1024) <= 233472,
                 "kBlocksPerSM blocks an SM");
 };
 
-static_assert(kRowStep == 32 / kColStep && kBN == 4 * kColStep &&
-                  64 == 4 * kColStep,
-              "16 lanes cover a row's 64 keys and each 64 d columns");
-static_assert(kSStride % 4 == 0 && (kSStride / 4) % 2 == 1,
-              "16-byte strip rows whose chunks fall in distinct banks");
+static_assert(kRowStep == 32 / kColStep && 64 == 4 * kColStep,
+              "16 lanes cover a row's keys and each 64 d columns");
 
 // max over the 16 lanes of a row (lanes lx = 0..15 of one ly)
 __device__ __forceinline__ float row_max16(float v) {
@@ -177,7 +192,8 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               float* __restrict__ lse, int nbh, int sq, int sk, float scale,
               int causal, int vec, ScoreBias bias, Dropout drop) {
   using G = Fwd<kD>;
-  constexpr int kStride = G::kStride, kTile = G::kTile;
+  constexpr int kStride = G::kStride, kTile = G::kTile, kBN = G::kBN,
+                kNJ = G::kNJ, kSStride = G::kSStride;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                     // [kBM][kStride]
   float* strip = qs + kBM * kStride;    // [kBM][kSStride]: p
@@ -240,7 +256,7 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool idle =
         warp_row0 >= sq || (causal && k0 > warp_row0 + kWarpRows - 1);
     if (!idle) {
-      float s[kMI][4];
+      float s[kMI][kNJ];
       zero(s);
       score_product<kMI, kRowStep, kColStep, kD, kStride, kUnroll>(
           s, qs + r0 * kStride, ks + lx * kStride);
@@ -250,7 +266,7 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int row = q0 + r0 + kRowStep * i;
         float mt = kNegInf;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kNJ; ++j) {
           const int key = k0 + lx + kColStep * j;
           // __fmul_rn / __fadd_rn: no FMA contraction, so the score is
           // the plain version's round(round(q.k * scale) + bias)
@@ -268,7 +284,7 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             expf((m_prev <= kMaskEdge ? kNegInf : m_prev) - m_safe);
         float ps = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kNJ; ++j) {
           const float p = expf(s[i][j] - m_safe);
           ps += p;
           // dropout: p times its keep factor into the p.v product only
@@ -350,8 +366,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // dtype: 0 = float32 (q, k, v and o; bfloat16 is apex_fa_fwd_wgmma's);
-// lse is float32 [bh, sq]. d: 64 or 128 (the compiled widths; the wrapper
-// pads any other d). grid_y x grid_z
+// lse is float32 [bh, sq]. d: 64, 128 or 256 (the compiled widths; the
+// wrapper pads any other d). grid_y x grid_z
 // carry the bh = b * h slices (fa_batch_heads_grid in ops/tiling.py) on
 // grid.x and grid.z; grid.y runs over the query blocks. bias: float32 or
 // null; heads = h of bh = b * h; bsb, bsh, bsq, bsk its strides in
@@ -365,7 +381,8 @@ extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
                            long long bsh, long long bsq, long long bsk,
                            const void* seed, unsigned threshold, float keep,
                            int dtype, void* stream) {
-  if ((d != 64 && d != 128) || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+  if ((d != 64 && d != 128 && d != 256) || heads < 1 ||
+      !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   if ((sq + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
@@ -374,10 +391,8 @@ extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
                                 bsb, bsh, bsq, bsk};
   const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
                               keep};
-  if (dtype == 0)
-    return d == 64 ? launch<64>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk,
-                                scale, causal, sb, dr, s)
-                   : launch<128>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk,
-                                 scale, causal, sb, dr, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const auto run = d == 64 ? launch<64> : d == 128 ? launch<128> : launch<256>;
+  return run(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale, causal, sb,
+             dr, s);
 }

@@ -46,7 +46,8 @@
 // - Register-blocked products. A block of kThreads = 256 threads (8 warps,
 //   one block an SM) owns kBM = 128 rows (queries in dq, keys in dK·dV)
 //   and streams kBN = 64-row tiles (keys in dq, queries in dK·dV). Warp w
-//   takes rows 32 (w / 2) .. + 31 and half (w % 2) of the tile; lane (ly,
+//   takes rows 32 (w / 2) .. + 31 and half (w % 2) of the tile (a warp
+//   pair, kSplit = 2 warps, shares 32 rows); lane (ly,
 //   lx) = (lane / 8, lane % 8) holds an 8 x 4 micro-tile of S or dP (rows
 //   ly + 4i, streamed rows lx + 8j) and an 8 x 4 block of each output (the
 //   same rows, d columns 4 lx .. + 3 of its half). Every operand is a
@@ -83,14 +84,23 @@
 //   output rows, with no atomics: two runs give the same bits, and each
 //   sum runs in the plain version's order.
 // - Head dim 128 (the template parameter kD; the wrapper pads any other d
-//   up to 128 with zero columns). 128-row blocks of 132-float rows would
-//   not fit a block's shared memory (dq 338 KB, dK·dV 407 KB), so a block
-//   owns kBM = 64 rows (two warp pairs, 128 threads) and streams kBN =
-//   32-row tiles: a lane's micro-tile is 8 x 2 of S or dP, and its share
-//   of each output two 8 x 4 blocks (d columns 4 lx .. + 3 of each 32-
-//   column group of its warp's 64), one gradient product per group. The
-//   p / ds strips hold the tile's 32 columns (36-float rows). dq takes 144
-//   KB, dK·dV 154 KB: one block an SM.
+//   up to the next compiled width with zero columns). 128-row blocks of
+//   132-float rows would not fit a block's shared memory (dq 338 KB, dK·dV
+//   407 KB), so a block owns kBM = 64 rows (two warp pairs, 128 threads)
+//   and streams kBN = 32-row tiles: a lane's micro-tile is 8 x 2 of S or
+//   dP, and its share of each output two 8 x 4 blocks (d columns 4 lx ..
+//   + 3 of each 32-column group of its warp's 64), one gradient product
+//   per group. The p / ds strips hold the tile's 32 columns (36-float
+//   rows). dq takes 144 KB, dK·dV 154 KB: one block an SM.
+// - Head dim 256. 260-float rows: 64-row blocks over 32-row tiles would
+//   take 269 KB (dq) and 279 KB (dK·dV), and a warp pair's lane would hold
+//   four 8 x 4 blocks of each output (dK·dV: 256 accumulators, past the
+//   255 registers of a thread). So a block owns kBM = 32 rows, one group
+//   of kSplit = 4 warps (128 threads) where smaller widths have pairs
+//   (kSplit = 2): warp `part` of the group takes a quarter of the tile's
+//   32 streamed rows (an 8 x 1 micro-tile of S or dP) and a quarter of d,
+//   two 32-column groups, so a lane holds two 8 x 4 blocks of each output
+//   as at d = 128. dq takes 200 KB, dK·dV 205 KB: one block an SM.
 // The geometry is mirrored by fa_fma_bwd_geometry(d) in ops/tiling.py.
 //
 // C interface (bound with ctypes): every pointer and the stream are
@@ -103,7 +113,7 @@ namespace {
 using namespace apex_port;
 
 constexpr int kMI = 8;          // rows of a lane's micro-tiles
-constexpr int kPairRows = 4 * kMI;  // rows of a warp pair
+constexpr int kGroupRows = 4 * kMI;  // rows of a group of kSplit warps
 constexpr int kStages = 2;      // shared-memory stages of streamed tiles
 static_assert(kStages == 2, "the pipeline below prefetches one tile");
 constexpr int kUnroll = 4;      // float4 steps of a product loop unrolled
@@ -112,9 +122,11 @@ constexpr int kColStep = 8;     // a lane's streamed rows: lx + kColStep * j
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-// What depends on the head dim kD (64 or 128): the rows a block owns
-// (kBM), the rows of a streamed tile (kBN) and the padded row stride of
-// Q, K, V and dO (floats), within a block's shared memory.
+// What depends on the head dim kD (64, 128 or 256): the rows a block owns
+// (kBM), the rows of a streamed tile (kBN), the padded row stride of Q, K,
+// V and dO (floats), within a block's shared memory, and the warps that
+// share a group's rows (kSplit), each a 1 / kSplit part of the tile's
+// streamed rows and of d.
 template <int kD>
 struct BwdGeometry;
 template <>
@@ -122,12 +134,21 @@ struct BwdGeometry<64> {
   static constexpr int kBM = 128;
   static constexpr int kBN = 64;
   static constexpr int kStride = 68;
+  static constexpr int kSplit = 2;
 };
 template <>
 struct BwdGeometry<128> {
   static constexpr int kBM = 64;
   static constexpr int kBN = 32;
   static constexpr int kStride = 132;
+  static constexpr int kSplit = 2;
+};
+template <>
+struct BwdGeometry<256> {
+  static constexpr int kBM = 32;
+  static constexpr int kBN = 32;
+  static constexpr int kStride = 260;
+  static constexpr int kSplit = 4;
 };
 
 template <int kD>
@@ -135,12 +156,13 @@ struct Bwd : BwdGeometry<kD> {
   using BwdGeometry<kD>::kBM;
   using BwdGeometry<kD>::kBN;
   using BwdGeometry<kD>::kStride;
-  // warp pairs of kPairRows rows, two warps each
-  static constexpr int kThreads = 64 * kBM / kPairRows;
-  // a lane's streamed rows lx + kColStep * j, j < kNJ, in its warp's half
-  static constexpr int kNJ = kBN / (2 * kColStep);
-  // 32-column groups of d in a warp's half of an output
-  static constexpr int kGroups = kD / 64;
+  using BwdGeometry<kD>::kSplit;
+  // groups of kGroupRows rows, kSplit warps each
+  static constexpr int kThreads = 32 * kSplit * kBM / kGroupRows;
+  // a lane's streamed rows lx + kColStep * j, j < kNJ, in its warp's part
+  static constexpr int kNJ = kBN / (kSplit * kColStep);
+  // 32-column groups of d in a warp's part of an output
+  static constexpr int kGroups = kD / (32 * kSplit);
   static constexpr int kSStride = kBN + 4;  // padded row stride of a strip
   static constexpr int kBlockTile = kBM * kStride;  // the block's rows
   static constexpr int kTile = kBN * kStride;       // a streamed tile
@@ -155,9 +177,10 @@ struct Bwd : BwdGeometry<kD> {
   static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1 &&
                     kSStride % 4 == 0 && (kSStride / 4) % 2 == 1,
                 "16-byte rows whose chunks fall in distinct banks");
-  static_assert(kNJ * 2 * kColStep == kBN && kGroups * 64 == kD,
-                "a warp half covers kBN / 2 streamed rows and kD / 2 d "
-                "columns");
+  static_assert(kNJ * kSplit * kColStep == kBN &&
+                    kGroups * 32 * kSplit == kD,
+                "a warp's part covers kBN / kSplit streamed rows and kD / "
+                "kSplit d columns");
   static_assert(kDkvSmemFloats * 4 <= 232448 && kDqSmemFloats * 4 <= 232448,
                 "a block's shared memory");
 };
@@ -167,9 +190,11 @@ __device__ __forceinline__ float bwd_p(float s, float lse) {
   return (s <= kMaskEdge || lse <= kMaskEdge) ? 0.f : expf(s - lse);
 }
 
-// the two warps (64 threads) of row pair `pair` meet
-__device__ __forceinline__ void pair_sync(int pair) {
-  asm volatile("bar.sync %0, 64;" ::"r"(1 + pair) : "memory");
+// the kSplit warps of row group `grp` meet
+template <int kSplit>
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "n"(32 * kSplit)
+               : "memory");
 }
 
 // out_product for two products at once (acc += e . f, acc2 += e2 . f2):
@@ -305,7 +330,7 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
   float* stage = strip + kBM * kSStride;  // [kStages][K, V][kBN][kStride]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pair = warp >> 1, half = warp & 1;
+  const int grp = warp / G::kSplit, part = warp % G::kSplit;
   const int ly = lane >> 3, lx = lane & 7;
   const long long bh = block_head();
   if (bh >= nbh) return;  // the last z-slice's spare blocks
@@ -332,8 +357,8 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
   if (nk > 0) load(0, 1);
   cp_async_commit();
 
-  const int r0 = pair * kPairRows + ly;  // the lane's first row in the block
-  const int c0 = half * (kBN / 2) + lx;  // its first key in a tile
+  const int r0 = grp * kGroupRows + ly;  // the lane's first row in the block
+  const int c0 = part * (kBN / G::kSplit) + lx;  // its first key in a tile
   float l[kMI], dd[kMI];
 #pragma unroll
   for (int i = 0; i < kMI; ++i) {
@@ -344,7 +369,7 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
   float acc[G::kGroups][kMI][4];
 #pragma unroll
   for (int g = 0; g < G::kGroups; ++g) zero(acc[g]);
-  const int pair_row0 = q0 + pair * kPairRows;
+  const int grp_row0 = q0 + grp * kGroupRows;
 
   for (int kt = 0; kt < nk; ++kt) {
     // tile kt has landed (of tile 0 the first group) for every thread,
@@ -363,9 +388,9 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
     const float* ks = stage + (kt % kStages) * 2 * kTile;
     const float* vs = ks + kTile;
     const int k0 = kt * kBN;
-    // the pair's 32 rows lie past sq or (causal) see none of these keys
+    // the group's 32 rows lie past sq or (causal) see none of these keys
     const bool idle =
-        pair_row0 >= sq || (causal && k0 > pair_row0 + kPairRows - 1);
+        grp_row0 >= sq || (causal && k0 > grp_row0 + kGroupRows - 1);
     float* srow = strip + r0 * kSStride + c0;  // the lane's strip entries
     if (!idle) {
       float s[kMI][G::kNJ];
@@ -399,13 +424,13 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
             dlb[(long long)row * sk + key] = dl;
           *e = dl * scale;
         }
-      pair_sync(pair);  // the pair's strip rows are whole
-      // the 32-column groups of the warp's half of d, a product each
+      group_sync<G::kSplit>(grp);  // the group's strip rows are whole
+      // the 32-column groups of the warp's part of d, a product each
 #pragma unroll
       for (int g = 0; g < G::kGroups; ++g)
         out_product<kMI, kRowStep, kBN, kStride, kUnroll, kSStride>(
             acc[g], strip + r0 * kSStride,
-            ks + half * (kD / 2) + 32 * g + lx * 4);
+            ks + part * (kD / G::kSplit) + 32 * g + lx * 4);
     } else if (kDbias) {  // rows past sq, or (causal) keys none of them sees
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
@@ -426,8 +451,8 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int g = 0; g < G::kGroups; ++g)
     store_rows<kMI, kRowStep, kD>(dq + bh * sq * kD, acc[g], q0 + r0,
-                                  half * (kD / 2) + 32 * g + lx * 4, sq,
-                                  vec);
+                                  part * (kD / G::kSplit) + 32 * g + lx * 4,
+                                  sq, vec);
 }
 
 template <int kD, bool kBias, bool kDropout>
@@ -454,7 +479,7 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
   float* vecs = stage + kStages * 2 * kTile;  // [kStages][lse, D][kBN]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pair = warp >> 1, half = warp & 1;
+  const int grp = warp / G::kSplit, part = warp % G::kSplit;
   const int ly = lane >> 3, lx = lane & 7;
   const long long bh = block_head();
   if (bh >= nbh) return;  // the last z-slice's spare blocks
@@ -493,15 +518,15 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
   if (nq > 0) load(0, 1);
   cp_async_commit();
 
-  const int r0 = pair * kPairRows + ly;  // the lane's first key in the block
-  const int c0 = half * (kBN / 2) + lx;  // its first query in a tile
+  const int r0 = grp * kGroupRows + ly;  // the lane's first key in the block
+  const int c0 = part * (kBN / G::kSplit) + lx;  // its first query in a tile
   float ak[G::kGroups][kMI][4], av[G::kGroups][kMI][4];
 #pragma unroll
   for (int g = 0; g < G::kGroups; ++g) {
     zero(ak[g]);
     zero(av[g]);
   }
-  const int pair_key0 = k0 + pair * kPairRows;
+  const int grp_key0 = k0 + grp * kGroupRows;
 
   for (int it = 0; it < nq; ++it) {
     // tile it has landed (of tile 0 the first group) for every thread,
@@ -522,9 +547,9 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
     const float* ls = vecs + (it % kStages) * 2 * kBN;
     const float* ds = ls + kBN;
     const int q0 = (qt0 + it) * kBN;
-    // the pair's 32 keys lie past sk or (causal) above every query here
+    // the group's 32 keys lie past sk or (causal) above every query here
     const bool idle =
-        pair_key0 >= sk || (causal && pair_key0 > q0 + kBN - 1);
+        grp_key0 >= sk || (causal && grp_key0 > q0 + kBN - 1);
     float* prow = pst + r0 * kSStride + c0;  // the lane's strip entries
     float* drow = dst + r0 * kSStride + c0;
     if (!idle) {
@@ -562,11 +587,11 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
             drow[e] = prow[e] * (s[i][j] - ds[c0 + kColStep * j]) * scale;
           }
         }
-      pair_sync(pair);  // the pair's strip rows are whole
-      // the 32-column groups of the warp's half of d, a loop each
+      group_sync<G::kSplit>(grp);  // the group's strip rows are whole
+      // the 32-column groups of the warp's part of d, a loop each
 #pragma unroll
       for (int g = 0; g < G::kGroups; ++g) {
-        const int col = half * (kD / 2) + 32 * g + lx * 4;
+        const int col = part * (kD / G::kSplit) + 32 * g + lx * 4;
         out_product2<kD>(av[g], pst + r0 * kSStride, dos + col, ak[g],
                          dst + r0 * kSStride, qs + col);
       }
@@ -575,7 +600,7 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
   cp_async_wait<0>();
 #pragma unroll
   for (int g = 0; g < G::kGroups; ++g) {
-    const int col = half * (kD / 2) + 32 * g + lx * 4;
+    const int col = part * (kD / G::kSplit) + 32 * g + lx * 4;
     store_rows<kMI, kRowStep, kD>(dk + bh * sk * kD, ak[g], k0 + r0, col,
                                   sk, vec);
     store_rows<kMI, kRowStep, kD>(dv + bh * sk * kD, av[g], k0 + r0, col,
@@ -653,8 +678,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32 (q, k, v, do and the gradients; bfloat16 is
 // apex_fa_bwd_dq_wgmma's and apex_fa_bwd_dkv_wgmma's); lse and dvec are
-// float32 [bh, sq]. d: 64 or 128 (the compiled widths; the wrapper pads
-// any other d). grid_y, grid_z,
+// float32 [bh, sq]. d: 64, 128 or 256 (the compiled widths; the wrapper
+// pads any other d). grid_y, grid_z,
 // bias, heads, the bias strides and the dropout seed, threshold and keep
 // as for apex_fa_fwd. dlogits: float32 [bh, sq, sk], every entry written,
 // or null; only with a bias.
@@ -667,7 +692,7 @@ extern "C" int apex_fa_bwd_dq(const void* q, const void* k, const void* v,
                               long long bsk, const void* seed,
                               unsigned threshold, float keep, void* dlogits,
                               int dtype, void* stream) {
-  if ((d != 64 && d != 128) || heads < 1 ||
+  if ((d != 64 && d != 128 && d != 256) || heads < 1 ||
       !bh_grid_ok(bh, grid_y, grid_z) ||
       (dlogits != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -677,15 +702,12 @@ extern "C" int apex_fa_bwd_dq(const void* q, const void* k, const void* v,
                                 bsb, bsh, bsq, bsk};
   const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
                               keep};
-  float* dl = static_cast<float*>(dlogits);
-  if (dtype == 0)
-    return d == 64 ? launch_dq<64>(q, k, v, dout, lse, dvec, dq, bh, grid_y,
-                                   grid_z, sq, sk, scale, causal, sb, dr, dl,
-                                   s)
-                   : launch_dq<128>(q, k, v, dout, lse, dvec, dq, bh, grid_y,
-                                    grid_z, sq, sk, scale, causal, sb, dr, dl,
-                                    s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const auto run = d == 64    ? launch_dq<64>
+                   : d == 128 ? launch_dq<128>
+                              : launch_dq<256>;
+  return run(q, k, v, dout, lse, dvec, dq, bh, grid_y, grid_z, sq, sk, scale,
+             causal, sb, dr, static_cast<float*>(dlogits), s);
 }
 
 extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
@@ -697,7 +719,8 @@ extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
                                long long bsq, long long bsk, const void* seed,
                                unsigned threshold, float keep, int dtype,
                                void* stream) {
-  if ((d != 64 && d != 128) || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+  if ((d != 64 && d != 128 && d != 256) || heads < 1 ||
+      !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sk <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -705,12 +728,10 @@ extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
                                 bsb, bsh, bsq, bsk};
   const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
                               keep};
-  if (dtype == 0)
-    return d == 64 ? launch_dkv<64>(q, k, v, dout, lse, dvec, dk, dv, bh,
-                                    grid_y, grid_z, sq, sk, scale, causal, sb,
-                                    dr, s)
-                   : launch_dkv<128>(q, k, v, dout, lse, dvec, dk, dv, bh,
-                                     grid_y, grid_z, sq, sk, scale, causal,
-                                     sb, dr, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const auto run = d == 64    ? launch_dkv<64>
+                   : d == 128 ? launch_dkv<128>
+                              : launch_dkv<256>;
+  return run(q, k, v, dout, lse, dvec, dk, dv, bh, grid_y, grid_z, sq, sk,
+             scale, causal, sb, dr, s);
 }

@@ -6,9 +6,10 @@
 // causal or not, with or without the additive fp32 score bias (ScoreBias
 // in common.cuh) and attention dropout (Dropout in common.cuh), JAX
 // layout q / do (b, h, sq, d), k / v (b, h, sk, d), d a compiled head
-// width (64 or 128: the template parameter kD; the wrapper pads any other
-// d up to 128 with zero columns), lse and D = rowsum(do * o) fp32 (b, h,
-// sq) (D computed outside, `attention_dvec`). Per (key j, query i):
+// width (64, 128 or 256: the template parameter kD; the wrapper pads any
+// other d up to the next of them with zero columns), lse and D = rowsum(do
+// * o) fp32 (b, h, sq) (D computed outside, `attention_dvec`). Per (key j,
+// query i):
 //   s  = round(round(q_i . k_j * scale) + bias_ij), masked where j >= sk
 //        or (causal) j > i
 //   p  = exp(s - lse_i), exactly 0 where masked, s <= -0.5e30 or
@@ -45,12 +46,29 @@
 //
 // Head dim 128: each tile arrives as two 64-column boxes (hopper.cuh), S^T
 // and dP^T take eight steps of depth, and dV and dK are two products of N =
-// 64 each, one on each half of dO / Q, into two accumulators apiece: a
+// 64 each, one on each 64-column chunk of dO / Q, into two accumulators
+// apiece: a
 // consumer thread holds 128 fp32 of dK and dV beside the 64 of S and dP
 // while they are live (192 of its 232 registers; p and ds are packed to
 // bf16 as S and dP die), so the register split stays the d = 64 one
 // (producer 40, consumers 232). Shared memory holds K and V (64 KB), four
 // stages of Q and dO (128 KB) and their lse / D slices.
+//
+// Head dim 256: dK and dV over all 256 columns of a consumer's 64 keys
+// would be 256 fp32 a thread, past the 255 registers a thread may have,
+// and 128 keys of K and V (128 KB) beside two stages of Q and dO (128 KB)
+// would not fit a block's 227 KB. So a block owns one 64-key slab
+// (Layout::kSlabs = 1) that both consumer warpgroups take, and the
+// accumulators are split by columns: each warpgroup runs the slab's S^T
+// and dP^T products and its p and ds (the same operations on the same
+// operands, the same bits) and keeps half of dK's and half of dV's
+// columns, 128 fp32 a thread as at d = 128. Splitting by output instead
+// (dV in one warpgroup, dK in the other) would run S^T twice but dP^T
+// once, for 128 + 32 registers in one warpgroup and 128 + 64 in the
+// other, and would leave the warpgroups unequal (two products against
+// three); the split by columns keeps the d = 128 code and its register
+// budget unchanged, at 6/4 of the tensor-core work of one S^T, dP^T, dV
+// and dK. Shared memory: K and V 64 KB, two stages of Q and dO 128 KB.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -64,18 +82,23 @@ using namespace apex_port;
 using namespace apex_port::hopper;
 
 constexpr int kKeysWG = 64;     // keys per consumer warpgroup
-constexpr int kBK = 128;        // keys per block
 constexpr int kBQ = 64;         // query rows per streamed tile
-constexpr int kStages = 4;
 constexpr int kThreads = 384;   // two consumer warpgroups + the producer
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-// Shared memory at head dim kD (64 or 128). A tile's rows are 64-column
-// halves of 128 bytes, the second half (d = 128) kHalf bytes after the
-// first: kBQ * 128 for a Q / dO tile, kBK * 128 for K and V.
+// The block at head dim kD (64, 128 or 256): kSlabs 64-key slabs, one a
+// consumer warpgroup (d <= 128), or one slab that both warpgroups take,
+// each holding kCols of dK's and dV's columns (d = 256); kStages stages of
+// Q and dO. A tile's rows are 64-column chunks of 128 bytes, chunk c c *
+// kHalf bytes after the first: kBQ * 128 for a Q / dO tile, kBK * 128 for
+// K and V.
 template <int kD>
 struct Layout {
+  static constexpr int kSlabs = kD == 256 ? 1 : 2;
+  static constexpr int kBK = kKeysWG * kSlabs;     // keys per block
+  static constexpr int kCols = kD * kSlabs / 2;    // dK, dV columns a group
+  static constexpr int kStages = kD == 256 ? 2 : 4;
   static constexpr int kTileBytes = kBQ * kD * 2;  // one 64-row bf16 tile
   static constexpr int kKVBytes = kBK * kD * 2;    // the resident K (or V)
   static constexpr int kTileHalf = kBQ * 128;
@@ -84,7 +107,7 @@ struct Layout {
   static constexpr int kOffStats = kOffStages + kStages * 2 * kTileBytes;
   static constexpr int kOffBars = kOffStats + kStages * 2 * kBQ * 4;
   static constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
-  static_assert(kD == 64 || kD == 128, "compiled head widths");
+  static_assert(kD == 64 || kD == 128 || kD == 256, "compiled head widths");
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
 };
 
@@ -148,6 +171,7 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                         int sk, float scale, int causal, ScoreBias bias,
                         Dropout drop) {
   using L = Layout<kD>;
+  constexpr int kBK = L::kBK, kStages = L::kStages, kNC = L::kCols / 64;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* ks = smem;
@@ -212,23 +236,26 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     regs_inc<232>();
     const int t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32;
-    const int kw0 = k0 + wg * kKeysWG;          // the warpgroup's keys
+    // the warpgroup's slab of keys and its group of dK's and dV's columns
+    // (at d = 256 both warpgroups take slab 0, each kCols of the columns)
+    const int slab = L::kSlabs == 2 ? wg : 0, cg = L::kSlabs == 2 ? 0 : wg;
+    const int kw0 = k0 + slab * kKeysWG;        // the warpgroup's keys
     const int key0 = kw0 + 16 * warp + lane / 4;  // and key0 + 8
     const int cq = (lane % 4) * 2;
     const bool active = kw0 < sk;
     const float* bs = kBias ? bias.slice(bh) : nullptr;
     const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
-    // the warpgroup's rows of each 64-column half of K and V
-    const uint32_t k_addr = smem_addr(ks) + wg * kKeysWG * 128;
-    const uint32_t v_addr = smem_addr(vs) + wg * kKeysWG * 128;
+    // the warpgroup's rows of each 64-column chunk of K and V
+    const uint32_t k_addr = smem_addr(ks) + slab * kKeysWG * 128;
+    const uint32_t v_addr = smem_addr(vs) + slab * kKeysWG * 128;
 
-    // dk and dv in kD / 64 accumulators of 64 d columns each
-    float adk[kD / 64][32], adv[kD / 64][32], s[32], tp[32];
+    // the warpgroup's dk and dv in kNC accumulators of 64 d columns each
+    float adk[kNC][32], adv[kNC][32], s[32], tp[32];
     uint32_t ap[4][4], ads[4][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
 #pragma unroll
-      for (int c = 0; c < kD / 64; ++c) {
+      for (int c = 0; c < kNC; ++c) {
         adk[c][i] = 0.f;
         adv[c][i] = 0.f;
       }
@@ -271,21 +298,21 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         to_a_operand(tp, ads);  // ds * scale in q's dtype for dk
         wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c) {
+        for (int c = 0; c < kNC; ++c) {
           fence_regs(adv[c]);
           fence_regs(adk[c]);
         }
         // dV += P^T dO, dK += dS^T Q (dO, Q MN-major): a product on each
-        // 64-column half
+        // of the warpgroup's 64-column chunks
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c) {
-          product_rs(adv[c], ap, do_addr + c * L::kTileHalf);
-          product_rs(adk[c], ads, q_addr + c * L::kTileHalf);
+        for (int c = 0; c < kNC; ++c) {
+          product_rs(adv[c], ap, do_addr + (cg * kNC + c) * L::kTileHalf);
+          product_rs(adk[c], ads, q_addr + (cg * kNC + c) * L::kTileHalf);
         }
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c) {
+        for (int c = 0; c < kNC; ++c) {
           fence_regs(adv[c]);
           fence_regs(adk[c]);
         }
@@ -303,10 +330,11 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         const int key = key0 + 8 * h;
         if (key >= sk) continue;
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c)
+        for (int c = 0; c < kNC; ++c)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            const long long at = (long long)key * kD + 64 * c + 8 * j + cq;
+            const long long at =
+                (long long)key * kD + 64 * (cg * kNC + c) + 8 * j + cq;
             *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
                 __floats2bfloat162_rn(adk[c][4 * j + 2 * h],
                                       adk[c][4 * j + 2 * h + 1]);
@@ -320,10 +348,9 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 }
 
 struct Args {
-  CUtensorMap mq, mk, mv, mdo;
-  const void *lse, *dvec;
+  const void *q, *k, *v, *dout, *lse, *dvec;
   void *dk, *dv;
-  int bh, sq, sk;
+  int bh, grid_y, grid_z, sq, sk;
   float scale;
   int causal;
   ScoreBias sb;
@@ -332,29 +359,41 @@ struct Args {
 };
 
 template <int kD>
-int launch(const dim3& grid, const Args& a) {
+int launch(const Args& a) {
+  using L = Layout<kD>;
+  // with no queries the Q / dO maps are never read: build them over k
+  const bool noq = a.sq <= 0;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map_bf16(&mq, noq ? a.k : a.q, noq ? a.sk : a.sq, a.bh, kBQ,
+                     kD) ||
+      !make_map_bf16(&mk, a.k, a.sk, a.bh, L::kBK, kD) ||
+      !make_map_bf16(&mv, a.v, a.sk, a.bh, L::kBK, kD) ||
+      !make_map_bf16(&mdo, noq ? a.k : a.dout, noq ? a.sk : a.sq, a.bh, kBQ,
+                     kD))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((a.sk + L::kBK - 1) / L::kBK, a.grid_y, a.grid_z);
   // a separate instantiation for each form
   const bool b = a.sb.p != nullptr, dd = a.dr.seed != nullptr;
   const auto kernel = b ? (dd ? fa_bwd_dkv_kernel_wgmma<kD, true, true>
                               : fa_bwd_dkv_kernel_wgmma<kD, true, false>)
                         : (dd ? fa_bwd_dkv_kernel_wgmma<kD, false, true>
                               : fa_bwd_dkv_kernel_wgmma<kD, false, false>);
-  constexpr int smem = Layout<kD>::kSmemBytes;
+  constexpr int smem = L::kSmemBytes;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(a.stream)>>>(
-      a.mq, a.mk, a.mv, a.mdo, static_cast<const float*>(a.lse),
+      mq, mk, mv, mdo, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.dvec), static_cast<__nv_bfloat16*>(a.dk),
-      static_cast<__nv_bfloat16*>(a.dv), a.bh, a.sq, a.sk, a.scale,
-      a.causal, a.sb, a.dr);
+      static_cast<__nv_bfloat16*>(a.dv), a.bh, noq ? 0 : a.sq, a.sk,
+      a.scale, a.causal, a.sb, a.dr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16 q, k, v, do, dk and dv, contiguous and 16-byte aligned; lse and dvec
-// float32 [bh, sq]. d: 64 or 128 (the compiled widths; the wrapper pads
-// any other d). grid_y, grid_z, bias, heads, the bias strides and the
+// float32 [bh, sq]. d: 64, 128 or 256 (the compiled widths; the wrapper
+// pads any other d). grid_y, grid_z, bias, heads, the bias strides and the
 // dropout seed, threshold and keep as for apex_fa_fwd_wgmma.
 extern "C" int apex_fa_bwd_dkv_wgmma(
     const void* q, const void* k, const void* v, const void* bias,
@@ -363,25 +402,17 @@ extern "C" int apex_fa_bwd_dkv_wgmma(
     float scale, int causal, long long bsb, long long bsh, long long bsq,
     long long bsk, const void* seed, unsigned threshold, float keep,
     void* stream) {
-  if ((d != 64 && d != 128) || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+  if ((d != 64 && d != 128 && d != 256) || heads < 1 ||
+      !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sk <= 0) return 0;
   if (!is_aligned(q, 16) || !is_aligned(k, 16) || !is_aligned(v, 16) ||
       !is_aligned(dout, 16))
     return (int)cudaErrorMisalignedAddress;
-  // with no queries the Q / dO maps are never read: build them over k
-  const bool noq = sq <= 0;
-  CUtensorMap mq, mk, mv, mdo;
-  if (!make_map_bf16(&mq, noq ? k : q, noq ? sk : sq, bh, kBQ, d) ||
-      !make_map_bf16(&mk, k, sk, bh, kBK, d) ||
-      !make_map_bf16(&mv, v, sk, bh, kBK, d) ||
-      !make_map_bf16(&mdo, noq ? k : dout, noq ? sk : sq, bh, kBQ, d))
-    return (int)cudaErrorInvalidValue;
   const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
                      bsk};
   const Dropout dr{static_cast<const int*>(seed), threshold, keep};
-  const dim3 grid((sk + kBK - 1) / kBK, grid_y, grid_z);
-  const Args a{mq, mk, mv, mdo, lse, dvec, dk, dv, bh, noq ? 0 : sq, sk,
+  const Args a{q, k, v, dout, lse, dvec, dk, dv, bh, grid_y, grid_z, sq, sk,
                scale, causal, sb, dr, stream};
-  return d == 64 ? launch<64>(grid, a) : launch<128>(grid, a);
+  return d == 64 ? launch<64>(a) : d == 128 ? launch<128>(a) : launch<256>(a);
 }

@@ -6,8 +6,9 @@
 // or not, with or without the additive fp32 score bias (ScoreBias in
 // common.cuh), attention dropout (Dropout in common.cuh) and the dlogits
 // of a differentiated bias (`want_dbias`), JAX layout q / do (b, h, sq, d),
-// k / v (b, h, sk, d), d a compiled head width (64 or 128: the template
-// parameter kD; the wrapper pads any other d up to 128 with zero columns),
+// k / v (b, h, sk, d), d a compiled head width (64, 128 or 256: the
+// template parameter kD; the wrapper pads any other d up to the next of
+// them with zero columns),
 // lse and D = rowsum(do * o) fp32 (b, h, sq) (D computed outside,
 // `attention_dvec`). Per (query i, key j):
 //   s  = round(round(q_i . k_j * scale) + bias_ij), masked where j >= sk
@@ -48,9 +49,20 @@
 // runs the masked arithmetic (`_mask_split`); rows past sq load as zeros
 // with lse = -1e30 and are never written. Head dim 128: each tile arrives
 // as two 64-column boxes (hopper.cuh), S and dP take eight steps of depth
-// and dQ is two products of N = 64, one on each half of K, into two
-// accumulators (64 fp32 a thread instead of 32); shared memory holds Q
+// and dQ is two products of N = 64, one on each 64-column chunk of K, into
+// two accumulators (64 fp32 a thread instead of 32); shared memory holds Q
 // and dO (64 KB) and four stages of K and V (128 KB).
+//
+// Head dim 256: 128 rows of Q and dO (128 KB) beside two stages of K and V
+// (128 KB) would not fit a block's 227 KB, and dQ over all 256 columns
+// would be 128 fp32 a consumer thread. So a block owns one 64-row slab
+// (Layout::kSlabs = 1) that both consumer warpgroups take: each runs the
+// slab's S and dP products and its ds (the same operations on the same
+// operands, the same bits), and each keeps half of dQ's columns, 64 fp32
+// a thread as at d = 128, with the dQ products on its two chunks of K;
+// the first warpgroup alone writes the dlogits. S and dP thus run twice:
+// 5/3 of the tensor-core work of one S, one dP and one dQ. Shared memory:
+// Q and dO 64 KB, two stages of K and V 128 KB.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -64,18 +76,23 @@ using namespace apex_port;
 using namespace apex_port::hopper;
 
 constexpr int kRowsWG = 64;     // query rows per consumer warpgroup
-constexpr int kBQ = 128;        // query rows per block
 constexpr int kBK = 64;         // keys per streamed tile
-constexpr int kStages = 4;
 constexpr int kThreads = 384;   // two consumer warpgroups + the producer
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-// Shared memory at head dim kD (64 or 128). A tile's rows are 64-column
-// halves of 128 bytes, the second half (d = 128) kHalf bytes after the
-// first: kBK * 128 for a K / V tile, kBQ * 128 for Q and dO.
+// The block at head dim kD (64, 128 or 256): kSlabs 64-row slabs of
+// queries, one a consumer warpgroup (d <= 128), or one slab that both
+// warpgroups take, each holding kCols of dQ's columns (d = 256); kStages
+// stages of K and V. A tile's rows are 64-column chunks of 128 bytes,
+// chunk c c * kHalf bytes after the first: kBK * 128 for a K / V tile,
+// kBQ * 128 for Q and dO.
 template <int kD>
 struct Layout {
+  static constexpr int kSlabs = kD == 256 ? 1 : 2;
+  static constexpr int kBQ = kRowsWG * kSlabs;     // query rows per block
+  static constexpr int kCols = kD * kSlabs / 2;    // dQ columns a warpgroup
+  static constexpr int kStages = kD == 256 ? 2 : 4;
   static constexpr int kTileBytes = kBK * kD * 2;  // one 64-row bf16 tile
   static constexpr int kQBytes = kBQ * kD * 2;     // the resident Q (or dO)
   static constexpr int kTileHalf = kBK * 128;
@@ -83,7 +100,7 @@ struct Layout {
   static constexpr int kOffStages = 2 * kQBytes;   // K, V of each stage
   static constexpr int kOffBars = kOffStages + kStages * 2 * kTileBytes;
   static constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
-  static_assert(kD == 64 || kD == 128, "compiled head widths");
+  static_assert(kD == 64 || kD == 128 || kD == 256, "compiled head widths");
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
 };
 
@@ -94,7 +111,9 @@ __device__ __forceinline__ float bwd_p(float s, float lse) {
 
 // ds * scale (into s) of one tile for the thread's two rows and 16 keys,
 // from the scores in s and dp in t. kMasked: the tile crosses the diagonal
-// or the sk edge.
+// or the sk edge. kDbias: the dlogits into dlb where write_dl (not in the
+// second warpgroup of a d = 256 slab, whose rows the first one writes; a
+// constant true at d <= 128).
 template <bool kBias, bool kMasked, bool kDropout, bool kDbias>
 __device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
                                         const float (&l)[2],
@@ -103,7 +122,8 @@ __device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
                                         float scale, int causal,
                                         const ScoreBias& bias,
                                         const float* bs, const Dropout& drop,
-                                        uint32_t dhead, float* dlb) {
+                                        uint32_t dhead, float* dlb,
+                                        bool write_dl) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -120,7 +140,7 @@ __device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
       const float dp =
           kDropout ? t[4 * j + e] * drop.keep(dhead, row, key) : t[4 * j + e];
       const float dl = p * (dp - dsum[h]);
-      if (kDbias && row < sq && (!kMasked || key < sk))
+      if (kDbias && write_dl && row < sq && (!kMasked || key < sk))
         dlb[(long long)row * sk + key] = dl;
       // the dq product takes ds * scale in k's dtype
       s[4 * j + e] = dl * scale;
@@ -139,6 +159,7 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                        int sk, float scale, int causal, ScoreBias bias,
                        Dropout drop, float* __restrict__ dlogits) {
   using L = Layout<kD>;
+  constexpr int kBQ = L::kBQ, kStages = L::kStages, kNC = L::kCols / 64;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
@@ -188,7 +209,10 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     regs_inc<232>();
     const int t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32;
-    const int row0 = q0 + wg * kRowsWG;          // the warpgroup's first row
+    // the warpgroup's slab of rows and its group of dQ's columns (at d =
+    // 256 both warpgroups take slab 0, each kCols of the columns)
+    const int slab = L::kSlabs == 2 ? wg : 0, cg = L::kSlabs == 2 ? 0 : wg;
+    const int row0 = q0 + slab * kRowsWG;        // the warpgroup's first row
     const int r0 = row0 + 16 * warp + lane / 4;  // and r0 + 8
     const int cq = (lane % 4) * 2;
     const bool active = row0 < sq;
@@ -199,9 +223,10 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     const float* bs = kBias ? bias.slice(bh) : nullptr;
     const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
     float* dlb = kDbias ? dlogits + bh * sq * sk : nullptr;
-    // the warpgroup's rows of each 64-column half of Q and dO
-    const uint32_t q_addr = smem_addr(qs) + wg * kRowsWG * 128;
-    const uint32_t do_addr = smem_addr(dos) + wg * kRowsWG * 128;
+    const bool write_dl = L::kSlabs == 2 || cg == 0;
+    // the warpgroup's rows of each 64-column chunk of Q and dO
+    const uint32_t q_addr = smem_addr(qs) + slab * kRowsWG * 128;
+    const uint32_t do_addr = smem_addr(dos) + slab * kRowsWG * 128;
 
     // the lse and D of the thread's rows; rows past sq add nothing
     float l[2], dsum[2];
@@ -212,13 +237,13 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       dsum[h] = row < sq ? dvec[bh * sq + row] : 0.f;
     }
 
-    // dq in kD / 64 accumulators of 64 d columns each
-    float adq[kD / 64][32], s[32], tp[32];
+    // the warpgroup's dq in kNC accumulators of 64 d columns each
+    float adq[kNC][32], s[32], tp[32];
     uint32_t ads[4][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
 #pragma unroll
-      for (int c = 0; c < kD / 64; ++c) adq[c][i] = 0.f;
+      for (int c = 0; c < kNC; ++c) adq[c][i] = 0.f;
       s[i] = 0.f;
       tp[i] = 0.f;
     }
@@ -245,7 +270,7 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       fence_regs(s);
       fence_regs(tp);
 #pragma unroll
-      for (int c = 0; c < kD / 64; ++c) fence_regs(adq[c]);
+      for (int c = 0; c < kNC; ++c) fence_regs(adq[c]);
       fence_regs(ads);
       if (kt > 0) mbar_arrive(&empty[(kt - 1) % kStages]);
       // `_mask_split`: only a tile across the diagonal or the sk edge
@@ -254,22 +279,24 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       if (masked)
         dq_tile<kBias, true, kDropout, kDbias>(s, tp, l, dsum, r0, k0, cq, sq,
                                                sk, scale, causal, bias, bs,
-                                               drop, dhead, dlb);
+                                               drop, dhead, dlb, write_dl);
       else
         dq_tile<kBias, false, kDropout, kDbias>(s, tp, l, dsum, r0, k0, cq,
                                                 sq, sk, scale, causal, bias,
-                                                bs, drop, dhead, dlb);
+                                                bs, drop, dhead, dlb,
+                                                write_dl);
       to_a_operand(s, ads);  // ds * scale in k's dtype
       wgmma_fence();
-      // dQ += dS K (K MN-major), a product on each 64-column half of K
+      // dQ += dS K (K MN-major), a product on each of the warpgroup's
+      // 64-column chunks of K
 #pragma unroll
-      for (int c = 0; c < kD / 64; ++c)
-        product_rs(adq[c], ads, k_addr + c * L::kTileHalf);
+      for (int c = 0; c < kNC; ++c)
+        product_rs(adq[c], ads, k_addr + (cg * kNC + c) * L::kTileHalf);
       wgmma_commit();
     }
     wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < kD / 64; ++c) fence_regs(adq[c]);
+    for (int c = 0; c < kNC; ++c) fence_regs(adq[c]);
     fence_regs(ads);
     if (nk_me > 0) mbar_arrive(&empty[(nk_me - 1) % kStages]);
     // the block's tiles past this warpgroup's diagonal: released unread
@@ -278,8 +305,8 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(&full[st], (kt / kStages) & 1);
       mbar_arrive(&empty[st]);
     }
-    if (kDbias && active) {  // the keys past the diagonal: zeros, a warp
-      const int kz = nk_me * kBK;  // its 16 rows, a lane a key
+    if (kDbias && write_dl && active) {  // keys past the diagonal: zeros,
+      const int kz = nk_me * kBK;  // a warp its 16 rows, a lane a key
       for (int r = 16 * warp; r < 16 * warp + 16 && row0 + r < sq; ++r)
         for (int key = kz + lane; key < sk; key += 32)
           dlb[(long long)(row0 + r) * sk + key] = 0.f;
@@ -292,11 +319,12 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         const int row = r0 + 8 * h;
         if (row >= sq) continue;
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c)
+        for (int c = 0; c < kNC; ++c)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
             *reinterpret_cast<__nv_bfloat162*>(
-                dqb + (long long)row * kD + 64 * c + 8 * j + cq) =
+                dqb + (long long)row * kD + 64 * (cg * kNC + c) + 8 * j +
+                cq) =
                 __floats2bfloat162_rn(adq[c][4 * j + 2 * h],
                                       adq[c][4 * j + 2 * h + 1]);
       }
@@ -305,10 +333,9 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 }
 
 struct Args {
-  CUtensorMap mq, mk, mv, mdo;
-  const void *lse, *dvec;
+  const void *q, *k, *v, *dout, *lse, *dvec;
   void* dq;
-  int bh, sq, sk;
+  int bh, grid_y, grid_z, sq, sk;
   float scale;
   int causal;
   ScoreBias sb;
@@ -317,7 +344,19 @@ struct Args {
 };
 
 template <int kD>
-int launch(const dim3& grid, const Args& a) {
+int launch(const Args& a) {
+  using L = Layout<kD>;
+  // with no keys the K / V maps are never read: build them over q
+  const bool nokeys = a.sk <= 0;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map_bf16(&mq, a.q, a.sq, a.bh, L::kBQ, kD) ||
+      !make_map_bf16(&mk, nokeys ? a.q : a.k, nokeys ? a.sq : a.sk, a.bh,
+                     kBK, kD) ||
+      !make_map_bf16(&mv, nokeys ? a.q : a.v, nokeys ? a.sq : a.sk, a.bh,
+                     kBK, kD) ||
+      !make_map_bf16(&mdo, a.dout, a.sq, a.bh, L::kBQ, kD))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((a.sq + L::kBQ - 1) / L::kBQ, a.grid_y, a.grid_z);
   // a separate instantiation for each form; dlogits come with a bias only
   const bool dd = a.dr.seed != nullptr;
   const auto kernel =
@@ -329,11 +368,11 @@ int launch(const dim3& grid, const Args& a) {
                 : fa_bwd_dq_kernel_wgmma<kD, true, false, false>)
           : (dd ? fa_bwd_dq_kernel_wgmma<kD, false, true, false>
                 : fa_bwd_dq_kernel_wgmma<kD, false, false, false>);
-  constexpr int smem = Layout<kD>::kSmemBytes;
+  constexpr int smem = L::kSmemBytes;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(a.stream)>>>(
-      a.mq, a.mk, a.mv, a.mdo, static_cast<const float*>(a.lse),
+      mq, mk, mv, mdo, static_cast<const float*>(a.lse),
       static_cast<const float*>(a.dvec), static_cast<__nv_bfloat16*>(a.dq),
       a.bh, a.sq, a.sk < 0 ? 0 : a.sk, a.scale, a.causal, a.sb, a.dr,
       static_cast<float*>(a.dlogits));
@@ -343,8 +382,8 @@ int launch(const dim3& grid, const Args& a) {
 }  // namespace
 
 // bf16 q, k, v, do and dq, contiguous and 16-byte aligned; lse and dvec
-// float32 [bh, sq]. d: 64 or 128 (the compiled widths; the wrapper pads
-// any other d). grid_y, grid_z, bias, heads, the bias
+// float32 [bh, sq]. d: 64, 128 or 256 (the compiled widths; the wrapper
+// pads any other d). grid_y, grid_z, bias, heads, the bias
 // strides and the dropout seed, threshold and keep as for
 // apex_fa_fwd_wgmma. dlogits: float32 [bh, sq, sk], every entry written,
 // or null; only with a bias.
@@ -355,7 +394,7 @@ extern "C" int apex_fa_bwd_dq_wgmma(
     int causal, long long bsb, long long bsh, long long bsq, long long bsk,
     const void* seed, unsigned threshold, float keep, void* dlogits,
     void* stream) {
-  if ((d != 64 && d != 128) || heads < 1 ||
+  if ((d != 64 && d != 128 && d != 256) || heads < 1 ||
       !bh_grid_ok(bh, grid_y, grid_z) ||
       (dlogits != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -363,19 +402,10 @@ extern "C" int apex_fa_bwd_dq_wgmma(
   if (!is_aligned(q, 16) || !is_aligned(k, 16) || !is_aligned(v, 16) ||
       !is_aligned(dout, 16))
     return (int)cudaErrorMisalignedAddress;
-  // with no keys the K / V maps are never read: build them over q
-  const bool nokeys = sk <= 0;
-  CUtensorMap mq, mk, mv, mdo;
-  if (!make_map_bf16(&mq, q, sq, bh, kBQ, d) ||
-      !make_map_bf16(&mk, nokeys ? q : k, nokeys ? sq : sk, bh, kBK, d) ||
-      !make_map_bf16(&mv, nokeys ? q : v, nokeys ? sq : sk, bh, kBK, d) ||
-      !make_map_bf16(&mdo, dout, sq, bh, kBQ, d))
-    return (int)cudaErrorInvalidValue;
   const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
                      bsk};
   const Dropout dr{static_cast<const int*>(seed), threshold, keep};
-  const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
-  const Args a{mq, mk, mv, mdo, lse, dvec, dq, bh, sq, sk, scale, causal,
-               sb, dr, dlogits, stream};
-  return d == 64 ? launch<64>(grid, a) : launch<128>(grid, a);
+  const Args a{q, k, v, dout, lse, dvec, dq, bh, grid_y, grid_z, sq, sk,
+               scale, causal, sb, dr, dlogits, stream};
+  return d == 64 ? launch<64>(a) : d == 128 ? launch<128>(a) : launch<256>(a);
 }

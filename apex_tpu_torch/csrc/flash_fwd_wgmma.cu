@@ -10,9 +10,9 @@
 // (ScoreBias in common.cuh, never expanded), with or without attention
 // dropout (Dropout in common.cuh: p times its keep factor before the cast
 // to bf16 for the p.v product; l and lse from the undropped p), JAX layout
-// q (b, h, sq, d), k / v (b, h, sk, d), d a compiled head width (64 or
-// 128: the template parameter kD; the wrapper pads any other d up to 128
-// with zero columns). The arithmetic is the TPU
+// q (b, h, sq, d), k / v (b, h, sk, d), d a compiled head width (64, 128
+// or 256: the template parameter kD; the wrapper pads any other d up to
+// the next of them with zero columns). The arithmetic is the TPU
 // kernel's: s = round(round(q.k * scale) + bias) in fp32; masked scores
 // (key > row when causal, key >= sk) are -1e30 and a score <= -0.5e30 is
 // out of the softmax support; the running max is shifted by 0 while it is
@@ -23,7 +23,8 @@
 // 1024 x 64, causal) the products are ~2 x 2 x s^2 / 2 x d flops a head
 // over 4 x s x d x 2 bytes of q, k, v and o: ~500 flops a byte, above the
 // H100's ridge (~295 for bf16); at d = 128 (Cerebras-GPT 1.3B's 2 x 16 x
-// 2048 x 128) twice the flops over twice the bytes.
+// 2048 x 128) and d = 256 (GPT-J 6B's 2 x 16 x 2048 x 256) the flops and
+// the bytes grow together.
 //
 // What the design does about that: the products run on the tensor cores
 // (wgmma m64n64k16, bf16 in, fp32 sums) from tiles that TMA brings into
@@ -37,8 +38,8 @@
 // scale, bias and masks applied per accumulator element from its (row,
 // key), row max and sum over the 4 threads of a quad, p packed to bf16 in
 // registers as the A operand of O += P V (V, [key][d], is the MN-major B
-// operand; at d = 128 two products of N = 64, one on each 64-column half of
-// V, into two accumulators). Causal blocks stop at the diagonal; only a
+// operand; above d = 64 a product of N = 64 on each 64-column chunk of V,
+// into as many accumulators). Causal blocks stop at the diagonal; only a
 // tile that crosses
 // a warpgroup's diagonal or the ragged sk edge runs the masked arithmetic
 // (`_mask_split`), the heaviest query blocks are launched first, and rows
@@ -52,6 +53,30 @@
 // instead of 32 (the consumers' setmaxnreg budget is the same 232; what
 // does not fit there spills, PERF.md). Shared memory at d = 128: Q 32 KB,
 // four stages of K and V 128 KB and the re-sum scratch 48 KB.
+//
+// Head dim 256: a consumer holding all 256 columns of O for its 64 rows
+// would need 128 fp32 of O beside S and the re-sum's registers, past what
+// 232 registers keep without heavy spills, and 128 rows of Q (64 KB) with
+// two stages of K and V (128 KB) and the scratch (48 KB) would not fit a
+// block's 227 KB. So a block owns one 64-row slab (Layout::kSlabs = 1):
+// both consumer warpgroups take the same rows, each computes the slab's S
+// and its softmax (the same operations on the same operands: the same p
+// bit for bit, no exchange through shared memory and no barrier between
+// them) and each keeps half of O's columns, 64 fp32 a thread as at d =
+// 128, with the P V products on its two chunks of V. The S product is
+// thus run twice: 1.5 times the tensor-core work of one S and one P V.
+// Shared memory: Q 32 KB, two stages of K and V 128 KB, the scratch 48 KB.
+// At d = 256 a block over more than one key tile also makes two passes
+// (Layout::kTwoPass): the first streams K alone and takes each row's
+// exact max (its candidates summed again as below), the second starts
+// from it, so that the running max never moves and every bf16(p) is
+// exp(s - the row's max) rounded, the plain version's bit for bit. With
+// one pass, p is rounded against the running max and rescaled when a later
+// tile raises it, as the TPU kernel's online softmax does: in a row whose
+// max moves, a large p can then land a bf16 ulp from the plain version's
+// (2 of 148,608 elements of o past FA_TOL in the card test at d = 192
+// with a learned bias and dropout; a 64-key-tile online reference
+// computed in PyTorch gives the same 2). d = 64 and 128 keep one pass.
 //
 // The tensor cores sum a score's d terms in another order than the plain
 // version's sequential fp32 product, and bf16(p) can then land on the
@@ -80,9 +105,7 @@ using namespace apex_port;
 using namespace apex_port::hopper;
 
 constexpr int kRowsWG = 64;     // query rows per consumer warpgroup
-constexpr int kBQ = 128;        // query rows per block
 constexpr int kBK = 64;         // keys per streamed tile
-constexpr int kStages = 4;
 constexpr int kThreads = 384;   // two consumer warpgroups + the producer
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
@@ -94,11 +117,20 @@ constexpr int kFixSlots = 32 * 32;
 constexpr int kFixBytes = kFixSlots * 4 + kFixSlots * 2;
 constexpr int kNormThread0 = 288;  // the producer's warps 9 and 10: |k|
 
-// Shared memory at head dim kD (64 or 128). A tile's rows are 64-column
-// halves of 128 bytes, the second half (d = 128) kHalf bytes after the
-// first: kBK * 128 for a K / V tile, kBQ * 128 for Q.
+// The block at head dim kD (64, 128 or 256): kSlabs 64-row slabs of
+// queries, one a consumer warpgroup (d <= 128), or one slab that both
+// warpgroups take, each holding kCols of O's columns (d = 256); kStages
+// stages of K and V. A tile's rows are 64-column chunks of 128 bytes,
+// chunk c c * kHalf bytes after the first: kBK * 128 for a K / V tile,
+// kBQ * 128 for Q.
 template <int kD>
 struct Layout {
+  static constexpr int kSlabs = kD == 256 ? 1 : 2;
+  static constexpr int kBQ = kRowsWG * kSlabs;     // query rows per block
+  static constexpr int kCols = kD * kSlabs / 2;    // O columns a warpgroup
+  static constexpr int kStages = kD == 256 ? 2 : 4;
+  // a first pass over the keys for each row's exact max (see the header)
+  static constexpr bool kTwoPass = kD == 256;
   static constexpr int kTileBytes = kBK * kD * 2;  // one 64-row bf16 tile
   static constexpr int kQBytes = kBQ * kD * 2;
   static constexpr int kTileHalf = kBK * 128;
@@ -109,7 +141,7 @@ struct Layout {
   static constexpr int kOffFix = kOffNorms + kStages * 2 * 4;  // 8 warps
   static constexpr int kOffBars = kOffFix + 8 * kFixBytes;
   static constexpr int kSmemBytes = kOffBars + (3 * kStages + 1) * 8 + 1024;
-  static_assert(kD == 64 || kD == 128, "compiled head widths");
+  static_assert(kD == 64 || kD == 128 || kD == 256, "compiled head widths");
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
 };
 
@@ -123,8 +155,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // The 16-byte chunk c (8 bf16) of row r of a 128-byte-swizzled tile whose
-// second 64-column half lies kHalf bytes after the first (0: one half, c
-// below 8)
+// 64-column chunks lie kHalf bytes apart (0: one 64-column chunk, c below
+// 8)
 template <int kHalf>
 __device__ __forceinline__ uint4 tile_chunk(const uint8_t* tile, int r,
                                             int c) {
@@ -142,7 +174,8 @@ __device__ __forceinline__ float bf_lo(uint32_t w) {
 __device__ __forceinline__ float bf_hi(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
 }
-// |row r|^2 of a 128-byte-swizzled tile (halves kHalf bytes apart),
+// |row r|^2 of a 128-byte-swizzled tile (64-column chunks kHalf bytes
+// apart),
 // chunks c0 .. c0 + nc - 1 (a bound: the order does not matter)
 template <int kHalf>
 __device__ __forceinline__ float tile_row_sq(const uint8_t* tile, int r,
@@ -160,8 +193,8 @@ __device__ __forceinline__ float tile_row_sq(const uint8_t* tile, int r,
 }
 // q . k in the plain version's order: one fp32 FMA a term, d = 0 .. kD -
 // 1, from 0 (the sequential sum of cuBLAS's fp32 product, which the FMA
-// kernel repeats). Rows of 128-byte-swizzled tiles whose halves lie kQHalf
-// and kKHalf bytes apart (0 at d = 64: one half).
+// kernel repeats). Rows of 128-byte-swizzled tiles whose 64-column chunks
+// lie kQHalf and kKHalf bytes apart (0 at d = 64: one chunk).
 template <int kD, int kQHalf, int kKHalf>
 __device__ __forceinline__ float seq_dot(const uint8_t* q, int rq,
                                          const uint8_t* k, int rk) {
@@ -189,7 +222,8 @@ __device__ __forceinline__ float seq_dot(const uint8_t* q, int rq,
 // which require at most half of kOrderUnits at each width), and
 // kOrderUnits bounds it with room. The worst case of the order error
 // grows with the number of terms (each partial sum rounds once more), so
-// the bound grows with d: 16 units at d = 64, 32 at d = 128. Scaling and
+// the bound grows with d: 16 units at d = 64, 32 at d = 128, 64 at d =
+// 256. Scaling and
 // the bias add round once more each (2^-23 of |q.k * scale| <= scale |q|
 // |k| and of |x|).
 template <int kD>
@@ -199,7 +233,8 @@ constexpr float kErrPerNorm = (kOrderUnits<kD> + 4.f) * 0x1p-24f;
 
 // One key tile of the online softmax for the thread's two rows: scores in
 // s become p (fp32), o and l are rescaled. kMasked: the tile crosses the
-// diagonal or the sk edge.
+// diagonal or the sk edge. kMaxOnly: the first pass of a two-pass block
+// (Layout::kTwoPass): only the row max m, made exact, and nothing else.
 //
 // p is rounded to bf16 before the p.v product, so a score's last bits can
 // move p to the neighbouring bf16 value. Where they can (p within the
@@ -208,9 +243,10 @@ constexpr float kErrPerNorm = (kOrderUnits<kD> + 4.f) * 0x1p-24f;
 // summed again in the plain version's order: the row max is the plain
 // version's and so is every bf16(p). The warp shares those sums out, one a
 // lane (a few a tile), through its scratch: fv the values, fl the list.
-template <int kD, bool kBias, bool kMasked, bool kDropout>
+template <int kD, bool kBias, bool kMasked, bool kDropout, bool kMaxOnly>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[32], float (&o)[kD / 64][32], float (&m)[2], float (&l)[2],
+    float (&s)[32], float (&o)[Layout<kD>::kCols / 64][32], float (&m)[2],
+    float (&l)[2],
     const float (&qn)[2], float kmax, const uint8_t* qt, const uint8_t* kt,
     float* fv, uint16_t* fl, int row0, int rw, int lane, int k0, int sq,
     int sk, float scale, int causal, const ScoreBias& bias,
@@ -258,7 +294,7 @@ __device__ __forceinline__ void softmax_tile(
   }
   // dropout: the kept entries (a bit each)
   uint32_t kept = 0u;
-  if (kDropout) {
+  if (kDropout && !kMaxOnly) {
 #pragma unroll
     for (int e = 0; e < 32; ++e)
       if (drop.keep(dhead, r0 + ((e >> 1) & 1) * 8,
@@ -271,6 +307,10 @@ __device__ __forceinline__ void softmax_tile(
   for (int e = 0; e < 32; ++e) {
     const int h = (e >> 1) & 1;
     const float x = s[e];
+    if (kMaxOnly) {  // the scores that can be the row's max
+      if (x > kMaskEdge && x >= floor_[h]) fix |= 1u << e;
+      continue;
+    }
     pp[e] = expf(x - m_safe[h]);
     bool open;  // bf16 of the value the p.v product takes is in doubt
     if (kDropout) {
@@ -329,7 +369,7 @@ __device__ __forceinline__ void softmax_tile(
       const bool again = m_new != m_est[h] || (fix & in_row) != 0;
       m_est[h] = m_new;
       m_safe[h] = m_new <= kMaskEdge ? 0.f : m_new;
-      if (again) {
+      if (again && !kMaxOnly) {
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -338,6 +378,11 @@ __device__ __forceinline__ void softmax_tile(
       }
     }
     __syncwarp();  // the scratch is free for the next tile
+  }
+  if (kMaxOnly) {
+    m[0] = m_est[0];
+    m[1] = m_est[1];
+    return;
   }
   float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -356,7 +401,8 @@ __device__ __forceinline__ void softmax_tile(
                                : 0.f;
       sum[e >> 1] += pp[4 * j + e];
 #pragma unroll
-      for (int c = 0; c < kD / 64; ++c) o[c][4 * j + e] *= alpha[e >> 1];
+      for (int c = 0; c < Layout<kD>::kCols / 64; ++c)
+        o[c][4 * j + e] *= alpha[e >> 1];
     }
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
@@ -371,6 +417,7 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                     int nbh, int sq, int sk, float scale, int causal,
                     ScoreBias bias, Dropout drop) {
   using L = Layout<kD>;
+  constexpr int kBQ = L::kBQ, kStages = L::kStages, kNC = L::kCols / 64;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
@@ -387,6 +434,9 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
   // the block's key tiles: up to its last real row's diagonal when causal
   const int nk =
       causal ? min(nk_all, (min(q0 + kBQ, sq) - 1) / kBK + 1) : nk_all;
+  // the key tiles streamed: twice (K alone, then K and V) where a first
+  // pass takes each row's max over more than one tile
+  const int passes = L::kTwoPass && nk > 1 ? 2 : 1;
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
@@ -406,23 +456,25 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     if (threadIdx.x == 256) {
       mbar_expect_tx(qbar, L::kQBytes);
       tma_load_rows<kD>(qs, &map_q, qbar, kBQ, q0, (int)bh);
-      for (int kt = 0; kt < nk; ++kt) {
-        const int st = kt % kStages;
-        mbar_wait(&empty[st], ((kt / kStages) & 1) ^ 1);
+      for (int it = 0; it < passes * nk; ++it) {
+        const int st = it % kStages, kt = L::kTwoPass ? it % nk : it;
+        const bool with_v = !L::kTwoPass || it >= (passes - 1) * nk;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
         uint8_t* ks = smem + L::kOffStages + st * 2 * L::kTileBytes;
-        mbar_expect_tx(&full[st], 2 * L::kTileBytes);
+        mbar_expect_tx(&full[st], (with_v ? 2 : 1) * L::kTileBytes);
         tma_load_rows<kD>(ks, &map_k, &full[st], kBK, kt * kBK, (int)bh);
-        tma_load_rows<kD>(ks + L::kTileBytes, &map_v, &full[st], kBK,
-                          kt * kBK, (int)bh);
+        if (with_v)
+          tma_load_rows<kD>(ks + L::kTileBytes, &map_v, &full[st], kBK,
+                            kt * kBK, (int)bh);
       }
     } else if (threadIdx.x >= kNormThread0 &&
                threadIdx.x < kNormThread0 + kBK) {
       // max |k| of each K tile, for the consumers' error bounds: a key a
       // thread, a max a warp
       const int key = threadIdx.x - kNormThread0;
-      for (int kt = 0; kt < nk; ++kt) {
-        const int st = kt % kStages;
-        mbar_wait(&full[st], (kt / kStages) & 1);
+      for (int it = 0; it < passes * nk; ++it) {
+        const int st = it % kStages;
+        mbar_wait(&full[st], (it / kStages) & 1);
         float n = sqrtf(tile_row_sq<kD == 64 ? 0 : L::kTileHalf>(
             smem + L::kOffStages + st * 2 * L::kTileBytes, key, 0, kD / 8));
 #pragma unroll
@@ -437,7 +489,10 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     regs_inc<232>();
     const int t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32;
-    const int row0 = q0 + wg * kRowsWG;       // the warpgroup's first row
+    // the warpgroup's slab of rows and its group of O's columns (at d =
+    // 256 both warpgroups take slab 0, each kCols of the columns)
+    const int slab = L::kSlabs == 2 ? wg : 0, cg = L::kSlabs == 2 ? 0 : wg;
+    const int row0 = q0 + slab * kRowsWG;     // the warpgroup's first row
     const int r0 = row0 + 16 * warp + lane / 4;  // and r0 + 8
     const int cq = (lane % 4) * 2;
     const bool active = row0 < sq;
@@ -445,22 +500,21 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         causal ? min(nk_all, (row0 + kRowsWG - 1) / kBK + 1) : nk_all;
     const float* bs = kBias ? bias.slice(bh) : nullptr;
     const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
-    // the warpgroup's Q (its rows of each 64-column half)
-    const uint8_t* qw = qs + wg * kRowsWG * 128;
+    // the warpgroup's Q (its rows of each 64-column chunk)
+    const uint8_t* qw = qs + slab * kRowsWG * 128;
     const uint32_t q_addr = smem_addr(qw);
     const int rq = 16 * warp + lane / 4;  // r0's row in qw
     uint8_t* scratch = smem + L::kOffFix + (wg * 4 + warp) * kFixBytes;
     float* fv = reinterpret_cast<float*>(scratch);
     uint16_t* fl = reinterpret_cast<uint16_t*>(scratch + kFixSlots * 4);
 
-    // o in kD / 64 accumulators of 64 d columns each
-    float acc[kD / 64][32], s[32], m[2] = {kNegInf, kNegInf},
-                                    l[2] = {0.f, 0.f};
+    // the warpgroup's o in kNC accumulators of 64 d columns each
+    float acc[kNC][32], s[32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     uint32_t p[4][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
 #pragma unroll
-      for (int c = 0; c < kD / 64; ++c) acc[c][i] = 0.f;
+      for (int c = 0; c < kNC; ++c) acc[c][i] = 0.f;
       s[i] = 0.f;
     }
 
@@ -470,9 +524,9 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     for (int h = 0; h < 2; ++h)
       qn[h] = sqrtf(quad_sum(tile_row_sq<kD == 64 ? 0 : L::kQHalf>(
           qw, rq + 8 * h, (kD / 32) * (lane % 4), kD / 32)));
-    for (int kt = 0; kt < nk; ++kt) {
-      const int st = kt % kStages;
-      mbar_wait(&full[st], (kt / kStages) & 1);
+    for (int it = 0; it < passes * nk; ++it) {
+      const int st = it % kStages, kt = L::kTwoPass ? it % nk : it;
+      mbar_wait(&full[st], (it / kStages) & 1);
       if (active && kt < nk_me) {
         const uint8_t* kt_s =
             smem + L::kOffStages + st * 2 * L::kTileBytes;
@@ -486,29 +540,45 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         // `_mask_split`: only a tile across the diagonal or the sk edge
         const bool masked =
             (causal && k0 + kBK - 1 > row0) || k0 + kBK > sk;
-        mbar_wait(&normed[st], (kt / kStages) & 1);
+        mbar_wait(&normed[st], (it / kStages) & 1);
         const float kmax = fmaxf(kmaxs[2 * st], kmaxs[2 * st + 1]);
-        if (masked)
-          softmax_tile<kD, kBias, true, kDropout>(
-              s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
-              lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
-        else
-          softmax_tile<kD, kBias, false, kDropout>(
-              s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
-              lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
-        to_a_operand(s, p);  // p in bf16: v's dtype before the p.v product
-        wgmma_fence();
+        bool max_pass = false;  // the first of two passes: the max only
+        if constexpr (L::kTwoPass) {
+          max_pass = it < (passes - 1) * nk;
+          if (max_pass && masked)
+            softmax_tile<kD, kBias, true, kDropout, true>(
+                s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
+                lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
+          else if (max_pass)
+            softmax_tile<kD, kBias, false, kDropout, true>(
+                s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
+                lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
+        }
+        if (!max_pass) {
+          if (masked)
+            softmax_tile<kD, kBias, true, kDropout, false>(
+                s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
+                lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
+          else
+            softmax_tile<kD, kBias, false, kDropout, false>(
+                s, acc, m, l, qn, kmax, qw, kt_s, fv, fl, row0, 16 * warp,
+                lane, k0, sq, sk, scale, causal, bias, bs, drop, dhead);
+          to_a_operand(s, p);  // p in bf16: v's dtype before the p.v product
+          wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c) fence_regs(acc[c]);
-        // O += P V: a product of N = 64 on each 64-column half of V
+          for (int c = 0; c < kNC; ++c) fence_regs(acc[c]);
+          // O += P V: a product of N = 64 on each of the warpgroup's
+          // 64-column chunks of V
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c)
-          product_rs(acc[c], p, k_addr + L::kTileBytes + c * L::kTileHalf);
-        wgmma_commit();
-        wgmma_wait<0>();
+          for (int c = 0; c < kNC; ++c)
+            product_rs(acc[c], p, k_addr + L::kTileBytes +
+                                      (cg * kNC + c) * L::kTileHalf);
+          wgmma_commit();
+          wgmma_wait<0>();
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c) fence_regs(acc[c]);
-        fence_regs(p);
+          for (int c = 0; c < kNC; ++c) fence_regs(acc[c]);
+          fence_regs(p);
+        }
       }
       mbar_arrive(&empty[st]);
     }
@@ -521,14 +591,15 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         if (row >= sq) continue;
         const float safe_l = l[h] > 0.f ? l[h] : 1.f;
 #pragma unroll
-        for (int c = 0; c < kD / 64; ++c)
+        for (int c = 0; c < kNC; ++c)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
             *reinterpret_cast<__nv_bfloat162*>(
-                ob + (long long)row * kD + 64 * c + 8 * j + cq) =
-                __floats2bfloat162_rn(acc[c][4 * j + 2 * h] / safe_l,
-                                      acc[c][4 * j + 2 * h + 1] / safe_l);
-        if (cq == 0)
+                ob + (long long)row * kD + 64 * (cg * kNC + c) + 8 * j +
+                cq) = __floats2bfloat162_rn(acc[c][4 * j + 2 * h] / safe_l,
+                                            acc[c][4 * j + 2 * h + 1] /
+                                                safe_l);
+        if (cq == 0 && cg == 0)
           lse[bh * sq + row] =
               m[h] <= kMaskEdge ? kNegInf : m[h] + logf(safe_l);
       }
@@ -537,17 +608,25 @@ fa_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 }
 
 template <int kD>
-int launch(const dim3& grid, const CUtensorMap& mq, const CUtensorMap& mk,
-           const CUtensorMap& mv, void* o, void* lse, int bh, int sq, int sk,
-           float scale, int causal, const ScoreBias& sb, const Dropout& dr,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int bh, int grid_y, int grid_z, int sq, int sk, float scale,
+           int causal, const ScoreBias& sb, const Dropout& dr, void* stream) {
+  using L = Layout<kD>;
+  // with no keys the K / V maps are never read: build them over q
+  const bool nokeys = sk <= 0;
+  CUtensorMap mq, mk, mv;
+  if (!make_map_bf16(&mq, q, sq, bh, L::kBQ, kD) ||
+      !make_map_bf16(&mk, nokeys ? q : k, nokeys ? sq : sk, bh, kBK, kD) ||
+      !make_map_bf16(&mv, nokeys ? q : v, nokeys ? sq : sk, bh, kBK, kD))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((sq + L::kBQ - 1) / L::kBQ, grid_y, grid_z);
   // a separate instantiation for each form
   const bool b = sb.p != nullptr, dd = dr.seed != nullptr;
   const auto kernel = b ? (dd ? fa_fwd_kernel_wgmma<kD, true, true>
                               : fa_fwd_kernel_wgmma<kD, true, false>)
                         : (dd ? fa_fwd_kernel_wgmma<kD, false, true>
                               : fa_fwd_kernel_wgmma<kD, false, false>);
-  constexpr int smem = Layout<kD>::kSmemBytes;
+  constexpr int smem = L::kSmemBytes;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -559,7 +638,8 @@ int launch(const dim3& grid, const CUtensorMap& mq, const CUtensorMap& mk,
 }  // namespace
 
 // bf16 q, k, v and o, contiguous and 16-byte aligned; lse float32 [bh,
-// sq]. d: 64 or 128 (the compiled widths; the wrapper pads any other d).
+// sq]. d: 64, 128 or 256 (the compiled widths; the wrapper pads any other
+// d).
 // grid_y x grid_z blocks carry the bh = b * h slices
 // (fa_batch_heads_grid in ops/tiling.py). bias: float32 or null; heads = h
 // of bh = b * h; bsb, bsh, bsq, bsk its strides in elements (0 on a
@@ -573,24 +653,16 @@ extern "C" int apex_fa_fwd_wgmma(const void* q, const void* k, const void* v,
                                  long long bsq, long long bsk,
                                  const void* seed, unsigned threshold,
                                  float keep, void* stream) {
-  if ((d != 64 && d != 128) || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
+  if ((d != 64 && d != 128 && d != 256) || heads < 1 ||
+      !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   if (!is_aligned(q, 16) || !is_aligned(k, 16) || !is_aligned(v, 16))
     return (int)cudaErrorMisalignedAddress;
-  // with no keys the K / V maps are never read: build them over q
-  const bool nokeys = sk <= 0;
-  CUtensorMap mq, mk, mv;
-  if (!make_map_bf16(&mq, q, sq, bh, kBQ, d) ||
-      !make_map_bf16(&mk, nokeys ? q : k, nokeys ? sq : sk, bh, kBK, d) ||
-      !make_map_bf16(&mv, nokeys ? q : v, nokeys ? sq : sk, bh, kBK, d))
-    return (int)cudaErrorInvalidValue;
   const ScoreBias sb{static_cast<const float*>(bias), heads, bsb, bsh, bsq,
                      bsk};
   const Dropout dr{static_cast<const int*>(seed), threshold, keep};
-  const dim3 grid((sq + kBQ - 1) / kBQ, grid_y, grid_z);
-  return d == 64 ? launch<64>(grid, mq, mk, mv, o, lse, bh, sq, sk, scale,
-                              causal, sb, dr, stream)
-                 : launch<128>(grid, mq, mk, mv, o, lse, bh, sq, sk, scale,
-                               causal, sb, dr, stream);
+  const auto run = d == 64 ? launch<64> : d == 128 ? launch<128> : launch<256>;
+  return run(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale, causal, sb,
+             dr, stream);
 }

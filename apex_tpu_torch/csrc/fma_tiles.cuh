@@ -1,6 +1,6 @@
 // Building blocks of the fp32 flash kernels on the FMA pipes
 // (flash_attention.cu, flash_attention_bwd.cu): asynchronous copies of
-// rows of a (s, d) fp32 matrix (d 64 or 128) into a shared-memory tile
+// rows of a (s, d) fp32 matrix (d 64, 128 or 256) into a shared-memory tile
 // whose rows are padded to kStride floats, and the register-blocked
 // products over such tiles. A lane's micro-tile holds kMI rows (kRowStep
 // apart) by kNJ columns (kColStep apart) of a score, or by 4 d columns of

@@ -5,19 +5,20 @@
 //
 // Tiles are rows of 64 bf16 (128 bytes) brought into shared memory by TMA
 // with the 128-byte swizzle, the widest row a swizzled box may have; a
-// row of head dim 128 arrives as two such boxes, columns 0..63 and 64..127,
-// each its own run of 128-byte rows (a "half" of the tile, the second
-// `rows` x 128 bytes after the first). Every half starts on a 1024-byte
-// boundary, so one descriptor form serves all of them:
+// row of head dim d (64, 128 or 256) arrives as d / 64 such boxes, columns
+// 0..63, 64..127, ..., each its own run of 128-byte rows (a "chunk" of the
+// tile, chunk c lying c x `rows` x 128 bytes after the first). Every chunk
+// starts on a 1024-byte boundary, so one descriptor form serves all of
+// them:
 // - K-major operand (the product's depth, d, runs along the row): 8-row
 //   groups 1024 bytes apart (SBO), the next 16 columns of depth 32 bytes
-//   further in the start address;
-//   At depth 128 the last four steps of 16 read the second half;
+//   further in the start address; every fourth step of 16 moves on to the
+//   next chunk;
 // - MN-major operand (rows are the depth, the 64 columns the product's N):
 //   one 128-byte swizzle atom across N, 8-row depth groups 1024 bytes
-//   apart (SBO), the next 16 rows of depth 2048 bytes further. An N of 128
-//   (a head dim of 128) is two products of N = 64, one on each half, into
-//   two accumulators.
+//   apart (SBO), the next 16 rows of depth 2048 bytes further. An N of d
+//   (a head dim above 64) is d / 64 products of N = 64, one on each chunk,
+//   into as many accumulators.
 // The accumulator of a warpgroup's m64nN product: warp w holds rows
 // 16w + lane/4 and 16w + lane/4 + 8; element 4j + {0, 1} is the first row
 // at columns 8j + (lane % 4) * 2 + {0, 1}, 4j + {2, 3} the second row at
@@ -67,9 +68,9 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous bf16 (bh, s, d) tensor, d 64 or 128,
+// A 3-D map over a contiguous bf16 (bh, s, d) tensor, d a multiple of 64,
 // dimensions (d, s, bh) innermost first, box (64, rows, 1): a 64-column
-// half of `rows` rows (tma_load_rows loads every half), 128-byte swizzle.
+// chunk of `rows` rows (tma_load_rows loads every chunk), 128-byte swizzle.
 // Rows past s of one (b * h) slice arrive as zeros, never as the next
 // slice's rows. The base must be 16-byte aligned (the wrapper checks).
 // False on failure.
@@ -162,7 +163,7 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 }
 
 // rows [row, row + rows) of (b * h) slice bh of a map of head dim kD into
-// shared memory at `dst`, a 64-column half after another (half h at dst +
+// shared memory at `dst`, a 64-column chunk after another (chunk h at dst +
 // h * rows * 128); completion on `bar`, kD * rows * 2 bytes in all
 template <int kD>
 __device__ __forceinline__ void tma_load_rows(void* dst,
@@ -302,21 +303,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The 64 x 64 S = A Bᵀ of one warpgroup over depth kD (64 or 128):
+// The 64 x 64 S = A Bᵀ of one warpgroup over depth kD (64, 128 or 256):
 // K-major steps of 16, A and B tiles at shared addresses a and b, whose
-// second 64-column halves lie a_half and b_half bytes further.
+// 64-column chunks lie a_chunk and b_chunk bytes apart.
 template <int kD>
 __device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a,
-                                           uint32_t a_half, uint32_t b,
-                                           uint32_t b_half) {
+                                           uint32_t a_chunk, uint32_t b,
+                                           uint32_t b_chunk) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_ss(d, desc_sw128(a + (kk / 4) * a_half + (kk % 4) * 32),
-             desc_sw128(b + (kk / 4) * b_half + (kk % 4) * 32), kk > 0);
+    wgmma_ss(d, desc_sw128(a + (kk / 4) * a_chunk + (kk % 4) * 32),
+             desc_sw128(b + (kk / 4) * b_chunk + (kk % 4) * 32), kk > 0);
 }
 // d += P B over depth 64: P from registers (p[kk] the columns 16kk..+15),
 // B an MN-major tile at shared address b (16 rows of depth a step), its 64
-// columns of N one half of the tile
+// columns of N one chunk of the tile
 __device__ __forceinline__ void product_rs(float (&d)[32],
                                            const uint32_t (&p)[4][4],
                                            uint32_t b) {

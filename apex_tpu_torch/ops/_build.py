@@ -18,8 +18,8 @@ launches its kernel and nowhere else, so a caller can zero the counts,
 drive a path and read which kernels that path went through;
 ``route_launches`` splits the flash wrappers' counts by route (the
 tensor-core or the FMA-pipe kernels) and ``form_launches`` counts their
-dropout and dlogits forms, their launches at head width 128 and those of
-calls padded to a compiled width.
+dropout and dlogits forms, their launches at head widths 128 and 256 and
+those of calls padded to a compiled width.
 """
 
 from __future__ import annotations
@@ -152,9 +152,9 @@ route_launches: collections.Counter = collections.Counter()
 # the flash wrappers' launches of a kernel's optional forms, as
 # ``"<name>:<route>:<form>"``: ``fa_fwd:wgmma:dropout``,
 # ``fa_bwd_dkv:fma:dropout``, the dq kernel's dlogits
-# ``fa_bwd_dq:wgmma:dbias``, ...; at head width 128 each launch also
-# counts ``"<name>:<route>:d128"`` and its forms carry the width
-# (``fa_bwd_dq:fma:d128:dbias``); a call at a head dim that is not
+# ``fa_bwd_dq:wgmma:dbias``, ...; at head width 128 or 256 each launch
+# also counts ``"<name>:<route>:d128"`` (``d256``) and its forms carry the
+# width (``fa_bwd_dq:fma:d256:dbias``); a call at a head dim that is not
 # compiled, run zero-padded, counts ``"<name>:<route>:pad<d>"``
 # (``fa_fwd:wgmma:pad80``); d = 64's launches keep the keys without a
 # width

@@ -49,8 +49,8 @@ so a per-step seed tensor costs no host sync. The kernels spread ``batch * heads
 runs.
 
 Every kernel is compiled at the head widths
-:data:`~apex_tpu_torch.ops.tiling.FA_HEAD_DIMS` (64 and 128). On the card
-a call at a compiled d launches as it is; any other d up to 128 is
+:data:`~apex_tpu_torch.ops.tiling.FA_HEAD_DIMS` (64, 128 and 256). On the
+card a call at a compiled d launches as it is; any other d up to 256 is
 zero-padded along d to the next compiled width
 (:func:`~apex_tpu_torch.ops.tiling.fa_kernel_head_dim`): q, k and v (and
 do in the backward) gain zero columns, the kernels run at that width and
@@ -59,7 +59,7 @@ launch under its pad key. The padding is exact: zero
 columns add exact zeros to every score, to D = rowsum(dO * O) and to o,
 and the bias, the dropout mask, lse and the dlogits do not depend on d.
 The scale is the caller's (the default ``1/sqrt(d)`` from the caller's
-d). The kernel runs on every such call; a head dim above 128 raises
+d). The kernel runs on every such call; a head dim above 256 raises
 ``NotImplementedError`` on the card (ROADMAP.md). CPU tensors take any d.
 """
 
@@ -359,9 +359,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dropout_p: float = 0.0, dropout_seed=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(o, lse)``. CUDA tensors launch a kernel: contiguous
-    float32 or bfloat16, one dtype for q, k and v, any head dim up to 128
-    (64 and 128 as they are, others zero-padded to the next of them, o
-    sliced back), any batch * heads and sq / sk, an optional fp32 bias
+    float32 or bfloat16, one dtype for q, k and v, any head dim up to 256
+    (64, 128 and 256 as they are, others zero-padded to the next of them,
+    o sliced back), any batch * heads and sq / sk, an optional fp32 bias
     broadcastable to
     ``(b, h, sq, sk)`` (any strides), attention dropout at ``dropout_p``
     from ``dropout_seed`` (an int or a one-element integer tensor; None
@@ -403,8 +403,8 @@ def _count(name: str, tc: bool, d: int, kd: int, **forms: bool) -> None:
     call at head dim ``d``: its count, its route's and those of the forms
     it ran (``fa_fwd:wgmma:dropout``, ``fa_bwd_dq:fma:dbias``). A width
     other than 64 has its own keys (``fa_fwd:wgmma:d128``, one a launch,
-    and ``fa_bwd_dq:fma:d128:dbias``), and a call that ran zero-padded one
-    more (``fa_fwd:wgmma:pad80``)."""
+    ``fa_bwd_dq:fma:d256:dbias``), and a call that ran zero-padded one
+    more (``fa_fwd:wgmma:pad80``, ``fa_bwd_dkv:fma:pad192``)."""
     route = f"{name}:{'wgmma' if tc else 'fma'}"
     _build.launches[name] += 1
     _build.route_launches[route] += 1
@@ -573,12 +573,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     JAX signature's TPU tiles: explicit values are validated by its rule
     (:func:`validate_blocks`; one given alone is checked beside the JAX
     default of the other, 512 or 1024) and change nothing else: the CUDA
-    kernels keep their own tiles (the fp32 forward blocks of 64 rows, the
-    fp32 backward blocks of 128, over 64-row tiles,
-    :func:`~apex_tpu_torch.ops.tiling.fa_fma_fwd_geometry` and
-    :func:`~apex_tpu_torch.ops.tiling.fa_fma_bwd_geometry`; the bf16
-    tensor-core kernels blocks of 128 rows in two 64-row warpgroups over
-    64-row tiles).
+    kernels keep their own tiles (the fp32 forward's and backward's by
+    head width, :func:`~apex_tpu_torch.ops.tiling.fa_fma_fwd_geometry`
+    and :func:`~apex_tpu_torch.ops.tiling.fa_fma_bwd_geometry`; the bf16
+    tensor-core kernels' blocks of 128 rows in two 64-row warpgroups, or
+    at d = 256 of one 64-row slab, over 64-row tiles,
+    :func:`~apex_tpu_torch.ops.tiling.fa_tc_geometry`).
     ``mask`` is a rank-4 boolean tensor broadcastable to ``(b, h, sq,
     sk)``, True = masked; a fully masked row gives zero output and zero
     gradients. ``bias`` is an additive logits bias of the same

@@ -124,13 +124,13 @@ def ln_bwd_geometry(rows: int, hidden: int, dtype: str = "bfloat16",
 # fp32 forward's FMA kernel (csrc/flash_attention.cu) takes the geometry
 # of fa_fma_fwd_geometry(d), the fp32 backward's
 # (csrc/flash_attention_bwd.cu) that of fa_fma_bwd_geometry(d).
-FA_HEAD_DIMS = (64, 128)
+FA_HEAD_DIMS = (64, 128, 256)
 
 
 def fa_kernel_head_dim(d: int):
     """The compiled head width a call at head dim ``d`` runs at: the
     smallest of FA_HEAD_DIMS at or above ``d`` (``d`` itself where it is
-    compiled), or None above the widest (d > 128: no kernel)."""
+    compiled), or None above the widest (d > 256: no kernel)."""
     if d < 1:
         raise ValueError(f"flash attention head dim must be positive, got "
                          f"{d}")
@@ -155,12 +155,12 @@ class FmaFwdGeometry:
     ``row_stride`` floats (the head dim padded to spread a quarter-warp's
     16-byte loads over distinct banks), every p strip row
     ``strip_stride`` (the tile's keys, padded the same way); a lane holds
-    ``micro`` = (rows, keys) of S and, in each of ``head_dim / 64``
-    groups of 64 d columns, (rows, 4 columns) of o, a warp all of a
-    tile's keys for its rows. The grid is ``(grid.y of
-    fa_batch_heads_grid, query blocks, grid.z)``: x, dispatched first,
-    runs over batch * heads, y over the query blocks in the order
-    :meth:`order` (heaviest first)."""
+    ``micro`` = (rows, keys) of S (its keys ``tile_rows / micro[1]``
+    apart) and, in each of ``head_dim / 64`` groups of 64 d columns,
+    (rows, 4 columns) of o, a warp all of a tile's keys for its rows. The
+    grid is ``(grid.y of fa_batch_heads_grid, query blocks, grid.z)``: x,
+    dispatched first, runs over batch * heads, y over the query blocks in
+    the order :meth:`order` (heaviest first)."""
     block_rows: int = 64
     tile_rows: int = 64
     head_dim: int = 64
@@ -219,10 +219,15 @@ class FmaFwdGeometry:
             causal and tile * self.tile_rows > row0 + self.warp_rows - 1)
 
 
-# d = 128: 132-float rows take 186 KB a block, so one block an SM
+# d = 128: 132-float rows take 186 KB a block, so one block an SM; d =
+# 256: two stages of 64-key tiles of 260-float rows alone would take 260
+# KB, so 32-key tiles (a lane's micro-tile 8 x 2), 204 KB a block
 _FMA_FWD = {64: FmaFwdGeometry(),
             128: FmaFwdGeometry(head_dim=128, blocks_per_sm=1,
-                                row_stride=132)}
+                                row_stride=132),
+            256: FmaFwdGeometry(tile_rows=32, head_dim=256, blocks_per_sm=1,
+                                row_stride=260, strip_stride=36,
+                                micro=(8, 2))}
 
 
 def fa_fma_fwd_geometry(head_dim: int = 64) -> FmaFwdGeometry:
@@ -242,10 +247,11 @@ class FmaBwdGeometry:
     is ``row_stride`` floats (the head dim padded to spread a
     quarter-warp's 16-byte loads over distinct banks), every p / ds strip
     row ``strip_stride`` (the tile's rows, padded the same way); warps go
-    in pairs of ``4 * micro[0]`` rows, each warp of a pair half of the
-    streamed rows; a lane holds ``micro`` = (rows, streamed rows) of S or
-    dP and, in each of ``head_dim / 64`` groups of 32 d columns of its
-    warp's half, (rows, 4 columns) of each output. The grid is ``(grid.y
+    in groups of ``splits`` (a pair, or four at d = 256) over ``4 *
+    micro[0]`` rows, each warp of a group a ``1 / splits`` part of the
+    streamed rows and of d; a lane holds ``micro`` = (rows, streamed rows)
+    of S or dP and, in each of ``col_groups`` groups of 32 d columns of
+    its warp's part, (rows, 4 columns) of each output. The grid is ``(grid.y
     of fa_batch_heads_grid, row blocks, grid.z)``: x, dispatched first,
     runs over batch * heads, y over the row blocks in the order
     :meth:`dq_order` / :meth:`dkv_order` (heaviest first)."""
@@ -257,6 +263,7 @@ class FmaBwdGeometry:
     row_stride: int = 68
     strip_stride: int = 68
     micro: tuple = (8, 4)
+    splits: int = 2
 
     @property
     def dq_smem_bytes(self) -> int:
@@ -278,7 +285,7 @@ class FmaBwdGeometry:
     def col_groups(self) -> int:
         """Groups of 32 d columns in a lane's share of an output (4
         columns in each)."""
-        return self.head_dim // 64
+        return self.head_dim // (32 * self.splits)
 
     def blocks(self, s: int) -> int:
         """Row blocks (grid.y) over ``s`` rows."""
@@ -313,11 +320,17 @@ class FmaBwdGeometry:
 
 # d = 128: 128-row blocks of 132-float rows would not fit (the dq kernel
 # 338 KB, dk / dv 407 KB); blocks of 64 rows (two warp pairs) over 32-row
-# tiles take 144 KB and 154 KB
+# tiles take 144 KB and 154 KB. d = 256: 64-row blocks of 260-float rows
+# would take 269 KB and 279 KB, and a pair's lane 256 dk / dv
+# accumulators; blocks of 32 rows, one group of four warps, over 32-row
+# tiles take 200 KB and 205 KB, a lane 128 accumulators as at d = 128
 _FMA_BWD = {64: FmaBwdGeometry(),
             128: FmaBwdGeometry(block_rows=64, tile_rows=32, head_dim=128,
                                 threads=128, row_stride=132,
-                                strip_stride=36, micro=(8, 2))}
+                                strip_stride=36, micro=(8, 2)),
+            256: FmaBwdGeometry(block_rows=32, tile_rows=32, head_dim=256,
+                                threads=128, row_stride=260,
+                                strip_stride=36, micro=(8, 1), splits=4)}
 
 
 def fa_fma_bwd_geometry(head_dim: int = 64) -> FmaBwdGeometry:
@@ -327,12 +340,82 @@ def fa_fma_bwd_geometry(head_dim: int = 64) -> FmaBwdGeometry:
 
 
 # The tensor-core kernels (bf16; csrc/flash_fwd_wgmma.cu,
-# csrc/flash_bwd_dq_wgmma.cu, csrc/flash_bwd_dkv_wgmma.cu) work out their
-# tiles for themselves, at either width: blocks of 128 rows (forward and
-# dq: queries; dk / dv: keys) in two 64-row warpgroups, streaming 64-row
-# tiles, a row of 128 d columns arriving as two 64-column boxes. TMA reads
-# each tensor from a base address aligned to FA_TC_ALIGN bytes.
+# csrc/flash_bwd_dq_wgmma.cu, csrc/flash_bwd_dkv_wgmma.cu) take the
+# geometry of fa_tc_geometry(d), mirrored by their `Layout<d>`: two
+# consumer warpgroups and a producer, streaming 64-row tiles, a row of d
+# columns arriving as d / 64 boxes of 64 columns. TMA reads each tensor
+# from a base address aligned to FA_TC_ALIGN bytes.
 FA_TC_ALIGN = 16
+FA_TC_TILE_ROWS = 64
+FA_TC_FIX_BYTES = 8 * (32 * 32 * 6)   # the forward's re-sum scratch
+
+
+@dataclasses.dataclass(frozen=True)
+class TcGeometry:
+    """The three tensor-core flash kernels' block at one compiled head
+    width, mirrored by ``Layout<head_dim>`` in each source: a block owns
+    ``slabs`` 64-row slabs (forward and dq: queries; dk / dv: keys), one a
+    consumer warpgroup, or (``slabs`` 1, d = 256) one slab that both
+    warpgroups take, each holding ``cols`` of the output's columns; 64-row
+    tiles stream through ``stages`` stages."""
+    head_dim: int
+    slabs: int
+    stages: int
+
+    @property
+    def block_rows(self) -> int:
+        return 64 * self.slabs
+
+    @property
+    def cols(self) -> int:
+        """Output columns (of o, dq, or each of dk and dv) a consumer
+        warpgroup holds: 64 fp32 accumulators a thread each 64."""
+        return self.head_dim * self.slabs // 2
+
+    def _tile(self, rows: int) -> int:
+        return rows * self.head_dim * 2
+
+    @property
+    def fwd_smem_bytes(self) -> int:
+        """Q, the K / V stages, each stage's two K norms, the re-sum
+        scratch, the barriers and the 1 KB of alignment."""
+        return (self._tile(self.block_rows)
+                + self.stages * (2 * self._tile(FA_TC_TILE_ROWS) + 8)
+                + FA_TC_FIX_BYTES + (3 * self.stages + 1) * 8 + 1024)
+
+    @property
+    def dq_smem_bytes(self) -> int:
+        """Q and dO, the K / V stages, the barriers, the alignment."""
+        return (2 * self._tile(self.block_rows)
+                + self.stages * 2 * self._tile(FA_TC_TILE_ROWS)
+                + (2 * self.stages + 1) * 8 + 1024)
+
+    @property
+    def dkv_smem_bytes(self) -> int:
+        """K and V, the Q / dO stages with their lse / D slices, the
+        barriers, the alignment."""
+        return (2 * self._tile(self.block_rows)
+                + self.stages * (2 * self._tile(FA_TC_TILE_ROWS)
+                                 + 2 * FA_TC_TILE_ROWS * 4)
+                + (2 * self.stages + 1) * 8 + 1024)
+
+    def blocks(self, s: int) -> int:
+        """Blocks (grid.x) over ``s`` rows."""
+        return -(-s // self.block_rows)
+
+
+# d = 256: 128 rows of Q and dO or of K and V (128 KB) beside two stages
+# (128 KB) would not fit, and a warpgroup's 256 output columns would be
+# 128 (o, dq) or 256 (dk and dv) fp32 a thread: one slab, columns split
+_TC = {64: TcGeometry(64, slabs=2, stages=4),
+       128: TcGeometry(128, slabs=2, stages=4),
+       256: TcGeometry(256, slabs=1, stages=2)}
+
+
+def fa_tc_geometry(head_dim: int = 64) -> TcGeometry:
+    """The geometry of the bf16 tensor-core flash kernels at a compiled
+    head width."""
+    return _TC[_fa_check_width(head_dim)]
 
 
 def fa_route(dtype_name: str) -> str:

@@ -9,37 +9,41 @@ order. Anything that is not a plain dict, list or tuple is a leaf.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Iterator, List, Tuple
+
+
+def _flatten(t: Any, leaves: List[Any]) -> Any:
+    if type(t) is dict:
+        keys = sorted(t)
+        return (dict, tuple(keys), tuple(_flatten(t[k], leaves)
+                                         for k in keys))
+    if type(t) in (list, tuple):
+        return (type(t), len(t), tuple(_flatten(x, leaves) for x in t))
+    leaves.append(t)
+    return None
 
 
 def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
-    """``(leaves, treedef)`` with dict keys in sorted order."""
+    """``(leaves, treedef)`` with dict keys in sorted order. The recursion
+    is a module function, not a closure that calls itself: such a closure
+    is a reference cycle holding the leaves, which only the garbage
+    collector frees (a train step's flat gradient copies stayed allocated
+    on the card until it ran)."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(t):
-        if type(t) is dict:
-            keys = sorted(t)
-            return (dict, tuple(keys), tuple(walk(t[k]) for k in keys))
-        if type(t) in (list, tuple):
-            return (type(t), len(t), tuple(walk(x) for x in t))
-        leaves.append(t)
-        return None
 
-    return leaves, walk(tree)
+def _build(d: Any, it: Iterator[Any]) -> Any:
+    if d is None:
+        return next(it)
+    kind, meta, kids = d
+    if kind is dict:
+        return {k: _build(c, it) for k, c in zip(meta, kids)}
+    return kind(_build(c, it) for c in kids)
 
 
 def tree_unflatten(treedef: Any, leaves) -> Any:
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, meta, kids = d
-        if kind is dict:
-            return {k: build(c) for k, c in zip(meta, kids)}
-        return kind(build(c) for c in kids)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree: Any) -> List[Any]:

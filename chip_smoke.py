@@ -9,8 +9,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch / CUDA
    versions, and the build of every ``apex_tpu_torch/csrc/*.cu`` for
    ``sm_90a`` from the checkout, with its seconds; ptxas's registers,
-   spills and stack of the tensor-core flash kernels (every form at both
-   compiled head widths, 64 and 128), of the fp32
+   spills and stack of the tensor-core flash kernels (every form at each
+   compiled head width, 64, 128 and 256), of the fp32
    route's FMA-pipe forward and backward pair, of every instantiation of
    the LayerNorm backward's register form, of the one-pass GroupNorm's
    cluster route and of the two-pass pair's vector route (``-Xptxas
@@ -56,7 +56,11 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    x 200 x 333 causal, and the padded route at Cerebras-GPT 2.7B's 2 x 32
    x 2048 x 80 (``kernel_ms`` the kernel at 128, ``pad_ms`` / ``dvec_ms``
    the pad and slice copies, SDPA at d = 80), with the summation-order
-   census again at d = 128 (half of its kOrderUnits = 32);
+   census again at d = 128 (half of its kOrderUnits = 32); the same at
+   head dim 256, GPT-J 6B's causal 2 x 16 x 2048 x 256 (the summary's
+   d256 rows), BERT's shape with its padding mask, 2 x 3 x 200 x 333
+   causal, the padded route at Nemotron-4's d = 192 (1 x 8 x 2048, the
+   d192 rows) and the census at d = 256 (half of 64);
    fused Adam over the GPT-2 small flat buffer; the two LAMB stages over the BERT-large flat
    buffer (334M fp32) and a ragged one, with two runs bit-identical and
    an overflow step that changes no bit; and the flat optimizer kernels
@@ -287,6 +291,23 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    q, k, v, fp32 ``EncdecMultiheadAttn(dropout_p=0.1)`` with a padding
    mask card vs CPU, an fp32 learned bias against autograd of the unfused
    function.
+15. ``gptj``: the GPT-2 architecture at GPT-J 6B's widths (4096 wide, 16
+   heads of 256, 2048 positions, vocabulary 50,400; random weights from a
+   seed), cut to 8 of its 28 layers (memory) and without GPT-J's parallel
+   residual, partial rotary embedding and untied head (the GPT-2
+   architecture has none of them): trained by ``Trainer`` as cerebras
+   (a) for 5 steps on one 2 x 2048 batch, losses finite and falling, per
+   step exactly 17 ``ln_fwd`` / ``ln_bwd``, 8 of each flash kernel, all in
+   their d = 256 tensor-core forms, and one ``fused_adam``; step ms,
+   tokens/s, peak memory beside the reckoned bytes, device time by kind
+   and idle share; the trained weights serve 8 requests through
+   ``Engine`` (4 slots) and the served prefill logits follow the trained
+   forward. (b) 2 layers at its widths in fp32, 1 x 256 tokens, card vs
+   CPU (the FMA kernels at d = 256). (c) the public op at Nemotron-4
+   340B's head dim 192 (1 x 8 x 2048, causal; padded to 256), bf16 and
+   fp32, forward and backward against the plain versions, with the pad
+   and slice ms beside the kernels'. (d) every d = 256 form through the
+   modules and the public op, as cerebras (d).
 
 Then a ``profiler`` line (the passes of torch.profiler this process made
 to time kernels, how many of them lost records and were made again, the
@@ -306,9 +327,11 @@ and ``csrc/flash_attention_bwd.cu``, at GPT-2's causal shape with the
 BERT row beside), launched by the fp32 runs of those paths: the fp32 ring
 runs of phase 12 and phase 10's cross-attention; then the forms of
 ``FORM_KERNELS`` at GPT-2 XL's causal shape, launched by phase 10's
-(e)-(g), and the six kernels' d = 128 forms at Cerebras-GPT 1.3B's
+(e)-(g), the six kernels' d = 128 forms at Cerebras-GPT 1.3B's
 attention, launched by phase 14, each base form with its padded d = 80
-call beside it),
+call beside it, and their d = 256 forms at GPT-J 6B's attention,
+launched by phase 15, with the padded d = 192 call beside each base
+form),
 the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``. Any failed check raises and the
 script exits non-zero without that last line; without CUDA, or away from
@@ -415,6 +438,16 @@ CG_CHECK_SEQ = 256       # 1 x 256 tokens
 # head's input gradient 0.048 (PERF.md)
 CG_GRAD_REL_L2 = {"fp32": 1e-3, "bf16": 2.5e-2}
 CG_FORM_SEQ = 512        # the fp32 forms' card-vs-CPU checks of (d)
+# GPT-J 6B's widths in the GPT-2 architecture (huggingface.co/EleutherAI/
+# gpt-j-6b config.json; Wang & Komatsuzaki 2021): 4096 wide, 16 heads of
+# 256, 2048 positions, vocabulary 50,400; 8 of its 28 layers, 1.83 B
+# parameters (the 20 bytes a parameter reckoned before activations:
+# 36.5 GB at 8 layers, 117 GB at 28). Nemotron-4 340B's heads are 192
+# wide (arXiv 2406.11704,
+# Table 1): the padded route's case, 8 of its 96 heads
+GJ_EMBD, GJ_LAYERS, GJ_HEADS, GJ_CTX, GJ_VOCAB = 4096, 8, 16, 2048, 50400
+GJ_BATCH = 2             # 2 x 2048 tokens a step, as cerebras
+NEMO_D, NEMO_HEADS = 192, 8
 
 # Every kernel of the port: its source, the function of the JAX package it
 # replaces (file:line of the ``def``: the kernel's entry or, for the flash
@@ -511,11 +544,13 @@ FORM_KERNELS = {
     "fa_bwd_dq_fp32_dbias": ("apex_tpu_torch/csrc/flash_attention_bwd.cu",
                              "fa_bwd_dq", "fma", "dbias"),
 }
-# the six flash kernels compiled for head dim 128, each form (template
-# instantiations of the same kernels at kD = 128), launched by the
-# cerebras phase: form "d128" is the kernel's own, "d128:<form>" its
-# dropout or dlogits form (keys of ``_build.form_launches``)
-for _route, _tail in (("wgmma", ""), ("fma", "_fp32")):
+# the six flash kernels compiled for head dims 128 and 256, each form
+# (template instantiations of the same kernels at kD = 128 and 256),
+# launched by the cerebras and gptj phases: form "d128" is the kernel's
+# own, "d128:<form>" its dropout or dlogits form (keys of
+# ``_build.form_launches``), the same with d256
+for _width, _route, _tail in ((w, r, t) for w in (128, 256) for r, t in (
+        ("wgmma", ""), ("fma", "_fp32"))):
     _srcs = ({"fa_fwd": "flash_fwd_wgmma.cu", "fa_bwd_dq":
               "flash_bwd_dq_wgmma.cu", "fa_bwd_dkv": "flash_bwd_dkv_wgmma.cu"}
              if _route == "wgmma" else
@@ -524,17 +559,19 @@ for _route, _tail in (("wgmma", ""), ("fma", "_fp32")):
     for _twin, _src in _srcs.items():
         for _form in ("", "dropout") + (("dbias",) if _twin == "fa_bwd_dq"
                                          else ()):
-            FORM_KERNELS[f"{_twin}{_tail}_d128" + (f"_{_form}" if _form
-                                                    else "")] = (
+            FORM_KERNELS[f"{_twin}{_tail}_d{_width}" + (
+                f"_{_form}" if _form else "")] = (
                 "apex_tpu_torch/csrc/" + _src, _twin, _route,
-                "d128" + (f":{_form}" if _form else ""))
-del _route, _tail, _srcs, _twin, _src, _form
+                f"d{_width}" + (f":{_form}" if _form else ""))
+del _width, _route, _tail, _srcs, _twin, _src, _form
 # the lines of the JAX package's flash kernels that each form replaces:
 # `_dropout_keep` and its uses; the dq kernel's dlogits output; the
-# BlockSpecs and scratch that carry the whole head dim d (d128)
+# BlockSpecs and scratch that carry the whole head dim d (d128, d256)
 FORM_TPU = {"dropout": _P + "flash_attention.py:207,305,536,583",
             "dbias": _P + "flash_attention.py:509,540,549",
-            "d128": _P + "flash_attention.py:436,450-453,473"}
+            "d128": _P + "flash_attention.py:436,450-453,473",
+            "d256": _P + "flash_attention.py:436,450-453,473,659-661,"
+                         "710-711"}
 
 
 def form_lines(form):
@@ -1921,12 +1958,12 @@ NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>",
                     "fa_bwd_dkv_kernel_fma<64,false,false>",
                     "ln_bwd_kernel_reg<",
                     "gn_stats_kernel_vec<bf16>", "gn_apply_kernel_vec<")
-# the flash kernels' forms, each reported at both compiled head widths:
+# the flash kernels' forms, each reported at every compiled head width:
 # (width, bias, dropout), and the dq kernels' (width, bias, dropout,
 # dlogits), dlogits only with a bias
-_FORMS2 = tuple(f"{w},{b},{d}" for w in (64, 128) for b in ("false", "true")
-                for d in ("false", "true"))
-_FORMS_DQ = tuple(f"{w},{f}" for w in (64, 128) for f in (
+_FORMS2 = tuple(f"{w},{b},{d}" for w in (64, 128, 256)
+                for b in ("false", "true") for d in ("false", "true"))
+_FORMS_DQ = tuple(f"{w},{f}" for w in (64, 128, 256) for f in (
     "false,false,false", "false,true,false", "true,false,false",
     "true,true,false", "true,false,true", "true,true,true"))
 _FLASH_FORMS = {"fa_fwd_kernel_wgmma": _FORMS2,
@@ -2430,9 +2467,10 @@ def main() -> int:
             summary[main] = rec
 
     def fa_order_census(d=64):
-        """The bf16 forward's summation order at head dim ``d`` (64 or
-        128): at d = 64 the card tests' b * h = 65,600 causal s = 64 case
-        (the same seed), at d = 128 b * h = 32,800: o past FA_TOL against
+        """The bf16 forward's summation order at head dim ``d`` (64, 128
+        or 256): at d = 64 the card tests' b * h = 65,600 causal s = 64
+        case (the same seed), at d = 128 b * h = 32,800, at d = 256 16,400
+        (the same bytes): o past FA_TOL against
         the plain version (required: none) and, for the record, each
         against a float64 evaluation of the same function (p rounded to
         bf16 from float64 scores); and the score's order error, in units
@@ -2442,7 +2480,7 @@ def main() -> int:
         scores whose bf16 p the tensor cores' order could move, on a bound
         of kOrderUnits = 16 d / 64 such units (csrc/flash_fwd_wgmma.cu):
         required here, at most half of it."""
-        b, h, s = (1025, 64, 64) if d == 64 else (1025, 32, 64)
+        b, h, s = 1025, 64 * 64 // d, 64
         units = 16.0 * d / 64
         scale = d ** -0.5
         g = torch.Generator(device=dev).manual_seed(17)
@@ -2551,8 +2589,23 @@ def main() -> int:
             fa_case(2, 3, 200, 333, True, dt, d=128)
             fa_case(CG_BATCH, CG27_HEADS, CG_CTX, CG_CTX, True, dt, d=80,
                     main="fa_fwd" + t + "_d80")
+            # head dim 256: GPT-J 6B's causal attention (2 x 16 x 2048 x
+            # 256; the summary's d256 rows) plain and with dropout, BERT's
+            # shape with its key-padding mask, a ragged causal shape; the
+            # padded route at Nemotron-4 340B's head dim 192 (1 x 8 x 2048:
+            # the d192 rows)
+            fa_case(GJ_BATCH, GJ_HEADS, GJ_CTX, GJ_CTX, True, dt, d=256,
+                    main="fa_fwd" + t + "_d256")
+            fa_case(GJ_BATCH, GJ_HEADS, GJ_CTX, GJ_CTX, True, dt, d=256,
+                    dropout=True, main="fa_fwd" + t + "_d256_dropout")
+            fa_case(32, 16, 128, 128, False, dt, mask_kind="pad", d=256,
+                    dropout=True)
+            fa_case(2, 3, 200, 333, True, dt, d=256)
+            fa_case(1, NEMO_HEADS, GJ_CTX, GJ_CTX, True, dt, d=NEMO_D,
+                    main="fa_fwd" + t + "_d192")
         fa_order_census()
         fa_order_census(128)
+        fa_order_census(256)
 
     def ln_bwd_case(rows, hidden, dt, main=None, rms=False, affine=True):
         es = torch.tensor([], dtype=tdt[dt]).element_size()
@@ -3037,6 +3090,20 @@ def main() -> int:
                     dropout=True)
         fa_bwd_case(CG_BATCH, CG27_HEADS, CG_CTX, CG_CTX, True, dt, d=80,
                     main=t + "_d80")
+        # head dim 256 and the padded d = 192 as in the forward's cases
+        # (the summary's keys ... + "_d256" (+ "_dropout" / "_dbias") and
+        # "_d192")
+        fa_bwd_case(GJ_BATCH, GJ_HEADS, GJ_CTX, GJ_CTX, True, dt, d=256,
+                    main=t + "_d256")
+        for form in ("dropout", "dbias"):
+            fa_bwd_case(GJ_BATCH, GJ_HEADS, GJ_CTX, GJ_CTX, True, dt, d=256,
+                        main=t + "_d256_" + form, **{form: True})
+        fa_bwd_case(32, 16, 128, 128, False, dt, mask_kind="pad", d=256,
+                    dropout=True)
+        fa_bwd_case(2, 3, 200, 333, True, dt, d=256, dbias=True,
+                    dropout=True)
+        fa_bwd_case(1, NEMO_HEADS, GJ_CTX, GJ_CTX, True, dt, d=NEMO_D,
+                    main=t + "_d192")
     adam_case(flat_n, main=True)
     adam_case(1001)
     torch.cuda.empty_cache()
@@ -3661,7 +3728,7 @@ def main() -> int:
     # and of their dropout and dlogits forms (``_build.form_launches``)
     path_routes = {}
     main_forms = collections.Counter()
-    form_phases = {}     # the same by phase (megatron, cerebras)
+    form_phases = {}     # the same by phase (megatron, cerebras, gptj)
     with torch.inference_mode():
         model(tok_d[:, :16])       # first touch of cuBLAS etc.
         torch.cuda.synchronize()
@@ -5049,116 +5116,147 @@ def main() -> int:
         main_launches[name] = main_launches.get(name, 0) + n
     del hx, hw, y_full, y_got
 
-    # ---------------------------------------------------- 14. cerebras
-    # Cerebras-GPT 1.3B (the GPT-2 architecture, 16 heads of d = 128) at
-    # full width and depth from a seed: (a) trained 5 steps at 2 x 2048 and
-    # served; (b) 2 layers at its widths in fp32, card vs CPU (the FMA
-    # kernels at d = 128); (c) 2 layers at Cerebras-GPT 2.7B's widths (32
-    # heads of d = 80: the padded route) in bf16 and fp32, card vs CPU; (d)
-    # the d = 128 dropout and dlogits forms of all six kernels through the
-    # modules and the public op
-    torch.cuda.empty_cache()
+    # ------------------------------------- 14. cerebras and 15. gptj
+    # Two GPT-2-architecture models at full width from a seed, each of one
+    # compiled head width: Cerebras-GPT 1.3B (16 heads of d = 128, 24
+    # layers) and GPT-J 6B's widths (16 heads of d = 256, 8 of 28 layers).
+    # For each: (a) trained 5 steps at 2 x 2048 and served; (b) 2 layers at
+    # its widths in fp32, card vs CPU (the FMA kernels at its d); (c)
+    # cerebras: 2 layers at Cerebras-GPT 2.7B's widths (32 heads of d = 80:
+    # the padded route) in bf16 and fp32, card vs CPU; gptj: the public op
+    # at Nemotron-4's d = 192 (padded to 256) against the plain versions;
+    # (d) the width's dropout and dlogits forms of all six kernels through
+    # the modules and the public op
     flash3 = ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv")
-    cg_cfg = GPT2Config(vocab_size=XL_VOCAB, n_positions=CG_CTX,
-                        n_embd=CG_EMBD, n_layer=CG_LAYERS, n_head=CG_HEADS)
-    t0 = time.perf_counter()
-    cmodel = GPT2.from_params(cg_cfg, init_gpt2_params(cg_cfg, seed=3),
-                              device=dev)
-    cg_init_s = time.perf_counter() - t0
-    cg_n = sum(p.numel() for p in cmodel.parameters())
-    # fp32 parameters, the flat fp32 buffers of the parameters, their
-    # gradients and Adam's two moments, and the model's fp32 gradients
-    # before they are packed: 20 bytes a parameter before activations
-    cg_reckoned = 20 * cg_n
-    cgen = torch.Generator().manual_seed(4)
-    ctok = torch.randint(0, cg_cfg.vocab_size, (CG_BATCH, CG_CTX),
-                         generator=cgen)
-    ctok_d = ctok.to(dev)
-    ctrainer = Trainer(
-        TrainConfig(steps=CG_STEPS, batch=CG_BATCH, seq=CG_CTX, lr=CG_LR,
-                    amp="dynamic"),
-        loss_fn=lm_loss, init_params=cmodel, batch_fn=lambda t: ctok_d)
-    closses, cstep_s = [], []
-    cclock = [time.perf_counter()]
 
-    def cg_on_step(t, loss):
-        now = time.perf_counter()
-        cstep_s.append(now - cclock[0])
-        cclock[0] = now
-        closses.append(loss)
+    def width_train_serve(what, cfg, d, seed):
+        """(a): ``cfg`` (fp32 parameters from ``seed``, bf16 compute)
+        trained by ``Trainer`` for CG_STEPS AdamW steps under the dynamic
+        scaler on one CG_BATCH x n_positions batch, every flash launch in
+        its d tensor-core form, then served; returns ``(record, launches,
+        forms, tokens)``."""
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()  # what earlier phases hold
+        t0 = time.perf_counter()
+        model = GPT2.from_params(cfg, init_gpt2_params(cfg, seed=seed),
+                                 device=dev)
+        init_s = time.perf_counter() - t0
+        n = sum(p.numel() for p in model.parameters())
+        # fp32 parameters, the flat fp32 buffers of the parameters, their
+        # gradients and Adam's two moments, and the model's fp32 gradients
+        # before they are packed: 20 bytes a parameter before activations
+        reckoned = 20 * n
+        tgen = torch.Generator().manual_seed(seed + 1)
+        tok = torch.randint(0, cfg.vocab_size, (CG_BATCH, cfg.n_positions),
+                            generator=tgen)
+        tok_d = tok.to(dev)
+        trainer = Trainer(
+            TrainConfig(steps=CG_STEPS, batch=CG_BATCH, seq=cfg.n_positions,
+                        lr=CG_LR, amp="dynamic"),
+            loss_fn=lm_loss, init_params=model, batch_fn=lambda t: tok_d)
+        losses, step_s = [], []
+        clock = [time.perf_counter()]
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    cclock[0] = time.perf_counter()
-    creport = ctrainer.run(on_step=cg_on_step)
-    torch.cuda.synchronize()
-    cg_parts = (dict(_build.launches), dict(_build.route_launches),
-                dict(_build.form_launches))
-    cpeak = torch.cuda.max_memory_allocated()
-    cper = {"ln_fwd": 2 * CG_LAYERS + 1, "ln_bwd": 2 * CG_LAYERS + 1,
-            "fa_fwd": CG_LAYERS, "fa_bwd_dq": CG_LAYERS,
-            "fa_bwd_dkv": CG_LAYERS, "fused_adam": 1}
-    nfa = CG_LAYERS * CG_STEPS
-    require(cg_parts == ({k: v * CG_STEPS for k, v in cper.items()},
-                         {f"{k}:wgmma": nfa for k in flash3},
-                         {f"{k}:wgmma:d128": nfa for k in flash3}),
-            f"cerebras (a) launches, routes, forms {cg_parts}: expected "
-            f"{cper} a step, flash only in its d = 128 tensor-core forms "
-            f"and no padded call")
-    require(all(math.isfinite(x) for x in closses)
-            and closses[-1] < closses[0] and creport["skipped_steps"] == 0,
-            f"cerebras (a) losses {closses}, report {creport}")
-    csteady = sorted(cstep_s[1:])[len(cstep_s[1:]) // 2] * 1e3
-    ctokens = CG_BATCH * (CG_CTX - 1)
-    ctrainer.config.steps = CG_STEPS + 1
-    ckern = device_profile(lambda: ctrainer.run())
-    require_flash_route(ckern, "bf16", "cerebras train step")
-    for kname in ("fa_fwd_kernel_wgmma", "fa_bwd_dkv_kernel_wgmma"):
-        require_flash_form(ckern, "cerebras train step", kname, 128, False,
-                           False)
-    require_flash_form(ckern, "cerebras train step", "fa_bwd_dq_kernel_wgmma",
-                       128, False, False, False)
-    cbusy = by_kind(ckern)
-    cflash = {k: v / 1e3 for k, v in ckern.items() if "fa_" in k}
+        def on_step(t, loss):
+            now = time.perf_counter()
+            step_s.append(now - clock[0])
+            clock[0] = now
+            losses.append(loss)
 
-    # serving the trained weights: 8 requests on 4 slots, then the served
-    # prefill logits against the trained model's forward
-    cprompts = [16, 256, 48, 128, 200, 32, 96, 64]
-    cnew = 16
-    ceng = Engine(cg_cfg, cmodel, EngineConfig(num_slots=4, max_len=512,
-                                               temperature=0.0), device=dev)
-    crng = np.random.default_rng(6)
-    csched = ServeScheduler(ceng)
-    for i, n in enumerate(cprompts):
-        csched.submit(Request(request_id=f"cg-{i}",
-                              tokens=crng.integers(0, cg_cfg.vocab_size, n)
-                              .tolist(), max_new_tokens=cnew))
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    cstats = csched.run()
-    torch.cuda.synchronize()
-    cg_serve_launches = dict(_build.launches)
-    cdone = [r for r in cstats.requests if r["state"] == "completed"
-             and r["new_tokens"] == cnew]
-    require(len(cdone) == len(cprompts),
-            f"cerebras serve: {len(cdone)} of {len(cprompts)} requests "
-            f"completed: {cstats.requests}")
-    csumm = cstats.summary()
-    del ceng, csched
-    ceng = Engine(cg_cfg, cmodel, EngineConfig(
-        num_slots=1, max_len=64, temperature=0.0, keep_prefill_logits=True),
-        device=dev)
-    cfirst, _, ckept = ceng.prefill({0: ctok[0, :32].tolist()})
-    with torch.inference_mode():
-        ctrained = cmodel(ctok_d[:1, :32])[0]
-    cserve_rel = ((ckept[:, 0] - ctrained).norm() / ctrained.norm()).item()
-    require(cserve_rel <= FWD_BF16_REL_L2,
-            f"cerebras: served logits vs the trained forward, relative L2 "
-            f"{cserve_rel}")
-    cscale = ctrainer.sstate.scale.item()
-    del ceng, ckept, ctrained, ctrainer, cmodel
-    torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        clock[0] = time.perf_counter()
+        report = trainer.run(on_step=on_step)
+        torch.cuda.synchronize()
+        parts = (dict(_build.launches), dict(_build.route_launches),
+                 dict(_build.form_launches))
+        peak = torch.cuda.max_memory_allocated()
+        layers = cfg.n_layer
+        per = {"ln_fwd": 2 * layers + 1, "ln_bwd": 2 * layers + 1,
+               "fa_fwd": layers, "fa_bwd_dq": layers, "fa_bwd_dkv": layers,
+               "fused_adam": 1}
+        nfa = layers * CG_STEPS
+        require(parts == ({k: v * CG_STEPS for k, v in per.items()},
+                          {f"{k}:wgmma": nfa for k in flash3},
+                          {f"{k}:wgmma:d{d}": nfa for k in flash3}),
+                f"{what} (a) launches, routes, forms {parts}: expected "
+                f"{per} a step, flash only in its d = {d} tensor-core "
+                f"forms and no padded call")
+        require(all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0] and report["skipped_steps"] == 0,
+                f"{what} (a) losses {losses}, report {report}")
+        steady = sorted(step_s[1:])[len(step_s[1:]) // 2] * 1e3
+        tokens = CG_BATCH * (cfg.n_positions - 1)
+        trainer.config.steps = CG_STEPS + 1
+        kern = device_profile(lambda: trainer.run())
+        require_flash_route(kern, "bf16", f"{what} train step")
+        for kname in ("fa_fwd_kernel_wgmma", "fa_bwd_dkv_kernel_wgmma"):
+            require_flash_form(kern, f"{what} train step", kname, d, False,
+                               False)
+        require_flash_form(kern, f"{what} train step",
+                           "fa_bwd_dq_kernel_wgmma", d, False, False, False)
+        busy = by_kind(kern)
+        flash_ms = {k: v / 1e3 for k, v in kern.items() if "fa_" in k}
+
+        # serving the trained weights: 8 requests on 4 slots, then the
+        # served prefill logits against the trained model's forward
+        prompts = [16, 256, 48, 128, 200, 32, 96, 64]
+        new = 16
+        eng = Engine(cfg, model, EngineConfig(num_slots=4, max_len=512,
+                                              temperature=0.0), device=dev)
+        rng = np.random.default_rng(seed + 3)
+        sched = ServeScheduler(eng)
+        for i, plen in enumerate(prompts):
+            sched.submit(Request(request_id=f"{what}-{i}",
+                                 tokens=rng.integers(0, cfg.vocab_size, plen)
+                                 .tolist(), max_new_tokens=new))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        stats = sched.run()
+        torch.cuda.synchronize()
+        serve_launches = dict(_build.launches)
+        done = [r for r in stats.requests if r["state"] == "completed"
+                and r["new_tokens"] == new]
+        require(len(done) == len(prompts),
+                f"{what} serve: {len(done)} of {len(prompts)} requests "
+                f"completed: {stats.requests}")
+        summ = stats.summary()
+        del eng, sched
+        eng = Engine(cfg, model, EngineConfig(
+            num_slots=1, max_len=64, temperature=0.0,
+            keep_prefill_logits=True), device=dev)
+        first, _, kept = eng.prefill({0: tok[0, :32].tolist()})
+        with torch.inference_mode():
+            trained = model(tok_d[:1, :32])[0]
+        serve_rel = ((kept[:, 0] - trained).norm() / trained.norm()).item()
+        require(serve_rel <= FWD_BF16_REL_L2,
+                f"{what}: served logits vs the trained forward, relative "
+                f"L2 {serve_rel}")
+        scale = trainer.sstate.scale.item()
+        del eng, kept, trained, trainer, model
+        torch.cuda.empty_cache()
+        rec = dict(
+            params=n, init_s=init_s, compute="bf16", batch=CG_BATCH,
+            seq=cfg.n_positions, steps=CG_STEPS, lr=CG_LR, amp="dynamic",
+            losses=losses, launches=parts[0], launches_per_step=per,
+            forms=parts[2], step_ms=[x * 1e3 for x in step_s],
+            steady_step_ms=steady, tokens_per_step=tokens,
+            tokens_per_s=tokens / steady * 1e3, step_device_busy_ms=busy,
+            idle_share=1 - busy["total"] / steady, step_flash_ms=flash_ms,
+            max_memory_allocated=peak, allocated_before=before,
+            peak_bytes_per_param=(peak - before) / n,
+            reckoned_bytes_before_activations=reckoned, loss_scale=scale,
+            serve=dict(num_slots=4, max_len=512, requests=len(prompts),
+                       prompt_lens=prompts, new_tokens=new,
+                       launches=serve_launches,
+                       decode_tokens_per_s=summ["tokens_per_s"],
+                       p50_step_ms=summ["p50_step_ms"],
+                       ttft_p50_ms=summ["ttft_p50_ms"],
+                       wall_s=summ["wall_s"],
+                       served_vs_trained_rel_l2=serve_rel,
+                       tol=FWD_BF16_REL_L2, first_token=int(first[0])))
+        return rec, parts[0], parts[2], tok
 
     def cg_grads(cfgx, params, where, tokens):
         """(loss, {name: fp32 gradient on the CPU}) of one lm_loss
@@ -5169,13 +5267,14 @@ def main() -> int:
         return loss.item(), {n: p.grad.detach().float().cpu()
                              for n, p in m.named_parameters()}
 
-    def cg_check(cfgx, params, dts, what, d):
+    def cg_check(cfgx, params, dts, what, d, tokens, form_parts):
         """The card's loss and gradients in each of ``dts`` against the
         CPU's in fp32 (the plain versions): the worst parameter's relative
         L2, held to CG_GRAD_REL_L2 of the dtype; the flash forms each card
         run launched (the compiled width's, padded where d is not
-        compiled)."""
-        tokens = ctok[:1, :CG_CHECK_SEQ]
+        compiled), appended to ``form_parts``."""
+        tokens = tokens[:1, :CG_CHECK_SEQ]
+        kd = fa_kernel_head_dim(d)
         cpu_loss, cpu_g = cg_grads(dataclasses.replace(
             cfgx, compute_dtype=tdt["fp32"]), params, "cpu", tokens)
         out = {}
@@ -5186,9 +5285,9 @@ def main() -> int:
             torch.cuda.synchronize()
             forms = dict(_build.form_launches)
             route = "wgmma" if dt == "bf16" else "fma"
-            want = {f"{k}:{route}:d128": CG_CHECK_LAYERS for k in flash3}
-            if d != 128:
-                want.update({f"{k}:{route}:pad{d}": CG_CHECK_LAYERS
+            want = {f"{k}:{route}:d{kd}": cfgx.n_layer for k in flash3}
+            if d != kd:
+                want.update({f"{k}:{route}:pad{d}": cfgx.n_layer
                              for k in flash3})
             require(forms == want, f"{what} {dt}: forms {forms}, expected "
                                    f"{want}")
@@ -5200,200 +5299,273 @@ def main() -> int:
                            f"{worst} (tolerance {tol})")
             out[dt] = dict(loss=loss, cpu_loss=cpu_loss, worst_rel_l2=worst,
                            worst_param=wname, tol=tol, forms=forms)
-            cg_form_parts.append(forms)
+            form_parts.append(forms)
             torch.cuda.empty_cache()
         return out
 
-    cg_form_parts = [cg_parts[2]]
+    def width_forms(what, embd, heads, d, form_parts, rope=False):
+        """(d): the dropout and dlogits forms of all six kernels at head
+        width d (embd = heads x d) on the main path. (d1) SelfMultiheadAttn
+        at these widths (RoPE with ``rope``) with dropout_p = 0.1, bf16,
+        CG_STEPS flat FusedAdam steps with a new device seed each: each
+        flash kernel's dropout form a step. (d2) a learned (1, heads, s,
+        s) fp32 attention bias trained through flash_attention(bias=...)
+        on bf16 q, k, v: the dq kernel's dlogits form a step. (d3) fp32
+        EncdecMultiheadAttn with dropout_p = 0.1, a key-padding mask and a
+        seed, card vs CPU: the FMA kernels' dropout forms. (d4) an fp32
+        learned bias through flash_attention against autograd of the
+        unfused function: the FMA dq kernel's dlogits form. Appends each
+        part's forms to ``form_parts``; returns the record."""
+        w = f"d{d}"
+        s_len = CG_CTX
+        fgen = torch.Generator().manual_seed(d + 4)
+        torch.manual_seed(7)
+        fmod = SelfMultiheadAttn(embd, heads, causal=True, use_rope=rope,
+                                 dropout_p=FA_DROP_RATE, device=dev)
+        fx = torch.randn(CG_BATCH, s_len, embd, generator=fgen) \
+            .to(dev, torch.bfloat16)
+        ftarget = torch.randn(CG_BATCH, s_len, embd, generator=fgen).to(dev)
+        fseeds = torch.arange(CG_STEPS, dtype=torch.int32,
+                              device=dev) * 31 + 7
+
+        def dropout_loss(model, x, target, seed):
+            return ((model(x, dropout_seed=seed).float() - target) ** 2) \
+                .mean()
+
+        _, _, fstep = scaled_trainer(
+            fmod, lambda named: FusedAdam(named, lr=MEGATRON_LR,
+                                          use_flat=True),
+            dev, dropout_loss)
+        flosses = []
+        _build.reset_launches()
+        for i in range(CG_STEPS):
+            flosses.append(float(fstep(fx, ftarget, fseeds[i])))
+        torch.cuda.synchronize()
+        fparts = dict(_build.form_launches)
+        require(fparts == {f"{k}:wgmma:{w}{f}": CG_STEPS for k in flash3
+                           for f in ("", ":dropout")}
+                and all(math.isfinite(x) for x in flosses)
+                and flosses[-1] < flosses[0],
+                f"{what} (d1) forms {fparts}, losses {flosses}")
+        form_parts.append(fparts)
+        del fmod, fx, ftarget, fstep
+
+        class LearnedBias(torch.nn.Module):
+            def __init__(self, sq):
+                super().__init__()
+                self.bias = torch.nn.Parameter(torch.zeros(
+                    1, heads, sq, sq, device=dev))
+
+        def bias_loss(model, q, k, v, target):
+            o = flash_attention(q, k, v, True, bias=model.bias)
+            return ((o.float() - target) ** 2).mean()
+
+        table = LearnedBias(s_len)
+        bq = [torch.randn(CG_BATCH, heads, s_len, d, device=dev,
+                          generator=gen) for _ in range(4)]
+        _, _, tstep = scaled_trainer(
+            table, lambda named: FusedAdam(named, lr=BIAS_LR, use_flat=True),
+            dev, bias_loss)
+        bf_q = [t.to(torch.bfloat16) for t in bq[:3]]
+        tlosses = []
+        _build.reset_launches()
+        for _ in range(CG_STEPS):
+            tlosses.append(float(tstep(*bf_q, bq[3])))
+        torch.cuda.synchronize()
+        tparts = dict(_build.form_launches)
+        require(tparts == {**{f"{k}:wgmma:{w}": CG_STEPS for k in flash3},
+                           f"fa_bwd_dq:wgmma:{w}:dbias": CG_STEPS}
+                and all(math.isfinite(x) for x in tlosses)
+                and tlosses[-1] < tlosses[0],
+                f"{what} (d2) forms {tparts}, losses {tlosses}")
+        form_parts.append(tparts)
+        del table, bq, bf_q, tstep
+        torch.cuda.empty_cache()
+
+        torch.manual_seed(8)
+        gmod = EncdecMultiheadAttn(embd, heads, dropout_p=FA_DROP_RATE,
+                                   device=dev)
+        gcpu = EncdecMultiheadAttn(embd, heads, dropout_p=FA_DROP_RATE,
+                                   device="cpu")
+        gcpu.load_state_dict({k: v.cpu()
+                              for k, v in gmod.state_dict().items()})
+        gq = torch.randn(CG_BATCH, CG_FORM_SEQ, embd, generator=fgen)
+        gkv = torch.randn(CG_BATCH, CG_FORM_SEQ // 2, embd, generator=fgen)
+        gr = torch.randn(CG_BATCH, CG_FORM_SEQ, embd, generator=fgen)
+        gmask = key_padding([CG_FORM_SEQ // 2, 77], CG_FORM_SEQ // 2)
+        _build.reset_launches()
+        yg_card, gg_card = out_and_grads(
+            lambda *a: gmod(*a, dropout_seed=torch.tensor(
+                13, dtype=torch.int32, device=dev)), gmod, gr.to(dev),
+            gq.to(dev), gkv.to(dev), gmask)
+        torch.cuda.synchronize()
+        gparts = dict(_build.form_launches)
+        yg_cpu, gg_cpu = out_and_grads(
+            lambda *a: gcpu(*a, dropout_seed=13), gcpu, gr, gq, gkv,
+            gmask.cpu())
+        enc_out = rel(yg_card.cpu(), yg_cpu)
+        enc_grad, enc_name = worst_rel(
+            {n: g.cpu() for n, g in gg_card.items()}, gg_cpu)
+        require(gparts == {f"{k}:fma:{w}{f}": 1 for k in flash3
+                           for f in ("", ":dropout")}
+                and enc_out <= MEGATRON_REL_L2
+                and enc_grad <= MEGATRON_REL_L2,
+                f"{what} (d3) forms {gparts}; EncdecMultiheadAttn with "
+                f"dropout card vs CPU (fp32): output {enc_out}, {enc_name} "
+                f"gradient {enc_grad}")
+        form_parts.append(gparts)
+        del gmod, gcpu, yg_card, gg_card, yg_cpu, gg_cpu
+
+        bias32 = torch.randn(1, heads, CG_FORM_SEQ, CG_FORM_SEQ, device=dev,
+                             generator=gen).requires_grad_(True)
+        cq = [torch.randn(CG_BATCH, heads, CG_FORM_SEQ, d, device=dev,
+                          generator=gen) for _ in range(4)]
+        fa_in = [t.clone().requires_grad_(True) for t in cq[:3]]
+        ref_in = [t.clone().requires_grad_(True) for t in cq[:3]]
+        _build.reset_launches()
+        o_fa = flash_attention(*fa_in, True, bias=bias32)
+        o_fa.backward(cq[3])
+        torch.cuda.synchronize()
+        bparts = dict(_build.form_launches)
+        fa_dbias = bias32.grad.clone()
+        bias32.grad = None
+        scores = torch.matmul(ref_in[0], ref_in[1].transpose(-1, -2)) \
+            * d ** -0.5 + bias32
+        scores = scores.masked_fill(torch.ones(
+            CG_FORM_SEQ, CG_FORM_SEQ, dtype=torch.bool, device=dev).triu(1),
+            NEG_INF)
+        o_ref = torch.matmul(torch.softmax(scores, dim=-1), ref_in[2])
+        o_ref.backward(cq[3])
+        torch.cuda.synchronize()
+        ok_o, err_o = close(o_fa.detach(), o_ref.detach(), *FA_TOL["fp32"])
+        berrs = [close(a.grad, b.grad, *FA_BWD_TOL["fp32"])
+                 for a, b in zip(fa_in, ref_in)]
+        berrs.append(close(fa_dbias, bias32.grad, *FA_BWD_TOL["fp32"]))
+        require(ok_o and all(ok for ok, _ in berrs)
+                and bparts == {**{f"{k}:fma:{w}": 1 for k in flash3},
+                               f"fa_bwd_dq:fma:{w}:dbias": 1},
+                f"{what} (d4) learned bias (fp32) vs autograd: o err "
+                f"{err_o}, dq / dk / dv / dbias errs "
+                f"{[e for _, e in berrs]}; forms {bparts}")
+        form_parts.append(bparts)
+        del bias32, cq, fa_in, ref_in, o_fa, o_ref, scores, fa_dbias
+        torch.cuda.empty_cache()
+        return dict(forms_d1_dropout=fparts, d1_losses=flosses,
+                    d1_rope=rope, forms_d2_dbias=tparts, d2_losses=tlosses,
+                    forms_d3_fp32_dropout=gparts, d3_out_rel_l2=enc_out,
+                    d3_grad_rel_l2=enc_grad, forms_d4_fp32_dbias=bparts,
+                    d4_errs=[err_o] + [e for _, e in berrs])
+
+    def width_phase_done(name, form_parts, train_launches):
+        """The phase's forms into the main path's tallies; its launches of
+        the kernels other than flash (whose d = 64 rows keep their meaning:
+        this phase's flash launches are its width's rows) into
+        ``main_launches``; returns those."""
+        forms = collections.Counter()
+        for part in form_parts:
+            forms.update(part)
+        main_forms.update(forms)
+        form_phases[name] = forms
+        others = {k: v for k, v in train_launches.items()
+                  if not k.startswith("fa_")}
+        for k, n in others.items():
+            main_launches[k] = main_launches.get(k, 0) + n
+        return others
+
+    cg_cfg = GPT2Config(vocab_size=XL_VOCAB, n_positions=CG_CTX,
+                        n_embd=CG_EMBD, n_layer=CG_LAYERS, n_head=CG_HEADS)
+    cg_rec, cg_launches, cg_forms, ctok = width_train_serve(
+        "cerebras", cg_cfg, 128, seed=3)
+    cg_form_parts = [cg_forms]
     c2 = dataclasses.replace(cg_cfg, n_layer=CG_CHECK_LAYERS)
     check_13 = cg_check(c2, init_gpt2_params(c2, seed=5), ("fp32",),
-                        "cerebras (b) 1.3B widths, 2 layers", 128)
+                        "cerebras (b) 1.3B widths, 2 layers", 128, ctok,
+                        cg_form_parts)
     c27 = dataclasses.replace(c2, n_embd=CG27_EMBD, n_head=CG27_HEADS)
     check_27 = cg_check(c27, init_gpt2_params(c27, seed=6),
                         ("bf16", "fp32"),
-                        "cerebras (c) 2.7B widths, 2 layers", 80)
-
-    # (d) the d = 128 forms on the main path. (d1) SelfMultiheadAttn at
-    # the model's widths with dropout_p = 0.1, bf16, 5 flat FusedAdam steps
-    # with a new device seed each: each flash kernel's d = 128 dropout form
-    # a step
-    torch.manual_seed(7)
-    fmod = SelfMultiheadAttn(CG_EMBD, CG_HEADS, causal=True,
-                             dropout_p=FA_DROP_RATE, device=dev)
-    fx = torch.randn(CG_BATCH, CG_CTX, CG_EMBD, generator=cgen) \
-        .to(dev, torch.bfloat16)
-    ftarget = torch.randn(CG_BATCH, CG_CTX, CG_EMBD, generator=cgen).to(dev)
-    fseeds = torch.arange(CG_STEPS, dtype=torch.int32, device=dev) * 31 + 7
-
-    def cg_dropout_loss(model, x, target, seed):
-        return ((model(x, dropout_seed=seed).float() - target) ** 2).mean()
-
-    _, _, fstep = scaled_trainer(
-        fmod, lambda named: FusedAdam(named, lr=MEGATRON_LR, use_flat=True),
-        dev, cg_dropout_loss)
-    flosses = []
-    _build.reset_launches()
-    for i in range(CG_STEPS):
-        flosses.append(float(fstep(fx, ftarget, fseeds[i])))
-    torch.cuda.synchronize()
-    fparts = dict(_build.form_launches)
-    require(fparts == {f"{k}:wgmma:d128{f}": CG_STEPS for k in flash3
-                       for f in ("", ":dropout")}
-            and all(math.isfinite(x) for x in flosses)
-            and flosses[-1] < flosses[0],
-            f"cerebras (d1) forms {fparts}, losses {flosses}")
-    cg_form_parts.append(fparts)
-    del fmod, fx, ftarget, fstep
-
-    # (d2) a learned (1, 16, 2048, 2048) fp32 attention bias trained
-    # through flash_attention(bias=...) on bf16 q, k, v of the model's
-    # attention shape: the dq kernel's d = 128 dlogits form a step
-    class CgBias(torch.nn.Module):
-        def __init__(self, sq):
-            super().__init__()
-            self.bias = torch.nn.Parameter(torch.zeros(1, CG_HEADS, sq, sq,
-                                                       device=dev))
-
-    def cg_bias_loss(model, q, k, v, target):
-        o = flash_attention(q, k, v, True, bias=model.bias)
-        return ((o.float() - target) ** 2).mean()
-
-    table = CgBias(CG_CTX)
-    bq = [torch.randn(CG_BATCH, CG_HEADS, CG_CTX, 128, device=dev,
-                      generator=gen) for _ in range(4)]
-    _, _, tstep = scaled_trainer(
-        table, lambda named: FusedAdam(named, lr=BIAS_LR, use_flat=True),
-        dev, cg_bias_loss)
-    bf_q = [t.to(torch.bfloat16) for t in bq[:3]]
-    tlosses = []
-    _build.reset_launches()
-    for _ in range(CG_STEPS):
-        tlosses.append(float(tstep(*bf_q, bq[3])))
-    torch.cuda.synchronize()
-    tparts = dict(_build.form_launches)
-    require(tparts == {**{f"{k}:wgmma:d128": CG_STEPS for k in flash3},
-                       "fa_bwd_dq:wgmma:d128:dbias": CG_STEPS}
-            and all(math.isfinite(x) for x in tlosses)
-            and tlosses[-1] < tlosses[0],
-            f"cerebras (d2) forms {tparts}, losses {tlosses}")
-    cg_form_parts.append(tparts)
-    del table, bq, bf_q, tstep
-    torch.cuda.empty_cache()
-
-    # (d3) fp32 EncdecMultiheadAttn at the model's widths with dropout_p =
-    # 0.1, a key-padding mask and a seed, card vs CPU: the FMA kernels'
-    # d = 128 dropout forms
-    torch.manual_seed(8)
-    gmod = EncdecMultiheadAttn(CG_EMBD, CG_HEADS, dropout_p=FA_DROP_RATE,
-                               device=dev)
-    gcpu = EncdecMultiheadAttn(CG_EMBD, CG_HEADS, dropout_p=FA_DROP_RATE,
-                               device="cpu")
-    gcpu.load_state_dict({k: v.cpu() for k, v in gmod.state_dict().items()})
-    gq = torch.randn(CG_BATCH, CG_FORM_SEQ, CG_EMBD, generator=cgen)
-    gkv = torch.randn(CG_BATCH, CG_FORM_SEQ // 2, CG_EMBD, generator=cgen)
-    gr = torch.randn(CG_BATCH, CG_FORM_SEQ, CG_EMBD, generator=cgen)
-    gmask = key_padding([CG_FORM_SEQ // 2, 77], CG_FORM_SEQ // 2)
-    _build.reset_launches()
-    yg_card, gg_card = out_and_grads(
-        lambda *a: gmod(*a, dropout_seed=torch.tensor(
-            13, dtype=torch.int32, device=dev)), gmod, gr.to(dev),
-        gq.to(dev), gkv.to(dev), gmask)
-    torch.cuda.synchronize()
-    gparts = dict(_build.form_launches)
-    yg_cpu, gg_cpu = out_and_grads(
-        lambda *a: gcpu(*a, dropout_seed=13), gcpu, gr, gq, gkv,
-        gmask.cpu())
-    genc_out = rel(yg_card.cpu(), yg_cpu)
-    genc_grad, genc_name = worst_rel(
-        {n: g.cpu() for n, g in gg_card.items()}, gg_cpu)
-    require(gparts == {f"{k}:fma:d128{f}": 1 for k in flash3
-                       for f in ("", ":dropout")}
-            and genc_out <= MEGATRON_REL_L2
-            and genc_grad <= MEGATRON_REL_L2,
-            f"cerebras (d3) forms {gparts}; EncdecMultiheadAttn with "
-            f"dropout card vs CPU (fp32): output {genc_out}, {genc_name} "
-            f"gradient {genc_grad}")
-    cg_form_parts.append(gparts)
-    del gmod, gcpu, yg_card, gg_card, yg_cpu, gg_cpu
-
-    # (d4) an fp32 learned bias through flash_attention against autograd of
-    # the unfused function (fp32 scores plus the bias, the causal mask,
-    # torch.softmax, p v): the FMA dq kernel's d = 128 dlogits form
-    bias32 = torch.randn(1, CG_HEADS, CG_FORM_SEQ, CG_FORM_SEQ, device=dev,
-                         generator=gen).requires_grad_(True)
-    cq = [torch.randn(CG_BATCH, CG_HEADS, CG_FORM_SEQ, 128, device=dev,
-                      generator=gen) for _ in range(4)]
-    fa_in = [t.clone().requires_grad_(True) for t in cq[:3]]
-    ref_in = [t.clone().requires_grad_(True) for t in cq[:3]]
-    _build.reset_launches()
-    o_fa = flash_attention(*fa_in, True, bias=bias32)
-    o_fa.backward(cq[3])
-    torch.cuda.synchronize()
-    bparts = dict(_build.form_launches)
-    fa_dbias = bias32.grad.clone()
-    bias32.grad = None
-    scores = torch.matmul(ref_in[0], ref_in[1].transpose(-1, -2)) \
-        * 128 ** -0.5 + bias32
-    scores = scores.masked_fill(torch.ones(
-        CG_FORM_SEQ, CG_FORM_SEQ, dtype=torch.bool, device=dev).triu(1),
-        NEG_INF)
-    o_ref = torch.matmul(torch.softmax(scores, dim=-1), ref_in[2])
-    o_ref.backward(cq[3])
-    torch.cuda.synchronize()
-    ok_o, err_o = close(o_fa.detach(), o_ref.detach(), *FA_TOL["fp32"])
-    berrs = [close(a.grad, b.grad, *FA_BWD_TOL["fp32"])
-             for a, b in zip(fa_in, ref_in)]
-    berrs.append(close(fa_dbias, bias32.grad, *FA_BWD_TOL["fp32"]))
-    require(ok_o and all(ok for ok, _ in berrs)
-            and bparts == {**{f"{k}:fma:d128": 1 for k in flash3},
-                           "fa_bwd_dq:fma:d128:dbias": 1},
-            f"cerebras (d4) learned bias (fp32) vs autograd: o err {err_o}, "
-            f"dq / dk / dv / dbias errs {[e for _, e in berrs]}; forms "
-            f"{bparts}")
-    cg_form_parts.append(bparts)
-    del bias32, cq, fa_in, ref_in, o_fa, o_ref, scores, fa_dbias
-    torch.cuda.empty_cache()
-
-    cg_forms = collections.Counter()
-    for part in cg_form_parts:
-        cg_forms.update(part)
-    main_forms.update(cg_forms)
-    form_phases["cerebras"] = cg_forms
-    # the d = 64 rows keep their meaning: the flash launches of this phase
-    # (all at d = 128) are the d128 rows'
-    cerebras_launches = {k: v for k, v in cg_parts[0].items()
-                         if not k.startswith("fa_")}
-    for name, n in cerebras_launches.items():
-        main_launches[name] = main_launches.get(name, 0) + n
+                        "cerebras (c) 2.7B widths, 2 layers", 80, ctok,
+                        cg_form_parts)
+    cg_d = width_forms("cerebras", CG_EMBD, CG_HEADS, 128, cg_form_parts)
+    cerebras_launches = width_phase_done("cerebras", cg_form_parts,
+                                         cg_launches)
     emit("cerebras", config="Cerebras-GPT 1.3B (GPT2Config n_embd 2048, "
          "n_layer 24, n_head 16, n_positions 2048; d = 128)",
          source="huggingface.co/cerebras/Cerebras-GPT-1.3B config.json; "
-         "arXiv 2304.03208 Table 1", params=cg_n, init_s=cg_init_s,
-         compute="bf16", batch=CG_BATCH, seq=CG_CTX, steps=CG_STEPS,
-         lr=CG_LR, amp="dynamic", losses=closses,
-         launches=cg_parts[0], launches_per_step=cper, forms=cg_parts[2],
-         step_ms=[x * 1e3 for x in cstep_s], steady_step_ms=csteady,
-         tokens_per_step=ctokens, tokens_per_s=ctokens / csteady * 1e3,
-         step_device_busy_ms=cbusy,
-         idle_share=1 - cbusy["total"] / csteady,
-         step_flash_ms=cflash, max_memory_allocated=cpeak,
-         reckoned_bytes_before_activations=cg_reckoned,
-         loss_scale=cscale,
-         serve=dict(num_slots=4, max_len=512, requests=len(cprompts),
-                    prompt_lens=cprompts, new_tokens=cnew,
-                    launches=cg_serve_launches,
-                    decode_tokens_per_s=csumm["tokens_per_s"],
-                    p50_step_ms=csumm["p50_step_ms"],
-                    ttft_p50_ms=csumm["ttft_p50_ms"],
-                    wall_s=csumm["wall_s"],
-                    served_vs_trained_rel_l2=cserve_rel,
-                    tol=FWD_BF16_REL_L2, first_token=int(cfirst[0])),
-         check_13b_fp32=check_13, check_27b=check_27,
-         forms_d1_dropout=fparts, d1_losses=flosses,
-         forms_d2_dbias=tparts, d2_losses=tlosses,
-         forms_d3_fp32_dropout=gparts, d3_out_rel_l2=genc_out,
-         d3_grad_rel_l2=genc_grad, forms_d4_fp32_dbias=bparts,
-         d4_errs=[err_o] + [e for _, e in berrs], card=card)
+         "arXiv 2304.03208 Table 1", **cg_rec, check_13b_fp32=check_13,
+         check_27b=check_27, **cg_d, card=card)
+
+    # gptj: GPT-J 6B's widths, 8 of its 28 layers
+    gj_cfg = GPT2Config(vocab_size=GJ_VOCAB, n_positions=GJ_CTX,
+                        n_embd=GJ_EMBD, n_layer=GJ_LAYERS, n_head=GJ_HEADS)
+    gj_rec, gj_launches, gj_forms, gtok = width_train_serve(
+        "gptj", gj_cfg, 256, seed=11)
+    gj_form_parts = [gj_forms]
+    g2 = dataclasses.replace(gj_cfg, n_layer=CG_CHECK_LAYERS)
+    check_gj = cg_check(g2, init_gpt2_params(g2, seed=13), ("fp32",),
+                        "gptj (b) GPT-J widths, 2 layers", 256, gtok,
+                        gj_form_parts)
+
+    def nemo_case(dt):
+        """(c) the padded route at Nemotron-4 340B's head dim 192: the
+        public op forward and backward (causal, the default scale) against
+        the plain versions on the kernels' o and lse, at FA_TOL /
+        FA_BWD_TOL; the kernels' device ms beside the pad, slice and D
+        copies'."""
+        q, k, v, do = (torch.randn(1, NEMO_HEADS, GJ_CTX, NEMO_D,
+                                   device=dev, generator=gen).to(tdt[dt])
+                       for _ in range(4))
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        _build.reset_launches()
+        o = flash_attention(*ins, True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        parts = dict(_build.form_launches)
+        route = "wgmma" if dt == "bf16" else "fma"
+        require(parts == {f"{n}:{route}:{f}": 1 for n in flash3
+                          for f in ("d256", f"pad{NEMO_D}")},
+                f"gptj (c) d = {NEMO_D} {dt}: forms {parts}")
+        gj_form_parts.append(parts)
+        kw = dict(scale=NEMO_D ** -0.5, causal=True)
+        ok_, lse_ = flash_attention_fwd(q, k, v, **kw)
+        op, _ = flash_attention_fwd_plain(q, k, v, **kw)
+        want = flash_attention_bwd_plain(q, k, v, ok_, lse_, do, **kw)
+        ok_o, err_o = close(o.detach(), op, *FA_TOL[dt])
+        gerrs = [close(t.grad, w_, *FA_BWD_TOL[dt])
+                 for t, w_ in zip(ins, want)]
+        require(ok_o and all(ok for ok, _ in gerrs),
+                f"gptj (c) d = {NEMO_D} {dt}: o err {err_o}, dq / dk / dv "
+                f"errs {[e for _, e in gerrs]}")
+
+        def fwd_bwd(q, k, v, do):
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            flash_attention(qq, kk, vv, True).backward(do)
+
+        kern = device_kernels(fwd_bwd, [(q, k, v, do)], 10)
+        kernel_ms = {n: sum(t for key, t in kern.items()
+                            if f"{n}_kernel" in key) for n in flash3}
+        return dict(b=1, h=NEMO_HEADS, sq=GJ_CTX, sk=GJ_CTX, d=NEMO_D,
+                    causal=True, o_err=err_o,
+                    grad_errs=[e for _, e in gerrs], forms=parts,
+                    kernel_ms=kernel_ms,
+                    outside_ms=sum(kern.values()) - sum(kernel_ms.values()),
+                    fwd_bwd_ms=sum(kern.values()))
+
+    nemo = {dt: nemo_case(dt) for dt in ("bf16", "fp32")}
+    torch.cuda.empty_cache()
+    gj_d = width_forms("gptj", GJ_EMBD, GJ_HEADS, 256, gj_form_parts,
+                       rope=True)
+    gptj_launches = width_phase_done("gptj", gj_form_parts, gj_launches)
+    emit("gptj", config="the GPT-2 architecture at GPT-J 6B's widths "
+         "(GPT2Config n_embd 4096, n_head 16, n_positions 2048, vocab "
+         "50400; d = 256), 8 of its 28 layers",
+         source="huggingface.co/EleutherAI/gpt-j-6b config.json; Wang & "
+         "Komatsuzaki 2021 (mesh-transformer-jax)",
+         cut="depth 28 -> 8 layers (memory: 20 bytes a parameter, 117 GB "
+         "at 28); GPT-J's parallel "
+         "residual, rotary embedding on 64 of 256 channels and untied LM "
+         "head are not in the GPT-2 architecture", **gj_rec, check_fp32=check_gj,
+         padded_d192=nemo, **gj_d, card=card)
 
     def by_route(name):
         """``{route: {path: launches}}`` of a flash wrapper on the main
@@ -5426,6 +5598,7 @@ def main() -> int:
             "launches_ring": ring_launches.get(name, 0),
             "launches_halo": halo_launches.get(name, 0),
             "launches_cerebras": cerebras_launches.get(name, 0),
+            "launches_gptj": gptj_launches.get(name, 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -5468,15 +5641,19 @@ def main() -> int:
     # shape, launched by megatron (e)-(g); the six kernels at head dim 128
     # in each form at Cerebras-GPT 1.3B's causal attention (2 x 16 x 2048
     # x 128), launched by the cerebras phase, each base form with the
-    # padded d = 80 call (2 x 32 x 2048) beside it
+    # padded d = 80 call (2 x 32 x 2048) beside it; at head dim 256 at
+    # GPT-J 6B's (2 x 16 x 2048 x 256), launched by the gptj phase, with
+    # the padded d = 192 call (1 x 8 x 2048) beside each base form
+    padded_of = {"d128": "d80", "d256": "d192"}
     for name, (src, twin, route, form) in FORM_KERNELS.items():
         rec = summary[name]
         key = f"{twin}:{route}:{form}"
         launches = main_forms.get(key, 0)
         require(launches > 0, f"{name} was not launched on the main path")
         tpu, calls = KERNELS[twin][1:]
-        padded = summary.get(name.replace("_d128", "_d80")) \
-            if form == "d128" else None
+        padded = (summary.get(name.replace(f"_{form}",
+                                           f"_{padded_of[form]}"))
+                  if form in padded_of else None)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "pallas_call": [f"{tpu.split(':')[0]}:{c}" for c in calls],
@@ -5484,7 +5661,7 @@ def main() -> int:
             "launches": launches,
             **{f"launches_{ph}": c[key] for ph, c in form_phases.items()
                if c.get(key)},
-            **({"padded_d80": {k: padded.get(k) for k in (
+            **({f"padded_{padded_of[form]}": {k: padded.get(k) for k in (
                 "ms", "kernel_ms", "pad_ms", "dvec_ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_share")
                 if k in padded}} if padded else {}),

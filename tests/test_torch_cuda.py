@@ -44,11 +44,12 @@ same call on the CPU (its sum over the batch and queries 10 times the
 backward's absolute tolerance). The public
 ``flash_attention`` takes transposed and misaligned views, and gives the
 bits of the same call on contiguous copies. The six flash kernels at head
-dims 16, 32, 48, 64, 80, 96 and 128 in every form (plain, a key-padding
-bias, dropout, dlogits), causal, BERT-style and ragged, take the same
-tolerances: 64 and 128 launch as they are, the others zero-padded to the
-next of them (each launch counted under its width and pad keys); the
-public op at 48, 80 and 128 against the same call on the CPU; 160 raises.
+dims 16, 32, 48, 64, 80, 96, 128, 160, 192 and 256 in every form (plain, a
+key-padding bias, dropout, dlogits), causal, BERT-style and ragged, take
+the same tolerances: 64, 128 and 256 launch as they are, the others
+zero-padded to the next of them (each launch counted under its width and
+pad keys); the public op at 48, 80, 128, 192 and 256 against the same
+call on the CPU; 320 raises.
 Run the flash tests with ``python -m pytest tests/test_torch_cuda.py -q
 -k flash``.
 """
@@ -713,17 +714,17 @@ def test_fused_adam_overflow_step_is_a_bitwise_noop(dev):
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with torch.no_grad():
         # head dim 32 runs (padded to 64) and matches its plain version;
-        # 160, above the widest compiled width, raises
+        # 320, above the widest compiled width (256), raises
         q = torch.randn(1, 1, 8, 32, device=dev)
         o, lse = flash_attention_fwd(q, q, q, scale=1.0, causal=False)
         op, lsep = flash_attention_fwd_plain(q, q, q, scale=1.0,
                                              causal=False)
         torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
         torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
-        q = torch.randn(1, 1, 8, 160, device=dev)
-        with pytest.raises(NotImplementedError, match="head_dim 160"):
+        q = torch.randn(1, 1, 8, 320, device=dev)
+        with pytest.raises(NotImplementedError, match="head_dim 320"):
             flash_attention_fwd(q, q, q, scale=1.0, causal=False)
-        with pytest.raises(NotImplementedError, match="head_dim 160"):
+        with pytest.raises(NotImplementedError, match="head_dim 320"):
             flash_attention(q, q, q)
         q = torch.randn(1, 1, 8, 64, device=dev, dtype=torch.float16)
         with pytest.raises(ValueError, match="dtype"):
@@ -772,8 +773,9 @@ def test_rms_and_no_gamma_kernels_match_plain(dev, rows, hidden, rms,
         torch.testing.assert_close(dg, dgp, atol=1e-3, rtol=1e-4)
 
 
-# head dims on the card: the compiled 64 and 128 and padded ones below each
-_HEAD_DIMS = [16, 32, 48, 64, 80, 96, 128]
+# head dims on the card: the compiled 64, 128 and 256 and padded ones
+# below each
+_HEAD_DIMS = [16, 32, 48, 64, 80, 96, 128, 160, 192, 256]
 # (b, h, sq, sk, causal, bias kind, form): causal, BERT-style key padding,
 # a ragged causal 200 x 333, dropout with key padding, dlogits of a learned
 # bias (with dropout)
@@ -791,8 +793,8 @@ def test_flash_head_dims_match_plain(dev, d, case, dtype):
     """The forward, dq and dk / dv kernels at head dim d in every form
     (plain, a key-padding bias, dropout, the dlogits of a learned bias)
     against the plain versions on the same inputs (the flash tolerances,
-    the dlogits ``_DLOGITS_TOL``), the default scale 1 / sqrt(d): d = 64
-    and 128 launch as they are, any other d zero-padded to the next
+    the dlogits ``_DLOGITS_TOL``), the default scale 1 / sqrt(d): d = 64,
+    128 and 256 launch as they are, any other d zero-padded to the next
     compiled width, each launch counted under its width and, padded, its
     pad key; two runs the same bits."""
     b, h, sq, sk, causal, kind, form = _HEAD_DIM_CASES[case]
@@ -850,12 +852,12 @@ def test_flash_head_dims_match_plain(dev, d, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [48, 80, 128])
+@pytest.mark.parametrize("d", [48, 80, 128, 192, 256])
 def test_public_flash_at_head_dims_matches_the_cpu(dev, d, dtype):
     """The public op (default scale from the caller's d, a differentiated
-    (1, h, 1, sk) bias, a key-padding mask) at a padded and the widest
-    compiled head dim: o and every gradient against the same call on the
-    CPU (fp32 1e-4, bf16 the flash backward's tolerance, ten times its
+    (1, h, 1, sk) bias, a key-padding mask) at padded and compiled head
+    dims up to the widest: o and every gradient against the same call on
+    the CPU (fp32 1e-4, bf16 the flash backward's tolerance, ten times its
     atol for the bias's)."""
     b, h, sq, sk = 2, 3, 70, 90
     g = torch.Generator().manual_seed(d)

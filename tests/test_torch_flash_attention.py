@@ -41,6 +41,7 @@ from apex_tpu_torch.ops.flash_attention import (_tensor_core,
 from apex_tpu_torch.ops import flash_attention as fa_mod
 from apex_tpu_torch.ops.tiling import (FA_GRID_DIM_MAX, FA_TC_ALIGN,
                                        fa_batch_heads_grid, fa_route,
+                                       fa_tc_geometry,
                                        fa_tc_misaligned)
 
 D = 64
@@ -487,7 +488,10 @@ def test_batch_heads_grid_refuses_what_no_grid_holds():
 # csrc/flash_bwd_dq_wgmma.cu `nk`, `nk_me` and `masked`,
 # csrc/flash_bwd_dkv_wgmma.cu `qt0`, the `_causal_run` skip and `masked`.
 # The kernels' own use of the rule is held to the plain versions by the
-# card tests (tests/test_torch_cuda.py).
+# card tests (tests/test_torch_cuda.py). A block holds ``slabs`` 64-row
+# slabs (``Layout::kSlabs``: 2, one a warpgroup, up to d = 128; 1 at d =
+# 256, where both warpgroups take the slab, each half of the output's
+# columns: its column group, the last entry of a step).
 WG_ROWS, TC_TILE = 64, 64            # a warpgroup's rows, a streamed tile
 TC_BLOCK = 2 * WG_ROWS               # a block's query rows / keys
 
@@ -496,22 +500,28 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def _tc_fwd_plan(sq, sk, causal):
+def _warpgroups(slabs):
+    """``(slab, column group)`` of each consumer warpgroup."""
+    return [(w, 0) if slabs == 2 else (0, w) for w in range(2)]
+
+
+def _tc_fwd_plan(sq, sk, causal, slabs=2):
     """The forward's work: ``(blocks, loads, steps)``. ``loads[b]`` the K /
     V tiles block ``b`` streams (tiles 0 .. loads[b] - 1; `nk`); ``steps``
     the ``(q tile, k tile, masked)`` each warpgroup computes (its 64-row q
-    tile ``q`` in block ``q // 2``; `nk_me`), ``masked`` when the tile
-    crosses that q tile's diagonal or the ragged sk edge. A q tile past sq
-    computes nothing."""
+    tile ``q`` in block ``q // slabs``; `nk_me`; at ``slabs`` 1 with its
+    column group appended), ``masked`` when the tile crosses that q tile's
+    diagonal or the ragged sk edge. A q tile past sq computes nothing."""
+    block = WG_ROWS * slabs
     nk = _cdiv(sk, TC_TILE)
-    blocks = _cdiv(sq, TC_BLOCK)
+    blocks = _cdiv(sq, block)
     loads, steps = [], []
     for b in range(blocks):
-        q0 = b * TC_BLOCK
-        last = min(q0 + TC_BLOCK, sq) - 1
+        q0 = b * block
+        last = min(q0 + block, sq) - 1
         loads.append(min(nk, last // TC_TILE + 1) if causal else nk)
-        for w in range(TC_BLOCK // WG_ROWS):
-            row0 = q0 + w * WG_ROWS
+        for slab, cg in _warpgroups(slabs):
+            row0 = q0 + slab * WG_ROWS
             if row0 >= sq:
                 continue
             mine = (min(nk, (row0 + WG_ROWS - 1) // TC_TILE + 1) if causal
@@ -520,26 +530,29 @@ def _tc_fwd_plan(sq, sk, causal):
                 k0 = kt * TC_TILE
                 masked = ((causal and k0 + TC_TILE - 1 > row0)
                           or k0 + TC_TILE > sk)
-                steps.append((row0 // WG_ROWS, kt, masked))
+                steps.append((row0 // WG_ROWS, kt, masked)
+                             + ((cg,) if slabs == 1 else ()))
     return blocks, loads, steps
 
 
-def _tc_dq_plan(sq, sk, causal):
+def _tc_dq_plan(sq, sk, causal, slabs=2):
     """The dq kernel's work: ``(blocks, loads, steps)``. ``loads[b]`` the
     K / V tiles block ``b`` streams (tiles 0 .. loads[b] - 1; `nk`), every
     one released by both warpgroups; ``steps`` the ``(q tile, k tile,
     masked)`` each warpgroup computes (its 64-row q tile ``q`` in block ``q
-    // 2``; `nk_me`, 0 for a warpgroup past sq), ``masked`` when the tile
-    crosses that q tile's diagonal or the ragged sk edge."""
+    // slabs``; `nk_me`, 0 for a warpgroup past sq; at ``slabs`` 1 with
+    its column group appended), ``masked`` when the tile crosses that q
+    tile's diagonal or the ragged sk edge."""
+    block = WG_ROWS * slabs
     nk_all = _cdiv(sk, TC_TILE)
-    blocks = _cdiv(sq, TC_BLOCK)
+    blocks = _cdiv(sq, block)
     loads, steps = [], []
     for b in range(blocks):
-        q0 = b * TC_BLOCK
-        loads.append(min(nk_all, (min(q0 + TC_BLOCK, sq) - 1) // TC_TILE + 1)
+        q0 = b * block
+        loads.append(min(nk_all, (min(q0 + block, sq) - 1) // TC_TILE + 1)
                      if causal else nk_all)
-        for w in range(TC_BLOCK // WG_ROWS):
-            row0 = q0 + w * WG_ROWS
+        for slab, cg in _warpgroups(slabs):
+            row0 = q0 + slab * WG_ROWS
             active = row0 < sq
             nk_me = ((min(nk_all, (row0 + WG_ROWS - 1) // TC_TILE + 1)
                       if causal else nk_all) if active else 0)
@@ -547,26 +560,29 @@ def _tc_dq_plan(sq, sk, causal):
                 k0 = kt * TC_TILE
                 masked = ((causal and k0 + TC_TILE - 1 > row0)
                           or k0 + TC_TILE > sk)
-                steps.append((row0 // WG_ROWS, kt, masked))
+                steps.append((row0 // WG_ROWS, kt, masked)
+                             + ((cg,) if slabs == 1 else ()))
     return blocks, loads, steps
 
 
-def _tc_dkv_plan(sq, sk, causal):
+def _tc_dkv_plan(sq, sk, causal, slabs=2):
     """The dk / dv kernel's work: ``(blocks, loads, steps)``. ``loads[b]``
     the Q / dO tiles block ``b`` streams, ``(first, end)`` (from the
     diagonal when causal: `qt0`); ``steps`` the ``(k tile, q tile,
     masked)`` each warpgroup computes (its 64-key k tile ``k`` in block
-    ``k // 2``), ``masked`` when the q tile crosses that k tile's diagonal
-    or the k tile holds keys past sk. A k tile past sk computes nothing."""
+    ``k // slabs``; at ``slabs`` 1 with its column group appended),
+    ``masked`` when the q tile crosses that k tile's diagonal or the k
+    tile holds keys past sk. A k tile past sk computes nothing."""
+    block = WG_ROWS * slabs
     nq = _cdiv(sq, TC_TILE)
-    blocks = _cdiv(sk, TC_BLOCK)
+    blocks = _cdiv(sk, block)
     loads, steps = [], []
     for b in range(blocks):
-        k0 = b * TC_BLOCK
+        k0 = b * block
         first = min(k0 // TC_TILE, nq) if causal else 0
         loads.append((first, nq))
-        for w in range(TC_BLOCK // WG_ROWS):
-            kw0 = k0 + w * WG_ROWS
+        for slab, cg in _warpgroups(slabs):
+            kw0 = k0 + slab * WG_ROWS
             if kw0 >= sk:
                 continue
             for qt in range(first, nq):
@@ -575,7 +591,8 @@ def _tc_dkv_plan(sq, sk, causal):
                     continue
                 masked = ((causal and kw0 + WG_ROWS - 1 > q0)
                           or kw0 + WG_ROWS > sk)
-                steps.append((kw0 // WG_ROWS, qt, masked))
+                steps.append((kw0 // WG_ROWS, qt, masked)
+                             + ((cg,) if slabs == 1 else ()))
     return blocks, loads, steps
 
 PLAN_SHAPES = [(1, 1), (64, 64), (65, 64), (64, 65), (128, 128),
@@ -700,3 +717,32 @@ def test_tc_route_raises_on_a_misaligned_bf16_view():
         _tensor_core("flash_attention_bwd", ok, k=ok, v=ok, do=bad)
     f32 = torch.zeros(64 * 64 + 1)[1:].view(1, 1, 64, 64)
     assert not _tensor_core("flash_attention_fwd", f32, k=f32, v=f32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
+def test_tc_plans_at_head_dim_256_match_jax_rules(sq, sk, causal):
+    """At d = 256 (``fa_tc_geometry(256)``: one 64-row slab a block, both
+    warpgroups on it) each kernel runs the JAX kernels' (q tile, k tile)
+    pairs, the masked arithmetic where `_mask_split` asks for it, each
+    pair once in each of the two column groups, and a block streams
+    exactly the tiles its slab uses."""
+    g = fa_tc_geometry(256)
+    assert (g.slabs, g.block_rows, g.cols) == (1, 64, 128)
+    want = _jax_pairs(sq, sk, causal)
+    for plan, rows, pair in ((_tc_fwd_plan, sq, lambda s: s[:2]),
+                             (_tc_dq_plan, sq, lambda s: s[:2]),
+                             (_tc_dkv_plan, sk, lambda s: s[1::-1])):
+        blocks, loads, steps = plan(sq, sk, causal, slabs=g.slabs)
+        assert blocks == g.blocks(rows) == len(loads)
+        assert len(set(steps)) == len(steps)
+        for cg in range(2):
+            got = {pair(s): s[2] for s in steps if s[3] == cg}
+            assert got == want
+        for b in range(blocks):
+            used = {s[1] for s in steps if s[0] == b}
+            if plan is _tc_dkv_plan:
+                first, end = loads[b]
+                assert used == set(range(first, end)) or not used
+            else:
+                assert loads[b] == (max(used) + 1 if used else 0)

@@ -2,9 +2,10 @@
 
 The dq and dk / dv kernels of ``apex_tpu_torch/csrc/flash_attention_bwd.cu``
 run only on the card; what decides which rows and tiles they visit is held
-here against brute force at each compiled head width (64 and 128): shared
-memory within a Hopper block, the padded row strides, the lanes covering
-a pair's rows, streamed rows and d columns once each, the grid covering
+here against brute force at each compiled head width (64, 128 and 256):
+shared memory within a Hopper block, the padded row strides, the lanes
+covering a warp group's rows (a pair's, four warps' at d = 256),
+streamed rows and d columns once each, the grid covering
 every row, the tiles a causal block visits against a count of the tiles
 holding any unmasked (query, key) pair, dq's heaviest-first order, and
 the ``constexpr`` values of the source (``BwdGeometry<d>``) against the
@@ -47,7 +48,7 @@ def _constexprs(d):
 def test_widths_and_their_geometries():
     """The compiled widths, each with its own geometry; the default is
     d = 64's; no other width has one."""
-    assert FA_HEAD_DIMS == (64, 128)
+    assert FA_HEAD_DIMS == (64, 128, 256)
     assert G == fa_fma_bwd_geometry(64)
     for d in FA_HEAD_DIMS:
         assert fa_fma_bwd_geometry(d).head_dim == d
@@ -65,14 +66,17 @@ def test_geometry_mirrors_the_source(d):
     assert int(c["kMI"]) == g.micro[0]
     assert int(c["kStride"]) == g.row_stride == g.head_dim + 4
     assert c["kSStride"] == "kBN + 4" and g.strip_stride == g.tile_rows + 4
-    # kThreads = 64 * kBM / kPairRows, kPairRows = 4 * kMI
-    assert c["kPairRows"] == "4 * kMI"
-    assert c["kThreads"] == "64 * kBM / kPairRows"
-    assert 64 * g.block_rows // (4 * g.micro[0]) == g.threads
+    assert int(c["kSplit"]) == g.splits
+    # kThreads = 32 * kSplit * kBM / kGroupRows, kGroupRows = 4 * kMI
+    assert c["kGroupRows"] == "4 * kMI"
+    assert c["kThreads"] == "32 * kSplit * kBM / kGroupRows"
+    assert 32 * g.splits * g.block_rows // (4 * g.micro[0]) == g.threads
     # each lane's streamed rows are lx + kColStep * j, j < kNJ, over the 8
-    # lanes of its warp's half
-    assert c["kNJ"] == "kBN / (2 * kColStep)"
-    assert int(c["kColStep"]) * g.micro[1] * 2 == g.tile_rows
+    # lanes of its warp's part
+    assert c["kNJ"] == "kBN / (kSplit * kColStep)"
+    assert int(c["kColStep"]) * g.micro[1] * g.splits == g.tile_rows
+    assert c["kGroups"] == "kD / (32 * kSplit)"
+    assert g.col_groups == d // (32 * g.splits)
 
 
 @WIDTHS
@@ -108,29 +112,31 @@ def test_row_stride_is_whole_float4s_in_distinct_banks(d):
 
 @WIDTHS
 def test_lanes_cover_a_pair_once(d):
-    """Warp (pair, half), lane (ly, lx) = (lane // 8, lane % 8) holds rows
-    ly + 4 i of its pair's 32, streamed rows half * tile / 2 + lx + 8 j
-    and d columns half * d / 2 + 32 g + 4 lx .. + 3: every (row, streamed
-    row) of a pair's tile and every (row, d column) of its outputs exactly
-    once."""
+    """Warp (group, part) of a group of ``splits`` warps, lane (ly, lx) =
+    (lane // 8, lane % 8) holds rows ly + 4 i of its group's 32, streamed
+    rows part * tile / splits + lx + 8 j and d columns part * d / splits
+    + 32 g + 4 lx .. + 3: every (row, streamed row) of a group's tile and
+    every (row, d column) of its outputs exactly once."""
     g = fa_fma_bwd_geometry(d)
     mi, nj = g.micro
     rows = 4 * mi
     scores = np.zeros((rows, g.tile_rows), dtype=int)
     outs = np.zeros((rows, g.head_dim), dtype=int)
-    for half in range(2):
+    for part in range(g.splits):
         for lane in range(32):
             ly, lx = lane // 8, lane % 8
             for i in range(mi):
                 for j in range(nj):
-                    scores[ly + 4 * i, half * g.tile_rows // 2 + lx + 8 * j] \
-                        += 1
+                    scores[ly + 4 * i,
+                           part * g.tile_rows // g.splits + lx + 8 * j] += 1
                 for grp in range(g.col_groups):
                     for u in range(4):
-                        outs[ly + 4 * i, half * g.head_dim // 2 + 32 * grp
-                             + 4 * lx + u] += 1
+                        outs[ly + 4 * i, part * g.head_dim // g.splits
+                             + 32 * grp + 4 * lx + u] += 1
     assert (scores == 1).all() and (outs == 1).all()
-    assert g.threads == 64 * g.block_rows // rows
+    assert g.threads == 32 * g.splits * g.block_rows // rows
+    # a lane's accumulators: of dq, and of dk and of dv each
+    assert g.col_groups * mi * 4 <= 64
 
 
 @WIDTHS

@@ -2,15 +2,19 @@
 
 The kernel of ``apex_tpu_torch/csrc/flash_attention.cu`` runs only on the
 card; what decides which rows, keys and tiles it visits is held here
-against brute force at each compiled head width (64 and 128): shared
+against brute force at each compiled head width (64, 128 and 256): shared
 memory for the blocks an SM the source claims, the padded row strides,
 the lanes' micro-tiles covering a warp's rows, keys and d columns once
 each, the grid covering every query row, the key tiles a causal block
 visits against a count of the tiles holding any unmasked (query, key)
 pair, the warps that skip a visited tile against the rows that see none
 of its keys, the heaviest-first order, and the ``constexpr`` values of
-the source (``FwdGeometry<d>``) against the Python mirror. No JAX:
-nothing here has a counterpart there.
+the source (``FwdGeometry<d>``, ``Fwd``) against the Python mirror. The
+bf16 tensor-core kernels' blocks (``fa_tc_geometry``, ``Layout<d>`` of
+``csrc/flash_fwd_wgmma.cu`` and the two backward sources) likewise:
+shared memory within a block's at every width and the warpgroups
+covering each block's output rows and columns once. No JAX: nothing here
+has a counterpart there.
 """
 
 import re
@@ -20,10 +24,12 @@ import numpy as np
 import pytest
 
 from apex_tpu_torch.ops.tiling import (FA_HEAD_DIMS, fa_batch_heads_grid,
-                                       fa_fma_fwd_geometry)
+                                       fa_fma_fwd_geometry, fa_tc_geometry)
 
-SRC = (Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
-       / "flash_attention.cu")
+CSRC = Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
+SRC = CSRC / "flash_attention.cu"
+TC_SRCS = ("flash_fwd_wgmma.cu", "flash_bwd_dq_wgmma.cu",
+           "flash_bwd_dkv_wgmma.cu")
 SIZES = [1, 63, 64, 65, 127, 128, 129, 200, 333, 1000, 1024]
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
 SM_SMEM = 233472             # bytes of shared memory an SM holds for blocks
@@ -33,10 +39,14 @@ WIDTHS = pytest.mark.parametrize("d", FA_HEAD_DIMS)
 
 def _constexprs(d):
     """``{name: value}`` of the source's integer ``constexpr``s: those of
-    the namespace, then those of ``FwdGeometry<d>``."""
+    the namespace, ``Fwd``'s derived ones, then those of
+    ``FwdGeometry<d>``."""
     text = SRC.read_text()
     out = {m.group(1): m.group(2) for m in re.finditer(
         r"^constexpr int (k\w+) = ([^;]+);", text, re.M)}
+    out.update((m.group(1), " ".join(m.group(2).split())) for m in
+               re.finditer(r"^  static constexpr int (k\w+) =\s*([^;]+);",
+                           text, re.M))
     body = re.search(r"struct FwdGeometry<%d> \{(.*?)\};" % d, text,
                      re.S).group(1)
     out.update((m.group(1), m.group(2)) for m in re.finditer(
@@ -47,7 +57,7 @@ def _constexprs(d):
 def test_widths_and_their_geometries():
     """The compiled widths, each with its own geometry; the default is
     d = 64's; no other width has one."""
-    assert FA_HEAD_DIMS == (64, 128)
+    assert FA_HEAD_DIMS == (64, 128, 256)
     assert G == fa_fma_fwd_geometry(64)
     for d in FA_HEAD_DIMS:
         assert fa_fma_fwd_geometry(d).head_dim == d
@@ -71,15 +81,17 @@ def test_geometry_mirrors_the_source(d):
     assert c["kThreads"] == "32 * kBM / kWarpRows"
     assert 32 * g.block_rows // g.warp_rows == g.threads
     assert c["kRowStep"] == "kWarpRows / kMI"
-    # a lane's keys are lx + kColStep * j over the 16 lanes of a row
+    # a lane's keys are lx + kColStep * j, j < kNJ, over the 16 lanes of a
+    # row
+    assert c["kNJ"] == "kBN / kColStep"
     assert int(c["kColStep"]) * g.micro[1] == g.tile_rows
 
 
 @WIDTHS
 def test_shared_memory_fits_two_blocks_an_sm(d):
     """Each block's shared memory within a Hopper block's; the blocks an
-    SM the geometry claims (two at d = 64, one at d = 128) within the
-    SM's."""
+    SM the geometry claims (two at d = 64, one at d = 128 and 256) within
+    the SM's."""
     g = fa_fma_fwd_geometry(d)
     assert g.smem_bytes <= SMEM_LIMIT
     # each block with the 1 KB the hardware reserves
@@ -205,3 +217,72 @@ def test_dispatch_order_is_heaviest_first(s):
     assert sorted(order) == list(range(G.blocks(s)))
     loads = [len(G.key_tiles(b, s, s, True)) for b in order]
     assert loads == sorted(loads, reverse=True)
+
+
+WIDE = pytest.mark.parametrize("d", [w for w in FA_HEAD_DIMS if w != 64])
+WIDE_SIZES = [1, 31, 32, 33, 63, 64, 65, 200, 1024]
+
+
+@WIDE
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sk", WIDE_SIZES)
+@pytest.mark.parametrize("sq", WIDE_SIZES)
+def test_wide_visited_tiles_and_rows_match_brute_force(sq, sk, causal, d):
+    """At the wider head dims' own tiles (32 keys at d = 256): the grid
+    covers every query row once and each block visits exactly the key
+    tiles that hold an unmasked (query, key) pair."""
+    g = fa_fma_fwd_geometry(d)
+    rows = np.zeros(sq, dtype=int)
+    for qb in g.order(sq):
+        rows[qb * g.block_rows:(qb + 1) * g.block_rows] += 1
+    assert (rows == 1).all()
+    live = ((np.arange(sk)[None, :] <= np.arange(sq)[:, None]) if causal
+            else np.ones((sq, sk), dtype=bool))
+    for qb in range(g.blocks(sq)):
+        part = live[qb * g.block_rows:(qb + 1) * g.block_rows]
+        want = [t for t in range(-(-sk // g.tile_rows))
+                if part[:, t * g.tile_rows:(t + 1) * g.tile_rows].any()]
+        assert list(g.key_tiles(qb, sq, sk, causal)) == want
+
+
+def _ternary(expr, d):
+    """The value of the source's ``kD == w ? a : b`` at head width d."""
+    m = re.fullmatch(r"kD == (\d+) \? (\d+) : (\d+)", expr)
+    return int(m.group(2)) if d == int(m.group(1)) else int(m.group(3))
+
+
+@pytest.mark.parametrize("src", TC_SRCS)
+@WIDTHS
+def test_tensor_core_blocks_mirror_the_sources(src, d):
+    """``fa_tc_geometry(d)`` against each tensor-core source's
+    ``Layout<d>``: its slabs and stages; every block's shared memory within
+    a Hopper block's; the two consumer warpgroups (slab, column group)
+    cover the block's output rows and each head dim column exactly once,
+    64 fp32 accumulators a thread for each 64 columns they hold."""
+    g = fa_tc_geometry(d)
+    text = (CSRC / src).read_text()
+    body = re.search(r"struct Layout \{(.*?)\};", text, re.S).group(1)
+    c = {m.group(1): " ".join(m.group(2).split()) for m in re.finditer(
+        r"static constexpr int (k\w+) = ([^;]+);", body)}
+    assert _ternary(c["kSlabs"], d) == g.slabs
+    assert _ternary(c["kStages"], d) == g.stages
+    assert c["kCols"] == "kD * kSlabs / 2"
+    assert max(g.fwd_smem_bytes, g.dq_smem_bytes,
+               g.dkv_smem_bytes) <= SMEM_LIMIT
+    held = np.zeros((g.block_rows, d), dtype=int)
+    for wg in range(2):
+        slab, cg = (wg, 0) if g.slabs == 2 else (0, wg)
+        held[64 * slab:64 * slab + 64, cg * g.cols:(cg + 1) * g.cols] += 1
+    assert (held == 1).all()
+    assert g.cols // 64 * 32 <= 64   # o / dq; dk and dv twice that
+    assert g.blocks(1000) * g.block_rows >= 1000
+
+
+def test_tensor_core_smem_matches_the_kernels_sums():
+    """The mirror's bytes at the widths the sources were sized for: the
+    forward 214,152 at d = 128 and 214,088 at d = 256, both under the
+    232,448 a block may have."""
+    assert fa_tc_geometry(128).fwd_smem_bytes == 214152
+    assert fa_tc_geometry(256).fwd_smem_bytes == 214088
+    assert fa_tc_geometry(256).dq_smem_bytes == 197672
+    assert fa_tc_geometry(256).dkv_smem_bytes == 198696

@@ -2,15 +2,16 @@
 vs apex_tpu).
 
 The JAX kernels take any head dim (their blocks carry the whole d); the
-port's CUDA kernels are compiled at d = 64 and 128 and run any other d up
-to 128 zero-padded to the next of them. On the CPU the port runs the
+port's CUDA kernels are compiled at d = 64, 128 and 256 and run any other
+d up to 256 zero-padded to the next of them. On the CPU the port runs the
 kernels' plain versions at any d, and these tests hold them, and the
 padding the card route applies, against the JAX package:
 
 - forward (o, lse) and backward (dq, dk, dv) at d in {16, 32, 48, 80, 96,
-  128}, fp32 and bf16, in three forms: causal and ragged (sq 72, sk 96),
-  a learned (1, h, sq, sk) bias with the dq kernel's dlogits, and dropout
-  (rate 0.1) under a (b, 1, 1, sk) key-padding mask; the port's
+  128, 160, 192, 256}, fp32 and bf16, in three forms: causal and ragged
+  (sq 72, sk 96), a learned (1, h, sq, sk) bias with the dq kernel's
+  dlogits, and dropout (rate 0.1) under a (b, 1, 1, sk) key-padding
+  mask; the port's
   ``flash_attention_fwd`` / ``flash_attention_bwd`` on CPU tensors
   against the Pallas kernels in interpret mode (block_q 64, block_k 128),
   both at the default scale 1 / sqrt(d). fp32: o and lse 2e-5, gradients
@@ -23,10 +24,11 @@ padding the card route applies, against the JAX package:
 - the padding identity: the plain version on inputs zero-padded along d
   to ``fa_kernel_head_dim(d)``, with the caller's scale, sliced back,
   equals the plain version on the original inputs within 1e-6 (o, lse,
-  dq, dk, dv, dlogits); ``fa_kernel_head_dim`` over 1 .. 129;
-- GPT-2 at d = 128 (n_embd 256, 2 heads, 2 layers) and d = 80 (n_embd
-  160, 2 heads, 2 layers), fp32: ``lm_loss`` and every gradient against
-  ``jax.value_and_grad`` of the JAX ``lm_loss`` on the same flax weights
+  dq, dk, dv, dlogits); ``fa_kernel_head_dim`` over 1 .. 257;
+- GPT-2 at d = 256 (n_embd 512, 2 heads, 2 layers), d = 128 (n_embd 256,
+  2 heads, 2 layers) and d = 80 (n_embd 160, 2 heads, 2 layers), fp32:
+  ``lm_loss`` and every gradient against ``jax.value_and_grad`` of the
+  JAX ``lm_loss`` on the same flax weights
   through ``models/convert.py`` (loss 1e-5 relative, each gradient 1e-4
   relative L2, as ``test_torch_train.py`` holds GPT-2 tiny).
 
@@ -56,7 +58,7 @@ from apex_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_fwd_plain)
 from apex_tpu_torch.ops.tiling import FA_HEAD_DIMS, fa_kernel_head_dim
 
-HEAD_DIMS = [16, 32, 48, 80, 96, 128]
+HEAD_DIMS = [16, 32, 48, 80, 96, 128, 160, 192, 256]
 FORMS = ["causal", "dbias", "dropout"]
 BQ, BK = 64, 128
 B, H, SQ, SK = 1, 2, 72, 96
@@ -162,9 +164,10 @@ def test_fwd_bwd_match_pallas_kernels(d, form, dt):
 def test_kernel_head_dim_over_every_d():
     """d itself where it is compiled, else the next compiled width; None
     above the widest; nothing below 1."""
-    assert FA_HEAD_DIMS == (64, 128)
-    for d in range(1, 130):
-        want = 64 if d <= 64 else 128 if d <= 128 else None
+    assert FA_HEAD_DIMS == (64, 128, 256)
+    for d in range(1, 258):
+        want = (64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256
+                else None)
         assert fa_kernel_head_dim(d) == want, d
     with pytest.raises(ValueError):
         fa_kernel_head_dim(0)
@@ -221,8 +224,8 @@ def test_public_op_scale_is_the_callers():
     assert not torch.allclose(o, other, atol=1e-4)
 
 
-# GPT-2 at d = 128 and d = 80: (n_embd, n_head)
-GPT2_WIDTHS = {128: (256, 2), 80: (160, 2)}
+# GPT-2 at d = 256, 128 and 80: (n_embd, n_head)
+GPT2_WIDTHS = {256: (512, 2), 128: (256, 2), 80: (160, 2)}
 SEQ = 40
 
 

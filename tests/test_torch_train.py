@@ -18,9 +18,15 @@ gradients and moments come back with ``params_to_jax``).
   sides see only rounding noise there, and Adam, which divides by
   sqrt(v), turns noise into updates of up to lr of either sign. That
   slice is held to |Δ| <= 2 lr per applied step.
+- A train step, and the pytree helpers it runs on, free what they
+  allocate without Python's garbage collector: no tensor is left in a
+  reference cycle (on the card such a cycle held flat gradient copies
+  until a collection ran).
 """
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +43,7 @@ from apex_tpu_torch.models.convert import (init_gpt2_params,
 from apex_tpu_torch.models.gpt2 import GPT2, GPT2Config, in_dtype, lm_loss
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.train import TrainConfig, Trainer
+from apex_tpu_torch.utils.tree import tree_flatten, tree_map
 
 JCFG = dataclasses.replace(JaxGPT2Config.tiny(), compute_dtype=jnp.float32)
 TCFG = dataclasses.replace(GPT2Config.tiny(), compute_dtype=torch.float32)
@@ -206,3 +213,45 @@ def test_config_refuses_bad_geometry():
     with pytest.raises(ValueError, match="loss_fn"):
         Trainer(TrainConfig(), loss_fn=None, init_params=model,
                 batch_fn=lambda t: None)
+
+
+def _cyclic_tensors(fn):
+    """The tensors that ``fn()`` leaves in reference cycles: collected with
+    every unreachable object saved, the collector off while it runs."""
+    gc.collect()
+    gc.disable()
+    try:
+        fn()
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        return [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+
+
+def test_tree_helpers_hold_no_reference_cycle():
+    """A mapped tree's new leaves and a flattened tree's leaves are freed
+    when the caller drops them, without a collection."""
+    def check():
+        out = tree_map(lambda x: x * 2, {"a": torch.ones(3),
+                                         "b": [torch.ones(2)]})
+        mapped = weakref.ref(out["a"])
+        leaves, _ = tree_flatten({"c": (torch.zeros(4),)})
+        flat = weakref.ref(leaves[0])
+        del out, leaves
+        assert mapped() is None and flat() is None
+
+    assert _cyclic_tensors(check) == []
+
+
+def test_train_steps_leave_no_tensor_in_a_cycle():
+    cfg = dataclasses.replace(TCFG, n_layer=1)
+    model = GPT2.from_params(cfg, init_gpt2_params(cfg, seed=5),
+                             device="cpu")
+    tokens = torch.arange(32).reshape(2, 16)
+    tr = Trainer(TrainConfig(steps=2, batch=2, seq=16),
+                 loss_fn=lm_loss, init_params=model,
+                 batch_fn=lambda t: tokens)
+    assert _cyclic_tensors(tr.run) == []
