@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels and the
 // peer puts, as inline PTX: TMA tensor maps and loads, bulk copies of
 // contiguous bytes, mbarriers, proxy fences, the wgmma shared-memory
-// descriptor and the m64n64k16 bf16 products with fp32 sums.
+// descriptor and the m64n64k16 / m64n32k16 bf16 products with fp32 sums.
 //
 // Tiles are rows of 64 bf16 (128 bytes) brought into shared memory by TMA
 // with the 128-byte swizzle, the widest row a swizzled box may have; a
@@ -19,10 +19,10 @@
 //   apart (SBO), the next 16 rows of depth 2048 bytes further. An N of d
 //   (a head dim above 64) is d / 64 products of N = 64, one on each chunk,
 //   into as many accumulators.
-// The accumulator of a warpgroup's m64nN product: warp w holds rows
-// 16w + lane/4 and 16w + lane/4 + 8; element 4j + {0, 1} is the first row
-// at columns 8j + (lane % 4) * 2 + {0, 1}, 4j + {2, 3} the second row at
-// the same columns. Packed to bf16 pairs, the fragment of columns
+// The accumulator of a warpgroup's m64nN product (N / 2 fp32 a thread):
+// warp w holds rows 16w + lane/4 and 16w + lane/4 + 8; element 4j + {0, 1}
+// is the first row at columns 8j + (lane % 4) * 2 + {0, 1}, 4j + {2, 3} the
+// second row at the same columns. Packed to bf16 pairs, the fragment of columns
 // 16kk..16kk+15 is the A operand of a register-sourced product of depth
 // 16 as it stands (elements 8kk .. 8kk + 7).
 
@@ -149,6 +149,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity,
     if (globaltimer() - t0 > limit_ns) __trap();
 }
 
+// The same wait, ending a stalled pipeline with a store to address 0 (an
+// illegal-address error on the stream, as sticky as a trap) instead of a
+// trap: ptxas gives a warpgroup the registers of its setmaxnreg.inc above
+// the launch bound's only in a kernel without a trap instruction (with one,
+// the tensor-core forward's consumers kept the launch bound's 168, spilling
+// at d = 128 and 256).
+__device__ __forceinline__ void mbar_wait_nt(uint64_t* bar, uint32_t parity,
+                                             uint64_t limit_ns = kWaitLimitNs) {
+  const uint32_t a = smem_addr(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const uint64_t t0 = globaltimer();
+  while (!mbar_try_wait(a, parity))
+    if (globaltimer() - t0 > limit_ns)
+      asm volatile("st.global.u32 [%0], %1;" ::"l"(0ull), "r"(0u) : "memory");
+}
+
 // TMA: box at coordinates (c0, c1, c2) of `map` into shared memory at
 // `dst`; completion counts on `bar`'s transaction bytes
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -247,13 +263,15 @@ template <int kN> __device__ __forceinline__ void wgmma_wait() {
 }
 // keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous product that owns it
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&d)[kN]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+template <int kSteps>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[kSteps][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kSteps; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
@@ -262,6 +280,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
   "%29, %30, %31}"
+#define APEX_WGMMA_D16                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define APEX_WGMMA_OUT16(d)                                               \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 #define APEX_WGMMA_OUT32(d)                                               \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
@@ -282,6 +306,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : APEX_WGMMA_OUT32(d)
       : "l"(da), "l"(db), "r"(accumulate));
 }
+// the same at m64n32k16 (d: 16 fp32 a thread)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " APEX_WGMMA_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}"
+      : APEX_WGMMA_OUT16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 // d += A B, m64n64k16; A from registers (four bf16 pairs a thread, the
 // accumulator layout packed), B from shared memory MN-major
 __device__ __forceinline__ void wgmma_rs_bt(float (&d)[32],
@@ -295,6 +329,8 @@ __device__ __forceinline__ void wgmma_rs_bt(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#undef APEX_WGMMA_D16
+#undef APEX_WGMMA_OUT16
 #undef APEX_WGMMA_D32
 #undef APEX_WGMMA_OUT32
 
@@ -303,11 +339,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The 64 x 64 S = A Bᵀ of one warpgroup over depth kD (64, 128 or 256):
-// K-major steps of 16, A and B tiles at shared addresses a and b, whose
-// 64-column chunks lie a_chunk and b_chunk bytes apart.
-template <int kD>
-__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a,
+// The 64 x N S = A Bᵀ of one warpgroup over depth kD (64, 128 or 256), N
+// 64 (d of 32 fp32) or 32 (16): K-major steps of 16, A and B tiles at
+// shared addresses a and b, whose 64-column chunks lie a_chunk and b_chunk
+// bytes apart.
+template <int kD, int kN>
+__device__ __forceinline__ void product_ss(float (&d)[kN], uint32_t a,
                                            uint32_t a_chunk, uint32_t b,
                                            uint32_t b_chunk) {
 #pragma unroll
@@ -315,21 +352,24 @@ __device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a,
     wgmma_ss(d, desc_sw128(a + (kk / 4) * a_chunk + (kk % 4) * 32),
              desc_sw128(b + (kk / 4) * b_chunk + (kk % 4) * 32), kk > 0);
 }
-// d += P B over depth 64: P from registers (p[kk] the columns 16kk..+15),
-// B an MN-major tile at shared address b (16 rows of depth a step), its 64
-// columns of N one chunk of the tile
+// d += P B over depth 16 kSteps (64 or 32): P from registers (p[kk] the
+// columns 16kk..+15), B an MN-major tile at shared address b (16 rows of
+// depth a step), its 64 columns of N one chunk of the tile
+template <int kSteps>
 __device__ __forceinline__ void product_rs(float (&d)[32],
-                                           const uint32_t (&p)[4][4],
+                                           const uint32_t (&p)[kSteps][4],
                                            uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kSteps; ++kk)
     wgmma_rs_bt(d, p[kk], desc_sw128(b + kk * 2048));
 }
-// an accumulator packed to the A operand of a product of depth 64
-__device__ __forceinline__ void to_a_operand(const float (&d)[32],
-                                             uint32_t (&p)[4][4]) {
+// an accumulator of N columns packed to the A operand of a product of
+// depth N
+template <int kN>
+__device__ __forceinline__ void to_a_operand(const float (&d)[kN],
+                                             uint32_t (&p)[kN / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kN / 8; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       p[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);

@@ -341,23 +341,82 @@ def fa_fma_bwd_geometry(head_dim: int = 64) -> FmaBwdGeometry:
 
 # The tensor-core kernels (bf16; csrc/flash_fwd_wgmma.cu,
 # csrc/flash_bwd_dq_wgmma.cu, csrc/flash_bwd_dkv_wgmma.cu) take the
-# geometry of fa_tc_geometry(d), mirrored by their `Layout<d>`: two
-# consumer warpgroups and a producer, streaming 64-row tiles, a row of d
-# columns arriving as d / 64 boxes of 64 columns. TMA reads each tensor
-# from a base address aligned to FA_TC_ALIGN bytes.
+# geometry of fa_tc_fwd_geometry(d) (the forward) and fa_tc_geometry(d)
+# (the backward pair), mirrored by their `Layout<d>`: two consumer
+# warpgroups and a producer, a row of d columns arriving as d / 64 boxes of
+# 64 columns. TMA reads each tensor from a base address aligned to
+# FA_TC_ALIGN bytes.
 FA_TC_ALIGN = 16
 FA_TC_TILE_ROWS = 64
-FA_TC_FIX_BYTES = 8 * (32 * 32 * 6)   # the forward's re-sum scratch
+
+
+@dataclasses.dataclass(frozen=True)
+class TcFwdGeometry:
+    """The bf16 tensor-core forward's block at one compiled head width,
+    mirrored by ``Layout<head_dim>`` in ``csrc/flash_fwd_wgmma.cu``: 128
+    query rows, 64 a consumer warpgroup, each holding all ``head_dim``
+    columns of o; K / V tiles of ``tile_rows`` keys stream through
+    ``stages`` stages; with ``two_pass`` a first pass over the keys (K
+    alone) takes each row's exact max and a second the output. Each of the
+    8 consumer warps has a re-sum scratch of ``fix_bytes``: a value slot
+    per (S element, lane), with one pass a second for p, and a 2-byte list
+    entry."""
+    head_dim: int
+    tile_rows: int
+    stages: int
+    two_pass: bool
+    block_rows: int = 128
+
+    @property
+    def cols(self) -> int:
+        """Columns of o a consumer warpgroup holds (all of them)."""
+        return self.head_dim
+
+    @property
+    def passes(self) -> int:
+        return 2 if self.two_pass else 1
+
+    @property
+    def fix_bytes(self) -> int:
+        slots = 32 * self.tile_rows // 2
+        return slots * (4 * (1 if self.two_pass else 2) + 2)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Q, the K / V stages, each stage's two K norms, the re-sum
+        scratch, the barriers and the 1 KB of alignment."""
+        tile = self.tile_rows * self.head_dim * 2
+        return (self.block_rows * self.head_dim * 2
+                + self.stages * (2 * tile + 8) + 8 * self.fix_bytes
+                + (3 * self.stages + 1) * 8 + 1024)
+
+    def blocks(self, s: int) -> int:
+        """Blocks (grid.x) over ``s`` query rows."""
+        return -(-s // self.block_rows)
+
+
+# d = 256: a warpgroup's 64 rows of o are 128 fp32 a thread, so S takes
+# 32-key tiles (16 fp32 a thread) and Q's 64 KB leave room for four
+# stages; d = 128: three stages beside the scratch of one pass
+_TC_FWD = {64: TcFwdGeometry(64, tile_rows=64, stages=4, two_pass=False),
+           128: TcFwdGeometry(128, tile_rows=64, stages=3, two_pass=False),
+           256: TcFwdGeometry(256, tile_rows=32, stages=4, two_pass=True)}
+
+
+def fa_tc_fwd_geometry(head_dim: int = 64) -> TcFwdGeometry:
+    """The geometry of the bf16 tensor-core flash forward at a compiled
+    head width."""
+    return _TC_FWD[_fa_check_width(head_dim)]
 
 
 @dataclasses.dataclass(frozen=True)
 class TcGeometry:
-    """The three tensor-core flash kernels' block at one compiled head
-    width, mirrored by ``Layout<head_dim>`` in each source: a block owns
-    ``slabs`` 64-row slabs (forward and dq: queries; dk / dv: keys), one a
-    consumer warpgroup, or (``slabs`` 1, d = 256) one slab that both
-    warpgroups take, each holding ``cols`` of the output's columns; 64-row
-    tiles stream through ``stages`` stages."""
+    """The tensor-core backward pair's block at one compiled head width,
+    mirrored by ``Layout<head_dim>`` in each source: a block owns
+    ``slabs`` 64-row slabs (dq: queries; dk / dv: keys), one a consumer
+    warpgroup, or (``slabs`` 1, d = 256) one slab that both warpgroups
+    take, each holding ``cols`` of the output's columns; 64-row tiles
+    stream through ``stages`` stages."""
     head_dim: int
     slabs: int
     stages: int
@@ -374,14 +433,6 @@ class TcGeometry:
 
     def _tile(self, rows: int) -> int:
         return rows * self.head_dim * 2
-
-    @property
-    def fwd_smem_bytes(self) -> int:
-        """Q, the K / V stages, each stage's two K norms, the re-sum
-        scratch, the barriers and the 1 KB of alignment."""
-        return (self._tile(self.block_rows)
-                + self.stages * (2 * self._tile(FA_TC_TILE_ROWS) + 8)
-                + FA_TC_FIX_BYTES + (3 * self.stages + 1) * 8 + 1024)
 
     @property
     def dq_smem_bytes(self) -> int:
@@ -413,8 +464,8 @@ _TC = {64: TcGeometry(64, slabs=2, stages=4),
 
 
 def fa_tc_geometry(head_dim: int = 64) -> TcGeometry:
-    """The geometry of the bf16 tensor-core flash kernels at a compiled
-    head width."""
+    """The geometry of the bf16 tensor-core flash backward pair at a
+    compiled head width."""
     return _TC[_fa_check_width(head_dim)]
 
 

@@ -1502,17 +1502,23 @@ def _rank_steps(group, spec):
 # causal attention, BERT-large's, the ragged 200 x 333 and b * h = 65,600
 FLASH_FP32_SHAPES = [(4, 12, 1024, 1024, True), (32, 16, 128, 128, False),
                      (2, 3, 200, 333, False), (1025, 64, 64, 64, True)]
-# the bf16 (tensor-core) cases of the solo modes: GPT-2's and GPT-2 XL's
-# causal attention and BERT's
-FLASH_BF16_SHAPES = [(4, 12, 1024, 1024, True), (4, 25, 1024, 1024, True),
-                     (32, 16, 128, 128, False)]
-_SOLO_CASES = ([(*c, "fp32") for c in FLASH_FP32_SHAPES]
+# the bf16 (tensor-core) cases of the solo modes, (b, h, sq, sk, causal,
+# head dim): GPT-2's and GPT-2 XL's causal attention and BERT's at 64;
+# Cerebras-GPT 1.3B's causal attention at 128 and GPT-J 6B's at 256
+FLASH_BF16_SHAPES = [(4, 12, 1024, 1024, True, 64),
+                     (4, 25, 1024, 1024, True, 64),
+                     (32, 16, 128, 128, False, 64),
+                     (2, 16, 2048, 2048, True, 128),
+                     (2, 16, 2048, 2048, True, 256)]
+_SOLO_CASES = ([(*c, 64, "fp32") for c in FLASH_FP32_SHAPES]
                + [(*c, "bf16") for c in FLASH_BF16_SHAPES])
 
 
-def _solo_key(b, h, sq, sk, causal, dt):
+def _solo_key(b, h, sq, sk, causal, d, dt):
+    """A solo case's key: d = 64's without a width (the keys of the trees
+    before the wider cases), others with ``_d<d>``."""
     return (f"{'bf16_' if dt == 'bf16' else ''}{b}x{h}x{sq}x{sk}"
-            f"{'_causal' if causal else ''}")
+            f"{'_causal' if causal else ''}{'' if d == 64 else f'_d{d}'}")
 
 
 def _causal_pairs(sq, sk, causal):
@@ -1538,8 +1544,8 @@ def _flash_bwd_solo(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for b, h, sq, sk, causal, dt in _SOLO_CASES:
-        d, scale = 64, 0.125
+    for b, h, sq, sk, causal, d, dt in _SOLO_CASES:
+        scale = d ** -0.5
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         sets = []
         for _ in range(n_sets(3 * b * h * (sq + sk) * d * 4)):
@@ -1568,7 +1574,7 @@ def _flash_bwd_solo(dev):
         library = device_ms(lambda oo, qq, kk, vv, do: torch.autograd.grad(
             oo, (qq, kk, vv), do, retain_graph=True), lsets, 20)
         ops = 2 * b * h * d * _causal_pairs(sq, sk, causal)
-        out[_solo_key(b, h, sq, sk, causal, dt)] = dict(
+        out[_solo_key(b, h, sq, sk, causal, d, dt)] = dict(
             dq_ms=dq, dkv_ms=dkv, pair_ms=dq + dkv, library_ms=library,
             bound_dq_ms=3 * ops / PEAK_OPS[dt] * 1e3,
             bound_dkv_ms=4 * ops / PEAK_OPS[dt] * 1e3,
@@ -1593,8 +1599,8 @@ def _flash_fwd_solo(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for b, h, sq, sk, causal, dt in _SOLO_CASES:
-        d, scale = 64, 0.125
+    for b, h, sq, sk, causal, d, dt in _SOLO_CASES:
+        scale = d ** -0.5
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         sets = [tuple(torch.randn(b, h, n, d, device=dev, generator=gen)
                       .to(dtype) for n in (sq, sk, sk))
@@ -1605,7 +1611,7 @@ def _flash_fwd_solo(dev):
             q, k, v, is_causal=causal, scale=scale), sets, 30)
         ops = 4 * b * h * d * _causal_pairs(sq, sk, causal)
         ms = sum(t for n, t in split.items() if "fa_fwd_kernel" in n)
-        out[_solo_key(b, h, sq, sk, causal, dt)] = dict(
+        out[_solo_key(b, h, sq, sk, causal, d, dt)] = dict(
             ms=ms, library_ms=library,
             bound_ms=ops / PEAK_OPS[dt] * 1e3,
             kernels=sorted(n.split("(")[0] for n in split))
@@ -1949,11 +1955,13 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
                                    "gn_apply_kernel_vec")}
 # the report's kernels that must keep every value in registers (no
 # spill), by the start of their key: the fp32 flash forward's and
-# backward's unbiased forms, every form of the LayerNorm backward's
+# backward's unbiased forms, the bf16 tensor-core forward in every form
+# at every width (its consumers' 232 registers), every form of the
+# LayerNorm backward's
 # register form, the two-pass GroupNorm's bf16 vector stats kernel and
 # every form of its vector apply kernel (the fp32 stats kernel spills 8
 # bytes at 40 registers, which PERF.md reports)
-NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>",
+NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>", "fa_fwd_kernel_wgmma<",
                     "fa_bwd_dq_kernel_fma<64,false,false,false>",
                     "fa_bwd_dkv_kernel_fma<64,false,false>",
                     "ln_bwd_kernel_reg<",
@@ -2182,6 +2190,11 @@ def main() -> int:
             require(rep.get("spill_stores") == 0
                     and rep.get("spill_loads") == 0,
                     f"{name} spills: {rep}")
+    # the tensor-core forward's wgmma pipeline is never serialised
+    serial = {k: r["wgmma_serialized"] for k, r in ptxas.items()
+              if k.startswith("fa_fwd_kernel_wgmma<")
+              and "wgmma_serialized" in r}
+    require(not serial, f"ptxas serialises the forward's wgmma: {serial}")
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          sources=[p.relative_to(ROOT).as_posix() for p in _build.sources()],

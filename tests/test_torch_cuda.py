@@ -851,6 +851,104 @@ def test_flash_head_dims_match_plain(dev, d, case, dtype):
         q, k, v, o, lse, do, **bkw)), dtype, bwd=True)
 
 
+def _planted_last_tile_max(g, b, h, s, d, dev):
+    """Random q, k, v, with the key at every fifth row's own position made
+    half that row's q: its score, about sqrt(d) / 2, is the row's max
+    and, causal, lies in the row's last key tile."""
+    q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g)
+               for _ in range(3))
+    rows = torch.arange(0, s, 5, device=dev)
+    k[:, :, rows] = 0.5 * q[:, :, rows]
+    return rows, tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+def _near_midpoints(g, b, h, s, d, dev):
+    """q, k whose every p = exp(s - max) lies within a few fp32 ulps of a
+    bf16 rounding midpoint: key j's first three columns carry the bf16
+    parts of t_j = log(m_j) / scale (m_j the midpoint above a random bf16
+    value in [0.02, 0.99); t_0 = 0, every row's max, the key every causal row
+    sees), q's first three columns are 1, and the other columns are random
+    in q and the same for every key of a head. A score is then scale *
+    (t_j + a row's shared term), summed over all d columns, so the last
+    bits that decide bf16(p) are those of the summation order."""
+    scale = d ** -0.5
+    x = torch.rand(b, h, s, device=dev, generator=g, dtype=torch.float64)
+    lo = (0.02 + 0.97 * x).to(torch.bfloat16)  # below 1: t_0 = 0 is the max
+    up = (lo.view(torch.int16) + 1).view(torch.bfloat16)  # the next bf16
+    t = torch.log((lo.double() + up.double()) / 2) / scale
+    t[:, :, 0] = 0.0
+    parts = []
+    for _ in range(3):
+        part = t.to(torch.bfloat16)
+        parts.append(part)
+        t = t - part.double()
+    k = torch.randn(b, h, 1, d, device=dev, generator=g).expand(
+        b, h, s, d).clone()
+    k[..., :3] = torch.stack(parts, dim=-1).float()
+    q = torch.randn(b, h, s, d, device=dev, generator=g)
+    q[..., :3] = 1.0
+    v = torch.randn(b, h, s, d, device=dev, generator=g)
+    return tuple(u.to(torch.bfloat16) for u in (q, k, v))
+
+
+_EXACT_P_FORMS = {"plain": (False, False), "bias": (True, False),
+                  "dropout": (False, True), "both": (True, True)}
+
+
+@pytest.mark.parametrize("form", sorted(_EXACT_P_FORMS))
+@pytest.mark.parametrize("d", [128, 192, 256])
+@pytest.mark.parametrize("kind", ["last_tile_max", "midpoints"])
+def test_bf16_flash_fwd_exact_p_cases(dev, kind, d, form):
+    """The bf16 forward where exact p is hardest, at head dims 128, 192
+    (padded to 256) and 256 in every form (a bias, dropout, both, or
+    neither): rows whose max arrives in their last key tile (a planted
+    score), and scores whose p all sit near bf16 rounding midpoints, where
+    only the plain version's summation order decides bf16(p). o and lse
+    against the plain version within the flash tolerances, two runs the
+    same bits, the launch counted at its width."""
+    b, h, s = 2, 3, 300 if kind == "last_tile_max" else 257
+    g = torch.Generator(device=dev).manual_seed(d * 11 + len(form))
+    if kind == "last_tile_max":
+        rows, (q, k, v) = _planted_last_tile_max(g, b, h, s, d, dev)
+        sc = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool,
+                                       device=dev).triu(1), -1e30)
+        # the construction: the planted key is its row's max
+        assert (sc.argmax(-1)[:, :, rows] == rows).float().mean() > 0.9
+    else:
+        q, k, v = _near_midpoints(g, b, h, s, d, dev)
+        sc = torch.matmul(q.double(), k.double().transpose(-1, -2)) \
+            * d ** -0.5
+        live = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        pr = torch.exp(sc - sc.masked_fill(~live, -1e30).amax(
+            -1, keepdim=True))[:, :, live].float()
+        # the construction: in exact arithmetic nearly every p lies within
+        # 8 fp32 ulps of a bf16 midpoint (each row's max, p = 1, does not)
+        low = pr.view(torch.int32) & 0xFFFF
+        assert ((low - 0x8000).abs() <= 8).float().mean() > 0.9
+    with_bias, dropout = _EXACT_P_FORMS[form]
+    kw = dict(scale=d ** -0.5, causal=True)
+    if with_bias:
+        # a per-row shift (exact in fp32) or a learned-like bias
+        kw["bias"] = ((torch.arange(s, device=dev) % 4) * 0.25).view(
+            1, 1, s, 1) if kind == "midpoints" else torch.randn(
+            1, h, s, s, device=dev, generator=g) * 0.5
+    if dropout:
+        kw.update(dropout_p=0.1, dropout_seed=torch.tensor(
+            [d + s], dtype=torch.int32, device=dev))
+    _build.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    o2, lse2 = flash_attention_fwd(q, k, v, **kw)
+    op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    kd = fa_kernel_head_dim(d)
+    assert _build.form_launches[f"fa_fwd:wgmma:d{kd}"] == 2
+    torch.testing.assert_close(o.float(), op.float(), atol=2e-3,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [48, 80, 128, 192, 256])
 def test_public_flash_at_head_dims_matches_the_cpu(dev, d, dtype):

@@ -41,7 +41,7 @@ from apex_tpu_torch.ops.flash_attention import (_tensor_core,
 from apex_tpu_torch.ops import flash_attention as fa_mod
 from apex_tpu_torch.ops.tiling import (FA_GRID_DIM_MAX, FA_TC_ALIGN,
                                        fa_batch_heads_grid, fa_route,
-                                       fa_tc_geometry,
+                                       fa_tc_fwd_geometry, fa_tc_geometry,
                                        fa_tc_misaligned)
 
 D = 64
@@ -488,10 +488,13 @@ def test_batch_heads_grid_refuses_what_no_grid_holds():
 # csrc/flash_bwd_dq_wgmma.cu `nk`, `nk_me` and `masked`,
 # csrc/flash_bwd_dkv_wgmma.cu `qt0`, the `_causal_run` skip and `masked`.
 # The kernels' own use of the rule is held to the plain versions by the
-# card tests (tests/test_torch_cuda.py). A block holds ``slabs`` 64-row
-# slabs (``Layout::kSlabs``: 2, one a warpgroup, up to d = 128; 1 at d =
-# 256, where both warpgroups take the slab, each half of the output's
-# columns: its column group, the last entry of a step).
+# card tests (tests/test_torch_cuda.py). A forward block holds 128 query
+# rows, 64 a warpgroup, over key tiles of ``tile`` keys (64, or 32 at d =
+# 256, where it makes two passes: ``fa_tc_fwd_geometry``). A backward
+# block holds ``slabs`` 64-row slabs (``Layout::kSlabs``: 2, one a
+# warpgroup, up to d = 128; 1 at d = 256, where both warpgroups take the
+# slab, each half of the output's columns: its column group, the last
+# entry of a step).
 WG_ROWS, TC_TILE = 64, 64            # a warpgroup's rows, a streamed tile
 TC_BLOCK = 2 * WG_ROWS               # a block's query rows / keys
 
@@ -505,33 +508,37 @@ def _warpgroups(slabs):
     return [(w, 0) if slabs == 2 else (0, w) for w in range(2)]
 
 
-def _tc_fwd_plan(sq, sk, causal, slabs=2):
+def _tc_fwd_plan(sq, sk, causal, tile=TC_TILE, passes=1):
     """The forward's work: ``(blocks, loads, steps)``. ``loads[b]`` the K /
-    V tiles block ``b`` streams (tiles 0 .. loads[b] - 1; `nk`); ``steps``
-    the ``(q tile, k tile, masked)`` each warpgroup computes (its 64-row q
-    tile ``q`` in block ``q // slabs``; `nk_me`; at ``slabs`` 1 with its
-    column group appended), ``masked`` when the tile crosses that q tile's
-    diagonal or the ragged sk edge. A q tile past sq computes nothing."""
-    block = WG_ROWS * slabs
-    nk = _cdiv(sk, TC_TILE)
+    V tiles of ``tile`` keys block ``b`` streams in each of its
+    ``passes`` passes (tiles 0 .. loads[b] - 1; `nk`); ``steps`` the ``(q
+    tile, k tile, masked)`` each warpgroup computes (its 64-row q tile
+    ``q`` in block ``q // 2``; `nk_me`; with two passes its pass appended,
+    0 the max's, 1 the output's), ``masked`` when the tile crosses that q
+    tile's diagonal or the ragged sk edge. A q tile past sq computes
+    nothing."""
+    block = TC_BLOCK
+    nk = _cdiv(sk, tile)
     blocks = _cdiv(sq, block)
     loads, steps = [], []
     for b in range(blocks):
         q0 = b * block
         last = min(q0 + block, sq) - 1
-        loads.append(min(nk, last // TC_TILE + 1) if causal else nk)
-        for slab, cg in _warpgroups(slabs):
-            row0 = q0 + slab * WG_ROWS
-            if row0 >= sq:
-                continue
-            mine = (min(nk, (row0 + WG_ROWS - 1) // TC_TILE + 1) if causal
-                    else nk)
-            for kt in range(mine):
-                k0 = kt * TC_TILE
-                masked = ((causal and k0 + TC_TILE - 1 > row0)
-                          or k0 + TC_TILE > sk)
-                steps.append((row0 // WG_ROWS, kt, masked)
-                             + ((cg,) if slabs == 1 else ()))
+        loads.append(min(nk, last // tile + 1) if causal else nk)
+        for ps in range(passes):
+            for wg in range(2):
+                row0 = q0 + wg * WG_ROWS
+                if row0 >= sq:
+                    continue
+                # `nk_me`, within the block's streamed tiles (the loop)
+                mine = min(loads[b], (row0 + WG_ROWS - 1) // tile + 1
+                           if causal else nk)
+                for kt in range(mine):
+                    k0 = kt * tile
+                    masked = ((causal and k0 + tile - 1 > row0)
+                              or k0 + tile > sk)
+                    steps.append((row0 // WG_ROWS, kt, masked)
+                                 + ((ps,) if passes == 2 else ()))
     return blocks, loads, steps
 
 
@@ -723,15 +730,15 @@ def test_tc_route_raises_on_a_misaligned_bf16_view():
 @pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
 def test_tc_plans_at_head_dim_256_match_jax_rules(sq, sk, causal):
     """At d = 256 (``fa_tc_geometry(256)``: one 64-row slab a block, both
-    warpgroups on it) each kernel runs the JAX kernels' (q tile, k tile)
-    pairs, the masked arithmetic where `_mask_split` asks for it, each
-    pair once in each of the two column groups, and a block streams
-    exactly the tiles its slab uses."""
+    warpgroups on it) each backward kernel runs the JAX kernels' (q tile,
+    k tile) pairs, the masked arithmetic where `_mask_split` asks for it,
+    each pair once in each of the two column groups, and a block streams
+    exactly the tiles its slab uses. (The forward's 32-key tiles:
+    ``test_tc_fwd_plan_visits_each_pair_once``.)"""
     g = fa_tc_geometry(256)
     assert (g.slabs, g.block_rows, g.cols) == (1, 64, 128)
     want = _jax_pairs(sq, sk, causal)
-    for plan, rows, pair in ((_tc_fwd_plan, sq, lambda s: s[:2]),
-                             (_tc_dq_plan, sq, lambda s: s[:2]),
+    for plan, rows, pair in ((_tc_dq_plan, sq, lambda s: s[:2]),
                              (_tc_dkv_plan, sk, lambda s: s[1::-1])):
         blocks, loads, steps = plan(sq, sk, causal, slabs=g.slabs)
         assert blocks == g.blocks(rows) == len(loads)
@@ -746,3 +753,41 @@ def test_tc_plans_at_head_dim_256_match_jax_rules(sq, sk, causal):
                 assert used == set(range(first, end)) or not used
             else:
                 assert loads[b] == (max(used) + 1 if used else 0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
+@pytest.mark.parametrize("d", [128, 256])
+def test_tc_fwd_plan_visits_each_pair_once(d, sq, sk, causal):
+    """The forward at d = 128 and 256 (``fa_tc_fwd_geometry(d)``: 128-row
+    blocks over 64- or 32-key tiles, two passes at 256) against brute
+    force over the (row, key) pairs: in each pass every pair the softmax
+    keeps (key < sk, and key <= row when causal) lies in exactly one
+    computed (q tile, k tile) step: the max pass covers every key of each
+    row and the output pass each pair under the diagonal once; a step
+    takes the unmasked arithmetic only where every pair of its tile is
+    kept; a block streams exactly the tiles its warpgroups use."""
+    g = fa_tc_fwd_geometry(d)
+    assert (g.block_rows, g.cols) == (TC_BLOCK, d)
+    tile = g.tile_rows
+    blocks, loads, steps = _tc_fwd_plan(sq, sk, causal, tile=tile,
+                                        passes=g.passes)
+    assert blocks == g.blocks(sq) == len(loads)
+    assert len(set(steps)) == len(steps)
+    live = ((np.arange(sk)[None, :] <= np.arange(sq)[:, None]) if causal
+            else np.ones((sq, sk), dtype=bool))
+    for ps in range(g.passes):
+        seen = np.zeros((sq, sk), dtype=int)
+        for step in steps:
+            if g.passes == 2 and step[3] != ps:
+                continue
+            qt, kt, masked = step[:3]
+            rows = slice(qt * WG_ROWS, min((qt + 1) * WG_ROWS, sq))
+            keys = slice(kt * tile, min((kt + 1) * tile, sk))
+            seen[rows, keys] += 1
+            if not masked:
+                assert live[rows, keys].all() and (kt + 1) * tile <= sk
+        assert (seen[live] == 1).all()
+    for b in range(blocks):
+        used = [s[1] for s in steps if s[0] // 2 == b]
+        assert loads[b] == (max(used) + 1 if used else 0)

@@ -10,11 +10,12 @@ visits against a count of the tiles holding any unmasked (query, key)
 pair, the warps that skip a visited tile against the rows that see none
 of its keys, the heaviest-first order, and the ``constexpr`` values of
 the source (``FwdGeometry<d>``, ``Fwd``) against the Python mirror. The
-bf16 tensor-core kernels' blocks (``fa_tc_geometry``, ``Layout<d>`` of
-``csrc/flash_fwd_wgmma.cu`` and the two backward sources) likewise:
-shared memory within a block's at every width and the warpgroups
-covering each block's output rows and columns once. No JAX: nothing here
-has a counterpart there.
+bf16 tensor-core kernels' blocks (``fa_tc_fwd_geometry``, ``Layout<d>``
+of ``csrc/flash_fwd_wgmma.cu``; ``fa_tc_geometry``, that of the two
+backward sources) likewise: the source's ``Layout`` evaluated at each
+width against the mirror, shared memory within a block's and the
+warpgroups covering each block's output rows and columns once. No JAX:
+nothing here has a counterpart there.
 """
 
 import re
@@ -24,12 +25,13 @@ import numpy as np
 import pytest
 
 from apex_tpu_torch.ops.tiling import (FA_HEAD_DIMS, fa_batch_heads_grid,
-                                       fa_fma_fwd_geometry, fa_tc_geometry)
+                                       fa_fma_fwd_geometry,
+                                       fa_tc_fwd_geometry, fa_tc_geometry)
 
 CSRC = Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
 SRC = CSRC / "flash_attention.cu"
-TC_SRCS = ("flash_fwd_wgmma.cu", "flash_bwd_dq_wgmma.cu",
-           "flash_bwd_dkv_wgmma.cu")
+TC_FWD_SRC = "flash_fwd_wgmma.cu"
+TC_SRCS = ("flash_bwd_dq_wgmma.cu", "flash_bwd_dkv_wgmma.cu")
 SIZES = [1, 63, 64, 65, 127, 128, 129, 200, 333, 1000, 1024]
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
 SM_SMEM = 233472             # bytes of shared memory an SM holds for blocks
@@ -251,10 +253,53 @@ def _ternary(expr, d):
     return int(m.group(2)) if d == int(m.group(1)) else int(m.group(3))
 
 
+def _layout_values(src, d):
+    """``{name: value}`` of the ``static constexpr`` ints and bools of
+    ``Layout`` in ``src`` at head width ``d``, each expression evaluated
+    in order as C++ would (integer division, ``a ? b : c``), with the
+    namespace's ``kRowsWG``."""
+    text = (CSRC / src).read_text()
+    body = re.search(r"struct Layout \{(.*?)\};", text, re.S).group(1)
+    env = {"kD": d, "kRowsWG": int(re.search(
+        r"^constexpr int kRowsWG = (\d+);", text, re.M).group(1))}
+    for m in re.finditer(r"static constexpr (?:int|bool) (k\w+) =\s*"
+                         r"([^;]+);", body):
+        expr = " ".join(m.group(2).split()).replace("/", "//")
+        t = re.fullmatch(r"(.+?) \? (.+?) : (.+)", expr)
+        if t:
+            expr = f"({t.group(2)}) if ({t.group(1)}) else ({t.group(3)})"
+        env[m.group(1)] = eval(expr, {}, dict(env))
+    return env
+
+
+@WIDTHS
+def test_tensor_core_forward_block_mirrors_the_source(d):
+    """``fa_tc_fwd_geometry(d)`` against ``Layout<d>`` of the forward's
+    source, evaluated: its key tile, stages, passes, rows, columns, the
+    re-sum scratch and the shared memory the kernel asks for (within a
+    Hopper block's); the two consumer warpgroups cover the block's 128
+    rows and every head dim column exactly once; a consumer's o (d / 2
+    fp32) beside its S tile (tile_rows / 2) leaves room in its 232
+    registers."""
+    g = fa_tc_fwd_geometry(d)
+    c = _layout_values(TC_FWD_SRC, d)
+    assert c["kBK"] == g.tile_rows and c["kStages"] == g.stages
+    assert c["kTwoPass"] == g.two_pass == (d == 256)
+    assert c["kBQ"] == g.block_rows == 128 and c["kCols"] == g.cols == d
+    assert c["kFixBytes"] == g.fix_bytes
+    assert c["kSmemBytes"] == g.smem_bytes <= SMEM_LIMIT
+    held = np.zeros((g.block_rows, d), dtype=int)
+    for wg in range(2):
+        held[64 * wg:64 * wg + 64, :] += 1
+    assert (held == 1).all()
+    assert d // 2 + g.tile_rows // 2 <= 144
+    assert g.blocks(1000) * g.block_rows >= 1000
+
+
 @pytest.mark.parametrize("src", TC_SRCS)
 @WIDTHS
 def test_tensor_core_blocks_mirror_the_sources(src, d):
-    """``fa_tc_geometry(d)`` against each tensor-core source's
+    """``fa_tc_geometry(d)`` against each tensor-core backward source's
     ``Layout<d>``: its slabs and stages; every block's shared memory within
     a Hopper block's; the two consumer warpgroups (slab, column group)
     cover the block's output rows and each head dim column exactly once,
@@ -267,8 +312,7 @@ def test_tensor_core_blocks_mirror_the_sources(src, d):
     assert _ternary(c["kSlabs"], d) == g.slabs
     assert _ternary(c["kStages"], d) == g.stages
     assert c["kCols"] == "kD * kSlabs / 2"
-    assert max(g.fwd_smem_bytes, g.dq_smem_bytes,
-               g.dkv_smem_bytes) <= SMEM_LIMIT
+    assert max(g.dq_smem_bytes, g.dkv_smem_bytes) <= SMEM_LIMIT
     held = np.zeros((g.block_rows, d), dtype=int)
     for wg in range(2):
         slab, cg = (wg, 0) if g.slabs == 2 else (0, wg)
@@ -280,9 +324,10 @@ def test_tensor_core_blocks_mirror_the_sources(src, d):
 
 def test_tensor_core_smem_matches_the_kernels_sums():
     """The mirror's bytes at the widths the sources were sized for: the
-    forward 214,152 at d = 128 and 214,088 at d = 256, both under the
-    232,448 a block may have."""
-    assert fa_tc_geometry(128).fwd_smem_bytes == 214152
-    assert fa_tc_geometry(256).fwd_smem_bytes == 214088
+    forward 165,000 at d = 64, 214,120 at d = 128 and 222,344 at d = 256,
+    all under the 232,448 a block may have."""
+    assert fa_tc_fwd_geometry(64).smem_bytes == 165000
+    assert fa_tc_fwd_geometry(128).smem_bytes == 214120
+    assert fa_tc_fwd_geometry(256).smem_bytes == 222344
     assert fa_tc_geometry(256).dq_smem_bytes == 197672
     assert fa_tc_geometry(256).dkv_smem_bytes == 198696

@@ -336,6 +336,24 @@ def test_chip_smoke_kernel_table_names_every_pallas_call():
     assert cs.TO_PORT == {}
 
 
+def test_chip_smoke_flash_solo_cases_cover_the_wide_heads():
+    """The ``flash-fwd`` / ``flash-bwd`` solo modes' cases: the d = 64
+    cases keep the keys of the trees before the wider cases (so two trees
+    still compare in turns), and the bf16 cases add Cerebras-GPT 1.3B's
+    causal 2 x 16 x 2048 x 128 and GPT-J 6B's 2 x 16 x 2048 x 256, each
+    keyed with its width; every case carries a compiled head dim."""
+    cs = _chip_smoke()
+    keys = [cs._solo_key(*c) for c in cs._SOLO_CASES]
+    assert len(set(keys)) == len(keys)
+    assert {"4x12x1024x1024_causal", "bf16_4x12x1024x1024_causal",
+            "bf16_4x25x1024x1024_causal", "bf16_32x16x128x128",
+            "1025x64x64x64_causal"} <= set(keys)
+    assert "bf16_2x16x2048x2048_causal_d128" in keys
+    assert "bf16_2x16x2048x2048_causal_d256" in keys
+    assert all(c[5] in (64, 128, 256) for c in cs._SOLO_CASES)
+    assert all(c[5] == 64 for c in cs._SOLO_CASES if c[6] == "fp32")
+
+
 def test_remote_copy_wrappers_refuse_other_devices():
     """The peer-put kernels' wrappers refuse a tensor that is neither on
     the CPU nor on CUDA."""
