@@ -141,6 +141,28 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The bf16 flash backward's p = exp(s - lse) (`_bwd_p`), taken as
+// 2^(s log2(e) - l2) by the MUFU's ex2 (relative error ~2^-22, far inside
+// the bf16 gradients' tolerance; two instructions an element instead of
+// expf's eight and the masks' tests): l2 = lse log2(e) of a row (`bwd_lse2`,
+// once a row), +inf where the row is masked (lse <= -0.5e30: padded and
+// fully masked rows), which gives p = 0. A score s <= -0.5e30 (only a bias
+// gives one) differs from any unmasked lse by more than 3e22, so its power
+// is 0 as `_bwd_p` has it.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float bwd_lse2(float lse) {
+  return lse <= -0.5e30f ? __int_as_float(0x7f800000) : lse * kLog2e;
+}
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// p of score s (already scaled, biased) against l2: the power alone
+__device__ __forceinline__ float bwd_p2(float s, float l2) {
+  return ex2_approx(fmaf(s, kLog2e, -l2));
+}
+
 // The flash kernels' flat batch * head index: grid.y and grid.z together
 // carry it, since one grid dimension above x holds at most 65535 blocks.
 __device__ __forceinline__ long long batch_head() {
@@ -189,16 +211,28 @@ struct Dropout {
   __device__ __forceinline__ uint32_t head(long long bh) const {
     return (uint32_t)bh * 0x85EBCA6Bu ^ (uint32_t)__ldg(seed) * 0x9E3779B9u;
   }
-  // the keep factor of (row, key) of the slice whose term is `h`: scale
-  // or 0
-  __device__ __forceinline__ float keep(uint32_t h, int row, int key) const {
-    uint32_t x = (uint32_t)row * 0xD2511F53u ^ (uint32_t)key * 0xCD9E8D57u ^ h;
+  // the hash's (key, batch * head, seed) term of a key of the slice whose
+  // term is `h`
+  __device__ __forceinline__ uint32_t key_term(uint32_t h, int key) const {
+    return (uint32_t)key * 0xCD9E8D57u ^ h;
+  }
+  // whether (row, key) is kept, the key's term `kt` (key_term)
+  __device__ __forceinline__ bool kept_at(uint32_t kt, int row) const {
+    uint32_t x = (uint32_t)row * 0xD2511F53u ^ kt;
     x ^= x >> 16;
     x *= 0x7FEB352Du;
     x ^= x >> 15;
     x *= 0x846CA68Bu;
     x ^= x >> 16;
-    return x >= threshold ? scale : 0.f;
+    return x >= threshold;
+  }
+  // whether (row, key) of the slice whose term is `h` is kept
+  __device__ __forceinline__ bool kept(uint32_t h, int row, int key) const {
+    return kept_at(key_term(h, key), row);
+  }
+  // its keep factor: scale or 0
+  __device__ __forceinline__ float keep(uint32_t h, int row, int key) const {
+    return kept(h, row, key) ? scale : 0.f;
   }
 };
 

@@ -25,34 +25,47 @@
 // traffic: hundreds of flops a byte.
 //
 // What the design does about that: the four products run on the tensor
-// cores (wgmma m64n64k16) from tiles that TMA brings into shared memory. A
-// block owns 128 keys of one (b * h) slice: two consumer warpgroups of 64
-// keys (wgmma's M) whose K and V rows stay resident in shared memory, and
-// a producer warp that streams 64-row Q and dO tiles, with that tile's 64
-// lse and D values beside them, through a ring of kStages stages ("full":
-// the TMA's bytes and the producer lanes' arrivals after their lse / D
-// stores; "empty": every consumer thread after its products). From the
-// diagonal on when causal. Per tile and warpgroup: S^T = K Q^T and
-// dP^T = V dO^T with both operands from shared memory, K-major; p and ds
-// per accumulator element, lse and D indexed by the fragment's column (a
-// query); then dV += P^T dO and dK += dS^T Q with A from registers (the
-// accumulators packed to bf16) and B the same dO / Q tile read MN-major
-// through a second descriptor. Each block owns its dK and dV rows: no
-// atomics, and two runs give the same bits. Only a tile across a
-// warpgroup's diagonal or the ragged sk edge runs the masked arithmetic
-// (`_mask_split`); rows past sq load as zeros with lse = -1e30 and so add
-// nothing. In this first version the products of a tile and its
-// elementwise work do not overlap (later work).
+// cores (wgmma) from tiles that TMA brings into shared memory. A block
+// owns 128 keys of one (b * h) slice: two consumer warpgroups of 64 keys
+// (wgmma's M) whose K and V rows stay resident in shared memory, and a
+// producer warp that streams 64-row Q and dO tiles, with that tile's 64
+// lse (as l2, `bwd_lse2`) and D values beside them, through a ring of
+// kStages stages ("full": the TMA's bytes and the producer lanes' arrivals
+// after their l2 / D stores; "empty": every consumer thread once the
+// tile's products are done). From the diagonal on when causal. Per tile
+// and warpgroup:
+//   S^T = K Q^T, dP^T = V dO^T (both operands from shared memory,
+//   K-major), two groups; wait for S^T only;
+//   p per accumulator element (l2 indexed by the fragment's column, a
+//   query), two instructions (the MUFU's ex2), under dP^T;
+//   wait for dP^T; ds per element; both A operands packed to bf16 (p
+//   times its keep factor, ds);
+//   dV += P^T dO and dK += dS^T Q (A from registers, B the dO / Q tile
+//   read MN-major); wait; release the stage.
+// With a bias, a quarter of the tile's 32 bias values a thread is read
+// while S^T runs, each other quarter after the previous quarter's p, and
+// dP^T is issued after p: all of them at once, beside dP^T's (or S^T's)
+// registers, spilled. A tile's dropout keep bits (from the indices alone)
+// are drawn while the tile before runs its dV and dK products.
+// Every product is issued on every path (ptxas serialises the whole wgmma
+// pipeline around a product issued on one branch) and a tile's mask is
+// decided per loop, not per tile: the tiles across the warpgroup's
+// diagonal or the ragged sk edge, which run the masked arithmetic
+// (`_mask_split`), come first, in a loop of their own, then the rest. dV
+// and dK at N = 128 (d = 128, and each warpgroup's half of d = 256) are
+// one m64n128k16 product a step of depth over both 64-column chunks of dO
+// / Q, the A operand fed once. The waits are mbar_wait_nt's: without a
+// trap instruction the consumers get setmaxnreg's registers, 240 (the
+// producer keeps 24); the resident tiles' descriptors are formed at each
+// product (product_ss's kFresh), not held across the loop. Each block owns
+// its dK and dV rows: no atomics, and two runs give the same bits. Rows
+// past sq load as zeros with l2 = +inf and so add nothing.
 //
 // Head dim 128: each tile arrives as two 64-column boxes (hopper.cuh), S^T
-// and dP^T take eight steps of depth, and dV and dK are two products of N =
-// 64 each, one on each 64-column chunk of dO / Q, into two accumulators
-// apiece: a
-// consumer thread holds 128 fp32 of dK and dV beside the 64 of S and dP
-// while they are live (192 of its 232 registers; p and ds are packed to
-// bf16 as S and dP die), so the register split stays the d = 64 one
-// (producer 40, consumers 232). Shared memory holds K and V (64 KB), four
-// stages of Q and dO (128 KB) and their lse / D slices.
+// and dP^T take eight steps of depth; a consumer thread holds 128 fp32 of
+// dK and dV beside the 64 of S^T and dP^T (p and ds in place) and the 32
+// packed A registers of the dV and dK products. Shared memory holds K and
+// V (64 KB), four stages of Q and dO (128 KB) and their l2 / D slices.
 //
 // Head dim 256: dK and dV over all 256 columns of a consumer's 64 keys
 // would be 256 fp32 a thread, past the 255 registers a thread may have,
@@ -111,53 +124,238 @@ struct Layout {
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
 };
 
-// `_bwd_p`: P = exp(s - lse), 0 where s or the row's lse is masked
-__device__ __forceinline__ float bwd_p(float s, float lse) {
-  return (s <= kMaskEdge || lse <= kMaskEdge) ? 0.f : expf(s - lse);
+// The dropout keep bits of one tile for the thread's two keys (their hash
+// terms kt, Dropout::key_term) and 16 queries from q0 (bit 4j + e of
+// accumulator element 4j + e): from the indices alone, so each tile's are
+// drawn while the tile before runs its dV and dK products
+__device__ __forceinline__ uint32_t dkv_kept(const uint32_t (&kt)[2], int q0,
+                                             int cq, const Dropout& drop) {
+  uint32_t kept = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (drop.kept_at(kt[e >> 1], q0 + 8 * j + cq + (e & 1)))
+        kept |= 1u << (4 * j + e);
+  return kept;
 }
 
-// p (into s) and ds * scale (into t) of one tile for the thread's two
-// keys and 16 queries. kMasked: the tile crosses the diagonal or the sk
-// edge.
-template <bool kBias, bool kMasked, bool kDropout>
-__device__ __forceinline__ void dkv_tile(float (&s)[32], float (&t)[32],
-                                         const float* ls, const float* dd,
-                                         int key0, int q0, int cq, int sq,
-                                         int sk, float scale, int causal,
+// The bias of a quarter of a tile's (query, key) pairs for the thread's
+// two keys and 4 of its queries (j in [kJ0, kJ0 + 2); element 4 (j - kJ0)
+// + e), 0 where the key is past sk (kMasked) or the query past sq (never
+// read there; a pair above the diagonal is read, and its p set to 0
+// after).
+template <bool kMasked, int kJ0>
+__device__ __forceinline__ void dkv_bias(float (&bv)[8], int key0, int q0,
+                                         int cq, int sq, int sk,
                                          const ScoreBias& bias,
-                                         const float* bs, const Dropout& drop,
-                                         uint32_t dhead) {
+                                         const float* bs) {
+  // the keys' offsets into the bias formed here each time (an empty asm
+  // hides key0 from the loop), not held across the tiles
+  asm volatile("" : "+r"(key0));
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = kJ0; j < kJ0 + 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + (e >> 1) * 8;
+      const int qry = q0 + 8 * j + cq + (e & 1);
+      bv[4 * (j - kJ0) + e] = (!kMasked || key < sk) && qry < sq
+                                  ? bias.at(bs, qry, key)
+                                  : 0.f;
+    }
+}
+
+// p (into s, from the scores S^T) of the thread's two keys and the queries
+// j in [kJ0, kJ0 + kJN) of one tile, with their bias bv (kBias, kJN = 2;
+// as dkv_bias). ls: the tile's queries' l2 (`bwd_lse2`); scale2 = scale
+// log2(e), which takes the score's scale into the power without a bias.
+// kMasked: the tile crosses the diagonal or the sk edge.
+template <bool kBias, bool kMasked, int kJ0, int kJN>
+__device__ __forceinline__ void dkv_p(float (&s)[32], const float (&bv)[8],
+                                      const float* ls, int key0, int q0,
+                                      int cq, int sk, float scale,
+                                      float scale2, int causal) {
+#pragma unroll
+  for (int j = kJ0; j < kJ0 + kJN; ++j) {
     const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + cq);
-    const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * j + cq);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = key0 + (e >> 1) * 8;
       const int qry = q0 + 8 * j + cq + (e & 1);
       const float l = (e & 1) ? l2.y : l2.x;
-      const float dsum = (e & 1) ? d2.y : d2.x;
       const bool dead =
           kMasked && (key >= sk || (causal && key > qry));
-      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
-      // plain version's round(round(q.k * scale) + bias)
-      float x = __fmul_rn(s[4 * j + e], scale);
-      if (kBias && !dead && qry < sq) x = __fadd_rn(x, bias.at(bs, qry, key));
-      const float p = dead ? 0.f : bwd_p(x, l);
-      // the dk product takes ds * scale in q's dtype, the dv product p
-      // (times its keep factor) in do's
-      if (kDropout) {
-        const float keep = drop.keep(dhead, qry, key);
-        s[4 * j + e] = p * keep;
-        t[4 * j + e] = p * (t[4 * j + e] * keep - dsum) * scale;
+      float p;
+      if (kBias) {
+        // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+        // plain version's round(round(q.k * scale) + bias)
+        const float x = __fadd_rn(__fmul_rn(s[4 * j + e], scale),
+                                  bv[4 * (j - kJ0) + e]);
+        p = x <= kMaskEdge ? 0.f : bwd_p2(x, l);
       } else {
-        s[4 * j + e] = p;
-        t[4 * j + e] = p * (t[4 * j + e] - dsum) * scale;
+        p = ex2_approx(fmaf(s[4 * j + e], scale2, -l));
       }
+      s[4 * j + e] = dead ? 0.f : p;
     }
   }
 }
 
+// ds * scale of one tile (into t) from p (s) and dP^T (t): p * (dp * keep -
+// D) * scale, D indexed by the fragment's column, and p * keep (into s);
+// then both A operands: the dv product's bf16(p * keep) (do's dtype) and
+// the dk product's bf16(ds * scale) (q's dtype). kept: the keep bits
+// (dkv_kept), keep_scale a kept entry's factor.
+template <bool kDropout>
+__device__ __forceinline__ void dkv_ds(float (&s)[32], float (&t)[32],
+                                       uint32_t (&ap)[4][4],
+                                       uint32_t (&ads)[4][4], const float* dd,
+                                       int cq, float scale, uint32_t kept,
+                                       float keep_scale) {
+  // a step of depth (16 queries: two j) at a time, so that each step's p
+  // and ds die as its A operands are packed
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int j = 2 * kk; j < 2 * kk + 2; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * j + cq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e;
+        const float dsum = (e & 1) ? d2.y : d2.x;
+        if (kDropout) {
+          const float keep = (kept >> x & 1) ? keep_scale : 0.f;
+          t[x] = s[x] * (t[x] * keep - dsum) * scale;
+          s[x] *= keep;
+        } else {
+          t[x] = s[x] * (t[x] - dsum) * scale;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = 8 * kk + 2 * i;
+      ap[kk][i] = pack_bf16(s[e], s[e + 1]);
+      ads[kk][i] = pack_bf16(t[e], t[e + 1]);
+    }
+  }
+}
+
+// What a consumer warpgroup's tiles share: its place in shared memory
+// (the stage ring, its rows of K and V, its first column chunk of Q and
+// dO), its keys, the score's bias and dropout
+struct DkvTiles {
+  uint8_t* smem;        // the block's (Layout's offsets)
+  uint32_t k_addr;      // the warpgroup's rows of K (V's kKVBytes after)
+  uint32_t col_off;
+  int qt0, key0, cq, sq, sk, causal;
+  float scale;
+  ScoreBias bias;
+  const float* bs;      // the slice's bias
+  Dropout drop;
+  uint32_t kt[2];       // the dropout hash's terms of the thread's two keys
+};
+
+// A quarter of a tile's p with a bias, j in [kJ0, kJ0 + 2): its bias read
+// (dkv_bias) after a fence, which keeps those loads from being issued
+// before the previous quarter's p is taken, then its p (dkv_p)
+template <bool kMasked, int kJ0>
+__device__ __forceinline__ void dkv_bias_p(float (&s)[32], float (&bv)[8],
+                                           const float* ls,
+                                           const DkvTiles& c, int q0) {
+  __threadfence_block();
+  dkv_bias<kMasked, kJ0>(bv, c.key0, q0, c.cq, c.sq, c.sk, c.bias, c.bs);
+  dkv_p<true, kMasked, kJ0, 2>(s, bv, ls, c.key0, q0, c.cq, c.sk, c.scale,
+                               c.scale * kLog2e, c.causal);
+}
+
+// Query tile qt of a consumer warpgroup (kMasked: across its diagonal or
+// the sk edge), kept its keep bits (dkv_kept; all set without dropout):
+// its dP^T product runs under p (without a bias), its products are done
+// and its stage released on return, and kept holds the next tile's bits.
+template <int kD, bool kBias, bool kMasked, bool kDropout>
+__device__ __forceinline__ void dkv_tile(const DkvTiles& c, int qt,
+                                         uint32_t& kept,
+                                         float (&adk)[Layout<kD>::kCols / 2],
+                                         float (&adv)[Layout<kD>::kCols / 2],
+                                         float (&s)[32], float (&tp)[32],
+                                         uint32_t (&ap)[4][4],
+                                         uint32_t (&ads)[4][4]) {
+  using L = Layout<kD>;
+  const int i = qt - c.qt0, st = i % L::kStages;
+  const int q0 = qt * kBQ;
+  APEX_SPLIT(0, i, "start");
+  uint64_t* full = reinterpret_cast<uint64_t*>(c.smem + L::kOffBars);
+  uint64_t* empty = full + L::kStages;
+  mbar_wait_nt(&full[st], (i / L::kStages) & 1);
+  APEX_SPLIT(1, i, "wait full");
+  const uint32_t q_addr =
+      smem_addr(c.smem + L::kOffStages + st * 2 * L::kTileBytes);
+  const uint32_t v_addr = c.k_addr + L::kKVBytes;
+  const uint32_t do_addr = q_addr + L::kTileBytes;
+  // the stage's l2 (bwd_lse2 of its rows' lse), then D
+  const float* ls =
+      reinterpret_cast<const float*>(c.smem + L::kOffStats) + st * 2 * kBQ;
+  wgmma_fence();
+  // S^T = K Q^T, dP^T = V dO^T, two groups (K and V resident: descriptors
+  // formed at each product, not held across the loop). With a bias, dP^T
+  // waits until p is taken: the bias's values, read while S^T runs, do not
+  // fit beside dP^T's registers.
+  product_ss<kD, true>(s, c.k_addr, L::kKVHalf, q_addr, L::kTileHalf);
+  wgmma_commit();
+  if constexpr (!kBias) {
+    product_ss<kD, true>(tp, v_addr, L::kKVHalf, do_addr, L::kTileHalf);
+    wgmma_commit();
+  }
+  // with a bias, its first quarter read under S^T
+  float bv[8];
+  if constexpr (kBias)
+    dkv_bias<kMasked, 0>(bv, c.key0, q0, c.cq, c.sq, c.sk, c.bias, c.bs);
+  wgmma_wait<kBias ? 0 : 1>();  // S^T done
+  fence_regs(s);
+  APEX_SPLIT(2, i, "S^T (and a quarter of the bias)");
+  // p, under dP^T without a bias
+  const float scale2 = c.scale * kLog2e;
+  if constexpr (kBias) {
+    // a quarter's p, then the next quarter's bias and p (dkv_bias_p): the
+    // tile's 32 values a thread at once spilled
+    dkv_p<true, kMasked, 0, 2>(s, bv, ls, c.key0, q0, c.cq, c.sk, c.scale,
+                               scale2, c.causal);
+    dkv_bias_p<kMasked, 2>(s, bv, ls, c, q0);
+    dkv_bias_p<kMasked, 4>(s, bv, ls, c, q0);
+    dkv_bias_p<kMasked, 6>(s, bv, ls, c, q0);
+  } else {
+    dkv_p<false, kMasked, 0, 8>(s, bv, ls, c.key0, q0, c.cq, c.sk, c.scale,
+                                scale2, c.causal);
+  }
+  if constexpr (kBias) {
+    wgmma_fence();
+    product_ss<kD, true>(tp, v_addr, L::kKVHalf, do_addr, L::kTileHalf);
+    wgmma_commit();
+  }
+  APEX_SPLIT(3, i, "p");
+  wgmma_wait<0>();  // dP^T done
+  fence_regs(tp);
+  APEX_SPLIT(4, i, "dP^T");
+  dkv_ds<kDropout>(s, tp, ap, ads, ls + kBQ, c.cq, c.scale, kept,
+                   c.drop.scale);
+  APEX_SPLIT(5, i, "ds, both A operands");
+  wgmma_fence();
+  // dV += P^T dO, dK += dS^T Q (dO, Q MN-major)
+  product_rs(adv, ap, do_addr + c.col_off, L::kTileHalf);
+  product_rs(adk, ads, q_addr + c.col_off, L::kTileHalf);
+  wgmma_commit();
+  // the next tile's keep bits under dV and dK
+  if (kDropout) kept = dkv_kept(c.kt, q0 + kBQ, c.cq, c.drop);
+  wgmma_wait<0>();
+  fence_regs(adv);
+  fence_regs(adk);
+  fence_regs(ap);
+  fence_regs(ads);
+  mbar_arrive(&empty[st]);  // the stage is read
+  APEX_SPLIT(6, i, "dV, dK");
+}
+
+// dk / dv on the tensor cores
 template <int kD, bool kBias, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
@@ -171,12 +369,14 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                         int sk, float scale, int causal, ScoreBias bias,
                         Dropout drop) {
   using L = Layout<kD>;
-  constexpr int kBK = L::kBK, kStages = L::kStages, kNC = L::kCols / 64;
+  constexpr int kBK = L::kBK, kStages = L::kStages, kCols = L::kCols;
+  constexpr int kNC = kCols / 64;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* ks = smem;
   uint8_t* vs = smem + L::kKVBytes;
-  float* stats = reinterpret_cast<float*>(smem + L::kOffStats);  // lse, D
+  // each stage's l2 (bwd_lse2 of its rows' lse), then D
+  float* stats = reinterpret_cast<float*>(smem + L::kOffStats);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kOffBars);
   uint64_t* empty = full + kStages;
   uint64_t* kvbar = empty + kStages;
@@ -198,10 +398,13 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  // the warpgroup and, below, the warp, from lane 0: to ptxas then uniform
+  // across the warp, so what follows from them (the warpgroup's rows, its
+  // tiles, the loops) can live in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 2) {
     // ------------------------------------------------ producer
-    regs_dec<40>();
+    regs_dec<24>();
     const int lane = threadIdx.x % 32;
     if (threadIdx.x / 32 == 8) {
       if (lane == 0) {
@@ -213,11 +416,11 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       const float* db = dvec + bh * sq;
       for (int qt = qt0; qt < nq; ++qt) {
         const int i = qt - qt0, st = i % kStages;
-        mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        mbar_wait_nt(&empty[st], ((i / kStages) & 1) ^ 1);
         float* ls = stats + st * 2 * kBQ;
         for (int r = lane; r < kBQ; r += 32) {
           const int row = qt * kBQ + r;
-          ls[r] = row < sq ? lb[row] : kNegInf;
+          ls[r] = bwd_lse2(row < sq ? lb[row] : kNegInf);
           ls[kBQ + r] = row < sq ? db[row] : 0.f;
         }
         if (lane == 0) {
@@ -233,96 +436,71 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ----------------------------------------------- consumers
-    regs_inc<232>();
+    regs_inc<240>();
     const int t = threadIdx.x % 128;
-    const int warp = t / 32, lane = t % 32;
+    const int warp = __shfl_sync(0xffffffffu, t / 32, 0), lane = t % 32;
     // the warpgroup's slab of keys and its group of dK's and dV's columns
     // (at d = 256 both warpgroups take slab 0, each kCols of the columns)
     const int slab = L::kSlabs == 2 ? wg : 0, cg = L::kSlabs == 2 ? 0 : wg;
     const int kw0 = k0 + slab * kKeysWG;        // the warpgroup's keys
     const int key0 = kw0 + 16 * warp + lane / 4;  // and key0 + 8
     const int cq = (lane % 4) * 2;
-    const bool active = kw0 < sk;
-    const float* bs = kBias ? bias.slice(bh) : nullptr;
-    const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
-    // the warpgroup's rows of each 64-column chunk of K and V
-    const uint32_t k_addr = smem_addr(ks) + slab * kKeysWG * 128;
-    const uint32_t v_addr = smem_addr(vs) + slab * kKeysWG * 128;
+    // the warpgroup's rows of each 64-column chunk of K and V, its first
+    // column chunk of Q and dO
+    const DkvTiles c{smem, smem_addr(ks) + slab * kKeysWG * 128,
+                     (uint32_t)(cg * kNC * L::kTileHalf), qt0, key0, cq, sq,
+                     sk, causal, scale, bias,
+                     kBias ? bias.slice(bh) : nullptr, drop,
+                     {kDropout ? drop.key_term(drop.head(bh), key0) : 0u,
+                      kDropout ? drop.key_term(drop.head(bh), key0 + 8)
+                               : 0u}};
 
-    // the warpgroup's dk and dv in kNC accumulators of 64 d columns each
-    float adk[kNC][32], adv[kNC][32], s[32], tp[32];
+    // the warpgroup's dk and dv over its kCols columns (one accumulator of
+    // N = kCols each: 64 or 128)
+    float adk[kCols / 2], adv[kCols / 2], s[32], tp[32];
     uint32_t ap[4][4], ads[4][4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < kCols / 2; ++i) {
+      adk[i] = 0.f;
+      adv[i] = 0.f;
+    }
 #pragma unroll
-      for (int c = 0; c < kNC; ++c) {
-        adk[c][i] = 0.f;
-        adv[c][i] = 0.f;
-      }
+    for (int i = 0; i < 32; ++i) {
       s[i] = 0.f;
       tp[i] = 0.f;
     }
-
-    mbar_wait(kvbar, 0);
-    for (int qt = qt0; qt < nq; ++qt) {
-      const int i = qt - qt0, st = i % kStages;
-      const int q0 = qt * kBQ;
-      mbar_wait(&full[st], (i / kStages) & 1);
-      // `_causal_run`: a tile wholly above the warpgroup's first key is
-      // skipped (only the second warpgroup's first tile can be)
-      if (active && (!causal || kw0 <= q0 + kBQ - 1)) {
-        const uint32_t q_addr =
-            smem_addr(smem + L::kOffStages + st * 2 * L::kTileBytes);
-        const uint32_t do_addr = q_addr + L::kTileBytes;
-        wgmma_fence();
-        // S^T = K Q^T, dP^T = V dO^T
-        product_ss<kD>(s, k_addr, L::kKVHalf, q_addr, L::kTileHalf);
-        product_ss<kD>(tp, v_addr, L::kKVHalf, do_addr, L::kTileHalf);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(tp);
-        const float* ls = stats + st * 2 * kBQ;
-        // `_mask_split`: only a tile across the diagonal or the sk edge
-        const bool masked =
-            (causal && kw0 + kKeysWG - 1 > q0) || kw0 + kKeysWG > sk;
-        if (masked)
-          dkv_tile<kBias, true, kDropout>(s, tp, ls, ls + kBQ, key0, q0, cq,
-                                          sq, sk, scale, causal, bias, bs,
-                                          drop, dhead);
-        else
-          dkv_tile<kBias, false, kDropout>(s, tp, ls, ls + kBQ, key0, q0, cq,
-                                           sq, sk, scale, causal, bias, bs,
-                                           drop, dhead);
-        to_a_operand(s, ap);    // p in do's dtype for the dv product
-        to_a_operand(tp, ads);  // ds * scale in q's dtype for dk
-        wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < kNC; ++c) {
-          fence_regs(adv[c]);
-          fence_regs(adk[c]);
-        }
-        // dV += P^T dO, dK += dS^T Q (dO, Q MN-major): a product on each
-        // of the warpgroup's 64-column chunks
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int c = 0; c < kNC; ++c) {
-          product_rs(adv[c], ap, do_addr + (cg * kNC + c) * L::kTileHalf);
-          product_rs(adk[c], ads, q_addr + (cg * kNC + c) * L::kTileHalf);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-#pragma unroll
-        for (int c = 0; c < kNC; ++c) {
-          fence_regs(adv[c]);
-          fence_regs(adk[c]);
-        }
-        fence_regs(ap);
-        fence_regs(ads);
+      for (int i = 0; i < 4; ++i) {
+        ap[kk][i] = 0u;
+        ads[kk][i] = 0u;
       }
+
+    // The warpgroup's query tiles: from its diagonal when causal (the
+    // tiles before it, wholly above its keys, are released unread; all of
+    // them when its keys start past sk); the masked ones, [q_start,
+    // q_mask), first
+    const int q_start = kw0 >= sk ? nq : causal ? min(kw0 / kBQ, nq) : 0;
+    const int q_mask = kw0 + kKeysWG > sk ? nq
+                       : causal           ? min(q_start + 1, nq)
+                                          : q_start;
+    mbar_wait_nt(kvbar, 0);
+    int qt = qt0;
+    for (; qt < q_start; ++qt) {
+      const int i = qt - qt0, st = i % kStages;
+      mbar_wait_nt(&full[st], (i / kStages) & 1);
       mbar_arrive(&empty[st]);
     }
+    uint32_t kept = kDropout ? dkv_kept(c.kt, qt * kBQ, cq, drop) : ~0u;
+    for (; qt < q_mask; ++qt)
+      dkv_tile<kD, kBias, true, kDropout>(c, qt, kept, adk, adv, s, tp, ap,
+                                          ads);
+    for (; qt < nq; ++qt)
+      dkv_tile<kD, kBias, false, kDropout>(c, qt, kept, adk, adv, s, tp, ap,
+                                           ads);
 
-    if (active) {
+    if (kw0 < sk) {
       __nv_bfloat16* dkb = dk + bh * sk * kD;
       __nv_bfloat16* dvb = dv + bh * sk * kD;
 #pragma unroll
@@ -330,18 +508,13 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         const int key = key0 + 8 * h;
         if (key >= sk) continue;
 #pragma unroll
-        for (int c = 0; c < kNC; ++c)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const long long at =
-                (long long)key * kD + 64 * (cg * kNC + c) + 8 * j + cq;
-            *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
-                __floats2bfloat162_rn(adk[c][4 * j + 2 * h],
-                                      adk[c][4 * j + 2 * h + 1]);
-            *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
-                __floats2bfloat162_rn(adv[c][4 * j + 2 * h],
-                                      adv[c][4 * j + 2 * h + 1]);
-          }
+        for (int j = 0; j < kCols / 8; ++j) {
+          const long long at = (long long)key * kD + cg * kCols + 8 * j + cq;
+          *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
+              __floats2bfloat162_rn(adk[4 * j + 2 * h], adk[4 * j + 2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
+              __floats2bfloat162_rn(adv[4 * j + 2 * h], adv[4 * j + 2 * h + 1]);
+        }
       }
     }
   }

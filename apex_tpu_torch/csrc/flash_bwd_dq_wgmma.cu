@@ -30,28 +30,36 @@
 // traffic: hundreds of flops a byte.
 //
 // What the design does about that: the three products run on the tensor
-// cores (wgmma m64n64k16) from tiles that TMA brings into shared memory.
-// A block owns 128 query rows of one (b * h) slice: two consumer
-// warpgroups of 64 rows (wgmma's M) whose Q and dO rows stay resident in
-// shared memory, each thread holding the lse and D of its two rows in
-// registers, and a producer warp that streams 64-key K and V tiles through
-// a ring of kStages stages ("full": the TMA's bytes; "empty": every
-// consumer thread after its products), up to the block's diagonal when
-// causal, the heaviest query blocks first. Per tile and warpgroup: S = Q
-// K^T and dP = dO V^T with both operands from shared memory, K-major (K
-// and V are stored [key][d]); p and ds per accumulator element; then dQ +=
-// dS K with A from registers (the ds accumulator packed to bf16) and B the
-// same K tile read MN-major through a second descriptor. The dQ product of
-// one tile runs on the tensor cores while the warpgroup waits for the next
-// tile and issues its S and dP products (wgmma groups complete in order).
-// Each block owns its dQ rows: no atomics, and two runs give the same
-// bits. Only a tile across a warpgroup's diagonal or the ragged sk edge
-// runs the masked arithmetic (`_mask_split`); rows past sq load as zeros
-// with lse = -1e30 and are never written. Head dim 128: each tile arrives
-// as two 64-column boxes (hopper.cuh), S and dP take eight steps of depth
-// and dQ is two products of N = 64, one on each 64-column chunk of K, into
-// two accumulators (64 fp32 a thread instead of 32); shared memory holds Q
-// and dO (64 KB) and four stages of K and V (128 KB).
+// cores (wgmma) from tiles that TMA brings into shared memory. A block owns
+// 128 query rows of one (b * h) slice: two consumer warpgroups of 64 rows
+// (wgmma's M) whose Q and dO rows stay resident in shared memory, each
+// thread holding the lse and D of its two rows in registers, and a
+// producer warp that streams 64-key K and V tiles through a ring of
+// kStages stages ("full": the TMA's bytes; "empty": every consumer thread
+// once the products that read the stage are done), up to the block's
+// diagonal when causal, the heaviest query blocks first. Per tile and
+// warpgroup, so that each product runs on the tensor cores under work that
+// does not need it:
+//   S = Q K^T, dP = dO V^T (both operands from shared memory, K-major; K
+//   and V are stored [key][d]), issued together; wait for S only (and the
+//   previous tile's dQ, whose stage is then freed);
+//   p per accumulator element; wait for dP; ds per element (and the
+//   dlogits), packed to bf16;
+//   dQ += dS K issued (A from registers, B the same K tile read MN-major),
+//   and left in flight into the next tile.
+// Every product is issued on every path and a tile's mask is decided per
+// loop, not per tile (ptxas serialises the whole pipeline around a product
+// issued on one branch): the tiles that need no mask come first, in a loop
+// of their own, then those across the warpgroup's diagonal or the ragged
+// sk edge (`_mask_split`). dQ at N = 128 (d = 128, and each warpgroup's
+// half of d = 256) is one m64n128k16 product a step of depth over both
+// 64-column chunks of K. The waits are mbar_wait_nt's, without a trap
+// instruction, so the consumers keep setmaxnreg's 232 registers. Each
+// block owns its dQ rows: no atomics, and two runs give the same bits.
+// Rows past sq load as zeros with lse = -1e30 and are never written. Head
+// dim 128: each tile arrives as two 64-column boxes (hopper.cuh), S and dP
+// take eight steps of depth and dQ is 64 fp32 a thread; shared memory holds
+// Q and dO (64 KB) and four stages of K and V (128 KB).
 //
 // Head dim 256: 128 rows of Q and dO (128 KB) beside two stages of K and V
 // (128 KB) would not fit a block's 227 KB, and dQ over all 256 columns
@@ -59,10 +67,10 @@
 // (Layout::kSlabs = 1) that both consumer warpgroups take: each runs the
 // slab's S and dP products and its ds (the same operations on the same
 // operands, the same bits), and each keeps half of dQ's columns, 64 fp32
-// a thread as at d = 128, with the dQ products on its two chunks of K;
-// the first warpgroup alone writes the dlogits. S and dP thus run twice:
-// 5/3 of the tensor-core work of one S, one dP and one dQ. Shared memory:
-// Q and dO 64 KB, two stages of K and V 128 KB.
+// a thread as at d = 128, with one N = 128 dQ product a step on its two
+// chunks of K; the first warpgroup alone writes the dlogits. S and dP thus
+// run twice: 5/3 of the tensor-core work of one S, one dP and one dQ.
+// Shared memory: Q and dO 64 KB, two stages of K and V 128 KB.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -86,7 +94,9 @@ constexpr float kMaskEdge = 0.5f * kNegInf;
 // warpgroups take, each holding kCols of dQ's columns (d = 256); kStages
 // stages of K and V. A tile's rows are 64-column chunks of 128 bytes,
 // chunk c c * kHalf bytes after the first: kBK * 128 for a K / V tile,
-// kBQ * 128 for Q and dO.
+// kBQ * 128 for Q and dO. Barriers: full and empty a stage, Q / dO's, and
+// a sink that takes the release of the stage before a warpgroup's first
+// tile (there is none).
 template <int kD>
 struct Layout {
   static constexpr int kSlabs = kD == 256 ? 1 : 2;
@@ -99,31 +109,20 @@ struct Layout {
   static constexpr int kQHalf = kBQ * 128;
   static constexpr int kOffStages = 2 * kQBytes;   // K, V of each stage
   static constexpr int kOffBars = kOffStages + kStages * 2 * kTileBytes;
-  static constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
+  static constexpr int kSmemBytes = kOffBars + (2 * kStages + 2) * 8 + 1024;
   static_assert(kD == 64 || kD == 128 || kD == 256, "compiled head widths");
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
 };
 
-// `_bwd_p`: P = exp(s - lse), 0 where s or the row's lse is masked
-__device__ __forceinline__ float bwd_p(float s, float lse) {
-  return (s <= kMaskEdge || lse <= kMaskEdge) ? 0.f : expf(s - lse);
-}
-
-// ds * scale (into s) of one tile for the thread's two rows and 16 keys,
-// from the scores in s and dp in t. kMasked: the tile crosses the diagonal
-// or the sk edge. kDbias: the dlogits into dlb where write_dl (not in the
-// second warpgroup of a d = 256 slab, whose rows the first one writes; a
-// constant true at d <= 128).
-template <bool kBias, bool kMasked, bool kDropout, bool kDbias>
-__device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
-                                        const float (&l)[2],
-                                        const float (&dsum)[2], int r0,
-                                        int k0, int cq, int sq, int sk,
-                                        float scale, int causal,
-                                        const ScoreBias& bias,
-                                        const float* bs, const Dropout& drop,
-                                        uint32_t dhead, float* dlb,
-                                        bool write_dl) {
+// p of one tile (into s, from the scores) for the thread's two rows and 16
+// keys; l: the rows' l2 (`bwd_lse2`); scale2 = scale log2(e), which takes
+// the score's scale into the power without a bias. kMasked: the tile
+// crosses the diagonal or the sk edge.
+template <bool kBias, bool kMasked>
+__device__ __forceinline__ void dq_p(float (&s)[32], const float (&l)[2],
+                                     int r0, int k0, int cq, int sq, int sk,
+                                     float scale, float scale2, int causal,
+                                     const ScoreBias& bias, const float* bs) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -132,14 +131,40 @@ __device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
       const int row = r0 + 8 * h;
       const int key = k0 + 8 * j + cq + (e & 1);
       const bool dead = kMasked && (key >= sk || (causal && key > row));
-      // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
-      // plain version's round(round(q.k * scale) + bias)
-      float x = __fmul_rn(s[4 * j + e], scale);
-      if (kBias && !dead && row < sq) x = __fadd_rn(x, bias.at(bs, row, key));
-      const float p = dead ? 0.f : bwd_p(x, l[h]);
+      float p;
+      if (kBias) {
+        // __fmul_rn / __fadd_rn: no FMA contraction, so the score is the
+        // plain version's round(round(q.k * scale) + bias)
+        float x = __fmul_rn(s[4 * j + e], scale);
+        if (!dead && row < sq) x = __fadd_rn(x, bias.at(bs, row, key));
+        p = x <= kMaskEdge ? 0.f : bwd_p2(x, l[h]);
+      } else {
+        p = ex2_approx(fmaf(s[4 * j + e], scale2, -l[h]));
+      }
+      s[4 * j + e] = dead ? 0.f : p;
+    }
+}
+
+// ds * scale (into s) of one tile from p (s) and dP (t), dl = p * (dp *
+// keep - D); kDbias: the dlogits dl into dlb where write_dl (not in the
+// second warpgroup of a d = 256 slab, whose rows the first one writes; a
+// constant true at d <= 128)
+template <bool kMasked, bool kDropout, bool kDbias>
+__device__ __forceinline__ void dq_ds(float (&s)[32], const float (&t)[32],
+                                      const float (&dsum)[2], int r0, int k0,
+                                      int cq, int sq, int sk, float scale,
+                                      const Dropout& drop, uint32_t dhead,
+                                      float* dlb, bool write_dl) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const int row = r0 + 8 * h;
+      const int key = k0 + 8 * j + cq + (e & 1);
       const float dp =
           kDropout ? t[4 * j + e] * drop.keep(dhead, row, key) : t[4 * j + e];
-      const float dl = p * (dp - dsum[h]);
+      const float dl = s[4 * j + e] * (dp - dsum[h]);
       if (kDbias && write_dl && row < sq && (!kMasked || key < sk))
         dlb[(long long)row * sk + key] = dl;
       // the dq product takes ds * scale in k's dtype
@@ -147,6 +172,78 @@ __device__ __forceinline__ void dq_tile(float (&s)[32], const float (&t)[32],
     }
 }
 
+// What a consumer warpgroup's tiles share: the stage ring, its rows of Q
+// and dO, its first column chunk of K, its rows, the score's bias, dropout
+// and the dlogits
+struct DqTiles {
+  uint8_t* stages;      // the K / V stages
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t q_addr, do_addr, col_off;
+  int r0, cq, sq, sk, causal;
+  float scale;
+  ScoreBias bias;
+  const float* bs;
+  Dropout drop;
+  uint32_t dhead;
+  float* dlb;
+  bool write_dl;
+};
+
+// Key tile kt of a consumer warpgroup (kMasked: across its diagonal or the
+// sk edge). On entry the previous tile's dQ product may be in flight; it
+// is waited for here, and `release` (the stage that tile read) freed. On
+// return this tile's dQ product is in flight and `release` is its stage.
+template <int kD, bool kBias, bool kMasked, bool kDropout, bool kDbias>
+__device__ __forceinline__ void dq_tile(const DqTiles& c, int kt,
+                                        uint64_t*& release,
+                                        float (&adq)[Layout<kD>::kCols / 2],
+                                        float (&s)[32], float (&tp)[32],
+                                        uint32_t (&ads)[4][4],
+                                        const float (&l)[2],
+                                        const float (&dsum)[2]) {
+  using L = Layout<kD>;
+  const int st = kt % L::kStages;
+  const int k0 = kt * kBK;
+  APEX_SPLIT(0, kt, "start");
+  mbar_wait_nt(&c.full[st], (kt / L::kStages) & 1);
+  APEX_SPLIT(1, kt, "wait full");
+  const uint32_t k_addr = smem_addr(c.stages + st * 2 * L::kTileBytes);
+  wgmma_fence();
+  // S = Q K^T, dP = dO V^T, two groups (Q and dO resident: descriptors
+  // formed at each product, not held across the loop)
+  product_ss<kD, true>(s, c.q_addr, L::kQHalf, k_addr, L::kTileHalf);
+  wgmma_commit();
+  product_ss<kD, true>(tp, c.do_addr, L::kQHalf, k_addr + L::kTileBytes,
+                       L::kTileHalf);
+  wgmma_commit();
+  // S done, and the previous tile's dQ: its stage is free
+  wgmma_wait<1>();
+  fence_regs(s);
+  fence_regs(adq);
+  fence_regs(ads);
+  mbar_arrive(release);
+  release = &c.empty[st];
+  APEX_SPLIT(2, kt, "S (+ the previous dQ)");
+  dq_p<kBias, kMasked>(s, l, c.r0, k0, c.cq, c.sq, c.sk, c.scale,
+                       c.scale * kLog2e, c.causal, c.bias, c.bs);
+  APEX_SPLIT(3, kt, "p");
+  wgmma_wait<0>();  // dP done
+  fence_regs(tp);
+  APEX_SPLIT(4, kt, "dP");
+  dq_ds<kMasked, kDropout, kDbias>(s, tp, dsum, c.r0, k0, c.cq, c.sq, c.sk,
+                                   c.scale, c.drop, c.dhead, c.dlb,
+                                   c.write_dl);
+  to_a_operand(s, ads);  // ds * scale in k's dtype
+  APEX_SPLIT(5, kt, "ds");
+  wgmma_fence();
+  // dQ += dS K (K MN-major), in flight into the next tile
+  product_rs(adq, ads, k_addr + c.col_off, L::kTileHalf);
+  wgmma_commit();
+  APEX_SPLIT(6, kt, "dQ issue");
+}
+
+// dq on the tensor cores
 template <int kD, bool kBias, bool kDropout, bool kDbias>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
@@ -159,7 +256,8 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                        int sk, float scale, int causal, ScoreBias bias,
                        Dropout drop, float* __restrict__ dlogits) {
   using L = Layout<kD>;
-  constexpr int kBQ = L::kBQ, kStages = L::kStages, kNC = L::kCols / 64;
+  constexpr int kBQ = L::kBQ, kStages = L::kStages, kCols = L::kCols;
+  constexpr int kNC = kCols / 64;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
@@ -167,6 +265,7 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kOffBars);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
+  uint64_t* sink = qbar + 1;
 
   const long long bh = batch_head();
   if (bh >= nbh) return;  // the last z-slice's spare blocks
@@ -182,11 +281,15 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       mbar_init(&empty[st], 2 * 128);
     }
     mbar_init(qbar, 1);
+    mbar_init(sink, 2 * 128);
     mbar_init_fence();
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  // the warpgroup and, below, the warp, from lane 0: to ptxas then uniform
+  // across the warp, so what follows from them (the warpgroup's rows, its
+  // tiles, the loops) can live in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 2) {
     // ------------------------------------------------ producer
     regs_dec<40>();
@@ -196,7 +299,7 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       tma_load_rows<kD>(dos, &map_do, qbar, kBQ, q0, (int)bh);
       for (int kt = 0; kt < nk; ++kt) {
         const int st = kt % kStages;
-        mbar_wait(&empty[st], ((kt / kStages) & 1) ^ 1);
+        mbar_wait_nt(&empty[st], ((kt / kStages) & 1) ^ 1);
         uint8_t* ks = smem + L::kOffStages + st * 2 * L::kTileBytes;
         mbar_expect_tx(&full[st], 2 * L::kTileBytes);
         tma_load_rows<kD>(ks, &map_k, &full[st], kBK, kt * kBK, (int)bh);
@@ -208,42 +311,62 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     // ----------------------------------------------- consumers
     regs_inc<232>();
     const int t = threadIdx.x % 128;
-    const int warp = t / 32, lane = t % 32;
+    const int warp = __shfl_sync(0xffffffffu, t / 32, 0), lane = t % 32;
     // the warpgroup's slab of rows and its group of dQ's columns (at d =
     // 256 both warpgroups take slab 0, each kCols of the columns)
     const int slab = L::kSlabs == 2 ? wg : 0, cg = L::kSlabs == 2 ? 0 : wg;
     const int row0 = q0 + slab * kRowsWG;        // the warpgroup's first row
     const int r0 = row0 + 16 * warp + lane / 4;  // and r0 + 8
-    const int cq = (lane % 4) * 2;
     const bool active = row0 < sq;
     const int nk_me =
         active ? (causal ? min(nk_all, (row0 + kRowsWG - 1) / kBK + 1)
                          : nk_all)
                : 0;
-    const float* bs = kBias ? bias.slice(bh) : nullptr;
-    const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
+    // the key tiles that need no mask (below the warpgroup's diagonal and
+    // inside sk) come first: [0, nk_plain), then the rest of [0, nk_me)
+    const int nk_plain =
+        min(nk_me, causal ? min(sk / kBK, row0 / kBK) : sk / kBK);
     float* dlb = kDbias ? dlogits + bh * sq * sk : nullptr;
     const bool write_dl = L::kSlabs == 2 || cg == 0;
-    // the warpgroup's rows of each 64-column chunk of Q and dO
-    const uint32_t q_addr = smem_addr(qs) + slab * kRowsWG * 128;
-    const uint32_t do_addr = smem_addr(dos) + slab * kRowsWG * 128;
+    // the warpgroup's rows of each 64-column chunk of Q and dO, its first
+    // column chunk of K
+    const DqTiles c{smem + L::kOffStages,
+                    full,
+                    empty,
+                    smem_addr(qs) + slab * kRowsWG * 128,
+                    smem_addr(dos) + slab * kRowsWG * 128,
+                    (uint32_t)(cg * kNC * L::kTileHalf),
+                    r0,
+                    (lane % 4) * 2,
+                    sq,
+                    sk,
+                    causal,
+                    scale,
+                    bias,
+                    kBias ? bias.slice(bh) : nullptr,
+                    drop,
+                    kDropout ? drop.head(bh) : 0u,
+                    dlb,
+                    write_dl};
 
-    // the lse and D of the thread's rows; rows past sq add nothing
+    // the l2 (bwd_lse2 of the lse) and D of the thread's rows; rows past
+    // sq add nothing
     float l[2], dsum[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
-      l[h] = row < sq ? lse[bh * sq + row] : kNegInf;
+      l[h] = bwd_lse2(row < sq ? lse[bh * sq + row] : kNegInf);
       dsum[h] = row < sq ? dvec[bh * sq + row] : 0.f;
     }
 
-    // the warpgroup's dq in kNC accumulators of 64 d columns each
-    float adq[kNC][32], s[32], tp[32];
+    // the warpgroup's dq over its kCols columns (one accumulator of N =
+    // kCols: 64 or 128)
+    float adq[kCols / 2], s[32], tp[32];
     uint32_t ads[4][4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < kCols / 2; ++i) adq[i] = 0.f;
 #pragma unroll
-      for (int c = 0; c < kNC; ++c) adq[c][i] = 0.f;
+    for (int i = 0; i < 32; ++i) {
       s[i] = 0.f;
       tp[i] = 0.f;
     }
@@ -252,57 +375,23 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int i = 0; i < 4; ++i) ads[kk][i] = 0u;
 
-    mbar_wait(qbar, 0);
-    for (int kt = 0; kt < nk_me; ++kt) {
-      const int st = kt % kStages;
-      const int k0 = kt * kBK;
-      mbar_wait(&full[st], (kt / kStages) & 1);
-      const uint32_t k_addr =
-          smem_addr(smem + L::kOffStages + st * 2 * L::kTileBytes);
-      wgmma_fence();
-      // S = Q K^T, dP = dO V^T
-      product_ss<kD>(s, q_addr, L::kQHalf, k_addr, L::kTileHalf);
-      product_ss<kD>(tp, do_addr, L::kQHalf, k_addr + L::kTileBytes,
-                     L::kTileHalf);
-      wgmma_commit();
-      // the previous tile's dQ product was committed first: both done
-      wgmma_wait<0>();
-      fence_regs(s);
-      fence_regs(tp);
-#pragma unroll
-      for (int c = 0; c < kNC; ++c) fence_regs(adq[c]);
-      fence_regs(ads);
-      if (kt > 0) mbar_arrive(&empty[(kt - 1) % kStages]);
-      // `_mask_split`: only a tile across the diagonal or the sk edge
-      const bool masked =
-          (causal && k0 + kBK - 1 > row0) || k0 + kBK > sk;
-      if (masked)
-        dq_tile<kBias, true, kDropout, kDbias>(s, tp, l, dsum, r0, k0, cq, sq,
-                                               sk, scale, causal, bias, bs,
-                                               drop, dhead, dlb, write_dl);
-      else
-        dq_tile<kBias, false, kDropout, kDbias>(s, tp, l, dsum, r0, k0, cq,
-                                                sq, sk, scale, causal, bias,
-                                                bs, drop, dhead, dlb,
-                                                write_dl);
-      to_a_operand(s, ads);  // ds * scale in k's dtype
-      wgmma_fence();
-      // dQ += dS K (K MN-major), a product on each of the warpgroup's
-      // 64-column chunks of K
-#pragma unroll
-      for (int c = 0; c < kNC; ++c)
-        product_rs(adq[c], ads, k_addr + (cg * kNC + c) * L::kTileHalf);
-      wgmma_commit();
-    }
+    uint64_t* release = sink;  // the stage the previous tile read
+    mbar_wait_nt(qbar, 0);
+    int kt = 0;
+    for (; kt < nk_plain; ++kt)
+      dq_tile<kD, kBias, false, kDropout, kDbias>(c, kt, release, adq, s, tp,
+                                                  ads, l, dsum);
+    for (; kt < nk_me; ++kt)
+      dq_tile<kD, kBias, true, kDropout, kDbias>(c, kt, release, adq, s, tp,
+                                                 ads, l, dsum);
     wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < kNC; ++c) fence_regs(adq[c]);
+    fence_regs(adq);
     fence_regs(ads);
-    if (nk_me > 0) mbar_arrive(&empty[(nk_me - 1) % kStages]);
+    mbar_arrive(release);
     // the block's tiles past this warpgroup's diagonal: released unread
-    for (int kt = nk_me; kt < nk; ++kt) {
+    for (; kt < nk; ++kt) {
       const int st = kt % kStages;
-      mbar_wait(&full[st], (kt / kStages) & 1);
+      mbar_wait_nt(&full[st], (kt / kStages) & 1);
       mbar_arrive(&empty[st]);
     }
     if (kDbias && write_dl && active) {  // keys past the diagonal: zeros,
@@ -314,19 +403,16 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 
     if (active) {
       __nv_bfloat16* dqb = dq + bh * sq * kD;
+      const int cq = (lane % 4) * 2;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = r0 + 8 * h;
         if (row >= sq) continue;
 #pragma unroll
-        for (int c = 0; c < kNC; ++c)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(
-                dqb + (long long)row * kD + 64 * (cg * kNC + c) + 8 * j +
-                cq) =
-                __floats2bfloat162_rn(adq[c][4 * j + 2 * h],
-                                      adq[c][4 * j + 2 * h + 1]);
+        for (int j = 0; j < kCols / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(
+              dqb + (long long)row * kD + cg * kCols + 8 * j + cq) =
+              __floats2bfloat162_rn(adq[4 * j + 2 * h], adq[4 * j + 2 * h + 1]);
       }
     }
   }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels and the
 // peer puts, as inline PTX: TMA tensor maps and loads, bulk copies of
 // contiguous bytes, mbarriers, proxy fences, the wgmma shared-memory
-// descriptor and the m64n64k16 / m64n32k16 bf16 products with fp32 sums.
+// descriptor and the m64n64k16 / m64n32k16 / m64n128k16 bf16 products with
+// fp32 sums.
 //
 // Tiles are rows of 64 bf16 (128 bytes) brought into shared memory by TMA
 // with the 128-byte swizzle, the widest row a swizzled box may have; a
@@ -16,9 +17,11 @@
 //   next chunk;
 // - MN-major operand (rows are the depth, the 64 columns the product's N):
 //   one 128-byte swizzle atom across N, 8-row depth groups 1024 bytes
-//   apart (SBO), the next 16 rows of depth 2048 bytes further. An N of d
-//   (a head dim above 64) is d / 64 products of N = 64, one on each chunk,
-//   into as many accumulators.
+//   apart (SBO), the next 16 rows of depth 2048 bytes further. An N of
+//   128 (two chunks) is one product whose descriptor steps from the first
+//   chunk's atom to the second's by the chunk stride (LBO); a wider N is
+//   several such products, one on each pair of chunks (or N = 64 products,
+//   one on each chunk).
 // The accumulator of a warpgroup's m64nN product (N / 2 fp32 a thread):
 // warp w holds rows 16w + lane/4 and 16w + lane/4 + 8; element 4j + {0, 1}
 // is the first row at columns 8j + (lane % 4) * 2 + {0, 1}, 4j + {2, 3} the
@@ -91,6 +94,13 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int s,
 
 // ---------------------------------------------------------- device side
 
+// A stamp of a tile's phase: nothing in the port's build;
+// tools/flash_bwd_split.py defines it in a copy of a kernel to read the
+// SM's clock there (slot `slot` of tile `tile`, a phase named `phase`)
+#ifndef APEX_SPLIT
+#define APEX_SPLIT(slot, tile, phase)
+#endif
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -153,8 +163,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity,
 // illegal-address error on the stream, as sticky as a trap) instead of a
 // trap: ptxas gives a warpgroup the registers of its setmaxnreg.inc above
 // the launch bound's only in a kernel without a trap instruction (with one,
-// the tensor-core forward's consumers kept the launch bound's 168, spilling
-// at d = 128 and 256).
+// the tensor-core kernels' consumers kept the launch bound's 168, spilling
+// at d = 128 and 256). Every tensor-core flash kernel waits with it.
 __device__ __forceinline__ void mbar_wait_nt(uint64_t* bar, uint32_t parity,
                                              uint64_t limit_ns = kWaitLimitNs) {
   const uint32_t a = smem_addr(bar);
@@ -244,11 +254,14 @@ template <int kRegs> __device__ __forceinline__ void regs_inc() {
 // wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`
 // (see the header), layout SWIZZLE_128B. SBO, the stride of 8-row groups,
 // is 1024 bytes. LBO is the stride between 64-column atoms of an MN-major
-// operand, which never occurs at N = 64, and is not read for a K-major one:
-// it is set to the same 1024 bytes, so either reading of the two fields
-// meets the tile as it lies.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+// operand (`lbo`: a product of N = 128 reads two chunks of the tile), not
+// read at N = 64 nor for a K-major operand, where it is left at the same
+// 1024 bytes, so either reading of the two fields meets the tile as it
+// lies.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
+                                               uint32_t lbo = 1024) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -294,6 +307,26 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[kSteps][4]) {
       "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
       "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
       "+f"(d[31])
+#define APEX_WGMMA_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define APEX_WGMMA_OUT64(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
 // d (+)= A B, m64n64k16, bf16 in, fp32 sums; A and B from shared memory,
 // both K-major. accumulate = 0 overwrites d.
@@ -328,7 +361,21 @@ __device__ __forceinline__ void wgmma_rs_bt(float (&d)[32],
       : APEX_WGMMA_OUT32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+// the same at m64n128k16 (d: 64 fp32 a thread): B's 128 columns two
+// 64-column atoms, the second LBO bytes after the first (desc_sw128's lbo)
+__device__ __forceinline__ void wgmma_rs_bt(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " APEX_WGMMA_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      : APEX_WGMMA_OUT64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
+#undef APEX_WGMMA_D64
+#undef APEX_WGMMA_OUT64
 #undef APEX_WGMMA_D16
 #undef APEX_WGMMA_OUT16
 #undef APEX_WGMMA_D32
@@ -342,15 +389,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // The 64 x N S = A Bᵀ of one warpgroup over depth kD (64, 128 or 256), N
 // 64 (d of 32 fp32) or 32 (16): K-major steps of 16, A and B tiles at
 // shared addresses a and b, whose 64-column chunks lie a_chunk and b_chunk
-// bytes apart.
-template <int kD, int kN>
+// bytes apart. kFresh (N = 64): each step's descriptors are formed here
+// from the two base descriptors (a step's offset added to the address
+// field, which no shared address carries past its 14 bits), and the bases
+// pass through an empty asm, so the compiler cannot hoist a resident
+// tile's kD / 16 descriptors out of a kernel's tile loop and hold them in
+// registers.
+template <int kD, bool kFresh = false, int kN>
 __device__ __forceinline__ void product_ss(float (&d)[kN], uint32_t a,
                                            uint32_t a_chunk, uint32_t b,
                                            uint32_t b_chunk) {
+  if constexpr (kFresh) {
+    uint64_t da = desc_sw128(a), db = desc_sw128(b);
+    asm volatile("" : "+l"(da), "+l"(db));
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_ss(d, desc_sw128(a + (kk / 4) * a_chunk + (kk % 4) * 32),
-             desc_sw128(b + (kk / 4) * b_chunk + (kk % 4) * 32), kk > 0);
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(d, da + (((kk / 4) * a_chunk + (kk % 4) * 32) >> 4),
+               db + (((kk / 4) * b_chunk + (kk % 4) * 32) >> 4), kk > 0);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss(d, desc_sw128(a + (kk / 4) * a_chunk + (kk % 4) * 32),
+               desc_sw128(b + (kk / 4) * b_chunk + (kk % 4) * 32), kk > 0);
+  }
 }
 // d += P B over depth 16 kSteps (64 or 32): P from registers (p[kk] the
 // columns 16kk..+15), B an MN-major tile at shared address b (16 rows of
@@ -362,6 +423,24 @@ __device__ __forceinline__ void product_rs(float (&d)[32],
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk)
     wgmma_rs_bt(d, p[kk], desc_sw128(b + kk * 2048));
+}
+// the same with the chunk stride of a wider N (below), unused at N = 64
+template <int kSteps>
+__device__ __forceinline__ void product_rs(float (&d)[32],
+                                           const uint32_t (&p)[kSteps][4],
+                                           uint32_t b, uint32_t) {
+  product_rs(d, p, b);
+}
+// d += P B at N = 128 (d of 64 fp32): B an MN-major tile whose two 64-column
+// chunks lie b_chunk bytes apart, one product a step of depth instead of one
+// on each chunk
+template <int kSteps>
+__device__ __forceinline__ void product_rs(float (&d)[64],
+                                           const uint32_t (&p)[kSteps][4],
+                                           uint32_t b, uint32_t b_chunk) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+    wgmma_rs_bt(d, p[kk], desc_sw128(b + kk * 2048, b_chunk));
 }
 // an accumulator of N columns packed to the A operand of a product of
 // depth N

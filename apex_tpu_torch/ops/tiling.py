@@ -436,15 +436,17 @@ class TcGeometry:
 
     @property
     def dq_smem_bytes(self) -> int:
-        """Q and dO, the K / V stages, the barriers, the alignment."""
+        """Q and dO, the K / V stages, the barriers (full and empty a
+        stage, the resident rows', a sink for the release before a
+        warpgroup's first tile), the alignment."""
         return (2 * self._tile(self.block_rows)
                 + self.stages * 2 * self._tile(FA_TC_TILE_ROWS)
-                + (2 * self.stages + 1) * 8 + 1024)
+                + (2 * self.stages + 2) * 8 + 1024)
 
     @property
     def dkv_smem_bytes(self) -> int:
-        """K and V, the Q / dO stages with their lse / D slices, the
-        barriers, the alignment."""
+        """K and V, the Q / dO stages with their l2 / D slices, the
+        barriers (full and empty a stage, K / V's), the alignment."""
         return (2 * self._tile(self.block_rows)
                 + self.stages * (2 * self._tile(FA_TC_TILE_ROWS)
                                  + 2 * FA_TC_TILE_ROWS * 4)

@@ -14,9 +14,11 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    route's FMA-pipe forward and backward pair, of every instantiation of
    the LayerNorm backward's register form, of the one-pass GroupNorm's
    cluster route and of the two-pass pair's vector route (``-Xptxas
-   -v``; the flash pair's unbiased forms, every register-form LayerNorm
-   backward, the bf16 vector-route stats kernel and every vector-route
-   apply kernel must spill nothing).
+   -v``; the fp32 flash pair's unbiased forms, the bf16 forward and the
+   bf16 backward pair at head dim 128 in every form, every register-form
+   LayerNorm backward, the bf16 vector-route stats kernel and every
+   vector-route apply kernel must spill nothing, and no tensor-core
+   flash kernel may have its wgmma pipeline serialised).
 2. ``kernel``: each CUDA kernel against its plain PyTorch version on the
    same card inputs, at the main path's shapes and a few ragged ones, in
    bf16 and fp32: max error and tolerance; kernel / plain / library times
@@ -1504,14 +1506,18 @@ FLASH_FP32_SHAPES = [(4, 12, 1024, 1024, True), (32, 16, 128, 128, False),
                      (2, 3, 200, 333, False), (1025, 64, 64, 64, True)]
 # the bf16 (tensor-core) cases of the solo modes, (b, h, sq, sk, causal,
 # head dim): GPT-2's and GPT-2 XL's causal attention and BERT's at 64;
-# Cerebras-GPT 1.3B's causal attention at 128 and GPT-J 6B's at 256
+# Cerebras-GPT 1.3B's causal attention at 128, 2.7B's at 80 (padded to
+# 128) and GPT-J 6B's at 256
 FLASH_BF16_SHAPES = [(4, 12, 1024, 1024, True, 64),
                      (4, 25, 1024, 1024, True, 64),
                      (32, 16, 128, 128, False, 64),
                      (2, 16, 2048, 2048, True, 128),
+                     (2, 32, 2048, 2048, True, 80),
                      (2, 16, 2048, 2048, True, 256)]
 _SOLO_CASES = ([(*c, 64, "fp32") for c in FLASH_FP32_SHAPES]
                + [(*c, "bf16") for c in FLASH_BF16_SHAPES])
+# SDPA's bf16 backends the ``flash-bwd`` mode times, each alone
+SDPA_BWD_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION")
 
 
 def _solo_key(b, h, sq, sk, causal, d, dt):
@@ -1530,10 +1536,13 @@ def _flash_bwd_solo(dev):
     """The flash backward at FLASH_FP32_SHAPES in fp32 and
     FLASH_BF16_SHAPES in bf16, without dropout or dlogits: the dq and
     dk / dv kernels' device ms (torch.profiler, inputs rotated beyond the
-    L2), the least time the card could take for each (operations at the
-    dtype's peak), and SDPA's backward timed the same way (TF32 off; the
-    forward graph built once, ``autograd.grad`` timed alone; bf16 on its
-    flash backend)."""
+    L2), the whole backward as a caller runs it (D = rowsum(dO o), a
+    padded d's pad and slice copies and both kernels), the least time the
+    card could take for each kernel (operations at the dtype's peak), and
+    SDPA's whole backward timed the same way (TF32 off; the forward graph
+    built once, ``autograd.grad`` timed alone): in bf16 on each backend of
+    SDPA_BWD_BACKENDS that takes the shape, named, ``library_ms`` the
+    fastest; in fp32 on PyTorch's own choice among its other backends."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1560,27 +1569,41 @@ def _flash_bwd_solo(dev):
                                sets, 20)
         dq = sum(t for n, t in split.items() if "fa_bwd_dq_kernel" in n)
         dkv = sum(t for n, t in split.items() if "fa_bwd_dkv_kernel" in n)
-        lsets = []
-        backends = ([SDPBackend.FLASH_ATTENTION] if dt == "bf16" else
-                    [SDPBackend.EFFICIENT_ATTENTION,
-                     SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH])
-        for q, k, v, _, _, do in sets:
-            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            with sdpa_kernel(backends), torch.enable_grad():
-                oo = F.scaled_dot_product_attention(qq, kk, vv,
-                                                    is_causal=causal,
-                                                    scale=scale)
-            lsets.append((oo, qq, kk, vv, do))
-        library = device_ms(lambda oo, qq, kk, vv, do: torch.autograd.grad(
-            oo, (qq, kk, vv), do, retain_graph=True), lsets, 20)
+        whole = sum(split.values())
+        libs = {}
+        backends = ({n: [getattr(SDPBackend, n)] for n in SDPA_BWD_BACKENDS}
+                    if dt == "bf16" else
+                    {"auto": [SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]})
+        for name, chosen in backends.items():
+            lsets = []
+            try:
+                for q, k, v, _, _, do in sets:
+                    qq, kk, vv = (t.detach().requires_grad_()
+                                  for t in (q, k, v))
+                    with sdpa_kernel(chosen), torch.enable_grad():
+                        oo = F.scaled_dot_product_attention(
+                            qq, kk, vv, is_causal=causal, scale=scale)
+                    lsets.append((oo, qq, kk, vv, do))
+                libs[name] = device_ms(
+                    lambda oo, qq, kk, vv, do: torch.autograd.grad(
+                        oo, (qq, kk, vv), do, retain_graph=True), lsets, 20)
+            except RuntimeError as e:  # the backend refuses the shape
+                libs[name] = f"refused: {str(e).splitlines()[0][:120]}"
+            del lsets
+        timed_libs = {n: t for n, t in libs.items() if isinstance(t, float)}
+        best = min(timed_libs, key=timed_libs.get) if timed_libs else None
         ops = 2 * b * h * d * _causal_pairs(sq, sk, causal)
         out[_solo_key(b, h, sq, sk, causal, d, dt)] = dict(
-            dq_ms=dq, dkv_ms=dkv, pair_ms=dq + dkv, library_ms=library,
+            dq_ms=dq, dkv_ms=dkv, pair_ms=dq + dkv, whole_ms=whole,
+            outside_ms=whole - dq - dkv,
+            library_ms=timed_libs.get(best), library_backend=best,
+            library_by_backend=libs,
             bound_dq_ms=3 * ops / PEAK_OPS[dt] * 1e3,
             bound_dkv_ms=4 * ops / PEAK_OPS[dt] * 1e3,
             kernels=sorted(n.split("(")[0] for n in split
                            if "fa_bwd_" in n))
-        del sets, lsets
+        del sets
     return out
 
 
@@ -1956,12 +1979,15 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
 # the report's kernels that must keep every value in registers (no
 # spill), by the start of their key: the fp32 flash forward's and
 # backward's unbiased forms, the bf16 tensor-core forward in every form
-# at every width (its consumers' 232 registers), every form of the
-# LayerNorm backward's
+# at every width and the bf16 tensor-core backward pair in every form at
+# d = 128 (their consumers' 232 registers), every form of the LayerNorm
+# backward's
 # register form, the two-pass GroupNorm's bf16 vector stats kernel and
 # every form of its vector apply kernel (the fp32 stats kernel spills 8
 # bytes at 40 registers, which PERF.md reports)
 NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>", "fa_fwd_kernel_wgmma<",
+                    "fa_bwd_dq_kernel_wgmma<128,",
+                    "fa_bwd_dkv_kernel_wgmma<128,",
                     "fa_bwd_dq_kernel_fma<64,false,false,false>",
                     "fa_bwd_dkv_kernel_fma<64,false,false>",
                     "ln_bwd_kernel_reg<",
@@ -2190,11 +2216,14 @@ def main() -> int:
             require(rep.get("spill_stores") == 0
                     and rep.get("spill_loads") == 0,
                     f"{name} spills: {rep}")
-    # the tensor-core forward's wgmma pipeline is never serialised
+    # no tensor-core kernel's wgmma pipeline is serialised (the forward,
+    # dq and dK·dV in every form at every width)
     serial = {k: r["wgmma_serialized"] for k, r in ptxas.items()
-              if k.startswith("fa_fwd_kernel_wgmma<")
+              if k.startswith(("fa_fwd_kernel_wgmma<",
+                               "fa_bwd_dq_kernel_wgmma<",
+                               "fa_bwd_dkv_kernel_wgmma<"))
               and "wgmma_serialized" in r}
-    require(not serial, f"ptxas serialises the forward's wgmma: {serial}")
+    require(not serial, f"ptxas serialises a wgmma pipeline: {serial}")
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          sources=[p.relative_to(ROOT).as_posix() for p in _build.sources()],

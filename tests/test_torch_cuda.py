@@ -949,6 +949,99 @@ def test_bf16_flash_fwd_exact_p_cases(dev, kind, d, form):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
+# the bf16 backward pair at d = 128 (csrc/flash_bwd_{dq,dkv}_wgmma.cu):
+# forms as (bias, dropout, dlogits)
+_BWD128_FORMS = {"plain": (False, False, False), "bias": (True, False, False),
+                 "dropout": (False, True, False), "both": (True, True, False),
+                 "dlogits": (True, False, True),
+                 "dlogits_dropout": (True, True, True)}
+
+
+def _bf16_bwd_check(dev, q, k, v, do, causal, form, seed):
+    """The bf16 backward of (q, k, v, do) in ``form`` (a learned-like
+    (1, h, sq, sk) bias, dropout, the dlogits) against the plain version on
+    the same inputs and the forward's o and lse: dq, dk, dv within the
+    flash backward's tolerance, the dlogits within ``_DLOGITS_TOL``; two
+    runs the same bits; one launch of each kernel at its width (and pad
+    key) and in its forms."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    with_bias, dropout, dlogits = _BWD128_FORMS[form]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(scale=d ** -0.5, causal=causal)
+    if with_bias:
+        kw["bias"] = torch.randn(1, h, sq, sk, device=dev, generator=g)
+    if dropout:
+        kw.update(dropout_p=0.1, dropout_seed=torch.tensor(
+            [seed], dtype=torch.int32, device=dev))
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    bkw = dict(kw, want_dbias=dlogits)
+    _build.reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, **bkw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **bkw)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **bkw)
+    torch.cuda.synchronize()
+    kd = fa_kernel_head_dim(d)
+    assert kd == 128
+    expect = {}
+    for name in ("fa_bwd_dq", "fa_bwd_dkv"):
+        expect[f"{name}:wgmma:d128"] = 2
+        if d != kd:
+            expect[f"{name}:wgmma:pad{d}"] = 2
+        if dropout:
+            expect[f"{name}:wgmma:d128:dropout"] = 2
+    if dlogits:
+        expect["fa_bwd_dq:wgmma:d128:dbias"] = 2
+    assert dict(_build.form_launches) == expect
+    failures = []
+    for name, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want,
+                              again):
+        at, rt = _DLOGITS_TOL if name == "dbias" else (1e-2, 2 ** -6)
+        try:
+            torch.testing.assert_close(a.float(), w.float(), atol=at,
+                                       rtol=rt)
+        except AssertionError as err:
+            failures.append(f"{name}: {err}")
+        if not torch.equal(a, a2):
+            failures.append(f"{name}: two runs gave different bits")
+    assert not failures, "\n".join(failures)
+
+
+@pytest.mark.parametrize("form", sorted(_BWD128_FORMS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (200, 333)])
+@pytest.mark.parametrize("d", [128, 80, 96])
+def test_bf16_flash_bwd_at_128_matches_plain(dev, d, sq, sk, causal, form):
+    """The bf16 dq and dk / dv kernels at head width 128 (d = 80 and 96
+    through the zero-padded route) in every form, causal and full, square
+    and ragged (200 x 333: the sk edge in a key tile, a warpgroup of keys
+    past the queries), against the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(d + sq + sk + causal)
+    q, k, v, do = (torch.randn(2, 3, s, d, device=dev, generator=g)
+                   .to(torch.bfloat16) for s in (sq, sk, sk, sq))
+    _bf16_bwd_check(dev, q, k, v, do, causal, form, d * 3 + len(form))
+
+
+@pytest.mark.parametrize("form", ["plain", "dropout", "dlogits"])
+def test_bf16_flash_bwd_at_128_planted_last_tile_max(dev, form):
+    """Rows whose max lies in their last key tile (a planted score, every
+    fifth row) through the bf16 backward pair at d = 128, causal."""
+    g = torch.Generator(device=dev).manual_seed(len(form))
+    _, (q, k, v) = _planted_last_tile_max(g, 2, 3, 300, 128, dev)
+    do = torch.randn(2, 3, 300, 128, device=dev, generator=g).to(
+        torch.bfloat16)
+    _bf16_bwd_check(dev, q, k, v, do, True, form, 11)
+
+
+def test_bf16_flash_bwd_at_128_over_65535_batch_heads(dev):
+    """batch * heads = 65,600 (1025 x 64) through grid.y x grid.z at d =
+    128, causal, with dropout: the pair against the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, k, v, do = (torch.randn(1025, 64, 64, 128, device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    _bf16_bwd_check(dev, q, k, v, do, True, "dropout", 23)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [48, 80, 128, 192, 256])
 def test_public_flash_at_head_dims_matches_the_cpu(dev, d, dtype):

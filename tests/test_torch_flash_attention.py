@@ -485,8 +485,10 @@ def test_batch_heads_grid_refuses_what_no_grid_holds():
 # `_tc_fwd_plan` / `_tc_dq_plan` / `_tc_dkv_plan` copy it line for line,
 # so a change to one side must be made on the other:
 # csrc/flash_fwd_wgmma.cu `nk`, `nk_me` and `masked`,
-# csrc/flash_bwd_dq_wgmma.cu `nk`, `nk_me` and `masked`,
-# csrc/flash_bwd_dkv_wgmma.cu `qt0`, the `_causal_run` skip and `masked`.
+# csrc/flash_bwd_dq_wgmma.cu `nk`, `nk_me` and `nk_plain` (the tiles that
+# take no mask first, in a loop of their own, then the masked ones),
+# csrc/flash_bwd_dkv_wgmma.cu `qt0`, `q_start` (the `_causal_run` skip)
+# and `q_mask` (the masked tiles first, then the rest).
 # The kernels' own use of the rule is held to the plain versions by the
 # card tests (tests/test_torch_cuda.py). A forward block holds 128 query
 # rows, 64 a warpgroup, over key tiles of ``tile`` keys (64, or 32 at d =
@@ -546,10 +548,10 @@ def _tc_dq_plan(sq, sk, causal, slabs=2):
     """The dq kernel's work: ``(blocks, loads, steps)``. ``loads[b]`` the
     K / V tiles block ``b`` streams (tiles 0 .. loads[b] - 1; `nk`), every
     one released by both warpgroups; ``steps`` the ``(q tile, k tile,
-    masked)`` each warpgroup computes (its 64-row q tile ``q`` in block ``q
-    // slabs``; `nk_me`, 0 for a warpgroup past sq; at ``slabs`` 1 with
-    its column group appended), ``masked`` when the tile crosses that q
-    tile's diagonal or the ragged sk edge."""
+    masked)`` each warpgroup computes, in its order (its 64-row q tile
+    ``q`` in block ``q // slabs``; `nk_me`, 0 for a warpgroup past sq; at
+    ``slabs`` 1 with its column group appended), ``masked`` for the tiles
+    of its second loop, from `nk_plain` on."""
     block = WG_ROWS * slabs
     nk_all = _cdiv(sk, TC_TILE)
     blocks = _cdiv(sq, block)
@@ -563,11 +565,10 @@ def _tc_dq_plan(sq, sk, causal, slabs=2):
             active = row0 < sq
             nk_me = ((min(nk_all, (row0 + WG_ROWS - 1) // TC_TILE + 1)
                       if causal else nk_all) if active else 0)
+            nk_plain = min(nk_me, min(sk // TC_TILE, row0 // TC_TILE)
+                           if causal else sk // TC_TILE)
             for kt in range(nk_me):
-                k0 = kt * TC_TILE
-                masked = ((causal and k0 + TC_TILE - 1 > row0)
-                          or k0 + TC_TILE > sk)
-                steps.append((row0 // WG_ROWS, kt, masked)
+                steps.append((row0 // WG_ROWS, kt, kt >= nk_plain)
                              + ((cg,) if slabs == 1 else ()))
     return blocks, loads, steps
 
@@ -576,10 +577,10 @@ def _tc_dkv_plan(sq, sk, causal, slabs=2):
     """The dk / dv kernel's work: ``(blocks, loads, steps)``. ``loads[b]``
     the Q / dO tiles block ``b`` streams, ``(first, end)`` (from the
     diagonal when causal: `qt0`); ``steps`` the ``(k tile, q tile,
-    masked)`` each warpgroup computes (its 64-key k tile ``k`` in block
-    ``k // slabs``; at ``slabs`` 1 with its column group appended),
-    ``masked`` when the q tile crosses that k tile's diagonal or the k
-    tile holds keys past sk. A k tile past sk computes nothing."""
+    masked)`` each warpgroup computes, in its order (its 64-key k tile
+    ``k`` in block ``k // slabs``, from `q_start`; at ``slabs`` 1 with its
+    column group appended), ``masked`` for the tiles of its first loop, up
+    to `q_mask`. A k tile past sk computes nothing."""
     block = WG_ROWS * slabs
     nq = _cdiv(sq, TC_TILE)
     blocks = _cdiv(sk, block)
@@ -590,15 +591,13 @@ def _tc_dkv_plan(sq, sk, causal, slabs=2):
         loads.append((first, nq))
         for slab, cg in _warpgroups(slabs):
             kw0 = k0 + slab * WG_ROWS
-            if kw0 >= sk:
-                continue
-            for qt in range(first, nq):
-                q0 = qt * TC_TILE
-                if causal and kw0 > q0 + TC_TILE - 1:
-                    continue
-                masked = ((causal and kw0 + WG_ROWS - 1 > q0)
-                          or kw0 + WG_ROWS > sk)
-                steps.append((kw0 // WG_ROWS, qt, masked)
+            # the tiles before q_start are released unread
+            q_start = (nq if kw0 >= sk else min(kw0 // TC_TILE, nq)
+                       if causal else 0)
+            q_mask = (nq if kw0 + WG_ROWS > sk else min(q_start + 1, nq)
+                      if causal else q_start)
+            for qt in range(q_start, nq):
+                steps.append((kw0 // WG_ROWS, qt, qt < q_mask)
                              + ((cg,) if slabs == 1 else ()))
     return blocks, loads, steps
 
@@ -669,6 +668,33 @@ def test_tc_dkv_plan_matches_jax_rules(sq, sk, causal):
         assert first == (min(b * 128 // 64, end) if causal else 0)
         used = {qt for kt, qt, _ in steps if kt // 2 == b}
         assert used == set(range(first, end)) or not used
+
+
+@pytest.mark.parametrize("slabs", [2, 1])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
+def test_tc_bwd_plans_run_masked_tiles_in_one_loop(sq, sk, causal, slabs):
+    """Each backward warpgroup's tiles in its order: the masked ones are
+    one run (dq's last, dk / dv's first), so each kernel decides a tile's
+    mask by its loop and never per tile; a tile is masked exactly where
+    brute force finds in it a key past sk or, when causal, a (row, key)
+    pair above the diagonal."""
+    keep = ((np.arange(sk)[None, :] <= np.arange(sq)[:, None]) if causal
+            else np.ones((sq, sk), dtype=bool))
+    for plan, last in ((_tc_dq_plan, True), (_tc_dkv_plan, False)):
+        _, _, steps = plan(sq, sk, causal, slabs=slabs)
+        groups = {}
+        for st in steps:
+            groups.setdefault((st[0],) + st[3:], []).append(st)
+        for key, run in groups.items():
+            flags = [st[2] for st in run]
+            assert flags == sorted(flags, reverse=not last)
+            for st in run:
+                qt, kt = st[:2] if plan is _tc_dq_plan else st[1::-1]
+                rows = slice(qt * 64, min(qt * 64 + 64, sq))
+                dropped = not keep[rows, kt * 64:kt * 64 + 64].all() \
+                    or kt * 64 + 64 > sk
+                assert st[2] == dropped
 
 
 def test_tc_plan_causal_work_is_the_lower_triangle():

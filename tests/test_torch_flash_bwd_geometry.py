@@ -9,7 +9,9 @@ streamed rows and d columns once each, the grid covering
 every row, the tiles a causal block visits against a count of the tiles
 holding any unmasked (query, key) pair, dq's heaviest-first order, and
 the ``constexpr`` values of the source (``BwdGeometry<d>``) against the
-Python mirror. No JAX: nothing here has a counterpart there.
+Python mirror; and that the bf16 tensor-core pair
+(``csrc/flash_bwd_{dq,dkv}_wgmma.cu``) waits without a trap instruction.
+No JAX: nothing here has a counterpart there.
 """
 
 import re
@@ -22,6 +24,7 @@ from apex_tpu_torch.ops.tiling import FA_HEAD_DIMS, fa_fma_bwd_geometry
 
 SRC = (Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
        / "flash_attention_bwd.cu")
+TC_BWD_SRCS = ("flash_bwd_dq_wgmma.cu", "flash_bwd_dkv_wgmma.cu")
 SIZES = [1, 63, 64, 65, 127, 129, 200, 333, 1000, 1024]
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
 G = fa_fma_bwd_geometry()
@@ -202,3 +205,16 @@ def test_dispatch_order_is_heaviest_first(s, d):
         assert sorted(order) == list(range(g.blocks(s)))
         loads = [work(b) for b in order]
         assert loads == sorted(loads, reverse=True)
+
+
+@pytest.mark.parametrize("src", TC_BWD_SRCS)
+def test_tensor_core_pair_waits_without_a_trap(src):
+    """The bf16 backward pair waits on its barriers with ``mbar_wait_nt``
+    alone: no ``mbar_wait(`` call and no ``__trap`` in the code (comments
+    aside). ptxas gives a consumer warpgroup the registers of its
+    ``setmaxnreg.inc`` (232) only in a kernel without a trap instruction;
+    with one, the consumers keep the launch bound's 168 and spill."""
+    code = re.sub(r"//[^\n]*", "", (SRC.parent / src).read_text())
+    assert not re.search(r"\bmbar_wait\s*\(", code)
+    assert "__trap" not in code
+    assert re.search(r"\bmbar_wait_nt\s*\(", code)

@@ -257,11 +257,12 @@ def _layout_values(src, d):
     """``{name: value}`` of the ``static constexpr`` ints and bools of
     ``Layout`` in ``src`` at head width ``d``, each expression evaluated
     in order as C++ would (integer division, ``a ? b : c``), with the
-    namespace's ``kRowsWG``."""
+    namespace's integer ``constexpr``s (``kRowsWG``, ``kBK``, ...)."""
     text = (CSRC / src).read_text()
     body = re.search(r"struct Layout \{(.*?)\};", text, re.S).group(1)
-    env = {"kD": d, "kRowsWG": int(re.search(
-        r"^constexpr int kRowsWG = (\d+);", text, re.M).group(1))}
+    env = {"kD": d}
+    env.update((m.group(1), int(m.group(2))) for m in re.finditer(
+        r"^constexpr int (k\w+) = (\d+);", text, re.M))
     for m in re.finditer(r"static constexpr (?:int|bool) (k\w+) =\s*"
                          r"([^;]+);", body):
         expr = " ".join(m.group(2).split()).replace("/", "//")
@@ -300,8 +301,9 @@ def test_tensor_core_forward_block_mirrors_the_source(d):
 @WIDTHS
 def test_tensor_core_blocks_mirror_the_sources(src, d):
     """``fa_tc_geometry(d)`` against each tensor-core backward source's
-    ``Layout<d>``: its slabs and stages; every block's shared memory within
-    a Hopper block's; the two consumer warpgroups (slab, column group)
+    ``Layout<d>``: its slabs and stages; the shared memory the kernel asks
+    for (evaluated from the source), within a Hopper block's; the two
+    consumer warpgroups (slab, column group)
     cover the block's output rows and each head dim column exactly once,
     64 fp32 accumulators a thread for each 64 columns they hold."""
     g = fa_tc_geometry(d)
@@ -312,6 +314,8 @@ def test_tensor_core_blocks_mirror_the_sources(src, d):
     assert _ternary(c["kSlabs"], d) == g.slabs
     assert _ternary(c["kStages"], d) == g.stages
     assert c["kCols"] == "kD * kSlabs / 2"
+    smem = _layout_values(src, d)["kSmemBytes"]
+    assert smem == (g.dq_smem_bytes if "_dq_" in src else g.dkv_smem_bytes)
     assert max(g.dq_smem_bytes, g.dkv_smem_bytes) <= SMEM_LIMIT
     held = np.zeros((g.block_rows, d), dtype=int)
     for wg in range(2):
@@ -324,10 +328,13 @@ def test_tensor_core_blocks_mirror_the_sources(src, d):
 
 def test_tensor_core_smem_matches_the_kernels_sums():
     """The mirror's bytes at the widths the sources were sized for: the
-    forward 165,000 at d = 64, 214,120 at d = 128 and 222,344 at d = 256,
-    all under the 232,448 a block may have."""
+    forward 165,000 at d = 64, 214,120 at d = 128 and 222,344 at d = 256;
+    the backward pair at d = 128 and 256 (dq with a sink barrier beside a
+    stage's two), all under the 232,448 a block may have."""
     assert fa_tc_fwd_geometry(64).smem_bytes == 165000
     assert fa_tc_fwd_geometry(128).smem_bytes == 214120
     assert fa_tc_fwd_geometry(256).smem_bytes == 222344
-    assert fa_tc_geometry(256).dq_smem_bytes == 197672
+    assert fa_tc_geometry(128).dq_smem_bytes == 197712
+    assert fa_tc_geometry(128).dkv_smem_bytes == 199752
+    assert fa_tc_geometry(256).dq_smem_bytes == 197680
     assert fa_tc_geometry(256).dkv_smem_bytes == 198696

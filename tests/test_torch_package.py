@@ -340,8 +340,10 @@ def test_chip_smoke_flash_solo_cases_cover_the_wide_heads():
     """The ``flash-fwd`` / ``flash-bwd`` solo modes' cases: the d = 64
     cases keep the keys of the trees before the wider cases (so two trees
     still compare in turns), and the bf16 cases add Cerebras-GPT 1.3B's
-    causal 2 x 16 x 2048 x 128 and GPT-J 6B's 2 x 16 x 2048 x 256, each
-    keyed with its width; every case carries a compiled head dim."""
+    causal 2 x 16 x 2048 x 128, Cerebras-GPT 2.7B's 2 x 32 x 2048 x 80
+    (the padded route) and GPT-J 6B's 2 x 16 x 2048 x 256, each keyed with
+    its width; every compiled head dim has a case and every case's head
+    dim is one the card serves (at most 256)."""
     cs = _chip_smoke()
     keys = [cs._solo_key(*c) for c in cs._SOLO_CASES]
     assert len(set(keys)) == len(keys)
@@ -349,8 +351,10 @@ def test_chip_smoke_flash_solo_cases_cover_the_wide_heads():
             "bf16_4x25x1024x1024_causal", "bf16_32x16x128x128",
             "1025x64x64x64_causal"} <= set(keys)
     assert "bf16_2x16x2048x2048_causal_d128" in keys
+    assert "bf16_2x32x2048x2048_causal_d80" in keys
     assert "bf16_2x16x2048x2048_causal_d256" in keys
-    assert all(c[5] in (64, 128, 256) for c in cs._SOLO_CASES)
+    assert {c[5] for c in cs._SOLO_CASES} >= {64, 128, 256}
+    assert all(c[5] <= 256 for c in cs._SOLO_CASES)
     assert all(c[5] == 64 for c in cs._SOLO_CASES if c[6] == "fp32")
 
 
