@@ -25,8 +25,9 @@
 // traffic: hundreds of flops a byte.
 //
 // What the design does about that: the four products run on the tensor
-// cores (wgmma) from tiles that TMA brings into shared memory. A block
-// owns 128 keys of one (b * h) slice: two consumer warpgroups of 64 keys
+// cores (wgmma) from tiles that TMA brings into shared memory, each once
+// per block. Up to d = 128 a block owns 128 keys of one (b * h) slice:
+// two consumer warpgroups of 64 keys
 // (wgmma's M) whose K and V rows stay resident in shared memory, and a
 // producer warp that streams 64-row Q and dO tiles, with that tile's 64
 // lse (as l2, `bwd_lse2`) and D values beside them, through a ring of
@@ -52,9 +53,9 @@
 // decided per loop, not per tile: the tiles across the warpgroup's
 // diagonal or the ragged sk edge, which run the masked arithmetic
 // (`_mask_split`), come first, in a loop of their own, then the rest. dV
-// and dK at N = 128 (d = 128, and each warpgroup's half of d = 256) are
-// one m64n128k16 product a step of depth over both 64-column chunks of dO
-// / Q, the A operand fed once. The waits are mbar_wait_nt's: without a
+// and dK at N = 128 (d = 128) are one m64n128k16 product a step of depth
+// over both 64-column chunks of dO / Q, the A operand fed once (at d =
+// 256 one m64n256k16 over all four). The waits are mbar_wait_nt's: without a
 // trap instruction the consumers get setmaxnreg's registers, 240 (the
 // producer keeps 24); the resident tiles' descriptors are formed at each
 // product (product_ss's kFresh), not held across the loop. Each block owns
@@ -71,17 +72,39 @@
 // would be 256 fp32 a thread, past the 255 registers a thread may have,
 // and 128 keys of K and V (128 KB) beside two stages of Q and dO (128 KB)
 // would not fit a block's 227 KB. So a block owns one 64-key slab
-// (Layout::kSlabs = 1) that both consumer warpgroups take, and the
-// accumulators are split by columns: each warpgroup runs the slab's S^T
-// and dP^T products and its p and ds (the same operations on the same
-// operands, the same bits) and keeps half of dK's and half of dV's
-// columns, 128 fp32 a thread as at d = 128. Splitting by output instead
-// (dV in one warpgroup, dK in the other) would run S^T twice but dP^T
-// once, for 128 + 32 registers in one warpgroup and 128 + 64 in the
-// other, and would leave the warpgroups unequal (two products against
-// three); the split by columns keeps the d = 128 code and its register
-// budget unchanged, at 6/4 of the tensor-core work of one S^T, dP^T, dV
-// and dK. Shared memory: K and V 64 KB, two stages of Q and dO 128 KB.
+// (Layout::kSlabs = 1) that both consumer warpgroups take, and the work is
+// split by output, each product run once: the dV warpgroup (0) runs S^T,
+// p and dV += bf16(p * keep) dO over all 256 columns, the dK warpgroup (1)
+// dP^T, ds and dK += bf16(ds * scale) Q; p crosses from the one to the
+// other in fp32 through shared memory. The tensor-core work of a block is
+// one S^T, dP^T, dV and dK of its keys (4/4; the layout this replaces ran
+// S^T and dP^T in both warpgroups, each half of dK's and dV's columns:
+// 6/4). Per tile (64 queries):
+//   dV warpgroup: S^T = K Q^T (m64n64k16, sixteen steps of depth; a bias
+//   read in quarters as at d = 128); p; p into the exchange buffer of the
+//   tile's parity (16 KB of fp32, each thread's 32 values as eight
+//   16-byte chunks, a warp's stores in distinct banks), then it arrives
+//   on that buffer's named barrier; dV += P^T dO (A from registers, four
+//   m64n256k16 products, dO MN-major); wait; release the stage;
+//   dK warpgroup: dP^T = V dO^T; waits on the named barrier; ds from the
+//   exchanged p, its dP^T and D; dK += dS^T Q (four m64n256k16); wait;
+//   release the stage.
+// Each warpgroup holds one accumulator of 128 fp32 a thread beside 32 of
+// S^T or dP^T and 16 packed A registers. The dV warpgroup draws the
+// dropout keep bits (under its dV) and hands them over in p's sign bit (p
+// >= 0; a dropped entry's p is stored negated, -0 for 0), so the dK
+// warpgroup hashes nothing. A warpgroup's products overlap the other's p
+// or ds: nothing holds the two in step but the exchange. The dV warpgroup
+// writes a buffer again two tiles on, into a stage that the dK warpgroup
+// released only after it read the buffer, so two buffers need no second
+// barrier. Shared memory: K and V 64 KB, two stages of Q and dO 128 KB,
+// the exchange 32 KB, the l2 / D slices 1 KB (231,464 bytes with the
+// barriers and the alignment). Tried on the card and not kept (PERF.md
+// §6): S^T and dP^T split by query halves, bf16 p and ds exchanged
+// (m64n32k16 products, which read their A, K or V, from shared memory for
+// half the work of a m64n64k16 one: slower); the next tile's S^T or dP^T
+// issued under this tile's dV or dK (ptxas serialises the pipeline); dP^T
+// held back until S^T is done (no gain).
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -101,23 +124,26 @@ constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
 // The block at head dim kD (64, 128 or 256): kSlabs 64-key slabs, one a
-// consumer warpgroup (d <= 128), or one slab that both warpgroups take,
-// each holding kCols of dK's and dV's columns (d = 256); kStages stages of
-// Q and dO. A tile's rows are 64-column chunks of 128 bytes, chunk c c *
-// kHalf bytes after the first: kBQ * 128 for a Q / dO tile, kBK * 128 for
-// K and V.
+// consumer warpgroup holding dK and dV over all kD columns (d <= 128), or
+// one slab that both warpgroups take (d = 256), the one holding dV, the
+// other dK, over all kD columns, S^T's p crossing between them through two
+// exchange buffers of kXBytes (fp32); kStages stages of Q and dO. A
+// tile's rows are 64-column chunks of 128 bytes, chunk c c * kHalf bytes
+// after the first: kBQ * 128 for a Q / dO tile, kBK * 128 for K and V.
 template <int kD>
 struct Layout {
   static constexpr int kSlabs = kD == 256 ? 1 : 2;
   static constexpr int kBK = kKeysWG * kSlabs;     // keys per block
-  static constexpr int kCols = kD * kSlabs / 2;    // dK, dV columns a group
+  static constexpr int kCols = kD;                 // columns of an output
   static constexpr int kStages = kD == 256 ? 2 : 4;
   static constexpr int kTileBytes = kBQ * kD * 2;  // one 64-row bf16 tile
   static constexpr int kKVBytes = kBK * kD * 2;    // the resident K (or V)
+  static constexpr int kXBytes = kSlabs == 1 ? kKeysWG * kBQ * 4 : 0;
   static constexpr int kTileHalf = kBQ * 128;
   static constexpr int kKVHalf = kBK * 128;
   static constexpr int kOffStages = 2 * kKVBytes;  // Q, dO of each stage
-  static constexpr int kOffStats = kOffStages + kStages * 2 * kTileBytes;
+  static constexpr int kOffX = kOffStages + kStages * 2 * kTileBytes;
+  static constexpr int kOffStats = kOffX + 2 * kXBytes;
   static constexpr int kOffBars = kOffStats + kStages * 2 * kBQ * 4;
   static constexpr int kSmemBytes = kOffBars + (2 * kStages + 1) * 8 + 1024;
   static_assert(kD == 64 || kD == 128 || kD == 256, "compiled head widths");
@@ -241,12 +267,11 @@ __device__ __forceinline__ void dkv_ds(float (&s)[32], float (&t)[32],
 }
 
 // What a consumer warpgroup's tiles share: its place in shared memory
-// (the stage ring, its rows of K and V, its first column chunk of Q and
-// dO), its keys, the score's bias and dropout
+// (the stage ring, its rows of K and V), its keys, the score's bias and
+// dropout
 struct DkvTiles {
   uint8_t* smem;        // the block's (Layout's offsets)
   uint32_t k_addr;      // the warpgroup's rows of K (V's kKVBytes after)
-  uint32_t col_off;
   int qt0, key0, cq, sq, sk, causal;
   float scale;
   ScoreBias bias;
@@ -341,8 +366,8 @@ __device__ __forceinline__ void dkv_tile(const DkvTiles& c, int qt,
   APEX_SPLIT(5, i, "ds, both A operands");
   wgmma_fence();
   // dV += P^T dO, dK += dS^T Q (dO, Q MN-major)
-  product_rs(adv, ap, do_addr + c.col_off, L::kTileHalf);
-  product_rs(adk, ads, q_addr + c.col_off, L::kTileHalf);
+  product_rs(adv, ap, do_addr, L::kTileHalf);
+  product_rs(adk, ads, q_addr, L::kTileHalf);
   wgmma_commit();
   // the next tile's keep bits under dV and dK
   if (kDropout) kept = dkv_kept(c.kt, q0 + kBQ, c.cq, c.drop);
@@ -353,6 +378,169 @@ __device__ __forceinline__ void dkv_tile(const DkvTiles& c, int qt,
   fence_regs(ads);
   mbar_arrive(&empty[st]);  // the stage is read
   APEX_SPLIT(6, i, "dV, dK");
+}
+
+// The exchange buffer of query tile i (its parity) at d = 256, from a
+// consumer thread t's 32 values of p in it: eight 16-byte chunks, chunk h
+// (accumulator elements 4h .. 4h + 3) at (h * 128 + t) * 16 bytes, so
+// that a warp's stores and loads of one chunk cover 512 contiguous bytes
+__device__ __forceinline__ float4* dkv_pbuf(const DkvTiles& c, int i,
+                                            int t) {
+  using L = Layout<256>;
+  return reinterpret_cast<float4*>(c.smem + L::kOffX +
+                                   (i & 1) * L::kXBytes) + t;
+}
+
+// Query tile qt of the dV warpgroup at d = 256 (kMasked: across the slab's
+// diagonal or the sk edge), kept its keep bits (dkv_kept; all set without
+// dropout): S^T, p (with a bias read in quarters, dkv_bias_p), p to the dK
+// warpgroup (the exchange, a dropped entry's p negated, then named barrier
+// 1 + the tile's parity), dV += bf16(p * keep) dO over all 256 columns;
+// its products done and its stage released on return, kept holds the next
+// tile's bits.
+template <bool kBias, bool kMasked, bool kDropout>
+__device__ __forceinline__ void dkv_tile_dv(const DkvTiles& c, int qt, int t,
+                                            uint32_t& kept,
+                                            float (&adv)[128],
+                                            float (&s)[32],
+                                            uint32_t (&ap)[4][4]) {
+  using L = Layout<256>;
+  const int i = qt - c.qt0, st = i % L::kStages;
+  const int q0 = qt * kBQ;
+  APEX_SPLIT(0, i, "start");
+  uint64_t* full = reinterpret_cast<uint64_t*>(c.smem + L::kOffBars);
+  uint64_t* empty = full + L::kStages;
+  mbar_wait_nt(&full[st], (i / L::kStages) & 1);
+  APEX_SPLIT(1, i, "wait full");
+  const uint32_t q_addr =
+      smem_addr(c.smem + L::kOffStages + st * 2 * L::kTileBytes);
+  const uint32_t do_addr = q_addr + L::kTileBytes;
+  const float* ls =
+      reinterpret_cast<const float*>(c.smem + L::kOffStats) + st * 2 * kBQ;
+  wgmma_fence();
+  // S^T = K Q^T (K resident: descriptors formed at each product)
+  product_ss<256, true>(s, c.k_addr, L::kKVHalf, q_addr, L::kTileHalf);
+  wgmma_commit();
+  float bv[8];
+  if constexpr (kBias)  // its first quarter under S^T
+    dkv_bias<kMasked, 0>(bv, c.key0, q0, c.cq, c.sq, c.sk, c.bias, c.bs);
+  wgmma_wait<0>();
+  fence_regs(s);
+  APEX_SPLIT(2, i, "S^T");
+  if constexpr (kBias) {
+    dkv_p<true, kMasked, 0, 2>(s, bv, ls, c.key0, q0, c.cq, c.sk, c.scale,
+                               c.scale * kLog2e, c.causal);
+    dkv_bias_p<kMasked, 2>(s, bv, ls, c, q0);
+    dkv_bias_p<kMasked, 4>(s, bv, ls, c, q0);
+    dkv_bias_p<kMasked, 6>(s, bv, ls, c, q0);
+  } else {
+    dkv_p<false, kMasked, 0, 8>(s, bv, ls, c.key0, q0, c.cq, c.sk, c.scale,
+                                c.scale * kLog2e, c.causal);
+  }
+  APEX_SPLIT(3, i, "p");
+  // p to the dK warpgroup, a dropped entry's negated (the keep bit in the
+  // sign)
+  float4* pb = dkv_pbuf(c, i, t);
+#pragma unroll
+  for (int h = 0; h < 8; ++h) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = kDropout && !(kept >> (4 * h + e) & 1) ? -s[4 * h + e]
+                                                    : s[4 * h + e];
+    pb[h * 128] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __threadfence_block();
+  bar_arrive(1 + (i & 1), 256);
+  // the dv product's A: bf16(p * keep) (do's dtype)
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e2 = 0; e2 < 4; ++e2) {
+      const int x = 8 * kk + 2 * e2;
+      float a = s[x], b = s[x + 1];
+      if (kDropout) {
+        a = (kept >> x & 1) ? a * c.drop.scale : 0.f;
+        b = (kept >> (x + 1) & 1) ? b * c.drop.scale : 0.f;
+      }
+      ap[kk][e2] = pack_bf16(a, b);
+    }
+  APEX_SPLIT(4, i, "p exchange, A");
+  wgmma_fence();
+  // dV += P^T dO over all 256 columns (dO MN-major)
+  product_rs(adv, ap, do_addr, L::kTileHalf);
+  wgmma_commit();
+  // the next tile's keep bits under dV
+  if (kDropout) kept = dkv_kept(c.kt, q0 + kBQ, c.cq, c.drop);
+  wgmma_wait<0>();
+  fence_regs(adv);
+  fence_regs(ap);
+  mbar_arrive(&empty[st]);  // the stage is read
+  APEX_SPLIT(5, i, "dV");
+}
+
+// Query tile qt of the dK warpgroup at d = 256: dP^T, then (named barrier
+// 1 + the tile's parity) ds from the exchanged p (its sign the keep bit),
+// dK += bf16(ds * scale) Q over all 256 columns; its products done and its
+// stage released on return.
+template <bool kDropout>
+__device__ __forceinline__ void dkv_tile_dk(const DkvTiles& c, int qt, int t,
+                                            float (&adk)[128],
+                                            float (&tp)[32],
+                                            uint32_t (&ads)[4][4]) {
+  using L = Layout<256>;
+  const int i = qt - c.qt0, st = i % L::kStages;
+  APEX_SPLIT(0, i, "start");
+  uint64_t* full = reinterpret_cast<uint64_t*>(c.smem + L::kOffBars);
+  uint64_t* empty = full + L::kStages;
+  mbar_wait_nt(&full[st], (i / L::kStages) & 1);
+  APEX_SPLIT(1, i, "wait full");
+  const uint32_t q_addr =
+      smem_addr(c.smem + L::kOffStages + st * 2 * L::kTileBytes);
+  const uint32_t do_addr = q_addr + L::kTileBytes;
+  // the stage's D
+  const float* dd = reinterpret_cast<const float*>(c.smem + L::kOffStats) +
+                    st * 2 * kBQ + kBQ;
+  wgmma_fence();
+  // dP^T = V dO^T (V resident)
+  product_ss<256, true>(tp, c.k_addr + L::kKVBytes, L::kKVHalf, do_addr,
+                        L::kTileHalf);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(tp);
+  APEX_SPLIT(2, i, "dP^T");
+  bar_sync(1 + (i & 1), 256);  // the tile's p exchanged
+  APEX_SPLIT(3, i, "wait p");
+  // ds * scale = p * (dp * keep - D) * scale (keep from p's sign), D
+  // indexed by the fragment's column, packed a step of depth (16 queries:
+  // two 16-byte chunks of p) at a time: the dk product's A (q's dtype)
+  const float4* pb = dkv_pbuf(c, i, t);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float4 p0 = pb[(2 * kk) * 128], p1 = pb[(2 * kk + 1) * 128];
+    const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int x = 8 * kk + e;
+      const float dsum = dd[8 * (x / 4) + c.cq + (e & 1)];
+      float dp = tp[x];
+      if (kDropout) dp = __float_as_int(p[e]) < 0 ? 0.f : dp * c.drop.scale;
+      tp[x] = fabsf(p[e]) * (dp - dsum) * c.scale;
+    }
+#pragma unroll
+    for (int e2 = 0; e2 < 4; ++e2)
+      ads[kk][e2] = pack_bf16(tp[8 * kk + 2 * e2], tp[8 * kk + 2 * e2 + 1]);
+  }
+  APEX_SPLIT(4, i, "ds");
+  wgmma_fence();
+  // dK += dS^T Q over all 256 columns (Q MN-major)
+  product_rs(adk, ads, q_addr, L::kTileHalf);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(adk);
+  fence_regs(ads);
+  mbar_arrive(&empty[st]);  // the stage is read
+  APEX_SPLIT(5, i, "dK");
 }
 
 // dk / dv on the tensor cores
@@ -370,7 +558,6 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                         Dropout drop) {
   using L = Layout<kD>;
   constexpr int kBK = L::kBK, kStages = L::kStages, kCols = L::kCols;
-  constexpr int kNC = kCols / 64;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* ks = smem;
@@ -439,43 +626,18 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     regs_inc<240>();
     const int t = threadIdx.x % 128;
     const int warp = __shfl_sync(0xffffffffu, t / 32, 0), lane = t % 32;
-    // the warpgroup's slab of keys and its group of dK's and dV's columns
-    // (at d = 256 both warpgroups take slab 0, each kCols of the columns)
-    const int slab = L::kSlabs == 2 ? wg : 0, cg = L::kSlabs == 2 ? 0 : wg;
+    // the warpgroup's slab of keys (at d = 256 both take slab 0)
+    const int slab = L::kSlabs == 2 ? wg : 0;
     const int kw0 = k0 + slab * kKeysWG;        // the warpgroup's keys
     const int key0 = kw0 + 16 * warp + lane / 4;  // and key0 + 8
     const int cq = (lane % 4) * 2;
-    // the warpgroup's rows of each 64-column chunk of K and V, its first
-    // column chunk of Q and dO
-    const DkvTiles c{smem, smem_addr(ks) + slab * kKeysWG * 128,
-                     (uint32_t)(cg * kNC * L::kTileHalf), qt0, key0, cq, sq,
-                     sk, causal, scale, bias,
+    // the warpgroup's rows of each 64-column chunk of K and V
+    const DkvTiles c{smem, smem_addr(ks) + slab * kKeysWG * 128, qt0, key0,
+                     cq, sq, sk, causal, scale, bias,
                      kBias ? bias.slice(bh) : nullptr, drop,
                      {kDropout ? drop.key_term(drop.head(bh), key0) : 0u,
                       kDropout ? drop.key_term(drop.head(bh), key0 + 8)
                                : 0u}};
-
-    // the warpgroup's dk and dv over its kCols columns (one accumulator of
-    // N = kCols each: 64 or 128)
-    float adk[kCols / 2], adv[kCols / 2], s[32], tp[32];
-    uint32_t ap[4][4], ads[4][4];
-#pragma unroll
-    for (int i = 0; i < kCols / 2; ++i) {
-      adk[i] = 0.f;
-      adv[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] = 0.f;
-      tp[i] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ap[kk][i] = 0u;
-        ads[kk][i] = 0u;
-      }
 
     // The warpgroup's query tiles: from its diagonal when causal (the
     // tiles before it, wholly above its keys, are released unread; all of
@@ -493,27 +655,67 @@ fa_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       mbar_arrive(&empty[st]);
     }
     uint32_t kept = kDropout ? dkv_kept(c.kt, qt * kBQ, cq, drop) : ~0u;
-    for (; qt < q_mask; ++qt)
-      dkv_tile<kD, kBias, true, kDropout>(c, qt, kept, adk, adv, s, tp, ap,
-                                          ads);
-    for (; qt < nq; ++qt)
-      dkv_tile<kD, kBias, false, kDropout>(c, qt, kept, adk, adv, s, tp, ap,
-                                           ads);
+    // a warpgroup's outputs, each over all kCols columns (one accumulator
+    // of N = kCols each): dk and dv (d <= 128), or at d = 256 the dV
+    // warpgroup's dv and the dK one's dk; s and ap S^T's p and dV's A, tp
+    // and ads dP^T's ds and dK's A
+    float acc[L::kSlabs][kCols / 2], s[32], tp[32];
+    uint32_t ap[4][4], ads[4][4];
+#pragma unroll
+    for (int o = 0; o < L::kSlabs; ++o)
+#pragma unroll
+      for (int i = 0; i < kCols / 2; ++i) acc[o][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      tp[i] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ap[kk][i] = 0u;
+        ads[kk][i] = 0u;
+      }
+    if constexpr (L::kSlabs == 1) {
+      if (wg == 0) {
+        for (; qt < q_mask; ++qt)
+          dkv_tile_dv<kBias, true, kDropout>(c, qt, t, kept, acc[0], s, ap);
+        for (; qt < nq; ++qt)
+          dkv_tile_dv<kBias, false, kDropout>(c, qt, t, kept, acc[0], s,
+                                              ap);
+      } else {
+        for (; qt < nq; ++qt)
+          dkv_tile_dk<kDropout>(c, qt, t, acc[0], tp, ads);
+      }
+    } else {
+      for (; qt < q_mask; ++qt)
+        dkv_tile<kD, kBias, true, kDropout>(c, qt, kept, acc[0], acc[1], s,
+                                            tp, ap, ads);
+      for (; qt < nq; ++qt)
+        dkv_tile<kD, kBias, false, kDropout>(c, qt, kept, acc[0], acc[1], s,
+                                             tp, ap, ads);
+    }
 
     if (kw0 < sk) {
+      // dk from acc[0] and dv from acc[1]; at d = 256 the warpgroup's one
       __nv_bfloat16* dkb = dk + bh * sk * kD;
       __nv_bfloat16* dvb = dv + bh * sk * kD;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int key = key0 + 8 * h;
-        if (key >= sk) continue;
+      for (int o = 0; o < L::kSlabs; ++o) {
+        __nv_bfloat16* ob = L::kSlabs == 1 ? (wg == 0 ? dvb : dkb)
+                            : o == 0      ? dkb
+                                          : dvb;
 #pragma unroll
-        for (int j = 0; j < kCols / 8; ++j) {
-          const long long at = (long long)key * kD + cg * kCols + 8 * j + cq;
-          *reinterpret_cast<__nv_bfloat162*>(dkb + at) =
-              __floats2bfloat162_rn(adk[4 * j + 2 * h], adk[4 * j + 2 * h + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(dvb + at) =
-              __floats2bfloat162_rn(adv[4 * j + 2 * h], adv[4 * j + 2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int key = key0 + 8 * h;
+          if (key >= sk) continue;
+#pragma unroll
+          for (int j = 0; j < kCols / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (long long)key * kD +
+                                               8 * j + cq) =
+                __floats2bfloat162_rn(acc[o][4 * j + 2 * h],
+                                      acc[o][4 * j + 2 * h + 1]);
         }
       }
     }

@@ -30,11 +30,12 @@
 // traffic: hundreds of flops a byte.
 //
 // What the design does about that: the three products run on the tensor
-// cores (wgmma) from tiles that TMA brings into shared memory. A block owns
-// 128 query rows of one (b * h) slice: two consumer warpgroups of 64 rows
-// (wgmma's M) whose Q and dO rows stay resident in shared memory, each
+// cores (wgmma) from tiles that TMA brings into shared memory, each once
+// per block. A block owns 128 query rows of one (b * h) slice: two
+// consumer warpgroups of 64 rows (wgmma's M), each holding all d columns
+// of its rows' dQ, whose Q and dO rows stay resident in shared memory, each
 // thread holding the lse and D of its two rows in registers, and a
-// producer warp that streams 64-key K and V tiles through a ring of
+// producer warp that streams kBK-key K and V tiles through a ring of
 // kStages stages ("full": the TMA's bytes; "empty": every consumer thread
 // once the products that read the stage are done), up to the block's
 // diagonal when causal, the heaviest query blocks first. Per tile and
@@ -51,26 +52,26 @@
 // loop, not per tile (ptxas serialises the whole pipeline around a product
 // issued on one branch): the tiles that need no mask come first, in a loop
 // of their own, then those across the warpgroup's diagonal or the ragged
-// sk edge (`_mask_split`). dQ at N = 128 (d = 128, and each warpgroup's
-// half of d = 256) is one m64n128k16 product a step of depth over both
-// 64-column chunks of K. The waits are mbar_wait_nt's, without a trap
-// instruction, so the consumers keep setmaxnreg's 232 registers. Each
-// block owns its dQ rows: no atomics, and two runs give the same bits.
-// Rows past sq load as zeros with lse = -1e30 and are never written. Head
-// dim 128: each tile arrives as two 64-column boxes (hopper.cuh), S and dP
-// take eight steps of depth and dQ is 64 fp32 a thread; shared memory holds
-// Q and dO (64 KB) and four stages of K and V (128 KB).
+// sk edge (`_mask_split`). dQ at N = 128 or 256 is one m64n128k16 or
+// m64n256k16 product a step of depth over all of K's 64-column chunks. The
+// waits are mbar_wait_nt's, without a trap instruction, so the consumers
+// keep setmaxnreg's 232 registers. Each block owns its dQ rows: no
+// atomics, and two runs give the same bits. Rows past sq load as zeros
+// with lse = -1e30 and are never written. Head dim 128: each tile arrives
+// as two 64-column boxes (hopper.cuh), S and dP take eight steps of depth
+// and dQ is 64 fp32 a thread; shared memory holds Q and dO (64 KB) and
+// four stages of 64-key K and V (128 KB).
 //
-// Head dim 256: 128 rows of Q and dO (128 KB) beside two stages of K and V
-// (128 KB) would not fit a block's 227 KB, and dQ over all 256 columns
-// would be 128 fp32 a consumer thread. So a block owns one 64-row slab
-// (Layout::kSlabs = 1) that both consumer warpgroups take: each runs the
-// slab's S and dP products and its ds (the same operations on the same
-// operands, the same bits), and each keeps half of dQ's columns, 64 fp32
-// a thread as at d = 128, with one N = 128 dQ product a step on its two
-// chunks of K; the first warpgroup alone writes the dlogits. S and dP thus
-// run twice: 5/3 of the tensor-core work of one S, one dP and one dQ.
-// Shared memory: Q and dO 64 KB, two stages of K and V 128 KB.
+// Head dim 256: dQ over all 256 columns is 128 fp32 a consumer thread, so
+// the key tiles are 32 keys (Layout::kBK), S and dP 16 fp32 a thread each
+// (m64n32k16, sixteen steps of depth), and dQ two m64n256k16 products a
+// tile; about 172 registers live, under setmaxnreg's 232. Each
+// warpgroup runs its own rows' S, dP and dQ, so no product runs twice:
+// the tensor-core work of a block is one S, one dP and one dQ of its rows
+// (3/3; the 64-row slab that both warpgroups took before ran S and dP in
+// each, 5/3), and each K / V tile is read once for 128 rows. Shared
+// memory: Q and dO 128 KB, three stages of K and V 96 KB (230,464 bytes
+// with the barriers and the alignment).
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -84,26 +85,27 @@ using namespace apex_port;
 using namespace apex_port::hopper;
 
 constexpr int kRowsWG = 64;     // query rows per consumer warpgroup
-constexpr int kBK = 64;         // keys per streamed tile
 constexpr int kThreads = 384;   // two consumer warpgroups + the producer
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-// The block at head dim kD (64, 128 or 256): kSlabs 64-row slabs of
-// queries, one a consumer warpgroup (d <= 128), or one slab that both
-// warpgroups take, each holding kCols of dQ's columns (d = 256); kStages
-// stages of K and V. A tile's rows are 64-column chunks of 128 bytes,
-// chunk c c * kHalf bytes after the first: kBK * 128 for a K / V tile,
-// kBQ * 128 for Q and dO. Barriers: full and empty a stage, Q / dO's, and
-// a sink that takes the release of the stage before a warpgroup's first
-// tile (there is none).
+// The block at head dim kD (64, 128 or 256): 128 query rows, a 64-row
+// slab a consumer warpgroup, each holding all kD columns of dQ (kCols:
+// kD / 2 fp32 a thread); kStages stages of kBK-key K and V tiles (32 keys
+// at d = 256, where dQ holds 128 fp32 a thread: S and dP then take kE = 16
+// each). A tile's rows are 64-column chunks of 128 bytes, chunk c c *
+// kHalf bytes after the first: kBK * 128 for a K / V tile, kBQ * 128 for
+// Q and dO. Barriers: full and empty a stage, Q / dO's, and a sink that
+// takes the release of the stage before a warpgroup's first tile (there
+// is none).
 template <int kD>
 struct Layout {
-  static constexpr int kSlabs = kD == 256 ? 1 : 2;
-  static constexpr int kBQ = kRowsWG * kSlabs;     // query rows per block
-  static constexpr int kCols = kD * kSlabs / 2;    // dQ columns a warpgroup
-  static constexpr int kStages = kD == 256 ? 2 : 4;
-  static constexpr int kTileBytes = kBK * kD * 2;  // one 64-row bf16 tile
+  static constexpr int kBK = kD == 256 ? 32 : 64;  // keys per streamed tile
+  static constexpr int kStages = kD == 256 ? 3 : 4;
+  static constexpr int kBQ = 2 * kRowsWG;          // query rows per block
+  static constexpr int kCols = kD;                 // dQ columns a warpgroup
+  static constexpr int kE = kBK / 2;               // S, dP fp32 a thread
+  static constexpr int kTileBytes = kBK * kD * 2;  // one K or V tile
   static constexpr int kQBytes = kBQ * kD * 2;     // the resident Q (or dO)
   static constexpr int kTileHalf = kBK * 128;
   static constexpr int kQHalf = kBQ * 128;
@@ -114,17 +116,17 @@ struct Layout {
   static_assert(kSmemBytes <= 232448, "a block's shared memory");
 };
 
-// p of one tile (into s, from the scores) for the thread's two rows and 16
-// keys; l: the rows' l2 (`bwd_lse2`); scale2 = scale log2(e), which takes
-// the score's scale into the power without a bias. kMasked: the tile
+// p of one tile (into s, from the scores) for the thread's two rows and
+// kE / 2 keys; l: the rows' l2 (`bwd_lse2`); scale2 = scale log2(e), which
+// takes the score's scale into the power without a bias. kMasked: the tile
 // crosses the diagonal or the sk edge.
-template <bool kBias, bool kMasked>
-__device__ __forceinline__ void dq_p(float (&s)[32], const float (&l)[2],
+template <bool kBias, bool kMasked, int kE>
+__device__ __forceinline__ void dq_p(float (&s)[kE], const float (&l)[2],
                                      int r0, int k0, int cq, int sq, int sk,
                                      float scale, float scale2, int causal,
                                      const ScoreBias& bias, const float* bs) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kE / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int h = e >> 1;
@@ -146,17 +148,15 @@ __device__ __forceinline__ void dq_p(float (&s)[32], const float (&l)[2],
 }
 
 // ds * scale (into s) of one tile from p (s) and dP (t), dl = p * (dp *
-// keep - D); kDbias: the dlogits dl into dlb where write_dl (not in the
-// second warpgroup of a d = 256 slab, whose rows the first one writes; a
-// constant true at d <= 128)
-template <bool kMasked, bool kDropout, bool kDbias>
-__device__ __forceinline__ void dq_ds(float (&s)[32], const float (&t)[32],
+// keep - D); kDbias: the dlogits dl into dlb
+template <bool kMasked, bool kDropout, bool kDbias, int kE>
+__device__ __forceinline__ void dq_ds(float (&s)[kE], const float (&t)[kE],
                                       const float (&dsum)[2], int r0, int k0,
                                       int cq, int sq, int sk, float scale,
                                       const Dropout& drop, uint32_t dhead,
-                                      float* dlb, bool write_dl) {
+                                      float* dlb) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kE / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int h = e >> 1;
@@ -165,7 +165,7 @@ __device__ __forceinline__ void dq_ds(float (&s)[32], const float (&t)[32],
       const float dp =
           kDropout ? t[4 * j + e] * drop.keep(dhead, row, key) : t[4 * j + e];
       const float dl = s[4 * j + e] * (dp - dsum[h]);
-      if (kDbias && write_dl && row < sq && (!kMasked || key < sk))
+      if (kDbias && row < sq && (!kMasked || key < sk))
         dlb[(long long)row * sk + key] = dl;
       // the dq product takes ds * scale in k's dtype
       s[4 * j + e] = dl * scale;
@@ -173,13 +173,12 @@ __device__ __forceinline__ void dq_ds(float (&s)[32], const float (&t)[32],
 }
 
 // What a consumer warpgroup's tiles share: the stage ring, its rows of Q
-// and dO, its first column chunk of K, its rows, the score's bias, dropout
-// and the dlogits
+// and dO, its rows, the score's bias, dropout and the dlogits
 struct DqTiles {
   uint8_t* stages;      // the K / V stages
   uint64_t* full;
   uint64_t* empty;
-  uint32_t q_addr, do_addr, col_off;
+  uint32_t q_addr, do_addr;
   int r0, cq, sq, sk, causal;
   float scale;
   ScoreBias bias;
@@ -187,7 +186,6 @@ struct DqTiles {
   Dropout drop;
   uint32_t dhead;
   float* dlb;
-  bool write_dl;
 };
 
 // Key tile kt of a consumer warpgroup (kMasked: across its diagonal or the
@@ -195,16 +193,14 @@ struct DqTiles {
 // is waited for here, and `release` (the stage that tile read) freed. On
 // return this tile's dQ product is in flight and `release` is its stage.
 template <int kD, bool kBias, bool kMasked, bool kDropout, bool kDbias>
-__device__ __forceinline__ void dq_tile(const DqTiles& c, int kt,
-                                        uint64_t*& release,
-                                        float (&adq)[Layout<kD>::kCols / 2],
-                                        float (&s)[32], float (&tp)[32],
-                                        uint32_t (&ads)[4][4],
-                                        const float (&l)[2],
-                                        const float (&dsum)[2]) {
+__device__ __forceinline__ void dq_tile(
+    const DqTiles& c, int kt, uint64_t*& release,
+    float (&adq)[Layout<kD>::kCols / 2], float (&s)[Layout<kD>::kE],
+    float (&tp)[Layout<kD>::kE], uint32_t (&ads)[Layout<kD>::kE / 8][4],
+    const float (&l)[2], const float (&dsum)[2]) {
   using L = Layout<kD>;
   const int st = kt % L::kStages;
-  const int k0 = kt * kBK;
+  const int k0 = kt * L::kBK;
   APEX_SPLIT(0, kt, "start");
   mbar_wait_nt(&c.full[st], (kt / L::kStages) & 1);
   APEX_SPLIT(1, kt, "wait full");
@@ -232,13 +228,12 @@ __device__ __forceinline__ void dq_tile(const DqTiles& c, int kt,
   fence_regs(tp);
   APEX_SPLIT(4, kt, "dP");
   dq_ds<kMasked, kDropout, kDbias>(s, tp, dsum, c.r0, k0, c.cq, c.sq, c.sk,
-                                   c.scale, c.drop, c.dhead, c.dlb,
-                                   c.write_dl);
+                                   c.scale, c.drop, c.dhead, c.dlb);
   to_a_operand(s, ads);  // ds * scale in k's dtype
   APEX_SPLIT(5, kt, "ds");
   wgmma_fence();
   // dQ += dS K (K MN-major), in flight into the next tile
-  product_rs(adq, ads, k_addr + c.col_off, L::kTileHalf);
+  product_rs(adq, ads, k_addr, L::kTileHalf);
   wgmma_commit();
   APEX_SPLIT(6, kt, "dQ issue");
 }
@@ -256,8 +251,8 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                        int sk, float scale, int causal, ScoreBias bias,
                        Dropout drop, float* __restrict__ dlogits) {
   using L = Layout<kD>;
-  constexpr int kBQ = L::kBQ, kStages = L::kStages, kCols = L::kCols;
-  constexpr int kNC = kCols / 64;
+  constexpr int kBQ = L::kBQ, kBK = L::kBK, kStages = L::kStages;
+  constexpr int kCols = L::kCols, kE = L::kE;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;
@@ -312,14 +307,15 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     regs_inc<232>();
     const int t = threadIdx.x % 128;
     const int warp = __shfl_sync(0xffffffffu, t / 32, 0), lane = t % 32;
-    // the warpgroup's slab of rows and its group of dQ's columns (at d =
-    // 256 both warpgroups take slab 0, each kCols of the columns)
-    const int slab = L::kSlabs == 2 ? wg : 0, cg = L::kSlabs == 2 ? 0 : wg;
-    const int row0 = q0 + slab * kRowsWG;        // the warpgroup's first row
+    const int row0 = q0 + wg * kRowsWG;          // the warpgroup's first row
     const int r0 = row0 + 16 * warp + lane / 4;  // and r0 + 8
     const bool active = row0 < sq;
+    // its key tiles: up to its last real row's diagonal when causal
+    // (within the block's: at 32-key tiles a row past sq would reach past
+    // them)
     const int nk_me =
-        active ? (causal ? min(nk_all, (row0 + kRowsWG - 1) / kBK + 1)
+        active ? (causal ? min(nk_all,
+                               (min(row0 + kRowsWG, sq) - 1) / kBK + 1)
                          : nk_all)
                : 0;
     // the key tiles that need no mask (below the warpgroup's diagonal and
@@ -327,15 +323,12 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     const int nk_plain =
         min(nk_me, causal ? min(sk / kBK, row0 / kBK) : sk / kBK);
     float* dlb = kDbias ? dlogits + bh * sq * sk : nullptr;
-    const bool write_dl = L::kSlabs == 2 || cg == 0;
-    // the warpgroup's rows of each 64-column chunk of Q and dO, its first
-    // column chunk of K
+    // the warpgroup's rows of each 64-column chunk of Q and dO
     const DqTiles c{smem + L::kOffStages,
                     full,
                     empty,
-                    smem_addr(qs) + slab * kRowsWG * 128,
-                    smem_addr(dos) + slab * kRowsWG * 128,
-                    (uint32_t)(cg * kNC * L::kTileHalf),
+                    smem_addr(qs) + wg * kRowsWG * 128,
+                    smem_addr(dos) + wg * kRowsWG * 128,
                     r0,
                     (lane % 4) * 2,
                     sq,
@@ -346,8 +339,7 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                     kBias ? bias.slice(bh) : nullptr,
                     drop,
                     kDropout ? drop.head(bh) : 0u,
-                    dlb,
-                    write_dl};
+                    dlb};
 
     // the l2 (bwd_lse2 of the lse) and D of the thread's rows; rows past
     // sq add nothing
@@ -359,19 +351,19 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       dsum[h] = row < sq ? dvec[bh * sq + row] : 0.f;
     }
 
-    // the warpgroup's dq over its kCols columns (one accumulator of N =
-    // kCols: 64 or 128)
-    float adq[kCols / 2], s[32], tp[32];
-    uint32_t ads[4][4];
+    // the warpgroup's dq over all kCols columns (one accumulator of N =
+    // kCols: 64, 128 or 256)
+    float adq[kCols / 2], s[kE], tp[kE];
+    uint32_t ads[kE / 8][4];
 #pragma unroll
     for (int i = 0; i < kCols / 2; ++i) adq[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < kE; ++i) {
       s[i] = 0.f;
       tp[i] = 0.f;
     }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < kE / 8; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) ads[kk][i] = 0u;
 
@@ -394,7 +386,7 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       mbar_wait_nt(&full[st], (kt / kStages) & 1);
       mbar_arrive(&empty[st]);
     }
-    if (kDbias && write_dl && active) {  // keys past the diagonal: zeros,
+    if (kDbias && active) {  // keys past the diagonal: zeros,
       const int kz = nk_me * kBK;  // a warp its 16 rows, a lane a key
       for (int r = 16 * warp; r < 16 * warp + 16 && row0 + r < sq; ++r)
         for (int key = kz + lane; key < sk; key += 32)
@@ -411,7 +403,7 @@ fa_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int j = 0; j < kCols / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(
-              dqb + (long long)row * kD + cg * kCols + 8 * j + cq) =
+              dqb + (long long)row * kD + 8 * j + cq) =
               __floats2bfloat162_rn(adq[4 * j + 2 * h], adq[4 * j + 2 * h + 1]);
       }
     }
@@ -437,9 +429,9 @@ int launch(const Args& a) {
   CUtensorMap mq, mk, mv, mdo;
   if (!make_map_bf16(&mq, a.q, a.sq, a.bh, L::kBQ, kD) ||
       !make_map_bf16(&mk, nokeys ? a.q : a.k, nokeys ? a.sq : a.sk, a.bh,
-                     kBK, kD) ||
+                     L::kBK, kD) ||
       !make_map_bf16(&mv, nokeys ? a.q : a.v, nokeys ? a.sq : a.sk, a.bh,
-                     kBK, kD) ||
+                     L::kBK, kD) ||
       !make_map_bf16(&mdo, a.dout, a.sq, a.bh, L::kBQ, kD))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((a.sq + L::kBQ - 1) / L::kBQ, a.grid_y, a.grid_z);

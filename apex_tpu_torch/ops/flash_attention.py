@@ -579,8 +579,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor-core forward's blocks of 128 rows in two 64-row warpgroups
     over 64-key tiles, 32 at d = 256,
     :func:`~apex_tpu_torch.ops.tiling.fa_tc_fwd_geometry`; the backward
-    pair's of 128 rows, or at d = 256 of one 64-row slab, over 64-row
-    tiles, :func:`~apex_tpu_torch.ops.tiling.fa_tc_geometry`).
+    pair's of 128 rows over 64-row tiles, at d = 256 dq's over 32-key
+    tiles and dk / dv's of one 64-key slab whose two warpgroups exchange
+    p and ds, :func:`~apex_tpu_torch.ops.tiling.fa_tc_geometry`).
     ``mask`` is a rank-4 boolean tensor broadcastable to ``(b, h, sq,
     sk)``, True = masked; a fully masked row gives zero output and zero
     gradients. ``bias`` is an additive logits bias of the same

@@ -344,7 +344,8 @@ def fa_fma_bwd_geometry(head_dim: int = 64) -> FmaBwdGeometry:
 # geometry of fa_tc_fwd_geometry(d) (the forward) and fa_tc_geometry(d)
 # (the backward pair), mirrored by their `Layout<d>`: two consumer
 # warpgroups and a producer, a row of d columns arriving as d / 64 boxes of
-# 64 columns. TMA reads each tensor from a base address aligned to
+# 64 columns. In the backward pair, the dq kernel streams key tiles and
+# the dk / dv kernel query tiles, each with its own rows and stages. TMA reads each tensor from a base address aligned to
 # FA_TC_ALIGN bytes.
 FA_TC_ALIGN = 16
 FA_TC_TILE_ROWS = 64
@@ -411,25 +412,43 @@ def fa_tc_fwd_geometry(head_dim: int = 64) -> TcFwdGeometry:
 
 @dataclasses.dataclass(frozen=True)
 class TcGeometry:
-    """The tensor-core backward pair's block at one compiled head width,
-    mirrored by ``Layout<head_dim>`` in each source: a block owns
-    ``slabs`` 64-row slabs (dq: queries; dk / dv: keys), one a consumer
-    warpgroup, or (``slabs`` 1, d = 256) one slab that both warpgroups
-    take, each holding ``cols`` of the output's columns; 64-row tiles
-    stream through ``stages`` stages."""
+    """The tensor-core backward pair's blocks at one compiled head width,
+    mirrored by ``Layout<head_dim>`` in each source. dq: a block owns 128
+    query rows, a 64-row slab a consumer warpgroup holding all
+    ``head_dim`` columns of its dq, over K / V tiles of ``dq_tile_rows``
+    keys in ``dq_stages`` stages. dk / dv: a block owns ``dkv_slabs``
+    64-key slabs, one a consumer warpgroup holding dk and dv, or
+    (``dkv_slabs`` 1, d = 256) one slab that both warpgroups take, the
+    one computing S^T, p and dv, the other dP^T, ds and dk, p crossing
+    between them through two buffers of ``exchange_bytes`` (64 keys x 64
+    queries of fp32); 64-query tiles stream through ``dkv_stages``
+    stages. Each product of the backward runs once a block, and each
+    warpgroup holds all ``head_dim`` columns of the outputs it
+    accumulates."""
     head_dim: int
-    slabs: int
-    stages: int
+    dq_tile_rows: int
+    dq_stages: int
+    dkv_slabs: int
+    dkv_stages: int
 
-    @property
-    def block_rows(self) -> int:
-        return 64 * self.slabs
+    dq_block_rows = 128
+    dkv_tile_rows = FA_TC_TILE_ROWS
 
     @property
     def cols(self) -> int:
-        """Output columns (of o, dq, or each of dk and dv) a consumer
-        warpgroup holds: 64 fp32 accumulators a thread each 64."""
-        return self.head_dim * self.slabs // 2
+        """Columns of each output a consumer warpgroup holds (all of them:
+        d / 2 fp32 a thread an output)."""
+        return self.head_dim
+
+    @property
+    def dkv_block_rows(self) -> int:
+        return 64 * self.dkv_slabs
+
+    @property
+    def exchange_bytes(self) -> int:
+        """One exchange buffer (64 keys x 64 queries of fp32 p); 0 where
+        each warpgroup computes its own p."""
+        return 64 * self.dkv_tile_rows * 4 if self.dkv_slabs == 1 else 0
 
     def _tile(self, rows: int) -> int:
         return rows * self.head_dim * 2
@@ -439,30 +458,41 @@ class TcGeometry:
         """Q and dO, the K / V stages, the barriers (full and empty a
         stage, the resident rows', a sink for the release before a
         warpgroup's first tile), the alignment."""
-        return (2 * self._tile(self.block_rows)
-                + self.stages * 2 * self._tile(FA_TC_TILE_ROWS)
-                + (2 * self.stages + 2) * 8 + 1024)
+        return (2 * self._tile(self.dq_block_rows)
+                + self.dq_stages * 2 * self._tile(self.dq_tile_rows)
+                + (2 * self.dq_stages + 2) * 8 + 1024)
 
     @property
     def dkv_smem_bytes(self) -> int:
-        """K and V, the Q / dO stages with their l2 / D slices, the
-        barriers (full and empty a stage, K / V's), the alignment."""
-        return (2 * self._tile(self.block_rows)
-                + self.stages * (2 * self._tile(FA_TC_TILE_ROWS)
-                                 + 2 * FA_TC_TILE_ROWS * 4)
-                + (2 * self.stages + 1) * 8 + 1024)
+        """K and V, the Q / dO stages, two exchange buffers, the stages'
+        l2 / D slices, the barriers (full and empty a stage, K / V's), the
+        alignment."""
+        return (2 * self._tile(self.dkv_block_rows)
+                + self.dkv_stages * 2 * self._tile(self.dkv_tile_rows)
+                + 2 * self.exchange_bytes
+                + self.dkv_stages * 2 * self.dkv_tile_rows * 4
+                + (2 * self.dkv_stages + 1) * 8 + 1024)
 
-    def blocks(self, s: int) -> int:
-        """Blocks (grid.x) over ``s`` rows."""
-        return -(-s // self.block_rows)
+    def dq_blocks(self, sq: int) -> int:
+        """dq blocks (grid.x) over ``sq`` query rows."""
+        return -(-sq // self.dq_block_rows)
+
+    def dkv_blocks(self, sk: int) -> int:
+        """dk / dv blocks (grid.x) over ``sk`` keys."""
+        return -(-sk // self.dkv_block_rows)
 
 
-# d = 256: 128 rows of Q and dO or of K and V (128 KB) beside two stages
-# (128 KB) would not fit, and a warpgroup's 256 output columns would be
-# 128 (o, dq) or 256 (dk and dv) fp32 a thread: one slab, columns split
-_TC = {64: TcGeometry(64, slabs=2, stages=4),
-       128: TcGeometry(128, slabs=2, stages=4),
-       256: TcGeometry(256, slabs=1, stages=2)}
+# d = 256: a dq warpgroup's 256 columns are 128 fp32 a thread, so its key
+# tiles are 32 keys (S and dP 16 fp32 a thread) beside 128 rows of Q and
+# dO (128 KB) in three stages; dk and dv over 256 columns would be 256 fp32
+# a thread, and 128 keys of K and V (128 KB) beside two stages would not
+# fit: one 64-key slab, a warpgroup an output, p exchanged
+_TC = {64: TcGeometry(64, dq_tile_rows=64, dq_stages=4, dkv_slabs=2,
+                      dkv_stages=4),
+       128: TcGeometry(128, dq_tile_rows=64, dq_stages=4, dkv_slabs=2,
+                       dkv_stages=4),
+       256: TcGeometry(256, dq_tile_rows=32, dq_stages=3, dkv_slabs=1,
+                       dkv_stages=2)}
 
 
 def fa_tc_geometry(head_dim: int = 64) -> TcGeometry:

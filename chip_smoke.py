@@ -1507,17 +1507,36 @@ FLASH_FP32_SHAPES = [(4, 12, 1024, 1024, True), (32, 16, 128, 128, False),
 # the bf16 (tensor-core) cases of the solo modes, (b, h, sq, sk, causal,
 # head dim): GPT-2's and GPT-2 XL's causal attention and BERT's at 64;
 # Cerebras-GPT 1.3B's causal attention at 128, 2.7B's at 80 (padded to
-# 128) and GPT-J 6B's at 256
+# 128), GPT-J 6B's at 256 and Nemotron-4 340B's head of 192 (padded to
+# 256; the gptj phase's (c))
 FLASH_BF16_SHAPES = [(4, 12, 1024, 1024, True, 64),
                      (4, 25, 1024, 1024, True, 64),
                      (32, 16, 128, 128, False, 64),
                      (2, 16, 2048, 2048, True, 128),
                      (2, 32, 2048, 2048, True, 80),
-                     (2, 16, 2048, 2048, True, 256)]
+                     (2, 16, 2048, 2048, True, 256),
+                     (1, NEMO_HEADS, 2048, 2048, True, NEMO_D)]
 _SOLO_CASES = ([(*c, 64, "fp32") for c in FLASH_FP32_SHAPES]
                + [(*c, "bf16") for c in FLASH_BF16_SHAPES])
+# the ``flash-bwd`` mode's bf16 cases with attention dropout (FA_DROP_RATE):
+# GPT-J 6B's causal attention at 256
+FLASH_BWD_DROPOUT_SHAPES = [(2, 16, 2048, 2048, True, 256)]
 # SDPA's bf16 backends the ``flash-bwd`` mode times, each alone
 SDPA_BWD_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_backend(kernel_names):
+    """Which SDPA backend ran, from the names of the kernels a profile of
+    its call recorded: cuDNN's (whose names may also say "flash") first,
+    then the flash backend's, the memory-efficient one's (CUTLASS's
+    fmha), else the math one (matrix products and a softmax)."""
+    names = " ".join(kernel_names).lower()
+    for backend, marks in (("CUDNN_ATTENTION", ("cudnn",)),
+                           ("FLASH_ATTENTION", ("flash",)),
+                           ("EFFICIENT_ATTENTION", ("fmha", "efficient"))):
+        if any(m in names for m in marks):
+            return backend
+    return "MATH"
 
 
 def _solo_key(b, h, sq, sk, causal, d, dt):
@@ -1534,7 +1553,9 @@ def _causal_pairs(sq, sk, causal):
 
 def _flash_bwd_solo(dev):
     """The flash backward at FLASH_FP32_SHAPES in fp32 and
-    FLASH_BF16_SHAPES in bf16, without dropout or dlogits: the dq and
+    FLASH_BF16_SHAPES in bf16, without dropout or dlogits, and at
+    FLASH_BWD_DROPOUT_SHAPES in bf16 with dropout (keys ending in
+    ``_dropout``; SDPA with the same rate, its backend named): the dq and
     dk / dv kernels' device ms (torch.profiler, inputs rotated beyond the
     L2), the whole backward as a caller runs it (D = rowsum(dO o), a
     padded d's pad and slice copies and both kernels), the least time the
@@ -1553,28 +1574,37 @@ def _flash_bwd_solo(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for b, h, sq, sk, causal, d, dt in _SOLO_CASES:
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    for b, h, sq, sk, causal, d, dt, drop in (
+            [(*c, False) for c in _SOLO_CASES]
+            + [(*c, "bf16", True) for c in FLASH_BWD_DROPOUT_SHAPES]):
         scale = d ** -0.5
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        kw = dict(scale=scale, causal=causal)
+        if drop:
+            kw.update(dropout_p=FA_DROP_RATE, dropout_seed=seed)
         sets = []
         for _ in range(n_sets(3 * b * h * (sq + sk) * d * 4)):
             q, k, v, do = (torch.randn(b, h, n, d, device=dev,
                                        generator=gen).to(dtype)
                            for n in (sq, sk, sk, sq))
-            o, lse = flash_attention_fwd(q, k, v, scale=scale,
-                                         causal=causal)
+            o, lse = flash_attention_fwd(q, k, v, **kw)
             sets.append((q, k, v, o, lse, do))
-        kw = dict(scale=scale, causal=causal)
         split = device_kernels(lambda *a: flash_attention_bwd(*a, **kw),
                                sets, 20)
         dq = sum(t for n, t in split.items() if "fa_bwd_dq_kernel" in n)
         dkv = sum(t for n, t in split.items() if "fa_bwd_dkv_kernel" in n)
         whole = sum(split.values())
-        libs = {}
+        libs, ran = {}, {}
         backends = ({n: [getattr(SDPBackend, n)] for n in SDPA_BWD_BACKENDS}
                     if dt == "bf16" else
                     {"auto": [SDPBackend.EFFICIENT_ATTENTION,
                               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]})
+        if drop:
+            # and PyTorch's own choice, as the kernel phase's yardstick
+            backends["auto"] = [SDPBackend.FLASH_ATTENTION,
+                                SDPBackend.EFFICIENT_ATTENTION,
+                                SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
         for name, chosen in backends.items():
             lsets = []
             try:
@@ -1583,22 +1613,26 @@ def _flash_bwd_solo(dev):
                                   for t in (q, k, v))
                     with sdpa_kernel(chosen), torch.enable_grad():
                         oo = F.scaled_dot_product_attention(
-                            qq, kk, vv, is_causal=causal, scale=scale)
+                            qq, kk, vv, is_causal=causal, scale=scale,
+                            dropout_p=FA_DROP_RATE if drop else 0.0)
                     lsets.append((oo, qq, kk, vv, do))
-                libs[name] = device_ms(
+                kern = device_kernels(
                     lambda oo, qq, kk, vv, do: torch.autograd.grad(
                         oo, (qq, kk, vv), do, retain_graph=True), lsets, 20)
+                libs[name] = sum(kern.values())
+                ran[name] = sdpa_backend(kern)
             except RuntimeError as e:  # the backend refuses the shape
                 libs[name] = f"refused: {str(e).splitlines()[0][:120]}"
             del lsets
         timed_libs = {n: t for n, t in libs.items() if isinstance(t, float)}
         best = min(timed_libs, key=timed_libs.get) if timed_libs else None
         ops = 2 * b * h * d * _causal_pairs(sq, sk, causal)
-        out[_solo_key(b, h, sq, sk, causal, d, dt)] = dict(
+        out[_solo_key(b, h, sq, sk, causal, d, dt)
+            + ("_dropout" if drop else "")] = dict(
             dq_ms=dq, dkv_ms=dkv, pair_ms=dq + dkv, whole_ms=whole,
             outside_ms=whole - dq - dkv,
             library_ms=timed_libs.get(best), library_backend=best,
-            library_by_backend=libs,
+            library_by_backend=libs, library_ran=ran,
             bound_dq_ms=3 * ops / PEAK_OPS[dt] * 1e3,
             bound_dkv_ms=4 * ops / PEAK_OPS[dt] * 1e3,
             kernels=sorted(n.split("(")[0] for n in split
@@ -1978,16 +2012,15 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
                                    "gn_apply_kernel_vec")}
 # the report's kernels that must keep every value in registers (no
 # spill), by the start of their key: the fp32 flash forward's and
-# backward's unbiased forms, the bf16 tensor-core forward in every form
-# at every width and the bf16 tensor-core backward pair in every form at
-# d = 128 (their consumers' 232 registers), every form of the LayerNorm
-# backward's
+# backward's unbiased forms, the bf16 tensor-core forward and backward
+# pair in every form at every width (their consumers' setmaxnreg
+# registers), every form of the LayerNorm backward's
 # register form, the two-pass GroupNorm's bf16 vector stats kernel and
 # every form of its vector apply kernel (the fp32 stats kernel spills 8
 # bytes at 40 registers, which PERF.md reports)
 NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>", "fa_fwd_kernel_wgmma<",
-                    "fa_bwd_dq_kernel_wgmma<128,",
-                    "fa_bwd_dkv_kernel_wgmma<128,",
+                    "fa_bwd_dq_kernel_wgmma<",
+                    "fa_bwd_dkv_kernel_wgmma<",
                     "fa_bwd_dq_kernel_fma<64,false,false,false>",
                     "fa_bwd_dkv_kernel_fma<64,false,false>",
                     "ln_bwd_kernel_reg<",
@@ -2874,8 +2907,14 @@ def main() -> int:
                 torch.autograd.grad(oo, ins, do)
 
             lsets = [sdpa(q, k, v, do, True) for q, k, v, _, _, do in sets]
-            library = timed(lambda oo, ins, do: torch.autograd.grad(
-                oo, ins, do, retain_graph=True), lsets, reps)
+
+            def lib_bwd(oo, ins, do):
+                torch.autograd.grad(oo, ins, do, retain_graph=True)
+
+            lib_kern = device_kernels(lib_bwd, lsets, reps)
+            library = {"ms": sum(lib_kern.values()),
+                       "call_ms": bench_ms(lib_bwd, lsets, reps),
+                       "backend": sdpa_backend(lib_kern)}
             del lsets
             if dropout:
                 # SDPA's forward + backward with dropout beside ours
@@ -2887,6 +2926,7 @@ def main() -> int:
                       deterministic=deterministic, call_ms=call,
                       plain_ms=pt["ms"], plain_call_ms=pt["call_ms"],
                       library_ms=library and library["ms"],
+                      library_backend=library and library["backend"],
                       library_call_ms=library and library["call_ms"],
                       dvec_ms=sum(split.values()) - ms_dq - ms_dkv)
         if dropout:

@@ -949,7 +949,7 @@ def test_bf16_flash_fwd_exact_p_cases(dev, kind, d, form):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-# the bf16 backward pair at d = 128 (csrc/flash_bwd_{dq,dkv}_wgmma.cu):
+# the bf16 backward pair at d = 128 and 256 (csrc/flash_bwd_{dq,dkv}_wgmma.cu):
 # forms as (bias, dropout, dlogits)
 _BWD128_FORMS = {"plain": (False, False, False), "bias": (True, False, False),
                  "dropout": (False, True, False), "both": (True, True, False),
@@ -982,16 +982,16 @@ def _bf16_bwd_check(dev, q, k, v, do, causal, form, seed):
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, **bkw)
     torch.cuda.synchronize()
     kd = fa_kernel_head_dim(d)
-    assert kd == 128
+    assert kd in (128, 256)
     expect = {}
     for name in ("fa_bwd_dq", "fa_bwd_dkv"):
-        expect[f"{name}:wgmma:d128"] = 2
+        expect[f"{name}:wgmma:d{kd}"] = 2
         if d != kd:
             expect[f"{name}:wgmma:pad{d}"] = 2
         if dropout:
-            expect[f"{name}:wgmma:d128:dropout"] = 2
+            expect[f"{name}:wgmma:d{kd}:dropout"] = 2
     if dlogits:
-        expect["fa_bwd_dq:wgmma:d128:dbias"] = 2
+        expect[f"fa_bwd_dq:wgmma:d{kd}:dbias"] = 2
     assert dict(_build.form_launches) == expect
     failures = []
     for name, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want,
@@ -1038,6 +1038,43 @@ def test_bf16_flash_bwd_at_128_over_65535_batch_heads(dev):
     128, causal, with dropout: the pair against the plain versions."""
     g = torch.Generator(device=dev).manual_seed(19)
     q, k, v, do = (torch.randn(1025, 64, 64, 128, device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    _bf16_bwd_check(dev, q, k, v, do, True, "dropout", 23)
+
+
+@pytest.mark.parametrize("form", sorted(_BWD128_FORMS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (200, 333), (100, 333)])
+@pytest.mark.parametrize("d", [256, 192, 144])
+def test_bf16_flash_bwd_at_256_matches_plain(dev, d, sq, sk, causal, form):
+    """The bf16 dq and dk / dv kernels at head width 256 (d = 192 and 144
+    through the zero-padded route) in every form, causal and full, square
+    and ragged: 200 x 333 puts the sk edge inside a key tile; 100 x 333
+    puts sq inside a dq block's second warpgroup and, in dk / dv, inside
+    the second warpgroup's half of a query tile, the sk edge inside a key
+    slab; against the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(d + sq + sk + causal)
+    q, k, v, do = (torch.randn(2, 3, s, d, device=dev, generator=g)
+                   .to(torch.bfloat16) for s in (sq, sk, sk, sq))
+    _bf16_bwd_check(dev, q, k, v, do, causal, form, d * 3 + len(form))
+
+
+@pytest.mark.parametrize("form", ["plain", "dropout", "dlogits"])
+def test_bf16_flash_bwd_at_256_planted_last_tile_max(dev, form):
+    """Rows whose max lies in their last key tile (a planted score, every
+    fifth row) through the bf16 backward pair at d = 256, causal."""
+    g = torch.Generator(device=dev).manual_seed(len(form))
+    _, (q, k, v) = _planted_last_tile_max(g, 2, 3, 300, 256, dev)
+    do = torch.randn(2, 3, 300, 256, device=dev, generator=g).to(
+        torch.bfloat16)
+    _bf16_bwd_check(dev, q, k, v, do, True, form, 11)
+
+
+def test_bf16_flash_bwd_at_256_over_65535_batch_heads(dev):
+    """batch * heads = 65,600 (1025 x 64) through grid.y x grid.z at d =
+    256, causal, with dropout: the pair against the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, k, v, do = (torch.randn(1025, 64, 64, 256, device=dev, generator=g)
                    .to(torch.bfloat16) for _ in range(4))
     _bf16_bwd_check(dev, q, k, v, do, True, "dropout", 23)
 

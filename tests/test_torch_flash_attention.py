@@ -492,22 +492,18 @@ def test_batch_heads_grid_refuses_what_no_grid_holds():
 # The kernels' own use of the rule is held to the plain versions by the
 # card tests (tests/test_torch_cuda.py). A forward block holds 128 query
 # rows, 64 a warpgroup, over key tiles of ``tile`` keys (64, or 32 at d =
-# 256, where it makes two passes: ``fa_tc_fwd_geometry``). A backward
-# block holds ``slabs`` 64-row slabs (``Layout::kSlabs``: 2, one a
-# warpgroup, up to d = 128; 1 at d = 256, where both warpgroups take the
-# slab, each half of the output's columns: its column group, the last
-# entry of a step).
+# 256, where it makes two passes: ``fa_tc_fwd_geometry``). A dq block
+# holds 128 query rows, 64 a warpgroup, over key tiles of ``tile`` keys
+# (64, or 32 at d = 256: ``fa_tc_geometry``). A dk / dv block holds
+# ``slabs`` 64-key slabs (``Layout::kSlabs``: 2, one a warpgroup, up to d
+# = 128; 1 at d = 256, where both warpgroups take the slab, the one S^T
+# and dV, the other dP^T and dK: its role, the last entry of a step).
 WG_ROWS, TC_TILE = 64, 64            # a warpgroup's rows, a streamed tile
 TC_BLOCK = 2 * WG_ROWS               # a block's query rows / keys
 
 
 def _cdiv(a, b):
     return -(-a // b)
-
-
-def _warpgroups(slabs):
-    """``(slab, column group)`` of each consumer warpgroup."""
-    return [(w, 0) if slabs == 2 else (0, w) for w in range(2)]
 
 
 def _tc_fwd_plan(sq, sk, causal, tile=TC_TILE, passes=1):
@@ -544,32 +540,31 @@ def _tc_fwd_plan(sq, sk, causal, tile=TC_TILE, passes=1):
     return blocks, loads, steps
 
 
-def _tc_dq_plan(sq, sk, causal, slabs=2):
+def _tc_dq_plan(sq, sk, causal, tile=TC_TILE):
     """The dq kernel's work: ``(blocks, loads, steps)``. ``loads[b]`` the
-    K / V tiles block ``b`` streams (tiles 0 .. loads[b] - 1; `nk`), every
-    one released by both warpgroups; ``steps`` the ``(q tile, k tile,
-    masked)`` each warpgroup computes, in its order (its 64-row q tile
-    ``q`` in block ``q // slabs``; `nk_me`, 0 for a warpgroup past sq; at
-    ``slabs`` 1 with its column group appended), ``masked`` for the tiles
-    of its second loop, from `nk_plain` on."""
-    block = WG_ROWS * slabs
-    nk_all = _cdiv(sk, TC_TILE)
+    K / V tiles of ``tile`` keys block ``b`` streams (tiles 0 .. loads[b]
+    - 1; `nk`), every one released by both warpgroups; ``steps`` the ``(q
+    tile, k tile, masked)`` each warpgroup computes, in its order (its
+    64-row q tile ``q`` in block ``q // 2``; `nk_me`, 0 for a warpgroup
+    past sq), ``masked`` for the tiles of its second loop, from
+    `nk_plain` on."""
+    block = TC_BLOCK
+    nk_all = _cdiv(sk, tile)
     blocks = _cdiv(sq, block)
     loads, steps = [], []
     for b in range(blocks):
         q0 = b * block
-        loads.append(min(nk_all, (min(q0 + block, sq) - 1) // TC_TILE + 1)
+        loads.append(min(nk_all, (min(q0 + block, sq) - 1) // tile + 1)
                      if causal else nk_all)
-        for slab, cg in _warpgroups(slabs):
-            row0 = q0 + slab * WG_ROWS
+        for wg in range(2):
+            row0 = q0 + wg * WG_ROWS
             active = row0 < sq
-            nk_me = ((min(nk_all, (row0 + WG_ROWS - 1) // TC_TILE + 1)
-                      if causal else nk_all) if active else 0)
-            nk_plain = min(nk_me, min(sk // TC_TILE, row0 // TC_TILE)
-                           if causal else sk // TC_TILE)
+            nk_me = ((min(nk_all, (min(row0 + WG_ROWS, sq) - 1) // tile
+                          + 1) if causal else nk_all) if active else 0)
+            nk_plain = min(nk_me, min(sk // tile, row0 // tile)
+                           if causal else sk // tile)
             for kt in range(nk_me):
-                steps.append((row0 // WG_ROWS, kt, kt >= nk_plain)
-                             + ((cg,) if slabs == 1 else ()))
+                steps.append((row0 // WG_ROWS, kt, kt >= nk_plain))
     return blocks, loads, steps
 
 
@@ -579,8 +574,9 @@ def _tc_dkv_plan(sq, sk, causal, slabs=2):
     diagonal when causal: `qt0`); ``steps`` the ``(k tile, q tile,
     masked)`` each warpgroup computes, in its order (its 64-key k tile
     ``k`` in block ``k // slabs``, from `q_start`; at ``slabs`` 1 with its
-    column group appended), ``masked`` for the tiles of its first loop, up
-    to `q_mask`. A k tile past sk computes nothing."""
+    role appended: 0 S^T, p and dV, 1 dP^T, ds and dK), ``masked`` for
+    the tiles of its first loop, up to `q_mask` (the dK warpgroup takes
+    its p, masked, from the other). A k tile past sk computes nothing."""
     block = WG_ROWS * slabs
     nq = _cdiv(sq, TC_TILE)
     blocks = _cdiv(sk, block)
@@ -589,8 +585,9 @@ def _tc_dkv_plan(sq, sk, causal, slabs=2):
         k0 = b * block
         first = min(k0 // TC_TILE, nq) if causal else 0
         loads.append((first, nq))
-        for slab, cg in _warpgroups(slabs):
-            kw0 = k0 + slab * WG_ROWS
+        for wg in range(2):
+            # the warpgroup's slab (both take the one slab at slabs 1)
+            kw0 = k0 + (wg if slabs == 2 else 0) * WG_ROWS
             # the tiles before q_start are released unread
             q_start = (nq if kw0 >= sk else min(kw0 // TC_TILE, nq)
                        if causal else 0)
@@ -598,7 +595,7 @@ def _tc_dkv_plan(sq, sk, causal, slabs=2):
                       if causal else q_start)
             for qt in range(q_start, nq):
                 steps.append((kw0 // WG_ROWS, qt, qt < q_mask)
-                             + ((cg,) if slabs == 1 else ()))
+                             + ((wg,) if slabs == 1 else ()))
     return blocks, loads, steps
 
 PLAN_SHAPES = [(1, 1), (64, 64), (65, 64), (64, 65), (128, 128),
@@ -616,6 +613,23 @@ def _jax_pairs(sq, sk, causal):
             run, needs = _jax_mask_split(causal, qi, kj, 64, 64, sk, nk)
             if bool(run):
                 out[(qi, kj)] = bool(needs)
+    return out
+
+
+def _live_pairs(sq, sk, causal, bk):
+    """Brute force: {(q tile, k tile): masked} of the pairs of 64-row q
+    tiles and ``bk``-key k tiles holding any (row, key) pair that a real
+    row keeps (row < sq, key < sk, key <= row when causal), masked where
+    one of the tile's pairs of real rows is dropped or its keys pass
+    sk."""
+    keep = ((np.arange(sk)[None, :] <= np.arange(sq)[:, None]) if causal
+            else np.ones((sq, sk), dtype=bool))
+    out = {}
+    for qi in range(-(-sq // 64)):
+        for kj in range(-(-sk // bk)):
+            part = keep[qi * 64:qi * 64 + 64, kj * bk:kj * bk + bk]
+            if part.any():
+                out[(qi, kj)] = bool(not part.all() or kj * bk + bk > sk)
     return out
 
 
@@ -674,15 +688,21 @@ def test_tc_dkv_plan_matches_jax_rules(sq, sk, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
 def test_tc_bwd_plans_run_masked_tiles_in_one_loop(sq, sk, causal, slabs):
-    """Each backward warpgroup's tiles in its order: the masked ones are
-    one run (dq's last, dk / dv's first), so each kernel decides a tile's
-    mask by its loop and never per tile; a tile is masked exactly where
-    brute force finds in it a key past sk or, when causal, a (row, key)
-    pair above the diagonal."""
+    """Each backward warpgroup's tiles in its order, at the widths whose dk
+    / dv blocks hold ``slabs`` slabs (2: d = 128, 64-key dq tiles; 1: d =
+    256, 32-key dq tiles): the masked ones are one run (dq's last, dk /
+    dv's first), so each kernel decides a tile's mask by its loop and never
+    per tile; a tile is masked exactly where brute force finds in it a key
+    past sk or, when causal, a (row, key) pair above the diagonal."""
+    g = fa_tc_geometry(128 if slabs == 2 else 256)
+    assert g.dkv_slabs == slabs
     keep = ((np.arange(sk)[None, :] <= np.arange(sq)[:, None]) if causal
             else np.ones((sq, sk), dtype=bool))
-    for plan, last in ((_tc_dq_plan, True), (_tc_dkv_plan, False)):
-        _, _, steps = plan(sq, sk, causal, slabs=slabs)
+    for plan, last, tile in (
+            (lambda *a: _tc_dq_plan(*a, tile=g.dq_tile_rows), True,
+             g.dq_tile_rows),
+            (lambda *a: _tc_dkv_plan(*a, slabs=slabs), False, TC_TILE)):
+        _, _, steps = plan(sq, sk, causal)
         groups = {}
         for st in steps:
             groups.setdefault((st[0],) + st[3:], []).append(st)
@@ -690,10 +710,10 @@ def test_tc_bwd_plans_run_masked_tiles_in_one_loop(sq, sk, causal, slabs):
             flags = [st[2] for st in run]
             assert flags == sorted(flags, reverse=not last)
             for st in run:
-                qt, kt = st[:2] if plan is _tc_dq_plan else st[1::-1]
+                qt, kt = st[:2] if last else st[1::-1]
                 rows = slice(qt * 64, min(qt * 64 + 64, sq))
-                dropped = not keep[rows, kt * 64:kt * 64 + 64].all() \
-                    or kt * 64 + 64 > sk
+                dropped = not keep[rows, kt * tile:kt * tile + tile].all() \
+                    or kt * tile + tile > sk
                 assert st[2] == dropped
 
 
@@ -755,30 +775,41 @@ def test_tc_route_raises_on_a_misaligned_bf16_view():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", PLAN_SHAPES)
 def test_tc_plans_at_head_dim_256_match_jax_rules(sq, sk, causal):
-    """At d = 256 (``fa_tc_geometry(256)``: one 64-row slab a block, both
-    warpgroups on it) each backward kernel runs the JAX kernels' (q tile,
-    k tile) pairs, the masked arithmetic where `_mask_split` asks for it,
-    each pair once in each of the two column groups, and a block streams
-    exactly the tiles its slab uses. (The forward's 32-key tiles:
+    """At d = 256 (``fa_tc_geometry(256)``) the dq kernel (128-row blocks,
+    each warpgroup its 64 rows and all columns, over 32-key tiles) runs
+    the (q tile, k tile) pairs at 32-key tiles that hold a pair a real row
+    keeps, each once (the JAX rule's at 64-key tiles, which a q tile past
+    sq reaches no further than its real rows; at 32 it would run tiles
+    past them), the masked arithmetic where the tile drops a pair of a
+    real row (`_mask_split`'s rule), and a block streams exactly the tiles
+    its warpgroups use; the dk / dv kernel (one 64-key
+    slab a block, both warpgroups on it) runs the JAX dk / dv kernel's
+    pairs once in each warpgroup (the one's S^T, p and dV, the other's
+    dP^T, ds and dK), and a block streams exactly the tiles its slab
+    uses. (The forward's 32-key tiles:
     ``test_tc_fwd_plan_visits_each_pair_once``.)"""
     g = fa_tc_geometry(256)
-    assert (g.slabs, g.block_rows, g.cols) == (1, 64, 128)
+    assert (g.dq_block_rows, g.dq_tile_rows, g.cols) == (128, 32, 256)
+    assert (g.dkv_slabs, g.dkv_block_rows) == (1, 64)
+    blocks, loads, steps = _tc_dq_plan(sq, sk, causal, tile=g.dq_tile_rows)
+    assert blocks == g.dq_blocks(sq) == len(loads)
+    got = {(qt, kt): masked for qt, kt, masked in steps}
+    assert len(got) == len(steps)
+    assert got == _live_pairs(sq, sk, causal, g.dq_tile_rows)
+    assert _live_pairs(sq, sk, causal, 64) == _jax_pairs(sq, sk, causal)
+    for b in range(blocks):
+        used = [kt for qt, kt, _ in steps if qt // 2 == b]
+        assert loads[b] == (max(used) + 1 if used else 0)
+    blocks, loads, steps = _tc_dkv_plan(sq, sk, causal, slabs=g.dkv_slabs)
+    assert blocks == g.dkv_blocks(sk) == len(loads)
+    assert len(set(steps)) == len(steps)
     want = _jax_pairs(sq, sk, causal)
-    for plan, rows, pair in ((_tc_dq_plan, sq, lambda s: s[:2]),
-                             (_tc_dkv_plan, sk, lambda s: s[1::-1])):
-        blocks, loads, steps = plan(sq, sk, causal, slabs=g.slabs)
-        assert blocks == g.blocks(rows) == len(loads)
-        assert len(set(steps)) == len(steps)
-        for cg in range(2):
-            got = {pair(s): s[2] for s in steps if s[3] == cg}
-            assert got == want
-        for b in range(blocks):
-            used = {s[1] for s in steps if s[0] == b}
-            if plan is _tc_dkv_plan:
-                first, end = loads[b]
-                assert used == set(range(first, end)) or not used
-            else:
-                assert loads[b] == (max(used) + 1 if used else 0)
+    for role in range(2):
+        got = {(qt, kt): m for kt, qt, m, r in steps if r == role}
+        assert got == want
+    for b, (first, end) in enumerate(loads):
+        used = {s[1] for s in steps if s[0] == b}
+        assert used == set(range(first, end)) or not used
 
 
 @pytest.mark.parametrize("causal", [True, False])

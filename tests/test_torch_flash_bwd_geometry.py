@@ -9,9 +9,16 @@ streamed rows and d columns once each, the grid covering
 every row, the tiles a causal block visits against a count of the tiles
 holding any unmasked (query, key) pair, dq's heaviest-first order, and
 the ``constexpr`` values of the source (``BwdGeometry<d>``) against the
-Python mirror; and that the bf16 tensor-core pair
-(``csrc/flash_bwd_{dq,dkv}_wgmma.cu``) waits without a trap instruction.
-No JAX: nothing here has a counterpart there.
+Python mirror; and of the bf16 tensor-core pair
+(``csrc/flash_bwd_{dq,dkv}_wgmma.cu``, ``fa_tc_geometry``): that it waits
+without a trap instruction, that each kernel's shared memory, its regions
+laid out one after another on their boundaries, fits a Hopper block, that
+each product of the backward runs once a block at every width (the
+warpgroups' shares of S, dP and dQ, or of S^T, dP^T, dV and dK, counted
+element by element), and that p's exchange between dk / dv's warpgroups
+at d = 256 hands each thread back the values of its own fragment, each
+warp's accesses one contiguous run. No JAX: nothing here has a
+counterpart there.
 """
 
 import re
@@ -20,7 +27,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from apex_tpu_torch.ops.tiling import FA_HEAD_DIMS, fa_fma_bwd_geometry
+from apex_tpu_torch.ops.tiling import (FA_HEAD_DIMS, fa_fma_bwd_geometry,
+                                       fa_tc_geometry)
 
 SRC = (Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
        / "flash_attention_bwd.cu")
@@ -218,3 +226,148 @@ def test_tensor_core_pair_waits_without_a_trap(src):
     assert not re.search(r"\bmbar_wait\s*\(", code)
     assert "__trap" not in code
     assert re.search(r"\bmbar_wait_nt\s*\(", code)
+
+
+def _packed(regions):
+    """Bytes of ``[(bytes, align), ...]`` laid out in order, each region
+    starting on its alignment, plus the 1 KB a kernel spends aligning its
+    dynamic shared memory to 1024 bytes."""
+    at = 0
+    for size, align in regions:
+        at = -(-at // align) * align + size
+    return at + 1024
+
+
+@WIDTHS
+def test_tensor_core_pair_fits_a_block(d):
+    """Each tensor-core backward kernel's shared memory from its regions
+    (swizzled tiles on 1024-byte boundaries, the l2 / D slices, 8-byte
+    barriers) against the mirror's count and a Hopper block's 232,448
+    bytes. dq: Q and dO of the block's 128 rows, each stage's K and V
+    tiles, full and empty a stage, Q / dO's and a sink. dk / dv: K and V of
+    its keys, each stage's Q and dO, at d = 256 two buffers of p's exchange
+    (fp32), each stage's 64 l2 and 64 D, full and empty a stage and K /
+    V's."""
+    g = fa_tc_geometry(d)
+    row = d * 2
+    dq = ([(g.dq_block_rows * row, 1024)] * 2
+          + [(g.dq_tile_rows * row, 1024)] * (2 * g.dq_stages)
+          + [(8, 8)] * (2 * g.dq_stages + 2))
+    assert _packed(dq) == g.dq_smem_bytes <= SMEM_LIMIT
+    x = [(64 * g.dkv_tile_rows * 4, 1024)] * 2 if g.dkv_slabs == 1 else []
+    dkv = ([(g.dkv_block_rows * row, 1024)] * 2
+           + [(g.dkv_tile_rows * row, 1024)] * (2 * g.dkv_stages) + x
+           + [(g.dkv_tile_rows * 4, 4)] * (2 * g.dkv_stages)
+           + [(8, 8)] * (2 * g.dkv_stages + 1))
+    assert _packed(dkv) == g.dkv_smem_bytes <= SMEM_LIMIT
+    assert g.exchange_bytes == (16384 if d == 256 else 0)
+
+
+def _dq_shares(g):
+    """For one dq block and one key tile, how often each (row, key) of S
+    (and of dP: the same shape) and each (row, column, key) term of dQ = dS
+    K is computed over both warpgroups: each warpgroup its 64 of the
+    block's 128 rows, S and dP over the tile's keys, dQ over all of its
+    rows' columns."""
+    s = np.zeros((g.dq_block_rows, g.dq_tile_rows), dtype=int)
+    dq = np.zeros((g.dq_block_rows, g.head_dim, g.dq_tile_rows), dtype=int)
+    for wg in range(2):
+        rows = slice(64 * wg, 64 * wg + 64)
+        s[rows] += 1
+        dq[rows, :g.cols] += 1
+    return s, dq
+
+
+def _dkv_shares(g):
+    """The same for one dk / dv block and one query tile: S^T and dP^T over
+    (key, query), dV and dK over (key, column, query). Two slabs: each
+    warpgroup all four on its 64 keys. One slab (d = 256): warpgroup 0
+    S^T and dV, warpgroup 1 dP^T and dK, over the slab's keys, the tile's
+    queries and all columns."""
+    shape = (g.dkv_block_rows, g.dkv_tile_rows)
+    st, dpt = np.zeros(shape, dtype=int), np.zeros(shape, dtype=int)
+    wide = (g.dkv_block_rows, g.head_dim, g.dkv_tile_rows)
+    dv, dk = np.zeros(wide, dtype=int), np.zeros(wide, dtype=int)
+    for wg in range(2):
+        if g.dkv_slabs == 2:
+            keys = slice(64 * wg, 64 * wg + 64)
+            for a in (st, dpt, dv, dk):
+                a[keys] += 1
+        else:
+            for a in ((st, dv) if wg == 0 else (dpt, dk)):
+                a[:, :g.cols] += 1
+    return st, dpt, dv, dk
+
+
+@WIDTHS
+def test_tensor_core_pair_runs_each_product_once(d):
+    """At every width each product of the backward runs once a block: every
+    (row, key) of S and dP, every (row, column, key) term of dQ, every
+    (key, query) of S^T and dP^T and every (key, column, query) term of dV
+    and dK exactly once over the two warpgroups. The tensor-core work of a
+    block is then 3/3 of one S, one dP and one dQ (dq) and 4/4 of one S^T,
+    dP^T, dV and dK (dk / dv); at d = 256 the layouts these replace (one
+    64-row slab a block, both warpgroups running its S and dP, or its S^T
+    and dP^T, each half of the outputs' columns) did 5/3 and 6/4."""
+    g = fa_tc_geometry(d)
+    s, dq = _dq_shares(g)
+    assert (s == 1).all() and (dq == 1).all()
+    assert 2 * s.sum() * d + dq.sum() == \
+        3 * g.dq_block_rows * g.dq_tile_rows * d
+    shares = _dkv_shares(g)
+    assert all((a == 1).all() for a in shares)
+    st, dpt, dv, dk = shares
+    assert (st.sum() + dpt.sum()) * d + dv.sum() + dk.sum() == \
+        4 * g.dkv_block_rows * g.dkv_tile_rows * d
+    if d == 256:
+        # the replaced layouts, per 64 x 64 tile: S and dP (or S^T and dP^T)
+        # in both warpgroups, dQ (or dV and dK) once
+        unit = 64 * 64 * d
+        assert (2 * 2 * unit + unit) * 3 == 5 * (3 * unit)
+        assert (2 * 2 * unit + 2 * unit) * 4 == 6 * (4 * unit)
+
+
+@pytest.mark.parametrize("warp", range(4))
+def test_tensor_core_p_exchange_round_trips(warp):
+    """dk / dv at d = 256 (``dkv_pbuf``): thread t (warp w, lane l) of the
+    dV warpgroup stores its 32 values of p (keys 16 w + l / 4 and + 8,
+    queries 8 j + 2 (l % 4) + {0, 1}: element 4 j + 2 h + {0, 1}) as
+    eight 16-byte chunks, chunk h of elements 4 h .. 4 h + 3 at (128 h +
+    t) * 16 bytes of a buffer of ``exchange_bytes``; thread t of the dK
+    warpgroup, whose dP^T fragment holds the same (key, query) pairs,
+    loads chunks 2 kk and 2 kk + 1 for its step of depth kk. Each (key,
+    query) of the 64 x 64 is stored once and read back by the thread
+    that holds it, and each warp's store (or load) of one chunk is one
+    run of 512 contiguous bytes. Under dropout a dropped entry's p (>= 0)
+    is stored negated: the sign bit carries the keep bit, -0 for 0
+    included, and the magnitude p's bits unchanged."""
+    p = np.array([0.0, 1e-38, 2.5e-8, 0.37, 1.0], dtype=np.float32)
+    stored = np.where(np.array([0, 1, 0, 1, 0]) == 1, p, -p)
+    assert list(stored.view(np.int32) < 0) == [True, False, True, False,
+                                                True]
+    assert np.array_equal(np.abs(stored).view(np.int32), p.view(np.int32))
+    g = fa_tc_geometry(256)
+    owner = {}
+    for t in range(128):
+        w, lane = t // 32, t % 32
+        for x in range(32):
+            j, e = x // 4, x % 4
+            pair = (16 * w + lane // 4 + 8 * (e >> 1),
+                    8 * j + 2 * (lane % 4) + (e & 1))
+            at = (128 * (x // 4) + t) * 16 + 4 * (x % 4)
+            assert at < g.exchange_bytes and pair not in owner
+            owner[pair] = (t, at)
+    assert len(owner) == 64 * 64
+    stored = {at: pair for pair, (t, at) in owner.items()}
+    for lane in range(32):
+        t = 32 * warp + lane
+        for kk in range(4):
+            for e in range(8):
+                x = 8 * kk + e
+                chunk = 2 * kk + e // 4
+                at = (128 * chunk + t) * 16 + 4 * (e % 4)
+                pair = stored[at]
+                assert owner[pair][0] == t
+    for h in range(8):
+        runs = sorted((128 * h + 32 * warp + lane) * 16 for lane in range(32))
+        assert runs == list(range(runs[0], runs[0] + 512, 16))

@@ -301,40 +301,55 @@ def test_tensor_core_forward_block_mirrors_the_source(d):
 @WIDTHS
 def test_tensor_core_blocks_mirror_the_sources(src, d):
     """``fa_tc_geometry(d)`` against each tensor-core backward source's
-    ``Layout<d>``: its slabs and stages; the shared memory the kernel asks
-    for (evaluated from the source), within a Hopper block's; the two
-    consumer warpgroups (slab, column group)
-    cover the block's output rows and each head dim column exactly once,
-    64 fp32 accumulators a thread for each 64 columns they hold."""
+    ``Layout<d>``, evaluated: dq's 128-row block, key tile, stages and
+    columns; dk / dv's slabs, stages, columns and exchange buffer; the
+    shared memory each kernel asks for, within a Hopper block's; the two
+    consumer warpgroups cover each output's block rows and head dim
+    columns exactly once (dk / dv at one slab a block: the one warpgroup
+    dv, the other dk), each holding 64 fp32 an output a thread for each
+    64 columns, at most 128."""
     g = fa_tc_geometry(d)
-    text = (CSRC / src).read_text()
-    body = re.search(r"struct Layout \{(.*?)\};", text, re.S).group(1)
-    c = {m.group(1): " ".join(m.group(2).split()) for m in re.finditer(
-        r"static constexpr int (k\w+) = ([^;]+);", body)}
-    assert _ternary(c["kSlabs"], d) == g.slabs
-    assert _ternary(c["kStages"], d) == g.stages
-    assert c["kCols"] == "kD * kSlabs / 2"
-    smem = _layout_values(src, d)["kSmemBytes"]
-    assert smem == (g.dq_smem_bytes if "_dq_" in src else g.dkv_smem_bytes)
+    c = _layout_values(src, d)
+    assert c["kCols"] == g.cols == d and g.cols // 64 * 32 <= 128
+    if "_dq_" in src:
+        assert c["kBQ"] == g.dq_block_rows == 128
+        assert c["kBK"] == g.dq_tile_rows and c["kStages"] == g.dq_stages
+        assert c["kE"] == g.dq_tile_rows // 2
+        assert c["kSmemBytes"] == g.dq_smem_bytes
+        held = {"dq": np.zeros((128, d), dtype=int)}
+        for wg in range(2):
+            held["dq"][64 * wg:64 * wg + 64, :] += 1
+        assert g.dq_blocks(1000) * g.dq_block_rows >= 1000
+    else:
+        assert c["kSlabs"] == g.dkv_slabs and c["kStages"] == g.dkv_stages
+        assert c["kBK"] == g.dkv_block_rows
+        assert c["kXBytes"] == g.exchange_bytes
+        assert c["kSmemBytes"] == g.dkv_smem_bytes
+        held = {o: np.zeros((g.dkv_block_rows, d), dtype=int)
+                for o in ("dk", "dv")}
+        for wg in range(2):
+            if g.dkv_slabs == 2:
+                for o in ("dk", "dv"):
+                    held[o][64 * wg:64 * wg + 64, :] += 1
+            else:
+                held["dv" if wg == 0 else "dk"][:, :] += 1
+        assert g.dkv_slabs * g.cols // 2 <= 128
+        assert g.dkv_blocks(1000) * g.dkv_block_rows >= 1000
+    assert all((h == 1).all() for h in held.values())
     assert max(g.dq_smem_bytes, g.dkv_smem_bytes) <= SMEM_LIMIT
-    held = np.zeros((g.block_rows, d), dtype=int)
-    for wg in range(2):
-        slab, cg = (wg, 0) if g.slabs == 2 else (0, wg)
-        held[64 * slab:64 * slab + 64, cg * g.cols:(cg + 1) * g.cols] += 1
-    assert (held == 1).all()
-    assert g.cols // 64 * 32 <= 64   # o / dq; dk and dv twice that
-    assert g.blocks(1000) * g.block_rows >= 1000
 
 
 def test_tensor_core_smem_matches_the_kernels_sums():
     """The mirror's bytes at the widths the sources were sized for: the
     forward 165,000 at d = 64, 214,120 at d = 128 and 222,344 at d = 256;
     the backward pair at d = 128 and 256 (dq with a sink barrier beside a
-    stage's two), all under the 232,448 a block may have."""
+    stage's two; at d = 256 dq's 128 rows of Q and dO and three stages of
+    32-key K and V, dk / dv's two buffers of p's exchange), all under the
+    232,448 a block may have."""
     assert fa_tc_fwd_geometry(64).smem_bytes == 165000
     assert fa_tc_fwd_geometry(128).smem_bytes == 214120
     assert fa_tc_fwd_geometry(256).smem_bytes == 222344
     assert fa_tc_geometry(128).dq_smem_bytes == 197712
     assert fa_tc_geometry(128).dkv_smem_bytes == 199752
-    assert fa_tc_geometry(256).dq_smem_bytes == 197680
-    assert fa_tc_geometry(256).dkv_smem_bytes == 198696
+    assert fa_tc_geometry(256).dq_smem_bytes == 230464
+    assert fa_tc_geometry(256).dkv_smem_bytes == 231464

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import re
 import subprocess
@@ -122,8 +123,15 @@ def stamped(text: str, which: str) -> str:
 
 
 def phases(text: str) -> dict:
-    """``{slot: phase name}`` of the stamped source's points."""
-    return {int(m.group(1)): m.group(3) for m in _POINT.finditer(text)}
+    """``{slot: phase name}`` of the stamped source's points (the names of
+    one slot in the tiles of two layouts, d <= 128 and 256, joined by
+    " | ")."""
+    out = {}
+    for m in _POINT.finditer(text):
+        names = out.setdefault(int(m.group(1)), [])
+        if m.group(3) not in names:
+            names.append(m.group(3))
+    return {slot: " | ".join(names) for slot, names in out.items()}
 
 
 def build(root: Path, tmp: Path, flags: list, subs=(),
@@ -246,6 +254,29 @@ def sass_spills(so: Path, kernel: str, args: str, context: int = 6) -> list:
     return out
 
 
+def stamp_counts(root: Path, d: int, sq: int, sk: int) -> tuple:
+    """``(tiles, blocks)`` that a stamp buffer must hold for the tree at
+    ROOT at head dim ``d``: the most tiles a consumer warpgroup counts
+    (dq: key tiles, dk / dv: query tiles) and the most blocks either
+    kernel's grid.x has, from that tree's own ``fa_tc_geometry(d)`` (its
+    ``ops/tiling.py``, loaded from ROOT: two trees may lay the kernels out
+    differently). A tree whose geometry names no per-kernel tiles streams
+    64-row tiles in blocks of at least 64 rows."""
+    spec = importlib.util.spec_from_file_location(
+        "_split_tiling", root / "apex_tpu_torch" / "ops" / "tiling.py")
+    tiling = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = tiling  # its dataclasses look themselves up
+    try:
+        spec.loader.exec_module(tiling)
+        g = tiling.fa_tc_geometry(d)
+    finally:
+        del sys.modules[spec.name]
+    if not hasattr(g, "dq_tile_rows"):
+        return max(-(-sq // 64), -(-sk // 64)), -(-max(sq, sk) // 64)
+    return (max(-(-sk // g.dq_tile_rows), -(-sq // g.dkv_tile_rows)),
+            max(g.dq_blocks(sq), g.dkv_blocks(sk)))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=".")
@@ -337,9 +368,8 @@ def main(argv=None) -> int:
                                      *geo, stream)
                         if err:
                             raise RuntimeError(f"{entry}: cudaError {err}")
-                    tiles = max(-(-sq // 64), -(-sk // 64))
-                    blocks = -(-max(sq, sk) // 64) * b * h  # at most
-                    buf = torch.zeros(blocks * 2 * tiles * SLOTS,
+                    tiles, blocks = stamp_counts(root, d, sq, sk)
+                    buf = torch.zeros(blocks * b * h * 2 * tiles * SLOTS,
                                       dtype=torch.int64, device=dev)
                     if stamp:
                         lib.apex_split_set.argtypes = [ctypes.c_void_p,
@@ -363,8 +393,11 @@ def main(argv=None) -> int:
                     buf.zero_()
                     call(sets[0])
                     torch.cuda.synchronize()
-                    used = sorted(names)
-                    t = buf.view(-1, tiles, SLOTS)[:, :, used].double()
+                    # the slots this layout stamps
+                    view = buf.view(-1, tiles, SLOTS)
+                    used = [s for s in sorted(names)
+                            if bool((view[:, :, s] > 0).any())]
+                    t = view[:, :, used].double()
                     full = (t > 0).all(-1)
                     t = t[full]
                     rec["tiles"] = int(full.sum())
