@@ -27,8 +27,10 @@
 // The TPU wrapper folds a power-of-two scale into q (`_fold_scale`);
 // scaling by a power of two commutes with rounding, so multiplying ds by
 // the scale, as here, gives the same dk bits, and the scores the same
-// values. Every sum runs in the plain version's sequential order (each
-// score over d = 0..63, each gradient over keys or queries in order).
+// values. Every gradient sums over keys or queries in order; a score sums
+// over d in the plain version's sequential order at d = 64 and 128, and at
+// d = 256 as four sequential sums over 64 columns each (d = 0..63, 64..127,
+// ...), added in that order: ((s0 + s1) + s2) + s3.
 //
 // What bounds it on this card: operations, on the FMA pipes. At GPT-2's
 // shapes (b = 4, h = 12, s = 1024, d = 64, causal) the two kernels do
@@ -82,7 +84,8 @@
 // - Exactness. The score is __fmul_rn / __fadd_rn (no FMA contraction),
 //   p exp(s - lse) with exact zeros where masked; each block owns its
 //   output rows, with no atomics: two runs give the same bits, and each
-//   sum runs in the plain version's order.
+//   sum runs in the order stated above (the plain version's, apart from a
+//   d = 256 score's four parts).
 // - Head dim 128 (the template parameter kD; the wrapper pads any other d
 //   up to the next compiled width with zero columns). 128-row blocks of
 //   132-float rows would not fit a block's shared memory (dq 338 KB, dK·dV
@@ -93,14 +96,30 @@
 //   per group. The p / ds strips hold the tile's 32 columns (36-float
 //   rows). dq takes 144 KB, dK·dV 154 KB: one block an SM.
 // - Head dim 256. 260-float rows: 64-row blocks over 32-row tiles would
-//   take 269 KB (dq) and 279 KB (dK·dV), and a warp pair's lane would hold
-//   four 8 x 4 blocks of each output (dK·dV: 256 accumulators, past the
-//   255 registers of a thread). So a block owns kBM = 32 rows, one group
-//   of kSplit = 4 warps (128 threads) where smaller widths have pairs
-//   (kSplit = 2): warp `part` of the group takes a quarter of the tile's
-//   32 streamed rows (an 8 x 1 micro-tile of S or dP) and a quarter of d,
-//   two 32-column groups, so a lane holds two 8 x 4 blocks of each output
-//   as at d = 128. dq takes 200 KB, dK·dV 205 KB: one block an SM.
+//   take 269 KB (dq) and 279 KB (dK·dV), so a block owns kBM = 32 rows
+//   over kBN = 32-row tiles, one block an SM. Split by streamed rows among
+//   four warps, a lane's share of a 32 x 32 score is an 8 x 1 micro-tile
+//   (9 loads for 32 FFMAs) and each scheduler holds one warp. So the
+//   scores are split by depth (kScoreParts = 4) and the block's kSplit = 8
+//   warps run S and dP side by side: warp (product, part) sums its
+//   product's whole 32 x 32 tile over its 64 columns of d, an 8 x 4
+//   micro-tile a lane as at d = 64, and the four partial scores of an entry
+//   meet in shared memory. The product's warp that owns an entry's column
+//   (kOwnCols of a lane's four) finishes it: the other three store their
+//   partials in three planes (kScoreParts - 1 strips of kSStride = 40-float
+//   rows, so that a warp's 4-byte stores fall in 32 banks, one set for S,
+//   one for dP), and the owning lane adds its own partial from registers
+//   in part order. S's owner writes p over its first plane's entry, dP's
+//   owner then reads it back and writes ds * scale over its own (dK·dV: and
+//   p * keep over p), entries only those two lanes touch. Four block
+//   barriers a tile: the tile landed, the partials stored, p written, the
+//   strips written. Each warp then takes an eighth of d of every output,
+//   rows ly + 4i by 4 columns (dK·dV: both products in one loop). A
+//   16-byte load costs the shared memory two passes where a quarter-warp
+//   reads one or two addresses and four where it reads four or more
+//   (tools/smem_wavefronts.py measures it), so every product's loads are
+//   one row a quarter and eight streamed rows, as at d = 64. dq takes 225
+//   KB, dK·dV 225.5 KB.
 // The geometry is mirrored by fa_fma_bwd_geometry(d) in ops/tiling.py.
 //
 // C interface (bound with ctypes): every pointer and the stream are
@@ -124,9 +143,12 @@ constexpr float kMaskEdge = 0.5f * kNegInf;
 
 // What depends on the head dim kD (64, 128 or 256): the rows a block owns
 // (kBM), the rows of a streamed tile (kBN), the padded row stride of Q, K,
-// V and dO (floats), within a block's shared memory, and the warps that
-// share a group's rows (kSplit), each a 1 / kSplit part of the tile's
-// streamed rows and of d.
+// V and dO (floats), within a block's shared memory, the padded row stride
+// of a p / ds strip (kSStride), the warps that share a group's rows
+// (kSplit), each a 1 / kSplit part of the tile's streamed rows and of d,
+// and the parts of d that a score is split into (kScoreParts): 1, each
+// warp's scores over all of d for its part of the streamed rows, or
+// kSplit, each warp's over its part of d for all of them.
 template <int kD>
 struct BwdGeometry;
 template <>
@@ -134,21 +156,27 @@ struct BwdGeometry<64> {
   static constexpr int kBM = 128;
   static constexpr int kBN = 64;
   static constexpr int kStride = 68;
+  static constexpr int kSStride = 68;
   static constexpr int kSplit = 2;
+  static constexpr int kScoreParts = 1;
 };
 template <>
 struct BwdGeometry<128> {
   static constexpr int kBM = 64;
   static constexpr int kBN = 32;
   static constexpr int kStride = 132;
+  static constexpr int kSStride = 36;
   static constexpr int kSplit = 2;
+  static constexpr int kScoreParts = 1;
 };
 template <>
 struct BwdGeometry<256> {
   static constexpr int kBM = 32;
   static constexpr int kBN = 32;
   static constexpr int kStride = 260;
-  static constexpr int kSplit = 4;
+  static constexpr int kSStride = 40;
+  static constexpr int kSplit = 8;
+  static constexpr int kScoreParts = 4;
 };
 
 template <int kD>
@@ -156,34 +184,65 @@ struct Bwd : BwdGeometry<kD> {
   using BwdGeometry<kD>::kBM;
   using BwdGeometry<kD>::kBN;
   using BwdGeometry<kD>::kStride;
+  using BwdGeometry<kD>::kSStride;
   using BwdGeometry<kD>::kSplit;
+  using BwdGeometry<kD>::kScoreParts;
   // groups of kGroupRows rows, kSplit warps each
   static constexpr int kThreads = 32 * kSplit * kBM / kGroupRows;
-  // a lane's streamed rows lx + kColStep * j, j < kNJ, in its warp's part
+  // kScoreParts = 1: a lane's streamed rows lx + kColStep * j, j < kNJ, in
+  // its warp's part
   static constexpr int kNJ = kBN / (kSplit * kColStep);
   // 32-column groups of d in a warp's part of an output
   static constexpr int kGroups = kD / (32 * kSplit);
-  static constexpr int kSStride = kBN + 4;  // padded row stride of a strip
+  // kScoreParts > 1: the score products that run side by side (S and dP,
+  // kScoreParts warps each), a lane's rows (kRowStep apart) and streamed
+  // rows (kColStep apart) of a score, the streamed rows whose entries its
+  // warp finishes, a lane's rows of the outputs (kRowStep apart) and a
+  // warp's output columns
+  static constexpr int kProducts = kSplit / kScoreParts;
+  static constexpr int kDMI = kBM / kRowStep;
+  static constexpr int kDNJ = kBN / kColStep;
+  static constexpr int kOwnCols = kDNJ / kScoreParts;
+  static constexpr int kOMI = kBM / kRowStep;
+  static constexpr int kOutCols = kD / kSplit;
+  // strips of kBM rows: dq's ds, dK·dV's p and ds; split by depth, the
+  // partial scores' planes of S and of dP, whose first planes hold them
+  static constexpr int kDqStrips = kScoreParts > 1 ? 2 * (kScoreParts - 1) : 1;
+  static constexpr int kDkvStrips = kScoreParts > 1 ? 2 * (kScoreParts - 1) : 2;
+  static constexpr int kStrip = kBM * kSStride;     // a strip
   static constexpr int kBlockTile = kBM * kStride;  // the block's rows
   static constexpr int kTile = kBN * kStride;       // a streamed tile
-  // dq: Q, dO, the ds strip, then K / V per stage
+  // dq: Q, dO, the strips, then K / V per stage
   static constexpr int kDqSmemFloats =
-      2 * kBlockTile + kBM * kSStride + kStages * 2 * kTile;
-  // dK·dV: K, V, the p and ds strips, Q / dO per stage, lse / D per stage
-  static constexpr int kDkvSmemFloats = 2 * kBlockTile + 2 * kBM * kSStride
+      2 * kBlockTile + kDqStrips * kStrip + kStages * 2 * kTile;
+  // dK·dV: K, V, the strips, Q / dO per stage, lse / D per stage
+  static constexpr int kDkvSmemFloats = 2 * kBlockTile + kDkvStrips * kStrip
                                         + kStages * 2 * kTile
                                         + kStages * 2 * kBN;
   static_assert(kStride == kD + 4, "the head dim padded by one chunk");
   static_assert(kStride % 4 == 0 && (kStride / 4) % 2 == 1 &&
-                    kSStride % 4 == 0 && (kSStride / 4) % 2 == 1,
+                    kSStride % 4 == 0,
                 "16-byte rows whose chunks fall in distinct banks");
-  static_assert(kNJ * kSplit * kColStep == kBN &&
-                    kGroups * 32 * kSplit == kD,
-                "a warp's part covers kBN / kSplit streamed rows and kD / "
-                "kSplit d columns");
+  static_assert(kScoreParts == 1
+                    ? kSStride == kBN + 4 &&
+                          kNJ * kSplit * kColStep == kBN &&
+                          kGroups * 32 * kSplit == kD
+                    : kSStride % 32 == 8 && kBM == kGroupRows &&
+                          kProducts * kScoreParts == kSplit &&
+                          kProducts == 2 && kBN % kColStep == 0 &&
+                          kDNJ % kScoreParts == 0 && kOutCols % 32 == 0 &&
+                          kThreads >= kBN,
+                "the lanes' parts of the scores and outputs");
   static_assert(kDkvSmemFloats * 4 <= 232448 && kDqSmemFloats * 4 <= 232448,
                 "a block's shared memory");
 };
+
+// A stamp of a tile's phase: nothing in the port's build;
+// tools/flash_bwd_split.py defines it in a copy of this source to read the
+// SM's clock there (slot `slot` of tile `tile`, a phase named `phase`)
+#ifndef APEX_SPLIT
+#define APEX_SPLIT(slot, tile, phase)
+#endif
 
 // `_bwd_p`: P = exp(s - lse), 0 where s or the row's lse is masked
 __device__ __forceinline__ float bwd_p(float s, float lse) {
@@ -309,16 +368,16 @@ __device__ __forceinline__ int dq_key_tiles(int q0, int sq, int sk,
   return causal ? min(n, (min(q0 + kBM, sq) - 1) / kBN + 1) : n;
 }
 
+// dq at d = 64 and 128 (kScoreParts = 1): each warp its rows' scores
+// over all of d for its part of the tile's keys
 template <int kD, bool kBias, bool kDropout, bool kDbias>
-__global__ void __launch_bounds__(Bwd<kD>::kThreads, 1)
-fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dvec, float* __restrict__ dq,
-                     int nbh, int sq, int sk, float scale, int causal,
-                     int vec, ScoreBias bias, Dropout drop,
-                     float* __restrict__ dlogits) {
+__device__ __forceinline__ void dq_rows(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    float* __restrict__ dq, int nbh, int sq, int sk, float scale,
+    int causal, int vec, const ScoreBias& bias, const Dropout& drop,
+    float* __restrict__ dlogits) {
   using G = Bwd<kD>;
   constexpr int kBM = G::kBM, kBN = G::kBN, kThreads = G::kThreads,
                 kStride = G::kStride, kSStride = G::kSStride,
@@ -372,6 +431,7 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
   const int grp_row0 = q0 + grp * kGroupRows;
 
   for (int kt = 0; kt < nk; ++kt) {
+    APEX_SPLIT(0, kt, "start");
     // tile kt has landed (of tile 0 the first group) for every thread,
     // and every warp is done with tile kt - 1: its stage and the strip
     // are free for tile kt + 1
@@ -380,6 +440,7 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
     else
       cp_async_wait<0>();
     __syncthreads();
+    APEX_SPLIT(1, kt, "wait tile");
     if (kt + 1 < nk) {
       load(kt + 1, 0);
       load(kt + 1, 1);
@@ -401,6 +462,7 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
       dq_p<kD, kBias>(srow, s, l, q0 + r0, k0 + c0, sq, sk, causal, scale,
                       bias, bs);
     }
+    APEX_SPLIT(2, kt, "S, p");
     if (kt == 0) {  // dO and the first V
       cp_async_wait<1>();
       __syncthreads();
@@ -424,13 +486,16 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
             dlb[(long long)row * sk + key] = dl;
           *e = dl * scale;
         }
+      APEX_SPLIT(3, kt, "dP, ds");
       group_sync<G::kSplit>(grp);  // the group's strip rows are whole
+      APEX_SPLIT(4, kt, "group barrier");
       // the 32-column groups of the warp's part of d, a product each
 #pragma unroll
       for (int g = 0; g < G::kGroups; ++g)
         out_product<kMI, kRowStep, kBN, kStride, kUnroll, kSStride>(
             acc[g], strip + r0 * kSStride,
             ks + part * (kD / G::kSplit) + 32 * g + lx * 4);
+      APEX_SPLIT(5, kt, "dQ");
     } else if (kDbias) {  // rows past sq, or (causal) keys none of them sees
 #pragma unroll
       for (int i = 0; i < kMI; ++i)
@@ -455,17 +520,16 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
                                   sq, vec);
 }
 
+// dK·dV at d = 64 and 128 (kScoreParts = 1): each warp its keys' scores
+// over all of d for its part of the tile's queries
 template <int kD, bool kBias, bool kDropout>
-__global__ void __launch_bounds__(Bwd<kD>::kThreads, 1)
-fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ dvec, float* __restrict__ dk,
-                      float* __restrict__ dv, int nbh, int sq, int sk,
-                      float scale, int causal, int vec, ScoreBias bias,
-                      Dropout drop) {
+__device__ __forceinline__ void dkv_rows(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    float* __restrict__ dk, float* __restrict__ dv, int nbh, int sq, int sk,
+    float scale, int causal, int vec, const ScoreBias& bias,
+    const Dropout& drop) {
   using G = Bwd<kD>;
   constexpr int kBM = G::kBM, kBN = G::kBN, kThreads = G::kThreads,
                 kStride = G::kStride, kSStride = G::kSStride,
@@ -529,6 +593,7 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
   const int grp_key0 = k0 + grp * kGroupRows;
 
   for (int it = 0; it < nq; ++it) {
+    APEX_SPLIT(0, it, "start");
     // tile it has landed (of tile 0 the first group) for every thread,
     // and every warp is done with tile it - 1: its stage and the strips
     // are free for tile it + 1
@@ -537,6 +602,7 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
     else
       cp_async_wait<0>();
     __syncthreads();
+    APEX_SPLIT(1, it, "wait tile");
     if (it + 1 < nq) {
       load(it + 1, 0);
       load(it + 1, 1);
@@ -561,6 +627,7 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
       dkv_p<kD, kBias>(prow, s, ls, k0 + r0, q0, c0, sq, sk, causal, scale,
                        bias, bs);
     }
+    APEX_SPLIT(2, it, "S^T, p");
     if (it == 0) {  // V, the first dO and D
       cp_async_wait<1>();
       __syncthreads();
@@ -587,7 +654,9 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
             drow[e] = prow[e] * (s[i][j] - ds[c0 + kColStep * j]) * scale;
           }
         }
+      APEX_SPLIT(3, it, "dP^T, ds");
       group_sync<G::kSplit>(grp);  // the group's strip rows are whole
+      APEX_SPLIT(4, it, "group barrier");
       // the 32-column groups of the warp's part of d, a loop each
 #pragma unroll
       for (int g = 0; g < G::kGroups; ++g) {
@@ -595,6 +664,7 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
         out_product2<kD>(av[g], pst + r0 * kSStride, dos + col, ak[g],
                          dst + r0 * kSStride, qs + col);
       }
+      APEX_SPLIT(5, it, "dV, dK");
     }
   }
   cp_async_wait<0>();
@@ -606,6 +676,495 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
     store_rows<kMI, kRowStep, kD>(dv + bh * sk * kD, av[g], k0 + r0, col,
                                   sk, vec);
   }
+}
+
+// Split by depth (d = 256, kScoreParts > 1). The block's warps run S and
+// dP side by side: warp w = (product, part) = (w / kScoreParts, w %
+// kScoreParts) sums its product's whole tile (all kBM rows, all kBN
+// streamed rows) over d columns kPartD part .. + kPartD - 1; lane (ly, lx)
+// = (lane / 8, lane % 8) holds rows ly + kRowStep i (i < kDMI) by
+// streamed rows lx + kColStep j (j < kDNJ): a quarter-warp reads one row
+// of its own operand and eight of the streamed one. Of those entries the
+// product's warp o finishes columns j = kOwnCols o .. + kOwnCols - 1, so
+// each other warp of the product stores its partials of them into the
+// plane numbered by its rank among the non-owners (`planes`: kScoreParts
+// - 1 strips of kSStride-float rows, entry (row, col) at row * kSStride +
+// col; a warp's 32 stores of one (i, j) fall in 32 banks).
+template <int kD>
+__device__ __forceinline__ void put_partials(
+    float* planes, const float (&s)[Bwd<kD>::kDMI][Bwd<kD>::kDNJ], int part,
+    int row0, int lx) {
+  using G = Bwd<kD>;
+#pragma unroll
+  for (int j = 0; j < G::kDNJ; ++j) {
+    const int owner = j / G::kOwnCols;
+    if (owner == part) continue;
+    float* e = planes + (part - (part > owner)) * G::kStrip +
+               row0 * G::kSStride + lx + kColStep * j;
+#pragma unroll
+    for (int i = 0; i < G::kDMI; ++i) e[kRowStep * i * G::kSStride] = s[i][j];
+  }
+}
+
+// The warp's own partials of the entries it finishes: columns j =
+// kOwnCols * part + jj of `s` (a selection by the warp's part, kept in
+// registers)
+template <int kD>
+__device__ __forceinline__ void own_partials(
+    float (&own)[Bwd<kD>::kDMI][Bwd<kD>::kOwnCols],
+    const float (&s)[Bwd<kD>::kDMI][Bwd<kD>::kDNJ], int part) {
+  using G = Bwd<kD>;
+#pragma unroll
+  for (int o = 0; o < G::kScoreParts; ++o)
+    if (o == part)
+#pragma unroll
+      for (int i = 0; i < G::kDMI; ++i)
+#pragma unroll
+        for (int jj = 0; jj < G::kOwnCols; ++jj)
+          own[i][jj] = s[i][G::kOwnCols * o + jj];
+}
+
+// The whole score of entry `e` (an offset within a plane) that the lane
+// finishes: the kScoreParts partials added in part order, its own `mine`
+// from registers, the others' from their planes
+template <int kD>
+__device__ __forceinline__ float whole_score(const float* planes, int e,
+                                             int part, float mine) {
+  using G = Bwd<kD>;
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < G::kScoreParts; ++w) {
+    const float x =
+        w == part ? mine : planes[(w - (w > part)) * G::kStrip + e];
+    s = w == 0 ? x : __fadd_rn(s, x);
+  }
+  return s;
+}
+
+// acc[c][i][u] += sum over the kN tile rows n, in order, of e_i[n] *
+// f[n][32 c + u]: e_i is row kRowStep i of the strip `e` (rows kEStride
+// floats apart), f the streamed tile (rows kStride apart) at the lane's
+// column; with kTwo also acc2 from e2 and f2 in the same loop. A lane's
+// output block is kOMI rows (ly + kRowStep i) by kChunks 4-column chunks
+// 32 apart.
+template <int kOMI, int kChunks, int kN, int kStride, int kEStride,
+          bool kTwo>
+__device__ __forceinline__ void out_chunks(float (&acc)[kChunks][kOMI][4],
+                                           const float* e, const float* f,
+                                           float (&acc2)[kChunks][kOMI][4],
+                                           const float* e2,
+                                           const float* f2) {
+#pragma unroll (kUnroll)
+  for (int n = 0; n < kN; n += 4) {
+    float4 ev[kOMI], fv[4][kChunks], ev2[kTwo ? kOMI : 1],
+        fv2[4][kTwo ? kChunks : 1];
+#pragma unroll
+    for (int i = 0; i < kOMI; ++i) {
+      const int at = kRowStep * i * kEStride + n;
+      ev[i] = *reinterpret_cast<const float4*>(e + at);
+      if constexpr (kTwo) ev2[i] = *reinterpret_cast<const float4*>(e2 + at);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        fv[t][c] =
+            *reinterpret_cast<const float4*>(f + (n + t) * kStride + 32 * c);
+        if constexpr (kTwo)
+          fv2[t][c] = *reinterpret_cast<const float4*>(f2 + (n + t) * kStride
+                                                       + 32 * c);
+      }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int i = 0; i < kOMI; ++i)
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[c][i][u] =
+                fmaf(part(ev[i], t), part(fv[t][c], u), acc[c][i][u]);
+            if constexpr (kTwo)
+              acc2[c][i][u] = fmaf(part(ev2[i], t), part(fv2[t][c], u),
+                                   acc2[c][i][u]);
+          }
+  }
+}
+
+// dq at d = 256: the scores split by depth (see put_partials), S by warps
+// 0 .. kScoreParts - 1 and dP by the others; the lane finishes the
+// entries of columns j = kOwnCols * part + jj of its product's
+// micro-tile, then holds rows ly + kRowStep i of dQ at the warp's
+// kOutCols columns (chunks 4 lx + 32 c)
+template <int kD, bool kBias, bool kDropout, bool kDbias>
+__device__ __forceinline__ void dq_depth(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    float* __restrict__ dq, int nbh, int sq, int sk, float scale,
+    int causal, int vec, const ScoreBias& bias, const Dropout& drop,
+    float* __restrict__ dlogits) {
+  using G = Bwd<kD>;
+  constexpr int kBM = G::kBM, kBN = G::kBN, kThreads = G::kThreads,
+                kStride = G::kStride, kSStride = G::kSStride,
+                kTile = G::kTile, kBlockTile = G::kBlockTile,
+                kMI = G::kDMI, kNJ = G::kDNJ, kOwn = G::kOwnCols,
+                kPartD = kD / G::kScoreParts, kChunks = G::kOutCols / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // [kBM][kStride]
+  float* dos = qs + kBlockTile;       // [kBM][kStride]
+  // [S, dP][kScoreParts - 1][kBM][kSStride]: the partial scores; S's first
+  // plane takes p, dP's the ds * scale strip
+  float* sparts = dos + kBlockTile;
+  float* dparts = sparts + (G::kScoreParts - 1) * G::kStrip;
+  // [kStages][K, V][kBN][kStride]
+  float* stage = sparts + G::kDqStrips * G::kStrip;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the warp's product (S or dP) and its part of d in the scores
+  const bool dpw = warp >= G::kScoreParts;
+  const int part = warp % G::kScoreParts;
+  const int ly = lane >> 3, lx = lane & 7;
+  const long long bh = block_head();
+  if (bh >= nbh) return;  // the last z-slice's spare blocks
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // heaviest first
+  const float* kb = k + bh * sk * kD;
+  const float* vb = v + bh * sk * kD;
+  const float* bs = kBias ? bias.slice(bh) : nullptr;
+  const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
+  float* dlb = kDbias ? dlogits + bh * sq * sk : nullptr;
+  const int nk = dq_key_tiles<kD>(q0, sq, sk, causal);
+
+  // K (which 0) and V (which 1) of tile kt into its stage
+  auto load = [&](int kt, int which) {
+    float* st = stage + (kt % kStages) * 2 * kTile + which * kTile;
+    copy_tile<kBN, kThreads, kD, kStride>(st, which == 0 ? kb : vb,
+                                          kt * kBN, sk, vec);
+  };
+  copy_tile<kBM, kThreads, kD, kStride>(qs, q + bh * sq * kD, q0, sq, vec);
+  copy_tile<kBM, kThreads, kD, kStride>(dos, dout + bh * sq * kD, q0, sq, vec);
+  if (nk > 0) {
+    load(0, 0);
+    load(0, 1);
+  }
+  cp_async_commit();
+
+  const int dcol = part * kPartD;  // the warp's part of d in the scores
+  const int ocol = warp * G::kOutCols + 4 * lx;  // its first dQ column
+  float l[kMI], dd[kMI];
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+    const int row = q0 + ly + kRowStep * i;
+    l[i] = row < sq ? lse[bh * sq + row] : kNegInf;
+    dd[i] = row < sq ? dvec[bh * sq + row] : 0.f;
+  }
+  float acc[kChunks][G::kOMI][4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) zero(acc[c]);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    APEX_SPLIT(0, kt, "start");
+    // tile kt has landed for every thread, and every warp is done with
+    // tile kt - 1: its stage, the planes and the strip are free for tile
+    // kt + 1
+    cp_async_wait<0>();
+    __syncthreads();
+    APEX_SPLIT(1, kt, "wait tile");
+    if (kt + 1 < nk) {
+      load(kt + 1, 0);
+      load(kt + 1, 1);
+    }
+    cp_async_commit();
+    const float* ks = stage + (kt % kStages) * 2 * kTile;
+    const float* vs = ks + kTile;
+    const int k0 = kt * kBN;
+    float own[kMI][kOwn];
+    {
+      float s[kMI][kNJ];
+      zero(s);
+      score_product<kMI, kRowStep, kColStep, kPartD, kStride, kUnroll>(
+          s, (dpw ? dos : qs) + ly * kStride + dcol,
+          (dpw ? vs : ks) + lx * kStride + dcol);
+      put_partials<kD>(dpw ? dparts : sparts, s, part, ly, lx);
+      own_partials<kD>(own, s, part);
+    }
+    APEX_SPLIT(2, kt, "S | dP part");
+    __syncthreads();  // every partial stored
+    APEX_SPLIT(3, kt, "partials barrier");
+    // the lane's entries: S's warps p over S's first plane; dP's warps dp
+    // times the keep factor, in registers
+    float dps[kMI][kOwn];
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+      const int r = ly + kRowStep * i, row = q0 + r;
+#pragma unroll
+      for (int jj = 0; jj < kOwn; ++jj) {
+        const int c = lx + kColStep * (kOwn * part + jj), key = k0 + c;
+        const int e = r * kSStride + c;
+        if (dpw) {
+          const float x = whole_score<kD>(dparts, e, part, own[i][jj]);
+          dps[i][jj] = kDropout ? x * drop.keep(dhead, row, key) : x;
+        } else {
+          const bool m = key >= sk || (causal && key > row);
+          // __fmul_rn / __fadd_rn: no FMA contraction, so the score is
+          // the plain version's round(round(q.k * scale) + bias)
+          float a = __fmul_rn(whole_score<kD>(sparts, e, part, own[i][jj]),
+                              scale);
+          if (kBias && !m && row < sq)
+            a = __fadd_rn(a, bias.at(bs, row, key));
+          sparts[e] = m ? 0.f : bwd_p(a, l[i]);
+        }
+      }
+    }
+    APEX_SPLIT(4, kt, "p | dp");
+    __syncthreads();  // p is written
+    APEX_SPLIT(5, kt, "p barrier");
+    if (dpw) {  // ds * scale = p (dp * keep - D) * scale over dP's plane
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+        const int r = ly + kRowStep * i, row = q0 + r;
+#pragma unroll
+        for (int jj = 0; jj < kOwn; ++jj) {
+          const int c = lx + kColStep * (kOwn * part + jj), key = k0 + c;
+          const int e = r * kSStride + c;
+          const float dl = sparts[e] * (dps[i][jj] - dd[i]);
+          if (kDbias && row < sq && key < sk)
+            dlb[(long long)row * sk + key] = dl;
+          dparts[e] = dl * scale;
+        }
+      }
+    }
+    __syncthreads();  // the strip is whole
+    APEX_SPLIT(6, kt, "ds, strip barrier");
+    out_chunks<G::kOMI, kChunks, kBN, kStride, kSStride, false>(
+        acc, dparts + ly * kSStride, ks + ocol, acc, nullptr, nullptr);
+    APEX_SPLIT(7, kt, "dQ");
+  }
+  cp_async_wait<0>();
+  if (kDbias) {  // the key tiles past the block's diagonal: zeros
+    const int kz = nk * kBN, w = sk - kz, rows = min(kBM, sq - q0);
+    for (long long t = threadIdx.x; w > 0 && t < (long long)rows * w;
+         t += kThreads)
+      dlb[(long long)(q0 + t / w) * sk + kz + t % w] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+    store_rows<G::kOMI, kRowStep, kD>(dq + bh * sq * kD, acc[c], q0 + ly,
+                                      ocol + 32 * c, sq, vec);
+}
+
+// dK·dV at d = 256: the scores S^T (keys x queries) and dP^T split by
+// depth as in dq_depth; the lane finishes the entries of columns
+// (queries) j = kOwnCols * part + jj of its product's micro-tile: p * keep
+// over S^T's first plane and ds * scale over dP^T's, the strips of dV and
+// dK, which every warp then sums in one loop (rows ly + kRowStep i, the
+// warp's kOutCols columns)
+template <int kD, bool kBias, bool kDropout>
+__device__ __forceinline__ void dkv_depth(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    float* __restrict__ dk, float* __restrict__ dv, int nbh, int sq, int sk,
+    float scale, int causal, int vec, const ScoreBias& bias,
+    const Dropout& drop) {
+  using G = Bwd<kD>;
+  constexpr int kBM = G::kBM, kBN = G::kBN, kThreads = G::kThreads,
+                kStride = G::kStride, kSStride = G::kSStride,
+                kTile = G::kTile, kBlockTile = G::kBlockTile,
+                kMI = G::kDMI, kNJ = G::kDNJ, kOwn = G::kOwnCols,
+                kPartD = kD / G::kScoreParts, kChunks = G::kOutCols / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                  // [kBM][kStride]
+  float* vs = ks + kBlockTile;       // [kBM][kStride]
+  // [S^T, dP^T][kScoreParts - 1][kBM][kSStride]: the partial scores; the
+  // first plane of each is the p * keep (ds * scale) strip
+  float* sparts = vs + kBlockTile;
+  float* dparts = sparts + (G::kScoreParts - 1) * G::kStrip;
+  // [kStages][Q, dO][kBN][kStride], then [kStages][lse, D][kBN]
+  float* stage = sparts + G::kDkvStrips * G::kStrip;
+  float* vecs = stage + kStages * 2 * kTile;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the warp's product (S^T or dP^T) and its part of d in the scores
+  const bool dpw = warp >= G::kScoreParts;
+  const int part = warp % G::kScoreParts;
+  const int ly = lane >> 3, lx = lane & 7;
+  const long long bh = block_head();
+  if (bh >= nbh) return;  // the last z-slice's spare blocks
+  const int k0 = blockIdx.y * kBM;  // the first key blocks see the most
+  const float* qb = q + bh * sq * kD;
+  const float* dob = dout + bh * sq * kD;
+  const float* lb = lse + bh * sq;
+  const float* db = dvec + bh * sq;
+  const float* bs = kBias ? bias.slice(bh) : nullptr;
+  const uint32_t dhead = kDropout ? drop.head(bh) : 0u;
+  // causal: query tiles below k0 see none of this block's keys
+  const int qt0 = causal ? k0 / kBN : 0;
+  const int nq = max(0, (sq + kBN - 1) / kBN - qt0);
+
+  // Q and the lse slice (which 0), dO and the D slice (which 1) of query
+  // tile it into its stage
+  auto load = [&](int it, int which) {
+    float* st = stage + (it % kStages) * 2 * kTile + which * kTile;
+    float* sv = vecs + (it % kStages) * 2 * kBN + which * kBN;
+    const int row0 = (qt0 + it) * kBN;
+    copy_tile<kBN, kThreads, kD, kStride>(st, which == 0 ? qb : dob, row0,
+                                          sq, vec);
+    const int r = threadIdx.x;
+    if (r < kBN) {
+      const bool ok = row0 + r < sq;
+      const float* src = which == 0 ? lb : db;
+      cp_async4(sv + r, ok ? src + row0 + r : src, ok);
+    }
+  };
+  copy_tile<kBM, kThreads, kD, kStride>(ks, k + bh * sk * kD, k0, sk, vec);
+  copy_tile<kBM, kThreads, kD, kStride>(vs, v + bh * sk * kD, k0, sk, vec);
+  if (nq > 0) {
+    load(0, 0);
+    load(0, 1);
+  }
+  cp_async_commit();
+
+  const int dcol = part * kPartD;  // the warp's part of d in the scores
+  const int ocol = warp * G::kOutCols + 4 * lx;  // its first dK / dV column
+  float ak[kChunks][G::kOMI][4], av[kChunks][G::kOMI][4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    zero(ak[c]);
+    zero(av[c]);
+  }
+
+  for (int it = 0; it < nq; ++it) {
+    APEX_SPLIT(0, it, "start");
+    // tile it has landed for every thread, and every warp is done with
+    // tile it - 1: its stage, the planes and the strips are free for tile
+    // it + 1
+    cp_async_wait<0>();
+    __syncthreads();
+    APEX_SPLIT(1, it, "wait tile");
+    if (it + 1 < nq) {
+      load(it + 1, 0);
+      load(it + 1, 1);
+    }
+    cp_async_commit();
+    const float* qs = stage + (it % kStages) * 2 * kTile;
+    const float* dos = qs + kTile;
+    const float* ls = vecs + (it % kStages) * 2 * kBN;
+    const float* ds = ls + kBN;
+    const int q0 = (qt0 + it) * kBN;
+    float own[kMI][kOwn];
+    {
+      float s[kMI][kNJ];
+      zero(s);
+      score_product<kMI, kRowStep, kColStep, kPartD, kStride, kUnroll>(
+          s, (dpw ? vs : ks) + ly * kStride + dcol,
+          (dpw ? dos : qs) + lx * kStride + dcol);
+      put_partials<kD>(dpw ? dparts : sparts, s, part, ly, lx);
+      own_partials<kD>(own, s, part);
+    }
+    APEX_SPLIT(2, it, "S^T | dP^T part");
+    __syncthreads();  // every partial stored
+    APEX_SPLIT(3, it, "partials barrier");
+    // the lane's entries: S^T's warps p over S^T's first plane; dP^T's
+    // warps dp, in registers
+    float dps[kMI][kOwn];
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+      const int r = ly + kRowStep * i, key = k0 + r;
+#pragma unroll
+      for (int jj = 0; jj < kOwn; ++jj) {
+        const int c = lx + kColStep * (kOwn * part + jj), qry = q0 + c;
+        const int e = r * kSStride + c;
+        if (dpw) {
+          dps[i][jj] = whole_score<kD>(dparts, e, part, own[i][jj]);
+        } else {
+          const bool m = key >= sk || qry >= sq || (causal && key > qry);
+          // __fmul_rn / __fadd_rn: no FMA contraction, so the score is
+          // the plain version's round(round(q.k * scale) + bias)
+          float a = __fmul_rn(whole_score<kD>(sparts, e, part, own[i][jj]),
+                              scale);
+          if (kBias && !m) a = __fadd_rn(a, bias.at(bs, qry, key));
+          sparts[e] = m ? 0.f : bwd_p(a, ls[c]);
+        }
+      }
+    }
+    APEX_SPLIT(4, it, "p | dp");
+    __syncthreads();  // p is written
+    APEX_SPLIT(5, it, "p barrier");
+    if (dpw) {  // ds * scale = p (dp * keep - D) * scale over dP^T's plane,
+                // p times its keep factor over S^T's
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+        const int r = ly + kRowStep * i, key = k0 + r;
+#pragma unroll
+        for (int jj = 0; jj < kOwn; ++jj) {
+          const int c = lx + kColStep * (kOwn * part + jj), qry = q0 + c;
+          const int e = r * kSStride + c;
+          const float p = sparts[e];
+          if (kDropout) {
+            const float keep = drop.keep(dhead, qry, key);
+            dparts[e] = p * (dps[i][jj] * keep - ds[c]) * scale;
+            sparts[e] = p * keep;
+          } else {
+            dparts[e] = p * (dps[i][jj] - ds[c]) * scale;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the strips are whole
+    APEX_SPLIT(6, it, "ds, strip barrier");
+    out_chunks<G::kOMI, kChunks, kBN, kStride, kSStride, true>(
+        av, sparts + ly * kSStride, dos + ocol, ak, dparts + ly * kSStride,
+        qs + ocol);
+    APEX_SPLIT(7, it, "dV, dK");
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    store_rows<G::kOMI, kRowStep, kD>(dk + bh * sk * kD, ak[c], k0 + ly,
+                                      ocol + 32 * c, sk, vec);
+    store_rows<G::kOMI, kRowStep, kD>(dv + bh * sk * kD, av[c], k0 + ly,
+                                      ocol + 32 * c, sk, vec);
+  }
+}
+
+template <int kD, bool kBias, bool kDropout, bool kDbias>
+__global__ void __launch_bounds__(Bwd<kD>::kThreads, 1)
+fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dvec, float* __restrict__ dq,
+                     int nbh, int sq, int sk, float scale, int causal,
+                     int vec, ScoreBias bias, Dropout drop,
+                     float* __restrict__ dlogits) {
+  if constexpr (Bwd<kD>::kScoreParts == 1)
+    dq_rows<kD, kBias, kDropout, kDbias>(q, k, v, dout, lse, dvec, dq, nbh,
+                                         sq, sk, scale, causal, vec, bias,
+                                         drop, dlogits);
+  else
+    dq_depth<kD, kBias, kDropout, kDbias>(q, k, v, dout, lse, dvec, dq, nbh,
+                                          sq, sk, scale, causal, vec, bias,
+                                          drop, dlogits);
+}
+
+template <int kD, bool kBias, bool kDropout>
+__global__ void __launch_bounds__(Bwd<kD>::kThreads, 1)
+fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dvec, float* __restrict__ dk,
+                      float* __restrict__ dv, int nbh, int sq, int sk,
+                      float scale, int causal, int vec, ScoreBias bias,
+                      Dropout drop) {
+  if constexpr (Bwd<kD>::kScoreParts == 1)
+    dkv_rows<kD, kBias, kDropout>(q, k, v, dout, lse, dvec, dk, dv, nbh, sq,
+                                  sk, scale, causal, vec, bias, drop);
+  else
+    dkv_depth<kD, kBias, kDropout>(q, k, v, dout, lse, dvec, dk, dv, nbh,
+                                   sq, sk, scale, causal, vec, bias, drop);
 }
 
 template <int kD>

@@ -246,12 +246,26 @@ class FmaBwdGeometry:
     dv) through ``stages`` shared-memory stages; every Q, K, V and dO row
     is ``row_stride`` floats (the head dim padded to spread a
     quarter-warp's 16-byte loads over distinct banks), every p / ds strip
-    row ``strip_stride`` (the tile's rows, padded the same way); warps go
-    in groups of ``splits`` (a pair, or four at d = 256) over ``4 *
-    micro[0]`` rows, each warp of a group a ``1 / splits`` part of the
-    streamed rows and of d; a lane holds ``micro`` = (rows, streamed rows)
-    of S or dP and, in each of ``col_groups`` groups of 32 d columns of
-    its warp's part, (rows, 4 columns) of each output. The grid is ``(grid.y
+    row ``strip_stride`` (the tile's rows, padded the same way, or at d =
+    256 by 8 floats, so that a warp's 4-byte stores of one partial score
+    fall in 32 banks); a lane (ly, lx) is (lane // 8, lane % 8): a
+    quarter-warp shares ly. With
+    ``score_parts`` 1 (d = 64 and 128), warps go in pairs (``splits``)
+    over ``4 * micro[0]`` rows: each sums its rows' scores over all of d for
+    half the streamed rows, a lane ``micro`` = (rows ly + 4 i, streamed
+    rows lx + 8 j) of S or dP, and holds, in each of ``col_groups`` groups
+    of 32 d columns of its half of d, rows ly + 4 i by columns 4 lx .. + 3
+    of each output. With ``score_parts`` 4 (d = 256) the scores are split
+    by depth and S and dP run side by side: warp w = (product, p) = (w //
+    4, w % 4) of the block's ``splits`` = 8 sums its product (S, or dP)
+    over all the block's rows and the tile's streamed rows and over part p
+    of d, a lane ``micro`` = (rows ly + 4 i, streamed rows lx + 8 j); the
+    four parts of an entry meet in shared memory (``2 * (score_parts -
+    1)`` planes of strip rows, S's and dP's) and are added in part order by
+    the product's warp whose ``own_cols`` of a lane's streamed rows hold
+    it (S's writes p, dP's then ds); each warp then holds ``head_dim /
+    splits`` columns of each output, a lane rows ly + 4 i by columns 4 lx
+    + 32 c .. + 3. The grid is ``(grid.y
     of fa_batch_heads_grid, row blocks, grid.z)``: x, dispatched first,
     runs over batch * heads, y over the row blocks in the order
     :meth:`dq_order` / :meth:`dkv_order` (heaviest first)."""
@@ -264,21 +278,46 @@ class FmaBwdGeometry:
     strip_stride: int = 68
     micro: tuple = (8, 4)
     splits: int = 2
+    score_parts: int = 1
+
+    @property
+    def dq_strips(self) -> int:
+        """Strips of block rows in dq: the ds strip, or split by depth the
+        partial scores' planes (the first of dP's is the strip)."""
+        return 2 * (self.score_parts - 1) if self.score_parts > 1 else 1
+
+    @property
+    def dkv_strips(self) -> int:
+        """In dk / dv: the p and ds strips, or the planes (the first of
+        each product's are the strips)."""
+        return 2 * (self.score_parts - 1) if self.score_parts > 1 else 2
+
+    @property
+    def products(self) -> int:
+        """Score products that run side by side: 2 (S and dP) split by
+        depth, else 1 (each warp runs both in turn)."""
+        return self.splits // self.score_parts if self.score_parts > 1 else 1
+
+    @property
+    def own_cols(self) -> int:
+        """Split by depth: the streamed rows of a lane's micro-tile whose
+        entries its warp finishes."""
+        return self.micro[1] // self.score_parts
 
     @property
     def dq_smem_bytes(self) -> int:
-        """Q and dO (block rows), the ds strip, K / V of each stage."""
+        """Q and dO (block rows), the strips, K / V of each stage."""
         return 4 * (self.row_stride * (2 * self.block_rows
                                        + 2 * self.stages * self.tile_rows)
-                    + self.strip_stride * self.block_rows)
+                    + self.dq_strips * self.strip_stride * self.block_rows)
 
     @property
     def dkv_smem_bytes(self) -> int:
-        """K and V (block rows), the p and ds strips, Q / dO and the lse /
-        D slices of each stage."""
+        """K and V (block rows), the strips, Q / dO and the lse / D slices
+        of each stage."""
         return 4 * (self.row_stride * (2 * self.block_rows
                                        + 2 * self.stages * self.tile_rows)
-                    + 2 * self.strip_stride * self.block_rows
+                    + self.dkv_strips * self.strip_stride * self.block_rows
                     + 2 * self.stages * self.tile_rows)
 
     @property
@@ -323,14 +362,19 @@ class FmaBwdGeometry:
 # tiles take 144 KB and 154 KB. d = 256: 64-row blocks of 260-float rows
 # would take 269 KB and 279 KB, and a pair's lane 256 dk / dv
 # accumulators; blocks of 32 rows, one group of four warps, over 32-row
-# tiles take 200 KB and 205 KB, a lane 128 accumulators as at d = 128
+# tiles; split by streamed rows, a lane's score would be 8 x 1 (9 loads
+# for 32 FFMAs) and each scheduler would hold one warp, so the scores are
+# split by depth over 8 warps, S's four and dP's four side by side: 8 x 4
+# a lane over a quarter of d, six planes of 40-float rows for the parts,
+# 225 KB (dq) and 225.5 KB (dk / dv), a lane 64 dk / dv accumulators
 _FMA_BWD = {64: FmaBwdGeometry(),
             128: FmaBwdGeometry(block_rows=64, tile_rows=32, head_dim=128,
                                 threads=128, row_stride=132,
                                 strip_stride=36, micro=(8, 2)),
             256: FmaBwdGeometry(block_rows=32, tile_rows=32, head_dim=256,
-                                threads=128, row_stride=260,
-                                strip_stride=36, micro=(8, 1), splits=4)}
+                                threads=256, row_stride=260,
+                                strip_stride=40, micro=(8, 4), splits=8,
+                                score_parts=4)}
 
 
 def fa_fma_bwd_geometry(head_dim: int = 64) -> FmaBwdGeometry:

@@ -1521,6 +1521,18 @@ _SOLO_CASES = ([(*c, 64, "fp32") for c in FLASH_FP32_SHAPES]
 # the ``flash-bwd`` mode's bf16 cases with attention dropout (FA_DROP_RATE):
 # GPT-J 6B's causal attention at 256
 FLASH_BWD_DROPOUT_SHAPES = [(2, 16, 2048, 2048, True, 256)]
+# the ``flash-bwd`` mode's fp32 cases at the wider heads, (b, h, sq, sk,
+# causal, head dim, form): Cerebras-GPT 1.3B's causal attention at 128,
+# GPT-J 6B's at 256 (with dropout too) and Nemotron-4's head of 192 (padded
+# to 256); the dlogits form (a learned (1, h, sq, sk) bias, ``want_dbias``)
+# at 128 and 256, beside SDPA's backward with a float ``attn_mask`` that
+# takes a gradient
+FLASH_BWD_FP32_WIDE = [(2, 16, 2048, 2048, True, 128, "plain"),
+                       (2, 16, 2048, 2048, True, 256, "plain"),
+                       (2, 16, 2048, 2048, True, 256, "dropout"),
+                       (1, NEMO_HEADS, 2048, 2048, True, NEMO_D, "plain"),
+                       (2, 16, 2048, 2048, True, 128, "dlogits"),
+                       (2, 16, 2048, 2048, True, 256, "dlogits")]
 # SDPA's bf16 backends the ``flash-bwd`` mode times, each alone
 SDPA_BWD_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION")
 
@@ -1553,9 +1565,12 @@ def _causal_pairs(sq, sk, causal):
 
 def _flash_bwd_solo(dev):
     """The flash backward at FLASH_FP32_SHAPES in fp32 and
-    FLASH_BF16_SHAPES in bf16, without dropout or dlogits, and at
+    FLASH_BF16_SHAPES in bf16, without dropout or dlogits, at
     FLASH_BWD_DROPOUT_SHAPES in bf16 with dropout (keys ending in
-    ``_dropout``; SDPA with the same rate, its backend named): the dq and
+    ``_dropout``; SDPA with the same rate, its backend named), and at
+    FLASH_BWD_FP32_WIDE in fp32 in its forms (dlogits keys ending in
+    ``_dlogits``: a learned bias, SDPA's float ``attn_mask`` with grad, the
+    causal mask filled in as -inf): the dq and
     dk / dv kernels' device ms (torch.profiler, inputs rotated beyond the
     L2), the whole backward as a caller runs it (D = rowsum(dO o), a
     padded d's pad and slice copies and both kernels), the least time the
@@ -1575,14 +1590,18 @@ def _flash_bwd_solo(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
-    for b, h, sq, sk, causal, d, dt, drop in (
-            [(*c, False) for c in _SOLO_CASES]
-            + [(*c, "bf16", True) for c in FLASH_BWD_DROPOUT_SHAPES]):
+    for b, h, sq, sk, causal, d, dt, form in (
+            [(*c, "plain") for c in _SOLO_CASES]
+            + [(*c, "bf16", "dropout") for c in FLASH_BWD_DROPOUT_SHAPES]
+            + [(*c[:6], "fp32", c[6]) for c in FLASH_BWD_FP32_WIDE]):
         scale = d ** -0.5
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        drop, dlogits = form == "dropout", form == "dlogits"
         kw = dict(scale=scale, causal=causal)
         if drop:
             kw.update(dropout_p=FA_DROP_RATE, dropout_seed=seed)
+        if dlogits:
+            kw["bias"] = torch.randn(1, h, sq, sk, device=dev, generator=gen)
         sets = []
         for _ in range(n_sets(3 * b * h * (sq + sk) * d * 4)):
             q, k, v, do = (torch.randn(b, h, n, d, device=dev,
@@ -1590,8 +1609,8 @@ def _flash_bwd_solo(dev):
                            for n in (sq, sk, sk, sq))
             o, lse = flash_attention_fwd(q, k, v, **kw)
             sets.append((q, k, v, o, lse, do))
-        split = device_kernels(lambda *a: flash_attention_bwd(*a, **kw),
-                               sets, 20)
+        split = device_kernels(lambda *a: flash_attention_bwd(
+            *a, **kw, want_dbias=dlogits), sets, 20)
         dq = sum(t for n, t in split.items() if "fa_bwd_dq_kernel" in n)
         dkv = sum(t for n, t in split.items() if "fa_bwd_dkv_kernel" in n)
         whole = sum(split.values())
@@ -1609,16 +1628,23 @@ def _flash_bwd_solo(dev):
             lsets = []
             try:
                 for q, k, v, _, _, do in sets:
-                    qq, kk, vv = (t.detach().requires_grad_()
-                                  for t in (q, k, v))
+                    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+                    am = None
+                    if dlogits:
+                        ins.append(kw["bias"].detach().clone()
+                                   .requires_grad_())
+                        am = ins[3].masked_fill(torch.ones(
+                            sq, sk, dtype=torch.bool, device=dev).triu(1),
+                            float("-inf")) if causal else ins[3]
                     with sdpa_kernel(chosen), torch.enable_grad():
                         oo = F.scaled_dot_product_attention(
-                            qq, kk, vv, is_causal=causal, scale=scale,
+                            *ins[:3], attn_mask=am,
+                            is_causal=causal and am is None, scale=scale,
                             dropout_p=FA_DROP_RATE if drop else 0.0)
-                    lsets.append((oo, qq, kk, vv, do))
+                    lsets.append((oo, tuple(ins), do))
                 kern = device_kernels(
-                    lambda oo, qq, kk, vv, do: torch.autograd.grad(
-                        oo, (qq, kk, vv), do, retain_graph=True), lsets, 20)
+                    lambda oo, ins, do: torch.autograd.grad(
+                        oo, ins, do, retain_graph=True), lsets, 20)
                 libs[name] = sum(kern.values())
                 ran[name] = sdpa_backend(kern)
             except RuntimeError as e:  # the backend refuses the shape
@@ -1627,13 +1653,18 @@ def _flash_bwd_solo(dev):
         timed_libs = {n: t for n, t in libs.items() if isinstance(t, float)}
         best = min(timed_libs, key=timed_libs.get) if timed_libs else None
         ops = 2 * b * h * d * _causal_pairs(sq, sk, causal)
+        # the dlogits form also writes every (query, key)'s dl and reads
+        # the bias once
+        dl_bytes = 4 * (b * h * sq * sk + kw["bias"].numel()) if dlogits \
+            else 0
         out[_solo_key(b, h, sq, sk, causal, d, dt)
-            + ("_dropout" if drop else "")] = dict(
+            + ("" if form == "plain" else f"_{form}")] = dict(
             dq_ms=dq, dkv_ms=dkv, pair_ms=dq + dkv, whole_ms=whole,
             outside_ms=whole - dq - dkv,
             library_ms=timed_libs.get(best), library_backend=best,
             library_by_backend=libs, library_ran=ran,
-            bound_dq_ms=3 * ops / PEAK_OPS[dt] * 1e3,
+            bound_dq_ms=max(3 * ops / PEAK_OPS[dt],
+                            dl_bytes / HBM_BYTES_PER_S) * 1e3,
             bound_dkv_ms=4 * ops / PEAK_OPS[dt] * 1e3,
             kernels=sorted(n.split("(")[0] for n in split
                            if "fa_bwd_" in n))
@@ -2012,7 +2043,7 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
                                    "gn_apply_kernel_vec")}
 # the report's kernels that must keep every value in registers (no
 # spill), by the start of their key: the fp32 flash forward's and
-# backward's unbiased forms, the bf16 tensor-core forward and backward
+# backward's unbiased forms (the backward's at d = 64 and 256), the bf16 tensor-core forward and backward
 # pair in every form at every width (their consumers' setmaxnreg
 # registers), every form of the LayerNorm backward's
 # register form, the two-pass GroupNorm's bf16 vector stats kernel and
@@ -2023,6 +2054,8 @@ NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>", "fa_fwd_kernel_wgmma<",
                     "fa_bwd_dkv_kernel_wgmma<",
                     "fa_bwd_dq_kernel_fma<64,false,false,false>",
                     "fa_bwd_dkv_kernel_fma<64,false,false>",
+                    "fa_bwd_dq_kernel_fma<256,false,false,false>",
+                    "fa_bwd_dkv_kernel_fma<256,false,false>",
                     "ln_bwd_kernel_reg<",
                     "gn_stats_kernel_vec<bf16>", "gn_apply_kernel_vec<")
 # the flash kernels' forms, each reported at every compiled head width:

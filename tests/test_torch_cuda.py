@@ -647,8 +647,44 @@ def test_public_flash_takes_any_layout_on_the_card(dev, dtype):
     bytes into their storage (off the TMA's 16-byte alignment): o and the
     gradients are the bits of the same call on contiguous copies, forward
     and backward, the incoming gradient a view of the same kind."""
-    shape = (2, 3, 200, 64)
-    n = 2 * 3 * 200 * 64
+    _any_layout_check(dev, dtype, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_public_flash_takes_any_layout_on_the_card_at_256(dev, dtype):
+    """The same at head width 256, the fp32 scores split by depth."""
+    _any_layout_check(dev, dtype, 256)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_fp32_flash_bwd_misaligned_view_gives_the_aligned_bits(dev, d):
+    """An fp32 q, k, v, o and do 4 bytes off the 16-byte alignment take the
+    backward pair's 4-byte copies and stores (``vec`` = 0), causal and
+    full, with dropout: dq, dk and dv are the bits of the same call on
+    aligned copies."""
+    n = 2 * 3 * 100 * d
+    g = torch.Generator(device=dev).manual_seed(43 + d)
+    store = torch.randn(5 * n + 8, device=dev, generator=g)
+    views = [store[1 + i * n:1 + (i + 1) * n].view(2, 3, 100, d)
+             for i in range(5)]
+    assert all(t.data_ptr() % 16 for t in views)
+    copies = [t.clone() for t in views]
+    for causal in (True, False):
+        kw = dict(scale=d ** -0.5, causal=causal, dropout_p=0.1,
+                  dropout_seed=7)
+        q, k, v, _, do = copies
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        views[3].copy_(o)
+        got = flash_attention_bwd(*views[:4], lse, views[4], **kw)
+        want = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert torch.equal(a, w), (causal, name)
+
+
+def _any_layout_check(dev, dtype, d):
+    shape = (2, 3, 200, d)
+    n = 2 * 3 * 200 * d
     g = torch.Generator(device=dev).manual_seed(29)
     base = [torch.randn(shape, device=dev, generator=g).to(dtype)
             for _ in range(4)]
@@ -958,13 +994,16 @@ _BWD128_FORMS = {"plain": (False, False, False), "bias": (True, False, False),
 
 
 def _bf16_bwd_check(dev, q, k, v, do, causal, form, seed):
-    """The bf16 backward of (q, k, v, do) in ``form`` (a learned-like
-    (1, h, sq, sk) bias, dropout, the dlogits) against the plain version on
-    the same inputs and the forward's o and lse: dq, dk, dv within the
-    flash backward's tolerance, the dlogits within ``_DLOGITS_TOL``; two
-    runs the same bits; one launch of each kernel at its width (and pad
-    key) and in its forms."""
+    """The backward of (q, k, v, do) in ``form`` (a learned-like (1, h,
+    sq, sk) bias, dropout, the dlogits) against the plain version on the
+    same inputs and the forward's o and lse: dq, dk, dv within the flash
+    backward's tolerance of their dtype (bf16: the tensor-core pair; fp32:
+    the FMA-pipe pair, 1e-4), the dlogits within ``_DLOGITS_TOL``; two runs
+    the same bits; one launch of each kernel at its width (and pad key) and
+    in its forms."""
     b, h, sq, d = q.shape
+    route = "wgmma" if q.dtype == torch.bfloat16 else "fma"
+    tol = (1e-2, 2 ** -6) if q.dtype == torch.bfloat16 else (1e-4, 0)
     sk = k.shape[2]
     with_bias, dropout, dlogits = _BWD128_FORMS[form]
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -985,18 +1024,18 @@ def _bf16_bwd_check(dev, q, k, v, do, causal, form, seed):
     assert kd in (128, 256)
     expect = {}
     for name in ("fa_bwd_dq", "fa_bwd_dkv"):
-        expect[f"{name}:wgmma:d{kd}"] = 2
+        expect[f"{name}:{route}:d{kd}"] = 2
         if d != kd:
-            expect[f"{name}:wgmma:pad{d}"] = 2
+            expect[f"{name}:{route}:pad{d}"] = 2
         if dropout:
-            expect[f"{name}:wgmma:d{kd}:dropout"] = 2
+            expect[f"{name}:{route}:d{kd}:dropout"] = 2
     if dlogits:
-        expect[f"fa_bwd_dq:wgmma:d{kd}:dbias"] = 2
+        expect[f"fa_bwd_dq:{route}:d{kd}:dbias"] = 2
     assert dict(_build.form_launches) == expect
     failures = []
     for name, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want,
                               again):
-        at, rt = _DLOGITS_TOL if name == "dbias" else (1e-2, 2 ** -6)
+        at, rt = _DLOGITS_TOL if name == "dbias" else tol
         try:
             torch.testing.assert_close(a.float(), w.float(), atol=at,
                                        rtol=rt)
@@ -1077,6 +1116,54 @@ def test_bf16_flash_bwd_at_256_over_65535_batch_heads(dev):
     q, k, v, do = (torch.randn(1025, 64, 64, 256, device=dev, generator=g)
                    .to(torch.bfloat16) for _ in range(4))
     _bf16_bwd_check(dev, q, k, v, do, True, "dropout", 23)
+
+
+# the fp32 backward's block and tile heights at d = 256 (fa_fma_bwd_geometry:
+# blocks of 32 rows over tiles of 32, the scores split by depth) and the
+# sizes one below and one above
+_FMA256_EDGES = [31, 32, 33]
+
+
+@pytest.mark.parametrize("form", sorted(_BWD128_FORMS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sk", _FMA256_EDGES)
+@pytest.mark.parametrize("sq", _FMA256_EDGES)
+@pytest.mark.parametrize("d", [256, 192, 144])
+def test_fp32_flash_bwd_at_256_tile_edges(dev, d, sq, sk, causal, form):
+    """The fp32 dq and dk / dv kernels at head width 256 (d = 192 and 144
+    through the zero-padded route) where sq and sk cross their block and
+    tile heights, causal and full, in every form: within 1e-4 of the plain
+    version (the dlogits within ``_DLOGITS_TOL``), two runs the same
+    bits."""
+    g = torch.Generator(device=dev).manual_seed(d + 100 * sq + sk + causal)
+    q, k, v, do = (torch.randn(1, 2, s, d, device=dev, generator=g)
+                   for s in (sq, sk, sk, sq))
+    _bf16_bwd_check(dev, q, k, v, do, causal, form, d + len(form))
+
+
+@pytest.mark.parametrize("form", sorted(_BWD128_FORMS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (200, 333), (100, 333)])
+@pytest.mark.parametrize("d", [256, 192, 144])
+def test_fp32_flash_bwd_at_256_matches_plain(dev, d, sq, sk, causal, form):
+    """The fp32 pair at head width 256 (d = 192 and 144 padded) over many
+    blocks and tiles, square and ragged (200 x 333: the sk edge inside a
+    key tile; 100 x 333: sq inside a query tile, keys past every query),
+    in every form, against the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(d + sq + sk + causal + 1)
+    q, k, v, do = (torch.randn(2, 3, s, d, device=dev, generator=g)
+                   for s in (sq, sk, sk, sq))
+    _bf16_bwd_check(dev, q, k, v, do, causal, form, d * 3 + len(form))
+
+
+def test_fp32_flash_bwd_at_256_over_65535_batch_heads(dev):
+    """batch * heads = 65,600 (1025 x 64) through grid.y x grid.z at d =
+    256 in fp32, 48 rows (a block and a half), causal, with dropout: the
+    pair against the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    q, k, v, do = (torch.randn(1025, 64, 48, 256, device=dev, generator=g)
+                   for _ in range(4))
+    _bf16_bwd_check(dev, q, k, v, do, True, "dropout", 31)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

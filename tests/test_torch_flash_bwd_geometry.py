@@ -3,10 +3,14 @@
 The dq and dk / dv kernels of ``apex_tpu_torch/csrc/flash_attention_bwd.cu``
 run only on the card; what decides which rows and tiles they visit is held
 here against brute force at each compiled head width (64, 128 and 256):
-shared memory within a Hopper block, the padded row strides, the lanes
-covering a warp group's rows (a pair's, four warps' at d = 256),
-streamed rows and d columns once each, the grid covering
-every row, the tiles a causal block visits against a count of the tiles
+shared memory within a Hopper block, the padded row strides (every
+operand load and, where the scores are split by depth, every partial
+score's store free of bank conflicts), the lanes covering a warp group's
+rows (a pair's, or at d = 256 the block's eight, S's four and dP's four),
+every (row, streamed row, d column) term of a score and every output
+element once each, at d = 256 the four partial scores of each entry
+stored once and added back in part order by the warp that owns the
+entry, the grid covering every row, the tiles a causal block visits against a count of the tiles
 holding any unmasked (query, key) pair, dq's heaviest-first order, and
 the ``constexpr`` values of the source (``BwdGeometry<d>``) against the
 Python mirror; and of the bf16 tensor-core pair
@@ -74,20 +78,38 @@ def test_geometry_mirrors_the_source(d):
     assert int(c["kBM"]) == g.block_rows
     assert int(c["kBN"]) == g.tile_rows
     assert int(c["kStages"]) == g.stages
-    assert int(c["kMI"]) == g.micro[0]
     assert int(c["kStride"]) == g.row_stride == g.head_dim + 4
-    assert c["kSStride"] == "kBN + 4" and g.strip_stride == g.tile_rows + 4
+    assert int(c["kSStride"]) == g.strip_stride == g.tile_rows + (
+        4 if g.score_parts == 1 else 8)
     assert int(c["kSplit"]) == g.splits
+    assert int(c["kScoreParts"]) == g.score_parts
+    assert g.score_parts == (4 if d == 256 else 1)
     # kThreads = 32 * kSplit * kBM / kGroupRows, kGroupRows = 4 * kMI
     assert c["kGroupRows"] == "4 * kMI"
     assert c["kThreads"] == "32 * kSplit * kBM / kGroupRows"
-    assert 32 * g.splits * g.block_rows // (4 * g.micro[0]) == g.threads
-    # each lane's streamed rows are lx + kColStep * j, j < kNJ, over the 8
-    # lanes of its warp's part
-    assert c["kNJ"] == "kBN / (kSplit * kColStep)"
-    assert int(c["kColStep"]) * g.micro[1] * g.splits == g.tile_rows
+    assert 32 * g.splits * g.block_rows // (4 * int(c["kMI"])) == g.threads
     assert c["kGroups"] == "kD / (32 * kSplit)"
     assert g.col_groups == d // (32 * g.splits)
+    assert c["kNJ"] == "kBN / (kSplit * kColStep)"
+    # the depth split's lanes: the row halves of the scores, a lane's rows
+    # 8 apart and streamed rows 4 apart, those its warp finishes, its
+    # output rows and the warp's output columns
+    assert c["kProducts"] == "kSplit / kScoreParts"
+    assert c["kDMI"] == "kBM / kRowStep"
+    assert c["kDNJ"] == "kBN / kColStep"
+    assert c["kOwnCols"] == "kDNJ / kScoreParts"
+    assert c["kOMI"] == "kBM / kRowStep" and c["kOutCols"] == "kD / kSplit"
+    assert (int(c["kRowStep"]), int(c["kColStep"])) == (4, 8)
+    if g.score_parts == 1:
+        # each lane's streamed rows are lx + kColStep * j, j < kNJ, over
+        # the 8 lanes of its warp's part
+        assert int(c["kMI"]) == g.micro[0]
+        assert int(c["kColStep"]) * g.micro[1] * g.splits == g.tile_rows
+    else:
+        assert g.products == g.splits // g.score_parts == 2
+        assert g.micro == (g.block_rows // 4, g.tile_rows // 8)
+        assert g.own_cols == g.micro[1] // g.score_parts
+        assert g.block_rows == 4 * int(c["kMI"])  # one group of warps
 
 
 @WIDTHS
@@ -98,56 +120,200 @@ def test_shared_memory_fits_a_block(d):
     # the source's sums of tiles, in floats, as the Python bytes count them
     c = _constexprs(d)
     assert c["kDqSmemFloats"] == \
-        "2 * kBlockTile + kBM * kSStride + kStages * 2 * kTile"
-    assert c["kDkvSmemFloats"] == ("2 * kBlockTile + 2 * kBM * kSStride + "
+        "2 * kBlockTile + kDqStrips * kStrip + kStages * 2 * kTile"
+    assert c["kDkvSmemFloats"] == ("2 * kBlockTile + kDkvStrips * kStrip + "
                                    "kStages * 2 * kTile + kStages * 2 * kBN")
+    assert c["kStrip"] == "kBM * kSStride"
+    assert c["kDqStrips"] == \
+        "kScoreParts > 1 ? 2 * (kScoreParts - 1) : 1"
+    assert c["kDkvStrips"] == \
+        "kScoreParts > 1 ? 2 * (kScoreParts - 1) : 2"
     block, tile = g.block_rows * g.row_stride, g.tile_rows * g.row_stride
     strip = g.block_rows * g.strip_stride
-    assert g.dq_smem_bytes == 4 * (2 * block + strip + g.stages * 2 * tile)
-    assert g.dkv_smem_bytes == 4 * (2 * block + 2 * strip
+    # dq: the ds strip; dk / dv: the p and ds strips; split by depth, the
+    # three planes of S's partial scores and three of dP's, the strips
+    # among them
+    strips = (1, 2) if g.score_parts == 1 else (6, 6)
+    assert (g.dq_strips, g.dkv_strips) == strips
+    assert g.dq_smem_bytes == 4 * (2 * block + strips[0] * strip
+                                   + g.stages * 2 * tile)
+    assert g.dkv_smem_bytes == 4 * (2 * block + strips[1] * strip
                                     + g.stages * 2 * tile
                                     + g.stages * 2 * g.tile_rows)
+    # the widths that keep their layout keep their bytes
+    assert (g.dq_smem_bytes, g.dkv_smem_bytes) == {
+        64: (174080, 209920), 128: (144384, 154112),
+        256: (230400, 230912)}[d]
+
+
+def _banks(offsets, width=1):
+    """The 4-byte banks that accesses of ``width`` floats at these float
+    offsets touch, as a list (a repeat means a conflict)."""
+    return [(o + w) % 32 for o in offsets for w in range(width)]
 
 
 @WIDTHS
 def test_row_stride_is_whole_float4s_in_distinct_banks(d):
+    """Every 16-byte operand load of a product is free of bank conflicts
+    within the lanes that the shared memory serves together (a quarter-warp
+    with its 8 addresses, or two quarter-warps with one each): the streamed
+    rows a score reads, the block's own rows, a tile row's 4-float columns
+    and a gradient product's strip rows. Split by depth, a warp's 4-byte
+    stores of one (i, j) of its partial scores (row ly + 4 i, column lx + 8
+    j) fall in 32 distinct banks."""
     g = fa_fma_bwd_geometry(d)
     for stride in (g.row_stride, g.strip_stride):
         assert stride % 4 == 0
-        # 8 consecutive rows' 16-byte chunks fall in 8 distinct groups of
-        # 4 banks: the stride in chunks is odd
-        chunks = stride // 4
-        assert chunks % 2 == 1
-        assert len({(r * chunks) % 8 for r in range(8)}) == 8
+    # 8 consecutive rows' 16-byte chunks fall in 8 distinct groups of 4
+    # banks: the stride in chunks is odd
+    chunks = g.row_stride // 4
+    assert chunks % 2 == 1
+    assert len({(r * chunks) % 8 for r in range(8)}) == 8
+    rs, ss = g.row_stride, g.strip_stride
+    mi, nj = g.micro
+    # a quarter reads one row ly of the block's rows and of a strip (4 i
+    # apart; two quarters meet in a pass), 8 streamed rows lx, 8 chunks
+    rows = [[(ly + 4 * i) * rs for ly in range(4)] for i in range(mi)]
+    cols = [[(lx + 8 * j) * rs for lx in range(8)] for j in range(nj)]
+    outs = [[4 * lx for lx in range(8)]]
+    out_rows = g.block_rows // 4 if g.score_parts > 1 else mi
+    strips = [[(ly + 4 * i) * ss for ly in range(4)]
+              for i in range(out_rows)]
+    for group in rows + cols + outs:
+        assert len(set(_banks(group, 4))) == 4 * len(group)
+    for group in strips:
+        for pair in (group[:2], group[2:]):
+            assert len(set(_banks(pair, 4))) == 8
+    if g.score_parts == 1:
+        assert (ss // 4) % 2 == 1
+    else:
+        for i in range(mi):
+            for j in range(nj):
+                at = [(ly + 4 * i) * ss + lx + 8 * j
+                      for ly in range(4) for lx in range(8)]
+                assert len(set(_banks(at))) == 32
+
+
+def _score_terms(g, product=0):
+    """For one group's tile: how often each (row, streamed row, d column)
+    term of a score (S, or with ``product`` 1 dP) is summed over the
+    group's warps and lanes, lane (ly, lx) = (lane // 8, lane % 8).
+    ``score_parts`` 1: warp ``part`` of a group of ``splits``
+    sums rows ly + 4 i of the group's 32 and streamed rows lx + 8 j of its
+    half of the tile over all of d, S and then dP. ``score_parts`` 4: warp
+    (product, p) sums its product's rows ly + 4 i and streamed rows lx + 8
+    j of the whole tile over part p of d."""
+    mi, nj = g.micro
+    terms = np.zeros((4 * mi, g.tile_rows, g.head_dim), dtype=int)
+    for w in range(g.splits):
+        if g.score_parts == 1:
+            c0, d0, dn = w * g.tile_rows // g.splits, 0, g.head_dim
+        else:
+            prod, part = divmod(w, g.score_parts)
+            if prod != product:
+                continue
+            dn = g.head_dim // g.score_parts
+            c0, d0 = 0, part * dn
+        for lane in range(32):
+            ly, lx = divmod(lane, 8)
+            for i in range(mi):
+                for j in range(nj):
+                    terms[ly + 4 * i, c0 + lx + 8 * j, d0:d0 + dn] += 1
+    return terms
+
+
+def _output_cells(g):
+    """How often each (row, d column) of a group's output is held over its
+    warps and lanes: ``score_parts`` 1, rows ly + 4 i by columns part * d
+    / splits + 32 g + 4 lx .. + 3; 4, rows ly + 4 i of the block's by
+    columns w * d / splits + 32 c + 4 lx .. + 3."""
+    rows = g.block_rows if g.score_parts > 1 else 4 * g.micro[0]
+    outs = np.zeros((rows, g.head_dim), dtype=int)
+    width = g.head_dim // g.splits
+    for w in range(g.splits):
+        for lane in range(32):
+            ly, lx = divmod(lane, 8)
+            if g.score_parts == 1:
+                cells = [(ly + 4 * i, w * width + 32 * grp + 4 * lx + u)
+                         for i in range(g.micro[0])
+                         for grp in range(g.col_groups) for u in range(4)]
+            else:
+                cells = [(ly + 4 * i, w * width + 32 * c + 4 * lx + u)
+                         for i in range(g.block_rows // 4)
+                         for c in range(width // 32) for u in range(4)]
+            for r, col in cells:
+                outs[r, col] += 1
+    return outs
 
 
 @WIDTHS
 def test_lanes_cover_a_pair_once(d):
-    """Warp (group, part) of a group of ``splits`` warps, lane (ly, lx) =
-    (lane // 8, lane % 8) holds rows ly + 4 i of its group's 32, streamed
-    rows part * tile / splits + lx + 8 j and d columns part * d / splits
-    + 32 g + 4 lx .. + 3: every (row, streamed row) of a group's tile and
-    every (row, d column) of its outputs exactly once."""
+    """The lanes of a group of warps (a pair, or the block's eight at d =
+    256, four for S and four for dP) hold every (row, streamed row, d
+    column) term of S and of dP and
+    every (row, d column) of each output exactly once; a lane holds at
+    most 64 accumulators of dq, and of dk and of dv each."""
     g = fa_fma_bwd_geometry(d)
+    assert (_score_terms(g) == 1).all()
+    assert (_score_terms(g, 1) == 1).all()
+    outs = _output_cells(g)
+    assert (outs == 1).all()
+    rows = outs.shape[0]  # a group's: 32
+    assert rows == 32 and g.threads == 32 * g.splits * g.block_rows // rows
+    assert outs.size // (32 * g.splits) <= 64
+
+
+@pytest.mark.parametrize("owner", range(4))
+def test_partial_scores_meet_once_in_part_order(owner):
+    """d = 256, scores split by depth (``put_partials`` / ``whole_score``
+    in the source): lane (ly, lx) of warp (product, p) stores its partial
+    of entry (ly + 4 i, lx + 8 j) into plane p - (p > o) of its product's
+    three, where o = j // own_cols is the part whose warp finishes it, at
+    row * kSStride + column. Each (plane, offset) is stored once; the lane
+    of the product's warp o that holds the entry reads it back and finds
+    the four parts in part order 0, 1, 2, 3, each from the warp of that
+    part, of the same entry; warp o finishes columns 8 o .. 8 o + 7 of the
+    tile, every row once, and S's and dP's warp o the same entries; the
+    first plane's entry that S's writes p over, and dP's then reads back
+    (and, in dk / dv, overwrites with p * keep), and the one dP's writes
+    ds over, are ones only those two lanes touch."""
+    g = fa_fma_bwd_geometry(256)
     mi, nj = g.micro
-    rows = 4 * mi
-    scores = np.zeros((rows, g.tile_rows), dtype=int)
-    outs = np.zeros((rows, g.head_dim), dtype=int)
-    for part in range(g.splits):
+    ss, parts = g.strip_stride, g.score_parts
+    stored = {}
+    for p in range(parts):  # S's warps; dP's lay their planes out alike
         for lane in range(32):
-            ly, lx = lane // 8, lane % 8
-            for i in range(mi):
-                for j in range(nj):
-                    scores[ly + 4 * i,
-                           part * g.tile_rows // g.splits + lx + 8 * j] += 1
-                for grp in range(g.col_groups):
-                    for u in range(4):
-                        outs[ly + 4 * i, part * g.head_dim // g.splits
-                             + 32 * grp + 4 * lx + u] += 1
-    assert (scores == 1).all() and (outs == 1).all()
-    assert g.threads == 32 * g.splits * g.block_rows // rows
-    # a lane's accumulators: of dq, and of dk and of dv each
-    assert g.col_groups * mi * 4 <= 64
+            ly, lx = divmod(lane, 8)
+            for j in range(nj):
+                o = j // g.own_cols
+                if o == p:
+                    continue
+                for i in range(mi):
+                    row, col = ly + 4 * i, lx + 8 * j
+                    e = row * ss + col
+                    assert e < g.block_rows * ss
+                    key = (p - (p > o), e)
+                    assert key not in stored
+                    stored[key] = (p, row, col)
+    assert len(stored) == (parts - 1) * g.block_rows * g.tile_rows
+    finished = np.zeros((g.block_rows, g.tile_rows), dtype=int)
+    for lane in range(32):
+        ly, lx = divmod(lane, 8)
+        for i in range(mi):
+            for jj in range(g.own_cols):
+                row, col = ly + 4 * i, lx + 8 * (g.own_cols * owner + jj)
+                e = row * ss + col
+                order = [(owner, row, col) if w == owner
+                         else stored[(w - (w > owner), e)]
+                         for w in range(parts)]
+                assert order == [(w, row, col) for w in range(parts)]
+                finished[row, col] += 1
+                # the strip entry (first plane) is this entry's own slot
+                assert stored[(0, e)][0] == (0 if owner > 0 else 1)
+    cols = finished.sum(axis=0)
+    width = g.tile_rows // parts
+    assert (cols[width * owner:width * owner + width] == g.block_rows).all()
+    assert cols.sum() == width * g.block_rows and finished.max() == 1
 
 
 @WIDTHS

@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Where the bf16 flash backward pair's time goes, tile by tile.
+"""Where the flash backward pair's time goes, tile by tile.
 
-    python3 -m tools.flash_bwd_split [ROOT] [--shape B,H,SQ,SK,CAUSAL,D]
+    python3 -m tools.flash_bwd_split [ROOT] [--route bf16|fp32]
+                                     [--shape B,H,SQ,SK,CAUSAL,D]
                                      [--forms plain,dropout] [--reps N]
                                      [--sub 'OLD=>NEW' ...]
-    python3 -m tools.flash_bwd_split [ROOT] --ptxas-only [--sub ...]
-                                     [--spills dkv:128,1,1]
+    python3 -m tools.flash_bwd_split [ROOT] --ptxas-only [--route ...]
+                                     [--sub ...] [--spills dkv:128,1,1]
 
-Needs a CUDA card and nvcc. Builds two copies of the tensor-core dq and
-dK·dV kernels of the checkout at ROOT (by default this one;
-``apex_tpu_torch/csrc/flash_bwd_{dq,dkv}_wgmma.cu``), each into its own
-shared library: one as the source stands, one with ``clock64()`` stamps.
-The stamps are the sources' ``APEX_SPLIT(slot, tile, "phase")`` points
-(empty in the port's build, ``hopper.cuh``); a source without them (the
-sources before the redesign of the pair at d = 128) gets them inserted
-after the statements of ``_PARENT_ANCHORS``. At a stamp the first thread
-of each consumer warpgroup writes the SM's clock into slot ``slot`` of
+Needs a CUDA card and nvcc. Builds two copies of the dq and dK·dV
+kernels of one route of the checkout at ROOT (by default this one): bf16,
+the tensor-core pair (``apex_tpu_torch/csrc/flash_bwd_{dq,dkv}_wgmma.cu``),
+or fp32, the FMA-pipe pair (``apex_tpu_torch/csrc/flash_attention_bwd.cu``,
+both kernels in one source), each into its own shared library: one as the
+source stands, one with ``clock64()`` stamps. The stamps are the sources'
+``APEX_SPLIT(slot, tile, "phase")`` points (empty in the port's build,
+``hopper.cuh`` and ``flash_attention_bwd.cu``); a source without them (the
+bf16 sources before the redesign of the pair at d = 128, the fp32 source
+before that at d = 256) gets them inserted beside the statements of
+``_PARENT_ANCHORS``. At a stamp the first thread of each 128-thread group
+(a consumer warpgroup of the bf16 pair; the fp32 pair's first four warps,
+at d = 64 also its next four) writes the SM's clock into slot ``slot`` of
 tile ``tile`` (its count of tiles from 0).
 
 For each kernel and form, at the shape given (by default Cerebras-GPT
-1.3B's causal attention, 2 x 16 x 2048 x 128), prints one JSON line:
+1.3B's causal attention, 2 x 16 x 2048 x 128), on inputs of the route's
+dtype, prints one JSON line:
 mean cycles a warpgroup spends per tile in each phase (the cycles from
 one stamp to the next, over every tile that reached all of its stamps),
 the mean tile (its first stamp to its last), the tiles counted, both
@@ -29,7 +35,8 @@ the two times. Then the card's name and power limit.
 
 ``--sub`` replaces text in both sources and the headers beside them
 before the build (a variant of the design, timed or compiled beside the
-tree's); ``--ptxas-only`` builds the copies as they stand and prints, for
+tree's); ``--no-stamps`` builds and times only the copies as they stand;
+``--ptxas-only`` builds the copies as they stand and prints, for
 each kernel, every instantiation's registers, spills and any serialised
 wgmma pipeline (ptxas) with the highest register its SASS uses, and with
 ``--spills`` the SASS around each spill of one instantiation.
@@ -47,15 +54,23 @@ import sys
 import tempfile
 from pathlib import Path
 
-KERNELS = {"dq": ("flash_bwd_dq_wgmma.cu", "fa_bwd_dq_kernel_wgmma",
-                  "apex_fa_bwd_dq_wgmma"),
-           "dkv": ("flash_bwd_dkv_wgmma.cu", "fa_bwd_dkv_kernel_wgmma",
-                   "apex_fa_bwd_dkv_wgmma")}
+# each route's kernels: (source, kernel, C entry)
+ROUTES = {
+    "bf16": {"dq": ("flash_bwd_dq_wgmma.cu", "fa_bwd_dq_kernel_wgmma",
+                    "apex_fa_bwd_dq_wgmma"),
+             "dkv": ("flash_bwd_dkv_wgmma.cu", "fa_bwd_dkv_kernel_wgmma",
+                     "apex_fa_bwd_dkv_wgmma")},
+    "fp32": {"dq": ("flash_attention_bwd.cu", "fa_bwd_dq_kernel_fma",
+                    "apex_fa_bwd_dq"),
+             "dkv": ("flash_attention_bwd.cu", "fa_bwd_dkv_kernel_fma",
+                     "apex_fa_bwd_dkv")}}
+KERNELS = ROUTES["bf16"]
 SLOTS = 8
 
-# The stamps of a source without APEX_SPLIT points (the pair before its
-# redesign at d = 128): (statement, the text after it that makes it
-# unique, stamps before it, stamps after it)
+# The stamps of a source without APEX_SPLIT points (the bf16 pair before
+# its redesign at d = 128, keys "dq" and "dkv"; the fp32 pair before its
+# redesign at d = 256, "fp32_dq" and "fp32_dkv"): (statement, the text
+# after it that makes it unique, stamps before it, stamps after it)
 _PARENT_ANCHORS = {
     "dkv": [
         ("mbar_wait(&full[st], (i / kStages) & 1);", "",
@@ -75,6 +90,34 @@ _PARENT_ANCHORS = {
          [(4, "kt", "pack")]),
         ("wgmma_commit();", "\n    }\n    wgmma_wait<0>();", [],
          [(5, "kt", "dQ issue")]),
+    ],
+    "fp32_dq": [
+        ("  for (int kt = 0; kt < nk; ++kt) {", "", [],
+         [(0, "kt", "start")]),
+        ("    __syncthreads();", "\n    if (kt + 1 < nk) {", [],
+         [(1, "kt", "wait tile")]),
+        ("    if (kt == 0) {  // dO and the first V", "",
+         [(2, "kt", "S, p")], []),
+        ("      group_sync<G::kSplit>(grp);  // the group's strip rows are "
+         "whole", "\n      // the 32-column groups of the warp's part of d, "
+         "a product each", [(3, "kt", "dP, ds")],
+         [(4, "kt", "group barrier")]),
+        ("    } else if (kDbias) {  // rows past sq", "",
+         [(5, "kt", "dQ")], []),
+    ],
+    "fp32_dkv": [
+        ("  for (int it = 0; it < nq; ++it) {", "", [],
+         [(0, "it", "start")]),
+        ("    __syncthreads();", "\n    if (it + 1 < nq) {", [],
+         [(1, "it", "wait tile")]),
+        ("    if (it == 0) {  // V, the first dO and D", "",
+         [(2, "it", "S^T, p")], []),
+        ("      group_sync<G::kSplit>(grp);  // the group's strip rows are "
+         "whole", "\n      // the 32-column groups of the warp's part of d, "
+         "a loop each", [(3, "it", "dP^T, ds")],
+         [(4, "it", "group barrier")]),
+        ("                         dst + r0 * kSStride, qs + col);\n      }",
+         "\n    }\n  }", [], [(5, "it", "dV, dK")]),
     ],
 }
 
@@ -108,7 +151,7 @@ _POINT = re.compile(r'APEX_SPLIT\((\d+),\s*(\w+),\s*"([^"]*)"\)')
 
 def stamped(text: str, which: str) -> str:
     """The source with its stamps: its own APEX_SPLIT points, or those of
-    _PARENT_ANCHORS inserted."""
+    _PARENT_ANCHORS[which] inserted."""
     if _POINT.search(text):
         return text
     for stmt, follow, before, after in _PARENT_ANCHORS[which]:
@@ -120,6 +163,25 @@ def stamped(text: str, which: str) -> str:
                        for s, t, n in after)
         text = text.replace(stmt + follow, pre + stmt + post + follow)
     return text
+
+
+# a function of the fp32 source whose name says its kernel (dq_rows,
+# dkv_depth, fa_bwd_dq_kernel_fma, ...)
+_FUNC = re.compile(r"\n(?:__device__|__global__)(?:[^;{(]|\([^)]*\))*?"
+                   r"\b((?:fa_bwd_|dq_|dkv_)\w*)\s*\(")
+
+
+def kernel_text(text: str, which: str) -> str:
+    """The functions of a source holding both kernels (the fp32 pair's)
+    that belong to kernel ``which`` ("dq" or "dkv"), joined."""
+    marks = list(_FUNC.finditer(text))
+    out = []
+    for m, nxt in zip(marks, marks[1:] + [None]):
+        name = m.group(1)
+        if name.startswith(f"{which}_") or name.startswith(
+                f"fa_bwd_{which}_"):
+            out.append(text[m.start():nxt.start() if nxt else len(text)])
+    return "".join(out)
 
 
 def phases(text: str) -> dict:
@@ -135,8 +197,8 @@ def phases(text: str) -> dict:
 
 
 def build(root: Path, tmp: Path, flags: list, subs=(),
-          stamps=(False, True)) -> dict:
-    """The copies of both sources (``subs``, ``(old, new)`` pairs,
+          stamps=(False, True), route: str = "bf16") -> dict:
+    """The copies of the route's sources (``subs``, ``(old, new)`` pairs,
     replaced in each), built together: ``{(which, stamped): (library path,
     ptxas text, phases)}``."""
     from apex_tpu_torch.ops import _build
@@ -144,7 +206,8 @@ def build(root: Path, tmp: Path, flags: list, subs=(),
     header = tmp / "apex_split.cuh"
     header.write_text(_STAMP_HEADER)
     jobs = {}
-    for which, (src, _, _) in KERNELS.items():
+    for which, (src, _, _) in ROUTES[route].items():
+        anchors = which if route == "bf16" else f"{route}_{which}"
         for stamp in stamps:
             d = tmp / f"{which}_{int(stamp)}"
             d.mkdir()
@@ -157,7 +220,7 @@ def build(root: Path, tmp: Path, flags: list, subs=(),
             for old, new in subs:
                 text = text.replace(old, new)
             if stamp:
-                text = stamped(text, which)
+                text = stamped(text, anchors)
             (d / src).write_text(text)
             cmd = [_build.nvcc(), *flags, "-Xptxas", "-v", "-shared",
                    *(["-include", str(header)] if stamp else []),
@@ -170,7 +233,8 @@ def build(root: Path, tmp: Path, flags: list, subs=(),
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"nvcc {key}:\n{log}")
-        out[key] = (d / "lib.so", log, phases(text))
+        out[key] = (d / "lib.so", log, phases(
+            text if route == "bf16" else kernel_text(text, key[0])))
     return out
 
 
@@ -254,23 +318,29 @@ def sass_spills(so: Path, kernel: str, args: str, context: int = 6) -> list:
     return out
 
 
-def stamp_counts(root: Path, d: int, sq: int, sk: int) -> tuple:
+def stamp_counts(root: Path, d: int, sq: int, sk: int,
+                 route: str = "bf16") -> tuple:
     """``(tiles, blocks)`` that a stamp buffer must hold for the tree at
     ROOT at head dim ``d``: the most tiles a consumer warpgroup counts
-    (dq: key tiles, dk / dv: query tiles) and the most blocks either
-    kernel's grid.x has, from that tree's own ``fa_tc_geometry(d)`` (its
+    (dq: key tiles, dk / dv: query tiles) and the most row blocks either
+    kernel has over one head, from that tree's own geometry (its
     ``ops/tiling.py``, loaded from ROOT: two trees may lay the kernels out
-    differently). A tree whose geometry names no per-kernel tiles streams
-    64-row tiles in blocks of at least 64 rows."""
+    differently): ``fa_tc_geometry(d)`` of the bf16 pair, whose trees
+    without per-kernel tiles stream 64-row tiles in blocks of at least 64
+    rows, or ``fa_fma_bwd_geometry(d)`` of the fp32 pair."""
     spec = importlib.util.spec_from_file_location(
         "_split_tiling", root / "apex_tpu_torch" / "ops" / "tiling.py")
     tiling = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = tiling  # its dataclasses look themselves up
     try:
         spec.loader.exec_module(tiling)
-        g = tiling.fa_tc_geometry(d)
+        g = (tiling.fa_tc_geometry(d) if route == "bf16"
+             else tiling.fa_fma_bwd_geometry(d))
     finally:
         del sys.modules[spec.name]
+    if route != "bf16":
+        return (max(-(-sk // g.tile_rows), -(-sq // g.tile_rows)),
+                max(g.blocks(sq), g.blocks(sk)))
     if not hasattr(g, "dq_tile_rows"):
         return max(-(-sq // 64), -(-sk // 64)), -(-max(sq, sk) // 64)
     return (max(-(-sk // g.dq_tile_rows), -(-sq // g.dkv_tile_rows)),
@@ -280,6 +350,8 @@ def stamp_counts(root: Path, d: int, sq: int, sk: int) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=".")
+    ap.add_argument("--route", choices=sorted(ROUTES), default="bf16",
+                    help="bf16: the tensor-core pair; fp32: the FMA pair")
     ap.add_argument("--shape", default="2,16,2048,2048,1,128")
     ap.add_argument("--forms", default="plain,dropout")
     ap.add_argument("--reps", type=int, default=20)
@@ -292,6 +364,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ptxas-only", action="store_true",
                     help="build the copies as they stand and print ptxas's "
                          "report of each; time nothing")
+    ap.add_argument("--no-stamps", action="store_true",
+                    help="build and time only the copies as they stand "
+                         "(half the build): no phases")
     a = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -309,10 +384,12 @@ def main(argv=None) -> int:
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     if a.ptxas_only:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-            libs = build(root, Path(tmp), _build.NVCC_FLAGS, subs, (False,))
-            for which, (_, kernel, _) in KERNELS.items():
+            libs = build(root, Path(tmp), _build.NVCC_FLAGS, subs, (False,),
+                         a.route)
+            for which, (_, kernel, _) in ROUTES[a.route].items():
                 so, log, _ = libs[(which, False)]
-                print(json.dumps({"kernel": which, "subs": a.sub,
+                print(json.dumps({"kernel": which, "route": a.route,
+                                  "subs": a.sub,
                                   "ptxas": ptxas(log, kernel),
                                   "sass_registers": sass_registers(
                                       so, kernel)}), flush=True)
@@ -323,7 +400,11 @@ def main(argv=None) -> int:
         return 0
     _build.lib()  # the port's forward gives o and lse
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        libs = build(root, Path(tmp), _build.NVCC_FLAGS, subs)
+        stamps = (False,) if a.no_stamps else (False, True)
+        libs = build(root, Path(tmp), _build.NVCC_FLAGS, subs, stamps,
+                     a.route)
+        dtype = torch.bfloat16 if a.route == "bf16" else torch.float32
+        tail = () if a.route == "bf16" else (0,)  # the fp32 entries' dtype
         gen = torch.Generator(device=dev).manual_seed(0)
         nset = max(2, -(-2 * 50 * 2 ** 20 // (5 * b * h * sq * d * 2)))
         seed = torch.tensor([1234], dtype=torch.int32, device=dev)
@@ -335,7 +416,7 @@ def main(argv=None) -> int:
             for _ in range(nset):
                 q, k, v, do = (torch.randn(b, h, n, d, device=dev,
                                            generator=gen)
-                               .to(torch.bfloat16) for n in (sq, sk, sk, sq))
+                               .to(dtype) for n in (sq, sk, sk, sq))
                 kw = dict(dropout_p=rate, dropout_seed=seed) if rate else {}
                 o, lse = flash_attention_fwd(q, k, v, scale=d ** -0.5,
                                              causal=bool(causal), **kw)
@@ -344,10 +425,10 @@ def main(argv=None) -> int:
                              torch.empty_like(v)))
             geo = (b * h, *fa_batch_heads_grid(b * h), h, sq, sk, d,
                    d ** -0.5, causal, 0, 0, 0, 0, *drop)
-            for which, (src, kernel, entry) in KERNELS.items():
-                rec = {"kernel": which, "form": form, "shape": a.shape,
-                       "subs": a.sub}
-                for stamp in (False, True):
+            for which, (src, kernel, entry) in ROUTES[a.route].items():
+                rec = {"kernel": which, "route": a.route, "form": form,
+                       "shape": a.shape, "subs": a.sub}
+                for stamp in stamps:
                     so, log, names = libs[(which, stamp)]
                     lib = ctypes.CDLL(str(so))
                     fn = getattr(lib, entry)
@@ -362,13 +443,13 @@ def main(argv=None) -> int:
                         stream = torch.cuda.current_stream().cuda_stream
                         if which == "dq":
                             err = fn(*args, dq.data_ptr(), *geo, None,
-                                     stream)
+                                     *tail, stream)
                         else:
                             err = fn(*args, dk.data_ptr(), dv.data_ptr(),
-                                     *geo, stream)
+                                     *geo, *tail, stream)
                         if err:
                             raise RuntimeError(f"{entry}: cudaError {err}")
-                    tiles, blocks = stamp_counts(root, d, sq, sk)
+                    tiles, blocks = stamp_counts(root, d, sq, sk, a.route)
                     buf = torch.zeros(blocks * b * h * 2 * tiles * SLOTS,
                                       dtype=torch.int64, device=dev)
                     if stamp:
