@@ -28,9 +28,9 @@
 // scaling by a power of two commutes with rounding, so multiplying ds by
 // the scale, as here, gives the same dk bits, and the scores the same
 // values. Every gradient sums over keys or queries in order; a score sums
-// over d in the plain version's sequential order at d = 64 and 128, and at
-// d = 256 as four sequential sums over 64 columns each (d = 0..63, 64..127,
-// ...), added in that order: ((s0 + s1) + s2) + s3.
+// over d in the plain version's sequential order at d = 64, and at d = 128
+// and 256 as two or four sequential sums over 64 columns each (d = 0..63,
+// 64..127, ...), added in that order: s0 + s1, ((s0 + s1) + s2) + s3.
 //
 // What bounds it on this card: operations, on the FMA pipes. At GPT-2's
 // shapes (b = 4, h = 12, s = 1024, d = 64, causal) the two kernels do
@@ -85,41 +85,42 @@
 //   p exp(s - lse) with exact zeros where masked; each block owns its
 //   output rows, with no atomics: two runs give the same bits, and each
 //   sum runs in the order stated above (the plain version's, apart from a
-//   d = 256 score's four parts).
-// - Head dim 128 (the template parameter kD; the wrapper pads any other d
-//   up to the next compiled width with zero columns). 128-row blocks of
-//   132-float rows would not fit a block's shared memory (dq 338 KB, dK·dV
-//   407 KB), so a block owns kBM = 64 rows (two warp pairs, 128 threads)
-//   and streams kBN = 32-row tiles: a lane's micro-tile is 8 x 2 of S or
-//   dP, and its share of each output two 8 x 4 blocks (d columns 4 lx ..
-//   + 3 of each 32-column group of its warp's 64), one gradient product
-//   per group. The p / ds strips hold the tile's 32 columns (36-float
-//   rows). dq takes 144 KB, dK·dV 154 KB: one block an SM.
-// - Head dim 256. 260-float rows: 64-row blocks over 32-row tiles would
-//   take 269 KB (dq) and 279 KB (dK·dV), so a block owns kBM = 32 rows
-//   over kBN = 32-row tiles, one block an SM. Split by streamed rows among
-//   four warps, a lane's share of a 32 x 32 score is an 8 x 1 micro-tile
-//   (9 loads for 32 FFMAs) and each scheduler holds one warp. So the
-//   scores are split by depth (kScoreParts = 4) and the block's kSplit = 8
-//   warps run S and dP side by side: warp (product, part) sums its
-//   product's whole 32 x 32 tile over its 64 columns of d, an 8 x 4
-//   micro-tile a lane as at d = 64, and the four partial scores of an entry
-//   meet in shared memory. The product's warp that owns an entry's column
-//   (kOwnCols of a lane's four) finishes it: the other three store their
-//   partials in three planes (kScoreParts - 1 strips of kSStride = 40-float
-//   rows, so that a warp's 4-byte stores fall in 32 banks, one set for S,
-//   one for dP), and the owning lane adds its own partial from registers
-//   in part order. S's owner writes p over its first plane's entry, dP's
-//   owner then reads it back and writes ds * scale over its own (dK·dV: and
-//   p * keep over p), entries only those two lanes touch. Four block
-//   barriers a tile: the tile landed, the partials stored, p written, the
-//   strips written. Each warp then takes an eighth of d of every output,
-//   rows ly + 4i by 4 columns (dK·dV: both products in one loop). A
-//   16-byte load costs the shared memory two passes where a quarter-warp
-//   reads one or two addresses and four where it reads four or more
-//   (tools/smem_wavefronts.py measures it), so every product's loads are
-//   one row a quarter and eight streamed rows, as at d = 64. dq takes 225
-//   KB, dK·dV 225.5 KB.
+//   d = 128 or 256 score's parts).
+// - Head dims 128 and 256 (the template parameter kD; the wrapper pads any
+//   other d up to the next compiled width with zero columns). 64-row
+//   blocks of 132-float rows over 32-row tiles take 144 KB (dq) and 154 KB
+//   (dK·dV), one block an SM, and at d = 256 (260-float rows) 269 and 279
+//   KB, more than a block may have. So a block owns kBM = 32 rows over kBN
+//   = 32-row tiles. Split by streamed rows among its warps, a lane's share
+//   of a 32 x 32 score would be an 8 x 2 (d = 128, 10 loads for 64 FFMAs)
+//   or 8 x 1 micro-tile, and each scheduler would hold one warp. So the
+//   scores are split by depth into kScoreParts = kD / 64 parts and the
+//   block's kSplit = 2 kScoreParts warps run S and dP side by side: warp
+//   (product, part) sums its product's whole 32 x 32 tile over its 64
+//   columns of d, an 8 x 4 micro-tile a lane as at d = 64, and the partial
+//   scores of an entry meet in shared memory. The product's warp that owns
+//   an entry's column (kOwnCols of a lane's four) finishes it: the others
+//   store their partials in kScoreParts - 1 planes (strips of kSStride =
+//   40-float rows, so that a warp's 4-byte stores fall in 32 banks, one set
+//   for S, one for dP), and the owning lane adds its own partial from
+//   registers in part order. S's owner writes p over its first plane's
+//   entry, dP's owner then reads it back and writes ds * scale over its
+//   own (dK·dV: and p * keep over p), entries only those two lanes touch.
+//   Four block barriers a tile: the tile landed, the partials stored, p
+//   written, the strips written. Each warp then takes kOutCols = 32
+//   columns of every output, rows ly + 4i by 4 columns (dK·dV: both
+//   products in one loop). A 16-byte load costs the shared memory two
+//   passes where a quarter-warp reads one or two addresses and four where
+//   it reads four or more (tools/smem_wavefronts.py measures it), so every
+//   product's loads are one row a quarter and eight streamed rows, as at d
+//   = 64. At d = 128 (four warps) dq takes 109 KB and dK·dV 109.5 KB, so
+//   an SM holds kBlocksPerSM = 2 blocks, two warps a scheduler, and one
+//   block's barriers are covered by the other's products; at d = 256
+//   (eight warps) dq takes 225 KB, dK·dV 225.5 KB, one block an SM. With
+//   a bias, the lanes that finish S's entries load their bias from global
+//   memory at the tile's start, so that the loads run under the score
+//   product (read where p is taken, each waited for in turn, they cost
+//   the biased dq about 30 % of its time, dK·dV about 10 %).
 // The geometry is mirrored by fa_fma_bwd_geometry(d) in ops/tiling.py.
 //
 // C interface (bound with ctypes): every pointer and the stream are
@@ -146,9 +147,10 @@ constexpr float kMaskEdge = 0.5f * kNegInf;
 // V and dO (floats), within a block's shared memory, the padded row stride
 // of a p / ds strip (kSStride), the warps that share a group's rows
 // (kSplit), each a 1 / kSplit part of the tile's streamed rows and of d,
-// and the parts of d that a score is split into (kScoreParts): 1, each
-// warp's scores over all of d for its part of the streamed rows, or
-// kSplit, each warp's over its part of d for all of them.
+// the parts of d that a score is split into (kScoreParts): 1, each warp's
+// scores over all of d for its part of the streamed rows, or kSplit / 2,
+// each warp's over its part of d for all of them, and the blocks an SM
+// holds (kBlocksPerSM, the kernels' launch bound).
 template <int kD>
 struct BwdGeometry;
 template <>
@@ -159,15 +161,17 @@ struct BwdGeometry<64> {
   static constexpr int kSStride = 68;
   static constexpr int kSplit = 2;
   static constexpr int kScoreParts = 1;
+  static constexpr int kBlocksPerSM = 1;
 };
 template <>
 struct BwdGeometry<128> {
-  static constexpr int kBM = 64;
+  static constexpr int kBM = 32;
   static constexpr int kBN = 32;
   static constexpr int kStride = 132;
-  static constexpr int kSStride = 36;
-  static constexpr int kSplit = 2;
-  static constexpr int kScoreParts = 1;
+  static constexpr int kSStride = 40;
+  static constexpr int kSplit = 4;
+  static constexpr int kScoreParts = 2;
+  static constexpr int kBlocksPerSM = 2;
 };
 template <>
 struct BwdGeometry<256> {
@@ -177,6 +181,7 @@ struct BwdGeometry<256> {
   static constexpr int kSStride = 40;
   static constexpr int kSplit = 8;
   static constexpr int kScoreParts = 4;
+  static constexpr int kBlocksPerSM = 1;
 };
 
 template <int kD>
@@ -187,6 +192,7 @@ struct Bwd : BwdGeometry<kD> {
   using BwdGeometry<kD>::kSStride;
   using BwdGeometry<kD>::kSplit;
   using BwdGeometry<kD>::kScoreParts;
+  using BwdGeometry<kD>::kBlocksPerSM;
   // groups of kGroupRows rows, kSplit warps each
   static constexpr int kThreads = 32 * kSplit * kBM / kGroupRows;
   // kScoreParts = 1: a lane's streamed rows lx + kColStep * j, j < kNJ, in
@@ -235,6 +241,11 @@ struct Bwd : BwdGeometry<kD> {
                 "the lanes' parts of the scores and outputs");
   static_assert(kDkvSmemFloats * 4 <= 232448 && kDqSmemFloats * 4 <= 232448,
                 "a block's shared memory");
+  // kBlocksPerSM blocks, each with the 1 KB the hardware reserves, in the
+  // SM's 228 KB
+  static_assert(kBlocksPerSM * (kDkvSmemFloats * 4 + 1024) <= 233472 &&
+                    kBlocksPerSM * (kDqSmemFloats * 4 + 1024) <= 233472,
+                "kBlocksPerSM blocks an SM");
 };
 
 // A stamp of a tile's phase: nothing in the port's build;
@@ -368,7 +379,7 @@ __device__ __forceinline__ int dq_key_tiles(int q0, int sq, int sk,
   return causal ? min(n, (min(q0 + kBM, sq) - 1) / kBN + 1) : n;
 }
 
-// dq at d = 64 and 128 (kScoreParts = 1): each warp its rows' scores
+// dq at d = 64 (kScoreParts = 1): each warp its rows' scores
 // over all of d for its part of the tile's keys
 template <int kD, bool kBias, bool kDropout, bool kDbias>
 __device__ __forceinline__ void dq_rows(
@@ -520,7 +531,7 @@ __device__ __forceinline__ void dq_rows(
                                   sq, vec);
 }
 
-// dK·dV at d = 64 and 128 (kScoreParts = 1): each warp its keys' scores
+// dK·dV at d = 64 (kScoreParts = 1): each warp its keys' scores
 // over all of d for its part of the tile's queries
 template <int kD, bool kBias, bool kDropout>
 __device__ __forceinline__ void dkv_rows(
@@ -678,8 +689,8 @@ __device__ __forceinline__ void dkv_rows(
   }
 }
 
-// Split by depth (d = 256, kScoreParts > 1). The block's warps run S and
-// dP side by side: warp w = (product, part) = (w / kScoreParts, w %
+// Split by depth (d = 128 and 256, kScoreParts > 1). The block's warps run
+// S and dP side by side: warp w = (product, part) = (w / kScoreParts, w %
 // kScoreParts) sums its product's whole tile (all kBM rows, all kBN
 // streamed rows) over d columns kPartD part .. + kPartD - 1; lane (ly, lx)
 // = (lane / 8, lane % 8) holds rows ly + kRowStep i (i < kDMI) by
@@ -791,9 +802,9 @@ __device__ __forceinline__ void out_chunks(float (&acc)[kChunks][kOMI][4],
   }
 }
 
-// dq at d = 256: the scores split by depth (see put_partials), S by warps
-// 0 .. kScoreParts - 1 and dP by the others; the lane finishes the
-// entries of columns j = kOwnCols * part + jj of its product's
+// dq at d = 128 and 256: the scores split by depth (see put_partials), S
+// by warps 0 .. kScoreParts - 1 and dP by the others; the lane finishes
+// the entries of columns j = kOwnCols * part + jj of its product's
 // micro-tile, then holds rows ly + kRowStep i of dQ at the warp's
 // kOutCols columns (chunks 4 lx + 32 c)
 template <int kD, bool kBias, bool kDropout, bool kDbias>
@@ -878,6 +889,21 @@ __device__ __forceinline__ void dq_depth(
     const float* ks = stage + (kt % kStages) * 2 * kTile;
     const float* vs = ks + kTile;
     const int k0 = kt * kBN;
+    // S's warps: the bias of the entries the lane finishes, loaded here
+    // so that the loads run under the score product
+    float bv[kMI][kOwn];
+    if constexpr (kBias) {
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+        const int row = q0 + ly + kRowStep * i;
+#pragma unroll
+        for (int jj = 0; jj < kOwn; ++jj) {
+          const int key = k0 + lx + kColStep * (kOwn * part + jj);
+          const bool m = key >= sk || (causal && key > row) || row >= sq;
+          bv[i][jj] = !dpw && !m ? bias.at(bs, row, key) : 0.f;
+        }
+      }
+    }
     float own[kMI][kOwn];
     {
       float s[kMI][kNJ];
@@ -910,8 +936,8 @@ __device__ __forceinline__ void dq_depth(
           // the plain version's round(round(q.k * scale) + bias)
           float a = __fmul_rn(whole_score<kD>(sparts, e, part, own[i][jj]),
                               scale);
-          if (kBias && !m && row < sq)
-            a = __fadd_rn(a, bias.at(bs, row, key));
+          if constexpr (kBias)
+            if (!m && row < sq) a = __fadd_rn(a, bv[i][jj]);
           sparts[e] = m ? 0.f : bwd_p(a, l[i]);
         }
       }
@@ -941,11 +967,12 @@ __device__ __forceinline__ void dq_depth(
     APEX_SPLIT(7, kt, "dQ");
   }
   cp_async_wait<0>();
-  if (kDbias) {  // the key tiles past the block's diagonal: zeros
-    const int kz = nk * kBN, w = sk - kz, rows = min(kBM, sq - q0);
-    for (long long t = threadIdx.x; w > 0 && t < (long long)rows * w;
-         t += kThreads)
-      dlb[(long long)(q0 + t / w) * sk + kz + t % w] = 0.f;
+  if (kDbias) {  // the key tiles past the block's diagonal: zeros, a warp
+                 // a row
+    const int kz = nk * kBN, rows = min(kBM, sq - q0);
+    for (int r = warp; r < rows; r += kThreads / 32)
+      for (int key = kz + lane; key < sk; key += 32)
+        dlb[(long long)(q0 + r) * sk + key] = 0.f;
   }
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
@@ -953,7 +980,7 @@ __device__ __forceinline__ void dq_depth(
                                       ocol + 32 * c, sq, vec);
 }
 
-// dK·dV at d = 256: the scores S^T (keys x queries) and dP^T split by
+// dK·dV at d = 128 and 256: the scores S^T (keys x queries) and dP^T split by
 // depth as in dq_depth; the lane finishes the entries of columns
 // (queries) j = kOwnCols * part + jj of its product's micro-tile: p * keep
 // over S^T's first plane and ds * scale over dP^T's, the strips of dV and
@@ -1052,6 +1079,21 @@ __device__ __forceinline__ void dkv_depth(
     const float* ls = vecs + (it % kStages) * 2 * kBN;
     const float* ds = ls + kBN;
     const int q0 = (qt0 + it) * kBN;
+    // S^T's warps: the bias of the entries the lane finishes, loaded here
+    // so that the loads run under the score product
+    float bv[kMI][kOwn];
+    if constexpr (kBias) {
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) {
+        const int key = k0 + ly + kRowStep * i;
+#pragma unroll
+        for (int jj = 0; jj < kOwn; ++jj) {
+          const int qry = q0 + lx + kColStep * (kOwn * part + jj);
+          const bool m = key >= sk || qry >= sq || (causal && key > qry);
+          bv[i][jj] = !dpw && !m ? bias.at(bs, qry, key) : 0.f;
+        }
+      }
+    }
     float own[kMI][kOwn];
     {
       float s[kMI][kNJ];
@@ -1083,7 +1125,8 @@ __device__ __forceinline__ void dkv_depth(
           // the plain version's round(round(q.k * scale) + bias)
           float a = __fmul_rn(whole_score<kD>(sparts, e, part, own[i][jj]),
                               scale);
-          if (kBias && !m) a = __fadd_rn(a, bias.at(bs, qry, key));
+          if constexpr (kBias)
+            if (!m) a = __fadd_rn(a, bv[i][jj]);
           sparts[e] = m ? 0.f : bwd_p(a, ls[c]);
         }
       }
@@ -1129,7 +1172,7 @@ __device__ __forceinline__ void dkv_depth(
 }
 
 template <int kD, bool kBias, bool kDropout, bool kDbias>
-__global__ void __launch_bounds__(Bwd<kD>::kThreads, 1)
+__global__ void __launch_bounds__(Bwd<kD>::kThreads, Bwd<kD>::kBlocksPerSM)
 fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
@@ -1149,7 +1192,7 @@ fa_bwd_dq_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int kD, bool kBias, bool kDropout>
-__global__ void __launch_bounds__(Bwd<kD>::kThreads, 1)
+__global__ void __launch_bounds__(Bwd<kD>::kThreads, Bwd<kD>::kBlocksPerSM)
 fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -1167,6 +1210,39 @@ fa_bwd_dkv_kernel_fma(const float* __restrict__ q,
                                    sq, sk, scale, causal, vec, bias, drop);
 }
 
+// a kernel's shared memory, and with kBlocksPerSM > 1 all of the SM's
+// unified memory as shared memory, so that kBlocksPerSM blocks fit
+template <int kD, typename Kernel>
+void prepare(Kernel kernel, int smem) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  if constexpr (Bwd<kD>::kBlocksPerSM > 1)
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+}
+
+// a separate instantiation for each form, so the kernel without a bias,
+// dropout or dlogits keeps no registers or branches of theirs; dlogits
+// come with a bias only
+template <int kD>
+auto dq_kernel(bool bias, bool drop, bool dlogits) {
+  return dlogits ? (drop ? fa_bwd_dq_kernel_fma<kD, true, true, true>
+                         : fa_bwd_dq_kernel_fma<kD, true, false, true>)
+         : bias  ? (drop ? fa_bwd_dq_kernel_fma<kD, true, true, false>
+                         : fa_bwd_dq_kernel_fma<kD, true, false, false>)
+                 : (drop ? fa_bwd_dq_kernel_fma<kD, false, true, false>
+                         : fa_bwd_dq_kernel_fma<kD, false, false, false>);
+}
+
+template <int kD>
+auto dkv_kernel(bool bias, bool drop) {
+  return bias ? (drop ? fa_bwd_dkv_kernel_fma<kD, true, true>
+                      : fa_bwd_dkv_kernel_fma<kD, true, false>)
+              : (drop ? fa_bwd_dkv_kernel_fma<kD, false, true>
+                      : fa_bwd_dkv_kernel_fma<kD, false, false>);
+}
+
 template <int kD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* dvec, void* dq, int bh,
@@ -1176,21 +1252,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   using G = Bwd<kD>;
   if ((sq + G::kBM - 1) / G::kBM > 65535) return (int)cudaErrorInvalidValue;
   const int smem = (int)(G::kDqSmemFloats * sizeof(float));
-  // a separate instantiation for each form, so the kernel without a bias,
-  // dropout or dlogits keeps no registers or branches of theirs; dlogits
-  // come with a bias only
-  const bool d = drop.seed != nullptr;
-  const auto kernel =
-      dlogits != nullptr
-          ? (d ? fa_bwd_dq_kernel_fma<kD, true, true, true>
-               : fa_bwd_dq_kernel_fma<kD, true, false, true>)
-      : bias.p != nullptr
-          ? (d ? fa_bwd_dq_kernel_fma<kD, true, true, false>
-               : fa_bwd_dq_kernel_fma<kD, true, false, false>)
-          : (d ? fa_bwd_dq_kernel_fma<kD, false, true, false>
-               : fa_bwd_dq_kernel_fma<kD, false, false, false>);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
+  const auto kernel = dq_kernel<kD>(bias.p != nullptr, drop.seed != nullptr,
+                                    dlogits != nullptr);
+  prepare<kD>(kernel, smem);
   const dim3 grid(grid_y, (sq + G::kBM - 1) / G::kBM, grid_z);
   kernel<<<grid, G::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1212,13 +1276,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   using G = Bwd<kD>;
   if ((sk + G::kBM - 1) / G::kBM > 65535) return (int)cudaErrorInvalidValue;
   const int smem = (int)(G::kDkvSmemFloats * sizeof(float));
-  const bool b = bias.p != nullptr, d = drop.seed != nullptr;
-  const auto kernel = b ? (d ? fa_bwd_dkv_kernel_fma<kD, true, true>
-                             : fa_bwd_dkv_kernel_fma<kD, true, false>)
-                        : (d ? fa_bwd_dkv_kernel_fma<kD, false, true>
-                             : fa_bwd_dkv_kernel_fma<kD, false, false>);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
+  const auto kernel = dkv_kernel<kD>(bias.p != nullptr, drop.seed != nullptr);
+  prepare<kD>(kernel, smem);
   const dim3 grid(grid_y, (sk + G::kBM - 1) / G::kBM, grid_z);
   kernel<<<grid, G::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1231,6 +1290,23 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
             is_aligned(dv, 16)),
       bias, drop);
   return (int)cudaGetLastError();
+}
+
+// the blocks of one form of the dq (kernel 0) or dK·dV (1) kernel that an
+// SM holds at once, as launched
+template <int kD>
+int occupancy(int kernel, int bias, int drop, int dlogits, int* blocks) {
+  using G = Bwd<kD>;
+  if (kernel == 0) {
+    const auto f = dq_kernel<kD>(bias, drop, dlogits);
+    prepare<kD>(f, (int)(G::kDqSmemFloats * sizeof(float)));
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, f, G::kThreads, G::kDqSmemFloats * sizeof(float));
+  }
+  const auto f = dkv_kernel<kD>(bias, drop);
+  prepare<kD>(f, (int)(G::kDkvSmemFloats * sizeof(float)));
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, f, G::kThreads, G::kDkvSmemFloats * sizeof(float));
 }
 
 }  // namespace
@@ -1293,4 +1369,20 @@ extern "C" int apex_fa_bwd_dkv(const void* q, const void* k, const void* v,
                               : launch_dkv<256>;
   return run(q, k, v, dout, lse, dvec, dk, dv, bh, grid_y, grid_z, sq, sk,
              scale, causal, sb, dr, s);
+}
+
+// The resident blocks an SM of the current device holds of the fp32 dq
+// (kernel 0) or dK·dV (kernel 1) kernel at head width d in the form
+// (bias, dropout, dlogits; dlogits only in dq, with a bias), into
+// *blocks.
+extern "C" int apex_fa_bwd_fma_occupancy(int d, int kernel, int bias,
+                                         int drop, int dlogits,
+                                         int* blocks) {
+  if ((d != 64 && d != 128 && d != 256) || (kernel != 0 && kernel != 1) ||
+      (dlogits && (kernel != 0 || !bias)) || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const auto run = d == 64    ? occupancy<64>
+                   : d == 128 ? occupancy<128>
+                              : occupancy<256>;
+  return run(kernel, bias, drop, dlogits, blocks);
 }

@@ -79,6 +79,9 @@ SIGNATURES = {
     "apex_fa_bwd_dkv": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                         _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll, _ll, _ll,
                         _vp, _u, _f, _i, _vp],
+    # d, kernel (0 dq, 1 dk / dv), bias, dropout, dlogits, out int: the
+    # blocks of that fp32 FMA-pipe kernel an SM holds at once
+    "apex_fa_bwd_fma_occupancy": [_i, _i, _i, _i, _i, _vp],
     # the same without dtype: the bf16 tensor-core dq kernel
     "apex_fa_bwd_dq_wgmma": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i,
                              _i, _i, _i, _i, _i, _i, _f, _i, _ll, _ll, _ll,

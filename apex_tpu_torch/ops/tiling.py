@@ -247,25 +247,25 @@ class FmaBwdGeometry:
     is ``row_stride`` floats (the head dim padded to spread a
     quarter-warp's 16-byte loads over distinct banks), every p / ds strip
     row ``strip_stride`` (the tile's rows, padded the same way, or at d =
-    256 by 8 floats, so that a warp's 4-byte stores of one partial score
-    fall in 32 banks); a lane (ly, lx) is (lane // 8, lane % 8): a
-    quarter-warp shares ly. With
-    ``score_parts`` 1 (d = 64 and 128), warps go in pairs (``splits``)
+    128 and 256 by 8 floats, so that a warp's 4-byte stores of one
+    partial score fall in 32 banks); a lane (ly, lx) is (lane // 8, lane %
+    8): a quarter-warp shares ly; an SM holds ``blocks_per_sm`` blocks.
+    With ``score_parts`` 1 (d = 64), warps go in pairs (``splits``)
     over ``4 * micro[0]`` rows: each sums its rows' scores over all of d for
     half the streamed rows, a lane ``micro`` = (rows ly + 4 i, streamed
     rows lx + 8 j) of S or dP, and holds, in each of ``col_groups`` groups
     of 32 d columns of its half of d, rows ly + 4 i by columns 4 lx .. + 3
-    of each output. With ``score_parts`` 4 (d = 256) the scores are split
-    by depth and S and dP run side by side: warp w = (product, p) = (w //
-    4, w % 4) of the block's ``splits`` = 8 sums its product (S, or dP)
-    over all the block's rows and the tile's streamed rows and over part p
-    of d, a lane ``micro`` = (rows ly + 4 i, streamed rows lx + 8 j); the
-    four parts of an entry meet in shared memory (``2 * (score_parts -
-    1)`` planes of strip rows, S's and dP's) and are added in part order by
-    the product's warp whose ``own_cols`` of a lane's streamed rows hold
-    it (S's writes p, dP's then ds); each warp then holds ``head_dim /
-    splits`` columns of each output, a lane rows ly + 4 i by columns 4 lx
-    + 32 c .. + 3. The grid is ``(grid.y
+    of each output. With ``score_parts`` P > 1 (2 at d = 128, 4 at d =
+    256) the scores are split by depth and S and dP run side by side: warp
+    w = (product, p) = (w // P, w % P) of the block's ``splits`` = 2 P sums
+    its product (S, or dP) over all the block's rows and the tile's
+    streamed rows and over part p of d, a lane ``micro`` = (rows ly + 4 i,
+    streamed rows lx + 8 j); the P parts of an entry meet in shared memory
+    (``2 * (score_parts - 1)`` planes of strip rows, S's and dP's) and are
+    added in part order by the product's warp whose ``own_cols`` of a
+    lane's streamed rows hold it (S's writes p, dP's then ds); each warp
+    then holds ``head_dim / splits`` columns of each output, a lane rows ly
+    + 4 i by columns 4 lx + 32 c .. + 3. The grid is ``(grid.y
     of fa_batch_heads_grid, row blocks, grid.z)``: x, dispatched first,
     runs over batch * heads, y over the row blocks in the order
     :meth:`dq_order` / :meth:`dkv_order` (heaviest first)."""
@@ -279,6 +279,7 @@ class FmaBwdGeometry:
     micro: tuple = (8, 4)
     splits: int = 2
     score_parts: int = 1
+    blocks_per_sm: int = 1
 
     @property
     def dq_strips(self) -> int:
@@ -358,19 +359,26 @@ class FmaBwdGeometry:
 
 
 # d = 128: 128-row blocks of 132-float rows would not fit (the dq kernel
-# 338 KB, dk / dv 407 KB); blocks of 64 rows (two warp pairs) over 32-row
-# tiles take 144 KB and 154 KB. d = 256: 64-row blocks of 260-float rows
-# would take 269 KB and 279 KB, and a pair's lane 256 dk / dv
-# accumulators; blocks of 32 rows, one group of four warps, over 32-row
-# tiles; split by streamed rows, a lane's score would be 8 x 1 (9 loads
-# for 32 FFMAs) and each scheduler would hold one warp, so the scores are
-# split by depth over 8 warps, S's four and dP's four side by side: 8 x 4
-# a lane over a quarter of d, six planes of 40-float rows for the parts,
-# 225 KB (dq) and 225.5 KB (dk / dv), a lane 64 dk / dv accumulators
+# 338 KB, dk / dv 407 KB); 64-row blocks of two warp pairs over 32-row
+# tiles (144 KB and 154 KB) ran one block an SM, one warp a scheduler, a
+# lane's score 8 x 2 (10 loads for 64 FFMAs). So a block owns 32 rows
+# over 32-row tiles and the scores are split by depth over 4 warps, S's
+# two and dP's two side by side: 8 x 4 a lane over half of d, two planes
+# of 40-float rows for the parts, 109 KB (dq) and 109.5 KB (dk / dv), two
+# blocks an SM (eight warps, two a scheduler), a lane 64 dk / dv
+# accumulators. d = 256: 64-row blocks of 260-float rows would take 269 KB
+# and 279 KB, and a pair's lane 256 dk / dv accumulators; blocks of 32
+# rows, one group of four warps, over 32-row tiles; split by streamed
+# rows, a lane's score would be 8 x 1 (9 loads for 32 FFMAs) and each
+# scheduler would hold one warp, so the scores are split by depth over 8
+# warps, S's four and dP's four side by side: 8 x 4 a lane over a quarter
+# of d, six planes of 40-float rows for the parts, 225 KB (dq) and 225.5
+# KB (dk / dv), a lane 64 dk / dv accumulators
 _FMA_BWD = {64: FmaBwdGeometry(),
-            128: FmaBwdGeometry(block_rows=64, tile_rows=32, head_dim=128,
+            128: FmaBwdGeometry(block_rows=32, tile_rows=32, head_dim=128,
                                 threads=128, row_stride=132,
-                                strip_stride=36, micro=(8, 2)),
+                                strip_stride=40, micro=(8, 4), splits=4,
+                                score_parts=2, blocks_per_sm=2),
             256: FmaBwdGeometry(block_rows=32, tile_rows=32, head_dim=256,
                                 threads=256, row_stride=260,
                                 strip_stride=40, micro=(8, 4), splits=8,

@@ -1522,12 +1522,14 @@ _SOLO_CASES = ([(*c, 64, "fp32") for c in FLASH_FP32_SHAPES]
 # GPT-J 6B's causal attention at 256
 FLASH_BWD_DROPOUT_SHAPES = [(2, 16, 2048, 2048, True, 256)]
 # the ``flash-bwd`` mode's fp32 cases at the wider heads, (b, h, sq, sk,
-# causal, head dim, form): Cerebras-GPT 1.3B's causal attention at 128,
-# GPT-J 6B's at 256 (with dropout too) and Nemotron-4's head of 192 (padded
-# to 256); the dlogits form (a learned (1, h, sq, sk) bias, ``want_dbias``)
-# at 128 and 256, beside SDPA's backward with a float ``attn_mask`` that
-# takes a gradient
+# causal, head dim, form): Cerebras-GPT 1.3B's causal attention at 128 and
+# GPT-J 6B's at 256 (each with dropout too), Cerebras-GPT 2.7B's head of 80
+# (padded to 128) and Nemotron-4's of 192 (padded to 256); the dlogits form
+# (a learned (1, h, sq, sk) bias, ``want_dbias``) at 128 and 256, beside
+# SDPA's backward with a float ``attn_mask`` that takes a gradient
 FLASH_BWD_FP32_WIDE = [(2, 16, 2048, 2048, True, 128, "plain"),
+                       (2, 16, 2048, 2048, True, 128, "dropout"),
+                       (2, 32, 2048, 2048, True, 80, "plain"),
                        (2, 16, 2048, 2048, True, 256, "plain"),
                        (2, 16, 2048, 2048, True, 256, "dropout"),
                        (1, NEMO_HEADS, 2048, 2048, True, NEMO_D, "plain"),
@@ -2043,7 +2045,8 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
                                    "gn_apply_kernel_vec")}
 # the report's kernels that must keep every value in registers (no
 # spill), by the start of their key: the fp32 flash forward's and
-# backward's unbiased forms (the backward's at d = 64 and 256), the bf16 tensor-core forward and backward
+# backward's unbiased forms (the backward's at every width), the bf16
+# tensor-core forward and backward
 # pair in every form at every width (their consumers' setmaxnreg
 # registers), every form of the LayerNorm backward's
 # register form, the two-pass GroupNorm's bf16 vector stats kernel and
@@ -2054,6 +2057,8 @@ NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>", "fa_fwd_kernel_wgmma<",
                     "fa_bwd_dkv_kernel_wgmma<",
                     "fa_bwd_dq_kernel_fma<64,false,false,false>",
                     "fa_bwd_dkv_kernel_fma<64,false,false>",
+                    "fa_bwd_dq_kernel_fma<128,false,false,false>",
+                    "fa_bwd_dkv_kernel_fma<128,false,false>",
                     "fa_bwd_dq_kernel_fma<256,false,false,false>",
                     "fa_bwd_dkv_kernel_fma<256,false,false>",
                     "ln_bwd_kernel_reg<",
@@ -2189,6 +2194,36 @@ def device_ms(fn, sets, reps, min_cover=None):
     return sum(device_kernels(fn, sets, reps, min_cover).values())
 
 
+def fma_bwd_occupancy(build):
+    """``{kernel<d,bias,dropout[,dlogits]>: {"blocks": n, "want": m}}``:
+    the blocks of each form of the fp32 backward pair
+    (``fa_bwd_dq_kernel_fma``, ``fa_bwd_dkv_kernel_fma``) at each compiled
+    width that an SM of this card holds at once, as the kernels are
+    launched (``apex_fa_bwd_fma_occupancy``: the CUDA occupancy
+    calculator), beside the geometry's ``blocks_per_sm``."""
+    import ctypes
+
+    from apex_tpu_torch.ops.tiling import FA_HEAD_DIMS, fa_fma_bwd_geometry
+    lib, out = build.lib(), {}
+    # (kernel, bias, dropout, dlogits): dlogits in dq only, with a bias
+    forms = [(k, b, dr, dl) for k in (0, 1) for b in (0, 1) for dr in (0, 1)
+             for dl in (0, 1) if not dl or (k == 0 and b)]
+    for d in FA_HEAD_DIMS:
+        for kernel, b, dr, dl in forms:
+            n = ctypes.c_int(0)
+            build.check(lib.apex_fa_bwd_fma_occupancy(
+                d, kernel, b, dr, dl, ctypes.byref(n)),
+                "apex_fa_bwd_fma_occupancy")
+            name = ("fa_bwd_dq_kernel_fma" if kernel == 0
+                    else "fa_bwd_dkv_kernel_fma")
+            args = ",".join(["true" if x else "false" for x in
+                             (b, dr, dl)[:3 if kernel == 0 else 2]])
+            out[f"{name}<{d},{args}>"] = {
+                "blocks": n.value,
+                "want": fa_fma_bwd_geometry(d).blocks_per_sm}
+    return out
+
+
 def n_sets(bytes_per_set):
     """Input copies to cycle so each call finds its data out of L2."""
     return int(min(16, max(2, math.ceil(2 * L2_BYTES / bytes_per_set))))
@@ -2290,10 +2325,16 @@ def main() -> int:
                                "fa_bwd_dkv_kernel_wgmma<"))
               and "wgmma_serialized" in r}
     require(not serial, f"ptxas serialises a wgmma pipeline: {serial}")
+    # every form of the fp32 backward pair keeps its geometry's blocks an
+    # SM resident (two at d = 128)
+    fma_blocks = fma_bwd_occupancy(_build)
+    wrong = {k: r for k, r in fma_blocks.items() if r["blocks"] != r["want"]}
+    require(not wrong, f"fp32 flash backward blocks an SM: {wrong}")
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          sources=[p.relative_to(ROOT).as_posix() for p in _build.sources()],
-         nvcc_flags=_build.NVCC_FLAGS, build_s=build_s, ptxas=ptxas)
+         nvcc_flags=_build.NVCC_FLAGS, build_s=build_s, ptxas=ptxas,
+         fma_bwd_blocks_per_sm=fma_blocks)
 
     # ------------------------------------------------ 2. kernel vs plain
     def device_profile(fn, counts=None, passes=1):

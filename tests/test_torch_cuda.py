@@ -656,7 +656,13 @@ def test_public_flash_takes_any_layout_on_the_card_at_256(dev, dtype):
     _any_layout_check(dev, dtype, 256)
 
 
-@pytest.mark.parametrize("d", [64, 256])
+def test_public_flash_takes_any_layout_on_the_card_at_128(dev):
+    """The same in fp32 at head width 128, the scores split by depth into
+    two parts, two blocks an SM."""
+    _any_layout_check(dev, torch.float32, 128)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_fp32_flash_bwd_misaligned_view_gives_the_aligned_bits(dev, d):
     """An fp32 q, k, v, o and do 4 bytes off the 16-byte alignment take the
     backward pair's 4-byte copies and stores (``vec`` = 0), causal and
@@ -1164,6 +1170,54 @@ def test_fp32_flash_bwd_at_256_over_65535_batch_heads(dev):
     q, k, v, do = (torch.randn(1025, 64, 48, 256, device=dev, generator=g)
                    for _ in range(4))
     _bf16_bwd_check(dev, q, k, v, do, True, "dropout", 31)
+
+
+# the fp32 backward's block and tile heights at d = 128 (fa_fma_bwd_geometry:
+# blocks of 32 rows over tiles of 32, the scores split by depth into two
+# parts, two blocks an SM) and the sizes one below and one above
+_FMA128_EDGES = [31, 32, 33]
+
+
+@pytest.mark.parametrize("form", sorted(_BWD128_FORMS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sk", _FMA128_EDGES)
+@pytest.mark.parametrize("sq", _FMA128_EDGES)
+@pytest.mark.parametrize("d", [128, 96, 80])
+def test_fp32_flash_bwd_at_128_tile_edges(dev, d, sq, sk, causal, form):
+    """The fp32 dq and dk / dv kernels at head width 128 (d = 96 and 80
+    through the zero-padded route) where sq and sk cross their block and
+    tile heights, causal and full, in every form: within 1e-4 of the plain
+    version (the dlogits within ``_DLOGITS_TOL``), two runs the same
+    bits."""
+    g = torch.Generator(device=dev).manual_seed(d + 100 * sq + sk + causal)
+    q, k, v, do = (torch.randn(1, 2, s, d, device=dev, generator=g)
+                   for s in (sq, sk, sk, sq))
+    _bf16_bwd_check(dev, q, k, v, do, causal, form, d + len(form))
+
+
+@pytest.mark.parametrize("form", sorted(_BWD128_FORMS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (200, 333), (100, 333)])
+@pytest.mark.parametrize("d", [128, 96, 80])
+def test_fp32_flash_bwd_at_128_matches_plain(dev, d, sq, sk, causal, form):
+    """The fp32 pair at head width 128 (d = 96 and 80 padded) over many
+    blocks and tiles, square and ragged (200 x 333: the sk edge inside a
+    key tile; 100 x 333: sq inside a query tile, keys past every query),
+    in every form, against the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(d + sq + sk + causal + 1)
+    q, k, v, do = (torch.randn(2, 3, s, d, device=dev, generator=g)
+                   for s in (sq, sk, sk, sq))
+    _bf16_bwd_check(dev, q, k, v, do, causal, form, d * 3 + len(form))
+
+
+def test_fp32_flash_bwd_at_128_over_65535_batch_heads(dev):
+    """batch * heads = 65,600 (1025 x 64) through grid.y x grid.z at d =
+    128 in fp32, 48 rows (a block and a half), causal, with dropout: the
+    pair against the plain versions."""
+    g = torch.Generator(device=dev).manual_seed(37)
+    q, k, v, do = (torch.randn(1025, 64, 48, 128, device=dev, generator=g)
+                   for _ in range(4))
+    _bf16_bwd_check(dev, q, k, v, do, True, "dropout", 41)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

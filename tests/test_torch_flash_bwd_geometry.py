@@ -5,12 +5,13 @@ run only on the card; what decides which rows and tiles they visit is held
 here against brute force at each compiled head width (64, 128 and 256):
 shared memory within a Hopper block, the padded row strides (every
 operand load and, where the scores are split by depth, every partial
-score's store free of bank conflicts), the lanes covering a warp group's
-rows (a pair's, or at d = 256 the block's eight, S's four and dP's four),
-every (row, streamed row, d column) term of a score and every output
-element once each, at d = 256 the four partial scores of each entry
-stored once and added back in part order by the warp that owns the
-entry, the grid covering every row, the tiles a causal block visits against a count of the tiles
+score's store free of bank conflicts), the blocks an SM holds, the lanes
+covering a warp group's rows (a pair's, or at d = 128 and 256 the
+block's four or eight, half S's and half dP's), every (row, streamed row,
+d column) term of a score and every output element once each, at d = 128
+and 256 the two or four partial scores of each entry stored once and
+added back in part order by the warp that owns the entry, the grid
+covering every row, the tiles a causal block visits against a count of the tiles
 holding any unmasked (query, key) pair, dq's heaviest-first order, and
 the ``constexpr`` values of the source (``BwdGeometry<d>``) against the
 Python mirror; and of the bf16 tensor-core pair
@@ -39,8 +40,11 @@ SRC = (Path(__file__).resolve().parent.parent / "apex_tpu_torch" / "csrc"
 TC_BWD_SRCS = ("flash_bwd_dq_wgmma.cu", "flash_bwd_dkv_wgmma.cu")
 SIZES = [1, 63, 64, 65, 127, 129, 200, 333, 1000, 1024]
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
+SM_SMEM = 233472             # an SM's, 1 KB of it reserved for each block
 G = fa_fma_bwd_geometry()
 WIDTHS = pytest.mark.parametrize("d", FA_HEAD_DIMS)
+# the widths whose scores are split by depth, with each one's parts
+SPLIT_PARTS = {128: 2, 256: 4}
 
 
 def _constexprs(d):
@@ -83,7 +87,8 @@ def test_geometry_mirrors_the_source(d):
         4 if g.score_parts == 1 else 8)
     assert int(c["kSplit"]) == g.splits
     assert int(c["kScoreParts"]) == g.score_parts
-    assert g.score_parts == (4 if d == 256 else 1)
+    assert g.score_parts == SPLIT_PARTS.get(d, 1)
+    assert int(c["kBlocksPerSM"]) == g.blocks_per_sm
     # kThreads = 32 * kSplit * kBM / kGroupRows, kGroupRows = 4 * kMI
     assert c["kGroupRows"] == "4 * kMI"
     assert c["kThreads"] == "32 * kSplit * kBM / kGroupRows"
@@ -114,9 +119,16 @@ def test_geometry_mirrors_the_source(d):
 
 @WIDTHS
 def test_shared_memory_fits_a_block(d):
+    """Each kernel's bytes, as the source sums them, within a block's
+    limit, and ``blocks_per_sm`` blocks (each with its reserved 1 KB, no
+    more) within an SM's: two at d = 128, one elsewhere."""
     g = fa_fma_bwd_geometry(d)
     assert g.dq_smem_bytes <= SMEM_LIMIT
     assert g.dkv_smem_bytes <= SMEM_LIMIT
+    for nbytes in (g.dq_smem_bytes, g.dkv_smem_bytes):
+        assert g.blocks_per_sm * (nbytes + 1024) <= SM_SMEM
+    assert (g.blocks_per_sm + 1) * (g.dq_smem_bytes + 1024) > SM_SMEM
+    assert g.blocks_per_sm == (2 if d == 128 else 1)
     # the source's sums of tiles, in floats, as the Python bytes count them
     c = _constexprs(d)
     assert c["kDqSmemFloats"] == \
@@ -131,18 +143,20 @@ def test_shared_memory_fits_a_block(d):
     block, tile = g.block_rows * g.row_stride, g.tile_rows * g.row_stride
     strip = g.block_rows * g.strip_stride
     # dq: the ds strip; dk / dv: the p and ds strips; split by depth, the
-    # three planes of S's partial scores and three of dP's, the strips
-    # among them
-    strips = (1, 2) if g.score_parts == 1 else (6, 6)
+    # score_parts - 1 planes of S's partial scores and as many of dP's, the
+    # strips among them
+    planes = 2 * (g.score_parts - 1)
+    strips = (1, 2) if g.score_parts == 1 else (planes, planes)
     assert (g.dq_strips, g.dkv_strips) == strips
     assert g.dq_smem_bytes == 4 * (2 * block + strips[0] * strip
                                    + g.stages * 2 * tile)
     assert g.dkv_smem_bytes == 4 * (2 * block + strips[1] * strip
                                     + g.stages * 2 * tile
                                     + g.stages * 2 * g.tile_rows)
-    # the widths that keep their layout keep their bytes
+    # the bytes of each width's layout (d = 128: two blocks of 32 rows an
+    # SM, where 64-row blocks took 144,384 and 154,112, one an SM)
     assert (g.dq_smem_bytes, g.dkv_smem_bytes) == {
-        64: (174080, 209920), 128: (144384, 154112),
+        64: (174080, 209920), 128: (111616, 112128),
         256: (230400, 230912)}[d]
 
 
@@ -248,11 +262,11 @@ def _output_cells(g):
 
 @WIDTHS
 def test_lanes_cover_a_pair_once(d):
-    """The lanes of a group of warps (a pair, or the block's eight at d =
-    256, four for S and four for dP) hold every (row, streamed row, d
-    column) term of S and of dP and
-    every (row, d column) of each output exactly once; a lane holds at
-    most 64 accumulators of dq, and of dk and of dv each."""
+    """The lanes of a group of warps (a pair, or the block's four at d =
+    128 and eight at d = 256, half for S and half for dP) hold every (row,
+    streamed row, d column) term of S and of dP and every (row, d column)
+    of each output exactly once; a lane holds at most 64 accumulators of
+    dq, and of dk and of dv each."""
     g = fa_fma_bwd_geometry(d)
     assert (_score_terms(g) == 1).all()
     assert (_score_terms(g, 1) == 1).all()
@@ -263,21 +277,25 @@ def test_lanes_cover_a_pair_once(d):
     assert outs.size // (32 * g.splits) <= 64
 
 
-@pytest.mark.parametrize("owner", range(4))
-def test_partial_scores_meet_once_in_part_order(owner):
-    """d = 256, scores split by depth (``put_partials`` / ``whole_score``
-    in the source): lane (ly, lx) of warp (product, p) stores its partial
-    of entry (ly + 4 i, lx + 8 j) into plane p - (p > o) of its product's
-    three, where o = j // own_cols is the part whose warp finishes it, at
-    row * kSStride + column. Each (plane, offset) is stored once; the lane
-    of the product's warp o that holds the entry reads it back and finds
-    the four parts in part order 0, 1, 2, 3, each from the warp of that
-    part, of the same entry; warp o finishes columns 8 o .. 8 o + 7 of the
-    tile, every row once, and S's and dP's warp o the same entries; the
-    first plane's entry that S's writes p over, and dP's then reads back
-    (and, in dk / dv, overwrites with p * keep), and the one dP's writes
-    ds over, are ones only those two lanes touch."""
-    g = fa_fma_bwd_geometry(256)
+@pytest.mark.parametrize("d,owner", [(d, o) for d, parts in
+                                     SPLIT_PARTS.items()
+                                     for o in range(parts)])
+def test_partial_scores_meet_once_in_part_order(d, owner):
+    """d = 128 and 256, scores split by depth into P = 2 or 4 parts
+    (``put_partials`` / ``whole_score`` in the source): lane (ly, lx) of
+    warp (product, p) stores its partial of entry (ly + 4 i, lx + 8 j) into
+    plane p - (p > o) of its product's P - 1, where o = j // own_cols is
+    the part whose warp finishes it, at row * kSStride + column. Each
+    (plane, offset) is stored once; the lane of the product's warp o that
+    holds the entry reads it back and finds the P parts in part order 0,
+    1, ..., each from the warp of that part, of the same entry; warp o
+    finishes columns 32 o / P .. 32 (o + 1) / P - 1 of the tile, every row
+    once, and S's and dP's warp o the same entries; the first plane's entry
+    that S's writes p over, and dP's then reads back (and, in dk / dv,
+    overwrites with p * keep), and the one dP's writes ds over, are ones
+    only those two lanes touch."""
+    g = fa_fma_bwd_geometry(d)
+    assert g.score_parts == SPLIT_PARTS[d]
     mi, nj = g.micro
     ss, parts = g.strip_stride, g.score_parts
     stored = {}

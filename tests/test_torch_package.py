@@ -253,7 +253,8 @@ def test_build_sources_and_digest():
                      "layer_norm.cu", "remote_copy.cu", "softmax.cu"]
     assert set(_build.SIGNATURES) == {
         "apex_ln_fwd", "apex_ln_bwd", "apex_fa_fwd", "apex_fa_bwd_dq",
-        "apex_fa_bwd_dkv", "apex_fa_fwd_wgmma", "apex_fa_bwd_dq_wgmma",
+        "apex_fa_bwd_dkv", "apex_fa_bwd_fma_occupancy",
+        "apex_fa_fwd_wgmma", "apex_fa_bwd_dq_wgmma",
         "apex_fa_bwd_dkv_wgmma",
         "apex_fused_adam", "apex_fused_adam_master",
         "apex_lamb_stage1", "apex_lamb_stage2", "apex_fused_sgd",

@@ -3,7 +3,8 @@
 
     python3 -m tools.flash_bwd_split [ROOT] [--route bf16|fp32]
                                      [--shape B,H,SQ,SK,CAUSAL,D]
-                                     [--forms plain,dropout] [--reps N]
+                                     [--forms plain,dropout,bias,dlogits]
+                                     [--reps N]
                                      [--sub 'OLD=>NEW' ...]
     python3 -m tools.flash_bwd_split [ROOT] --ptxas-only [--route ...]
                                      [--sub ...] [--spills dkv:128,1,1]
@@ -20,12 +21,13 @@ bf16 sources before the redesign of the pair at d = 128, the fp32 source
 before that at d = 256) gets them inserted beside the statements of
 ``_PARENT_ANCHORS``. At a stamp the first thread of each 128-thread group
 (a consumer warpgroup of the bf16 pair; the fp32 pair's first four warps,
-at d = 64 also its next four) writes the SM's clock into slot ``slot`` of
+and its next four where a block has eight) writes the SM's clock into slot ``slot`` of
 tile ``tile`` (its count of tiles from 0).
 
-For each kernel and form, at the shape given (by default Cerebras-GPT
-1.3B's causal attention, 2 x 16 x 2048 x 128), on inputs of the route's
-dtype, prints one JSON line:
+For each kernel and form (``bias``: a learned-like (1, h, sq, sk) bias;
+``dlogits``: the same bias and dq's dlogits, dK·dV with the bias alone),
+at the shape given (by default Cerebras-GPT 1.3B's causal attention, 2 x
+16 x 2048 x 128), on inputs of the route's dtype, prints one JSON line:
 mean cycles a warpgroup spends per tile in each phase (the cycles from
 one stamp to the next, over every tile that reached all of its stamps),
 the mean tile (its first stamp to its last), the tiles counted, both
@@ -186,8 +188,8 @@ def kernel_text(text: str, which: str) -> str:
 
 def phases(text: str) -> dict:
     """``{slot: phase name}`` of the stamped source's points (the names of
-    one slot in the tiles of two layouts, d <= 128 and 256, joined by
-    " | ")."""
+    one slot in the tiles of two layouts, by rows at d = 64 and by depth at
+    d = 128 and 256, joined by " | ")."""
     out = {}
     for m in _POINT.finditer(text):
         names = out.setdefault(int(m.group(1)), [])
@@ -412,6 +414,11 @@ def main(argv=None) -> int:
             rate = 0.1 if form == "dropout" else 0.0
             drop = ((seed.data_ptr(), dropout_threshold(rate),
                      dropout_scale(rate)) if rate else (None, 0, 0.0))
+            bias = (torch.randn(1, h, sq, sk, device=dev, generator=gen)
+                    if form in ("bias", "dlogits") else None)
+            strides = (0, sq * sk, sk, 1) if bias is not None else (0,) * 4
+            dlogits = (torch.empty(b * h * sq * sk, device=dev)
+                       if form == "dlogits" else None)
             sets = []
             for _ in range(nset):
                 q, k, v, do = (torch.randn(b, h, n, d, device=dev,
@@ -419,12 +426,13 @@ def main(argv=None) -> int:
                                .to(dtype) for n in (sq, sk, sk, sq))
                 kw = dict(dropout_p=rate, dropout_seed=seed) if rate else {}
                 o, lse = flash_attention_fwd(q, k, v, scale=d ** -0.5,
-                                             causal=bool(causal), **kw)
+                                             causal=bool(causal), bias=bias,
+                                             **kw)
                 sets.append((q, k, v, do, lse, attention_dvec(o, do),
                              torch.empty_like(q), torch.empty_like(k),
                              torch.empty_like(v)))
             geo = (b * h, *fa_batch_heads_grid(b * h), h, sq, sk, d,
-                   d ** -0.5, causal, 0, 0, 0, 0, *drop)
+                   d ** -0.5, causal, *strides, *drop)
             for which, (src, kernel, entry) in ROUTES[a.route].items():
                 rec = {"kernel": which, "route": a.route, "form": form,
                        "shape": a.shape, "subs": a.sub}
@@ -438,12 +446,14 @@ def main(argv=None) -> int:
                     def call(s):
                         q, k, v, do, lse, dvec, dq, dk, dv = s
                         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                None, do.data_ptr(), lse.data_ptr(),
+                                None if bias is None else bias.data_ptr(),
+                                do.data_ptr(), lse.data_ptr(),
                                 dvec.data_ptr())
                         stream = torch.cuda.current_stream().cuda_stream
                         if which == "dq":
-                            err = fn(*args, dq.data_ptr(), *geo, None,
-                                     *tail, stream)
+                            err = fn(*args, dq.data_ptr(), *geo,
+                                     None if dlogits is None
+                                     else dlogits.data_ptr(), *tail, stream)
                         else:
                             err = fn(*args, dk.data_ptr(), dv.data_ptr(),
                                      *geo, *tail, stream)
