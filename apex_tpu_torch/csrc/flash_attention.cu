@@ -1,17 +1,17 @@
-// Flash-attention forward for Hopper (sm_90a), fp32: o = softmax(q k^T *
-// scale) v with an online softmax, plus the fp32 row log-sum-exp. bf16
-// runs on the tensor cores instead (flash_fwd_wgmma.cu); fp32 stays here on
-// the FMA pipes, whose full fp32 products the fp32 tolerances hold (a TF32
-// tensor-core product would change the numbers users get).
+// Flash-attention forward for Hopper (sm_90a), fp32 at head width 64: o =
+// softmax(q k^T * scale) v with an online softmax, plus the fp32 row
+// log-sum-exp, on the FMA pipes (full fp32 products). bf16 runs on the
+// tensor cores instead (flash_fwd_wgmma.cu), and so does fp32 at the head
+// widths 128 and 256, as split-TF32 products within the same fp32
+// tolerances (flash_fwd_tf32.cu), as fp32 SDPA runs its own.
 //
 // Replaces: apex_tpu/ops/pallas/flash_attention.py `flash_attention_fwd`
 // (the Pallas kernel `_fa_fwd_kernel`), causal or not, with or without an
 // additive fp32 score bias, with or without attention dropout (the keep
 // factor of `Dropout`, common.cuh, times p before the p.v product; l and
 // lse from the undropped p, as `_fa_fwd_kernel` sums them), JAX layout q
-// (b, h, sq, d), k / v (b, h, sk, d), d a compiled head width (64, 128 or
-// 256: the template parameter kD; the wrapper pads any other d up to the
-// next of them with zero columns). The bias (a boolean mask arrives as
+// (b, h, sq, d), k / v (b, h, sk, d), d = 64 (the template parameter kD;
+// the wrapper pads any d below 64 up to it with zero columns). The bias (a boolean mask arrives as
 // -1e30 where masked, `flash_attention`'s rule) is broadcastable to
 // (b, h, sq, sk) and read through per-dimension strides, 0 on a broadcast
 // dimension, so a (b, 1, 1, sk) padding mask is never expanded (the TPU's
@@ -79,18 +79,7 @@
 // - Exactness. The score is __fmul_rn / __fadd_rn (no FMA contraction);
 //   each block owns its output rows, with no atomics: two runs give the
 //   same bits.
-// - Head dim 128. The same block and lanes; a lane's o is two 8 x 4
-//   blocks, d columns 4 lx .. + 3 and 64 + 4 lx .. + 3 (two products of p
-//   v per tile, each over one 64-column half of V), and rows are 132
-//   floats. Q, the p strip (rows of the tile's 64 keys, 68 floats) and two
-//   stages of K / V take 186 KB: one block an SM.
-// - Head dim 256. Rows of 260 floats: two stages of 64-key K / V tiles
-//   alone would take 260 KB, so the tiles are 32 keys (kBN = 32): a lane
-//   holds keys lx and lx + 16 of a tile (an 8 x 2 micro-tile of S) and
-//   four 8 x 4 blocks of o (d columns 64 g + 4 lx .. + 3), and the p strip
-//   rows are 36 floats. Q, the strip and two stages take 204 KB: one
-//   block an SM.
-// The geometry is mirrored by fa_fma_fwd_geometry(d) in ops/tiling.py.
+// The geometry is mirrored by fa_fma_fwd_geometry() in ops/tiling.py.
 //
 // C interface (bound with ctypes): every pointer and the stream are
 // `void*`; the function returns cudaGetLastError() after the launch.
@@ -113,9 +102,10 @@ constexpr int kColStep = 16;    // a lane's keys: lx + 16 j
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskEdge = 0.5f * kNegInf;
 
-// What depends on the head dim kD (64, 128 or 256): the padded row stride
-// of Q, K and V (floats), the key rows of a streamed tile and the blocks an
-// SM that their shared memory allows.
+// What depends on the head dim kD (64 only: fp32 at 128 and 256 is
+// flash_fwd_tf32.cu's): the padded row stride of Q, K and V (floats), the
+// key rows of a streamed tile and the blocks an SM that their shared
+// memory allows.
 template <int kD>
 struct FwdGeometry;
 template <>
@@ -123,18 +113,6 @@ struct FwdGeometry<64> {
   static constexpr int kStride = 68;
   static constexpr int kBN = 64;
   static constexpr int kBlocksPerSM = 2;
-};
-template <>
-struct FwdGeometry<128> {
-  static constexpr int kStride = 132;
-  static constexpr int kBN = 64;
-  static constexpr int kBlocksPerSM = 1;
-};
-template <>
-struct FwdGeometry<256> {
-  static constexpr int kStride = 260;
-  static constexpr int kBN = 32;
-  static constexpr int kBlocksPerSM = 1;
 };
 
 template <int kD>
@@ -366,8 +344,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // dtype: 0 = float32 (q, k, v and o; bfloat16 is apex_fa_fwd_wgmma's);
-// lse is float32 [bh, sq]. d: 64, 128 or 256 (the compiled widths; the
-// wrapper pads any other d). grid_y x grid_z
+// lse is float32 [bh, sq]. d: 64 (fp32 at 128 and 256 is
+// apex_fa_fwd_tf32's; the wrapper pads any d below 64). grid_y x grid_z
 // carry the bh = b * h slices (fa_batch_heads_grid in ops/tiling.py) on
 // grid.x and grid.z; grid.y runs over the query blocks. bias: float32 or
 // null; heads = h of bh = b * h; bsb, bsh, bsq, bsk its strides in
@@ -381,8 +359,7 @@ extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
                            long long bsh, long long bsq, long long bsk,
                            const void* seed, unsigned threshold, float keep,
                            int dtype, void* stream) {
-  if ((d != 64 && d != 128 && d != 256) || heads < 1 ||
-      !bh_grid_ok(bh, grid_y, grid_z))
+  if (d != 64 || heads < 1 || !bh_grid_ok(bh, grid_y, grid_z))
     return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0) return 0;
   if ((sq + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
@@ -392,7 +369,6 @@ extern "C" int apex_fa_fwd(const void* q, const void* k, const void* v,
   const apex_port::Dropout dr{static_cast<const int*>(seed), threshold,
                               keep};
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const auto run = d == 64 ? launch<64> : d == 128 ? launch<128> : launch<256>;
-  return run(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale, causal, sb,
-             dr, s);
+  return launch<64>(q, k, v, o, lse, bh, grid_y, grid_z, sq, sk, scale,
+                    causal, sb, dr, s);
 }

@@ -1,7 +1,8 @@
 // Building blocks of the fp32 flash kernels on the FMA pipes
 // (flash_attention.cu, flash_attention_bwd.cu): asynchronous copies of
 // rows of a (s, d) fp32 matrix (d 64, 128 or 256) into a shared-memory tile
-// whose rows are padded to kStride floats, and the register-blocked
+// whose rows are padded to kStride floats (which the split-TF32 forward,
+// flash_fwd_tf32.cu, takes too), and the register-blocked
 // products over such tiles. A lane's micro-tile holds kMI rows (kRowStep
 // apart) by kNJ columns (kColStep apart) of a score, or by 4 d columns of
 // an output; every operand is a 16-byte float4 load, and every sum runs in

@@ -17,9 +17,9 @@ is no prebuilt library and no CPU stand-in for a CUDA tensor.
 launches its kernel and nowhere else, so a caller can zero the counts,
 drive a path and read which kernels that path went through;
 ``route_launches`` splits the flash wrappers' counts by route (the
-tensor-core or the FMA-pipe kernels) and ``form_launches`` counts their
-dropout and dlogits forms, their launches at head widths 128 and 256 and
-those of calls padded to a compiled width.
+tensor-core, split-TF32 or FMA-pipe kernels) and ``form_launches`` counts
+their dropout and dlogits forms, their launches at head widths 128 and 256
+and those of calls padded to a compiled width.
 """
 
 from __future__ import annotations
@@ -66,6 +66,13 @@ SIGNATURES = {
     "apex_fa_fwd_wgmma": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                           _i, _i, _f, _i, _ll, _ll, _ll, _ll, _vp, _u, _f,
                           _vp],
+    # the same: the fp32 split-TF32 forward (d 128 or 256)
+    "apex_fa_fwd_tf32": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                         _i, _i, _f, _i, _ll, _ll, _ll, _ll, _vp, _u, _f,
+                         _vp],
+    # d, bias, dropout, out int: the blocks of that form of the split-TF32
+    # forward an SM holds at once
+    "apex_fa_fwd_tf32_occupancy": [_i, _i, _i, _vp],
     # q, k, v, bias, do, lse, dvec, dq, bh, grid_y, grid_z, heads, sq, sk,
     # d, scale, causal, the bias's four strides, the dropout seed,
     # threshold and keep factor, dlogits (fp32 [bh, sq, sk]; null: none),
@@ -148,14 +155,16 @@ SIGNATURES = {
 }
 
 launches: collections.Counter = collections.Counter()
-# the same launches by route, for the wrappers whose call runs one of two
-# kernels: ``"<name>:<route>"`` (the flash wrappers: ``fa_fwd:wgmma``,
-# ``fa_bwd_dq:fma``, ...; see tiling.fa_route)
+# the same launches by route, for the wrappers whose call runs one of
+# several kernels: ``"<name>:<route>"`` (the flash wrappers:
+# ``fa_fwd:wgmma``, ``fa_fwd:tf32``, ``fa_bwd_dq:fma``, ...; see
+# tiling.fa_fwd_route and tiling.fa_route)
 route_launches: collections.Counter = collections.Counter()
 # the flash wrappers' launches of a kernel's optional forms, as
 # ``"<name>:<route>:<form>"``: ``fa_fwd:wgmma:dropout``,
 # ``fa_bwd_dkv:fma:dropout``, the dq kernel's dlogits
-# ``fa_bwd_dq:wgmma:dbias``, ...; at head width 128 or 256 each launch
+# ``fa_bwd_dq:wgmma:dbias``, ``fa_fwd:tf32:d128:dropout``, ...; at head
+# width 128 or 256 each launch
 # also counts ``"<name>:<route>:d128"`` (``d256``) and its forms carry the
 # width (``fa_bwd_dq:fma:d256:dbias``); a call at a head dim that is not
 # compiled, run zero-padded, counts ``"<name>:<route>:pad<d>"``

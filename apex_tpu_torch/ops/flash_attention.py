@@ -14,14 +14,19 @@ never expanded (the JAX ``_BiasPlan`` rule), so BERT's ``(b, 1, 1, sk)``
 padding mask stays ``b * sk`` floats. A score at or below -0.5e30 is out
 of the softmax support.
 
-For CUDA tensors the route follows the dtype, in the open
-(:func:`~apex_tpu_torch.ops.tiling.fa_route`): bf16 runs the tensor-core
+For CUDA tensors the route follows the dtype and the head width, in the
+open (:func:`~apex_tpu_torch.ops.tiling.fa_fwd_route`,
+:func:`~apex_tpu_torch.ops.tiling.fa_route`): bf16 runs the tensor-core
 kernels (``wgmma`` products on tiles that TMA brings into shared memory):
 the forward ``csrc/flash_fwd_wgmma.cu``, the dq kernel
 ``csrc/flash_bwd_dq_wgmma.cu`` and the dk / dv kernel
-``csrc/flash_bwd_dkv_wgmma.cu``; fp32 runs the FMA-pipe kernels of
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``, whose
-full fp32 products the fp32 results keep (a TF32 product would not). The
+``csrc/flash_bwd_dkv_wgmma.cu``. In fp32, the forward at d >= 65 (kernel
+widths 128 and 256) runs split-TF32 products on the tensor cores
+(``csrc/flash_fwd_tf32.cu``: three TF32 ``mma.sync`` products a pair of
+split operands, as fp32 SDPA runs them, within the same fp32 tolerances),
+and the forward at d <= 64 and the whole fp32 backward stay on the FMA
+pipes (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``: full
+fp32 products). The bf16
 tensor-core kernels read q, k, v and do through TMA tensor maps, which
 need 16-byte aligned base addresses: the raw :func:`flash_attention_fwd`
 / :func:`flash_attention_bwd` raise ``ValueError`` on a misaligned view
@@ -74,7 +79,7 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _build
 from apex_tpu_torch.ops.tiling import (FA_HEAD_DIMS, FA_TC_ALIGN,
-                                       fa_batch_heads_grid,
+                                       fa_batch_heads_grid, fa_fwd_route,
                                        fa_kernel_head_dim, fa_route,
                                        fa_tc_misaligned)
 
@@ -366,8 +371,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(b, h, sq, sk)`` (any strides), attention dropout at ``dropout_p``
     from ``dropout_seed`` (an int or a one-element integer tensor; None
     is 0, as in JAX). bf16 launches the tensor-core kernel (q, k and v
-    16-byte aligned, else ``ValueError``), fp32 the FMA-pipe kernel. CPU
-    tensors take the plain version."""
+    16-byte aligned, else ``ValueError``), fp32 at a kernel width of 128 or
+    256 the split-TF32 tensor-core kernel and at 64 the FMA-pipe kernel
+    (both take 4-byte aligned views). CPU tensors take the plain
+    version."""
     name = "flash_attention_fwd"
     cpu = _check_qkv(name, q, k, v)
     bptr, bstrides = _bias_args(name, bias, q, k)
@@ -377,7 +384,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          dropout_seed=dropout_seed)
     d = q.shape[-1]
     q, k, v = (_pad_d(t, fa_kernel_head_dim(d)) for t in (q, k, v))
-    tc = _tensor_core(name, q, k=k, v=v)
+    _tensor_core(name, q, k=k, v=v)   # raises on a misaligned bf16 operand
+    route = fa_fwd_route(str(q.dtype).removeprefix("torch."), q.shape[-1])
     drop, _seed = _dropout_args(name, dropout_p, dropout_seed, q.device)
     b, h, sq, kd = q.shape
     sk = k.shape[2]
@@ -389,23 +397,27 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kd, float(scale), int(causal), *bstrides, *drop)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if tc:
+        if route == "wgmma":
             err = lib.apex_fa_fwd_wgmma(*args, stream)
+        elif route == "tf32":
+            err = lib.apex_fa_fwd_tf32(*args, stream)
         else:
             err = lib.apex_fa_fwd(*args, _DTYPES[q.dtype], stream)
-    _count("fa_fwd", tc, d, kd, dropout=drop[0] is not None)
+    _count("fa_fwd", route, d, kd, dropout=drop[0] is not None)
     _build.check(err, name)
     return (o if kd == d else o[..., :d].contiguous()), lse
 
 
-def _count(name: str, tc: bool, d: int, kd: int, **forms: bool) -> None:
-    """One launch of flash kernel ``name`` at compiled width ``kd`` for a
-    call at head dim ``d``: its count, its route's and those of the forms
-    it ran (``fa_fwd:wgmma:dropout``, ``fa_bwd_dq:fma:dbias``). A width
-    other than 64 has its own keys (``fa_fwd:wgmma:d128``, one a launch,
-    ``fa_bwd_dq:fma:d256:dbias``), and a call that ran zero-padded one
-    more (``fa_fwd:wgmma:pad80``, ``fa_bwd_dkv:fma:pad192``)."""
-    route = f"{name}:{'wgmma' if tc else 'fma'}"
+def _count(name: str, route: str, d: int, kd: int, **forms: bool) -> None:
+    """One launch of flash kernel ``name`` on ``route`` (``"wgmma"``,
+    ``"tf32"`` or ``"fma"``) at compiled width ``kd`` for a call at head
+    dim ``d``: its count, its route's and those of the forms it ran
+    (``fa_fwd:wgmma:dropout``, ``fa_bwd_dq:fma:dbias``). A width other
+    than 64 has its own keys (``fa_fwd:wgmma:d128``, one a launch,
+    ``fa_fwd:tf32:d256:dropout``, ``fa_bwd_dq:fma:d256:dbias``), and a
+    call that ran zero-padded one more (``fa_fwd:wgmma:pad80``,
+    ``fa_bwd_dkv:fma:pad192``)."""
+    route = f"{name}:{route}"
     _build.launches[name] += 1
     _build.route_launches[route] += 1
     width = route if kd == 64 else f"{route}:d{kd}"
@@ -476,16 +488,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         (lib.apex_fa_bwd_dq_wgmma, lib.apex_fa_bwd_dkv_wgmma, ()) if tc
         else (lib.apex_fa_bwd_dq, lib.apex_fa_bwd_dkv, (_DTYPES[q.dtype],)))
     dropout = drop[0] is not None
+    route = "wgmma" if tc else "fma"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = dq_fn(*args, dq.data_ptr(), *geo,
                     None if dl is None else dl.data_ptr(), *dtype, stream)
-        _count("fa_bwd_dq", tc, d, kd, dropout=dropout,
+        _count("fa_bwd_dq", route, d, kd, dropout=dropout,
                dbias=dl is not None)
         _build.check(err, "flash_attention_bwd (dq)")
         err = dkv_fn(*args, dk.data_ptr(), dv.data_ptr(), *geo, *dtype,
                      stream)
-        _count("fa_bwd_dkv", tc, d, kd, dropout=dropout)
+        _count("fa_bwd_dkv", route, d, kd, dropout=dropout)
         _build.check(err, "flash_attention_bwd (dk, dv)")
     if kd != d:
         dq, dk, dv = (g[..., :d].contiguous() for g in (dq, dk, dv))
@@ -573,9 +586,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     JAX signature's TPU tiles: explicit values are validated by its rule
     (:func:`validate_blocks`; one given alone is checked beside the JAX
     default of the other, 512 or 1024) and change nothing else: the CUDA
-    kernels keep their own tiles (the fp32 forward's and backward's by
-    head width, :func:`~apex_tpu_torch.ops.tiling.fa_fma_fwd_geometry`
-    and :func:`~apex_tpu_torch.ops.tiling.fa_fma_bwd_geometry`; the bf16
+    kernels keep their own tiles (the fp32 forward's by head width,
+    :func:`~apex_tpu_torch.ops.tiling.fa_fma_fwd_geometry` at 64 and
+    :func:`~apex_tpu_torch.ops.tiling.fa_tf32_fwd_geometry` at 128 and
+    256, the fp32 backward's
+    :func:`~apex_tpu_torch.ops.tiling.fa_fma_bwd_geometry`; the bf16
     tensor-core forward's blocks of 128 rows in two 64-row warpgroups
     over 64-key tiles, 32 at d = 256,
     :func:`~apex_tpu_torch.ops.tiling.fa_tc_fwd_geometry`; the backward

@@ -121,9 +121,10 @@ def ln_bwd_geometry(rows: int, hidden: int, dtype: str = "bfloat16",
 # flash attention, compiled for the head widths FA_HEAD_DIMS; a call at
 # any other d up to the widest is zero-padded along d to the next compiled
 # width (fa_kernel_head_dim), which changes no score, lse or output. The
-# fp32 forward's FMA kernel (csrc/flash_attention.cu) takes the geometry
-# of fa_fma_fwd_geometry(d), the fp32 backward's
-# (csrc/flash_attention_bwd.cu) that of fa_fma_bwd_geometry(d).
+# fp32 forward runs the FMA kernel of csrc/flash_attention.cu at d = 64
+# (fa_fma_fwd_geometry) and the split-TF32 tensor-core kernel of
+# csrc/flash_fwd_tf32.cu at d = 128 and 256 (fa_tf32_fwd_geometry(d)); the
+# fp32 backward (csrc/flash_attention_bwd.cu) takes fa_fma_bwd_geometry(d).
 FA_HEAD_DIMS = (64, 128, 256)
 
 
@@ -144,45 +145,14 @@ def _fa_check_width(head_dim: int) -> int:
     return head_dim
 
 
-@dataclasses.dataclass(frozen=True)
-class FmaFwdGeometry:
-    """The fp32 flash forward's FMA-pipe kernel at one compiled head width,
-    mirrored by the ``constexpr`` values of ``FwdGeometry<head_dim>`` in
-    ``csrc/flash_attention.cu``. A block of ``threads`` owns
-    ``block_rows`` query rows, ``warp_rows`` to a warp, ``blocks_per_sm``
-    blocks an SM, and streams ``tile_rows``-row K / V tiles through
-    ``stages`` shared-memory stages; every Q, K and V row is
-    ``row_stride`` floats (the head dim padded to spread a quarter-warp's
-    16-byte loads over distinct banks), every p strip row
-    ``strip_stride`` (the tile's keys, padded the same way); a lane holds
-    ``micro`` = (rows, keys) of S (its keys ``tile_rows / micro[1]``
-    apart) and, in each of ``head_dim / 64`` groups of 64 d columns,
-    (rows, 4 columns) of o, a warp all of a tile's keys for its rows. The
-    grid is ``(grid.y of fa_batch_heads_grid, query blocks, grid.z)``: x,
+class _FwdBlocks:
+    """The fp32 forwards' shared launch: blocks of ``block_rows`` query
+    rows, ``warp_rows`` to a warp, over ``tile_rows``-key tiles whose keys
+    ``key_split`` warps of a row group share, each its own part. The grid
+    is ``(grid.y of fa_batch_heads_grid, query blocks, grid.z)``: x,
     dispatched first, runs over batch * heads, y over the query blocks in
     the order :meth:`order` (heaviest first)."""
-    block_rows: int = 64
-    tile_rows: int = 64
-    head_dim: int = 64
-    threads: int = 128
-    warp_rows: int = 16
-    blocks_per_sm: int = 2
-    stages: int = 2
-    row_stride: int = 68
-    strip_stride: int = 68
-    micro: tuple = (8, 4)
-
-    @property
-    def smem_bytes(self) -> int:
-        """Q (block rows), the p strip, K / V of each stage."""
-        return 4 * (self.row_stride * (self.block_rows
-                                       + 2 * self.stages * self.tile_rows)
-                    + self.strip_stride * self.block_rows)
-
-    @property
-    def col_groups(self) -> int:
-        """Groups of 64 d columns in a lane's o (4 columns in each)."""
-        return self.head_dim // 64
+    key_split = 1
 
     def blocks(self, sq: int) -> int:
         """Query blocks (grid.y) over ``sq`` rows."""
@@ -210,30 +180,179 @@ class FmaFwdGeometry:
         return range(n)
 
     def warp_busy(self, qb: int, warp: int, tile: int, sq: int,
-                  causal: bool) -> bool:
+                  causal: bool, sk=None) -> bool:
         """Whether ``warp`` of query block ``qb`` runs the products of key
         tile ``tile``: some of its rows lie below sq and (causal) see some
-        of the tile's keys."""
-        row0 = qb * self.block_rows + warp * self.warp_rows
-        return row0 < sq and not (
-            causal and tile * self.tile_rows > row0 + self.warp_rows - 1)
+        of its part of the tile's keys, and (given ``sk``) that part
+        starts below sk. Warp w takes row group w % (block_rows /
+        warp_rows) and key part w // that."""
+        groups = self.block_rows // self.warp_rows
+        row0 = qb * self.block_rows + warp % groups * self.warp_rows
+        key0 = (tile * self.tile_rows
+                + warp // groups * (self.tile_rows // self.key_split))
+        return row0 < sq and (sk is None or key0 < sk) and not (
+            causal and key0 > row0 + self.warp_rows - 1)
 
 
-# d = 128: 132-float rows take 186 KB a block, so one block an SM; d =
-# 256: two stages of 64-key tiles of 260-float rows alone would take 260
-# KB, so 32-key tiles (a lane's micro-tile 8 x 2), 204 KB a block
-_FMA_FWD = {64: FmaFwdGeometry(),
-            128: FmaFwdGeometry(head_dim=128, blocks_per_sm=1,
-                                row_stride=132),
-            256: FmaFwdGeometry(tile_rows=32, head_dim=256, blocks_per_sm=1,
-                                row_stride=260, strip_stride=36,
-                                micro=(8, 2))}
+@dataclasses.dataclass(frozen=True)
+class FmaFwdGeometry(_FwdBlocks):
+    """The fp32 flash forward's FMA-pipe kernel at head width 64, mirrored
+    by the ``constexpr`` values of ``FwdGeometry<64>`` in
+    ``csrc/flash_attention.cu``. A block of ``threads`` owns
+    ``block_rows`` query rows, ``warp_rows`` to a warp, ``blocks_per_sm``
+    blocks an SM, and streams ``tile_rows``-row K / V tiles through
+    ``stages`` shared-memory stages; every Q, K and V row is
+    ``row_stride`` floats (the head dim padded to spread a quarter-warp's
+    16-byte loads over distinct banks), every p strip row
+    ``strip_stride`` (the tile's keys, padded the same way); a lane holds
+    ``micro`` = (rows, keys) of S (its keys ``tile_rows / micro[1]``
+    apart) and, in each of ``head_dim / 64`` groups of 64 d columns,
+    (rows, 4 columns) of o, a warp all of a tile's keys for its rows."""
+    block_rows: int = 64
+    tile_rows: int = 64
+    head_dim: int = 64
+    threads: int = 128
+    warp_rows: int = 16
+    blocks_per_sm: int = 2
+    stages: int = 2
+    row_stride: int = 68
+    strip_stride: int = 68
+    micro: tuple = (8, 4)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Q (block rows), the p strip, K / V of each stage."""
+        return 4 * (self.row_stride * (self.block_rows
+                                       + 2 * self.stages * self.tile_rows)
+                    + self.strip_stride * self.block_rows)
+
+    @property
+    def col_groups(self) -> int:
+        """Groups of 64 d columns in a lane's o (4 columns in each)."""
+        return self.head_dim // 64
+
+
+_FMA_FWD = FmaFwdGeometry()
 
 
 def fa_fma_fwd_geometry(head_dim: int = 64) -> FmaFwdGeometry:
-    """The geometry of the fp32 flash forward's FMA kernel at a compiled
-    head width."""
-    return _FMA_FWD[_fa_check_width(head_dim)]
+    """The geometry of the fp32 flash forward's FMA kernel, which runs at
+    head width 64 only (fp32 at 128 and 256 runs the split-TF32 kernel:
+    :func:`fa_tf32_fwd_geometry`)."""
+    if head_dim != 64:
+        raise ValueError(f"the fp32 FMA forward is compiled for head dim "
+                         f"64, got {head_dim}")
+    return _FMA_FWD
+
+
+@dataclasses.dataclass(frozen=True)
+class Tf32FwdGeometry(_FwdBlocks):
+    """The fp32 flash forward's split-TF32 tensor-core kernel at head
+    width 128 or 256, mirrored by the ``constexpr`` values of
+    ``TfGeometry<head_dim>`` / ``Tf`` in ``csrc/flash_fwd_tf32.cu``. A
+    block of :attr:`threads` owns ``block_rows`` query rows, ``warp_rows``
+    (one m16n8k8 row fragment) to a warp, ``blocks_per_sm`` blocks an SM,
+    and streams ``tile_rows``-key K / V tiles through ``stages``
+    shared-memory stages; ``key_split`` warps share a row group, each
+    taking :attr:`warp_keys` of a tile's keys with its own online softmax,
+    and meet at the end through the stages (:attr:`part_bytes` a row
+    group); Q and K rows are :attr:`qk_stride` floats, V
+    rows :attr:`v_stride` (the head dim padded so that a quarter-warp's
+    float4 fragments fall in 32 distinct banks). Lane ``(g, t) = (lane //
+    4, lane % 4)``: S's accumulator holds rows g and g + 8 at keys 8j + 2t
+    and 8j + 2t + 1 (:meth:`score_entries`); p.V takes a key group's keys
+    in :attr:`key_order` as its k positions; Q and K take d columns in
+    :meth:`depth_columns` order; o's n-tile (c, e) holds d columns 32c +
+    4n + e (:meth:`out_entries`)."""
+    head_dim: int
+    blocks_per_sm: int
+    block_rows: int = 64
+    tile_rows: int = 32
+    key_split: int = 1
+    warp_rows: int = 16
+    stages: int = 2
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.block_rows // self.warp_rows * self.key_split
+
+    @property
+    def warp_keys(self) -> int:
+        """A warp's keys of a tile."""
+        return self.tile_rows // self.key_split
+
+    @property
+    def part_bytes(self) -> int:
+        """A key part's m, l and o of a row group's 32 lanes, handed to
+        the group's first part at the end (0 without a split)."""
+        return 0 if self.key_split == 1 else 4 * 32 * (self.head_dim // 2
+                                                        + 4)
+
+    @property
+    def qk_stride(self) -> int:
+        return self.head_dim + 16
+
+    @property
+    def v_stride(self) -> int:
+        return self.head_dim + 4
+
+    @property
+    def smem_bytes(self) -> int:
+        """Q (block rows), then K and V of each stage."""
+        return 4 * (self.block_rows * self.qk_stride + self.stages
+                    * self.tile_rows * (self.qk_stride + self.v_stride))
+
+    @property
+    def key_order(self) -> tuple:
+        """The key (0..7 of a group of 8) at each k position of p.V's
+        m16n8k8 step: key 2t at position t, 2t + 1 at t + 4, so that S's
+        accumulator is p.V's A fragment as it stands."""
+        return tuple(2 * kp if kp < 4 else 2 * (kp - 4) + 1
+                     for kp in range(8))
+
+    @staticmethod
+    def depth_columns(step: int) -> tuple:
+        """The d columns (0..15 of a group of 16) at each k position of
+        the score product's two 8-deep steps (``step`` 0 or 1): lane t's
+        float4 holds columns 4t .. 4t + 3, its first two at positions t and
+        t + 4 of step 0, its last two of step 1."""
+        return tuple(4 * (kp % 4) + 2 * step + kp // 4 for kp in range(8))
+
+    @staticmethod
+    def score_entries(lane: int, j: int):
+        """The (row of the warp, key of the tile) of accumulator registers
+        0..3 of S's n-tile ``j`` in ``lane``."""
+        g, t = lane // 4, lane % 4
+        return [(g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1))
+                for e in range(4)]
+
+    @staticmethod
+    def out_entries(lane: int, c: int, e: int):
+        """The (row of the warp, d column) of accumulator registers 0..3
+        of o's n-tile (c, e) in ``lane``."""
+        g, t = lane // 4, lane % 4
+        return [(g + 8 * (u >> 1), 32 * c + 4 * (2 * t + (u & 1)) + e)
+                for u in range(4)]
+
+
+# d = 128: Q (64 rows of 144 floats) and two stages of 32-key K (144) and V
+# (132) tiles take 105 KB, two blocks (8 warps) an SM; d = 256: a lane's o
+# is 128 fp32, so one block an SM, of 64 rows over 32-key tiles (Q 272-float
+# rows, K 272, V 260: 201 KB) whose keys two warps of each row group share
+# (8 warps: the causal grid's heaviest block holds half a 128-row block's
+# work)
+_TF32_FWD = {128: Tf32FwdGeometry(head_dim=128, blocks_per_sm=2),
+             256: Tf32FwdGeometry(head_dim=256, blocks_per_sm=1,
+                                  key_split=2)}
+
+
+def fa_tf32_fwd_geometry(head_dim: int) -> Tf32FwdGeometry:
+    """The geometry of the fp32 flash forward's split-TF32 kernel at a
+    compiled head width of 128 or 256."""
+    if _fa_check_width(head_dim) not in _TF32_FWD:
+        raise ValueError(f"the split-TF32 forward is compiled for head dims "
+                         f"{tuple(_TF32_FWD)}, got {head_dim}")
+    return _TF32_FWD[head_dim]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -554,15 +673,29 @@ def fa_tc_geometry(head_dim: int = 64) -> TcGeometry:
 
 
 def fa_route(dtype_name: str) -> str:
-    """Which kernels a CUDA flash call runs, by the dtype of q, k and v:
-    ``"wgmma"`` (the tensor-core forward, dq and dk / dv, bf16) or
-    ``"fma"`` (the FMA-pipe kernels, fp32: full fp32 products, which a
-    TF32 tensor-core product would not give)."""
+    """Which backward kernels a CUDA flash call runs, by the dtype of q, k
+    and v: ``"wgmma"`` (the tensor-core dq and dk / dv, bf16) or ``"fma"``
+    (the FMA-pipe pair, fp32: full fp32 products). The forward's route is
+    :func:`fa_fwd_route`."""
     routes = {"bfloat16": "wgmma", "float32": "fma"}
     if dtype_name not in routes:
         raise ValueError(f"flash attention takes float32 or bfloat16, got "
                          f"{dtype_name}")
     return routes[dtype_name]
+
+
+def fa_fwd_route(dtype_name: str, head_dim: int) -> str:
+    """Which forward kernel a CUDA flash call runs, by the dtype of q, k
+    and v and the compiled head width it runs at: ``"wgmma"`` (bf16, the
+    tensor-core kernel), ``"fma"`` (fp32 at d = 64, the FMA-pipe kernel,
+    full fp32 products) or ``"tf32"`` (fp32 at d = 128 and 256: every
+    d from 65 up, padded; split-TF32 tensor-core products, three TF32
+    products a pair of split operands, within the same fp32 tolerances, as
+    fp32 SDPA runs them)."""
+    route = fa_route(dtype_name)
+    if route == "fma" and _fa_check_width(head_dim) != 64:
+        return "tf32"
+    return route
 
 
 def fa_tc_misaligned(ptrs: dict) -> list:

@@ -11,14 +11,18 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    ``sm_90a`` from the checkout, with its seconds; ptxas's registers,
    spills and stack of the tensor-core flash kernels (every form at each
    compiled head width, 64, 128 and 256), of the fp32
-   route's FMA-pipe forward and backward pair, of every instantiation of
+   route's FMA-pipe forward (64) and backward pair, of its split-TF32
+   forward (128, 256), of every instantiation of
    the LayerNorm backward's register form, of the one-pass GroupNorm's
    cluster route and of the two-pass pair's vector route (``-Xptxas
-   -v``; the fp32 flash pair's unbiased forms, the bf16 forward and the
-   bf16 backward pair at head dim 128 in every form, every register-form
+   -v``; the fp32 flash pair's and forwards' unbiased forms, the bf16
+   forward and the bf16 backward pair at head dim 128 in every form,
+   every register-form
    LayerNorm backward, the bf16 vector-route stats kernel and every
    vector-route apply kernel must spill nothing, and no tensor-core
-   flash kernel may have its wgmma pipeline serialised).
+   flash kernel may have its wgmma pipeline serialised); the resident
+   blocks an SM of every form of the fp32 backward pair and of the
+   split-TF32 forward, as their geometries claim.
 2. ``kernel``: each CUDA kernel against its plain PyTorch version on the
    same card inputs, at the main path's shapes and a few ragged ones, in
    bf16 and fp32: max error and tolerance; kernel / plain / library times
@@ -27,7 +31,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    (``call_ms``: CUDA events around a loop, host dispatch included),
    with inputs rotated through more than the 50 MB L2; and the least
    time the card could take (bytes at 3.35 TB/s, operations at
-   989 TFLOP/s bf16 or 67 TFLOP/s fp32). Kernels: LayerNorm forward and
+   989 TFLOP/s bf16 or 67 TFLOP/s fp32, the split-TF32 forward's at 495 / 3
+   TFLOP/s with its FMA bound beside). Kernels: LayerNorm forward and
    backward (LayerNorm at GPT-2's shapes and BERT-large's 4096 x 1024
    bf16; RMSNorm with and without gamma
    and LayerNorm without gamma at BERT-large's 4096 x 1024; LayerNorm and
@@ -35,7 +40,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    flash-attention forward, its backward's dq and dk / dv kernels (one
    wrapper call launches both; each gets its own device time and bound,
    and the plain and library times are the whole backward's; bf16 runs
-   the tensor-core forward, dq and dk / dv kernels, fp32 the FMA-pipe ones,
+   the tensor-core forward, dq and dk / dv kernels, fp32 the FMA-pipe ones
+   but the forward at 128 and 256 the split-TF32 one,
    each read from the profiler's kernel names; achieved TFLOP/s and the
    share of the bound beside each) at GPT-2's shapes, at BERT-large's
    32 x 16 x 128 x 64, plain, with a (b, 1, 1, sk) key-padding mask and
@@ -284,7 +290,8 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    requests through ``Engine`` (4 slots), and the served prefill logits
    are held against the trained forward (FWD_BF16_REL_L2). (b) 2 layers
    at its widths in fp32, 1 x 256 tokens: loss and every gradient card vs
-   CPU (relative L2 1e-3; the FMA kernels at d = 128). (c) 2 layers at
+   CPU (relative L2 1e-3; the split-TF32 forward and the FMA backward
+   pair at d = 128). (c) 2 layers at
    Cerebras-GPT 2.7B's widths (2560, 32 heads of 80: the padded route) in
    bf16 (2.5e-2) and fp32 (1e-3) against the fp32 CPU. (d) the d = 128
    dropout and dlogits forms of all six kernels: ``SelfMultiheadAttn(2048,
@@ -305,8 +312,9 @@ file; it imports no JAX. Phases, each printing one JSON line (``phase``):
    and idle share; the trained weights serve 8 requests through
    ``Engine`` (4 slots) and the served prefill logits follow the trained
    forward. (b) 2 layers at its widths in fp32, 1 x 256 tokens, card vs
-   CPU (the FMA kernels at d = 256). (c) the public op at Nemotron-4
-   340B's head dim 192 (1 x 8 x 2048, causal; padded to 256), bf16 and
+   CPU (the split-TF32 forward and the FMA backward pair at d = 256).
+   (c) the public op at Nemotron-4 340B's head dim 192 (1 x 8 x 2048,
+   causal; padded to 256), bf16 and
    fp32, forward and backward against the plain versions, with the pad
    and slice ms beside the kernels'. (d) every d = 256 form through the
    modules and the public op, as cerebras (d).
@@ -330,7 +338,9 @@ BERT row beside), launched by the fp32 runs of those paths: the fp32 ring
 runs of phase 12 and phase 10's cross-attention; then the forms of
 ``FORM_KERNELS`` at GPT-2 XL's causal shape, launched by phase 10's
 (e)-(g), the six kernels' d = 128 forms at Cerebras-GPT 1.3B's
-attention, launched by phase 14, each base form with its padded d = 80
+attention (the fp32 forward's the split-TF32 kernel of
+``csrc/flash_fwd_tf32.cu``, with its FMA bound beside the split-TF32
+one), launched by phase 14, each base form with its padded d = 80
 call beside it, and their d = 256 forms at GPT-J 6B's attention,
 launched by phase 15, with the padded d = 192 call beside each base
 form),
@@ -357,7 +367,10 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {"bf16": 989e12,        # dense tensor-core bf16
-            "fp32": 67e12}         # fp32 outside the tensor cores
+            "fp32": 67e12,         # fp32 outside the tensor cores
+            # fp32 as split-TF32 products on the tensor cores: three TF32
+            # products (495 TFLOP/s dense) for each fp32 one
+            "tf32x3": 495e12 / 3}
 L2_BYTES = 50e6
 # tolerances of the kernel-vs-plain checks (see the kernel phase)
 LN_TOL = {"fp32": (1e-5, 1e-5), "bf16": (1e-5, 2 ** -7)}   # (atol, rtol)
@@ -510,10 +523,13 @@ KERNELS = {
 }
 TO_PORT: dict = {}
 # the fp32 route's flash kernels (FMA pipes) as the profiler names them:
-# the forward's template and the backward's `_fma` templates
+# the forward's template (d = 64) and the backward's `_fma` templates; the
+# fp32 forward at d = 128 and 256 is TF32_FWD_NAME's (split-TF32 products
+# on the tensor cores)
 FMA_FLASH_NAMES = {"fa_fwd_kernel": "fa_fwd_kernel<",
                    "fa_bwd_dq_kernel": "fa_bwd_dq_kernel_fma<",
                    "fa_bwd_dkv_kernel": "fa_bwd_dkv_kernel_fma<"}
+TF32_FWD_NAME = "fa_fwd_kernel_tf32<"
 # the fp32 route's flash kernels, reported beside KERNELS under their own
 # names: (source, the launch count's name, the KERNELS entry whose TPU
 # kernel they replace too)
@@ -551,21 +567,35 @@ FORM_KERNELS = {
 # launched by the cerebras and gptj phases: form "d128" is the kernel's
 # own, "d128:<form>" its dropout or dlogits form (keys of
 # ``_build.form_launches``), the same with d256
+# (the fp32 forward at these widths is the split-TF32 kernel of
+# flash_fwd_tf32.cu, route ``tf32``)
 for _width, _route, _tail in ((w, r, t) for w in (128, 256) for r, t in (
         ("wgmma", ""), ("fma", "_fp32"))):
-    _srcs = ({"fa_fwd": "flash_fwd_wgmma.cu", "fa_bwd_dq":
-              "flash_bwd_dq_wgmma.cu", "fa_bwd_dkv": "flash_bwd_dkv_wgmma.cu"}
+    _srcs = ({"fa_fwd": ("flash_fwd_wgmma.cu", "wgmma"), "fa_bwd_dq":
+              ("flash_bwd_dq_wgmma.cu", "wgmma"),
+              "fa_bwd_dkv": ("flash_bwd_dkv_wgmma.cu", "wgmma")}
              if _route == "wgmma" else
-             {"fa_fwd": "flash_attention.cu", "fa_bwd_dq":
-              "flash_attention_bwd.cu", "fa_bwd_dkv": "flash_attention_bwd.cu"})
-    for _twin, _src in _srcs.items():
+             {"fa_fwd": ("flash_fwd_tf32.cu", "tf32"),
+              "fa_bwd_dq": ("flash_attention_bwd.cu", "fma"),
+              "fa_bwd_dkv": ("flash_attention_bwd.cu", "fma")})
+    for _twin, (_src, _r) in _srcs.items():
         for _form in ("", "dropout") + (("dbias",) if _twin == "fa_bwd_dq"
                                          else ()):
             FORM_KERNELS[f"{_twin}{_tail}_d{_width}" + (
                 f"_{_form}" if _form else "")] = (
-                "apex_tpu_torch/csrc/" + _src, _twin, _route,
+                "apex_tpu_torch/csrc/" + _src, _twin, _r,
                 f"d{_width}" + (f":{_form}" if _form else ""))
-del _width, _route, _tail, _srcs, _twin, _src, _form
+del _width, _route, _tail, _srcs, _twin, _src, _r, _form
+
+
+def fa_route_of(kernel, dt, width):
+    """The launch-count route of flash wrapper ``kernel`` (``fa_fwd``,
+    ``fa_bwd_dq``, ``fa_bwd_dkv``) in dtype ``dt`` at kernel width
+    ``width``: bf16 ``wgmma``; fp32 ``fma``, but the forward at 128 and 256
+    ``tf32``."""
+    if dt == "bf16":
+        return "wgmma"
+    return "tf32" if kernel == "fa_fwd" and width != 64 else "fma"
 # the lines of the JAX package's flash kernels that each form replaces:
 # `_dropout_keep` and its uses; the dq kernel's dlogits output; the
 # BlockSpecs and scratch that carry the whole head dim d (d128, d256)
@@ -1537,6 +1567,22 @@ FLASH_BWD_FP32_WIDE = [(2, 16, 2048, 2048, True, 128, "plain"),
                        (2, 16, 2048, 2048, True, 256, "dlogits")]
 # SDPA's bf16 backends the ``flash-bwd`` mode times, each alone
 SDPA_BWD_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION")
+# the ``flash-fwd`` mode's fp32 cases at the wider heads (the split-TF32
+# forward), (b, h, sq, sk, causal, head dim, form): Cerebras-GPT 1.3B's
+# causal attention at 128 and GPT-J 6B's at 256, each with dropout too,
+# Cerebras-GPT 2.7B's head of 80 (padded to 128) and Nemotron-4's of 192
+# (padded to 256)
+FLASH_FWD_FP32_WIDE = [(2, 16, 2048, 2048, True, 128, "plain"),
+                       (2, 16, 2048, 2048, True, 128, "dropout"),
+                       (2, 32, 2048, 2048, True, 80, "plain"),
+                       (2, 16, 2048, 2048, True, 256, "plain"),
+                       (2, 16, 2048, 2048, True, 256, "dropout"),
+                       (1, NEMO_HEADS, 2048, 2048, True, NEMO_D, "plain")]
+# the ``flash-fwd`` mode's large-score cases: q and k drawn at twice unit
+# scale (a peaked softmax), (b, h, s, head dim, causal), the split-TF32
+# forward's and fp32 SDPA's o against the plain version
+FLASH_FWD_LARGE_SCORES = [(2, 8, 512, d, c) for d in (128, 256)
+                          for c in (True, False)]
 
 
 def sdpa_backend(kernel_names):
@@ -1680,11 +1726,21 @@ def _flash_fwd_solo(dev):
     (torch.profiler, inputs rotated beyond the L2), the least time the
     card could take (two products' operations at the dtype's peak), and
     SDPA's forward on the same inputs timed the same way (TF32 off), as
-    the kernel phase times it."""
+    the kernel phase times it. Then at FLASH_FWD_FP32_WIDE in fp32 (keys
+    ``_d<d>``, ``_dropout``): the split-TF32 kernel's device ms (and the
+    pad and slice copies' at a padded d), its bounds as split-TF32 products
+    (``bound_ms``, three TF32 products at 495 TFLOP/s) and on the FMA
+    pipes (``bound_fma_ms``), fp32 SDPA's forward with the same dropout
+    rate (its backend named) and, without dropout, max |o - plain| of the
+    kernel and of SDPA against the plain version on the same inputs. Then
+    at FLASH_FWD_LARGE_SCORES (``large_scores``): the kernel's o and lse
+    errors and SDPA's o error against the plain version beside FA_TOL."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from apex_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from apex_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+                                                    flash_attention_fwd_plain)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1706,6 +1762,70 @@ def _flash_fwd_solo(dev):
             bound_ms=ops / PEAK_OPS[dt] * 1e3,
             kernels=sorted(n.split("(")[0] for n in split))
         del sets
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    sdpa = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+            SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    for b, h, sq, sk, causal, d, form in FLASH_FWD_FP32_WIDE:
+        scale = d ** -0.5
+        drop = form == "dropout"
+        kw = dict(scale=scale, causal=causal)
+        if drop:
+            kw.update(dropout_p=FA_DROP_RATE, dropout_seed=seed)
+        sets = [tuple(torch.randn(b, h, n, d, device=dev, generator=gen)
+                      for n in (sq, sk, sk))
+                for _ in range(n_sets(2 * b * h * (sq + sk) * d * 4))]
+        split = device_kernels(lambda q, k, v: flash_attention_fwd(
+            q, k, v, **kw), sets, 20)
+        ms = sum(t for n, t in split.items() if "fa_fwd_kernel" in n)
+
+        def library(q, k, v):
+            with sdpa_kernel(sdpa):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, scale=scale,
+                    dropout_p=FA_DROP_RATE if drop else 0.0)
+
+        lib_kern = device_kernels(library, sets, 20)
+        q, k, v = sets[0]
+        o, _ = flash_attention_fwd(q, k, v, **kw)
+        op, _ = flash_attention_fwd_plain(q, k, v, **kw)
+        err = (o - op).abs().max().item()
+        lib_err = None if drop else (library(q, k, v) - op).abs().max() \
+            .item()
+        del o, op
+        ops = 4 * b * h * d * _causal_pairs(sq, sk, causal)
+        bound_ms = ops / PEAK_OPS["tf32x3"] * 1e3
+        bound_fma_ms = ops / PEAK_OPS["fp32"] * 1e3
+        out[_solo_key(b, h, sq, sk, causal, d, "fp32")
+            + ("_dropout" if drop else "")] = dict(
+            ms=ms, pad_ms=sum(split.values()) - ms,
+            library_ms=sum(lib_kern.values()),
+            library_backend=sdpa_backend(lib_kern),
+            bound_ms=bound_ms, bound_share=bound_ms / ms,
+            bound_fma_ms=bound_fma_ms, bound_fma_share=bound_fma_ms / ms,
+            max_abs_err=err, library_max_abs_err=lib_err,
+            tol=FA_TOL["fp32"][0],
+            kernels=sorted(n.split("(")[0] for n in split))
+        del sets
+    large = {}
+    for b, h, s, d, causal in FLASH_FWD_LARGE_SCORES:
+        q, k = (2.0 * torch.randn(b, h, s, d, device=dev, generator=gen)
+                for _ in range(2))
+        v = torch.randn(b, h, s, d, device=dev, generator=gen)
+        kw = dict(scale=d ** -0.5, causal=causal)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            osd = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                 scale=d ** -0.5)
+        rec = dict(o_err=(o - op).abs().max().item(),
+                   lse_err=(lse - lsep).abs().max().item(),
+                   sdpa_efficient_o_err=(osd - op).abs().max().item(),
+                   tol=FA_TOL["fp32"][0], lse_tol=LSE_TOL)
+        large[f"{b}x{h}x{s}_d{d}{'_causal' if causal else ''}"] = rec
+        require(rec["o_err"] <= FA_TOL["fp32"][0]
+                and rec["lse_err"] <= LSE_TOL,
+                f"fp32 flash forward on large scores, d = {d}: {rec}")
+    out["large_scores"] = large
     return out
 
 
@@ -1966,7 +2086,10 @@ def mode_main(mode, root) -> int:
     (the bf16 ring's step ms by layout and the halo's exchange ms on every
     rank), one ``ring_steps`` line. ``flash-fwd``: the flash forward and
     SDPA's forward at FLASH_FP32_SHAPES (fp32) and FLASH_BF16_SHAPES
-    (bf16), one ``flash_fwd_solo`` line. ``flash-bwd``: the flash
+    (bf16), the fp32 forward at FLASH_FWD_FP32_WIDE beside fp32 SDPA's
+    (the split-TF32 kernel: device ms, both bounds, errors against the
+    plain version) and its errors at FLASH_FWD_LARGE_SCORES, one
+    ``flash_fwd_solo`` line. ``flash-bwd``: the flash
     backward's dq and dk / dv kernels and SDPA's backward at the same
     shapes, one ``flash_bwd_solo`` line. ``softmax``: the megatron softmax
     kernels and ``torch.softmax`` at SOFTMAX_SOLO_CASES, one
@@ -2034,6 +2157,7 @@ def mode_main(mode, root) -> int:
 # backward's register form, the one-pass GroupNorm's cluster route and
 # the two-pass pair's vector route, every instantiation
 PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
+                 "flash_fwd_tf32.cu": ("fa_fwd_kernel_tf32",),
                  "flash_bwd_dq_wgmma.cu": ("fa_bwd_dq_kernel_wgmma",),
                  "flash_bwd_dkv_wgmma.cu": ("fa_bwd_dkv_kernel_wgmma",),
                  "flash_attention.cu": ("fa_fwd_kernel",),
@@ -2045,7 +2169,8 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
                                    "gn_apply_kernel_vec")}
 # the report's kernels that must keep every value in registers (no
 # spill), by the start of their key: the fp32 flash forward's and
-# backward's unbiased forms (the backward's at every width), the bf16
+# backward's unbiased forms (the backward's at every width, the forward's
+# on the FMA kernel at 64 and the split-TF32 one at 128 and 256), the bf16
 # tensor-core forward and backward
 # pair in every form at every width (their consumers' setmaxnreg
 # registers), every form of the LayerNorm backward's
@@ -2053,6 +2178,8 @@ PTXAS_SOURCES = {"flash_fwd_wgmma.cu": ("fa_fwd_kernel_wgmma",),
 # every form of its vector apply kernel (the fp32 stats kernel spills 8
 # bytes at 40 registers, which PERF.md reports)
 NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>", "fa_fwd_kernel_wgmma<",
+                    "fa_fwd_kernel_tf32<128,false,",
+                    "fa_fwd_kernel_tf32<256,false,",
                     "fa_bwd_dq_kernel_wgmma<",
                     "fa_bwd_dkv_kernel_wgmma<",
                     "fa_bwd_dq_kernel_fma<64,false,false,false>",
@@ -2063,8 +2190,9 @@ NO_SPILL_KERNELS = ("fa_fwd_kernel<64,false,false>", "fa_fwd_kernel_wgmma<",
                     "fa_bwd_dkv_kernel_fma<256,false,false>",
                     "ln_bwd_kernel_reg<",
                     "gn_stats_kernel_vec<bf16>", "gn_apply_kernel_vec<")
-# the flash kernels' forms, each reported at every compiled head width:
-# (width, bias, dropout), and the dq kernels' (width, bias, dropout,
+# the flash kernels' forms, each reported at every compiled head width
+# (the fp32 forward's FMA kernel at 64, its split-TF32 one at 128 and
+# 256): (width, bias, dropout), and the dq kernels' (width, bias, dropout,
 # dlogits), dlogits only with a bias
 _FORMS2 = tuple(f"{w},{b},{d}" for w in (64, 128, 256)
                 for b in ("false", "true") for d in ("false", "true"))
@@ -2073,7 +2201,11 @@ _FORMS_DQ = tuple(f"{w},{f}" for w in (64, 128, 256) for f in (
     "true,true,false", "true,false,true", "true,true,true"))
 _FLASH_FORMS = {"fa_fwd_kernel_wgmma": _FORMS2,
                 "fa_bwd_dq_kernel_wgmma": _FORMS_DQ,
-                "fa_bwd_dkv_kernel_wgmma": _FORMS2, "fa_fwd_kernel": _FORMS2,
+                "fa_bwd_dkv_kernel_wgmma": _FORMS2,
+                "fa_fwd_kernel": tuple(f for f in _FORMS2
+                                       if f.startswith("64,")),
+                "fa_fwd_kernel_tf32": tuple(f for f in _FORMS2
+                                            if not f.startswith("64,")),
                 "fa_bwd_dq_kernel_fma": _FORMS_DQ,
                 "fa_bwd_dkv_kernel_fma": _FORMS2}
 # a mangled template argument as the report names it
@@ -2224,6 +2356,29 @@ def fma_bwd_occupancy(build):
     return out
 
 
+def tf32_fwd_occupancy(build):
+    """``{fa_fwd_kernel_tf32<d,bias,dropout>: {"blocks": n, "want": m}}``:
+    the blocks of each form of the split-TF32 forward at d = 128 and 256
+    that an SM of this card holds at once, as the kernel is launched
+    (``apex_fa_fwd_tf32_occupancy``: the CUDA occupancy calculator),
+    beside the geometry's ``blocks_per_sm``."""
+    import ctypes
+
+    from apex_tpu_torch.ops.tiling import fa_tf32_fwd_geometry
+    lib, out = build.lib(), {}
+    for d in (128, 256):
+        for b in (0, 1):
+            for dr in (0, 1):
+                n = ctypes.c_int(0)
+                build.check(lib.apex_fa_fwd_tf32_occupancy(
+                    d, b, dr, ctypes.byref(n)), "apex_fa_fwd_tf32_occupancy")
+                args = ",".join("true" if x else "false" for x in (b, dr))
+                out[f"fa_fwd_kernel_tf32<{d},{args}>"] = {
+                    "blocks": n.value,
+                    "want": fa_tf32_fwd_geometry(d).blocks_per_sm}
+    return out
+
+
 def n_sets(bytes_per_set):
     """Input copies to cycle so each call finds its data out of L2."""
     return int(min(16, max(2, math.ceil(2 * L2_BYTES / bytes_per_set))))
@@ -2330,11 +2485,17 @@ def main() -> int:
     fma_blocks = fma_bwd_occupancy(_build)
     wrong = {k: r for k, r in fma_blocks.items() if r["blocks"] != r["want"]}
     require(not wrong, f"fp32 flash backward blocks an SM: {wrong}")
+    # and every form of the split-TF32 forward (two at d = 128)
+    tf32_blocks = tf32_fwd_occupancy(_build)
+    wrong = {k: r for k, r in tf32_blocks.items()
+             if r["blocks"] != r["want"]}
+    require(not wrong, f"fp32 split-TF32 forward blocks an SM: {wrong}")
     emit("env", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          sources=[p.relative_to(ROOT).as_posix() for p in _build.sources()],
          nvcc_flags=_build.NVCC_FLAGS, build_s=build_s, ptxas=ptxas,
-         fma_bwd_blocks_per_sm=fma_blocks)
+         fma_bwd_blocks_per_sm=fma_blocks,
+         tf32_fwd_blocks_per_sm=tf32_blocks)
 
     # ------------------------------------------------ 2. kernel vs plain
     def device_profile(fn, counts=None, passes=1):
@@ -2387,16 +2548,23 @@ def main() -> int:
 
     def require_flash_route(kern, dt, what,
                             kernels=("fa_fwd_kernel", "fa_bwd_dq_kernel",
-                                     "fa_bwd_dkv_kernel")):
+                                     "fa_bwd_dkv_kernel"), width=64):
         """From a profile's kernel names: bf16 flash ran the tensor-core
         kernels (``<kernel>_wgmma``), fp32 the FMA-pipe ones (the
-        templates named in FMA_FLASH_NAMES), and not the other."""
+        templates named in FMA_FLASH_NAMES), the fp32 forward at a kernel
+        ``width`` of 128 or 256 the split-TF32 one (TF32_FWD_NAME), and
+        not another."""
         for kern_name in kernels:
             tc = any(kern_name + "_wgmma" in n for n in kern)
             fma = any(FMA_FLASH_NAMES[kern_name] in n for n in kern)
-            require((tc, fma) == (dt == "bf16", dt != "bf16"),
+            tf32 = any(TF32_FWD_NAME in n for n in kern)
+            want_tf32 = (kern_name == "fa_fwd_kernel" and dt != "bf16"
+                         and width != 64)
+            require((tc, fma, tf32) == (dt == "bf16",
+                                        dt != "bf16" and not want_tf32,
+                                        want_tf32),
                     f"{what} ({dt}): {kern_name} tensor-core {tc}, FMA "
-                    f"{fma}")
+                    f"{fma}, split-TF32 {tf32}")
 
     def by_kind(kern):
         """Device ms of a profile, summed by kind of kernel."""
@@ -2583,9 +2751,11 @@ def main() -> int:
             return flash_attention_fwd(q, k, v, **kw)
 
         kern = device_kernels(fwd, sets, reps)
-        require_flash_route(kern, dt, what, ("fa_fwd_kernel",))
-        require_flash_form(kern, what, "fa_fwd_kernel" + (
-            "_wgmma" if dt == "bf16" else ""), fa_kernel_head_dim(d),
+        kd = fa_kernel_head_dim(d)
+        route = fa_route_of("fa_fwd", dt, kd)
+        require_flash_route(kern, dt, what, ("fa_fwd_kernel",), width=kd)
+        require_flash_form(kern, what, "fa_fwd_kernel" + {
+            "wgmma": "_wgmma", "tf32": "_tf32", "fma": ""}[route], kd,
             bias is not None, dropout)
         kernel_ms, pad_ms = split_pad(kern, ("fa_fwd_kernel",))
         kt = {"ms": sum(kern.values()), "call_ms": bench_ms(fwd, sets, reps)}
@@ -2598,9 +2768,16 @@ def main() -> int:
         lt = timed(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, attn_mask=keep, is_causal=causal, scale=scale,
             dropout_p=FA_DROP_RATE if dropout else 0.0), sets, reps)
-        bms, by = bound(nbytes, ops, dt)
+        # the split-TF32 kernel's bound: three TF32 products for each
+        # fp32 one on the tensor cores; the FMA pipes' beside it
+        bms, by = bound(nbytes, ops, "tf32x3" if route == "tf32" else dt)
+        fma_bound = {}
+        if route == "tf32":
+            fma_ms = bound(nbytes, ops, "fp32")[0]
+            fma_bound = {"bound_fma_ms": fma_ms,
+                         "bound_fma_share": fma_ms / kt["ms"]}
         rec = dict(kernel="fa_fwd", b=b, h=h, sq=sq, sk=sk, d=d,
-                   width=fa_kernel_head_dim(d), causal=causal,
+                   width=kd, route=route, **fma_bound, causal=causal,
                    mask=mask_kind, dtype=dt, form=form,
                    kernel_ms=kernel_ms, pad_ms=pad_ms,
                    max_abs_err=do.max().item(), lse_err=dl,
@@ -5440,11 +5617,11 @@ def main() -> int:
             loss, got = cg_grads(cx, params, dev, tokens)
             torch.cuda.synchronize()
             forms = dict(_build.form_launches)
-            route = "wgmma" if dt == "bf16" else "fma"
-            want = {f"{k}:{route}:d{kd}": cfgx.n_layer for k in flash3}
+            want = {f"{k}:{fa_route_of(k, dt, kd)}:d{kd}": cfgx.n_layer
+                    for k in flash3}
             if d != kd:
-                want.update({f"{k}:{route}:pad{d}": cfgx.n_layer
-                             for k in flash3})
+                want.update({f"{k}:{fa_route_of(k, dt, kd)}:pad{d}":
+                             cfgx.n_layer for k in flash3})
             require(forms == want, f"{what} {dt}: forms {forms}, expected "
                                    f"{want}")
             worst, wname = worst_rel(got, cpu_g)
@@ -5562,8 +5739,8 @@ def main() -> int:
         enc_out = rel(yg_card.cpu(), yg_cpu)
         enc_grad, enc_name = worst_rel(
             {n: g.cpu() for n, g in gg_card.items()}, gg_cpu)
-        require(gparts == {f"{k}:fma:{w}{f}": 1 for k in flash3
-                           for f in ("", ":dropout")}
+        require(gparts == {f"{k}:{fa_route_of(k, 'fp32', d)}:{w}{f}": 1
+                           for k in flash3 for f in ("", ":dropout")}
                 and enc_out <= MEGATRON_REL_L2
                 and enc_grad <= MEGATRON_REL_L2,
                 f"{what} (d3) forms {gparts}; EncdecMultiheadAttn with "
@@ -5598,7 +5775,8 @@ def main() -> int:
                  for a, b in zip(fa_in, ref_in)]
         berrs.append(close(fa_dbias, bias32.grad, *FA_BWD_TOL["fp32"]))
         require(ok_o and all(ok for ok, _ in berrs)
-                and bparts == {**{f"{k}:fma:{w}": 1 for k in flash3},
+                and bparts == {**{f"{k}:{fa_route_of(k, 'fp32', d)}:{w}": 1
+                                  for k in flash3},
                                f"fa_bwd_dq:fma:{w}:dbias": 1},
                 f"{what} (d4) learned bias (fp32) vs autograd: o err "
                 f"{err_o}, dq / dk / dv / dbias errs "
@@ -5677,9 +5855,8 @@ def main() -> int:
         o.backward(do)
         torch.cuda.synchronize()
         parts = dict(_build.form_launches)
-        route = "wgmma" if dt == "bf16" else "fma"
-        require(parts == {f"{n}:{route}:{f}": 1 for n in flash3
-                          for f in ("d256", f"pad{NEMO_D}")},
+        require(parts == {f"{n}:{fa_route_of(n, dt, 256)}:{f}": 1
+                          for n in flash3 for f in ("d256", f"pad{NEMO_D}")},
                 f"gptj (c) d = {NEMO_D} {dt}: forms {parts}")
         gj_form_parts.append(parts)
         kw = dict(scale=NEMO_D ** -0.5, causal=True)
@@ -5826,6 +6003,8 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "call_ms": rec["call_ms"], "tflops": rec["tflops"],
             "bound_share": rec["bound_share"],
+            **{k: rec[k] for k in ("bound_fma_ms", "bound_fma_share")
+               if k in rec},
             **({"library_fwd_bwd_ms": rec["library_fwd_bwd_ms"],
                 "fwd_bwd_ms": rec["fwd_bwd_ms"]}
                if "fwd_bwd_ms" in rec else {}),

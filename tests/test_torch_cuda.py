@@ -33,7 +33,13 @@ them (fp32) to the full-sequence flash at 1e-5 (o) and 1e-4 (gradients)
 relative L2. The flash tests also read from torch.profiler which kernels
 ran: bf16 the tensor-core forward, dq and dk / dv kernels
 (``fa_fwd_kernel_wgmma``, ``fa_bwd_dq_kernel_wgmma``,
-``fa_bwd_dkv_kernel_wgmma``), fp32 the FMA-pipe ones (the backward
+``fa_bwd_dkv_kernel_wgmma``), fp32 the FMA-pipe ones (the forward at d =
+64 ``fa_fwd_kernel``, at d = 128 and 256 the split-TF32 tensor-core
+forward ``fa_fwd_kernel_tf32``, held to the same fp32 tolerances at its
+block and tile heights and one below and above them, in every form, at
+d = 80, 96, 128, 192 and 256, over a batch * heads above 65535, on
+misaligned views, two runs identical, and on scores drawn at twice unit
+scale, beside fp32 SDPA's error on the same inputs; the backward
 pair ``fa_bwd_dq_kernel_fma`` / ``fa_bwd_dkv_kernel_fma``, also held at
 sq / sk one below, at and one above its 64- and 128-row tiles and over
 the 16 broadcast forms of the bias, two runs identical). The dropout and
@@ -79,7 +85,8 @@ from apex_tpu_torch.ops.group_norm_kernel import (
 from apex_tpu_torch.ops.layer_norm_kernel import (ln_bwd, ln_bwd_plain,
                                                   ln_fwd, ln_fwd_plain)
 from apex_tpu_torch.ops.remote_copy import STAGE_BYTES
-from apex_tpu_torch.ops.tiling import (fa_kernel_head_dim, gn_hw_block,
+from apex_tpu_torch.ops.tiling import (fa_fwd_route, fa_kernel_head_dim,
+                                      fa_tf32_fwd_geometry, gn_hw_block,
                                       gn_one_pass_ok)
 from apex_tpu_torch.utils.flatten import flat_spec, flatten
 
@@ -119,17 +126,21 @@ def _kernel_names(fn):
                          f"{PROFILE_TRIES} windows: {names}")
 
 
-# the FMA-pipe kernels' names as the profiler shows them: the fp32
-# forward's template and the fp32 backward's `_fma` templates
+# the fp32 kernels' names as the profiler shows them: the FMA-pipe
+# forward's template (d = 64), the split-TF32 forward's (d = 128, 256) and
+# the fp32 backward's `_fma` templates
 _FMA_NAMES = {"fa_fwd_kernel": "fa_fwd_kernel<",
               "fa_bwd_dq_kernel": "fa_bwd_dq_kernel_fma<",
               "fa_bwd_dkv_kernel": "fa_bwd_dkv_kernel_fma<"}
+_TF32_NAME = "fa_fwd_kernel_tf32<"
 
 
-def _assert_flash_route(names, dtype, fwd=False, bwd=False):
+def _assert_flash_route(names, dtype, fwd=False, bwd=False, width=64):
     """bf16 ran the tensor-core kernels, fp32 the FMA-pipe ones (the
     template names ``fa_fwd_kernel<``, ``fa_bwd_dq_kernel_fma<`` and
-    ``fa_bwd_dkv_kernel_fma<``); ``bwd``: both backward kernels."""
+    ``fa_bwd_dkv_kernel_fma<``), the fp32 forward at a kernel ``width`` of
+    128 or 256 the split-TF32 one (``fa_fwd_kernel_tf32<``) and no other
+    forward; ``bwd``: both backward kernels."""
     tc = dtype == torch.bfloat16
     for want, kernel in ((fwd, "fa_fwd_kernel"), (bwd, "fa_bwd_dq_kernel"),
                          (bwd, "fa_bwd_dkv_kernel")):
@@ -137,7 +148,10 @@ def _assert_flash_route(names, dtype, fwd=False, bwd=False):
             continue
         ran_tc = any(kernel + "_wgmma" in n for n in names)
         ran_fma = any(_FMA_NAMES[kernel] in n for n in names)
-        assert (ran_tc, ran_fma) == (tc, not tc), (kernel, dtype, names)
+        ran_tf32 = any(_TF32_NAME in n for n in names)
+        tf32 = kernel == "fa_fwd_kernel" and not tc and width != 64
+        assert (ran_tc, ran_fma, ran_tf32) == (tc, not tc and not tf32,
+                                               tf32), (kernel, dtype, names)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -424,12 +438,15 @@ def test_fp32_flash_fwd_at_tile_edges(dev, sq, sk, causal):
         q, k, v, scale=0.125, causal=causal)), torch.float32, fwd=True)
 
 
-@pytest.mark.parametrize("b,h,s", [(2, 4, 256), (4, 12, 1024)])
-def test_fp32_flash_fwd_is_deterministic(dev, b, h, s):
+@pytest.mark.parametrize("b,h,s,d", [(2, 4, 256, 64), (4, 12, 1024, 64),
+                                     (2, 4, 256, 128), (2, 4, 256, 256),
+                                     (2, 16, 1024, 128), (2, 8, 1024, 256)])
+def test_fp32_flash_fwd_is_deterministic(dev, b, h, s, d):
     """Two runs of the fp32 forward give the same bits (each block owns
-    its query rows, no atomics), causal and not."""
-    g = torch.Generator(device=dev).manual_seed(s)
-    q, k, v = (torch.randn(b, h, s, 64, device=dev, generator=g)
+    its query rows, no atomics), causal and not, on the FMA kernel (d =
+    64) and the split-TF32 one (d = 128, 256)."""
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g)
                for _ in range(3))
     for causal in (True, False):
         a = flash_attention_fwd(q, k, v, scale=0.125, causal=causal)
@@ -438,29 +455,31 @@ def test_fp32_flash_fwd_is_deterministic(dev, b, h, s):
         assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
 
 
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("form", range(16))
-def test_fp32_flash_fwd_bias_broadcast_forms(dev, form):
+def test_fp32_flash_fwd_bias_broadcast_forms(dev, form, d):
     """Every broadcast form of the fp32 score bias (each of b, h, sq, sk
     full or 1, bit 3 - i of ``form`` for dimension i) at ragged 129 x 65,
-    causal for the odd forms: o and lse within 2e-5 of the plain version;
+    causal for the odd forms, on the FMA forward (d = 64) and the
+    split-TF32 one (128, 256): o and lse within 2e-5 of the plain version;
     a row masked whole (where the bias has rows) gives o = 0 and lse =
     -1e30 exactly."""
     dims = (2, 3, 129, 65)
     shape = tuple(n if form >> (3 - i) & 1 else 1
                   for i, n in enumerate(dims))
     causal = bool(form & 1)
-    g = torch.Generator(device=dev).manual_seed(500 + form)
-    q, k, v = (torch.randn(2, 3, s, 64, device=dev, generator=g)
+    g = torch.Generator(device=dev).manual_seed(500 + form + d)
+    q, k, v = (torch.randn(2, 3, s, d, device=dev, generator=g)
                for s in (129, 65, 65))
     bias = torch.randn(shape, device=dev, generator=g)
     if shape[2] != 1:
         bias[..., 5, :] = -1e30
     elif shape[3] != 1:
         bias[..., 7] = -1e30
-    kw = dict(scale=0.125, causal=causal, bias=bias)
+    kw = dict(scale=d ** -0.5, causal=causal, bias=bias)
     o, lse = flash_attention_fwd(q, k, v, **kw)
     _assert_flash_route(_kernel_names(lambda: flash_attention_fwd(
-        q, k, v, **kw)), torch.float32, fwd=True)
+        q, k, v, **kw)), torch.float32, fwd=True, width=d)
     op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
@@ -471,16 +490,18 @@ def test_fp32_flash_fwd_bias_broadcast_forms(dev, form):
     assert bool((lse[dead] == -1e30).all())
 
 
-def test_fp32_flash_fwd_misaligned_view_gives_the_aligned_bits(dev):
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_fp32_flash_fwd_misaligned_view_gives_the_aligned_bits(dev, d):
     """An fp32 q, k, v and o 4 bytes off the 16-byte alignment take the
-    forward's 4-byte copies and stores: the bits of the same call on
-    aligned copies; the public op hands the kernel an aligned copy
+    forward's 4-byte copies and stores (the FMA kernel at d = 64, the
+    split-TF32 one at 128 and 256): the bits of the same call on aligned
+    copies; the public op hands the kernel an aligned copy
     (``_kernel_operand``) and gives the same bits again."""
     from apex_tpu_torch.ops.flash_attention import _kernel_operand
-    n = 2 * 3 * 200 * 64
-    g = torch.Generator(device=dev).manual_seed(41)
+    n = 2 * 3 * 200 * d
+    g = torch.Generator(device=dev).manual_seed(41 + d)
     store = torch.randn(3 * n + 8, device=dev, generator=g)
-    views = [store[1 + i * n:1 + (i + 1) * n].view(2, 3, 200, 64)
+    views = [store[1 + i * n:1 + (i + 1) * n].view(2, 3, 200, d)
              for i in range(3)]
     assert all(t.data_ptr() % 16 for t in views)
     copies = [t.clone() for t in views]
@@ -492,6 +513,124 @@ def test_fp32_flash_fwd_misaligned_view_gives_the_aligned_bits(dev):
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert torch.equal(public, want[0])
+
+
+# the split-TF32 forward's forms: (bias, dropout)
+_TF32_FORMS = {"plain": (False, False), "bias": (True, False),
+               "dropout": (False, True), "both": (True, True)}
+
+
+def _tf32_edges(d):
+    """The fp32 forward's block and tile heights at head dim d
+    (fa_tf32_fwd_geometry of its kernel width: 64-row blocks over 32-key
+    tiles at 128, 128 over 16 at 256), one below and one above each."""
+    g = fa_tf32_fwd_geometry(fa_kernel_head_dim(d))
+    return sorted({n + e for n in (g.block_rows, g.tile_rows)
+                   for e in (-1, 0, 1)})
+
+
+def _fp32_fwd_check(dev, q, k, v, causal, form, seed, route=True):
+    """The fp32 forward of (q, k, v) in ``form`` (a (1, h, sq, sk) bias
+    with a row and a key masked whole, dropout at 0.1 from a device seed)
+    against the plain version: o and lse within 2e-5, two runs the same
+    bits, fully masked rows o = 0 and lse = -1e30, one launch counted at
+    the kernel's width (and pad key) in its form; with ``route``, the
+    profiler's names show the split-TF32 kernel ran."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    with_bias, dropout = _TF32_FORMS[form]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(scale=d ** -0.5, causal=causal)
+    if with_bias:
+        bias = torch.randn(1, h, sq, sk, device=dev, generator=g)
+        bias[..., sq // 2, :] = -1e30
+        bias[..., sk - 1] = -1e30
+        kw["bias"] = bias
+    if dropout:
+        kw.update(dropout_p=0.1, dropout_seed=torch.tensor(
+            [seed], dtype=torch.int32, device=dev))
+    _build.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    o2, lse2 = flash_attention_fwd(q, k, v, **kw)
+    op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    kd = fa_kernel_head_dim(d)
+    expect = {f"fa_fwd:tf32:d{kd}": 2}
+    if d != kd:
+        expect[f"fa_fwd:tf32:pad{d}"] = 2
+    if dropout:
+        expect[f"fa_fwd:tf32:d{kd}:dropout"] = 2
+    assert dict(_build.form_launches) == expect
+    torch.testing.assert_close(o, op, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, lsep, atol=2e-5, rtol=0)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    if with_bias:
+        dead = (kw["bias"] <= -0.5e30).expand(b, h, sq, sk).all(dim=-1)
+        assert torch.equal(o[dead], torch.zeros_like(o[dead]))
+        assert bool((lse[dead] == -1e30).all())
+    if route:
+        _assert_flash_route(_kernel_names(lambda: flash_attention_fwd(
+            q, k, v, **kw)), torch.float32, fwd=True, width=kd)
+
+
+@pytest.mark.parametrize("form", sorted(_TF32_FORMS))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [128, 96, 80, 256, 192])
+def test_fp32_flash_fwd_at_wide_tile_edges(dev, d, causal, form):
+    """The fp32 forward's twin of ``test_fp32_flash_fwd_at_tile_edges`` on
+    the split-TF32 kernel at head width 128 (d = 96 and 80 padded) and 256
+    (d = 192 padded): sq and sk each at every one of its block and tile
+    heights and one below and above (``_tf32_edges``), causal and full, in
+    each form (``_fp32_fwd_check``; the kernel's name read once)."""
+    edges = _tf32_edges(d)
+    for sq in edges:
+        for sk in edges:
+            g = torch.Generator(device=dev).manual_seed(
+                d + 1000 * sq + sk + causal)
+            q, k, v = (torch.randn(1, 2, s, d, device=dev, generator=g)
+                       for s in (sq, sk, sk))
+            _fp32_fwd_check(dev, q, k, v, causal, form, d + sq + len(form),
+                            route=sq == sk == edges[-1])
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_fp32_flash_fwd_over_65535_batch_heads(dev, d):
+    """batch * heads = 65,600 (1025 x 64) through grid.x x grid.z on the
+    split-TF32 forward, 48 rows, causal, with dropout and without: o and
+    lse against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(53 + d)
+    q, k, v = (torch.randn(1025, 64, 48, d, device=dev, generator=g)
+               for _ in range(3))
+    for form in ("plain", "dropout"):
+        _fp32_fwd_check(dev, q, k, v, True, form, 59 + d)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [128, 256])
+def test_fp32_flash_fwd_holds_the_tolerance_on_large_scores(dev, d,
+                                                            causal):
+    """q and k drawn at twice unit scale (a peaked softmax: the split's
+    error grows with |q| |k|): the split-TF32 forward's o and lse within
+    2e-5 of the plain version, as fp32 SDPA's o is; the message gives the
+    largest errors beside the tolerance and SDPA's on the same inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = torch.Generator(device=dev).manual_seed(61 + d + causal)
+    q, k = (2.0 * torch.randn(2, 8, 512, d, device=dev, generator=g)
+            for _ in range(2))
+    v = torch.randn(2, 8, 512, d, device=dev, generator=g)
+    kw = dict(scale=d ** -0.5, causal=causal)
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        osd = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    err, lerr = ((o - op).abs().max().item(),
+                 (lse - lsep).abs().max().item())
+    serr = (osd - op).abs().max().item()
+    assert err <= 2e-5 and lerr <= 2e-5, (
+        f"d = {d} causal = {causal}: o error {err}, lse error {lerr} "
+        f"(tolerance 2e-5); fp32 SDPA's o error {serr}")
 
 
 # the dropout and dlogits forms: the fp32 tile edges and the tensor-core
@@ -865,11 +1004,13 @@ def test_flash_head_dims_match_plain(dev, d, case, dtype):
     op, lsep = flash_attention_fwd_plain(q, k, v, **kw)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, **bkw)
     torch.cuda.synchronize()
-    route = "wgmma" if dtype == torch.bfloat16 else "fma"
     kd = fa_kernel_head_dim(d)
     width = "" if kd == 64 else f":d{kd}"
     expect = {}
     for name, n in (("fa_fwd", 1), ("fa_bwd_dq", 2), ("fa_bwd_dkv", 2)):
+        # the fp32 forward at 128 and 256 runs the split-TF32 kernel
+        route = (fa_fwd_route(str(dtype)[6:], kd) if name == "fa_fwd"
+                 else "wgmma" if dtype == torch.bfloat16 else "fma")
         if kd != 64:
             expect[f"{name}:{route}:d{kd}"] = n
         if d != kd:
@@ -879,6 +1020,8 @@ def test_flash_head_dims_match_plain(dev, d, case, dtype):
     if form == "dbias":
         expect[f"fa_bwd_dq:{route}{width}:dbias"] = 2
     assert dict(_build.form_launches) == expect
+    _assert_flash_route(_kernel_names(lambda: flash_attention_fwd(
+        q, k, v, **kw)), dtype, fwd=True, width=kd)
     assert o.shape == q.shape and all(
         t.shape == w.shape for t, w in zip(got[:3], (q, k, v)))
     torch.testing.assert_close(o.float(), op.float(), atol=fa, rtol=fr)

@@ -247,14 +247,15 @@ def test_build_sources_and_digest():
     names = [p.name for p in _build.sources()]
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
                      "flash_bwd_dkv_wgmma.cu", "flash_bwd_dq_wgmma.cu",
-                     "flash_fwd_wgmma.cu",
+                     "flash_fwd_tf32.cu", "flash_fwd_wgmma.cu",
                      "fused_adagrad.cu", "fused_adam.cu", "fused_lamb.cu",
                      "fused_novograd.cu", "fused_sgd.cu", "group_norm.cu",
                      "layer_norm.cu", "remote_copy.cu", "softmax.cu"]
     assert set(_build.SIGNATURES) == {
         "apex_ln_fwd", "apex_ln_bwd", "apex_fa_fwd", "apex_fa_bwd_dq",
         "apex_fa_bwd_dkv", "apex_fa_bwd_fma_occupancy",
-        "apex_fa_fwd_wgmma", "apex_fa_bwd_dq_wgmma",
+        "apex_fa_fwd_wgmma", "apex_fa_fwd_tf32",
+        "apex_fa_fwd_tf32_occupancy", "apex_fa_bwd_dq_wgmma",
         "apex_fa_bwd_dkv_wgmma",
         "apex_fused_adam", "apex_fused_adam_master",
         "apex_lamb_stage1", "apex_lamb_stage2", "apex_fused_sgd",
